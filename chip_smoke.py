@@ -8,7 +8,7 @@ Phases, each on its own printed lines:
 1. env: the card (``nvidia-smi``), torch / CUDA / nvcc versions, and the
    kernels' build from ``p2pfl_tpu_torch/csrc`` (time and ptxas report).
 2. kernels: each Hopper kernel against its plain PyTorch version on the
-   card at the main path's shapes (bf16 [8, 1024, 8, 64] causal; the eval
+   card at the main paths' shapes (bf16 [8, 1024, 8, 64] causal; the eval
    forward at [16, 1024, 8, 64]) plus a ragged S=1000, a non-causal and an
    f32 case; bf16 outputs must lie within one bf16 ulp of the plain
    version's, f32 ones within the JAX package's f32 tolerances. Then each
@@ -18,15 +18,31 @@ Phases, each on its own printed lines:
    flash-attention backward for the dq and dk/dv pair) and its bound: the
    larger of FLOPs / 989 TFLOP/s and bytes / 3.35 TB/s (H100 SXM bf16 dense
    and HBM peaks), FLOPs counted over the causal lower triangle.
+   The ring's carry kernel at its chunk shape [2, 1024, 8, 64]: the
+   diagonal fold into a fresh carry (shard 7 of 8), a past fold into that
+   carry, a wholly future fold (the carry must come back bit-identical), a
+   ragged non-causal 1000 x 1000 fold and f32; m to 1e-6, l to
+   1e-5 + 1e-5 |ref|, acc to that plus 1e-6 l (its rounding scales with the
+   row's weight mass), the finalized bf16 output within one bf16 ulp. No
+   PyTorch call folds a chunk into an unnormalized carry, so its row has no
+   library time; SDPA on the same chunk is printed for information.
 3. slice: ``MeshSimulation(task="lm")`` at the full-width LM configuration
    (8 nodes, committee 4, 64 sequences of 1024 tokens per node, vocab 8192,
    4 layers, 8 heads, width 512, batch 8, Adam lr 3e-4) for 3 rounds after a
    warm-up round on copied state; s/round, test loss (finite and falling),
    peak device memory, and each kernel's launches in that run, which must
    equal the per-round counts times the 4 rounds driven.
+4. ring: the same LM with ``attention_kind="ring_flash"`` over a sequence of
+   8192 tokens sharded on a virtual ``"seq"`` axis of 8. Its logits on a
+   [2, 2048] input against the flash model's (6e-2); then
+   ``make_sequence_parallel_train_step`` (batch 2, Adam lr 3e-4), one
+   warm-up step and 4 timed steps: s/step, the loss of every step (finite
+   and falling), peak device memory, and exactly 144 carry launches per
+   step (4 layers x 36 folds).
 
-``--profile`` adds a fourth phase: one more round under ``torch.profiler``,
-printing device time by kernel class and the device's busy share.
+``--profile`` adds one more slice round and one more ring train step, each
+under ``torch.profiler``, printing device time by kernel class and the
+device's busy share.
 
 Any failed check exits 1 without the result lines. On success the last
 three lines are the card's name and power limit, one JSON object with a row
@@ -36,6 +52,7 @@ or without the package beside it, the script exits 1 and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import re
 import subprocess
@@ -58,6 +75,15 @@ KERNEL_ROWS = {  # name -> (replaced TPU kernel body, launches per round on the 
     "flash_bwd_dkv": ("p2pfl_tpu/ops/attention.py:370", LAYERS * (SEQS // BATCH) * COMMITTEE),
 }
 SOURCE = "p2pfl_tpu_torch/csrc/flash_attn.cu"
+
+# Sequence-parallel (ring) configuration: the same model over 8192 tokens
+# in 8 shards of 1024 (the tutorial's length, the JAX tests' largest ring).
+RING_SHARDS, RING_SEQ, RING_BATCH, RING_STEPS = 8, 8192, 2, 4
+RING_SHARD = RING_SEQ // RING_SHARDS
+RING_FOLDS = LAYERS * RING_SHARDS * (RING_SHARDS + 1) // 2  # carry launches per forward
+RING_KERNEL_ROWS = {  # name -> (replaced TPU kernel body, launches per train step on the ring)
+    "flash_carry": ("p2pfl_tpu/ops/attention.py:485", RING_FOLDS),
+}
 
 
 class CheckFailed(RuntimeError):
@@ -147,7 +173,8 @@ def phase_env() -> str:
     # One line per compiled kernel from the -Xptxas -v report.
     entry = None
     for line in log.splitlines():
-        m = re.search(r"(flash_fwd_kernel|flash_bwd_dq_kernel|flash_bwd_dkv_kernel)I(13__nv_bfloat16|f)Li(\d+)E(?:Lb(\d)E)?", line)
+        m = re.search(r"(flash_fwd_kernel|flash_bwd_dq_kernel|flash_bwd_dkv_kernel|flash_carry_kernel)"
+                      r"I(13__nv_bfloat16|f)Li(\d+)E(?:Lb(\d)E)?", line)
         if m:
             entry = f"{m[1]}<{'bf16' if m[2] != 'f' else 'f32'}, D={m[3]}{', lse=' + m[4] if m[4] else ''}>"
         elif entry and "spill stores" in line:
@@ -259,6 +286,109 @@ def phase_kernels() -> dict:
     return rows
 
 
+def carry_bound(b: int, sq: int, sk: int, h: int, d: int, esize: int, diagonal: bool) -> tuple:
+    """(bound_ms, bound_by) of one carry fold: FLOPs 4 B H Sq Sk D (halved on
+    the diagonal chunk) over the bf16 peak vs bytes (q, k, v in their type;
+    m, l, acc read and written in f32) over the HBM rate."""
+    flops = 4 * b * h * sq * sk * d * (0.5 if diagonal else 1.0)
+    nbytes = (b * sq + 2 * b * sk) * h * d * esize + 2 * (2 * b * h * sq + b * sq * h * d) * 4
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def carry_err(got, ref, what: str) -> float:
+    """Max |got - ref| over a carry; fails unless m is within 1e-6, l within
+    1e-5 + 1e-5 |ref| and acc within 1e-5 + 1e-5 |ref| + 1e-6 l. Both sides
+    are f32 sums of ~1000 weighted terms, folded 64 keys at a time by the
+    kernel and in one step by the plain version; an acc element near 0 sums
+    terms of size up to ~l, so its rounding scales with l (1e-6 l is 1e-6
+    in the normalized output)."""
+    import torch
+
+    worst = 0.0
+    l_ref = ref[1].transpose(1, 2)[..., None]
+    tols = {"m": ("1e-6", lambda r: torch.full_like(r, 1e-6)),
+            "l": ("1e-5 + 1e-5|ref|", lambda r: 1e-5 + 1e-5 * r.abs()),
+            "acc": ("1e-5 + 1e-5|ref| + 1e-6 l", lambda r: 1e-5 + 1e-5 * r.abs() + 1e-6 * l_ref)}
+    for name, a, r in zip(("m", "l", "acc"), got, ref):
+        check(bool(torch.isfinite(a).all()), f"{what} {name}: non-finite values")
+        diff = (a - r).abs()
+        label, tol = tols[name]
+        bare = 1e-6 if name == "m" else 1e-5 + 1e-5 * r.abs()
+        ok = bool((diff <= tol(r)).all())
+        err = float(diff.max())
+        print(f"  {what} {name}: max_abs_err={err:.3e} tol={label} {'ok' if ok else 'FAIL'} "
+              f"({int((diff > bare).sum())} of {diff.numel()} elements past 1e-5 + 1e-5|ref| alone)")
+        check(ok, f"{what} {name} disagrees with the plain version (max_abs_err {err:.3e})")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_carry() -> dict:
+    """The ring's carry kernel against its plain version, then its times."""
+    import torch
+    import torch.nn.functional as F
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.ops import attention as att
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(3)
+    hd = EMBED // HEADS
+
+    def inputs(s, dtype):
+        return [torch.randn((RING_BATCH, s, HEADS, hd), generator=gen).to(dev, dtype) for _ in range(5)]
+
+    off = (RING_SHARDS - 1) * RING_SHARD  # shard 7: its diagonal chunk, then a past one
+    rows, errs = {}, []
+    for dtype in (torch.bfloat16, torch.float32):
+        main = dtype == torch.bfloat16
+        print(f"[carry] B={RING_BATCH} Sq=Sk={RING_SHARD} H={HEADS} D={hd} {str(dtype)[6:]} causal=True "
+              f"q_offset={off}")
+        q, k, v, kp, vp = inputs(RING_SHARD, dtype)
+        fresh = att.init_carry(q.shape, dev)
+        diag = _kernels.flash_carry(fresh, q, k, v, off, off, True)
+        e_diag = carry_err(diag, att.plain_flash_chunk_update(fresh, q, k, v, off, off, True),
+                           "diagonal fold (kv_offset = q_offset)")
+        past = _kernels.flash_carry(diag, q, kp, vp, off, 0, True)
+        past_p = att.plain_flash_chunk_update(diag, q, kp, vp, off, 0, True)
+        e_past = carry_err(past, past_p, "past fold (kv_offset 0)")
+        future = _kernels.flash_carry(past, q, kp, vp, off, off + RING_SHARD, True)
+        same = all(torch.equal(a, b) for a, b in zip(future, past))
+        print(f"  future fold (kv_offset {off + RING_SHARD}): carry bit-identical {'ok' if same else 'FAIL'}")
+        check(same, "a fold wholly in the future changed the carry")
+        e_out = max_err(att.finalize_carry(past, torch.bfloat16), att.finalize_carry(past_p, torch.bfloat16),
+                        "finalized bf16 output", atol=1e-6, bf16_ulps=1)
+        if not main:
+            continue
+        errs += [e_diag, e_past, e_out]
+        print(f"[carry] B={RING_BATCH} Sq=Sk=1000 H={HEADS} D={hd} bfloat16 causal=False (ragged)")
+        qr, kr, vr, _, _ = inputs(1000, torch.bfloat16)
+        fresh_r = att.init_carry(qr.shape, dev)
+        errs.append(carry_err(_kernels.flash_carry(fresh_r, qr, kr, vr, 0, 0, False),
+                              att.plain_flash_chunk_update(fresh_r, qr, kr, vr, 0, 0, False),
+                              "ragged non-causal fold"))
+        ms_past = time_ms(lambda: _kernels.flash_carry(diag, q, kp, vp, off, 0, True), 20)
+        ms_diag = time_ms(lambda: _kernels.flash_carry(fresh, q, k, v, off, off, True), 20)
+        plain_past = time_ms(lambda: att.plain_flash_chunk_update(diag, q, kp, vp, off, 0, True), 5)
+        plain_diag = time_ms(lambda: att.plain_flash_chunk_update(fresh, q, k, v, off, off, True), 5)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, kp, vp))
+        with torch.no_grad():
+            sdpa = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), 20)
+        b_past, by_past = carry_bound(RING_BATCH, RING_SHARD, RING_SHARD, HEADS, hd, 2, False)
+        b_diag, by_diag = carry_bound(RING_BATCH, RING_SHARD, RING_SHARD, HEADS, hd, 2, True)
+        rows["flash_carry"] = {"max_abs_err": max(errs), "ms": ms_past, "plain_ms": plain_past,
+                               "bound_ms": b_past, "bound_by": by_past, "library_ms": None,
+                               "ms_diagonal": ms_diag, "plain_ms_diagonal": plain_diag,
+                               "bound_ms_diagonal": b_diag}
+        print(f"[carry] past fold {ms_past:.4f} ms (bound {b_past:.4f} ms by {by_past}, {b_past / ms_past:.1%} "
+              f"of it), plain {plain_past:.4f} ms; diagonal fold {ms_diag:.4f} ms (bound {b_diag:.4f} ms by "
+              f"{by_diag}, {b_diag / ms_diag:.1%}), plain {plain_diag:.4f} ms")
+        print(f"[carry] library: none (no PyTorch call folds a chunk into an unnormalized carry); for "
+              f"information only, SDPA on the same past chunk (a different function: normalized, no "
+              f"carry) {sdpa:.4f} ms")
+    return rows
+
+
 def phase_slice() -> dict:
     import numpy as np
     import torch
@@ -321,10 +451,94 @@ def phase_slice() -> dict:
     return launches, sim
 
 
-def phase_profile(sim) -> None:
-    """One more round under torch.profiler: device time by kernel class, the
-    round's wall time under the profiler, and the device's busy share of it
-    (an upper bound on idle, since tracing slows the host)."""
+def phase_ring() -> tuple:
+    """The sequence-parallel trainer at the ring configuration; returns the
+    launches of the ring's kernels in its run (warm-up step + timed steps)
+    and a function that runs one more step."""
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.models.model_handle import ModelHandle
+    from p2pfl_tpu_torch.models.transformer import TransformerLM, transformer_lm_model
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.optim import adam
+    from p2pfl_tpu_torch.parallel.mesh import Mesh
+    from p2pfl_tpu_torch.parallel.sequence import (
+        make_sequence_parallel_train_step,
+        sequence_parallel_apply,
+        shard_tokens,
+    )
+
+    mesh = Mesh({"seq": RING_SHARDS}, device="cuda")
+    model = transformer_lm_model(0, RING_SEQ, VOCAB, LAYERS, HEADS, EMBED, "ring_flash", "seq", device="cuda")
+    n_params = sum(p.numel() for p in model.params.values())
+    print(f"[ring] TransformerLM ring_flash {LAYERS}L/{EMBED}d/{HEADS}h vocab {VOCAB}: {n_params} params; "
+          f"sequence {RING_SEQ} over {mesh}")
+    check(n_params == N_PARAMS, f"expected {N_PARAMS} params, got {n_params}")
+
+    # Reference on a small input: the ring against flash attention (both exact).
+    with torch.device("meta"):
+        flash = TransformerLM(vocab_size=VOCAB, num_layers=LAYERS, num_heads=HEADS,
+                              embed_dim=EMBED, attention_kind="flash")
+    toks = torch.randint(0, VOCAB, (2, 2048), generator=torch.Generator().manual_seed(2)).cuda()
+    with torch.no_grad():
+        got = sequence_parallel_apply(model.apply, mesh)(model.params, toks)
+        ref = ModelHandle(model.params, flash).apply(model.params, toks)
+    check(got.shape == (2, 2048, VOCAB), f"logits shape {tuple(got.shape)}")
+    err = float((got - ref).abs().max())
+    print(f"[ring] ring_flash vs flash logits on [2, 2048]: max_abs_err={err:.3e} tol 6e-2")
+    check(bool(torch.isfinite(got).all()) and err <= 6e-2, "ring_flash logits disagree with flash attention")
+    del got, ref
+
+    # Synthetic tokens as bench.py's --lm-mfu arm makes them.
+    rng = np.random.default_rng(7)
+    x = (rng.integers(0, VOCAB, size=(RING_BATCH, 1)) + np.arange(RING_SEQ)) % VOCAB
+    tokens = shard_tokens(x.astype(np.int32), mesh)
+    opt = adam(LR)
+    params, state = model.params, opt.init(model.params)
+    step = make_sequence_parallel_train_step(model.apply, opt, mesh, "seq")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _kernels.reset_launches()
+    params, state, loss = step(params, state, tokens)  # warm-up
+    losses = [loss]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(RING_STEPS):
+        params, state, loss = step(params, state, tokens)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    launches = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    losses = [float(l) for l in losses]
+    print(f"[ring] {RING_STEPS} steps after a warm-up: {seconds / RING_STEPS:.4f} s/step ({seconds:.3f} s, "
+          f"host clock ending in torch.cuda.synchronize()); {RING_BATCH * RING_SEQ} tokens per step")
+    print(f"[ring] loss per step (warm-up first): {losses}")
+    print(f"[ring] max_memory_allocated: {peak} bytes ({peak / 2**30:.2f} GiB; {held} bytes held before "
+          f"the first step: weights, tokens)")
+    print(f"[ring] kernels: {json.dumps(launches)}")
+    check(all(np.isfinite(losses)), "non-finite training loss")
+    check(losses[-1] < losses[0], "training loss did not fall over the steps")
+    for name, (_, per_step) in RING_KERNEL_ROWS.items():
+        check(launches[name] > 0, f"{name} was never launched on the ring path")
+        check(launches[name] == per_step * (RING_STEPS + 1),
+              f"{name}: {launches[name]} launches, expected {per_step} per step x {RING_STEPS + 1} "
+              f"(warm-up + {RING_STEPS})")
+
+    def one_more_step() -> None:
+        step(params, state, tokens)
+        torch.cuda.synchronize()
+
+    return {name: launches[name] for name in RING_KERNEL_ROWS}, one_more_step
+
+
+def phase_profile(label: str, run) -> None:
+    """``run()`` (one more round or step) under torch.profiler: device time by
+    kernel class, the wall time under the profiler, and the device's busy
+    share of it (an upper bound on idle, since tracing slows the host)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -332,7 +546,8 @@ def phase_profile(sim) -> None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        sim.run(rounds=1, warmup=False)
+        run()
+        torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
     kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:  # older layouts attach kernels to the CPU op that launched them
@@ -349,7 +564,7 @@ def phase_profile(sim) -> None:
         classes[cls] = classes.get(cls, 0.0) + us
         by_name[name] = by_name.get(name, 0.0) + us
     busy = sum(classes.values())
-    print(f"[profile] one round under torch.profiler: wall {wall_us / 1e3:.1f} ms, device busy "
+    print(f"[profile] {label} under torch.profiler: wall {wall_us / 1e3:.1f} ms, device busy "
           f"{busy / 1e3:.1f} ms ({busy / wall_us:.1%}), {len(kernels)} kernel launches")
     for cls, us in sorted(classes.items(), key=lambda kv: -kv[1]):
         print(f"[profile]   {cls}: {us / 1e3:.1f} ms ({us / busy:.1%} of device time)")
@@ -376,9 +591,17 @@ def main() -> int:
     try:
         card = phase_env()
         rows = phase_kernels()
+        rows.update(phase_carry())
+        profiling = "--profile" in sys.argv[1:]
         launches, sim = phase_slice()
-        if "--profile" in sys.argv[1:]:
-            phase_profile(sim)
+        if profiling:
+            phase_profile("slice: one round", lambda: sim.run(rounds=1, warmup=False))
+        del sim
+        gc.collect()  # the population's state must not count in the ring's peak memory
+        ring_launches, ring_step = phase_ring()
+        launches.update(ring_launches)
+        if profiling:
+            phase_profile("ring: one train step", ring_step)
     except Exception as e:  # noqa: BLE001 - any failed phase fails the run
         import traceback
 
@@ -388,7 +611,7 @@ def main() -> int:
     table = [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
          "launches": launches[name], **rows[name]}
-        for name, (replaces, _) in KERNEL_ROWS.items()
+        for name, (replaces, _) in {**KERNEL_ROWS, **RING_KERNEL_ROWS}.items()
     ]
     print(card)
     print(json.dumps({"kernels": table}))

@@ -1,11 +1,13 @@
-// Flash attention for Hopper (sm_90a): forward (with and without logsumexp)
-// and the FlashAttention-2 backward pair (dq; dk/dv).
+// Flash attention for Hopper (sm_90a): forward (with and without logsumexp),
+// the FlashAttention-2 backward pair (dq; dk/dv), and ring attention's fold of
+// one kv chunk into an online-softmax carry.
 //
 // Replaces the Pallas TPU kernels of p2pfl_tpu/ops/attention.py:
 //   flash_fwd<with_lse=true>   <- _flash_kernel          (pallas_call at :308)
 //   flash_fwd<with_lse=false>  <- _flash_kernel_no_lse   (pallas_call at :298)
 //   flash_bwd_dq               <- _flash_bwd_dq_kernel   (pallas_call at :446)
 //   flash_bwd_dkv              <- _flash_bwd_dkv_kernel  (pallas_call at :463)
+//   flash_carry                <- _flash_carry_kernel    (pallas_call at :590)
 //
 // What it computes is what the TPU kernels compute: inputs are upcast to f32
 // inside the kernel, q is scaled by 1/sqrt(D) in f32, every product and sum
@@ -443,6 +445,136 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 }
 
 // ----------------------------------------------------------------------------
+// Carry fold (ring attention's per-chunk step): the forward's loop, but the
+// online-softmax state starts from the incoming (m, l, acc) rows and leaves
+// unnormalized; q rows sit at global positions q_offset + [0, Sq) and k rows
+// at kv_offset + [0, Sk), and both the causal mask and the future-tile skip
+// compare those global positions. Bound like the forward: at the ring's
+// chunk shape ([2, 1024, 8, 64] bf16, carry f32) a past fold needs ~4.3 GFLOP
+// and ~15 MB of traffic, so operations and bytes bound it about equally
+// (~4.3-4.5 us each at the H100's peaks); the f32 CUDA-core products hold it
+// far above both, as they do the forward. The carry is read once and written
+// once per q row, through registers: in and out are separate buffers.
+//
+// No row can produce -inf - -inf: every processed k tile holds column k0 < Sk
+// (in range), masked scores are finite, so m_new is finite after the tile.
+template <typename T, int D>
+__global__ void __launch_bounds__(NTHREADS)
+flash_carry_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   const float* __restrict__ m_in, const float* __restrict__ l_in,
+                   const float* __restrict__ acc_in, float* __restrict__ m_out,
+                   float* __restrict__ l_out, float* __restrict__ acc_out, int Sq, int Sk, int H,
+                   float scale, bool causal, int q_offset, int kv_offset) {
+  constexpr int DJ = D / TX;
+  extern __shared__ float smem[];
+  float* Qs = smem;                 // [BQ][D + 1], pre-scaled
+  float* Ks = Qs + BQ * (D + 1);    // [BK][D + 1]
+  float* Vs = Ks + BK * (D + 1);    // [BK][D + 1]
+  float* Ps = Vs + BK * (D + 1);    // [BQ][BK + 1]
+
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int q0 = blockIdx.x * BQ;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int64_t bh = blockIdx.y;
+
+  load_tile<T, D, BQ>(Qs, q, b, h, q0, Sq, H, scale);
+
+  float m[RI], l[RI], acc[RI][DJ];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int qpos = q0 + ty + TY * i;
+    const bool in = qpos < Sq;
+    m[i] = in ? m_in[bh * Sq + qpos] : -INFINITY;
+    l[i] = in ? l_in[bh * Sq + qpos] : 0.f;
+    const float* arow = acc_in + ((int64_t(b) * Sq + qpos) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc[i][j] = in ? arow[tx + TX * j] : 0.f;
+  }
+
+  // Causal: k tiles wholly in this q tile's future (kv_offset + k0 >=
+  // q_offset + q0 + BQ) are skipped; a chunk wholly in the future runs no
+  // tile and writes the carry back unchanged.
+  const int k_end = causal ? min(Sk, q_offset + q0 + BQ - kv_offset) : Sk;
+  for (int k0 = 0; k0 < k_end; k0 += BK) {
+    __syncthreads();  // the previous tile's Ks / Vs / Ps are no longer read
+    load_tile<T, D, BK>(Ks, k, b, h, k0, Sk, H, 1.f);
+    load_tile<T, D, BK>(Vs, v, b, h, k0, Sk, H, 1.f);
+    __syncthreads();
+
+    float s[RI][RJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      float qv[RI], kv[RJ];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) qv[i] = Qs[(ty + TY * i) * (D + 1) + d];
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) kv[j] = Ks[(tx + TX * j) * (D + 1) + d];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < RJ; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int qg = q_offset + q0 + ty + TY * i;  // global q position
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) {
+        const int kpos = k0 + tx + TX * j;
+        if (kpos >= Sk) s[i][j] = -INFINITY;  // ragged tail: no contribution
+        else if (causal && qg < kv_offset + kpos) s[i][j] = MASK_VALUE;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        ps += p;
+        Ps[(ty + TY * i) * (BK + 1) + tx + TX * j] = p;
+      }
+      const float corr = expf(m[i] - m_new);
+      l[i] = corr * l[i] + row_sum(ps);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) acc[i][j] *= corr;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float vv[DJ];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) vv[j] = Vs[c * (D + 1) + tx + TX * j];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const float p = Ps[(ty + TY * i) * (BK + 1) + c];
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int qpos = q0 + ty + TY * i;
+    if (qpos >= Sq) continue;
+    if (tx == 0) {
+      m_out[bh * Sq + qpos] = m[i];
+      l_out[bh * Sq + qpos] = l[i];
+    }
+    float* arow = acc_out + ((int64_t(b) * Sq + qpos) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) arow[tx + TX * j] = acc[i][j];
+  }
+}
+
+// ----------------------------------------------------------------------------
 // Host side: dispatch on element type and head size, size shared memory.
 
 template <int D>
@@ -506,6 +638,21 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+template <typename T, int D>
+cudaError_t launch_carry(const void* q, const void* k, const void* v, const float* m_in,
+                         const float* l_in, const float* acc_in, float* m_out, float* l_out,
+                         float* acc_out, int B, int Sq, int Sk, int H, float scale, bool causal,
+                         int q_offset, int kv_offset, cudaStream_t stream) {
+  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  const size_t smem = fwd_smem<D>();
+  auto kern = flash_carry_kernel<T, D>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  kern<<<grid, NTHREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), m_in, l_in,
+      acc_in, m_out, l_out, acc_out, Sq, Sk, H, scale, causal, q_offset, kv_offset);
+  return cudaGetLastError();
+}
+
 // dtype: 0 = float32, 1 = bfloat16. Head size 64, the only one a supported
 // configuration uses; another size is one more instance here and in
 // ops/_kernels.py HEAD_DIMS.
@@ -550,6 +697,17 @@ int p2pfl_flash_bwd_dkv(const void* q, const void* k, const void* v, const void*
   DISPATCH(dtype, head_dim,
            int(launch_dkv<T, D>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, scale,
                                 causal != 0, static_cast<cudaStream_t>(stream))));
+}
+
+// m / l: [B, H, Sq] f32; acc: [B, Sq, H, D] f32; *_in and *_out must not overlap.
+int p2pfl_flash_carry(const void* q, const void* k, const void* v, const float* m_in,
+                      const float* l_in, const float* acc_in, float* m_out, float* l_out,
+                      float* acc_out, int B, int Sq, int Sk, int H, int head_dim, int dtype,
+                      float scale, int causal, int q_offset, int kv_offset, void* stream) {
+  DISPATCH(dtype, head_dim,
+           int(launch_carry<T, D>(q, k, v, m_in, l_in, acc_in, m_out, l_out, acc_out, B, Sq, Sk,
+                                  H, scale, causal != 0, q_offset, kv_offset,
+                                  static_cast<cudaStream_t>(stream))));
 }
 
 const char* p2pfl_cuda_error_string(int code) {

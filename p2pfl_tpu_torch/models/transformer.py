@@ -1,6 +1,13 @@
 """Decoder-only transformer LM (counterpart of
-``p2pfl_tpu/models/transformer.py``; this slice ports the ``dense`` and
-``flash`` attention kinds).
+``p2pfl_tpu/models/transformer.py``): attention kinds ``dense``,
+``blockwise``, ``flash``, and the sequence-parallel ``ring`` and
+``ring_flash``.
+
+The ring kinds run on the *global* ``[B, S]`` tokens inside a
+``sequence_parallel_*`` wrapper (:mod:`p2pfl_tpu_torch.parallel.sequence`),
+which binds ``axis_name``; only attention sees the shards. RoPE over the
+global positions ``[0, S)`` is what the JAX package computes per shard with
+the offset ``axis_index * S_local``.
 
 The dtype flow is the JAX package's: parameters are f32; dense layers run in
 ``compute_dtype`` (bf16 by default); the token embedding is cast to
@@ -21,21 +28,24 @@ import torch.nn.functional as F
 
 from p2pfl_tpu_torch.device import DeviceLike, resolve_device
 from p2pfl_tpu_torch.models.model_handle import ModelHandle
-from p2pfl_tpu_torch.ops.attention import dense_attention, flash_attention
+from p2pfl_tpu_torch.ops.attention import blockwise_attention, dense_attention, flash_attention
+from p2pfl_tpu_torch.ops.ring_attention import ring_attention
 
-ATTENTION_KINDS = ("dense", "flash")
+ATTENTION_KINDS = ("dense", "blockwise", "flash", "ring", "ring_flash")
+RING_KINDS = ("ring", "ring_flash")
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
 MLP_RATIO = 4
 ROPE_BASE = 10000.0
 
 
-def rotary_embedding(x: torch.Tensor) -> torch.Tensor:
-    """Apply RoPE to ``[B, S, H, D]`` (D even) at positions ``[0, S)``: half
-    split (not interleaved pairs), computed in f32, cast back."""
+def rotary_embedding(x: torch.Tensor, position_offset: int = 0, base: float = ROPE_BASE) -> torch.Tensor:
+    """Apply RoPE to ``[B, S, H, D]`` (D even) at global positions
+    ``position_offset + [0, S)``: half split (not interleaved pairs),
+    computed in f32, cast back."""
     _, s, _, d = x.shape
     half = d // 2
-    freqs = ROPE_BASE ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
-    pos = torch.arange(s, dtype=torch.float32, device=x.device)[:, None]
+    freqs = base ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    pos = position_offset + torch.arange(s, dtype=torch.float32, device=x.device)[:, None]
     angles = pos * freqs[None, :]  # [S, half]
     cos = torch.cos(angles)[None, :, None, :]
     sin = torch.sin(angles)[None, :, None, :]
@@ -54,18 +64,33 @@ def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
 
 
 class SelfAttention(nn.Module):
-    """Multi-head causal self-attention with a pluggable kernel."""
+    """Multi-head causal self-attention with a pluggable kernel.
+
+    ``axis_name``: the sequence-parallel mesh axis; required by the ring
+    kinds and refused by the others (a non-ring kernel under a sharded
+    sequence would attend only within a shard, as the JAX package warns).
+    """
 
     def __init__(
         self, embed_dim: int, num_heads: int, attention_kind: str = "flash",
-        compute_dtype: torch.dtype = torch.bfloat16,
+        compute_dtype: torch.dtype = torch.bfloat16, axis_name: Optional[str] = None,
+        block_k: int = 512,
     ) -> None:
         super().__init__()
         if attention_kind not in ATTENTION_KINDS:
             raise ValueError(f"unknown attention_kind {attention_kind!r} (have {ATTENTION_KINDS})")
+        if axis_name is not None and attention_kind not in RING_KINDS:
+            raise ValueError(
+                f"axis_name={axis_name!r} requires attention_kind='ring' or 'ring_flash', "
+                f"got {attention_kind!r}"
+            )
+        if attention_kind in RING_KINDS and axis_name is None:
+            raise ValueError(f"attention_kind={attention_kind!r} requires axis_name")
         self.num_heads = num_heads
         self.attention_kind = attention_kind
         self.compute_dtype = compute_dtype
+        self.axis_name = axis_name
+        self.block_k = block_k
         self.qkv = nn.Linear(embed_dim, 3 * embed_dim, bias=False)
         self.proj = nn.Linear(embed_dim, embed_dim, bias=False)
 
@@ -77,10 +102,16 @@ class SelfAttention(nn.Module):
         q, k, v = torch.split(qkv.reshape(b, s, 3 * self.num_heads, head_dim), self.num_heads, dim=2)
         q = rotary_embedding(q)
         k = rotary_embedding(k)
-        if self.attention_kind == "dense":
+        kind = self.attention_kind
+        if kind == "dense":
             out = dense_attention(q, k, v, causal=True)
+        elif kind == "blockwise":
+            out = blockwise_attention(q, k, v, causal=True, block_k=self.block_k)
+        elif kind == "flash":
+            out = flash_attention(q, k, v, True, min(self.block_k, s), self.block_k)
         else:
-            out = flash_attention(q, k, v, causal=True)
+            out = ring_attention(q, k, v, self.axis_name, causal=True, block_k=self.block_k,
+                                 impl="flash" if kind == "ring_flash" else "blockwise")
         return _linear(out.reshape(b, s, e), self.proj, self.compute_dtype)
 
 
@@ -89,12 +120,13 @@ class Block(nn.Module):
 
     def __init__(
         self, embed_dim: int, num_heads: int, attention_kind: str = "flash",
-        compute_dtype: torch.dtype = torch.bfloat16,
+        compute_dtype: torch.dtype = torch.bfloat16, axis_name: Optional[str] = None,
+        block_k: int = 512,
     ) -> None:
         super().__init__()
         self.compute_dtype = compute_dtype
         self.ln1 = nn.LayerNorm(embed_dim, eps=LN_EPS)
-        self.attn = SelfAttention(embed_dim, num_heads, attention_kind, compute_dtype)
+        self.attn = SelfAttention(embed_dim, num_heads, attention_kind, compute_dtype, axis_name, block_k)
         self.ln2 = nn.LayerNorm(embed_dim, eps=LN_EPS)
         self.mlp_in = nn.Linear(embed_dim, MLP_RATIO * embed_dim)
         self.mlp_out = nn.Linear(MLP_RATIO * embed_dim, embed_dim)
@@ -113,13 +145,14 @@ class TransformerLM(nn.Module):
     def __init__(
         self, vocab_size: int = 256, num_layers: int = 4, num_heads: int = 4,
         embed_dim: int = 256, attention_kind: str = "flash",
-        compute_dtype: torch.dtype = torch.bfloat16,
+        compute_dtype: torch.dtype = torch.bfloat16, axis_name: Optional[str] = None,
+        block_k: int = 512,
     ) -> None:
         super().__init__()
         self.compute_dtype = compute_dtype
         self.embed = nn.Embedding(vocab_size, embed_dim)
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, attention_kind, compute_dtype)
+            Block(embed_dim, num_heads, attention_kind, compute_dtype, axis_name, block_k)
             for _ in range(num_layers)
         )
         self.ln_f = nn.LayerNorm(embed_dim, eps=LN_EPS)
@@ -172,19 +205,26 @@ def init_params(module: nn.Module, seed: int, device: DeviceLike = "cuda") -> di
 
 def transformer_lm_model(
     seed: int = 0,
+    seq_len: int = 128,
     vocab_size: int = 256,
     num_layers: int = 4,
     num_heads: int = 4,
     embed_dim: int = 256,
     attention_kind: str = "flash",
+    axis_name: Optional[str] = None,
     device: DeviceLike = "cuda",
 ) -> ModelHandle:
     """A :class:`TransformerLM` with random weights from ``seed``, in a
-    :class:`ModelHandle`. The module holds no weights of its own (it lives on
-    the meta device); the handle's params are run through it."""
+    :class:`ModelHandle`; arguments in the JAX function's order. ``seq_len``
+    (the JAX package's init example length) is validated and otherwise
+    unused: the weights do not depend on it. The module holds no weights of
+    its own (it lives on the meta device); the handle's params are run
+    through it. Parameter names are the same for every attention kind."""
+    if int(seq_len) != seq_len or seq_len < 1:
+        raise ValueError(f"seq_len must be a positive integer, got {seq_len!r}")
     with torch.device("meta"):
         module = TransformerLM(
             vocab_size=vocab_size, num_layers=num_layers, num_heads=num_heads,
-            embed_dim=embed_dim, attention_kind=attention_kind,
+            embed_dim=embed_dim, attention_kind=attention_kind, axis_name=axis_name,
         )
     return ModelHandle(init_params(module, seed, device), module)

@@ -43,6 +43,7 @@ LAUNCHES: Dict[str, int] = {
     "flash_fwd_no_lse": 0,
     "flash_bwd_dq": 0,
     "flash_bwd_dkv": 0,
+    "flash_carry": 0,
 }
 
 _lock = threading.Lock()
@@ -106,7 +107,9 @@ def _load() -> ctypes.CDLL:
             lib.p2pfl_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, i, p]
             lib.p2pfl_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, p]
             lib.p2pfl_flash_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, p]
-            for fn in (lib.p2pfl_flash_fwd, lib.p2pfl_flash_bwd_dq, lib.p2pfl_flash_bwd_dkv):
+            lib.p2pfl_flash_carry.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, i, p]
+            for fn in (lib.p2pfl_flash_fwd, lib.p2pfl_flash_bwd_dq, lib.p2pfl_flash_bwd_dkv,
+                       lib.p2pfl_flash_carry):
                 fn.restype = ctypes.c_int
             lib.p2pfl_cuda_error_string.argtypes = [ctypes.c_int]
             lib.p2pfl_cuda_error_string.restype = ctypes.c_char_p
@@ -223,3 +226,36 @@ def flash_bwd_dkv(
     _check("flash_bwd_dkv", code)
     LAUNCHES["flash_bwd_dkv"] += 1
     return dk, dv
+
+
+def flash_carry(
+    carry: Tuple[torch.Tensor, torch.Tensor, torch.Tensor], q: torch.Tensor, k: torch.Tensor,
+    v: torch.Tensor, q_offset: int, kv_offset: int, causal: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel fold of one kv chunk into the carry ``(m [B,H,Sq], l [B,H,Sq],
+    acc [B,Sq,H,D])`` (f32); returns a new carry, the incoming one is only
+    read. ``q_offset`` / ``kv_offset``: global positions of q's and k's row 0."""
+    if q.dim() == 4 and q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"flash_carry: head_dim {q.shape[-1]} not supported ({HEAD_DIMS})")
+    _check_qkv("flash_carry", q, k, v)
+    if k.shape[1] < 1:
+        raise ValueError("flash_carry: the kv chunk is empty")
+    m, l, acc = carry
+    _check_rows("flash_carry", q, m, l)
+    if acc.shape != q.shape or acc.dtype != torch.float32 or not acc.is_contiguous() or acc.device != q.device:
+        raise ValueError("flash_carry: acc must be contiguous float32 with q's shape, on q's device")
+    for off in (q_offset, kv_offset):
+        if not -(2**31) <= int(off) < 2**31:
+            raise ValueError(f"flash_carry: offset {off} does not fit in int32")
+    lib = _load()
+    b, sq, h, d = q.shape
+    m_out, l_out, acc_out = torch.empty_like(m), torch.empty_like(l), torch.empty_like(acc)
+    code = lib.p2pfl_flash_carry(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+        m_out.data_ptr(), l_out.data_ptr(), acc_out.data_ptr(),
+        b, sq, k.shape[1], h, d, _DTYPES[q.dtype], 1.0 / math.sqrt(d), int(causal),
+        int(q_offset), int(kv_offset), _stream(q),
+    )
+    _check("flash_carry", code)
+    LAUNCHES["flash_carry"] += 1
+    return m_out, l_out, acc_out

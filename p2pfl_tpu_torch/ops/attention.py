@@ -1,19 +1,28 @@
-"""Attention: the dense reference, the flash kernels' plain versions, and
-``flash_attention`` with its FlashAttention-2 gradient.
+"""Attention: the dense reference, the blockwise online-softmax fold, the
+flash kernels' plain versions, and ``flash_attention`` with its
+FlashAttention-2 gradient.
 
 Counterpart of ``p2pfl_tpu/ops/attention.py``. All public functions take
-``[batch, seq, heads, head_dim]`` ("BSHD") tensors, like the JAX package.
+``[batch, seq, heads, head_dim]`` ("BSHD") tensors, like the JAX package, and
+the causal mask compares *global* positions: ``q_offset`` / ``kv_offset`` give
+the position of the first row of q / k, so ring attention can fold chunks of
+one long sequence.
 
-The flash path has three kernels (``csrc/flash_attn.cu``, bound in
+The flash path has four kernels (``csrc/flash_attn.cu``, bound in
 :mod:`._kernels`): the forward, written with or without the per-row
-logsumexp, the dq kernel and the dk/dv kernel. Each has a plain PyTorch
-version here with the same arithmetic — inputs upcast to f32, q scaled in
-f32, the causal mask writes :data:`DEFAULT_MASK_VALUE`, ``l`` clamped at
-1e-30 — that the CPU tests hold against the JAX package and that the card's
-smoke run holds each kernel against. :func:`flash_forward`,
-:func:`flash_backward_dq` and :func:`flash_backward_dkv` pick between them
+logsumexp, the dq kernel, the dk/dv kernel, and the carry fold that ring
+attention runs once per kv chunk. Each has a plain PyTorch version here with
+the same arithmetic — inputs upcast to f32, q scaled in f32, the causal mask
+writes :data:`DEFAULT_MASK_VALUE`, ``l`` clamped at 1e-30 — that the CPU tests
+hold against the JAX package and that the card's smoke run holds each kernel
+against. :func:`flash_forward`, :func:`flash_backward_dq`,
+:func:`flash_backward_dkv` and :func:`flash_chunk_update` pick between them
 by where the tensors live: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernel (or raises), anything else raises.
+
+The online-softmax carry is ``(m, l, acc)``: running row max ``m [B, H, Sq]``,
+denominator ``l [B, H, Sq]`` and unnormalized output ``acc [B, Sq, H, D]``,
+all f32. The blockwise fold and the carry kernel share it.
 """
 
 from __future__ import annotations
@@ -23,31 +32,102 @@ from typing import Optional, Tuple
 
 import torch
 
+from p2pfl_tpu_torch.device import DeviceLike
 from p2pfl_tpu_torch.ops import _kernels
+
+Carry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 
-def _causal_mask(scores: torch.Tensor) -> torch.Tensor:
-    """Mask ``scores [..., Sq, Sk]`` where the q position < the kv position."""
+def _causal_mask(scores: torch.Tensor, q_offset: int = 0, kv_offset: int = 0) -> torch.Tensor:
+    """Mask ``scores [..., Sq, Sk]`` where the global q position < the global
+    kv position (``q_offset`` / ``kv_offset``: positions of row 0)."""
     sq, sk = scores.shape[-2], scores.shape[-1]
-    q_pos = torch.arange(sq, device=scores.device)[:, None]
-    k_pos = torch.arange(sk, device=scores.device)[None, :]
+    q_pos = q_offset + torch.arange(sq, device=scores.device)[:, None]
+    k_pos = kv_offset + torch.arange(sk, device=scores.device)[None, :]
     return torch.where(q_pos >= k_pos, scores, torch.full_like(scores, DEFAULT_MASK_VALUE))
 
 
-def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True) -> torch.Tensor:
+def dense_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+    q_offset: int = 0, kv_offset: int = 0,
+) -> torch.Tensor:
     """Materialized-softmax attention (reference implementation).
 
     Scores are f32 products of the inputs; the probabilities are cast back
     to the value dtype before the second product, as in the JAX package.
+    ``q_offset`` / ``kv_offset``: global position of the first row of q / k.
     """
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if causal:
-        s = _causal_mask(s)
+        s = _causal_mask(s, q_offset, kv_offset)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v).to(q.dtype)
+
+
+# --- the online-softmax carry and the blockwise fold ---------------------------
+
+
+def init_carry(q_shape: tuple, device: DeviceLike) -> Carry:
+    """Fresh carry for queries of shape ``[B, Sq, H, D]``: ``m`` = -inf,
+    ``l`` = 0, ``acc`` = 0."""
+    b, sq, h, d = q_shape
+    m = torch.full((b, h, sq), -math.inf, dtype=torch.float32, device=device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=device)
+    acc = torch.zeros((b, sq, h, d), dtype=torch.float32, device=device)
+    return m, l, acc
+
+
+def finalize_carry(carry: Carry, dtype: torch.dtype) -> torch.Tensor:
+    """Normalize a carry into the attention output ``acc / max(l, 1e-30)``."""
+    _, l, acc = carry
+    return (acc / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]).to(dtype)
+
+
+def _fold(carry: Carry, qf: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+          q_offset: int, kv_offset: int) -> Carry:
+    """Fold one key block into the carry; ``qf`` is q in f32, pre-scaled."""
+    m, l, acc = carry
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, k.float())
+    if causal:
+        s = _causal_mask(s, q_offset, kv_offset)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = corr * l + p.sum(dim=-1)
+    pv = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return m_new, l, corr.transpose(1, 2)[..., None] * acc + pv
+
+
+def blockwise_update(
+    carry: Carry, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+    block_k: int, q_offset: int, kv_offset: int,
+) -> Carry:
+    """Fold one key/value chunk into a carry, ``block_k`` keys at a time (the
+    JAX package's ``lax.scan`` becomes a loop; a shorter tail block last).
+
+    Differentiable: autograd keeps each block's scores and probabilities.
+    """
+    sk = k.shape[1]
+    block_k = min(block_k, sk)
+    qf = q.float() * (1.0 / math.sqrt(q.shape[-1]))
+    for k0 in range(0, sk, block_k):
+        carry = _fold(carry, qf, k[:, k0:k0 + block_k], v[:, k0:k0 + block_k], causal,
+                      q_offset, kv_offset + k0)
+    return carry
+
+
+def blockwise_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+    block_k: int = 512, q_offset: int = 0, kv_offset: int = 0,
+) -> torch.Tensor:
+    """Online-softmax attention over key blocks: never holds the ``[Sq, Sk]``
+    scores of more than one block."""
+    carry = blockwise_update(init_carry(q.shape, q.device), q, k, v, causal, block_k,
+                             q_offset, kv_offset)
+    return finalize_carry(carry, q.dtype)
 
 
 # --- plain versions of the flash kernels -------------------------------------
@@ -95,6 +175,22 @@ def plain_flash_backward_dkv(q, k, v, do, lse, delta, causal: bool) -> Tuple[tor
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def plain_flash_chunk_update(
+    carry: Carry, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    q_offset: int, kv_offset: int, causal: bool,
+) -> Carry:
+    """Plain version of the carry kernel: the whole chunk folded in one step.
+
+    The kernel folds 64 keys at a time and skips key tiles wholly in a q
+    tile's future; the two differ only in rounding as long as every row has
+    seen a real (unmasked) key by the end of its first folded tile, which
+    ring attention's self-chunk-first order guarantees. A chunk wholly in the
+    future leaves the carry bit-unchanged here too: ``p = exp(MASK - m) = 0``
+    and ``corr = 1``.
+    """
+    return _fold(carry, q.float() * (1.0 / math.sqrt(q.shape[-1])), k, v, causal, q_offset, kv_offset)
+
+
 # --- kernel or plain version, by device --------------------------------------
 
 
@@ -127,6 +223,23 @@ def flash_backward_dkv(q, k, v, do, lse, delta, causal: bool) -> Tuple[torch.Ten
     return plain_flash_backward_dkv(q, k, v, do, lse, delta, causal)
 
 
+def flash_chunk_update(
+    carry: Carry, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    q_offset: int, kv_offset: int, causal: bool = True, block_q: int = 512, block_k: int = 512,
+) -> Carry:
+    """Fold one kv chunk (``k``/``v`` ``[B, Sk, H, D]`` at global offset
+    ``kv_offset``) into the carry of queries ``q [B, Sq, H, D]`` at
+    ``q_offset``; returns the new, unnormalized carry (new tensors: the
+    incoming carry is left as it was). ``block_q``/``block_k`` are the JAX
+    package's tile requests; the kernel owns its tiling (64 x 64), so they
+    are only validated."""
+    if block_q < 1 or block_k < 1:
+        raise ValueError(f"block sizes must be >= 1, got {block_q}, {block_k}")
+    if _route(q) == "cuda":
+        return _kernels.flash_carry(carry, q, k, v, q_offset, kv_offset, causal)
+    return plain_flash_chunk_update(carry, q, k, v, q_offset, kv_offset, causal)
+
+
 def flash_backward(
     q, k, v, out, lse, g, causal: bool
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -140,28 +253,47 @@ def flash_backward(
     return dq, dk, dv
 
 
+def remat_vjp(fn, inputs: Tuple[torch.Tensor, ...], g: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Gradients of ``fn(*inputs)`` against cotangent ``g``, recomputing the
+    forward with autograd on (``jax.vjp`` of a function inside a
+    ``custom_vjp`` backward): only the graph of this one call is alive."""
+    with torch.enable_grad():
+        leaves = tuple(t.detach().requires_grad_(True) for t in inputs)
+        return torch.autograd.grad(fn(*leaves), leaves, g)
+
+
 class FlashAttention(torch.autograd.Function):
-    """``custom_vjp`` counterpart: the forward saves ``(q, k, v, out, lse)``;
-    the backward runs :func:`flash_backward`."""
+    """``custom_vjp`` counterpart. ``bwd_kernel="pallas"`` (the kernel
+    backward): the forward saves ``(q, k, v, out, lse)`` and the backward
+    runs :func:`flash_backward`. ``"remat"``: the forward saves ``(q, k, v)``
+    and the backward differentiates :func:`blockwise_attention`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool):
+    def forward(ctx, q, k, v, causal: bool, block_k: int, bwd_kernel: str):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        ctx.causal, ctx.block_k, ctx.bwd_kernel = causal, block_k, bwd_kernel
+        if bwd_kernel == "remat":
+            ctx.save_for_backward(q, k, v)
+            return flash_forward(q, k, v, causal, with_lse=False)[0]
         out, lse = flash_forward(q, k, v, causal, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = causal
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_backward(q, k, v, out, lse, g, ctx.causal)
-        return dq, dk, dv, None
+        if ctx.bwd_kernel == "remat":
+            causal, block_k = ctx.causal, ctx.block_k
+            dq, dk, dv = remat_vjp(
+                lambda q, k, v: blockwise_attention(q, k, v, causal, block_k), ctx.saved_tensors, g)
+        else:
+            q, k, v, out, lse = ctx.saved_tensors
+            dq, dk, dv = flash_backward(q, k, v, out, lse, g, ctx.causal)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
-    block_q: int = 512, block_k: int = 512,
+    block_q: int = 512, block_k: int = 512, bwd_kernel: str = "pallas",
 ) -> torch.Tensor:
     """Flash attention over ``[B, S, H, D]`` tensors.
 
@@ -169,10 +301,16 @@ def flash_attention(
     call that needs no gradient (evaluation) runs the forward that writes
     none. ``block_q``/``block_k`` are the JAX package's tile requests; here
     the kernel owns its tiling (64 x 64) and masks ragged tails, and the
-    result does not depend on them, so they are only validated.
+    result does not depend on them, so they are only validated (``block_k``
+    is also the key block of the ``"remat"`` backward). ``bwd_kernel``:
+    ``"pallas"`` (the name the JAX package gives its kernel backward: here
+    the dq and dk/dv kernels) or ``"remat"`` (differentiate the blockwise
+    fold instead; the independently derived cross-check).
     """
     if block_q < 1 or block_k < 1:
         raise ValueError(f"block sizes must be >= 1, got {block_q}, {block_k}")
+    if bwd_kernel not in ("pallas", "remat"):
+        raise ValueError(f"bwd_kernel must be 'pallas' or 'remat', got {bwd_kernel!r}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return FlashAttention.apply(q, k, v, causal)
+        return FlashAttention.apply(q, k, v, causal, block_k, bwd_kernel)
     return flash_forward(q.contiguous(), k.contiguous(), v.contiguous(), causal, with_lse=False)[0]

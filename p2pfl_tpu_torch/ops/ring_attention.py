@@ -1,0 +1,118 @@
+"""Ring attention on one card: exact attention over a sequence cut into the
+shards of a mesh axis (counterpart of ``p2pfl_tpu/ops/ring_attention.py``).
+
+The JAX package runs it under ``shard_map``: device ``i`` holds chunk ``i`` of
+q/k/v, and the kv chunks rotate around the ring with ``ppermute`` while each
+device folds the visiting chunk into its queries' online-softmax carry. On
+one card there is nothing to exchange, so the same folds run as a loop: the
+functions here take the *global* ``[B, S, H, D]`` tensors, cut S into the
+axis' ``n`` shards (:func:`p2pfl_tpu_torch.parallel.mesh.axis_size`), and for
+shard ``i`` fold the chunks in the ring's rotation order ``i, i+1, ..., n-1,
+0, ..., i-1`` — self chunk first, which keeps the f32 sums in the JAX order
+and gives every causal row a real key in its first fold.
+
+Under ``causal`` a chunk whose origin is past ``i`` lies wholly in shard
+``i``'s future and is skipped. The JAX flash ring skips it too; its
+blockwise ring folds it, which is exact to skip: after the self chunk every
+row's ``m`` is a real score, so a fully masked chunk gives
+``p = exp(MASK - m) = 0`` and ``corr = 1``, leaving the carry and every
+gradient unchanged. Skipping halves the scores the blockwise backward keeps.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+from p2pfl_tpu_torch.ops.attention import (
+    blockwise_update,
+    finalize_carry,
+    flash_chunk_update,
+    init_carry,
+    remat_vjp,
+)
+from p2pfl_tpu_torch.parallel.mesh import axis_size
+
+
+def _rotation(i: int, n: int, causal: bool) -> List[int]:
+    """Origins of the chunks shard ``i`` folds, in the ring's order."""
+    return [j for j in ((i + r) % n for r in range(n)) if not (causal and j > i)]
+
+
+def _ring(q, k, v, n: int, causal: bool, fold) -> torch.Tensor:
+    """Cut q/k/v into ``n`` chunks and, for each shard, fold its chunks in
+    ring order into a fresh carry with ``fold(carry, q_i, k_j, v_j,
+    q_offset, kv_offset)``; returns the finalized global output."""
+    qs, ks, vs = ([c.contiguous() for c in torch.chunk(t, n, dim=1)] for t in (q, k, v))
+    s = qs[0].shape[1]
+    outs = []
+    for i in range(n):
+        carry = init_carry(qs[i].shape, q.device)
+        for j in _rotation(i, n, causal):
+            carry = fold(carry, qs[i], ks[j], vs[j], i * s, j * s)
+        outs.append(finalize_carry(carry, q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def _ring_blockwise(q, k, v, n: int, causal: bool, block_k: int) -> torch.Tensor:
+    """The blockwise ring (differentiable through autograd)."""
+    return _ring(q, k, v, n, causal, lambda c, qi, kj, vj, q_off, kv_off: blockwise_update(
+        c, qi, kj, vj, causal, block_k, q_off, kv_off))
+
+
+class _RingFlash(torch.autograd.Function):
+    """Ring forward through the carry kernel, one launch per folded chunk;
+    the backward rematerializes through the blockwise ring and returns its
+    gradients (``_ring_flash_bwd``), so the forward keeps only q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, n: int, causal: bool, block_k: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.n, ctx.causal, ctx.block_k = n, causal, block_k
+        return _ring(q, k, v, n, causal, lambda c, qi, kj, vj, q_off, kv_off: flash_chunk_update(
+            c, qi, kj, vj, q_off, kv_off, causal, block_k=block_k))
+
+    @staticmethod
+    def backward(ctx, g):
+        n, causal, block_k = ctx.n, ctx.causal, ctx.block_k
+        dq, dk, dv = remat_vjp(
+            lambda q, k, v: _ring_blockwise(q, k, v, n, causal, block_k), ctx.saved_tensors, g)
+        return dq, dk, dv, None, None, None
+
+
+def ring_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, axis_name: str,
+    causal: bool = True, block_k: int = 512, impl: str = "blockwise",
+) -> torch.Tensor:
+    """Exact attention over a sequence sharded on ``axis_name``.
+
+    Args:
+        q, k, v: the global ``[B, S, H, D]`` tensors; S must divide by the
+            axis' size ``n``, shard ``i`` holding positions
+            ``[i * S / n, (i + 1) * S / n)``.
+        axis_name: a mesh axis bound by a ``sequence_parallel_*`` wrapper
+            (:meth:`~p2pfl_tpu_torch.parallel.mesh.Mesh.bind`); ``NameError``
+            outside one.
+        causal: apply a global causal mask.
+        block_k: key-block size of the blockwise fold.
+        impl: ``"blockwise"`` (differentiable loop of blockwise folds) or
+            ``"flash"`` (the carry kernel per chunk; backward through the
+            blockwise ring).
+
+    Returns:
+        The global output ``[B, S, H, D]``.
+    """
+    if impl not in ("blockwise", "flash"):
+        raise ValueError(f"impl must be 'blockwise' or 'flash', got {impl!r}")
+    if block_k < 1:
+        raise ValueError(f"block_k must be >= 1, got {block_k}")
+    n = axis_size(axis_name)
+    if q.shape[1] % n or k.shape[1] != q.shape[1] or v.shape != k.shape:
+        raise ValueError(
+            f"ring_attention: q/k/v must share a sequence length divisible by the {axis_name!r} "
+            f"axis size {n}, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    if impl == "flash":
+        return _RingFlash.apply(q, k, v, n, causal, block_k)
+    return _ring_blockwise(q, k, v, n, causal, block_k)

@@ -1,4 +1,5 @@
-"""The Hopper flash-attention kernels, their wrappers and device routing.
+"""The Hopper flash-attention kernels (the carry fold of ring attention
+among them), their wrappers and device routing.
 
 This file imports no JAX, so its ``cuda``-marked tests run on a machine
 with a card and no JAX (see README, "PyTorch/CUDA port"):
@@ -15,6 +16,8 @@ import torch
 from p2pfl_tpu_torch.device import resolve_device
 from p2pfl_tpu_torch.ops import _kernels
 from p2pfl_tpu_torch.ops import attention as port
+from p2pfl_tpu_torch.ops.ring_attention import ring_attention
+from p2pfl_tpu_torch.parallel.mesh import Mesh
 
 
 def _qkv(seed, shape=(2, 64, 2, 16), dtype=torch.float32, device="cpu", grad=False):
@@ -42,6 +45,25 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         _kernels.flash_bwd_dq(q, k, v, g, lse, lse, True)
     with pytest.raises(ValueError, match="CUDA"):
         _kernels.flash_bwd_dkv(q, k, v, g, lse, lse, True)
+
+
+def test_ring_flash_on_cpu_tensors_launches_nothing():
+    q, k, v, _ = _qkv(8, grad=True)
+    before = dict(_kernels.LAUNCHES)
+    with Mesh({"seq": 4}, device="cpu").bind():
+        ring_attention(q, k, v, "seq", impl="flash").sum().backward()
+    assert _kernels.LAUNCHES == before
+
+
+def test_carry_wrapper_refuses_cpu_tensors_and_other_head_sizes():
+    for d in (16, 48, 128):
+        q, k, v, _ = _qkv(9, (1, 64, 2, d))
+        carry = port.init_carry(q.shape, "cpu")
+        with pytest.raises(ValueError, match="head_dim"):
+            _kernels.flash_carry(carry, q, k, v, 0, 0, True)
+    q, k, v, _ = _qkv(9, (1, 64, 2, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.flash_carry(port.init_carry(q.shape, "cpu"), q, k, v, 0, 0, True)
 
 
 def test_flash_attention_rejects_bad_block_sizes():
@@ -149,7 +171,8 @@ def test_kernel_autograd_matches_dense_on_card(cuda_device, d):
     _kernels.reset_launches()
     out = port.flash_attention(q, k, v)
     grads = torch.autograd.grad((out**2).sum(), (q, k, v))
-    assert _kernels.LAUNCHES == {"flash_fwd": 1, "flash_fwd_no_lse": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    assert _kernels.LAUNCHES == {"flash_fwd": 1, "flash_fwd_no_lse": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+                                 "flash_carry": 0}
     ref = port.dense_attention(q, k, v)
     ref_grads = torch.autograd.grad((ref**2).sum(), (q, k, v))
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
@@ -172,3 +195,71 @@ def test_kernel_wrappers_reject_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         _kernels.flash_fwd(q.transpose(1, 2), k, v, True, True)
     assert np.isfinite(_kernels.flash_fwd(q, k, v, True, True)[0].cpu().numpy()).all()
+
+
+def _carry_close(got, ref):
+    """The carry kernel against its plain version: m to 1e-6 (both take the
+    max of the same f32 scores); l to 1e-5 + 1e-5 |ref|; acc to
+    1e-5 + 1e-5 |ref| + 1e-6 l. Both are f32 sums of ~1000 weighted terms,
+    folded 64 keys at a time by the kernel and in one step by the plain
+    version; an acc element near 0 is the sum of terms of size up to ~l, so
+    its rounding scales with l (1e-6 l is 1e-6 in the normalized output)."""
+    m, l, acc = got
+    m_r, l_r, acc_r = ref
+    torch.testing.assert_close(m, m_r, atol=1e-6, rtol=0)
+    torch.testing.assert_close(l, l_r, atol=1e-5, rtol=1e-5)
+    tol = 1e-5 + 1e-5 * acc_r.abs() + 1e-6 * l_r.transpose(1, 2)[..., None]
+    diff = (acc - acc_r).abs()
+    assert bool((diff <= tol).all()), f"acc: {int((diff > tol).sum())} elements off, max diff {float(diff.max()):.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_carry_kernel_matches_plain_version_on_card(cuda_device, dtype):
+    """The ring's folds of shard 7 of 8 at [2, 1024, 8, 64]: the diagonal
+    chunk into a fresh carry, a past chunk into that carry, and a chunk
+    wholly in the future, which must leave the carry bit-unchanged; then
+    the finalized output within one bf16 ulp of the plain version's."""
+    q, k, v, _ = _qkv(3, (2, 1024, 8, 64), dtype, cuda_device)
+    kp, vp, _, _ = _qkv(4, (2, 1024, 8, 64), dtype, cuda_device)
+    off = 7 * 1024
+    fresh = port.init_carry(q.shape, cuda_device)
+    _kernels.reset_launches()
+    diag = _kernels.flash_carry(fresh, q, k, v, off, off, True)
+    _carry_close(diag, port.plain_flash_chunk_update(fresh, q, k, v, off, off, True))
+    past = _kernels.flash_carry(diag, q, kp, vp, off, 0, True)
+    past_p = port.plain_flash_chunk_update(diag, q, kp, vp, off, 0, True)
+    _carry_close(past, past_p)
+    future = _kernels.flash_carry(past, q, kp, vp, off, off + 1024, True)
+    for a, b in zip(future, past):
+        assert torch.equal(a, b)
+    assert _kernels.LAUNCHES["flash_carry"] == 3
+    out, out_p = port.finalize_carry(past, torch.bfloat16), port.finalize_carry(past_p, torch.bfloat16)
+    _within_one_bf16_ulp(out, out_p)
+
+
+@pytest.mark.cuda
+def test_carry_kernel_ragged_non_causal_on_card(cuda_device):
+    q, k, v, _ = _qkv(5, (2, 1000, 8, 64), torch.bfloat16, cuda_device)
+    fresh = port.init_carry(q.shape, cuda_device)
+    _carry_close(_kernels.flash_carry(fresh, q, k, v, 0, 0, False),
+                 port.plain_flash_chunk_update(fresh, q, k, v, 0, 0, False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_flash_autograd_matches_dense_on_card(cuda_device, causal):
+    """f32, 4 shards of 64: the ring forward through the carry kernel (one
+    launch per folded chunk) and its remat backward against autograd
+    through dense attention, at the f32 bars (1e-5, 1e-4)."""
+    q, k, v, _ = _qkv(6, (2, 256, 2, 64), torch.float32, cuda_device, grad=True)
+    _kernels.reset_launches()
+    with Mesh({"seq": 4}, device=cuda_device).bind():
+        out = ring_attention(q, k, v, "seq", causal=causal, impl="flash")
+    grads = torch.autograd.grad((out**2).sum(), (q, k, v))
+    assert _kernels.LAUNCHES["flash_carry"] == (10 if causal else 16)
+    ref = port.dense_attention(q, k, v, causal)
+    ref_grads = torch.autograd.grad((ref**2).sum(), (q, k, v))
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    for a, b in zip(grads, ref_grads):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)

@@ -52,10 +52,12 @@ def _tokens(seed=0):
     return np.random.default_rng(seed).integers(0, VOCAB, size=(B, SEQ)).astype(np.int32)
 
 
-def test_rotary_matches_jax():
+@pytest.mark.parametrize("position_offset", [0, 96])
+def test_rotary_matches_jax(position_offset):
     x = np.random.default_rng(1).standard_normal((B, SEQ, HEADS, 16)).astype(np.float32)
-    ref = jax_rotary_embedding(jnp.asarray(x))
-    np.testing.assert_allclose(rotary_embedding(torch.from_numpy(x)).numpy(), np.asarray(ref), atol=1e-5)
+    ref = jax_rotary_embedding(jnp.asarray(x), position_offset)
+    got = rotary_embedding(torch.from_numpy(x), position_offset)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
 
 
 def test_convert_round_trips_and_transposes_kernels():
