@@ -6,15 +6,25 @@
 Phases, each on its own printed lines:
 
 1. env: the card (``nvidia-smi``), torch / CUDA / nvcc versions, and the
-   kernels' build from ``p2pfl_tpu_torch/csrc`` (time and ptxas report).
+   kernels' build from ``p2pfl_tpu_torch/csrc`` (time and ptxas report:
+   registers and spills of each kernel; the tensor-core forward must not
+   spill), and the count of ``HGMMA`` (wgmma) instructions in each forward
+   instance from ``cuobjdump -sass`` (each bf16 instance must have some).
 2. kernels: each Hopper kernel against its plain PyTorch version on the
    card at the main paths' shapes (bf16 [8, 1024, 8, 64] causal; the eval
-   forward at [16, 1024, 8, 64]) plus a ragged S=1000, a non-causal and an
-   f32 case; bf16 outputs must lie within one bf16 ulp of the plain
-   version's, f32 ones within the JAX package's f32 tolerances. Then each
+   forward at [16, 1024, 8, 64]) plus a ragged S=1000, a non-causal, causal
+   S=1 and S=129 (one partial q tile; one full tile and a row) and an f32
+   case; bf16 gradients must lie within one bf16 ulp of the plain
+   version's, the bf16 forward's output within 1e-6 + 1 bf16 ulp + 2^-15 of
+   its row's weighted mass sum_j (p_j / l) |v_j| (it splits P into two bf16
+   halves for the tensor cores), f32 outputs within the JAX package's f32
+   tolerances, lse within 1e-5; the forward without lse must equal the one
+   with it bit for bit. Then each
    kernel's time (CUDA events over many launches after a warm-up), its
    plain version's time, the library's time as a yardstick (never called by
-   the port: ``F.scaled_dot_product_attention`` for the forwards, the aten
+   the port: ``aten._scaled_dot_product_flash_attention``, which also returns
+   the logsumexp, for the forward with lse; ``F.scaled_dot_product_attention``
+   for the one without; the aten
    flash-attention backward for the dq and dk/dv pair) and its bound: the
    larger of FLOPs / 989 TFLOP/s and bytes / 3.35 TB/s (H100 SXM bf16 dense
    and HBM peaks), FLOPs counted over the causal lower triangle.
@@ -68,21 +78,22 @@ LAYERS, HEADS, EMBED, BATCH, LR, ROUNDS = 4, 8, 512, 8, 3e-4, 3
 N_PARAMS = 20_990_976
 EVAL_SEQS = 16
 
-KERNEL_ROWS = {  # name -> (replaced TPU kernel body, launches per round on the slice)
-    "flash_fwd": ("p2pfl_tpu/ops/attention.py:183", LAYERS * (SEQS // BATCH) * COMMITTEE),
-    "flash_fwd_no_lse": ("p2pfl_tpu/ops/attention.py:243", LAYERS),
-    "flash_bwd_dq": ("p2pfl_tpu/ops/attention.py:326", LAYERS * (SEQS // BATCH) * COMMITTEE),
-    "flash_bwd_dkv": ("p2pfl_tpu/ops/attention.py:370", LAYERS * (SEQS // BATCH) * COMMITTEE),
-}
 SOURCE = "p2pfl_tpu_torch/csrc/flash_attn.cu"
+SOURCE_FWD = "p2pfl_tpu_torch/csrc/flash_fwd_sm90.cu"  # the bf16 forward the slice runs
+KERNEL_ROWS = {  # name -> (replaced TPU kernel body, launches per round on the slice, source)
+    "flash_fwd": ("p2pfl_tpu/ops/attention.py:183", LAYERS * (SEQS // BATCH) * COMMITTEE, SOURCE_FWD),
+    "flash_fwd_no_lse": ("p2pfl_tpu/ops/attention.py:243", LAYERS, SOURCE_FWD),
+    "flash_bwd_dq": ("p2pfl_tpu/ops/attention.py:326", LAYERS * (SEQS // BATCH) * COMMITTEE, SOURCE),
+    "flash_bwd_dkv": ("p2pfl_tpu/ops/attention.py:370", LAYERS * (SEQS // BATCH) * COMMITTEE, SOURCE),
+}
 
 # Sequence-parallel (ring) configuration: the same model over 8192 tokens
 # in 8 shards of 1024 (the tutorial's length, the JAX tests' largest ring).
 RING_SHARDS, RING_SEQ, RING_BATCH, RING_STEPS = 8, 8192, 2, 4
 RING_SHARD = RING_SEQ // RING_SHARDS
 RING_FOLDS = LAYERS * RING_SHARDS * (RING_SHARDS + 1) // 2  # carry launches per forward
-RING_KERNEL_ROWS = {  # name -> (replaced TPU kernel body, launches per train step on the ring)
-    "flash_carry": ("p2pfl_tpu/ops/attention.py:485", RING_FOLDS),
+RING_KERNEL_ROWS = {  # name -> (replaced TPU kernel body, launches per train step on the ring, source)
+    "flash_carry": ("p2pfl_tpu/ops/attention.py:485", RING_FOLDS, SOURCE),
 }
 
 
@@ -105,11 +116,21 @@ def nvidia_smi() -> str:
 
 
 def time_ms(fn, iters: int, warmup: int = 5) -> float:
+    """Device ms per call of ``fn``: CUDA events around ``iters`` calls. A
+    device-side sleep holds the stream first, long enough that every call is
+    queued before the first one runs, so a kernel shorter than its host-side
+    launch is timed by the device and not by the host's launch rate."""
     import torch
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one = time.perf_counter() - t0  # host and device time of one call
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(1.0, 2 * iters * one + 1e-3) * 2e9))  # cycles, at most ~1 s at ~2 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -118,9 +139,11 @@ def time_ms(fn, iters: int, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def max_err(got, ref, what: str, atol: float, bf16_ulps: int = 0) -> float:
+def max_err(got, ref, what: str, atol: float, bf16_ulps: int = 0, mass=None) -> float:
     """Max |got - ref|; fails unless every element is within atol plus
-    ``bf16_ulps`` bf16 ulps of ``ref`` (the ulp of ``ref``'s own binade)."""
+    ``bf16_ulps`` bf16 ulps of ``ref`` (the ulp of ``ref``'s own binade),
+    plus ``2^-15 * mass`` where a weighted mass is given (the bf16 forward:
+    ``mass = (P / l) @ |V|`` from the plain side)."""
     import torch
 
     got, ref = got.float(), ref.float()
@@ -128,12 +151,17 @@ def max_err(got, ref, what: str, atol: float, bf16_ulps: int = 0) -> float:
     diff = (got - ref).abs()
     _, exp = torch.frexp(ref)  # ref = m * 2**exp with 0.5 <= |m| < 1
     ulp = torch.where(ref == 0, torch.zeros_like(ref), torch.ldexp(torch.ones_like(ref), exp - 8))
-    ok = bool((diff <= atol + bf16_ulps * ulp).all())
+    room = 2.0**-15 * mass if mass is not None else torch.zeros_like(ref)
+    ok = bool((diff <= atol + bf16_ulps * ulp + room).all())
     err = float(diff.max())
     tol = f"atol {atol:g}"
     if bf16_ulps:  # the largest share of the ulp allowance that an element uses
         used = ((diff - atol).clamp(min=0) / torch.where(ulp > 0, ulp, torch.ones_like(ulp))).max()
         tol += f" + {bf16_ulps} bf16 ulp (worst element uses {float(used):.2f} ulp)"
+    if mass is not None:  # the largest share of the mass term that an element needs beyond atol + ulps
+        past = (diff - atol - bf16_ulps * ulp).clamp(min=0)
+        used = (past / torch.where(room > 0, room, torch.ones_like(room))).max()
+        tol += f" + 2^-15 mass (worst element uses {float(used):.3f} of it)"
     print(f"  {what}: max_abs_err={err:.3e} tol={tol} {'ok' if ok else 'FAIL'}")
     check(ok, f"{what} disagrees with its plain version (max_abs_err {err:.3e})")
     return err
@@ -171,19 +199,57 @@ def phase_env() -> str:
     path, log = _kernels.build()
     print(f"[env] built {path.name} in {time.monotonic() - t0:.1f} s")
     # One line per compiled kernel from the -Xptxas -v report.
-    entry = None
+    entry, seen = None, []
     for line in log.splitlines():
         m = re.search(r"(flash_fwd_kernel|flash_bwd_dq_kernel|flash_bwd_dkv_kernel|flash_carry_kernel)"
                       r"I(13__nv_bfloat16|f)Li(\d+)E(?:Lb(\d)E)?", line)
+        m90 = re.search(r"flash_fwd_sm90_kernelILb(\d)E", line)
         if m:
             entry = f"{m[1]}<{'bf16' if m[2] != 'f' else 'f32'}, D={m[3]}{', lse=' + m[4] if m[4] else ''}>"
+        elif m90:
+            entry = f"flash_fwd_sm90_kernel<bf16, D=64, lse={m90[1]}>"
         elif entry and "spill stores" in line:
             spill = re.search(r"(\d+) bytes spill stores", line)[1]
         elif entry and "registers" in line:
             regs = re.search(r"Used (\d+) registers", line)[1]
             print(f"[env] ptxas {entry}: {regs} registers, {spill} bytes spilled")
+            seen.append(entry)
+            if entry.startswith("flash_fwd_sm90"):
+                check(spill == "0", f"{entry} spills {spill} bytes")
             entry = None
+    check(sum(e.startswith("flash_fwd_sm90") for e in seen) == 2,
+          "the build log lacks the two tensor-core forward instances")
+    check(not any(e.startswith("flash_fwd_kernel<bf16") for e in seen),
+          "a bf16 instance of the CUDA-core forward was compiled")
+    phase_sass(path, _kernels._find_nvcc())
     return card
+
+
+def phase_sass(lib, nvcc: str) -> None:
+    """Count the HGMMA (wgmma) instructions in each forward instance of the
+    built library with ``cuobjdump -sass``, found beside ``nvcc``."""
+    import os
+
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if not os.path.isfile(tool):
+        print("[env] HGMMA per forward instance: not measured (no cuobjdump beside nvcc)")
+        return
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()[-500:]}")
+    counts: dict = {}
+    fn = None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m[1]
+            counts.setdefault(fn, 0)
+        elif fn and "HGMMA" in line:
+            counts[fn] += 1
+    fwd = {name: n for name, n in counts.items() if "flash_fwd" in name}
+    for name, n in sorted(fwd.items()):
+        print(f"[env] HGMMA in {name}: {n}")
+    sm90 = [n for name, n in fwd.items() if "flash_fwd_sm90_kernel" in name]
+    check(len(sm90) == 2 and all(n > 0 for n in sm90), "a bf16 forward instance holds no HGMMA instruction")
 
 
 def phase_kernels() -> dict:
@@ -202,14 +268,17 @@ def phase_kernels() -> dict:
     # Kernel and plain version both compute in f32 and differ only in the
     # order of their sums: a bf16 output may sit one bf16 ulp from the plain
     # one (rounding two nearly equal f32 values), and no further; 1e-6 covers
-    # values so near zero that the f32 sums' own rounding shows. f32 outputs
-    # are held to the JAX package's f32 tolerances (forward 1e-5, gradients
-    # 1e-4), lse to 1e-5 in every case.
+    # values so near zero that the f32 sums' own rounding shows. The bf16
+    # forward multiplies P as two bf16 halves (within 2^-17 P of P), so its
+    # output gets 2^-15 of the row's weighted mass (P / l) @ |V| beyond that.
+    # f32 outputs are held to the JAX package's f32 tolerances (forward
+    # 1e-5, gradients 1e-4), lse to 1e-5 in every case.
     tols = {torch.bfloat16: ({"atol": 1e-6, "bf16_ulps": 1},) * 2,
             torch.float32: ({"atol": 1e-5}, {"atol": 1e-4})}
     rows: dict = {}
     cases = ((SEQ_LEN, True, torch.bfloat16), (1000, True, torch.bfloat16),
-             (SEQ_LEN, False, torch.bfloat16), (SEQ_LEN, True, torch.float32))
+             (SEQ_LEN, False, torch.bfloat16), (1, True, torch.bfloat16), (129, True, torch.bfloat16),
+             (SEQ_LEN, True, torch.float32))
     for s, causal, dtype in cases:
         main = (s, causal, dtype) == cases[0]
         print(f"[kernels] B={BATCH} S={s} H={HEADS} D={EMBED // HEADS} {str(dtype)[6:]} causal={causal}")
@@ -217,8 +286,12 @@ def phase_kernels() -> dict:
         q, k, v, g = inputs(BATCH, s, dtype)
         out, lse = _kernels.flash_fwd(q, k, v, causal, True)
         out_p, lse_p = att.plain_flash_forward(q, k, v, causal)
+        if dtype == torch.bfloat16:  # the tensor-core forward splits P: its bar adds 2^-15 of the mass
+            fwd_tol = {**fwd_tol, "mass": att.plain_flash_row_mass(q, k, v, causal)}
         e_fwd = max(max_err(out, out_p, "flash_fwd out", **fwd_tol),
                     max_err(lse, lse_p, "flash_fwd lse", atol=1e-5))
+        out_n, _ = _kernels.flash_fwd(q, k, v, causal, False)
+        check(torch.equal(out_n, out), "the forward without lse differs from the one with it")
         delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
         dq = _kernels.flash_bwd_dq(q, k, v, g, lse, delta, causal)
         dk, dv = _kernels.flash_bwd_dkv(q, k, v, g, lse, delta, causal)
@@ -236,6 +309,9 @@ def phase_kernels() -> dict:
         qh, kh, vh, gh = (t.transpose(1, 2).contiguous() for t in (q, k, v, g))
         with torch.no_grad():
             sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True), 20)
+            # Row 1's yardstick also returns the logsumexp, as row 1 does.
+            flash_fwd_lib = time_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                qh, kh, vh, 0.0, True, False), 20)
             fa = torch.ops.aten._scaled_dot_product_flash_attention(qh, kh, vh, 0.0, True, False)
             o_l, lse_l, cq, ck, mq, mk, seed, offset = fa[:8]
 
@@ -249,7 +325,7 @@ def phase_kernels() -> dict:
               f"{float((dq_l.transpose(1, 2).float() - dq.float()).abs().max()):.3e} (information only)")
         timings = {
             "flash_fwd": (lambda: _kernels.flash_fwd(q, k, v, True, True),
-                          lambda: att.plain_flash_forward(q, k, v, True), sdpa_fwd, e_fwd),
+                          lambda: att.plain_flash_forward(q, k, v, True), flash_fwd_lib, e_fwd),
             "flash_bwd_dq": (lambda: _kernels.flash_bwd_dq(q, k, v, g, lse, delta, True),
                              lambda: att.plain_flash_backward_dq(q, k, v, g, lse, delta, True), sdpa_bwd, e_dq),
             "flash_bwd_dkv": (lambda: _kernels.flash_bwd_dkv(q, k, v, g, lse, delta, True),
@@ -259,7 +335,8 @@ def phase_kernels() -> dict:
             b_ms, b_by = bound(name, BATCH, s, HEADS, EMBED // HEADS, True, 2)
             rows[name] = {"max_abs_err": err, "ms": time_ms(kern, 20), "plain_ms": time_ms(plain, 5),
                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-        print(f"[kernels] library (not used by the port): sdpa forward {sdpa_fwd:.4f} ms, flash backward "
+        print(f"[kernels] library (not used by the port): aten flash forward with logsumexp (row 1's "
+              f"library_ms) {flash_fwd_lib:.4f} ms, sdpa forward {sdpa_fwd:.4f} ms, flash backward "
               f"(dq, dk, dv in one call; the library_ms of both backward rows) {sdpa_bwd:.4f} ms; port dq + dk/dv "
               f"{rows['flash_bwd_dq']['ms'] + rows['flash_bwd_dkv']['ms']:.4f} ms")
 
@@ -268,8 +345,11 @@ def phase_kernels() -> dict:
     q, k, v, _ = inputs(EVAL_SEQS, SEQ_LEN)
     out, none = _kernels.flash_fwd(q, k, v, True, False)
     check(none is None, "the no-lse forward returned an lse")
+    check(torch.equal(out, _kernels.flash_fwd(q, k, v, True, True)[0]),
+          "the forward without lse differs from the one with it")
     out_p, _ = att.plain_flash_forward(q, k, v, True)
-    err = max_err(out, out_p, "flash_fwd_no_lse out", **tols[torch.bfloat16][0])
+    err = max_err(out, out_p, "flash_fwd_no_lse out", **tols[torch.bfloat16][0],
+                  mass=att.plain_flash_row_mass(q, k, v, True))
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     with torch.no_grad():
         lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True), 20)
@@ -282,7 +362,7 @@ def phase_kernels() -> dict:
     for name, r in rows.items():
         print(f"[kernels] {name}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
               f"{r['bound_ms'] / r['ms']:.1%} of it); plain {r['plain_ms']:.4f} ms (not a yardstick); "
-              f"library {r['library_ms']:.4f} ms")
+              f"library {r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x of it)")
     return rows
 
 
@@ -442,7 +522,7 @@ def phase_slice() -> dict:
     print(f"[slice] kernels: {json.dumps(launches)}")
     check(all(np.isfinite(res.test_loss)), "non-finite test loss")
     check(res.test_loss[-1] < res.test_loss[0], "test loss did not fall over the rounds")
-    for name, (_, per_round) in KERNEL_ROWS.items():
+    for name, (_, per_round, _) in KERNEL_ROWS.items():
         # run() drives the warm-up round and then the timed rounds.
         check(launches[name] > 0, f"{name} was never launched on the main path")
         check(launches[name] == per_round * (ROUNDS + 1),
@@ -522,7 +602,7 @@ def phase_ring() -> tuple:
     print(f"[ring] kernels: {json.dumps(launches)}")
     check(all(np.isfinite(losses)), "non-finite training loss")
     check(losses[-1] < losses[0], "training loss did not fall over the steps")
-    for name, (_, per_step) in RING_KERNEL_ROWS.items():
+    for name, (_, per_step, _) in RING_KERNEL_ROWS.items():
         check(launches[name] > 0, f"{name} was never launched on the ring path")
         check(launches[name] == per_step * (RING_STEPS + 1),
               f"{name}: {launches[name]} launches, expected {per_step} per step x {RING_STEPS + 1} "
@@ -609,9 +689,9 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
     table = [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], **rows[name]}
-        for name, (replaces, _) in {**KERNEL_ROWS, **RING_KERNEL_ROWS}.items()
+        for name, (replaces, _, source) in {**KERNEL_ROWS, **RING_KERNEL_ROWS}.items()
     ]
     print(card)
     print(json.dumps({"kernels": table}))

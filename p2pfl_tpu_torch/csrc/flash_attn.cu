@@ -3,11 +3,13 @@
 // one kv chunk into an online-softmax carry.
 //
 // Replaces the Pallas TPU kernels of p2pfl_tpu/ops/attention.py:
-//   flash_fwd<with_lse=true>   <- _flash_kernel          (pallas_call at :308)
-//   flash_fwd<with_lse=false>  <- _flash_kernel_no_lse   (pallas_call at :298)
+//   flash_fwd<with_lse=true>   <- _flash_kernel          (pallas_call at :308), f32 only
+//   flash_fwd<with_lse=false>  <- _flash_kernel_no_lse   (pallas_call at :298), f32 only
 //   flash_bwd_dq               <- _flash_bwd_dq_kernel   (pallas_call at :446)
 //   flash_bwd_dkv              <- _flash_bwd_dkv_kernel  (pallas_call at :463)
 //   flash_carry                <- _flash_carry_kernel    (pallas_call at :590)
+// The bf16 forward is flash_fwd_sm90.cu's tensor-core kernel, launched from
+// p2pfl_flash_fwd below; no bf16 call reaches flash_fwd_kernel.
 //
 // What it computes is what the TPU kernels compute: inputs are upcast to f32
 // inside the kernel, q is scaled by 1/sqrt(D) in f32, every product and sum
@@ -672,15 +674,24 @@ cudaError_t launch_carry(const void* q, const void* k, const void* v, const floa
 
 }  // namespace
 
+namespace p2pfl {
+cudaError_t launch_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                                  int Sq, int Sk, int H, float scale, bool causal, cudaStream_t stream);
+}
+
 extern "C" {
 
-// lse == NULL selects the forward that writes no logsumexp.
+// lse == NULL selects the forward that writes no logsumexp. bf16 runs the
+// tensor-core kernel of flash_fwd_sm90.cu, f32 the CUDA-core kernel above.
 int p2pfl_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                     int Sq, int Sk, int H, int head_dim, int dtype, float scale, int causal,
                     void* stream) {
-  DISPATCH(dtype, head_dim,
-           int(launch_fwd<T, D>(q, k, v, o, lse, B, Sq, Sk, H, scale, causal != 0,
-                                static_cast<cudaStream_t>(stream))));
+  if (head_dim != 64) return int(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return int(launch_fwd<float, 64>(q, k, v, o, lse, B, Sq, Sk, H, scale, causal != 0, s));
+  if (dtype == 1)
+    return int(p2pfl::launch_flash_fwd_sm90(q, k, v, o, lse, B, Sq, Sk, H, scale, causal != 0, s));
+  return int(cudaErrorInvalidValue);
 }
 
 int p2pfl_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,

@@ -1,9 +1,10 @@
 """Build, bind and launch the hand-written Hopper kernels of ``csrc/``.
 
-The CUDA source is compiled at first use with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface under ``<repo>/build/`` (named by a
-hash of the source and flags, so an edited source is rebuilt), then loaded
-with :mod:`ctypes`. Nothing is built when this module is imported.
+The CUDA sources are compiled at first use with ``nvcc`` for ``sm_90a``, one
+``nvcc`` per source, all started together, and linked into one shared
+library with a plain C interface under ``<repo>/build/`` (named by a hash of
+the sources and flags, so an edited source is rebuilt), then loaded with
+:mod:`ctypes`. Nothing is built when this module is imported.
 
 Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, allocates its outputs with ``torch.empty``, launches on the
@@ -27,13 +28,16 @@ from typing import Dict, Optional, Tuple
 import torch
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "flash_attn.cu"
+SOURCES = (
+    _PKG / "csrc" / "flash_attn.cu",  # f32 forward, backward pair, carry fold
+    _PKG / "csrc" / "flash_fwd_sm90.cu",  # bf16 forward on the tensor cores
+)
 BUILD_DIR = _PKG.parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-HEAD_DIMS = (64,)  # the instances csrc/flash_attn.cu compiles
+HEAD_DIMS = (64,)  # the instances csrc/ compiles
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Launches per kernel since the last :func:`reset_launches`. Incremented only
@@ -68,13 +72,16 @@ def _find_nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the library for the current source and flags lives."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    digest = h.hexdigest()
     return BUILD_DIR / f"flash_attn_{digest[:16]}.so"
 
 
 def build() -> Tuple[Path, str]:
-    """Compile the CUDA source if its library is not built yet.
+    """Compile the CUDA sources if their library is not built yet.
 
     Returns the library path and the compiler's log (``-Xptxas -v``: each
     kernel's registers, shared memory and spills); the log is kept beside
@@ -85,15 +92,27 @@ def build() -> Tuple[Path, str]:
     if out.exists():
         return out, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    text = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{text}")
-    log.write_text(text)
-    os.replace(tmp, out)  # atomic: a process building at the same time never loads half a file
+    nvcc, tag = _find_nvcc(), f"{out.stem}.{os.getpid()}"
+    objs = [out.with_name(f"{tag}.{src.stem}.o") for src in SOURCES]
+    tmp = out.with_name(f"{tag}.tmp.so")
+    try:
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for cmd in compiles]
+        text = "".join(proc.communicate()[0] for proc in procs)
+        for cmd, proc in zip(compiles, procs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{text}")
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        text += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(link)}\n{text}")
+        log.write_text(text)
+        os.replace(tmp, out)  # atomic: a process building at the same time never loads half a file
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
     return out, text
 
 
@@ -165,11 +184,16 @@ def _stream(t: torch.Tensor) -> int:
 def flash_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, with_lse: bool
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Kernel forward: ``(out [B,Sq,H,D], lse [B,H,Sq] f32 or None)``."""
+    """Kernel forward: ``(out [B,Sq,H,D], lse [B,H,Sq] f32 or None)``.
+
+    bf16 runs the tensor-core kernel, whose TMA loads and stores need every
+    tensor 16-byte aligned; f32 runs the CUDA-core kernel."""
     _check_qkv("flash_fwd", q, k, v)
     lib = _load()
     b, sq, h, d = q.shape
     out = torch.empty_like(q)
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v, out)):
+        raise ValueError("flash_fwd: bf16 tensors must be 16-byte aligned (TMA)")
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
     code = lib.p2pfl_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -8,14 +8,16 @@ the causal mask compares *global* positions: ``q_offset`` / ``kv_offset`` give
 the position of the first row of q / k, so ring attention can fold chunks of
 one long sequence.
 
-The flash path has four kernels (``csrc/flash_attn.cu``, bound in
-:mod:`._kernels`): the forward, written with or without the per-row
-logsumexp, the dq kernel, the dk/dv kernel, and the carry fold that ring
-attention runs once per kv chunk. Each has a plain PyTorch version here with
-the same arithmetic — inputs upcast to f32, q scaled in f32, the causal mask
-writes :data:`DEFAULT_MASK_VALUE`, ``l`` clamped at 1e-30 — that the CPU tests
-hold against the JAX package and that the card's smoke run holds each kernel
-against. :func:`flash_forward`, :func:`flash_backward_dq`,
+The flash path has four kernels (``csrc/``, bound in :mod:`._kernels`): the
+forward, written with or without the per-row logsumexp (bf16 on the tensor
+cores in ``flash_fwd_sm90.cu``, f32 on the CUDA cores in ``flash_attn.cu``),
+the dq kernel, the dk/dv kernel, and the carry fold that ring attention runs
+once per kv chunk. Each has a plain PyTorch version here with the same
+arithmetic — inputs upcast to f32, q scaled in f32, the causal mask writes
+:data:`DEFAULT_MASK_VALUE`, ``l`` clamped at 1e-30 — that the CPU tests hold
+against the JAX package and that the card's smoke run holds each kernel
+against. The one rounding the bf16 forward adds, P split into two bf16
+halves for the tensor cores, is bounded by :func:`plain_flash_row_mass`. :func:`flash_forward`, :func:`flash_backward_dq`,
 :func:`flash_backward_dkv` and :func:`flash_chunk_update` pick between them
 by where the tensors live: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernel (or raises), anything else raises.
@@ -153,6 +155,17 @@ def plain_flash_forward(
     return out.to(q.dtype), lse
 
 
+def plain_flash_row_mass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
+    """``[B,Sq,H,D]`` f32 ``sum_j (p_j / l) |v_j|``: each output element's
+    absolute weighted mass. The bf16 forward kernel multiplies P split as
+    ``P_hi + P_lo`` (two bf16 halves, within 2^-17 P of P), so its output may
+    differ from the plain version's by a small multiple of this mass beyond
+    the output's own bf16 rounding."""
+    s = _scores(q, k, causal)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float().abs())
+
+
 def _probs_and_dscores(q, k, v, do, lse, delta, causal):
     p = torch.exp(_scores(q, k, causal) - lse[..., None])  # masked entries -> exactly 0
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
@@ -231,8 +244,8 @@ def flash_chunk_update(
     ``kv_offset``) into the carry of queries ``q [B, Sq, H, D]`` at
     ``q_offset``; returns the new, unnormalized carry (new tensors: the
     incoming carry is left as it was). ``block_q``/``block_k`` are the JAX
-    package's tile requests; the kernel owns its tiling (64 x 64), so they
-    are only validated."""
+    package's tile requests; the kernel owns its tiling, so they are only
+    validated."""
     if block_q < 1 or block_k < 1:
         raise ValueError(f"block sizes must be >= 1, got {block_q}, {block_k}")
     if _route(q) == "cuda":
@@ -300,7 +313,7 @@ def flash_attention(
     Under autograd the forward writes the logsumexp for the backward; a
     call that needs no gradient (evaluation) runs the forward that writes
     none. ``block_q``/``block_k`` are the JAX package's tile requests; here
-    the kernel owns its tiling (64 x 64) and masks ragged tails, and the
+    the kernels own their tiling and mask ragged tails, and the
     result does not depend on them, so they are only validated (``block_k``
     is also the key block of the ``"remat"`` backward). ``bwd_kernel``:
     ``"pallas"`` (the name the JAX package gives its kernel backward: here

@@ -81,11 +81,24 @@ def test_cuda_without_a_card_raises(monkeypatch):
         resolve_device("meta")
 
 
-def test_library_path_follows_the_source():
+def test_library_path_follows_the_source(tmp_path, monkeypatch):
     path = _kernels.library_path()
     assert path.parent == _kernels.BUILD_DIR and path.suffix == ".so"
-    assert _kernels.SOURCE.is_file()
+    assert [src.name for src in _kernels.SOURCES] == ["flash_attn.cu", "flash_fwd_sm90.cu"]
+    assert all(src.is_file() for src in _kernels.SOURCES)
     assert "arch=compute_90a,code=sm_90a" in _kernels.NVCC_FLAGS
+    # The library's name follows the content of every source.
+    copies = []
+    for src in _kernels.SOURCES:
+        copies.append(tmp_path / src.name)
+        copies[-1].write_bytes(src.read_bytes())
+    monkeypatch.setattr(_kernels, "SOURCES", tuple(copies))
+    assert _kernels.library_path() == path
+    for copy in copies:
+        copy.write_bytes(copy.read_bytes() + b"// edited\n")
+        edited = _kernels.library_path()
+        assert edited != path
+        path = edited
 
 
 # --- on the card ---------------------------------------------------------------
@@ -106,16 +119,23 @@ def cuda_device():
         (1024, True, torch.bfloat16),
         (1000, True, torch.bfloat16),
         (1024, False, torch.bfloat16),
+        (1, True, torch.bfloat16),
+        (129, True, torch.bfloat16),
         (200, True, torch.float32),
     ],
 )
 def test_kernels_match_plain_versions_on_card(cuda_device, s, causal, dtype):
     q, k, v, g = _qkv(0, (8, s, 8, 64), dtype, cuda_device)
-    # Kernel and plain version both compute in f32 and differ only in the
-    # order of their sums, so a bf16 output may differ by the one ulp that
-    # rounding two nearly equal f32 values can put between them, and no more.
+    # The backward kernels and the plain versions compute in f32 and differ
+    # only in the order of their sums, so a bf16 gradient may differ by the
+    # one ulp that rounding two nearly equal f32 values can put between
+    # them, and no more. The bf16 forward also splits P into two bf16
+    # halves for the tensor cores: its bar adds 2^-15 of the row's weighted
+    # mass (_within_split_p_bar).
     if dtype == torch.bfloat16:
-        close, close_grad = _within_one_bf16_ulp, _within_one_bf16_ulp
+        mass = port.plain_flash_row_mass(q, k, v, causal)
+        close = lambda a, b: _within_split_p_bar(a, b, mass)  # noqa: E731
+        close_grad = _within_one_bf16_ulp
     else:
         close = lambda a, b: torch.testing.assert_close(a, b, atol=1e-5, rtol=0)  # noqa: E731
         close_grad = lambda a, b: torch.testing.assert_close(a, b, atol=1e-4, rtol=0)  # noqa: E731
@@ -136,15 +156,73 @@ def test_kernels_match_plain_versions_on_card(cuda_device, s, causal, dtype):
         close_grad(a, b)
 
 
+def _bf16_ulp(ref):
+    _, exp = torch.frexp(ref)  # ref = m * 2**exp with 0.5 <= |m| < 1
+    return torch.where(ref == 0, torch.zeros_like(ref), torch.ldexp(torch.ones_like(ref), exp - 8))
+
+
 def _within_one_bf16_ulp(got, ref):
     """Every element of ``got`` within one bf16 ulp of ``ref`` (plus 1e-6,
     for values so near zero that the f32 sums' own rounding shows)."""
     got, ref = got.float(), ref.float()
-    _, exp = torch.frexp(ref)  # ref = m * 2**exp with 0.5 <= |m| < 1
-    ulp = torch.where(ref == 0, torch.zeros_like(ref), torch.ldexp(torch.ones_like(ref), exp - 8))
     diff = (got - ref).abs()
-    bad = diff > 1e-6 + ulp
+    bad = diff > 1e-6 + _bf16_ulp(ref)
     assert not bad.any(), f"{int(bad.sum())} elements over one bf16 ulp, max diff {float(diff.max()):.3e}"
+
+
+def _within_split_p_bar(got, ref, mass):
+    """The bf16 forward's bar: |got - ref| <= 1e-6 + 1 bf16 ulp(ref) +
+    2^-15 * mass, with ``mass = (P / l) @ |V|`` from the plain side. The
+    kernel's P_hi + P_lo is within 2^-17 P of P, so 2^-15 leaves 4x room for
+    f32 sum-order noise; a single bf16 P (2^-9 P) does not fit."""
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs()
+    bad = diff > 1e-6 + _bf16_ulp(ref) + 2.0**-15 * mass
+    assert not bad.any(), f"{int(bad.sum())} elements over the split-P bar, max diff {float(diff.max()):.3e}"
+
+
+def _emulated_forward(q, k, v, causal, split):
+    """The bf16 forward's arithmetic on the CPU: f32 scores and softmax as
+    the plain version computes them, then P . V with P either split into
+    two bf16 halves (``P_hi . V + P_lo . V``, the kernel's choice) or
+    rounded once to bf16, both products exact and summed in f32."""
+    s = port._scores(q, k, causal)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    hi = p.to(torch.bfloat16).float()
+    parts = [hi, (p - hi).to(torch.bfloat16).float()] if split else [hi]
+    pv = sum(torch.einsum("bhqk,bkhd->bqhd", part, v.float()) for part in parts)
+    return (pv / l.squeeze(-1).transpose(1, 2)[..., None]).to(q.dtype)
+
+
+@pytest.mark.parametrize("shape,causal", [((2, 64, 2, 64), True), ((2, 129, 2, 64), True),
+                                          ((2, 100, 2, 64), False)])
+def test_split_p_bar_holds_the_split_at_small_shapes(shape, causal):
+    q, k, v, _ = _qkv(11, shape, torch.bfloat16)
+    out_p, _ = port.plain_flash_forward(q, k, v, causal)
+    mass = port.plain_flash_row_mass(q, k, v, causal)
+    assert mass.shape == q.shape and bool((mass > 0).all())
+    _within_split_p_bar(_emulated_forward(q, k, v, causal, split=True), out_p, mass)
+
+
+def test_split_p_bar_refuses_a_single_bf16_p_where_values_cancel():
+    # One query, two keys: scores 0.405 and 0, so p is ~0.6 / 0.4 (neither a
+    # bf16 value), and values 1 and -1.5 nearly cancel in column 0 (out
+    # ~7e-4, bar ~4e-5). One bf16 P is off by ~5e-4 there; the split is not.
+    q = torch.zeros(1, 1, 1, 64)
+    k = torch.zeros(1, 2, 1, 64)
+    v = torch.zeros(1, 2, 1, 64)
+    q[0, 0, 0, 0], k[0, 0, 0, 0] = 1.0, 8 * 0.405
+    v[0, :, 0, 0] = torch.tensor([1.0, -1.5])
+    v[0, :, 0, 1] = torch.tensor([0.25, 0.5])
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    out_p, _ = port.plain_flash_forward(q, k, v, False)
+    mass = port.plain_flash_row_mass(q, k, v, False)
+    assert 0 < abs(float(out_p[0, 0, 0, 0])) < 1e-2  # the cancelling column
+    _within_split_p_bar(_emulated_forward(q, k, v, False, split=True), out_p, mass)
+    with pytest.raises(AssertionError, match="over the split-P bar"):
+        _within_split_p_bar(_emulated_forward(q, k, v, False, split=False), out_p, mass)
 
 
 def test_one_bf16_ulp_check_holds_one_ulp_and_refuses_two():
