@@ -7,19 +7,24 @@ Phases, each on its own printed lines:
 
 1. env: the card (``nvidia-smi``), torch / CUDA / nvcc versions, and the
    kernels' build from ``p2pfl_tpu_torch/csrc`` (time and ptxas report:
-   registers and spills of each kernel; the tensor-core forward must not
-   spill), and the count of ``HGMMA`` (wgmma) instructions in each forward
-   instance from ``cuobjdump -sass`` (each bf16 instance must have some).
+   registers and spills of each kernel; the tensor-core forward and
+   backward kernels must not spill, and no bf16 instance of the CUDA-core
+   forward or backward may be compiled), and the count of ``HGMMA`` (wgmma)
+   instructions in each forward and backward instance from ``cuobjdump
+   -sass`` (each bf16 instance must have some).
 2. kernels: each Hopper kernel against its plain PyTorch version on the
    card at the main paths' shapes (bf16 [8, 1024, 8, 64] causal; the eval
    forward at [16, 1024, 8, 64]) plus a ragged S=1000, a non-causal, causal
    S=1 and S=129 (one partial q tile; one full tile and a row) and an f32
-   case; bf16 gradients must lie within one bf16 ulp of the plain
-   version's, the bf16 forward's output within 1e-6 + 1 bf16 ulp + 2^-15 of
-   its row's weighted mass sum_j (p_j / l) |v_j| (it splits P into two bf16
-   halves for the tensor cores), f32 outputs within the JAX package's f32
-   tolerances, lse within 1e-5; the forward without lse must equal the one
-   with it bit for bit. Then each
+   case; the bf16 forward's output must lie within 1e-6 + 1 bf16 ulp +
+   2^-15 of its row's weighted mass sum_j (p_j / l) |v_j| of the plain
+   version's (it splits P into two bf16 halves for the tensor cores), the
+   bf16 gradients within 1e-6 + 1 bf16 ulp + 2^-15 of their weighted mass
+   (``plain_flash_grad_mass``: scale |dS| @ |K|, scale |dS|^T @ |Q|,
+   P^T @ |dO|, with dS's own f32 rounding floor beside |dS|; the backward
+   splits dS, dS^T and P^T alike), f32 outputs
+   within the JAX package's f32 tolerances, lse within 1e-5; the forward
+   without lse must equal the one with it bit for bit. Then each
    kernel's time (CUDA events over many launches after a warm-up), its
    plain version's time, the library's time as a yardstick (never called by
    the port: ``aten._scaled_dot_product_flash_attention``, which also returns
@@ -80,11 +85,12 @@ EVAL_SEQS = 16
 
 SOURCE = "p2pfl_tpu_torch/csrc/flash_attn.cu"
 SOURCE_FWD = "p2pfl_tpu_torch/csrc/flash_fwd_sm90.cu"  # the bf16 forward the slice runs
+SOURCE_BWD = "p2pfl_tpu_torch/csrc/flash_bwd_sm90.cu"  # the bf16 backward pair the slice runs
 KERNEL_ROWS = {  # name -> (replaced TPU kernel body, launches per round on the slice, source)
     "flash_fwd": ("p2pfl_tpu/ops/attention.py:183", LAYERS * (SEQS // BATCH) * COMMITTEE, SOURCE_FWD),
     "flash_fwd_no_lse": ("p2pfl_tpu/ops/attention.py:243", LAYERS, SOURCE_FWD),
-    "flash_bwd_dq": ("p2pfl_tpu/ops/attention.py:326", LAYERS * (SEQS // BATCH) * COMMITTEE, SOURCE),
-    "flash_bwd_dkv": ("p2pfl_tpu/ops/attention.py:370", LAYERS * (SEQS // BATCH) * COMMITTEE, SOURCE),
+    "flash_bwd_dq": ("p2pfl_tpu/ops/attention.py:326", LAYERS * (SEQS // BATCH) * COMMITTEE, SOURCE_BWD),
+    "flash_bwd_dkv": ("p2pfl_tpu/ops/attention.py:370", LAYERS * (SEQS // BATCH) * COMMITTEE, SOURCE_BWD),
 }
 
 # Sequence-parallel (ring) configuration: the same model over 8192 tokens
@@ -143,7 +149,8 @@ def max_err(got, ref, what: str, atol: float, bf16_ulps: int = 0, mass=None) -> 
     """Max |got - ref|; fails unless every element is within atol plus
     ``bf16_ulps`` bf16 ulps of ``ref`` (the ulp of ``ref``'s own binade),
     plus ``2^-15 * mass`` where a weighted mass is given (the bf16 forward:
-    ``mass = (P / l) @ |V|`` from the plain side)."""
+    ``mass = (P / l) @ |V|``; the bf16 gradients: ``plain_flash_grad_mass``;
+    both from the plain side)."""
     import torch
 
     got, ref = got.float(), ref.float()
@@ -204,35 +211,42 @@ def phase_env() -> str:
         m = re.search(r"(flash_fwd_kernel|flash_bwd_dq_kernel|flash_bwd_dkv_kernel|flash_carry_kernel)"
                       r"I(13__nv_bfloat16|f)Li(\d+)E(?:Lb(\d)E)?", line)
         m90 = re.search(r"flash_fwd_sm90_kernelILb(\d)E", line)
+        mb90 = re.search(r"(flash_bwd_dq_sm90_kernel|flash_bwd_dkv_sm90_kernel)", line)
         if m:
             entry = f"{m[1]}<{'bf16' if m[2] != 'f' else 'f32'}, D={m[3]}{', lse=' + m[4] if m[4] else ''}>"
         elif m90:
             entry = f"flash_fwd_sm90_kernel<bf16, D=64, lse={m90[1]}>"
+        elif mb90:
+            entry = f"{mb90[1]}<bf16, D=64>"
         elif entry and "spill stores" in line:
             spill = re.search(r"(\d+) bytes spill stores", line)[1]
         elif entry and "registers" in line:
             regs = re.search(r"Used (\d+) registers", line)[1]
             print(f"[env] ptxas {entry}: {regs} registers, {spill} bytes spilled")
             seen.append(entry)
-            if entry.startswith("flash_fwd_sm90"):
+            if "_sm90_kernel" in entry:  # the tensor-core kernels
                 check(spill == "0", f"{entry} spills {spill} bytes")
             entry = None
     check(sum(e.startswith("flash_fwd_sm90") for e in seen) == 2,
           "the build log lacks the two tensor-core forward instances")
-    check(not any(e.startswith("flash_fwd_kernel<bf16") for e in seen),
-          "a bf16 instance of the CUDA-core forward was compiled")
+    check(all(any(e.startswith(f"flash_bwd_{k}_sm90") for e in seen) for k in ("dq", "dkv")),
+          "the build log lacks a tensor-core backward kernel")
+    for simt in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+        check(not any(e.startswith(f"{simt}<bf16") for e in seen),
+              f"a bf16 instance of the CUDA-core {simt} was compiled")
     phase_sass(path, _kernels._find_nvcc())
     return card
 
 
 def phase_sass(lib, nvcc: str) -> None:
-    """Count the HGMMA (wgmma) instructions in each forward instance of the
-    built library with ``cuobjdump -sass``, found beside ``nvcc``."""
+    """Count the HGMMA (wgmma) instructions in each forward and backward
+    instance of the built library with ``cuobjdump -sass``, found beside
+    ``nvcc``."""
     import os
 
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     if not os.path.isfile(tool):
-        print("[env] HGMMA per forward instance: not measured (no cuobjdump beside nvcc)")
+        print("[env] HGMMA per forward / backward instance: not measured (no cuobjdump beside nvcc)")
         return
     out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=120)
     check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()[-500:]}")
@@ -245,11 +259,13 @@ def phase_sass(lib, nvcc: str) -> None:
             counts.setdefault(fn, 0)
         elif fn and "HGMMA" in line:
             counts[fn] += 1
-    fwd = {name: n for name, n in counts.items() if "flash_fwd" in name}
-    for name, n in sorted(fwd.items()):
+    shown = {name: n for name, n in counts.items() if "flash_fwd" in name or "flash_bwd" in name}
+    for name, n in sorted(shown.items()):
         print(f"[env] HGMMA in {name}: {n}")
-    sm90 = [n for name, n in fwd.items() if "flash_fwd_sm90_kernel" in name]
+    sm90 = [n for name, n in shown.items() if "flash_fwd_sm90_kernel" in name]
     check(len(sm90) == 2 and all(n > 0 for n in sm90), "a bf16 forward instance holds no HGMMA instruction")
+    bwd90 = [n for name, n in shown.items() if "flash_bwd_dq_sm90" in name or "flash_bwd_dkv_sm90" in name]
+    check(len(bwd90) == 2 and all(n > 0 for n in bwd90), "a bf16 backward kernel holds no HGMMA instruction")
 
 
 def phase_kernels() -> dict:
@@ -270,7 +286,9 @@ def phase_kernels() -> dict:
     # one (rounding two nearly equal f32 values), and no further; 1e-6 covers
     # values so near zero that the f32 sums' own rounding shows. The bf16
     # forward multiplies P as two bf16 halves (within 2^-17 P of P), so its
-    # output gets 2^-15 of the row's weighted mass (P / l) @ |V| beyond that.
+    # output gets 2^-15 of the row's weighted mass (P / l) @ |V| beyond that;
+    # the bf16 backward splits dS, dS^T and P^T alike, so each gradient gets
+    # 2^-15 of its own weighted mass (plain_flash_grad_mass).
     # f32 outputs are held to the JAX package's f32 tolerances (forward
     # 1e-5, gradients 1e-4), lse to 1e-5 in every case.
     tols = {torch.bfloat16: ({"atol": 1e-6, "bf16_ulps": 1},) * 2,
@@ -297,9 +315,11 @@ def phase_kernels() -> dict:
         dk, dv = _kernels.flash_bwd_dkv(q, k, v, g, lse, delta, causal)
         dq_p = att.plain_flash_backward_dq(q, k, v, g, lse, delta, causal)
         dk_p, dv_p = att.plain_flash_backward_dkv(q, k, v, g, lse, delta, causal)
-        e_dq = max_err(dq, dq_p, "flash_bwd_dq dq", **grad_tol)
-        e_dkv = max(max_err(dk, dk_p, "flash_bwd_dkv dk", **grad_tol),
-                    max_err(dv, dv_p, "flash_bwd_dkv dv", **grad_tol))
+        masses = (att.plain_flash_grad_mass(q, k, v, g, lse, delta, causal) if dtype == torch.bfloat16
+                  else (None, None, None))  # the tensor-core backward splits dS, dS^T and P^T
+        e_dq = max_err(dq, dq_p, "flash_bwd_dq dq", **grad_tol, mass=masses[0])
+        e_dkv = max(max_err(dk, dk_p, "flash_bwd_dkv dk", **grad_tol, mass=masses[1]),
+                    max_err(dv, dv_p, "flash_bwd_dkv dv", **grad_tol, mass=masses[2]))
         if not main:
             continue
         # Library yardsticks on the same inputs, never called by the port: the
@@ -337,8 +357,10 @@ def phase_kernels() -> dict:
                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
         print(f"[kernels] library (not used by the port): aten flash forward with logsumexp (row 1's "
               f"library_ms) {flash_fwd_lib:.4f} ms, sdpa forward {sdpa_fwd:.4f} ms, flash backward "
-              f"(dq, dk, dv in one call; the library_ms of both backward rows) {sdpa_bwd:.4f} ms; port dq + dk/dv "
-              f"{rows['flash_bwd_dq']['ms'] + rows['flash_bwd_dkv']['ms']:.4f} ms")
+              f"(dq, dk, dv in one call; the library_ms of both backward rows) {sdpa_bwd:.4f} ms")
+        pair = rows["flash_bwd_dq"]["ms"] + rows["flash_bwd_dkv"]["ms"]
+        print(f"[kernels] bwd: dq {rows['flash_bwd_dq']['ms']:.4f} + dk/dv {rows['flash_bwd_dkv']['ms']:.4f} = "
+              f"{pair:.4f} ms against the aten flash backward's {sdpa_bwd:.4f} ms ({pair / sdpa_bwd:.2f}x of it)")
 
     # The eval forward (no logsumexp) at its own shape on the slice.
     print(f"[kernels] B={EVAL_SEQS} S={SEQ_LEN} H={HEADS} D={EMBED // HEADS} bfloat16 causal=True (no lse)")

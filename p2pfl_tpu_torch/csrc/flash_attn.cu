@@ -5,11 +5,13 @@
 // Replaces the Pallas TPU kernels of p2pfl_tpu/ops/attention.py:
 //   flash_fwd<with_lse=true>   <- _flash_kernel          (pallas_call at :308), f32 only
 //   flash_fwd<with_lse=false>  <- _flash_kernel_no_lse   (pallas_call at :298), f32 only
-//   flash_bwd_dq               <- _flash_bwd_dq_kernel   (pallas_call at :446)
-//   flash_bwd_dkv              <- _flash_bwd_dkv_kernel  (pallas_call at :463)
+//   flash_bwd_dq               <- _flash_bwd_dq_kernel   (pallas_call at :446), f32 only
+//   flash_bwd_dkv              <- _flash_bwd_dkv_kernel  (pallas_call at :463), f32 only
 //   flash_carry                <- _flash_carry_kernel    (pallas_call at :590)
-// The bf16 forward is flash_fwd_sm90.cu's tensor-core kernel, launched from
-// p2pfl_flash_fwd below; no bf16 call reaches flash_fwd_kernel.
+// The bf16 forward is flash_fwd_sm90.cu's tensor-core kernel and the bf16
+// backward pair flash_bwd_sm90.cu's, launched from p2pfl_flash_fwd /
+// p2pfl_flash_bwd_dq / p2pfl_flash_bwd_dkv below; no bf16 call reaches
+// flash_fwd_kernel or the flash_bwd_*_kernel pair here.
 //
 // What it computes is what the TPU kernels compute: inputs are upcast to f32
 // inside the kernel, q is scaled by 1/sqrt(D) in f32, every product and sum
@@ -26,14 +28,15 @@
 //   * tensors stay in the [B, S, H, D] layout of the public API (a row of one
 //     head is D contiguous elements), so no transpose runs around the call.
 //
-// What bounds it on this card: at the slice's shapes ([8, 1024, 8, 64] bf16,
+// What bounds it on this card: at the slice's shapes ([8, 1024, 8, 64],
 // causal) the work sits near the H100's ridge (~300 bf16 FLOP per byte): the
 // forward's ~S/4 = 256 FLOP per byte makes its bound the bytes, the backward
 // pair's ~300-340 makes theirs the operations. Either bound is ~10-17 us at
 // the H100 SXM data-sheet peaks (989 TFLOP/s bf16, 3.35 TB/s).
-// This first version is held far above both by arithmetic: it does every
+// These kernels are held far above both by arithmetic: they do every
 // product on the CUDA cores in f32, whose peak is 67 TFLOP/s against the
-// 989 TFLOP/s of the bf16 tensor cores. The design keeps the working set on
+// 989 TFLOP/s of the bf16 tensor cores (which the *_sm90.cu sources use for
+// bf16). The design keeps the working set on
 // chip so that the f32 rate is the only limit: one 64-row q (or k) tile
 // per block, K/V (or Q/dO) tiles staged in shared memory padded by one
 // column so that the strided row reads are free of bank conflicts, the
@@ -655,9 +658,10 @@ cudaError_t launch_carry(const void* q, const void* k, const void* v, const floa
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Head size 64, the only one a supported
-// configuration uses; another size is one more instance here and in
-// ops/_kernels.py HEAD_DIMS.
+// dtype: 0 = float32, 1 = bfloat16 (the carry fold; the forward and the
+// backward pair dispatch by hand below). Head size 64, the only one a
+// supported configuration uses; another size is one more instance here and
+// in ops/_kernels.py HEAD_DIMS.
 #define DISPATCH(DTYPE, HEAD_DIM, CALL)                              \
   do {                                                               \
     if ((HEAD_DIM) != 64) return int(cudaErrorInvalidValue);         \
@@ -677,6 +681,12 @@ cudaError_t launch_carry(const void* q, const void* k, const void* v, const floa
 namespace p2pfl {
 cudaError_t launch_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                                   int Sq, int Sk, int H, float scale, bool causal, cudaStream_t stream);
+cudaError_t launch_flash_bwd_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
+                                     const float* lse, const float* delta, void* dq, int B, int Sq, int Sk, int H,
+                                     float scale, bool causal, cudaStream_t stream);
+cudaError_t launch_flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
+                                      const float* lse, const float* delta, void* dk, void* dv, int B, int Sq,
+                                      int Sk, int H, float scale, bool causal, cudaStream_t stream);
 }
 
 extern "C" {
@@ -694,20 +704,32 @@ int p2pfl_flash_fwd(const void* q, const void* k, const void* v, void* o, float*
   return int(cudaErrorInvalidValue);
 }
 
+// bf16 runs the tensor-core pair of flash_bwd_sm90.cu, f32 the CUDA-core
+// kernels above.
 int p2pfl_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dq, int B, int Sq, int Sk,
                        int H, int head_dim, int dtype, float scale, int causal, void* stream) {
-  DISPATCH(dtype, head_dim,
-           int(launch_dq<T, D>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, scale, causal != 0,
-                               static_cast<cudaStream_t>(stream))));
+  if (head_dim != 64) return int(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return int(launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, scale, causal != 0, s));
+  if (dtype == 1)
+    return int(p2pfl::launch_flash_bwd_dq_sm90(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, scale,
+                                               causal != 0, s));
+  return int(cudaErrorInvalidValue);
 }
 
 int p2pfl_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                         const float* lse, const float* delta, void* dk, void* dv, int B, int Sq,
                         int Sk, int H, int head_dim, int dtype, float scale, int causal, void* stream) {
-  DISPATCH(dtype, head_dim,
-           int(launch_dkv<T, D>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, scale,
-                                causal != 0, static_cast<cudaStream_t>(stream))));
+  if (head_dim != 64) return int(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return int(launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, scale, causal != 0, s));
+  if (dtype == 1)
+    return int(p2pfl::launch_flash_bwd_dkv_sm90(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, scale,
+                                                causal != 0, s));
+  return int(cudaErrorInvalidValue);
 }
 
 // m / l: [B, H, Sq] f32; acc: [B, Sq, H, D] f32; *_in and *_out must not overlap.

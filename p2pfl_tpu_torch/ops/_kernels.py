@@ -3,8 +3,9 @@
 The CUDA sources are compiled at first use with ``nvcc`` for ``sm_90a``, one
 ``nvcc`` per source, all started together, and linked into one shared
 library with a plain C interface under ``<repo>/build/`` (named by a hash of
-the sources and flags, so an edited source is rebuilt), then loaded with
-:mod:`ctypes`. Nothing is built when this module is imported.
+the sources, the headers they include and the flags, so an edited file is
+rebuilt), then loaded with :mod:`ctypes`. Nothing is built when this module
+is imported.
 
 Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, allocates its outputs with ``torch.empty``, launches on the
@@ -29,9 +30,11 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = (
-    _PKG / "csrc" / "flash_attn.cu",  # f32 forward, backward pair, carry fold
+    _PKG / "csrc" / "flash_attn.cu",  # f32 forward and backward pair, carry fold, the C entry points
     _PKG / "csrc" / "flash_fwd_sm90.cu",  # bf16 forward on the tensor cores
+    _PKG / "csrc" / "flash_bwd_sm90.cu",  # bf16 backward pair (dq; dk/dv) on the tensor cores
 )
+HEADERS = (_PKG / "csrc" / "sm90_common.cuh",)  # included by the *_sm90.cu sources
 BUILD_DIR = _PKG.parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -72,9 +75,9 @@ def _find_nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in (*SOURCES, *HEADERS):
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     digest = h.hexdigest()
     return BUILD_DIR / f"flash_attn_{digest[:16]}.so"
@@ -177,6 +180,12 @@ def _check_rows(name: str, q: torch.Tensor, *rows: torch.Tensor) -> None:
             raise ValueError(f"{name}: row statistics must be on {q.device}")
 
 
+def _check_aligned(name: str, *ts: torch.Tensor) -> None:
+    """The tensor-core kernels' TMA loads need 16-byte-aligned bf16 tensors."""
+    if ts[0].dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{name}: bf16 tensors must be 16-byte aligned (TMA)")
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -192,8 +201,7 @@ def flash_fwd(
     lib = _load()
     b, sq, h, d = q.shape
     out = torch.empty_like(q)
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v, out)):
-        raise ValueError("flash_fwd: bf16 tensors must be 16-byte aligned (TMA)")
+    _check_aligned("flash_fwd", q, k, v, out)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
     code = lib.p2pfl_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -209,7 +217,10 @@ def flash_bwd_dq(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor, causal: bool,
 ) -> torch.Tensor:
-    """Kernel dq from the forward's ``lse`` and ``delta = rowsum(dO * O)``."""
+    """Kernel dq from the forward's ``lse`` and ``delta = rowsum(dO * O)``.
+
+    bf16 runs the tensor-core kernel (16-byte-aligned tensors, as the
+    forward); f32 runs the CUDA-core kernel."""
     _check_qkv("flash_bwd_dq", q, k, v)
     _check_bshd("flash_bwd_dq", q, do)
     if do.shape != q.shape:
@@ -218,6 +229,7 @@ def flash_bwd_dq(
     lib = _load()
     b, sq, h, d = q.shape
     dq = torch.empty_like(q)
+    _check_aligned("flash_bwd_dq", q, k, v, do, dq)
     code = lib.p2pfl_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(),
@@ -232,7 +244,8 @@ def flash_bwd_dkv(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor, causal: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel ``(dk, dv)`` from the forward's ``lse`` and ``delta``."""
+    """Kernel ``(dk, dv)`` from the forward's ``lse`` and ``delta``; bf16 and
+    f32 as :func:`flash_bwd_dq`."""
     _check_qkv("flash_bwd_dkv", q, k, v)
     _check_bshd("flash_bwd_dkv", q, do)
     if do.shape != q.shape:
@@ -242,6 +255,7 @@ def flash_bwd_dkv(
     b, sq, h, d = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    _check_aligned("flash_bwd_dkv", q, k, v, do, dk, dv)
     code = lib.p2pfl_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),

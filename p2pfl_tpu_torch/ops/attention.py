@@ -9,15 +9,18 @@ the position of the first row of q / k, so ring attention can fold chunks of
 one long sequence.
 
 The flash path has four kernels (``csrc/``, bound in :mod:`._kernels`): the
-forward, written with or without the per-row logsumexp (bf16 on the tensor
-cores in ``flash_fwd_sm90.cu``, f32 on the CUDA cores in ``flash_attn.cu``),
-the dq kernel, the dk/dv kernel, and the carry fold that ring attention runs
-once per kv chunk. Each has a plain PyTorch version here with the same
-arithmetic — inputs upcast to f32, q scaled in f32, the causal mask writes
-:data:`DEFAULT_MASK_VALUE`, ``l`` clamped at 1e-30 — that the CPU tests hold
-against the JAX package and that the card's smoke run holds each kernel
-against. The one rounding the bf16 forward adds, P split into two bf16
-halves for the tensor cores, is bounded by :func:`plain_flash_row_mass`. :func:`flash_forward`, :func:`flash_backward_dq`,
+forward, written with or without the per-row logsumexp, the dq kernel, the
+dk/dv kernel (bf16 on the tensor cores in ``flash_fwd_sm90.cu`` and
+``flash_bwd_sm90.cu``, f32 on the CUDA cores in ``flash_attn.cu``), and the
+carry fold that ring attention runs once per kv chunk. Each has a plain
+PyTorch version here with the same arithmetic — inputs upcast to f32, q
+scaled in f32, the causal mask writes :data:`DEFAULT_MASK_VALUE`, ``l``
+clamped at 1e-30 — that the CPU tests hold against the JAX package and that
+the card's smoke run holds each kernel against. The one rounding the bf16
+tensor-core kernels add, the f32 operand of their second product (P in the
+forward; dS, P^T and dS^T in the backward) split into two bf16 halves, is
+bounded by :func:`plain_flash_row_mass` and :func:`plain_flash_grad_mass`.
+:func:`flash_forward`, :func:`flash_backward_dq`,
 :func:`flash_backward_dkv` and :func:`flash_chunk_update` pick between them
 by where the tensors live: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernel (or raises), anything else raises.
@@ -170,6 +173,34 @@ def _probs_and_dscores(q, k, v, do, lse, delta, causal):
     p = torch.exp(_scores(q, k, causal) - lse[..., None])  # masked entries -> exactly 0
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
     return p, p * (dp - delta[..., None])
+
+
+def plain_flash_grad_mass(
+    q, k, v, do, lse, delta, causal: bool
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """f32 ``(dq_mass, dk_mass, dv_mass)``, shaped like ``(q, k, v)``: each
+    gradient element's absolute weighted mass, ``scale * W @ |K|``,
+    ``scale * W^T @ |Q|`` and ``P^T @ |dO|`` with
+    ``W = |dS| + 2^-5 P (|dO| @ |V|^T + |delta|)``.
+
+    The bf16 backward kernels multiply dS, dS^T and P^T split as
+    ``X_hi + X_lo`` (two bf16 halves, within 2^-17 X of X), so their
+    gradients may differ from the plain versions' by a small multiple of
+    ``|dS|`` (``P``) times the other factor, beyond their own bf16 rounding.
+    The second term of ``W`` is the f32 rounding floor of ``dS = P (dP -
+    delta)`` itself: where dP and delta cancel (a row that sees only its own
+    key has P = 1 and out = v, so dS is exactly 0) both sides return f32
+    noise of the size of one rounding of the sums ``dO . V`` and ``delta``,
+    which ``|dS|`` does not measure; ``2^-15 * 2^-5`` of their absolute mass
+    is 16 f32 ulps of it."""
+    p, ds = _probs_and_dscores(q, k, v, do, lse, delta, causal)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    sums = torch.einsum("bqhd,bkhd->bhqk", do.float().abs(), v.float().abs()) + delta.abs()[..., None]
+    w = ds.abs() + 2.0**-5 * p * sums
+    dq_mass = scale * torch.einsum("bhqk,bkhd->bqhd", w, k.float().abs())
+    dk_mass = scale * torch.einsum("bhqk,bqhd->bkhd", w, q.float().abs())
+    dv_mass = torch.einsum("bhqk,bqhd->bkhd", p, do.float().abs())
+    return dq_mass, dk_mass, dv_mass
 
 
 def plain_flash_backward_dq(q, k, v, do, lse, delta, causal: bool) -> torch.Tensor:

@@ -1,0 +1,190 @@
+#!/usr/bin/env python3
+"""Time compile-time variants of the port's bf16 tensor-core kernels on one card.
+
+    python3 scripts/torch_kernel_variants.py fwd   # the forward (flash_fwd_sm90.cu)
+    python3 scripts/torch_kernel_variants.py bwd   # the backward pair (flash_bwd_sm90.cu)
+
+Each variant is the chosen source under ``p2pfl_tpu_torch/csrc/`` with some
+of its text replaced (``VARIANTS`` below), built with the package's other
+sources into a library of its own under ``build/variants/`` (one ``nvcc``
+per file, all at once) and loaded with ctypes. ``fwd`` runs the forward
+with lse at [8, 1024, 8, 64] bf16 causal and the one without at
+[16, 1024, 8, 64]; ``bwd`` runs dq and dk/dv at [8, 1024, 8, 64] bf16
+causal. Every variant's outputs must equal the package's kernels' bit for
+bit (the variants change scheduling, not arithmetic). Times are CUDA events
+over 50 launches (``chip_smoke.time_ms``), taken in the order A B ... B A
+so that drift shows, with each variant's ptxas registers and spills. Runs
+on the card only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+SOURCES = {"fwd": "flash_fwd_sm90.cu", "bwd": "flash_bwd_sm90.cu"}
+# kernel family -> variant name -> {text in the source: replacement}
+VARIANTS = {
+    "fwd": {
+        "as built": {},
+        "regs 64/216": {"kProducerRegs = 40;": "kProducerRegs = 64;", "kConsumerRegs = 232;": "kConsumerRegs = 216;"},
+        "guarded tile wait": {"mbar_spin(blk.full_bar(s)": "mbar_wait(blk.full_bar(s)"},
+        "3 stages": {"kStages = 2;": "kStages = 3;"},
+    },
+    "bwd": {
+        "as built": {},
+        "regs 56/224": {"kProducerRegs = 40;": "kProducerRegs = 56;", "kConsumerRegs = 232;": "kConsumerRegs = 224;"},
+        "guarded tile wait": {"mbar_spin(blk.full_bar(s)": "mbar_wait(blk.full_bar(s)"},
+        "3 stages": {"kStages = 2;  // K / V ring depth": "kStages = 3;  // K / V ring depth",
+                     "kStages = 2;  // Q / dO ring depth": "kStages = 3;  // Q / dO ring depth"},
+    },
+}
+
+
+def build(family: str, nvcc: str, flags: tuple) -> dict:
+    out_dir = ROOT / "build" / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    csrc = ROOT / "p2pfl_tpu_torch" / "csrc"
+    varied = SOURCES[family]
+    base = (csrc / varied).read_text()
+    jobs = {}
+    for i, (name, subs) in enumerate(VARIANTS[family].items()):
+        text = base
+        for old, new in subs.items():
+            if old not in text:
+                raise SystemExit(f"variant {name!r}: {old!r} is not in the source")
+            text = text.replace(old, new)
+        src = out_dir / f"v{i}_{varied}"
+        src.write_text(text)
+        obj = out_dir / f"v{i}.o"
+        cmd = [nvcc, *flags, "-I", str(csrc), "-c", "-o", str(obj), str(src)]
+        jobs[name] = (i, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    others = [out_dir / f"{Path(name).stem}.o" for name in ("flash_attn.cu", *SOURCES.values()) if name != varied]
+    for obj in others:
+        common = subprocess.run([nvcc, *flags, "-c", "-o", str(obj), str(csrc / f"{obj.stem}.cu")],
+                                capture_output=True, text=True)
+        if common.returncode:
+            raise SystemExit(common.stdout + common.stderr)
+    libs = {}
+    for name, (i, obj, proc) in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise SystemExit(f"variant {name!r} failed to build:\n{log}")
+        lib = out_dir / f"v{i}.so"
+        link = subprocess.run([nvcc, "-shared", "-o", str(lib), str(obj), *map(str, others)],
+                              capture_output=True, text=True)
+        if link.returncode:
+            raise SystemExit(link.stdout + link.stderr)
+        ptxas = [f"{m[1]} registers, {s[1]} bytes spilled"
+                 for s, m in zip(re.finditer(r"(\d+) bytes spill stores", log),
+                                 re.finditer(r"Used (\d+) registers", log))]
+        ptxas += sorted({line.split(":", 1)[-1].strip() for line in log.splitlines()
+                         if "ptxas" in line and ("warning" in line or "Performance" in line)})
+        lib = ctypes.CDLL(str(lib))
+        p, i_, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.p2pfl_flash_fwd.argtypes = [p, p, p, p, p, i_, i_, i_, i_, i_, i_, f, i_, p]
+        lib.p2pfl_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i_, i_, i_, i_, i_, i_, f, i_, p]
+        lib.p2pfl_flash_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i_, i_, i_, i_, i_, i_, f, i_, p]
+        for fn in (lib.p2pfl_flash_fwd, lib.p2pfl_flash_bwd_dq, lib.p2pfl_flash_bwd_dkv):
+            fn.restype = ctypes.c_int
+        libs[name] = (lib, ptxas)
+    return libs
+
+
+def calls(family: str):
+    """{case: (fn(lib) -> outputs, the package's outputs)} for the family."""
+    import torch
+
+    from p2pfl_tpu_torch.ops import _kernels
+
+    gen = torch.Generator().manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def rand(b):
+        return [torch.randn((b, 1024, 8, 64), generator=gen).cuda().to(torch.bfloat16) for _ in range(4)]
+
+    def check(code):
+        if code:
+            raise RuntimeError(f"launch failed: CUDA error {code}")
+
+    cases = {}
+    if family == "fwd":
+        for name, b, with_lse in (("flash_fwd", 8, True), ("flash_fwd_no_lse", 16, False)):
+            q, k, v, _ = rand(b)
+
+            def fwd(lib, q=q, k=k, v=v, with_lse=with_lse):
+                b, sq, h, d = q.shape
+                out = torch.empty_like(q)
+                lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
+                check(lib.p2pfl_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                          lse.data_ptr() if lse is not None else None, b, sq, sq, h, d, 1,
+                                          1.0 / math.sqrt(d), 1, stream))
+                return (out,)
+
+            cases[name] = (fwd, (_kernels.flash_fwd(q, k, v, True, with_lse)[0],))
+        return cases
+    q, k, v, g = rand(8)
+    out, lse = _kernels.flash_fwd(q, k, v, True, True)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    b, sq, h, d = q.shape
+    inputs = (q, k, v, g, lse, delta)  # the closures below hold the tensors, not only their pointers
+
+    def dq(lib):
+        out = torch.empty_like(q)
+        check(lib.p2pfl_flash_bwd_dq(*(t.data_ptr() for t in inputs), out.data_ptr(), b, sq, sq, h, d, 1,
+                                     1.0 / math.sqrt(d), 1, stream))
+        return (out,)
+
+    def dkv(lib):
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        check(lib.p2pfl_flash_bwd_dkv(*(t.data_ptr() for t in inputs), dk.data_ptr(), dv.data_ptr(), b, sq, sq,
+                                      h, d, 1, 1.0 / math.sqrt(d), 1, stream))
+        return dk, dv
+
+    cases["flash_bwd_dq"] = (dq, (_kernels.flash_bwd_dq(q, k, v, g, lse, delta, True),))
+    cases["flash_bwd_dkv"] = (dkv, _kernels.flash_bwd_dkv(q, k, v, g, lse, delta, True))
+    return cases
+
+
+def main() -> int:
+    import torch
+
+    import chip_smoke
+    from p2pfl_tpu_torch.ops import _kernels
+
+    family = sys.argv[1] if len(sys.argv) > 1 else "fwd"
+    if family not in VARIANTS:
+        print(f"usage: torch_kernel_variants.py [{'|'.join(VARIANTS)}]", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("torch_kernel_variants: no CUDA device", file=sys.stderr)
+        return 1
+    print(f"card: {chip_smoke.nvidia_smi()}")
+    libs = build(family, _kernels._find_nvcc(), _kernels.NVCC_FLAGS)
+    cases = calls(family)
+    for vname, (lib, ptxas) in libs.items():
+        same = all(torch.equal(a, b) for fn, refs in cases.values() for a, b in zip(fn(lib), refs))
+        print(f"{vname}: ptxas {ptxas}; outputs equal to the package's kernels: {same}")
+        if not same:
+            return 1
+    order = list(libs) + list(reversed(libs))
+    times = {v: {name: [] for name in cases} for v in libs}
+    for vname in order:
+        for name, (fn, _) in cases.items():
+            times[vname][name].append(chip_smoke.time_ms(lambda: fn(libs[vname][0]), 50))
+    for vname, t in times.items():
+        print(f"{vname}: " + "; ".join(f"{name} {' / '.join(f'{x:.4f}' for x in xs)} ms" for name, xs in t.items()))
+    return 0
+
+
+if __name__ == "__main__":
+    os.chdir(ROOT)
+    sys.exit(main())

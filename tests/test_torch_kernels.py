@@ -84,17 +84,21 @@ def test_cuda_without_a_card_raises(monkeypatch):
 def test_library_path_follows_the_source(tmp_path, monkeypatch):
     path = _kernels.library_path()
     assert path.parent == _kernels.BUILD_DIR and path.suffix == ".so"
-    assert [src.name for src in _kernels.SOURCES] == ["flash_attn.cu", "flash_fwd_sm90.cu"]
-    assert all(src.is_file() for src in _kernels.SOURCES)
+    assert [src.name for src in _kernels.SOURCES] == ["flash_attn.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu"]
+    assert [hdr.name for hdr in _kernels.HEADERS] == ["sm90_common.cuh"]
+    assert all(src.is_file() for src in (*_kernels.SOURCES, *_kernels.HEADERS))
+    for src in _kernels.SOURCES[1:]:  # the tensor-core sources include the header
+        assert '#include "sm90_common.cuh"' in src.read_text()
     assert "arch=compute_90a,code=sm_90a" in _kernels.NVCC_FLAGS
-    # The library's name follows the content of every source.
-    copies = []
-    for src in _kernels.SOURCES:
-        copies.append(tmp_path / src.name)
-        copies[-1].write_bytes(src.read_bytes())
-    monkeypatch.setattr(_kernels, "SOURCES", tuple(copies))
+    # The library's name follows the content of every source and header.
+    copies = {}
+    for group in ("SOURCES", "HEADERS"):
+        copies[group] = tuple(tmp_path / src.name for src in getattr(_kernels, group))
+        for src, copy in zip(getattr(_kernels, group), copies[group]):
+            copy.write_bytes(src.read_bytes())
+        monkeypatch.setattr(_kernels, group, copies[group])
     assert _kernels.library_path() == path
-    for copy in copies:
+    for copy in (*copies["SOURCES"], *copies["HEADERS"]):
         copy.write_bytes(copy.read_bytes() + b"// edited\n")
         edited = _kernels.library_path()
         assert edited != path
@@ -126,19 +130,20 @@ def cuda_device():
 )
 def test_kernels_match_plain_versions_on_card(cuda_device, s, causal, dtype):
     q, k, v, g = _qkv(0, (8, s, 8, 64), dtype, cuda_device)
-    # The backward kernels and the plain versions compute in f32 and differ
-    # only in the order of their sums, so a bf16 gradient may differ by the
-    # one ulp that rounding two nearly equal f32 values can put between
-    # them, and no more. The bf16 forward also splits P into two bf16
-    # halves for the tensor cores: its bar adds 2^-15 of the row's weighted
-    # mass (_within_split_p_bar).
+    # The kernels and the plain versions compute in f32 and differ only in
+    # the order of their sums, so a bf16 output may differ by the one ulp
+    # that rounding two nearly equal f32 values can put between them. The
+    # bf16 kernels also split the f32 operand of their second product into
+    # two bf16 halves for the tensor cores (P in the forward; dS, dS^T and
+    # P^T in the backward): their bar adds 2^-15 of each output element's
+    # weighted mass (_within_split_bar).
     if dtype == torch.bfloat16:
         mass = port.plain_flash_row_mass(q, k, v, causal)
-        close = lambda a, b: _within_split_p_bar(a, b, mass)  # noqa: E731
-        close_grad = _within_one_bf16_ulp
+        close = lambda a, b: _within_split_bar(a, b, mass)  # noqa: E731
+        close_grad = _within_split_bar
     else:
         close = lambda a, b: torch.testing.assert_close(a, b, atol=1e-5, rtol=0)  # noqa: E731
-        close_grad = lambda a, b: torch.testing.assert_close(a, b, atol=1e-4, rtol=0)  # noqa: E731
+        close_grad = lambda a, b, _: torch.testing.assert_close(a, b, atol=1e-4, rtol=0)  # noqa: E731
     out, lse = _kernels.flash_fwd(q, k, v, causal, True)
     out_p, lse_p = port.plain_flash_forward(q, k, v, causal)
     close(out, out_p)
@@ -151,9 +156,10 @@ def test_kernels_match_plain_versions_on_card(cuda_device, s, causal, dtype):
     dk, dv = _kernels.flash_bwd_dkv(q, k, v, g, lse, delta, causal)
     dq_p = port.plain_flash_backward_dq(q, k, v, g, lse, delta, causal)
     dk_p, dv_p = port.plain_flash_backward_dkv(q, k, v, g, lse, delta, causal)
-    for a, b in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+    masses = port.plain_flash_grad_mass(q, k, v, g, lse, delta, causal)
+    for a, b, m in zip((dq, dk, dv), (dq_p, dk_p, dv_p), masses):
         assert torch.isfinite(a.float()).all()
-        close_grad(a, b)
+        close_grad(a, b, m)
 
 
 def _bf16_ulp(ref):
@@ -170,15 +176,17 @@ def _within_one_bf16_ulp(got, ref):
     assert not bad.any(), f"{int(bad.sum())} elements over one bf16 ulp, max diff {float(diff.max()):.3e}"
 
 
-def _within_split_p_bar(got, ref, mass):
-    """The bf16 forward's bar: |got - ref| <= 1e-6 + 1 bf16 ulp(ref) +
-    2^-15 * mass, with ``mass = (P / l) @ |V|`` from the plain side. The
-    kernel's P_hi + P_lo is within 2^-17 P of P, so 2^-15 leaves 4x room for
-    f32 sum-order noise; a single bf16 P (2^-9 P) does not fit."""
+def _within_split_bar(got, ref, mass):
+    """The bf16 tensor-core kernels' bar: |got - ref| <= 1e-6 + 1 bf16
+    ulp(ref) + 2^-15 * mass, with the weighted mass from the plain side:
+    ``(P / l) @ |V|`` for the forward's output, ``plain_flash_grad_mass``
+    for the gradients. The kernels' X_hi + X_lo is within 2^-17 X of the f32
+    operand X, so 2^-15 leaves 4x room for f32 sum-order noise; a single
+    bf16 X (2^-9 X) does not fit."""
     got, ref = got.float(), ref.float()
     diff = (got - ref).abs()
     bad = diff > 1e-6 + _bf16_ulp(ref) + 2.0**-15 * mass
-    assert not bad.any(), f"{int(bad.sum())} elements over the split-P bar, max diff {float(diff.max()):.3e}"
+    assert not bad.any(), f"{int(bad.sum())} elements over the split bar, max diff {float(diff.max()):.3e}"
 
 
 def _emulated_forward(q, k, v, causal, split):
@@ -203,7 +211,7 @@ def test_split_p_bar_holds_the_split_at_small_shapes(shape, causal):
     out_p, _ = port.plain_flash_forward(q, k, v, causal)
     mass = port.plain_flash_row_mass(q, k, v, causal)
     assert mass.shape == q.shape and bool((mass > 0).all())
-    _within_split_p_bar(_emulated_forward(q, k, v, causal, split=True), out_p, mass)
+    _within_split_bar(_emulated_forward(q, k, v, causal, split=True), out_p, mass)
 
 
 def test_split_p_bar_refuses_a_single_bf16_p_where_values_cancel():
@@ -220,9 +228,91 @@ def test_split_p_bar_refuses_a_single_bf16_p_where_values_cancel():
     out_p, _ = port.plain_flash_forward(q, k, v, False)
     mass = port.plain_flash_row_mass(q, k, v, False)
     assert 0 < abs(float(out_p[0, 0, 0, 0])) < 1e-2  # the cancelling column
-    _within_split_p_bar(_emulated_forward(q, k, v, False, split=True), out_p, mass)
-    with pytest.raises(AssertionError, match="over the split-P bar"):
-        _within_split_p_bar(_emulated_forward(q, k, v, False, split=False), out_p, mass)
+    _within_split_bar(_emulated_forward(q, k, v, False, split=True), out_p, mass)
+    with pytest.raises(AssertionError, match="over the split bar"):
+        _within_split_bar(_emulated_forward(q, k, v, False, split=False), out_p, mass)
+
+
+def _emulated_backward(q, k, v, do, lse, delta, causal, split):
+    """The bf16 backward's arithmetic on the CPU: f32 P and dS as the plain
+    versions compute them, then dq = scale dS . K, dk = scale dS^T . Q and
+    dv = P^T . dO with dS and P either split into two bf16 halves (the
+    kernels' choice) or rounded once to bf16, the products exact and summed
+    in f32."""
+    p, ds = port._probs_and_dscores(q, k, v, do, lse, delta, causal)
+    scale = 1.0 / q.shape[-1] ** 0.5
+
+    def parts(x):
+        hi = x.to(torch.bfloat16).float()
+        return [hi, (x - hi).to(torch.bfloat16).float()] if split else [hi]
+
+    dq = scale * sum(torch.einsum("bhqk,bkhd->bqhd", t, k.float()) for t in parts(ds))
+    dk = scale * sum(torch.einsum("bhqk,bqhd->bkhd", t, q.float()) for t in parts(ds))
+    dv = sum(torch.einsum("bhqk,bqhd->bkhd", t, do.float()) for t in parts(p))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@pytest.mark.parametrize("shape,causal", [((2, 64, 2, 64), True), ((2, 129, 2, 64), True),
+                                          ((2, 100, 2, 64), False)])
+def test_split_grad_bar_holds_the_split_at_small_shapes(shape, causal):
+    q, k, v, g = _qkv(12, shape, torch.bfloat16)
+    out, lse = port.plain_flash_forward(q, k, v, causal)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    refs = (port.plain_flash_backward_dq(q, k, v, g, lse, delta, causal),
+            *port.plain_flash_backward_dkv(q, k, v, g, lse, delta, causal))
+    masses = port.plain_flash_grad_mass(q, k, v, g, lse, delta, causal)
+    for mass, like in zip(masses, (q, k, v)):
+        assert mass.shape == like.shape and mass.dtype == torch.float32 and bool((mass >= 0).all())
+    for got, ref, mass in zip(_emulated_backward(q, k, v, g, lse, delta, causal, split=True), refs, masses):
+        _within_split_bar(got, ref, mass)
+
+
+@pytest.mark.parametrize("shape,causal", [((2, 64, 2, 64), True), ((2, 129, 2, 64), True),
+                                          ((2, 100, 2, 64), False)])
+def test_split_grad_bar_refuses_a_single_bf16_operand_at_small_shapes(shape, causal):
+    # The same inputs as above: rounding dS and P once to bf16 puts
+    # thousands of elements of each gradient past the bar (25-50x of it).
+    q, k, v, g = _qkv(12, shape, torch.bfloat16)
+    out, lse = port.plain_flash_forward(q, k, v, causal)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    refs = (port.plain_flash_backward_dq(q, k, v, g, lse, delta, causal),
+            *port.plain_flash_backward_dkv(q, k, v, g, lse, delta, causal))
+    masses = port.plain_flash_grad_mass(q, k, v, g, lse, delta, causal)
+    for got, ref, mass in zip(_emulated_backward(q, k, v, g, lse, delta, causal, split=False), refs, masses):
+        with pytest.raises(AssertionError, match="over the split bar"):
+            _within_split_bar(got, ref, mass)
+
+
+def _cancelling_backward_case():
+    """Two queries, two keys, non-causal, delta = 0 (the bar holds for any
+    delta). Query 0 scores the keys 0.404 and 0 (P ~0.600 / 0.400, neither
+    a bf16 value), query 1 scores both 0 (P = 0.5). Chosen columns of K, Q
+    and dO make one element of each gradient a near-cancelling difference:
+    dq[0, 2] = scale (dS00 - dS01), dk[0, 5] = scale (dS00 - 1.59375 dS10)
+    and dv[0, 1] = P00 - 1.25 P10."""
+    q, k, v, do = (torch.zeros(1, 2, 1, 64) for _ in range(4))
+    q[0, 0, 0, 0], k[0, 0, 0, 0] = 1.0, 8 * 0.405
+    v[0, :, 0, 3] = torch.tensor([1.0, 1.5])  # dP[q, k] = dO[q, 3] v[k, 3]
+    do[0, :, 0, 3] = torch.tensor([1.0, 0.75])
+    k[0, :, 0, 2] = torch.tensor([1.0, -1.0])
+    q[0, :, 0, 5] = torch.tensor([1.0, -1.59375])
+    do[0, :, 0, 1] = torch.tensor([1.0, -1.25])
+    q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    _, lse = port.plain_flash_forward(q, k, v, False)
+    return q, k, v, do, lse, torch.zeros(1, 1, 2)
+
+
+@pytest.mark.parametrize("which", [0, 1, 2], ids=["dq", "dk", "dv"])
+def test_split_grad_bar_refuses_a_single_bf16_operand_where_values_cancel(which):
+    q, k, v, do, lse, delta = _cancelling_backward_case()
+    ref = (port.plain_flash_backward_dq(q, k, v, do, lse, delta, False),
+           *port.plain_flash_backward_dkv(q, k, v, do, lse, delta, False))[which]
+    mass = port.plain_flash_grad_mass(q, k, v, do, lse, delta, False)[which]
+    at = (0, 0, 0, (2, 5, 1)[which])  # the near-cancelling element
+    assert 0 < abs(float(ref[at])) < 0.05 * float(mass[at])
+    _within_split_bar(_emulated_backward(q, k, v, do, lse, delta, False, split=True)[which], ref, mass)
+    with pytest.raises(AssertionError, match="over the split bar"):
+        _within_split_bar(_emulated_backward(q, k, v, do, lse, delta, False, split=False)[which], ref, mass)
 
 
 def test_one_bf16_ulp_check_holds_one_ulp_and_refuses_two():
@@ -262,6 +352,26 @@ def test_kernel_autograd_matches_dense_on_card(cuda_device, d):
 
 
 @pytest.mark.cuda
+def test_kernel_autograd_matches_dense_on_card_bf16(cuda_device):
+    """bf16 [2, 256, 2, 64] causal: flash_attention through the tensor-core
+    forward and backward pair against autograd through dense attention in
+    f32 on the same (bf16-valued) inputs, at the bf16 tolerance of 5e-2."""
+    q, k, v, _ = _qkv(1, (2, 256, 2, 64), torch.bfloat16, cuda_device, grad=True)
+    _kernels.reset_launches()
+    out = port.flash_attention(q, k, v)
+    grads = torch.autograd.grad((out.float() ** 2).sum(), (q, k, v))
+    assert _kernels.LAUNCHES == {"flash_fwd": 1, "flash_fwd_no_lse": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+                                 "flash_carry": 0}
+    qf, kf, vf = (t.detach().float().requires_grad_(True) for t in (q, k, v))
+    ref = port.dense_attention(qf, kf, vf)
+    ref_grads = torch.autograd.grad((ref**2).sum(), (qf, kf, vf))
+    torch.testing.assert_close(out.float(), ref, atol=5e-2, rtol=0)
+    for a, b in zip(grads, ref_grads):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all()
+        torch.testing.assert_close(a.float(), b, atol=5e-2, rtol=0)
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_reject_what_the_kernel_does_not_take(cuda_device):
     q, k, v, _ = _qkv(2, (1, 64, 2, 48), torch.float32, cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
@@ -273,6 +383,18 @@ def test_kernel_wrappers_reject_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         _kernels.flash_fwd(q.transpose(1, 2), k, v, True, True)
     assert np.isfinite(_kernels.flash_fwd(q, k, v, True, True)[0].cpu().numpy()).all()
+    # bf16 goes to the tensor-core kernels, whose TMA loads need 16-byte
+    # alignment: a dO that starts one element into its buffer is refused.
+    q, k, v, g = _qkv(2, (1, 64, 2, 64), torch.bfloat16, cuda_device)
+    out, lse = _kernels.flash_fwd(q, k, v, True, True)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    shifted = torch.empty(g.numel() + 1, dtype=torch.bfloat16, device=cuda_device)[1:].view(g.shape)
+    shifted.copy_(g)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        _kernels.flash_bwd_dq(q, k, v, shifted, lse, delta, True)
+    with pytest.raises(ValueError, match="aligned"):
+        _kernels.flash_bwd_dkv(q, k, v, shifted, lse, delta, True)
 
 
 def _carry_close(got, ref):
