@@ -7,11 +7,11 @@ Phases, each on its own printed lines:
 
 1. env: the card (``nvidia-smi``), torch / CUDA / nvcc versions, and the
    kernels' build from ``p2pfl_tpu_torch/csrc`` (time and ptxas report:
-   registers and spills of each kernel; the tensor-core forward and
-   backward kernels must not spill, and no bf16 instance of the CUDA-core
-   forward or backward may be compiled), and the count of ``HGMMA`` (wgmma)
-   instructions in each forward and backward instance from ``cuobjdump
-   -sass`` (each bf16 instance must have some).
+   registers and spills of each kernel; the tensor-core forward, backward
+   and carry kernels must not spill, and no bf16 instance of a CUDA-core
+   kernel may be compiled), and the count of ``HGMMA`` (wgmma)
+   instructions in each tensor-core kernel from ``cuobjdump -sass`` (each
+   must have some).
 2. kernels: each Hopper kernel against its plain PyTorch version on the
    card at the main paths' shapes (bf16 [8, 1024, 8, 64] causal; the eval
    forward at [16, 1024, 8, 64]) plus a ragged S=1000, a non-causal, causal
@@ -36,11 +36,16 @@ Phases, each on its own printed lines:
    The ring's carry kernel at its chunk shape [2, 1024, 8, 64]: the
    diagonal fold into a fresh carry (shard 7 of 8), a past fold into that
    carry, a wholly future fold (the carry must come back bit-identical), a
-   ragged non-causal 1000 x 1000 fold and f32; m to 1e-6, l to
+   fold whose diagonal crosses a key tile (kv_offset = q_offset - 100), a
+   ragged non-causal 1000 x 1000 fold, diagonal and past folds of chunks
+   of 129 and 1, and f32; m to 1e-5 (bf16; f32 1e-6), l to
    1e-5 + 1e-5 |ref|, acc to that plus 1e-6 l (its rounding scales with the
-   row's weight mass), the finalized bf16 output within one bf16 ulp. No
-   PyTorch call folds a chunk into an unnormalized carry, so its row has no
-   library time; SDPA on the same chunk is printed for information.
+   row's weight mass) plus, for bf16 (P split into two bf16 halves),
+   2^-15 of the fold's mass exp(S - m_new) @ |V|
+   (``plain_flash_chunk_mass``); the past fold's finalized bf16 output
+   within one bf16 ulp (+ 2^-15 mass / l for bf16). No PyTorch call folds
+   a chunk into an unnormalized carry, so its row has no library time;
+   SDPA on the same chunk is printed for information.
 3. slice: ``MeshSimulation(task="lm")`` at the full-width LM configuration
    (8 nodes, committee 4, 64 sequences of 1024 tokens per node, vocab 8192,
    4 layers, 8 heads, width 512, batch 8, Adam lr 3e-4) for 3 rounds after a
@@ -83,8 +88,7 @@ LAYERS, HEADS, EMBED, BATCH, LR, ROUNDS = 4, 8, 512, 8, 3e-4, 3
 N_PARAMS = 20_990_976
 EVAL_SEQS = 16
 
-SOURCE = "p2pfl_tpu_torch/csrc/flash_attn.cu"
-SOURCE_FWD = "p2pfl_tpu_torch/csrc/flash_fwd_sm90.cu"  # the bf16 forward the slice runs
+SOURCE_FWD = "p2pfl_tpu_torch/csrc/flash_fwd_sm90.cu"  # the bf16 forward (slice) and carry fold (ring)
 SOURCE_BWD = "p2pfl_tpu_torch/csrc/flash_bwd_sm90.cu"  # the bf16 backward pair the slice runs
 KERNEL_ROWS = {  # name -> (replaced TPU kernel body, launches per round on the slice, source)
     "flash_fwd": ("p2pfl_tpu/ops/attention.py:183", LAYERS * (SEQS // BATCH) * COMMITTEE, SOURCE_FWD),
@@ -99,7 +103,7 @@ RING_SHARDS, RING_SEQ, RING_BATCH, RING_STEPS = 8, 8192, 2, 4
 RING_SHARD = RING_SEQ // RING_SHARDS
 RING_FOLDS = LAYERS * RING_SHARDS * (RING_SHARDS + 1) // 2  # carry launches per forward
 RING_KERNEL_ROWS = {  # name -> (replaced TPU kernel body, launches per train step on the ring, source)
-    "flash_carry": ("p2pfl_tpu/ops/attention.py:485", RING_FOLDS, SOURCE),
+    "flash_carry": ("p2pfl_tpu/ops/attention.py:485", RING_FOLDS, SOURCE_FWD),
 }
 
 
@@ -211,7 +215,7 @@ def phase_env() -> str:
         m = re.search(r"(flash_fwd_kernel|flash_bwd_dq_kernel|flash_bwd_dkv_kernel|flash_carry_kernel)"
                       r"I(13__nv_bfloat16|f)Li(\d+)E(?:Lb(\d)E)?", line)
         m90 = re.search(r"flash_fwd_sm90_kernelILb(\d)E", line)
-        mb90 = re.search(r"(flash_bwd_dq_sm90_kernel|flash_bwd_dkv_sm90_kernel)", line)
+        mb90 = re.search(r"(flash_bwd_dq_sm90_kernel|flash_bwd_dkv_sm90_kernel|flash_carry_sm90_kernel)", line)
         if m:
             entry = f"{m[1]}<{'bf16' if m[2] != 'f' else 'f32'}, D={m[3]}{', lse=' + m[4] if m[4] else ''}>"
         elif m90:
@@ -231,7 +235,9 @@ def phase_env() -> str:
           "the build log lacks the two tensor-core forward instances")
     check(all(any(e.startswith(f"flash_bwd_{k}_sm90") for e in seen) for k in ("dq", "dkv")),
           "the build log lacks a tensor-core backward kernel")
-    for simt in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+    check(any(e.startswith("flash_carry_sm90_kernel") for e in seen),
+          "the build log lacks the tensor-core carry kernel")
+    for simt in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_carry_kernel"):
         check(not any(e.startswith(f"{simt}<bf16") for e in seen),
               f"a bf16 instance of the CUDA-core {simt} was compiled")
     phase_sass(path, _kernels._find_nvcc())
@@ -239,14 +245,14 @@ def phase_env() -> str:
 
 
 def phase_sass(lib, nvcc: str) -> None:
-    """Count the HGMMA (wgmma) instructions in each forward and backward
-    instance of the built library with ``cuobjdump -sass``, found beside
+    """Count the HGMMA (wgmma) instructions in each forward, backward and
+    carry kernel of the built library with ``cuobjdump -sass``, found beside
     ``nvcc``."""
     import os
 
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     if not os.path.isfile(tool):
-        print("[env] HGMMA per forward / backward instance: not measured (no cuobjdump beside nvcc)")
+        print("[env] HGMMA per forward / backward / carry kernel: not measured (no cuobjdump beside nvcc)")
         return
     out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=120)
     check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()[-500:]}")
@@ -259,13 +265,15 @@ def phase_sass(lib, nvcc: str) -> None:
             counts.setdefault(fn, 0)
         elif fn and "HGMMA" in line:
             counts[fn] += 1
-    shown = {name: n for name, n in counts.items() if "flash_fwd" in name or "flash_bwd" in name}
+    shown = {name: n for name, n in counts.items() if re.search(r"flash_(fwd|bwd|carry)", name)}
     for name, n in sorted(shown.items()):
         print(f"[env] HGMMA in {name}: {n}")
     sm90 = [n for name, n in shown.items() if "flash_fwd_sm90_kernel" in name]
     check(len(sm90) == 2 and all(n > 0 for n in sm90), "a bf16 forward instance holds no HGMMA instruction")
     bwd90 = [n for name, n in shown.items() if "flash_bwd_dq_sm90" in name or "flash_bwd_dkv_sm90" in name]
     check(len(bwd90) == 2 and all(n > 0 for n in bwd90), "a bf16 backward kernel holds no HGMMA instruction")
+    carry90 = [n for name, n in shown.items() if "flash_carry_sm90" in name]
+    check(len(carry90) == 1 and carry90[0] > 0, "the bf16 carry kernel holds no HGMMA instruction")
 
 
 def phase_kernels() -> dict:
@@ -398,29 +406,42 @@ def carry_bound(b: int, sq: int, sk: int, h: int, d: int, esize: int, diagonal: 
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def carry_err(got, ref, what: str) -> float:
-    """Max |got - ref| over a carry; fails unless m is within 1e-6, l within
-    1e-5 + 1e-5 |ref| and acc within 1e-5 + 1e-5 |ref| + 1e-6 l. Both sides
-    are f32 sums of ~1000 weighted terms, folded 64 keys at a time by the
-    kernel and in one step by the plain version; an acc element near 0 sums
-    terms of size up to ~l, so its rounding scales with l (1e-6 l is 1e-6
-    in the normalized output)."""
+def carry_err(got, ref, what: str, mass=None) -> float:
+    """Max |got - ref| over a carry; fails unless m is within 1e-6 (1e-5
+    where ``mass`` is given: the bf16 kernel's wgmma sums the scores in its
+    own order), l within 1e-5 + 1e-5 |ref| and acc within 1e-5 + 1e-5 |ref|
+    + 1e-6 l, plus 2^-15 ``mass`` for the bf16 kernel, which splits P into
+    two bf16 halves (``mass = plain_flash_chunk_mass``: the fold's
+    exp(S - m_new) @ |V|). Both sides are f32 sums of ~1000 weighted
+    terms, folded one key tile at a time by the kernel and in one step by
+    the plain version; an acc element near 0 sums terms of size up to ~l,
+    so its rounding scales with l (1e-6 l is 1e-6 in the normalized
+    output)."""
     import torch
 
     worst = 0.0
     l_ref = ref[1].transpose(1, 2)[..., None]
-    tols = {"m": ("1e-6", lambda r: torch.full_like(r, 1e-6)),
+    m_tol = 1e-5 if mass is not None else 1e-6
+    room = 2.0**-15 * mass if mass is not None else 0.0
+    tols = {"m": (f"{m_tol:g}", lambda r: torch.full_like(r, m_tol)),
             "l": ("1e-5 + 1e-5|ref|", lambda r: 1e-5 + 1e-5 * r.abs()),
-            "acc": ("1e-5 + 1e-5|ref| + 1e-6 l", lambda r: 1e-5 + 1e-5 * r.abs() + 1e-6 * l_ref)}
+            "acc": ("1e-5 + 1e-5|ref| + 1e-6 l" + (" + 2^-15 mass" if mass is not None else ""),
+                    lambda r: 1e-5 + 1e-5 * r.abs() + 1e-6 * l_ref + room)}
     for name, a, r in zip(("m", "l", "acc"), got, ref):
         check(bool(torch.isfinite(a).all()), f"{what} {name}: non-finite values")
         diff = (a - r).abs()
         label, tol = tols[name]
-        bare = 1e-6 if name == "m" else 1e-5 + 1e-5 * r.abs()
         ok = bool((diff <= tol(r)).all())
         err = float(diff.max())
-        print(f"  {what} {name}: max_abs_err={err:.3e} tol={label} {'ok' if ok else 'FAIL'} "
-              f"({int((diff > bare).sum())} of {diff.numel()} elements past 1e-5 + 1e-5|ref| alone)")
+        note = ""
+        if name == "acc":  # what the l and mass terms are needed for
+            core = 1e-5 + 1e-5 * r.abs()
+            note = f" ({int((diff > core).sum())} of {diff.numel()} elements past 1e-5 + 1e-5|ref| alone"
+            if mass is not None:  # the largest share of the mass term that an element needs
+                past = (diff - core - 1e-6 * l_ref).clamp(min=0)
+                note += f"; worst element uses {float((past / room.clamp(min=1e-30)).max()):.3f} of the mass term"
+            note += ")"
+        print(f"  {what} {name}: max_abs_err={err:.3e} tol={label} {'ok' if ok else 'FAIL'}{note}")
         check(ok, f"{what} {name} disagrees with the plain version (max_abs_err {err:.3e})")
         worst = max(worst, err)
     return worst
@@ -440,6 +461,22 @@ def phase_carry() -> dict:
     def inputs(s, dtype):
         return [torch.randn((RING_BATCH, s, HEADS, hd), generator=gen).to(dev, dtype) for _ in range(5)]
 
+    def fold(carry, q, k, v, q_off, kv_off, causal, what):
+        """One kernel fold against the plain one; returns both carries, the
+        fold's mass (bf16) and the error."""
+        got = _kernels.flash_carry(carry, q, k, v, q_off, kv_off, causal)
+        ref = att.plain_flash_chunk_update(carry, q, k, v, q_off, kv_off, causal)
+        mass = (att.plain_flash_chunk_mass(carry, q, k, v, q_off, kv_off, causal)
+                if q.dtype == torch.bfloat16 else None)  # the bf16 kernel splits P
+        return got, ref, mass, carry_err(got, ref, what, mass)
+
+    def finalized_err(past, past_p, mass, what):
+        """The finalized bf16 output within one bf16 ulp of the plain one's,
+        plus 2^-15 of the fold's mass / l where the fold split P."""
+        l = past_p[1].transpose(1, 2)[..., None].clamp(min=1e-30)
+        return max_err(att.finalize_carry(past, torch.bfloat16), att.finalize_carry(past_p, torch.bfloat16),
+                       what, atol=1e-6, bf16_ulps=1, mass=mass / l if mass is not None else None)
+
     off = (RING_SHARDS - 1) * RING_SHARD  # shard 7: its diagonal chunk, then a past one
     rows, errs = {}, []
     for dtype in (torch.bfloat16, torch.float32):
@@ -448,27 +485,28 @@ def phase_carry() -> dict:
               f"q_offset={off}")
         q, k, v, kp, vp = inputs(RING_SHARD, dtype)
         fresh = att.init_carry(q.shape, dev)
-        diag = _kernels.flash_carry(fresh, q, k, v, off, off, True)
-        e_diag = carry_err(diag, att.plain_flash_chunk_update(fresh, q, k, v, off, off, True),
-                           "diagonal fold (kv_offset = q_offset)")
-        past = _kernels.flash_carry(diag, q, kp, vp, off, 0, True)
-        past_p = att.plain_flash_chunk_update(diag, q, kp, vp, off, 0, True)
-        e_past = carry_err(past, past_p, "past fold (kv_offset 0)")
+        diag, _, _, e_diag = fold(fresh, q, k, v, off, off, True, "diagonal fold (kv_offset = q_offset)")
+        past, past_p, mass, e_past = fold(diag, q, kp, vp, off, 0, True, "past fold (kv_offset 0)")
         future = _kernels.flash_carry(past, q, kp, vp, off, off + RING_SHARD, True)
         same = all(torch.equal(a, b) for a, b in zip(future, past))
         print(f"  future fold (kv_offset {off + RING_SHARD}): carry bit-identical {'ok' if same else 'FAIL'}")
         check(same, "a fold wholly in the future changed the carry")
-        e_out = max_err(att.finalize_carry(past, torch.bfloat16), att.finalize_carry(past_p, torch.bfloat16),
-                        "finalized bf16 output", atol=1e-6, bf16_ulps=1)
+        e_out = finalized_err(past, past_p, mass, "past fold's finalized bf16 output")
         if not main:
             continue
         errs += [e_diag, e_past, e_out]
+        errs.append(fold(fresh, q, k, v, off, off - 100, True,
+                         "fold with the diagonal inside a key tile (kv_offset = q_offset - 100)")[3])
         print(f"[carry] B={RING_BATCH} Sq=Sk=1000 H={HEADS} D={hd} bfloat16 causal=False (ragged)")
         qr, kr, vr, _, _ = inputs(1000, torch.bfloat16)
-        fresh_r = att.init_carry(qr.shape, dev)
-        errs.append(carry_err(_kernels.flash_carry(fresh_r, qr, kr, vr, 0, 0, False),
-                              att.plain_flash_chunk_update(fresh_r, qr, kr, vr, 0, 0, False),
-                              "ragged non-causal fold"))
+        errs.append(fold(att.init_carry(qr.shape, dev), qr, kr, vr, 0, 0, False, "ragged non-causal fold")[3])
+        for s in (129, 1):  # one full q tile and a row; one row and one key
+            print(f"[carry] B={RING_BATCH} Sq=Sk={s} H={HEADS} D={hd} bfloat16 causal=True q_offset={7 * s}")
+            qs, ks, vs, kps, vps = inputs(s, torch.bfloat16)
+            diag_s, _, _, e = fold(att.init_carry(qs.shape, dev), qs, ks, vs, 7 * s, 7 * s, True,
+                                   f"S={s} diagonal fold")
+            past_s, past_sp, mass_s, e2 = fold(diag_s, qs, kps, vps, 7 * s, 0, True, f"S={s} past fold")
+            errs += [e, e2, finalized_err(past_s, past_sp, mass_s, f"S={s} past fold's finalized bf16 output")]
         ms_past = time_ms(lambda: _kernels.flash_carry(diag, q, kp, vp, off, 0, True), 20)
         ms_diag = time_ms(lambda: _kernels.flash_carry(fresh, q, k, v, off, off, True), 20)
         plain_past = time_ms(lambda: att.plain_flash_chunk_update(diag, q, kp, vp, off, 0, True), 5)

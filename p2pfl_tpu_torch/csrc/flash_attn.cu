@@ -1,24 +1,24 @@
-// Flash attention for Hopper (sm_90a): forward (with and without logsumexp),
-// the FlashAttention-2 backward pair (dq; dk/dv), and ring attention's fold of
-// one kv chunk into an online-softmax carry.
+// Flash attention on the CUDA cores, f32 only: forward (with and without
+// logsumexp), the FlashAttention-2 backward pair (dq; dk/dv), and ring
+// attention's fold of one kv chunk into an online-softmax carry; and the C
+// entry points of every kernel of the library.
 //
-// Replaces the Pallas TPU kernels of p2pfl_tpu/ops/attention.py:
-//   flash_fwd<with_lse=true>   <- _flash_kernel          (pallas_call at :308), f32 only
-//   flash_fwd<with_lse=false>  <- _flash_kernel_no_lse   (pallas_call at :298), f32 only
-//   flash_bwd_dq               <- _flash_bwd_dq_kernel   (pallas_call at :446), f32 only
-//   flash_bwd_dkv              <- _flash_bwd_dkv_kernel  (pallas_call at :463), f32 only
+// Replaces the Pallas TPU kernels of p2pfl_tpu/ops/attention.py, f32 only:
+//   flash_fwd<with_lse=true>   <- _flash_kernel          (pallas_call at :308)
+//   flash_fwd<with_lse=false>  <- _flash_kernel_no_lse   (pallas_call at :298)
+//   flash_bwd_dq               <- _flash_bwd_dq_kernel   (pallas_call at :446)
+//   flash_bwd_dkv              <- _flash_bwd_dkv_kernel  (pallas_call at :463)
 //   flash_carry                <- _flash_carry_kernel    (pallas_call at :590)
-// The bf16 forward is flash_fwd_sm90.cu's tensor-core kernel and the bf16
-// backward pair flash_bwd_sm90.cu's, launched from p2pfl_flash_fwd /
-// p2pfl_flash_bwd_dq / p2pfl_flash_bwd_dkv below; no bf16 call reaches
-// flash_fwd_kernel or the flash_bwd_*_kernel pair here.
+// bf16 runs the tensor-core kernels: the forward and the carry fold in
+// flash_fwd_sm90.cu, the backward pair in flash_bwd_sm90.cu, launched from
+// p2pfl_flash_fwd / p2pfl_flash_carry / p2pfl_flash_bwd_dq /
+// p2pfl_flash_bwd_dkv below. No bf16 instance of a kernel here is compiled.
 //
-// What it computes is what the TPU kernels compute: inputs are upcast to f32
-// inside the kernel, q is scaled by 1/sqrt(D) in f32, every product and sum
-// is f32, the causal mask writes -0.7 * FLT_MAX (not -inf), l is clamped at
-// 1e-30, lse = m + log(l), and o / dq / dk / dv are stored in the input type.
-// The backward kernels read dO in the input type and D = rowsum(dO * O) in
-// f32, as the TPU wrapper hands them. It is not a block-by-block copy:
+// What it computes is what the TPU kernels compute: q is scaled by 1/sqrt(D)
+// in f32, every product and sum is f32, the causal mask writes -0.7 *
+// FLT_MAX (not -inf), l is clamped at 1e-30 and lse = m + log(l). The
+// backward kernels read dO and D = rowsum(dO * O) in f32, as the TPU wrapper
+// hands them. It is not a block-by-block copy:
 //   * the TPU's sequential k grid axis (scratch carried across grid steps)
 //     becomes a loop inside one block, since blocks on this card run in
 //     parallel and share nothing;
@@ -41,16 +41,16 @@
 // per block, K/V (or Q/dO) tiles staged in shared memory padded by one
 // column so that the strided row reads are free of bank conflicts, the
 // online-softmax state and a 4 x 4 (rows x columns) register micro-tile per
-// thread, and causal-future tiles skipped. Moving the products to mma.sync /
-// wgmma with TMA-fed tiles is later work.
+// thread, and causal-future tiles skipped. They stay on the CUDA cores
+// because f32 parity (1e-5) forbids TF32 products.
 //
 // Interface: plain C functions, loaded with ctypes. Each launches on the
 // stream it is given, allocates nothing and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
+#include <cmath>
 #include <cstdint>
 
 namespace {
@@ -64,16 +64,13 @@ constexpr int RI = BQ / TY;  // rows of the micro-tile held by one thread
 constexpr int RJ = BK / TX;  // columns of the micro-tile held by one thread
 constexpr float MASK_VALUE = -0.7f * FLT_MAX;  // ops/attention.py DEFAULT_MASK_VALUE
 
+// The kernels keep their element type T as a parameter; float is the only
+// instance (bf16 runs the tensor-core kernels).
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Max / sum over the 16 lanes that hold one tile row (a half warp: tx is the
 // fast thread index, so the xor offsets below never leave it).
@@ -454,12 +451,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 // online-softmax state starts from the incoming (m, l, acc) rows and leaves
 // unnormalized; q rows sit at global positions q_offset + [0, Sq) and k rows
 // at kv_offset + [0, Sk), and both the causal mask and the future-tile skip
-// compare those global positions. Bound like the forward: at the ring's
-// chunk shape ([2, 1024, 8, 64] bf16, carry f32) a past fold needs ~4.3 GFLOP
-// and ~15 MB of traffic, so operations and bytes bound it about equally
-// (~4.3-4.5 us each at the H100's peaks); the f32 CUDA-core products hold it
-// far above both, as they do the forward. The carry is read once and written
-// once per q row, through registers: in and out are separate buffers.
+// compare those global positions. The f32 CUDA-core products hold it far
+// above its bound, as they do the forward (the bf16 fold is the tensor-core
+// kernel of flash_fwd_sm90.cu). The carry is read once and written once per
+// q row, through registers: in and out are separate buffers.
 //
 // No row can produce -inf - -inf: every processed k tile holds column k0 < Sk
 // (in range), masked scores are finite, so m_new is finite after the tile.
@@ -658,24 +653,6 @@ cudaError_t launch_carry(const void* q, const void* k, const void* v, const floa
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (the carry fold; the forward and the
-// backward pair dispatch by hand below). Head size 64, the only one a
-// supported configuration uses; another size is one more instance here and
-// in ops/_kernels.py HEAD_DIMS.
-#define DISPATCH(DTYPE, HEAD_DIM, CALL)                              \
-  do {                                                               \
-    if ((HEAD_DIM) != 64) return int(cudaErrorInvalidValue);         \
-    constexpr int D = 64;                                            \
-    if ((DTYPE) == 0) {                                              \
-      using T = float;                                               \
-      return CALL;                                                   \
-    } else if ((DTYPE) == 1) {                                       \
-      using T = __nv_bfloat16;                                       \
-      return CALL;                                                   \
-    }                                                                \
-    return int(cudaErrorInvalidValue);                               \
-  } while (0)
-
 }  // namespace
 
 namespace p2pfl {
@@ -687,6 +664,10 @@ cudaError_t launch_flash_bwd_dq_sm90(const void* q, const void* k, const void* v
 cudaError_t launch_flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
                                       const float* lse, const float* delta, void* dk, void* dv, int B, int Sq,
                                       int Sk, int H, float scale, bool causal, cudaStream_t stream);
+cudaError_t launch_flash_carry_sm90(const void* q, const void* k, const void* v, const float* m_in,
+                                    const float* l_in, const float* acc_in, float* m_out, float* l_out,
+                                    float* acc_out, int B, int Sq, int Sk, int H, float scale, bool causal,
+                                    int q_offset, int kv_offset, cudaStream_t stream);
 }
 
 extern "C" {
@@ -732,15 +713,23 @@ int p2pfl_flash_bwd_dkv(const void* q, const void* k, const void* v, const void*
   return int(cudaErrorInvalidValue);
 }
 
-// m / l: [B, H, Sq] f32; acc: [B, Sq, H, D] f32; *_in and *_out must not overlap.
+// m / l: [B, H, Sq] f32; acc: [B, Sq, H, D] f32; *_in and *_out must not
+// overlap. bf16 runs the tensor-core kernel of flash_fwd_sm90.cu, f32 the
+// CUDA-core kernel above. Head size 64, the only one a supported
+// configuration uses (ops/_kernels.py HEAD_DIMS).
 int p2pfl_flash_carry(const void* q, const void* k, const void* v, const float* m_in,
                       const float* l_in, const float* acc_in, float* m_out, float* l_out,
                       float* acc_out, int B, int Sq, int Sk, int H, int head_dim, int dtype,
                       float scale, int causal, int q_offset, int kv_offset, void* stream) {
-  DISPATCH(dtype, head_dim,
-           int(launch_carry<T, D>(q, k, v, m_in, l_in, acc_in, m_out, l_out, acc_out, B, Sq, Sk,
-                                  H, scale, causal != 0, q_offset, kv_offset,
-                                  static_cast<cudaStream_t>(stream))));
+  if (head_dim != 64) return int(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return int(launch_carry<float, 64>(q, k, v, m_in, l_in, acc_in, m_out, l_out, acc_out, B, Sq, Sk, H, scale,
+                                       causal != 0, q_offset, kv_offset, s));
+  if (dtype == 1)
+    return int(p2pfl::launch_flash_carry_sm90(q, k, v, m_in, l_in, acc_in, m_out, l_out, acc_out, B, Sq, Sk, H,
+                                              scale, causal != 0, q_offset, kv_offset, s));
+  return int(cudaErrorInvalidValue);
 }
 
 const char* p2pfl_cuda_error_string(int code) {

@@ -30,8 +30,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = (
-    _PKG / "csrc" / "flash_attn.cu",  # f32 forward and backward pair, carry fold, the C entry points
-    _PKG / "csrc" / "flash_fwd_sm90.cu",  # bf16 forward on the tensor cores
+    _PKG / "csrc" / "flash_attn.cu",  # f32 forward, backward pair and carry fold; the C entry points
+    _PKG / "csrc" / "flash_fwd_sm90.cu",  # bf16 forward and carry fold on the tensor cores
     _PKG / "csrc" / "flash_bwd_sm90.cu",  # bf16 backward pair (dq; dk/dv) on the tensor cores
 )
 HEADERS = (_PKG / "csrc" / "sm90_common.cuh",)  # included by the *_sm90.cu sources
@@ -181,9 +181,11 @@ def _check_rows(name: str, q: torch.Tensor, *rows: torch.Tensor) -> None:
 
 
 def _check_aligned(name: str, *ts: torch.Tensor) -> None:
-    """The tensor-core kernels' TMA loads need 16-byte-aligned bf16 tensors."""
+    """The tensor-core kernels run when ``ts[0]`` is bf16; their TMA loads
+    (and the carry fold's float2 accesses to ``acc``) need every tensor
+    16-byte aligned."""
     if ts[0].dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in ts):
-        raise ValueError(f"{name}: bf16 tensors must be 16-byte aligned (TMA)")
+        raise ValueError(f"{name}: the bf16 kernel's tensors must be 16-byte aligned (TMA)")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -272,7 +274,10 @@ def flash_carry(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel fold of one kv chunk into the carry ``(m [B,H,Sq], l [B,H,Sq],
     acc [B,Sq,H,D])`` (f32); returns a new carry, the incoming one is only
-    read. ``q_offset`` / ``kv_offset``: global positions of q's and k's row 0."""
+    read. ``q_offset`` / ``kv_offset``: global positions of q's and k's row 0.
+
+    bf16 runs the tensor-core kernel (q, k, v and acc 16-byte aligned);
+    f32 runs the CUDA-core kernel."""
     if q.dim() == 4 and q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"flash_carry: head_dim {q.shape[-1]} not supported ({HEAD_DIMS})")
     _check_qkv("flash_carry", q, k, v)
@@ -285,6 +290,7 @@ def flash_carry(
     for off in (q_offset, kv_offset):
         if not -(2**31) <= int(off) < 2**31:
             raise ValueError(f"flash_carry: offset {off} does not fit in int32")
+    _check_aligned("flash_carry", q, k, v, acc)
     lib = _load()
     b, sq, h, d = q.shape
     m_out, l_out, acc_out = torch.empty_like(m), torch.empty_like(l), torch.empty_like(acc)

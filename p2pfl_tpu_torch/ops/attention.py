@@ -10,20 +10,21 @@ one long sequence.
 
 The flash path has four kernels (``csrc/``, bound in :mod:`._kernels`): the
 forward, written with or without the per-row logsumexp, the dq kernel, the
-dk/dv kernel (bf16 on the tensor cores in ``flash_fwd_sm90.cu`` and
-``flash_bwd_sm90.cu``, f32 on the CUDA cores in ``flash_attn.cu``), and the
-carry fold that ring attention runs once per kv chunk. Each has a plain
-PyTorch version here with the same arithmetic — inputs upcast to f32, q
-scaled in f32, the causal mask writes :data:`DEFAULT_MASK_VALUE`, ``l``
-clamped at 1e-30 — that the CPU tests hold against the JAX package and that
-the card's smoke run holds each kernel against. The one rounding the bf16
-tensor-core kernels add, the f32 operand of their second product (P in the
-forward; dS, P^T and dS^T in the backward) split into two bf16 halves, is
-bounded by :func:`plain_flash_row_mass` and :func:`plain_flash_grad_mass`.
-:func:`flash_forward`, :func:`flash_backward_dq`,
-:func:`flash_backward_dkv` and :func:`flash_chunk_update` pick between them
-by where the tensors live: a CPU tensor takes the plain version, a CUDA
-tensor launches the kernel (or raises), anything else raises.
+dk/dv kernel, and the carry fold that ring attention runs once per kv chunk
+(bf16 on the tensor cores in ``flash_fwd_sm90.cu`` and ``flash_bwd_sm90.cu``,
+f32 on the CUDA cores in ``flash_attn.cu``). Each has a plain PyTorch version
+here with the same arithmetic — inputs upcast to f32, q scaled in f32, the
+causal mask writes :data:`DEFAULT_MASK_VALUE`, ``l`` clamped at 1e-30 — that
+the CPU tests hold against the JAX package and that the card's smoke run
+holds each kernel against. The one rounding the bf16 tensor-core kernels
+add, the f32 operand of their second product (P in the forward and the
+carry fold; dS, P^T and dS^T in the backward) split into two bf16 halves, is
+bounded by :func:`plain_flash_row_mass`, :func:`plain_flash_chunk_mass` and
+:func:`plain_flash_grad_mass`. :func:`flash_forward`,
+:func:`flash_backward_dq`, :func:`flash_backward_dkv` and
+:func:`flash_chunk_update` pick between them by where the tensors live: a
+CPU tensor takes the plain version, a CUDA tensor launches the kernel (or
+raises), anything else raises.
 
 The online-softmax carry is ``(m, l, acc)``: running row max ``m [B, H, Sq]``,
 denominator ``l [B, H, Sq]`` and unnormalized output ``acc [B, Sq, H, D]``,
@@ -225,14 +226,30 @@ def plain_flash_chunk_update(
 ) -> Carry:
     """Plain version of the carry kernel: the whole chunk folded in one step.
 
-    The kernel folds 64 keys at a time and skips key tiles wholly in a q
-    tile's future; the two differ only in rounding as long as every row has
-    seen a real (unmasked) key by the end of its first folded tile, which
-    ring attention's self-chunk-first order guarantees. A chunk wholly in the
-    future leaves the carry bit-unchanged here too: ``p = exp(MASK - m) = 0``
-    and ``corr = 1``.
+    The kernel folds one tile of keys at a time (128 keys in the bf16
+    tensor-core instance, 64 in the f32 CUDA-core one) and skips key tiles
+    wholly in a q tile's future; the two differ only in rounding as long as
+    every row has seen a real (unmasked) key by the end of its first folded
+    tile, which ring attention's self-chunk-first order guarantees. A chunk
+    wholly in the future leaves the carry bit-unchanged here too:
+    ``p = exp(MASK - m) = 0`` and ``corr = 1``.
     """
     return _fold(carry, q.float() * (1.0 / math.sqrt(q.shape[-1])), k, v, causal, q_offset, kv_offset)
+
+
+def plain_flash_chunk_mass(
+    carry: Carry, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    q_offset: int, kv_offset: int, causal: bool,
+) -> torch.Tensor:
+    """``[B,Sq,H,D]`` f32 ``exp(S - m_new) @ |V|``: the fold's unnormalized
+    absolute weighted mass, ``m_new`` the folded carry's row max. The bf16
+    carry kernel multiplies P split as ``P_hi + P_lo`` (within 2^-17 P of
+    P), so the ``acc`` it adds may differ from the plain version's by a
+    small multiple of this mass beyond the f32 sums' own rounding (on a
+    fresh carry it is :func:`plain_flash_row_mass` times the new ``l``)."""
+    m, l, acc = carry
+    qf = q.float() * (1.0 / math.sqrt(q.shape[-1]))
+    return _fold((m, l, torch.zeros_like(acc)), qf, k, v.float().abs(), causal, q_offset, kv_offset)[2]
 
 
 # --- kernel or plain version, by device --------------------------------------

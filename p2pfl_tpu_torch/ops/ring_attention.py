@@ -43,7 +43,9 @@ def _rotation(i: int, n: int, causal: bool) -> List[int]:
 def _ring(q, k, v, n: int, causal: bool, fold) -> torch.Tensor:
     """Cut q/k/v into ``n`` chunks and, for each shard, fold its chunks in
     ring order into a fresh carry with ``fold(carry, q_i, k_j, v_j,
-    q_offset, kv_offset)``; returns the finalized global output."""
+    q_offset, kv_offset)``; returns the finalized global output. At B = 1
+    the chunks are views at ``i * s * H * D`` elements into their tensor,
+    16-byte aligned for D = 64 as the bf16 kernel's TMA loads need."""
     qs, ks, vs = ([c.contiguous() for c in torch.chunk(t, n, dim=1)] for t in (q, k, v))
     s = qs[0].shape[1]
     outs = []

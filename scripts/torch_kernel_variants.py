@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time compile-time variants of the port's bf16 tensor-core kernels on one card.
 
-    python3 scripts/torch_kernel_variants.py fwd   # the forward (flash_fwd_sm90.cu)
-    python3 scripts/torch_kernel_variants.py bwd   # the backward pair (flash_bwd_sm90.cu)
+    python3 scripts/torch_kernel_variants.py fwd     # the forward (flash_fwd_sm90.cu)
+    python3 scripts/torch_kernel_variants.py bwd     # the backward pair (flash_bwd_sm90.cu)
+    python3 scripts/torch_kernel_variants.py carry   # the carry fold (flash_fwd_sm90.cu)
 
 Each variant is the chosen source under ``p2pfl_tpu_torch/csrc/`` with some
 of its text replaced (``VARIANTS`` below), built with the package's other
@@ -10,7 +11,11 @@ sources into a library of its own under ``build/variants/`` (one ``nvcc``
 per file, all at once) and loaded with ctypes. ``fwd`` runs the forward
 with lse at [8, 1024, 8, 64] bf16 causal and the one without at
 [16, 1024, 8, 64]; ``bwd`` runs dq and dk/dv at [8, 1024, 8, 64] bf16
-causal. Every variant's outputs must equal the package's kernels' bit for
+causal; ``carry`` runs the ring's past and diagonal folds of one chunk
+[2, 1024, 8, 64] bf16 (shard 7 of 8, as ``chip_smoke.py`` times them). A
+variant of ``flash_fwd_sm90.cu`` changes the forward and the carry fold
+alike; each family times its own. Every variant's outputs must equal the
+package's kernels' bit for
 bit (the variants change scheduling, not arithmetic). Times are CUDA events
 over 50 launches (``chip_smoke.time_ms``), taken in the order A B ... B A
 so that drift shows, with each variant's ptxas registers and spills. Runs
@@ -30,7 +35,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-SOURCES = {"fwd": "flash_fwd_sm90.cu", "bwd": "flash_bwd_sm90.cu"}
+SOURCES = {"fwd": "flash_fwd_sm90.cu", "bwd": "flash_bwd_sm90.cu", "carry": "flash_fwd_sm90.cu"}
 # kernel family -> variant name -> {text in the source: replacement}
 VARIANTS = {
     "fwd": {
@@ -45,6 +50,12 @@ VARIANTS = {
         "guarded tile wait": {"mbar_spin(blk.full_bar(s)": "mbar_wait(blk.full_bar(s)"},
         "3 stages": {"kStages = 2;  // K / V ring depth": "kStages = 3;  // K / V ring depth",
                      "kStages = 2;  // Q / dO ring depth": "kStages = 3;  // Q / dO ring depth"},
+    },
+    "carry": {
+        "as built": {},
+        "3 stages": {"kStages = 2;": "kStages = 3;"},
+        "regs 64/216": {"kProducerRegs = 40;": "kProducerRegs = 64;", "kConsumerRegs = 232;": "kConsumerRegs = 216;"},
+        "guarded tile wait": {"mbar_spin(blk.full_bar(s)": "mbar_wait(blk.full_bar(s)"},
     },
 }
 
@@ -67,7 +78,8 @@ def build(family: str, nvcc: str, flags: tuple) -> dict:
         obj = out_dir / f"v{i}.o"
         cmd = [nvcc, *flags, "-I", str(csrc), "-c", "-o", str(obj), str(src)]
         jobs[name] = (i, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    others = [out_dir / f"{Path(name).stem}.o" for name in ("flash_attn.cu", *SOURCES.values()) if name != varied]
+    others = [out_dir / f"{Path(name).stem}.o" for name in dict.fromkeys(("flash_attn.cu", *SOURCES.values()))
+              if name != varied]
     for obj in others:
         common = subprocess.run([nvcc, *flags, "-c", "-o", str(obj), str(csrc / f"{obj.stem}.cu")],
                                 capture_output=True, text=True)
@@ -93,7 +105,8 @@ def build(family: str, nvcc: str, flags: tuple) -> dict:
         lib.p2pfl_flash_fwd.argtypes = [p, p, p, p, p, i_, i_, i_, i_, i_, i_, f, i_, p]
         lib.p2pfl_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i_, i_, i_, i_, i_, i_, f, i_, p]
         lib.p2pfl_flash_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i_, i_, i_, i_, i_, i_, f, i_, p]
-        for fn in (lib.p2pfl_flash_fwd, lib.p2pfl_flash_bwd_dq, lib.p2pfl_flash_bwd_dkv):
+        lib.p2pfl_flash_carry.argtypes = [p, p, p, p, p, p, p, p, p, i_, i_, i_, i_, i_, i_, f, i_, i_, i_, p]
+        for fn in (lib.p2pfl_flash_fwd, lib.p2pfl_flash_bwd_dq, lib.p2pfl_flash_bwd_dkv, lib.p2pfl_flash_carry):
             fn.restype = ctypes.c_int
         libs[name] = (lib, ptxas)
     return libs
@@ -130,6 +143,25 @@ def calls(family: str):
                 return (out,)
 
             cases[name] = (fwd, (_kernels.flash_fwd(q, k, v, True, with_lse)[0],))
+        return cases
+    if family == "carry":
+        from p2pfl_tpu_torch.ops import attention as att
+
+        q, k, v, kp = rand(2)  # one ring chunk [2, 1024, 8, 64]
+        vp = rand(2)[0]
+        off = 7 * 1024  # shard 7 of 8: its diagonal chunk into a fresh carry, then a past chunk
+        fresh = att.init_carry(q.shape, q.device)
+        diag = _kernels.flash_carry(fresh, q, k, v, off, off, True)
+        for name, carry, kc, vc, kv_off in (("past fold", diag, kp, vp, 0), ("diagonal fold", fresh, k, v, off)):
+            def fold(lib, carry=carry, kc=kc, vc=vc, kv_off=kv_off):  # the defaults hold the tensors alive
+                outs = tuple(torch.empty_like(t) for t in carry)
+                b, sq, h, d = q.shape
+                check(lib.p2pfl_flash_carry(q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                                            *(t.data_ptr() for t in (*carry, *outs)), b, sq, sq, h, d, 1,
+                                            1.0 / math.sqrt(d), 1, off, kv_off, stream))
+                return outs
+
+            cases[name] = (fold, _kernels.flash_carry(carry, q, kc, vc, off, kv_off, True))
         return cases
     q, k, v, g = rand(8)
     out, lse = _kernels.flash_fwd(q, k, v, True, True)

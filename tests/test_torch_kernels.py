@@ -189,6 +189,13 @@ def _within_split_bar(got, ref, mass):
     assert not bad.any(), f"{int(bad.sum())} elements over the split bar, max diff {float(diff.max()):.3e}"
 
 
+def _bf16_parts(x, split):
+    """``x`` (f32) as the tensor cores take it: two bf16 halves ``x_hi`` and
+    ``bf16(x - x_hi)`` (the kernels' choice), or one bf16 ``x``; as f32."""
+    hi = x.to(torch.bfloat16).float()
+    return [hi, (x - hi).to(torch.bfloat16).float()] if split else [hi]
+
+
 def _emulated_forward(q, k, v, causal, split):
     """The bf16 forward's arithmetic on the CPU: f32 scores and softmax as
     the plain version computes them, then P . V with P either split into
@@ -198,9 +205,7 @@ def _emulated_forward(q, k, v, causal, split):
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-    hi = p.to(torch.bfloat16).float()
-    parts = [hi, (p - hi).to(torch.bfloat16).float()] if split else [hi]
-    pv = sum(torch.einsum("bhqk,bkhd->bqhd", part, v.float()) for part in parts)
+    pv = sum(torch.einsum("bhqk,bkhd->bqhd", part, v.float()) for part in _bf16_parts(p, split))
     return (pv / l.squeeze(-1).transpose(1, 2)[..., None]).to(q.dtype)
 
 
@@ -214,17 +219,23 @@ def test_split_p_bar_holds_the_split_at_small_shapes(shape, causal):
     _within_split_bar(_emulated_forward(q, k, v, causal, split=True), out_p, mass)
 
 
-def test_split_p_bar_refuses_a_single_bf16_p_where_values_cancel():
-    # One query, two keys: scores 0.405 and 0, so p is ~0.6 / 0.4 (neither a
-    # bf16 value), and values 1 and -1.5 nearly cancel in column 0 (out
-    # ~7e-4, bar ~4e-5). One bf16 P is off by ~5e-4 there; the split is not.
+def _cancelling_case():
+    """One query, two keys: scores 0.405 and 0, so p is ~0.6 / 0.4 (neither
+    a bf16 value; unnormalized 1 and ~0.667), and values 1 and -1.5 nearly
+    cancel in column 0."""
     q = torch.zeros(1, 1, 1, 64)
     k = torch.zeros(1, 2, 1, 64)
     v = torch.zeros(1, 2, 1, 64)
     q[0, 0, 0, 0], k[0, 0, 0, 0] = 1.0, 8 * 0.405
     v[0, :, 0, 0] = torch.tensor([1.0, -1.5])
     v[0, :, 0, 1] = torch.tensor([0.25, 0.5])
-    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    return tuple(t.to(torch.bfloat16) for t in (q, k, v))
+
+
+def test_split_p_bar_refuses_a_single_bf16_p_where_values_cancel():
+    # Column 0 nearly cancels (out ~7e-4, bar ~4e-5). One bf16 P is off by
+    # ~5e-4 there; the split is not.
+    q, k, v = _cancelling_case()
     out_p, _ = port.plain_flash_forward(q, k, v, False)
     mass = port.plain_flash_row_mass(q, k, v, False)
     assert 0 < abs(float(out_p[0, 0, 0, 0])) < 1e-2  # the cancelling column
@@ -242,13 +253,9 @@ def _emulated_backward(q, k, v, do, lse, delta, causal, split):
     p, ds = port._probs_and_dscores(q, k, v, do, lse, delta, causal)
     scale = 1.0 / q.shape[-1] ** 0.5
 
-    def parts(x):
-        hi = x.to(torch.bfloat16).float()
-        return [hi, (x - hi).to(torch.bfloat16).float()] if split else [hi]
-
-    dq = scale * sum(torch.einsum("bhqk,bkhd->bqhd", t, k.float()) for t in parts(ds))
-    dk = scale * sum(torch.einsum("bhqk,bqhd->bkhd", t, q.float()) for t in parts(ds))
-    dv = sum(torch.einsum("bhqk,bqhd->bkhd", t, do.float()) for t in parts(p))
+    dq = scale * sum(torch.einsum("bhqk,bkhd->bqhd", t, k.float()) for t in _bf16_parts(ds, split))
+    dk = scale * sum(torch.einsum("bhqk,bqhd->bkhd", t, q.float()) for t in _bf16_parts(ds, split))
+    dv = sum(torch.einsum("bhqk,bqhd->bkhd", t, do.float()) for t in _bf16_parts(p, split))
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -395,22 +402,100 @@ def test_kernel_wrappers_reject_what_the_kernel_does_not_take(cuda_device):
         _kernels.flash_bwd_dq(q, k, v, shifted, lse, delta, True)
     with pytest.raises(ValueError, match="aligned"):
         _kernels.flash_bwd_dkv(q, k, v, shifted, lse, delta, True)
+    with pytest.raises(ValueError, match="aligned"):  # the carry fold's bf16 kernel loads q by TMA too
+        _kernels.flash_carry(port.init_carry(q.shape, cuda_device), shifted, k, v, 0, 0, True)
 
 
-def _carry_close(got, ref):
-    """The carry kernel against its plain version: m to 1e-6 (both take the
-    max of the same f32 scores); l to 1e-5 + 1e-5 |ref|; acc to
-    1e-5 + 1e-5 |ref| + 1e-6 l. Both are f32 sums of ~1000 weighted terms,
-    folded 64 keys at a time by the kernel and in one step by the plain
-    version; an acc element near 0 is the sum of terms of size up to ~l, so
-    its rounding scales with l (1e-6 l is 1e-6 in the normalized output)."""
+def _carry_close(got, ref, mass=None):
+    """The carry kernel against its plain version. f32 (``mass`` None): m to
+    1e-6 (both take the max of the same f32 scores); l to 1e-5 + 1e-5 |ref|;
+    acc to 1e-5 + 1e-5 |ref| + 1e-6 l. Both are f32 sums of ~1000 weighted
+    terms, folded one key tile at a time by the kernel and in one step by
+    the plain version; an acc element near 0 is the sum of terms of size up
+    to ~l, so its rounding scales with l (1e-6 l is 1e-6 in the normalized
+    output). bf16: m to 1e-5 (wgmma sums the scores in its own order, as
+    the forward's lse is held), and acc gets 2^-15 of the fold's ``mass``
+    (``plain_flash_chunk_mass``, exp(S - m_new) @ |V|) beyond that, since
+    the kernel multiplies P split into two bf16 halves (within 2^-17 P)."""
     m, l, acc = got
     m_r, l_r, acc_r = ref
-    torch.testing.assert_close(m, m_r, atol=1e-6, rtol=0)
+    torch.testing.assert_close(m, m_r, atol=1e-6 if mass is None else 1e-5, rtol=0)
     torch.testing.assert_close(l, l_r, atol=1e-5, rtol=1e-5)
     tol = 1e-5 + 1e-5 * acc_r.abs() + 1e-6 * l_r.transpose(1, 2)[..., None]
+    if mass is not None:
+        tol = tol + 2.0**-15 * mass
     diff = (acc - acc_r).abs()
-    assert bool((diff <= tol).all()), f"acc: {int((diff > tol).sum())} elements off, max diff {float(diff.max()):.3e}"
+    assert bool((diff <= tol).all()), (
+        f"acc: {int((diff > tol).sum())} elements over the carry bar, max diff {float(diff.max()):.3e}")
+
+
+def _emulated_chunk_update(carry, q, k, v, q_offset, kv_offset, causal, split):
+    """The bf16 carry kernel's arithmetic on the CPU: f32 scores, m, l and P
+    as the plain version computes them, then P . V with P either split into
+    two bf16 halves (the kernel's choice) or rounded once to bf16, the
+    products exact and summed in f32, added to the rescaled incoming acc."""
+    m, l, acc = carry
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * (1.0 / q.shape[-1] ** 0.5), k.float())
+    if causal:
+        s = port._causal_mask(s, q_offset, kv_offset)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    pv = sum(torch.einsum("bhqk,bkhd->bqhd", part, v.float()) for part in _bf16_parts(p, split))
+    return m_new, corr * l + p.sum(dim=-1), corr.transpose(1, 2)[..., None] * acc + pv
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_chunk_mass_is_the_row_mass_times_l_on_a_fresh_carry(causal):
+    q, k, v, _ = _qkv(13, (2, 100, 2, 64), torch.bfloat16)
+    fresh = port.init_carry(q.shape, "cpu")
+    mass = port.plain_flash_chunk_mass(fresh, q, k, v, 0, 0, causal)
+    assert mass.shape == q.shape and mass.dtype == torch.float32 and bool((mass >= 0).all())
+    _, l, _ = port.plain_flash_chunk_update(fresh, q, k, v, 0, 0, causal)
+    row_mass = port.plain_flash_row_mass(q, k, v, causal) * l.transpose(1, 2)[..., None]
+    torch.testing.assert_close(mass, row_mass, atol=1e-6, rtol=1e-5)
+
+
+_CARRY_FOLD_LENGTHS = {"diagonal": 64, "past": 64, "ragged non-causal": 100, "diagonal S=129": 129}
+
+
+def _carry_fold_case(fold):
+    """(carry, q, k, v, q_offset, kv_offset, causal) of one of the ring's
+    folds at a small shape: shard 3's diagonal chunk into a fresh carry (of
+    64 or 129 positions), a past chunk into that carry, and a ragged
+    non-causal chunk."""
+    shape = (2, _CARRY_FOLD_LENGTHS[fold], 2, 64)
+    q, k, v, kp = _qkv(14, shape, torch.bfloat16)
+    vp = _qkv(15, shape, torch.bfloat16)[0]
+    off = 3 * shape[1]
+    fresh = port.init_carry(q.shape, "cpu")
+    if fold == "past":
+        return port.plain_flash_chunk_update(fresh, q, k, v, off, off, True), q, kp, vp, off, 0, True
+    if fold == "ragged non-causal":
+        return fresh, q, k, v, 0, 0, False
+    return fresh, q, k, v, off, off, True
+
+
+@pytest.mark.parametrize("fold", list(_CARRY_FOLD_LENGTHS))
+def test_split_carry_bar_holds_the_split_at_small_shapes(fold):
+    case = _carry_fold_case(fold)
+    mass = port.plain_flash_chunk_mass(*case)
+    assert mass.shape == case[1].shape and bool((mass >= 0).all())
+    _carry_close(_emulated_chunk_update(*case, split=True), port.plain_flash_chunk_update(*case), mass)
+
+
+def test_split_carry_bar_refuses_a_single_bf16_p_where_values_cancel():
+    # The forward's cancelling case folded into a fresh carry: unnormalized,
+    # column 0 of acc is 1 - 1.5 * 0.667 ~ -1e-3 against a bar of ~7e-5;
+    # one bf16 P is off by ~8e-4 there, the split is not.
+    q, k, v = _cancelling_case()
+    fresh = port.init_carry(q.shape, "cpu")
+    ref = port.plain_flash_chunk_update(fresh, q, k, v, 0, 0, False)
+    mass = port.plain_flash_chunk_mass(fresh, q, k, v, 0, 0, False)
+    assert 0 < abs(float(ref[2][0, 0, 0, 0])) < 1e-2
+    _carry_close(_emulated_chunk_update(fresh, q, k, v, 0, 0, False, split=True), ref, mass)
+    with pytest.raises(AssertionError, match="over the carry bar"):
+        _carry_close(_emulated_chunk_update(fresh, q, k, v, 0, 0, False, split=False), ref, mass)
 
 
 @pytest.mark.cuda
@@ -419,23 +504,30 @@ def test_carry_kernel_matches_plain_version_on_card(cuda_device, dtype):
     """The ring's folds of shard 7 of 8 at [2, 1024, 8, 64]: the diagonal
     chunk into a fresh carry, a past chunk into that carry, and a chunk
     wholly in the future, which must leave the carry bit-unchanged; then
-    the finalized output within one bf16 ulp of the plain version's."""
+    the finalized output within one bf16 ulp of the plain version's (plus,
+    for bf16, 2^-15 of the past fold's mass / l: the kernel splits P)."""
     q, k, v, _ = _qkv(3, (2, 1024, 8, 64), dtype, cuda_device)
     kp, vp, _, _ = _qkv(4, (2, 1024, 8, 64), dtype, cuda_device)
     off = 7 * 1024
+    bf16 = dtype == torch.bfloat16
     fresh = port.init_carry(q.shape, cuda_device)
     _kernels.reset_launches()
     diag = _kernels.flash_carry(fresh, q, k, v, off, off, True)
-    _carry_close(diag, port.plain_flash_chunk_update(fresh, q, k, v, off, off, True))
+    _carry_close(diag, port.plain_flash_chunk_update(fresh, q, k, v, off, off, True),
+                 port.plain_flash_chunk_mass(fresh, q, k, v, off, off, True) if bf16 else None)
     past = _kernels.flash_carry(diag, q, kp, vp, off, 0, True)
     past_p = port.plain_flash_chunk_update(diag, q, kp, vp, off, 0, True)
-    _carry_close(past, past_p)
+    mass = port.plain_flash_chunk_mass(diag, q, kp, vp, off, 0, True)
+    _carry_close(past, past_p, mass if bf16 else None)
     future = _kernels.flash_carry(past, q, kp, vp, off, off + 1024, True)
     for a, b in zip(future, past):
         assert torch.equal(a, b)
     assert _kernels.LAUNCHES["flash_carry"] == 3
     out, out_p = port.finalize_carry(past, torch.bfloat16), port.finalize_carry(past_p, torch.bfloat16)
-    _within_one_bf16_ulp(out, out_p)
+    if bf16:
+        _within_split_bar(out, out_p, mass / past_p[1].transpose(1, 2)[..., None])
+    else:
+        _within_one_bf16_ulp(out, out_p)
 
 
 @pytest.mark.cuda
@@ -443,7 +535,28 @@ def test_carry_kernel_ragged_non_causal_on_card(cuda_device):
     q, k, v, _ = _qkv(5, (2, 1000, 8, 64), torch.bfloat16, cuda_device)
     fresh = port.init_carry(q.shape, cuda_device)
     _carry_close(_kernels.flash_carry(fresh, q, k, v, 0, 0, False),
-                 port.plain_flash_chunk_update(fresh, q, k, v, 0, 0, False))
+                 port.plain_flash_chunk_update(fresh, q, k, v, 0, 0, False),
+                 port.plain_flash_chunk_mass(fresh, q, k, v, 0, 0, False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,kv_back", [(1024, 100), (129, 0), (1, 0)], ids=["mid-tile diagonal", "S=129", "S=1"])
+def test_carry_kernel_edge_folds_on_card(cuda_device, s, kv_back):
+    """bf16 folds at the tensor-core kernel's edges: a chunk whose causal
+    diagonal crosses a key tile (kv_offset = q_offset - 100, into a fresh
+    carry: every row sees key 0 in its first tile), and chunks of 129 (one
+    full q tile and a row) and 1, each the diagonal fold into a fresh carry
+    and then a past fold into it."""
+    q, k, v, kp = _qkv(7, (2, s, 8, 64), torch.bfloat16, cuda_device)
+    vp = _qkv(8, (2, s, 8, 64), torch.bfloat16, cuda_device)[0]
+    off = 7 * s
+    carry = port.init_carry(q.shape, cuda_device)
+    folds = [(k, v, off - kv_back)] + ([(kp, vp, 0)] if kv_back == 0 else [])
+    for kc, vc, kv_off in folds:
+        got = _kernels.flash_carry(carry, q, kc, vc, off, kv_off, True)
+        ref = port.plain_flash_chunk_update(carry, q, kc, vc, off, kv_off, True)
+        _carry_close(got, ref, port.plain_flash_chunk_mass(carry, q, kc, vc, off, kv_off, True))
+        carry = got
 
 
 @pytest.mark.cuda
@@ -463,3 +576,27 @@ def test_ring_flash_autograd_matches_dense_on_card(cuda_device, causal):
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
     for a, b in zip(grads, ref_grads):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_ring_flash_autograd_matches_dense_on_card_bf16(cuda_device):
+    """bf16, 4 shards of 256: the ring forward through the tensor-core carry
+    kernel (one launch per folded chunk) and its remat backward against
+    autograd through dense attention in f32 on the same (bf16-valued)
+    inputs, at the bf16 tolerance of 5e-2. The cotangent is random: with
+    ``out**2`` the first keys' gradients grow so large that their own bf16
+    rounding nears 5e-2, and the bar would hold that rounding rather than
+    the kernel; a random cotangent keeps them of order one."""
+    q, k, v, g = _qkv(6, (2, 1024, 2, 64), torch.bfloat16, cuda_device, grad=True)
+    _kernels.reset_launches()
+    with Mesh({"seq": 4}, device=cuda_device).bind():
+        out = ring_attention(q, k, v, "seq", causal=True, impl="flash")
+    grads = torch.autograd.grad(out, (q, k, v), g.detach())
+    assert _kernels.LAUNCHES["flash_carry"] == 10
+    qf, kf, vf = (t.detach().float().requires_grad_(True) for t in (q, k, v))
+    ref = port.dense_attention(qf, kf, vf)
+    ref_grads = torch.autograd.grad(ref, (qf, kf, vf), g.detach().float())
+    torch.testing.assert_close(out.float(), ref, atol=5e-2, rtol=0)
+    for a, b in zip(grads, ref_grads):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all()
+        torch.testing.assert_close(a.float(), b, atol=5e-2, rtol=0)

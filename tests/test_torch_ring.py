@@ -5,9 +5,11 @@ Same inputs (numpy, from a seed) go through the JAX functions (Pallas in
 interpret mode on the CPU, the ring under ``shard_map`` on the 8-device
 virtual CPU mesh, as tests/test_attention.py runs them) and the port's (plain
 versions on the CPU; one card, the ring as a loop of chunk folds).
-Tolerances: the carry fold 1e-5 (f32); blockwise and remat flash 1e-5
-forward, 1e-4 gradients; the ring at tests/test_attention.py's bars against
-dense (blockwise 1e-5 forward and 1e-4 gradients, flash 2e-3).
+Tolerances: the carry fold 1e-5 (f32); its bf16 kernel's arithmetic (P split
+into two bf16 halves) the carry bar of tests/test_torch_kernels.py; blockwise
+and remat flash 1e-5 forward, 1e-4 gradients; the ring at
+tests/test_attention.py's bars against dense (blockwise 1e-5 forward and 1e-4
+gradients, flash 2e-3).
 """
 
 import jax
@@ -28,6 +30,7 @@ from p2pfl_tpu_torch.models.transformer import SelfAttention
 from p2pfl_tpu_torch.ops import attention as port
 from p2pfl_tpu_torch.ops.ring_attention import ring_attention
 from p2pfl_tpu_torch.parallel.mesh import Mesh, axis_size
+from test_torch_kernels import _carry_close, _emulated_chunk_update
 
 B, S, H, D = 2, 64, 2, 16
 
@@ -48,6 +51,22 @@ def _port_carry_of(jax_carry):
     return m[..., 0], l[..., 0], np.swapaxes(acc, 1, 2)
 
 
+def _ring_fold_order(causal):
+    """Shard 2 of 4 (32 positions each): its chunks in ring order, self
+    first; under causal the future chunk 3 among them (skipped by the JAX
+    kernel block by block, a no-op for the port)."""
+    return [2, 0, 3, 1] if causal else [2, 3, 0, 1]
+
+
+def _jax_carry0(s):
+    m0 = jnp.full((B, H, s, 128), -jnp.inf, jnp.float32)
+    return m0, jnp.zeros((B, H, s, 128), jnp.float32), jnp.zeros((B, H, s, D), jnp.float32)
+
+
+def _to_bhsd(a):
+    return jnp.moveaxis(jnp.asarray(a), 2, 1)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_chunk_update_matches_jax_flash_chunk_update(causal):
     """Shard 2 of 4 (32 positions each) folds its chunks in ring order: self
@@ -56,16 +75,13 @@ def test_plain_chunk_update_matches_jax_flash_chunk_update(causal):
     the port's carry bit-unchanged; without causal, chunks 3, 0, 1."""
     q, k, v, _ = _qkvg(0, 128)
     s, i = 32, 2
-    order = [2, 0, 3, 1] if causal else [2, 3, 0, 1]
     qc = q[:, i * s:(i + 1) * s]
     carry_p = port.init_carry(qc.shape, "cpu")
-    m0 = jnp.full((B, H, s, 128), -jnp.inf, jnp.float32)
-    carry_j = (m0, jnp.zeros((B, H, s, 128), jnp.float32), jnp.zeros((B, H, s, D), jnp.float32))
-    to_bhsd = lambda a: jnp.moveaxis(jnp.asarray(a), 2, 1)  # noqa: E731
-    for j in order:
+    carry_j = _jax_carry0(s)
+    for j in _ring_fold_order(causal):
         kc, vc = k[:, j * s:(j + 1) * s], v[:, j * s:(j + 1) * s]
         carry_j = jax_flash_chunk_update(
-            carry_j, to_bhsd(qc), to_bhsd(kc), to_bhsd(vc), i * s, j * s,
+            carry_j, _to_bhsd(qc), _to_bhsd(kc), _to_bhsd(vc), i * s, j * s,
             causal=causal, block_q=16, block_k=16,
         )
         before = tuple(t.clone() for t in carry_p)
@@ -78,6 +94,29 @@ def test_plain_chunk_update_matches_jax_flash_chunk_update(causal):
     out = port.finalize_carry(carry_p, torch.float32)
     ref = jax_dense_attention(*map(jnp.asarray, (q, k, v)), causal=causal)[:, i * s:(i + 1) * s]
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_split_chunk_update_holds_the_carry_bar_against_jax_flash_chunk_update(causal):
+    """The bf16 carry kernel's arithmetic (P split into two bf16 halves,
+    emulated on the CPU) over the same fold sequence, on bf16-valued inputs,
+    against JAX ``flash_chunk_update`` (interpret mode) after every fold,
+    within the carry bar. The split's mass accumulates over the folds: it is
+    the acc of the same plain fold sequence run on |V|."""
+    q, k, v, _ = (torch.tensor(a).bfloat16().float().numpy() for a in _qkvg(0, 128))
+    s, i = 32, 2
+    qc = q[:, i * s:(i + 1) * s]
+    carry_e = mass_carry = port.init_carry(qc.shape, "cpu")
+    carry_j = _jax_carry0(s)
+    for j in _ring_fold_order(causal):
+        kc, vc = k[:, j * s:(j + 1) * s], v[:, j * s:(j + 1) * s]
+        carry_j = jax_flash_chunk_update(
+            carry_j, _to_bhsd(qc), _to_bhsd(kc), _to_bhsd(vc), i * s, j * s,
+            causal=causal, block_q=16, block_k=16,
+        )
+        carry_e = _emulated_chunk_update(carry_e, _t(qc), _t(kc), _t(vc), i * s, j * s, causal, split=True)
+        mass_carry = port.flash_chunk_update(mass_carry, _t(qc), _t(kc), _t(np.abs(vc)), i * s, j * s, causal)
+        _carry_close(carry_e, tuple(map(torch.tensor, _port_carry_of(carry_j))), mass_carry[2])
 
 
 @pytest.mark.parametrize("causal", [True, False])
