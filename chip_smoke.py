@@ -60,14 +60,51 @@ Phases, each on its own printed lines:
    and falling), peak device memory, and exactly 144 carry launches per
    step (4 layers x 36 folds).
 
-``--profile`` adds one more slice round and one more ring train step, each
-under ``torch.profiler``, printing device time by kernel class and the
+5. narrow: rows 1-5 at head sizes 32 and 16 (the width of rows 1-5 over 16
+   and 32 heads: [8, 1024, H, D], the eval forward at [16, 1024, H, D], the
+   carry at one ring chunk [2, 1024, H, D]) in bf16 (q, k, v, dO and the
+   carry's acc zero-padded to 64 for the tensor-core kernels) and f32 (the
+   CUDA-core instances at D), held to the bars of phase 2 and the carry
+   phase, then timed beside the aten flash forward and backward at the same
+   shape, with the bound at the true D. Then rows 1-4 the same way at the
+   flash classifier's own shapes (bf16, head size 32, a sequence of 64: one
+   partial tile): training at [16, 64, 4, 32], eval at [256, 64, 4, 32].
+6. narrow paths: the slice's LM at 16 and 32 heads (head sizes 32 and 16),
+   one round after a warm-up round each, and the ring trainer at 16 and 32
+   heads, one step after a warm-up step each; exact launch counts.
+7. mlp: ``MeshSimulation`` (task ``"classification"``, the default) at
+   ``bench.py``'s metric configuration (``bench.py:78-86``,
+   ``_metric_sim_run``, ``_make_data``): ``mlp_model(seed=0)`` (hidden 256,
+   128), 100 nodes of 600 samples from ``synthetic_mnist(n_train=60000,
+   n_test=1024)`` with 10 % of the train and test labels redrawn, split IID,
+   committee 4, batch 64, 1 epoch, seed 1, 10 rounds after a warm-up round:
+   s/round, test loss and accuracy per round (finite, loss falling, final
+   accuracy > 0.5), peak memory; no flash kernel launched. Then two
+   scheduled rounds at f32 compute on the card and on the CPU: node 0's
+   parameters within 1e-2 of the rounds' update (L2), test loss within
+   5e-4, accuracy within one test sample.
+8. classifier: ``transformer_classifier_model(attention_kind="flash")`` at
+   the JAX package's defaults (2 layers, 4 heads, width 128: head size 32;
+   vocab 256, 10 classes, sequence 64, bf16), 8 nodes of 64 samples of
+   label-dependent tokens, committee 4, batch 16, 3 rounds after a warm-up
+   round: 32 ``flash_fwd`` / ``flash_bwd_dq`` / ``flash_bwd_dkv`` and 2
+   ``flash_fwd_no_lse`` launches per round, test loss falling.
+9. options: phase 7's configuration for 2 rounds each with SCAFFOLD,
+   FedProx, DP-SGD (with its privacy spent), FedAdam, 10 % Byzantine nodes
+   under Krum, the update-norm clip and ``eval_every=2``: finite losses;
+   then each held on the card against the CPU as in phase 7.
+
+``--profile`` adds one more slice round, one more ring train step and one
+more MLP round, each under ``torch.profiler``, printing device time by kernel class and the
 device's busy share.
 
 Any failed check exits 1 without the result lines. On success the last
 three lines are the card's name and power limit, one JSON object with a row
-per kernel, and ``{"ok": true, "device": {...}}``. Without a CUDA device,
-or without the package beside it, the script exits 1 and prints no result.
+per kernel (rows 1-5 at head size 64, then ``<name>_d32`` and
+``<name>_d16``: bf16 times, with the f32 instance's beside them; then rows
+1-4 at the classifier's shapes, ``<name>_d32_cls``), and
+``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+package beside it, the script exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -105,6 +142,32 @@ RING_FOLDS = LAYERS * RING_SHARDS * (RING_SHARDS + 1) // 2  # carry launches per
 RING_KERNEL_ROWS = {  # name -> (replaced TPU kernel body, launches per train step on the ring, source)
     "flash_carry": ("p2pfl_tpu/ops/attention.py:485", RING_FOLDS, SOURCE_FWD),
 }
+
+# Head sizes below 64: the width above over 16 and 32 heads. bf16 zero-pads
+# to the 64 instances of the tensor-core kernels; f32 has its own instances.
+NARROW_HEAD_DIMS = (32, 16)
+SOURCE_F32 = "p2pfl_tpu_torch/csrc/flash_attn.cu"
+
+# bench.py's metric configuration (bench.py:78-86, _metric_sim_run).
+MLP_NODES, MLP_SAMPLES, MLP_COMMITTEE, MLP_BATCH, MLP_TEST, MLP_ROUNDS = 100, 600, 4, 64, 1024, 10
+MLP_LABEL_FLIP = 0.10  # bench.py's LABEL_FLIP
+OPTION_ROUNDS = 2
+# The card-against-CPU check: two scheduled rounds in which nodes 0, 11 and
+# 33 train twice (their optimizer state must be written back between) and
+# node 0 is one of the options phase's Byzantine nodes.
+PARITY_SCHEDULE = ((0, 11, 22, 33), (33, 0, 44, 11))
+PARITY_RTOL, PARITY_LOSS_ATOL = 1e-2, 5e-4
+
+# The JAX package's transformer_classifier_model defaults (head size 32).
+CLS_NODES, CLS_PER_NODE, CLS_COMMITTEE, CLS_BATCH, CLS_TEST, CLS_ROUNDS = 8, 64, 4, 16, 256, 3
+CLS_SEQ, CLS_VOCAB, CLS_CLASSES, CLS_LAYERS, CLS_HEADS = 64, 256, 10, 2, 4
+CLS_SUFFIX = "_d32_cls"  # the rows of the classifier's own kernel shapes
+CLS_STEPS = CLS_COMMITTEE * (CLS_PER_NODE // CLS_BATCH) * CLS_LAYERS  # training launches per round
+
+
+def narrow_suffix(d: int) -> str:
+    """The suffix of a row at head size ``d`` and the width of rows 1-5."""
+    return f"_d{d}"
 
 
 class CheckFailed(RuntimeError):
@@ -529,6 +592,165 @@ def phase_carry() -> dict:
     return rows
 
 
+def narrow_rows(label: str, suffix: str, d: int, h: int, b: int, b_eval: int, s: int, dtypes: tuple,
+                carry: bool, gen) -> dict:
+    """Rows 1-4 (and the carry, with ``carry``) at head size ``d`` over ``h``
+    heads: the forward and backward pair at [b, s, h, d], the eval forward at
+    [b_eval, s, h, d], one ring chunk [2, 1024, h, d], each against its plain
+    version, then timed; returns {"<name><suffix>": row} (bf16 numbers, f32
+    beside them when ``dtypes`` holds it)."""
+    import torch
+    import torch.nn.functional as F
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.ops import attention as att
+
+    dev = torch.device("cuda")
+    rows: dict = {}
+
+    def inputs(b, s, dtype, n):
+        return [torch.randn((b, s, h, d), generator=gen).to(dev, dtype) for _ in range(n)]
+
+    for dtype in dtypes:
+        bf16 = dtype == torch.bfloat16
+        kind = str(dtype)[6:]
+        how = "zero-padded to 64 for the tensor-core kernels" if bf16 else "the CUDA-core instances"
+        print(f"[{label}] D={d} {kind} ({how}): B={b} S={s} H={h} causal=True; eval B={b_eval}")
+        # The bars of phase 2 (bf16: 1e-6 + 1 ulp + 2^-15 mass; f32: the
+        # JAX package's 1e-5 / 1e-4) and of the carry phase.
+        grad_tol = {"atol": 1e-6, "bf16_ulps": 1} if bf16 else {"atol": 1e-4}
+
+        def fwd_tol(q, k, v):
+            return ({"atol": 1e-6, "bf16_ulps": 1, "mass": att.plain_flash_row_mass(q, k, v, True)} if bf16
+                    else {"atol": 1e-5})
+
+        q, k, v, g = inputs(b, s, dtype, 4)
+        out, lse = _kernels.flash_fwd(q, k, v, True, True)
+        check(out.shape == q.shape and out.is_contiguous(), f"D={d}: forward output shape {tuple(out.shape)}")
+        out_p, lse_p = att.plain_flash_forward(q, k, v, True)
+        e_fwd = max(max_err(out, out_p, f"D={d} flash_fwd out", **fwd_tol(q, k, v)),
+                    max_err(lse, lse_p, f"D={d} flash_fwd lse", atol=1e-5))
+        delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        dq = _kernels.flash_bwd_dq(q, k, v, g, lse, delta, True)
+        dk, dv = _kernels.flash_bwd_dkv(q, k, v, g, lse, delta, True)
+        dq_p = att.plain_flash_backward_dq(q, k, v, g, lse, delta, True)
+        dk_p, dv_p = att.plain_flash_backward_dkv(q, k, v, g, lse, delta, True)
+        masses = att.plain_flash_grad_mass(q, k, v, g, lse, delta, True) if bf16 else (None,) * 3
+        e_dq = max_err(dq, dq_p, f"D={d} flash_bwd_dq dq", **grad_tol, mass=masses[0])
+        e_dkv = max(max_err(dk, dk_p, f"D={d} flash_bwd_dkv dk", **grad_tol, mass=masses[1]),
+                    max_err(dv, dv_p, f"D={d} flash_bwd_dkv dv", **grad_tol, mass=masses[2]))
+
+        qe, ke, ve = inputs(b_eval, s, dtype, 3)  # the eval forward's shape
+        out_e, none = _kernels.flash_fwd(qe, ke, ve, True, False)
+        check(none is None and torch.equal(out_e, _kernels.flash_fwd(qe, ke, ve, True, True)[0]),
+              f"D={d}: the forward without lse differs from the one with it")
+        e_nolse = max_err(out_e, att.plain_flash_forward(qe, ke, ve, True)[0], f"D={d} flash_fwd_no_lse out",
+                          **fwd_tol(qe, ke, ve))
+
+        timings = {
+            "flash_fwd": (lambda: _kernels.flash_fwd(q, k, v, True, True),
+                          lambda: att.plain_flash_forward(q, k, v, True), e_fwd),
+            "flash_fwd_no_lse": (lambda: _kernels.flash_fwd(qe, ke, ve, True, False),
+                                 lambda: att.plain_flash_forward(qe, ke, ve, True), e_nolse),
+            "flash_bwd_dq": (lambda: _kernels.flash_bwd_dq(q, k, v, g, lse, delta, True),
+                             lambda: att.plain_flash_backward_dq(q, k, v, g, lse, delta, True), e_dq),
+            "flash_bwd_dkv": (lambda: _kernels.flash_bwd_dkv(q, k, v, g, lse, delta, True),
+                              lambda: att.plain_flash_backward_dkv(q, k, v, g, lse, delta, True), e_dkv),
+        }
+        if carry:
+            # One ring chunk of shard 7: the diagonal fold into a fresh carry,
+            # a past fold into it, a future fold that must change nothing.
+            qc, kc, vc, kpc, vpc = inputs(RING_BATCH, RING_SHARD, dtype, 5)
+            off = (RING_SHARDS - 1) * RING_SHARD
+            fresh = att.init_carry(qc.shape, dev)
+
+            def fold(carry, kk, vv, kv_off, what):
+                got = _kernels.flash_carry(carry, qc, kk, vv, off, kv_off, True)
+                ref = att.plain_flash_chunk_update(carry, qc, kk, vv, off, kv_off, True)
+                mass = att.plain_flash_chunk_mass(carry, qc, kk, vv, off, kv_off, True) if bf16 else None
+                return got, carry_err(got, ref, f"D={d} {what} fold", mass)
+
+            diag, e_diag = fold(fresh, kc, vc, off, "diagonal")
+            past, e_past = fold(diag, kpc, vpc, 0, "past")
+            future = _kernels.flash_carry(past, qc, kpc, vpc, off, off + RING_SHARD, True)
+            check(all(torch.equal(a, b) for a, b in zip(future, past)),
+                  f"D={d}: a fold wholly in the future changed the carry")
+            timings["flash_carry"] = (lambda: _kernels.flash_carry(diag, qc, kpc, vpc, off, 0, True),
+                                      lambda: att.plain_flash_chunk_update(diag, qc, kpc, vpc, off, 0, True),
+                                      max(e_diag, e_past))
+        lib: dict = {"flash_carry": None}  # no PyTorch call folds a chunk into an unnormalized carry
+        if bf16:  # aten's flash attention takes bf16 only: library times at the same shape
+            qh, kh, vh, gh = (t.transpose(1, 2).contiguous() for t in (q, k, v, g))
+            qeh, keh, veh = (t.transpose(1, 2).contiguous() for t in (qe, ke, ve))
+            with torch.no_grad():
+                lib["flash_fwd"] = time_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                    qh, kh, vh, 0.0, True, False), 20)
+                lib["flash_fwd_no_lse"] = time_ms(
+                    lambda: F.scaled_dot_product_attention(qeh, keh, veh, is_causal=True), 20)
+                o_l, lse_l, cq, ck, mq, mk, seed, offset = torch.ops.aten._scaled_dot_product_flash_attention(
+                    qh, kh, vh, 0.0, True, False)[:8]
+                lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = time_ms(
+                    lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                        gh, qh, kh, vh, o_l, lse_l, cq, ck, mq, mk, 0.0, True, seed, offset), 20)
+        for name, (kern, plain, err) in timings.items():
+            ms, plain_ms = time_ms(kern, 20), time_ms(plain, 5)
+            key = name + suffix
+            if bf16:
+                if name == "flash_carry":
+                    b_ms, b_by = carry_bound(RING_BATCH, RING_SHARD, RING_SHARD, h, d, 2, False)
+                else:
+                    b_ms, b_by = bound(name, b_eval if name == "flash_fwd_no_lse" else b, s, h, d, True, 2)
+                rows[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                             "bound_by": b_by, "library_ms": lib[name]}
+            else:
+                rows[key].update({"max_abs_err_f32": err, "ms_f32": ms, "plain_ms_f32": plain_ms})
+    for key, r in rows.items():
+        against = (f"library {r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x of it)"
+                   if r["library_ms"] else "library: none")
+        f32 = f"; f32 {r['ms_f32']:.4f} ms, plain {r['plain_ms_f32']:.4f} ms" if "ms_f32" in r else ""
+        print(f"[{label}] {key}: bf16 {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+              f"{r['bound_ms'] / r['ms']:.1%} of it), plain {r['plain_ms']:.4f} ms; {against}{f32}")
+    return rows
+
+
+def phase_kernels_narrow() -> dict:
+    """Rows 1-5 at head sizes 32 and 16 (the width of rows 1-5 over more
+    heads), in bf16 and f32; returns {"<name>_d<D>": row}."""
+    import torch
+
+    gen = torch.Generator().manual_seed(4)
+    rows: dict = {}
+    for d in NARROW_HEAD_DIMS:
+        rows.update(narrow_rows("narrow", narrow_suffix(d), d, EMBED // d, BATCH, EVAL_SEQS, SEQ_LEN,
+                                (torch.bfloat16, torch.float32), True, gen))
+    return rows
+
+
+def phase_kernels_classifier() -> dict:
+    """Rows 1-4 at the flash classifier's own shapes (head size 32, a
+    sequence of 64: one partial 128-row tile), in bf16 as the classifier runs
+    them: training at [16, 64, 4, 32], eval at [256, 64, 4, 32]; returns
+    {"<name>_d32_cls": row}."""
+    import torch
+
+    return narrow_rows("classifier-kernels", CLS_SUFFIX, 32, CLS_HEADS, CLS_BATCH, CLS_TEST, CLS_SEQ,
+                       (torch.bfloat16,), False, torch.Generator().manual_seed(10))
+
+
+def lm_data(seed: int, seqs: int = SEQS) -> tuple:
+    """Synthetic tokens as bench.py's --lm-mfu arm makes them: each sequence
+    ``(start + i) % vocab``; returns the stacked train split and the test
+    tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, VOCAB, size=(NODES, seqs, 1))
+    x = ((starts + np.arange(SEQ_LEN)[None, None, :]) % VOCAB).astype(np.int32)
+    y = np.zeros((NODES, seqs), np.int32)
+    mask = np.ones((NODES, seqs), np.float32)
+    xt = ((rng.integers(0, VOCAB, size=(EVAL_SEQS, 1)) + np.arange(SEQ_LEN)) % VOCAB).astype(np.int32)
+    return (x, y, mask), xt
+
+
 def phase_slice() -> dict:
     import numpy as np
     import torch
@@ -556,14 +778,8 @@ def phase_slice() -> dict:
     print(f"[slice] flash vs dense logits on [2, 256]: max_abs_err={err:.3e} tol 6e-2")
     check(bool(torch.isfinite(got).all()) and err <= 6e-2, "flash logits disagree with dense attention")
 
-    # Synthetic tokens as bench.py's --lm-mfu arm makes them.
-    rng = np.random.default_rng(5)
-    starts = rng.integers(0, VOCAB, size=(NODES, SEQS, 1))
-    x = ((starts + np.arange(SEQ_LEN)[None, None, :]) % VOCAB).astype(np.int32)
-    y = np.zeros((NODES, SEQS), np.int32)
-    mask = np.ones((NODES, SEQS), np.float32)
-    xt = ((rng.integers(0, VOCAB, size=(EVAL_SEQS, 1)) + np.arange(SEQ_LEN)) % VOCAB).astype(np.int32)
-    sim = MeshSimulation(model, (x, y, mask), test_data=(xt, None), train_set_size=COMMITTEE,
+    train, xt = lm_data(5)
+    sim = MeshSimulation(model, train, test_data=(xt, None), train_set_size=COMMITTEE,
                          batch_size=BATCH, lr=LR, seed=1, task="lm", device="cuda")
 
     torch.cuda.synchronize()
@@ -675,6 +891,266 @@ def phase_ring() -> tuple:
     return {name: launches[name] for name in RING_KERNEL_ROWS}, one_more_step
 
 
+def phase_narrow_paths() -> dict:
+    """The slice's LM at 16 and 32 heads (head sizes 32 and 16) for one round
+    after a warm-up round each, and the ring trainer at 16 and 32 heads for
+    one step after a warm-up step each; returns the launches of each run
+    under its rows' names (``<name>_d<D>``)."""
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.models.transformer import transformer_lm_model
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.optim import adam
+    from p2pfl_tpu_torch.parallel.mesh import Mesh
+    from p2pfl_tpu_torch.parallel.sequence import make_sequence_parallel_train_step, shard_tokens
+    from p2pfl_tpu_torch.parallel.simulation import MeshSimulation
+
+    out: dict = {}
+    for d in NARROW_HEAD_DIMS:
+        heads = EMBED // d
+        model = transformer_lm_model(seed=0, vocab_size=VOCAB, num_layers=LAYERS, num_heads=heads,
+                                     embed_dim=EMBED, attention_kind="flash", device="cuda")
+        train, xt = lm_data(6)
+        sim = MeshSimulation(model, train, test_data=(xt, None), train_set_size=COMMITTEE,
+                             batch_size=BATCH, lr=LR, seed=1, task="lm", device="cuda")
+        _kernels.reset_launches()
+        res = sim.run(rounds=1, epochs=1, warmup=True)
+        launches = dict(_kernels.LAUNCHES)
+        print(f"[narrow-paths] LM at {heads} heads (D={d}): {res.seconds_per_round:.4f} s/round, test loss "
+              f"{res.test_loss}, kernels {json.dumps(launches)}")
+        check(all(np.isfinite(res.test_loss)), f"D={d} LM: non-finite test loss")
+        for name, (_, per_round, _) in KERNEL_ROWS.items():
+            check(launches[name] == per_round * 2,
+                  f"D={d} LM: {name} launched {launches[name]} times, expected {per_round} x 2 (warm-up + 1)")
+            out[name + narrow_suffix(d)] = launches[name]
+        del sim, model
+        gc.collect()
+
+    rng = np.random.default_rng(8)
+    x = ((rng.integers(0, VOCAB, size=(RING_BATCH, 1)) + np.arange(RING_SEQ)) % VOCAB).astype(np.int32)
+    mesh = Mesh({"seq": RING_SHARDS}, device="cuda")
+    tokens = shard_tokens(x, mesh)
+    for d in NARROW_HEAD_DIMS:
+        model = transformer_lm_model(0, RING_SEQ, VOCAB, LAYERS, EMBED // d, EMBED, "ring_flash", "seq",
+                                     device="cuda")
+        opt = adam(LR)
+        step = make_sequence_parallel_train_step(model.apply, opt, mesh, "seq")
+        params, state = model.params, opt.init(model.params)
+        _kernels.reset_launches()
+        losses = []
+        for _ in range(2):  # a warm-up step and one more
+            params, state, loss = step(params, state, tokens)
+            losses.append(float(loss))
+        n = _kernels.LAUNCHES["flash_carry"]
+        print(f"[narrow-paths] ring at {EMBED // d} heads (D={d}): losses {losses}, flash_carry launches {n}")
+        check(all(np.isfinite(losses)), f"D={d} ring: non-finite loss")
+        check(n == RING_FOLDS * 2, f"D={d} ring: {n} carry launches, expected {RING_FOLDS} x 2")
+        out["flash_carry" + narrow_suffix(d)] = n
+        del model, params, state, step
+    return out
+
+
+def mlp_partitions() -> list:
+    """bench.py's metric data (``_make_data``): class templates plus noise
+    0.35 (``synthetic_mnist``), then 10 % of the train and of the test labels
+    redrawn uniformly from the 10 classes (``LABEL_FLIP``, which caps the
+    accuracy near 0.9), split IID over the nodes."""
+    import numpy as np
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset, RandomIIDPartitionStrategy, synthetic_mnist
+
+    data = synthetic_mnist(n_train=MLP_NODES * MLP_SAMPLES, n_test=MLP_TEST)
+    (x, y), (xt, yt) = data.export_arrays(train=True), data.export_arrays(train=False)
+    rng = np.random.default_rng(11)
+
+    def flip(labels):
+        redraw = rng.random(labels.shape) < MLP_LABEL_FLIP
+        return np.where(redraw, rng.integers(0, 10, labels.shape), labels).astype(labels.dtype)
+
+    flipped = FederatedDataset.from_arrays(x, flip(y), xt, flip(yt))
+    return flipped.generate_partitions(MLP_NODES, RandomIIDPartitionStrategy)
+
+
+def device_parity(label: str, parts: list, kwargs: dict, run_kwargs: dict) -> None:
+    """The MLP configuration with ``kwargs`` for the rounds of
+    ``PARITY_SCHEDULE`` at f32 compute, on the card and on the CPU (the path
+    the CPU tests hold to the JAX package). Both draw their shuffles and DP
+    noise from the same seeded CPU generators and TF32 is off, so they differ
+    only in the order of their f32 sums. That can still flip a ReLU whose
+    pre-activation is within rounding of 0, and Adam then moves a few weights
+    by up to lr on one side only, so the bar is on the whole update: node
+    0's parameters differ by at most ``PARITY_RTOL`` of the L2 norm of the
+    rounds' update (a dropped optimizer-state write-back or a wrong
+    aggregate moves every weight, by ~lr a step). Every evaluated test loss
+    within ``PARITY_LOSS_ATOL`` and every accuracy within one test sample."""
+    import math
+    import warnings
+
+    import numpy as np
+    from p2pfl_tpu_torch.config import Settings
+    from p2pfl_tpu_torch.models.mlp import mlp_model
+    from p2pfl_tpu_torch.parallel.simulation import MeshSimulation
+
+    runs = []
+    for dev in ("cuda", "cpu"):
+        with Settings.overridden(COMPUTE_DTYPE="float32"):
+            model = mlp_model(seed=0, device=dev)
+        start = {k: v.detach().float().cpu() for k, v in model.params.items()}
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # DP with a pinned seed says its epsilon is void
+            sim = MeshSimulation(model, parts, train_set_size=MLP_COMMITTEE, batch_size=MLP_BATCH, seed=1,
+                                 device=dev, **kwargs)
+        with sim:
+            res = sim.run(rounds=len(PARITY_SCHEDULE), epochs=1, warmup=False,
+                          committee_schedule=np.asarray(PARITY_SCHEDULE), **run_kwargs)
+            runs.append((res, {k: v[0].cpu() for k, v in sim.params_stack.items()}))
+    (card, p_card), (host, p_host) = runs
+    check(len(card.test_loss) == len(host.test_loss) >= 1, f"{label}: the two runs evaluated different rounds")
+    e_loss = max(abs(a - b) for a, b in zip(card.test_loss, host.test_loss))
+    e_acc = max(abs(a - b) for a, b in zip(card.test_acc, host.test_acc))
+    diff = {k: (p_card[k] - p_host[k]).abs() for k in p_card}
+    e_par = max(float(d.max()) for d in diff.values())
+    n_past = sum(int((d > 1e-5).sum()) for d in diff.values())
+    update = math.sqrt(sum(float(((p_host[k] - start[k]) ** 2).sum()) for k in p_host))
+    rel = math.sqrt(sum(float((d**2).sum()) for d in diff.values())) / update
+    ok = rel <= PARITY_RTOL and e_loss <= PARITY_LOSS_ATOL and e_acc <= 1.0 / MLP_TEST + 1e-9
+    print(f"  {label}: card against CPU, {len(PARITY_SCHEDULE)} scheduled rounds at f32: node 0's params differ "
+          f"by {rel:.3e} of the update's L2 norm {update:.4f} (tol {PARITY_RTOL:g}; max_abs_err {e_par:.3e}, "
+          f"{n_past} elements past 1e-5), test loss {e_loss:.3e} (tol {PARITY_LOSS_ATOL:g}), accuracy "
+          f"{e_acc:.5f} (tol 1/{MLP_TEST}) {'ok' if ok else 'FAIL'}")
+    check(all(np.isfinite(card.test_loss)), f"{label}: non-finite test loss on the card")
+    check(ok, f"{label}: the card's round disagrees with the CPU's")
+
+
+def phase_mlp(parts: list, profiling: bool) -> None:
+    """The classification round at bench.py's metric configuration (with
+    ``profiling``, one more round under torch.profiler)."""
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.models.mlp import mlp_model
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.parallel.simulation import MeshSimulation
+
+    model = mlp_model(seed=0, device="cuda")
+    n_params = sum(p.numel() for p in model.params.values())
+    print(f"[mlp] MLP 784-256-128-10 ({n_params} params, {model.module.compute_dtype}); {MLP_NODES} nodes x "
+          f"{MLP_SAMPLES} samples, committee {MLP_COMMITTEE}, batch {MLP_BATCH}")
+    with MeshSimulation(model, parts, train_set_size=MLP_COMMITTEE, batch_size=MLP_BATCH, seed=1,
+                        device="cuda") as sim:
+        check(sim.task == "classification" and tuple(sim.x_test.shape) == (MLP_TEST, 28, 28),
+              "the MLP simulation is not a classification over the 1024 test samples")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launches()
+        res = sim.run(rounds=MLP_ROUNDS, epochs=1, warmup=True)
+        launches = dict(_kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        if profiling:
+            phase_profile("mlp: one round", lambda: sim.run(rounds=1, warmup=False))
+    print(f"[mlp] {MLP_ROUNDS} rounds: {res.seconds_per_round:.4f} s/round ({res.seconds_total:.3f} s, host "
+          f"clock ending in torch.cuda.synchronize()); {json.dumps(res.summary())}")
+    print(f"[mlp] test loss per round: {res.test_loss}")
+    print(f"[mlp] test accuracy per round: {res.test_acc}")
+    print(f"[mlp] max_memory_allocated: {peak} bytes ({peak / 2**30:.2f} GiB); kernels {json.dumps(launches)}")
+    check(all(np.isfinite(res.test_loss)), "MLP: non-finite test loss")
+    check(res.test_loss[-1] < res.test_loss[0], "MLP: test loss did not fall over the rounds")
+    check(res.test_acc[-1] > 0.5, f"MLP: final test accuracy {res.test_acc[-1]} is not above 0.5")
+    check(not any(launches.values()), "MLP: the classification round launched a flash kernel")
+    device_parity("fedavg", parts, {}, {})
+
+
+def classifier_data(seed: int) -> tuple:
+    """Label-dependent tokens: class c draws its tokens from its own band of
+    the vocabulary; returns the stacked train split and the test split."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    band = CLS_VOCAB // CLS_CLASSES
+
+    def tokens(labels):
+        return (labels[..., None] * band + rng.integers(0, band, size=labels.shape + (CLS_SEQ,))).astype(np.int32)
+
+    y = rng.integers(0, CLS_CLASSES, size=(CLS_NODES, CLS_PER_NODE)).astype(np.int32)
+    yt = rng.integers(0, CLS_CLASSES, size=CLS_TEST).astype(np.int32)
+    return (tokens(y), y, np.ones(y.shape, np.float32)), (tokens(yt), yt)
+
+
+def phase_classifier() -> dict:
+    """The classification round of the flash TransformerClassifier; returns
+    the launches of its run under the names of the rows at its shapes
+    (``<name>_d32_cls``)."""
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.models.transformer import transformer_classifier_model
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.parallel.simulation import MeshSimulation
+
+    model = transformer_classifier_model(seed=0, attention_kind="flash", device="cuda")
+    attn = model.module.blocks[0].attn
+    d = model.module.embed.weight.shape[1] // attn.num_heads
+    print(f"[classifier] TransformerClassifier flash {CLS_LAYERS}L/{attn.num_heads}h/D={d}, seq {CLS_SEQ}, "
+          f"{sum(p.numel() for p in model.params.values())} params; {CLS_NODES} nodes x {CLS_PER_NODE} samples")
+    check(d == 32 and attn.num_heads == CLS_HEADS, f"the classifier has {attn.num_heads} heads of size {d}, "
+          f"expected {CLS_HEADS} of 32")
+    train, test = classifier_data(9)
+    with MeshSimulation(model, train, test_data=test, train_set_size=CLS_COMMITTEE, batch_size=CLS_BATCH,
+                        seed=1, device="cuda") as sim:
+        _kernels.reset_launches()
+        res = sim.run(rounds=CLS_ROUNDS, epochs=1, warmup=True)
+        launches = dict(_kernels.LAUNCHES)
+    print(f"[classifier] {CLS_ROUNDS} rounds: {res.seconds_per_round:.4f} s/round; test loss {res.test_loss}, "
+          f"accuracy {res.test_acc}; kernels {json.dumps(launches)}")
+    check(all(np.isfinite(res.test_loss)), "classifier: non-finite test loss")
+    check(res.test_loss[-1] < res.test_loss[0], "classifier: test loss did not fall over the rounds")
+    per_round = {"flash_fwd": CLS_STEPS, "flash_bwd_dq": CLS_STEPS, "flash_bwd_dkv": CLS_STEPS,
+                 "flash_fwd_no_lse": CLS_LAYERS, "flash_carry": 0}
+    for name, n in per_round.items():
+        check(launches[name] == n * (CLS_ROUNDS + 1),
+              f"classifier: {name} launched {launches[name]} times, expected {n} per round x {CLS_ROUNDS + 1}")
+    return {name + CLS_SUFFIX: launches[name] for name in KERNEL_ROWS}
+
+
+def phase_options(parts: list) -> None:
+    """Each ported MeshSimulation option for a few rounds on the MLP
+    configuration (every loss finite), then held on the card against the
+    CPU (``device_parity``)."""
+    import warnings
+
+    import numpy as np
+    from p2pfl_tpu_torch.models.mlp import mlp_model
+    from p2pfl_tpu_torch.ops.aggregation import krum
+    from p2pfl_tpu_torch.parallel.simulation import MeshSimulation
+
+    byz = np.zeros(MLP_NODES, np.float32)
+    byz[::10] = 1.0  # 10 % of the nodes poison their updates
+    # name -> (MeshSimulation options, run options, the card-against-CPU
+    # check's MeshSimulation options where they differ)
+    options = {
+        "scaffold": (dict(algorithm="scaffold"), {}, None),
+        "fedprox": (dict(fedprox_mu=0.01), {}, None),
+        "dp-sgd": (dict(dp_clip_norm=1.0, dp_noise_multiplier=0.5), {}, None),
+        "fedadam": (dict(server_optimizer="fedadam", server_lr=0.01), {}, None),
+        # Krum with f = 1 over 4 members scores each by its one nearest
+        # neighbour: the two closest members tie exactly, and f32 rounding
+        # picks between them, so the two devices' runs compare Krum at f = 0.
+        "byzantine+krum": (dict(byzantine_mask=byz, aggregate_fn=lambda s, w: krum(s, w, 1)[0]), {},
+                           dict(byzantine_mask=byz, aggregate_fn=lambda s, w: krum(s, w, 0)[0])),
+        "clip_update_norm": (dict(clip_update_norm=1.0), {}, None),
+        "eval_every=2": ({}, dict(eval_every=2), None),
+    }
+    for label, (kwargs, run_kwargs, parity_kwargs) in options.items():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # DP with a pinned seed says its epsilon is void
+            sim = MeshSimulation(mlp_model(seed=0, device="cuda"), parts, train_set_size=MLP_COMMITTEE,
+                                 batch_size=MLP_BATCH, seed=1, device="cuda", **kwargs)
+        with sim:
+            res = sim.run(rounds=OPTION_ROUNDS, epochs=1, warmup=False, **run_kwargs)
+            extra = f"; privacy_spent {json.dumps(sim.privacy_spent())}" if "dp_clip_norm" in kwargs else ""
+        print(f"[options] {label}: {res.seconds_per_round:.4f} s/round, test loss {res.test_loss}, "
+              f"accuracy {res.test_acc}{extra}")
+        check(len(res.test_loss) >= 1 and all(np.isfinite(res.test_loss)), f"{label}: non-finite test loss")
+        device_parity(label, parts, kwargs if parity_kwargs is None else parity_kwargs, run_kwargs)
+
+
 def phase_profile(label: str, run) -> None:
     """``run()`` (one more round or step) under torch.profiler: device time by
     kernel class, the wall time under the profiler, and the device's busy
@@ -742,16 +1218,39 @@ def main() -> int:
         launches.update(ring_launches)
         if profiling:
             phase_profile("ring: one train step", ring_step)
+        del ring_step
+        gc.collect()
+        rows.update(phase_kernels_narrow())
+        rows.update(phase_kernels_classifier())
+        launches.update(phase_narrow_paths())
+        parts = mlp_partitions()
+        phase_mlp(parts, profiling)
+        launches.update(phase_classifier())
+        phase_options(parts)
     except Exception as e:  # noqa: BLE001 - any failed phase fails the run
         import traceback
 
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
+    kernels = {**KERNEL_ROWS, **RING_KERNEL_ROWS}
     table = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], **rows[name]}
-        for name, (replaces, _, source) in {**KERNEL_ROWS, **RING_KERNEL_ROWS}.items()
+        for name, (replaces, _, source) in kernels.items()
+    ]
+    # The narrow rows: bf16 runs the same tensor-core source on padded heads;
+    # the f32 numbers beside them are the CUDA-core instances of SOURCE_F32.
+    table += [
+        {"name": name + narrow_suffix(d), "route": "cuda", "source": source, "replaces": replaces,
+         "launches": launches[name + narrow_suffix(d)], **rows[name + narrow_suffix(d)], "source_f32": SOURCE_F32}
+        for d in NARROW_HEAD_DIMS for name, (replaces, _, source) in kernels.items()
+    ]
+    # The classifier's shapes: bf16 on padded heads, as its path runs them.
+    table += [
+        {"name": name + CLS_SUFFIX, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": launches[name + CLS_SUFFIX], **rows[name + CLS_SUFFIX]}
+        for name, (replaces, _, source) in KERNEL_ROWS.items()
     ]
     print(card)
     print(json.dumps({"kernels": table}))

@@ -52,6 +52,7 @@
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -653,6 +654,20 @@ cudaError_t launch_carry(const void* q, const void* k, const void* v, const floa
   return cudaGetLastError();
 }
 
+// Calls launch(std::integral_constant<int, D>) for the head sizes with an
+// f32 instance: 16, 32 and 64 (DJ = D / TX columns per thread: 1, 2, 4).
+// The bf16 tensor-core kernels exist at 64 only; ops/_kernels.py zero-pads
+// 16 and 32 to it.
+template <typename F>
+cudaError_t with_head_dim(int head_dim, F&& launch) {
+  switch (head_dim) {
+    case 16: return launch(std::integral_constant<int, 16>{});
+    case 32: return launch(std::integral_constant<int, 32>{});
+    case 64: return launch(std::integral_constant<int, 64>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 namespace p2pfl {
@@ -672,15 +687,20 @@ cudaError_t launch_flash_carry_sm90(const void* q, const void* k, const void* v,
 
 extern "C" {
 
+// Every entry point returns cudaErrorInvalidValue for a head size without an
+// instance: f32 has 16, 32 and 64, bf16 has 64.
+//
 // lse == NULL selects the forward that writes no logsumexp. bf16 runs the
 // tensor-core kernel of flash_fwd_sm90.cu, f32 the CUDA-core kernel above.
 int p2pfl_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                     int Sq, int Sk, int H, int head_dim, int dtype, float scale, int causal,
                     void* stream) {
-  if (head_dim != 64) return int(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return int(launch_fwd<float, 64>(q, k, v, o, lse, B, Sq, Sk, H, scale, causal != 0, s));
-  if (dtype == 1)
+  if (dtype == 0)
+    return int(with_head_dim(head_dim, [&](auto d) {
+      return launch_fwd<float, decltype(d)::value>(q, k, v, o, lse, B, Sq, Sk, H, scale, causal != 0, s);
+    }));
+  if (dtype == 1 && head_dim == 64)
     return int(p2pfl::launch_flash_fwd_sm90(q, k, v, o, lse, B, Sq, Sk, H, scale, causal != 0, s));
   return int(cudaErrorInvalidValue);
 }
@@ -690,11 +710,13 @@ int p2pfl_flash_fwd(const void* q, const void* k, const void* v, void* o, float*
 int p2pfl_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dq, int B, int Sq, int Sk,
                        int H, int head_dim, int dtype, float scale, int causal, void* stream) {
-  if (head_dim != 64) return int(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return int(launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, scale, causal != 0, s));
-  if (dtype == 1)
+    return int(with_head_dim(head_dim, [&](auto d) {
+      return launch_dq<float, decltype(d)::value>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, scale,
+                                                  causal != 0, s);
+    }));
+  if (dtype == 1 && head_dim == 64)
     return int(p2pfl::launch_flash_bwd_dq_sm90(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, scale,
                                                causal != 0, s));
   return int(cudaErrorInvalidValue);
@@ -703,11 +725,13 @@ int p2pfl_flash_bwd_dq(const void* q, const void* k, const void* v, const void* 
 int p2pfl_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                         const float* lse, const float* delta, void* dk, void* dv, int B, int Sq,
                         int Sk, int H, int head_dim, int dtype, float scale, int causal, void* stream) {
-  if (head_dim != 64) return int(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return int(launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, scale, causal != 0, s));
-  if (dtype == 1)
+    return int(with_head_dim(head_dim, [&](auto d) {
+      return launch_dkv<float, decltype(d)::value>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, scale,
+                                                   causal != 0, s);
+    }));
+  if (dtype == 1 && head_dim == 64)
     return int(p2pfl::launch_flash_bwd_dkv_sm90(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, scale,
                                                 causal != 0, s));
   return int(cudaErrorInvalidValue);
@@ -715,18 +739,18 @@ int p2pfl_flash_bwd_dkv(const void* q, const void* k, const void* v, const void*
 
 // m / l: [B, H, Sq] f32; acc: [B, Sq, H, D] f32; *_in and *_out must not
 // overlap. bf16 runs the tensor-core kernel of flash_fwd_sm90.cu, f32 the
-// CUDA-core kernel above. Head size 64, the only one a supported
-// configuration uses (ops/_kernels.py HEAD_DIMS).
+// CUDA-core kernel above.
 int p2pfl_flash_carry(const void* q, const void* k, const void* v, const float* m_in,
                       const float* l_in, const float* acc_in, float* m_out, float* l_out,
                       float* acc_out, int B, int Sq, int Sk, int H, int head_dim, int dtype,
                       float scale, int causal, int q_offset, int kv_offset, void* stream) {
-  if (head_dim != 64) return int(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return int(launch_carry<float, 64>(q, k, v, m_in, l_in, acc_in, m_out, l_out, acc_out, B, Sq, Sk, H, scale,
-                                       causal != 0, q_offset, kv_offset, s));
-  if (dtype == 1)
+    return int(with_head_dim(head_dim, [&](auto d) {
+      return launch_carry<float, decltype(d)::value>(q, k, v, m_in, l_in, acc_in, m_out, l_out, acc_out, B, Sq,
+                                                     Sk, H, scale, causal != 0, q_offset, kv_offset, s);
+    }));
+  if (dtype == 1 && head_dim == 64)
     return int(p2pfl::launch_flash_carry_sm90(q, k, v, m_in, l_in, acc_in, m_out, l_out, acc_out, B, Sq, Sk, H,
                                               scale, causal != 0, q_offset, kv_offset, s));
   return int(cudaErrorInvalidValue);

@@ -1,7 +1,7 @@
-"""Decoder-only transformer LM (counterpart of
-``p2pfl_tpu/models/transformer.py``): attention kinds ``dense``,
-``blockwise``, ``flash``, and the sequence-parallel ``ring`` and
-``ring_flash``.
+"""Decoder-only transformer LM and the mean-pool transformer classifier
+(counterpart of ``p2pfl_tpu/models/transformer.py``): attention kinds
+``dense``, ``blockwise`` (the default, as in the JAX package), ``flash``,
+and the sequence-parallel ``ring`` and ``ring_flash``.
 
 The ring kinds run on the *global* ``[B, S]`` tokens inside a
 ``sequence_parallel_*`` wrapper (:mod:`p2pfl_tpu_torch.parallel.sequence`),
@@ -72,7 +72,7 @@ class SelfAttention(nn.Module):
     """
 
     def __init__(
-        self, embed_dim: int, num_heads: int, attention_kind: str = "flash",
+        self, embed_dim: int, num_heads: int, attention_kind: str = "blockwise",
         compute_dtype: torch.dtype = torch.bfloat16, axis_name: Optional[str] = None,
         block_k: int = 512,
     ) -> None:
@@ -119,7 +119,7 @@ class Block(nn.Module):
     """Pre-LN transformer block."""
 
     def __init__(
-        self, embed_dim: int, num_heads: int, attention_kind: str = "flash",
+        self, embed_dim: int, num_heads: int, attention_kind: str = "blockwise",
         compute_dtype: torch.dtype = torch.bfloat16, axis_name: Optional[str] = None,
         block_k: int = 512,
     ) -> None:
@@ -144,7 +144,7 @@ class TransformerLM(nn.Module):
 
     def __init__(
         self, vocab_size: int = 256, num_layers: int = 4, num_heads: int = 4,
-        embed_dim: int = 256, attention_kind: str = "flash",
+        embed_dim: int = 256, attention_kind: str = "blockwise",
         compute_dtype: torch.dtype = torch.bfloat16, axis_name: Optional[str] = None,
         block_k: int = 512,
     ) -> None:
@@ -163,6 +163,41 @@ class TransformerLM(nn.Module):
         for block in self.blocks:
             x = block(x)
         return _linear(_layer_norm(x, self.ln_f), self.lm_head, self.compute_dtype).float()
+
+
+class TransformerClassifier(nn.Module):
+    """Transformer trunk + mean-pool classification head: tokens ``[B, S]``
+    -> logits ``[B, num_classes]`` (f32).
+
+    The trunk is :class:`TransformerLM`'s (bf16 residual stream by default);
+    then the f32 ``ln_f``, a mean over S and an f32 ``head`` with a bias.
+    Under a sequence-parallel wrapper the model runs on the global tokens,
+    so the mean is already over the global S (the JAX package's ``pmean``
+    of the shards' means).
+    """
+
+    def __init__(
+        self, num_classes: int = 10, vocab_size: int = 256, num_layers: int = 2, num_heads: int = 4,
+        embed_dim: int = 128, attention_kind: str = "blockwise",
+        compute_dtype: torch.dtype = torch.bfloat16, axis_name: Optional[str] = None,
+        block_k: int = 512,
+    ) -> None:
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.embed = nn.Embedding(vocab_size, embed_dim)
+        self.blocks = nn.ModuleList(
+            Block(embed_dim, num_heads, attention_kind, compute_dtype, axis_name, block_k)
+            for _ in range(num_layers)
+        )
+        self.ln_f = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self.head = nn.Linear(embed_dim, num_classes)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = self.embed.weight.to(self.compute_dtype)[tokens.long()]
+        for block in self.blocks:
+            x = block(x)
+        pooled = _layer_norm(x, self.ln_f).mean(dim=1)
+        return F.linear(pooled, self.head.weight, self.head.bias)
 
 
 def causal_lm_loss(
@@ -210,7 +245,7 @@ def transformer_lm_model(
     num_layers: int = 4,
     num_heads: int = 4,
     embed_dim: int = 256,
-    attention_kind: str = "flash",
+    attention_kind: str = "blockwise",
     axis_name: Optional[str] = None,
     device: DeviceLike = "cuda",
 ) -> ModelHandle:
@@ -226,5 +261,30 @@ def transformer_lm_model(
         module = TransformerLM(
             vocab_size=vocab_size, num_layers=num_layers, num_heads=num_heads,
             embed_dim=embed_dim, attention_kind=attention_kind, axis_name=axis_name,
+        )
+    return ModelHandle(init_params(module, seed, device), module)
+
+
+def transformer_classifier_model(
+    seed: int = 0,
+    seq_len: int = 64,
+    num_classes: int = 10,
+    vocab_size: int = 256,
+    num_layers: int = 2,
+    num_heads: int = 4,
+    embed_dim: int = 128,
+    attention_kind: str = "blockwise",
+    device: DeviceLike = "cuda",
+) -> ModelHandle:
+    """A :class:`TransformerClassifier` with random weights from ``seed``, in
+    a :class:`ModelHandle`; arguments in the JAX function's order.
+    ``seq_len`` is validated and otherwise unused, as in
+    :func:`transformer_lm_model`."""
+    if int(seq_len) != seq_len or seq_len < 1:
+        raise ValueError(f"seq_len must be a positive integer, got {seq_len!r}")
+    with torch.device("meta"):
+        module = TransformerClassifier(
+            num_classes=num_classes, vocab_size=vocab_size, num_layers=num_layers,
+            num_heads=num_heads, embed_dim=embed_dim, attention_kind=attention_kind,
         )
     return ModelHandle(init_params(module, seed, device), module)

@@ -10,7 +10,17 @@ is imported.
 Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, allocates its outputs with ``torch.empty``, launches on the
 current stream, raises if the launch reports an error, and adds one to its
-entry in :data:`LAUNCHES`. The plain versions and the choice between them
+entry in :data:`LAUNCHES`.
+
+Head sizes: the f32 kernels have instances at 16, 32 and 64; the bf16
+tensor-core kernels at 64 only. A bf16 call at 16 or 32 copies q, k, v (dO;
+the carry's acc) into zeroed ``[B, S, H, 64]`` buffers, launches the 64
+instance with the true scale ``1/sqrt(D)`` and slices the outputs back to D.
+That is exact: zero columns add exact zeros to ``Q.K^T`` and ``dO.V^T``,
+leave ``delta`` (computed by the caller at D) as it is, and come out as
+exact zeros in O, acc, dQ, dK and dV. It is the kernel all the same, never
+the plain version, and it counts in :data:`LAUNCHES`; native narrow-D
+tensor-core instances would save the padding's copies. The plain versions and the choice between them
 and these kernels live in :mod:`p2pfl_tpu_torch.ops.attention`.
 """
 
@@ -27,6 +37,7 @@ from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = (
@@ -40,7 +51,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-HEAD_DIMS = (64,)  # the instances csrc/ compiles
+HEAD_DIMS = (16, 32, 64)  # the f32 instances of csrc/flash_attn.cu
+SM90_HEAD_DIM = 64  # the bf16 tensor-core instances; narrower bf16 heads are zero-padded to it
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Launches per kernel since the last :func:`reset_launches`. Incremented only
@@ -160,6 +172,8 @@ def _check_bshd(name: str, *ts: torch.Tensor) -> None:
 
 
 def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() == 4 and q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {q.shape[-1]} not supported ({HEAD_DIMS})")
     _check_bshd(name, q, k, v)
     b, _, h, d = q.shape
     if k.shape != v.shape or (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d):
@@ -167,8 +181,6 @@ def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
             f"{name}: incompatible shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)}"
         )
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {d} not supported ({HEAD_DIMS})")
 
 
 def _check_rows(name: str, q: torch.Tensor, *rows: torch.Tensor) -> None:
@@ -192,6 +204,19 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _pad_heads(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Where ``ts[0]`` is bf16 with a head size below 64: each ``[B, S, H, D]``
+    tensor zero-padded into a new contiguous ``[B, S, H, 64]`` one (16-byte
+    aligned, as a new allocation is). The tensors unchanged otherwise."""
+    if ts[0].dtype != torch.bfloat16 or ts[0].shape[-1] == SM90_HEAD_DIM:
+        return ts
+    return tuple(F.pad(t, (0, SM90_HEAD_DIM - t.shape[-1])) for t in ts)
+
+
+def _unpad(t: torch.Tensor, d: int) -> torch.Tensor:
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
+
+
 def flash_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, with_lse: bool
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -202,17 +227,18 @@ def flash_fwd(
     _check_qkv("flash_fwd", q, k, v)
     lib = _load()
     b, sq, h, d = q.shape
+    q, k, v = _pad_heads(q, k, v)
     out = torch.empty_like(q)
     _check_aligned("flash_fwd", q, k, v, out)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
     code = lib.p2pfl_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
-        b, sq, k.shape[1], h, d, _DTYPES[q.dtype], 1.0 / math.sqrt(d), int(causal), _stream(q),
+        b, sq, k.shape[1], h, q.shape[3], _DTYPES[q.dtype], 1.0 / math.sqrt(d), int(causal), _stream(q),
     )
     _check("flash_fwd", code)
     LAUNCHES["flash_fwd" if with_lse else "flash_fwd_no_lse"] += 1
-    return out, lse
+    return _unpad(out, d), lse
 
 
 def flash_bwd_dq(
@@ -230,16 +256,17 @@ def flash_bwd_dq(
     _check_rows("flash_bwd_dq", q, lse, delta)
     lib = _load()
     b, sq, h, d = q.shape
+    q, k, v, do = _pad_heads(q, k, v, do)
     dq = torch.empty_like(q)
     _check_aligned("flash_bwd_dq", q, k, v, do, dq)
     code = lib.p2pfl_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(),
-        b, sq, k.shape[1], h, d, _DTYPES[q.dtype], 1.0 / math.sqrt(d), int(causal), _stream(q),
+        b, sq, k.shape[1], h, q.shape[3], _DTYPES[q.dtype], 1.0 / math.sqrt(d), int(causal), _stream(q),
     )
     _check("flash_bwd_dq", code)
     LAUNCHES["flash_bwd_dq"] += 1
-    return dq
+    return _unpad(dq, d)
 
 
 def flash_bwd_dkv(
@@ -255,17 +282,18 @@ def flash_bwd_dkv(
     _check_rows("flash_bwd_dkv", q, lse, delta)
     lib = _load()
     b, sq, h, d = q.shape
+    q, k, v, do = _pad_heads(q, k, v, do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _check_aligned("flash_bwd_dkv", q, k, v, do, dk, dv)
     code = lib.p2pfl_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, sq, k.shape[1], h, d, _DTYPES[q.dtype], 1.0 / math.sqrt(d), int(causal), _stream(q),
+        b, sq, k.shape[1], h, q.shape[3], _DTYPES[q.dtype], 1.0 / math.sqrt(d), int(causal), _stream(q),
     )
     _check("flash_bwd_dkv", code)
     LAUNCHES["flash_bwd_dkv"] += 1
-    return dk, dv
+    return _unpad(dk, d), _unpad(dv, d)
 
 
 def flash_carry(
@@ -278,8 +306,6 @@ def flash_carry(
 
     bf16 runs the tensor-core kernel (q, k, v and acc 16-byte aligned);
     f32 runs the CUDA-core kernel."""
-    if q.dim() == 4 and q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"flash_carry: head_dim {q.shape[-1]} not supported ({HEAD_DIMS})")
     _check_qkv("flash_carry", q, k, v)
     if k.shape[1] < 1:
         raise ValueError("flash_carry: the kv chunk is empty")
@@ -290,16 +316,17 @@ def flash_carry(
     for off in (q_offset, kv_offset):
         if not -(2**31) <= int(off) < 2**31:
             raise ValueError(f"flash_carry: offset {off} does not fit in int32")
-    _check_aligned("flash_carry", q, k, v, acc)
     lib = _load()
     b, sq, h, d = q.shape
+    q, k, v, acc = _pad_heads(q, k, v, acc)
+    _check_aligned("flash_carry", q, k, v, acc)
     m_out, l_out, acc_out = torch.empty_like(m), torch.empty_like(l), torch.empty_like(acc)
     code = lib.p2pfl_flash_carry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
         m_out.data_ptr(), l_out.data_ptr(), acc_out.data_ptr(),
-        b, sq, k.shape[1], h, d, _DTYPES[q.dtype], 1.0 / math.sqrt(d), int(causal),
+        b, sq, k.shape[1], h, q.shape[3], _DTYPES[q.dtype], 1.0 / math.sqrt(d), int(causal),
         int(q_offset), int(kv_offset), _stream(q),
     )
     _check("flash_carry", code)
     LAUNCHES["flash_carry"] += 1
-    return m_out, l_out, acc_out
+    return m_out, l_out, _unpad(acc_out, d)

@@ -56,14 +56,15 @@ def test_ring_flash_on_cpu_tensors_launches_nothing():
 
 
 def test_carry_wrapper_refuses_cpu_tensors_and_other_head_sizes():
-    for d in (16, 48, 128):
+    for d in (48, 128):
         q, k, v, _ = _qkv(9, (1, 64, 2, d))
         carry = port.init_carry(q.shape, "cpu")
         with pytest.raises(ValueError, match="head_dim"):
             _kernels.flash_carry(carry, q, k, v, 0, 0, True)
-    q, k, v, _ = _qkv(9, (1, 64, 2, 64))
-    with pytest.raises(ValueError, match="CUDA"):
-        _kernels.flash_carry(port.init_carry(q.shape, "cpu"), q, k, v, 0, 0, True)
+    for d in (16, 32, 64):  # the head sizes the kernels take; still card only
+        q, k, v, _ = _qkv(9, (1, 64, 2, d))
+        with pytest.raises(ValueError, match="CUDA"):
+            _kernels.flash_carry(port.init_carry(q.shape, "cpu"), q, k, v, 0, 0, True)
 
 
 def test_flash_attention_rejects_bad_block_sizes():
@@ -600,3 +601,104 @@ def test_ring_flash_autograd_matches_dense_on_card_bf16(cuda_device):
     for a, b in zip(grads, ref_grads):
         assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all()
         torch.testing.assert_close(a.float(), b, atol=5e-2, rtol=0)
+
+
+# --- head sizes 16 and 32 --------------------------------------------------------
+# f32 runs instances of the CUDA-core kernels at these sizes; bf16 zero-pads
+# q, k, v, dO (and the carry's acc) to 64 for the tensor-core kernels and
+# slices the outputs back. Both are held to the D = 64 bars above.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("s", [1024, 129])
+@pytest.mark.parametrize("d", [16, 32])
+def test_narrow_head_kernels_match_plain_versions_on_card(cuda_device, d, s, dtype):
+    q, k, v, g = _qkv(20 + d, (4, s, 4, d), dtype, cuda_device)
+    bf16 = dtype == torch.bfloat16
+    _kernels.reset_launches()
+    out, lse = _kernels.flash_fwd(q, k, v, True, True)
+    assert out.shape == q.shape and out.dtype == dtype and out.is_contiguous()
+    out_p, lse_p = port.plain_flash_forward(q, k, v, True)
+    if bf16:
+        _within_split_bar(out, out_p, port.plain_flash_row_mass(q, k, v, True))
+    else:
+        torch.testing.assert_close(out, out_p, atol=1e-5, rtol=0)
+    torch.testing.assert_close(lse, lse_p, atol=1e-5, rtol=0)
+    torch.testing.assert_close(_kernels.flash_fwd(q, k, v, True, False)[0], out, atol=0, rtol=0)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    got = (_kernels.flash_bwd_dq(q, k, v, g, lse, delta, True), *_kernels.flash_bwd_dkv(q, k, v, g, lse, delta, True))
+    ref = (port.plain_flash_backward_dq(q, k, v, g, lse, delta, True),
+           *port.plain_flash_backward_dkv(q, k, v, g, lse, delta, True))
+    masses = port.plain_flash_grad_mass(q, k, v, g, lse, delta, True)
+    for a, b, m in zip(got, ref, masses):
+        assert a.shape == q.shape and torch.isfinite(a.float()).all()
+        if bf16:
+            _within_split_bar(a, b, m)
+        else:
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+    assert _kernels.LAUNCHES == {"flash_fwd": 1, "flash_fwd_no_lse": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+                                 "flash_carry": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [16, 32])
+def test_narrow_head_autograd_matches_dense_on_card(cuda_device, d, dtype):
+    """flash_attention through the kernels against autograd through dense
+    attention in f32: f32 at 1e-5 / 1e-4, bf16 at 5e-2 (a random
+    cotangent, as in the ring's bf16 test)."""
+    q, k, v, g = _qkv(30 + d, (2, 256, 2, d), dtype, cuda_device, grad=True)
+    _kernels.reset_launches()
+    out = port.flash_attention(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), g.detach())
+    assert _kernels.LAUNCHES["flash_fwd"] == _kernels.LAUNCHES["flash_bwd_dq"] == 1
+    qf, kf, vf = (t.detach().float().requires_grad_(True) for t in (q, k, v))
+    ref = port.dense_attention(qf, kf, vf)
+    ref_grads = torch.autograd.grad(ref, (qf, kf, vf), g.detach().float())
+    atol = (5e-2, 5e-2) if dtype == torch.bfloat16 else (1e-5, 1e-4)
+    torch.testing.assert_close(out.float(), ref, atol=atol[0], rtol=0)
+    for a, b in zip(grads, ref_grads):
+        assert a.dtype == dtype and a.shape == q.shape
+        torch.testing.assert_close(a.float(), b, atol=atol[1], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("s", [1024, 129])
+@pytest.mark.parametrize("d", [16, 32])
+def test_narrow_head_carry_matches_plain_version_on_card(cuda_device, d, s, dtype):
+    """The diagonal fold of shard 7 into a fresh carry, a past fold into it
+    and a future fold (the carry back bit-identical), at [2, S, 4, D]."""
+    q, k, v, kp = _qkv(40 + d, (2, s, 4, d), dtype, cuda_device)
+    vp = _qkv(41 + d, (2, s, 4, d), dtype, cuda_device)[0]
+    bf16 = dtype == torch.bfloat16
+    off = 7 * s
+    carry = port.init_carry(q.shape, cuda_device)
+    _kernels.reset_launches()
+    for kc, vc, kv_off in ((k, v, off), (kp, vp, 0)):
+        got = _kernels.flash_carry(carry, q, kc, vc, off, kv_off, True)
+        assert got[2].shape == q.shape and got[2].is_contiguous()
+        ref = port.plain_flash_chunk_update(carry, q, kc, vc, off, kv_off, True)
+        _carry_close(got, ref, port.plain_flash_chunk_mass(carry, q, kc, vc, off, kv_off, True) if bf16 else None)
+        carry = got
+    future = _kernels.flash_carry(carry, q, kp, vp, off, off + s, True)
+    assert all(torch.equal(a, b) for a, b in zip(future, carry))
+    assert _kernels.LAUNCHES["flash_carry"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [48, 128])
+def test_other_head_sizes_are_refused_on_card(cuda_device, d, dtype):
+    q, k, v, g = _qkv(2, (1, 64, 2, d), dtype, cuda_device)
+    rows = torch.zeros(1, 2, 64, device=cuda_device)
+    calls = (lambda: _kernels.flash_fwd(q, k, v, True, True),
+             lambda: _kernels.flash_bwd_dq(q, k, v, g, rows, rows, True),
+             lambda: _kernels.flash_bwd_dkv(q, k, v, g, rows, rows, True),
+             lambda: _kernels.flash_carry(port.init_carry(q.shape, cuda_device), q, k, v, 0, 0, True))
+    _kernels.reset_launches()
+    for call in calls:
+        with pytest.raises(ValueError, match="head_dim"):
+            call()
+    assert not any(_kernels.LAUNCHES.values())

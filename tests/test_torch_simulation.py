@@ -120,9 +120,11 @@ def test_simulation_rejects_bad_inputs():
 
     handle = ModelHandle(init_params(module, 0, "cpu"), module)
     with pytest.raises(ValueError, match="task"):
-        MeshSimulation(handle, (x, y, mask), task="classification", device="cpu")
+        MeshSimulation(handle, (x, y, mask), task="regression", device="cpu")
     sim = MeshSimulation(handle, (x, y, mask), test_data=(xt, None), train_set_size=2,
-                         batch_size=SEQS, device="cpu", seed=1)
+                         batch_size=SEQS, device="cpu", seed=1, task="lm")
+    with pytest.raises(NotImplementedError, match="checkpointer"):
+        sim.run(rounds=1, checkpointer=object())
     with pytest.raises(ValueError, match="committee_schedule"):
         sim.run(rounds=1, committee_schedule=np.array([[0, NODES]]))
     with pytest.raises(ValueError, match="committee_schedule"):

@@ -26,7 +26,7 @@ from p2pfl_tpu_torch.models.transformer import (
     rotary_embedding,
     transformer_lm_model,
 )
-from p2pfl_tpu_torch.optim import adam_init, adam_step
+from p2pfl_tpu_torch.optim import adam, apply_updates
 
 VOCAB, SEQ, B, LAYERS, HEADS, EMBED = 64, 32, 2, 2, 2, 32
 
@@ -115,12 +115,14 @@ def test_adam_matches_optax_over_steps():
     state_j = tx.init(params)
     p_j = params
     p_t = flax_to_torch(params, device="cpu")
-    state_t = adam_init(p_t)
+    tx_t = adam(1e-3)
+    state_t = tx_t.init(p_t)
     for _ in range(3):
         grads = jax.tree.map(lambda a: jnp.asarray(rng.standard_normal(a.shape), jnp.float32), params)
         upd, state_j = tx.update(grads, state_j, p_j)
         p_j = optax.apply_updates(p_j, upd)
-        p_t, state_t = adam_step(p_t, flax_to_torch(grads, device="cpu"), state_t, 1e-3)
+        upd_t, state_t = tx_t.update(flax_to_torch(grads, device="cpu"), state_t, p_t)
+        p_t = apply_updates(p_t, upd_t)
     ref_p = flax_to_torch(p_j, device="cpu")
     ref_s = adam_state_from_optax(state_j, device="cpu")
     assert int(state_t.count) == int(ref_s.count) == 3
