@@ -8,13 +8,13 @@ Phases, each on its own printed lines:
 1. env: the card (``nvidia-smi``), torch / CUDA / nvcc versions, and the
    kernels' build from ``p2pfl_tpu_torch/csrc`` (time and ptxas report:
    registers and spills of each kernel; the tensor-core forward, backward
-   and carry kernels must not spill, and no bf16 instance of a CUDA-core
-   kernel may be compiled), and the count of ``HGMMA`` (wgmma)
+   and carry kernels must not spill, and the only bf16 instances of the
+   CUDA-core kernels are D = 128's), and the count of ``HGMMA`` (wgmma)
    instructions in each tensor-core kernel from ``cuobjdump -sass`` (each
    must have some).
 2. kernels: each Hopper kernel against its plain PyTorch version on the
    card at the main paths' shapes (bf16 [8, 1024, 8, 64] causal; the eval
-   forward at [16, 1024, 8, 64]) plus a ragged S=1000, a non-causal, causal
+   forward at [16, 1024, 8, 64], and at the learner's [8, 1024, 8, 64]) plus a ragged S=1000, a non-causal, causal
    S=1 and S=129 (one partial q tile; one full tile and a row) and an f32
    case; the bf16 forward's output must lie within 1e-6 + 1 bf16 ulp +
    2^-15 of its row's weighted mass sum_j (p_j / l) |v_j| of the plain
@@ -94,6 +94,38 @@ Phases, each on its own printed lines:
    under Krum, the update-norm clip and ``eval_every=2``: finite losses;
    then each held on the card against the CPU as in phase 7.
 
+10. c1: rows 1-5 at head sizes 48 ([8, 1024, 8, 48]: bf16 padded to the
+   64 tensor-core kernels, f32 to the 64 instance) and 128 ([8, 1024, 4,
+   128]: the CUDA-core <f32, 128> and <bf16, 128> instances), held to the
+   bars of phases 2 and 5 and timed beside aten; phase 6 also runs the LM
+   and the ring at width 384 over 8 heads and at 4 heads (D = 48 / 128).
+11. learner: ``TorchLearner`` fits one node of phase 3's LM (64 sequences,
+   batch 8: one epoch of 8 steps) and evaluates it: exactly 32 launches of
+   rows 1, 3 and 4 per fit and 4 of row 2 per test batch, s/fit, s/step,
+   peak memory, test loss falling; then a learner whose model was set from
+   the fitted model's PFLT frame and a fresh learner on the same weights fit
+   to the same loss (1e-5).
+12. wire: the fitted LM's update (20,990,976 parameters) against its
+   round-start anchor through ``DeltaWireCodec``, coalesced top-k 10 % in
+   bf16, int8 and int4: ms to encode on the card, frame bytes and ratio
+   against the dense f32 frame; every leaf's residual + scatter(dequant)
+   equals acc bit for bit, a second codec holding the anchor decodes each
+   frame to anchor + scatter(dequant) bit for bit, and the dense frame
+   round-trips bit for bit.
+13. parity: a ``ParityScenario`` (8 MLP nodes, full committee, 3 rounds, one
+   signflip node) through the wire's model plane (``run_frames``) and the
+   fused round (``run_fused``): every round's ``canonical_params_hash``
+   equal, and the two ledgers' trajectories.
+14. longcontext: rows 1-4 at the example's own shapes at its defaults
+   (bf16, head size 16 padded to 64, a sequence of 256): training at
+   [4, 256, 4, 16], eval at [16, 256, 4, 16], held to phase 2's bars and
+   timed beside aten; then ``p2pfl_tpu_torch.examples.longcontext
+   --attention flash`` at its defaults (in this process): the token loss
+   falls, rows 1-4 launch.
+15. entry: ``entry()``'s forward gives [64, 10] finite logits on the card,
+   and on a seeded random batch agrees with the CPU's to four bf16 ulps of
+   the largest logit.
+
 ``--profile`` adds one more slice round, one more ring train step and one
 more MLP round, each under ``torch.profiler``, printing device time by kernel class and the
 device's busy share.
@@ -101,8 +133,10 @@ device's busy share.
 Any failed check exits 1 without the result lines. On success the last
 three lines are the card's name and power limit, one JSON object with a row
 per kernel (rows 1-5 at head size 64, then ``<name>_d32`` and
-``<name>_d16``: bf16 times, with the f32 instance's beside them; then rows
-1-4 at the classifier's shapes, ``<name>_d32_cls``), and
+``<name>_d16``: bf16 times, with the f32 instance's beside them; then
+``<name>_d48`` and ``<name>_d128`` the same way; then rows 1-4 at the
+classifier's shapes, ``<name>_d32_cls``, and at the longcontext example's,
+``<name>_d16_lc``), and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits 1 and prints no result.
 """
@@ -146,7 +180,12 @@ RING_KERNEL_ROWS = {  # name -> (replaced TPU kernel body, launches per train st
 # Head sizes below 64: the width above over 16 and 32 heads. bf16 zero-pads
 # to the 64 instances of the tensor-core kernels; f32 has its own instances.
 NARROW_HEAD_DIMS = (32, 16)
-SOURCE_F32 = "p2pfl_tpu_torch/csrc/flash_attn.cu"
+SOURCE_F32 = "p2pfl_tpu_torch/csrc/flash_attn.cu"  # the CUDA-core kernels: f32, and bf16 at D = 128
+# Head sizes up to 128 (the repair of ROADMAP queue C item 1): 48 at the LM's
+# width over 8 heads (width 384; bf16 padded to the 64 tensor-core kernels,
+# f32 to the 64 instance) and 128 at width 512 over 4 heads (the CUDA-core
+# <f32, 128> and <bf16, 128> instances). Head size -> heads.
+C1_HEAD_DIMS = {48: 8, 128: 4}
 
 # bench.py's metric configuration (bench.py:78-86, _metric_sim_run).
 MLP_NODES, MLP_SAMPLES, MLP_COMMITTEE, MLP_BATCH, MLP_TEST, MLP_ROUNDS = 100, 600, 4, 64, 1024, 10
@@ -163,6 +202,7 @@ CLS_NODES, CLS_PER_NODE, CLS_COMMITTEE, CLS_BATCH, CLS_TEST, CLS_ROUNDS = 8, 64,
 CLS_SEQ, CLS_VOCAB, CLS_CLASSES, CLS_LAYERS, CLS_HEADS = 64, 256, 10, 2, 4
 CLS_SUFFIX = "_d32_cls"  # the rows of the classifier's own kernel shapes
 CLS_STEPS = CLS_COMMITTEE * (CLS_PER_NODE // CLS_BATCH) * CLS_LAYERS  # training launches per round
+LC_SUFFIX = "_d16_lc"  # the rows of examples/longcontext.py's own kernel shapes
 
 
 def narrow_suffix(d: int) -> str:
@@ -301,8 +341,14 @@ def phase_env() -> str:
     check(any(e.startswith("flash_carry_sm90_kernel") for e in seen),
           "the build log lacks the tensor-core carry kernel")
     for simt in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_carry_kernel"):
-        check(not any(e.startswith(f"{simt}<bf16") for e in seen),
-              f"a bf16 instance of the CUDA-core {simt} was compiled")
+        # bf16 at D <= 64 runs the tensor-core kernels only; the one bf16
+        # CUDA-core instance of each kernel is D = 128's.
+        check(not any(e.startswith(f"{simt}<bf16") and "D=128" not in e for e in seen),
+              f"a bf16 instance of the CUDA-core {simt} below D = 128 was compiled")
+        check(any(e.startswith(f"{simt}<bf16, D=128") for e in seen),
+              f"the build log lacks the bf16 D = 128 instance of {simt}")
+        check(any(e.startswith(f"{simt}<f32, D=128") for e in seen),
+              f"the build log lacks the f32 D = 128 instance of {simt}")
     phase_sass(path, _kernels._find_nvcc())
     return card
 
@@ -433,25 +479,32 @@ def phase_kernels() -> dict:
         print(f"[kernels] bwd: dq {rows['flash_bwd_dq']['ms']:.4f} + dk/dv {rows['flash_bwd_dkv']['ms']:.4f} = "
               f"{pair:.4f} ms against the aten flash backward's {sdpa_bwd:.4f} ms ({pair / sdpa_bwd:.2f}x of it)")
 
-    # The eval forward (no logsumexp) at its own shape on the slice.
-    print(f"[kernels] B={EVAL_SEQS} S={SEQ_LEN} H={HEADS} D={EMBED // HEADS} bfloat16 causal=True (no lse)")
-    q, k, v, _ = inputs(EVAL_SEQS, SEQ_LEN)
-    out, none = _kernels.flash_fwd(q, k, v, True, False)
-    check(none is None, "the no-lse forward returned an lse")
-    check(torch.equal(out, _kernels.flash_fwd(q, k, v, True, True)[0]),
-          "the forward without lse differs from the one with it")
-    out_p, _ = att.plain_flash_forward(q, k, v, True)
-    err = max_err(out, out_p, "flash_fwd_no_lse out", **tols[torch.bfloat16][0],
-                  mass=att.plain_flash_row_mass(q, k, v, True))
-    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    with torch.no_grad():
-        lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True), 20)
-    b_ms, b_by = bound("flash_fwd_no_lse", EVAL_SEQS, SEQ_LEN, HEADS, EMBED // HEADS, True, 2)
-    rows["flash_fwd_no_lse"] = {
-        "max_abs_err": err, "ms": time_ms(lambda: _kernels.flash_fwd(q, k, v, True, False), 20),
-        "plain_ms": time_ms(lambda: att.plain_flash_forward(q, k, v, True), 5),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-    }
+    # The eval forward (no logsumexp) at its shapes: the slice's test set in
+    # one batch (the row), and the learner's test batches of BATCH.
+    for b_eval in (EVAL_SEQS, BATCH):
+        print(f"[kernels] B={b_eval} S={SEQ_LEN} H={HEADS} D={EMBED // HEADS} bfloat16 causal=True (no lse)")
+        q, k, v, _ = inputs(b_eval, SEQ_LEN)
+        out, none = _kernels.flash_fwd(q, k, v, True, False)
+        check(none is None, "the no-lse forward returned an lse")
+        check(torch.equal(out, _kernels.flash_fwd(q, k, v, True, True)[0]),
+              "the forward without lse differs from the one with it")
+        out_p, _ = att.plain_flash_forward(q, k, v, True)
+        err = max_err(out, out_p, f"flash_fwd_no_lse out (B={b_eval})", **tols[torch.bfloat16][0],
+                      mass=att.plain_flash_row_mass(q, k, v, True))
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        with torch.no_grad():
+            lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True), 20)
+        b_ms, b_by = bound("flash_fwd_no_lse", b_eval, SEQ_LEN, HEADS, EMBED // HEADS, True, 2)
+        row = {
+            "max_abs_err": err, "ms": time_ms(lambda: _kernels.flash_fwd(q, k, v, True, False), 20),
+            "plain_ms": time_ms(lambda: att.plain_flash_forward(q, k, v, True), 5),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+        }
+        if b_eval == EVAL_SEQS:
+            rows["flash_fwd_no_lse"] = row
+        else:
+            print(f"[kernels] flash_fwd_no_lse at the learner's B={b_eval}: {row['ms']:.4f} ms (bound "
+                  f"{b_ms:.4f} ms by {b_by}), plain {row['plain_ms']:.4f} ms, library {lib:.4f} ms")
     for name, r in rows.items():
         print(f"[kernels] {name}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
               f"{r['bound_ms'] / r['ms']:.1%} of it); plain {r['plain_ms']:.4f} ms (not a yardstick); "
@@ -613,7 +666,10 @@ def narrow_rows(label: str, suffix: str, d: int, h: int, b: int, b_eval: int, s:
     for dtype in dtypes:
         bf16 = dtype == torch.bfloat16
         kind = str(dtype)[6:]
-        how = "zero-padded to 64 for the tensor-core kernels" if bf16 else "the CUDA-core instances"
+        kd = _kernels.kernel_head_dim(dtype, d)  # the instance the call runs
+        padded = "" if kd == d else f", zero-padded to {kd}"
+        how = (f"the tensor-core kernels{padded}" if bf16 and kd == _kernels.SM90_HEAD_DIM
+               else f"the CUDA-core <{kind}, {kd}> instance{padded}")
         print(f"[{label}] D={d} {kind} ({how}): B={b} S={s} H={h} causal=True; eval B={b_eval}")
         # The bars of phase 2 (bf16: 1e-6 + 1 ulp + 2^-15 mass; f32: the
         # JAX package's 1e-5 / 1e-4) and of the carry phase.
@@ -734,6 +790,35 @@ def phase_kernels_classifier() -> dict:
 
     return narrow_rows("classifier-kernels", CLS_SUFFIX, 32, CLS_HEADS, CLS_BATCH, CLS_TEST, CLS_SEQ,
                        (torch.bfloat16,), False, torch.Generator().manual_seed(10))
+
+
+def phase_kernels_c1() -> dict:
+    """Rows 1-5 at head sizes 48 and 128 (the repair of queue C item 1):
+    [8, 1024, H, D], the eval forward at [16, 1024, H, D], one ring chunk
+    [2, 1024, H, D], in bf16 and f32, held to the bars of phases 2 and 5 and
+    timed beside aten; returns {"<name>_d<D>": row}."""
+    import torch
+
+    gen = torch.Generator().manual_seed(12)
+    rows: dict = {}
+    for d, heads in C1_HEAD_DIMS.items():
+        rows.update(narrow_rows("c1", narrow_suffix(d), d, heads, BATCH, EVAL_SEQS, SEQ_LEN,
+                                (torch.bfloat16, torch.float32), True, gen))
+    return rows
+
+
+def phase_kernels_longcontext() -> dict:
+    """Rows 1-4 at ``examples/longcontext.py``'s own shapes at its defaults
+    (width 64 over 4 heads: head size 16, a sequence of 256), in bf16 as the
+    example runs them: training at [batch, 256, 4, 16], eval at
+    [TEST_SEQS, 256, 4, 16]; returns {"<name>_d16_lc": row}."""
+    import torch
+    from p2pfl_tpu_torch.examples import longcontext
+
+    args = longcontext.build_parser().parse_args(["--attention", "flash"])
+    return narrow_rows("longcontext-kernels", LC_SUFFIX, args.embed_dim // args.heads, args.heads, args.batch_size,
+                       longcontext.TEST_SEQS, args.seq_len, (torch.bfloat16,), False,
+                       torch.Generator().manual_seed(14))
 
 
 def lm_data(seed: int, seqs: int = SEQS) -> tuple:
@@ -892,10 +977,11 @@ def phase_ring() -> tuple:
 
 
 def phase_narrow_paths() -> dict:
-    """The slice's LM at 16 and 32 heads (head sizes 32 and 16) for one round
-    after a warm-up round each, and the ring trainer at 16 and 32 heads for
-    one step after a warm-up step each; returns the launches of each run
-    under its rows' names (``<name>_d<D>``)."""
+    """The slice's LM at 16 and 32 heads (head sizes 32 and 16), at width 384
+    over 8 heads (48) and at 4 heads (128), one round after a warm-up round
+    each, and the ring trainer at the same widths and heads, one step after a
+    warm-up step each; returns the launches of each run under its rows'
+    names (``<name>_d<D>``)."""
     import numpy as np
     import torch
     from p2pfl_tpu_torch.models.transformer import transformer_lm_model
@@ -905,19 +991,19 @@ def phase_narrow_paths() -> dict:
     from p2pfl_tpu_torch.parallel.sequence import make_sequence_parallel_train_step, shard_tokens
     from p2pfl_tpu_torch.parallel.simulation import MeshSimulation
 
+    shapes = [(d, EMBED // d, EMBED) for d in NARROW_HEAD_DIMS] + [(d, h, d * h) for d, h in C1_HEAD_DIMS.items()]
     out: dict = {}
-    for d in NARROW_HEAD_DIMS:
-        heads = EMBED // d
+    for d, heads, width in shapes:
         model = transformer_lm_model(seed=0, vocab_size=VOCAB, num_layers=LAYERS, num_heads=heads,
-                                     embed_dim=EMBED, attention_kind="flash", device="cuda")
+                                     embed_dim=width, attention_kind="flash", device="cuda")
         train, xt = lm_data(6)
         sim = MeshSimulation(model, train, test_data=(xt, None), train_set_size=COMMITTEE,
                              batch_size=BATCH, lr=LR, seed=1, task="lm", device="cuda")
         _kernels.reset_launches()
         res = sim.run(rounds=1, epochs=1, warmup=True)
         launches = dict(_kernels.LAUNCHES)
-        print(f"[narrow-paths] LM at {heads} heads (D={d}): {res.seconds_per_round:.4f} s/round, test loss "
-              f"{res.test_loss}, kernels {json.dumps(launches)}")
+        print(f"[narrow-paths] LM at width {width} over {heads} heads (D={d}): {res.seconds_per_round:.4f} s/round, "
+              f"test loss {res.test_loss}, kernels {json.dumps(launches)}")
         check(all(np.isfinite(res.test_loss)), f"D={d} LM: non-finite test loss")
         for name, (_, per_round, _) in KERNEL_ROWS.items():
             check(launches[name] == per_round * 2,
@@ -930,9 +1016,8 @@ def phase_narrow_paths() -> dict:
     x = ((rng.integers(0, VOCAB, size=(RING_BATCH, 1)) + np.arange(RING_SEQ)) % VOCAB).astype(np.int32)
     mesh = Mesh({"seq": RING_SHARDS}, device="cuda")
     tokens = shard_tokens(x, mesh)
-    for d in NARROW_HEAD_DIMS:
-        model = transformer_lm_model(0, RING_SEQ, VOCAB, LAYERS, EMBED // d, EMBED, "ring_flash", "seq",
-                                     device="cuda")
+    for d, heads, width in shapes:
+        model = transformer_lm_model(0, RING_SEQ, VOCAB, LAYERS, heads, width, "ring_flash", "seq", device="cuda")
         opt = adam(LR)
         step = make_sequence_parallel_train_step(model.apply, opt, mesh, "seq")
         params, state = model.params, opt.init(model.params)
@@ -942,11 +1027,13 @@ def phase_narrow_paths() -> dict:
             params, state, loss = step(params, state, tokens)
             losses.append(float(loss))
         n = _kernels.LAUNCHES["flash_carry"]
-        print(f"[narrow-paths] ring at {EMBED // d} heads (D={d}): losses {losses}, flash_carry launches {n}")
+        print(f"[narrow-paths] ring at width {width} over {heads} heads (D={d}): losses {losses}, "
+              f"flash_carry launches {n}")
         check(all(np.isfinite(losses)), f"D={d} ring: non-finite loss")
         check(n == RING_FOLDS * 2, f"D={d} ring: {n} carry launches, expected {RING_FOLDS} x 2")
         out["flash_carry" + narrow_suffix(d)] = n
         del model, params, state, step
+        gc.collect()
     return out
 
 
@@ -1151,6 +1238,227 @@ def phase_options(parts: list) -> None:
         device_parity(label, parts, kwargs if parity_kwargs is None else parity_kwargs, run_kwargs)
 
 
+def phase_learner() -> tuple:
+    """``TorchLearner`` fits one node of the full-width LM (one epoch of
+    ``SEQS / BATCH`` steps, then ``evaluate``): exact launches, s/fit,
+    s/step, peak memory, test loss before and after; then a learner whose
+    model was set from the fitted model's PFLT frame and a fresh learner on
+    the same weights fit to the same loss. Returns the fitted handle and its
+    round-start canonical leaves (the wire phase's anchor)."""
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.learning.learner import TorchLearner
+    from p2pfl_tpu_torch.models.transformer import transformer_lm_model
+    from p2pfl_tpu_torch.ops import _kernels
+
+    (x, y, _), xt = lm_data(12)
+    data = FederatedDataset.from_arrays(x[0], y[0], xt, np.zeros(len(xt), np.int32))
+
+    def lm(seed):
+        return transformer_lm_model(seed=seed, vocab_size=VOCAB, num_layers=LAYERS, num_heads=HEADS, embed_dim=EMBED,
+                                    attention_kind="flash", device="cuda")
+
+    def learner(model, seed):
+        out = TorchLearner(model, data, "node-0", lr=LR, batch_size=BATCH, seed=seed, task="lm", device="cuda")
+        out.metric_reporter = lambda name, value, step: losses.__setitem__(name, value)
+        return out
+
+    losses: dict = {}
+    model = lm(0)
+    start = [t.clone() for t in model.get_parameters()]
+    node = learner(model, 3)
+    _kernels.reset_launches()
+    before = node.evaluate()
+    eval_launches = dict(_kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.monotonic()
+    node.fit()
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    fit_launches = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    after = node.evaluate()
+    steps = SEQS // BATCH
+    print(f"[learner] TorchLearner, the full-width LM on one node ({SEQS} sequences, batch {BATCH}, Adam {LR}): "
+          f"{seconds:.4f} s/fit, {seconds / steps:.4f} s/step ({steps} steps), train loss {losses['train_loss']:.4f}, "
+          f"peak {peak} bytes ({peak / 2**30:.2f} GiB)")
+    print(f"[learner] test loss {before['test_loss']:.4f} -> {after['test_loss']:.4f}, token accuracy "
+          f"{before['test_acc']:.4f} -> {after['test_acc']:.4f}; fit kernels {json.dumps(fit_launches)}; "
+          f"evaluate kernels {json.dumps(eval_launches)}")
+    per_fit = LAYERS * steps
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(fit_launches[name] == per_fit, f"learner: {name} launched {fit_launches[name]} times in a fit, "
+              f"expected {per_fit}")
+    eval_batches = -(-len(xt) // BATCH)
+    check(fit_launches["flash_fwd_no_lse"] == 0 and eval_launches["flash_fwd_no_lse"] == LAYERS * eval_batches,
+          f"learner: evaluate launched {eval_launches['flash_fwd_no_lse']} no-lse forwards, expected "
+          f"{LAYERS * eval_batches}")
+    check(np.isfinite(after["test_loss"]) and after["test_loss"] < before["test_loss"],
+          "learner: the test loss did not fall over the fit")
+
+    frame = node.get_model().encode_parameters()
+    framed = lm(1)
+    framed.set_parameters(frame)
+    refit = {}
+    for label, handle in (("set from the frame", framed), ("fresh, same weights", node.get_model().build_copy())):
+        learner(handle, 4).fit()
+        refit[label] = losses["train_loss"]
+    diff = abs(refit["set from the frame"] - refit["fresh, same weights"])
+    print(f"[learner] a fit after set_parameters from the {len(frame)}-byte frame: train loss "
+          f"{refit['set from the frame']:.6f}; a fresh learner on the same weights: {refit['fresh, same weights']:.6f} "
+          f"(|diff| {diff:.3e}, tol 1e-5)")
+    check(diff <= 1e-5, "learner: the frame-loaded model trains to another loss than the same weights in memory")
+    return node.get_model(), start
+
+
+def phase_wire(model, anchor: list) -> None:
+    """The fitted LM's update against its round-start anchor through
+    ``DeltaWireCodec`` as coalesced top-k bf16, int8 and int4: ms on the
+    card, frame bytes and ratio against the dense f32 frame; for every leaf
+    ``scatter(idx, dequant) + residual == acc`` bit for bit on the card, and
+    a second codec holding the anchor decodes each frame to ``anchor +
+    scatter(dequant)`` bit for bit. Dense frames round-trip bit for bit."""
+    import torch
+    from p2pfl_tpu_torch.comm.delta import DeltaWireCodec
+    from p2pfl_tpu_torch.config import Settings
+    from p2pfl_tpu_torch.models.transformer import transformer_lm_model
+    from p2pfl_tpu_torch.ops import compression as comp
+
+    leaves = model.get_parameters()
+    n_params = sum(t.numel() for t in leaves)
+    check(n_params == N_PARAMS, f"wire: {n_params} parameters, expected {N_PARAMS}")
+    t0 = time.monotonic()
+    dense = model.encode_parameters(compression="none")
+    dense_ms = (time.monotonic() - t0) * 1e3
+    copy = transformer_lm_model(seed=2, vocab_size=VOCAB, num_layers=LAYERS, num_heads=HEADS, embed_dim=EMBED,
+                                attention_kind="flash", device="cuda")
+    copy.set_parameters(dense)
+    same = all(torch.equal(copy.params[n], t) for n, t in model.params.items())
+    print(f"[wire] dense f32 frame: {len(dense)} bytes for {n_params} parameters, encoded in {dense_ms:.1f} ms "
+          f"(host clock); decoded back bit for bit {'ok' if same else 'FAIL'}")
+    check(same, "wire: the dense frame did not round-trip bit for bit")
+    ratio = 0.1
+    for values in ("bf16", "int8", "int4"):
+        knobs = dict(WIRE_COMPRESSION="topk", WIRE_TOPK_RATIO=ratio, WIRE_TOPK_VALUES=values, COALESCE_ENABLED=True)
+        with Settings.overridden(**knobs):
+            for attempt in ("warm-up", "timed"):  # the first encode also warms torch.topk's workspaces
+                codec = DeltaWireCodec("node-0", device="cuda")
+                codec.set_anchor(anchor, 0)
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                blob, label = codec.encode_tagged(model, 0)
+                torch.cuda.synchronize()
+                ms = (time.monotonic() - t0) * 1e3
+            rx = DeltaWireCodec("node-1", device="cuda")
+            rx.set_anchor(anchor, 0)
+            decoded, meta = rx.decode_frame(blob)
+            kept, select_s = 0, 0.0
+            for i, (leaf, start) in enumerate(zip(leaves, anchor)):
+                flat = start.float().reshape(-1)
+                delta = leaf.float().reshape(-1) - flat
+                k = comp.topk_count(delta.numel(), ratio)
+                vd = values if values == "bf16" or k >= Settings.QUANT_MIN_VALUES else "bf16"
+                zeros = torch.zeros_like(delta)
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                if vd == "bf16":
+                    idx, wire, resid = comp.ef_topk_encode(delta, zeros, k, "bf16")
+                    deq = wire.float()
+                else:
+                    idx, q, scale, resid = comp.ef_topk_quant_encode(delta, zeros, k, 8 if vd == "int8" else 4)
+                    deq = q.float() * torch.tensor(scale, dtype=torch.float32, device=q.device)
+                torch.cuda.synchronize()
+                select_s += time.monotonic() - t0
+                check(torch.equal(resid.index_add(0, idx, deq), delta),
+                      f"wire {values}: leaf {i}: scatter(idx, dequant) + residual != acc")
+                check(torch.equal(decoded[i].reshape(-1), flat.index_add(0, idx, deq)),
+                      f"wire {values}: leaf {i}: the second codec's decode != anchor + scatter(dequant)")
+                kept += int(idx.numel())
+        print(f"[wire] topk {values} ({label}, coalesced, ratio {ratio}): {ms:.1f} ms to encode on the card (host "
+              f"clock, DEFLATE of the planes included; the {len(leaves)} leaves' top-k encoders alone, a sync after "
+              f"each: {select_s * 1e3:.1f} ms), {len(blob)} bytes ({len(dense) / len(blob):.2f}x smaller than the "
+              f"dense f32 frame), {kept} values kept; every leaf: residual + scatter(dequant) == acc and the second "
+              f"codec's decode == anchor + scatter(dequant), bit for bit ok")
+
+
+def phase_parity() -> None:
+    """The port's wire-vs-fused contract on the card: a ``ParityScenario``
+    (8 MLP nodes, full committee, 3 rounds, one signflip node) through the
+    wire's model plane (``run_frames``: ``ParityLearner.fit``, dense frames,
+    a fresh handle's ``set_parameters(bytes)``, ``CanonicalFedAvg``) and
+    through ``run_fused`` with the ledger attached: every round's hash
+    equal."""
+    from p2pfl_tpu_torch.parity import ParityScenario, run_frames, run_fused
+    from p2pfl_tpu_torch.telemetry.ledger import LEDGERS, TRAJECTORY_KINDS
+
+    scn = ParityScenario(n_nodes=8, rounds=3, byzantine={3: "signflip"})
+    LEDGERS.reset()
+    t0 = time.monotonic()
+    wire = run_frames(scn, device="cuda")
+    t1 = time.monotonic()
+    fused = run_fused(scn, device="cuda")
+    t2 = time.monotonic()
+    print(f"[parity] {scn.n_nodes} MLP nodes, {scn.rounds} rounds, node 3 signflip: wire model plane {t1 - t0:.2f} s, "
+          f"fused {t2 - t1:.2f} s")
+    for r in range(scn.rounds):
+        a, b = wire["hashes"].get(r), fused["hashes"].get(r)
+        print(f"[parity] round {r}: wire {a} fused {b} {'equal' if a == b and a else 'DIFFER'}")
+        check(a is not None and a == b, f"parity: round {r}'s aggregate hashes differ between the wire and fused")
+
+    def trajectory(events):
+        return [{k: v for k, v in e.items() if k != "seq"} for e in events if e["kind"] in TRAJECTORY_KINDS]
+
+    check(trajectory(wire["events"]) == trajectory(fused["events"]), "parity: the two ledgers' trajectories differ")
+    print(f"[parity] ledgers: {len(trajectory(wire['events']))} trajectory events, equal")
+
+
+def phase_longcontext() -> dict:
+    """``python -m p2pfl_tpu_torch.examples.longcontext --attention flash``
+    at its defaults, in this process so that its kernel launches count;
+    returns {"<name>_d16_lc": launches}."""
+    from p2pfl_tpu_torch.examples import longcontext
+    from p2pfl_tpu_torch.ops import _kernels
+
+    args = longcontext.build_parser().parse_args(["--attention", "flash"])
+    _kernels.reset_launches()
+    res = longcontext.run(args)
+    launches = dict(_kernels.LAUNCHES)
+    print(f"[longcontext] {res}; kernels {json.dumps(launches)}")
+    check(res["final_token_loss"] < res["first_token_loss"], "longcontext: the token loss did not fall")
+    for name in KERNEL_ROWS:
+        check(launches[name] > 0, f"longcontext: {name} was never launched")
+    return {name + LC_SUFFIX: launches[name] for name in KERNEL_ROWS}
+
+
+def phase_entry() -> None:
+    """``entry()``'s forward on the card: [64, 10] finite logits; on a
+    seeded random batch, the card's logits within four bf16 ulps of the
+    largest of the CPU's (cuBLAS and the CPU round bf16 activations in their
+    own order; the zero batch meets zero biases and holds no weight)."""
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.entry import entry
+
+    forward, (params, x) = entry()
+    out = forward(params, x)
+    torch.cuda.synchronize()
+    print(f"[entry] forward on {x.device}: logits {tuple(out.shape)} {out.dtype}")
+    check(out.device.type == "cuda" and tuple(out.shape) == (64, 10) and bool(torch.isfinite(out).all()),
+          "entry: the forward did not give [64, 10] finite logits on the card")
+    xr = torch.from_numpy(np.random.default_rng(0).normal(size=(64, 28, 28)).astype(np.float32))
+    cpu_forward, (cpu_params, _) = entry(device="cpu")
+    ref = cpu_forward(cpu_params, xr)
+    got = forward(params, xr.cuda()).cpu()
+    tol = 4 * 2.0 ** (float(torch.floor(torch.log2(ref.abs().max()))) - 7)
+    err = float((got - ref).abs().max())
+    print(f"[entry] a seeded random batch: card against CPU max_abs_err {err:.3e} (tol {tol:g}, four bf16 ulps "
+          f"of the largest logit {float(ref.abs().max()):.4f})")
+    check(err <= tol, "entry: the card's logits disagree with the CPU's on a random batch")
+
+
 def phase_profile(label: str, run) -> None:
     """``run()`` (one more round or step) under torch.profiler: device time by
     kernel class, the wall time under the profiler, and the device's busy
@@ -1222,11 +1530,20 @@ def main() -> int:
         gc.collect()
         rows.update(phase_kernels_narrow())
         rows.update(phase_kernels_classifier())
+        rows.update(phase_kernels_c1())
         launches.update(phase_narrow_paths())
         parts = mlp_partitions()
         phase_mlp(parts, profiling)
         launches.update(phase_classifier())
         phase_options(parts)
+        fitted, anchor = phase_learner()
+        phase_wire(fitted, anchor)
+        del fitted, anchor
+        gc.collect()
+        phase_parity()
+        rows.update(phase_kernels_longcontext())
+        launches.update(phase_longcontext())
+        phase_entry()
     except Exception as e:  # noqa: BLE001 - any failed phase fails the run
         import traceback
 
@@ -1246,11 +1563,20 @@ def main() -> int:
          "launches": launches[name + narrow_suffix(d)], **rows[name + narrow_suffix(d)], "source_f32": SOURCE_F32}
         for d in NARROW_HEAD_DIMS for name, (replaces, _, source) in kernels.items()
     ]
-    # The classifier's shapes: bf16 on padded heads, as its path runs them.
+    # Head sizes 48 and 128: bf16 at 48 on the padded tensor-core kernels, at
+    # 128 on the CUDA-core <bf16, 128> instance of SOURCE_F32.
     table += [
-        {"name": name + CLS_SUFFIX, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": launches[name + CLS_SUFFIX], **rows[name + CLS_SUFFIX]}
-        for name, (replaces, _, source) in KERNEL_ROWS.items()
+        {"name": name + narrow_suffix(d), "route": "cuda", "source": source if d <= 64 else SOURCE_F32,
+         "replaces": replaces, "launches": launches[name + narrow_suffix(d)], **rows[name + narrow_suffix(d)],
+         "source_f32": SOURCE_F32}
+        for d in C1_HEAD_DIMS for name, (replaces, _, source) in kernels.items()
+    ]
+    # The classifier's and the longcontext example's shapes: bf16 on padded
+    # heads, as their paths run them.
+    table += [
+        {"name": name + suffix, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": launches[name + suffix], **rows[name + suffix]}
+        for suffix in (CLS_SUFFIX, LC_SUFFIX) for name, (replaces, _, source) in KERNEL_ROWS.items()
     ]
     print(card)
     print(json.dumps({"kernels": table}))

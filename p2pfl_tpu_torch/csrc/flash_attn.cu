@@ -9,10 +9,14 @@
 //   flash_bwd_dq               <- _flash_bwd_dq_kernel   (pallas_call at :446)
 //   flash_bwd_dkv              <- _flash_bwd_dkv_kernel  (pallas_call at :463)
 //   flash_carry                <- _flash_carry_kernel    (pallas_call at :590)
-// bf16 runs the tensor-core kernels: the forward and the carry fold in
-// flash_fwd_sm90.cu, the backward pair in flash_bwd_sm90.cu, launched from
-// p2pfl_flash_fwd / p2pfl_flash_carry / p2pfl_flash_bwd_dq /
-// p2pfl_flash_bwd_dkv below. No bf16 instance of a kernel here is compiled.
+// bf16 at head size 64 runs the tensor-core kernels: the forward and the
+// carry fold in flash_fwd_sm90.cu, the backward pair in flash_bwd_sm90.cu,
+// launched from p2pfl_flash_fwd / p2pfl_flash_carry / p2pfl_flash_bwd_dq /
+// p2pfl_flash_bwd_dkv below (ops/_kernels.py zero-pads narrower bf16 heads to
+// 64). bf16 at head size 128 runs the kernels here at <__nv_bfloat16, 128>:
+// bf16 loads, f32 arithmetic, bf16 stores (a tensor-core D = 128 instance
+// would need its own TMA boxes and wgmma shapes); no other bf16 instance of a
+// kernel here is compiled.
 //
 // What it computes is what the TPU kernels compute: q is scaled by 1/sqrt(D)
 // in f32, every product and sum is f32, the causal mask writes -0.7 *
@@ -47,6 +51,7 @@
 // Interface: plain C functions, loaded with ctypes. Each launches on the
 // stream it is given, allocates nothing and returns cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
@@ -65,13 +70,17 @@ constexpr int RI = BQ / TY;  // rows of the micro-tile held by one thread
 constexpr int RJ = BK / TX;  // columns of the micro-tile held by one thread
 constexpr float MASK_VALUE = -0.7f * FLT_MAX;  // ops/attention.py DEFAULT_MASK_VALUE
 
-// The kernels keep their element type T as a parameter; float is the only
-// instance (bf16 runs the tensor-core kernels).
+// The kernels keep their element type T as a parameter: float at every head
+// size, __nv_bfloat16 at 128 only (bf16 at 64 and below runs the tensor-core
+// kernels). Either way every product and sum is f32.
 __device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
 
 // Max / sum over the 16 lanes that hold one tile row (a half warp: tx is the
 // fast thread index, so the xor offsets below never leave it).
@@ -655,15 +664,19 @@ cudaError_t launch_carry(const void* q, const void* k, const void* v, const floa
 }
 
 // Calls launch(std::integral_constant<int, D>) for the head sizes with an
-// f32 instance: 16, 32 and 64 (DJ = D / TX columns per thread: 1, 2, 4).
-// The bf16 tensor-core kernels exist at 64 only; ops/_kernels.py zero-pads
-// 16 and 32 to it.
+// f32 instance: 16, 32, 64 and 128 (DJ = D / TX columns per thread: 1, 2, 4,
+// 8). At D = 128 the dk/dv kernel takes dkv_smem<128>() =
+// 165,888 bytes of shared memory (the forward and carry 115,712), one block
+// per SM. ops/_kernels.py zero-pads any other head size up to 128 to the next
+// instance; bf16 exists at 64 (the tensor-core kernels, narrower heads padded
+// to it) and 128 (the kernels here).
 template <typename F>
 cudaError_t with_head_dim(int head_dim, F&& launch) {
   switch (head_dim) {
     case 16: return launch(std::integral_constant<int, 16>{});
     case 32: return launch(std::integral_constant<int, 32>{});
     case 64: return launch(std::integral_constant<int, 64>{});
+    case 128: return launch(std::integral_constant<int, 128>{});
     default: return cudaErrorInvalidValue;
   }
 }
@@ -688,10 +701,12 @@ cudaError_t launch_flash_carry_sm90(const void* q, const void* k, const void* v,
 extern "C" {
 
 // Every entry point returns cudaErrorInvalidValue for a head size without an
-// instance: f32 has 16, 32 and 64, bf16 has 64.
+// instance: f32 has 16, 32, 64 and 128, bf16 has 64 (tensor cores) and 128
+// (the CUDA-core kernels above).
 //
-// lse == NULL selects the forward that writes no logsumexp. bf16 runs the
-// tensor-core kernel of flash_fwd_sm90.cu, f32 the CUDA-core kernel above.
+// lse == NULL selects the forward that writes no logsumexp. bf16 at 64 runs
+// the tensor-core kernel of flash_fwd_sm90.cu; f32, and bf16 at 128, the
+// CUDA-core kernel above.
 int p2pfl_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                     int Sq, int Sk, int H, int head_dim, int dtype, float scale, int causal,
                     void* stream) {
@@ -702,11 +717,13 @@ int p2pfl_flash_fwd(const void* q, const void* k, const void* v, void* o, float*
     }));
   if (dtype == 1 && head_dim == 64)
     return int(p2pfl::launch_flash_fwd_sm90(q, k, v, o, lse, B, Sq, Sk, H, scale, causal != 0, s));
+  if (dtype == 1 && head_dim == 128)
+    return int(launch_fwd<__nv_bfloat16, 128>(q, k, v, o, lse, B, Sq, Sk, H, scale, causal != 0, s));
   return int(cudaErrorInvalidValue);
 }
 
-// bf16 runs the tensor-core pair of flash_bwd_sm90.cu, f32 the CUDA-core
-// kernels above.
+// bf16 at 64 runs the tensor-core pair of flash_bwd_sm90.cu; f32, and bf16
+// at 128, the CUDA-core kernels above.
 int p2pfl_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dq, int B, int Sq, int Sk,
                        int H, int head_dim, int dtype, float scale, int causal, void* stream) {
@@ -719,6 +736,8 @@ int p2pfl_flash_bwd_dq(const void* q, const void* k, const void* v, const void* 
   if (dtype == 1 && head_dim == 64)
     return int(p2pfl::launch_flash_bwd_dq_sm90(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, scale,
                                                causal != 0, s));
+  if (dtype == 1 && head_dim == 128)
+    return int(launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, scale, causal != 0, s));
   return int(cudaErrorInvalidValue);
 }
 
@@ -734,12 +753,15 @@ int p2pfl_flash_bwd_dkv(const void* q, const void* k, const void* v, const void*
   if (dtype == 1 && head_dim == 64)
     return int(p2pfl::launch_flash_bwd_dkv_sm90(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, scale,
                                                 causal != 0, s));
+  if (dtype == 1 && head_dim == 128)
+    return int(launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, scale, causal != 0,
+                                              s));
   return int(cudaErrorInvalidValue);
 }
 
 // m / l: [B, H, Sq] f32; acc: [B, Sq, H, D] f32; *_in and *_out must not
-// overlap. bf16 runs the tensor-core kernel of flash_fwd_sm90.cu, f32 the
-// CUDA-core kernel above.
+// overlap. bf16 at 64 runs the tensor-core kernel of flash_fwd_sm90.cu; f32,
+// and bf16 at 128, the CUDA-core kernel above.
 int p2pfl_flash_carry(const void* q, const void* k, const void* v, const float* m_in,
                       const float* l_in, const float* acc_in, float* m_out, float* l_out,
                       float* acc_out, int B, int Sq, int Sk, int H, int head_dim, int dtype,
@@ -753,6 +775,9 @@ int p2pfl_flash_carry(const void* q, const void* k, const void* v, const float* 
   if (dtype == 1 && head_dim == 64)
     return int(p2pfl::launch_flash_carry_sm90(q, k, v, m_in, l_in, acc_in, m_out, l_out, acc_out, B, Sq, Sk, H,
                                               scale, causal != 0, q_offset, kv_offset, s));
+  if (dtype == 1 && head_dim == 128)
+    return int(launch_carry<__nv_bfloat16, 128>(q, k, v, m_in, l_in, acc_in, m_out, l_out, acc_out, B, Sq, Sk, H,
+                                                scale, causal != 0, q_offset, kv_offset, s));
   return int(cudaErrorInvalidValue);
 }
 

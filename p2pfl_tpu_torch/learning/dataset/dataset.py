@@ -152,8 +152,31 @@ class FederatedDataset:
         split = self._split(train)
         return split.x, split.y
 
-    def export_batches(self, batch_size: int, train: bool = True, seed=0, drop_remainder: bool = False):
-        raise _not_ported("FederatedDataset.export_batches (export strategies)")
+    def export_batches(
+        self, batch_size: int, train: bool = True, seed: "int | Tuple[int, ...]" = 0,
+        drop_remainder: bool = False,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Fixed-shape shuffled batches ``(xb [steps, B, ...], yb [steps, B],
+        wb [steps, B])`` as the JAX package's ``BatchedArraysExportStrategy``
+        makes them (the same permutation for the same ``seed``, an int or a
+        tuple fed to numpy's ``SeedSequence``); ``wb`` is a 0/1 mask over the
+        zero padding of the final partial batch."""
+        split = self._split(train)
+        x, y = split.x, split.y
+        n = len(y)
+        order = np.random.default_rng(seed).permutation(n)
+        x, y = x[order], y[order]
+        steps = n // batch_size if drop_remainder else -(-n // batch_size)
+        pad = 0 if drop_remainder else steps * batch_size - n
+        if pad:
+            x = np.concatenate([x, np.zeros((pad, *x.shape[1:]), x.dtype)])
+            y = np.concatenate([y, np.zeros((pad,), y.dtype)])
+        w = np.ones((steps * batch_size,), np.float32)
+        if pad:
+            w[-pad:] = 0.0
+        m = steps * batch_size
+        return (x[:m].reshape(steps, batch_size, *x.shape[1:]), y[:m].reshape(steps, batch_size),
+                w.reshape(steps, batch_size))
 
     def export(self, strategy: type, train: bool = True, batch_size: int = 64, seed=0, **kwargs):
         raise _not_ported("FederatedDataset.export (export strategies)")

@@ -13,7 +13,7 @@ outputs are torch tensors or numpy arrays. This module imports no JAX.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Iterable, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -61,35 +61,73 @@ def flax_to_torch(flax_params: Mapping, device: DeviceLike = "cuda") -> Params:
     return out
 
 
+def flax_path(name: str) -> Tuple[Tuple[str, ...], bool]:
+    """Port parameter name -> (its flax path, whether the leaf is a Dense
+    kernel): ``"blocks.0.attn.qkv.weight"`` -> ``(("block0", "attn", "qkv",
+    "kernel"), True)``."""
+    parts = name.split(".")
+    path = []
+    i = 0
+    while i < len(parts) - 1:
+        if parts[i] == "blocks":
+            path.append(f"block{parts[i + 1]}")
+            i += 2
+        else:
+            path.append(parts[i])
+            i += 1
+    module, leaf = path[-1], parts[-1]
+    if leaf == "weight":
+        if module == "embed":
+            leaf = "embedding"
+        elif module.startswith("ln"):
+            leaf = "scale"
+        else:
+            return (*path, "kernel"), True
+    return (*path, leaf), False
+
+
+def canonical_names(names: Iterable[str]) -> List[str]:
+    """The port's parameter names in the JAX package's canonical leaf order:
+    ``jax.tree.leaves`` of the flax tree, i.e. nested dict keys sorted."""
+    return sorted(names, key=lambda n: flax_path(n)[0])
+
+
+def to_canonical(params: Mapping[str, torch.Tensor]) -> List[torch.Tensor]:
+    """Port params -> the JAX package's canonical leaves (its
+    ``ModelHandle.get_parameters()`` order and layout: Dense kernels ``[in,
+    out]``), as contiguous tensors on the params' device."""
+    out = []
+    for name in canonical_names(params):
+        t = params[name]
+        out.append(t.transpose(-1, -2).contiguous() if flax_path(name)[1] else t.contiguous())
+    return out
+
+
+def from_canonical(names: Iterable[str], leaves: Sequence[torch.Tensor]) -> Params:
+    """Inverse of :func:`to_canonical` for the parameter ``names``: canonical
+    leaves -> ``{name: tensor}`` in the port's layout."""
+    order = canonical_names(names)
+    if len(order) != len(leaves):
+        raise ValueError(f"expected {len(order)} leaves, got {len(leaves)}")
+    return {
+        name: (t.transpose(-1, -2).contiguous() if flax_path(name)[1] else t)
+        for name, t in zip(order, leaves)
+    }
+
+
 def torch_to_flax(params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """Port params -> flax-structured nested dict of numpy arrays (inverse of
     :func:`flax_to_torch`), under a top ``"params"`` key."""
     root: Dict[str, Any] = {}
     for name, t in params.items():
-        parts = name.split(".")
-        path = []
-        i = 0
-        while i < len(parts) - 1:
-            if parts[i] == "blocks":
-                path.append(f"block{parts[i + 1]}")
-                i += 2
-            else:
-                path.append(parts[i])
-                i += 1
-        module, leaf = path[-1], parts[-1]
+        path, is_kernel = flax_path(name)
         arr = t.detach().float().cpu().numpy()
-        if leaf == "weight":
-            if module == "embed":
-                leaf = "embedding"
-            elif module.startswith("ln"):
-                leaf = "scale"
-            else:
-                leaf = "kernel"
-                arr = np.swapaxes(arr, -1, -2)
+        if is_kernel:
+            arr = np.swapaxes(arr, -1, -2)
         node = root
-        for p in path:
+        for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[leaf] = np.ascontiguousarray(arr)
+        node[path[-1]] = np.ascontiguousarray(arr)
     return {"params": root}
 
 

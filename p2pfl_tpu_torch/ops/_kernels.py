@@ -12,15 +12,17 @@ contiguity, allocates its outputs with ``torch.empty``, launches on the
 current stream, raises if the launch reports an error, and adds one to its
 entry in :data:`LAUNCHES`.
 
-Head sizes: the f32 kernels have instances at 16, 32 and 64; the bf16
-tensor-core kernels at 64 only. A bf16 call at 16 or 32 copies q, k, v (dO;
-the carry's acc) into zeroed ``[B, S, H, 64]`` buffers, launches the 64
-instance with the true scale ``1/sqrt(D)`` and slices the outputs back to D.
-That is exact: zero columns add exact zeros to ``Q.K^T`` and ``dO.V^T``,
-leave ``delta`` (computed by the caller at D) as it is, and come out as
-exact zeros in O, acc, dQ, dK and dV. It is the kernel all the same, never
-the plain version, and it counts in :data:`LAUNCHES`; native narrow-D
-tensor-core instances would save the padding's copies. The plain versions and the choice between them
+Head sizes: any D up to 128. The f32 kernels have instances at 16, 32, 64
+and 128; bf16 runs the tensor-core kernels at 64 and CUDA-core instances at
+128. A call at another D copies q, k, v (dO; the carry's acc) into zeroed
+``[B, S, H, D']`` buffers, D' the next instance (bf16: 64 for D <= 64, else
+128), launches that instance with the true scale ``1/sqrt(D)`` and slices
+the outputs back to D. That is exact: zero columns add exact zeros to
+``Q.K^T`` and ``dO.V^T``, leave ``delta`` (computed by the caller at D) as
+it is, and come out as exact zeros in O, acc, dQ, dK and dV. It is the
+kernel all the same, never the plain version, and it counts in
+:data:`LAUNCHES`; native instances would save the padding's copies. A head
+size above 128 raises ``ValueError``. The plain versions and the choice between them
 and these kernels live in :mod:`p2pfl_tpu_torch.ops.attention`.
 """
 
@@ -51,8 +53,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-HEAD_DIMS = (16, 32, 64)  # the f32 instances of csrc/flash_attn.cu
-SM90_HEAD_DIM = 64  # the bf16 tensor-core instances; narrower bf16 heads are zero-padded to it
+HEAD_DIMS = (16, 32, 64, 128)  # the f32 instances of csrc/flash_attn.cu; other D <= 128 pad to the next
+BF16_HEAD_DIMS = (64, 128)  # bf16: the tensor-core kernels at 64, the CUDA-core instances at 128
+SM90_HEAD_DIM = 64  # the bf16 tensor-core instances
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Launches per kernel since the last :func:`reset_launches`. Incremented only
@@ -171,9 +175,15 @@ def _check_bshd(name: str, *ts: torch.Tensor) -> None:
         raise ValueError(f"{name}: dtype {ts[0].dtype} not supported (float32, bfloat16)")
 
 
+def kernel_head_dim(dtype: torch.dtype, d: int) -> int:
+    """The instance a call at head size ``d`` runs: the smallest of
+    :data:`HEAD_DIMS` (f32) or :data:`BF16_HEAD_DIMS` (bf16) not below ``d``."""
+    return next(x for x in (BF16_HEAD_DIMS if dtype == torch.bfloat16 else HEAD_DIMS) if x >= d)
+
+
 def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.dim() == 4 and q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {q.shape[-1]} not supported ({HEAD_DIMS})")
+    if q.dim() == 4 and not 1 <= q.shape[-1] <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {q.shape[-1]} not supported (1 to {MAX_HEAD_DIM})")
     _check_bshd(name, q, k, v)
     b, _, h, d = q.shape
     if k.shape != v.shape or (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d):
@@ -193,10 +203,11 @@ def _check_rows(name: str, q: torch.Tensor, *rows: torch.Tensor) -> None:
 
 
 def _check_aligned(name: str, *ts: torch.Tensor) -> None:
-    """The tensor-core kernels run when ``ts[0]`` is bf16; their TMA loads
-    (and the carry fold's float2 accesses to ``acc``) need every tensor
-    16-byte aligned."""
-    if ts[0].dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in ts):
+    """The tensor-core kernels run when ``ts[0]`` is bf16 at head size 64
+    (after padding); their TMA loads (and the carry fold's float2 accesses to
+    ``acc``) need every tensor 16-byte aligned."""
+    if (ts[0].dtype == torch.bfloat16 and ts[0].shape[-1] == SM90_HEAD_DIM
+            and any(t.data_ptr() % 16 for t in ts)):
         raise ValueError(f"{name}: the bf16 kernel's tensors must be 16-byte aligned (TMA)")
 
 
@@ -205,12 +216,13 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _pad_heads(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """Where ``ts[0]`` is bf16 with a head size below 64: each ``[B, S, H, D]``
-    tensor zero-padded into a new contiguous ``[B, S, H, 64]`` one (16-byte
-    aligned, as a new allocation is). The tensors unchanged otherwise."""
-    if ts[0].dtype != torch.bfloat16 or ts[0].shape[-1] == SM90_HEAD_DIM:
+    """Each ``[B, S, H, D]`` tensor zero-padded into a new contiguous ``[B, S,
+    H, D']`` one, D' = :func:`kernel_head_dim` of ``ts[0]`` (16-byte aligned,
+    as a new allocation is). The tensors unchanged where D' is D."""
+    d = kernel_head_dim(ts[0].dtype, ts[0].shape[-1])
+    if d == ts[0].shape[-1]:
         return ts
-    return tuple(F.pad(t, (0, SM90_HEAD_DIM - t.shape[-1])) for t in ts)
+    return tuple(F.pad(t, (0, d - t.shape[-1])) for t in ts)
 
 
 def _unpad(t: torch.Tensor, d: int) -> torch.Tensor:
@@ -222,8 +234,9 @@ def flash_fwd(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Kernel forward: ``(out [B,Sq,H,D], lse [B,H,Sq] f32 or None)``.
 
-    bf16 runs the tensor-core kernel, whose TMA loads and stores need every
-    tensor 16-byte aligned; f32 runs the CUDA-core kernel."""
+    bf16 up to D = 64 runs the tensor-core kernel, whose TMA loads and stores
+    need every tensor 16-byte aligned; f32, and bf16 above 64, run the
+    CUDA-core kernel."""
     _check_qkv("flash_fwd", q, k, v)
     lib = _load()
     b, sq, h, d = q.shape

@@ -39,27 +39,21 @@ from p2pfl_tpu_torch.config import Settings
 from p2pfl_tpu_torch.device import DeviceLike, resolve_device
 from p2pfl_tpu_torch.learning.dataset.dataset import FederatedDataset
 from p2pfl_tpu_torch.learning.learner import (
-    dp_grads,
-    fedprox_grad,
-    fedprox_penalty,
     masked_lm_loss,
+    seeded_generator as _generator,
     softmax_cross_entropy,
+    train_step,
+    uses_flash,
 )
 from p2pfl_tpu_torch.learning.privacy import dp_sgd_privacy_spent, resolve_seed
 from p2pfl_tpu_torch.models.model_handle import ModelHandle
 from p2pfl_tpu_torch.ops import aggregation as agg_ops
-from p2pfl_tpu_torch.optim import adam, apply_updates, sgd, state_map, yogi
+from p2pfl_tpu_torch.optim import adam, sgd, state_map, yogi
 from p2pfl_tpu_torch.parallel.mesh import Mesh
 
 Params = Dict[str, torch.Tensor]
 Aggregate = Callable[[Params, torch.Tensor], Params]
 BatchLoss = Callable[[Params, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
-
-
-def _generator(*words: int) -> torch.Generator:
-    """A CPU generator seeded from a tuple of ints (the port's ``fold_in``)."""
-    seed = int(np.random.SeedSequence([int(w) for w in words]).generate_state(1, np.uint64)[0])
-    return torch.Generator().manual_seed(seed)
 
 
 def _not_ported(what: str, plane: str) -> NotImplementedError:
@@ -145,32 +139,15 @@ def local_train_step(
         losses = []
         for s in range(steps):
             idx = perm[s * batch_size:(s + 1) * batch_size]
-            bx, by, bw = x[idx], y[idx], w[idx]
-            if dp_clip_norm > 0.0:
-                plain = {n: p.detach() for n, p in params.items()}
-                loss, grads = dp_grads(batch_loss, plain, bx, by, bw, gen, dp_clip_norm,
-                                       dp_noise_multiplier, per_example)
-                if fedprox_mu > 0.0:
-                    loss = loss + fedprox_penalty(plain, anchor, fedprox_mu)
-                    grads = fedprox_grad(grads, plain, anchor, fedprox_mu)
-            else:
-                leaves = {n: p.detach().requires_grad_(True) for n, p in params.items()}
-                loss = batch_loss(leaves, bx, by, bw)
-                if fedprox_mu > 0.0:
-                    loss = loss + fedprox_penalty(leaves, anchor, fedprox_mu)
-                grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
-                loss = loss.detach()
-            if scaffold:  # drift correction: g + c - c_i
-                grads = {n: g + c_global[n].to(g.dtype) - c_i[n].to(g.dtype) for n, g in grads.items()}
-            updates, opt_state = optimizer.update(grads, opt_state, params)
-            params = apply_updates(params, updates)
+            params, opt_state, loss = train_step(
+                params, opt_state, x[idx], y[idx], w[idx], gen, anchor=anchor, batch_loss=batch_loss,
+                optimizer=optimizer, fedprox_mu=fedprox_mu, dp_clip_norm=dp_clip_norm,
+                dp_noise_multiplier=dp_noise_multiplier, c_local=c_i if scaffold else None,
+                c_global=c_global if scaffold else None, per_example=per_example,
+            )
             losses.append(loss)
         epoch_losses.append(torch.stack(losses).mean())
     return params, opt_state, torch.stack(epoch_losses).mean()
-
-
-def _uses_flash(module: torch.nn.Module) -> bool:
-    return any(getattr(m, "attention_kind", None) in ("flash", "ring_flash") for m in module.modules())
 
 
 @dataclass
@@ -350,7 +327,7 @@ class MeshSimulation:
         self.mesh = mesh
         self.aggregate_fn: Aggregate = aggregate_fn if aggregate_fn is not None else agg_ops.fedavg
         self._byz_attack = byzantine_attack
-        self._per_example = "loop" if _uses_flash(model.module) else "vmap"
+        self._per_example = "loop" if uses_flash(model.module) else "vmap"
 
         # --- data: [N, S, ...] stacks with validity masks ----------------------
         if isinstance(partitions, tuple):
@@ -435,6 +412,8 @@ class MeshSimulation:
         self._nonprivate_steps_per_node = 0
         self.completed_rounds = 0
         self._closed = False
+        self._ledger: Any = None  # attach_ledger: None = no emission
+        self._ledger_names: Optional[List[str]] = None
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         t = torch.as_tensor(np.asarray(a), device=self.device)
@@ -591,8 +570,9 @@ class MeshSimulation:
         (``[rounds, K_f]`` positions into the same round's committee row)
         aggregates only those members; the others still train. The timed
         region ends in ``torch.cuda.synchronize()`` when the population is
-        on a card. ``checkpointer`` and a non-empty ``profile_dir`` are not
-        ported yet and raise ``NotImplementedError``.
+        on a card. With a ledger attached (:meth:`attach_ledger`) every round
+        emits its events. ``checkpointer`` and a non-empty ``profile_dir`` are
+        not ported yet and raise ``NotImplementedError``.
         """
         if self._closed:
             raise RuntimeError("simulation is closed — construct a new MeshSimulation")
@@ -649,6 +629,9 @@ class MeshSimulation:
             r = start + i
             do_eval = (r + 1) % eval_every == 0 or i == rounds - 1
             comm, _, tl, ta = self._round(st, r, epochs, row(sched, i), do_eval, row(fsched, i))
+            if self._ledger is not None:
+                self._ledger_emit_round(r, comm, row(fsched, i),
+                                        (i + 1) % rounds_per_call == 0 or i == rounds - 1)
             committees.append(comm)
             test_loss.append(tl)
             test_acc.append(ta)
@@ -716,6 +699,60 @@ class MeshSimulation:
     def __exit__(self, *exc) -> None:
         self.close()
 
+    # --- trajectory ledger (sim<->real parity) -------------------------------------
+
+    def attach_ledger(
+        self, node: str = "mesh-sim", node_names: Optional[Sequence[str]] = None, run_id: Optional[str] = None,
+    ) -> Any:
+        """Emit the canonical trajectory-ledger event stream
+        (:mod:`p2pfl_tpu_torch.telemetry.ledger`) from this simulation's
+        rounds, as the JAX package's ``attach_ledger`` does: per round
+        ``round_open`` (the sorted committee), one ``contribution_folded``
+        per folded member, ``aggregate_committed`` (contributors, samples and,
+        for the last round of each ``rounds_per_call`` chunk, the content hash
+        of node 0's parameters after diffusion) and ``round_close``; the
+        Byzantine nodes as ``chaos_fault`` events now. ``node_names`` maps
+        node indices to names (default ``vnode/<i>``). Returns the ledger."""
+        from p2pfl_tpu_torch.telemetry.ledger import LEDGERS
+
+        if node_names is not None:
+            names = [str(n) for n in node_names]
+            if len(names) != self.logical_num_nodes:
+                raise ValueError(f"node_names has {len(names)} entries for {self.logical_num_nodes} virtual nodes")
+        else:
+            names = [f"vnode/{i:05d}" for i in range(self.logical_num_nodes)]
+        if run_id is not None:
+            LEDGERS.configure(run_id)
+        self._ledger = LEDGERS.get(node)
+        self._ledger_names = names
+        if self._byz is not None:
+            for i in np.flatnonzero(self._byz.cpu().numpy() > 0):
+                self._ledger.emit("chaos_fault", fault="byzantine", peer=names[int(i)], attack=self._byz_attack)
+        return self._ledger
+
+    def _ledger_emit_round(
+        self, r: int, committee: torch.Tensor, fold_pos: Optional[torch.Tensor], with_hash: bool,
+    ) -> None:
+        """Emit one completed round's events (see :meth:`attach_ledger`)."""
+        from p2pfl_tpu_torch.telemetry.ledger import canonical_params_hash
+
+        led, names = self._ledger, self._ledger_names
+        comm = [int(i) for i in committee.tolist()]
+        samples = self.num_samples.cpu().numpy()
+        led.emit("round_open", round=r, members=sorted(names[i] for i in comm))
+        folded = comm if fold_pos is None else [comm[int(p)] for p in fold_pos.tolist()]
+        total = 0
+        for i in folded:
+            n_i = int(samples[i])
+            total += n_i
+            led.emit("contribution_folded", round=r, sender=names[i], lag=0, num_samples=n_i)
+        commit: Dict[str, Any] = {"contributors": sorted(names[i] for i in folded), "num_samples": total,
+                                  "origin": "mesh"}
+        if with_hash:
+            commit["hash"] = canonical_params_hash({k: v[0] for k, v in self.params_stack.items()})
+        led.emit("aggregate_committed", round=r, **commit)
+        led.emit("round_close", round=r)
+
     # --- planes not ported yet ----------------------------------------------------
 
     def save_to(self, checkpointer) -> bool:
@@ -727,8 +764,6 @@ class MeshSimulation:
     def round_cost_analysis(self, *args, **kwargs):
         raise _not_ported("MeshSimulation.round_cost_analysis", "management/profiler.py")
 
-    def attach_ledger(self, *args, **kwargs):
-        raise _not_ported("MeshSimulation.attach_ledger", "telemetry/ledger.py")
 
     def devobs_summary(self):
         raise _not_ported("MeshSimulation.devobs_summary (the device observatory)", "telemetry/sketches.py")

@@ -126,10 +126,15 @@ def test_train_test_split_equals_jax_and_unported_loaders_raise():
         got.generate_train_test_split()
     with pytest.raises(KeyError):
         dataset.FederatedDataset.from_arrays(x, y).export_arrays(train=False)
+    # export_batches is ported (the learner's batches): the same permutation,
+    # padding and mask as the JAX package's BatchedArraysExportStrategy.
+    for train, seed, drop in ((True, (3, 1, 0), False), (False, 0, False), (True, 7, True)):
+        for a, b in zip(got.export_batches(4, train, seed, drop), ref.export_batches(4, train, seed, drop)):
+            np.testing.assert_array_equal(a, b)
     for call in (lambda: dataset.FederatedDataset.from_huggingface("ylecun/mnist"),
                  lambda: dataset.FederatedDataset.from_csv("a.csv"),
                  lambda: dataset.FederatedDataset.from_parquet("a.parquet"),
-                 lambda: got.export_batches(8), lambda: got.export(object)):
+                 lambda: got.export(object)):
         with pytest.raises(NotImplementedError):
             call()
 

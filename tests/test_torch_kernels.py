@@ -56,12 +56,12 @@ def test_ring_flash_on_cpu_tensors_launches_nothing():
 
 
 def test_carry_wrapper_refuses_cpu_tensors_and_other_head_sizes():
-    for d in (48, 128):
+    for d in (160, 256):  # above the largest instance (128)
         q, k, v, _ = _qkv(9, (1, 64, 2, d))
         carry = port.init_carry(q.shape, "cpu")
         with pytest.raises(ValueError, match="head_dim"):
             _kernels.flash_carry(carry, q, k, v, 0, 0, True)
-    for d in (16, 32, 64):  # the head sizes the kernels take; still card only
+    for d in (8, 16, 32, 48, 64, 100, 128):  # the head sizes the kernels take (padded); still card only
         q, k, v, _ = _qkv(9, (1, 64, 2, d))
         with pytest.raises(ValueError, match="CUDA"):
             _kernels.flash_carry(port.init_carry(q.shape, "cpu"), q, k, v, 0, 0, True)
@@ -381,7 +381,7 @@ def test_kernel_autograd_matches_dense_on_card_bf16(cuda_device):
 
 @pytest.mark.cuda
 def test_kernel_wrappers_reject_what_the_kernel_does_not_take(cuda_device):
-    q, k, v, _ = _qkv(2, (1, 64, 2, 48), torch.float32, cuda_device)
+    q, k, v, _ = _qkv(2, (1, 64, 2, 160), torch.float32, cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
         _kernels.flash_fwd(q, k, v, True, True)
     q, k, v, _ = _qkv(2, (1, 64, 2, 64), torch.float16, cuda_device)
@@ -603,16 +603,17 @@ def test_ring_flash_autograd_matches_dense_on_card_bf16(cuda_device):
         torch.testing.assert_close(a.float(), b, atol=5e-2, rtol=0)
 
 
-# --- head sizes 16 and 32 --------------------------------------------------------
-# f32 runs instances of the CUDA-core kernels at these sizes; bf16 zero-pads
-# q, k, v, dO (and the carry's acc) to 64 for the tensor-core kernels and
-# slices the outputs back. Both are held to the D = 64 bars above.
+# --- head sizes 16, 32, 48 and 128 -----------------------------------------------
+# f32 runs instances of the CUDA-core kernels at 16, 32 and 128 (48 is
+# zero-padded to 64); bf16 zero-pads q, k, v, dO (and the carry's acc) to 64
+# for the tensor-core kernels (16, 32, 48) and runs the CUDA-core instance at
+# 128, slicing the outputs back. Both are held to the D = 64 bars above.
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("s", [1024, 129])
-@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("d", [16, 32, 48, 128])
 def test_narrow_head_kernels_match_plain_versions_on_card(cuda_device, d, s, dtype):
     q, k, v, g = _qkv(20 + d, (4, s, 4, d), dtype, cuda_device)
     bf16 = dtype == torch.bfloat16
@@ -643,7 +644,7 @@ def test_narrow_head_kernels_match_plain_versions_on_card(cuda_device, d, s, dty
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("d", [16, 32, 48, 128])
 def test_narrow_head_autograd_matches_dense_on_card(cuda_device, d, dtype):
     """flash_attention through the kernels against autograd through dense
     attention in f32: f32 at 1e-5 / 1e-4, bf16 at 5e-2 (a random
@@ -666,7 +667,7 @@ def test_narrow_head_autograd_matches_dense_on_card(cuda_device, d, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("s", [1024, 129])
-@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("d", [16, 32, 48, 128])
 def test_narrow_head_carry_matches_plain_version_on_card(cuda_device, d, s, dtype):
     """The diagonal fold of shard 7 into a fresh carry, a past fold into it
     and a future fold (the carry back bit-identical), at [2, S, 4, D]."""
@@ -689,7 +690,7 @@ def test_narrow_head_carry_matches_plain_version_on_card(cuda_device, d, s, dtyp
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("d", [48, 128])
+@pytest.mark.parametrize("d", [160, 256])
 def test_other_head_sizes_are_refused_on_card(cuda_device, d, dtype):
     q, k, v, g = _qkv(2, (1, 64, 2, d), dtype, cuda_device)
     rows = torch.zeros(1, 2, 64, device=cuda_device)
@@ -702,3 +703,132 @@ def test_other_head_sizes_are_refused_on_card(cuda_device, d, dtype):
         with pytest.raises(ValueError, match="head_dim"):
             call()
     assert not any(_kernels.LAUNCHES.values())
+
+
+# --- the wire codec's top-k encoders on the card -----------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("values", ["bf16", "float32", "int8", "int4"])
+def test_topk_encoders_conserve_error_feedback_on_card(cuda_device, values):
+    """The error-feedback encoders on the card: indices ascending, the
+    residual absorbing every transmitted value's error element for element
+    (``residual.index_add(idx, dequant) == acc`` bit for bit), and the same
+    selection, values and residual as on the CPU."""
+    from p2pfl_tpu_torch.ops import compression as comp
+
+    gen = torch.Generator().manual_seed(60)
+    delta, residual = torch.randn(1 << 20, generator=gen), 0.01 * torch.randn(1 << 20, generator=gen)
+    k = comp.topk_count(delta.numel(), 0.1)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        d, r = delta.to(dev), residual.to(dev)
+        if values in ("bf16", "float32"):
+            idx, wire, res = comp.ef_topk_encode(d, r, k, values)
+            deq = wire.float()
+        else:
+            idx, q, scale, res = comp.ef_topk_quant_encode(d, r, k, 8 if values == "int8" else 4)
+            wire, deq = q, q.float() * torch.tensor(scale, dtype=torch.float32, device=dev)
+        acc = d + r
+        assert idx.device.type == dev.type and bool((idx[1:] > idx[:-1]).all())
+        assert torch.equal(res.index_add(0, idx, deq), acc)
+        assert torch.equal(res[idx], acc[idx] - deq)
+        out[dev.type] = [t.cpu() for t in (idx, wire, res)]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_delta_codec_frames_on_card_decode_alike_on_the_cpu(cuda_device):
+    """A coalesced int8 frame encoded by a codec on the card decodes to the
+    same leaves on a card codec and a CPU codec holding the same anchor."""
+    from p2pfl_tpu_torch.comm.delta import DeltaWireCodec
+    from p2pfl_tpu_torch.config import Settings
+    from p2pfl_tpu_torch.models.mlp import mlp_model
+
+    model = mlp_model(seed=0, device=cuda_device)
+    anchor = model.get_parameters()
+    gen = torch.Generator().manual_seed(61)
+    model.set_parameters([a + 0.01 * torch.randn(a.shape, generator=gen).to(cuda_device) for a in anchor])
+    model.set_contribution(["s"], 1)
+    sender = DeltaWireCodec("s", device=cuda_device)
+    sender.set_anchor(anchor, 0)
+    with Settings.overridden(WIRE_COMPRESSION="topk", WIRE_TOPK_VALUES="int8", COALESCE_ENABLED=True):
+        blob, label = sender.encode_tagged(model, 0)
+    assert label == "topk-int8"
+    decoded = []
+    for dev in (cuda_device, torch.device("cpu")):
+        rx = DeltaWireCodec("r", device=dev)
+        rx.set_anchor([a.to(dev) for a in anchor], 0)
+        decoded.append(rx.decode_frame(blob)[0])
+    for a, b in zip(*decoded):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+
+
+def abs32_out_of_range(blob):
+    """``blob`` with its first uncoalesced top-k leaf's indices rewritten as
+    ``abs32`` in descending order, the middle one past the leaf's end: the
+    first and last indices stay in bounds, so only a check of every index
+    finds it."""
+    from p2pfl_tpu_torch.ops import compression as comp
+    from p2pfl_tpu_torch.ops import serialization as ser
+
+    arrays, meta = ser.deserialize_arrays(blob)
+    pos = 0
+    for s in meta[comp.CODEC_META_KEY]:
+        if s.get("codec") == "topk":
+            idx = ser.decode_sparse_indices(np.asarray(arrays[pos]), s["index_codec"])[::-1].copy()
+            assert idx.size >= 3
+            idx[idx.size // 2] = int(np.prod(s["shape"])) + 5
+            arrays[pos] = idx.astype(np.uint32)
+            s["index_codec"] = "abs32"
+            return ser.serialize_arrays(arrays, meta)
+        pos += int(s.get("parts", 1))
+    raise AssertionError("the frame holds no uncoalesced top-k leaf")
+
+
+def hostile_abs32_frame(kind, device):
+    """(codec holding the frame's anchor, honest frame, hostile frame): a
+    sparse delta frame (``kind="delta"``) or a dense top-k frame
+    (``"dense"``) from an MLP on ``device``, and its abs32 rewrite."""
+    from p2pfl_tpu_torch.comm.delta import DeltaWireCodec
+    from p2pfl_tpu_torch.config import Settings
+    from p2pfl_tpu_torch.models.mlp import mlp_model
+    from p2pfl_tpu_torch.ops import compression as comp
+    from p2pfl_tpu_torch.ops import serialization as ser
+
+    model = mlp_model(seed=0, device=device)
+    anchor = model.get_parameters()
+    gen = torch.Generator().manual_seed(62)
+    model.set_parameters([a + 0.01 * torch.randn(a.shape, generator=gen).to(device) for a in anchor])
+    model.set_contribution(["s"], 1)
+    if kind == "delta":
+        sender = DeltaWireCodec("s", device=device)
+        sender.set_anchor(anchor, 0)
+        with Settings.overridden(WIRE_COMPRESSION="topk", WIRE_TOPK_VALUES="int8", COALESCE_ENABLED=False):
+            blob = sender.encode_tagged(model, 0)[0]
+    else:  # a frame of compress_arrays' "topk" scheme: decode_frame densifies it
+        arrays, spec = comp.compress_arrays(model.get_parameters(), "topk", ratio=0.1)
+        blob = ser.serialize_arrays(arrays, {comp.CODEC_META_KEY: spec, "contributors": ["s"], "num_samples": 1})
+    rx = DeltaWireCodec("r", device=device)
+    rx.set_anchor(anchor, 0)
+    return rx, bytes(blob), abs32_out_of_range(bytes(blob))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["delta", "dense"])
+def test_unsorted_abs32_index_out_of_range_is_refused_before_the_card(cuda_device, kind):
+    """An abs32 frame whose out-of-range index sits mid-array is refused with
+    ``DecodingParamsError`` before any index reaches the card: the CUDA
+    context stays usable and the anchor untouched."""
+    from p2pfl_tpu_torch.exceptions import DecodingParamsError
+
+    rx, honest, hostile = hostile_abs32_frame(kind, cuda_device)
+    before = rx.export_state()
+    with pytest.raises(DecodingParamsError, match="out of tensor bounds"):
+        rx.decode_frame(hostile)
+    torch.cuda.synchronize()  # a device-side assert would surface here
+    after = rx.export_state()
+    for a, b in zip(before["anchor"], after["anchor"]):
+        np.testing.assert_array_equal(a, b)
+    assert all(bool(torch.isfinite(t).all()) for t in rx.decode_frame(honest)[0])

@@ -138,8 +138,9 @@ def test_unported_options_raise_not_implemented():
     for kwargs in (dict(checkpointer=object()), dict(profile_dir="trace")):
         with pytest.raises(NotImplementedError, match="not ported"):
             sim.run(rounds=1, **kwargs)
-    for call in (sim.attach_ledger, sim.devobs_summary, lambda: sim.fleet_health(None),
-                 lambda: sim.save_to(None), lambda: sim.load_from(None)):
+    for call in (sim.devobs_summary, lambda: sim.fleet_health(None),
+                 lambda: sim.save_to(None), lambda: sim.round_cost_analysis(),
+                 lambda: sim.load_from(None)):
         with pytest.raises(NotImplementedError, match="not ported"):
             call()
 
