@@ -9,7 +9,7 @@ Phases, each on its own printed lines:
    kernels' build from ``p2pfl_tpu_torch/csrc`` (time and ptxas report:
    registers and spills of each kernel; the tensor-core forward, backward
    and carry kernels must not spill, and the only bf16 instances of the
-   CUDA-core kernels are D = 128's), and the count of ``HGMMA`` (wgmma)
+   CUDA-core kernels are D = 128's and 256's), and the count of ``HGMMA`` (wgmma)
    instructions in each tensor-core kernel from ``cuobjdump -sass`` (each
    must have some).
 2. kernels: each Hopper kernel against its plain PyTorch version on the
@@ -126,17 +126,51 @@ Phases, each on its own printed lines:
    and on a seeded random batch agrees with the CPU's to four bf16 ulps of
    the largest logit.
 
-``--profile`` adds one more slice round, one more ring train step and one
-more MLP round, each under ``torch.profiler``, printing device time by kernel class and the
-device's busy share.
+16. d256: rows 1-5 at head size 256 ([8, 1024, 2, 256], the eval forward
+   at [16, 1024, 2, 256], one ring chunk [2, 1024, 2, 256]) on the
+   CUDA-core <bf16, 256> and <f32, 256> instances (32-row tiles), held to
+   the bars of phases 2 and 5 and timed beside aten; phase 6's paths also run
+   the LM and the ring at width 512 over 2 heads.
+17. cnn: ``cnn_model`` in phase 7's round (its data, committee 4, batch 64)
+   for 10 rounds after a warm-up round: loss falling, final accuracy > 0.5;
+   then held on the card against the CPU as phase 7 holds the MLP.
+18. topk-ties: ``topk_select`` and the three error-feedback encoders on 2^20
+   values whose magnitudes tie at the k-th place (a {-2, -1, 1, 2} grid plus
+   a 0.25 grid; a block of zeros crossing the k-th place): the card keeps
+   the same lowest-index members, values, scales and residuals as the CPU.
+19. cifar: ``p2pfl_tpu_torch.examples.cifar`` at its defaults (50 nodes,
+   committee 8, 128 samples a node, batch 32, 32 x 32, ResNet-18, Krum,
+   Dirichlet 0.5) with ``--rounds 2``: s/round, peak memory, test accuracy
+   per round; then at f64 compute (the f32 gradient of a GroupNorm ResNet
+   is itself ill-conditioned) the ResNet's loss gradients on one batch (1e-5
+   of each leaf's largest) and one scheduled round at 4 nodes, on the card
+   against the CPU as in phase 7.
+20. moe: ``moe_lm_model`` at phase 3's widths (vocab 8192, 4 layers of which
+   2 routed, 8 heads, width 512, 4 experts, flash attention, bf16): its f32
+   logits against dense attention's on [2, 256] (1e-4), then 4 Adam steps
+   on loss + 0.01 aux at batch 8 and an eval forward at batch 16, with
+   exact launch counts at rows 1-4's shapes.
+21. pipeline: rows 1-4 at the pipeline's microbatch shape [2, 1024, 8, 64]
+   (the ``_pp`` rows), then ``make_pipelined_transformer_lm`` of phase 3's
+   flash LM over 4 stages of one layer, a batch of 8 in 4 microbatches: its
+   logits against the unpipelined model's (2^-5 of the largest logit), 3
+   Adam steps, exact launch counts at [2, 1024, 8, 64].
+22. dryrun: ``dryrun_multichip(4)`` on the card, five OK lines.
+
+``--profile`` adds one more slice round, one more ring train step, one more
+MLP round, one more run of the cifar example with ``--rounds 1`` (its set-up,
+warm-up round and round) and one more MoE train step, each under
+``torch.profiler``, printing device time by kernel class and the device's
+busy share.
 
 Any failed check exits 1 without the result lines. On success the last
 three lines are the card's name and power limit, one JSON object with a row
 per kernel (rows 1-5 at head size 64, then ``<name>_d32`` and
 ``<name>_d16``: bf16 times, with the f32 instance's beside them; then
-``<name>_d48`` and ``<name>_d128`` the same way; then rows 1-4 at the
-classifier's shapes, ``<name>_d32_cls``, and at the longcontext example's,
-``<name>_d16_lc``), and
+``<name>_d48``, ``<name>_d128`` and ``<name>_d256`` the same way; then rows
+1-4 at the classifier's shapes, ``<name>_d32_cls``, at the longcontext
+example's, ``<name>_d16_lc``, and at the pipeline's, ``<name>_pp``; rows 1-4
+at head size 64 also carry the MoE phase's ``launches_moe``), and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits 1 and prints no result.
 """
@@ -186,6 +220,27 @@ SOURCE_F32 = "p2pfl_tpu_torch/csrc/flash_attn.cu"  # the CUDA-core kernels: f32,
 # f32 to the 64 instance) and 128 at width 512 over 4 heads (the CUDA-core
 # <f32, 128> and <bf16, 128> instances). Head size -> heads.
 C1_HEAD_DIMS = {48: 8, 128: 4}
+# Head size 256, the largest the kernels take: the LM's width over 2
+# heads, on the CUDA-core <f32, 256> and <bf16, 256> instances (32-row tiles).
+D256_HEAD_DIMS = {256: 2}
+
+# The MoE LM at the federated LM's widths (4 experts, every second block
+# routed, flash attention, bf16): 4 Adam steps on loss + 0.01 aux at batch
+# BATCH, then an eval forward at EVAL_SEQS; the kernels run at rows 1-4's
+# shapes.
+MOE_EXPERTS, MOE_STEPS, MOE_AUX = 4, 4, 0.01
+MOE_PER_STEP = LAYERS  # training launches of rows 1, 3, 4 per step (one batch)
+# The pipelined LM: the flash LM above over 4 stages of one layer, a batch of
+# BATCH in 4 microbatches (kernels at [2, 1024, 8, 64], the "_pp" rows), 3
+# train steps.
+PP_STAGES, PP_MICRO, PP_STEPS = 4, 4, 3
+PP_SUFFIX = "_pp"
+PP_PER_PASS = LAYERS * PP_MICRO  # launches of a kernel per pipelined forward (or backward)
+# examples/cifar.py at its defaults (50 nodes, committee 8, 128 samples a
+# node, batch 32, 32 x 32, ResNet-18, Krum, Dirichlet 0.5), rounds cut to 2.
+CIFAR_ROUNDS = 2
+# The CNN round: bench.py's MNIST data (phase 7), committee 4, batch 64.
+CNN_ROUNDS = 10
 
 # bench.py's metric configuration (bench.py:78-86, _metric_sim_run).
 MLP_NODES, MLP_SAMPLES, MLP_COMMITTEE, MLP_BATCH, MLP_TEST, MLP_ROUNDS = 100, 600, 4, 64, 1024, 10
@@ -341,14 +396,14 @@ def phase_env() -> str:
     check(any(e.startswith("flash_carry_sm90_kernel") for e in seen),
           "the build log lacks the tensor-core carry kernel")
     for simt in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_carry_kernel"):
-        # bf16 at D <= 64 runs the tensor-core kernels only; the one bf16
-        # CUDA-core instance of each kernel is D = 128's.
-        check(not any(e.startswith(f"{simt}<bf16") and "D=128" not in e for e in seen),
+        # bf16 at D <= 64 runs the tensor-core kernels only; the bf16
+        # CUDA-core instances of each kernel are D = 128's and D = 256's.
+        check(not any(e.startswith(f"{simt}<bf16") and "D=128" not in e and "D=256" not in e for e in seen),
               f"a bf16 instance of the CUDA-core {simt} below D = 128 was compiled")
-        check(any(e.startswith(f"{simt}<bf16, D=128") for e in seen),
-              f"the build log lacks the bf16 D = 128 instance of {simt}")
-        check(any(e.startswith(f"{simt}<f32, D=128") for e in seen),
-              f"the build log lacks the f32 D = 128 instance of {simt}")
+        for d in (128, 256):
+            for kind in ("bf16", "f32"):
+                check(any(e.startswith(f"{simt}<{kind}, D={d}") for e in seen),
+                      f"the build log lacks the {kind} D = {d} instance of {simt}")
     phase_sass(path, _kernels._find_nvcc())
     return card
 
@@ -982,8 +1037,16 @@ def phase_narrow_paths() -> dict:
     each, and the ring trainer at the same widths and heads, one step after a
     warm-up step each; returns the launches of each run under its rows'
     names (``<name>_d<D>``)."""
+    shapes = [(d, EMBED // d, EMBED) for d in NARROW_HEAD_DIMS] + [(d, h, d * h) for d, h in C1_HEAD_DIMS.items()]
+    return head_size_paths("narrow-paths", shapes)
+
+
+def head_size_paths(label: str, shapes: list) -> dict:
+    """For each ``(head size, heads, width)``: the slice's LM one round after a
+    warm-up round and the ring trainer one step after a warm-up step, with
+    every count set to 0 before and read after each run; returns the
+    launches under the rows' names (``<name>_d<D>``)."""
     import numpy as np
-    import torch
     from p2pfl_tpu_torch.models.transformer import transformer_lm_model
     from p2pfl_tpu_torch.ops import _kernels
     from p2pfl_tpu_torch.optim import adam
@@ -991,7 +1054,6 @@ def phase_narrow_paths() -> dict:
     from p2pfl_tpu_torch.parallel.sequence import make_sequence_parallel_train_step, shard_tokens
     from p2pfl_tpu_torch.parallel.simulation import MeshSimulation
 
-    shapes = [(d, EMBED // d, EMBED) for d in NARROW_HEAD_DIMS] + [(d, h, d * h) for d, h in C1_HEAD_DIMS.items()]
     out: dict = {}
     for d, heads, width in shapes:
         model = transformer_lm_model(seed=0, vocab_size=VOCAB, num_layers=LAYERS, num_heads=heads,
@@ -1002,7 +1064,7 @@ def phase_narrow_paths() -> dict:
         _kernels.reset_launches()
         res = sim.run(rounds=1, epochs=1, warmup=True)
         launches = dict(_kernels.LAUNCHES)
-        print(f"[narrow-paths] LM at width {width} over {heads} heads (D={d}): {res.seconds_per_round:.4f} s/round, "
+        print(f"[{label}] LM at width {width} over {heads} heads (D={d}): {res.seconds_per_round:.4f} s/round, "
               f"test loss {res.test_loss}, kernels {json.dumps(launches)}")
         check(all(np.isfinite(res.test_loss)), f"D={d} LM: non-finite test loss")
         for name, (_, per_round, _) in KERNEL_ROWS.items():
@@ -1027,7 +1089,7 @@ def phase_narrow_paths() -> dict:
             params, state, loss = step(params, state, tokens)
             losses.append(float(loss))
         n = _kernels.LAUNCHES["flash_carry"]
-        print(f"[narrow-paths] ring at width {width} over {heads} heads (D={d}): losses {losses}, "
+        print(f"[{label}] ring at width {width} over {heads} heads (D={d}): losses {losses}, "
               f"flash_carry launches {n}")
         check(all(np.isfinite(losses)), f"D={d} ring: non-finite loss")
         check(n == RING_FOLDS * 2, f"D={d} ring: {n} carry launches, expected {RING_FOLDS} x 2")
@@ -1057,10 +1119,13 @@ def mlp_partitions() -> list:
     return flipped.generate_partitions(MLP_NODES, RandomIIDPartitionStrategy)
 
 
-def device_parity(label: str, parts: list, kwargs: dict, run_kwargs: dict) -> None:
-    """The MLP configuration with ``kwargs`` for the rounds of
-    ``PARITY_SCHEDULE`` at f32 compute, on the card and on the CPU (the path
-    the CPU tests hold to the JAX package). Both draw their shuffles and DP
+def device_parity(label: str, parts: list, kwargs: dict, run_kwargs: dict, make_model=None,
+                  schedule: tuple = PARITY_SCHEDULE, batch: int = MLP_BATCH, n_test: int = MLP_TEST,
+                  compute: str = "float32") -> None:
+    """The MLP configuration (or ``make_model(device)``'s model, built at f32
+    compute) with ``kwargs`` for the rounds of ``schedule`` at f32 compute,
+    on the card and on the CPU (the path the CPU tests hold to the JAX
+    package). Both draw their shuffles and DP
     noise from the same seeded CPU generators and TF32 is off, so they differ
     only in the order of their f32 sums. That can still flip a ReLU whose
     pre-activation is within rounding of 0, and Adam then moves a few weights
@@ -1077,18 +1142,22 @@ def device_parity(label: str, parts: list, kwargs: dict, run_kwargs: dict) -> No
     from p2pfl_tpu_torch.models.mlp import mlp_model
     from p2pfl_tpu_torch.parallel.simulation import MeshSimulation
 
+    if make_model is None:
+        def make_model(dev):
+            return mlp_model(seed=0, device=dev)
+
     runs = []
     for dev in ("cuda", "cpu"):
-        with Settings.overridden(COMPUTE_DTYPE="float32"):
-            model = mlp_model(seed=0, device=dev)
+        with Settings.overridden(COMPUTE_DTYPE=compute):
+            model = make_model(dev)
         start = {k: v.detach().float().cpu() for k, v in model.params.items()}
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", UserWarning)  # DP with a pinned seed says its epsilon is void
-            sim = MeshSimulation(model, parts, train_set_size=MLP_COMMITTEE, batch_size=MLP_BATCH, seed=1,
+            sim = MeshSimulation(model, parts, train_set_size=len(schedule[0]), batch_size=batch, seed=1,
                                  device=dev, **kwargs)
         with sim:
-            res = sim.run(rounds=len(PARITY_SCHEDULE), epochs=1, warmup=False,
-                          committee_schedule=np.asarray(PARITY_SCHEDULE), **run_kwargs)
+            res = sim.run(rounds=len(schedule), epochs=1, warmup=False,
+                          committee_schedule=np.asarray(schedule), **run_kwargs)
             runs.append((res, {k: v[0].cpu() for k, v in sim.params_stack.items()}))
     (card, p_card), (host, p_host) = runs
     check(len(card.test_loss) == len(host.test_loss) >= 1, f"{label}: the two runs evaluated different rounds")
@@ -1099,11 +1168,11 @@ def device_parity(label: str, parts: list, kwargs: dict, run_kwargs: dict) -> No
     n_past = sum(int((d > 1e-5).sum()) for d in diff.values())
     update = math.sqrt(sum(float(((p_host[k] - start[k]) ** 2).sum()) for k in p_host))
     rel = math.sqrt(sum(float((d**2).sum()) for d in diff.values())) / update
-    ok = rel <= PARITY_RTOL and e_loss <= PARITY_LOSS_ATOL and e_acc <= 1.0 / MLP_TEST + 1e-9
-    print(f"  {label}: card against CPU, {len(PARITY_SCHEDULE)} scheduled rounds at f32: node 0's params differ "
+    ok = rel <= PARITY_RTOL and e_loss <= PARITY_LOSS_ATOL and e_acc <= 1.0 / n_test + 1e-9
+    print(f"  {label}: card against CPU, {len(schedule)} scheduled rounds at {compute}: node 0's params differ "
           f"by {rel:.3e} of the update's L2 norm {update:.4f} (tol {PARITY_RTOL:g}; max_abs_err {e_par:.3e}, "
           f"{n_past} elements past 1e-5), test loss {e_loss:.3e} (tol {PARITY_LOSS_ATOL:g}), accuracy "
-          f"{e_acc:.5f} (tol 1/{MLP_TEST}) {'ok' if ok else 'FAIL'}")
+          f"{e_acc:.5f} (tol 1/{n_test}) {'ok' if ok else 'FAIL'}")
     check(all(np.isfinite(card.test_loss)), f"{label}: non-finite test loss on the card")
     check(ok, f"{label}: the card's round disagrees with the CPU's")
 
@@ -1459,6 +1528,372 @@ def phase_entry() -> None:
     check(err <= tol, "entry: the card's logits disagree with the CPU's on a random batch")
 
 
+def phase_kernels_d256() -> dict:
+    """Rows 1-5 at head size 256 (the LM's width over 2 heads: [8, 1024, 2,
+    256], the eval forward at [16, 1024, 2, 256], one ring chunk [2, 1024,
+    2, 256]) on the CUDA-core <bf16, 256> and <f32, 256> instances, held to
+    the bars of phases 2 and 5 and timed beside aten; returns
+    {"<name>_d256": row}."""
+    import torch
+
+    gen = torch.Generator().manual_seed(16)
+    rows: dict = {}
+    for d, heads in D256_HEAD_DIMS.items():
+        rows.update(narrow_rows("d256", narrow_suffix(d), d, heads, BATCH, EVAL_SEQS, SEQ_LEN,
+                                (torch.bfloat16, torch.float32), True, gen))
+    return rows
+
+
+def phase_d256_paths() -> dict:
+    """The slice's LM and the ring trainer at width 512 over 2 heads (D =
+    256); returns their launches under the ``_d256`` rows' names."""
+    return head_size_paths("d256-paths", [(d, h, d * h) for d, h in D256_HEAD_DIMS.items()])
+
+
+def phase_topk_ties() -> None:
+    """The three top-k encoders (and ``topk_select``) on inputs whose
+    magnitudes tie at the k-th place, on the card and on the CPU: the same
+    lowest-index members, values, scales and residuals (the rule of
+    ``jax.lax.top_k``, which the CPU tests hold the port to)."""
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.ops import compression as comp
+
+    rng = np.random.default_rng(8)
+    size, k = 1 << 20, 104_858
+    grid = rng.choice(np.array([-2.0, -1.0, 1.0, 2.0], np.float32), size)
+    cases = {
+        "grid": (grid, (0.25 * rng.choice(np.array([-1.0, 0.0, 1.0], np.float32), size)).astype(np.float32)),
+        "zeros": (np.where(rng.random(size) < 0.05, grid, 0.0).astype(np.float32), np.zeros(size, np.float32)),
+    }
+    for case, (delta, residual) in cases.items():
+        acc = np.abs(delta + residual)
+        kth = np.sort(acc)[::-1][k - 1]
+        out = {}
+        for dev in ("cuda", "cpu"):
+            d, r = torch.from_numpy(delta).to(dev), torch.from_numpy(residual).to(dev)
+            got = {"select": comp.topk_select(d + r, k), "bf16": comp.ef_topk_encode(d, r, k, "bf16")}
+            for bits in (8, 4):
+                idx, q, scale, res = comp.ef_topk_quant_encode(d, r, k, bits)
+                got[f"int{bits}"] = (idx, q, torch.tensor(scale), res)
+            out[dev] = {name: [t.cpu() for t in ts] for name, ts in got.items()}
+        for name in out["cpu"]:
+            same = all(torch.equal(a, b) for a, b in zip(out["cuda"][name], out["cpu"][name]))
+            print(f"[topk-ties] {case} ({int((acc == kth).sum())} elements tie at the k-th magnitude {kth:g}, "
+                  f"k {k}): {name} card == CPU {'ok' if same else 'FAIL'}")
+            check(same, f"top-k {name} on tied inputs ({case}): the card differs from the CPU")
+
+
+def cnn_model_f(dev):
+    from p2pfl_tpu_torch.models.cnn import cnn_model
+
+    return cnn_model(seed=0, device=dev)
+
+
+def phase_cnn(parts: list) -> None:
+    """The CNN round on phase 7's MNIST data (committee 4, batch 64), then
+    held on the card against the CPU as phase 7 holds the MLP."""
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.parallel.simulation import MeshSimulation
+
+    model = cnn_model_f("cuda")
+    print(f"[cnn] CNN conv32-pool-conv64-pool-dense128 ({sum(p.numel() for p in model.params.values())} params, "
+          f"{model.module.compute_dtype}); {MLP_NODES} nodes x {MLP_SAMPLES} samples, committee {MLP_COMMITTEE}")
+    with MeshSimulation(model, parts, train_set_size=MLP_COMMITTEE, batch_size=MLP_BATCH, seed=1,
+                        device="cuda") as sim:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launches()
+        res = sim.run(rounds=CNN_ROUNDS, epochs=1, warmup=True)
+        launches = dict(_kernels.LAUNCHES)
+    print(f"[cnn] {CNN_ROUNDS} rounds: {res.seconds_per_round:.4f} s/round; test loss {res.test_loss}, accuracy "
+          f"{res.test_acc}; max_memory_allocated {torch.cuda.max_memory_allocated()} bytes; kernels "
+          f"{json.dumps(launches)} (the CNN runs none of the port's kernels)")
+    check(all(np.isfinite(res.test_loss)), "CNN: non-finite test loss")
+    check(res.test_loss[-1] < res.test_loss[0], "CNN: test loss did not fall over the rounds")
+    check(res.test_acc[-1] > 0.5, f"CNN: final test accuracy {res.test_acc[-1]} is not above 0.5")
+    device_parity("cnn", parts, {}, {}, make_model=cnn_model_f)
+
+
+def phase_cifar(profiling: bool) -> None:
+    """``examples/cifar.py`` at its defaults with ``--rounds 2`` on the card
+    (s/round, peak memory, per-round test accuracy; with ``profiling``, one
+    more run of the example with ``--rounds 1`` under torch.profiler); then
+    at f64 compute the ResNet-18's loss gradients on one batch (each leaf
+    within 1e-5 of its largest gradient) and one scheduled round at 4 nodes
+    (32 samples each, 32 x 32), on the card against the CPU, as phase 7
+    holds the MLP."""
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.config import Settings
+    from p2pfl_tpu_torch.examples import cifar
+    from p2pfl_tpu_torch.learning.dataset import RandomIIDPartitionStrategy, synthetic_cifar10
+    from p2pfl_tpu_torch.learning.learner import softmax_cross_entropy
+    from p2pfl_tpu_torch.models.resnet import resnet18_model
+    from p2pfl_tpu_torch.ops import _kernels
+
+    args = cifar.build_parser().parse_args(["--rounds", str(CIFAR_ROUNDS), "--seed", "1"])
+    print(f"[cifar] examples/cifar.py: {args.nodes} nodes x {args.samples_per_node} samples ({args.image_size} x "
+          f"{args.image_size}), committee {args.train_set_size}, batch {args.batch_size}, {args.aggregator}, "
+          f"Dirichlet {args.alpha}, {args.rounds} rounds after a warm-up round")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    res = cifar.run(args)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[cifar] {res['sec_per_round']:.4f} s/round; test accuracy per round {res['test_acc']}; "
+          f"max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB); kernels {json.dumps(dict(_kernels.LAUNCHES))}"
+          f" (ResNet-18 runs none of the port's kernels)")
+    check(len(res["test_acc"]) == CIFAR_ROUNDS and all(np.isfinite(res["test_acc"])),
+          "cifar: missing or non-finite test accuracy")
+    if profiling:
+        phase_profile("cifar: examples/cifar.py --rounds 1 (set-up, the warm-up round and one round)",
+                      lambda: cifar.run(cifar.build_parser().parse_args(["--rounds", "1", "--seed", "2"])))
+    data = synthetic_cifar10(n_train=4 * 32, n_test=256, seed=42)
+    parts = data.generate_partitions(4, RandomIIDPartitionStrategy)
+    # At f64 compute. In f32 the ResNet's gradient is itself ill-conditioned
+    # (GroupNorm's E[x^2] - E[x]^2, as flax computes it, over 18 layers): on
+    # the CPU its f32 and f64 gradients differ by 3.1e-3 of the worst leaf's
+    # largest, and the card's f32 one by 8.8e-3 from the CPU's, where at f64
+    # the two agree within 1.2e-7 (the f32 logits' cast bounds that).
+    x, y = (torch.from_numpy(a) for a in parts[0].export_arrays(True))
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        with Settings.overridden(COMPUTE_DTYPE="float64"):
+            model = resnet18_model(seed=0, device=dev)
+        leaves = {k: v.detach().requires_grad_(True) for k, v in model.params.items()}
+        loss = softmax_cross_entropy(model.apply(leaves, x.to(dev)), y.to(dev).long(), torch.ones(len(y), device=dev))
+        grads[dev] = {k: g.cpu() for k, g in zip(leaves, torch.autograd.grad(loss, list(leaves.values())))}
+    worst = max(float((grads["cuda"][k] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+                for k, g in grads["cpu"].items())
+    print(f"[cifar] ResNet-18 loss gradients at f64 compute on one batch of 32, card against CPU: worst leaf "
+          f"differs by {worst:.3e} of its largest gradient (tol 1e-5)")
+    check(worst <= 1e-5, "resnet18: the card's gradients disagree with the CPU's")
+    device_parity("resnet18", parts, {}, {}, make_model=lambda dev: resnet18_model(seed=0, device=dev),
+                  schedule=((0, 1, 2, 3),), batch=32, n_test=256, compute="float64")
+
+
+class ShapeLog:
+    """While open, records the q shape of every kernel launch of rows 1-4
+    (wrapping the wrappers of ``_kernels``, which still count)."""
+
+    NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+    def __enter__(self):
+        from p2pfl_tpu_torch.ops import _kernels
+
+        self.shapes, self.saved = set(), {n: getattr(_kernels, n) for n in self.NAMES}
+        for n, fn in self.saved.items():
+            def wrapped(q, *args, _fn=fn, **kw):
+                self.shapes.add(tuple(q.shape))
+                return _fn(q, *args, **kw)
+            setattr(_kernels, n, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        from p2pfl_tpu_torch.ops import _kernels
+
+        for n, fn in self.saved.items():
+            setattr(_kernels, n, fn)
+
+
+def phase_moe(profiling: bool) -> dict:
+    """``moe_lm_model`` at the federated LM's widths with flash attention
+    (bf16): its logits against dense attention's on a small input, then
+    ``MOE_STEPS`` Adam steps on loss + 0.01 aux at batch ``BATCH`` and an
+    eval forward at ``EVAL_SEQS``, with every count set to 0 before and read
+    after; the kernels must run at rows 1-4's shapes (with ``profiling``,
+    one more step under torch.profiler). Returns the launches."""
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.models.model_handle import ModelHandle
+    from p2pfl_tpu_torch.models.moe import MoETransformerLM, moe_lm_apply_with_aux, moe_lm_model
+    from p2pfl_tpu_torch.models.transformer import causal_lm_loss
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.optim import adam, apply_updates
+
+    model = moe_lm_model(seed=0, seq_len=SEQ_LEN, vocab_size=VOCAB, num_layers=LAYERS, num_heads=HEADS,
+                         embed_dim=EMBED, num_experts=MOE_EXPERTS, attention_kind="flash", device="cuda")
+    n_params = sum(p.numel() for p in model.params.values())
+    cap = max(1, int(1.25 * BATCH * SEQ_LEN / MOE_EXPERTS))
+    print(f"[moe] MoETransformerLM flash {LAYERS}L ({LAYERS // 2} routed)/{EMBED}d/{HEADS}h, {MOE_EXPERTS} experts, "
+          f"vocab {VOCAB}: {n_params} params; dispatch [T, X, C] = [{BATCH * SEQ_LEN}, {MOE_EXPERTS}, {cap}] "
+          f"({BATCH * SEQ_LEN * MOE_EXPERTS * cap} elements a routed layer)")
+    # Reference on a small input at f32 compute, where no token's routing can
+    # flip on rounding (in bf16 a token whose top two router probabilities
+    # nearly tie may take another expert under another attention kernel):
+    # the flash model (the f32 kernels) against dense attention.
+    with torch.device("meta"):
+        flash32, dense32 = (MoETransformerLM(VOCAB, LAYERS, HEADS, EMBED, MOE_EXPERTS, attention_kind=kind,
+                                             compute_dtype=torch.float32) for kind in ("flash", "dense"))
+    toks = torch.randint(0, VOCAB, (2, 256), generator=torch.Generator().manual_seed(3)).cuda()
+    with torch.no_grad():
+        got = ModelHandle(model.params, flash32).apply(model.params, toks)
+        ref = ModelHandle(model.params, dense32).apply(model.params, toks)
+    err = float((got - ref).abs().max())
+    print(f"[moe] f32 flash vs dense logits on [2, 256]: max_abs_err={err:.3e} tol 1e-4")
+    check(bool(torch.isfinite(got).all()) and err <= 1e-4, "MoE: flash logits disagree with dense attention")
+
+    (x, _, _), xt = lm_data(13)
+    tokens = torch.from_numpy(x[0, :BATCH]).cuda()
+    test = torch.from_numpy(xt).cuda()
+    apply = moe_lm_apply_with_aux(model.module)
+    opt = adam(LR)
+    params, state, losses, auxes = dict(model.params), opt.init(model.params), [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+
+    def step(params, state):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        logits, aux = apply(leaves, tokens)
+        loss = causal_lm_loss(logits, tokens) + MOE_AUX * aux
+        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        updates, state = opt.update(grads, state, params)
+        return apply_updates(params, updates), state, loss.detach(), aux.detach()
+
+    with ShapeLog() as log:
+        t0 = time.monotonic()
+        for _ in range(MOE_STEPS):
+            params, state, loss, aux = step(params, state)
+            losses.append(loss)
+            auxes.append(aux)
+        torch.cuda.synchronize()
+        step_s = (time.monotonic() - t0) / MOE_STEPS
+        with torch.no_grad():
+            t0 = time.monotonic()
+            eval_loss = causal_lm_loss(model.apply(params, test), test)
+            torch.cuda.synchronize()
+            eval_s = time.monotonic() - t0
+    launches = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    losses, auxes = [float(v) for v in losses], [float(v) for v in auxes]
+    print(f"[moe] {MOE_STEPS} Adam steps at batch {BATCH}: {step_s:.4f} s/step (the first included; host clock "
+          f"ending in torch.cuda.synchronize()); loss + {MOE_AUX} aux per step {losses}, aux {auxes}; eval at "
+          f"batch {EVAL_SEQS}: loss {float(eval_loss):.4f} in {eval_s:.4f} s")
+    print(f"[moe] max_memory_allocated: {peak} bytes ({peak / 2**30:.2f} GiB); kernels {json.dumps(launches)}; "
+          f"q shapes {sorted(log.shapes)}")
+    check(all(np.isfinite(losses)) and np.isfinite(float(eval_loss)), "MoE: non-finite loss")
+    check(losses[-1] < losses[0], "MoE: the loss did not fall over the steps")
+    check(log.shapes <= {(BATCH, SEQ_LEN, HEADS, EMBED // HEADS), (EVAL_SEQS, SEQ_LEN, HEADS, EMBED // HEADS)},
+          f"MoE: kernels ran at shapes {sorted(log.shapes)}, not rows 1-4's")
+    expected = {"flash_fwd": MOE_PER_STEP * MOE_STEPS, "flash_bwd_dq": MOE_PER_STEP * MOE_STEPS,
+                "flash_bwd_dkv": MOE_PER_STEP * MOE_STEPS, "flash_fwd_no_lse": LAYERS, "flash_carry": 0}
+    for name, n in expected.items():
+        check(launches[name] == n, f"MoE: {name} launched {launches[name]} times, expected {n}")
+    if profiling:
+        phase_profile("moe: one train step", lambda: step(params, state))
+    return {name: launches[name] for name in KERNEL_ROWS}
+
+
+def phase_kernels_pipeline() -> dict:
+    """Rows 1-4 at the pipeline's microbatch shape [2, 1024, 8, 64] (bf16,
+    the tensor-core kernels), the eval forward there too, held to phase 2's
+    bars and timed beside aten; returns {"<name>_pp": row}."""
+    import torch
+
+    return narrow_rows("pp-kernels", PP_SUFFIX, EMBED // HEADS, HEADS, BATCH // PP_MICRO, BATCH // PP_MICRO,
+                       SEQ_LEN, (torch.bfloat16,), False, torch.Generator().manual_seed(17))
+
+
+def phase_pipeline() -> dict:
+    """``make_pipelined_transformer_lm`` of the flash LM over ``PP_STAGES``
+    stages of one layer, a batch of ``BATCH`` in ``PP_MICRO`` microbatches:
+    its logits against the unpipelined model's (bf16 bar: 2^-5 of the
+    largest logit), then ``PP_STEPS`` Adam steps through the pipeline, with
+    every count set to 0 before the pipelined runs and read after; the
+    kernels must run at [2, 1024, 8, 64]. Returns the launches under the
+    ``_pp`` rows' names."""
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.models.transformer import causal_lm_loss, transformer_lm_model
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.optim import adam, apply_updates
+    from p2pfl_tpu_torch.parallel.mesh import Mesh
+    from p2pfl_tpu_torch.parallel.pipeline import make_pipelined_transformer_lm
+
+    model = transformer_lm_model(seed=0, vocab_size=VOCAB, num_layers=LAYERS, num_heads=HEADS, embed_dim=EMBED,
+                                 attention_kind="flash", device="cuda")
+    mesh = Mesh({"stage": PP_STAGES}, device="cuda")
+    pp_params, apply_fn = make_pipelined_transformer_lm(model, mesh, PP_MICRO)
+    (x, _, _), _ = lm_data(14)
+    tokens = torch.from_numpy(x[0, :BATCH]).cuda()
+    with torch.no_grad():
+        ref = model.apply(model.params, tokens)
+    micro = (BATCH // PP_MICRO, SEQ_LEN, HEADS, EMBED // HEADS)
+    print(f"[pipeline] TransformerLM flash over {mesh}: {LAYERS // PP_STAGES} layer(s) a stage, batch {BATCH} in "
+          f"{PP_MICRO} microbatches (kernels at {list(micro)})")
+
+    def flat(tree):
+        return {f"{group}/{name}": t for group, leaves in tree.items() for name, t in leaves.items()}
+
+    def nested(leaves):
+        out: dict = {}
+        for key, t in leaves.items():
+            group, name = key.split("/", 1)
+            out.setdefault(group, {})[name] = t
+        return out
+
+    opt = adam(LR)
+    params = flat(pp_params)
+    state = opt.init(params)
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    with ShapeLog() as log:
+        with torch.no_grad():
+            got = apply_fn(pp_params, tokens)
+        t0 = time.monotonic()
+        for _ in range(PP_STEPS):
+            leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+            loss = causal_lm_loss(apply_fn(nested(leaves), tokens), tokens)
+            grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+            updates, state = opt.update(grads, state, params)
+            params = apply_updates(params, updates)
+            losses.append(loss.detach())
+        torch.cuda.synchronize()
+        step_s = (time.monotonic() - t0) / PP_STEPS
+    launches = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    tol = 2.0 ** -5 * float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    losses = [float(v) for v in losses]
+    print(f"[pipeline] pipelined vs unpipelined logits on [{BATCH}, {SEQ_LEN}]: max_abs_err={err:.3e} tol {tol:.3e} "
+          f"(2^-5 of the largest logit)")
+    print(f"[pipeline] {PP_STEPS} Adam steps: {step_s:.4f} s/step (the first included); loss per step {losses}; "
+          f"max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB); kernels {json.dumps(launches)}; "
+          f"q shapes {sorted(log.shapes)}")
+    check(bool(torch.isfinite(got).all()) and err <= tol, "pipeline: the pipelined logits disagree with the model's")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], "pipeline: the loss did not fall over the steps")
+    check(log.shapes == {micro}, f"pipeline: kernels ran at shapes {sorted(log.shapes)}, expected {list(micro)}")
+    expected = {"flash_fwd": PP_PER_PASS * PP_STEPS, "flash_bwd_dq": PP_PER_PASS * PP_STEPS,
+                "flash_bwd_dkv": PP_PER_PASS * PP_STEPS, "flash_fwd_no_lse": PP_PER_PASS, "flash_carry": 0}
+    for name, n in expected.items():
+        check(launches[name] == n, f"pipeline: {name} launched {launches[name]} times, expected {n}")
+    return {name + PP_SUFFIX: launches[name] for name in KERNEL_ROWS}
+
+
+def phase_dryrun() -> None:
+    """``dryrun_multichip(4)`` on the card: every phase prints its OK line."""
+    import contextlib
+    import io
+
+    from p2pfl_tpu_torch.entry import dryrun_multichip
+
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        dryrun_multichip(4)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"[dryrun] {line}")
+    print(f"[dryrun] {time.monotonic() - t0:.1f} s")
+    check(sum(" OK" in line for line in lines) == 5, "dryrun_multichip: not every phase printed its OK line")
+
+
 def phase_profile(label: str, run) -> None:
     """``run()`` (one more round or step) under torch.profiler: device time by
     kernel class, the wall time under the profiler, and the device's busy
@@ -1531,19 +1966,30 @@ def main() -> int:
         rows.update(phase_kernels_narrow())
         rows.update(phase_kernels_classifier())
         rows.update(phase_kernels_c1())
+        rows.update(phase_kernels_d256())
         launches.update(phase_narrow_paths())
+        launches.update(phase_d256_paths())
         parts = mlp_partitions()
         phase_mlp(parts, profiling)
+        phase_cnn(parts)
         launches.update(phase_classifier())
         phase_options(parts)
         fitted, anchor = phase_learner()
         phase_wire(fitted, anchor)
         del fitted, anchor
         gc.collect()
+        phase_topk_ties()
         phase_parity()
         rows.update(phase_kernels_longcontext())
         launches.update(phase_longcontext())
         phase_entry()
+        phase_cifar(profiling)
+        gc.collect()
+        moe_launches = phase_moe(profiling)
+        gc.collect()
+        rows.update(phase_kernels_pipeline())
+        launches.update(phase_pipeline())
+        phase_dryrun()
     except Exception as e:  # noqa: BLE001 - any failed phase fails the run
         import traceback
 
@@ -1551,9 +1997,12 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
     kernels = {**KERNEL_ROWS, **RING_KERNEL_ROWS}
+    # Rows 1-5 at head size 64: launches on the slice (the carry: the ring);
+    # rows 1-4 also carry the MoE LM's launches at the same shapes.
     table = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": launches[name], **rows[name]}
+         "launches": launches[name], **({"launches_moe": moe_launches[name]} if name in moe_launches else {}),
+         **rows[name]}
         for name, (replaces, _, source) in kernels.items()
     ]
     # The narrow rows: bf16 runs the same tensor-core source on padded heads;
@@ -1563,20 +2012,20 @@ def main() -> int:
          "launches": launches[name + narrow_suffix(d)], **rows[name + narrow_suffix(d)], "source_f32": SOURCE_F32}
         for d in NARROW_HEAD_DIMS for name, (replaces, _, source) in kernels.items()
     ]
-    # Head sizes 48 and 128: bf16 at 48 on the padded tensor-core kernels, at
-    # 128 on the CUDA-core <bf16, 128> instance of SOURCE_F32.
+    # Head sizes 48, 128 and 256: bf16 at 48 on the padded tensor-core
+    # kernels, at 128 and 256 on the CUDA-core instances of SOURCE_F32.
     table += [
         {"name": name + narrow_suffix(d), "route": "cuda", "source": source if d <= 64 else SOURCE_F32,
          "replaces": replaces, "launches": launches[name + narrow_suffix(d)], **rows[name + narrow_suffix(d)],
          "source_f32": SOURCE_F32}
-        for d in C1_HEAD_DIMS for name, (replaces, _, source) in kernels.items()
+        for d in (*C1_HEAD_DIMS, *D256_HEAD_DIMS) for name, (replaces, _, source) in kernels.items()
     ]
-    # The classifier's and the longcontext example's shapes: bf16 on padded
-    # heads, as their paths run them.
+    # The classifier's and the longcontext example's shapes (bf16 on padded
+    # heads, as their paths run them) and the pipeline's microbatches.
     table += [
         {"name": name + suffix, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name + suffix], **rows[name + suffix]}
-        for suffix in (CLS_SUFFIX, LC_SUFFIX) for name, (replaces, _, source) in KERNEL_ROWS.items()
+        for suffix in (CLS_SUFFIX, LC_SUFFIX, PP_SUFFIX) for name, (replaces, _, source) in KERNEL_ROWS.items()
     ]
     print(card)
     print(json.dumps({"kernels": table}))

@@ -13,10 +13,10 @@
 // carry fold in flash_fwd_sm90.cu, the backward pair in flash_bwd_sm90.cu,
 // launched from p2pfl_flash_fwd / p2pfl_flash_carry / p2pfl_flash_bwd_dq /
 // p2pfl_flash_bwd_dkv below (ops/_kernels.py zero-pads narrower bf16 heads to
-// 64). bf16 at head size 128 runs the kernels here at <__nv_bfloat16, 128>:
-// bf16 loads, f32 arithmetic, bf16 stores (a tensor-core D = 128 instance
-// would need its own TMA boxes and wgmma shapes); no other bf16 instance of a
-// kernel here is compiled.
+// 64). bf16 at head sizes 128 and 256 runs the kernels here at
+// <__nv_bfloat16, 128 / 256>: bf16 loads, f32 arithmetic, bf16 stores (a
+// tensor-core instance there would need its own TMA boxes and wgmma shapes);
+// no other bf16 instance of a kernel here is compiled.
 //
 // What it computes is what the TPU kernels compute: q is scaled by 1/sqrt(D)
 // in f32, every product and sum is f32, the causal mask writes -0.7 *
@@ -42,10 +42,11 @@
 // 989 TFLOP/s of the bf16 tensor cores (which the *_sm90.cu sources use for
 // bf16). The design keeps the working set on
 // chip so that the f32 rate is the only limit: one 64-row q (or k) tile
-// per block, K/V (or Q/dO) tiles staged in shared memory padded by one
-// column so that the strided row reads are free of bank conflicts, the
-// online-softmax state and a 4 x 4 (rows x columns) register micro-tile per
-// thread, and causal-future tiles skipped. They stay on the CUDA cores
+// per block (32 rows at D = 256, tile_rows below), K/V (or Q/dO) tiles
+// staged in shared memory padded by one column so that the strided row reads
+// are free of bank conflicts, the online-softmax state and a 4 x 4 (rows x
+// columns; 2 x 2 at D = 256) register micro-tile per thread, and
+// causal-future tiles skipped. They stay on the CUDA cores
 // because f32 parity (1e-5) forbids TF32 products.
 //
 // Interface: plain C functions, loaded with ctypes. Each launches on the
@@ -61,13 +62,19 @@
 
 namespace {
 
-constexpr int BQ = 64;  // q rows per tile
-constexpr int BK = 64;  // k rows per tile
 constexpr int TX = 16;  // threads along a tile's columns
 constexpr int TY = 16;  // threads along a tile's rows
 constexpr int NTHREADS = TX * TY;
-constexpr int RI = BQ / TY;  // rows of the micro-tile held by one thread
-constexpr int RJ = BK / TX;  // columns of the micro-tile held by one thread
+
+// Rows of a q (and of a k) tile at head size D: 64 up to D = 128, 32 above,
+// where a 64-row tile's shared memory no longer fits in a block (dk/dv at
+// D = 256 would need 296,960 B against 232,448). Every kernel and launcher
+// below reads its tile through this one compile-time function of D, so the
+// instances up to 128 keep their names and code; each kernel derives
+//   BQ = BK = tile_rows<D>()     q / k rows per tile,
+//   RI = BQ / TY, RJ = BK / TX   rows / columns of a thread's micro-tile.
+template <int D>
+__host__ __device__ constexpr int tile_rows() { return D > 128 ? 32 : 64; }
 constexpr float MASK_VALUE = -0.7f * FLT_MAX;  // ops/attention.py DEFAULT_MASK_VALUE
 
 // The kernels keep their element type T as a parameter: float at every head
@@ -116,6 +123,7 @@ __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int H,
                  float scale, bool causal) {
+  constexpr int BQ = tile_rows<D>(), BK = BQ, RI = BQ / TY, RJ = BK / TX;
   constexpr int DJ = D / TX;  // output columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;                 // [BQ][D + 1], pre-scaled
@@ -217,10 +225,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-// Per-row f32 values (lse, D) of one (b, h) for q rows [q0, q0 + BQ); 0 past Sq.
+// Per-row f32 values (lse, D) of one (b, h) for q rows [q0, q0 + ROWS); 0 past Sq.
+template <int ROWS>
 __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int64_t bh,
                                           int q0, int Sq) {
-  for (int r = threadIdx.x; r < BQ; r += NTHREADS) {
+  for (int r = threadIdx.x; r < ROWS; r += NTHREADS) {
     const int pos = q0 + r;
     dst[r] = pos < Sq ? src[bh * Sq + pos] : 0.f;
   }
@@ -234,6 +243,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Sk, int H,
                     float scale, bool causal) {
+  constexpr int BQ = tile_rows<D>(), BK = BQ, RI = BQ / TY, RJ = BK / TX;
   constexpr int DJ = D / TX;
   extern __shared__ float smem[];
   float* Qs = smem;                  // [BQ][D + 1], pre-scaled
@@ -250,8 +260,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
   load_tile<T, D, BQ>(Qs, q, b, h, q0, Sq, H, scale);
   load_tile<T, D, BQ>(dOs, dout, b, h, q0, Sq, H, 1.f);
-  load_rows(lse_s, lse, blockIdx.y, q0, Sq);
-  load_rows(dd_s, delta, blockIdx.y, q0, Sq);
+  load_rows<BQ>(lse_s, lse, blockIdx.y, q0, Sq);
+  load_rows<BQ>(dd_s, delta, blockIdx.y, q0, Sq);
 
   float acc[RI][DJ];
 #pragma unroll
@@ -342,6 +352,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                      int Sq, int Sk, int H, float scale, bool causal) {
+  constexpr int BQ = tile_rows<D>(), BK = BQ;
   constexpr int DJ = D / TX;
   constexpr int KI = BK / TY;  // k rows per thread
   constexpr int QJ = BQ / TX;  // q columns per thread
@@ -374,8 +385,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     __syncthreads();
     load_tile<T, D, BQ>(Qs, q, b, h, q0, Sq, H, scale);
     load_tile<T, D, BQ>(dOs, dout, b, h, q0, Sq, H, 1.f);
-    load_rows(lse_s, lse, blockIdx.y, q0, Sq);
-    load_rows(dd_s, delta, blockIdx.y, q0, Sq);
+    load_rows<BQ>(lse_s, lse, blockIdx.y, q0, Sq);
+    load_rows<BQ>(dd_s, delta, blockIdx.y, q0, Sq);
     __syncthreads();
 
     float st[KI][QJ], dpt[KI][QJ];
@@ -475,6 +486,7 @@ flash_carry_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
                    const float* __restrict__ acc_in, float* __restrict__ m_out,
                    float* __restrict__ l_out, float* __restrict__ acc_out, int Sq, int Sk, int H,
                    float scale, bool causal, int q_offset, int kv_offset) {
+  constexpr int BQ = tile_rows<D>(), BK = BQ, RI = BQ / TY, RJ = BK / TX;
   constexpr int DJ = D / TX;
   extern __shared__ float smem[];
   float* Qs = smem;                 // [BQ][D + 1], pre-scaled
@@ -588,20 +600,30 @@ flash_carry_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 // Host side: dispatch on element type and head size, size shared memory.
 
 template <int D>
-constexpr size_t fwd_smem() { return sizeof(float) * (BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1)); }
+constexpr size_t fwd_smem() {
+  constexpr int BQ = tile_rows<D>(), BK = BQ;
+  return sizeof(float) * (BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1));
+}
 template <int D>
 constexpr size_t dq_smem() {
+  constexpr int BQ = tile_rows<D>(), BK = BQ;
   return sizeof(float) * (2 * BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1) + 2 * BQ);
 }
 template <int D>
 constexpr size_t dkv_smem() {
+  constexpr int BQ = tile_rows<D>(), BK = BQ;
   return sizeof(float) * (2 * BK * (D + 1) + 2 * BQ * (D + 1) + 2 * BK * (BQ + 1) + 2 * BQ);
 }
+// A block has at most 227 KB (232,448 B) of shared memory on this card.
+static_assert(dkv_smem<128>() == 165888 && fwd_smem<128>() == 115712, "D = 128 tiles changed");
+static_assert(fwd_smem<256>() == 102912 && dq_smem<256>() == 136064 && dkv_smem<256>() == 140288,
+              "D = 256 tiles changed");
+static_assert(dkv_smem<256>() <= 232448, "the D = 256 tiles must fit in a block's shared memory");
 
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                        int Sq, int Sk, int H, float scale, bool causal, cudaStream_t stream) {
-  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  const dim3 grid((Sq + tile_rows<D>() - 1) / tile_rows<D>(), B * H);
   const size_t smem = fwd_smem<D>();
   if (lse != nullptr) {
     auto kern = flash_fwd_kernel<T, D, true>;
@@ -623,7 +645,7 @@ template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* delta, void* dq, int B, int Sq, int Sk, int H,
                       float scale, bool causal, cudaStream_t stream) {
-  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  const dim3 grid((Sq + tile_rows<D>() - 1) / tile_rows<D>(), B * H);
   const size_t smem = dq_smem<D>();
   auto kern = flash_bwd_dq_kernel<T, D>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -637,7 +659,7 @@ template <typename T, int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dk, void* dv, int B, int Sq,
                        int Sk, int H, float scale, bool causal, cudaStream_t stream) {
-  const dim3 grid((Sk + BK - 1) / BK, B * H);
+  const dim3 grid((Sk + tile_rows<D>() - 1) / tile_rows<D>(), B * H);
   const size_t smem = dkv_smem<D>();
   auto kern = flash_bwd_dkv_kernel<T, D>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -653,7 +675,7 @@ cudaError_t launch_carry(const void* q, const void* k, const void* v, const floa
                          const float* l_in, const float* acc_in, float* m_out, float* l_out,
                          float* acc_out, int B, int Sq, int Sk, int H, float scale, bool causal,
                          int q_offset, int kv_offset, cudaStream_t stream) {
-  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  const dim3 grid((Sq + tile_rows<D>() - 1) / tile_rows<D>(), B * H);
   const size_t smem = fwd_smem<D>();
   auto kern = flash_carry_kernel<T, D>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -664,12 +686,13 @@ cudaError_t launch_carry(const void* q, const void* k, const void* v, const floa
 }
 
 // Calls launch(std::integral_constant<int, D>) for the head sizes with an
-// f32 instance: 16, 32, 64 and 128 (DJ = D / TX columns per thread: 1, 2, 4,
-// 8). At D = 128 the dk/dv kernel takes dkv_smem<128>() =
-// 165,888 bytes of shared memory (the forward and carry 115,712), one block
-// per SM. ops/_kernels.py zero-pads any other head size up to 128 to the next
-// instance; bf16 exists at 64 (the tensor-core kernels, narrower heads padded
-// to it) and 128 (the kernels here).
+// f32 instance: 16, 32, 64, 128 and 256 (DJ = D / TX columns per thread: 1,
+// 2, 4, 8, 16). At D = 128 the dk/dv kernel takes dkv_smem<128>() = 165,888
+// bytes of shared memory (the forward and carry 115,712), one block per SM;
+// at D = 256 the 32-row tiles take 102,912 (forward, carry), 136,064 (dq) and
+// 140,288 (dk/dv). ops/_kernels.py zero-pads any other head size up to 256
+// to the next instance; bf16 exists at 64 (the tensor-core kernels, narrower
+// heads padded to it), 128 and 256 (the kernels here).
 template <typename F>
 cudaError_t with_head_dim(int head_dim, F&& launch) {
   switch (head_dim) {
@@ -677,6 +700,17 @@ cudaError_t with_head_dim(int head_dim, F&& launch) {
     case 32: return launch(std::integral_constant<int, 32>{});
     case 64: return launch(std::integral_constant<int, 64>{});
     case 128: return launch(std::integral_constant<int, 128>{});
+    case 256: return launch(std::integral_constant<int, 256>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 head sizes that run the CUDA-core kernels here: 128 and 256.
+template <typename F>
+cudaError_t with_bf16_head_dim(int head_dim, F&& launch) {
+  switch (head_dim) {
+    case 128: return launch(std::integral_constant<int, 128>{});
+    case 256: return launch(std::integral_constant<int, 256>{});
     default: return cudaErrorInvalidValue;
   }
 }
@@ -701,12 +735,12 @@ cudaError_t launch_flash_carry_sm90(const void* q, const void* k, const void* v,
 extern "C" {
 
 // Every entry point returns cudaErrorInvalidValue for a head size without an
-// instance: f32 has 16, 32, 64 and 128, bf16 has 64 (tensor cores) and 128
-// (the CUDA-core kernels above).
+// instance: f32 has 16, 32, 64, 128 and 256, bf16 has 64 (tensor cores), 128
+// and 256 (the CUDA-core kernels above).
 //
 // lse == NULL selects the forward that writes no logsumexp. bf16 at 64 runs
-// the tensor-core kernel of flash_fwd_sm90.cu; f32, and bf16 at 128, the
-// CUDA-core kernel above.
+// the tensor-core kernel of flash_fwd_sm90.cu; f32, and bf16 at 128 and 256,
+// the CUDA-core kernel above.
 int p2pfl_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                     int Sq, int Sk, int H, int head_dim, int dtype, float scale, int causal,
                     void* stream) {
@@ -717,13 +751,15 @@ int p2pfl_flash_fwd(const void* q, const void* k, const void* v, void* o, float*
     }));
   if (dtype == 1 && head_dim == 64)
     return int(p2pfl::launch_flash_fwd_sm90(q, k, v, o, lse, B, Sq, Sk, H, scale, causal != 0, s));
-  if (dtype == 1 && head_dim == 128)
-    return int(launch_fwd<__nv_bfloat16, 128>(q, k, v, o, lse, B, Sq, Sk, H, scale, causal != 0, s));
+  if (dtype == 1)
+    return int(with_bf16_head_dim(head_dim, [&](auto d) {
+      return launch_fwd<__nv_bfloat16, decltype(d)::value>(q, k, v, o, lse, B, Sq, Sk, H, scale, causal != 0, s);
+    }));
   return int(cudaErrorInvalidValue);
 }
 
 // bf16 at 64 runs the tensor-core pair of flash_bwd_sm90.cu; f32, and bf16
-// at 128, the CUDA-core kernels above.
+// at 128 and 256, the CUDA-core kernels above.
 int p2pfl_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dq, int B, int Sq, int Sk,
                        int H, int head_dim, int dtype, float scale, int causal, void* stream) {
@@ -736,8 +772,11 @@ int p2pfl_flash_bwd_dq(const void* q, const void* k, const void* v, const void* 
   if (dtype == 1 && head_dim == 64)
     return int(p2pfl::launch_flash_bwd_dq_sm90(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, scale,
                                                causal != 0, s));
-  if (dtype == 1 && head_dim == 128)
-    return int(launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, scale, causal != 0, s));
+  if (dtype == 1)
+    return int(with_bf16_head_dim(head_dim, [&](auto d) {
+      return launch_dq<__nv_bfloat16, decltype(d)::value>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, scale,
+                                                          causal != 0, s);
+    }));
   return int(cudaErrorInvalidValue);
 }
 
@@ -753,15 +792,17 @@ int p2pfl_flash_bwd_dkv(const void* q, const void* k, const void* v, const void*
   if (dtype == 1 && head_dim == 64)
     return int(p2pfl::launch_flash_bwd_dkv_sm90(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, scale,
                                                 causal != 0, s));
-  if (dtype == 1 && head_dim == 128)
-    return int(launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, scale, causal != 0,
-                                              s));
+  if (dtype == 1)
+    return int(with_bf16_head_dim(head_dim, [&](auto d) {
+      return launch_dkv<__nv_bfloat16, decltype(d)::value>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, scale,
+                                                           causal != 0, s);
+    }));
   return int(cudaErrorInvalidValue);
 }
 
 // m / l: [B, H, Sq] f32; acc: [B, Sq, H, D] f32; *_in and *_out must not
 // overlap. bf16 at 64 runs the tensor-core kernel of flash_fwd_sm90.cu; f32,
-// and bf16 at 128, the CUDA-core kernel above.
+// and bf16 at 128 and 256, the CUDA-core kernel above.
 int p2pfl_flash_carry(const void* q, const void* k, const void* v, const float* m_in,
                       const float* l_in, const float* acc_in, float* m_out, float* l_out,
                       float* acc_out, int B, int Sq, int Sk, int H, int head_dim, int dtype,
@@ -775,9 +816,11 @@ int p2pfl_flash_carry(const void* q, const void* k, const void* v, const float* 
   if (dtype == 1 && head_dim == 64)
     return int(p2pfl::launch_flash_carry_sm90(q, k, v, m_in, l_in, acc_in, m_out, l_out, acc_out, B, Sq, Sk, H,
                                               scale, causal != 0, q_offset, kv_offset, s));
-  if (dtype == 1 && head_dim == 128)
-    return int(launch_carry<__nv_bfloat16, 128>(q, k, v, m_in, l_in, acc_in, m_out, l_out, acc_out, B, Sq, Sk, H,
-                                                scale, causal != 0, q_offset, kv_offset, s));
+  if (dtype == 1)
+    return int(with_bf16_head_dim(head_dim, [&](auto d) {
+      return launch_carry<__nv_bfloat16, decltype(d)::value>(q, k, v, m_in, l_in, acc_in, m_out, l_out, acc_out, B,
+                                                             Sq, Sk, H, scale, causal != 0, q_offset, kv_offset, s);
+    }));
   return int(cudaErrorInvalidValue);
 }
 

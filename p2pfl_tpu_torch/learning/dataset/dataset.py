@@ -204,3 +204,31 @@ def synthetic_mnist(
     x_train, y_train = make(n_train, np.random.default_rng(seed + 1))
     x_test, y_test = make(n_test, np.random.default_rng(seed + 2))
     return FederatedDataset.from_arrays(x_train, y_train, x_test, y_test)
+
+
+def synthetic_cifar10(
+    n_train: int = 8192,
+    n_test: int = 1024,
+    num_classes: int = 10,
+    image_size: int = 32,
+    seed: int = 42,
+    noise: float = 0.25,
+) -> FederatedDataset:
+    """Deterministic CIFAR-shaped dataset ``[N, H, W, 3]`` a convnet can
+    learn: a fixed low-frequency color template per class (a random 4 x 4
+    grid upsampled to ``image_size``) plus gaussian noise, clipped to [0, 1].
+    The same arrays as the JAX package's ``synthetic_cifar10`` for the same
+    arguments."""
+    rng = np.random.default_rng(seed)
+    coarse = rng.uniform(0.0, 1.0, size=(num_classes, 4, 4, 3)).astype(np.float32)
+    reps = -(-image_size // 4)
+    templates = np.repeat(np.repeat(coarse, reps, axis=1), reps, axis=2)[:, :image_size, :image_size, :]
+
+    def make(n: int, rng: np.random.Generator) -> Tuple[np.ndarray, np.ndarray]:
+        y = rng.integers(0, num_classes, size=n).astype(np.int32)
+        x = templates[y] + rng.normal(0.0, noise, size=(n, image_size, image_size, 3)).astype(np.float32)
+        return np.clip(x, 0.0, 1.0), y
+
+    x_train, y_train = make(n_train, np.random.default_rng(seed + 1))
+    x_test, y_test = make(n_test, np.random.default_rng(seed + 2))
+    return FederatedDataset.from_arrays(x_train, y_train, x_test, y_test)

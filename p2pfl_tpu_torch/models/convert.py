@@ -2,18 +2,29 @@
 
 flax keeps parameters as a nested dict (``{"params": {"block0": {"attn":
 {"qkv": {"kernel": ...}}}}}``); the port keeps a flat dict under the torch
-module's names (``"blocks.0.attn.qkv.weight"``). A Dense ``kernel`` is
-``[in, out]`` and becomes ``Linear.weight`` ``[out, in]``; LayerNorm
-``scale`` and Embed ``embedding`` become ``weight``. Every function also
-takes stacked leaves (a leading node axis), as a population or its optimizer
-state holds them. Inputs are anything numpy can read (numpy or JAX arrays);
-outputs are torch tensors or numpy arrays. This module imports no JAX.
+module's names (``"blocks.0.attn.qkv.weight"``). Each leaf has a layout:
+
+- a Dense ``kernel`` is ``[in, out]`` and becomes ``Linear.weight`` ``[out,
+  in]`` (the last two axes swapped);
+- a ``Conv`` kernel (a module named ``Conv_<n>``) is HWIO ``[kh, kw, in,
+  out]`` and becomes ``Conv2d.weight`` OIHW ``[out, in, kh, kw]``;
+- LayerNorm and GroupNorm ``scale`` and Embed ``embedding`` become
+  ``weight``, unchanged;
+- ``bias`` and the MoE's stacked expert kernels ``wi [X, E, M]`` / ``wo
+  [X, M, E]`` keep their names and layout.
+
+The JAX package's canonical leaves (:func:`to_canonical`) keep flax's
+layouts, so frames and hashes agree across the two packages. Every function
+also takes stacked leaves (a leading node axis), as a population or its
+optimizer state holds them. Inputs are anything numpy can read (numpy or
+JAX arrays); outputs are torch tensors or numpy arrays. This module imports
+no JAX.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Iterable, List, Mapping, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +35,7 @@ from p2pfl_tpu_torch.optim import AdamState
 Params = Dict[str, torch.Tensor]
 
 _BLOCK = re.compile(r"^block(\d+)$")
+_KEPT_LEAVES = ("bias", "wi", "wo")  # names and layouts the port shares with flax
 
 
 def _flatten(tree: Mapping, prefix: tuple = ()) -> Dict[tuple, Any]:
@@ -36,15 +48,35 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> Dict[tuple, Any]:
     return out
 
 
-def _torch_name(path: tuple) -> tuple[str, bool]:
-    """flax path -> (torch name, whether the leaf is a Dense kernel)."""
+def _kernel_kind(module: str) -> str:
+    return "conv" if module.startswith("Conv") else "dense"
+
+
+def _to_torch_axes(ndim: int, kind: Optional[str]) -> Optional[Tuple[int, ...]]:
+    """The permutation taking a flax leaf of layout ``kind`` to the port's
+    (``None``: the same layout); leading axes (a node stack) stay put."""
+    if kind == "dense":
+        return (*range(ndim - 2), ndim - 1, ndim - 2)
+    if kind == "conv":  # [.., H, W, I, O] -> [.., O, I, H, W]
+        return (*range(ndim - 4), ndim - 1, ndim - 2, ndim - 4, ndim - 3)
+    return None
+
+
+def _to_flax_axes(ndim: int, kind: Optional[str]) -> Optional[Tuple[int, ...]]:
+    """Inverse of :func:`_to_torch_axes`."""
+    axes = _to_torch_axes(ndim, kind)
+    return None if axes is None else tuple(int(i) for i in np.argsort(axes))
+
+
+def _torch_name(path: tuple) -> tuple[str, Optional[str]]:
+    """flax path -> (torch name, the leaf's kernel layout: "dense", "conv" or None)."""
     parts = [f"blocks.{m.group(1)}" if (m := _BLOCK.match(p)) else p for p in path]
     leaf = parts[-1]
     if leaf in ("kernel", "scale", "embedding"):
         parts[-1] = "weight"
-    elif leaf != "bias":
+    elif leaf not in _KEPT_LEAVES:
         raise ValueError(f"unexpected flax leaf {'/'.join(path)}")
-    return ".".join(parts), leaf == "kernel"
+    return ".".join(parts), (_kernel_kind(path[-2]) if leaf == "kernel" else None)
 
 
 def flax_to_torch(flax_params: Mapping, device: DeviceLike = "cuda") -> Params:
@@ -53,18 +85,19 @@ def flax_to_torch(flax_params: Mapping, device: DeviceLike = "cuda") -> Params:
     tree = flax_params["params"] if "params" in flax_params else flax_params
     out = {}
     for path, leaf in _flatten(tree).items():
-        name, is_kernel = _torch_name(path)
+        name, kind = _torch_name(path)
         arr = np.asarray(leaf, dtype=np.float32)
-        if is_kernel:
-            arr = np.swapaxes(arr, -1, -2)
-        out[name] = torch.tensor(arr, dtype=torch.float32, device=dev)
+        axes = _to_torch_axes(arr.ndim, kind)
+        if axes is not None:
+            arr = np.transpose(arr, axes)
+        out[name] = torch.tensor(np.ascontiguousarray(arr), dtype=torch.float32, device=dev)
     return out
 
 
-def flax_path(name: str) -> Tuple[Tuple[str, ...], bool]:
-    """Port parameter name -> (its flax path, whether the leaf is a Dense
-    kernel): ``"blocks.0.attn.qkv.weight"`` -> ``(("block0", "attn", "qkv",
-    "kernel"), True)``."""
+def flax_path(name: str) -> Tuple[Tuple[str, ...], Optional[str]]:
+    """Port parameter name -> (its flax path, the leaf's kernel layout:
+    ``"dense"``, ``"conv"`` or ``None``): ``"blocks.0.attn.qkv.weight"`` ->
+    ``(("block0", "attn", "qkv", "kernel"), "dense")``."""
     parts = name.split(".")
     path = []
     i = 0
@@ -79,11 +112,18 @@ def flax_path(name: str) -> Tuple[Tuple[str, ...], bool]:
     if leaf == "weight":
         if module == "embed":
             leaf = "embedding"
-        elif module.startswith("ln"):
+        elif module.startswith(("ln", "GroupNorm")):
             leaf = "scale"
         else:
-            return (*path, "kernel"), True
-    return (*path, leaf), False
+            return (*path, "kernel"), _kernel_kind(module)
+    return (*path, leaf), None
+
+
+def canonical_shape(name: str, shape: Sequence[int]) -> Tuple[int, ...]:
+    """The shape parameter ``name`` of the port's ``shape`` has among the
+    canonical leaves (flax's layout)."""
+    axes = _to_flax_axes(len(shape), flax_path(name)[1])
+    return tuple(shape) if axes is None else tuple(shape[i] for i in axes)
 
 
 def canonical_names(names: Iterable[str]) -> List[str]:
@@ -95,11 +135,12 @@ def canonical_names(names: Iterable[str]) -> List[str]:
 def to_canonical(params: Mapping[str, torch.Tensor]) -> List[torch.Tensor]:
     """Port params -> the JAX package's canonical leaves (its
     ``ModelHandle.get_parameters()`` order and layout: Dense kernels ``[in,
-    out]``), as contiguous tensors on the params' device."""
+    out]``, Conv kernels HWIO), as contiguous tensors on the params' device."""
     out = []
     for name in canonical_names(params):
         t = params[name]
-        out.append(t.transpose(-1, -2).contiguous() if flax_path(name)[1] else t.contiguous())
+        axes = _to_flax_axes(t.dim(), flax_path(name)[1])
+        out.append((t if axes is None else t.permute(axes)).contiguous())
     return out
 
 
@@ -109,10 +150,11 @@ def from_canonical(names: Iterable[str], leaves: Sequence[torch.Tensor]) -> Para
     order = canonical_names(names)
     if len(order) != len(leaves):
         raise ValueError(f"expected {len(order)} leaves, got {len(leaves)}")
-    return {
-        name: (t.transpose(-1, -2).contiguous() if flax_path(name)[1] else t)
-        for name, t in zip(order, leaves)
-    }
+    out = {}
+    for name, t in zip(order, leaves):
+        axes = _to_torch_axes(t.dim(), flax_path(name)[1])
+        out[name] = t if axes is None else t.permute(axes).contiguous()
+    return out
 
 
 def torch_to_flax(params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
@@ -120,10 +162,11 @@ def torch_to_flax(params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     :func:`flax_to_torch`), under a top ``"params"`` key."""
     root: Dict[str, Any] = {}
     for name, t in params.items():
-        path, is_kernel = flax_path(name)
+        path, kind = flax_path(name)
         arr = t.detach().float().cpu().numpy()
-        if is_kernel:
-            arr = np.swapaxes(arr, -1, -2)
+        axes = _to_flax_axes(arr.ndim, kind)
+        if axes is not None:
+            arr = np.transpose(arr, axes)
         node = root
         for p in path[:-1]:
             node = node.setdefault(p, {})

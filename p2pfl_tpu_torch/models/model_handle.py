@@ -5,7 +5,7 @@ Parameters live as a flat ``{name: tensor}`` dict under the torch module's
 names (``params``), on the device the model runs on. What a handle puts on
 the wire, hashes and exchanges with aggregators is the JAX package's
 **canonical** leaf list: flax's names in ``jax.tree.leaves`` order (nested
-dict keys sorted) and Dense kernels ``[in, out]``
+dict keys sorted), Dense kernels ``[in, out]`` and Conv kernels HWIO
 (:func:`p2pfl_tpu_torch.models.convert.to_canonical`). So a port node's PFLT
 frame decodes in a reference node to that model's leaves, and the other way
 round, and :func:`~p2pfl_tpu_torch.telemetry.ledger.canonical_params_hash`
@@ -181,14 +181,11 @@ class ModelHandle:
         self.params = from_canonical(names, cast)
 
     def _canonical_shapes(self) -> List[tuple]:
-        """Shapes of the canonical leaves (Dense kernels ``[in, out]``)."""
-        from p2pfl_tpu_torch.models.convert import canonical_names, flax_path
+        """Shapes of the canonical leaves (Dense kernels ``[in, out]``, Conv
+        kernels HWIO)."""
+        from p2pfl_tpu_torch.models.convert import canonical_names, canonical_shape
 
-        shapes = []
-        for n in canonical_names(self.params):
-            shape = tuple(self.params[n].shape)
-            shapes.append(shape[:-2] + (shape[-1], shape[-2]) if flax_path(n)[1] else shape)
-        return shapes
+        return [canonical_shape(n, self.params[n].shape) for n in canonical_names(self.params)]
 
     def _apply_meta(self, meta: Dict[str, Any]) -> None:
         self.contributors = list(meta.get("contributors", self.contributors))

@@ -20,6 +20,7 @@ with eps 1e-6; GELU is the tanh approximation; logits come out f32.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -158,11 +159,19 @@ class TransformerLM(nn.Module):
         self.ln_f = nn.LayerNorm(embed_dim, eps=LN_EPS)
         self.lm_head = nn.Linear(embed_dim, vocab_size, bias=False)
 
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Tokens ``[B, S]`` -> the residual stream ``[B, S, E]`` in ``compute_dtype``."""
+        return self.embed.weight.to(self.compute_dtype)[tokens.long()]
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """The residual stream -> f32 logits: ``ln_f`` (f32), then ``lm_head``."""
+        return _linear(_layer_norm(x, self.ln_f), self.lm_head, self.compute_dtype).float()
+
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embed.weight.to(self.compute_dtype)[tokens.long()]
+        x = self.embed_tokens(tokens)
         for block in self.blocks:
             x = block(x)
-        return _linear(_layer_norm(x, self.ln_f), self.lm_head, self.compute_dtype).float()
+        return self.head(x)
 
 
 class TransformerClassifier(nn.Module):
@@ -216,23 +225,28 @@ def causal_lm_loss(
 
 def init_params(module: nn.Module, seed: int, device: DeviceLike = "cuda") -> dict:
     """Random f32 parameters for ``module`` from ``seed``, following flax's
-    default initializers: Dense kernels lecun-normal (truncated normal,
-    variance 1/fan_in), biases 0, LayerNorm scale 1, embeddings normal with
-    variance 1/vocab. Drawn on the CPU from one generator, so the same seed
-    gives the same weights on every machine, then moved to ``device``."""
+    default initializers: Dense and Conv kernels lecun-normal (truncated
+    normal, variance 1/fan_in; fan_in is ``in * kh * kw`` for an OIHW conv
+    kernel and, as flax counts it, ``experts * in`` for the MoE's stacked
+    ``wi`` / ``wo``), biases 0, LayerNorm and GroupNorm scales 1, embeddings
+    normal with variance 1/vocab. Drawn on the CPU from one generator, so the
+    same seed gives the same weights on every machine, then moved to
+    ``device``."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     params = {}
     for name, p in module.named_parameters():
         t = torch.empty(p.shape, dtype=torch.float32)
+        leaf = name.rsplit(".", 1)[-1]
         if name.endswith("embed.weight"):
             t.normal_(0.0, p.shape[0] ** -0.5, generator=gen)
-        elif ".ln" in name or name.startswith("ln"):
+        elif ".ln" in name or name.startswith("ln") or "GroupNorm" in name:
             t.fill_(1.0 if name.endswith("weight") else 0.0)
         elif name.endswith("bias"):
             t.zero_()
-        else:  # [out, in] kernel
-            std = (1.0 / p.shape[1]) ** 0.5 / 0.87962566103423978
+        else:  # [out, in] or [out, in, kh, kw] kernel; [X, in, out] stacked experts
+            fan_in = p.shape[0] * p.shape[1] if leaf in ("wi", "wo") else math.prod(p.shape[1:])
+            std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
             nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=gen)
         params[name] = t.to(dev)
     return params

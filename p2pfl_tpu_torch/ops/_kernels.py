@@ -12,18 +12,19 @@ contiguity, allocates its outputs with ``torch.empty``, launches on the
 current stream, raises if the launch reports an error, and adds one to its
 entry in :data:`LAUNCHES`.
 
-Head sizes: any D up to 128. The f32 kernels have instances at 16, 32, 64
-and 128; bf16 runs the tensor-core kernels at 64 and CUDA-core instances at
-128. A call at another D copies q, k, v (dO; the carry's acc) into zeroed
-``[B, S, H, D']`` buffers, D' the next instance (bf16: 64 for D <= 64, else
-128), launches that instance with the true scale ``1/sqrt(D)`` and slices
-the outputs back to D. That is exact: zero columns add exact zeros to
-``Q.K^T`` and ``dO.V^T``, leave ``delta`` (computed by the caller at D) as
-it is, and come out as exact zeros in O, acc, dQ, dK and dV. It is the
-kernel all the same, never the plain version, and it counts in
-:data:`LAUNCHES`; native instances would save the padding's copies. A head
-size above 128 raises ``ValueError``. The plain versions and the choice between them
-and these kernels live in :mod:`p2pfl_tpu_torch.ops.attention`.
+Head sizes: any D up to 256. The f32 kernels have instances at 16, 32, 64,
+128 and 256; bf16 runs the tensor-core kernels at 64 and CUDA-core instances
+at 128 and 256. A call at another D copies q, k, v (dO; the carry's acc)
+into zeroed ``[B, S, H, D']`` buffers, D' the next instance (bf16: 64 for
+D <= 64, 128 up to 128, else 256), launches that instance with the true
+scale ``1/sqrt(D)`` and slices the outputs back to D. That is exact: zero
+columns add exact zeros to ``Q.K^T`` and ``dO.V^T``, leave ``delta``
+(computed by the caller at D) as it is, and come out as exact zeros in O,
+acc, dQ, dK and dV. It is the kernel all the same, never the plain version,
+and it counts in :data:`LAUNCHES`; native instances would save the
+padding's copies. A head size above 256 raises ``ValueError``. The plain
+versions and the choice between them and these kernels live in
+:mod:`p2pfl_tpu_torch.ops.attention`.
 """
 
 from __future__ import annotations
@@ -53,8 +54,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-HEAD_DIMS = (16, 32, 64, 128)  # the f32 instances of csrc/flash_attn.cu; other D <= 128 pad to the next
-BF16_HEAD_DIMS = (64, 128)  # bf16: the tensor-core kernels at 64, the CUDA-core instances at 128
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the f32 instances of csrc/flash_attn.cu; other D <= 256 pad to the next
+BF16_HEAD_DIMS = (64, 128, 256)  # bf16: the tensor-core kernels at 64, the CUDA-core instances at 128 and 256
 SM90_HEAD_DIM = 64  # the bf16 tensor-core instances
 MAX_HEAD_DIM = HEAD_DIMS[-1]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -236,7 +237,7 @@ def flash_fwd(
 
     bf16 up to D = 64 runs the tensor-core kernel, whose TMA loads and stores
     need every tensor 16-byte aligned; f32, and bf16 above 64, run the
-    CUDA-core kernel."""
+    CUDA-core kernels."""
     _check_qkv("flash_fwd", q, k, v)
     lib = _load()
     b, sq, h, d = q.shape

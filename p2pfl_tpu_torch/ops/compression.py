@@ -73,9 +73,21 @@ def _is_float(a: Array) -> bool:
 
 
 def _select(acc: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices (sorted ascending) of the ``k`` largest-|value| elements."""
-    idx = torch.topk(acc.abs(), k, sorted=False).indices
-    return torch.sort(idx).values
+    """Indices (sorted ascending) of the ``k`` largest-|value| elements.
+
+    Among equal magnitudes the lower index wins, as ``jax.lax.top_k`` breaks
+    ties (``torch.topk`` keeps an arbitrary subset): every index above the
+    k-th largest magnitude ``t`` is kept, then the lowest indices equal to
+    ``t`` fill the rest. The kept indices are scattered to their ranks, so
+    nothing waits on the device."""
+    mag = acc.abs()
+    t = torch.topk(mag, k, sorted=False).values.min()
+    above, tied = mag > t, mag == t
+    keep = above | (tied & (torch.cumsum(tied, 0) <= k - above.sum()))
+    slot = torch.where(keep, torch.cumsum(keep, 0) - 1, k)  # rank among the kept; k: discarded
+    out = torch.empty(k + 1, dtype=torch.long, device=acc.device)
+    out.scatter_(0, slot, torch.arange(acc.numel(), device=acc.device))
+    return out[:k]
 
 
 def topk_select(flat: Array, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

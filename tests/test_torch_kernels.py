@@ -56,12 +56,12 @@ def test_ring_flash_on_cpu_tensors_launches_nothing():
 
 
 def test_carry_wrapper_refuses_cpu_tensors_and_other_head_sizes():
-    for d in (160, 256):  # above the largest instance (128)
+    for d in (257, 512):  # above the largest instance (256)
         q, k, v, _ = _qkv(9, (1, 64, 2, d))
         carry = port.init_carry(q.shape, "cpu")
         with pytest.raises(ValueError, match="head_dim"):
             _kernels.flash_carry(carry, q, k, v, 0, 0, True)
-    for d in (8, 16, 32, 48, 64, 100, 128):  # the head sizes the kernels take (padded); still card only
+    for d in (8, 16, 32, 48, 64, 100, 128, 160, 256):  # the head sizes the kernels take (padded); still card only
         q, k, v, _ = _qkv(9, (1, 64, 2, d))
         with pytest.raises(ValueError, match="CUDA"):
             _kernels.flash_carry(port.init_carry(q.shape, "cpu"), q, k, v, 0, 0, True)
@@ -381,7 +381,7 @@ def test_kernel_autograd_matches_dense_on_card_bf16(cuda_device):
 
 @pytest.mark.cuda
 def test_kernel_wrappers_reject_what_the_kernel_does_not_take(cuda_device):
-    q, k, v, _ = _qkv(2, (1, 64, 2, 160), torch.float32, cuda_device)
+    q, k, v, _ = _qkv(2, (1, 64, 2, 257), torch.float32, cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
         _kernels.flash_fwd(q, k, v, True, True)
     q, k, v, _ = _qkv(2, (1, 64, 2, 64), torch.float16, cuda_device)
@@ -603,17 +603,18 @@ def test_ring_flash_autograd_matches_dense_on_card_bf16(cuda_device):
         torch.testing.assert_close(a.float(), b, atol=5e-2, rtol=0)
 
 
-# --- head sizes 16, 32, 48 and 128 -----------------------------------------------
-# f32 runs instances of the CUDA-core kernels at 16, 32 and 128 (48 is
-# zero-padded to 64); bf16 zero-pads q, k, v, dO (and the carry's acc) to 64
-# for the tensor-core kernels (16, 32, 48) and runs the CUDA-core instance at
-# 128, slicing the outputs back. Both are held to the D = 64 bars above.
+# --- head sizes 16, 32, 48, 128, 160 and 256 ---------------------------------------
+# f32 runs instances of the CUDA-core kernels at 16, 32, 128 and 256 (48 is
+# zero-padded to 64, 160 to 256); bf16 zero-pads q, k, v, dO (and the carry's
+# acc) to 64 for the tensor-core kernels (16, 32, 48) and runs the CUDA-core
+# instances at 128 and 256 (160 padded to 256), slicing the outputs back. All
+# are held to the D = 64 bars above.
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("s", [1024, 129])
-@pytest.mark.parametrize("d", [16, 32, 48, 128])
+@pytest.mark.parametrize("d", [16, 32, 48, 128, 160, 256])
 def test_narrow_head_kernels_match_plain_versions_on_card(cuda_device, d, s, dtype):
     q, k, v, g = _qkv(20 + d, (4, s, 4, d), dtype, cuda_device)
     bf16 = dtype == torch.bfloat16
@@ -644,7 +645,7 @@ def test_narrow_head_kernels_match_plain_versions_on_card(cuda_device, d, s, dty
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("d", [16, 32, 48, 128])
+@pytest.mark.parametrize("d", [16, 32, 48, 128, 160, 256])
 def test_narrow_head_autograd_matches_dense_on_card(cuda_device, d, dtype):
     """flash_attention through the kernels against autograd through dense
     attention in f32: f32 at 1e-5 / 1e-4, bf16 at 5e-2 (a random
@@ -667,7 +668,7 @@ def test_narrow_head_autograd_matches_dense_on_card(cuda_device, d, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("s", [1024, 129])
-@pytest.mark.parametrize("d", [16, 32, 48, 128])
+@pytest.mark.parametrize("d", [16, 32, 48, 128, 160, 256])
 def test_narrow_head_carry_matches_plain_version_on_card(cuda_device, d, s, dtype):
     """The diagonal fold of shard 7 into a fresh carry, a past fold into it
     and a future fold (the carry back bit-identical), at [2, S, 4, D]."""
@@ -690,7 +691,7 @@ def test_narrow_head_carry_matches_plain_version_on_card(cuda_device, d, s, dtyp
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("d", [257, 512])
 def test_other_head_sizes_are_refused_on_card(cuda_device, d, dtype):
     q, k, v, g = _qkv(2, (1, 64, 2, d), dtype, cuda_device)
     rows = torch.zeros(1, 2, 64, device=cuda_device)
@@ -734,6 +735,37 @@ def test_topk_encoders_conserve_error_feedback_on_card(cuda_device, values):
         assert torch.equal(res.index_add(0, idx, deq), acc)
         assert torch.equal(res[idx], acc[idx] - deq)
         out[dev.type] = [t.cpu() for t in (idx, wire, res)]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["grid", "zeros"])
+@pytest.mark.parametrize("values", ["select", "bf16", "int8", "int4"])
+def test_topk_encoders_break_ties_alike_on_card(cuda_device, values, case):
+    """Magnitudes tied at the k-th place (a {-2, -1, 1, 2} grid; or 300
+    nonzeros among 4096, so zeros cross the k-th place): the card keeps the
+    same lowest-index members as the CPU, with the same values, scales and
+    residuals."""
+    from p2pfl_tpu_torch.ops import compression as comp
+
+    rng = np.random.default_rng(8)
+    delta = rng.choice(np.array([-2.0, -1.0, 1.0, 2.0], np.float32), 4096)
+    residual = (0.25 * rng.choice(np.array([-1.0, 0.0, 1.0], np.float32), 4096)).astype(np.float32)
+    if case == "zeros":
+        delta[rng.permutation(4096)[300:]] = 0.0
+        residual[:] = 0.0
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        d, r = torch.from_numpy(delta).to(dev), torch.from_numpy(residual).to(dev)
+        if values == "select":
+            got = comp.topk_select(d + r, 409)
+        elif values == "bf16":
+            got = comp.ef_topk_encode(d, r, 409, values)
+        else:
+            idx, q, scale, res = comp.ef_topk_quant_encode(d, r, 409, 8 if values == "int8" else 4)
+            got = (idx, q, torch.tensor(scale), res)
+        out[dev.type] = [t.cpu() for t in got]
     for a, b in zip(out["cuda"], out["cpu"]):
         assert torch.equal(a, b)
 

@@ -146,6 +146,48 @@ def test_ef_topk_quant_encode_equals_jax(bits):
     assert torch.equal(res.index_add(0, idx, deq), acc)  # the EF conservation contract
 
 
+def tied_inputs(case, size=4096, seed=8):
+    """Inputs whose magnitudes tie at the k-th place (k = 409): ``grid`` draws
+    delta from {-2, -1, 1, 2} and the residual from 0.25 * {-1, 0, 1}, so
+    acc sits on a 0.25 grid; ``zeros`` leaves 300 of delta's values nonzero,
+    so a block of zeros crosses the k-th place."""
+    rng = np.random.default_rng(seed)
+    delta = rng.choice(np.array([-2.0, -1.0, 1.0, 2.0], np.float32), size)
+    residual = (0.25 * rng.choice(np.array([-1.0, 0.0, 1.0], np.float32), size)).astype(np.float32)
+    if case == "zeros":
+        delta[rng.permutation(size)[300:]] = 0.0
+        residual[:] = 0.0
+    return delta.astype(np.float32), residual
+
+
+@pytest.mark.parametrize("case", ["grid", "zeros"])
+@pytest.mark.parametrize("encoder", ["select", "bf16", "float32", "int8", "int4"])
+def test_topk_encoders_break_ties_as_jax(encoder, case):
+    """Among equal magnitudes the lower index is kept, as ``lax.top_k`` does:
+    indices, values, scales and residuals equal the JAX package's element
+    for element."""
+    delta, residual = tied_inputs(case)
+    k = 409
+    acc = delta + residual
+    if encoder == "select":
+        got = comp.topk_select(torch.from_numpy(acc), k)
+        ref = jax_comp.topk_select(acc, k)
+    elif encoder in ("bf16", "float32"):
+        got = comp.ef_topk_encode(torch.from_numpy(delta), torch.from_numpy(residual), k, encoder)
+        ref = jax_comp.ef_topk_encode(delta, residual, k, encoder)
+    else:
+        bits = 8 if encoder == "int8" else 4
+        idx, q, scale, res = comp.ef_topk_quant_encode(torch.from_numpy(delta), torch.from_numpy(residual), k, bits)
+        r_idx, r_q, r_scale, r_res = jax_comp.ef_topk_quant_encode(delta, residual, k, bits)
+        got, ref = (idx, q, res), (r_idx, r_q, r_res)
+        assert scale == r_scale
+    # The boundary really ties: more entries share the k-th magnitude than are kept.
+    kth = np.sort(np.abs(acc))[::-1][k - 1]
+    assert (np.abs(acc) == kth).sum() > (np.abs(acc)[np.asarray(ref[0])] == kth).sum()
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(_as_np(a), np.asarray(b).astype(_as_np(a).dtype))
+
+
 @pytest.mark.parametrize("scheme", ["bf16", "int8", "topk"])
 def test_compress_arrays_round_trips_across_frameworks(scheme):
     arrays = [_tie_free(640, 8).reshape(64, 10), np.arange(5, dtype=np.int32)]
