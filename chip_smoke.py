@@ -7,11 +7,12 @@ Phases, each on its own printed lines:
 
 1. env: the card (``nvidia-smi``), torch / CUDA / nvcc versions, and the
    kernels' build from ``p2pfl_tpu_torch/csrc`` (time and ptxas report:
-   registers and spills of each kernel; the tensor-core forward, backward
-   and carry kernels must not spill, and the only bf16 instances of the
-   CUDA-core kernels are D = 128's and 256's), and the count of ``HGMMA`` (wgmma)
-   instructions in each tensor-core kernel from ``cuobjdump -sass`` (each
-   must have some).
+   registers and spills of each kernel; the tensor-core forward (D = 64,
+   and the wide one at D = 128 and 256), backward and carry kernels must not
+   spill, and the only bf16 instances of the CUDA-core kernels are the
+   backward pair's and the carry's at D = 128, 256 and 512 and the
+   forward's at 512), and the count of ``HGMMA`` (wgmma) instructions in each
+   tensor-core kernel from ``cuobjdump -sass`` (each must have some).
 2. kernels: each Hopper kernel against its plain PyTorch version on the
    card at the main paths' shapes (bf16 [8, 1024, 8, 64] causal; the eval
    forward at [16, 1024, 8, 64], and at the learner's [8, 1024, 8, 64]) plus a ragged S=1000, a non-causal, causal
@@ -96,9 +97,11 @@ Phases, each on its own printed lines:
 
 10. c1: rows 1-5 at head sizes 48 ([8, 1024, 8, 48]: bf16 padded to the
    64 tensor-core kernels, f32 to the 64 instance) and 128 ([8, 1024, 4,
-   128]: the CUDA-core <f32, 128> and <bf16, 128> instances), held to the
-   bars of phases 2 and 5 and timed beside aten; phase 6 also runs the LM
-   and the ring at width 384 over 8 heads and at 4 heads (D = 48 / 128).
+   128]: the bf16 forward on the wide tensor-core kernel, the bf16 backward
+   pair and carry and every f32 row on the CUDA-core <bf16 / f32, 128>
+   instances), held to the bars of phases 2 and 5 and timed beside aten;
+   phase 6 also runs the LM and the ring at width 384 over 8 heads and at 4
+   heads (D = 48 / 128).
 11. learner: ``TorchLearner`` fits one node of phase 3's LM (64 sequences,
    batch 8: one epoch of 8 steps) and evaluates it: exactly 32 launches of
    rows 1, 3 and 4 per fit and 4 of row 2 per test batch, s/fit, s/step,
@@ -127,10 +130,15 @@ Phases, each on its own printed lines:
    the largest logit.
 
 16. d256: rows 1-5 at head size 256 ([8, 1024, 2, 256], the eval forward
-   at [16, 1024, 2, 256], one ring chunk [2, 1024, 2, 256]) on the
-   CUDA-core <bf16, 256> and <f32, 256> instances (32-row tiles), held to
-   the bars of phases 2 and 5 and timed beside aten; phase 6's paths also run
-   the LM and the ring at width 512 over 2 heads.
+   at [16, 1024, 2, 256], one ring chunk [2, 1024, 2, 256]; the bf16 forward
+   on the wide tensor-core kernel, the rest on the CUDA-core <bf16, 256> and
+   <f32, 256> instances, 32-row tiles), held to the bars of phases 2 and 5
+   and timed beside aten; then d512: rows 1-5 the same way at head size 512
+   ([8, 1024, 1, 512], eval [16, 1024, 1, 512], ring chunk [2, 1024, 1,
+   512]; the CUDA-core <bf16 / f32, 512> instances, 16-row tiles; aten's
+   flash attention stops at 256, so the library times there are its
+   memory-efficient attention's). Then the LM and the ring at width 512 over
+   2 heads and over 1 head (D = 256 / 512), exact launch counts.
 17. cnn: ``cnn_model`` in phase 7's round (its data, committee 4, batch 64)
    for 10 rounds after a warm-up round: loss falling, final accuracy > 0.5;
    then held on the card against the CPU as phase 7 holds the MLP.
@@ -167,7 +175,8 @@ Any failed check exits 1 without the result lines. On success the last
 three lines are the card's name and power limit, one JSON object with a row
 per kernel (rows 1-5 at head size 64, then ``<name>_d32`` and
 ``<name>_d16``: bf16 times, with the f32 instance's beside them; then
-``<name>_d48``, ``<name>_d128`` and ``<name>_d256`` the same way; then rows
+``<name>_d48``, ``<name>_d128``, ``<name>_d256`` and ``<name>_d512`` the same
+way; then rows
 1-4 at the classifier's shapes, ``<name>_d32_cls``, at the longcontext
 example's, ``<name>_d16_lc``, and at the pipeline's, ``<name>_pp``; rows 1-4
 at head size 64 also carry the MoE phase's ``launches_moe``), and
@@ -214,15 +223,19 @@ RING_KERNEL_ROWS = {  # name -> (replaced TPU kernel body, launches per train st
 # Head sizes below 64: the width above over 16 and 32 heads. bf16 zero-pads
 # to the 64 instances of the tensor-core kernels; f32 has its own instances.
 NARROW_HEAD_DIMS = (32, 16)
-SOURCE_F32 = "p2pfl_tpu_torch/csrc/flash_attn.cu"  # the CUDA-core kernels: f32, and bf16 at D = 128
+SOURCE_F32 = "p2pfl_tpu_torch/csrc/flash_attn.cu"  # the CUDA-core kernels: f32, and bf16 above 64 but the forward
+SOURCE_FWD_WIDE = "p2pfl_tpu_torch/csrc/flash_fwd_wide_sm90.cu"  # the bf16 forward at D = 128 and 256
 # Head sizes up to 128 (the repair of ROADMAP queue C item 1): 48 at the LM's
 # width over 8 heads (width 384; bf16 padded to the 64 tensor-core kernels,
 # f32 to the 64 instance) and 128 at width 512 over 4 heads (the CUDA-core
 # <f32, 128> and <bf16, 128> instances). Head size -> heads.
 C1_HEAD_DIMS = {48: 8, 128: 4}
-# Head size 256, the largest the kernels take: the LM's width over 2
-# heads, on the CUDA-core <f32, 256> and <bf16, 256> instances (32-row tiles).
+# Head size 256: the LM's width over 2 heads (the bf16 forward on the wide
+# tensor-core kernel; the rest on the CUDA-core <f32 / bf16, 256> instances,
+# 32-row tiles). Head size 512, the largest the kernels take: the width over
+# 1 head (the CUDA-core <f32 / bf16, 512> instances, 16-row tiles).
 D256_HEAD_DIMS = {256: 2}
+D512_HEAD_DIMS = {512: 1}
 
 # The MoE LM at the federated LM's widths (4 experts, every second block
 # routed, flash attention, bf16): 4 Adam steps on loss + 0.01 aux at batch
@@ -373,11 +386,14 @@ def phase_env() -> str:
         m = re.search(r"(flash_fwd_kernel|flash_bwd_dq_kernel|flash_bwd_dkv_kernel|flash_carry_kernel)"
                       r"I(13__nv_bfloat16|f)Li(\d+)E(?:Lb(\d)E)?", line)
         m90 = re.search(r"flash_fwd_sm90_kernelILb(\d)E", line)
+        mw90 = re.search(r"flash_fwd_wide_sm90_kernelILi(\d+)ELb(\d)E", line)
         mb90 = re.search(r"(flash_bwd_dq_sm90_kernel|flash_bwd_dkv_sm90_kernel|flash_carry_sm90_kernel)", line)
         if m:
             entry = f"{m[1]}<{'bf16' if m[2] != 'f' else 'f32'}, D={m[3]}{', lse=' + m[4] if m[4] else ''}>"
         elif m90:
             entry = f"flash_fwd_sm90_kernel<bf16, D=64, lse={m90[1]}>"
+        elif mw90:
+            entry = f"flash_fwd_wide_sm90_kernel<bf16, D={mw90[1]}, lse={mw90[2]}>"
         elif mb90:
             entry = f"{mb90[1]}<bf16, D=64>"
         elif entry and "spill stores" in line:
@@ -391,19 +407,24 @@ def phase_env() -> str:
             entry = None
     check(sum(e.startswith("flash_fwd_sm90") for e in seen) == 2,
           "the build log lacks the two tensor-core forward instances")
+    check(sorted(e for e in seen if e.startswith("flash_fwd_wide_sm90")) ==
+          [f"flash_fwd_wide_sm90_kernel<bf16, D={d}, lse={w}>" for d in (128, 256) for w in (0, 1)],
+          "the build log lacks a wide tensor-core forward instance (D = 128 / 256, with and without lse)")
     check(all(any(e.startswith(f"flash_bwd_{k}_sm90") for e in seen) for k in ("dq", "dkv")),
           "the build log lacks a tensor-core backward kernel")
     check(any(e.startswith("flash_carry_sm90_kernel") for e in seen),
           "the build log lacks the tensor-core carry kernel")
     for simt in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_carry_kernel"):
-        # bf16 at D <= 64 runs the tensor-core kernels only; the bf16
-        # CUDA-core instances of each kernel are D = 128's and D = 256's.
-        check(not any(e.startswith(f"{simt}<bf16") and "D=128" not in e and "D=256" not in e for e in seen),
-              f"a bf16 instance of the CUDA-core {simt} below D = 128 was compiled")
-        for d in (128, 256):
-            for kind in ("bf16", "f32"):
-                check(any(e.startswith(f"{simt}<{kind}, D={d}") for e in seen),
-                      f"the build log lacks the {kind} D = {d} instance of {simt}")
+        # bf16 at D <= 64, and its forward at 128 and 256, run the
+        # tensor-core kernels only: the bf16 CUDA-core instances are those
+        # at D = 128, 256 and 512 of the backward pair and the carry and at
+        # 512 of the forward.
+        bf16_dims = (512,) if simt == "flash_fwd_kernel" else (128, 256, 512)
+        check(sorted({int(re.search(r"D=(\d+)", e)[1]) for e in seen if e.startswith(f"{simt}<bf16")})
+              == list(bf16_dims), f"the bf16 CUDA-core instances of {simt} are not those at D = {bf16_dims}")
+        for d in (128, 256, 512):
+            check(any(e.startswith(f"{simt}<f32, D={d}") for e in seen),
+                  f"the build log lacks the f32 D = {d} instance of {simt}")
     phase_sass(path, _kernels._find_nvcc())
     return card
 
@@ -434,6 +455,9 @@ def phase_sass(lib, nvcc: str) -> None:
         print(f"[env] HGMMA in {name}: {n}")
     sm90 = [n for name, n in shown.items() if "flash_fwd_sm90_kernel" in name]
     check(len(sm90) == 2 and all(n > 0 for n in sm90), "a bf16 forward instance holds no HGMMA instruction")
+    wide90 = [n for name, n in shown.items() if "flash_fwd_wide_sm90_kernel" in name]
+    check(len(wide90) == 4 and all(n > 0 for n in wide90),
+          "a wide bf16 forward instance (D = 128 / 256) holds no HGMMA instruction")
     bwd90 = [n for name, n in shown.items() if "flash_bwd_dq_sm90" in name or "flash_bwd_dkv_sm90" in name]
     check(len(bwd90) == 2 and all(n > 0 for n in bwd90), "a bf16 backward kernel holds no HGMMA instruction")
     carry90 = [n for name, n in shown.items() if "flash_carry_sm90" in name]
@@ -723,9 +747,10 @@ def narrow_rows(label: str, suffix: str, d: int, h: int, b: int, b_eval: int, s:
         kind = str(dtype)[6:]
         kd = _kernels.kernel_head_dim(dtype, d)  # the instance the call runs
         padded = "" if kd == d else f", zero-padded to {kd}"
-        how = (f"the tensor-core kernels{padded}" if bf16 and kd == _kernels.SM90_HEAD_DIM
-               else f"the CUDA-core <{kind}, {kd}> instance{padded}")
-        print(f"[{label}] D={d} {kind} ({how}): B={b} S={s} H={h} causal=True; eval B={b_eval}")
+        how = ", ".join(f"{name} on the {_kernels.kernel_route(name, dtype, d)[1]}"
+                        for name in ("flash_fwd", "flash_bwd_dq", "flash_carry"))
+        print(f"[{label}] D={d} {kind} ({how}{padded}; dk/dv as dq, the eval forward as the forward): "
+              f"B={b} S={s} H={h} causal=True; eval B={b_eval}")
         # The bars of phase 2 (bf16: 1e-6 + 1 ulp + 2^-15 mass; f32: the
         # JAX package's 1e-5 / 1e-4) and of the carry phase.
         grad_tol = {"atol": 1e-6, "bf16_ulps": 1} if bf16 else {"atol": 1e-4}
@@ -793,15 +818,18 @@ def narrow_rows(label: str, suffix: str, d: int, h: int, b: int, b_eval: int, s:
             qh, kh, vh, gh = (t.transpose(1, 2).contiguous() for t in (q, k, v, g))
             qeh, keh, veh = (t.transpose(1, 2).contiguous() for t in (qe, ke, ve))
             with torch.no_grad():
-                lib["flash_fwd"] = time_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
-                    qh, kh, vh, 0.0, True, False), 20)
                 lib["flash_fwd_no_lse"] = time_ms(
                     lambda: F.scaled_dot_product_attention(qeh, keh, veh, is_causal=True), 20)
-                o_l, lse_l, cq, ck, mq, mk, seed, offset = torch.ops.aten._scaled_dot_product_flash_attention(
-                    qh, kh, vh, 0.0, True, False)[:8]
-                lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = time_ms(
-                    lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
-                        gh, qh, kh, vh, o_l, lse_l, cq, ck, mq, mk, 0.0, True, seed, offset), 20)
+                if d <= 256:  # aten's flash attention
+                    lib["flash_fwd"] = time_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                        qh, kh, vh, 0.0, True, False), 20)
+                    o_l, lse_l, cq, ck, mq, mk, seed, offset = torch.ops.aten._scaled_dot_product_flash_attention(
+                        qh, kh, vh, 0.0, True, False)[:8]
+                    lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = time_ms(
+                        lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                            gh, qh, kh, vh, o_l, lse_l, cq, ck, mq, mk, 0.0, True, seed, offset), 20)
+                else:  # its flash attention stops at 256: the memory-efficient one, with its logsumexp
+                    lib.update(efficient_attention_ms(qh, kh, vh, gh))
         for name, (kern, plain, err) in timings.items():
             ms, plain_ms = time_ms(kern, 20), time_ms(plain, 5)
             key = name + suffix
@@ -821,6 +849,22 @@ def narrow_rows(label: str, suffix: str, d: int, h: int, b: int, b_eval: int, s:
         print(f"[{label}] {key}: bf16 {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
               f"{r['bound_ms'] / r['ms']:.1%} of it), plain {r['plain_ms']:.4f} ms; {against}{f32}")
     return rows
+
+
+def efficient_attention_ms(qh, kh, vh, gh) -> dict:
+    """Library times of rows 1, 3 and 4 where aten's flash attention refuses
+    the head size (above 256): the memory-efficient attention forward with
+    its logsumexp, and its backward (dq, dk, dv in one autograd call of its
+    own derivative)."""
+    import torch
+
+    eff = torch.ops.aten._scaled_dot_product_efficient_attention
+    fwd = time_ms(lambda: eff(qh, kh, vh, None, True, 0.0, True), 20)
+    qr, kr, vr = (t.detach().requires_grad_() for t in (qh, kh, vh))
+    with torch.enable_grad():
+        o_r = eff(qr, kr, vr, None, True, 0.0, True)[0]
+    bwd = time_ms(lambda: torch.autograd.grad(o_r, (qr, kr, vr), gh, retain_graph=True), 20)
+    return {"flash_fwd": fwd, "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd}
 
 
 def phase_kernels_narrow() -> dict:
@@ -1528,26 +1572,26 @@ def phase_entry() -> None:
     check(err <= tol, "entry: the card's logits disagree with the CPU's on a random batch")
 
 
-def phase_kernels_d256() -> dict:
-    """Rows 1-5 at head size 256 (the LM's width over 2 heads: [8, 1024, 2,
-    256], the eval forward at [16, 1024, 2, 256], one ring chunk [2, 1024,
-    2, 256]) on the CUDA-core <bf16, 256> and <f32, 256> instances, held to
-    the bars of phases 2 and 5 and timed beside aten; returns
-    {"<name>_d256": row}."""
+def phase_kernels_wide(label: str, head_dims: dict, seed: int) -> dict:
+    """Rows 1-5 at each head size of ``head_dims`` (head size -> heads, the
+    LM's width over them: [8, 1024, H, D], the eval forward at [16, 1024, H,
+    D], one ring chunk [2, 1024, H, D]) in bf16 and f32, held to the bars of
+    phases 2 and 5 and timed beside aten; returns {"<name>_d<D>": row}."""
     import torch
 
-    gen = torch.Generator().manual_seed(16)
+    gen = torch.Generator().manual_seed(seed)
     rows: dict = {}
-    for d, heads in D256_HEAD_DIMS.items():
-        rows.update(narrow_rows("d256", narrow_suffix(d), d, heads, BATCH, EVAL_SEQS, SEQ_LEN,
+    for d, heads in head_dims.items():
+        rows.update(narrow_rows(label, narrow_suffix(d), d, heads, BATCH, EVAL_SEQS, SEQ_LEN,
                                 (torch.bfloat16, torch.float32), True, gen))
     return rows
 
 
-def phase_d256_paths() -> dict:
-    """The slice's LM and the ring trainer at width 512 over 2 heads (D =
-    256); returns their launches under the ``_d256`` rows' names."""
-    return head_size_paths("d256-paths", [(d, h, d * h) for d, h in D256_HEAD_DIMS.items()])
+def phase_wide_paths() -> dict:
+    """The slice's LM and the ring trainer at width 512 over 2 heads and over
+    1 head (D = 256 / 512); returns their launches under the ``_d256`` /
+    ``_d512`` rows' names."""
+    return head_size_paths("wide-paths", [(d, h, d * h) for d, h in {**D256_HEAD_DIMS, **D512_HEAD_DIMS}.items()])
 
 
 def phase_topk_ties() -> None:
@@ -1931,6 +1975,19 @@ def phase_profile(label: str, run) -> None:
         print(f"[profile]   top: {us / 1e3:8.2f} ms  {name[:110]}")
 
 
+def row_source(name: str, d: int, sm90_source: str) -> str:
+    """The source of the bf16 kernel that row ``name`` runs at head size
+    ``d``: ``sm90_source`` (the D = 64 tensor-core kernel's) at D <= 64, the
+    wide forward's or the CUDA-core kernels' above."""
+    import torch
+    from p2pfl_tpu_torch.ops import _kernels
+
+    kd, route = _kernels.kernel_route(name, torch.bfloat16, d)
+    if route == _kernels.CUDA_CORES:
+        return SOURCE_F32
+    return sm90_source if kd == _kernels.SM90_HEAD_DIM else SOURCE_FWD_WIDE
+
+
 def main() -> int:
     try:
         import torch
@@ -1966,9 +2023,10 @@ def main() -> int:
         rows.update(phase_kernels_narrow())
         rows.update(phase_kernels_classifier())
         rows.update(phase_kernels_c1())
-        rows.update(phase_kernels_d256())
+        rows.update(phase_kernels_wide("d256", D256_HEAD_DIMS, 16))
+        rows.update(phase_kernels_wide("d512", D512_HEAD_DIMS, 18))
         launches.update(phase_narrow_paths())
-        launches.update(phase_d256_paths())
+        launches.update(phase_wide_paths())
         parts = mlp_partitions()
         phase_mlp(parts, profiling)
         phase_cnn(parts)
@@ -2012,13 +2070,15 @@ def main() -> int:
          "launches": launches[name + narrow_suffix(d)], **rows[name + narrow_suffix(d)], "source_f32": SOURCE_F32}
         for d in NARROW_HEAD_DIMS for name, (replaces, _, source) in kernels.items()
     ]
-    # Head sizes 48, 128 and 256: bf16 at 48 on the padded tensor-core
-    # kernels, at 128 and 256 on the CUDA-core instances of SOURCE_F32.
+    # Head sizes 48, 128, 256 and 512: bf16 at 48 on the padded tensor-core
+    # kernels, the forward at 128 and 256 on SOURCE_FWD_WIDE's, the rest on
+    # the CUDA-core instances of SOURCE_F32.
     table += [
-        {"name": name + narrow_suffix(d), "route": "cuda", "source": source if d <= 64 else SOURCE_F32,
+        {"name": name + narrow_suffix(d), "route": "cuda", "source": row_source(name, d, source),
          "replaces": replaces, "launches": launches[name + narrow_suffix(d)], **rows[name + narrow_suffix(d)],
          "source_f32": SOURCE_F32}
-        for d in (*C1_HEAD_DIMS, *D256_HEAD_DIMS) for name, (replaces, _, source) in kernels.items()
+        for d in (*C1_HEAD_DIMS, *D256_HEAD_DIMS, *D512_HEAD_DIMS)
+        for name, (replaces, _, source) in kernels.items()
     ]
     # The classifier's and the longcontext example's shapes (bf16 on padded
     # heads, as their paths run them) and the pipeline's microbatches.

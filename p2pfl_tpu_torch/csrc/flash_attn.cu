@@ -13,9 +13,11 @@
 // carry fold in flash_fwd_sm90.cu, the backward pair in flash_bwd_sm90.cu,
 // launched from p2pfl_flash_fwd / p2pfl_flash_carry / p2pfl_flash_bwd_dq /
 // p2pfl_flash_bwd_dkv below (ops/_kernels.py zero-pads narrower bf16 heads to
-// 64). bf16 at head sizes 128 and 256 runs the kernels here at
-// <__nv_bfloat16, 128 / 256>: bf16 loads, f32 arithmetic, bf16 stores (a
-// tensor-core instance there would need its own TMA boxes and wgmma shapes);
+// 64). The bf16 forward at head sizes 128 and 256 runs the tensor-core kernel
+// of flash_fwd_wide_sm90.cu. The rest of bf16 runs the kernels here: the
+// backward pair and the carry fold at <__nv_bfloat16, 128 / 256 / 512> and the
+// forward at <__nv_bfloat16, 512> (bf16 loads, f32 arithmetic, bf16 stores; a
+// tensor-core kernel there would need its own TMA boxes and wgmma shapes);
 // no other bf16 instance of a kernel here is compiled.
 //
 // What it computes is what the TPU kernels compute: q is scaled by 1/sqrt(D)
@@ -42,10 +44,10 @@
 // 989 TFLOP/s of the bf16 tensor cores (which the *_sm90.cu sources use for
 // bf16). The design keeps the working set on
 // chip so that the f32 rate is the only limit: one 64-row q (or k) tile
-// per block (32 rows at D = 256, tile_rows below), K/V (or Q/dO) tiles
+// per block (32 rows at D = 256, 16 at 512: tile_rows below), K/V (or Q/dO) tiles
 // staged in shared memory padded by one column so that the strided row reads
 // are free of bank conflicts, the online-softmax state and a 4 x 4 (rows x
-// columns; 2 x 2 at D = 256) register micro-tile per thread, and
+// columns; 2 x 2 at D = 256, 1 x 1 at 512) register micro-tile per thread, and
 // causal-future tiles skipped. They stay on the CUDA cores
 // because f32 parity (1e-5) forbids TF32 products.
 //
@@ -66,20 +68,23 @@ constexpr int TX = 16;  // threads along a tile's columns
 constexpr int TY = 16;  // threads along a tile's rows
 constexpr int NTHREADS = TX * TY;
 
-// Rows of a q (and of a k) tile at head size D: 64 up to D = 128, 32 above,
-// where a 64-row tile's shared memory no longer fits in a block (dk/dv at
-// D = 256 would need 296,960 B against 232,448). Every kernel and launcher
-// below reads its tile through this one compile-time function of D, so the
-// instances up to 128 keep their names and code; each kernel derives
+// Rows of a q (and of a k) tile at head size D: 64 up to D = 128, 32 at 256
+// and 16 at 512, where a 64-row tile's shared memory no longer fits in a
+// block (dk/dv at D = 256 would need 296,960 B against 232,448; at 512 a
+// 32-row one 274,944 B). Rows x D stays 8192 above 128, so the shared memory
+// of the 512 instances is about that of the 256 ones. Every kernel and
+// launcher below reads its tile through this one compile-time function of D,
+// so the instances up to 256 keep their names and code; each kernel derives
 //   BQ = BK = tile_rows<D>()     q / k rows per tile,
 //   RI = BQ / TY, RJ = BK / TX   rows / columns of a thread's micro-tile.
 template <int D>
-__host__ __device__ constexpr int tile_rows() { return D > 128 ? 32 : 64; }
+__host__ __device__ constexpr int tile_rows() { return D > 256 ? 16 : D > 128 ? 32 : 64; }
 constexpr float MASK_VALUE = -0.7f * FLT_MAX;  // ops/attention.py DEFAULT_MASK_VALUE
 
 // The kernels keep their element type T as a parameter: float at every head
-// size, __nv_bfloat16 at 128 only (bf16 at 64 and below runs the tensor-core
-// kernels). Either way every product and sum is f32.
+// size, __nv_bfloat16 at 128, 256 and 512 (bf16 at 64 and below, and the
+// bf16 forward at 128 and 256, run the tensor-core kernels). Either way every
+// product and sum is f32.
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T>
@@ -618,7 +623,10 @@ constexpr size_t dkv_smem() {
 static_assert(dkv_smem<128>() == 165888 && fwd_smem<128>() == 115712, "D = 128 tiles changed");
 static_assert(fwd_smem<256>() == 102912 && dq_smem<256>() == 136064 && dkv_smem<256>() == 140288,
               "D = 256 tiles changed");
-static_assert(dkv_smem<256>() <= 232448, "the D = 256 tiles must fit in a block's shared memory");
+static_assert(fwd_smem<512>() == 99584 && dq_smem<512>() == 132544 && dkv_smem<512>() == 133632,
+              "D = 512 tiles changed");
+static_assert(dkv_smem<256>() <= 232448 && dkv_smem<512>() <= 232448,
+              "the D = 256 and 512 tiles must fit in a block's shared memory");
 
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
@@ -686,13 +694,15 @@ cudaError_t launch_carry(const void* q, const void* k, const void* v, const floa
 }
 
 // Calls launch(std::integral_constant<int, D>) for the head sizes with an
-// f32 instance: 16, 32, 64, 128 and 256 (DJ = D / TX columns per thread: 1,
-// 2, 4, 8, 16). At D = 128 the dk/dv kernel takes dkv_smem<128>() = 165,888
-// bytes of shared memory (the forward and carry 115,712), one block per SM;
-// at D = 256 the 32-row tiles take 102,912 (forward, carry), 136,064 (dq) and
-// 140,288 (dk/dv). ops/_kernels.py zero-pads any other head size up to 256
-// to the next instance; bf16 exists at 64 (the tensor-core kernels, narrower
-// heads padded to it), 128 and 256 (the kernels here).
+// f32 instance: 16, 32, 64, 128, 256 and 512 (DJ = D / TX columns per
+// thread: 1, 2, 4, 8, 16, 32). At D = 128 the dk/dv kernel takes
+// dkv_smem<128>() = 165,888 bytes of shared memory (the forward and carry
+// 115,712), one block per SM; at D = 256 the 32-row tiles take 102,912
+// (forward, carry), 136,064 (dq) and 140,288 (dk/dv), at D = 512 the 16-row
+// ones 99,584, 132,544 and 133,632. ops/_kernels.py zero-pads any other head
+// size up to 512 to the next instance; bf16 exists at 64 (the tensor-core
+// kernels, narrower heads padded to it), 128 and 256 (the tensor-core
+// forward; the backward pair and carry here) and 512 (the kernels here).
 template <typename F>
 cudaError_t with_head_dim(int head_dim, F&& launch) {
   switch (head_dim) {
@@ -701,16 +711,19 @@ cudaError_t with_head_dim(int head_dim, F&& launch) {
     case 64: return launch(std::integral_constant<int, 64>{});
     case 128: return launch(std::integral_constant<int, 128>{});
     case 256: return launch(std::integral_constant<int, 256>{});
+    case 512: return launch(std::integral_constant<int, 512>{});
     default: return cudaErrorInvalidValue;
   }
 }
 
-// The bf16 head sizes that run the CUDA-core kernels here: 128 and 256.
+// The bf16 head sizes that run the CUDA-core backward pair and carry here:
+// 128, 256 and 512.
 template <typename F>
 cudaError_t with_bf16_head_dim(int head_dim, F&& launch) {
   switch (head_dim) {
     case 128: return launch(std::integral_constant<int, 128>{});
     case 256: return launch(std::integral_constant<int, 256>{});
+    case 512: return launch(std::integral_constant<int, 512>{});
     default: return cudaErrorInvalidValue;
   }
 }
@@ -720,6 +733,9 @@ cudaError_t with_bf16_head_dim(int head_dim, F&& launch) {
 namespace p2pfl {
 cudaError_t launch_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                                   int Sq, int Sk, int H, float scale, bool causal, cudaStream_t stream);
+cudaError_t launch_flash_fwd_wide_sm90(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                                       int Sq, int Sk, int H, int head_dim, float scale, bool causal,
+                                       cudaStream_t stream);
 cudaError_t launch_flash_bwd_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
                                      const float* lse, const float* delta, void* dq, int B, int Sq, int Sk, int H,
                                      float scale, bool causal, cudaStream_t stream);
@@ -735,12 +751,14 @@ cudaError_t launch_flash_carry_sm90(const void* q, const void* k, const void* v,
 extern "C" {
 
 // Every entry point returns cudaErrorInvalidValue for a head size without an
-// instance: f32 has 16, 32, 64, 128 and 256, bf16 has 64 (tensor cores), 128
-// and 256 (the CUDA-core kernels above).
+// instance: f32 has 16, 32, 64, 128, 256 and 512, bf16 has 64 (tensor
+// cores), 128 and 256 (the tensor-core forward, the CUDA-core backward pair
+// and carry) and 512 (the CUDA-core kernels above). ops/_kernels.py
+// kernel_route names the kernel each call takes.
 //
 // lse == NULL selects the forward that writes no logsumexp. bf16 at 64 runs
-// the tensor-core kernel of flash_fwd_sm90.cu; f32, and bf16 at 128 and 256,
-// the CUDA-core kernel above.
+// the tensor-core kernel of flash_fwd_sm90.cu, at 128 and 256 that of
+// flash_fwd_wide_sm90.cu; f32, and bf16 at 512, the CUDA-core kernel above.
 int p2pfl_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                     int Sq, int Sk, int H, int head_dim, int dtype, float scale, int causal,
                     void* stream) {
@@ -751,15 +769,15 @@ int p2pfl_flash_fwd(const void* q, const void* k, const void* v, void* o, float*
     }));
   if (dtype == 1 && head_dim == 64)
     return int(p2pfl::launch_flash_fwd_sm90(q, k, v, o, lse, B, Sq, Sk, H, scale, causal != 0, s));
-  if (dtype == 1)
-    return int(with_bf16_head_dim(head_dim, [&](auto d) {
-      return launch_fwd<__nv_bfloat16, decltype(d)::value>(q, k, v, o, lse, B, Sq, Sk, H, scale, causal != 0, s);
-    }));
+  if (dtype == 1 && (head_dim == 128 || head_dim == 256))
+    return int(p2pfl::launch_flash_fwd_wide_sm90(q, k, v, o, lse, B, Sq, Sk, H, head_dim, scale, causal != 0, s));
+  if (dtype == 1 && head_dim == 512)
+    return int(launch_fwd<__nv_bfloat16, 512>(q, k, v, o, lse, B, Sq, Sk, H, scale, causal != 0, s));
   return int(cudaErrorInvalidValue);
 }
 
 // bf16 at 64 runs the tensor-core pair of flash_bwd_sm90.cu; f32, and bf16
-// at 128 and 256, the CUDA-core kernels above.
+// at 128, 256 and 512, the CUDA-core kernels above.
 int p2pfl_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dq, int B, int Sq, int Sk,
                        int H, int head_dim, int dtype, float scale, int causal, void* stream) {
@@ -802,7 +820,7 @@ int p2pfl_flash_bwd_dkv(const void* q, const void* k, const void* v, const void*
 
 // m / l: [B, H, Sq] f32; acc: [B, Sq, H, D] f32; *_in and *_out must not
 // overlap. bf16 at 64 runs the tensor-core kernel of flash_fwd_sm90.cu; f32,
-// and bf16 at 128 and 256, the CUDA-core kernel above.
+// and bf16 at 128, 256 and 512, the CUDA-core kernel above.
 int p2pfl_flash_carry(const void* q, const void* k, const void* v, const float* m_in,
                       const float* l_in, const float* acc_in, float* m_out, float* l_out,
                       float* acc_out, int B, int Sq, int Sk, int H, int head_dim, int dtype,

@@ -6,9 +6,11 @@
 //   flash_fwd_sm90<with_lse=true>   <- _flash_kernel          (pallas_call at :308)
 //   flash_fwd_sm90<with_lse=false>  <- _flash_kernel_no_lse   (pallas_call at :298)
 //   flash_carry_sm90                <- _flash_carry_kernel    (pallas_call at :590)
-// for bf16 inputs at head size 64. The f32 forward and carry fold stay the
-// CUDA-core kernels of flash_attn.cu: f32 parity holds them to 1e-5 and
-// forbids TF32.
+// for bf16 inputs at head size 64. The bf16 forward at head sizes 128 and
+// 256 is flash_fwd_wide_sm90.cu's, this design with each row split into
+// 64-column panels (a template of its own, so that the code here stays as
+// it was measured). The f32 forward and carry fold stay the CUDA-core
+// kernels of flash_attn.cu: f32 parity holds them to 1e-5 and forbids TF32.
 //
 // What it computes is what the TPU kernel computes, with one difference in
 // rounding. Scores S = Q.K^T are exact bf16 products summed in f32 by wgmma
@@ -103,16 +105,6 @@ constexpr size_t kSmemBytes = 1024 + kQBytes + kStages * kStageBytes + kBarrierB
 
 static_assert(BQ == 64 * kConsumers, "each consumer warpgroup owns 64 q rows");
 static_assert(kProducerRegs * 128 + kConsumerRegs * 128 * kConsumers <= 65536, "register file");
-
-// Max / sum over the 4-lane quad that holds one accumulator row.
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 // --- the kernels ---------------------------------------------------------------
 //

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core flash kernels
-// (flash_fwd_sm90.cu, flash_bwd_sm90.cu): mbarriers, TMA loads through 4-D
-// tensor maps over the API's [B, S, H, 64] layout, wgmma descriptors and
-// instructions, the bf16 split of an f32 operand, the tensor-map encoder
-// and the launch guard for setmaxnreg's register split.
+// (flash_fwd_sm90.cu, flash_fwd_wide_sm90.cu, flash_bwd_sm90.cu): mbarriers,
+// TMA loads through 4-D tensor maps over the API's [B, S, H, D] layout in
+// boxes of 64 columns (one 128-byte swizzle span; all of a row at D = 64),
+// wgmma descriptors and instructions, the bf16 split of an f32 operand, the
+// row reductions over an accumulator's quad, the tensor-map encoder and the
+// launch guard for setmaxnreg's register split.
 //
 // Everything here sits in an anonymous namespace: each source that
 // includes it gets its own copy, and the compiled code is what it was when
@@ -19,12 +21,12 @@
 
 namespace {
 
-constexpr int D = 64;                          // head size, the only one supported
-constexpr uint32_t kRowBytes = D * 2;          // one bf16 row: the 128-byte swizzle atom
+constexpr int D = 64;                          // head size of the D = 64 kernels; the columns of one TMA box
+constexpr uint32_t kRowBytes = D * 2;          // one bf16 row at D = 64: the 128-byte swizzle atom
 constexpr float MASK_VALUE = -0.7f * FLT_MAX;  // ops/attention.py DEFAULT_MASK_VALUE
 constexpr long long kHangCycles = 1ll << 35;   // ~17 s: a barrier wait this long is a fault, not a wait
 
-static_assert(D == 64, "one bf16 row of the head must be exactly the 128-byte swizzle atom");
+static_assert(D == 64, "a box's 64 bf16 columns must be exactly the 128-byte swizzle atom");
 
 // --- PTX wrappers ------------------------------------------------------------
 
@@ -76,13 +78,14 @@ __device__ __forceinline__ void mbar_spin(uint32_t bar, uint32_t parity) {
   }
 }
 
-// One box of a [B, S, H, D] tensor: rows [row, row + box rows) of head h, batch b.
+// One box of a [B, S, H, D] tensor: rows [row, row + box rows) of head h,
+// batch b, columns [col, col + 64) (all of a row at D = 64).
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int h, int row, int b,
-                                         uint32_t bar) {
+                                         uint32_t bar, int col = 0) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(h), "r"(row), "r"(b)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(h), "r"(row), "r"(b)
       : "memory");
 }
 
@@ -186,6 +189,16 @@ __device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi, uin
 // (e, e + 1), the accumulator is also the A fragment of the next wgmma:
 // k-step kk of 16 columns takes pairs 4 kk .. 4 kk + 3.
 
+// Max / sum over the 4-lane quad that holds one accumulator row.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
 // --- host side -------------------------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
@@ -210,11 +223,15 @@ EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// A [B, S, H, 64] bf16 tensor as 4-D TMA boxes of `box_rows` rows of one
-// head; rows past S are zero-filled.
-bool encode_bshd(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int S, int H, int box_rows) {
-  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(H), cuuint64_t(S), cuuint64_t(B)};
-  const cuuint64_t strides[3] = {kRowBytes, cuuint64_t(H) * kRowBytes, cuuint64_t(S) * H * kRowBytes};
+// A [B, S, H, head_dim] bf16 tensor as 4-D TMA boxes of `box_rows` rows of
+// one head and 64 columns, each landing as one 128-byte-swizzled panel of
+// box_rows x 128 bytes (tma_load's `col` picks the panel's columns); rows
+// past S are zero-filled. At head_dim = 64 a box is a whole row.
+bool encode_bshd(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int S, int H, int box_rows,
+                 int head_dim = D) {
+  const cuuint64_t row_bytes = cuuint64_t(head_dim) * 2;
+  const cuuint64_t dims[4] = {cuuint64_t(head_dim), cuuint64_t(H), cuuint64_t(S), cuuint64_t(B)};
+  const cuuint64_t strides[3] = {row_bytes, cuuint64_t(H) * row_bytes, cuuint64_t(S) * H * row_bytes};
   const cuuint32_t box[4] = {D, 1, cuuint32_t(box_rows), 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,

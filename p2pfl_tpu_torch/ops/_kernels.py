@@ -12,19 +12,21 @@ contiguity, allocates its outputs with ``torch.empty``, launches on the
 current stream, raises if the launch reports an error, and adds one to its
 entry in :data:`LAUNCHES`.
 
-Head sizes: any D up to 256. The f32 kernels have instances at 16, 32, 64,
-128 and 256; bf16 runs the tensor-core kernels at 64 and CUDA-core instances
-at 128 and 256. A call at another D copies q, k, v (dO; the carry's acc)
-into zeroed ``[B, S, H, D']`` buffers, D' the next instance (bf16: 64 for
-D <= 64, 128 up to 128, else 256), launches that instance with the true
-scale ``1/sqrt(D)`` and slices the outputs back to D. That is exact: zero
-columns add exact zeros to ``Q.K^T`` and ``dO.V^T``, leave ``delta``
-(computed by the caller at D) as it is, and come out as exact zeros in O,
-acc, dQ, dK and dV. It is the kernel all the same, never the plain version,
-and it counts in :data:`LAUNCHES`; native instances would save the
-padding's copies. A head size above 256 raises ``ValueError``. The plain
-versions and the choice between them and these kernels live in
-:mod:`p2pfl_tpu_torch.ops.attention`.
+Head sizes: any D up to 512. The f32 kernels have instances at 16, 32, 64,
+128, 256 and 512, all on the CUDA cores. bf16 runs the tensor-core kernels
+at 64 (forward, backward pair, carry fold) and the tensor-core forward at
+128 and 256; its backward pair and carry fold at 128 and 256, and all of it
+at 512, run CUDA-core instances (:func:`kernel_route`). A call at another D
+copies q, k, v (dO; the carry's acc) into zeroed ``[B, S, H, D']`` buffers,
+D' the next instance (bf16: 64 for D <= 64, else the next of 128, 256 and
+512), launches that instance with the true scale ``1/sqrt(D)`` and slices
+the outputs back to D. That is exact: zero columns add exact zeros to
+``Q.K^T`` and ``dO.V^T``, leave ``delta`` (computed by the caller at D) as
+it is, and come out as exact zeros in O, acc, dQ, dK and dV. It is the
+kernel all the same, never the plain version, and it counts in
+:data:`LAUNCHES`; native instances would save the padding's copies. A head
+size above 512 raises ``ValueError``. The plain versions and the choice
+between them and these kernels live in :mod:`p2pfl_tpu_torch.ops.attention`.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ _PKG = Path(__file__).resolve().parents[1]
 SOURCES = (
     _PKG / "csrc" / "flash_attn.cu",  # f32 forward, backward pair and carry fold; the C entry points
     _PKG / "csrc" / "flash_fwd_sm90.cu",  # bf16 forward and carry fold on the tensor cores
+    _PKG / "csrc" / "flash_fwd_wide_sm90.cu",  # bf16 forward at D = 128 and 256 on the tensor cores
     _PKG / "csrc" / "flash_bwd_sm90.cu",  # bf16 backward pair (dq; dk/dv) on the tensor cores
 )
 HEADERS = (_PKG / "csrc" / "sm90_common.cuh",)  # included by the *_sm90.cu sources
@@ -54,10 +57,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-HEAD_DIMS = (16, 32, 64, 128, 256)  # the f32 instances of csrc/flash_attn.cu; other D <= 256 pad to the next
-BF16_HEAD_DIMS = (64, 128, 256)  # bf16: the tensor-core kernels at 64, the CUDA-core instances at 128 and 256
-SM90_HEAD_DIM = 64  # the bf16 tensor-core instances
+HEAD_DIMS = (16, 32, 64, 128, 256, 512)  # the f32 instances of csrc/flash_attn.cu; other D <= 512 pad to the next
+BF16_HEAD_DIMS = (64, 128, 256, 512)  # the bf16 instances (kernel_route says which run on the tensor cores)
+SM90_HEAD_DIM = 64  # the bf16 tensor-core forward, backward pair and carry fold
+SM90_FWD_HEAD_DIMS = (64, 128, 256)  # the bf16 tensor-core forward (csrc/flash_fwd_wide_sm90.cu above 64)
 MAX_HEAD_DIM = HEAD_DIMS[-1]
+TENSOR_CORES, CUDA_CORES = "tensor cores", "CUDA cores"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Launches per kernel since the last :func:`reset_launches`. Incremented only
@@ -182,6 +187,17 @@ def kernel_head_dim(dtype: torch.dtype, d: int) -> int:
     return next(x for x in (BF16_HEAD_DIMS if dtype == torch.bfloat16 else HEAD_DIMS) if x >= d)
 
 
+def kernel_route(kernel: str, dtype: torch.dtype, d: int) -> Tuple[int, str]:
+    """``(instance head size, TENSOR_CORES or CUDA_CORES)`` that a call of
+    ``kernel`` (a :data:`LAUNCHES` name) at head size ``d`` runs, as the C
+    entry points of ``csrc/flash_attn.cu`` dispatch it: bf16 forwards at
+    :data:`SM90_FWD_HEAD_DIMS` and every bf16 kernel at
+    :data:`SM90_HEAD_DIM` take the tensor cores, the rest the CUDA cores."""
+    kd = kernel_head_dim(dtype, d)
+    sm90 = SM90_FWD_HEAD_DIMS if kernel in ("flash_fwd", "flash_fwd_no_lse") else (SM90_HEAD_DIM,)
+    return kd, TENSOR_CORES if dtype == torch.bfloat16 and kd in sm90 else CUDA_CORES
+
+
 def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() == 4 and not 1 <= q.shape[-1] <= MAX_HEAD_DIM:
         raise ValueError(f"{name}: head_dim {q.shape[-1]} not supported (1 to {MAX_HEAD_DIM})")
@@ -204,10 +220,10 @@ def _check_rows(name: str, q: torch.Tensor, *rows: torch.Tensor) -> None:
 
 
 def _check_aligned(name: str, *ts: torch.Tensor) -> None:
-    """The tensor-core kernels run when ``ts[0]`` is bf16 at head size 64
-    (after padding); their TMA loads (and the carry fold's float2 accesses to
-    ``acc``) need every tensor 16-byte aligned."""
-    if (ts[0].dtype == torch.bfloat16 and ts[0].shape[-1] == SM90_HEAD_DIM
+    """The tensor-core kernels (:func:`kernel_route` of ``name`` at ``ts[0]``'s
+    dtype and padded head size) load by TMA (and the carry fold accesses
+    ``acc`` as float2), so they need every tensor 16-byte aligned."""
+    if (kernel_route(name, ts[0].dtype, ts[0].shape[-1])[1] == TENSOR_CORES
             and any(t.data_ptr() % 16 for t in ts)):
         raise ValueError(f"{name}: the bf16 kernel's tensors must be 16-byte aligned (TMA)")
 
@@ -235,23 +251,24 @@ def flash_fwd(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Kernel forward: ``(out [B,Sq,H,D], lse [B,H,Sq] f32 or None)``.
 
-    bf16 up to D = 64 runs the tensor-core kernel, whose TMA loads and stores
-    need every tensor 16-byte aligned; f32, and bf16 above 64, run the
-    CUDA-core kernels."""
-    _check_qkv("flash_fwd", q, k, v)
+    bf16 up to D = 256 runs the tensor-core kernels (D = 64 and, above it,
+    128 and 256), whose TMA loads need every tensor 16-byte aligned; f32, and
+    bf16 above 256, run the CUDA-core kernels."""
+    name = "flash_fwd" if with_lse else "flash_fwd_no_lse"
+    _check_qkv(name, q, k, v)
     lib = _load()
     b, sq, h, d = q.shape
     q, k, v = _pad_heads(q, k, v)
     out = torch.empty_like(q)
-    _check_aligned("flash_fwd", q, k, v, out)
+    _check_aligned(name, q, k, v, out)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
     code = lib.p2pfl_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
         b, sq, k.shape[1], h, q.shape[3], _DTYPES[q.dtype], 1.0 / math.sqrt(d), int(causal), _stream(q),
     )
-    _check("flash_fwd", code)
-    LAUNCHES["flash_fwd" if with_lse else "flash_fwd_no_lse"] += 1
+    _check(name, code)
+    LAUNCHES[name] += 1
     return _unpad(out, d), lse
 
 
@@ -261,8 +278,8 @@ def flash_bwd_dq(
 ) -> torch.Tensor:
     """Kernel dq from the forward's ``lse`` and ``delta = rowsum(dO * O)``.
 
-    bf16 runs the tensor-core kernel (16-byte-aligned tensors, as the
-    forward); f32 runs the CUDA-core kernel."""
+    bf16 at D <= 64 runs the tensor-core kernel (16-byte-aligned tensors, as
+    the forward); f32, and bf16 above 64, run the CUDA-core kernels."""
     _check_qkv("flash_bwd_dq", q, k, v)
     _check_bshd("flash_bwd_dq", q, do)
     if do.shape != q.shape:
@@ -318,8 +335,8 @@ def flash_carry(
     acc [B,Sq,H,D])`` (f32); returns a new carry, the incoming one is only
     read. ``q_offset`` / ``kv_offset``: global positions of q's and k's row 0.
 
-    bf16 runs the tensor-core kernel (q, k, v and acc 16-byte aligned);
-    f32 runs the CUDA-core kernel."""
+    bf16 at D <= 64 runs the tensor-core kernel (q, k, v and acc 16-byte
+    aligned); f32, and bf16 above 64, run the CUDA-core kernels."""
     _check_qkv("flash_carry", q, k, v)
     if k.shape[1] < 1:
         raise ValueError("flash_carry: the kv chunk is empty")

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Time the port's kernel rows 1-5 (head size 64) of two checkouts on one card, in turns.
+"""Time the port's kernel rows of two checkouts on one card, in turns.
 
     python3 scripts/torch_rows_ab.py BASE
 
 ``BASE`` is another checkout of the repository (for example the parent
 commit unpacked with ``git archive`` under ``build/``; it needs
 ``chip_smoke.py`` and ``p2pfl_tpu_torch/``). Each checkout builds its own
-kernels into its own ``build/`` and runs its ``chip_smoke.py`` kernel and
-carry phases (every row held to its plain version, then timed with CUDA
-events) in a subprocess, in the order BASE, this tree, this tree, BASE, so
-that drift shows. Prints each run's row times and, last, one JSON object
+kernels into its own ``build/`` and runs, in a subprocess, its
+``chip_smoke.py`` kernel and carry phases (rows 1-5 at head size 64), then
+its ``narrow_rows`` in bf16 at [8, 1024, 4, 128] and [8, 1024, 2, 256] (the
+eval forward at batch 16): every row held to its plain version, then timed
+with CUDA events. The order is BASE, this tree, this tree, BASE, so that
+drift shows. Prints each run's row times and, last, one JSON object
 ``{"runs": [{"tree": ..., "ms": {row: ms}}, ...]}``. Runs on the card only.
 """
 
@@ -31,6 +33,10 @@ torch.backends.cudnn.allow_tf32 = False
 import chip_smoke as cs
 rows = cs.phase_kernels()
 rows.update(cs.phase_carry())
+gen = torch.Generator().manual_seed(16)
+for d, heads in ((128, 4), (256, 2)):
+    rows.update(cs.narrow_rows("ab", f"_d{{d}}", d, heads, cs.BATCH, cs.EVAL_SEQS, cs.SEQ_LEN,
+                               (torch.bfloat16,), False, gen))
 ms = {{name: r["ms"] for name, r in rows.items()}}
 ms["flash_carry_diagonal"] = rows["flash_carry"]["ms_diagonal"]
 print("ROWS " + json.dumps(ms))

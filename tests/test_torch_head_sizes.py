@@ -1,0 +1,69 @@
+"""The port's plain flash versions at head sizes 384 and 512 (the widest the
+kernels take: 384 is zero-padded to the 512 instances) against the JAX
+package's flash attention and carry fold.
+
+Same inputs (numpy, from a seed) go through the JAX functions (Pallas in
+interpret mode on the CPU, as tests/test_attention.py runs them) and the
+port's plain versions, which the kernels are held to on the card
+(tests/test_torch_kernels.py). Tolerances are tests/test_attention.py's f32
+ones: forward and carry 1e-5, gradients 1e-4.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from p2pfl_tpu.ops.attention import flash_attention as jax_flash_attention
+from p2pfl_tpu.ops.attention import flash_chunk_update as jax_flash_chunk_update
+from p2pfl_tpu_torch.ops import attention as port
+
+B, S, H = 1, 32, 1
+
+
+def _qkv(seed, d, s=S):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((B, s, H, d)).astype(np.float32) for _ in range(3))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [384, 512])
+def test_plain_flash_forward_and_grads_match_jax_at_wide_heads(d, causal):
+    q, k, v = _qkv(d, d)
+
+    def loss_j(q, k, v):
+        return jnp.sum(jax_flash_attention(q, k, v, causal, 16, 16) ** 2)
+
+    qj, kj, vj = map(jnp.asarray, (q, k, v))
+    out_j = jax_flash_attention(qj, kj, vj, causal, 16, 16)
+    g_j = jax.grad(loss_j, argnums=(0, 1, 2))(qj, kj, vj)
+    qt, kt, vt = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    out = port.flash_attention(qt, kt, vt, causal, 16, 16)
+    (out**2).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j), atol=1e-5)
+    for a, b in zip((qt.grad, kt.grad, vt.grad), g_j):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [384, 512])
+def test_plain_chunk_update_matches_jax_at_wide_heads(d):
+    """Chunk 1 of 2 (16 positions each) folds its own chunk (the diagonal),
+    then the past chunk 0, into a fresh carry; the carry after each fold
+    within 1e-5 of the JAX kernel's."""
+    q, k, v = _qkv(d + 1, d)
+    s = S // 2
+    qc = q[:, s:]
+    carry_p = port.init_carry(qc.shape, "cpu")
+    carry_j = (jnp.full((B, H, s, 128), -jnp.inf, jnp.float32), jnp.zeros((B, H, s, 128), jnp.float32),
+               jnp.zeros((B, H, s, d), jnp.float32))
+    for j in (1, 0):
+        kc, vc = k[:, j * s:(j + 1) * s], v[:, j * s:(j + 1) * s]
+        carry_j = jax_flash_chunk_update(
+            carry_j, *(jnp.moveaxis(jnp.asarray(a), 2, 1) for a in (qc, kc, vc)), s, j * s,
+            causal=True, block_q=16, block_k=16,
+        )
+        carry_p = port.flash_chunk_update(carry_p, *(torch.tensor(a) for a in (qc, kc, vc)), s, j * s, True, 16, 16)
+        m_j, l_j, acc_j = (np.asarray(x) for x in carry_j)
+        for got, ref in zip(carry_p, (m_j[..., 0], l_j[..., 0], np.swapaxes(acc_j, 1, 2))):
+            np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, err_msg=f"chunk {j}")

@@ -56,15 +56,39 @@ def test_ring_flash_on_cpu_tensors_launches_nothing():
 
 
 def test_carry_wrapper_refuses_cpu_tensors_and_other_head_sizes():
-    for d in (257, 512):  # above the largest instance (256)
+    for d in (513, 1024):  # above the largest instance (512)
         q, k, v, _ = _qkv(9, (1, 64, 2, d))
         carry = port.init_carry(q.shape, "cpu")
         with pytest.raises(ValueError, match="head_dim"):
             _kernels.flash_carry(carry, q, k, v, 0, 0, True)
-    for d in (8, 16, 32, 48, 64, 100, 128, 160, 256):  # the head sizes the kernels take (padded); still card only
+    for d in (8, 16, 32, 48, 64, 100, 128, 160, 256, 384, 512):  # the head sizes the kernels take (padded); card only
         q, k, v, _ = _qkv(9, (1, 64, 2, d))
         with pytest.raises(ValueError, match="CUDA"):
             _kernels.flash_carry(port.init_carry(q.shape, "cpu"), q, k, v, 0, 0, True)
+
+
+def test_kernel_head_dim_pads_every_head_size_to_the_next_instance():
+    for dtype, dims in ((torch.float32, (16, 32, 64, 128, 256, 512)), (torch.bfloat16, (64, 128, 256, 512))):
+        assert (_kernels.HEAD_DIMS if dtype == torch.float32 else _kernels.BF16_HEAD_DIMS) == dims
+        for d in range(1, 513):
+            assert _kernels.kernel_head_dim(dtype, d) == min(x for x in dims if x >= d), (dtype, d)
+    assert _kernels.MAX_HEAD_DIM == 512
+
+
+@pytest.mark.parametrize("kernel", list(_kernels.LAUNCHES))
+def test_kernel_route_names_the_c_path_of_every_head_size(kernel):
+    """bf16: the forward (with and without lse) takes the tensor cores up to
+    D = 256 (the D = 64 kernel up to 64, the wide one at 128 and 256), the
+    backward pair and the carry up to 64; everything else, and f32 at every
+    D, the CUDA-core instances."""
+    forward = kernel in ("flash_fwd", "flash_fwd_no_lse")
+    for d in range(1, 513):
+        kd = 64 if d <= 64 else 128 if d <= 128 else 256 if d <= 256 else 512
+        sm90 = d <= (256 if forward else 64)
+        assert _kernels.kernel_route(kernel, torch.bfloat16, d) == (
+            kd, _kernels.TENSOR_CORES if sm90 else _kernels.CUDA_CORES), d
+        assert _kernels.kernel_route(kernel, torch.float32, d) == (
+            _kernels.kernel_head_dim(torch.float32, d), _kernels.CUDA_CORES), d
 
 
 def test_flash_attention_rejects_bad_block_sizes():
@@ -85,7 +109,8 @@ def test_cuda_without_a_card_raises(monkeypatch):
 def test_library_path_follows_the_source(tmp_path, monkeypatch):
     path = _kernels.library_path()
     assert path.parent == _kernels.BUILD_DIR and path.suffix == ".so"
-    assert [src.name for src in _kernels.SOURCES] == ["flash_attn.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu"]
+    assert [src.name for src in _kernels.SOURCES] == ["flash_attn.cu", "flash_fwd_sm90.cu", "flash_fwd_wide_sm90.cu",
+                                                      "flash_bwd_sm90.cu"]
     assert [hdr.name for hdr in _kernels.HEADERS] == ["sm90_common.cuh"]
     assert all(src.is_file() for src in (*_kernels.SOURCES, *_kernels.HEADERS))
     for src in _kernels.SOURCES[1:]:  # the tensor-core sources include the header
@@ -381,7 +406,7 @@ def test_kernel_autograd_matches_dense_on_card_bf16(cuda_device):
 
 @pytest.mark.cuda
 def test_kernel_wrappers_reject_what_the_kernel_does_not_take(cuda_device):
-    q, k, v, _ = _qkv(2, (1, 64, 2, 257), torch.float32, cuda_device)
+    q, k, v, _ = _qkv(2, (1, 64, 2, 513), torch.float32, cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
         _kernels.flash_fwd(q, k, v, True, True)
     q, k, v, _ = _qkv(2, (1, 64, 2, 64), torch.float16, cuda_device)
@@ -396,15 +421,83 @@ def test_kernel_wrappers_reject_what_the_kernel_does_not_take(cuda_device):
     q, k, v, g = _qkv(2, (1, 64, 2, 64), torch.bfloat16, cuda_device)
     out, lse = _kernels.flash_fwd(q, k, v, True, True)
     delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    shifted = torch.empty(g.numel() + 1, dtype=torch.bfloat16, device=cuda_device)[1:].view(g.shape)
-    shifted.copy_(g)
-    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    shifted = _misaligned(g)
     with pytest.raises(ValueError, match="aligned"):
         _kernels.flash_bwd_dq(q, k, v, shifted, lse, delta, True)
     with pytest.raises(ValueError, match="aligned"):
         _kernels.flash_bwd_dkv(q, k, v, shifted, lse, delta, True)
     with pytest.raises(ValueError, match="aligned"):  # the carry fold's bf16 kernel loads q by TMA too
         _kernels.flash_carry(port.init_carry(q.shape, cuda_device), shifted, k, v, 0, 0, True)
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` that starts one element into its buffer
+    (not 16-byte aligned)."""
+    shifted = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    shifted.copy_(t)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    return shifted
+
+
+@pytest.mark.cuda
+def test_wide_forward_refuses_misaligned_inputs_where_the_cuda_cores_take_them(cuda_device):
+    """bf16 at D = 128: the forward runs the wide tensor-core kernel (TMA),
+    which refuses a q that is not 16-byte aligned; the backward pair and the
+    carry run the CUDA-core kernels there, which take a misaligned dO / q and
+    return what they return for the aligned copy."""
+    q, k, v, g = _qkv(2, (1, 64, 2, 128), torch.bfloat16, cuda_device)
+    _kernels.reset_launches()
+    for with_lse in (True, False):
+        with pytest.raises(ValueError, match="aligned"):
+            _kernels.flash_fwd(_misaligned(q), k, v, True, with_lse)
+    assert not any(_kernels.LAUNCHES.values())
+    out, lse = _kernels.flash_fwd(q, k, v, True, True)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    shifted = _misaligned(g)
+    assert torch.equal(_kernels.flash_bwd_dq(q, k, v, shifted, lse, delta, True),
+                       _kernels.flash_bwd_dq(q, k, v, g, lse, delta, True))
+    for a, b in zip(_kernels.flash_bwd_dkv(q, k, v, shifted, lse, delta, True),
+                    _kernels.flash_bwd_dkv(q, k, v, g, lse, delta, True)):
+        assert torch.equal(a, b)
+    carry = port.init_carry(q.shape, cuda_device)
+    for a, b in zip(_kernels.flash_carry(carry, _misaligned(q), k, v, 0, 0, True),
+                    _kernels.flash_carry(carry, q, k, v, 0, 0, True)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1024, 1000, 129, 1])
+@pytest.mark.parametrize("d", [128, 256])
+def test_wide_forward_matches_plain_version_on_card(cuda_device, d, s, causal):
+    """Rows 1-2 on the wide tensor-core forward ([4, S, 2, D] bf16): the
+    output within the split bar (1e-6 + 1 bf16 ulp + 2^-15 of the row's mass
+    (P / l) @ |V|), lse within 1e-5, the forward without lse bit-equal."""
+    q, k, v, _ = _qkv(50 + d + s, (4, s, 2, d), torch.bfloat16, cuda_device)
+    _kernels.reset_launches()
+    out, lse = _kernels.flash_fwd(q, k, v, causal, True)
+    out_p, lse_p = port.plain_flash_forward(q, k, v, causal)
+    assert out.shape == q.shape and torch.isfinite(out.float()).all()
+    _within_split_bar(out, out_p, port.plain_flash_row_mass(q, k, v, causal))
+    torch.testing.assert_close(lse, lse_p, atol=1e-5, rtol=0)
+    out_n, none = _kernels.flash_fwd(q, k, v, causal, False)
+    assert none is None and torch.equal(out_n, out)
+    assert _kernels.LAUNCHES["flash_fwd"] == _kernels.LAUNCHES["flash_fwd_no_lse"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [128, 256])
+def test_wide_eval_forward_with_other_key_length_on_card(cuda_device, d, causal):
+    """The eval forward (no lse) at batch 16 with 200 queries over 1000 keys
+    (the causal mask compares positions from 0 on both sides, as the plain
+    version's does), held to the split bar."""
+    q = _qkv(60 + d, (16, 200, 2, d), torch.bfloat16, cuda_device)[0]
+    _, k, v, _ = _qkv(61 + d, (16, 1000, 2, d), torch.bfloat16, cuda_device)
+    out, none = _kernels.flash_fwd(q, k, v, causal, False)
+    assert none is None and out.shape == q.shape
+    out_p, _ = port.plain_flash_forward(q, k, v, causal)
+    _within_split_bar(out, out_p, port.plain_flash_row_mass(q, k, v, causal))
 
 
 def _carry_close(got, ref, mass=None):
@@ -603,18 +696,20 @@ def test_ring_flash_autograd_matches_dense_on_card_bf16(cuda_device):
         torch.testing.assert_close(a.float(), b, atol=5e-2, rtol=0)
 
 
-# --- head sizes 16, 32, 48, 128, 160 and 256 ---------------------------------------
-# f32 runs instances of the CUDA-core kernels at 16, 32, 128 and 256 (48 is
-# zero-padded to 64, 160 to 256); bf16 zero-pads q, k, v, dO (and the carry's
-# acc) to 64 for the tensor-core kernels (16, 32, 48) and runs the CUDA-core
-# instances at 128 and 256 (160 padded to 256), slicing the outputs back. All
-# are held to the D = 64 bars above.
+# --- head sizes 16, 32, 48, 128, 160, 256, 384 and 512 -----------------------------
+# f32 runs instances of the CUDA-core kernels at 16, 32, 128, 256 and 512 (48
+# is zero-padded to 64, 160 to 256, 384 to 512); bf16 zero-pads q, k, v, dO
+# (and the carry's acc) to 64 for the tensor-core kernels (16, 32, 48), runs
+# the wide tensor-core forward and the CUDA-core backward pair and carry at
+# 128 and 256 (160 padded to 256) and the CUDA-core instances at 512 (384
+# padded to it), slicing the outputs back. All are held to the D = 64 bars
+# above.
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("s", [1024, 129])
-@pytest.mark.parametrize("d", [16, 32, 48, 128, 160, 256])
+@pytest.mark.parametrize("d", [16, 32, 48, 128, 160, 256, 384, 512])
 def test_narrow_head_kernels_match_plain_versions_on_card(cuda_device, d, s, dtype):
     q, k, v, g = _qkv(20 + d, (4, s, 4, d), dtype, cuda_device)
     bf16 = dtype == torch.bfloat16
@@ -645,7 +740,7 @@ def test_narrow_head_kernels_match_plain_versions_on_card(cuda_device, d, s, dty
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("d", [16, 32, 48, 128, 160, 256])
+@pytest.mark.parametrize("d", [16, 32, 48, 128, 160, 256, 384, 512])
 def test_narrow_head_autograd_matches_dense_on_card(cuda_device, d, dtype):
     """flash_attention through the kernels against autograd through dense
     attention in f32: f32 at 1e-5 / 1e-4, bf16 at 5e-2 (a random
@@ -668,7 +763,7 @@ def test_narrow_head_autograd_matches_dense_on_card(cuda_device, d, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("s", [1024, 129])
-@pytest.mark.parametrize("d", [16, 32, 48, 128, 160, 256])
+@pytest.mark.parametrize("d", [16, 32, 48, 128, 160, 256, 384, 512])
 def test_narrow_head_carry_matches_plain_version_on_card(cuda_device, d, s, dtype):
     """The diagonal fold of shard 7 into a fresh carry, a past fold into it
     and a future fold (the carry back bit-identical), at [2, S, 4, D]."""
@@ -691,7 +786,7 @@ def test_narrow_head_carry_matches_plain_version_on_card(cuda_device, d, s, dtyp
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("d", [257, 512])
+@pytest.mark.parametrize("d", [513, 1024])
 def test_other_head_sizes_are_refused_on_card(cuda_device, d, dtype):
     q, k, v, g = _qkv(2, (1, 64, 2, d), dtype, cuda_device)
     rows = torch.zeros(1, 2, 64, device=cuda_device)
