@@ -7,11 +7,12 @@ Phases, each on its own printed lines:
 
 1. env: the card (``nvidia-smi``), torch / CUDA / nvcc versions, and the
    kernels' build from ``p2pfl_tpu_torch/csrc`` (time and ptxas report:
-   registers and spills of each kernel; the tensor-core forward (D = 64,
-   and the wide one at D = 128 and 256), backward and carry kernels must not
-   spill, and the only bf16 instances of the CUDA-core kernels are the
-   backward pair's and the carry's at D = 128, 256 and 512 and the
-   forward's at 512), and the count of ``HGMMA`` (wgmma) instructions in each
+   registers and spills of each kernel; the tensor-core forward and
+   backward pair (D = 64, and the wide ones at D = 128 and 256) and carry
+   kernels must not spill, the only bf16 instances of the CUDA-core kernels
+   are the carry's at D = 128, 256 and 512 and the forward's and backward
+   pair's at 512, and every chunked kernel (rows 1-5 above D = 512, f32 and
+   bf16) is built), and the count of ``HGMMA`` (wgmma) instructions in each
    tensor-core kernel from ``cuobjdump -sass`` (each must have some).
 2. kernels: each Hopper kernel against its plain PyTorch version on the
    card at the main paths' shapes (bf16 [8, 1024, 8, 64] causal; the eval
@@ -71,8 +72,9 @@ Phases, each on its own printed lines:
    flash classifier's own shapes (bf16, head size 32, a sequence of 64: one
    partial tile): training at [16, 64, 4, 32], eval at [256, 64, 4, 32].
 6. narrow paths: the slice's LM at 16 and 32 heads (head sizes 32 and 16),
-   one round after a warm-up round each, and the ring trainer at 16 and 32
-   heads, one step after a warm-up step each; exact launch counts.
+   one round each (no warm-up round: the kernels are built and checked by
+   then), and the ring trainer at 16 and 32 heads, one step after a warm-up
+   step each; exact launch counts.
 7. mlp: ``MeshSimulation`` (task ``"classification"``, the default) at
    ``bench.py``'s metric configuration (``bench.py:78-86``,
    ``_metric_sim_run``, ``_make_data``): ``mlp_model(seed=0)`` (hidden 256,
@@ -97,8 +99,8 @@ Phases, each on its own printed lines:
 
 10. c1: rows 1-5 at head sizes 48 ([8, 1024, 8, 48]: bf16 padded to the
    64 tensor-core kernels, f32 to the 64 instance) and 128 ([8, 1024, 4,
-   128]: the bf16 forward on the wide tensor-core kernel, the bf16 backward
-   pair and carry and every f32 row on the CUDA-core <bf16 / f32, 128>
+   128]: the bf16 forward and backward pair on the wide tensor-core kernels,
+   the bf16 carry and every f32 row on the CUDA-core <bf16 / f32, 128>
    instances), held to the bars of phases 2 and 5 and timed beside aten;
    phase 6 also runs the LM and the ring at width 384 over 8 heads and at 4
    heads (D = 48 / 128).
@@ -131,14 +133,20 @@ Phases, each on its own printed lines:
 
 16. d256: rows 1-5 at head size 256 ([8, 1024, 2, 256], the eval forward
    at [16, 1024, 2, 256], one ring chunk [2, 1024, 2, 256]; the bf16 forward
-   on the wide tensor-core kernel, the rest on the CUDA-core <bf16, 256> and
-   <f32, 256> instances, 32-row tiles), held to the bars of phases 2 and 5
-   and timed beside aten; then d512: rows 1-5 the same way at head size 512
-   ([8, 1024, 1, 512], eval [16, 1024, 1, 512], ring chunk [2, 1024, 1,
-   512]; the CUDA-core <bf16 / f32, 512> instances, 16-row tiles; aten's
-   flash attention stops at 256, so the library times there are its
-   memory-efficient attention's). Then the LM and the ring at width 512 over
-   2 heads and over 1 head (D = 256 / 512), exact launch counts.
+   and backward pair on the wide tensor-core kernels, the rest on the
+   CUDA-core <bf16, 256> and <f32, 256> instances, 32-row tiles), held to
+   the bars of phases 2 and 5 and timed beside aten; then d512: rows 1-5 the
+   same way at head size 512 ([8, 1024, 1, 512], eval [16, 1024, 1, 512],
+   ring chunk [2, 1024, 1, 512]; the CUDA-core <bf16 / f32, 512> instances,
+   16-row tiles; aten's flash attention stops at 256, so the library times
+   there are its memory-efficient attention's); then d1024: rows 1-5 on the
+   chunked kernels at [1, 1024, 1, 1024] (ring chunk [2, 1024, 1, 1024])
+   and at D 600 (zero-padded to 640), bf16 and f32, held to the same bars
+   and timed beside whatever fused library call takes the shape, its
+   backend recorded ("none" where none does). Then the LM and the ring at
+   width 512 over 2 heads and over 1 head (D = 256 / 512), and at width
+   1024 over 1 head (D = 1024) cut to one layer, as in phase 6, exact launch
+   counts.
 17. cnn: ``cnn_model`` in phase 7's round (its data, committee 4, batch 64)
    for 10 rounds after a warm-up round: loss falling, final accuracy > 0.5;
    then held on the card against the CPU as phase 7 holds the MLP.
@@ -171,12 +179,13 @@ warm-up round and round) and one more MoE train step, each under
 ``torch.profiler``, printing device time by kernel class and the device's
 busy share.
 
-Any failed check exits 1 without the result lines. On success the last
+Each phase prints its wall time (``[time] phase_<name>: <s> s``). Any
+failed check exits 1 without the result lines. On success the last
 three lines are the card's name and power limit, one JSON object with a row
 per kernel (rows 1-5 at head size 64, then ``<name>_d32`` and
 ``<name>_d16``: bf16 times, with the f32 instance's beside them; then
-``<name>_d48``, ``<name>_d128``, ``<name>_d256`` and ``<name>_d512`` the same
-way; then rows
+``<name>_d48``, ``<name>_d128``, ``<name>_d256``, ``<name>_d512`` and
+``<name>_d1024`` the same way; then rows
 1-4 at the classifier's shapes, ``<name>_d32_cls``, at the longcontext
 example's, ``<name>_d16_lc``, and at the pipeline's, ``<name>_pp``; rows 1-4
 at head size 64 also carry the MoE phase's ``launches_moe``), and
@@ -223,8 +232,10 @@ RING_KERNEL_ROWS = {  # name -> (replaced TPU kernel body, launches per train st
 # Head sizes below 64: the width above over 16 and 32 heads. bf16 zero-pads
 # to the 64 instances of the tensor-core kernels; f32 has its own instances.
 NARROW_HEAD_DIMS = (32, 16)
-SOURCE_F32 = "p2pfl_tpu_torch/csrc/flash_attn.cu"  # the CUDA-core kernels: f32, and bf16 above 64 but the forward
+SOURCE_F32 = "p2pfl_tpu_torch/csrc/flash_attn.cu"  # the CUDA-core kernels: f32, and bf16's carry above 64 and all of 512
 SOURCE_FWD_WIDE = "p2pfl_tpu_torch/csrc/flash_fwd_wide_sm90.cu"  # the bf16 forward at D = 128 and 256
+SOURCE_BWD_WIDE = "p2pfl_tpu_torch/csrc/flash_bwd_wide_sm90.cu"  # the bf16 backward pair at D = 128 and 256
+SOURCE_CHUNKED = "p2pfl_tpu_torch/csrc/flash_chunked.cu"  # f32 and bf16 above D = 512
 # Head sizes up to 128 (the repair of ROADMAP queue C item 1): 48 at the LM's
 # width over 8 heads (width 384; bf16 padded to the 64 tensor-core kernels,
 # f32 to the 64 instance) and 128 at width 512 over 4 heads (the CUDA-core
@@ -236,6 +247,12 @@ C1_HEAD_DIMS = {48: 8, 128: 4}
 # 1 head (the CUDA-core <f32 / bf16, 512> instances, 16-row tiles).
 D256_HEAD_DIMS = {256: 2}
 D512_HEAD_DIMS = {512: 1}
+# Head sizes above 512 (the chunked kernels, the head size a run-time
+# argument): rows 1-5 at [1, 1024, 1, 1024] and at 600 (zero-padded to 640),
+# and the LM and the ring at width 1024 over 1 head, cut to one layer.
+D1024_HEAD_DIMS = {1024: 1}
+CHUNKED_PADDED_DIM = 600
+CHUNKED_LAYERS = 1
 
 # The MoE LM at the federated LM's widths (4 experts, every second block
 # routed, flash attention, bf16): 4 Adam steps on loss + 0.01 aux at batch
@@ -388,6 +405,9 @@ def phase_env() -> str:
         m90 = re.search(r"flash_fwd_sm90_kernelILb(\d)E", line)
         mw90 = re.search(r"flash_fwd_wide_sm90_kernelILi(\d+)ELb(\d)E", line)
         mb90 = re.search(r"(flash_bwd_dq_sm90_kernel|flash_bwd_dkv_sm90_kernel|flash_carry_sm90_kernel)", line)
+        mwb = re.search(r"(flash_bwd_dq_wide_sm90_kernel|flash_bwd_dkv_wide_sm90_kernel)ILi(\d+)E", line)
+        mch = re.search(r"(flash_fwd_chunked_kernel|flash_bwd_dq_chunked_kernel|flash_bwd_dkv_chunked_kernel|"
+                        r"flash_carry_chunked_kernel)I(13__nv_bfloat16|f)(?:Lb(\d)E)?", line)
         if m:
             entry = f"{m[1]}<{'bf16' if m[2] != 'f' else 'f32'}, D={m[3]}{', lse=' + m[4] if m[4] else ''}>"
         elif m90:
@@ -396,6 +416,10 @@ def phase_env() -> str:
             entry = f"flash_fwd_wide_sm90_kernel<bf16, D={mw90[1]}, lse={mw90[2]}>"
         elif mb90:
             entry = f"{mb90[1]}<bf16, D=64>"
+        elif mwb:
+            entry = f"{mwb[1]}<bf16, D={mwb[2]}>"
+        elif mch:
+            entry = f"{mch[1]}<{'bf16' if mch[2] != 'f' else 'f32'}{', lse=' + mch[3] if mch[3] else ''}>"
         elif entry and "spill stores" in line:
             spill = re.search(r"(\d+) bytes spill stores", line)[1]
         elif entry and "registers" in line:
@@ -412,14 +436,20 @@ def phase_env() -> str:
           "the build log lacks a wide tensor-core forward instance (D = 128 / 256, with and without lse)")
     check(all(any(e.startswith(f"flash_bwd_{k}_sm90") for e in seen) for k in ("dq", "dkv")),
           "the build log lacks a tensor-core backward kernel")
+    check(sorted(e for e in seen if "_wide_sm90" in e and e.startswith("flash_bwd")) ==
+          [f"flash_bwd_{k}_wide_sm90_kernel<bf16, D={d}>" for k in ("dkv", "dq") for d in (128, 256)],
+          "the build log lacks a wide tensor-core backward instance (dq, dk/dv at D = 128 / 256)")
+    check(sorted(e for e in seen if "_chunked_kernel" in e) ==
+          sorted([f"flash_fwd_chunked_kernel<{t}, lse={w}>" for t in ("bf16", "f32") for w in (0, 1)] +
+                 [f"flash_{k}_chunked_kernel<{t}>" for k in ("bwd_dq", "bwd_dkv", "carry") for t in ("bf16", "f32")]),
+          "the build log lacks a chunked kernel (rows 1-5 above D = 512, f32 and bf16)")
     check(any(e.startswith("flash_carry_sm90_kernel") for e in seen),
           "the build log lacks the tensor-core carry kernel")
     for simt in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_carry_kernel"):
-        # bf16 at D <= 64, and its forward at 128 and 256, run the
-        # tensor-core kernels only: the bf16 CUDA-core instances are those
-        # at D = 128, 256 and 512 of the backward pair and the carry and at
-        # 512 of the forward.
-        bf16_dims = (512,) if simt == "flash_fwd_kernel" else (128, 256, 512)
+        # bf16 at D <= 64, and its forward and backward pair at 128 and 256,
+        # run the tensor-core kernels only: the bf16 CUDA-core instances are
+        # those at D = 128, 256 and 512 of the carry and at 512 of the rest.
+        bf16_dims = (128, 256, 512) if simt == "flash_carry_kernel" else (512,)
         check(sorted({int(re.search(r"D=(\d+)", e)[1]) for e in seen if e.startswith(f"{simt}<bf16")})
               == list(bf16_dims), f"the bf16 CUDA-core instances of {simt} are not those at D = {bf16_dims}")
         for d in (128, 256, 512):
@@ -460,6 +490,9 @@ def phase_sass(lib, nvcc: str) -> None:
           "a wide bf16 forward instance (D = 128 / 256) holds no HGMMA instruction")
     bwd90 = [n for name, n in shown.items() if "flash_bwd_dq_sm90" in name or "flash_bwd_dkv_sm90" in name]
     check(len(bwd90) == 2 and all(n > 0 for n in bwd90), "a bf16 backward kernel holds no HGMMA instruction")
+    wide_bwd90 = [n for name, n in shown.items() if re.search(r"flash_bwd_(dq|dkv)_wide_sm90", name)]
+    check(len(wide_bwd90) == 4 and all(n > 0 for n in wide_bwd90),
+          "a wide bf16 backward instance (D = 128 / 256) holds no HGMMA instruction")
     carry90 = [n for name, n in shown.items() if "flash_carry_sm90" in name]
     check(len(carry90) == 1 and carry90[0] > 0, "the bf16 carry kernel holds no HGMMA instruction")
 
@@ -814,7 +847,12 @@ def narrow_rows(label: str, suffix: str, d: int, h: int, b: int, b_eval: int, s:
                                       lambda: att.plain_flash_chunk_update(diag, qc, kpc, vpc, off, 0, True),
                                       max(e_diag, e_past))
         lib: dict = {"flash_carry": None}  # no PyTorch call folds a chunk into an unnormalized carry
-        if bf16:  # aten's flash attention takes bf16 only: library times at the same shape
+        backends: dict = {}
+        if bf16 and d > _kernels.MAX_HEAD_DIM:  # the chunked kernels: whatever fused backend takes the shape
+            qh, kh, vh, gh = (t.transpose(1, 2).contiguous() for t in (q, k, v, g))
+            qeh, keh, veh = (t.transpose(1, 2).contiguous() for t in (qe, ke, ve))
+            lib, backends = library_above_512(qh, kh, vh, gh, qeh, keh, veh)
+        elif bf16:  # aten's flash attention takes bf16 only: library times at the same shape
             qh, kh, vh, gh = (t.transpose(1, 2).contiguous() for t in (q, k, v, g))
             qeh, keh, veh = (t.transpose(1, 2).contiguous() for t in (qe, ke, ve))
             with torch.no_grad():
@@ -840,6 +878,8 @@ def narrow_rows(label: str, suffix: str, d: int, h: int, b: int, b_eval: int, s:
                     b_ms, b_by = bound(name, b_eval if name == "flash_fwd_no_lse" else b, s, h, d, True, 2)
                 rows[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                              "bound_by": b_by, "library_ms": lib[name]}
+                if backends:
+                    rows[key]["library_backend"] = backends[name]
             else:
                 rows[key].update({"max_abs_err_f32": err, "ms_f32": ms, "plain_ms_f32": plain_ms})
     for key, r in rows.items():
@@ -849,6 +889,40 @@ def narrow_rows(label: str, suffix: str, d: int, h: int, b: int, b_eval: int, s:
         print(f"[{label}] {key}: bf16 {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
               f"{r['bound_ms'] / r['ms']:.1%} of it), plain {r['plain_ms']:.4f} ms; {against}{f32}")
     return rows
+
+
+def library_above_512(qh, kh, vh, gh, qeh, keh, veh) -> tuple:
+    """Library times of rows 1-4 at a head size above 512, where aten's flash
+    attention refuses the shape: ``(times, backends)``, each keyed by row.
+    Rows 1, 3 and 4 take the memory-efficient attention with its logsumexp
+    and its backward where it takes the shape; row 2 takes
+    ``F.scaled_dot_product_attention`` under the first fused backend
+    (flash, memory-efficient, cuDNN) that takes it. A row no fused backend
+    takes has no library time (None) and backend "none"; SDPA's composite
+    math path is not one call of a kernel and does not count."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    times = {"flash_fwd": None, "flash_fwd_no_lse": None, "flash_bwd_dq": None, "flash_bwd_dkv": None,
+             "flash_carry": None}
+    backends = {name: "none" for name in times}
+    try:
+        times.update(efficient_attention_ms(qh, kh, vh, gh))
+        backends.update({name: "efficient" for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")})
+    except RuntimeError as e:  # refused on the host: no kernel ran
+        print(f"  memory-efficient attention refuses the shape: {str(e).splitlines()[0][:160]}")
+    for backend, label in ((SDPBackend.FLASH_ATTENTION, "flash"), (SDPBackend.EFFICIENT_ATTENTION, "efficient"),
+                           (SDPBackend.CUDNN_ATTENTION, "cudnn")):
+        try:
+            with sdpa_kernel([backend]), torch.no_grad():
+                times["flash_fwd_no_lse"] = time_ms(
+                    lambda: F.scaled_dot_product_attention(qeh, keh, veh, is_causal=True), 20)
+            backends["flash_fwd_no_lse"] = label
+            break
+        except RuntimeError as e:
+            print(f"  SDPA's {label} backend refuses the shape: {str(e).splitlines()[0][:160]}")
+    return times, backends
 
 
 def efficient_attention_ms(qh, kh, vh, gh) -> dict:
@@ -1077,19 +1151,22 @@ def phase_ring() -> tuple:
 
 def phase_narrow_paths() -> dict:
     """The slice's LM at 16 and 32 heads (head sizes 32 and 16), at width 384
-    over 8 heads (48) and at 4 heads (128), one round after a warm-up round
-    each, and the ring trainer at the same widths and heads, one step after a
-    warm-up step each; returns the launches of each run under its rows'
-    names (``<name>_d<D>``)."""
+    over 8 heads (48) and at 4 heads (128; one round after a warm-up round),
+    one round each, and the ring trainer at the same widths and heads, one
+    step after a warm-up step each; returns the launches of each run under
+    its rows' names (``<name>_d<D>``)."""
     shapes = [(d, EMBED // d, EMBED) for d in NARROW_HEAD_DIMS] + [(d, h, d * h) for d, h in C1_HEAD_DIMS.items()]
-    return head_size_paths("narrow-paths", shapes)
+    return head_size_paths("narrow-paths", shapes, warm=(128,))
 
 
-def head_size_paths(label: str, shapes: list) -> dict:
-    """For each ``(head size, heads, width)``: the slice's LM one round after a
-    warm-up round and the ring trainer one step after a warm-up step, with
-    every count set to 0 before and read after each run; returns the
-    launches under the rows' names (``<name>_d<D>``)."""
+def head_size_paths(label: str, shapes: list, layers: int = LAYERS, warm: tuple = ()) -> dict:
+    """For each ``(head size, heads, width)``: the slice's LM (``layers``
+    layers) one round, after a warm-up round where the head size is in
+    ``warm`` (its s/round is then a warm round's; elsewhere the kernels are
+    built and checked before these paths run and the round is timed cold),
+    and the ring trainer one step after a warm-up step, with every count set
+    to 0 before and read after each run; returns the launches under the
+    rows' names (``<name>_d<D>``)."""
     import numpy as np
     from p2pfl_tpu_torch.models.transformer import transformer_lm_model
     from p2pfl_tpu_torch.ops import _kernels
@@ -1100,20 +1177,23 @@ def head_size_paths(label: str, shapes: list) -> dict:
 
     out: dict = {}
     for d, heads, width in shapes:
-        model = transformer_lm_model(seed=0, vocab_size=VOCAB, num_layers=LAYERS, num_heads=heads,
+        model = transformer_lm_model(seed=0, vocab_size=VOCAB, num_layers=layers, num_heads=heads,
                                      embed_dim=width, attention_kind="flash", device="cuda")
         train, xt = lm_data(6)
         sim = MeshSimulation(model, train, test_data=(xt, None), train_set_size=COMMITTEE,
                              batch_size=BATCH, lr=LR, seed=1, task="lm", device="cuda")
         _kernels.reset_launches()
-        res = sim.run(rounds=1, epochs=1, warmup=True)
+        runs = 2 if d in warm else 1  # the warm-up round launches as a round does
+        res = sim.run(rounds=1, epochs=1, warmup=runs == 2)
         launches = dict(_kernels.LAUNCHES)
-        print(f"[{label}] LM at width {width} over {heads} heads (D={d}): {res.seconds_per_round:.4f} s/round, "
+        print(f"[{label}] LM at width {width} over {heads} heads (D={d}, {layers} layers): "
+              f"{res.seconds_per_round:.4f} s/round ({'after a warm-up round' if runs == 2 else 'cold'}), "
               f"test loss {res.test_loss}, kernels {json.dumps(launches)}")
         check(all(np.isfinite(res.test_loss)), f"D={d} LM: non-finite test loss")
         for name, (_, per_round, _) in KERNEL_ROWS.items():
-            check(launches[name] == per_round * 2,
-                  f"D={d} LM: {name} launched {launches[name]} times, expected {per_round} x 2 (warm-up + 1)")
+            per_round = per_round * layers // LAYERS
+            check(launches[name] == per_round * runs,
+                  f"D={d} LM: {name} launched {launches[name]} times, expected {per_round} x {runs}")
             out[name + narrow_suffix(d)] = launches[name]
         del sim, model
         gc.collect()
@@ -1123,7 +1203,7 @@ def head_size_paths(label: str, shapes: list) -> dict:
     mesh = Mesh({"seq": RING_SHARDS}, device="cuda")
     tokens = shard_tokens(x, mesh)
     for d, heads, width in shapes:
-        model = transformer_lm_model(0, RING_SEQ, VOCAB, LAYERS, heads, width, "ring_flash", "seq", device="cuda")
+        model = transformer_lm_model(0, RING_SEQ, VOCAB, layers, heads, width, "ring_flash", "seq", device="cuda")
         opt = adam(LR)
         step = make_sequence_parallel_train_step(model.apply, opt, mesh, "seq")
         params, state = model.params, opt.init(model.params)
@@ -1136,7 +1216,8 @@ def head_size_paths(label: str, shapes: list) -> dict:
         print(f"[{label}] ring at width {width} over {heads} heads (D={d}): losses {losses}, "
               f"flash_carry launches {n}")
         check(all(np.isfinite(losses)), f"D={d} ring: non-finite loss")
-        check(n == RING_FOLDS * 2, f"D={d} ring: {n} carry launches, expected {RING_FOLDS} x 2")
+        folds = RING_FOLDS * layers // LAYERS
+        check(n == folds * 2, f"D={d} ring: {n} carry launches, expected {folds} x 2")
         out["flash_carry" + narrow_suffix(d)] = n
         del model, params, state, step
         gc.collect()
@@ -1588,10 +1669,39 @@ def phase_kernels_wide(label: str, head_dims: dict, seed: int) -> dict:
 
 
 def phase_wide_paths() -> dict:
-    """The slice's LM and the ring trainer at width 512 over 2 heads and over
-    1 head (D = 256 / 512); returns their launches under the ``_d256`` /
-    ``_d512`` rows' names."""
-    return head_size_paths("wide-paths", [(d, h, d * h) for d, h in {**D256_HEAD_DIMS, **D512_HEAD_DIMS}.items()])
+    """The slice's LM and the ring trainer at width 512 over 2 heads (D 256,
+    the LM after a warm-up round) and over 1 head (D 512); returns their
+    launches under the ``_d256`` / ``_d512`` rows' names."""
+    return head_size_paths("wide-paths", [(d, h, d * h) for d, h in {**D256_HEAD_DIMS, **D512_HEAD_DIMS}.items()],
+                           warm=tuple(D256_HEAD_DIMS))
+
+
+def phase_kernels_chunked() -> dict:
+    """Rows 1-5 on the chunked kernels above the largest compiled head size,
+    in bf16 and f32, held to the bars of phases 2 and 5 and timed beside
+    whatever fused library call takes the shape (``library_above_512``): at
+    D 1024 over 1 head at the chunked-paths phase's shapes ([8, 1024, 1,
+    1024], the eval forward at [16, ...], the carry at one ring chunk [2,
+    1024, 1, 1024]), and at D 600 (zero-padded to 640) at [1, 1024, 1, 600];
+    returns {"<name>_d1024": row} (the D 600 rows are printed only: no path
+    runs them)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(20)
+    rows: dict = {}
+    for d, heads in D1024_HEAD_DIMS.items():
+        rows.update(narrow_rows("d1024", narrow_suffix(d), d, heads, BATCH, EVAL_SEQS, SEQ_LEN,
+                                (torch.bfloat16, torch.float32), True, gen))
+    narrow_rows("d1024", narrow_suffix(CHUNKED_PADDED_DIM), CHUNKED_PADDED_DIM, 1, 1, 1, SEQ_LEN,
+                (torch.bfloat16, torch.float32), True, gen)
+    return rows
+
+
+def phase_chunked_paths() -> dict:
+    """The slice's LM and the ring trainer at width 1024 over 1 head (D 1024,
+    the chunked kernels), cut to one layer; returns their launches under the
+    ``_d1024`` rows' names."""
+    return head_size_paths("chunked-paths", [(d, h, d * h) for d, h in D1024_HEAD_DIMS.items()], CHUNKED_LAYERS)
 
 
 def phase_topk_ties() -> None:
@@ -1975,17 +2085,42 @@ def phase_profile(label: str, run) -> None:
         print(f"[profile]   top: {us / 1e3:8.2f} ms  {name[:110]}")
 
 
+def time_phases() -> None:
+    """Make every ``phase_*`` function print its own wall time when it
+    returns or fails (``[time] <phase>: <s> s``), so that the script's time
+    limit can be kept phase by phase."""
+    import functools
+
+    def timed(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            t0 = time.monotonic()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                print(f"[time] {fn.__name__}: {time.monotonic() - t0:.1f} s")
+        return run
+
+    for name in [n for n in globals() if n.startswith("phase_")]:
+        globals()[name] = timed(globals()[name])
+
+
 def row_source(name: str, d: int, sm90_source: str) -> str:
     """The source of the bf16 kernel that row ``name`` runs at head size
     ``d``: ``sm90_source`` (the D = 64 tensor-core kernel's) at D <= 64, the
-    wide forward's or the CUDA-core kernels' above."""
+    wide forward's or backward pair's at 128 and 256, the CUDA-core kernels'
+    elsewhere (above 512 the chunked ones)."""
     import torch
     from p2pfl_tpu_torch.ops import _kernels
 
     kd, route = _kernels.kernel_route(name, torch.bfloat16, d)
+    if route == _kernels.CHUNKED:
+        return SOURCE_CHUNKED
     if route == _kernels.CUDA_CORES:
         return SOURCE_F32
-    return sm90_source if kd == _kernels.SM90_HEAD_DIM else SOURCE_FWD_WIDE
+    if kd == _kernels.SM90_HEAD_DIM:
+        return sm90_source
+    return SOURCE_FWD_WIDE if name in ("flash_fwd", "flash_fwd_no_lse") else SOURCE_BWD_WIDE
 
 
 def main() -> int:
@@ -2004,6 +2139,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    time_phases()
     try:
         card = phase_env()
         rows = phase_kernels()
@@ -2025,8 +2161,10 @@ def main() -> int:
         rows.update(phase_kernels_c1())
         rows.update(phase_kernels_wide("d256", D256_HEAD_DIMS, 16))
         rows.update(phase_kernels_wide("d512", D512_HEAD_DIMS, 18))
+        rows.update(phase_kernels_chunked())
         launches.update(phase_narrow_paths())
         launches.update(phase_wide_paths())
+        launches.update(phase_chunked_paths())
         parts = mlp_partitions()
         phase_mlp(parts, profiling)
         phase_cnn(parts)
@@ -2054,6 +2192,8 @@ def main() -> int:
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
+    from p2pfl_tpu_torch.ops import _kernels
+
     kernels = {**KERNEL_ROWS, **RING_KERNEL_ROWS}
     # Rows 1-5 at head size 64: launches on the slice (the carry: the ring);
     # rows 1-4 also carry the MoE LM's launches at the same shapes.
@@ -2070,14 +2210,16 @@ def main() -> int:
          "launches": launches[name + narrow_suffix(d)], **rows[name + narrow_suffix(d)], "source_f32": SOURCE_F32}
         for d in NARROW_HEAD_DIMS for name, (replaces, _, source) in kernels.items()
     ]
-    # Head sizes 48, 128, 256 and 512: bf16 at 48 on the padded tensor-core
-    # kernels, the forward at 128 and 256 on SOURCE_FWD_WIDE's, the rest on
-    # the CUDA-core instances of SOURCE_F32.
+    # Head sizes 48, 128, 256, 512 and 1024: bf16 at 48 on the padded
+    # tensor-core kernels, the forward at 128 and 256 on SOURCE_FWD_WIDE's and
+    # the backward pair on SOURCE_BWD_WIDE's, the carry there and every row at
+    # 512 on the CUDA-core instances of SOURCE_F32, and every row at 1024 (f32
+    # too) on SOURCE_CHUNKED's.
     table += [
         {"name": name + narrow_suffix(d), "route": "cuda", "source": row_source(name, d, source),
          "replaces": replaces, "launches": launches[name + narrow_suffix(d)], **rows[name + narrow_suffix(d)],
-         "source_f32": SOURCE_F32}
-        for d in (*C1_HEAD_DIMS, *D256_HEAD_DIMS, *D512_HEAD_DIMS)
+         "source_f32": SOURCE_CHUNKED if d > _kernels.MAX_HEAD_DIM else SOURCE_F32}
+        for d in (*C1_HEAD_DIMS, *D256_HEAD_DIMS, *D512_HEAD_DIMS, *D1024_HEAD_DIMS)
         for name, (replaces, _, source) in kernels.items()
     ]
     # The classifier's and the longcontext example's shapes (bf16 on padded

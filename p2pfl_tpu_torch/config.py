@@ -112,6 +112,16 @@ class Settings:
     LEDGER_ENABLED: bool = _env_override("LEDGER_ENABLED", True)
     LEDGER_CAPACITY: int = _env_int("LEDGER_CAPACITY", 4096, 16, 1 << 22)
 
+    # --- device-observatory tripwires of the fused round ------------------------------
+    # Per-round health flags (a non-finite cohort loss or aggregate; a cohort
+    # loss above DEVOBS_LOSS_DIVERGE_MULT times the chunk's best finite one),
+    # read once per chunk of rounds_per_call rounds.
+    DEVOBS_ENABLED: bool = _env_override("DEVOBS_ENABLED", True)
+    # What a trip does at the chunk boundary: "abort" raises; "park" (return
+    # the partial result with the trip stamped on it) is not ported yet.
+    DEVOBS_TRIP_ACTION: str = _env_choice("DEVOBS_TRIP_ACTION", "abort", ("abort", "park"))
+    DEVOBS_LOSS_DIVERGE_MULT: float = _env_float("DEVOBS_LOSS_DIVERGE_MULT", 100.0, 1.0, 1e9)
+
     @classmethod
     def snapshot(cls) -> dict[str, Any]:
         """Copy of all current settings (upper-case attributes only)."""

@@ -13,12 +13,14 @@
 // carry fold in flash_fwd_sm90.cu, the backward pair in flash_bwd_sm90.cu,
 // launched from p2pfl_flash_fwd / p2pfl_flash_carry / p2pfl_flash_bwd_dq /
 // p2pfl_flash_bwd_dkv below (ops/_kernels.py zero-pads narrower bf16 heads to
-// 64). The bf16 forward at head sizes 128 and 256 runs the tensor-core kernel
-// of flash_fwd_wide_sm90.cu. The rest of bf16 runs the kernels here: the
-// backward pair and the carry fold at <__nv_bfloat16, 128 / 256 / 512> and the
-// forward at <__nv_bfloat16, 512> (bf16 loads, f32 arithmetic, bf16 stores; a
-// tensor-core kernel there would need its own TMA boxes and wgmma shapes);
-// no other bf16 instance of a kernel here is compiled.
+// 64). At head sizes 128 and 256 the bf16 forward runs the tensor-core
+// kernel of flash_fwd_wide_sm90.cu and the bf16 backward pair that of
+// flash_bwd_wide_sm90.cu. The rest of bf16 up to 512 runs the kernels here:
+// the carry fold at <__nv_bfloat16, 128 / 256 / 512> and the forward and the
+// backward pair at <__nv_bfloat16, 512> (bf16 loads, f32 arithmetic, bf16
+// stores); no other bf16 instance of a kernel here is compiled. Above 512,
+// f32 and bf16 run the kernels of flash_chunked.cu, whose head size is a
+// run-time argument (ops/_kernels.py zero-pads it to a multiple of 64).
 //
 // What it computes is what the TPU kernels compute: q is scaled by 1/sqrt(D)
 // in f32, every product and sum is f32, the causal mask writes -0.7 *
@@ -702,7 +704,7 @@ cudaError_t launch_carry(const void* q, const void* k, const void* v, const floa
 // ones 99,584, 132,544 and 133,632. ops/_kernels.py zero-pads any other head
 // size up to 512 to the next instance; bf16 exists at 64 (the tensor-core
 // kernels, narrower heads padded to it), 128 and 256 (the tensor-core
-// forward; the backward pair and carry here) and 512 (the kernels here).
+// forward and backward pair; the carry here) and 512 (the kernels here).
 template <typename F>
 cudaError_t with_head_dim(int head_dim, F&& launch) {
   switch (head_dim) {
@@ -716,8 +718,7 @@ cudaError_t with_head_dim(int head_dim, F&& launch) {
   }
 }
 
-// The bf16 head sizes that run the CUDA-core backward pair and carry here:
-// 128, 256 and 512.
+// The bf16 head sizes that run the CUDA-core carry here: 128, 256 and 512.
 template <typename F>
 cudaError_t with_bf16_head_dim(int head_dim, F&& launch) {
   switch (head_dim) {
@@ -746,14 +747,36 @@ cudaError_t launch_flash_carry_sm90(const void* q, const void* k, const void* v,
                                     const float* l_in, const float* acc_in, float* m_out, float* l_out,
                                     float* acc_out, int B, int Sq, int Sk, int H, float scale, bool causal,
                                     int q_offset, int kv_offset, cudaStream_t stream);
+cudaError_t launch_flash_bwd_dq_wide_sm90(const void* q, const void* k, const void* v, const void* dout,
+                                          const float* lse, const float* delta, void* dq, int B, int Sq, int Sk,
+                                          int H, int head_dim, float scale, bool causal, cudaStream_t stream);
+cudaError_t launch_flash_bwd_dkv_wide_sm90(const void* q, const void* k, const void* v, const void* dout,
+                                           const float* lse, const float* delta, void* dk, void* dv, int B, int Sq,
+                                           int Sk, int H, int head_dim, float scale, bool causal,
+                                           cudaStream_t stream);
+cudaError_t launch_flash_fwd_chunked(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
+                                     int Sk, int H, int head_dim, int dtype, float scale, bool causal,
+                                     cudaStream_t stream);
+cudaError_t launch_flash_bwd_dq_chunked(const void* q, const void* k, const void* v, const void* dout,
+                                        const float* lse, const float* delta, void* dq, int B, int Sq, int Sk, int H,
+                                        int head_dim, int dtype, float scale, bool causal, cudaStream_t stream);
+cudaError_t launch_flash_bwd_dkv_chunked(const void* q, const void* k, const void* v, const void* dout,
+                                         const float* lse, const float* delta, void* dk, void* dv, int B, int Sq,
+                                         int Sk, int H, int head_dim, int dtype, float scale, bool causal,
+                                         cudaStream_t stream);
+cudaError_t launch_flash_carry_chunked(const void* q, const void* k, const void* v, const float* m_in,
+                                       const float* l_in, const float* acc_in, float* m_out, float* l_out,
+                                       float* acc_out, int B, int Sq, int Sk, int H, int head_dim, int dtype,
+                                       float scale, bool causal, int q_offset, int kv_offset, cudaStream_t stream);
 }
 
 extern "C" {
 
 // Every entry point returns cudaErrorInvalidValue for a head size without an
-// instance: f32 has 16, 32, 64, 128, 256 and 512, bf16 has 64 (tensor
-// cores), 128 and 256 (the tensor-core forward, the CUDA-core backward pair
-// and carry) and 512 (the CUDA-core kernels above). ops/_kernels.py
+// instance: up to 512, f32 has 16, 32, 64, 128, 256 and 512, bf16 has 64
+// (tensor cores), 128 and 256 (the tensor-core forward and backward pair,
+// the CUDA-core carry) and 512 (the CUDA-core kernels above); above 512
+// both take every multiple of 64 (flash_chunked.cu). ops/_kernels.py
 // kernel_route names the kernel each call takes.
 //
 // lse == NULL selects the forward that writes no logsumexp. bf16 at 64 runs
@@ -763,6 +786,8 @@ int p2pfl_flash_fwd(const void* q, const void* k, const void* v, void* o, float*
                     int Sq, int Sk, int H, int head_dim, int dtype, float scale, int causal,
                     void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
+  if (head_dim > 512)
+    return int(p2pfl::launch_flash_fwd_chunked(q, k, v, o, lse, B, Sq, Sk, H, head_dim, dtype, scale, causal != 0, s));
   if (dtype == 0)
     return int(with_head_dim(head_dim, [&](auto d) {
       return launch_fwd<float, decltype(d)::value>(q, k, v, o, lse, B, Sq, Sk, H, scale, causal != 0, s);
@@ -776,12 +801,16 @@ int p2pfl_flash_fwd(const void* q, const void* k, const void* v, void* o, float*
   return int(cudaErrorInvalidValue);
 }
 
-// bf16 at 64 runs the tensor-core pair of flash_bwd_sm90.cu; f32, and bf16
-// at 128, 256 and 512, the CUDA-core kernels above.
+// bf16 at 64 runs the tensor-core pair of flash_bwd_sm90.cu, at 128 and 256
+// that of flash_bwd_wide_sm90.cu; f32, and bf16 at 512, the CUDA-core
+// kernels above.
 int p2pfl_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dq, int B, int Sq, int Sk,
                        int H, int head_dim, int dtype, float scale, int causal, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
+  if (head_dim > 512)
+    return int(p2pfl::launch_flash_bwd_dq_chunked(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, head_dim, dtype, scale,
+                                                  causal != 0, s));
   if (dtype == 0)
     return int(with_head_dim(head_dim, [&](auto d) {
       return launch_dq<float, decltype(d)::value>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, scale,
@@ -790,11 +819,11 @@ int p2pfl_flash_bwd_dq(const void* q, const void* k, const void* v, const void* 
   if (dtype == 1 && head_dim == 64)
     return int(p2pfl::launch_flash_bwd_dq_sm90(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, scale,
                                                causal != 0, s));
-  if (dtype == 1)
-    return int(with_bf16_head_dim(head_dim, [&](auto d) {
-      return launch_dq<__nv_bfloat16, decltype(d)::value>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, scale,
-                                                          causal != 0, s);
-    }));
+  if (dtype == 1 && (head_dim == 128 || head_dim == 256))
+    return int(p2pfl::launch_flash_bwd_dq_wide_sm90(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, head_dim, scale,
+                                                    causal != 0, s));
+  if (dtype == 1 && head_dim == 512)
+    return int(launch_dq<__nv_bfloat16, 512>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, scale, causal != 0, s));
   return int(cudaErrorInvalidValue);
 }
 
@@ -802,6 +831,9 @@ int p2pfl_flash_bwd_dkv(const void* q, const void* k, const void* v, const void*
                         const float* lse, const float* delta, void* dk, void* dv, int B, int Sq,
                         int Sk, int H, int head_dim, int dtype, float scale, int causal, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
+  if (head_dim > 512)
+    return int(p2pfl::launch_flash_bwd_dkv_chunked(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, head_dim, dtype,
+                                                   scale, causal != 0, s));
   if (dtype == 0)
     return int(with_head_dim(head_dim, [&](auto d) {
       return launch_dkv<float, decltype(d)::value>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, scale,
@@ -810,11 +842,12 @@ int p2pfl_flash_bwd_dkv(const void* q, const void* k, const void* v, const void*
   if (dtype == 1 && head_dim == 64)
     return int(p2pfl::launch_flash_bwd_dkv_sm90(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, scale,
                                                 causal != 0, s));
-  if (dtype == 1)
-    return int(with_bf16_head_dim(head_dim, [&](auto d) {
-      return launch_dkv<__nv_bfloat16, decltype(d)::value>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, scale,
-                                                           causal != 0, s);
-    }));
+  if (dtype == 1 && (head_dim == 128 || head_dim == 256))
+    return int(p2pfl::launch_flash_bwd_dkv_wide_sm90(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, head_dim, scale,
+                                                     causal != 0, s));
+  if (dtype == 1 && head_dim == 512)
+    return int(launch_dkv<__nv_bfloat16, 512>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, scale, causal != 0,
+                                              s));
   return int(cudaErrorInvalidValue);
 }
 
@@ -826,6 +859,9 @@ int p2pfl_flash_carry(const void* q, const void* k, const void* v, const float* 
                       float* acc_out, int B, int Sq, int Sk, int H, int head_dim, int dtype,
                       float scale, int causal, int q_offset, int kv_offset, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
+  if (head_dim > 512)
+    return int(p2pfl::launch_flash_carry_chunked(q, k, v, m_in, l_in, acc_in, m_out, l_out, acc_out, B, Sq, Sk, H,
+                                                 head_dim, dtype, scale, causal != 0, q_offset, kv_offset, s));
   if (dtype == 0)
     return int(with_head_dim(head_dim, [&](auto d) {
       return launch_carry<float, decltype(d)::value>(q, k, v, m_in, l_in, acc_in, m_out, l_out, acc_out, B, Sq,

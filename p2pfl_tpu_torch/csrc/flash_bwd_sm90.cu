@@ -84,16 +84,6 @@ constexpr int kConsumerRegs = 232;
 
 static_assert(kProducerRegs * 128 + kConsumerRegs * 128 * kConsumers <= 65536, "register file");
 
-__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
-  float2 v;
-  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void sts_f32(uint32_t addr, float v) {
-  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
-}
-
 // Store mul * acc, one consumer thread's rows row0 and row0 + 8 of an
 // m64n64 accumulator, as bf16 into a [B, S, H, 64] tensor; rows past S are
 // not written.

@@ -12,21 +12,24 @@ contiguity, allocates its outputs with ``torch.empty``, launches on the
 current stream, raises if the launch reports an error, and adds one to its
 entry in :data:`LAUNCHES`.
 
-Head sizes: any D up to 512. The f32 kernels have instances at 16, 32, 64,
-128, 256 and 512, all on the CUDA cores. bf16 runs the tensor-core kernels
-at 64 (forward, backward pair, carry fold) and the tensor-core forward at
-128 and 256; its backward pair and carry fold at 128 and 256, and all of it
-at 512, run CUDA-core instances (:func:`kernel_route`). A call at another D
-copies q, k, v (dO; the carry's acc) into zeroed ``[B, S, H, D']`` buffers,
-D' the next instance (bf16: 64 for D <= 64, else the next of 128, 256 and
-512), launches that instance with the true scale ``1/sqrt(D)`` and slices
-the outputs back to D. That is exact: zero columns add exact zeros to
-``Q.K^T`` and ``dO.V^T``, leave ``delta`` (computed by the caller at D) as
-it is, and come out as exact zeros in O, acc, dQ, dK and dV. It is the
-kernel all the same, never the plain version, and it counts in
-:data:`LAUNCHES`; native instances would save the padding's copies. A head
-size above 512 raises ``ValueError``. The plain versions and the choice
-between them and these kernels live in :mod:`p2pfl_tpu_torch.ops.attention`.
+Head sizes: any D >= 1. Up to 512 the f32 kernels have instances at 16, 32,
+64, 128, 256 and 512, all on the CUDA cores. bf16 runs the tensor-core
+kernels at 64 (forward, backward pair, carry fold) and the tensor-core
+forward and backward pair at 128 and 256; its carry fold at 128 and 256,
+and all of it at 512, run CUDA-core instances. Above 512, f32 and bf16 run
+the CUDA-core kernels of ``csrc/flash_chunked.cu``, which take the head size
+at run time and build each score tile a 64-column panel of D at a time
+(:func:`kernel_route`). A call at another D copies q, k, v (dO; the
+carry's acc) into zeroed ``[B, S, H, D']`` buffers, D' the next instance
+(bf16: 64 for D <= 64, else the next of 128, 256 and 512; above 512 the
+next multiple of 64), launches that instance with the true scale
+``1/sqrt(D)`` and slices the outputs back to D. That is exact: zero
+columns add exact zeros to ``Q.K^T`` and ``dO.V^T``, leave ``delta``
+(computed by the caller at D) as it is, and come out as exact zeros in O,
+acc, dQ, dK and dV. It is the kernel all the same, never the plain
+version, and it counts in :data:`LAUNCHES`; native instances would save the
+padding's copies. The plain versions and the choice between them and these
+kernels live in :mod:`p2pfl_tpu_torch.ops.attention`.
 """
 
 from __future__ import annotations
@@ -50,6 +53,8 @@ SOURCES = (
     _PKG / "csrc" / "flash_fwd_sm90.cu",  # bf16 forward and carry fold on the tensor cores
     _PKG / "csrc" / "flash_fwd_wide_sm90.cu",  # bf16 forward at D = 128 and 256 on the tensor cores
     _PKG / "csrc" / "flash_bwd_sm90.cu",  # bf16 backward pair (dq; dk/dv) on the tensor cores
+    _PKG / "csrc" / "flash_bwd_wide_sm90.cu",  # bf16 backward pair at D = 128 and 256 on the tensor cores
+    _PKG / "csrc" / "flash_chunked.cu",  # f32 and bf16 above D = 512, the head size a run-time argument
 )
 HEADERS = (_PKG / "csrc" / "sm90_common.cuh",)  # included by the *_sm90.cu sources
 BUILD_DIR = _PKG.parent / "build"
@@ -60,9 +65,13 @@ NVCC_FLAGS = (
 HEAD_DIMS = (16, 32, 64, 128, 256, 512)  # the f32 instances of csrc/flash_attn.cu; other D <= 512 pad to the next
 BF16_HEAD_DIMS = (64, 128, 256, 512)  # the bf16 instances (kernel_route says which run on the tensor cores)
 SM90_HEAD_DIM = 64  # the bf16 tensor-core forward, backward pair and carry fold
-SM90_FWD_HEAD_DIMS = (64, 128, 256)  # the bf16 tensor-core forward (csrc/flash_fwd_wide_sm90.cu above 64)
-MAX_HEAD_DIM = HEAD_DIMS[-1]
+# The bf16 tensor-core forward and backward pair (csrc/flash_fwd_wide_sm90.cu
+# and csrc/flash_bwd_wide_sm90.cu above 64); the carry fold's is SM90_HEAD_DIM.
+SM90_WIDE_HEAD_DIMS = (64, 128, 256)
+MAX_HEAD_DIM = HEAD_DIMS[-1]  # the largest compiled instance; above it the chunked kernels
+CHUNK = 64  # the panel of D of the chunked kernels: above MAX_HEAD_DIM, D pads to a multiple of it
 TENSOR_CORES, CUDA_CORES = "tensor cores", "CUDA cores"
+CHUNKED = "CUDA cores, D in 64-column panels"  # csrc/flash_chunked.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Launches per kernel since the last :func:`reset_launches`. Incremented only
@@ -183,24 +192,32 @@ def _check_bshd(name: str, *ts: torch.Tensor) -> None:
 
 def kernel_head_dim(dtype: torch.dtype, d: int) -> int:
     """The instance a call at head size ``d`` runs: the smallest of
-    :data:`HEAD_DIMS` (f32) or :data:`BF16_HEAD_DIMS` (bf16) not below ``d``."""
+    :data:`HEAD_DIMS` (f32) or :data:`BF16_HEAD_DIMS` (bf16) not below ``d``;
+    above :data:`MAX_HEAD_DIM`, ``d`` rounded up to a multiple of
+    :data:`CHUNK`."""
+    if d > MAX_HEAD_DIM:
+        return -(-d // CHUNK) * CHUNK
     return next(x for x in (BF16_HEAD_DIMS if dtype == torch.bfloat16 else HEAD_DIMS) if x >= d)
 
 
 def kernel_route(kernel: str, dtype: torch.dtype, d: int) -> Tuple[int, str]:
-    """``(instance head size, TENSOR_CORES or CUDA_CORES)`` that a call of
-    ``kernel`` (a :data:`LAUNCHES` name) at head size ``d`` runs, as the C
-    entry points of ``csrc/flash_attn.cu`` dispatch it: bf16 forwards at
-    :data:`SM90_FWD_HEAD_DIMS` and every bf16 kernel at
-    :data:`SM90_HEAD_DIM` take the tensor cores, the rest the CUDA cores."""
+    """``(instance head size, TENSOR_CORES, CUDA_CORES or CHUNKED)`` that a
+    call of ``kernel`` (a :data:`LAUNCHES` name) at head size ``d`` runs, as
+    the C entry points of ``csrc/flash_attn.cu`` dispatch it: bf16 forwards
+    and backward pairs at :data:`SM90_WIDE_HEAD_DIMS` and the bf16 carry
+    fold at :data:`SM90_HEAD_DIM` take the tensor cores, every call above
+    :data:`MAX_HEAD_DIM` the chunked kernels, the rest the CUDA-core
+    instances."""
     kd = kernel_head_dim(dtype, d)
-    sm90 = SM90_FWD_HEAD_DIMS if kernel in ("flash_fwd", "flash_fwd_no_lse") else (SM90_HEAD_DIM,)
+    if kd > MAX_HEAD_DIM:
+        return kd, CHUNKED
+    sm90 = (SM90_HEAD_DIM,) if kernel == "flash_carry" else SM90_WIDE_HEAD_DIMS
     return kd, TENSOR_CORES if dtype == torch.bfloat16 and kd in sm90 else CUDA_CORES
 
 
 def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.dim() == 4 and not 1 <= q.shape[-1] <= MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head_dim {q.shape[-1]} not supported (1 to {MAX_HEAD_DIM})")
+    if q.dim() == 4 and q.shape[-1] < 1:
+        raise ValueError(f"{name}: head_dim {q.shape[-1]} not supported (at least 1)")
     _check_bshd(name, q, k, v)
     b, _, h, d = q.shape
     if k.shape != v.shape or (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d):
@@ -253,7 +270,7 @@ def flash_fwd(
 
     bf16 up to D = 256 runs the tensor-core kernels (D = 64 and, above it,
     128 and 256), whose TMA loads need every tensor 16-byte aligned; f32, and
-    bf16 above 256, run the CUDA-core kernels."""
+    bf16 above 256, run the CUDA-core kernels (above 512 the chunked ones)."""
     name = "flash_fwd" if with_lse else "flash_fwd_no_lse"
     _check_qkv(name, q, k, v)
     lib = _load()
@@ -278,8 +295,9 @@ def flash_bwd_dq(
 ) -> torch.Tensor:
     """Kernel dq from the forward's ``lse`` and ``delta = rowsum(dO * O)``.
 
-    bf16 at D <= 64 runs the tensor-core kernel (16-byte-aligned tensors, as
-    the forward); f32, and bf16 above 64, run the CUDA-core kernels."""
+    bf16 up to D = 256 runs the tensor-core kernels (D = 64 and, above it,
+    128 and 256; 16-byte-aligned tensors, as the forward); f32, and bf16
+    above 256, run the CUDA-core kernels."""
     _check_qkv("flash_bwd_dq", q, k, v)
     _check_bshd("flash_bwd_dq", q, do)
     if do.shape != q.shape:

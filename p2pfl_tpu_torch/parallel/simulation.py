@@ -442,11 +442,13 @@ class MeshSimulation:
 
     def _round(
         self, st: Dict[str, Any], round_idx: int, epochs: int, committee: Optional[torch.Tensor],
-        do_eval: bool, fold_pos: Optional[torch.Tensor] = None,
-    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        do_eval: bool, fold_pos: Optional[torch.Tensor] = None, devobs: bool = False,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
         """Run one round on the state ``st`` (``params``, ``opt``, ``c``,
         ``c_global``), in place; returns ``(committee, train_loss,
-        test_loss, test_acc)`` (NaN test values when ``do_eval`` is off)."""
+        test_loss, test_acc, nonfinite)`` (NaN test values when ``do_eval``
+        is off). ``nonfinite`` is, with ``devobs``, a device bool: a member's
+        loss or a leaf of the aggregate is not finite; else None."""
         params, opt, scaffold = st["params"], st["opt"], self.algorithm == "scaffold"
         if committee is None:
             committee = vote_committee(
@@ -524,6 +526,13 @@ class MeshSimulation:
                 agg = {k: (anchor[k] + updates[k]).to(agg[k].dtype) for k in anchor}
                 st["c_global"] = {"server_opt": new_state}
         del p_k_new, p_k
+        member_losses = torch.stack(losses)
+        nonfinite = None
+        if devobs:
+            # A leaf's largest |x| is finite exactly when all of it is: one
+            # multi-tensor reduction over the aggregate, then one isfinite.
+            amax = torch.stack(torch._foreach_norm(list(agg.values()), float("inf"))).float()
+            nonfinite = ~torch.isfinite(torch.cat([member_losses.float(), amax])).all()
         # Diffusion: every node adopts the aggregate (gossip's fixed point).
         for k, v in params.items():
             v.copy_(agg[k][None].expand_as(v))
@@ -533,7 +542,7 @@ class MeshSimulation:
             test_loss = test_acc = torch.zeros((), device=self.device)
         else:
             test_loss = test_acc = torch.full((), float("nan"), device=self.device)
-        return committee, torch.stack(losses).mean(), test_loss, test_acc
+        return committee, member_losses.mean(), test_loss, test_acc, nonfinite
 
     # --- public API -------------------------------------------------------------
 
@@ -559,9 +568,18 @@ class MeshSimulation:
         With ``warmup`` one extra round runs first on a copy of the state
         (kernel builds, allocator growth and library setup fall outside the
         timing; a round index the real run never uses) and is thrown away.
-        ``rounds_per_call`` (the JAX package's compiled chunk of rounds) is
-        validated; the port launches every round on its own, in order, with
-        RNG keyed by the absolute round index, so it changes nothing else.
+        ``rounds_per_call`` is the JAX package's compiled chunk of rounds:
+        the port launches every round on its own, in order, with RNG keyed
+        by the absolute round index, and reads the rounds' health flags
+        once per chunk. With ``Settings.DEVOBS_ENABLED`` each round flags,
+        on the device, a non-finite member loss or aggregate
+        (``"nonfinite"``) and a cohort loss above
+        ``DEVOBS_LOSS_DIVERGE_MULT`` times the chunk's best finite one
+        (``"loss_diverge"``); after a chunk that flagged, no further round
+        runs, ``completed_rounds`` counts that chunk's rounds and, under
+        ``DEVOBS_TRIP_ACTION="abort"``, the JAX package's ``RuntimeError``
+        ("devobs tripwire: <kind> at round <r> (chunk <c>); ...") is raised
+        for the chunk's first flagged round.
         ``eval_every=k`` evaluates every k-th round (absolute index) and
         always the final one; ``test_acc`` / ``test_loss`` hold only the
         evaluated rounds. ``committee_schedule`` (``[rounds, K]`` node
@@ -622,28 +640,56 @@ class MeshSimulation:
             del copy
             self._sync()
 
+        devobs = bool(Settings.DEVOBS_ENABLED)  # read once per run, as the JAX package does
+        rounds_per_call = min(rounds_per_call, rounds)
+        diverge_mult = float(Settings.DEVOBS_LOSS_DIVERGE_MULT)
         committees, test_loss, test_acc = [], [], []
+        flags: List[torch.Tensor] = []  # the chunk's [nonfinite, diverged] per round, on the device
+        floor = torch.full((), float("inf"), device=self.device)  # the chunk's best finite cohort loss
+        trip: Optional[Dict[str, Any]] = None
         st = self._state()
+        done = 0
         t0 = time.monotonic()
         for i in range(rounds):
             r = start + i
             do_eval = (r + 1) % eval_every == 0 or i == rounds - 1
-            comm, _, tl, ta = self._round(st, r, epochs, row(sched, i), do_eval, row(fsched, i))
+            comm, tr, tl, ta, nonfinite = self._round(st, r, epochs, row(sched, i), do_eval, row(fsched, i),
+                                                      devobs)
+            chunk_end = (i + 1) % rounds_per_call == 0 or i == rounds - 1
             if self._ledger is not None:
-                self._ledger_emit_round(r, comm, row(fsched, i),
-                                        (i + 1) % rounds_per_call == 0 or i == rounds - 1)
+                self._ledger_emit_round(r, comm, row(fsched, i), chunk_end)
             committees.append(comm)
             test_loss.append(tl)
             test_acc.append(ta)
+            done = i + 1
+            if devobs:
+                finite = torch.isfinite(tr)
+                flags.append(torch.stack([nonfinite, finite & torch.isfinite(floor) & (tr > diverge_mult * floor)]))
+                floor = torch.where(finite, torch.minimum(floor, tr), floor)
+                if chunk_end:  # one read of the chunk's flags, as the JAX package fetches its aux once a chunk
+                    trip = _first_trip(torch.stack(flags).cpu().numpy(), r + 1 - len(flags), i // rounds_per_call)
+                    flags, floor = [], torch.full_like(floor, float("inf"))
+                    if trip is not None:
+                        break
         self._sync()
         dt = time.monotonic() - t0
         self.opt_stack, self.c_global = st["opt"], st["c_global"]
-        self.completed_rounds = start + rounds
-        steps = rounds * epochs * (self.x.shape[1] // self.batch_size)
+        self.completed_rounds = start + done
+        steps = done * epochs * (self.x.shape[1] // self.batch_size)
         if self.dp_clip_norm > 0.0:
             self._dp_steps_per_node += steps
         else:
             self._nonprivate_steps_per_node += steps
+        if trip is not None:
+            if Settings.DEVOBS_TRIP_ACTION == "park":
+                raise _not_ported(
+                    f"DEVOBS_TRIP_ACTION='park' (the partial result of a run tripped by {trip['kind']} at round "
+                    f"{trip['round']})", "the async engine, ROADMAP.md queue A item 13")
+            raise RuntimeError(
+                f"devobs tripwire: {trip['kind']} at round {trip['round']} (chunk {trip['chunk']}); flight "
+                f"recorder dump: None; state parked at round {self.completed_rounds} — set "
+                "P2PFL_TPU_DEVOBS_TRIP_ACTION=park to receive partial results instead"
+            )
         loss_all = torch.stack(test_loss).cpu().numpy()
         acc_all = torch.stack(test_acc).cpu().numpy()
         evaluated = ~np.isnan(acc_all)
@@ -773,6 +819,19 @@ class MeshSimulation:
 
     def fleet_snapshot(self, result: SimulationResult, *args, **kwargs):
         raise _not_ported("MeshSimulation.fleet_snapshot", "the observatory (telemetry/)")
+
+
+def _first_trip(flags: np.ndarray, first_round: int, chunk: int) -> Optional[Dict[str, Any]]:
+    """The first trip of a chunk from its ``[rounds, 2]`` (nonfinite,
+    diverged) flags, as the JAX package picks it: the earlier round, and
+    ``"nonfinite"`` before ``"loss_diverge"`` in the same round; None if
+    no round flagged."""
+    trips = [(kind, first_round + int(np.flatnonzero(col)[0]))
+             for kind, col in (("nonfinite", flags[:, 0]), ("loss_diverge", flags[:, 1])) if col.any()]
+    if not trips:
+        return None
+    kind, rnd = min(trips, key=lambda kv: kv[1])
+    return {"kind": kind, "round": rnd, "chunk": chunk}
 
 
 def _stack_partitions(partitions: Sequence[FederatedDataset]) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

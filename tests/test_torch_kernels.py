@@ -56,12 +56,11 @@ def test_ring_flash_on_cpu_tensors_launches_nothing():
 
 
 def test_carry_wrapper_refuses_cpu_tensors_and_other_head_sizes():
-    for d in (513, 1024):  # above the largest instance (512)
-        q, k, v, _ = _qkv(9, (1, 64, 2, d))
-        carry = port.init_carry(q.shape, "cpu")
-        with pytest.raises(ValueError, match="head_dim"):
-            _kernels.flash_carry(carry, q, k, v, 0, 0, True)
-    for d in (8, 16, 32, 48, 64, 100, 128, 160, 256, 384, 512):  # the head sizes the kernels take (padded); card only
+    q, k, v, _ = _qkv(9, (1, 64, 2, 0))  # an empty head: the only head size no kernel takes
+    with pytest.raises(ValueError, match="head_dim"):
+        _kernels.flash_carry(port.init_carry(q.shape, "cpu"), q, k, v, 0, 0, True)
+    # The head sizes the kernels take (padded; above 512 the chunked kernels): card only.
+    for d in (8, 16, 32, 48, 64, 100, 128, 160, 256, 384, 512, 513, 640, 1024):
         q, k, v, _ = _qkv(9, (1, 64, 2, d))
         with pytest.raises(ValueError, match="CUDA"):
             _kernels.flash_carry(port.init_carry(q.shape, "cpu"), q, k, v, 0, 0, True)
@@ -72,23 +71,29 @@ def test_kernel_head_dim_pads_every_head_size_to_the_next_instance():
         assert (_kernels.HEAD_DIMS if dtype == torch.float32 else _kernels.BF16_HEAD_DIMS) == dims
         for d in range(1, 513):
             assert _kernels.kernel_head_dim(dtype, d) == min(x for x in dims if x >= d), (dtype, d)
-    assert _kernels.MAX_HEAD_DIM == 512
+        for d in range(513, 2100):  # the chunked kernels: the next multiple of 64
+            assert _kernels.kernel_head_dim(dtype, d) == 64 * ((d + 63) // 64), (dtype, d)
+    assert _kernels.MAX_HEAD_DIM == 512 and _kernels.CHUNK == 64
 
 
 @pytest.mark.parametrize("kernel", list(_kernels.LAUNCHES))
 def test_kernel_route_names_the_c_path_of_every_head_size(kernel):
-    """bf16: the forward (with and without lse) takes the tensor cores up to
-    D = 256 (the D = 64 kernel up to 64, the wide one at 128 and 256), the
-    backward pair and the carry up to 64; everything else, and f32 at every
-    D, the CUDA-core instances."""
-    forward = kernel in ("flash_fwd", "flash_fwd_no_lse")
+    """bf16: the forward (with and without lse) and the backward pair take
+    the tensor cores up to D = 256 (the D = 64 kernels up to 64, the wide
+    ones at 128 and 256), the carry up to 64; everything else up to 512, and
+    f32 at every D up to 512, the CUDA-core instances; every call above 512
+    the chunked kernels at the next multiple of 64."""
+    carry = kernel == "flash_carry"
     for d in range(1, 513):
         kd = 64 if d <= 64 else 128 if d <= 128 else 256 if d <= 256 else 512
-        sm90 = d <= (256 if forward else 64)
+        sm90 = d <= (64 if carry else 256)
         assert _kernels.kernel_route(kernel, torch.bfloat16, d) == (
             kd, _kernels.TENSOR_CORES if sm90 else _kernels.CUDA_CORES), d
         assert _kernels.kernel_route(kernel, torch.float32, d) == (
             _kernels.kernel_head_dim(torch.float32, d), _kernels.CUDA_CORES), d
+    for d in (513, 576, 577, 640, 1000, 1024, 4096):
+        for dtype in (torch.bfloat16, torch.float32):
+            assert _kernels.kernel_route(kernel, dtype, d) == (64 * ((d + 63) // 64), _kernels.CHUNKED), (dtype, d)
 
 
 def test_flash_attention_rejects_bad_block_sizes():
@@ -110,11 +115,12 @@ def test_library_path_follows_the_source(tmp_path, monkeypatch):
     path = _kernels.library_path()
     assert path.parent == _kernels.BUILD_DIR and path.suffix == ".so"
     assert [src.name for src in _kernels.SOURCES] == ["flash_attn.cu", "flash_fwd_sm90.cu", "flash_fwd_wide_sm90.cu",
-                                                      "flash_bwd_sm90.cu"]
+                                                      "flash_bwd_sm90.cu", "flash_bwd_wide_sm90.cu",
+                                                      "flash_chunked.cu"]
     assert [hdr.name for hdr in _kernels.HEADERS] == ["sm90_common.cuh"]
     assert all(src.is_file() for src in (*_kernels.SOURCES, *_kernels.HEADERS))
-    for src in _kernels.SOURCES[1:]:  # the tensor-core sources include the header
-        assert '#include "sm90_common.cuh"' in src.read_text()
+    for src in _kernels.SOURCES:  # the tensor-core sources, and only they, include the header
+        assert ('#include "sm90_common.cuh"' in src.read_text()) == ("_sm90" in src.name), src.name
     assert "arch=compute_90a,code=sm_90a" in _kernels.NVCC_FLAGS
     # The library's name follows the content of every source and header.
     copies = {}
@@ -406,7 +412,7 @@ def test_kernel_autograd_matches_dense_on_card_bf16(cuda_device):
 
 @pytest.mark.cuda
 def test_kernel_wrappers_reject_what_the_kernel_does_not_take(cuda_device):
-    q, k, v, _ = _qkv(2, (1, 64, 2, 513), torch.float32, cuda_device)
+    q, k, v, _ = _qkv(2, (1, 64, 2, 0), torch.float32, cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
         _kernels.flash_fwd(q, k, v, True, True)
     q, k, v, _ = _qkv(2, (1, 64, 2, 64), torch.float16, cuda_device)
@@ -441,24 +447,16 @@ def _misaligned(t):
 
 @pytest.mark.cuda
 def test_wide_forward_refuses_misaligned_inputs_where_the_cuda_cores_take_them(cuda_device):
-    """bf16 at D = 128: the forward runs the wide tensor-core kernel (TMA),
-    which refuses a q that is not 16-byte aligned; the backward pair and the
-    carry run the CUDA-core kernels there, which take a misaligned dO / q and
-    return what they return for the aligned copy."""
+    """bf16 at D = 128: the forward and the backward pair run the wide
+    tensor-core kernels (TMA), which refuse a q or dO that is not 16-byte
+    aligned; the carry runs the CUDA-core kernel there, which takes a
+    misaligned q and returns what it returns for the aligned copy."""
     q, k, v, g = _qkv(2, (1, 64, 2, 128), torch.bfloat16, cuda_device)
     _kernels.reset_launches()
     for with_lse in (True, False):
         with pytest.raises(ValueError, match="aligned"):
             _kernels.flash_fwd(_misaligned(q), k, v, True, with_lse)
     assert not any(_kernels.LAUNCHES.values())
-    out, lse = _kernels.flash_fwd(q, k, v, True, True)
-    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    shifted = _misaligned(g)
-    assert torch.equal(_kernels.flash_bwd_dq(q, k, v, shifted, lse, delta, True),
-                       _kernels.flash_bwd_dq(q, k, v, g, lse, delta, True))
-    for a, b in zip(_kernels.flash_bwd_dkv(q, k, v, shifted, lse, delta, True),
-                    _kernels.flash_bwd_dkv(q, k, v, g, lse, delta, True)):
-        assert torch.equal(a, b)
     carry = port.init_carry(q.shape, cuda_device)
     for a, b in zip(_kernels.flash_carry(carry, _misaligned(q), k, v, 0, 0, True),
                     _kernels.flash_carry(carry, q, k, v, 0, 0, True)):
@@ -784,21 +782,116 @@ def test_narrow_head_carry_matches_plain_version_on_card(cuda_device, d, s, dtyp
     assert _kernels.LAUNCHES["flash_carry"] == 3
 
 
+# --- the bf16 backward pair at D = 128 and 256 on the tensor cores ----------------
+
+
+def _check_backward(q, k, v, g, causal):
+    """The kernel pair against its plain version from the kernel forward's lse
+    and delta: bf16 within the split bar, f32 within 1e-4; one launch each."""
+    out, lse = _kernels.flash_fwd(q, k, v, causal, True)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    _kernels.reset_launches()
+    got = (_kernels.flash_bwd_dq(q, k, v, g, lse, delta, causal), *_kernels.flash_bwd_dkv(q, k, v, g, lse, delta, causal))
+    assert _kernels.LAUNCHES["flash_bwd_dq"] == _kernels.LAUNCHES["flash_bwd_dkv"] == 1
+    ref = (port.plain_flash_backward_dq(q, k, v, g, lse, delta, causal),
+           *port.plain_flash_backward_dkv(q, k, v, g, lse, delta, causal))
+    masses = port.plain_flash_grad_mass(q, k, v, g, lse, delta, causal)
+    for a, b, m, like in zip(got, ref, masses, (q, k, v)):
+        assert a.shape == like.shape and a.dtype == like.dtype and torch.isfinite(a.float()).all()
+        if a.dtype == torch.bfloat16:
+            _within_split_bar(a, b, m)
+        else:
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1024, 1000, 129, 1])
+@pytest.mark.parametrize("d", [128, 256])
+def test_wide_backward_matches_plain_version_on_card(cuda_device, d, s, causal):
+    """Rows 3-4 on the wide tensor-core pair ([4, S, 2, D] bf16): dq, dk and
+    dv within the split bar (1e-6 + 1 bf16 ulp + 2^-15 of their weighted
+    mass, plain_flash_grad_mass)."""
+    assert _kernels.kernel_route("flash_bwd_dq", torch.bfloat16, d) == (d, _kernels.TENSOR_CORES)
+    q, k, v, g = _qkv(70 + d + s, (4, s, 2, d), torch.bfloat16, cuda_device)
+    _check_backward(q, k, v, g, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(200, 1000), (1000, 200), (129, 64)])
+@pytest.mark.parametrize("d", [128, 256])
+def test_wide_backward_with_other_key_length_on_card(cuda_device, d, sq, sk, causal):
+    """Sq != Sk (the causal mask compares positions from 0 on both sides, as
+    the plain version's does), held to the split bar."""
+    q, _, _, g = _qkv(80 + d + sq, (2, sq, 2, d), torch.bfloat16, cuda_device)
+    _, k, v, _ = _qkv(81 + d + sk, (2, sk, 2, d), torch.bfloat16, cuda_device)
+    _check_backward(q, k, v, g, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 256])
+def test_wide_backward_refuses_misaligned_inputs_on_card(cuda_device, d):
+    """The wide pair loads by TMA: a q, k, v or dO that is not 16-byte
+    aligned is refused before anything launches; the aligned copies pass."""
+    q, k, v, g = _qkv(2, (1, 64, 2, d), torch.bfloat16, cuda_device)
+    out, lse = _kernels.flash_fwd(q, k, v, True, True)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    _kernels.reset_launches()
+    for args in ((_misaligned(q), k, v, g), (q, _misaligned(k), v, g), (q, k, _misaligned(v), g),
+                 (q, k, v, _misaligned(g))):
+        with pytest.raises(ValueError, match="aligned"):
+            _kernels.flash_bwd_dq(*args, lse, delta, True)
+        with pytest.raises(ValueError, match="aligned"):
+            _kernels.flash_bwd_dkv(*args, lse, delta, True)
+    assert not any(_kernels.LAUNCHES.values())
+    _check_backward(q, k, v, g, True)
+
+
+# --- any head size above 512: the chunked kernels --------------------------------
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("d", [513, 1024])
-def test_other_head_sizes_are_refused_on_card(cuda_device, d, dtype):
-    q, k, v, g = _qkv(2, (1, 64, 2, d), dtype, cuda_device)
-    rows = torch.zeros(1, 2, 64, device=cuda_device)
-    calls = (lambda: _kernels.flash_fwd(q, k, v, True, True),
-             lambda: _kernels.flash_bwd_dq(q, k, v, g, rows, rows, True),
-             lambda: _kernels.flash_bwd_dkv(q, k, v, g, rows, rows, True),
-             lambda: _kernels.flash_carry(port.init_carry(q.shape, cuda_device), q, k, v, 0, 0, True))
+@pytest.mark.parametrize("d", [513, 640, 1024])
+def test_chunked_kernels_match_plain_versions_on_card(cuda_device, d, dtype):
+    """Rows 1-5 above the largest compiled instance ([2, 129, 2, D]; D = 513
+    zero-padded to 576): the forward with and without lse, the backward pair
+    and a diagonal, a past and a future carry fold against their plain
+    versions, at flash_attn.cu's CUDA-core bars (the chunked kernels compute
+    in f32 throughout: bf16 outputs within 1 bf16 ulp, f32 forward and carry
+    1e-5, f32 gradients 1e-4), each launching once and counting."""
+    assert _kernels.kernel_route("flash_fwd", dtype, d) == (64 * ((d + 63) // 64), _kernels.CHUNKED)
+    q, k, v, g = _qkv(90 + d, (2, 129, 2, d), dtype, cuda_device)
+    bf16 = dtype == torch.bfloat16
+    close = _within_one_bf16_ulp if bf16 else (lambda a, b: torch.testing.assert_close(a, b, atol=1e-5, rtol=0))
     _kernels.reset_launches()
-    for call in calls:
-        with pytest.raises(ValueError, match="head_dim"):
-            call()
-    assert not any(_kernels.LAUNCHES.values())
+    out, lse = _kernels.flash_fwd(q, k, v, True, True)
+    out_p, lse_p = port.plain_flash_forward(q, k, v, True)
+    assert out.shape == q.shape and out.dtype == dtype
+    close(out, out_p)
+    torch.testing.assert_close(lse, lse_p, atol=1e-5, rtol=0)
+    torch.testing.assert_close(_kernels.flash_fwd(q, k, v, True, False)[0], out, atol=0, rtol=0)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    got = (_kernels.flash_bwd_dq(q, k, v, g, lse, delta, True), *_kernels.flash_bwd_dkv(q, k, v, g, lse, delta, True))
+    ref = (port.plain_flash_backward_dq(q, k, v, g, lse, delta, True),
+           *port.plain_flash_backward_dkv(q, k, v, g, lse, delta, True))
+    for a, b in zip(got, ref):
+        assert a.shape == q.shape and torch.isfinite(a.float()).all()
+        if bf16:
+            _within_one_bf16_ulp(a, b)
+        else:
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+    off = 7 * 129
+    carry = port.init_carry(q.shape, cuda_device)
+    for kv_off in (off, 0):  # the diagonal fold, then a past one
+        folded = _kernels.flash_carry(carry, q, k, v, off, kv_off, True)
+        _carry_close(folded, port.plain_flash_chunk_update(carry, q, k, v, off, kv_off, True))
+        carry = folded
+    future = _kernels.flash_carry(carry, q, k, v, off, off + 129, True)
+    assert all(torch.equal(a, b) for a, b in zip(future, carry))
+    assert _kernels.LAUNCHES == {"flash_fwd": 1, "flash_fwd_no_lse": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+                                 "flash_carry": 3}
 
 
 # --- the wire codec's top-k encoders on the card -----------------------------------
