@@ -1,12 +1,13 @@
-// Flash attention on the CUDA cores at any head size above 512, f32 and
-// bf16: the forward (with and without logsumexp), the backward pair (dq;
-// dk/dv) and ring attention's carry fold, with the head size a run-time
-// argument.
+// Flash attention on the CUDA cores at any head size above 512: the f32
+// forward (with and without logsumexp), and in f32 and bf16 the backward
+// pair (dq; dk/dv) and ring attention's carry fold, with the head size a
+// run-time argument. The bf16 forward above 256 is flash_fwd_grouped_sm90.cu's
+// tensor-core kernel.
 //
 // Replaces the Pallas TPU kernels of p2pfl_tpu/ops/attention.py above the
 // largest compiled head size (512) of flash_attn.cu:
-//   flash_fwd_chunked<with_lse=true>   <- _flash_kernel          (pallas_call at :308)
-//   flash_fwd_chunked<with_lse=false>  <- _flash_kernel_no_lse   (pallas_call at :298)
+//   flash_fwd_chunked<with_lse=true>   <- _flash_kernel          (pallas_call at :308; f32)
+//   flash_fwd_chunked<with_lse=false>  <- _flash_kernel_no_lse   (pallas_call at :298; f32)
 //   flash_bwd_dq_chunked               <- _flash_bwd_dq_kernel   (pallas_call at :446)
 //   flash_bwd_dkv_chunked              <- _flash_bwd_dkv_kernel  (pallas_call at :463)
 //   flash_carry_chunked                <- _flash_carry_kernel    (pallas_call at :590)
@@ -46,7 +47,7 @@
 // flash_attn.cu for head sizes above 512; each launches on the given
 // stream, allocates nothing and returns cudaGetLastError()
 // (cudaErrorInvalidValue for a head size that is not a multiple of 64 or a
-// dtype other than 0 (f32) and 1 (bf16)).
+// dtype other than 0 (f32) and 1 (bf16); the forward takes 0 only).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -482,21 +483,19 @@ cudaError_t prepared(K kern, size_t smem) {
 
 namespace p2pfl {
 
-// [B, S, H, head_dim] q / k / v / o in dtype (0: f32, 1: bf16); lse [B, H,
-// Sq] f32 or nullptr (the forward that writes no logsumexp).
+// [B, S, H, head_dim] q / k / v / o in f32 (dtype 0); lse [B, H, Sq] f32 or
+// nullptr (the forward that writes no logsumexp).
 cudaError_t launch_flash_fwd_chunked(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
                                      int Sk, int H, int head_dim, int dtype, float scale, bool causal,
                                      cudaStream_t stream) {
-  return with_dtype(dtype, head_dim, [&](auto t) {
-    using T = decltype(t);
-    const auto kern = lse != nullptr ? flash_fwd_chunked_kernel<T, true> : flash_fwd_chunked_kernel<T, false>;
-    const cudaError_t e = prepared(kern, kFwdSmem);
-    if (e != cudaSuccess) return e;
-    kern<<<grid_of(Sq, B, H, head_dim), NTHREADS, kFwdSmem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o), lse, Sq,
-        Sk, H, head_dim, scale, causal ? 1 : 0);
-    return cudaGetLastError();
-  });
+  if (dtype != 0 || head_dim < PC || head_dim % PC != 0) return cudaErrorInvalidValue;
+  const auto kern = lse != nullptr ? flash_fwd_chunked_kernel<float, true> : flash_fwd_chunked_kernel<float, false>;
+  const cudaError_t e = prepared(kern, kFwdSmem);
+  if (e != cudaSuccess) return e;
+  kern<<<grid_of(Sq, B, H, head_dim), NTHREADS, kFwdSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), static_cast<float*>(o),
+      lse, Sq, Sk, H, head_dim, scale, causal ? 1 : 0);
+  return cudaGetLastError();
 }
 
 cudaError_t launch_flash_bwd_dq_chunked(const void* q, const void* k, const void* v, const void* dout,

@@ -4,6 +4,7 @@
     python3 scripts/torch_kernel_variants.py fwd     # the forward (flash_fwd_sm90.cu)
     python3 scripts/torch_kernel_variants.py bwd     # the backward pair (flash_bwd_sm90.cu)
     python3 scripts/torch_kernel_variants.py carry   # the carry fold (flash_fwd_sm90.cu)
+    python3 scripts/torch_kernel_variants.py grouped # the forward above D 256 (flash_fwd_grouped_sm90.cu)
 
 Each variant is the chosen source under ``p2pfl_tpu_torch/csrc/`` with some
 of its text replaced (``VARIANTS`` below), built with the package's other
@@ -12,7 +13,9 @@ per file, all at once) and loaded with ctypes. ``fwd`` runs the forward
 with lse at [8, 1024, 8, 64] bf16 causal and the one without at
 [16, 1024, 8, 64]; ``bwd`` runs dq and dk/dv at [8, 1024, 8, 64] bf16
 causal; ``carry`` runs the ring's past and diagonal folds of one chunk
-[2, 1024, 8, 64] bf16 (shard 7 of 8, as ``chip_smoke.py`` times them). A
+[2, 1024, 8, 64] bf16 (shard 7 of 8, as ``chip_smoke.py`` times them);
+``grouped`` runs the forward with lse at [8, 1024, 1, D] bf16 causal and the
+one without at [16, 1024, 1, D], at D 512 and 1024. A
 variant of ``flash_fwd_sm90.cu`` changes the forward and the carry fold
 alike; each family times its own. Every variant's outputs must equal the
 package's kernels' bit for
@@ -35,7 +38,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-SOURCES = {"fwd": "flash_fwd_sm90.cu", "bwd": "flash_bwd_sm90.cu", "carry": "flash_fwd_sm90.cu"}
+SOURCES = {"fwd": "flash_fwd_sm90.cu", "bwd": "flash_bwd_sm90.cu", "carry": "flash_fwd_sm90.cu",
+           "grouped": "flash_fwd_grouped_sm90.cu"}
 # kernel family -> variant name -> {text in the source: replacement}
 VARIANTS = {
     "fwd": {
@@ -56,6 +60,13 @@ VARIANTS = {
         "3 stages": {"kStages = 2;": "kStages = 3;"},
         "regs 64/216": {"kProducerRegs = 40;": "kProducerRegs = 64;", "kConsumerRegs = 232;": "kConsumerRegs = 216;"},
         "guarded tile wait": {"mbar_spin(blk.full_bar(s)": "mbar_wait(blk.full_bar(s)"},
+    },
+    "grouped": {
+        "as built": {},
+        "4 Q/K stages": {"kQKStages = 6;": "kQKStages = 4;", "kSmemBytes == 214144": "kSmemBytes == 164960"},
+        "panel loop unrolled 2": {"#pragma unroll 1\n    for (int p = 0; p < blk.panels; ++p)":
+                                  "#pragma unroll 2\n    for (int p = 0; p < blk.panels; ++p)"},
+        "no panel in flight": {"wgmma_wait_one();  // the previous": "wgmma_wait_all();  // the previous"},
     },
 }
 
@@ -78,13 +89,15 @@ def build(family: str, nvcc: str, flags: tuple) -> dict:
         obj = out_dir / f"v{i}.o"
         cmd = [nvcc, *flags, "-I", str(csrc), "-c", "-o", str(obj), str(src)]
         jobs[name] = (i, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    others = [out_dir / f"{Path(name).stem}.o" for name in dict.fromkeys(("flash_attn.cu", *SOURCES.values()))
-              if name != varied]
-    for obj in others:
-        common = subprocess.run([nvcc, *flags, "-c", "-o", str(obj), str(csrc / f"{obj.stem}.cu")],
-                                capture_output=True, text=True)
-        if common.returncode:
-            raise SystemExit(common.stdout + common.stderr)
+    from p2pfl_tpu_torch.ops import _kernels
+
+    others = [out_dir / f"{src.stem}.o" for src in _kernels.SOURCES if src.name != varied]
+    commons = [subprocess.Popen([nvcc, *flags, "-c", "-o", str(obj), str(csrc / f"{obj.stem}.cu")],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for obj in others]
+    for proc in commons:
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise SystemExit(log)
     libs = {}
     for name, (i, obj, proc) in jobs.items():
         log = proc.communicate()[0]
@@ -129,6 +142,23 @@ def calls(family: str):
             raise RuntimeError(f"launch failed: CUDA error {code}")
 
     cases = {}
+    if family == "grouped":
+        for d in (512, 1024):
+            for name, b, with_lse in (("flash_fwd", 8, True), ("flash_fwd_no_lse", 16, False)):
+                q, k, v = (torch.randn((b, 1024, 1, d), generator=gen).cuda().to(torch.bfloat16) for _ in range(3))
+
+                def fwd(lib, q=q, k=k, v=v, with_lse=with_lse):
+                    b, sq, h, d = q.shape
+                    out = torch.empty_like(q)
+                    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
+                    check(lib.p2pfl_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                              lse.data_ptr() if lse is not None else None, b, sq, sq, h, d, 1,
+                                              1.0 / math.sqrt(d), 1, stream))
+                    return (out,) if lse is None else (out, lse)
+
+                ref = _kernels.flash_fwd(q, k, v, True, with_lse)
+                cases[f"{name} D={d}"] = (fwd, ref if with_lse else ref[:1])
+        return cases
     if family == "fwd":
         for name, b, with_lse in (("flash_fwd", 8, True), ("flash_fwd_no_lse", 16, False)):
             q, k, v, _ = rand(b)

@@ -8,11 +8,16 @@ commit unpacked with ``git archive`` under ``build/``; it needs
 ``chip_smoke.py`` and ``p2pfl_tpu_torch/``). Each checkout builds its own
 kernels into its own ``build/`` and runs, in a subprocess, its
 ``chip_smoke.py`` kernel and carry phases (rows 1-5 at head size 64), then
-its ``narrow_rows`` in bf16 at [8, 1024, 4, 128] and [8, 1024, 2, 256] (the
-eval forward at batch 16): every row held to its plain version, then timed
-with CUDA events. The order is BASE, this tree, this tree, BASE, so that
-drift shows. Prints each run's row times and, last, one JSON object
-``{"runs": [{"tree": ..., "ms": {row: ms}}, ...]}``. Runs on the card only.
+its ``narrow_rows`` in bf16 at [8, 1024, 4, 128], [8, 1024, 2, 256], [8,
+1024, 1, 512] and [8, 1024, 1, 1024] (the eval forward at batch 16): every
+row held to its plain version, then timed with CUDA events. Then the
+federated LM at width 512 over 1 head (D 512, 4 layers) and at width 1024
+over 1 head (D 1024, 1 layer), one round after a warm-up round each, as
+``chip_smoke.py``'s wide and chunked paths drive them: ``lm_d<D>`` is that
+round's s/round (host clock; the rows are device times). The order is BASE,
+this tree, this tree, BASE, so that drift shows. Prints each run's numbers
+and, last, one JSON object ``{"runs": [{"tree": ..., "ms": {row: ms}},
+...]}``. Runs on the card only.
 """
 
 from __future__ import annotations
@@ -34,11 +39,21 @@ import chip_smoke as cs
 rows = cs.phase_kernels()
 rows.update(cs.phase_carry())
 gen = torch.Generator().manual_seed(16)
-for d, heads in ((128, 4), (256, 2)):
+for d, heads in ((128, 4), (256, 2), (512, 1), (1024, 1)):
     rows.update(cs.narrow_rows("ab", f"_d{{d}}", d, heads, cs.BATCH, cs.EVAL_SEQS, cs.SEQ_LEN,
                                (torch.bfloat16,), False, gen))
 ms = {{name: r["ms"] for name, r in rows.items()}}
 ms["flash_carry_diagonal"] = rows["flash_carry"]["ms_diagonal"]
+from p2pfl_tpu_torch.models.transformer import transformer_lm_model
+from p2pfl_tpu_torch.parallel.simulation import MeshSimulation
+for d, layers in ((512, cs.LAYERS), (1024, cs.CHUNKED_LAYERS)):
+    model = transformer_lm_model(seed=0, vocab_size=cs.VOCAB, num_layers=layers, num_heads=1, embed_dim=d,
+                                 attention_kind="flash", device="cuda")
+    train, xt = cs.lm_data(6)
+    sim = MeshSimulation(model, train, test_data=(xt, None), train_set_size=cs.COMMITTEE, batch_size=cs.BATCH,
+                         lr=cs.LR, seed=1, task="lm", device="cuda")
+    ms[f"lm_d{{d}}"] = sim.run(rounds=1, epochs=1, warmup=True).seconds_per_round
+    del sim, model
 print("ROWS " + json.dumps(ms))
 """
 

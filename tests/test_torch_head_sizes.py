@@ -1,8 +1,10 @@
 """The port's plain flash versions at wide head sizes against the JAX
 package's flash attention and carry fold: 384 and 512 (the widest compiled
-instances: 384 is zero-padded to 512), and 576 and 1024, which the card runs
-on the chunked kernels (D zero-padded to a multiple of 64, the score tiles
-built a 64-column panel at a time).
+instances: 384 is zero-padded to 512), and 576, 640 and 1024, which the card
+runs with D zero-padded to a multiple of 64: the bf16 forward on the grouped
+tensor-core kernel (groups of up to four 64-column panels of O; at 576 and
+640 the last group holds one and two), the rest on the chunked kernels (the
+score tiles built a 64-column panel at a time).
 
 Same inputs (numpy, from a seed) go through the JAX functions (Pallas in
 interpret mode on the CPU, as tests/test_attention.py runs them) and the
@@ -30,7 +32,7 @@ def _qkv(seed, d, s=S):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [384, 512, 576, 1024])
+@pytest.mark.parametrize("d", [384, 512, 576, 640, 1024])
 def test_plain_flash_forward_and_grads_match_jax_at_wide_heads(d, causal):
     q, k, v = _qkv(d, d)
 
@@ -48,7 +50,7 @@ def test_plain_flash_forward_and_grads_match_jax_at_wide_heads(d, causal):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4)
 
 
-@pytest.mark.parametrize("d", [384, 512, 576, 1024])
+@pytest.mark.parametrize("d", [384, 512, 576, 640, 1024])
 def test_plain_chunk_update_matches_jax_at_wide_heads(d):
     """Chunk 1 of 2 (16 positions each) folds its own chunk (the diagonal),
     then the past chunk 0, into a fresh carry; the carry after each fold

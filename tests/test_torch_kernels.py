@@ -78,22 +78,26 @@ def test_kernel_head_dim_pads_every_head_size_to_the_next_instance():
 
 @pytest.mark.parametrize("kernel", list(_kernels.LAUNCHES))
 def test_kernel_route_names_the_c_path_of_every_head_size(kernel):
-    """bf16: the forward (with and without lse) and the backward pair take
-    the tensor cores up to D = 256 (the D = 64 kernels up to 64, the wide
-    ones at 128 and 256), the carry up to 64; everything else up to 512, and
-    f32 at every D up to 512, the CUDA-core instances; every call above 512
-    the chunked kernels at the next multiple of 64."""
+    """bf16: the forward (with and without lse) takes the tensor cores at
+    every D (the D = 64 kernel up to 64, the wide one at 128 and 256, the
+    grouped one above 256), the backward pair up to D = 256, the carry up to
+    64; everything else up to 512, and f32 at every D up to 512, the
+    CUDA-core instances; every other call above 512 the chunked kernels at
+    the next multiple of 64."""
     carry = kernel == "flash_carry"
+    forward = kernel in ("flash_fwd", "flash_fwd_no_lse")
     for d in range(1, 513):
         kd = 64 if d <= 64 else 128 if d <= 128 else 256 if d <= 256 else 512
-        sm90 = d <= (64 if carry else 256)
+        sm90 = forward or d <= (64 if carry else 256)
         assert _kernels.kernel_route(kernel, torch.bfloat16, d) == (
             kd, _kernels.TENSOR_CORES if sm90 else _kernels.CUDA_CORES), d
         assert _kernels.kernel_route(kernel, torch.float32, d) == (
             _kernels.kernel_head_dim(torch.float32, d), _kernels.CUDA_CORES), d
     for d in (513, 576, 577, 640, 1000, 1024, 4096):
-        for dtype in (torch.bfloat16, torch.float32):
-            assert _kernels.kernel_route(kernel, dtype, d) == (64 * ((d + 63) // 64), _kernels.CHUNKED), (dtype, d)
+        kd = 64 * ((d + 63) // 64)
+        assert _kernels.kernel_route(kernel, torch.bfloat16, d) == (
+            kd, _kernels.TENSOR_CORES if forward else _kernels.CHUNKED), d
+        assert _kernels.kernel_route(kernel, torch.float32, d) == (kd, _kernels.CHUNKED), d
 
 
 def test_flash_attention_rejects_bad_block_sizes():
@@ -115,8 +119,8 @@ def test_library_path_follows_the_source(tmp_path, monkeypatch):
     path = _kernels.library_path()
     assert path.parent == _kernels.BUILD_DIR and path.suffix == ".so"
     assert [src.name for src in _kernels.SOURCES] == ["flash_attn.cu", "flash_fwd_sm90.cu", "flash_fwd_wide_sm90.cu",
-                                                      "flash_bwd_sm90.cu", "flash_bwd_wide_sm90.cu",
-                                                      "flash_chunked.cu"]
+                                                      "flash_fwd_grouped_sm90.cu", "flash_bwd_sm90.cu",
+                                                      "flash_bwd_wide_sm90.cu", "flash_chunked.cu"]
     assert [hdr.name for hdr in _kernels.HEADERS] == ["sm90_common.cuh"]
     assert all(src.is_file() for src in (*_kernels.SOURCES, *_kernels.HEADERS))
     for src in _kernels.SOURCES:  # the tensor-core sources, and only they, include the header
@@ -498,6 +502,64 @@ def test_wide_eval_forward_with_other_key_length_on_card(cuda_device, d, causal)
     _within_split_bar(out, out_p, port.plain_flash_row_mass(q, k, v, causal))
 
 
+# --- the bf16 forward above D = 256: the grouped tensor-core kernel ---------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1024, 1000, 129, 1])
+@pytest.mark.parametrize("d", [320, 512, 576, 640, 1024])
+def test_grouped_forward_matches_plain_version_on_card(cuda_device, d, s, causal):
+    """Rows 1-2 on the grouped tensor-core forward ([4, S, 2, D] bf16; 320
+    zero-padded to 512; at 576 / 640 the last group of O's columns holds one
+    / two panels): the output within the split bar (1e-6 + 1 bf16 ulp +
+    2^-15 of the row's mass (P / l) @ |V|), lse within 1e-5, the forward
+    without lse bit-equal, one launch each."""
+    assert _kernels.kernel_route("flash_fwd", torch.bfloat16, d)[1] == _kernels.TENSOR_CORES
+    q, k, v, _ = _qkv(100 + d + s, (4, s, 2, d), torch.bfloat16, cuda_device)
+    _kernels.reset_launches()
+    out, lse = _kernels.flash_fwd(q, k, v, causal, True)
+    out_p, lse_p = port.plain_flash_forward(q, k, v, causal)
+    assert out.shape == q.shape and torch.isfinite(out.float()).all()
+    _within_split_bar(out, out_p, port.plain_flash_row_mass(q, k, v, causal))
+    torch.testing.assert_close(lse, lse_p, atol=1e-5, rtol=0)
+    out_n, none = _kernels.flash_fwd(q, k, v, causal, False)
+    assert none is None and torch.equal(out_n, out)
+    assert _kernels.LAUNCHES["flash_fwd"] == _kernels.LAUNCHES["flash_fwd_no_lse"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [512, 1024])
+def test_grouped_eval_forward_with_other_key_length_on_card(cuda_device, d, causal):
+    """The eval forward (no lse) on the grouped kernel at batch 16 with 200
+    queries over 1000 keys (the causal mask compares positions from 0 on
+    both sides, as the plain version's does), held to the split bar."""
+    q = _qkv(110 + d, (16, 200, 1, d), torch.bfloat16, cuda_device)[0]
+    _, k, v, _ = _qkv(111 + d, (16, 1000, 1, d), torch.bfloat16, cuda_device)
+    out, none = _kernels.flash_fwd(q, k, v, causal, False)
+    assert none is None and out.shape == q.shape
+    out_p, _ = port.plain_flash_forward(q, k, v, causal)
+    _within_split_bar(out, out_p, port.plain_flash_row_mass(q, k, v, causal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [512, 1024])
+def test_grouped_forward_refuses_misaligned_inputs_on_card(cuda_device, d):
+    """The grouped forward loads by TMA: a q, k or v that is not 16-byte
+    aligned is refused, with and without lse, before anything launches; the
+    aligned copies pass."""
+    q, k, v, _ = _qkv(2, (1, 64, 2, d), torch.bfloat16, cuda_device)
+    _kernels.reset_launches()
+    for args in ((_misaligned(q), k, v), (q, _misaligned(k), v), (q, k, _misaligned(v))):
+        for with_lse in (True, False):
+            with pytest.raises(ValueError, match="aligned"):
+                _kernels.flash_fwd(*args, True, with_lse)
+    assert not any(_kernels.LAUNCHES.values())
+    out = _kernels.flash_fwd(q, k, v, True, True)[0]
+    _within_split_bar(out, port.plain_flash_forward(q, k, v, True)[0], port.plain_flash_row_mass(q, k, v, True))
+
+
 def _carry_close(got, ref, mass=None):
     """The carry kernel against its plain version. f32 (``mass`` None): m to
     1e-6 (both take the max of the same f32 scores); l to 1e-5 + 1e-5 |ref|;
@@ -698,10 +760,10 @@ def test_ring_flash_autograd_matches_dense_on_card_bf16(cuda_device):
 # f32 runs instances of the CUDA-core kernels at 16, 32, 128, 256 and 512 (48
 # is zero-padded to 64, 160 to 256, 384 to 512); bf16 zero-pads q, k, v, dO
 # (and the carry's acc) to 64 for the tensor-core kernels (16, 32, 48), runs
-# the wide tensor-core forward and the CUDA-core backward pair and carry at
-# 128 and 256 (160 padded to 256) and the CUDA-core instances at 512 (384
-# padded to it), slicing the outputs back. All are held to the D = 64 bars
-# above.
+# the wide tensor-core forward and backward pair and the CUDA-core carry at
+# 128 and 256 (160 padded to 256), and at 512 (384 padded to it) the grouped
+# tensor-core forward and the CUDA-core backward pair and carry, slicing the
+# outputs back. All are held to the D = 64 bars above.
 
 
 @pytest.mark.cuda
@@ -858,18 +920,23 @@ def test_chunked_kernels_match_plain_versions_on_card(cuda_device, d, dtype):
     """Rows 1-5 above the largest compiled instance ([2, 129, 2, D]; D = 513
     zero-padded to 576): the forward with and without lse, the backward pair
     and a diagonal, a past and a future carry fold against their plain
-    versions, at flash_attn.cu's CUDA-core bars (the chunked kernels compute
-    in f32 throughout: bf16 outputs within 1 bf16 ulp, f32 forward and carry
-    1e-5, f32 gradients 1e-4), each launching once and counting."""
-    assert _kernels.kernel_route("flash_fwd", dtype, d) == (64 * ((d + 63) // 64), _kernels.CHUNKED)
+    versions, each launching once and counting. The chunked kernels compute
+    in f32 throughout and are held to flash_attn.cu's CUDA-core bars (bf16
+    outputs within 1 bf16 ulp, f32 forward and carry 1e-5, f32 gradients
+    1e-4); the bf16 forward runs the grouped tensor-core kernel, held to the
+    split bar (1e-6 + 1 bf16 ulp + 2^-15 of the row's mass)."""
+    kd, bf16 = 64 * ((d + 63) // 64), dtype == torch.bfloat16
+    assert _kernels.kernel_route("flash_fwd", dtype, d) == (kd, _kernels.TENSOR_CORES if bf16 else _kernels.CHUNKED)
+    assert _kernels.kernel_route("flash_bwd_dq", dtype, d) == (kd, _kernels.CHUNKED)
     q, k, v, g = _qkv(90 + d, (2, 129, 2, d), dtype, cuda_device)
-    bf16 = dtype == torch.bfloat16
-    close = _within_one_bf16_ulp if bf16 else (lambda a, b: torch.testing.assert_close(a, b, atol=1e-5, rtol=0))
     _kernels.reset_launches()
     out, lse = _kernels.flash_fwd(q, k, v, True, True)
     out_p, lse_p = port.plain_flash_forward(q, k, v, True)
     assert out.shape == q.shape and out.dtype == dtype
-    close(out, out_p)
+    if bf16:
+        _within_split_bar(out, out_p, port.plain_flash_row_mass(q, k, v, True))
+    else:
+        torch.testing.assert_close(out, out_p, atol=1e-5, rtol=0)
     torch.testing.assert_close(lse, lse_p, atol=1e-5, rtol=0)
     torch.testing.assert_close(_kernels.flash_fwd(q, k, v, True, False)[0], out, atol=0, rtol=0)
     delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
