@@ -8,13 +8,13 @@ Phases, each on its own printed lines:
 1. env: the card (``nvidia-smi``), torch / CUDA / nvcc versions, and the
    kernels' build from ``p2pfl_tpu_torch/csrc`` (time and ptxas report:
    registers and spills of each kernel; the tensor-core forward and
-   backward pair (D = 64, and the wide ones at D = 128 and 256), the
-   grouped tensor-core forward (every D above 256) and the carry kernels
-   must not spill, the only bf16 instances of the CUDA-core kernels are the
-   carry's at D = 128, 256 and 512 and the backward pair's at 512, and every
-   chunked kernel (rows 1-5 above D = 512 in f32, rows 3-5 in bf16) is
-   built), and the count of ``HGMMA`` (wgmma) instructions in each
-   tensor-core kernel from ``cuobjdump -sass`` (each must have some).
+   backward pair (D = 64, the wide ones at D = 128 and 256, the grouped
+   ones at every D above 256) and the carry kernels must not spill, the
+   only bf16 instances of the CUDA-core kernels are the carry's at D = 128,
+   256 and 512, and every chunked kernel (rows 1-5 above D = 512 in f32,
+   row 5 in bf16) is built), and the count of ``HGMMA`` (wgmma)
+   instructions in each tensor-core kernel from ``cuobjdump -sass`` (each
+   must have some).
 2. kernels: each Hopper kernel against its plain PyTorch version on the
    card at the main paths' shapes (bf16 [8, 1024, 8, 64] causal; the eval
    forward at [16, 1024, 8, 64], and at the learner's [8, 1024, 8, 64]) plus a ragged S=1000, a non-causal, causal
@@ -138,15 +138,16 @@ Phases, each on its own printed lines:
    CUDA-core <bf16, 256> and <f32, 256> instances, 32-row tiles), held to
    the bars of phases 2 and 5 and timed beside aten; then d512: rows 1-5 the
    same way at head size 512 ([8, 1024, 1, 512], eval [16, 1024, 1, 512],
-   ring chunk [2, 1024, 1, 512]; the bf16 forward on the grouped tensor-core
-   kernel, the rest on the CUDA-core <bf16 / f32, 512> instances, 16-row
-   tiles; aten's flash attention stops at 256, so the library times there
-   are its memory-efficient attention's); then d1024: rows 1-5 at [8, 1024,
-   1, 1024] (eval [16, ...], ring chunk [2, 1024, 1, 1024]) and at D 600
-   (zero-padded to 640) at [1, 1024, 1, 600], the bf16 forward on the
-   grouped kernel and the rest (f32 too) on the chunked kernels, held to the
-   same bars and timed beside whatever fused library call takes the shape,
-   its backend recorded ("none" where none does). Then the LM and the ring
+   ring chunk [2, 1024, 1, 512]; the bf16 forward and backward pair on the
+   grouped tensor-core kernels, the rest on the CUDA-core <bf16 / f32, 512>
+   instances, 16-row tiles; aten's flash attention stops at 256, so the
+   library times there are its memory-efficient attention's); then d1024:
+   rows 1-5 at [8, 1024, 1, 1024] (eval [16, ...], ring chunk [2, 1024, 1,
+   1024]) and at D 600 (zero-padded to 640) at [1, 1024, 1, 600], the bf16
+   forward and backward pair on the grouped kernels and the rest (f32 too)
+   on the chunked kernels, held to the same bars and timed beside whatever
+   fused library call takes the shape, its backend recorded ("none" where
+   none does). Then the LM and the ring
    at width 512 over 2 heads and over 1 head (D = 256 / 512), and at width
    1024 over 1 head (D = 1024) cut to one layer, as in phase 6, exact launch
    counts; each LM after a warm-up round.
@@ -235,11 +236,12 @@ RING_KERNEL_ROWS = {  # name -> (replaced TPU kernel body, launches per train st
 # Head sizes below 64: the width above over 16 and 32 heads. bf16 zero-pads
 # to the 64 instances of the tensor-core kernels; f32 has its own instances.
 NARROW_HEAD_DIMS = (32, 16)
-SOURCE_F32 = "p2pfl_tpu_torch/csrc/flash_attn.cu"  # the CUDA-core kernels: f32, bf16's carry above 64 and rows 3-4 at 512
+SOURCE_F32 = "p2pfl_tpu_torch/csrc/flash_attn.cu"  # the CUDA-core kernels: f32 and bf16's carry above 64
 SOURCE_FWD_WIDE = "p2pfl_tpu_torch/csrc/flash_fwd_wide_sm90.cu"  # the bf16 forward at D = 128 and 256
 SOURCE_FWD_GROUPED = "p2pfl_tpu_torch/csrc/flash_fwd_grouped_sm90.cu"  # the bf16 forward above D = 256
 SOURCE_BWD_WIDE = "p2pfl_tpu_torch/csrc/flash_bwd_wide_sm90.cu"  # the bf16 backward pair at D = 128 and 256
-SOURCE_CHUNKED = "p2pfl_tpu_torch/csrc/flash_chunked.cu"  # above D = 512: f32, and bf16 but its forward
+SOURCE_BWD_GROUPED = "p2pfl_tpu_torch/csrc/flash_bwd_grouped_sm90.cu"  # the bf16 backward pair above D = 256
+SOURCE_CHUNKED = "p2pfl_tpu_torch/csrc/flash_chunked.cu"  # above D = 512: f32, and bf16's carry
 # Head sizes up to 128 (the repair of ROADMAP queue C item 1): 48 at the LM's
 # width over 8 heads (width 384; bf16 padded to the 64 tensor-core kernels,
 # f32 to the 64 instance) and 128 at width 512 over 4 heads (the CUDA-core
@@ -248,15 +250,16 @@ C1_HEAD_DIMS = {48: 8, 128: 4}
 # Head size 256: the LM's width over 2 heads (the bf16 forward and backward
 # pair on the wide tensor-core kernels; the rest on the CUDA-core <f32 / bf16,
 # 256> instances, 32-row tiles). Head size 512, the largest compiled
-# instance: the width over 1 head (the bf16 forward on the grouped
-# tensor-core kernel, the rest on the CUDA-core <f32 / bf16, 512> instances,
-# 16-row tiles).
+# instance: the width over 1 head (the bf16 forward and backward pair on the
+# grouped tensor-core kernels, the rest on the CUDA-core <f32 / bf16, 512>
+# instances, 16-row tiles).
 D256_HEAD_DIMS = {256: 2}
 D512_HEAD_DIMS = {512: 1}
 # Head sizes above 512 (the head size a run-time argument: the bf16 forward
-# on the grouped tensor-core kernel, the rest on the chunked kernels): rows
-# 1-5 at [8, 1024, 1, 1024] and at 600 (zero-padded to 640) at B 1, and the
-# LM and the ring at width 1024 over 1 head, cut to one layer.
+# and backward pair on the grouped tensor-core kernels, the rest on the
+# chunked kernels): rows 1-5 at [8, 1024, 1, 1024] and at 600 (zero-padded
+# to 640) at B 1, and the LM and the ring at width 1024 over 1 head, cut to
+# one layer.
 D1024_HEAD_DIMS = {1024: 1}
 CHUNKED_PADDED_DIM = 600
 CHUNKED_LAYERS = 1
@@ -414,6 +417,7 @@ def phase_env() -> str:
         mg90 = re.search(r"flash_fwd_grouped_sm90_kernelILb(\d)E", line)
         mb90 = re.search(r"(flash_bwd_dq_sm90_kernel|flash_bwd_dkv_sm90_kernel|flash_carry_sm90_kernel)", line)
         mwb = re.search(r"(flash_bwd_dq_wide_sm90_kernel|flash_bwd_dkv_wide_sm90_kernel)ILi(\d+)E", line)
+        mgb = re.search(r"(flash_bwd_dq_grouped_sm90_kernel|flash_bwd_dkv_grouped_sm90_kernel)", line)
         mch = re.search(r"(flash_fwd_chunked_kernel|flash_bwd_dq_chunked_kernel|flash_bwd_dkv_chunked_kernel|"
                         r"flash_carry_chunked_kernel)I(13__nv_bfloat16|f)(?:Lb(\d)E)?", line)
         if m:
@@ -428,6 +432,8 @@ def phase_env() -> str:
             entry = f"{mb90[1]}<bf16, D=64>"
         elif mwb:
             entry = f"{mwb[1]}<bf16, D={mwb[2]}>"
+        elif mgb:
+            entry = f"{mgb[1]}<bf16>"
         elif mch:
             entry = f"{mch[1]}<{'bf16' if mch[2] != 'f' else 'f32'}{', lse=' + mch[3] if mch[3] else ''}>"
         elif entry and "spill stores" in line:
@@ -452,18 +458,21 @@ def phase_env() -> str:
     check(sorted(e for e in seen if "_wide_sm90" in e and e.startswith("flash_bwd")) ==
           [f"flash_bwd_{k}_wide_sm90_kernel<bf16, D={d}>" for k in ("dkv", "dq") for d in (128, 256)],
           "the build log lacks a wide tensor-core backward instance (dq, dk/dv at D = 128 / 256)")
+    check(sorted(e for e in seen if "_grouped_sm90" in e and e.startswith("flash_bwd")) ==
+          [f"flash_bwd_{k}_grouped_sm90_kernel<bf16>" for k in ("dkv", "dq")],
+          "the build log lacks a grouped tensor-core backward kernel (dq, dk/dv above D = 256)")
     check(sorted(e for e in seen if "_chunked_kernel" in e) ==
           sorted([f"flash_fwd_chunked_kernel<f32, lse={w}>" for w in (0, 1)] +
-                 [f"flash_{k}_chunked_kernel<{t}>" for k in ("bwd_dq", "bwd_dkv", "carry") for t in ("bf16", "f32")]),
-          "the chunked kernels are not rows 1-5 above D = 512 in f32 and rows 3-5 in bf16")
+                 [f"flash_{k}_chunked_kernel<f32>" for k in ("bwd_dq", "bwd_dkv", "carry")] +
+                 ["flash_carry_chunked_kernel<bf16>"]),
+          "the chunked kernels are not rows 1-5 above D = 512 in f32 and row 5 in bf16")
     check(any(e.startswith("flash_carry_sm90_kernel") for e in seen),
           "the build log lacks the tensor-core carry kernel")
     for simt in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_carry_kernel"):
-        # bf16 at D <= 64, its backward pair at 128 and 256 and its forward
-        # at every D run the tensor-core kernels only: the bf16 CUDA-core
-        # instances are those at D = 128, 256 and 512 of the carry and at 512
-        # of the backward pair.
-        bf16_dims = {"flash_carry_kernel": (128, 256, 512), "flash_fwd_kernel": ()}.get(simt, (512,))
+        # bf16 at D <= 64, and its forward and backward pair at every D, run
+        # the tensor-core kernels only: the bf16 CUDA-core instances are the
+        # carry's at D = 128, 256 and 512.
+        bf16_dims = (128, 256, 512) if simt == "flash_carry_kernel" else ()
         check(sorted({int(re.search(r"D=(\d+)", e)[1]) for e in seen if e.startswith(f"{simt}<bf16")})
               == list(bf16_dims), f"the bf16 CUDA-core instances of {simt} are not those at D = {bf16_dims}")
         for d in (128, 256, 512):
@@ -510,6 +519,9 @@ def phase_sass(lib, nvcc: str) -> None:
     wide_bwd90 = [n for name, n in shown.items() if re.search(r"flash_bwd_(dq|dkv)_wide_sm90", name)]
     check(len(wide_bwd90) == 4 and all(n > 0 for n in wide_bwd90),
           "a wide bf16 backward instance (D = 128 / 256) holds no HGMMA instruction")
+    grouped_bwd90 = [n for name, n in shown.items() if re.search(r"flash_bwd_(dq|dkv)_grouped_sm90", name)]
+    check(len(grouped_bwd90) == 2 and all(n > 0 for n in grouped_bwd90),
+          "a grouped bf16 backward kernel (above D = 256) holds no HGMMA instruction")
     carry90 = [n for name, n in shown.items() if "flash_carry_sm90" in name]
     check(len(carry90) == 1 and carry90[0] > 0, "the bf16 carry kernel holds no HGMMA instruction")
 
@@ -1694,15 +1706,15 @@ def phase_wide_paths() -> dict:
 
 
 def phase_kernels_chunked() -> dict:
-    """Rows 1-5 above the largest compiled head size (the bf16 forward on the
-    grouped tensor-core kernel, the rest on the chunked kernels), in bf16
-    and f32, held to the bars of phases 2 and 5 and timed beside
-    whatever fused library call takes the shape (``library_above_512``): at
-    D 1024 over 1 head at the chunked-paths phase's shapes ([8, 1024, 1,
-    1024], the eval forward at [16, ...], the carry at one ring chunk [2,
-    1024, 1, 1024]), and at D 600 (zero-padded to 640) at [1, 1024, 1, 600];
-    returns {"<name>_d1024": row} (the D 600 rows are printed only: no path
-    runs them)."""
+    """Rows 1-5 above the largest compiled head size (the bf16 forward and
+    backward pair on the grouped tensor-core kernels, the rest on the chunked
+    kernels), in bf16 and f32, held to the bars of phases 2 and 5 and timed
+    beside whatever fused library call takes the shape
+    (``library_above_512``): at D 1024 over 1 head at the chunked-paths
+    phase's shapes ([8, 1024, 1, 1024], the eval forward at [16, ...], the
+    carry at one ring chunk [2, 1024, 1, 1024]), and at D 600 (zero-padded
+    to 640) at [1, 1024, 1, 600]; returns {"<name>_d1024": row} (the D 600
+    rows are printed only: no path runs them)."""
     import torch
 
     gen = torch.Generator().manual_seed(20)
@@ -1717,9 +1729,9 @@ def phase_kernels_chunked() -> dict:
 
 def phase_chunked_paths() -> dict:
     """The slice's LM (after a warm-up round) and the ring trainer at width
-    1024 over 1 head (D 1024: the bf16 forward on the grouped kernel, the
-    rest on the chunked ones), cut to one layer; returns their launches
-    under the ``_d1024`` rows' names."""
+    1024 over 1 head (D 1024: the bf16 forward and backward pair on the
+    grouped kernels, the rest on the chunked ones), cut to one layer;
+    returns their launches under the ``_d1024`` rows' names."""
     return head_size_paths("chunked-paths", [(d, h, d * h) for d, h in D1024_HEAD_DIMS.items()], CHUNKED_LAYERS,
                            warm=tuple(D1024_HEAD_DIMS))
 
@@ -2129,8 +2141,8 @@ def row_source(name: str, d: int, sm90_source: str) -> str:
     """The source of the bf16 kernel that row ``name`` runs at head size
     ``d``: ``sm90_source`` (the D = 64 tensor-core kernel's) at D <= 64, the
     wide forward's or backward pair's at 128 and 256, the grouped forward's
-    above 256, the CUDA-core kernels' elsewhere (above 512 the chunked
-    ones)."""
+    or backward pair's above 256, the CUDA-core kernels' elsewhere (the
+    carry; above 512 the chunked one)."""
     import torch
     from p2pfl_tpu_torch.ops import _kernels
 
@@ -2141,9 +2153,10 @@ def row_source(name: str, d: int, sm90_source: str) -> str:
         return SOURCE_F32
     if kd == _kernels.SM90_HEAD_DIM:
         return sm90_source
+    forward = name in ("flash_fwd", "flash_fwd_no_lse")
     if kd > _kernels.SM90_GROUPED_ABOVE:
-        return SOURCE_FWD_GROUPED
-    return SOURCE_FWD_WIDE if name in ("flash_fwd", "flash_fwd_no_lse") else SOURCE_BWD_WIDE
+        return SOURCE_FWD_GROUPED if forward else SOURCE_BWD_GROUPED
+    return SOURCE_FWD_WIDE if forward else SOURCE_BWD_WIDE
 
 
 def main() -> int:
@@ -2236,9 +2249,9 @@ def main() -> int:
     # Head sizes 48, 128, 256, 512 and 1024: bf16 at 48 on the padded
     # tensor-core kernels, the forward at 128 and 256 on SOURCE_FWD_WIDE's and
     # the backward pair on SOURCE_BWD_WIDE's, the forward at 512 and 1024 on
-    # SOURCE_FWD_GROUPED's, the carry at 128 and 256 and rows 3-5 at 512 on the
-    # CUDA-core instances of SOURCE_F32, and rows 3-5 at 1024 (f32: every row)
-    # on SOURCE_CHUNKED's.
+    # SOURCE_FWD_GROUPED's and the backward pair on SOURCE_BWD_GROUPED's, the
+    # carry at 128, 256 and 512 on the CUDA-core instances of SOURCE_F32, and
+    # the carry at 1024 (f32: every row) on SOURCE_CHUNKED's.
     table += [
         {"name": name + narrow_suffix(d), "route": "cuda", "source": row_source(name, d, source),
          "replaces": replaces, "launches": launches[name + narrow_suffix(d)], **rows[name + narrow_suffix(d)],

@@ -16,13 +16,13 @@
 // 64). At head sizes 128 and 256 the bf16 forward runs the tensor-core
 // kernel of flash_fwd_wide_sm90.cu and the bf16 backward pair that of
 // flash_bwd_wide_sm90.cu; above 256 the bf16 forward runs that of
-// flash_fwd_grouped_sm90.cu. The rest of bf16 up to 512 runs the kernels
-// here: the carry fold at <__nv_bfloat16, 128 / 256 / 512> and the backward
-// pair at <__nv_bfloat16, 512> (bf16 loads, f32 arithmetic, bf16 stores); no
-// other bf16 instance of a kernel here is compiled. Above 512, f32 (and the
-// bf16 backward pair and carry) run the kernels of flash_chunked.cu, whose
-// head size is a run-time argument (ops/_kernels.py zero-pads it to a
-// multiple of 64).
+// flash_fwd_grouped_sm90.cu and the bf16 backward pair that of
+// flash_bwd_grouped_sm90.cu. The bf16 carry fold at 128, 256 and 512 runs
+// the kernel here as <__nv_bfloat16, 128 / 256 / 512> (bf16 loads, f32
+// arithmetic, bf16 stores); no other bf16 instance of a kernel here is
+// compiled. Above 512, f32 (and the bf16 carry) run the kernels of
+// flash_chunked.cu, whose head size is a run-time argument (ops/_kernels.py
+// zero-pads it to a multiple of 64).
 //
 // What it computes is what the TPU kernels compute: q is scaled by 1/sqrt(D)
 // in f32, every product and sum is f32, the causal mask writes -0.7 *
@@ -86,17 +86,15 @@ __host__ __device__ constexpr int tile_rows() { return D > 256 ? 16 : D > 128 ? 
 constexpr float MASK_VALUE = -0.7f * FLT_MAX;  // ops/attention.py DEFAULT_MASK_VALUE
 
 // The kernels keep their element type T as a parameter: float at every head
-// size, __nv_bfloat16 at 128, 256 and 512 (bf16 at 64 and below, and the
-// bf16 forward above 64, run the tensor-core kernels). Either way every
-// product and sum is f32.
+// size, __nv_bfloat16 in the carry fold at 128, 256 and 512, which reads bf16
+// q, k and v and writes its carry in f32 (the rest of bf16 runs the
+// tensor-core kernels). Either way every product and sum is f32.
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
 
 // Max / sum over the 16 lanes that hold one tile row (a half warp: tx is the
 // fast thread index, so the xor offsets below never leave it).
@@ -707,7 +705,7 @@ cudaError_t launch_carry(const void* q, const void* k, const void* v, const floa
 // size up to 512 to the next instance; bf16 exists at 64 (the tensor-core
 // kernels, narrower heads padded to it), 128 and 256 (the tensor-core
 // forward and backward pair; the carry here) and 512 (the tensor-core
-// forward; the backward pair and the carry here).
+// forward and backward pair; the carry here).
 template <typename F>
 cudaError_t with_head_dim(int head_dim, F&& launch) {
   switch (head_dim) {
@@ -760,6 +758,13 @@ cudaError_t launch_flash_bwd_dkv_wide_sm90(const void* q, const void* k, const v
 cudaError_t launch_flash_fwd_grouped_sm90(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                                           int Sq, int Sk, int H, int head_dim, float scale, bool causal,
                                           cudaStream_t stream);
+cudaError_t launch_flash_bwd_dq_grouped_sm90(const void* q, const void* k, const void* v, const void* dout,
+                                             const float* lse, const float* delta, void* dq, int B, int Sq, int Sk,
+                                             int H, int head_dim, float scale, bool causal, cudaStream_t stream);
+cudaError_t launch_flash_bwd_dkv_grouped_sm90(const void* q, const void* k, const void* v, const void* dout,
+                                              const float* lse, const float* delta, void* dk, void* dv, int B, int Sq,
+                                              int Sk, int H, int head_dim, float scale, bool causal,
+                                              cudaStream_t stream);
 cudaError_t launch_flash_fwd_chunked(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
                                      int Sk, int H, int head_dim, int dtype, float scale, bool causal,
                                      cudaStream_t stream);
@@ -781,9 +786,10 @@ extern "C" {
 // Every entry point returns cudaErrorInvalidValue for a head size without an
 // instance: up to 512, f32 has 16, 32, 64, 128, 256 and 512, bf16 has 64
 // (tensor cores), 128 and 256 (the tensor-core forward and backward pair,
-// the CUDA-core carry) and 512 (the tensor-core forward, the CUDA-core
-// kernels above); above 512 both take every multiple of 64 (the bf16
-// forward flash_fwd_grouped_sm90.cu, the rest flash_chunked.cu).
+// the CUDA-core carry) and 512 (the tensor-core forward and backward pair,
+// the CUDA-core carry); above 512 both take every multiple of 64 (the bf16
+// forward flash_fwd_grouped_sm90.cu, the bf16 backward pair
+// flash_bwd_grouped_sm90.cu, the rest flash_chunked.cu).
 // ops/_kernels.py kernel_route names the kernel each call takes.
 //
 // lse == NULL selects the forward that writes no logsumexp. bf16 at 64 runs
@@ -810,12 +816,16 @@ int p2pfl_flash_fwd(const void* q, const void* k, const void* v, void* o, float*
 }
 
 // bf16 at 64 runs the tensor-core pair of flash_bwd_sm90.cu, at 128 and 256
-// that of flash_bwd_wide_sm90.cu; f32, and bf16 at 512, the CUDA-core
-// kernels above.
+// that of flash_bwd_wide_sm90.cu, above 256 that of
+// flash_bwd_grouped_sm90.cu; f32 the CUDA-core kernels above (above 512 the
+// chunked ones).
 int p2pfl_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dq, int B, int Sq, int Sk,
                        int H, int head_dim, int dtype, float scale, int causal, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && head_dim > 256)
+    return int(p2pfl::launch_flash_bwd_dq_grouped_sm90(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, head_dim, scale,
+                                                       causal != 0, s));
   if (head_dim > 512)
     return int(p2pfl::launch_flash_bwd_dq_chunked(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, head_dim, dtype, scale,
                                                   causal != 0, s));
@@ -830,8 +840,6 @@ int p2pfl_flash_bwd_dq(const void* q, const void* k, const void* v, const void* 
   if (dtype == 1 && (head_dim == 128 || head_dim == 256))
     return int(p2pfl::launch_flash_bwd_dq_wide_sm90(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, head_dim, scale,
                                                     causal != 0, s));
-  if (dtype == 1 && head_dim == 512)
-    return int(launch_dq<__nv_bfloat16, 512>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, scale, causal != 0, s));
   return int(cudaErrorInvalidValue);
 }
 
@@ -839,6 +847,9 @@ int p2pfl_flash_bwd_dkv(const void* q, const void* k, const void* v, const void*
                         const float* lse, const float* delta, void* dk, void* dv, int B, int Sq,
                         int Sk, int H, int head_dim, int dtype, float scale, int causal, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && head_dim > 256)
+    return int(p2pfl::launch_flash_bwd_dkv_grouped_sm90(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, head_dim,
+                                                        scale, causal != 0, s));
   if (head_dim > 512)
     return int(p2pfl::launch_flash_bwd_dkv_chunked(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, head_dim, dtype,
                                                    scale, causal != 0, s));
@@ -853,9 +864,6 @@ int p2pfl_flash_bwd_dkv(const void* q, const void* k, const void* v, const void*
   if (dtype == 1 && (head_dim == 128 || head_dim == 256))
     return int(p2pfl::launch_flash_bwd_dkv_wide_sm90(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, head_dim, scale,
                                                      causal != 0, s));
-  if (dtype == 1 && head_dim == 512)
-    return int(launch_dkv<__nv_bfloat16, 512>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, scale, causal != 0,
-                                              s));
   return int(cudaErrorInvalidValue);
 }
 

@@ -498,16 +498,6 @@ cudaError_t prepare_dkv() {
   return status;
 }
 
-// The four tensor maps of a backward kernel: q and dO in boxes of `q_rows`
-// rows, k and v in boxes of `k_rows`.
-bool encode_qkvo(CUtensorMap (&maps)[4], const void* q, const void* k, const void* v, const void* dout, int B,
-                 int Sq, int Sk, int H, int q_rows, int k_rows) {
-  const EncodeTiled encode = tensor_map_encoder();
-  return encode != nullptr && encode_bshd(encode, &maps[0], q, B, Sq, H, q_rows) &&
-         encode_bshd(encode, &maps[1], k, B, Sk, H, k_rows) && encode_bshd(encode, &maps[2], v, B, Sk, H, k_rows) &&
-         encode_bshd(encode, &maps[3], dout, B, Sq, H, q_rows);
-}
-
 }  // namespace
 
 namespace p2pfl {
@@ -518,8 +508,9 @@ cudaError_t launch_flash_bwd_dq_sm90(const void* q, const void* k, const void* v
                                      const float* lse, const float* delta, void* dq, int B, int Sq, int Sk, int H,
                                      float scale, bool causal, cudaStream_t stream) {
   CUtensorMap maps[4];
-  if (!encode_qkvo(maps, q, k, v, dout, B, Sq, Sk, H, dq_cfg::BQ, dq_cfg::BK)) return cudaErrorInvalidValue;
-  const cudaError_t e = prepare_dq();
+  cudaError_t e = encode_qkvo(maps, q, k, v, dout, B, Sq, Sk, H, D, dq_cfg::BQ, dq_cfg::BK);
+  if (e != cudaSuccess) return e;
+  e = prepare_dq();
   if (e != cudaSuccess) return e;
   const dim3 grid(B * H, (Sq + dq_cfg::BQ - 1) / dq_cfg::BQ);
   flash_bwd_dq_sm90_kernel<<<grid, kThreads, dq_cfg::kSmemBytes, stream>>>(
@@ -534,8 +525,9 @@ cudaError_t launch_flash_bwd_dkv_sm90(const void* q, const void* k, const void* 
                                       const float* lse, const float* delta, void* dk, void* dv, int B, int Sq,
                                       int Sk, int H, float scale, bool causal, cudaStream_t stream) {
   CUtensorMap maps[4];
-  if (!encode_qkvo(maps, q, k, v, dout, B, Sq, Sk, H, dkv_cfg::BQ, dkv_cfg::BK)) return cudaErrorInvalidValue;
-  const cudaError_t e = prepare_dkv();
+  cudaError_t e = encode_qkvo(maps, q, k, v, dout, B, Sq, Sk, H, D, dkv_cfg::BQ, dkv_cfg::BK);
+  if (e != cudaSuccess) return e;
+  e = prepare_dkv();
   if (e != cudaSuccess) return e;
   const dim3 grid(B * H, (Sk + dkv_cfg::BK - 1) / dkv_cfg::BK);
   flash_bwd_dkv_sm90_kernel<<<grid, kThreads, dkv_cfg::kSmemBytes, stream>>>(

@@ -103,27 +103,6 @@ constexpr uint32_t kKStepRows = 16 * kRowBytes;  // an MN-major operand's k-step
 static_assert(kProducerRegs * 128 + kConsumerRegs * 128 * kConsumers <= 65536, "register file");
 static_assert(kPanelCols * 2 == int(kRowBytes), "a panel row is the 128-byte swizzle atom");
 
-// D[64 x 32] (+)= A[64 x 16] . B[32 x 16]^T, both operands K-major in shared memory.
-__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// A first product (S, dP, S^T or dP^T) for one k-step, by the width of its
-// accumulator: m64n64k16 (32 f32) or m64n32k16 (16 f32).
-__device__ __forceinline__ void wgmma_first(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
-  wgmma_m64n64k16_ss(d, a, b, scale_d);
-}
-__device__ __forceinline__ void wgmma_first(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
-  wgmma_m64n32k16_ss(d, a, b, scale_d);
-}
-
 // Store mul * acc, one consumer thread's rows row0 and row0 + 8 of NP
 // m64n64 accumulators (columns [64 (p0 + p), 64 (p0 + p) + 64)), as bf16
 // into a [B, S, H, HD] tensor; rows past S are not written.
@@ -575,20 +554,6 @@ flash_bwd_dkv_wide_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const _
 
 // --- host side -------------------------------------------------------------------
 
-// The four tensor maps of a backward kernel at head size HD: q and dO in
-// boxes of `q_rows` rows, k and v in boxes of `k_rows`, 64 columns each.
-template <int HD>
-cudaError_t encode_qkvo(CUtensorMap (&maps)[4], const void* q, const void* k, const void* v, const void* dout, int B,
-                        int Sq, int Sk, int H, int q_rows, int k_rows) {
-  const EncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const bool ok = encode_bshd(encode, &maps[0], q, B, Sq, H, q_rows, HD) &&
-                  encode_bshd(encode, &maps[1], k, B, Sk, H, k_rows, HD) &&
-                  encode_bshd(encode, &maps[2], v, B, Sk, H, k_rows, HD) &&
-                  encode_bshd(encode, &maps[3], dout, B, Sq, H, q_rows, HD);
-  return ok ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int HD>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                       const float* delta, void* dq, int B, int Sq, int Sk, int H, float scale, bool causal,
@@ -600,7 +565,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
                                                     kConsumerRegs, kConsumers, T::kSmemBytes);
   if (prepared != cudaSuccess) return prepared;
   CUtensorMap maps[4];
-  const cudaError_t e = encode_qkvo<HD>(maps, q, k, v, dout, B, Sq, Sk, H, T::BQ, T::BK);
+  const cudaError_t e = encode_qkvo(maps, q, k, v, dout, B, Sq, Sk, H, HD, T::BQ, T::BK);
   if (e != cudaSuccess) return e;
   const dim3 grid(B * H, (Sq + T::BQ - 1) / T::BQ);
   kern<<<grid, kThreads, T::kSmemBytes, stream>>>(maps[0], maps[1], maps[2], maps[3], lse, delta,
@@ -618,7 +583,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
                                                     kConsumerRegs, kConsumers, T::kSmemBytes);
   if (prepared != cudaSuccess) return prepared;
   CUtensorMap maps[4];
-  const cudaError_t e = encode_qkvo<HD>(maps, q, k, v, dout, B, Sq, Sk, H, T::BQ, T::BK);
+  const cudaError_t e = encode_qkvo(maps, q, k, v, dout, B, Sq, Sk, H, HD, T::BQ, T::BK);
   if (e != cudaSuccess) return e;
   const dim3 grid(B * H, (Sk + T::BK - 1) / T::BK);
   kern<<<grid, kThreads, T::kSmemBytes, stream>>>(maps[0], maps[1], maps[2], maps[3], lse, delta,

@@ -1,15 +1,16 @@
-// Flash attention on the CUDA cores at any head size above 512: the f32
-// forward (with and without logsumexp), and in f32 and bf16 the backward
-// pair (dq; dk/dv) and ring attention's carry fold, with the head size a
-// run-time argument. The bf16 forward above 256 is flash_fwd_grouped_sm90.cu's
-// tensor-core kernel.
+// Flash attention on the CUDA cores at any head size above 512: in f32 the
+// forward (with and without logsumexp) and the backward pair (dq; dk/dv),
+// and in f32 and bf16 ring attention's carry fold, with the head size a
+// run-time argument. The bf16 forward and backward pair above 256 are the
+// tensor-core kernels of flash_fwd_grouped_sm90.cu and
+// flash_bwd_grouped_sm90.cu.
 //
 // Replaces the Pallas TPU kernels of p2pfl_tpu/ops/attention.py above the
 // largest compiled head size (512) of flash_attn.cu:
 //   flash_fwd_chunked<with_lse=true>   <- _flash_kernel          (pallas_call at :308; f32)
 //   flash_fwd_chunked<with_lse=false>  <- _flash_kernel_no_lse   (pallas_call at :298; f32)
-//   flash_bwd_dq_chunked               <- _flash_bwd_dq_kernel   (pallas_call at :446)
-//   flash_bwd_dkv_chunked              <- _flash_bwd_dkv_kernel  (pallas_call at :463)
+//   flash_bwd_dq_chunked               <- _flash_bwd_dq_kernel   (pallas_call at :446; f32)
+//   flash_bwd_dkv_chunked              <- _flash_bwd_dkv_kernel  (pallas_call at :463; f32)
 //   flash_carry_chunked                <- _flash_carry_kernel    (pallas_call at :590)
 // The TPU kernels keep (block, D) f32 scratch in VMEM and so take any D;
 // a block here has at most 227 KB of shared memory, which holds no 64-row
@@ -47,7 +48,8 @@
 // flash_attn.cu for head sizes above 512; each launches on the given
 // stream, allocates nothing and returns cudaGetLastError()
 // (cudaErrorInvalidValue for a head size that is not a multiple of 64 or a
-// dtype other than 0 (f32) and 1 (bf16); the forward takes 0 only).
+// dtype other than 0 (f32) and 1 (bf16); the forward and the backward pair
+// take 0 only).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,8 +76,6 @@ template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
 
 // Max / sum over the 16 lanes that hold one tile row (a half warp).
 __device__ __forceinline__ float row_max(float v) {
@@ -498,35 +498,37 @@ cudaError_t launch_flash_fwd_chunked(const void* q, const void* k, const void* v
   return cudaGetLastError();
 }
 
+// [B, S, H, head_dim] q / k / v / dout / dq in f32 (dtype 0); lse and delta
+// [B, H, Sq] f32.
 cudaError_t launch_flash_bwd_dq_chunked(const void* q, const void* k, const void* v, const void* dout,
                                         const float* lse, const float* delta, void* dq, int B, int Sq, int Sk, int H,
                                         int head_dim, int dtype, float scale, bool causal, cudaStream_t stream) {
-  return with_dtype(dtype, head_dim, [&](auto t) {
-    using T = decltype(t);
-    const auto kern = flash_bwd_dq_chunked_kernel<T>;
-    const cudaError_t e = prepared(kern, kDqSmem);
-    if (e != cudaSuccess) return e;
-    kern<<<grid_of(Sq, B, H, head_dim), NTHREADS, kDqSmem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout),
-        lse, delta, static_cast<T*>(dq), Sq, Sk, H, head_dim, scale, causal ? 1 : 0);
-    return cudaGetLastError();
-  });
+  if (dtype != 0 || head_dim < PC || head_dim % PC != 0) return cudaErrorInvalidValue;
+  const auto kern = flash_bwd_dq_chunked_kernel<float>;
+  const cudaError_t e = prepared(kern, kDqSmem);
+  if (e != cudaSuccess) return e;
+  kern<<<grid_of(Sq, B, H, head_dim), NTHREADS, kDqSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), Sq, Sk, H, head_dim, scale,
+      causal ? 1 : 0);
+  return cudaGetLastError();
 }
 
+// [B, S, H, head_dim] q / k / v / dout / dk / dv in f32 (dtype 0); lse and
+// delta [B, H, Sq] f32.
 cudaError_t launch_flash_bwd_dkv_chunked(const void* q, const void* k, const void* v, const void* dout,
                                          const float* lse, const float* delta, void* dk, void* dv, int B, int Sq,
                                          int Sk, int H, int head_dim, int dtype, float scale, bool causal,
                                          cudaStream_t stream) {
-  return with_dtype(dtype, head_dim, [&](auto t) {
-    using T = decltype(t);
-    const auto kern = flash_bwd_dkv_chunked_kernel<T>;
-    const cudaError_t e = prepared(kern, kDkvSmem);
-    if (e != cudaSuccess) return e;
-    kern<<<grid_of(Sk, B, H, head_dim), NTHREADS, kDkvSmem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout),
-        lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H, head_dim, scale, causal ? 1 : 0);
-    return cudaGetLastError();
-  });
+  if (dtype != 0 || head_dim < PC || head_dim % PC != 0) return cudaErrorInvalidValue;
+  const auto kern = flash_bwd_dkv_chunked_kernel<float>;
+  const cudaError_t e = prepared(kern, kDkvSmem);
+  if (e != cudaSuccess) return e;
+  kern<<<grid_of(Sk, B, H, head_dim), NTHREADS, kDkvSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sk, H,
+      head_dim, scale, causal ? 1 : 0);
+  return cudaGetLastError();
 }
 
 // m / l: [B, H, Sq] f32; acc: [B, Sq, H, head_dim] f32; *_in and *_out must

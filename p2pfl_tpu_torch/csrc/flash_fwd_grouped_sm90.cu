@@ -10,8 +10,9 @@
 // multiple of 64). The TPU kernels keep (block, D) f32 scratch in VMEM and
 // take any D; up to 256 the bf16 forward is flash_fwd_sm90.cu's (D 64) and
 // flash_fwd_wide_sm90.cu's (D 128 / 256) kernel, which this one follows.
-// The bf16 backward pair and carry fold above 256, and the f32 forward at
-// every D, are the CUDA-core kernels of flash_attn.cu and flash_chunked.cu.
+// The bf16 backward pair above 256 is flash_bwd_grouped_sm90.cu's; the bf16
+// carry fold above 64 and the f32 forward at every D are the CUDA-core
+// kernels of flash_attn.cu and flash_chunked.cu.
 //
 // What it computes is what flash_fwd_wide_sm90.cu computes: scores S = Q.K^T
 // are exact bf16 products summed in f32 by wgmma, then multiplied by the
@@ -104,18 +105,6 @@ static_assert(kQKStageBytes % 1024 == 0 && kVStageBytes % 1024 == 0, "panels sta
 static_assert(kSmemBytes == 214144, "tiles changed");
 static_assert(kSmemBytes <= 232448, "a block has at most 232,448 bytes of shared memory");
 
-// A ring's position: its stage and the parity of the pass over it.
-struct Ring {
-  int stage = 0;
-  uint32_t phase = 0;
-  __device__ void next(int stages) {
-    if (++stage == stages) {
-      stage = 0;
-      phase ^= 1u;
-    }
-  }
-};
-
 // Where a block's panels and barriers lie in shared memory, and its work;
 // each role computes it after its setmaxnreg.
 struct Block {
@@ -150,11 +139,6 @@ __device__ __forceinline__ Block this_block(const uint8_t* smem, int Sk, int H, 
   const int k_end = causal ? min(Sk, blk.q0 + BQ) : Sk;  // causal: future tiles skipped
   blk.n_tiles = (k_end + BK - 1) / BK;
   return blk;
-}
-
-// Wait until at most one committed group of wgmma is still in flight.
-__device__ __forceinline__ void wgmma_wait_one() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
 template <bool WITH_LSE>

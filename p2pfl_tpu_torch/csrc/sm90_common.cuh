@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core flash kernels
-// (flash_fwd_sm90.cu, flash_fwd_wide_sm90.cu, flash_bwd_sm90.cu): mbarriers,
-// TMA loads through 4-D tensor maps over the API's [B, S, H, D] layout in
-// boxes of 64 columns (one 128-byte swizzle span; all of a row at D = 64),
-// wgmma descriptors and instructions, the bf16 split of an f32 operand, the
-// row reductions over an accumulator's quad, the tensor-map encoder and the
+// (the *_sm90.cu sources): mbarriers and a ring's (stage, phase) walk, TMA
+// loads through 4-D tensor maps over the API's [B, S, H, D] layout in boxes
+// of 64 columns (one 128-byte swizzle span; all of a row at D = 64), wgmma
+// descriptors and instructions, the bf16 split of an f32 operand, the row
+// reductions over an accumulator's quad, the tensor-map encoder and the
 // launch guard for setmaxnreg's register split.
 //
 // Everything here sits in an anonymous namespace: each source that
@@ -107,6 +107,11 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// Wait until at most one committed group of wgmma is still in flight.
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
 // Keep the compiler from moving register reads or writes across a wgmma
 // that is still in flight.
 template <int N>
@@ -158,6 +163,18 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// D[64 x 32] (+)= A[64 x 16] . B[32 x 16]^T, both operands K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // D[64 x 64] += A[64 x 16] . B[16 x 64], A from registers (bf16 pairs), B MN-major in shared memory.
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2,
                                                    uint32_t a3, uint64_t desc_b) {
@@ -172,6 +189,15 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], uint32_t a0, 
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+// A first product (S, dP, S^T or dP^T) for one k-step, by the width of its
+// accumulator: m64n64k16 (32 f32) or m64n32k16 (16 f32).
+__device__ __forceinline__ void wgmma_first(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  wgmma_m64n64k16_ss(d, a, b, scale_d);
+}
+__device__ __forceinline__ void wgmma_first(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  wgmma_m64n32k16_ss(d, a, b, scale_d);
 }
 
 // (x, y) -> bf16 pairs hi = bf16(x, y) and lo = bf16((x, y) - hi); x in the low half.
@@ -208,6 +234,18 @@ __device__ __forceinline__ float2 lds_f2(uint32_t addr) {
 __device__ __forceinline__ void sts_f32(uint32_t addr, float v) {
   asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
 }
+
+// A ring's position: its stage and the parity of the pass over it.
+struct Ring {
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ void next(int stages) {
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  }
+};
 
 // --- host side -------------------------------------------------------------------
 
@@ -247,6 +285,19 @@ bool encode_bshd(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, i
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
                 elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The four tensor maps of a backward kernel: q and dO in boxes of `q_rows`
+// rows, k and v in boxes of `k_rows`, 64 columns each.
+cudaError_t encode_qkvo(CUtensorMap (&maps)[4], const void* q, const void* k, const void* v, const void* dout, int B,
+                        int Sq, int Sk, int H, int head_dim, int q_rows, int k_rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const bool ok = encode_bshd(encode, &maps[0], q, B, Sq, H, q_rows, head_dim) &&
+                  encode_bshd(encode, &maps[1], k, B, Sk, H, k_rows, head_dim) &&
+                  encode_bshd(encode, &maps[2], v, B, Sk, H, k_rows, head_dim) &&
+                  encode_bshd(encode, &maps[3], dout, B, Sq, H, q_rows, head_dim);
+  return ok ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // Once per kernel (the caller keeps the result in a static): set the

@@ -15,14 +15,15 @@ entry in :data:`LAUNCHES`.
 Head sizes: any D >= 1. Up to 512 the f32 kernels have instances at 16, 32,
 64, 128, 256 and 512, all on the CUDA cores. bf16 runs the tensor-core
 kernels at 64 (forward, backward pair, carry fold), the tensor-core
-forward and backward pair at 128 and 256, and the tensor-core forward of
-``csrc/flash_fwd_grouped_sm90.cu`` at every D above 256 (the head size at
-run time); its carry fold at 128 and 256, and its backward pair and carry
-at 512, run CUDA-core instances. Above 512, f32 and bf16's backward pair
-and carry run the CUDA-core kernels of ``csrc/flash_chunked.cu``, which
-take the head size at run time and build each score tile a 64-column panel
-of D at a time (:func:`kernel_route`). A call at another D copies q, k, v
-(dO; the carry's acc) into zeroed ``[B, S, H, D']`` buffers, D' the next
+forward and backward pair at 128 and 256, and the tensor-core forward and
+backward pair of ``csrc/flash_fwd_grouped_sm90.cu`` and
+``csrc/flash_bwd_grouped_sm90.cu`` at every D above 256 (the head size at
+run time); its carry fold at 128, 256 and 512 runs CUDA-core instances.
+Above 512, f32 and bf16's carry run the CUDA-core kernels of
+``csrc/flash_chunked.cu``, which take the head size at run time and build
+each score tile a 64-column panel of D at a time (:func:`kernel_route`). A
+call at another D copies q, k, v (dO; the carry's acc) into zeroed ``[B, S,
+H, D']`` buffers, D' the next
 instance (bf16: 64 for D <= 64, else the next of 128, 256 and 512; above
 512 the next multiple of 64), launches that instance with the true scale
 ``1/sqrt(D)`` and slices the outputs back to D. That is exact: zero
@@ -57,7 +58,8 @@ SOURCES = (
     _PKG / "csrc" / "flash_fwd_grouped_sm90.cu",  # bf16 forward above D = 256 on the tensor cores
     _PKG / "csrc" / "flash_bwd_sm90.cu",  # bf16 backward pair (dq; dk/dv) on the tensor cores
     _PKG / "csrc" / "flash_bwd_wide_sm90.cu",  # bf16 backward pair at D = 128 and 256 on the tensor cores
-    _PKG / "csrc" / "flash_chunked.cu",  # above D = 512 (bf16: not the forward), the head size a run-time argument
+    _PKG / "csrc" / "flash_bwd_grouped_sm90.cu",  # bf16 backward pair above D = 256 on the tensor cores
+    _PKG / "csrc" / "flash_chunked.cu",  # above D = 512 (bf16: the carry only), the head size a run-time argument
 )
 HEADERS = (_PKG / "csrc" / "sm90_common.cuh",)  # included by the *_sm90.cu sources
 BUILD_DIR = _PKG.parent / "build"
@@ -72,7 +74,8 @@ SM90_HEAD_DIM = 64  # the bf16 tensor-core forward, backward pair and carry fold
 # and csrc/flash_bwd_wide_sm90.cu above 64); the carry fold's is SM90_HEAD_DIM.
 SM90_WIDE_HEAD_DIMS = (64, 128, 256)
 MAX_HEAD_DIM = HEAD_DIMS[-1]  # the largest compiled instance; above it the chunked kernels
-# bf16 forwards above this run csrc/flash_fwd_grouped_sm90.cu's tensor-core kernel.
+# bf16 forwards and backward pairs above this run the tensor-core kernels of
+# csrc/flash_fwd_grouped_sm90.cu and csrc/flash_bwd_grouped_sm90.cu.
 SM90_GROUPED_ABOVE = SM90_WIDE_HEAD_DIMS[-1]
 CHUNK = 64  # the panel of D of the chunked kernels: above MAX_HEAD_DIM, D pads to a multiple of it
 TENSOR_CORES, CUDA_CORES = "tensor cores", "CUDA cores"
@@ -209,13 +212,12 @@ def kernel_route(kernel: str, dtype: torch.dtype, d: int) -> Tuple[int, str]:
     """``(instance head size, TENSOR_CORES, CUDA_CORES or CHUNKED)`` that a
     call of ``kernel`` (a :data:`LAUNCHES` name) at head size ``d`` runs, as
     the C entry points of ``csrc/flash_attn.cu`` dispatch it: bf16 forwards
-    at every D (above :data:`SM90_GROUPED_ABOVE` the grouped kernel), bf16
-    backward pairs at :data:`SM90_WIDE_HEAD_DIMS` and the bf16 carry fold at
-    :data:`SM90_HEAD_DIM` take the tensor cores, every other call above
-    :data:`MAX_HEAD_DIM` the chunked kernels, the rest the CUDA-core
-    instances."""
+    and backward pairs at every D (above :data:`SM90_GROUPED_ABOVE` the
+    grouped kernels) and the bf16 carry fold at :data:`SM90_HEAD_DIM` take
+    the tensor cores, every other call above :data:`MAX_HEAD_DIM` the
+    chunked kernels, the rest the CUDA-core instances."""
     kd = kernel_head_dim(dtype, d)
-    if dtype == torch.bfloat16 and kernel in ("flash_fwd", "flash_fwd_no_lse") and kd > SM90_GROUPED_ABOVE:
+    if dtype == torch.bfloat16 and kernel != "flash_carry" and kd > SM90_GROUPED_ABOVE:
         return kd, TENSOR_CORES
     if kd > MAX_HEAD_DIM:
         return kd, CHUNKED
@@ -303,9 +305,9 @@ def flash_bwd_dq(
 ) -> torch.Tensor:
     """Kernel dq from the forward's ``lse`` and ``delta = rowsum(dO * O)``.
 
-    bf16 up to D = 256 runs the tensor-core kernels (D = 64 and, above it,
-    128 and 256; 16-byte-aligned tensors, as the forward); f32, and bf16
-    above 256, run the CUDA-core kernels."""
+    bf16 runs the tensor-core kernels at every D (64, 128 and 256, and the
+    grouped kernel above 256; 16-byte-aligned tensors, as the forward); f32
+    runs the CUDA-core kernels (above 512 the chunked one)."""
     _check_qkv("flash_bwd_dq", q, k, v)
     _check_bshd("flash_bwd_dq", q, do)
     if do.shape != q.shape:

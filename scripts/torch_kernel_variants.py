@@ -5,6 +5,7 @@
     python3 scripts/torch_kernel_variants.py bwd     # the backward pair (flash_bwd_sm90.cu)
     python3 scripts/torch_kernel_variants.py carry   # the carry fold (flash_fwd_sm90.cu)
     python3 scripts/torch_kernel_variants.py grouped # the forward above D 256 (flash_fwd_grouped_sm90.cu)
+    python3 scripts/torch_kernel_variants.py bwd_grouped  # the backward pair above D 256 (flash_bwd_grouped_sm90.cu)
 
 Each variant is the chosen source under ``p2pfl_tpu_torch/csrc/`` with some
 of its text replaced (``VARIANTS`` below), built with the package's other
@@ -15,11 +16,15 @@ with lse at [8, 1024, 8, 64] bf16 causal and the one without at
 causal; ``carry`` runs the ring's past and diagonal folds of one chunk
 [2, 1024, 8, 64] bf16 (shard 7 of 8, as ``chip_smoke.py`` times them);
 ``grouped`` runs the forward with lse at [8, 1024, 1, D] bf16 causal and the
-one without at [16, 1024, 1, D], at D 512 and 1024. A
+one without at [16, 1024, 1, D], at D 512 and 1024; ``bwd_grouped`` runs dq
+and dk/dv at [8, 1024, 1, D] bf16 causal, at D 512 and 1024. A
 variant of ``flash_fwd_sm90.cu`` changes the forward and the carry fold
 alike; each family times its own. Every variant's outputs must equal the
-package's kernels' bit for
-bit (the variants change scheduling, not arithmetic). Times are CUDA events
+package's kernels' bit for bit (the variants change scheduling, not
+arithmetic), except those that reorder a sum (``REORDERING``: the dq key
+tile's width changes the order of dQ's k-steps), which are held instead to
+the package's bar against the plain version (1e-6 + 1 bf16 ulp + 2^-15 of
+each gradient's weighted mass, ``chip_smoke.max_err``). Times are CUDA events
 over 50 launches (``chip_smoke.time_ms``), taken in the order A B ... B A
 so that drift shows, with each variant's ptxas registers and spills. Runs
 on the card only.
@@ -39,7 +44,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 SOURCES = {"fwd": "flash_fwd_sm90.cu", "bwd": "flash_bwd_sm90.cu", "carry": "flash_fwd_sm90.cu",
-           "grouped": "flash_fwd_grouped_sm90.cu"}
+           "grouped": "flash_fwd_grouped_sm90.cu", "bwd_grouped": "flash_bwd_grouped_sm90.cu"}
 # kernel family -> variant name -> {text in the source: replacement}
 VARIANTS = {
     "fwd": {
@@ -68,7 +73,19 @@ VARIANTS = {
                                   "#pragma unroll 2\n    for (int p = 0; p < blk.panels; ++p)"},
         "no panel in flight": {"wgmma_wait_one();  // the previous": "wgmma_wait_all();  // the previous"},
     },
+    "bwd_grouped": {
+        "as built": {},
+        "dq BK 32, 8 stages": {"BK = 64;           // keys per K / V tile": "BK = 32;           // keys per K / V tile",
+                               "kStages = 6;": "kStages = 8;",
+                               "kSmemBytes == 214144": "kSmemBytes == 197792"},
+        "dq 5 stages": {"kStages = 6;": "kStages = 5;", "kSmemBytes == 214144": "kSmemBytes == 189552"},
+        "dk/dv 8 stages": {"kStages = 12;": "kStages = 8;", "kSmemBytes == 214752": "kSmemBytes == 165536"},
+        "dk/dv 13 stages": {"kStages = 12;": "kStages = 13;", "kSmemBytes == 214752": "kSmemBytes == 227056"},
+        "groups of 2 panels": {"kGroupPanels = 4;": "kGroupPanels = 2;", "kSmemBytes == 214144": "kSmemBytes == 181376",
+                               "kSmemBytes == 214752": "kSmemBytes == 181984"},
+    },
 }
+REORDERING = {"dq BK 32, 8 stages"}  # variants whose sums run in another order than the package's
 
 
 def build(family: str, nvcc: str, flags: tuple) -> dict:
@@ -126,10 +143,13 @@ def build(family: str, nvcc: str, flags: tuple) -> dict:
 
 
 def calls(family: str):
-    """{case: (fn(lib) -> outputs, the package's outputs)} for the family."""
+    """{case: (fn(lib) -> outputs, the package's outputs, plain)} for the
+    family; ``plain`` (backward cases only, else None) is ``(the plain
+    versions' outputs, their weighted masses)``."""
     import torch
 
     from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.ops import attention as port
 
     gen = torch.Generator().manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
@@ -141,7 +161,36 @@ def calls(family: str):
         if code:
             raise RuntimeError(f"launch failed: CUDA error {code}")
 
+    def backward(q, k, v, g, label=""):
+        out, lse = _kernels.flash_fwd(q, k, v, True, True)
+        delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        b, sq, h, d = q.shape
+        inputs = (q, k, v, g, lse, delta)  # the closures below hold the tensors, not only their pointers
+
+        def dq(lib):
+            out = torch.empty_like(q)
+            check(lib.p2pfl_flash_bwd_dq(*(t.data_ptr() for t in inputs), out.data_ptr(), b, sq, sq, h, d, 1,
+                                         1.0 / math.sqrt(d), 1, stream))
+            return (out,)
+
+        def dkv(lib):
+            dk, dv = torch.empty_like(k), torch.empty_like(v)
+            check(lib.p2pfl_flash_bwd_dkv(*(t.data_ptr() for t in inputs), dk.data_ptr(), dv.data_ptr(), b, sq,
+                                          sq, h, d, 1, 1.0 / math.sqrt(d), 1, stream))
+            return dk, dv
+
+        mass = port.plain_flash_grad_mass(q, k, v, g, lse, delta, True)
+        plain_dq = ((port.plain_flash_backward_dq(q, k, v, g, lse, delta, True),), mass[:1])
+        plain_dkv = (port.plain_flash_backward_dkv(q, k, v, g, lse, delta, True), mass[1:])
+        return {f"flash_bwd_dq{label}": (dq, (_kernels.flash_bwd_dq(q, k, v, g, lse, delta, True),), plain_dq),
+                f"flash_bwd_dkv{label}": (dkv, _kernels.flash_bwd_dkv(q, k, v, g, lse, delta, True), plain_dkv)}
+
     cases = {}
+    if family == "bwd_grouped":
+        for d in (512, 1024):
+            cases.update(backward(*(torch.randn((8, 1024, 1, d), generator=gen).cuda().to(torch.bfloat16)
+                                    for _ in range(4)), f" D={d}"))
+        return cases
     if family == "grouped":
         for d in (512, 1024):
             for name, b, with_lse in (("flash_fwd", 8, True), ("flash_fwd_no_lse", 16, False)):
@@ -157,7 +206,7 @@ def calls(family: str):
                     return (out,) if lse is None else (out, lse)
 
                 ref = _kernels.flash_fwd(q, k, v, True, with_lse)
-                cases[f"{name} D={d}"] = (fwd, ref if with_lse else ref[:1])
+                cases[f"{name} D={d}"] = (fwd, ref if with_lse else ref[:1], None)
         return cases
     if family == "fwd":
         for name, b, with_lse in (("flash_fwd", 8, True), ("flash_fwd_no_lse", 16, False)):
@@ -172,7 +221,7 @@ def calls(family: str):
                                           1.0 / math.sqrt(d), 1, stream))
                 return (out,)
 
-            cases[name] = (fwd, (_kernels.flash_fwd(q, k, v, True, with_lse)[0],))
+            cases[name] = (fwd, (_kernels.flash_fwd(q, k, v, True, with_lse)[0],), None)
         return cases
     if family == "carry":
         from p2pfl_tpu_torch.ops import attention as att
@@ -191,29 +240,9 @@ def calls(family: str):
                                             1.0 / math.sqrt(d), 1, off, kv_off, stream))
                 return outs
 
-            cases[name] = (fold, _kernels.flash_carry(carry, q, kc, vc, off, kv_off, True))
+            cases[name] = (fold, _kernels.flash_carry(carry, q, kc, vc, off, kv_off, True), None)
         return cases
-    q, k, v, g = rand(8)
-    out, lse = _kernels.flash_fwd(q, k, v, True, True)
-    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    b, sq, h, d = q.shape
-    inputs = (q, k, v, g, lse, delta)  # the closures below hold the tensors, not only their pointers
-
-    def dq(lib):
-        out = torch.empty_like(q)
-        check(lib.p2pfl_flash_bwd_dq(*(t.data_ptr() for t in inputs), out.data_ptr(), b, sq, sq, h, d, 1,
-                                     1.0 / math.sqrt(d), 1, stream))
-        return (out,)
-
-    def dkv(lib):
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
-        check(lib.p2pfl_flash_bwd_dkv(*(t.data_ptr() for t in inputs), dk.data_ptr(), dv.data_ptr(), b, sq, sq,
-                                      h, d, 1, 1.0 / math.sqrt(d), 1, stream))
-        return dk, dv
-
-    cases["flash_bwd_dq"] = (dq, (_kernels.flash_bwd_dq(q, k, v, g, lse, delta, True),))
-    cases["flash_bwd_dkv"] = (dkv, _kernels.flash_bwd_dkv(q, k, v, g, lse, delta, True))
-    return cases
+    return backward(*rand(8))
 
 
 def main() -> int:
@@ -233,14 +262,19 @@ def main() -> int:
     libs = build(family, _kernels._find_nvcc(), _kernels.NVCC_FLAGS)
     cases = calls(family)
     for vname, (lib, ptxas) in libs.items():
-        same = all(torch.equal(a, b) for fn, refs in cases.values() for a, b in zip(fn(lib), refs))
+        same = all(torch.equal(a, b) for fn, refs, _ in cases.values() for a, b in zip(fn(lib), refs))
         print(f"{vname}: ptxas {ptxas}; outputs equal to the package's kernels: {same}")
-        if not same:
+        if same:
+            continue
+        if vname not in REORDERING:
             return 1
+        for name, (fn, _, (refs, masses)) in cases.items():  # raises if an output is past the bar
+            for i, (got, ref, mass) in enumerate(zip(fn(lib), refs, masses)):
+                chip_smoke.max_err(got, ref, f"{vname}: {name} output {i}", atol=1e-6, bf16_ulps=1, mass=mass)
     order = list(libs) + list(reversed(libs))
     times = {v: {name: [] for name in cases} for v in libs}
     for vname in order:
-        for name, (fn, _) in cases.items():
+        for name, (fn, _, _) in cases.items():
             times[vname][name].append(chip_smoke.time_ms(lambda: fn(libs[vname][0]), 50))
     for vname, t in times.items():
         print(f"{vname}: " + "; ".join(f"{name} {' / '.join(f'{x:.4f}' for x in xs)} ms" for name, xs in t.items()))

@@ -78,17 +78,16 @@ def test_kernel_head_dim_pads_every_head_size_to_the_next_instance():
 
 @pytest.mark.parametrize("kernel", list(_kernels.LAUNCHES))
 def test_kernel_route_names_the_c_path_of_every_head_size(kernel):
-    """bf16: the forward (with and without lse) takes the tensor cores at
-    every D (the D = 64 kernel up to 64, the wide one at 128 and 256, the
-    grouped one above 256), the backward pair up to D = 256, the carry up to
-    64; everything else up to 512, and f32 at every D up to 512, the
-    CUDA-core instances; every other call above 512 the chunked kernels at
-    the next multiple of 64."""
+    """bf16: the forward (with and without lse) and the backward pair take
+    the tensor cores at every D (the D = 64 kernels up to 64, the wide ones
+    at 128 and 256, the grouped ones above 256), the carry up to 64; the
+    carry up to 512, and f32 at every D up to 512, the CUDA-core instances;
+    every other call above 512 the chunked kernels at the next multiple of
+    64."""
     carry = kernel == "flash_carry"
-    forward = kernel in ("flash_fwd", "flash_fwd_no_lse")
     for d in range(1, 513):
         kd = 64 if d <= 64 else 128 if d <= 128 else 256 if d <= 256 else 512
-        sm90 = forward or d <= (64 if carry else 256)
+        sm90 = not carry or d <= 64
         assert _kernels.kernel_route(kernel, torch.bfloat16, d) == (
             kd, _kernels.TENSOR_CORES if sm90 else _kernels.CUDA_CORES), d
         assert _kernels.kernel_route(kernel, torch.float32, d) == (
@@ -96,7 +95,7 @@ def test_kernel_route_names_the_c_path_of_every_head_size(kernel):
     for d in (513, 576, 577, 640, 1000, 1024, 4096):
         kd = 64 * ((d + 63) // 64)
         assert _kernels.kernel_route(kernel, torch.bfloat16, d) == (
-            kd, _kernels.TENSOR_CORES if forward else _kernels.CHUNKED), d
+            kd, _kernels.CHUNKED if carry else _kernels.TENSOR_CORES), d
         assert _kernels.kernel_route(kernel, torch.float32, d) == (kd, _kernels.CHUNKED), d
 
 
@@ -120,7 +119,8 @@ def test_library_path_follows_the_source(tmp_path, monkeypatch):
     assert path.parent == _kernels.BUILD_DIR and path.suffix == ".so"
     assert [src.name for src in _kernels.SOURCES] == ["flash_attn.cu", "flash_fwd_sm90.cu", "flash_fwd_wide_sm90.cu",
                                                       "flash_fwd_grouped_sm90.cu", "flash_bwd_sm90.cu",
-                                                      "flash_bwd_wide_sm90.cu", "flash_chunked.cu"]
+                                                      "flash_bwd_wide_sm90.cu", "flash_bwd_grouped_sm90.cu",
+                                                      "flash_chunked.cu"]
     assert [hdr.name for hdr in _kernels.HEADERS] == ["sm90_common.cuh"]
     assert all(src.is_file() for src in (*_kernels.SOURCES, *_kernels.HEADERS))
     for src in _kernels.SOURCES:  # the tensor-core sources, and only they, include the header
@@ -762,7 +762,7 @@ def test_ring_flash_autograd_matches_dense_on_card_bf16(cuda_device):
 # (and the carry's acc) to 64 for the tensor-core kernels (16, 32, 48), runs
 # the wide tensor-core forward and backward pair and the CUDA-core carry at
 # 128 and 256 (160 padded to 256), and at 512 (384 padded to it) the grouped
-# tensor-core forward and the CUDA-core backward pair and carry, slicing the
+# tensor-core forward and backward pair and the CUDA-core carry, slicing the
 # outputs back. All are held to the D = 64 bars above.
 
 
@@ -910,6 +910,58 @@ def test_wide_backward_refuses_misaligned_inputs_on_card(cuda_device, d):
     _check_backward(q, k, v, g, True)
 
 
+# --- the bf16 backward pair above D = 256: the grouped tensor-core kernels ---------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1024, 1000, 129, 1])
+@pytest.mark.parametrize("d", [320, 512, 576, 640, 1024])
+def test_grouped_backward_matches_plain_version_on_card(cuda_device, d, s, causal):
+    """Rows 3-4 on the grouped tensor-core pair ([4, S, 2, D] bf16; 320
+    zero-padded to 512; at 576 / 640 the last group of output columns holds
+    one / two panels): dq, dk and dv within the split bar (1e-6 + 1 bf16 ulp
+    + 2^-15 of their weighted mass, plain_flash_grad_mass), one launch each."""
+    kd = 512 if d <= 512 else d
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert _kernels.kernel_route(name, torch.bfloat16, d) == (kd, _kernels.TENSOR_CORES)
+    q, k, v, g = _qkv(130 + d + s, (4, s, 2, d), torch.bfloat16, cuda_device)
+    _check_backward(q, k, v, g, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(200, 1000), (1000, 200), (129, 64)])
+@pytest.mark.parametrize("d", [512, 1024])
+def test_grouped_backward_with_other_key_length_on_card(cuda_device, d, sq, sk, causal):
+    """Sq != Sk on the grouped pair (the causal mask compares positions from
+    0 on both sides, as the plain version's does; at Sq 200 under 1000 keys
+    the k tiles past the last query see no q tile and return zeros), held to
+    the split bar."""
+    q, _, _, g = _qkv(140 + d + sq, (2, sq, 2, d), torch.bfloat16, cuda_device)
+    _, k, v, _ = _qkv(141 + d + sk, (2, sk, 2, d), torch.bfloat16, cuda_device)
+    _check_backward(q, k, v, g, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [512, 1024])
+def test_grouped_backward_refuses_misaligned_inputs_on_card(cuda_device, d):
+    """The grouped pair loads by TMA: a q, k, v or dO that is not 16-byte
+    aligned is refused before anything launches; the aligned copies pass."""
+    q, k, v, g = _qkv(3, (1, 64, 2, d), torch.bfloat16, cuda_device)
+    out, lse = _kernels.flash_fwd(q, k, v, True, True)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    _kernels.reset_launches()
+    for args in ((_misaligned(q), k, v, g), (q, _misaligned(k), v, g), (q, k, _misaligned(v), g),
+                 (q, k, v, _misaligned(g))):
+        with pytest.raises(ValueError, match="aligned"):
+            _kernels.flash_bwd_dq(*args, lse, delta, True)
+        with pytest.raises(ValueError, match="aligned"):
+            _kernels.flash_bwd_dkv(*args, lse, delta, True)
+    assert not any(_kernels.LAUNCHES.values())
+    _check_backward(q, k, v, g, True)
+
+
 # --- any head size above 512: the chunked kernels --------------------------------
 
 
@@ -922,12 +974,14 @@ def test_chunked_kernels_match_plain_versions_on_card(cuda_device, d, dtype):
     and a diagonal, a past and a future carry fold against their plain
     versions, each launching once and counting. The chunked kernels compute
     in f32 throughout and are held to flash_attn.cu's CUDA-core bars (bf16
-    outputs within 1 bf16 ulp, f32 forward and carry 1e-5, f32 gradients
-    1e-4); the bf16 forward runs the grouped tensor-core kernel, held to the
-    split bar (1e-6 + 1 bf16 ulp + 2^-15 of the row's mass)."""
+    carry within 1 bf16 ulp, f32 forward and carry 1e-5, f32 gradients
+    1e-4); the bf16 forward and backward pair run the grouped tensor-core
+    kernels, held to the split bar (1e-6 + 1 bf16 ulp + 2^-15 of the row's
+    mass, or of the gradient's)."""
     kd, bf16 = 64 * ((d + 63) // 64), dtype == torch.bfloat16
-    assert _kernels.kernel_route("flash_fwd", dtype, d) == (kd, _kernels.TENSOR_CORES if bf16 else _kernels.CHUNKED)
-    assert _kernels.kernel_route("flash_bwd_dq", dtype, d) == (kd, _kernels.CHUNKED)
+    route = (kd, _kernels.TENSOR_CORES if bf16 else _kernels.CHUNKED)
+    assert _kernels.kernel_route("flash_fwd", dtype, d) == _kernels.kernel_route("flash_bwd_dq", dtype, d) == route
+    assert _kernels.kernel_route("flash_bwd_dkv", dtype, d) == route
     q, k, v, g = _qkv(90 + d, (2, 129, 2, d), dtype, cuda_device)
     _kernels.reset_launches()
     out, lse = _kernels.flash_fwd(q, k, v, True, True)
@@ -943,10 +997,11 @@ def test_chunked_kernels_match_plain_versions_on_card(cuda_device, d, dtype):
     got = (_kernels.flash_bwd_dq(q, k, v, g, lse, delta, True), *_kernels.flash_bwd_dkv(q, k, v, g, lse, delta, True))
     ref = (port.plain_flash_backward_dq(q, k, v, g, lse, delta, True),
            *port.plain_flash_backward_dkv(q, k, v, g, lse, delta, True))
-    for a, b in zip(got, ref):
+    masses = port.plain_flash_grad_mass(q, k, v, g, lse, delta, True)
+    for a, b, m in zip(got, ref, masses):
         assert a.shape == q.shape and torch.isfinite(a.float()).all()
         if bf16:
-            _within_one_bf16_ulp(a, b)
+            _within_split_bar(a, b, m)
         else:
             torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
     off = 7 * 129
