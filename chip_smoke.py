@@ -9,12 +9,15 @@ Phases, each on its own printed lines:
    kernels' build from ``p2pfl_tpu_torch/csrc`` (time and ptxas report:
    registers and spills of each kernel; the tensor-core forward and
    backward pair (D = 64, the wide ones at D = 128 and 256, the grouped
-   ones at every D above 256) and the carry kernels must not spill, the
+   ones at every D above 256, the narrow forward's six instances below 64)
+   and the carry kernels must not spill, the
    only bf16 instances of the CUDA-core kernels are the carry's at D = 128,
    256 and 512, and every chunked kernel (rows 1-5 above D = 512 in f32,
-   row 5 in bf16) is built), and the count of ``HGMMA`` (wgmma)
-   instructions in each tensor-core kernel from ``cuobjdump -sass`` (each
-   must have some).
+   row 5 in bf16) is built). The count of ``HGMMA`` (wgmma) instructions in
+   each tensor-core kernel from ``cuobjdump -sass`` (each must have some)
+   runs last, after phase 23: on the card, torch.profiler sessions run in
+   this process after that count recorded none of the library's kernels
+   (why is not known), and ``--profile``'s breakdowns read them.
 2. kernels: each Hopper kernel against its plain PyTorch version on the
    card at the main paths' shapes (bf16 [8, 1024, 8, 64] causal; the eval
    forward at [16, 1024, 8, 64], and at the learner's [8, 1024, 8, 64]) plus a ragged S=1000, a non-causal, causal
@@ -65,13 +68,18 @@ Phases, each on its own printed lines:
 
 5. narrow: rows 1-5 at head sizes 32 and 16 (the width of rows 1-5 over 16
    and 32 heads: [8, 1024, H, D], the eval forward at [16, 1024, H, D], the
-   carry at one ring chunk [2, 1024, H, D]) in bf16 (q, k, v, dO and the
-   carry's acc zero-padded to 64 for the tensor-core kernels) and f32 (the
+   carry at one ring chunk [2, 1024, H, D]) in bf16 (rows 1-2 on the narrow
+   tensor-core forward at the true D; q, k, v, dO and the carry's acc
+   zero-padded to 64 for the other tensor-core kernels) and f32 (the
    CUDA-core instances at D), held to the bars of phase 2 and the carry
    phase, then timed beside the aten flash forward and backward at the same
-   shape, with the bound at the true D. Then rows 1-4 the same way at the
-   flash classifier's own shapes (bf16, head size 32, a sequence of 64: one
-   partial tile): training at [16, 64, 4, 32], eval at [256, 64, 4, 32].
+   shape, with the bound at the true D; under torch.profiler one forward
+   call at [8, 1024, 16, 32] must be one CUDA kernel (no pad copies). Then
+   rows 1-4 the same way at the flash classifier's own shapes (bf16, head
+   size 32, a sequence of 64: one partial tile of the backward, one 64-row
+   tile of the narrow forward): training at [16, 64, 4, 32], eval at [256,
+   64, 4, 32]. Each row 2 also records the backend SDPA takes
+   (``library_backend``; phase 23 names its kernel).
 6. narrow paths: the slice's LM at 16 and 32 heads (head sizes 32 and 16),
    one round each (no warm-up round: the kernels are built and checked by
    then), and the ring trainer at 16 and 32 heads, one step after a warm-up
@@ -98,8 +106,9 @@ Phases, each on its own printed lines:
    under Krum, the update-norm clip and ``eval_every=2``: finite losses;
    then each held on the card against the CPU as in phase 7.
 
-10. c1: rows 1-5 at head sizes 48 ([8, 1024, 8, 48]: bf16 padded to the
-   64 tensor-core kernels, f32 to the 64 instance) and 128 ([8, 1024, 4,
+10. c1: rows 1-5 at head sizes 48 ([8, 1024, 8, 48]: the bf16 forward on
+   the narrow tensor-core kernel at the true D, the other bf16 rows padded to
+   the 64 tensor-core kernels, f32 to the 64 instance) and 128 ([8, 1024, 4,
    128]: the bf16 forward and backward pair on the wide tensor-core kernels,
    the bf16 carry and every f32 row on the CUDA-core <bf16 / f32, 128>
    instances), held to the bars of phases 2 and 5 and timed beside aten;
@@ -123,7 +132,8 @@ Phases, each on its own printed lines:
    fused round (``run_fused``): every round's ``canonical_params_hash``
    equal, and the two ledgers' trajectories.
 14. longcontext: rows 1-4 at the example's own shapes at its defaults
-   (bf16, head size 16 padded to 64, a sequence of 256): training at
+   (bf16, head size 16: the forward on the narrow kernel, the backward pair
+   padded to 64; a sequence of 256): training at
    [4, 256, 4, 16], eval at [16, 256, 4, 16], held to phase 2's bars and
    timed beside aten; then ``p2pfl_tpu_torch.examples.longcontext
    --attention flash`` at its defaults (in this process): the token loss
@@ -176,6 +186,11 @@ Phases, each on its own printed lines:
    logits against the unpipelined model's (2^-5 of the largest logit), 3
    Adam steps, exact launch counts at [2, 1024, 8, 64].
 22. dryrun: ``dryrun_multichip(4)`` on the card, five OK lines.
+23. sdpa: in a process of its own, the kernel each row 2's SDPA call runs
+   at the row's shape under its recorded backend, its longest CUDA kernel
+   under torch.profiler (``library_kernel``): the smoke's own process
+   was seen to record no kernel in its later profiler sessions (why is not
+   known).
 
 ``--profile`` adds one more slice round, one more ring train step, one more
 MLP round, one more run of the cifar example with ``--rounds 1`` (its set-up,
@@ -233,18 +248,22 @@ RING_KERNEL_ROWS = {  # name -> (replaced TPU kernel body, launches per train st
     "flash_carry": ("p2pfl_tpu/ops/attention.py:485", RING_FOLDS, SOURCE_FWD),
 }
 
-# Head sizes below 64: the width above over 16 and 32 heads. bf16 zero-pads
-# to the 64 instances of the tensor-core kernels; f32 has its own instances.
+# Head sizes below 64: the width above over 16 and 32 heads. The bf16
+# forward runs the narrow tensor-core kernel at the true D; the other bf16
+# rows zero-pad to the 64 instances of the tensor-core kernels; f32 has its
+# own instances.
 NARROW_HEAD_DIMS = (32, 16)
 SOURCE_F32 = "p2pfl_tpu_torch/csrc/flash_attn.cu"  # the CUDA-core kernels: f32 and bf16's carry above 64
 SOURCE_FWD_WIDE = "p2pfl_tpu_torch/csrc/flash_fwd_wide_sm90.cu"  # the bf16 forward at D = 128 and 256
 SOURCE_FWD_GROUPED = "p2pfl_tpu_torch/csrc/flash_fwd_grouped_sm90.cu"  # the bf16 forward above D = 256
+SOURCE_FWD_NARROW = "p2pfl_tpu_torch/csrc/flash_fwd_narrow_sm90.cu"  # the bf16 forward below D = 64
 SOURCE_BWD_WIDE = "p2pfl_tpu_torch/csrc/flash_bwd_wide_sm90.cu"  # the bf16 backward pair at D = 128 and 256
 SOURCE_BWD_GROUPED = "p2pfl_tpu_torch/csrc/flash_bwd_grouped_sm90.cu"  # the bf16 backward pair above D = 256
 SOURCE_CHUNKED = "p2pfl_tpu_torch/csrc/flash_chunked.cu"  # above D = 512: f32, and bf16's carry
 # Head sizes up to 128 (the repair of ROADMAP queue C item 1): 48 at the LM's
-# width over 8 heads (width 384; bf16 padded to the 64 tensor-core kernels,
-# f32 to the 64 instance) and 128 at width 512 over 4 heads (the CUDA-core
+# width over 8 heads (width 384; the bf16 forward on the narrow kernel, the
+# other bf16 rows padded to the 64 tensor-core kernels, f32 to the 64
+# instance) and 128 at width 512 over 4 heads (the CUDA-core
 # <f32, 128> and <bf16, 128> instances). Head size -> heads.
 C1_HEAD_DIMS = {48: 8, 128: 4}
 # Head size 256: the LM's width over 2 heads (the bf16 forward and backward
@@ -376,6 +395,87 @@ def max_err(got, ref, what: str, atol: float, bf16_ulps: int = 0, mass=None) -> 
     return err
 
 
+def cuda_kernels(prof) -> list:
+    """``[(us, name)]`` of the CUDA kernels a ``torch.profiler`` run
+    recorded (older layouts attach them to the CPU op that launched them)."""
+    from torch.autograd import DeviceType
+
+    kernels = [(e.time_range.elapsed_us(), e.name) for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return kernels or [(k.duration, k.name) for e in prof.events() for k in getattr(e, "kernels", [])]
+
+
+def sdpa_backend(q, k, v) -> dict:
+    """The row's library call's backend: ``library_backend``, the one
+    ``F.scaled_dot_product_attention(q, k, v, is_causal=True)`` takes under
+    the backends enabled here (SDPA's own choice,
+    ``torch._fused_sdp_choice``), and ``library_shape``, q's shape, from
+    which :func:`phase_sdpa_kernels` names the kernel it runs."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    return {"library_backend": SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=True)).name,
+            "library_shape": list(q.shape)}
+
+
+def sdpa_kernels(calls: list) -> list:
+    """For each ``(backend, [B, H, S, D])`` the longest CUDA kernel of one
+    bf16 causal ``F.scaled_dot_product_attention`` call under that backend
+    alone, under torch.profiler after a warm-up call, or "kernel not
+    recorded"."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    names = []
+    for backend, shape in calls:
+        q, k, v = (torch.randn(shape).to("cuda", torch.bfloat16) for _ in range(3))
+        with sdpa_kernel([getattr(SDPBackend, backend)]), torch.no_grad():
+            F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                F.scaled_dot_product_attention(q, k, v, is_causal=True)
+                torch.cuda.synchronize()
+        kernels = cuda_kernels(prof)
+        names.append(max(kernels)[1][:120] if kernels else "kernel not recorded")
+    return names
+
+
+def phase_sdpa_kernels(rows: dict) -> None:
+    """``library_kernel``: the kernel each row's SDPA call runs (every row
+    :func:`sdpa_backend` recorded), named by :func:`sdpa_kernels` in a
+    process of its own at the row's shape and backend. In this process's
+    own later profiler sessions the card's kernels were seen to go
+    unrecorded; why is not known."""
+    import os
+
+    keys = [key for key, r in rows.items() if "library_shape" in r]
+    calls = [(rows[key]["library_backend"], rows[key]["library_shape"]) for key in keys]
+    code = f"import json, chip_smoke; print(json.dumps(chip_smoke.sdpa_kernels({calls!r})))"
+    out = subprocess.run([sys.executable, "-c", code], cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"profiling SDPA failed: {out.stderr.strip()[-500:]}")
+    for key, (backend, shape), name in zip(keys, calls, json.loads(out.stdout.strip().splitlines()[-1])):
+        rows[key]["library_kernel"] = name
+        print(f"[sdpa] {key}: {backend} at {shape}: {name}")
+
+
+def forward_kernels(shape: list, with_lse: bool) -> list:
+    """The names of the CUDA kernels one bf16 causal forward call of the
+    port at ``shape`` runs, under torch.profiler (after a warm-up call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from p2pfl_tpu_torch.ops import _kernels
+
+    q, k, v = (torch.randn(shape).to("cuda", torch.bfloat16) for _ in range(3))
+    _kernels.flash_fwd(q, k, v, True, with_lse)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _kernels.flash_fwd(q, k, v, True, with_lse)
+        torch.cuda.synchronize()
+    return [name for _, name in cuda_kernels(prof)]
+
+
 def bound(name: str, b: int, s: int, h: int, d: int, causal: bool, esize: int) -> tuple:
     """(bound_ms, bound_by): FLOPs of the products (causal: lower triangle, as
     bench.py counts) over the bf16 peak vs bytes (each input read once, each
@@ -415,6 +515,7 @@ def phase_env() -> str:
         m90 = re.search(r"flash_fwd_sm90_kernelILb(\d)E", line)
         mw90 = re.search(r"flash_fwd_wide_sm90_kernelILi(\d+)ELb(\d)E", line)
         mg90 = re.search(r"flash_fwd_grouped_sm90_kernelILb(\d)E", line)
+        mn90 = re.search(r"flash_fwd_narrow_sm90_kernelILi(\d+)ELb(\d)E", line)
         mb90 = re.search(r"(flash_bwd_dq_sm90_kernel|flash_bwd_dkv_sm90_kernel|flash_carry_sm90_kernel)", line)
         mwb = re.search(r"(flash_bwd_dq_wide_sm90_kernel|flash_bwd_dkv_wide_sm90_kernel)ILi(\d+)E", line)
         mgb = re.search(r"(flash_bwd_dq_grouped_sm90_kernel|flash_bwd_dkv_grouped_sm90_kernel)", line)
@@ -428,6 +529,8 @@ def phase_env() -> str:
             entry = f"flash_fwd_wide_sm90_kernel<bf16, D={mw90[1]}, lse={mw90[2]}>"
         elif mg90:
             entry = f"flash_fwd_grouped_sm90_kernel<bf16, lse={mg90[1]}>"
+        elif mn90:
+            entry = f"flash_fwd_narrow_sm90_kernel<bf16, W={mn90[1]}, lse={mn90[2]}>"
         elif mb90:
             entry = f"{mb90[1]}<bf16, D=64>"
         elif mwb:
@@ -453,6 +556,9 @@ def phase_env() -> str:
     check(sorted(e for e in seen if e.startswith("flash_fwd_grouped_sm90")) ==
           [f"flash_fwd_grouped_sm90_kernel<bf16, lse={w}>" for w in (0, 1)],
           "the build log lacks a grouped tensor-core forward instance (above D = 256, with and without lse)")
+    check(sorted(e for e in seen if e.startswith("flash_fwd_narrow_sm90")) ==
+          sorted(f"flash_fwd_narrow_sm90_kernel<bf16, W={w}, lse={x}>" for w in (16, 32, 64) for x in (0, 1)),
+          "the build log lacks a narrow tensor-core forward instance (box width 16 / 32 / 64, with and without lse)")
     check(all(any(e.startswith(f"flash_bwd_{k}_sm90") for e in seen) for k in ("dq", "dkv")),
           "the build log lacks a tensor-core backward kernel")
     check(sorted(e for e in seen if "_wide_sm90" in e and e.startswith("flash_bwd")) ==
@@ -478,7 +584,6 @@ def phase_env() -> str:
         for d in (128, 256, 512):
             check(any(e.startswith(f"{simt}<f32, D={d}") for e in seen),
                   f"the build log lacks the f32 D = {d} instance of {simt}")
-    phase_sass(path, _kernels._find_nvcc())
     return card
 
 
@@ -514,6 +619,9 @@ def phase_sass(lib, nvcc: str) -> None:
     grouped90 = [n for name, n in shown.items() if "flash_fwd_grouped_sm90_kernel" in name]
     check(len(grouped90) == 2 and all(n > 0 for n in grouped90),
           "a grouped bf16 forward instance (above D = 256) holds no HGMMA instruction")
+    narrow90 = [n for name, n in shown.items() if "flash_fwd_narrow_sm90_kernel" in name]
+    check(len(narrow90) == 6 and all(n > 0 for n in narrow90),
+          "a narrow bf16 forward instance (box width 16 / 32 / 64) holds no HGMMA instruction")
     bwd90 = [n for name, n in shown.items() if "flash_bwd_dq_sm90" in name or "flash_bwd_dkv_sm90" in name]
     check(len(bwd90) == 2 and all(n > 0 for n in bwd90), "a bf16 backward kernel holds no HGMMA instruction")
     wide_bwd90 = [n for name, n in shown.items() if re.search(r"flash_bwd_(dq|dkv)_wide_sm90", name)]
@@ -639,7 +747,7 @@ def phase_kernels() -> dict:
         row = {
             "max_abs_err": err, "ms": time_ms(lambda: _kernels.flash_fwd(q, k, v, True, False), 20),
             "plain_ms": time_ms(lambda: att.plain_flash_forward(q, k, v, True), 5),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib, **sdpa_backend(qh, kh, vh),
         }
         if b_eval == EVAL_SEQS:
             rows["flash_fwd_no_lse"] = row
@@ -649,7 +757,8 @@ def phase_kernels() -> dict:
     for name, r in rows.items():
         print(f"[kernels] {name}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
               f"{r['bound_ms'] / r['ms']:.1%} of it); plain {r['plain_ms']:.4f} ms (not a yardstick); "
-              f"library {r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x of it)")
+              f"library {r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x of it)"
+              + (f" [{r['library_backend'][:80]}]" if "library_backend" in r else ""))
     return rows
 
 
@@ -807,11 +916,12 @@ def narrow_rows(label: str, suffix: str, d: int, h: int, b: int, b_eval: int, s:
     for dtype in dtypes:
         bf16 = dtype == torch.bfloat16
         kind = str(dtype)[6:]
-        kd = _kernels.kernel_head_dim(dtype, d)  # the instance the call runs
-        padded = "" if kd == d else f", zero-padded to {kd}"
-        how = ", ".join(f"{name} on the {_kernels.kernel_route(name, dtype, d)[1]}"
-                        for name in ("flash_fwd", "flash_bwd_dq", "flash_carry"))
-        print(f"[{label}] D={d} {kind} ({how}{padded}; dk/dv as dq, the eval forward as the forward): "
+        how = []
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_carry"):
+            hd = _kernels.host_head_dim(name, dtype, d)  # the head size the kernel is handed
+            how.append(f"{name} on the {_kernels.kernel_route(name, dtype, d)[1]}"
+                       + ("" if hd == d else f" zero-padded to {hd}"))
+        print(f"[{label}] D={d} {kind} ({', '.join(how)}; dk/dv as dq, the eval forward as the forward): "
               f"B={b} S={s} H={h} causal=True; eval B={b_eval}")
         # The bars of phase 2 (bf16: 1e-6 + 1 ulp + 2^-15 mass; f32: the
         # JAX package's 1e-5 / 1e-4) and of the carry phase.
@@ -887,6 +997,7 @@ def narrow_rows(label: str, suffix: str, d: int, h: int, b: int, b_eval: int, s:
             with torch.no_grad():
                 lib["flash_fwd_no_lse"] = time_ms(
                     lambda: F.scaled_dot_product_attention(qeh, keh, veh, is_causal=True), 20)
+                backends["flash_fwd_no_lse"] = sdpa_backend(qeh, keh, veh)
                 if d <= 256:  # aten's flash attention
                     lib["flash_fwd"] = time_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
                         qh, kh, vh, 0.0, True, False), 20)
@@ -907,13 +1018,15 @@ def narrow_rows(label: str, suffix: str, d: int, h: int, b: int, b_eval: int, s:
                     b_ms, b_by = bound(name, b_eval if name == "flash_fwd_no_lse" else b, s, h, d, True, 2)
                 rows[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                              "bound_by": b_by, "library_ms": lib[name]}
-                if backends:
-                    rows[key]["library_backend"] = backends[name]
+                if name in backends:
+                    rows[key].update(backends[name])
             else:
                 rows[key].update({"max_abs_err_f32": err, "ms_f32": ms, "plain_ms_f32": plain_ms})
     for key, r in rows.items():
         against = (f"library {r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x of it)"
                    if r["library_ms"] else "library: none")
+        if "library_backend" in r:
+            against += f" [{r['library_backend'][:80]}]"
         f32 = f"; f32 {r['ms_f32']:.4f} ms, plain {r['plain_ms_f32']:.4f} ms" if "ms_f32" in r else ""
         print(f"[{label}] {key}: bf16 {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
               f"{r['bound_ms'] / r['ms']:.1%} of it), plain {r['plain_ms']:.4f} ms; {against}{f32}")
@@ -926,19 +1039,21 @@ def library_above_512(qh, kh, vh, gh, qeh, keh, veh) -> tuple:
     Rows 1, 3 and 4 take the memory-efficient attention with its logsumexp
     and its backward where it takes the shape; row 2 takes
     ``F.scaled_dot_product_attention`` under the first fused backend
-    (flash, memory-efficient, cuDNN) that takes it. A row no fused backend
-    takes has no library time (None) and backend "none"; SDPA's composite
-    math path is not one call of a kernel and does not count."""
+    (flash, memory-efficient, cuDNN) that takes it, its backend recorded
+    (:func:`sdpa_backend`). A row no fused backend takes has no library time
+    (None) and backend "none"; SDPA's composite math path is not one call of
+    a kernel and does not count."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     times = {"flash_fwd": None, "flash_fwd_no_lse": None, "flash_bwd_dq": None, "flash_bwd_dkv": None,
              "flash_carry": None}
-    backends = {name: "none" for name in times}
+    backends = {name: {"library_backend": "none"} for name in times}
     try:
         times.update(efficient_attention_ms(qh, kh, vh, gh))
-        backends.update({name: "efficient" for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")})
+        backends.update({name: {"library_backend": "efficient"} for name in ("flash_fwd", "flash_bwd_dq",
+                                                                            "flash_bwd_dkv")})
     except RuntimeError as e:  # refused on the host: no kernel ran
         print(f"  memory-efficient attention refuses the shape: {str(e).splitlines()[0][:160]}")
     for backend, label in ((SDPBackend.FLASH_ATTENTION, "flash"), (SDPBackend.EFFICIENT_ATTENTION, "efficient"),
@@ -947,7 +1062,7 @@ def library_above_512(qh, kh, vh, gh, qeh, keh, veh) -> tuple:
             with sdpa_kernel([backend]), torch.no_grad():
                 times["flash_fwd_no_lse"] = time_ms(
                     lambda: F.scaled_dot_product_attention(qeh, keh, veh, is_causal=True), 20)
-            backends["flash_fwd_no_lse"] = label
+                backends["flash_fwd_no_lse"] = sdpa_backend(qeh, keh, veh)
             break
         except RuntimeError as e:
             print(f"  SDPA's {label} backend refuses the shape: {str(e).splitlines()[0][:160]}")
@@ -972,7 +1087,13 @@ def efficient_attention_ms(qh, kh, vh, gh) -> dict:
 
 def phase_kernels_narrow() -> dict:
     """Rows 1-5 at head sizes 32 and 16 (the width of rows 1-5 over more
-    heads), in bf16 and f32; returns {"<name>_d<D>": row}."""
+    heads), in bf16 and f32; then, under torch.profiler, one bf16 forward
+    call at [8, 1024, 16, 32] (with lse and without) must be one CUDA kernel,
+    the narrow forward's: no pad or slice copies. That check runs in a
+    process of its own (``forward_kernels``): on the card, the later
+    profiler sessions of a process that had run many were seen to record no
+    kernel (why is not known). Returns {"<name>_d<D>": row}."""
+    import os
     import torch
 
     gen = torch.Generator().manual_seed(4)
@@ -980,6 +1101,15 @@ def phase_kernels_narrow() -> dict:
     for d in NARROW_HEAD_DIMS:
         rows.update(narrow_rows("narrow", narrow_suffix(d), d, EMBED // d, BATCH, EVAL_SEQS, SEQ_LEN,
                                 (torch.bfloat16, torch.float32), True, gen))
+    shape = [BATCH, SEQ_LEN, EMBED // 32, 32]
+    code = f"import json, chip_smoke; print(json.dumps([chip_smoke.forward_kernels({shape}, w) for w in (True, False)]))"
+    out = subprocess.run([sys.executable, "-c", code], cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"the one-launch check failed: {out.stderr.strip()[-500:]}")
+    for with_lse, names in zip((True, False), json.loads(out.stdout.strip().splitlines()[-1])):
+        print(f"[narrow] one forward call (lse={with_lse}) at {shape}: CUDA kernels {names}")
+        check(len(names) == 1 and "flash_fwd_narrow_sm90_kernel" in names[0],
+              f"a forward call at {shape} is not the narrow kernel alone: {names}")
     return rows
 
 
@@ -2085,7 +2215,6 @@ def phase_profile(label: str, run) -> None:
     kernel class, the wall time under the profiler, and the device's busy
     share of it (an upper bound on idle, since tracing slows the host)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2094,9 +2223,7 @@ def phase_profile(label: str, run) -> None:
         run()
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
-    kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:  # older layouts attach kernels to the CPU op that launched them
-        kernels = [(k.name, k.duration) for e in prof.events() for k in getattr(e, "kernels", [])]
+    kernels = [(name, us) for us, name in cuda_kernels(prof)]
     check(bool(kernels), "the profiler recorded no CUDA kernel")
     classes: dict = {}
     by_name: dict = {}
@@ -2139,21 +2266,25 @@ def time_phases() -> None:
 
 def row_source(name: str, d: int, sm90_source: str) -> str:
     """The source of the bf16 kernel that row ``name`` runs at head size
-    ``d``: ``sm90_source`` (the D = 64 tensor-core kernel's) at D <= 64, the
-    wide forward's or backward pair's at 128 and 256, the grouped forward's
-    or backward pair's above 256, the CUDA-core kernels' elsewhere (the
-    carry; above 512 the chunked one)."""
+    ``d``: the narrow forward's where ``kernel_route`` names it (rows 1-2
+    wherever the wrapper hands the kernel a head size below 64), else
+    ``sm90_source`` (the D = 64 tensor-core kernel's) at D <= 64, the wide
+    forward's or backward pair's at 128 and 256, the grouped forward's or
+    backward pair's above 256, the CUDA-core kernels' elsewhere (the carry;
+    above 512 the chunked one)."""
     import torch
     from p2pfl_tpu_torch.ops import _kernels
 
     kd, route = _kernels.kernel_route(name, torch.bfloat16, d)
+    forward = name in _kernels.FORWARDS
+    if route == _kernels.NARROW:
+        return SOURCE_FWD_NARROW
     if route == _kernels.CHUNKED:
         return SOURCE_CHUNKED
     if route == _kernels.CUDA_CORES:
         return SOURCE_F32
     if kd == _kernels.SM90_HEAD_DIM:
         return sm90_source
-    forward = name in ("flash_fwd", "flash_fwd_no_lse")
     if kd > _kernels.SM90_GROUPED_ABOVE:
         return SOURCE_FWD_GROUPED if forward else SOURCE_BWD_GROUPED
     return SOURCE_FWD_WIDE if forward else SOURCE_BWD_WIDE
@@ -2173,6 +2304,8 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the p2pfl_tpu_torch package is not beside this script ({e})", file=sys.stderr)
         return 1
+    from p2pfl_tpu_torch.ops import _kernels
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     time_phases()
@@ -2222,14 +2355,14 @@ def main() -> int:
         rows.update(phase_kernels_pipeline())
         launches.update(phase_pipeline())
         phase_dryrun()
+        phase_sdpa_kernels(rows)
+        phase_sass(_kernels.library_path(), _kernels._find_nvcc())  # last: see the docstring's phase 1
     except Exception as e:  # noqa: BLE001 - any failed phase fails the run
         import traceback
 
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
-    from p2pfl_tpu_torch.ops import _kernels
-
     kernels = {**KERNEL_ROWS, **RING_KERNEL_ROWS}
     # Rows 1-5 at head size 64: launches on the slice (the carry: the ring);
     # rows 1-4 also carry the MoE LM's launches at the same shapes.
@@ -2239,15 +2372,18 @@ def main() -> int:
          **rows[name]}
         for name, (replaces, _, source) in kernels.items()
     ]
-    # The narrow rows: bf16 runs the same tensor-core source on padded heads;
-    # the f32 numbers beside them are the CUDA-core instances of SOURCE_F32.
+    # The narrow rows: the bf16 forward on SOURCE_FWD_NARROW at the true D,
+    # the backward pair and carry on the D 64 tensor-core sources on padded
+    # heads; the f32 numbers beside them are the CUDA-core instances of
+    # SOURCE_F32.
     table += [
-        {"name": name + narrow_suffix(d), "route": "cuda", "source": source, "replaces": replaces,
+        {"name": name + narrow_suffix(d), "route": "cuda", "source": row_source(name, d, source), "replaces": replaces,
          "launches": launches[name + narrow_suffix(d)], **rows[name + narrow_suffix(d)], "source_f32": SOURCE_F32}
         for d in NARROW_HEAD_DIMS for name, (replaces, _, source) in kernels.items()
     ]
-    # Head sizes 48, 128, 256, 512 and 1024: bf16 at 48 on the padded
-    # tensor-core kernels, the forward at 128 and 256 on SOURCE_FWD_WIDE's and
+    # Head sizes 48, 128, 256, 512 and 1024: bf16 at 48 the forward on
+    # SOURCE_FWD_NARROW and the rest on the padded D 64 tensor-core kernels,
+    # the forward at 128 and 256 on SOURCE_FWD_WIDE's and
     # the backward pair on SOURCE_BWD_WIDE's, the forward at 512 and 1024 on
     # SOURCE_FWD_GROUPED's and the backward pair on SOURCE_BWD_GROUPED's, the
     # carry at 128, 256 and 512 on the CUDA-core instances of SOURCE_F32, and
@@ -2259,12 +2395,14 @@ def main() -> int:
         for d in (*C1_HEAD_DIMS, *D256_HEAD_DIMS, *D512_HEAD_DIMS, *D1024_HEAD_DIMS)
         for name, (replaces, _, source) in kernels.items()
     ]
-    # The classifier's and the longcontext example's shapes (bf16 on padded
-    # heads, as their paths run them) and the pipeline's microbatches.
+    # The classifier's (D 32) and the longcontext example's (D 16) shapes,
+    # the forward on SOURCE_FWD_NARROW and the backward pair on padded heads,
+    # as their paths run them, and the pipeline's microbatches (D 64).
     table += [
-        {"name": name + suffix, "route": "cuda", "source": source, "replaces": replaces,
+        {"name": name + suffix, "route": "cuda", "source": row_source(name, d, source), "replaces": replaces,
          "launches": launches[name + suffix], **rows[name + suffix]}
-        for suffix in (CLS_SUFFIX, LC_SUFFIX, PP_SUFFIX) for name, (replaces, _, source) in KERNEL_ROWS.items()
+        for suffix, d in ((CLS_SUFFIX, 32), (LC_SUFFIX, 16), (PP_SUFFIX, 64))
+        for name, (replaces, _, source) in KERNEL_ROWS.items()
     ]
     print(card)
     print(json.dumps({"kernels": table}))

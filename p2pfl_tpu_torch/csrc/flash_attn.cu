@@ -703,7 +703,8 @@ cudaError_t launch_carry(const void* q, const void* k, const void* v, const floa
 // (forward, carry), 136,064 (dq) and 140,288 (dk/dv), at D = 512 the 16-row
 // ones 99,584, 132,544 and 133,632. ops/_kernels.py zero-pads any other head
 // size up to 512 to the next instance; bf16 exists at 64 (the tensor-core
-// kernels, narrower heads padded to it), 128 and 256 (the tensor-core
+// kernels, narrower heads padded to it but for the forward, which reads
+// multiples of 8 at their true size), 128 and 256 (the tensor-core
 // forward and backward pair; the carry here) and 512 (the tensor-core
 // forward and backward pair; the carry here).
 template <typename F>
@@ -758,6 +759,9 @@ cudaError_t launch_flash_bwd_dkv_wide_sm90(const void* q, const void* k, const v
 cudaError_t launch_flash_fwd_grouped_sm90(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                                           int Sq, int Sk, int H, int head_dim, float scale, bool causal,
                                           cudaStream_t stream);
+cudaError_t launch_flash_fwd_narrow_sm90(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                                         int Sq, int Sk, int H, int head_dim, float scale, bool causal,
+                                         cudaStream_t stream);
 cudaError_t launch_flash_bwd_dq_grouped_sm90(const void* q, const void* k, const void* v, const void* dout,
                                              const float* lse, const float* delta, void* dq, int B, int Sq, int Sk,
                                              int H, int head_dim, float scale, bool causal, cudaStream_t stream);
@@ -784,7 +788,8 @@ cudaError_t launch_flash_carry_chunked(const void* q, const void* k, const void*
 extern "C" {
 
 // Every entry point returns cudaErrorInvalidValue for a head size without an
-// instance: up to 512, f32 has 16, 32, 64, 128, 256 and 512, bf16 has 64
+// instance: up to 512, f32 has 16, 32, 64, 128, 256 and 512, bf16 has the
+// forward at every multiple of 8 below 64 (tensor cores), 64
 // (tensor cores), 128 and 256 (the tensor-core forward and backward pair,
 // the CUDA-core carry) and 512 (the tensor-core forward and backward pair,
 // the CUDA-core carry); above 512 both take every multiple of 64 (the bf16
@@ -792,14 +797,18 @@ extern "C" {
 // flash_bwd_grouped_sm90.cu, the rest flash_chunked.cu).
 // ops/_kernels.py kernel_route names the kernel each call takes.
 //
-// lse == NULL selects the forward that writes no logsumexp. bf16 at 64 runs
-// the tensor-core kernel of flash_fwd_sm90.cu, at 128 and 256 that of
-// flash_fwd_wide_sm90.cu, above 256 that of flash_fwd_grouped_sm90.cu; f32
-// the CUDA-core kernel above (above 512 the chunked one).
+// lse == NULL selects the forward that writes no logsumexp. bf16 below 64
+// (a multiple of 8, read at its true size) runs the tensor-core kernel of
+// flash_fwd_narrow_sm90.cu, at 64 that of flash_fwd_sm90.cu, at 128 and 256
+// that of flash_fwd_wide_sm90.cu, above 256 that of
+// flash_fwd_grouped_sm90.cu; f32 the CUDA-core kernel above (above 512 the
+// chunked one).
 int p2pfl_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                     int Sq, int Sk, int H, int head_dim, int dtype, float scale, int causal,
                     void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && head_dim < 64)
+    return int(p2pfl::launch_flash_fwd_narrow_sm90(q, k, v, o, lse, B, Sq, Sk, H, head_dim, scale, causal != 0, s));
   if (dtype == 1 && head_dim > 256)
     return int(p2pfl::launch_flash_fwd_grouped_sm90(q, k, v, o, lse, B, Sq, Sk, H, head_dim, scale, causal != 0, s));
   if (head_dim > 512)

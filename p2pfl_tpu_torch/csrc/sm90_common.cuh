@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core flash kernels
 // (the *_sm90.cu sources): mbarriers and a ring's (stage, phase) walk, TMA
 // loads through 4-D tensor maps over the API's [B, S, H, D] layout in boxes
-// of 64 columns (one 128-byte swizzle span; all of a row at D = 64), wgmma
-// descriptors and instructions, the bf16 split of an f32 operand, the row
-// reductions over an accumulator's quad, the tensor-map encoder and the
-// launch guard for setmaxnreg's register split.
+// of 64 columns (one 128-byte swizzle span; all of a row at D = 64) or, for
+// the narrow forward, of 16 or 32 columns under the 32- or 64-byte swizzle
+// over the true head size, wgmma descriptors and instructions, the bf16
+// split of an f32 operand, the row reductions over an accumulator's quad,
+// the tensor-map encoders and the launch guard for setmaxnreg's register
+// split.
 //
 // Everything here sits in an anonymous namespace: each source that
 // includes it gets its own copy, and the compiled code is what it was when
@@ -99,6 +101,22 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
          (uint64_t(1) << 62);
 }
 
+// wgmma shared-memory descriptor for a tile of SPAN-byte rows under the
+// swizzle of that span (32, 64 or 128 bytes: layout types 3, 2 and 1), for
+// boxes narrower than 64 columns (flash_fwd_narrow_sm90.cu): start address,
+// leading and stride byte offsets both 8 * SPAN (the stride between groups of
+// 8 rows; the leading offset is unused at these widths: a K-major operand's
+// 16-column k-step and an MN-major operand's N both lie within one span).
+// A K-major operand advances 32 bytes along its rows per k-step of 16; an
+// MN-major one 16 rows (16 * SPAN bytes). At SPAN 128 it is smem_desc.
+template <uint32_t SPAN>
+__device__ __forceinline__ uint64_t smem_desc_span(uint32_t addr) {
+  static_assert(SPAN == 32 || SPAN == 64 || SPAN == 128, "a swizzle spans 32, 64 or 128 bytes");
+  constexpr uint64_t layout = SPAN == 128 ? 1 : SPAN == 64 ? 2 : 3;
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t((8 * SPAN) >> 4) << 16) | (uint64_t((8 * SPAN) >> 4) << 32) |
+         (layout << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -188,6 +206,31 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], uint32_t a0, 
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 32] += A[64 x 16] . B[16 x 32], A from registers (bf16 pairs), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], uint32_t a0, uint32_t a1, uint32_t a2,
+                                                   uint32_t a3, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 16] += A[64 x 16] . B[16 x 16], A from registers (bf16 pairs), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8], uint32_t a0, uint32_t a1, uint32_t a2,
+                                                   uint32_t a3, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
 }
 
@@ -285,6 +328,28 @@ bool encode_bshd(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, i
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
                 elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A [B, S, H, head_dim] bf16 tensor as 4-D TMA boxes of `box_rows` rows of
+// one head and `box_cols` columns (16, 32 or 64), each landing as one panel
+// of box_rows x 2 box_cols bytes under the swizzle of that span (32, 64 or
+// 128 bytes); head_dim may be below box_cols: TMA fills the columns past it
+// with zeros, as it fills rows past S, so a narrow head is read at its true
+// size (flash_fwd_narrow_sm90.cu). TMA strides in multiples of 16 bytes:
+// head_dim must be a multiple of 8.
+bool encode_bshd_box(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int S, int H, int head_dim,
+                     int box_rows, int box_cols) {
+  const CUtensorMapSwizzle swizzle = box_cols == 16   ? CU_TENSOR_MAP_SWIZZLE_32B
+                                     : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                      : CU_TENSOR_MAP_SWIZZLE_128B;
+  const cuuint64_t row_bytes = cuuint64_t(head_dim) * 2;
+  const cuuint64_t dims[4] = {cuuint64_t(head_dim), cuuint64_t(H), cuuint64_t(S), cuuint64_t(B)};
+  const cuuint64_t strides[3] = {row_bytes, cuuint64_t(H) * row_bytes, cuuint64_t(S) * H * row_bytes};
+  const cuuint32_t box[4] = {cuuint32_t(box_cols), 1, cuuint32_t(box_rows), 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // The four tensor maps of a backward kernel: q and dO in boxes of `q_rows`

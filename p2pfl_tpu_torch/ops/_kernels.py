@@ -14,25 +14,31 @@ entry in :data:`LAUNCHES`.
 
 Head sizes: any D >= 1. Up to 512 the f32 kernels have instances at 16, 32,
 64, 128, 256 and 512, all on the CUDA cores. bf16 runs the tensor-core
-kernels at 64 (forward, backward pair, carry fold), the tensor-core
-forward and backward pair at 128 and 256, and the tensor-core forward and
-backward pair of ``csrc/flash_fwd_grouped_sm90.cu`` and
+forward of ``csrc/flash_fwd_narrow_sm90.cu`` below 64 (box widths 16, 32
+and 64; the head size at run time, read by TMA at its true size), the
+tensor-core kernels at 64 (forward, backward pair, carry fold), the
+tensor-core forward and backward pair at 128 and 256, and the tensor-core
+forward and backward pair of ``csrc/flash_fwd_grouped_sm90.cu`` and
 ``csrc/flash_bwd_grouped_sm90.cu`` at every D above 256 (the head size at
 run time); its carry fold at 128, 256 and 512 runs CUDA-core instances.
 Above 512, f32 and bf16's carry run the CUDA-core kernels of
 ``csrc/flash_chunked.cu``, which take the head size at run time and build
-each score tile a 64-column panel of D at a time (:func:`kernel_route`). A
-call at another D copies q, k, v (dO; the carry's acc) into zeroed ``[B, S,
-H, D']`` buffers, D' the next
-instance (bf16: 64 for D <= 64, else the next of 128, 256 and 512; above
-512 the next multiple of 64), launches that instance with the true scale
-``1/sqrt(D)`` and slices the outputs back to D. That is exact: zero
-columns add exact zeros to ``Q.K^T`` and ``dO.V^T``, leave ``delta``
-(computed by the caller at D) as it is, and come out as exact zeros in O,
-acc, dQ, dK and dV. It is the kernel all the same, never the plain
-version, and it counts in :data:`LAUNCHES`; native instances would save the
-padding's copies. The plain versions and the choice between them and these
-kernels live in :mod:`p2pfl_tpu_torch.ops.attention`.
+each score tile a 64-column panel of D at a time (:func:`kernel_route`).
+
+A call at a D the kernel does not take copies q, k, v (dO; the carry's
+acc) into zeroed ``[B, S, H, D']`` buffers, D' = :func:`host_head_dim`:
+for the bf16 forward below 64 the next multiple of 8 (TMA strides in
+multiples of 16 bytes; 57-63 round to 64, the D 64 kernel), and no copy at
+a multiple of 8; elsewhere the next instance (bf16: 64 for D <= 64, else
+the next of 128, 256 and 512; above 512 the next multiple of 64). The call
+launches with the true scale ``1/sqrt(D)`` and slices the outputs back to
+D. That is exact: zero columns add exact zeros to ``Q.K^T`` and
+``dO.V^T``, leave ``delta`` (computed by the caller at D) as it is, and
+come out as exact zeros in O, acc, dQ, dK and dV. It is the kernel all the
+same, never the plain version, and it counts in :data:`LAUNCHES`. The
+choice is made here, before the launch, never as a retry after a failed
+one. The plain versions and the choice between them and these kernels
+live in :mod:`p2pfl_tpu_torch.ops.attention`.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ SOURCES = (
     _PKG / "csrc" / "flash_fwd_sm90.cu",  # bf16 forward and carry fold on the tensor cores
     _PKG / "csrc" / "flash_fwd_wide_sm90.cu",  # bf16 forward at D = 128 and 256 on the tensor cores
     _PKG / "csrc" / "flash_fwd_grouped_sm90.cu",  # bf16 forward above D = 256 on the tensor cores
+    _PKG / "csrc" / "flash_fwd_narrow_sm90.cu",  # bf16 forward below D = 64 on the tensor cores, at the true D
     _PKG / "csrc" / "flash_bwd_sm90.cu",  # bf16 backward pair (dq; dk/dv) on the tensor cores
     _PKG / "csrc" / "flash_bwd_wide_sm90.cu",  # bf16 backward pair at D = 128 and 256 on the tensor cores
     _PKG / "csrc" / "flash_bwd_grouped_sm90.cu",  # bf16 backward pair above D = 256 on the tensor cores
@@ -77,8 +84,15 @@ MAX_HEAD_DIM = HEAD_DIMS[-1]  # the largest compiled instance; above it the chun
 # bf16 forwards and backward pairs above this run the tensor-core kernels of
 # csrc/flash_fwd_grouped_sm90.cu and csrc/flash_bwd_grouped_sm90.cu.
 SM90_GROUPED_ABOVE = SM90_WIDE_HEAD_DIMS[-1]
+FORWARDS = ("flash_fwd", "flash_fwd_no_lse")
+# The box widths of the bf16 forward below SM90_HEAD_DIM
+# (csrc/flash_fwd_narrow_sm90.cu), which reads a head size that is a multiple
+# of NARROW_STEP at its true size (TMA strides in multiples of 16 bytes).
+NARROW_WIDTHS = (16, 32, 64)
+NARROW_STEP = 8
 CHUNK = 64  # the panel of D of the chunked kernels: above MAX_HEAD_DIM, D pads to a multiple of it
 TENSOR_CORES, CUDA_CORES = "tensor cores", "CUDA cores"
+NARROW = "tensor cores at the true head size"  # csrc/flash_fwd_narrow_sm90.cu
 CHUNKED = "CUDA cores, D in 64-column panels"  # csrc/flash_chunked.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -208,14 +222,32 @@ def kernel_head_dim(dtype: torch.dtype, d: int) -> int:
     return next(x for x in (BF16_HEAD_DIMS if dtype == torch.bfloat16 else HEAD_DIMS) if x >= d)
 
 
+def host_head_dim(kernel: str, dtype: torch.dtype, d: int) -> int:
+    """The head size the wrapper of ``kernel`` hands its kernel at head size
+    ``d``: ``d`` itself where no copy is made, else the size q, k, v (dO;
+    acc) are zero-padded to on the host. The bf16 forwards below
+    :data:`SM90_HEAD_DIM` round ``d`` up to a multiple of
+    :data:`NARROW_STEP` (so 57-63 become 64); every other call pads to
+    :func:`kernel_head_dim`."""
+    if dtype == torch.bfloat16 and kernel in FORWARDS and d < SM90_HEAD_DIM:
+        return -(-d // NARROW_STEP) * NARROW_STEP
+    return kernel_head_dim(dtype, d)
+
+
 def kernel_route(kernel: str, dtype: torch.dtype, d: int) -> Tuple[int, str]:
-    """``(instance head size, TENSOR_CORES, CUDA_CORES or CHUNKED)`` that a
-    call of ``kernel`` (a :data:`LAUNCHES` name) at head size ``d`` runs, as
-    the C entry points of ``csrc/flash_attn.cu`` dispatch it: bf16 forwards
-    and backward pairs at every D (above :data:`SM90_GROUPED_ABOVE` the
-    grouped kernels) and the bf16 carry fold at :data:`SM90_HEAD_DIM` take
-    the tensor cores, every other call above :data:`MAX_HEAD_DIM` the
-    chunked kernels, the rest the CUDA-core instances."""
+    """``(instance head size, NARROW, TENSOR_CORES, CUDA_CORES or CHUNKED)``
+    that a call of ``kernel`` (a :data:`LAUNCHES` name) at head size ``d``
+    runs, as the C entry points of ``csrc/flash_attn.cu`` dispatch it: the
+    bf16 forwards take the narrow kernel (``NARROW``, its instance the box
+    width, one of :data:`NARROW_WIDTHS`) wherever :func:`host_head_dim`
+    stays below :data:`SM90_HEAD_DIM`; the other bf16 forwards and the
+    backward pairs at every D (above :data:`SM90_GROUPED_ABOVE` the grouped
+    kernels) and the bf16 carry fold at :data:`SM90_HEAD_DIM` take the
+    tensor cores, every other call above :data:`MAX_HEAD_DIM` the chunked
+    kernels, the rest the CUDA-core instances."""
+    hd = host_head_dim(kernel, dtype, d)
+    if dtype == torch.bfloat16 and kernel in FORWARDS and hd < SM90_HEAD_DIM:
+        return next(w for w in NARROW_WIDTHS if w >= hd), NARROW
     kd = kernel_head_dim(dtype, d)
     if dtype == torch.bfloat16 and kernel != "flash_carry" and kd > SM90_GROUPED_ABOVE:
         return kd, TENSOR_CORES
@@ -248,9 +280,10 @@ def _check_rows(name: str, q: torch.Tensor, *rows: torch.Tensor) -> None:
 
 def _check_aligned(name: str, *ts: torch.Tensor) -> None:
     """The tensor-core kernels (:func:`kernel_route` of ``name`` at ``ts[0]``'s
-    dtype and padded head size) load by TMA (and the carry fold accesses
-    ``acc`` as float2), so they need every tensor 16-byte aligned."""
-    if (kernel_route(name, ts[0].dtype, ts[0].shape[-1])[1] == TENSOR_CORES
+    dtype and padded head size: ``TENSOR_CORES`` or ``NARROW``) load by TMA
+    (and the carry fold accesses ``acc`` as float2), so they need every
+    tensor 16-byte aligned."""
+    if (kernel_route(name, ts[0].dtype, ts[0].shape[-1])[1] in (TENSOR_CORES, NARROW)
             and any(t.data_ptr() % 16 for t in ts)):
         raise ValueError(f"{name}: the bf16 kernel's tensors must be 16-byte aligned (TMA)")
 
@@ -259,11 +292,12 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _pad_heads(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+def _pad_heads(name: str, *ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Each ``[B, S, H, D]`` tensor zero-padded into a new contiguous ``[B, S,
-    H, D']`` one, D' = :func:`kernel_head_dim` of ``ts[0]`` (16-byte aligned,
-    as a new allocation is). The tensors unchanged where D' is D."""
-    d = kernel_head_dim(ts[0].dtype, ts[0].shape[-1])
+    H, D']`` one, D' = :func:`host_head_dim` of ``name`` at ``ts[0]``
+    (16-byte aligned, as a new allocation is). The tensors unchanged where
+    D' is D."""
+    d = host_head_dim(name, ts[0].dtype, ts[0].shape[-1])
     if d == ts[0].shape[-1]:
         return ts
     return tuple(F.pad(t, (0, d - t.shape[-1])) for t in ts)
@@ -278,14 +312,15 @@ def flash_fwd(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Kernel forward: ``(out [B,Sq,H,D], lse [B,H,Sq] f32 or None)``.
 
-    bf16 runs the tensor-core kernels at every D (64, 128 and 256, and the
-    grouped kernel above 256), whose TMA loads need every tensor 16-byte
-    aligned; f32 runs the CUDA-core kernels (above 512 the chunked one)."""
+    bf16 runs the tensor-core kernels at every D (the narrow kernel below
+    64, with no copy where D is a multiple of 8; 64, 128 and 256; the grouped
+    kernel above 256), whose TMA loads need every tensor 16-byte aligned;
+    f32 runs the CUDA-core kernels (above 512 the chunked one)."""
     name = "flash_fwd" if with_lse else "flash_fwd_no_lse"
     _check_qkv(name, q, k, v)
     lib = _load()
     b, sq, h, d = q.shape
-    q, k, v = _pad_heads(q, k, v)
+    q, k, v = _pad_heads(name, q, k, v)
     out = torch.empty_like(q)
     _check_aligned(name, q, k, v, out)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
@@ -315,7 +350,7 @@ def flash_bwd_dq(
     _check_rows("flash_bwd_dq", q, lse, delta)
     lib = _load()
     b, sq, h, d = q.shape
-    q, k, v, do = _pad_heads(q, k, v, do)
+    q, k, v, do = _pad_heads("flash_bwd_dq", q, k, v, do)
     dq = torch.empty_like(q)
     _check_aligned("flash_bwd_dq", q, k, v, do, dq)
     code = lib.p2pfl_flash_bwd_dq(
@@ -341,7 +376,7 @@ def flash_bwd_dkv(
     _check_rows("flash_bwd_dkv", q, lse, delta)
     lib = _load()
     b, sq, h, d = q.shape
-    q, k, v, do = _pad_heads(q, k, v, do)
+    q, k, v, do = _pad_heads("flash_bwd_dkv", q, k, v, do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _check_aligned("flash_bwd_dkv", q, k, v, do, dk, dv)
@@ -377,7 +412,7 @@ def flash_carry(
             raise ValueError(f"flash_carry: offset {off} does not fit in int32")
     lib = _load()
     b, sq, h, d = q.shape
-    q, k, v, acc = _pad_heads(q, k, v, acc)
+    q, k, v, acc = _pad_heads("flash_carry", q, k, v, acc)
     _check_aligned("flash_carry", q, k, v, acc)
     m_out, l_out, acc_out = torch.empty_like(m), torch.empty_like(l), torch.empty_like(acc)
     code = lib.p2pfl_flash_carry(

@@ -6,6 +6,7 @@
     python3 scripts/torch_kernel_variants.py carry   # the carry fold (flash_fwd_sm90.cu)
     python3 scripts/torch_kernel_variants.py grouped # the forward above D 256 (flash_fwd_grouped_sm90.cu)
     python3 scripts/torch_kernel_variants.py bwd_grouped  # the backward pair above D 256 (flash_bwd_grouped_sm90.cu)
+    python3 scripts/torch_kernel_variants.py narrow  # the forward below D 64 (flash_fwd_narrow_sm90.cu)
 
 Each variant is the chosen source under ``p2pfl_tpu_torch/csrc/`` with some
 of its text replaced (``VARIANTS`` below), built with the package's other
@@ -17,7 +18,11 @@ causal; ``carry`` runs the ring's past and diagonal folds of one chunk
 [2, 1024, 8, 64] bf16 (shard 7 of 8, as ``chip_smoke.py`` times them);
 ``grouped`` runs the forward with lse at [8, 1024, 1, D] bf16 causal and the
 one without at [16, 1024, 1, D], at D 512 and 1024; ``bwd_grouped`` runs dq
-and dk/dv at [8, 1024, 1, D] bf16 causal, at D 512 and 1024. A
+and dk/dv at [8, 1024, 1, D] bf16 causal, at D 512 and 1024; ``narrow`` runs
+the forward with lse at [8, 1024, H, D] and the one without at [16, 1024,
+H, D] bf16 causal at D 32 / 16 / 48 (H 16 / 32 / 8), and both at the flash
+classifier's shapes ([16, 64, 4, 32], eval [256, 64, 4, 32]) and the
+longcontext example's ([4, 256, 4, 16], eval [16, 256, 4, 16]). A
 variant of ``flash_fwd_sm90.cu`` changes the forward and the carry fold
 alike; each family times its own. Every variant's outputs must equal the
 package's kernels' bit for bit (the variants change scheduling, not
@@ -44,7 +49,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 SOURCES = {"fwd": "flash_fwd_sm90.cu", "bwd": "flash_bwd_sm90.cu", "carry": "flash_fwd_sm90.cu",
-           "grouped": "flash_fwd_grouped_sm90.cu", "bwd_grouped": "flash_bwd_grouped_sm90.cu"}
+           "grouped": "flash_fwd_grouped_sm90.cu", "bwd_grouped": "flash_bwd_grouped_sm90.cu",
+           "narrow": "flash_fwd_narrow_sm90.cu"}
 # kernel family -> variant name -> {text in the source: replacement}
 VARIANTS = {
     "fwd": {
@@ -83,6 +89,15 @@ VARIANTS = {
         "dk/dv 13 stages": {"kStages = 12;": "kStages = 13;", "kSmemBytes == 214752": "kSmemBytes == 227056"},
         "groups of 2 panels": {"kGroupPanels = 4;": "kGroupPanels = 2;", "kSmemBytes == 214144": "kSmemBytes == 181376",
                                "kSmemBytes == 214752": "kSmemBytes == 181984"},
+    },
+    "narrow": {
+        "as built": {},
+        "3 stages": {"constexpr int kStages = 2;": "constexpr int kStages = 3;",
+                     "Tiles<16>::kSmemBytes == 11304 && Tiles<32>::kSmemBytes == 21544 && "
+                     "Tiles<64>::kSmemBytes == 42024":
+                     "Tiles<16>::kSmemBytes == 15416 && Tiles<32>::kSmemBytes == 29752 && "
+                     "Tiles<64>::kSmemBytes == 58424"},
+        "3 blocks an SM at W 16 / 32": {"constexpr int kBlocksW = W < 64 ? 4 : 3;": "constexpr int kBlocksW = 3;"},
     },
 }
 REORDERING = {"dq BK 32, 8 stages"}  # variants whose sums run in another order than the package's
@@ -185,7 +200,28 @@ def calls(family: str):
         return {f"flash_bwd_dq{label}": (dq, (_kernels.flash_bwd_dq(q, k, v, g, lse, delta, True),), plain_dq),
                 f"flash_bwd_dkv{label}": (dkv, _kernels.flash_bwd_dkv(q, k, v, g, lse, delta, True), plain_dkv)}
 
+    def forward(q, k, v, with_lse):
+        def fwd(lib):  # the closure holds q, k, v, not only their pointers
+            b, sq, h, d = q.shape
+            out = torch.empty_like(q)
+            lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
+            check(lib.p2pfl_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                      lse.data_ptr() if lse is not None else None, b, sq, sq, h, d, 1,
+                                      1.0 / math.sqrt(d), 1, stream))
+            return (out,) if lse is None else (out, lse)
+
+        return fwd
+
     cases = {}
+    if family == "narrow":
+        shapes = {"D=32": ((8, 1024, 16, 32), 16), "D=16": ((8, 1024, 32, 16), 16), "D=48": ((8, 1024, 8, 48), 16),
+                  "cls": ((16, 64, 4, 32), 256), "lc": ((4, 256, 4, 16), 16)}
+        for label, ((b, s, h, d), b_eval) in shapes.items():
+            for name, bb, with_lse in (("flash_fwd", b, True), ("flash_fwd_no_lse", b_eval, False)):
+                q, k, v = (torch.randn((bb, s, h, d), generator=gen).cuda().to(torch.bfloat16) for _ in range(3))
+                ref = _kernels.flash_fwd(q, k, v, True, with_lse)
+                cases[f"{name} {label}"] = (forward(q, k, v, with_lse), ref if with_lse else ref[:1], None)
+        return cases
     if family == "bwd_grouped":
         for d in (512, 1024):
             cases.update(backward(*(torch.randn((8, 1024, 1, d), generator=gen).cuda().to(torch.bfloat16)
@@ -195,33 +231,13 @@ def calls(family: str):
         for d in (512, 1024):
             for name, b, with_lse in (("flash_fwd", 8, True), ("flash_fwd_no_lse", 16, False)):
                 q, k, v = (torch.randn((b, 1024, 1, d), generator=gen).cuda().to(torch.bfloat16) for _ in range(3))
-
-                def fwd(lib, q=q, k=k, v=v, with_lse=with_lse):
-                    b, sq, h, d = q.shape
-                    out = torch.empty_like(q)
-                    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
-                    check(lib.p2pfl_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                              lse.data_ptr() if lse is not None else None, b, sq, sq, h, d, 1,
-                                              1.0 / math.sqrt(d), 1, stream))
-                    return (out,) if lse is None else (out, lse)
-
                 ref = _kernels.flash_fwd(q, k, v, True, with_lse)
-                cases[f"{name} D={d}"] = (fwd, ref if with_lse else ref[:1], None)
+                cases[f"{name} D={d}"] = (forward(q, k, v, with_lse), ref if with_lse else ref[:1], None)
         return cases
     if family == "fwd":
         for name, b, with_lse in (("flash_fwd", 8, True), ("flash_fwd_no_lse", 16, False)):
             q, k, v, _ = rand(b)
-
-            def fwd(lib, q=q, k=k, v=v, with_lse=with_lse):
-                b, sq, h, d = q.shape
-                out = torch.empty_like(q)
-                lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
-                check(lib.p2pfl_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                          lse.data_ptr() if lse is not None else None, b, sq, sq, h, d, 1,
-                                          1.0 / math.sqrt(d), 1, stream))
-                return (out,)
-
-            cases[name] = (fwd, (_kernels.flash_fwd(q, k, v, True, with_lse)[0],), None)
+            cases[name] = (forward(q, k, v, with_lse), (_kernels.flash_fwd(q, k, v, True, with_lse)[0],), None)
         return cases
     if family == "carry":
         from p2pfl_tpu_torch.ops import attention as att

@@ -8,9 +8,12 @@ commit unpacked with ``git archive`` under ``build/``; it needs
 ``chip_smoke.py`` and ``p2pfl_tpu_torch/``). Each checkout builds its own
 kernels into its own ``build/`` and runs, in a subprocess, its
 ``chip_smoke.py`` kernel and carry phases (rows 1-5 at head size 64), then
-its ``narrow_rows`` in bf16 at [8, 1024, 4, 128], [8, 1024, 2, 256], [8,
-1024, 1, 512] and [8, 1024, 1, 1024] (the eval forward at batch 16): every
-row held to its plain version, then timed with CUDA events. Then the
+its ``narrow_rows`` in bf16 at [8, 1024, 16, 32], [8, 1024, 32, 16], [8,
+1024, 8, 48], [8, 1024, 4, 128], [8, 1024, 2, 256], [8, 1024, 1, 512] and [8,
+1024, 1, 1024] (the eval forward at batch 16), and rows 1-4 at the flash
+classifier's and the longcontext example's own shapes (its
+``phase_kernels_classifier`` and ``phase_kernels_longcontext``): every row
+held to its plain version, then timed with CUDA events. Then the
 federated LM at width 512 over 1 head (D 512, 4 layers) and at width 1024
 over 1 head (D 1024, 1 layer), one round after a warm-up round each, as
 ``chip_smoke.py``'s wide and chunked paths drive them: ``lm_d<D>`` is that
@@ -39,9 +42,11 @@ import chip_smoke as cs
 rows = cs.phase_kernels()
 rows.update(cs.phase_carry())
 gen = torch.Generator().manual_seed(16)
-for d, heads in ((128, 4), (256, 2), (512, 1), (1024, 1)):
+for d, heads in ((32, 16), (16, 32), (48, 8), (128, 4), (256, 2), (512, 1), (1024, 1)):
     rows.update(cs.narrow_rows("ab", f"_d{{d}}", d, heads, cs.BATCH, cs.EVAL_SEQS, cs.SEQ_LEN,
                                (torch.bfloat16,), False, gen))
+rows.update(cs.phase_kernels_classifier())
+rows.update(cs.phase_kernels_longcontext())
 ms = {{name: r["ms"] for name, r in rows.items()}}
 ms["flash_carry_diagonal"] = rows["flash_carry"]["ms_diagonal"]
 from p2pfl_tpu_torch.models.transformer import transformer_lm_model

@@ -1,5 +1,8 @@
-"""The port's plain flash versions at wide head sizes against the JAX
-package's flash attention and carry fold: 384 and 512 (the widest compiled
+"""The port's plain flash versions at narrow and wide head sizes against the
+JAX package's flash attention and carry fold. Narrow: the plain forward and
+its lse at 8, 20, 40, 48 and 63, head sizes the card's bf16 forward runs on
+the narrow tensor-core kernel (8, 40, 48 at the true size, 20 zero-padded
+to 24) or, at 63, on the D 64 kernel. Wide: 384 and 512 (the widest compiled
 instances: 384 is zero-padded to 512), and 576, 640 and 1024, which the card
 runs with D zero-padded to a multiple of 64: the bf16 forward on the grouped
 tensor-core kernel (groups of up to four 64-column panels of O; at 576 and
@@ -19,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from p2pfl_tpu.ops.attention import _flash_forward as jax_flash_forward
 from p2pfl_tpu.ops.attention import flash_attention as jax_flash_attention
 from p2pfl_tpu.ops.attention import flash_chunk_update as jax_flash_chunk_update
 from p2pfl_tpu_torch.ops import attention as port
@@ -29,6 +33,19 @@ B, S, H = 1, 32, 1
 def _qkv(seed, d, s=S):
     rng = np.random.default_rng(seed)
     return tuple(rng.standard_normal((B, s, H, d)).astype(np.float32) for _ in range(3))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [8, 20, 40, 48, 63])
+def test_plain_flash_forward_and_lse_match_jax_at_narrow_heads(d, causal):
+    """The plain forward (``plain_flash_forward``, the version the narrow
+    kernel is held to on the card) and its lse against the JAX forward
+    kernel's (interpret mode), within 1e-5."""
+    q, k, v = _qkv(d + 2, d)
+    out_j, lse_j = jax_flash_forward(*map(jnp.asarray, (q, k, v)), causal, 16, 16, True)
+    out, lse = port.plain_flash_forward(*(torch.tensor(a) for a in (q, k, v)), causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j), atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j)[..., 0], atol=1e-5)
 
 
 @pytest.mark.parametrize("causal", [True, False])

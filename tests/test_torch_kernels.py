@@ -79,17 +79,21 @@ def test_kernel_head_dim_pads_every_head_size_to_the_next_instance():
 @pytest.mark.parametrize("kernel", list(_kernels.LAUNCHES))
 def test_kernel_route_names_the_c_path_of_every_head_size(kernel):
     """bf16: the forward (with and without lse) and the backward pair take
-    the tensor cores at every D (the D = 64 kernels up to 64, the wide ones
-    at 128 and 256, the grouped ones above 256), the carry up to 64; the
-    carry up to 512, and f32 at every D up to 512, the CUDA-core instances;
-    every other call above 512 the chunked kernels at the next multiple of
-    64."""
+    the tensor cores at every D (the forward up to 56 the narrow kernel,
+    named ``NARROW``, its instance the box width 16, 32 or 64 over D rounded
+    up to a multiple of 8, and from 57 on the D = 64 kernel; the backward
+    pair the D = 64 kernels up to 64; the wide ones at 128 and 256, the
+    grouped ones above 256), the carry up to 64; the carry up to 512, and
+    f32 at every D up to 512, the CUDA-core instances; every other call
+    above 512 the chunked kernels at the next multiple of 64."""
     carry = kernel == "flash_carry"
+    forward = kernel in ("flash_fwd", "flash_fwd_no_lse")
     for d in range(1, 513):
         kd = 64 if d <= 64 else 128 if d <= 128 else 256 if d <= 256 else 512
-        sm90 = not carry or d <= 64
-        assert _kernels.kernel_route(kernel, torch.bfloat16, d) == (
-            kd, _kernels.TENSOR_CORES if sm90 else _kernels.CUDA_CORES), d
+        route = _kernels.TENSOR_CORES if not carry or d <= 64 else _kernels.CUDA_CORES
+        if forward and d <= 56:
+            kd, route = (16 if d <= 16 else 32 if d <= 32 else 64), _kernels.NARROW
+        assert _kernels.kernel_route(kernel, torch.bfloat16, d) == (kd, route), d
         assert _kernels.kernel_route(kernel, torch.float32, d) == (
             _kernels.kernel_head_dim(torch.float32, d), _kernels.CUDA_CORES), d
     for d in (513, 576, 577, 640, 1000, 1024, 4096):
@@ -97,6 +101,28 @@ def test_kernel_route_names_the_c_path_of_every_head_size(kernel):
         assert _kernels.kernel_route(kernel, torch.bfloat16, d) == (
             kd, _kernels.CHUNKED if carry else _kernels.TENSOR_CORES), d
         assert _kernels.kernel_route(kernel, torch.float32, d) == (kd, _kernels.CHUNKED), d
+
+
+@pytest.mark.parametrize("kernel", list(_kernels.LAUNCHES))
+def test_host_pad_of_the_narrow_forward_follows_d_mod_8(kernel):
+    """The head size a wrapper hands its kernel (``host_head_dim``): the bf16
+    forward below 64 copies nothing where D % 8 == 0 (TMA reads the true D)
+    and pads to the next multiple of 8 elsewhere, and ``kernel_route`` names
+    the narrow kernel at the smallest box width that holds the padded D;
+    57-63 pad to 64, the D = 64 kernel. The bf16 backward pair and carry,
+    and every f32 call, keep padding to the next instance."""
+    forward = kernel in ("flash_fwd", "flash_fwd_no_lse")
+    for d in range(1, 64):
+        want = 8 * ((d + 7) // 8) if forward else 64
+        assert _kernels.host_head_dim(kernel, torch.bfloat16, d) == want, d
+        assert (want == d) == (forward and d % 8 == 0), d
+        route = ((min(w for w in (16, 32, 64) if w >= want), _kernels.NARROW) if want < 64
+                 else (64, _kernels.TENSOR_CORES))
+        assert _kernels.kernel_route(kernel, torch.bfloat16, d) == route, d
+        assert _kernels.host_head_dim(kernel, torch.float32, d) == _kernels.kernel_head_dim(torch.float32, d), d
+    for d in (64, 65, 100, 128, 200, 256, 300, 512, 600, 1024):
+        for dtype in (torch.bfloat16, torch.float32):
+            assert _kernels.host_head_dim(kernel, dtype, d) == _kernels.kernel_head_dim(dtype, d), (dtype, d)
 
 
 def test_flash_attention_rejects_bad_block_sizes():
@@ -118,7 +144,8 @@ def test_library_path_follows_the_source(tmp_path, monkeypatch):
     path = _kernels.library_path()
     assert path.parent == _kernels.BUILD_DIR and path.suffix == ".so"
     assert [src.name for src in _kernels.SOURCES] == ["flash_attn.cu", "flash_fwd_sm90.cu", "flash_fwd_wide_sm90.cu",
-                                                      "flash_fwd_grouped_sm90.cu", "flash_bwd_sm90.cu",
+                                                      "flash_fwd_grouped_sm90.cu", "flash_fwd_narrow_sm90.cu",
+                                                      "flash_bwd_sm90.cu",
                                                       "flash_bwd_wide_sm90.cu", "flash_bwd_grouped_sm90.cu",
                                                       "flash_chunked.cu"]
     assert [hdr.name for hdr in _kernels.HEADERS] == ["sm90_common.cuh"]
@@ -756,10 +783,95 @@ def test_ring_flash_autograd_matches_dense_on_card_bf16(cuda_device):
         torch.testing.assert_close(a.float(), b, atol=5e-2, rtol=0)
 
 
+# --- the bf16 forward below D = 64: the narrow tensor-core kernel -----------------
+
+_NARROW_DIMS = [8, 16, 20, 24, 32, 40, 48, 56, 63]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1024, 1000, 129, 64, 1])
+@pytest.mark.parametrize("d", _NARROW_DIMS)
+def test_narrow_forward_matches_plain_version_on_card(cuda_device, d, s, causal):
+    """Rows 1-2 below D = 64 ([3, S, 3, D] bf16; S 64 and 1 are one q tile,
+    S 129 and 1000 end in a partial one): the narrow kernel at D % 8 == 0 (20
+    padded to 24; 63 to 64, the D = 64 kernel), the output within the split
+    bar (1e-6 + 1 bf16 ulp + 2^-15 of the row's mass (P / l) @ |V|), lse
+    within 1e-5, the forward without lse bit-equal, one launch each."""
+    assert _kernels.kernel_route("flash_fwd", torch.bfloat16, d)[1] == (
+        _kernels.NARROW if d <= 56 else _kernels.TENSOR_CORES)
+    q, k, v, _ = _qkv(200 + d + s, (3, s, 3, d), torch.bfloat16, cuda_device)
+    _kernels.reset_launches()
+    out, lse = _kernels.flash_fwd(q, k, v, causal, True)
+    out_p, lse_p = port.plain_flash_forward(q, k, v, causal)
+    assert out.shape == q.shape and out.is_contiguous() and torch.isfinite(out.float()).all()
+    _within_split_bar(out, out_p, port.plain_flash_row_mass(q, k, v, causal))
+    torch.testing.assert_close(lse, lse_p, atol=1e-5, rtol=0)
+    out_n, none = _kernels.flash_fwd(q, k, v, causal, False)
+    assert none is None and torch.equal(out_n, out)
+    assert _kernels.LAUNCHES["flash_fwd"] == _kernels.LAUNCHES["flash_fwd_no_lse"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(200, 1000), (1000, 200), (64, 129)])
+@pytest.mark.parametrize("d", [16, 32, 48])
+def test_narrow_forward_with_other_key_length_on_card(cuda_device, d, sq, sk, causal):
+    """Rows 1-2 on the narrow kernel with other query and key lengths (the
+    causal mask compares positions from 0 on both sides, as the plain
+    version's does: with fewer keys than queries the causal key tiles stop
+    at Sk, with more at the q tile's last row), held to the split bar, lse
+    within 1e-5."""
+    q = _qkv(210 + d + sq, (5, sq, 2, d), torch.bfloat16, cuda_device)[0]
+    _, k, v, _ = _qkv(211 + d + sk, (5, sk, 2, d), torch.bfloat16, cuda_device)
+    out, lse = _kernels.flash_fwd(q, k, v, causal, True)
+    out_p, lse_p = port.plain_flash_forward(q, k, v, causal)
+    assert out.shape == q.shape
+    _within_split_bar(out, out_p, port.plain_flash_row_mass(q, k, v, causal))
+    torch.testing.assert_close(lse, lse_p, atol=1e-5, rtol=0)
+    assert torch.equal(_kernels.flash_fwd(q, k, v, causal, False)[0], out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 16, 32, 48])
+def test_narrow_forward_refuses_misaligned_inputs_on_card(cuda_device, d):
+    """The narrow forward loads by TMA at the true D: a q, k or v that is not
+    16-byte aligned is refused, with and without lse, before anything
+    launches; the aligned copies pass."""
+    q, k, v, _ = _qkv(2, (1, 64, 2, d), torch.bfloat16, cuda_device)
+    _kernels.reset_launches()
+    for args in ((_misaligned(q), k, v), (q, _misaligned(k), v), (q, k, _misaligned(v))):
+        for with_lse in (True, False):
+            with pytest.raises(ValueError, match="aligned"):
+                _kernels.flash_fwd(*args, True, with_lse)
+    assert not any(_kernels.LAUNCHES.values())
+    out = _kernels.flash_fwd(q, k, v, True, True)[0]
+    _within_split_bar(out, port.plain_flash_forward(q, k, v, True)[0], port.plain_flash_row_mass(q, k, v, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_lse", [True, False])
+def test_narrow_forward_is_one_kernel_launch_on_card(cuda_device, with_lse):
+    """At D = 32 ([8, 1024, 16, 32], the narrow LM's shape) a forward call is
+    one CUDA kernel on the card, the narrow kernel: no pad or slice copies."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, _ = _qkv(3, (8, 1024, 16, 32), torch.bfloat16, cuda_device)
+    _kernels.flash_fwd(q, k, v, True, with_lse)  # builds and loads the library outside the window
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _kernels.flash_fwd(q, k, v, True, with_lse)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "flash_fwd_narrow_sm90_kernel" in names[0], names
+
+
 # --- head sizes 16, 32, 48, 128, 160, 256, 384 and 512 -----------------------------
 # f32 runs instances of the CUDA-core kernels at 16, 32, 128, 256 and 512 (48
-# is zero-padded to 64, 160 to 256, 384 to 512); bf16 zero-pads q, k, v, dO
-# (and the carry's acc) to 64 for the tensor-core kernels (16, 32, 48), runs
+# is zero-padded to 64, 160 to 256, 384 to 512); bf16 runs the forward at
+# 16, 32 and 48 on the narrow tensor-core kernel at the true D, zero-pads q,
+# k, v, dO (and the carry's acc) to 64 for the other tensor-core kernels, runs
 # the wide tensor-core forward and backward pair and the CUDA-core carry at
 # 128 and 256 (160 padded to 256), and at 512 (384 padded to it) the grouped
 # tensor-core forward and backward pair and the CUDA-core carry, slicing the
