@@ -9,8 +9,9 @@ Phases, each on its own printed lines:
    kernels' build from ``p2pfl_tpu_torch/csrc`` (time and ptxas report:
    registers and spills of each kernel; the tensor-core forward and
    backward pair (D = 64, the wide ones at D = 128 and 256, the grouped
-   ones at every D above 256, the narrow forward's six instances below 64)
-   and the carry kernels must not spill, the
+   ones at every D above 256, the narrow forward's six instances and the
+   narrow backward pair's six below 64) and the carry kernels must not
+   spill, the
    only bf16 instances of the CUDA-core kernels are the carry's at D = 128,
    256 and 512, and every chunked kernel (rows 1-5 above D = 512 in f32,
    row 5 in bf16) is built). The count of ``HGMMA`` (wgmma) instructions in
@@ -68,17 +69,17 @@ Phases, each on its own printed lines:
 
 5. narrow: rows 1-5 at head sizes 32 and 16 (the width of rows 1-5 over 16
    and 32 heads: [8, 1024, H, D], the eval forward at [16, 1024, H, D], the
-   carry at one ring chunk [2, 1024, H, D]) in bf16 (rows 1-2 on the narrow
-   tensor-core forward at the true D; q, k, v, dO and the carry's acc
-   zero-padded to 64 for the other tensor-core kernels) and f32 (the
+   carry at one ring chunk [2, 1024, H, D]) in bf16 (rows 1-4 on the narrow
+   tensor-core forward and backward pair at the true D; the carry's q, k, v
+   and acc zero-padded to 64 for its tensor-core kernel) and f32 (the
    CUDA-core instances at D), held to the bars of phase 2 and the carry
    phase, then timed beside the aten flash forward and backward at the same
-   shape, with the bound at the true D; under torch.profiler one forward
-   call at [8, 1024, 16, 32] must be one CUDA kernel (no pad copies). Then
-   rows 1-4 the same way at the flash classifier's own shapes (bf16, head
-   size 32, a sequence of 64: one partial tile of the backward, one 64-row
-   tile of the narrow forward): training at [16, 64, 4, 32], eval at [256,
-   64, 4, 32]. Each row 2 also records the backend SDPA takes
+   shape, with the bound at the true D; under torch.profiler one call each
+   of the forward (with and without lse), dq and dk/dv at [8, 1024, 16, 32]
+   must be one CUDA kernel each (no pad copies). Then rows 1-4 the same way
+   at the flash classifier's own shapes (bf16, head size 32, a sequence of
+   64: one 64-row tile of the narrow kernels): training at [16, 64, 4, 32],
+   eval at [256, 64, 4, 32]. Each row 2 also records the backend SDPA takes
    (``library_backend``; phase 23 names its kernel).
 6. narrow paths: the slice's LM at 16 and 32 heads (head sizes 32 and 16),
    one round each (no warm-up round: the kernels are built and checked by
@@ -106,9 +107,10 @@ Phases, each on its own printed lines:
    under Krum, the update-norm clip and ``eval_every=2``: finite losses;
    then each held on the card against the CPU as in phase 7.
 
-10. c1: rows 1-5 at head sizes 48 ([8, 1024, 8, 48]: the bf16 forward on
-   the narrow tensor-core kernel at the true D, the other bf16 rows padded to
-   the 64 tensor-core kernels, f32 to the 64 instance) and 128 ([8, 1024, 4,
+10. c1: rows 1-5 at head sizes 48 ([8, 1024, 8, 48]: the bf16 forward and
+   backward pair on the narrow tensor-core kernels at the true D, the bf16
+   carry padded to the 64 tensor-core kernel, f32 to the 64 instance) and
+   128 ([8, 1024, 4,
    128]: the bf16 forward and backward pair on the wide tensor-core kernels,
    the bf16 carry and every f32 row on the CUDA-core <bf16 / f32, 128>
    instances), held to the bars of phases 2 and 5 and timed beside aten;
@@ -132,8 +134,8 @@ Phases, each on its own printed lines:
    fused round (``run_fused``): every round's ``canonical_params_hash``
    equal, and the two ledgers' trajectories.
 14. longcontext: rows 1-4 at the example's own shapes at its defaults
-   (bf16, head size 16: the forward on the narrow kernel, the backward pair
-   padded to 64; a sequence of 256): training at
+   (bf16, head size 16: the forward and backward pair on the narrow
+   kernels; a sequence of 256): training at
    [4, 256, 4, 16], eval at [16, 256, 4, 16], held to phase 2's bars and
    timed beside aten; then ``p2pfl_tpu_torch.examples.longcontext
    --attention flash`` at its defaults (in this process): the token loss
@@ -249,21 +251,22 @@ RING_KERNEL_ROWS = {  # name -> (replaced TPU kernel body, launches per train st
 }
 
 # Head sizes below 64: the width above over 16 and 32 heads. The bf16
-# forward runs the narrow tensor-core kernel at the true D; the other bf16
-# rows zero-pad to the 64 instances of the tensor-core kernels; f32 has its
-# own instances.
+# forward and backward pair run the narrow tensor-core kernels at the true
+# D; the bf16 carry zero-pads to the 64 instance of its tensor-core kernel;
+# f32 has its own instances.
 NARROW_HEAD_DIMS = (32, 16)
 SOURCE_F32 = "p2pfl_tpu_torch/csrc/flash_attn.cu"  # the CUDA-core kernels: f32 and bf16's carry above 64
 SOURCE_FWD_WIDE = "p2pfl_tpu_torch/csrc/flash_fwd_wide_sm90.cu"  # the bf16 forward at D = 128 and 256
 SOURCE_FWD_GROUPED = "p2pfl_tpu_torch/csrc/flash_fwd_grouped_sm90.cu"  # the bf16 forward above D = 256
 SOURCE_FWD_NARROW = "p2pfl_tpu_torch/csrc/flash_fwd_narrow_sm90.cu"  # the bf16 forward below D = 64
+SOURCE_BWD_NARROW = "p2pfl_tpu_torch/csrc/flash_bwd_narrow_sm90.cu"  # the bf16 backward pair below D = 64
 SOURCE_BWD_WIDE = "p2pfl_tpu_torch/csrc/flash_bwd_wide_sm90.cu"  # the bf16 backward pair at D = 128 and 256
 SOURCE_BWD_GROUPED = "p2pfl_tpu_torch/csrc/flash_bwd_grouped_sm90.cu"  # the bf16 backward pair above D = 256
 SOURCE_CHUNKED = "p2pfl_tpu_torch/csrc/flash_chunked.cu"  # above D = 512: f32, and bf16's carry
 # Head sizes up to 128 (the repair of ROADMAP queue C item 1): 48 at the LM's
-# width over 8 heads (width 384; the bf16 forward on the narrow kernel, the
-# other bf16 rows padded to the 64 tensor-core kernels, f32 to the 64
-# instance) and 128 at width 512 over 4 heads (the CUDA-core
+# width over 8 heads (width 384; the bf16 forward and backward pair on the
+# narrow kernels, the bf16 carry padded to the 64 tensor-core kernel, f32 to
+# the 64 instance) and 128 at width 512 over 4 heads (the CUDA-core
 # <f32, 128> and <bf16, 128> instances). Head size -> heads.
 C1_HEAD_DIMS = {48: 8, 128: 4}
 # Head size 256: the LM's width over 2 heads (the bf16 forward and backward
@@ -460,18 +463,26 @@ def phase_sdpa_kernels(rows: dict) -> None:
         print(f"[sdpa] {key}: {backend} at {shape}: {name}")
 
 
-def forward_kernels(shape: list, with_lse: bool) -> list:
-    """The names of the CUDA kernels one bf16 causal forward call of the
-    port at ``shape`` runs, under torch.profiler (after a warm-up call)."""
+def narrow_call_kernels(shape: list) -> list:
+    """The names of the CUDA kernels that one bf16 causal call each of the
+    port's forward with lse, forward without lse, dq and dk/dv at ``shape``
+    run, under one torch.profiler session (after a warm-up call of each)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from p2pfl_tpu_torch.ops import _kernels
 
-    q, k, v = (torch.randn(shape).to("cuda", torch.bfloat16) for _ in range(3))
-    _kernels.flash_fwd(q, k, v, True, with_lse)
+    q, k, v, g = (torch.randn(shape).to("cuda", torch.bfloat16) for _ in range(4))
+    out, lse = _kernels.flash_fwd(q, k, v, True, True)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    calls = (lambda: _kernels.flash_fwd(q, k, v, True, True), lambda: _kernels.flash_fwd(q, k, v, True, False),
+             lambda: _kernels.flash_bwd_dq(q, k, v, g, lse, delta, True),
+             lambda: _kernels.flash_bwd_dkv(q, k, v, g, lse, delta, True))
+    for call in calls:
+        call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _kernels.flash_fwd(q, k, v, True, with_lse)
+        for call in calls:
+            call()
         torch.cuda.synchronize()
     return [name for _, name in cuda_kernels(prof)]
 
@@ -516,6 +527,7 @@ def phase_env() -> str:
         mw90 = re.search(r"flash_fwd_wide_sm90_kernelILi(\d+)ELb(\d)E", line)
         mg90 = re.search(r"flash_fwd_grouped_sm90_kernelILb(\d)E", line)
         mn90 = re.search(r"flash_fwd_narrow_sm90_kernelILi(\d+)ELb(\d)E", line)
+        mnb = re.search(r"(flash_bwd_dq_narrow_sm90_kernel|flash_bwd_dkv_narrow_sm90_kernel)ILi(\d+)E", line)
         mb90 = re.search(r"(flash_bwd_dq_sm90_kernel|flash_bwd_dkv_sm90_kernel|flash_carry_sm90_kernel)", line)
         mwb = re.search(r"(flash_bwd_dq_wide_sm90_kernel|flash_bwd_dkv_wide_sm90_kernel)ILi(\d+)E", line)
         mgb = re.search(r"(flash_bwd_dq_grouped_sm90_kernel|flash_bwd_dkv_grouped_sm90_kernel)", line)
@@ -531,6 +543,8 @@ def phase_env() -> str:
             entry = f"flash_fwd_grouped_sm90_kernel<bf16, lse={mg90[1]}>"
         elif mn90:
             entry = f"flash_fwd_narrow_sm90_kernel<bf16, W={mn90[1]}, lse={mn90[2]}>"
+        elif mnb:
+            entry = f"{mnb[1]}<bf16, W={mnb[2]}>"
         elif mb90:
             entry = f"{mb90[1]}<bf16, D=64>"
         elif mwb:
@@ -559,6 +573,9 @@ def phase_env() -> str:
     check(sorted(e for e in seen if e.startswith("flash_fwd_narrow_sm90")) ==
           sorted(f"flash_fwd_narrow_sm90_kernel<bf16, W={w}, lse={x}>" for w in (16, 32, 64) for x in (0, 1)),
           "the build log lacks a narrow tensor-core forward instance (box width 16 / 32 / 64, with and without lse)")
+    check(sorted(e for e in seen if "_narrow_sm90" in e and e.startswith("flash_bwd")) ==
+          sorted(f"flash_bwd_{k}_narrow_sm90_kernel<bf16, W={w}>" for k in ("dq", "dkv") for w in (16, 32, 64)),
+          "the build log lacks a narrow tensor-core backward instance (dq, dk/dv at box width 16 / 32 / 64)")
     check(all(any(e.startswith(f"flash_bwd_{k}_sm90") for e in seen) for k in ("dq", "dkv")),
           "the build log lacks a tensor-core backward kernel")
     check(sorted(e for e in seen if "_wide_sm90" in e and e.startswith("flash_bwd")) ==
@@ -624,6 +641,9 @@ def phase_sass(lib, nvcc: str) -> None:
           "a narrow bf16 forward instance (box width 16 / 32 / 64) holds no HGMMA instruction")
     bwd90 = [n for name, n in shown.items() if "flash_bwd_dq_sm90" in name or "flash_bwd_dkv_sm90" in name]
     check(len(bwd90) == 2 and all(n > 0 for n in bwd90), "a bf16 backward kernel holds no HGMMA instruction")
+    narrow_bwd90 = [n for name, n in shown.items() if re.search(r"flash_bwd_(dq|dkv)_narrow_sm90", name)]
+    check(len(narrow_bwd90) == 6 and all(n > 0 for n in narrow_bwd90),
+          "a narrow bf16 backward instance (dq, dk/dv at box width 16 / 32 / 64) holds no HGMMA instruction")
     wide_bwd90 = [n for name, n in shown.items() if re.search(r"flash_bwd_(dq|dkv)_wide_sm90", name)]
     check(len(wide_bwd90) == 4 and all(n > 0 for n in wide_bwd90),
           "a wide bf16 backward instance (D = 128 / 256) holds no HGMMA instruction")
@@ -1087,12 +1107,13 @@ def efficient_attention_ms(qh, kh, vh, gh) -> dict:
 
 def phase_kernels_narrow() -> dict:
     """Rows 1-5 at head sizes 32 and 16 (the width of rows 1-5 over more
-    heads), in bf16 and f32; then, under torch.profiler, one bf16 forward
-    call at [8, 1024, 16, 32] (with lse and without) must be one CUDA kernel,
-    the narrow forward's: no pad or slice copies. That check runs in a
-    process of its own (``forward_kernels``): on the card, the later
-    profiler sessions of a process that had run many were seen to record no
-    kernel (why is not known). Returns {"<name>_d<D>": row}."""
+    heads), in bf16 and f32; then, under torch.profiler, one bf16 call each
+    of the forward (with lse and without), dq and dk/dv at [8, 1024, 16, 32]
+    must be one CUDA kernel each, the narrow kernels: no pad or slice
+    copies. That check runs in a process of its own
+    (``narrow_call_kernels``): on the card, the later profiler sessions of a
+    process that had run many were seen to record no kernel (why is not
+    known). Returns {"<name>_d<D>": row}."""
     import os
     import torch
 
@@ -1102,20 +1123,24 @@ def phase_kernels_narrow() -> dict:
         rows.update(narrow_rows("narrow", narrow_suffix(d), d, EMBED // d, BATCH, EVAL_SEQS, SEQ_LEN,
                                 (torch.bfloat16, torch.float32), True, gen))
     shape = [BATCH, SEQ_LEN, EMBED // 32, 32]
-    code = f"import json, chip_smoke; print(json.dumps([chip_smoke.forward_kernels({shape}, w) for w in (True, False)]))"
+    code = f"import json, chip_smoke; print(json.dumps(chip_smoke.narrow_call_kernels({shape})))"
     out = subprocess.run([sys.executable, "-c", code], cwd=os.path.dirname(os.path.abspath(__file__)),
                          capture_output=True, text=True, timeout=300)
     check(out.returncode == 0, f"the one-launch check failed: {out.stderr.strip()[-500:]}")
-    for with_lse, names in zip((True, False), json.loads(out.stdout.strip().splitlines()[-1])):
-        print(f"[narrow] one forward call (lse={with_lse}) at {shape}: CUDA kernels {names}")
-        check(len(names) == 1 and "flash_fwd_narrow_sm90_kernel" in names[0],
-              f"a forward call at {shape} is not the narrow kernel alone: {names}")
+    names = json.loads(out.stdout.strip().splitlines()[-1])
+    print(f"[narrow] one call each of flash_fwd (lse, no lse), flash_bwd_dq and flash_bwd_dkv at {shape}: "
+          f"CUDA kernels {names}")
+    # Four calls, four kernels, each call's own: so each call is one kernel.
+    want = {"flash_fwd_narrow_sm90_kernel": 2, "flash_bwd_dq_narrow_sm90_kernel": 1,
+            "flash_bwd_dkv_narrow_sm90_kernel": 1}
+    check(len(names) == 4 and all(sum(kern in n for n in names) == c for kern, c in want.items()),
+          f"the calls at {shape} are not the narrow kernels alone, one each: {names}")
     return rows
 
 
 def phase_kernels_classifier() -> dict:
     """Rows 1-4 at the flash classifier's own shapes (head size 32, a
-    sequence of 64: one partial 128-row tile), in bf16 as the classifier runs
+    sequence of 64: one 64-row tile), in bf16 as the classifier runs
     them: training at [16, 64, 4, 32], eval at [256, 64, 4, 32]; returns
     {"<name>_d32_cls": row}."""
     import torch
@@ -2266,8 +2291,9 @@ def time_phases() -> None:
 
 def row_source(name: str, d: int, sm90_source: str) -> str:
     """The source of the bf16 kernel that row ``name`` runs at head size
-    ``d``: the narrow forward's where ``kernel_route`` names it (rows 1-2
-    wherever the wrapper hands the kernel a head size below 64), else
+    ``d``: the narrow forward's or backward pair's where ``kernel_route``
+    names them (rows 1-4 wherever the wrapper hands the kernel a head size
+    below 64), else
     ``sm90_source`` (the D = 64 tensor-core kernel's) at D <= 64, the wide
     forward's or backward pair's at 128 and 256, the grouped forward's or
     backward pair's above 256, the CUDA-core kernels' elsewhere (the carry;
@@ -2278,7 +2304,7 @@ def row_source(name: str, d: int, sm90_source: str) -> str:
     kd, route = _kernels.kernel_route(name, torch.bfloat16, d)
     forward = name in _kernels.FORWARDS
     if route == _kernels.NARROW:
-        return SOURCE_FWD_NARROW
+        return SOURCE_FWD_NARROW if forward else SOURCE_BWD_NARROW
     if route == _kernels.CHUNKED:
         return SOURCE_CHUNKED
     if route == _kernels.CUDA_CORES:
@@ -2372,22 +2398,23 @@ def main() -> int:
          **rows[name]}
         for name, (replaces, _, source) in kernels.items()
     ]
-    # The narrow rows: the bf16 forward on SOURCE_FWD_NARROW at the true D,
-    # the backward pair and carry on the D 64 tensor-core sources on padded
-    # heads; the f32 numbers beside them are the CUDA-core instances of
-    # SOURCE_F32.
+    # The narrow rows: the bf16 forward on SOURCE_FWD_NARROW and the backward
+    # pair on SOURCE_BWD_NARROW at the true D, the carry on the D 64
+    # tensor-core source on padded heads; the f32 numbers beside them are the
+    # CUDA-core instances of SOURCE_F32.
     table += [
         {"name": name + narrow_suffix(d), "route": "cuda", "source": row_source(name, d, source), "replaces": replaces,
          "launches": launches[name + narrow_suffix(d)], **rows[name + narrow_suffix(d)], "source_f32": SOURCE_F32}
         for d in NARROW_HEAD_DIMS for name, (replaces, _, source) in kernels.items()
     ]
     # Head sizes 48, 128, 256, 512 and 1024: bf16 at 48 the forward on
-    # SOURCE_FWD_NARROW and the rest on the padded D 64 tensor-core kernels,
-    # the forward at 128 and 256 on SOURCE_FWD_WIDE's and
-    # the backward pair on SOURCE_BWD_WIDE's, the forward at 512 and 1024 on
-    # SOURCE_FWD_GROUPED's and the backward pair on SOURCE_BWD_GROUPED's, the
-    # carry at 128, 256 and 512 on the CUDA-core instances of SOURCE_F32, and
-    # the carry at 1024 (f32: every row) on SOURCE_CHUNKED's.
+    # SOURCE_FWD_NARROW, the backward pair on SOURCE_BWD_NARROW and the carry
+    # on the padded D 64 tensor-core kernel, the forward at 128 and 256 on
+    # SOURCE_FWD_WIDE's and the backward pair on SOURCE_BWD_WIDE's, the
+    # forward at 512 and 1024 on SOURCE_FWD_GROUPED's and the backward pair on
+    # SOURCE_BWD_GROUPED's, the carry at 128, 256 and 512 on the CUDA-core
+    # instances of SOURCE_F32, and the carry at 1024 (f32: every row) on
+    # SOURCE_CHUNKED's.
     table += [
         {"name": name + narrow_suffix(d), "route": "cuda", "source": row_source(name, d, source),
          "replaces": replaces, "launches": launches[name + narrow_suffix(d)], **rows[name + narrow_suffix(d)],
@@ -2396,8 +2423,9 @@ def main() -> int:
         for name, (replaces, _, source) in kernels.items()
     ]
     # The classifier's (D 32) and the longcontext example's (D 16) shapes,
-    # the forward on SOURCE_FWD_NARROW and the backward pair on padded heads,
-    # as their paths run them, and the pipeline's microbatches (D 64).
+    # the forward on SOURCE_FWD_NARROW and the backward pair on
+    # SOURCE_BWD_NARROW, as their paths run them, and the pipeline's
+    # microbatches (D 64).
     table += [
         {"name": name + suffix, "route": "cuda", "source": row_source(name, d, source), "replaces": replaces,
          "launches": launches[name + suffix], **rows[name + suffix]}

@@ -12,10 +12,13 @@
 // bf16 at head size 64 runs the tensor-core kernels: the forward and the
 // carry fold in flash_fwd_sm90.cu, the backward pair in flash_bwd_sm90.cu,
 // launched from p2pfl_flash_fwd / p2pfl_flash_carry / p2pfl_flash_bwd_dq /
-// p2pfl_flash_bwd_dkv below (ops/_kernels.py zero-pads narrower bf16 heads to
-// 64). At head sizes 128 and 256 the bf16 forward runs the tensor-core
-// kernel of flash_fwd_wide_sm90.cu and the bf16 backward pair that of
-// flash_bwd_wide_sm90.cu; above 256 the bf16 forward runs that of
+// p2pfl_flash_bwd_dkv below. Below 64 the bf16 forward and backward pair run
+// the tensor-core kernels of flash_fwd_narrow_sm90.cu and
+// flash_bwd_narrow_sm90.cu, which read a head size that is a multiple of 8 at
+// its true size (ops/_kernels.py zero-pads other narrow bf16 heads to the next
+// multiple of 8, and the carry's to 64). At head sizes 128 and 256 the bf16
+// forward runs the tensor-core kernel of flash_fwd_wide_sm90.cu and the bf16
+// backward pair that of flash_bwd_wide_sm90.cu; above 256 the bf16 forward runs that of
 // flash_fwd_grouped_sm90.cu and the bf16 backward pair that of
 // flash_bwd_grouped_sm90.cu. The bf16 carry fold at 128, 256 and 512 runs
 // the kernel here as <__nv_bfloat16, 128 / 256 / 512> (bf16 loads, f32
@@ -703,10 +706,10 @@ cudaError_t launch_carry(const void* q, const void* k, const void* v, const floa
 // (forward, carry), 136,064 (dq) and 140,288 (dk/dv), at D = 512 the 16-row
 // ones 99,584, 132,544 and 133,632. ops/_kernels.py zero-pads any other head
 // size up to 512 to the next instance; bf16 exists at 64 (the tensor-core
-// kernels, narrower heads padded to it but for the forward, which reads
-// multiples of 8 at their true size), 128 and 256 (the tensor-core
-// forward and backward pair; the carry here) and 512 (the tensor-core
-// forward and backward pair; the carry here).
+// kernels, narrower heads padded to it but for the forward and backward
+// pair, which read multiples of 8 at their true size), 128 and 256 (the
+// tensor-core forward and backward pair; the carry here) and 512 (the
+// tensor-core forward and backward pair; the carry here).
 template <typename F>
 cudaError_t with_head_dim(int head_dim, F&& launch) {
   switch (head_dim) {
@@ -762,6 +765,13 @@ cudaError_t launch_flash_fwd_grouped_sm90(const void* q, const void* k, const vo
 cudaError_t launch_flash_fwd_narrow_sm90(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                                          int Sq, int Sk, int H, int head_dim, float scale, bool causal,
                                          cudaStream_t stream);
+cudaError_t launch_flash_bwd_dq_narrow_sm90(const void* q, const void* k, const void* v, const void* dout,
+                                            const float* lse, const float* delta, void* dq, int B, int Sq, int Sk,
+                                            int H, int head_dim, float scale, bool causal, cudaStream_t stream);
+cudaError_t launch_flash_bwd_dkv_narrow_sm90(const void* q, const void* k, const void* v, const void* dout,
+                                             const float* lse, const float* delta, void* dk, void* dv, int B, int Sq,
+                                             int Sk, int H, int head_dim, float scale, bool causal,
+                                             cudaStream_t stream);
 cudaError_t launch_flash_bwd_dq_grouped_sm90(const void* q, const void* k, const void* v, const void* dout,
                                              const float* lse, const float* delta, void* dq, int B, int Sq, int Sk,
                                              int H, int head_dim, float scale, bool causal, cudaStream_t stream);
@@ -789,7 +799,7 @@ extern "C" {
 
 // Every entry point returns cudaErrorInvalidValue for a head size without an
 // instance: up to 512, f32 has 16, 32, 64, 128, 256 and 512, bf16 has the
-// forward at every multiple of 8 below 64 (tensor cores), 64
+// forward and backward pair at every multiple of 8 below 64 (tensor cores), 64
 // (tensor cores), 128 and 256 (the tensor-core forward and backward pair,
 // the CUDA-core carry) and 512 (the tensor-core forward and backward pair,
 // the CUDA-core carry); above 512 both take every multiple of 64 (the bf16
@@ -824,14 +834,18 @@ int p2pfl_flash_fwd(const void* q, const void* k, const void* v, void* o, float*
   return int(cudaErrorInvalidValue);
 }
 
-// bf16 at 64 runs the tensor-core pair of flash_bwd_sm90.cu, at 128 and 256
-// that of flash_bwd_wide_sm90.cu, above 256 that of
-// flash_bwd_grouped_sm90.cu; f32 the CUDA-core kernels above (above 512 the
-// chunked ones).
+// bf16 below 64 (a multiple of 8, read at its true size) runs the
+// tensor-core pair of flash_bwd_narrow_sm90.cu, at 64 that of
+// flash_bwd_sm90.cu, at 128 and 256 that of flash_bwd_wide_sm90.cu, above 256
+// that of flash_bwd_grouped_sm90.cu; f32 the CUDA-core kernels above (above
+// 512 the chunked ones).
 int p2pfl_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dq, int B, int Sq, int Sk,
                        int H, int head_dim, int dtype, float scale, int causal, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && head_dim < 64)
+    return int(p2pfl::launch_flash_bwd_dq_narrow_sm90(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, head_dim, scale,
+                                                      causal != 0, s));
   if (dtype == 1 && head_dim > 256)
     return int(p2pfl::launch_flash_bwd_dq_grouped_sm90(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, head_dim, scale,
                                                        causal != 0, s));
@@ -856,6 +870,9 @@ int p2pfl_flash_bwd_dkv(const void* q, const void* k, const void* v, const void*
                         const float* lse, const float* delta, void* dk, void* dv, int B, int Sq,
                         int Sk, int H, int head_dim, int dtype, float scale, int causal, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && head_dim < 64)
+    return int(p2pfl::launch_flash_bwd_dkv_narrow_sm90(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, head_dim,
+                                                       scale, causal != 0, s));
   if (dtype == 1 && head_dim > 256)
     return int(p2pfl::launch_flash_bwd_dkv_grouped_sm90(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, head_dim,
                                                         scale, causal != 0, s));

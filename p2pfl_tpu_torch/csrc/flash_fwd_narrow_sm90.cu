@@ -10,8 +10,8 @@
 // 32 take W 32, D 40, 48 and 56 take W 64). ops/_kernels.py zero-pads any
 // other D below 57 to the next multiple of 8 (TMA strides in multiples of 16
 // bytes) and D 57-63 to 64, which run flash_fwd_sm90.cu's D 64 kernel. The
-// bf16 backward pair and carry fold below 64 still run the D 64 kernels on
-// padded heads.
+// bf16 backward pair below 64 runs flash_bwd_narrow_sm90.cu, read the same
+// way; the carry fold below 64 still runs the D 64 kernel on padded heads.
 //
 // What it computes is what flash_fwd_sm90.cu computes: scores S = Q.K^T are
 // exact bf16 products summed in f32 by wgmma, then multiplied by the scale
@@ -62,9 +62,9 @@
 //     (two rows per thread, row max and sum over the 4-lane quad). Issuing
 //     the next tile's S before this tile's softmax spilled, serialized the
 //     wgmma and ran 9-77 % slower;
-//   * O += P_hi.V + P_lo.V: wgmma m64nWk16 with A from registers (the S
-//     accumulator's layout is the next A fragment's) and the V tile as the
-//     MN-major B operand; O is W / 2 f32 a thread;
+//   * O += P_hi.V + P_lo.V: wgmma m64nWk16 (wgmma_rs) with A from registers
+//     (the S accumulator's layout is the next A fragment's) and the V tile
+//     as the MN-major B operand; O is W / 2 f32 a thread;
 //   * causal key tiles wholly in a q tile's future, or past its last row
 //     (Sq < Sk), are skipped;
 //   * the epilogue stores only columns below D, at the row stride H D.
@@ -115,20 +115,6 @@ struct Tiles {
 
 static_assert(Tiles<16>::kSmemBytes == 11304 && Tiles<32>::kSmemBytes == 21544 && Tiles<64>::kSmemBytes == 42024,
               "tiles changed");
-
-// O += P.V for one k-step of 16 keys, by the width of O (W / 2 f32).
-__device__ __forceinline__ void wgmma_pv(float (&d)[8], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint64_t b) {
-  wgmma_m64n16k16_rs(d, a0, a1, a2, a3, b);
-}
-__device__ __forceinline__ void wgmma_pv(float (&d)[16], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint64_t b) {
-  wgmma_m64n32k16_rs(d, a0, a1, a2, a3, b);
-}
-__device__ __forceinline__ void wgmma_pv(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint64_t b) {
-  wgmma_m64n64k16_rs(d, a0, a1, a2, a3, b);
-}
 
 // S = Q.K^T over the box's W columns (zeros past D) in W / 16 k-steps of 16
 // (32 bytes along the row), issued and committed, not waited for.
@@ -202,11 +188,11 @@ __device__ __forceinline__ void softmax_pv(float (&sc)[BK / 2], float (&o)[W / 2
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
-    wgmma_pv(o, p_hi[4 * kk], p_hi[4 * kk + 1], p_hi[4 * kk + 2], p_hi[4 * kk + 3],
+    wgmma_rs(o, p_hi[4 * kk], p_hi[4 * kk + 1], p_hi[4 * kk + 2], p_hi[4 * kk + 3],
              smem_desc_span<span>(v_tile + kk * 16 * span));
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
-    wgmma_pv(o, p_lo[4 * kk], p_lo[4 * kk + 1], p_lo[4 * kk + 2], p_lo[4 * kk + 3],
+    wgmma_rs(o, p_lo[4 * kk], p_lo[4 * kk + 1], p_lo[4 * kk + 2], p_lo[4 * kk + 3],
              smem_desc_span<span>(v_tile + kk * 16 * span));
   wgmma_commit();
   wgmma_wait_all();

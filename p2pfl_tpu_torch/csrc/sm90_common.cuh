@@ -2,7 +2,7 @@
 // (the *_sm90.cu sources): mbarriers and a ring's (stage, phase) walk, TMA
 // loads through 4-D tensor maps over the API's [B, S, H, D] layout in boxes
 // of 64 columns (one 128-byte swizzle span; all of a row at D = 64) or, for
-// the narrow forward, of 16 or 32 columns under the 32- or 64-byte swizzle
+// the narrow kernels, of 16 or 32 columns under the 32- or 64-byte swizzle
 // over the true head size, wgmma descriptors and instructions, the bf16
 // split of an f32 operand, the row reductions over an accumulator's quad,
 // the tensor-map encoders and the launch guard for setmaxnreg's register
@@ -103,10 +103,11 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
 
 // wgmma shared-memory descriptor for a tile of SPAN-byte rows under the
 // swizzle of that span (32, 64 or 128 bytes: layout types 3, 2 and 1), for
-// boxes narrower than 64 columns (flash_fwd_narrow_sm90.cu): start address,
-// leading and stride byte offsets both 8 * SPAN (the stride between groups of
-// 8 rows; the leading offset is unused at these widths: a K-major operand's
-// 16-column k-step and an MN-major operand's N both lie within one span).
+// boxes narrower than 64 columns (the *_narrow_sm90.cu sources): start
+// address, leading and stride byte offsets both 8 * SPAN (the stride between
+// groups of 8 rows; the leading offset is unused at these widths: a K-major
+// operand's 16-column k-step and an MN-major operand's N both lie within one
+// span).
 // A K-major operand advances 32 bytes along its rows per k-step of 16; an
 // MN-major one 16 rows (16 * SPAN bytes). At SPAN 128 it is smem_desc.
 template <uint32_t SPAN>
@@ -234,6 +235,22 @@ __device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8], uint32_t a0, u
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
 }
 
+// A second product with A from registers and B MN-major in shared memory,
+// by the width N of its accumulator (N / 2 f32 a thread): m64n16k16,
+// m64n32k16 or m64n64k16, the narrow kernels' products at N = W.
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint64_t b) {
+  wgmma_m64n16k16_rs(d, a0, a1, a2, a3, b);
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint64_t b) {
+  wgmma_m64n32k16_rs(d, a0, a1, a2, a3, b);
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint64_t b) {
+  wgmma_m64n64k16_rs(d, a0, a1, a2, a3, b);
+}
+
 // A first product (S, dP, S^T or dP^T) for one k-step, by the width of its
 // accumulator: m64n64k16 (32 f32) or m64n32k16 (16 f32).
 __device__ __forceinline__ void wgmma_first(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
@@ -335,7 +352,7 @@ bool encode_bshd(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, i
 // of box_rows x 2 box_cols bytes under the swizzle of that span (32, 64 or
 // 128 bytes); head_dim may be below box_cols: TMA fills the columns past it
 // with zeros, as it fills rows past S, so a narrow head is read at its true
-// size (flash_fwd_narrow_sm90.cu). TMA strides in multiples of 16 bytes:
+// size (the *_narrow_sm90.cu sources). TMA strides in multiples of 16 bytes:
 // head_dim must be a multiple of 8.
 bool encode_bshd_box(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int S, int H, int head_dim,
                      int box_rows, int box_cols) {

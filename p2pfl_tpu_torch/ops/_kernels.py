@@ -14,10 +14,11 @@ entry in :data:`LAUNCHES`.
 
 Head sizes: any D >= 1. Up to 512 the f32 kernels have instances at 16, 32,
 64, 128, 256 and 512, all on the CUDA cores. bf16 runs the tensor-core
-forward of ``csrc/flash_fwd_narrow_sm90.cu`` below 64 (box widths 16, 32
-and 64; the head size at run time, read by TMA at its true size), the
-tensor-core kernels at 64 (forward, backward pair, carry fold), the
-tensor-core forward and backward pair at 128 and 256, and the tensor-core
+forward of ``csrc/flash_fwd_narrow_sm90.cu`` and backward pair of
+``csrc/flash_bwd_narrow_sm90.cu`` below 64 (box widths 16, 32 and 64; the
+head size at run time, read by TMA at its true size), the tensor-core
+kernels at 64 (forward, backward pair, carry fold), the tensor-core
+forward and backward pair at 128 and 256, and the tensor-core
 forward and backward pair of ``csrc/flash_fwd_grouped_sm90.cu`` and
 ``csrc/flash_bwd_grouped_sm90.cu`` at every D above 256 (the head size at
 run time); its carry fold at 128, 256 and 512 runs CUDA-core instances.
@@ -27,12 +28,12 @@ each score tile a 64-column panel of D at a time (:func:`kernel_route`).
 
 A call at a D the kernel does not take copies q, k, v (dO; the carry's
 acc) into zeroed ``[B, S, H, D']`` buffers, D' = :func:`host_head_dim`:
-for the bf16 forward below 64 the next multiple of 8 (TMA strides in
-multiples of 16 bytes; 57-63 round to 64, the D 64 kernel), and no copy at
-a multiple of 8; elsewhere the next instance (bf16: 64 for D <= 64, else
-the next of 128, 256 and 512; above 512 the next multiple of 64). The call
-launches with the true scale ``1/sqrt(D)`` and slices the outputs back to
-D. That is exact: zero columns add exact zeros to ``Q.K^T`` and
+for the bf16 forward and backward pair below 64 the next multiple of 8 (TMA
+strides in multiples of 16 bytes; 57-63 round to 64, the D 64 kernels), and
+no copy at a multiple of 8; elsewhere the next instance (bf16: 64 for D <=
+64, else the next of 128, 256 and 512; above 512 the next multiple of 64).
+The call launches with the true scale ``1/sqrt(D)`` and slices the outputs
+back to D. That is exact: zero columns add exact zeros to ``Q.K^T`` and
 ``dO.V^T``, leave ``delta`` (computed by the caller at D) as it is, and
 come out as exact zeros in O, acc, dQ, dK and dV. It is the kernel all the
 same, never the plain version, and it counts in :data:`LAUNCHES`. The
@@ -66,6 +67,7 @@ SOURCES = (
     _PKG / "csrc" / "flash_bwd_sm90.cu",  # bf16 backward pair (dq; dk/dv) on the tensor cores
     _PKG / "csrc" / "flash_bwd_wide_sm90.cu",  # bf16 backward pair at D = 128 and 256 on the tensor cores
     _PKG / "csrc" / "flash_bwd_grouped_sm90.cu",  # bf16 backward pair above D = 256 on the tensor cores
+    _PKG / "csrc" / "flash_bwd_narrow_sm90.cu",  # bf16 backward pair below D = 64 on the tensor cores, at the true D
     _PKG / "csrc" / "flash_chunked.cu",  # above D = 512 (bf16: the carry only), the head size a run-time argument
 )
 HEADERS = (_PKG / "csrc" / "sm90_common.cuh",)  # included by the *_sm90.cu sources
@@ -85,14 +87,17 @@ MAX_HEAD_DIM = HEAD_DIMS[-1]  # the largest compiled instance; above it the chun
 # csrc/flash_fwd_grouped_sm90.cu and csrc/flash_bwd_grouped_sm90.cu.
 SM90_GROUPED_ABOVE = SM90_WIDE_HEAD_DIMS[-1]
 FORWARDS = ("flash_fwd", "flash_fwd_no_lse")
-# The box widths of the bf16 forward below SM90_HEAD_DIM
-# (csrc/flash_fwd_narrow_sm90.cu), which reads a head size that is a multiple
-# of NARROW_STEP at its true size (TMA strides in multiples of 16 bytes).
+# The kernels whose bf16 calls below SM90_HEAD_DIM take the narrow route: the
+# forward (csrc/flash_fwd_narrow_sm90.cu) and the backward pair
+# (csrc/flash_bwd_narrow_sm90.cu), in box widths NARROW_WIDTHS, which read a
+# head size that is a multiple of NARROW_STEP at its true size (TMA strides
+# in multiples of 16 bytes).
+NARROW_KERNELS = (*FORWARDS, "flash_bwd_dq", "flash_bwd_dkv")
 NARROW_WIDTHS = (16, 32, 64)
 NARROW_STEP = 8
 CHUNK = 64  # the panel of D of the chunked kernels: above MAX_HEAD_DIM, D pads to a multiple of it
 TENSOR_CORES, CUDA_CORES = "tensor cores", "CUDA cores"
-NARROW = "tensor cores at the true head size"  # csrc/flash_fwd_narrow_sm90.cu
+NARROW = "tensor cores at the true head size"  # csrc/flash_fwd_narrow_sm90.cu, csrc/flash_bwd_narrow_sm90.cu
 CHUNKED = "CUDA cores, D in 64-column panels"  # csrc/flash_chunked.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -225,11 +230,11 @@ def kernel_head_dim(dtype: torch.dtype, d: int) -> int:
 def host_head_dim(kernel: str, dtype: torch.dtype, d: int) -> int:
     """The head size the wrapper of ``kernel`` hands its kernel at head size
     ``d``: ``d`` itself where no copy is made, else the size q, k, v (dO;
-    acc) are zero-padded to on the host. The bf16 forwards below
-    :data:`SM90_HEAD_DIM` round ``d`` up to a multiple of
-    :data:`NARROW_STEP` (so 57-63 become 64); every other call pads to
-    :func:`kernel_head_dim`."""
-    if dtype == torch.bfloat16 and kernel in FORWARDS and d < SM90_HEAD_DIM:
+    acc) are zero-padded to on the host. The bf16 calls of
+    :data:`NARROW_KERNELS` below :data:`SM90_HEAD_DIM` round ``d`` up to a
+    multiple of :data:`NARROW_STEP` (so 57-63 become 64); every other call
+    (the carry, f32) pads to :func:`kernel_head_dim`."""
+    if dtype == torch.bfloat16 and kernel in NARROW_KERNELS and d < SM90_HEAD_DIM:
         return -(-d // NARROW_STEP) * NARROW_STEP
     return kernel_head_dim(dtype, d)
 
@@ -238,15 +243,16 @@ def kernel_route(kernel: str, dtype: torch.dtype, d: int) -> Tuple[int, str]:
     """``(instance head size, NARROW, TENSOR_CORES, CUDA_CORES or CHUNKED)``
     that a call of ``kernel`` (a :data:`LAUNCHES` name) at head size ``d``
     runs, as the C entry points of ``csrc/flash_attn.cu`` dispatch it: the
-    bf16 forwards take the narrow kernel (``NARROW``, its instance the box
-    width, one of :data:`NARROW_WIDTHS`) wherever :func:`host_head_dim`
-    stays below :data:`SM90_HEAD_DIM`; the other bf16 forwards and the
-    backward pairs at every D (above :data:`SM90_GROUPED_ABOVE` the grouped
-    kernels) and the bf16 carry fold at :data:`SM90_HEAD_DIM` take the
-    tensor cores, every other call above :data:`MAX_HEAD_DIM` the chunked
-    kernels, the rest the CUDA-core instances."""
+    bf16 forwards and backward pairs (:data:`NARROW_KERNELS`) take the
+    narrow kernels (``NARROW``, their instance the box width, one of
+    :data:`NARROW_WIDTHS`) wherever :func:`host_head_dim` stays below
+    :data:`SM90_HEAD_DIM`; the other bf16 forwards and backward pairs at
+    every D (above :data:`SM90_GROUPED_ABOVE` the grouped kernels) and the
+    bf16 carry fold at :data:`SM90_HEAD_DIM` take the tensor cores, every
+    other call above :data:`MAX_HEAD_DIM` the chunked kernels, the rest the
+    CUDA-core instances."""
     hd = host_head_dim(kernel, dtype, d)
-    if dtype == torch.bfloat16 and kernel in FORWARDS and hd < SM90_HEAD_DIM:
+    if dtype == torch.bfloat16 and kernel in NARROW_KERNELS and hd < SM90_HEAD_DIM:
         return next(w for w in NARROW_WIDTHS if w >= hd), NARROW
     kd = kernel_head_dim(dtype, d)
     if dtype == torch.bfloat16 and kernel != "flash_carry" and kd > SM90_GROUPED_ABOVE:
@@ -340,7 +346,8 @@ def flash_bwd_dq(
 ) -> torch.Tensor:
     """Kernel dq from the forward's ``lse`` and ``delta = rowsum(dO * O)``.
 
-    bf16 runs the tensor-core kernels at every D (64, 128 and 256, and the
+    bf16 runs the tensor-core kernels at every D (the narrow kernel below
+    64, with no copy where D is a multiple of 8; 64, 128 and 256; the
     grouped kernel above 256; 16-byte-aligned tensors, as the forward); f32
     runs the CUDA-core kernels (above 512 the chunked one)."""
     _check_qkv("flash_bwd_dq", q, k, v)

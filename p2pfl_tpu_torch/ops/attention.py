@@ -12,9 +12,11 @@ The flash path has four kernels (``csrc/``, bound in :mod:`._kernels`): the
 forward, written with or without the per-row logsumexp, the dq kernel, the
 dk/dv kernel, and the carry fold that ring attention runs once per kv chunk
 (bf16 on the tensor cores in ``flash_fwd_sm90.cu`` and ``flash_bwd_sm90.cu``,
-at head sizes 128 and 256 ``flash_fwd_wide_sm90.cu`` and
-``flash_bwd_wide_sm90.cu``, and above 256 ``flash_fwd_grouped_sm90.cu`` and
-``flash_bwd_grouped_sm90.cu``; f32 on the CUDA cores in ``flash_attn.cu``;
+below head size 64 ``flash_fwd_narrow_sm90.cu`` and
+``flash_bwd_narrow_sm90.cu`` (but the carry), at head sizes 128 and 256
+``flash_fwd_wide_sm90.cu`` and ``flash_bwd_wide_sm90.cu``, and above 256
+``flash_fwd_grouped_sm90.cu`` and ``flash_bwd_grouped_sm90.cu``; f32 on the
+CUDA cores in ``flash_attn.cu``;
 above head size 512 ``flash_chunked.cu``). Each has a plain PyTorch version
 here with the same arithmetic — inputs upcast to f32, q scaled in f32, the
 causal mask writes :data:`DEFAULT_MASK_VALUE`, ``l`` clamped at 1e-30 — that

@@ -7,6 +7,7 @@
     python3 scripts/torch_kernel_variants.py grouped # the forward above D 256 (flash_fwd_grouped_sm90.cu)
     python3 scripts/torch_kernel_variants.py bwd_grouped  # the backward pair above D 256 (flash_bwd_grouped_sm90.cu)
     python3 scripts/torch_kernel_variants.py narrow  # the forward below D 64 (flash_fwd_narrow_sm90.cu)
+    python3 scripts/torch_kernel_variants.py bwd_narrow  # the backward pair below D 64 (flash_bwd_narrow_sm90.cu)
 
 Each variant is the chosen source under ``p2pfl_tpu_torch/csrc/`` with some
 of its text replaced (``VARIANTS`` below), built with the package's other
@@ -22,7 +23,8 @@ and dk/dv at [8, 1024, 1, D] bf16 causal, at D 512 and 1024; ``narrow`` runs
 the forward with lse at [8, 1024, H, D] and the one without at [16, 1024,
 H, D] bf16 causal at D 32 / 16 / 48 (H 16 / 32 / 8), and both at the flash
 classifier's shapes ([16, 64, 4, 32], eval [256, 64, 4, 32]) and the
-longcontext example's ([4, 256, 4, 16], eval [16, 256, 4, 16]). A
+longcontext example's ([4, 256, 4, 16], eval [16, 256, 4, 16]);
+``bwd_narrow`` runs dq and dk/dv at those training shapes. A
 variant of ``flash_fwd_sm90.cu`` changes the forward and the carry fold
 alike; each family times its own. Every variant's outputs must equal the
 package's kernels' bit for bit (the variants change scheduling, not
@@ -50,7 +52,7 @@ sys.path.insert(0, str(ROOT))
 
 SOURCES = {"fwd": "flash_fwd_sm90.cu", "bwd": "flash_bwd_sm90.cu", "carry": "flash_fwd_sm90.cu",
            "grouped": "flash_fwd_grouped_sm90.cu", "bwd_grouped": "flash_bwd_grouped_sm90.cu",
-           "narrow": "flash_fwd_narrow_sm90.cu"}
+           "narrow": "flash_fwd_narrow_sm90.cu", "bwd_narrow": "flash_bwd_narrow_sm90.cu"}
 # kernel family -> variant name -> {text in the source: replacement}
 VARIANTS = {
     "fwd": {
@@ -98,6 +100,17 @@ VARIANTS = {
                      "Tiles<16>::kSmemBytes == 15416 && Tiles<32>::kSmemBytes == 29752 && "
                      "Tiles<64>::kSmemBytes == 58424"},
         "3 blocks an SM at W 16 / 32": {"constexpr int kBlocksW = W < 64 ? 4 : 3;": "constexpr int kBlocksW = 3;"},
+    },
+    "bwd_narrow": {  # the blocks an SM of both kernels at every W, then the ring's depth
+        "as built": {},
+        **{f"{n} blocks an SM": {"constexpr int kDqBlocksW = W == 16 ? 4 : 3;": f"constexpr int kDqBlocksW = {n};",
+                                 "constexpr int kDkvBlocksW = W < 64 ? 3 : 2;": f"constexpr int kDkvBlocksW = {n};"}
+           for n in (2, 3, 4)},
+        "3 stages": {"constexpr int kStages = 2;": "constexpr int kStages = 3;",
+                     "kDqSmemBytes == 13352": "kDqSmemBytes == 17464", "kDqSmemBytes == 25640": "kDqSmemBytes == 33848",
+                     "kDqSmemBytes == 50216": "kDqSmemBytes == 66616", "kDkvSmemBytes == 14376": "kDkvSmemBytes == 19000",
+                     "kDkvSmemBytes == 26664": "kDkvSmemBytes == 35384",
+                     "kDkvSmemBytes == 51240": "kDkvSmemBytes == 68152"},
     },
 }
 REORDERING = {"dq BK 32, 8 stages"}  # variants whose sums run in another order than the package's
@@ -213,6 +226,13 @@ def calls(family: str):
         return fwd
 
     cases = {}
+    if family == "bwd_narrow":
+        shapes = {"D=32": (8, 1024, 16, 32), "D=16": (8, 1024, 32, 16), "D=48": (8, 1024, 8, 48),
+                  "cls": (16, 64, 4, 32), "lc": (4, 256, 4, 16)}
+        for label, shape in shapes.items():
+            cases.update(backward(*(torch.randn(shape, generator=gen).cuda().to(torch.bfloat16) for _ in range(4)),
+                                  f" {label}"))
+        return cases
     if family == "narrow":
         shapes = {"D=32": ((8, 1024, 16, 32), 16), "D=16": ((8, 1024, 32, 16), 16), "D=48": ((8, 1024, 8, 48), 16),
                   "cls": ((16, 64, 4, 32), 256), "lc": ((4, 256, 4, 16), 16)}

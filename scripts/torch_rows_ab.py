@@ -10,17 +10,19 @@ kernels into its own ``build/`` and runs, in a subprocess, its
 ``chip_smoke.py`` kernel and carry phases (rows 1-5 at head size 64), then
 its ``narrow_rows`` in bf16 at [8, 1024, 16, 32], [8, 1024, 32, 16], [8,
 1024, 8, 48], [8, 1024, 4, 128], [8, 1024, 2, 256], [8, 1024, 1, 512] and [8,
-1024, 1, 1024] (the eval forward at batch 16), and rows 1-4 at the flash
+1024, 1, 1024] (the eval forward at batch 16; below D 64 also the carry's
+past fold of one ring chunk [2, 1024, H, D]), and rows 1-4 at the flash
 classifier's and the longcontext example's own shapes (its
 ``phase_kernels_classifier`` and ``phase_kernels_longcontext``): every row
-held to its plain version, then timed with CUDA events. Then the
+held to its plain version, then timed with CUDA events, and the source of
+the bf16 kernel each row runs there (its ``row_source``). Then the
 federated LM at width 512 over 1 head (D 512, 4 layers) and at width 1024
 over 1 head (D 1024, 1 layer), one round after a warm-up round each, as
 ``chip_smoke.py``'s wide and chunked paths drive them: ``lm_d<D>`` is that
 round's s/round (host clock; the rows are device times). The order is BASE,
 this tree, this tree, BASE, so that drift shows. Prints each run's numbers
-and, last, one JSON object ``{"runs": [{"tree": ..., "ms": {row: ms}},
-...]}``. Runs on the card only.
+and sources and, last, one JSON object ``{"runs": [{"tree": ..., "ms":
+{row: ms}, "sources": {row: source}}, ...]}``. Runs on the card only.
 """
 
 from __future__ import annotations
@@ -44,11 +46,16 @@ rows.update(cs.phase_carry())
 gen = torch.Generator().manual_seed(16)
 for d, heads in ((32, 16), (16, 32), (48, 8), (128, 4), (256, 2), (512, 1), (1024, 1)):
     rows.update(cs.narrow_rows("ab", f"_d{{d}}", d, heads, cs.BATCH, cs.EVAL_SEQS, cs.SEQ_LEN,
-                               (torch.bfloat16,), False, gen))
+                               (torch.bfloat16,), d < 64, gen))
 rows.update(cs.phase_kernels_classifier())
 rows.update(cs.phase_kernels_longcontext())
 ms = {{name: r["ms"] for name, r in rows.items()}}
 ms["flash_carry_diagonal"] = rows["flash_carry"]["ms_diagonal"]
+dims = {{"": 64, "_d32": 32, "_d16": 16, "_d48": 48, "_d128": 128, "_d256": 256, "_d512": 512, "_d1024": 1024,
+         cs.CLS_SUFFIX: 32, cs.LC_SUFFIX: 16}}
+sources = {{name + sfx: cs.row_source(name, d, src) for name, (_, _, src) in {{**cs.KERNEL_ROWS, **cs.RING_KERNEL_ROWS}}.items()
+           for sfx, d in dims.items() if name + sfx in ms}}
+print("SOURCES " + json.dumps(sources))
 from p2pfl_tpu_torch.models.transformer import transformer_lm_model
 from p2pfl_tpu_torch.parallel.simulation import MeshSimulation
 for d, layers in ((512, cs.LAYERS), (1024, cs.CHUNKED_LAYERS)):
@@ -63,13 +70,15 @@ print("ROWS " + json.dumps(ms))
 """
 
 
-def run(tree: Path) -> dict:
+def run(tree: Path) -> tuple:
+    """``({row: ms}, {row: source})`` of one run of ``tree``."""
     out = subprocess.run([sys.executable, "-c", CHILD.format(root=str(tree.resolve()))], cwd=tree,
                          capture_output=True, text=True, timeout=900)
     if out.returncode != 0:
         raise RuntimeError(f"{tree}: exit {out.returncode}\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
-    line = next(l for l in out.stdout.splitlines() if l.startswith("ROWS "))
-    return json.loads(line[5:])
+    found = {key: json.loads(l[len(key) + 1:]) for l in out.stdout.splitlines()
+             for key in ("ROWS", "SOURCES") if l.startswith(key + " ")}
+    return found["ROWS"], found["SOURCES"]
 
 
 def main() -> int:
@@ -79,9 +88,10 @@ def main() -> int:
     base = Path(sys.argv[1])
     runs = []
     for label, tree in (("BASE", base), ("tree", ROOT), ("tree", ROOT), ("BASE", base)):
-        ms = run(tree)
-        runs.append({"tree": label, "ms": ms})
+        ms, sources = run(tree)
+        runs.append({"tree": label, "ms": ms, "sources": sources})
         print(f"{label}: " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+        print(f"{label} sources: " + ", ".join(f"{k} {Path(v).name}" for k, v in sources.items()))
     print(json.dumps({"runs": runs}))
     return 0
 

@@ -1,8 +1,9 @@
 """The port's plain flash versions at narrow and wide head sizes against the
 JAX package's flash attention and carry fold. Narrow: the plain forward and
-its lse at 8, 20, 40, 48 and 63, head sizes the card's bf16 forward runs on
-the narrow tensor-core kernel (8, 40, 48 at the true size, 20 zero-padded
-to 24) or, at 63, on the D 64 kernel. Wide: 384 and 512 (the widest compiled
+its lse, and the plain dq, dk and dv, at 8, 20, 40, 48 and 63, head sizes
+the card's bf16 forward and backward pair run on the narrow tensor-core
+kernels (8, 40, 48 at the true size, 20 zero-padded to 24) or, at 63, on
+the D 64 kernels. Wide: 384 and 512 (the widest compiled
 instances: 384 is zero-padded to 512), and 576, 640 and 1024, which the card
 runs with D zero-padded to a multiple of 64: the bf16 forward on the grouped
 tensor-core kernel (groups of up to four 64-column panels of O; at 576 and
@@ -46,6 +47,28 @@ def test_plain_flash_forward_and_lse_match_jax_at_narrow_heads(d, causal):
     out, lse = port.plain_flash_forward(*(torch.tensor(a) for a in (q, k, v)), causal)
     np.testing.assert_allclose(out.numpy(), np.asarray(out_j), atol=1e-5)
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j)[..., 0], atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [8, 20, 40, 48, 63])
+def test_plain_flash_backward_matches_jax_grad_at_narrow_heads(d, causal):
+    """The plain dq and dk/dv (``plain_flash_backward_dq`` /
+    ``plain_flash_backward_dkv``, the versions the narrow backward kernels
+    are held to on the card), from the plain forward's lse and delta =
+    rowsum(dO * O), against ``jax.vjp`` of the JAX flash attention (its
+    Pallas backward pair, interpret mode) under the same random cotangent,
+    within 1e-4."""
+    q, k, v = _qkv(d + 3, d)
+    g = np.random.default_rng(d + 4).standard_normal(q.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda q, k, v: jax_flash_attention(q, k, v, causal, 16, 16), *map(jnp.asarray, (q, k, v)))
+    grads_j = vjp(jnp.asarray(g))
+    qt, kt, vt, gt = (torch.tensor(a) for a in (q, k, v, g))
+    out, lse = port.plain_flash_forward(qt, kt, vt, causal)
+    delta = (gt * out).sum(-1).transpose(1, 2).contiguous()
+    dq = port.plain_flash_backward_dq(qt, kt, vt, gt, lse, delta, causal)
+    dk, dv = port.plain_flash_backward_dkv(qt, kt, vt, gt, lse, delta, causal)
+    for got, ref, name in zip((dq, dk, dv), grads_j, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4, err_msg=name)
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -79,19 +79,18 @@ def test_kernel_head_dim_pads_every_head_size_to_the_next_instance():
 @pytest.mark.parametrize("kernel", list(_kernels.LAUNCHES))
 def test_kernel_route_names_the_c_path_of_every_head_size(kernel):
     """bf16: the forward (with and without lse) and the backward pair take
-    the tensor cores at every D (the forward up to 56 the narrow kernel,
-    named ``NARROW``, its instance the box width 16, 32 or 64 over D rounded
-    up to a multiple of 8, and from 57 on the D = 64 kernel; the backward
-    pair the D = 64 kernels up to 64; the wide ones at 128 and 256, the
-    grouped ones above 256), the carry up to 64; the carry up to 512, and
-    f32 at every D up to 512, the CUDA-core instances; every other call
-    above 512 the chunked kernels at the next multiple of 64."""
+    the tensor cores at every D (up to 56 the narrow kernels, named
+    ``NARROW``, their instance the box width 16, 32 or 64 over D rounded up
+    to a multiple of 8, and from 57 to 64 the D = 64 kernels; the wide ones
+    at 128 and 256, the grouped ones above 256), the carry up to 64; the
+    carry up to 512, and f32 at every D up to 512, the CUDA-core instances;
+    every other call above 512 the chunked kernels at the next multiple of
+    64."""
     carry = kernel == "flash_carry"
-    forward = kernel in ("flash_fwd", "flash_fwd_no_lse")
     for d in range(1, 513):
         kd = 64 if d <= 64 else 128 if d <= 128 else 256 if d <= 256 else 512
         route = _kernels.TENSOR_CORES if not carry or d <= 64 else _kernels.CUDA_CORES
-        if forward and d <= 56:
+        if not carry and d <= 56:
             kd, route = (16 if d <= 16 else 32 if d <= 32 else 64), _kernels.NARROW
         assert _kernels.kernel_route(kernel, torch.bfloat16, d) == (kd, route), d
         assert _kernels.kernel_route(kernel, torch.float32, d) == (
@@ -106,16 +105,17 @@ def test_kernel_route_names_the_c_path_of_every_head_size(kernel):
 @pytest.mark.parametrize("kernel", list(_kernels.LAUNCHES))
 def test_host_pad_of_the_narrow_forward_follows_d_mod_8(kernel):
     """The head size a wrapper hands its kernel (``host_head_dim``): the bf16
-    forward below 64 copies nothing where D % 8 == 0 (TMA reads the true D)
-    and pads to the next multiple of 8 elsewhere, and ``kernel_route`` names
-    the narrow kernel at the smallest box width that holds the padded D;
-    57-63 pad to 64, the D = 64 kernel. The bf16 backward pair and carry,
+    forward and backward pair below 64 copy nothing where D % 8 == 0 (TMA
+    reads the true D) and pad to the next multiple of 8 elsewhere, and
+    ``kernel_route`` names the narrow kernel at the smallest box width that
+    holds the padded D; 57-63 pad to 64, the D = 64 kernels. The bf16 carry,
     and every f32 call, keep padding to the next instance."""
-    forward = kernel in ("flash_fwd", "flash_fwd_no_lse")
+    narrow = kernel in _kernels.NARROW_KERNELS
+    assert narrow == (kernel != "flash_carry")
     for d in range(1, 64):
-        want = 8 * ((d + 7) // 8) if forward else 64
+        want = 8 * ((d + 7) // 8) if narrow else 64
         assert _kernels.host_head_dim(kernel, torch.bfloat16, d) == want, d
-        assert (want == d) == (forward and d % 8 == 0), d
+        assert (want == d) == (narrow and d % 8 == 0), d
         route = ((min(w for w in (16, 32, 64) if w >= want), _kernels.NARROW) if want < 64
                  else (64, _kernels.TENSOR_CORES))
         assert _kernels.kernel_route(kernel, torch.bfloat16, d) == route, d
@@ -147,7 +147,7 @@ def test_library_path_follows_the_source(tmp_path, monkeypatch):
                                                       "flash_fwd_grouped_sm90.cu", "flash_fwd_narrow_sm90.cu",
                                                       "flash_bwd_sm90.cu",
                                                       "flash_bwd_wide_sm90.cu", "flash_bwd_grouped_sm90.cu",
-                                                      "flash_chunked.cu"]
+                                                      "flash_bwd_narrow_sm90.cu", "flash_chunked.cu"]
     assert [hdr.name for hdr in _kernels.HEADERS] == ["sm90_common.cuh"]
     assert all(src.is_file() for src in (*_kernels.SOURCES, *_kernels.HEADERS))
     for src in _kernels.SOURCES:  # the tensor-core sources, and only they, include the header
@@ -867,15 +867,91 @@ def test_narrow_forward_is_one_kernel_launch_on_card(cuda_device, with_lse):
     assert len(names) == 1 and "flash_fwd_narrow_sm90_kernel" in names[0], names
 
 
+# --- the bf16 backward pair below D = 64: the narrow tensor-core kernels ----------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1024, 1000, 129, 64, 1])
+@pytest.mark.parametrize("d", _NARROW_DIMS)
+def test_narrow_backward_matches_plain_version_on_card(cuda_device, d, s, causal):
+    """Rows 3-4 below D = 64 ([3, S, 3, D] bf16; S 64 and 1 are one tile, S
+    129 and 1000 end in a partial one): the narrow kernels at D % 8 == 0 (20
+    padded to 24; 63 to 64, the D = 64 kernels), dq, dk and dv within the
+    split bar (1e-6 + 1 bf16 ulp + 2^-15 of their weighted mass,
+    plain_flash_grad_mass), one launch each."""
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert _kernels.kernel_route(name, torch.bfloat16, d)[1] == (
+            _kernels.NARROW if d <= 56 else _kernels.TENSOR_CORES)
+    q, k, v, g = _qkv(220 + d + s, (3, s, 3, d), torch.bfloat16, cuda_device)
+    _check_backward(q, k, v, g, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(200, 1000), (1000, 200), (64, 129)])
+@pytest.mark.parametrize("d", [16, 32, 48])
+def test_narrow_backward_with_other_key_length_on_card(cuda_device, d, sq, sk, causal):
+    """Rows 3-4 on the narrow kernels with other query and key lengths (the
+    causal mask compares positions from 0 on both sides, as the plain
+    version's does: at Sq 200 under 1000 keys the key tiles past the last
+    query see no q tile and return zeros), held to the split bar."""
+    q, _, _, g = _qkv(230 + d + sq, (5, sq, 2, d), torch.bfloat16, cuda_device)
+    _, k, v, _ = _qkv(231 + d + sk, (5, sk, 2, d), torch.bfloat16, cuda_device)
+    _check_backward(q, k, v, g, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 16, 32, 48])
+def test_narrow_backward_refuses_misaligned_inputs_on_card(cuda_device, d):
+    """The narrow pair loads by TMA at the true D: a q, k, v or dO that is
+    not 16-byte aligned is refused before anything launches; the aligned
+    copies pass."""
+    q, k, v, g = _qkv(4, (1, 64, 2, d), torch.bfloat16, cuda_device)
+    out, lse = _kernels.flash_fwd(q, k, v, True, True)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    _kernels.reset_launches()
+    for args in ((_misaligned(q), k, v, g), (q, _misaligned(k), v, g), (q, k, _misaligned(v), g),
+                 (q, k, v, _misaligned(g))):
+        with pytest.raises(ValueError, match="aligned"):
+            _kernels.flash_bwd_dq(*args, lse, delta, True)
+        with pytest.raises(ValueError, match="aligned"):
+            _kernels.flash_bwd_dkv(*args, lse, delta, True)
+    assert not any(_kernels.LAUNCHES.values())
+    _check_backward(q, k, v, g, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv"])
+def test_narrow_backward_is_one_kernel_launch_on_card(cuda_device, kernel):
+    """At D = 32 ([8, 1024, 16, 32], the narrow LM's shape) a dq call and a
+    dk/dv call are one CUDA kernel each on the card, the narrow kernel: no
+    pad or slice copies."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, g = _qkv(5, (8, 1024, 16, 32), torch.bfloat16, cuda_device)
+    out, lse = _kernels.flash_fwd(q, k, v, True, True)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    call = getattr(_kernels, kernel)
+    call(q, k, v, g, lse, delta, True)  # builds and loads the library outside the window
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call(q, k, v, g, lse, delta, True)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and f"{kernel}_narrow_sm90_kernel" in names[0], names
+
+
 # --- head sizes 16, 32, 48, 128, 160, 256, 384 and 512 -----------------------------
 # f32 runs instances of the CUDA-core kernels at 16, 32, 128, 256 and 512 (48
-# is zero-padded to 64, 160 to 256, 384 to 512); bf16 runs the forward at
-# 16, 32 and 48 on the narrow tensor-core kernel at the true D, zero-pads q,
-# k, v, dO (and the carry's acc) to 64 for the other tensor-core kernels, runs
-# the wide tensor-core forward and backward pair and the CUDA-core carry at
-# 128 and 256 (160 padded to 256), and at 512 (384 padded to it) the grouped
-# tensor-core forward and backward pair and the CUDA-core carry, slicing the
-# outputs back. All are held to the D = 64 bars above.
+# is zero-padded to 64, 160 to 256, 384 to 512); bf16 runs the forward and
+# backward pair at 16, 32 and 48 on the narrow tensor-core kernels at the
+# true D, zero-pads the carry's q, k, v and acc to 64 for its tensor-core
+# kernel, runs the wide tensor-core forward and backward pair and the
+# CUDA-core carry at 128 and 256 (160 padded to 256), and at 512 (384 padded
+# to it) the grouped tensor-core forward and backward pair and the CUDA-core
+# carry, slicing the outputs back. All are held to the D = 64 bars above.
 
 
 @pytest.mark.cuda
