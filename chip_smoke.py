@@ -10,11 +10,10 @@ Phases, each on its own printed lines:
    registers and spills of each kernel; the tensor-core forward and
    backward pair (D = 64, the wide ones at D = 128 and 256, the grouped
    ones at every D above 256, the narrow forward's six instances and the
-   narrow backward pair's six below 64) and the carry kernels must not
-   spill, the
-   only bf16 instances of the CUDA-core kernels are the carry's at D = 128,
-   256 and 512, and every chunked kernel (rows 1-5 above D = 512 in f32,
-   row 5 in bf16) is built). The count of ``HGMMA`` (wgmma) instructions in
+   narrow backward pair's six below 64) and the two tensor-core carry
+   kernels (D 64; the grouped one above 64) must not spill, no CUDA-core
+   kernel has a bf16 instance, and every chunked kernel (rows 1-5 above
+   D = 512, f32 only) is built). The count of ``HGMMA`` (wgmma) instructions in
    each tensor-core kernel from ``cuobjdump -sass`` (each must have some)
    runs last, after phase 23: on the card, torch.profiler sessions run in
    this process after that count recorded none of the library's kernels
@@ -112,8 +111,9 @@ Phases, each on its own printed lines:
    carry padded to the 64 tensor-core kernel, f32 to the 64 instance) and
    128 ([8, 1024, 4,
    128]: the bf16 forward and backward pair on the wide tensor-core kernels,
-   the bf16 carry and every f32 row on the CUDA-core <bf16 / f32, 128>
-   instances), held to the bars of phases 2 and 5 and timed beside aten;
+   the bf16 carry on the grouped tensor-core carry, every f32 row on the
+   CUDA-core <f32, 128> instances), held to the bars of phases 2 and 5 and
+   timed beside aten;
    phase 6 also runs the LM and the ring at width 384 over 8 heads and at 4
    heads (D = 48 / 128).
 11. learner: ``TorchLearner`` fits one node of phase 3's LM (64 sequences,
@@ -146,23 +146,24 @@ Phases, each on its own printed lines:
 
 16. d256: rows 1-5 at head size 256 ([8, 1024, 2, 256], the eval forward
    at [16, 1024, 2, 256], one ring chunk [2, 1024, 2, 256]; the bf16 forward
-   and backward pair on the wide tensor-core kernels, the rest on the
-   CUDA-core <bf16, 256> and <f32, 256> instances, 32-row tiles), held to
-   the bars of phases 2 and 5 and timed beside aten; then d512: rows 1-5 the
-   same way at head size 512 ([8, 1024, 1, 512], eval [16, 1024, 1, 512],
-   ring chunk [2, 1024, 1, 512]; the bf16 forward and backward pair on the
-   grouped tensor-core kernels, the rest on the CUDA-core <bf16 / f32, 512>
-   instances, 16-row tiles; aten's flash attention stops at 256, so the
-   library times there are its memory-efficient attention's); then d1024:
-   rows 1-5 at [8, 1024, 1, 1024] (eval [16, ...], ring chunk [2, 1024, 1,
-   1024]) and at D 600 (zero-padded to 640) at [1, 1024, 1, 600], the bf16
-   forward and backward pair on the grouped kernels and the rest (f32 too)
-   on the chunked kernels, held to the same bars and timed beside whatever
-   fused library call takes the shape, its backend recorded ("none" where
-   none does). Then the LM and the ring
-   at width 512 over 2 heads and over 1 head (D = 256 / 512), and at width
-   1024 over 1 head (D = 1024) cut to one layer, as in phase 6, exact launch
-   counts; each LM after a warm-up round.
+   and backward pair on the wide tensor-core kernels, the bf16 carry on the
+   grouped tensor-core carry, f32 on the CUDA-core <f32, 256> instances),
+   held to the bars of phases 2 and 5 and timed beside aten; then d512: rows
+   1-5 the same way at head size 512 ([8, 1024, 1, 512], eval [16, 1024, 1,
+   512], ring chunk [2, 1024, 1, 512]; the bf16 rows on the grouped
+   tensor-core kernels, f32 on the CUDA-core <f32, 512> instances; aten's
+   flash attention stops at 256, so the library times there are its
+   memory-efficient attention's); then d1024: rows 1-5 at [8, 1024, 1, 1024]
+   (eval [16, ...], ring chunk [2, 1024, 1, 1024]) and at D 600 (zero-padded
+   to 640) at [1, 1024, 1, 600], the bf16 rows on the grouped kernels and
+   f32 on the chunked kernels, held to the same bars and timed beside
+   whatever fused library call takes the shape, its backend recorded
+   ("none" where none does); in a process of its own, one bf16 carry call at
+   [2, 1024, 1, 512] must be one CUDA kernel, the grouped carry. Then the LM
+   and the ring at width 512 over 2 heads and over 1 head (D = 256 / 512),
+   and at width 1024 over 1 head (D = 1024) cut to one layer, as in phase
+   6, exact launch counts; each LM after a warm-up round, the ring's s/step
+   (host clock) after a warm-up step.
 17. cnn: ``cnn_model`` in phase 7's round (its data, committee 4, batch 64)
    for 10 rounds after a warm-up round: loss falling, final accuracy > 0.5;
    then held on the card against the CPU as phase 7 holds the MLP.
@@ -255,31 +256,32 @@ RING_KERNEL_ROWS = {  # name -> (replaced TPU kernel body, launches per train st
 # D; the bf16 carry zero-pads to the 64 instance of its tensor-core kernel;
 # f32 has its own instances.
 NARROW_HEAD_DIMS = (32, 16)
-SOURCE_F32 = "p2pfl_tpu_torch/csrc/flash_attn.cu"  # the CUDA-core kernels: f32 and bf16's carry above 64
+SOURCE_F32 = "p2pfl_tpu_torch/csrc/flash_attn.cu"  # the CUDA-core kernels: f32
 SOURCE_FWD_WIDE = "p2pfl_tpu_torch/csrc/flash_fwd_wide_sm90.cu"  # the bf16 forward at D = 128 and 256
 SOURCE_FWD_GROUPED = "p2pfl_tpu_torch/csrc/flash_fwd_grouped_sm90.cu"  # the bf16 forward above D = 256
 SOURCE_FWD_NARROW = "p2pfl_tpu_torch/csrc/flash_fwd_narrow_sm90.cu"  # the bf16 forward below D = 64
 SOURCE_BWD_NARROW = "p2pfl_tpu_torch/csrc/flash_bwd_narrow_sm90.cu"  # the bf16 backward pair below D = 64
 SOURCE_BWD_WIDE = "p2pfl_tpu_torch/csrc/flash_bwd_wide_sm90.cu"  # the bf16 backward pair at D = 128 and 256
 SOURCE_BWD_GROUPED = "p2pfl_tpu_torch/csrc/flash_bwd_grouped_sm90.cu"  # the bf16 backward pair above D = 256
-SOURCE_CHUNKED = "p2pfl_tpu_torch/csrc/flash_chunked.cu"  # above D = 512: f32, and bf16's carry
+SOURCE_CHUNKED = "p2pfl_tpu_torch/csrc/flash_chunked.cu"  # above D = 512: f32
+SOURCE_CARRY_GROUPED = "p2pfl_tpu_torch/csrc/flash_carry_grouped_sm90.cu"  # the bf16 carry above D = 64
 # Head sizes up to 128 (the repair of ROADMAP queue C item 1): 48 at the LM's
 # width over 8 heads (width 384; the bf16 forward and backward pair on the
 # narrow kernels, the bf16 carry padded to the 64 tensor-core kernel, f32 to
-# the 64 instance) and 128 at width 512 over 4 heads (the CUDA-core
-# <f32, 128> and <bf16, 128> instances). Head size -> heads.
+# the 64 instance) and 128 at width 512 over 4 heads (bf16 on the wide
+# kernels and the grouped carry, f32 on the CUDA-core <f32, 128> instances).
+# Head size -> heads.
 C1_HEAD_DIMS = {48: 8, 128: 4}
 # Head size 256: the LM's width over 2 heads (the bf16 forward and backward
-# pair on the wide tensor-core kernels; the rest on the CUDA-core <f32 / bf16,
-# 256> instances, 32-row tiles). Head size 512, the largest compiled
-# instance: the width over 1 head (the bf16 forward and backward pair on the
-# grouped tensor-core kernels, the rest on the CUDA-core <f32 / bf16, 512>
-# instances, 16-row tiles).
+# pair on the wide tensor-core kernels, the bf16 carry on the grouped one;
+# f32 on the CUDA-core <f32, 256> instances, 32-row tiles). Head size 512,
+# the largest compiled f32 instance: the width over 1 head (bf16 on the
+# grouped tensor-core kernels, f32 on the CUDA-core <f32, 512> instances,
+# 16-row tiles).
 D256_HEAD_DIMS = {256: 2}
 D512_HEAD_DIMS = {512: 1}
-# Head sizes above 512 (the head size a run-time argument: the bf16 forward
-# and backward pair on the grouped tensor-core kernels, the rest on the
-# chunked kernels): rows 1-5 at [8, 1024, 1, 1024] and at 600 (zero-padded
+# Head sizes above 512 (the head size a run-time argument: bf16 on the
+# grouped tensor-core kernels, f32 on the chunked kernels): rows 1-5 at [8, 1024, 1, 1024] and at 600 (zero-padded
 # to 640) at B 1, and the LM and the ring at width 1024 over 1 head, cut to
 # one layer.
 D1024_HEAD_DIMS = {1024: 1}
@@ -450,15 +452,9 @@ def phase_sdpa_kernels(rows: dict) -> None:
     process of its own at the row's shape and backend. In this process's
     own later profiler sessions the card's kernels were seen to go
     unrecorded; why is not known."""
-    import os
-
     keys = [key for key, r in rows.items() if "library_shape" in r]
     calls = [(rows[key]["library_backend"], rows[key]["library_shape"]) for key in keys]
-    code = f"import json, chip_smoke; print(json.dumps(chip_smoke.sdpa_kernels({calls!r})))"
-    out = subprocess.run([sys.executable, "-c", code], cwd=os.path.dirname(os.path.abspath(__file__)),
-                         capture_output=True, text=True, timeout=300)
-    check(out.returncode == 0, f"profiling SDPA failed: {out.stderr.strip()[-500:]}")
-    for key, (backend, shape), name in zip(keys, calls, json.loads(out.stdout.strip().splitlines()[-1])):
+    for key, (backend, shape), name in zip(keys, calls, in_fresh_process(f"sdpa_kernels({calls!r})")):
         rows[key]["library_kernel"] = name
         print(f"[sdpa] {key}: {backend} at {shape}: {name}")
 
@@ -485,6 +481,38 @@ def narrow_call_kernels(shape: list) -> list:
             call()
         torch.cuda.synchronize()
     return [name for _, name in cuda_kernels(prof)]
+
+
+def carry_call_kernels(shape: list) -> list:
+    """The names of the CUDA kernels that one bf16 causal carry fold (a past
+    chunk into a fresh carry) at ``shape`` runs under torch.profiler (after
+    a warm-up call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.ops import attention as att
+
+    q, k, v = (torch.randn(shape).to("cuda", torch.bfloat16) for _ in range(3))
+    carry = att.init_carry(q.shape, q.device)
+    _kernels.flash_carry(carry, q, k, v, shape[1], 0, True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _kernels.flash_carry(carry, q, k, v, shape[1], 0, True)
+        torch.cuda.synchronize()
+    return [name for _, name in cuda_kernels(prof)]
+
+
+def in_fresh_process(call: str) -> list:
+    """The JSON value that ``chip_smoke.<call>`` prints in a fresh Python
+    process (a profiler check: on the card, the later profiler sessions of a
+    process that had run many were seen to record no kernel)."""
+    import os
+
+    code = f"import json, chip_smoke; print(json.dumps(chip_smoke.{call}))"
+    out = subprocess.run([sys.executable, "-c", code], cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"{call} failed: {out.stderr.strip()[-500:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
 def bound(name: str, b: int, s: int, h: int, d: int, causal: bool, esize: int) -> tuple:
@@ -530,7 +558,8 @@ def phase_env() -> str:
         mnb = re.search(r"(flash_bwd_dq_narrow_sm90_kernel|flash_bwd_dkv_narrow_sm90_kernel)ILi(\d+)E", line)
         mb90 = re.search(r"(flash_bwd_dq_sm90_kernel|flash_bwd_dkv_sm90_kernel|flash_carry_sm90_kernel)", line)
         mwb = re.search(r"(flash_bwd_dq_wide_sm90_kernel|flash_bwd_dkv_wide_sm90_kernel)ILi(\d+)E", line)
-        mgb = re.search(r"(flash_bwd_dq_grouped_sm90_kernel|flash_bwd_dkv_grouped_sm90_kernel)", line)
+        mgb = re.search(r"(flash_bwd_dq_grouped_sm90_kernel|flash_bwd_dkv_grouped_sm90_kernel|"
+                        r"flash_carry_grouped_sm90_kernel)", line)
         mch = re.search(r"(flash_fwd_chunked_kernel|flash_bwd_dq_chunked_kernel|flash_bwd_dkv_chunked_kernel|"
                         r"flash_carry_chunked_kernel)I(13__nv_bfloat16|f)(?:Lb(\d)E)?", line)
         if m:
@@ -586,18 +615,16 @@ def phase_env() -> str:
           "the build log lacks a grouped tensor-core backward kernel (dq, dk/dv above D = 256)")
     check(sorted(e for e in seen if "_chunked_kernel" in e) ==
           sorted([f"flash_fwd_chunked_kernel<f32, lse={w}>" for w in (0, 1)] +
-                 [f"flash_{k}_chunked_kernel<f32>" for k in ("bwd_dq", "bwd_dkv", "carry")] +
-                 ["flash_carry_chunked_kernel<bf16>"]),
-          "the chunked kernels are not rows 1-5 above D = 512 in f32 and row 5 in bf16")
+                 [f"flash_{k}_chunked_kernel<f32>" for k in ("bwd_dq", "bwd_dkv", "carry")]),
+          "the chunked kernels are not rows 1-5 above D = 512 in f32 alone")
     check(any(e.startswith("flash_carry_sm90_kernel") for e in seen),
-          "the build log lacks the tensor-core carry kernel")
+          "the build log lacks the tensor-core carry kernel (D 64)")
+    check(seen.count("flash_carry_grouped_sm90_kernel<bf16>") == 1,
+          "the build log lacks the grouped tensor-core carry kernel (above D 64)")
     for simt in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_carry_kernel"):
-        # bf16 at D <= 64, and its forward and backward pair at every D, run
-        # the tensor-core kernels only: the bf16 CUDA-core instances are the
-        # carry's at D = 128, 256 and 512.
-        bf16_dims = (128, 256, 512) if simt == "flash_carry_kernel" else ()
-        check(sorted({int(re.search(r"D=(\d+)", e)[1]) for e in seen if e.startswith(f"{simt}<bf16")})
-              == list(bf16_dims), f"the bf16 CUDA-core instances of {simt} are not those at D = {bf16_dims}")
+        # bf16 runs the tensor-core kernels only: no CUDA-core kernel has a
+        # bf16 instance.
+        check(not any(e.startswith(f"{simt}<bf16") for e in seen), f"{simt} has a bf16 CUDA-core instance")
         for d in (128, 256, 512):
             check(any(e.startswith(f"{simt}<f32, D={d}") for e in seen),
                   f"the build log lacks the f32 D = {d} instance of {simt}")
@@ -651,7 +678,10 @@ def phase_sass(lib, nvcc: str) -> None:
     check(len(grouped_bwd90) == 2 and all(n > 0 for n in grouped_bwd90),
           "a grouped bf16 backward kernel (above D = 256) holds no HGMMA instruction")
     carry90 = [n for name, n in shown.items() if "flash_carry_sm90" in name]
-    check(len(carry90) == 1 and carry90[0] > 0, "the bf16 carry kernel holds no HGMMA instruction")
+    check(len(carry90) == 1 and carry90[0] > 0, "the bf16 carry kernel (D 64) holds no HGMMA instruction")
+    carry_grouped90 = [n for name, n in shown.items() if "flash_carry_grouped_sm90" in name]
+    check(len(carry_grouped90) == 1 and carry_grouped90[0] > 0,
+          "the grouped bf16 carry kernel (above D 64) holds no HGMMA instruction")
 
 
 def phase_kernels() -> dict:
@@ -1114,7 +1144,6 @@ def phase_kernels_narrow() -> dict:
     (``narrow_call_kernels``): on the card, the later profiler sessions of a
     process that had run many were seen to record no kernel (why is not
     known). Returns {"<name>_d<D>": row}."""
-    import os
     import torch
 
     gen = torch.Generator().manual_seed(4)
@@ -1123,11 +1152,7 @@ def phase_kernels_narrow() -> dict:
         rows.update(narrow_rows("narrow", narrow_suffix(d), d, EMBED // d, BATCH, EVAL_SEQS, SEQ_LEN,
                                 (torch.bfloat16, torch.float32), True, gen))
     shape = [BATCH, SEQ_LEN, EMBED // 32, 32]
-    code = f"import json, chip_smoke; print(json.dumps(chip_smoke.narrow_call_kernels({shape})))"
-    out = subprocess.run([sys.executable, "-c", code], cwd=os.path.dirname(os.path.abspath(__file__)),
-                         capture_output=True, text=True, timeout=300)
-    check(out.returncode == 0, f"the one-launch check failed: {out.stderr.strip()[-500:]}")
-    names = json.loads(out.stdout.strip().splitlines()[-1])
+    names = in_fresh_process(f"narrow_call_kernels({shape})")
     print(f"[narrow] one call each of flash_fwd (lse, no lse), flash_bwd_dq and flash_bwd_dkv at {shape}: "
           f"CUDA kernels {names}")
     # Four calls, four kernels, each call's own: so each call is one kernel.
@@ -1348,10 +1373,12 @@ def head_size_paths(label: str, shapes: list, layers: int = LAYERS, warm: tuple 
     layers) one round, after a warm-up round where the head size is in
     ``warm`` (its s/round is then a warm round's; elsewhere the kernels are
     built and checked before these paths run and the round is timed cold),
-    and the ring trainer one step after a warm-up step, with every count set
-    to 0 before and read after each run; returns the launches under the
-    rows' names (``<name>_d<D>``)."""
+    and the ring trainer one step after a warm-up step (that step's s/step
+    on the host clock, ending in ``torch.cuda.synchronize()``), with every
+    count set to 0 before and read after each run; returns the launches
+    under the rows' names (``<name>_d<D>``)."""
     import numpy as np
+    import torch
     from p2pfl_tpu_torch.models.transformer import transformer_lm_model
     from p2pfl_tpu_torch.ops import _kernels
     from p2pfl_tpu_torch.optim import adam
@@ -1393,12 +1420,16 @@ def head_size_paths(label: str, shapes: list, layers: int = LAYERS, warm: tuple 
         params, state = model.params, opt.init(model.params)
         _kernels.reset_launches()
         losses = []
-        for _ in range(2):  # a warm-up step and one more
+        for _ in range(2):  # a warm-up step and one more, timed
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
             params, state, loss = step(params, state, tokens)
             losses.append(float(loss))
+            torch.cuda.synchronize()
+            seconds = time.monotonic() - t0
         n = _kernels.LAUNCHES["flash_carry"]
-        print(f"[{label}] ring at width {width} over {heads} heads (D={d}): losses {losses}, "
-              f"flash_carry launches {n}")
+        print(f"[{label}] ring at width {width} over {heads} heads (D={d}, {layers} layers): losses {losses}, "
+              f"{seconds:.4f} s/step (host clock, the step after a warm-up step), flash_carry launches {n}")
         check(all(np.isfinite(losses)), f"D={d} ring: non-finite loss")
         folds = RING_FOLDS * layers // LAYERS
         check(n == folds * 2, f"D={d} ring: {n} carry launches, expected {folds} x 2")
@@ -1882,6 +1913,16 @@ def phase_kernels_chunked() -> dict:
     return rows
 
 
+def phase_carry_one_launch() -> None:
+    """In a process of its own (``carry_call_kernels``), one bf16 carry call
+    at [2, 1024, 1, 512] must be one CUDA kernel, the grouped carry."""
+    shape = [RING_BATCH, RING_SHARD, 1, 512]
+    names = in_fresh_process(f"carry_call_kernels({shape})")
+    print(f"[carry-grouped] one call of flash_carry at {shape} bf16: CUDA kernels {names}")
+    check(len(names) == 1 and "flash_carry_grouped_sm90_kernel" in names[0],
+          f"the carry call at {shape} is not the grouped carry kernel alone: {names}")
+
+
 def phase_chunked_paths() -> dict:
     """The slice's LM (after a warm-up round) and the ring trainer at width
     1024 over 1 head (D 1024: the bf16 forward and backward pair on the
@@ -2294,10 +2335,9 @@ def row_source(name: str, d: int, sm90_source: str) -> str:
     ``d``: the narrow forward's or backward pair's where ``kernel_route``
     names them (rows 1-4 wherever the wrapper hands the kernel a head size
     below 64), else
-    ``sm90_source`` (the D = 64 tensor-core kernel's) at D <= 64, the wide
-    forward's or backward pair's at 128 and 256, the grouped forward's or
-    backward pair's above 256, the CUDA-core kernels' elsewhere (the carry;
-    above 512 the chunked one)."""
+    ``sm90_source`` (the D = 64 tensor-core kernel's) at D <= 64, the
+    grouped carry's above 64, the wide forward's or backward pair's at 128
+    and 256, the grouped forward's or backward pair's above 256."""
     import torch
     from p2pfl_tpu_torch.ops import _kernels
 
@@ -2305,12 +2345,10 @@ def row_source(name: str, d: int, sm90_source: str) -> str:
     forward = name in _kernels.FORWARDS
     if route == _kernels.NARROW:
         return SOURCE_FWD_NARROW if forward else SOURCE_BWD_NARROW
-    if route == _kernels.CHUNKED:
-        return SOURCE_CHUNKED
-    if route == _kernels.CUDA_CORES:
-        return SOURCE_F32
     if kd == _kernels.SM90_HEAD_DIM:
         return sm90_source
+    if name == "flash_carry":
+        return SOURCE_CARRY_GROUPED
     if kd > _kernels.SM90_GROUPED_ABOVE:
         return SOURCE_FWD_GROUPED if forward else SOURCE_BWD_GROUPED
     return SOURCE_FWD_WIDE if forward else SOURCE_BWD_WIDE
@@ -2357,6 +2395,7 @@ def main() -> int:
         rows.update(phase_kernels_wide("d256", D256_HEAD_DIMS, 16))
         rows.update(phase_kernels_wide("d512", D512_HEAD_DIMS, 18))
         rows.update(phase_kernels_chunked())
+        phase_carry_one_launch()
         launches.update(phase_narrow_paths())
         launches.update(phase_wide_paths())
         launches.update(phase_chunked_paths())
@@ -2412,9 +2451,8 @@ def main() -> int:
     # on the padded D 64 tensor-core kernel, the forward at 128 and 256 on
     # SOURCE_FWD_WIDE's and the backward pair on SOURCE_BWD_WIDE's, the
     # forward at 512 and 1024 on SOURCE_FWD_GROUPED's and the backward pair on
-    # SOURCE_BWD_GROUPED's, the carry at 128, 256 and 512 on the CUDA-core
-    # instances of SOURCE_F32, and the carry at 1024 (f32: every row) on
-    # SOURCE_CHUNKED's.
+    # SOURCE_BWD_GROUPED's, the carry from 128 on SOURCE_CARRY_GROUPED's; f32
+    # on SOURCE_F32's instances, at 1024 on SOURCE_CHUNKED's.
     table += [
         {"name": name + narrow_suffix(d), "route": "cuda", "source": row_source(name, d, source),
          "replaces": replaces, "launches": launches[name + narrow_suffix(d)], **rows[name + narrow_suffix(d)],

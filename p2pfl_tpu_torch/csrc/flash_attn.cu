@@ -9,21 +9,19 @@
 //   flash_bwd_dq               <- _flash_bwd_dq_kernel   (pallas_call at :446)
 //   flash_bwd_dkv              <- _flash_bwd_dkv_kernel  (pallas_call at :463)
 //   flash_carry                <- _flash_carry_kernel    (pallas_call at :590)
-// bf16 at head size 64 runs the tensor-core kernels: the forward and the
-// carry fold in flash_fwd_sm90.cu, the backward pair in flash_bwd_sm90.cu,
-// launched from p2pfl_flash_fwd / p2pfl_flash_carry / p2pfl_flash_bwd_dq /
-// p2pfl_flash_bwd_dkv below. Below 64 the bf16 forward and backward pair run
-// the tensor-core kernels of flash_fwd_narrow_sm90.cu and
-// flash_bwd_narrow_sm90.cu, which read a head size that is a multiple of 8 at
-// its true size (ops/_kernels.py zero-pads other narrow bf16 heads to the next
-// multiple of 8, and the carry's to 64). At head sizes 128 and 256 the bf16
-// forward runs the tensor-core kernel of flash_fwd_wide_sm90.cu and the bf16
-// backward pair that of flash_bwd_wide_sm90.cu; above 256 the bf16 forward runs that of
-// flash_fwd_grouped_sm90.cu and the bf16 backward pair that of
-// flash_bwd_grouped_sm90.cu. The bf16 carry fold at 128, 256 and 512 runs
-// the kernel here as <__nv_bfloat16, 128 / 256 / 512> (bf16 loads, f32
-// arithmetic, bf16 stores); no other bf16 instance of a kernel here is
-// compiled. Above 512, f32 (and the bf16 carry) run the kernels of
+// bf16 runs the tensor-core kernels at every head size, launched from
+// p2pfl_flash_fwd / p2pfl_flash_carry / p2pfl_flash_bwd_dq /
+// p2pfl_flash_bwd_dkv below: at 64 the forward and the carry fold in
+// flash_fwd_sm90.cu and the backward pair in flash_bwd_sm90.cu. Below 64 the
+// forward and backward pair run the kernels of flash_fwd_narrow_sm90.cu and
+// flash_bwd_narrow_sm90.cu, which read a head size that is a multiple of 8
+// at its true size (ops/_kernels.py zero-pads other narrow bf16 heads to the
+// next multiple of 8, and the carry's to 64). At head sizes 128 and 256 the
+// forward runs flash_fwd_wide_sm90.cu and the backward pair
+// flash_bwd_wide_sm90.cu; above 256 the forward runs
+// flash_fwd_grouped_sm90.cu and the backward pair flash_bwd_grouped_sm90.cu.
+// Above 64 the carry fold runs flash_carry_grouped_sm90.cu. No bf16 instance
+// of a kernel here is compiled. Above 512, f32 runs the kernels of
 // flash_chunked.cu, whose head size is a run-time argument (ops/_kernels.py
 // zero-pads it to a multiple of 64).
 //
@@ -61,7 +59,6 @@
 // Interface: plain C functions, loaded with ctypes. Each launches on the
 // stream it is given, allocates nothing and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
@@ -88,12 +85,10 @@ template <int D>
 __host__ __device__ constexpr int tile_rows() { return D > 256 ? 16 : D > 128 ? 32 : 64; }
 constexpr float MASK_VALUE = -0.7f * FLT_MAX;  // ops/attention.py DEFAULT_MASK_VALUE
 
-// The kernels keep their element type T as a parameter: float at every head
-// size, __nv_bfloat16 in the carry fold at 128, 256 and 512, which reads bf16
-// q, k and v and writes its carry in f32 (the rest of bf16 runs the
-// tensor-core kernels). Either way every product and sum is f32.
+// The kernels keep their element type T as a parameter, so that their
+// instances keep their names; it is float in every instance compiled (bf16
+// runs the tensor-core kernels). Every product and sum is f32.
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
@@ -484,7 +479,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 // at kv_offset + [0, Sk), and both the causal mask and the future-tile skip
 // compare those global positions. The f32 CUDA-core products hold it far
 // above its bound, as they do the forward (the bf16 fold is the tensor-core
-// kernel of flash_fwd_sm90.cu). The carry is read once and written once per
+// kernel of flash_fwd_sm90.cu at 64 and of flash_carry_grouped_sm90.cu
+// above). The carry is read once and written once per
 // q row, through registers: in and out are separate buffers.
 //
 // No row can produce -inf - -inf: every processed k tile holds column k0 < Sk
@@ -704,29 +700,14 @@ cudaError_t launch_carry(const void* q, const void* k, const void* v, const floa
 // dkv_smem<128>() = 165,888 bytes of shared memory (the forward and carry
 // 115,712), one block per SM; at D = 256 the 32-row tiles take 102,912
 // (forward, carry), 136,064 (dq) and 140,288 (dk/dv), at D = 512 the 16-row
-// ones 99,584, 132,544 and 133,632. ops/_kernels.py zero-pads any other head
-// size up to 512 to the next instance; bf16 exists at 64 (the tensor-core
-// kernels, narrower heads padded to it but for the forward and backward
-// pair, which read multiples of 8 at their true size), 128 and 256 (the
-// tensor-core forward and backward pair; the carry here) and 512 (the
-// tensor-core forward and backward pair; the carry here).
+// ones 99,584, 132,544 and 133,632. ops/_kernels.py zero-pads any other f32
+// head size up to 512 to the next instance.
 template <typename F>
 cudaError_t with_head_dim(int head_dim, F&& launch) {
   switch (head_dim) {
     case 16: return launch(std::integral_constant<int, 16>{});
     case 32: return launch(std::integral_constant<int, 32>{});
     case 64: return launch(std::integral_constant<int, 64>{});
-    case 128: return launch(std::integral_constant<int, 128>{});
-    case 256: return launch(std::integral_constant<int, 256>{});
-    case 512: return launch(std::integral_constant<int, 512>{});
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// The bf16 head sizes that run the CUDA-core carry here: 128, 256 and 512.
-template <typename F>
-cudaError_t with_bf16_head_dim(int head_dim, F&& launch) {
-  switch (head_dim) {
     case 128: return launch(std::integral_constant<int, 128>{});
     case 256: return launch(std::integral_constant<int, 256>{});
     case 512: return launch(std::integral_constant<int, 512>{});
@@ -752,6 +733,10 @@ cudaError_t launch_flash_carry_sm90(const void* q, const void* k, const void* v,
                                     const float* l_in, const float* acc_in, float* m_out, float* l_out,
                                     float* acc_out, int B, int Sq, int Sk, int H, float scale, bool causal,
                                     int q_offset, int kv_offset, cudaStream_t stream);
+cudaError_t launch_flash_carry_grouped_sm90(const void* q, const void* k, const void* v, const float* m_in,
+                                            const float* l_in, const float* acc_in, float* m_out, float* l_out,
+                                            float* acc_out, int B, int Sq, int Sk, int H, int head_dim, float scale,
+                                            bool causal, int q_offset, int kv_offset, cudaStream_t stream);
 cudaError_t launch_flash_bwd_dq_wide_sm90(const void* q, const void* k, const void* v, const void* dout,
                                           const float* lse, const float* delta, void* dq, int B, int Sq, int Sk,
                                           int H, int head_dim, float scale, bool causal, cudaStream_t stream);
@@ -798,14 +783,12 @@ cudaError_t launch_flash_carry_chunked(const void* q, const void* k, const void*
 extern "C" {
 
 // Every entry point returns cudaErrorInvalidValue for a head size without an
-// instance: up to 512, f32 has 16, 32, 64, 128, 256 and 512, bf16 has the
-// forward and backward pair at every multiple of 8 below 64 (tensor cores), 64
-// (tensor cores), 128 and 256 (the tensor-core forward and backward pair,
-// the CUDA-core carry) and 512 (the tensor-core forward and backward pair,
-// the CUDA-core carry); above 512 both take every multiple of 64 (the bf16
-// forward flash_fwd_grouped_sm90.cu, the bf16 backward pair
-// flash_bwd_grouped_sm90.cu, the rest flash_chunked.cu).
-// ops/_kernels.py kernel_route names the kernel each call takes.
+// instance: up to 512, f32 has 16, 32, 64, 128, 256 and 512; bf16 has the
+// forward and backward pair at every multiple of 8 below 64, at 64, 128 and
+// 256 and at every multiple of 64 above 256, and the carry at 64 and every
+// multiple of 64 from 128 up (all on the tensor cores); above 512 f32 takes
+// every multiple of 64 (flash_chunked.cu). ops/_kernels.py kernel_route
+// names the kernel each call takes.
 //
 // lse == NULL selects the forward that writes no logsumexp. bf16 below 64
 // (a multiple of 8, read at its true size) runs the tensor-core kernel of
@@ -894,13 +877,20 @@ int p2pfl_flash_bwd_dkv(const void* q, const void* k, const void* v, const void*
 }
 
 // m / l: [B, H, Sq] f32; acc: [B, Sq, H, D] f32; *_in and *_out must not
-// overlap. bf16 at 64 runs the tensor-core kernel of flash_fwd_sm90.cu; f32,
-// and bf16 at 128, 256 and 512, the CUDA-core kernel above.
+// overlap. bf16 at 64 runs the tensor-core kernel of flash_fwd_sm90.cu, above
+// 64 that of flash_carry_grouped_sm90.cu; f32 the CUDA-core kernel above
+// (above 512 the chunked one).
 int p2pfl_flash_carry(const void* q, const void* k, const void* v, const float* m_in,
                       const float* l_in, const float* acc_in, float* m_out, float* l_out,
                       float* acc_out, int B, int Sq, int Sk, int H, int head_dim, int dtype,
                       float scale, int causal, int q_offset, int kv_offset, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && head_dim == 64)
+    return int(p2pfl::launch_flash_carry_sm90(q, k, v, m_in, l_in, acc_in, m_out, l_out, acc_out, B, Sq, Sk, H,
+                                              scale, causal != 0, q_offset, kv_offset, s));
+  if (dtype == 1 && head_dim > 64)
+    return int(p2pfl::launch_flash_carry_grouped_sm90(q, k, v, m_in, l_in, acc_in, m_out, l_out, acc_out, B, Sq, Sk,
+                                                      H, head_dim, scale, causal != 0, q_offset, kv_offset, s));
   if (head_dim > 512)
     return int(p2pfl::launch_flash_carry_chunked(q, k, v, m_in, l_in, acc_in, m_out, l_out, acc_out, B, Sq, Sk, H,
                                                  head_dim, dtype, scale, causal != 0, q_offset, kv_offset, s));
@@ -908,14 +898,6 @@ int p2pfl_flash_carry(const void* q, const void* k, const void* v, const float* 
     return int(with_head_dim(head_dim, [&](auto d) {
       return launch_carry<float, decltype(d)::value>(q, k, v, m_in, l_in, acc_in, m_out, l_out, acc_out, B, Sq,
                                                      Sk, H, scale, causal != 0, q_offset, kv_offset, s);
-    }));
-  if (dtype == 1 && head_dim == 64)
-    return int(p2pfl::launch_flash_carry_sm90(q, k, v, m_in, l_in, acc_in, m_out, l_out, acc_out, B, Sq, Sk, H,
-                                              scale, causal != 0, q_offset, kv_offset, s));
-  if (dtype == 1)
-    return int(with_bf16_head_dim(head_dim, [&](auto d) {
-      return launch_carry<__nv_bfloat16, decltype(d)::value>(q, k, v, m_in, l_in, acc_in, m_out, l_out, acc_out, B,
-                                                             Sq, Sk, H, scale, causal != 0, q_offset, kv_offset, s);
     }));
   return int(cudaErrorInvalidValue);
 }

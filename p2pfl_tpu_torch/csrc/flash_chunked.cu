@@ -1,9 +1,9 @@
-// Flash attention on the CUDA cores at any head size above 512: in f32 the
-// forward (with and without logsumexp) and the backward pair (dq; dk/dv),
-// and in f32 and bf16 ring attention's carry fold, with the head size a
-// run-time argument. The bf16 forward and backward pair above 256 are the
-// tensor-core kernels of flash_fwd_grouped_sm90.cu and
-// flash_bwd_grouped_sm90.cu.
+// Flash attention on the CUDA cores at any head size above 512, f32 only:
+// the forward (with and without logsumexp), the backward pair (dq; dk/dv)
+// and ring attention's carry fold, with the head size a run-time argument.
+// bf16 runs the tensor-core kernels above 256 (the carry above 64):
+// flash_fwd_grouped_sm90.cu, flash_bwd_grouped_sm90.cu and
+// flash_carry_grouped_sm90.cu.
 //
 // Replaces the Pallas TPU kernels of p2pfl_tpu/ops/attention.py above the
 // largest compiled head size (512) of flash_attn.cu:
@@ -11,7 +11,7 @@
 //   flash_fwd_chunked<with_lse=false>  <- _flash_kernel_no_lse   (pallas_call at :298; f32)
 //   flash_bwd_dq_chunked               <- _flash_bwd_dq_kernel   (pallas_call at :446; f32)
 //   flash_bwd_dkv_chunked              <- _flash_bwd_dkv_kernel  (pallas_call at :463; f32)
-//   flash_carry_chunked                <- _flash_carry_kernel    (pallas_call at :590)
+//   flash_carry_chunked                <- _flash_carry_kernel    (pallas_call at :590; f32)
 // The TPU kernels keep (block, D) f32 scratch in VMEM and so take any D;
 // a block here has at most 227 KB of shared memory, which holds no 64-row
 // tile of a row of a thousand f32 columns.
@@ -20,9 +20,9 @@
 // the same f32 arithmetic: q scaled by 1/sqrt(D) in f32 as it is loaded,
 // every product and sum f32, the causal mask -0.7 * FLT_MAX (keys past Sk:
 // -inf in the forward and carry, P = 0 in the backward), l clamped at 1e-30
-// and lse = m + log(l); bf16 inputs are loaded as f32 and the outputs
-// rounded once. ops/_kernels.py zero-pads D up to a multiple of 64 (exact:
-// zero columns add exact zeros to Q.K^T and dO.V^T and come out as zeros).
+// and lse = m + log(l). ops/_kernels.py zero-pads D up to a multiple of 64
+// (exact: zero columns add exact zeros to Q.K^T and dO.V^T and come out as
+// zeros).
 //
 // Design: simple and right, not fast. One block works on one (b * h, tile of
 // 64 rows, 64-column panel of the output): a q tile and a panel of O (the
@@ -48,10 +48,8 @@
 // flash_attn.cu for head sizes above 512; each launches on the given
 // stream, allocates nothing and returns cudaGetLastError()
 // (cudaErrorInvalidValue for a head size that is not a multiple of 64 or a
-// dtype other than 0 (f32) and 1 (bf16); the forward and the backward pair
-// take 0 only).
+// dtype other than 0, f32).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
@@ -71,7 +69,6 @@ constexpr int LD = PC + 1;                 // a panel row in shared memory, padd
 constexpr float MASK_VALUE = -0.7f * FLT_MAX;  // ops/attention.py DEFAULT_MASK_VALUE
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
@@ -464,16 +461,6 @@ flash_bwd_dkv_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, c
 
 dim3 grid_of(int rows, int B, int H, int D) { return dim3((rows + BQ - 1) / BQ, B * H, D / PC); }
 
-// Calls launch(T{}) for dtype 0 (f32) or 1 (bf16), at a head size that is a
-// positive multiple of 64.
-template <typename F>
-cudaError_t with_dtype(int dtype, int head_dim, F&& launch) {
-  if (head_dim < PC || head_dim % PC != 0) return cudaErrorInvalidValue;
-  if (dtype == 0) return launch(float{});
-  if (dtype == 1) return launch(__nv_bfloat16{});
-  return cudaErrorInvalidValue;
-}
-
 template <typename K>
 cudaError_t prepared(K kern, size_t smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -531,22 +518,20 @@ cudaError_t launch_flash_bwd_dkv_chunked(const void* q, const void* k, const voi
   return cudaGetLastError();
 }
 
-// m / l: [B, H, Sq] f32; acc: [B, Sq, H, head_dim] f32; *_in and *_out must
-// not overlap.
+// q / k / v [B, S, H, head_dim] in f32 (dtype 0); m / l: [B, H, Sq] f32;
+// acc: [B, Sq, H, head_dim] f32; *_in and *_out must not overlap.
 cudaError_t launch_flash_carry_chunked(const void* q, const void* k, const void* v, const float* m_in,
                                        const float* l_in, const float* acc_in, float* m_out, float* l_out,
                                        float* acc_out, int B, int Sq, int Sk, int H, int head_dim, int dtype,
                                        float scale, bool causal, int q_offset, int kv_offset, cudaStream_t stream) {
-  return with_dtype(dtype, head_dim, [&](auto t) {
-    using T = decltype(t);
-    const auto kern = flash_carry_chunked_kernel<T>;
-    const cudaError_t e = prepared(kern, kFwdSmem);
-    if (e != cudaSuccess) return e;
-    kern<<<grid_of(Sq, B, H, head_dim), NTHREADS, kFwdSmem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), m_in, l_in, acc_in, m_out,
-        l_out, acc_out, Sq, Sk, H, head_dim, scale, causal ? 1 : 0, q_offset, kv_offset);
-    return cudaGetLastError();
-  });
+  if (dtype != 0 || head_dim < PC || head_dim % PC != 0) return cudaErrorInvalidValue;
+  const auto kern = flash_carry_chunked_kernel<float>;
+  const cudaError_t e = prepared(kern, kFwdSmem);
+  if (e != cudaSuccess) return e;
+  kern<<<grid_of(Sq, B, H, head_dim), NTHREADS, kFwdSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), m_in, l_in, acc_in,
+      m_out, l_out, acc_out, Sq, Sk, H, head_dim, scale, causal ? 1 : 0, q_offset, kv_offset);
+  return cudaGetLastError();
 }
 
 }  // namespace p2pfl

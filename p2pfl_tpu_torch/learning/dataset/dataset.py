@@ -54,16 +54,29 @@ class FederatedDataset:
     """A train/test pair of array splits with partition and export helpers.
 
     Args:
-        data: ``{"train": split, "test": split}`` (test optional) of
-            :class:`_ArraySplit`; build one with :meth:`from_arrays`. (The
-            JAX package's column-name arguments name Hugging Face columns,
-            which come with its loaders.)
+        data: ``{train_split: split, test_split: split}`` (test optional) of
+            :class:`_ArraySplit`; build one with :meth:`from_arrays`.
+        x_key / y_key: column names for inputs and labels, kept as the JAX
+            package keeps them (they name Hugging Face columns, which come
+            with its loaders; array splits have no columns).
+        train_split / test_split: the keys of the train and test splits.
     """
 
-    def __init__(self, data: Dict[str, _ArraySplit]) -> None:
+    def __init__(
+        self,
+        data: Dict[str, _ArraySplit],
+        x_key: str = "image",
+        y_key: str = "label",
+        train_split: str = "train",
+        test_split: str = "test",
+    ) -> None:
         if not isinstance(data, dict):
             raise TypeError("FederatedDataset holds a dict of array splits (use from_arrays)")
         self._data = data
+        self.x_key = x_key
+        self.y_key = y_key
+        self.train_split = train_split
+        self.test_split = test_split
 
     # --- constructors ---------------------------------------------------------
 
@@ -98,17 +111,19 @@ class FederatedDataset:
         y_train: np.ndarray,
         x_test: Optional[np.ndarray] = None,
         y_test: Optional[np.ndarray] = None,
+        x_key: str = "x",
+        y_key: str = "y",
     ) -> "FederatedDataset":
         """Build directly from numpy arrays."""
         d = {"train": _ArraySplit(np.asarray(x_train), np.asarray(y_train))}
         if x_test is not None:
             d["test"] = _ArraySplit(np.asarray(x_test), np.asarray(y_test))
-        return cls(d)
+        return cls(d, x_key=x_key, y_key=y_key)
 
     # --- splits ---------------------------------------------------------------
 
     def _split(self, train: bool) -> _ArraySplit:
-        key = "train" if train else "test"
+        key = self.train_split if train else self.test_split
         if key not in self._data:
             raise KeyError("dataset has no test split — call generate_train_test_split first")
         return self._data[key]
@@ -136,13 +151,14 @@ class FederatedDataset:
         split (the standard FL evaluation protocol)."""
         train = self._split(True)
         index_lists = strategy.generate(train.y, num_partitions, seed=seed, **kwargs)
-        test = self._data.get("test")
+        test = self._data.get(self.test_split)  # the JAX package's _split(False), absent split as None
         out = []
         for idx in index_lists:
             d = {"train": train.take(idx)}
             if test is not None:
                 d["test"] = test
-            out.append(FederatedDataset(d))
+            out.append(FederatedDataset(d, x_key=self.x_key, y_key=self.y_key, train_split="train",
+                                        test_split="test"))
         return out
 
     # --- export ---------------------------------------------------------------

@@ -13,18 +13,17 @@ current stream, raises if the launch reports an error, and adds one to its
 entry in :data:`LAUNCHES`.
 
 Head sizes: any D >= 1. Up to 512 the f32 kernels have instances at 16, 32,
-64, 128, 256 and 512, all on the CUDA cores. bf16 runs the tensor-core
-forward of ``csrc/flash_fwd_narrow_sm90.cu`` and backward pair of
+64, 128, 256 and 512, all on the CUDA cores; above 512 f32 runs the
+CUDA-core kernels of ``csrc/flash_chunked.cu``, which take the head size at
+run time and build each score tile a 64-column panel of D at a time. bf16
+runs the tensor cores at every D (:func:`kernel_route`): the forward of
+``csrc/flash_fwd_narrow_sm90.cu`` and backward pair of
 ``csrc/flash_bwd_narrow_sm90.cu`` below 64 (box widths 16, 32 and 64; the
-head size at run time, read by TMA at its true size), the tensor-core
-kernels at 64 (forward, backward pair, carry fold), the tensor-core
-forward and backward pair at 128 and 256, and the tensor-core
-forward and backward pair of ``csrc/flash_fwd_grouped_sm90.cu`` and
-``csrc/flash_bwd_grouped_sm90.cu`` at every D above 256 (the head size at
-run time); its carry fold at 128, 256 and 512 runs CUDA-core instances.
-Above 512, f32 and bf16's carry run the CUDA-core kernels of
-``csrc/flash_chunked.cu``, which take the head size at run time and build
-each score tile a 64-column panel of D at a time (:func:`kernel_route`).
+head size at run time, read by TMA at its true size), the kernels at 64
+(forward, backward pair, carry fold), the forward and backward pair at 128
+and 256, the forward and backward pair of ``csrc/flash_fwd_grouped_sm90.cu``
+and ``csrc/flash_bwd_grouped_sm90.cu`` above 256, and the carry fold of
+``csrc/flash_carry_grouped_sm90.cu`` above 64 (the head size at run time).
 
 A call at a D the kernel does not take copies q, k, v (dO; the carry's
 acc) into zeroed ``[B, S, H, D']`` buffers, D' = :func:`host_head_dim`:
@@ -61,6 +60,7 @@ _PKG = Path(__file__).resolve().parents[1]
 SOURCES = (
     _PKG / "csrc" / "flash_attn.cu",  # f32 forward, backward pair and carry fold; the C entry points
     _PKG / "csrc" / "flash_fwd_sm90.cu",  # bf16 forward and carry fold on the tensor cores
+    _PKG / "csrc" / "flash_carry_grouped_sm90.cu",  # bf16 carry fold above D = 64 on the tensor cores
     _PKG / "csrc" / "flash_fwd_wide_sm90.cu",  # bf16 forward at D = 128 and 256 on the tensor cores
     _PKG / "csrc" / "flash_fwd_grouped_sm90.cu",  # bf16 forward above D = 256 on the tensor cores
     _PKG / "csrc" / "flash_fwd_narrow_sm90.cu",  # bf16 forward below D = 64 on the tensor cores, at the true D
@@ -68,7 +68,7 @@ SOURCES = (
     _PKG / "csrc" / "flash_bwd_wide_sm90.cu",  # bf16 backward pair at D = 128 and 256 on the tensor cores
     _PKG / "csrc" / "flash_bwd_grouped_sm90.cu",  # bf16 backward pair above D = 256 on the tensor cores
     _PKG / "csrc" / "flash_bwd_narrow_sm90.cu",  # bf16 backward pair below D = 64 on the tensor cores, at the true D
-    _PKG / "csrc" / "flash_chunked.cu",  # above D = 512 (bf16: the carry only), the head size a run-time argument
+    _PKG / "csrc" / "flash_chunked.cu",  # f32 above D = 512, the head size a run-time argument
 )
 HEADERS = (_PKG / "csrc" / "sm90_common.cuh",)  # included by the *_sm90.cu sources
 BUILD_DIR = _PKG.parent / "build"
@@ -77,15 +77,14 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 HEAD_DIMS = (16, 32, 64, 128, 256, 512)  # the f32 instances of csrc/flash_attn.cu; other D <= 512 pad to the next
-BF16_HEAD_DIMS = (64, 128, 256, 512)  # the bf16 instances (kernel_route says which run on the tensor cores)
-SM90_HEAD_DIM = 64  # the bf16 tensor-core forward, backward pair and carry fold
-# The bf16 tensor-core forward and backward pair (csrc/flash_fwd_wide_sm90.cu
-# and csrc/flash_bwd_wide_sm90.cu above 64); the carry fold's is SM90_HEAD_DIM.
-SM90_WIDE_HEAD_DIMS = (64, 128, 256)
-MAX_HEAD_DIM = HEAD_DIMS[-1]  # the largest compiled instance; above it the chunked kernels
+BF16_HEAD_DIMS = (64, 128, 256, 512)  # the head sizes bf16 pads to up to 512 (every one on the tensor cores)
+SM90_HEAD_DIM = 64  # the bf16 tensor-core forward, backward pair and carry fold of the D = 64 sources
+MAX_HEAD_DIM = HEAD_DIMS[-1]  # the largest compiled f32 instance; above it the chunked kernels
 # bf16 forwards and backward pairs above this run the tensor-core kernels of
-# csrc/flash_fwd_grouped_sm90.cu and csrc/flash_bwd_grouped_sm90.cu.
-SM90_GROUPED_ABOVE = SM90_WIDE_HEAD_DIMS[-1]
+# csrc/flash_fwd_grouped_sm90.cu and csrc/flash_bwd_grouped_sm90.cu (at 128
+# and 256 the wide ones); the bf16 carry fold above SM90_HEAD_DIM runs
+# csrc/flash_carry_grouped_sm90.cu.
+SM90_GROUPED_ABOVE = 256
 FORWARDS = ("flash_fwd", "flash_fwd_no_lse")
 # The kernels whose bf16 calls below SM90_HEAD_DIM take the narrow route: the
 # forward (csrc/flash_fwd_narrow_sm90.cu) and the backward pair
@@ -246,21 +245,17 @@ def kernel_route(kernel: str, dtype: torch.dtype, d: int) -> Tuple[int, str]:
     bf16 forwards and backward pairs (:data:`NARROW_KERNELS`) take the
     narrow kernels (``NARROW``, their instance the box width, one of
     :data:`NARROW_WIDTHS`) wherever :func:`host_head_dim` stays below
-    :data:`SM90_HEAD_DIM`; the other bf16 forwards and backward pairs at
-    every D (above :data:`SM90_GROUPED_ABOVE` the grouped kernels) and the
-    bf16 carry fold at :data:`SM90_HEAD_DIM` take the tensor cores, every
-    other call above :data:`MAX_HEAD_DIM` the chunked kernels, the rest the
-    CUDA-core instances."""
+    :data:`SM90_HEAD_DIM`; every other bf16 call takes the tensor cores
+    (the carry fold above :data:`SM90_HEAD_DIM` the grouped carry kernel);
+    f32 takes the CUDA-core instances, above :data:`MAX_HEAD_DIM` the
+    chunked kernels."""
     hd = host_head_dim(kernel, dtype, d)
     if dtype == torch.bfloat16 and kernel in NARROW_KERNELS and hd < SM90_HEAD_DIM:
         return next(w for w in NARROW_WIDTHS if w >= hd), NARROW
     kd = kernel_head_dim(dtype, d)
-    if dtype == torch.bfloat16 and kernel != "flash_carry" and kd > SM90_GROUPED_ABOVE:
+    if dtype == torch.bfloat16:
         return kd, TENSOR_CORES
-    if kd > MAX_HEAD_DIM:
-        return kd, CHUNKED
-    sm90 = (SM90_HEAD_DIM,) if kernel == "flash_carry" else SM90_WIDE_HEAD_DIMS
-    return kd, TENSOR_CORES if dtype == torch.bfloat16 and kd in sm90 else CUDA_CORES
+    return kd, CHUNKED if kd > MAX_HEAD_DIM else CUDA_CORES
 
 
 def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -405,8 +400,9 @@ def flash_carry(
     acc [B,Sq,H,D])`` (f32); returns a new carry, the incoming one is only
     read. ``q_offset`` / ``kv_offset``: global positions of q's and k's row 0.
 
-    bf16 at D <= 64 runs the tensor-core kernel (q, k, v and acc 16-byte
-    aligned); f32, and bf16 above 64, run the CUDA-core kernels."""
+    bf16 runs the tensor-core kernels (at D <= 64 the D 64 one, above 64
+    the grouped one; q, k, v and acc 16-byte aligned); f32 runs the
+    CUDA-core kernels (above 512 the chunked one)."""
     _check_qkv("flash_carry", q, k, v)
     if k.shape[1] < 1:
         raise ValueError("flash_carry: the kv chunk is empty")

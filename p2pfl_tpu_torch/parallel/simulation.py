@@ -109,13 +109,14 @@ def local_train_step(
     x: torch.Tensor,
     y: torch.Tensor,
     w: torch.Tensor,
-    c_i: Optional[Params] = None,
+    c_i: Optional[Params],
     *,
-    c_global: Optional[Params] = None,
+    c_global: Optional[Params],
     epochs: int,
     batch_loss: BatchLoss,
     optimizer: Any,
     batch_size: int,
+    lr: float = 0.0,
     fedprox_mu: float = 0.0,
     dp_clip_norm: float = 0.0,
     dp_noise_multiplier: float = 0.0,
@@ -128,7 +129,11 @@ def local_train_step(
     ``params``; DP-SGD (``dp_clip_norm > 0``) takes :func:`dp_grads`, with
     FedProx's gradient added after the clip; SCAFFOLD adds ``c_global -
     c_i``. Returns the new params, the new optimizer state and the mean
-    loss."""
+    loss. The JAX package's arguments in its order (``gen`` for its
+    ``key``; ``c_i`` and ``c_global`` are read only under SCAFFOLD); ``lr``
+    is accepted and not read, as there: the step size is the optimizer's.
+    ``per_example``, the port's own, picks how DP-SGD takes per-example
+    gradients."""
     steps = x.shape[0] // batch_size
     if steps < 1:
         raise ValueError(f"batch_size {batch_size} exceeds the {x.shape[0]} samples per node")

@@ -120,8 +120,8 @@ def build_train_fn(apply_fn, lr: float, batch_size: int, epochs: int):
 
     def train(params, x, y, w, gen):
         new_params, _opt, loss = local_train_step(
-            params, optimizer.init(params), gen, x, y, w, epochs=epochs, batch_loss=batch_loss,
-            optimizer=optimizer, batch_size=batch_size,
+            params, optimizer.init(params), gen, x, y, w, None, c_global=None, epochs=epochs,
+            batch_loss=batch_loss, optimizer=optimizer, batch_size=batch_size,
         )
         return new_params, loss
 

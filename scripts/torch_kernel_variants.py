@@ -8,6 +8,7 @@
     python3 scripts/torch_kernel_variants.py bwd_grouped  # the backward pair above D 256 (flash_bwd_grouped_sm90.cu)
     python3 scripts/torch_kernel_variants.py narrow  # the forward below D 64 (flash_fwd_narrow_sm90.cu)
     python3 scripts/torch_kernel_variants.py bwd_narrow  # the backward pair below D 64 (flash_bwd_narrow_sm90.cu)
+    python3 scripts/torch_kernel_variants.py carry_grouped  # the carry fold above D 64 (flash_carry_grouped_sm90.cu)
 
 Each variant is the chosen source under ``p2pfl_tpu_torch/csrc/`` with some
 of its text replaced (``VARIANTS`` below), built with the package's other
@@ -24,14 +25,20 @@ the forward with lse at [8, 1024, H, D] and the one without at [16, 1024,
 H, D] bf16 causal at D 32 / 16 / 48 (H 16 / 32 / 8), and both at the flash
 classifier's shapes ([16, 64, 4, 32], eval [256, 64, 4, 32]) and the
 longcontext example's ([4, 256, 4, 16], eval [16, 256, 4, 16]);
-``bwd_narrow`` runs dq and dk/dv at those training shapes. A
+``bwd_narrow`` runs dq and dk/dv at those training shapes;
+``carry_grouped`` runs the ring's past and diagonal folds of one chunk
+[2, 1024, H, D] bf16 at D 128 / 256 / 512 / 1024 (H 4 / 2 / 1 / 1) and
+prints each variant's largest error in m against the plain version's and
+against the exact row max (f64 scores), beside the plain version's own. A
 variant of ``flash_fwd_sm90.cu`` changes the forward and the carry fold
 alike; each family times its own. Every variant's outputs must equal the
 package's kernels' bit for bit (the variants change scheduling, not
 arithmetic), except those that reorder a sum (``REORDERING``: the dq key
-tile's width changes the order of dQ's k-steps), which are held instead to
+tile's width changes the order of dQ's k-steps; the carry's S chains the
+order of its sums), which are held instead to
 the package's bar against the plain version (1e-6 + 1 bf16 ulp + 2^-15 of
-each gradient's weighted mass, ``chip_smoke.max_err``). Times are CUDA events
+each gradient's weighted mass, ``chip_smoke.max_err``; a carry's split bar,
+``chip_smoke.carry_err``). Times are CUDA events
 over 50 launches (``chip_smoke.time_ms``), taken in the order A B ... B A
 so that drift shows, with each variant's ptxas registers and spills. Runs
 on the card only.
@@ -52,7 +59,8 @@ sys.path.insert(0, str(ROOT))
 
 SOURCES = {"fwd": "flash_fwd_sm90.cu", "bwd": "flash_bwd_sm90.cu", "carry": "flash_fwd_sm90.cu",
            "grouped": "flash_fwd_grouped_sm90.cu", "bwd_grouped": "flash_bwd_grouped_sm90.cu",
-           "narrow": "flash_fwd_narrow_sm90.cu", "bwd_narrow": "flash_bwd_narrow_sm90.cu"}
+           "narrow": "flash_fwd_narrow_sm90.cu", "bwd_narrow": "flash_bwd_narrow_sm90.cu",
+           "carry_grouped": "flash_carry_grouped_sm90.cu"}
 # kernel family -> variant name -> {text in the source: replacement}
 VARIANTS = {
     "fwd": {
@@ -112,8 +120,25 @@ VARIANTS = {
                      "kDkvSmemBytes == 26664": "kDkvSmemBytes == 35384",
                      "kDkvSmemBytes == 51240": "kDkvSmemBytes == 68152"},
     },
+    "carry_grouped": {  # the q tile's rows, the Q / K ring's depth, S's chains, the partial group, registers
+        "as built": {},
+        "128-row q tile": {"constexpr int kConsumers = 1;": "constexpr int kConsumers = 2;",
+                           "kConsumerRegs = 240;": "kConsumerRegs = 232;"},
+        "10 Q/K stages": {"kQKStages = 6;": "kQKStages = 10;"},
+        **{f"S in chains of {n} panels": {"kChainPanels = 2;": f"kChainPanels = {n};"} for n in (1, 4)},
+        "S in one wgmma chain": {"kChainPanels = 2;": "kChainPanels = 1 << 20;"},
+        "no products past the group's panels": {
+            "for (int p = 0; p < kGroupPanels; ++p)\n        wgmma_m64n64k16_rs(o[p], p_hi":
+            "for (int p = 0; p < kGroupPanels; ++p)\n        if (p < blk.group_panels) wgmma_m64n64k16_rs(o[p], p_hi",
+            "for (int p = 0; p < kGroupPanels; ++p)\n        wgmma_m64n64k16_rs(o[p], p_lo":
+            "for (int p = 0; p < kGroupPanels; ++p)\n        if (p < blk.group_panels) wgmma_m64n64k16_rs(o[p], p_lo"},
+        "consumer 232 registers": {"kConsumerRegs = 240;": "kConsumerRegs = 232;"},
+    },
 }
-REORDERING = {"dq BK 32, 8 stages"}  # variants whose sums run in another order than the package's
+# Variants whose sums may run in another order than the package's (a 128-row
+# q tile walks more masked key tiles on the diagonal fold; other S chains).
+REORDERING = {"dq BK 32, 8 stages", "128-row q tile", "S in chains of 1 panels", "S in chains of 4 panels",
+              "S in one wgmma chain"}
 
 
 def build(family: str, nvcc: str, flags: tuple) -> dict:
@@ -259,6 +284,31 @@ def calls(family: str):
             q, k, v, _ = rand(b)
             cases[name] = (forward(q, k, v, with_lse), (_kernels.flash_fwd(q, k, v, True, with_lse)[0],), None)
         return cases
+    if family == "carry_grouped":
+        from p2pfl_tpu_torch.ops import attention as att
+
+        for d, h in ((128, 4), (256, 2), (512, 1), (1024, 1)):
+            q, k, v, kp, vp = (torch.randn((2, 1024, h, d), generator=gen).cuda().to(torch.bfloat16)
+                               for _ in range(5))
+            off = 7 * 1024  # shard 7 of 8: its diagonal chunk into a fresh carry, then a past chunk
+            fresh = att.init_carry(q.shape, q.device)
+            diag = _kernels.flash_carry(fresh, q, k, v, off, off, True)
+            for name, carry, kc, vc, kv_off in (("past fold", diag, kp, vp, 0), ("diagonal fold", fresh, k, v, off)):
+                def fold(lib, q=q, carry=carry, kc=kc, vc=vc, kv_off=kv_off):  # the defaults hold the tensors
+                    outs = tuple(torch.empty_like(t) for t in carry)
+                    b, sq, h, d = q.shape
+                    check(lib.p2pfl_flash_carry(q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                                                *(t.data_ptr() for t in (*carry, *outs)), b, sq, sq, h, d, 1,
+                                                1.0 / math.sqrt(d), 1, off, kv_off, stream))
+                    return outs
+
+                s64 = att._causal_mask(torch.einsum("bqhd,bkhd->bhqk", q.double(), kc.double()) / math.sqrt(d),
+                                       off, kv_off)
+                m64 = torch.maximum(carry[0].double(), s64.amax(-1))  # the exact row max (f64 scores)
+                plain = (att.plain_flash_chunk_update(carry, q, kc, vc, off, kv_off, True),
+                         att.plain_flash_chunk_mass(carry, q, kc, vc, off, kv_off, True), m64)
+                cases[f"{name} D={d}"] = (fold, _kernels.flash_carry(carry, q, kc, vc, off, kv_off, True), plain)
+        return cases
     if family == "carry":
         from p2pfl_tpu_torch.ops import attention as att
 
@@ -300,11 +350,21 @@ def main() -> int:
     for vname, (lib, ptxas) in libs.items():
         same = all(torch.equal(a, b) for fn, refs, _ in cases.values() for a, b in zip(fn(lib), refs))
         print(f"{vname}: ptxas {ptxas}; outputs equal to the package's kernels: {same}")
+        if family == "carry_grouped":  # m against the plain version's and the exact (f64) row max
+            for name, (fn, _, (ref, _, m64)) in cases.items():
+                m = fn(lib)[0].double()
+                print(f"  {name}: max |m - plain| {float((m - ref[0]).abs().max()):.3e}, |m - f64| "
+                      f"{float((m - m64).abs().max()):.3e}; the plain version's |m - f64| "
+                      f"{float((ref[0].double() - m64).abs().max()):.3e}")
         if same:
             continue
         if vname not in REORDERING:
             return 1
-        for name, (fn, _, (refs, masses)) in cases.items():  # raises if an output is past the bar
+        for name, (fn, _, plain) in cases.items():  # raises if an output is past the bar
+            if family == "carry_grouped":  # the plain carry and the fold's mass
+                chip_smoke.carry_err(fn(lib), plain[0], f"{vname}: {name}", plain[1])
+                continue
+            refs, masses = plain
             for i, (got, ref, mass) in enumerate(zip(fn(lib), refs, masses)):
                 chip_smoke.max_err(got, ref, f"{vname}: {name} output {i}", atol=1e-6, bf16_ulps=1, mass=mass)
     order = list(libs) + list(reversed(libs))

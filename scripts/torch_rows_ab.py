@@ -10,8 +10,8 @@ kernels into its own ``build/`` and runs, in a subprocess, its
 ``chip_smoke.py`` kernel and carry phases (rows 1-5 at head size 64), then
 its ``narrow_rows`` in bf16 at [8, 1024, 16, 32], [8, 1024, 32, 16], [8,
 1024, 8, 48], [8, 1024, 4, 128], [8, 1024, 2, 256], [8, 1024, 1, 512] and [8,
-1024, 1, 1024] (the eval forward at batch 16; below D 64 also the carry's
-past fold of one ring chunk [2, 1024, H, D]), and rows 1-4 at the flash
+1024, 1, 1024] (the eval forward at batch 16; and the carry's past fold of
+one ring chunk [2, 1024, H, D]), and rows 1-4 at the flash
 classifier's and the longcontext example's own shapes (its
 ``phase_kernels_classifier`` and ``phase_kernels_longcontext``): every row
 held to its plain version, then timed with CUDA events, and the source of
@@ -19,7 +19,11 @@ the bf16 kernel each row runs there (its ``row_source``). Then the
 federated LM at width 512 over 1 head (D 512, 4 layers) and at width 1024
 over 1 head (D 1024, 1 layer), one round after a warm-up round each, as
 ``chip_smoke.py``'s wide and chunked paths drive them: ``lm_d<D>`` is that
-round's s/round (host clock; the rows are device times). The order is BASE,
+round's s/round; and the ring trainer (8192 tokens in 8 shards, batch 2) at
+width 512 over 4, 2 and 1 heads (D 128, 256, 512; 4 layers) and at width
+1024 over 1 head (D 1024, 1 layer): ``ring_d<D>`` is the mean s/step of two
+steps after a warm-up step (host clock, ending in
+``torch.cuda.synchronize()``; the rows are device times). The order is BASE,
 this tree, this tree, BASE, so that drift shows. Prints each run's numbers
 and sources and, last, one JSON object ``{"runs": [{"tree": ..., "ms":
 {row: ms}, "sources": {row: source}}, ...]}``. Runs on the card only.
@@ -35,8 +39,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 CHILD = """
-import json, sys
+import json, sys, time
 sys.path.insert(0, {root!r})
+import numpy as np
 import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -46,7 +51,7 @@ rows.update(cs.phase_carry())
 gen = torch.Generator().manual_seed(16)
 for d, heads in ((32, 16), (16, 32), (48, 8), (128, 4), (256, 2), (512, 1), (1024, 1)):
     rows.update(cs.narrow_rows("ab", f"_d{{d}}", d, heads, cs.BATCH, cs.EVAL_SEQS, cs.SEQ_LEN,
-                               (torch.bfloat16,), d < 64, gen))
+                               (torch.bfloat16,), True, gen))
 rows.update(cs.phase_kernels_classifier())
 rows.update(cs.phase_kernels_longcontext())
 ms = {{name: r["ms"] for name, r in rows.items()}}
@@ -66,6 +71,27 @@ for d, layers in ((512, cs.LAYERS), (1024, cs.CHUNKED_LAYERS)):
                          lr=cs.LR, seed=1, task="lm", device="cuda")
     ms[f"lm_d{{d}}"] = sim.run(rounds=1, epochs=1, warmup=True).seconds_per_round
     del sim, model
+from p2pfl_tpu_torch.optim import adam
+from p2pfl_tpu_torch.parallel.mesh import Mesh
+from p2pfl_tpu_torch.parallel.sequence import make_sequence_parallel_train_step, shard_tokens
+rng = np.random.default_rng(8)
+x = ((rng.integers(0, cs.VOCAB, size=(cs.RING_BATCH, 1)) + np.arange(cs.RING_SEQ)) % cs.VOCAB).astype(np.int32)
+mesh = Mesh({{"seq": cs.RING_SHARDS}}, device="cuda")
+tokens = shard_tokens(x, mesh)
+for d, heads, layers in ((128, 4, cs.LAYERS), (256, 2, cs.LAYERS), (512, 1, cs.LAYERS), (1024, 1, cs.CHUNKED_LAYERS)):
+    model = transformer_lm_model(0, cs.RING_SEQ, cs.VOCAB, layers, heads, d * heads, "ring_flash", "seq",
+                                 device="cuda")
+    opt = adam(cs.LR)
+    step = make_sequence_parallel_train_step(model.apply, opt, mesh, "seq")
+    params, state = model.params, opt.init(model.params)
+    params, state, loss = step(params, state, tokens)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(2):
+        params, state, loss = step(params, state, tokens)
+    torch.cuda.synchronize()
+    ms[f"ring_d{{d}}"] = (time.monotonic() - t0) / 2
+    del model, params, state, step
 print("ROWS " + json.dumps(ms))
 """
 

@@ -4,6 +4,7 @@ the cohort sampler, the synthetic dataset, the partition strategies,
 so each output must equal the reference's exactly.
 """
 
+import inspect
 import math
 
 import numpy as np
@@ -27,6 +28,30 @@ STRATEGIES = [
     ("DirichletPartitionStrategy", {"alpha": 0.3, "min_partition_size": 5}),
     ("PercentageBasedNonIIDPartitionStrategy", {"percentage": 0.6}),
 ]
+
+
+@pytest.mark.parametrize("method", ["__init__", "from_arrays"])
+def test_federated_dataset_signature_matches_jax(method):
+    """``FederatedDataset(data, x_key, y_key, train_split, test_split)`` and
+    ``from_arrays(..., x_key, y_key)`` take the JAX package's arguments in
+    its order, with its defaults, and keep them as it does."""
+    port = inspect.signature(getattr(dataset.FederatedDataset, method)).parameters
+    ref = inspect.signature(getattr(jax_dataset.FederatedDataset, method)).parameters
+    assert list(port) == list(ref)
+    for name, p in ref.items():
+        assert port[name].kind == p.kind and port[name].default == p.default, name
+    x, y = np.zeros((4, 2), np.float32), np.arange(4)
+    kw = dict(x_key="img", y_key="lab")
+    got = dataset.FederatedDataset.from_arrays(x, y, x, y, **kw)
+    want = jax_dataset.FederatedDataset.from_arrays(x, y, x, y, **kw)
+    split = dict(train_split="tr", test_split="te")
+    for a, b in ((got, want), (dataset.FederatedDataset({"tr": got._split(True)}, **kw, **split),
+                               jax_dataset.FederatedDataset({"tr": want._split(True)}, **kw, **split))):
+        for attr in ("x_key", "y_key", "train_split", "test_split"):
+            assert getattr(a, attr) == getattr(b, attr), attr
+        assert a.get_num_samples() == b.get_num_samples() == 4
+        parts = a.generate_partitions(2, partition.RandomIIDPartitionStrategy)
+        assert [(p.x_key, p.y_key, p.train_split, p.test_split) for p in parts] == [("img", "lab", "train", "test")] * 2
 
 
 def test_settings_match_jax_defaults_and_env(monkeypatch):

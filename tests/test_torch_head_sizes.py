@@ -5,10 +5,11 @@ the card's bf16 forward and backward pair run on the narrow tensor-core
 kernels (8, 40, 48 at the true size, 20 zero-padded to 24) or, at 63, on
 the D 64 kernels. Wide: 384 and 512 (the widest compiled
 instances: 384 is zero-padded to 512), and 576, 640 and 1024, which the card
-runs with D zero-padded to a multiple of 64: the bf16 forward on the grouped
-tensor-core kernel (groups of up to four 64-column panels of O; at 576 and
-640 the last group holds one and two), the rest on the chunked kernels (the
-score tiles built a 64-column panel at a time).
+runs with D zero-padded to a multiple of 64: bf16 on the grouped tensor-core
+kernels (groups of up to four 64-column panels of O or acc; at 576 and 640
+the last group holds one and two), f32 on the chunked kernels (the score
+tiles built a 64-column panel at a time); the carry also at 128 and 256,
+the grouped carry's one partial and one full group.
 
 Same inputs (numpy, from a seed) go through the JAX functions (Pallas in
 interpret mode on the CPU, as tests/test_attention.py runs them) and the
@@ -90,11 +91,12 @@ def test_plain_flash_forward_and_grads_match_jax_at_wide_heads(d, causal):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4)
 
 
-@pytest.mark.parametrize("d", [384, 512, 576, 640, 1024])
+@pytest.mark.parametrize("d", [128, 256, 384, 512, 576, 640, 1024])
 def test_plain_chunk_update_matches_jax_at_wide_heads(d):
     """Chunk 1 of 2 (16 positions each) folds its own chunk (the diagonal),
     then the past chunk 0, into a fresh carry; the carry after each fold
-    within 1e-5 of the JAX kernel's."""
+    within 1e-5 of the JAX kernel's. From 128 up the card's bf16 fold runs
+    the grouped tensor-core carry, held to this plain version."""
     q, k, v = _qkv(d + 1, d)
     s = S // 2
     qc = q[:, s:]

@@ -78,18 +78,19 @@ def test_kernel_head_dim_pads_every_head_size_to_the_next_instance():
 
 @pytest.mark.parametrize("kernel", list(_kernels.LAUNCHES))
 def test_kernel_route_names_the_c_path_of_every_head_size(kernel):
-    """bf16: the forward (with and without lse) and the backward pair take
-    the tensor cores at every D (up to 56 the narrow kernels, named
-    ``NARROW``, their instance the box width 16, 32 or 64 over D rounded up
-    to a multiple of 8, and from 57 to 64 the D = 64 kernels; the wide ones
-    at 128 and 256, the grouped ones above 256), the carry up to 64; the
-    carry up to 512, and f32 at every D up to 512, the CUDA-core instances;
-    every other call above 512 the chunked kernels at the next multiple of
-    64."""
+    """bf16 takes the tensor cores at every D: the forward (with and
+    without lse) and the backward pair up to 56 on the narrow kernels,
+    named ``NARROW``, their instance the box width 16, 32 or 64 over D
+    rounded up to a multiple of 8, and from 57 to 64 the D = 64 kernels; the
+    wide ones at 128 and 256, the grouped ones above 256; the carry the D =
+    64 kernel up to 64 and the grouped carry above 64 (513-4096 too), at the
+    next of 128, 256 and 512, then the next multiple of 64. f32 takes the
+    CUDA-core instances up to 512 and the chunked kernels above, at the next
+    multiple of 64."""
     carry = kernel == "flash_carry"
     for d in range(1, 513):
         kd = 64 if d <= 64 else 128 if d <= 128 else 256 if d <= 256 else 512
-        route = _kernels.TENSOR_CORES if not carry or d <= 64 else _kernels.CUDA_CORES
+        route = _kernels.TENSOR_CORES
         if not carry and d <= 56:
             kd, route = (16 if d <= 16 else 32 if d <= 32 else 64), _kernels.NARROW
         assert _kernels.kernel_route(kernel, torch.bfloat16, d) == (kd, route), d
@@ -97,8 +98,7 @@ def test_kernel_route_names_the_c_path_of_every_head_size(kernel):
             _kernels.kernel_head_dim(torch.float32, d), _kernels.CUDA_CORES), d
     for d in (513, 576, 577, 640, 1000, 1024, 4096):
         kd = 64 * ((d + 63) // 64)
-        assert _kernels.kernel_route(kernel, torch.bfloat16, d) == (
-            kd, _kernels.CHUNKED if carry else _kernels.TENSOR_CORES), d
+        assert _kernels.kernel_route(kernel, torch.bfloat16, d) == (kd, _kernels.TENSOR_CORES), d
         assert _kernels.kernel_route(kernel, torch.float32, d) == (kd, _kernels.CHUNKED), d
 
 
@@ -143,7 +143,8 @@ def test_cuda_without_a_card_raises(monkeypatch):
 def test_library_path_follows_the_source(tmp_path, monkeypatch):
     path = _kernels.library_path()
     assert path.parent == _kernels.BUILD_DIR and path.suffix == ".so"
-    assert [src.name for src in _kernels.SOURCES] == ["flash_attn.cu", "flash_fwd_sm90.cu", "flash_fwd_wide_sm90.cu",
+    assert [src.name for src in _kernels.SOURCES] == ["flash_attn.cu", "flash_fwd_sm90.cu",
+                                                      "flash_carry_grouped_sm90.cu", "flash_fwd_wide_sm90.cu",
                                                       "flash_fwd_grouped_sm90.cu", "flash_fwd_narrow_sm90.cu",
                                                       "flash_bwd_sm90.cu",
                                                       "flash_bwd_wide_sm90.cu", "flash_bwd_grouped_sm90.cu",
@@ -480,18 +481,20 @@ def _misaligned(t):
 def test_wide_forward_refuses_misaligned_inputs_where_the_cuda_cores_take_them(cuda_device):
     """bf16 at D = 128: the forward and the backward pair run the wide
     tensor-core kernels (TMA), which refuse a q or dO that is not 16-byte
-    aligned; the carry runs the CUDA-core kernel there, which takes a
-    misaligned q and returns what it returns for the aligned copy."""
+    aligned; the carry runs the grouped tensor-core carry there, which
+    refuses it too, like every TMA kernel, before anything launches."""
     q, k, v, g = _qkv(2, (1, 64, 2, 128), torch.bfloat16, cuda_device)
     _kernels.reset_launches()
     for with_lse in (True, False):
         with pytest.raises(ValueError, match="aligned"):
             _kernels.flash_fwd(_misaligned(q), k, v, True, with_lse)
-    assert not any(_kernels.LAUNCHES.values())
     carry = port.init_carry(q.shape, cuda_device)
-    for a, b in zip(_kernels.flash_carry(carry, _misaligned(q), k, v, 0, 0, True),
-                    _kernels.flash_carry(carry, q, k, v, 0, 0, True)):
-        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="aligned"):
+        _kernels.flash_carry(carry, _misaligned(q), k, v, 0, 0, True)
+    assert not any(_kernels.LAUNCHES.values())
+    _carry_close(_kernels.flash_carry(carry, q, k, v, 0, 0, True),
+                 port.plain_flash_chunk_update(carry, q, k, v, 0, 0, True),
+                 port.plain_flash_chunk_mass(carry, q, k, v, 0, 0, True))
 
 
 @pytest.mark.cuda
@@ -638,14 +641,19 @@ def test_chunk_mass_is_the_row_mass_times_l_on_a_fresh_carry(causal):
 
 
 _CARRY_FOLD_LENGTHS = {"diagonal": 64, "past": 64, "ragged non-causal": 100, "diagonal S=129": 129}
+# (fold, head size): every fold at D 64, the D 64 kernel's, and at 128 and
+# 576, the grouped carry's (one partial group of two panels; groups of four,
+# four and one).
+_CARRY_FOLD_CASES = [pytest.param(fold, d, id=fold if d == 64 else f"{fold}-d{d}")
+                     for d in (64, 128, 576) for fold in _CARRY_FOLD_LENGTHS]
 
 
-def _carry_fold_case(fold):
+def _carry_fold_case(fold, d=64):
     """(carry, q, k, v, q_offset, kv_offset, causal) of one of the ring's
-    folds at a small shape: shard 3's diagonal chunk into a fresh carry (of
-    64 or 129 positions), a past chunk into that carry, and a ragged
-    non-causal chunk."""
-    shape = (2, _CARRY_FOLD_LENGTHS[fold], 2, 64)
+    folds at a small shape and head size ``d``: shard 3's diagonal chunk
+    into a fresh carry (of 64 or 129 positions), a past chunk into that
+    carry, and a ragged non-causal chunk."""
+    shape = (2, _CARRY_FOLD_LENGTHS[fold], 2, d)
     q, k, v, kp = _qkv(14, shape, torch.bfloat16)
     vp = _qkv(15, shape, torch.bfloat16)[0]
     off = 3 * shape[1]
@@ -657,9 +665,9 @@ def _carry_fold_case(fold):
     return fresh, q, k, v, off, off, True
 
 
-@pytest.mark.parametrize("fold", list(_CARRY_FOLD_LENGTHS))
-def test_split_carry_bar_holds_the_split_at_small_shapes(fold):
-    case = _carry_fold_case(fold)
+@pytest.mark.parametrize("fold,d", _CARRY_FOLD_CASES)
+def test_split_carry_bar_holds_the_split_at_small_shapes(fold, d):
+    case = _carry_fold_case(fold, d)
     mass = port.plain_flash_chunk_mass(*case)
     assert mass.shape == case[1].shape and bool((mass >= 0).all())
     _carry_close(_emulated_chunk_update(*case, split=True), port.plain_flash_chunk_update(*case), mass)
@@ -1032,6 +1040,63 @@ def test_narrow_head_carry_matches_plain_version_on_card(cuda_device, d, s, dtyp
     assert _kernels.LAUNCHES["flash_carry"] == 3
 
 
+# --- the bf16 carry fold above D = 64: the grouped tensor-core kernel --------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1024, 129, 1])
+@pytest.mark.parametrize("d", [128, 256, 320, 512, 576, 1024])
+def test_grouped_carry_matches_plain_version_on_card(cuda_device, d, s):
+    """Row 5 on the grouped tensor-core carry ([2, S, 2, D] bf16; 320
+    zero-padded to 512; at 128 one partial group of two panels, at 576
+    groups of four, four and one): shard 7's diagonal fold into a fresh
+    carry, a past fold into it, a future fold (the carry back bit-identical)
+    and a ragged non-causal fold (1000 keys under 1024 rows), each within
+    the split bar of the plain version (m 1e-5; l 1e-5 + 1e-5 |ref|; acc
+    1e-5 + 1e-5 |ref| + 1e-6 l + 2^-15 of the fold's mass), one launch each."""
+    kd = 512 if d == 320 else d
+    assert _kernels.kernel_route("flash_carry", torch.bfloat16, d) == (kd, _kernels.TENSOR_CORES)
+    q, k, v, kp = _qkv(150 + d + s, (2, s, 2, d), torch.bfloat16, cuda_device)
+    vp = _qkv(151 + d + s, (2, s, 2, d), torch.bfloat16, cuda_device)[0]
+    off = 7 * s
+    carry = port.init_carry(q.shape, cuda_device)
+    _kernels.reset_launches()
+    for kc, vc, kv_off in ((k, v, off), (kp, vp, 0)):
+        got = _kernels.flash_carry(carry, q, kc, vc, off, kv_off, True)
+        assert got[2].shape == q.shape and got[2].is_contiguous()
+        _carry_close(got, port.plain_flash_chunk_update(carry, q, kc, vc, off, kv_off, True),
+                     port.plain_flash_chunk_mass(carry, q, kc, vc, off, kv_off, True))
+        carry = got
+    future = _kernels.flash_carry(carry, q, kp, vp, off, off + s, True)
+    assert all(torch.equal(a, b) for a, b in zip(future, carry))
+    sk = 1000 if s == 1024 else s
+    kr, vr = kp[:, :sk].contiguous(), vp[:, :sk].contiguous()
+    fresh = port.init_carry(q.shape, cuda_device)
+    _carry_close(_kernels.flash_carry(fresh, q, kr, vr, 0, 0, False),
+                 port.plain_flash_chunk_update(fresh, q, kr, vr, 0, 0, False),
+                 port.plain_flash_chunk_mass(fresh, q, kr, vr, 0, 0, False))
+    assert _kernels.LAUNCHES["flash_carry"] == 4 and sum(_kernels.LAUNCHES.values()) == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 512, 1024])
+def test_grouped_carry_refuses_misaligned_inputs_on_card(cuda_device, d):
+    """The grouped carry loads q, k and v by TMA and acc as float2: a q, k,
+    v or acc that is not 16-byte aligned is refused before anything
+    launches; the aligned copies pass."""
+    q, k, v, _ = _qkv(4, (1, 64, 2, d), torch.bfloat16, cuda_device)
+    m, l, acc = port.init_carry(q.shape, cuda_device)
+    _kernels.reset_launches()
+    for carry, args in (((m, l, acc), (_misaligned(q), k, v)), ((m, l, acc), (q, _misaligned(k), v)),
+                        ((m, l, acc), (q, k, _misaligned(v))), ((m, l, _misaligned(acc)), (q, k, v))):
+        with pytest.raises(ValueError, match="aligned"):
+            _kernels.flash_carry(carry, *args, 0, 0, True)
+    assert not any(_kernels.LAUNCHES.values())
+    _carry_close(_kernels.flash_carry((m, l, acc), q, k, v, 0, 0, True),
+                 port.plain_flash_chunk_update((m, l, acc), q, k, v, 0, 0, True),
+                 port.plain_flash_chunk_mass((m, l, acc), q, k, v, 0, 0, True))
+
+
 # --- the bf16 backward pair at D = 128 and 256 on the tensor cores ----------------
 
 
@@ -1160,12 +1225,12 @@ def test_chunked_kernels_match_plain_versions_on_card(cuda_device, d, dtype):
     """Rows 1-5 above the largest compiled instance ([2, 129, 2, D]; D = 513
     zero-padded to 576): the forward with and without lse, the backward pair
     and a diagonal, a past and a future carry fold against their plain
-    versions, each launching once and counting. The chunked kernels compute
-    in f32 throughout and are held to flash_attn.cu's CUDA-core bars (bf16
-    carry within 1 bf16 ulp, f32 forward and carry 1e-5, f32 gradients
-    1e-4); the bf16 forward and backward pair run the grouped tensor-core
-    kernels, held to the split bar (1e-6 + 1 bf16 ulp + 2^-15 of the row's
-    mass, or of the gradient's)."""
+    versions, each launching once and counting. f32 runs the chunked
+    kernels, which compute in f32 throughout and are held to flash_attn.cu's
+    CUDA-core bars (forward and carry 1e-5, gradients 1e-4); bf16 runs the
+    grouped tensor-core kernels, held to the split bar (1e-6 + 1 bf16 ulp +
+    2^-15 of the row's mass, or of the gradient's; the carry within the
+    f32 carry bar plus 2^-15 of the fold's mass, m to 1e-5)."""
     kd, bf16 = 64 * ((d + 63) // 64), dtype == torch.bfloat16
     route = (kd, _kernels.TENSOR_CORES if bf16 else _kernels.CHUNKED)
     assert _kernels.kernel_route("flash_fwd", dtype, d) == _kernels.kernel_route("flash_bwd_dq", dtype, d) == route
@@ -1196,7 +1261,8 @@ def test_chunked_kernels_match_plain_versions_on_card(cuda_device, d, dtype):
     carry = port.init_carry(q.shape, cuda_device)
     for kv_off in (off, 0):  # the diagonal fold, then a past one
         folded = _kernels.flash_carry(carry, q, k, v, off, kv_off, True)
-        _carry_close(folded, port.plain_flash_chunk_update(carry, q, k, v, off, kv_off, True))
+        mass = port.plain_flash_chunk_mass(carry, q, k, v, off, kv_off, True) if bf16 else None
+        _carry_close(folded, port.plain_flash_chunk_update(carry, q, k, v, off, kv_off, True), mass)
         carry = folded
     future = _kernels.flash_carry(carry, q, k, v, off, off + 129, True)
     assert all(torch.equal(a, b) for a, b in zip(future, carry))

@@ -1,5 +1,5 @@
 """The port's MeshSimulation options against the JAX package's: the
-signatures, the local-training options (SCAFFOLD, FedProx, DP-SGD's clip)
+signatures (and ``local_train_step``'s), the local-training options (SCAFFOLD, FedProx, DP-SGD's clip)
 and the server optimizers, each on the same schedule and weights as
 tests/test_torch_classification.py's round, within 1e-5 (f32 on both
 sides). Two local epochs over one full batch each make FedProx's pull and
@@ -16,9 +16,10 @@ import pytest
 
 from p2pfl_tpu.parallel.mesh import make_mesh
 from p2pfl_tpu.parallel.simulation import MeshSimulation as JaxMeshSimulation
+from p2pfl_tpu.parallel.simulation import local_train_step as jax_local_train_step
 from p2pfl_tpu_torch.models.convert import torch_to_flax
 from p2pfl_tpu_torch.optim import sgd
-from p2pfl_tpu_torch.parallel.simulation import MeshSimulation
+from p2pfl_tpu_torch.parallel.simulation import MeshSimulation, local_train_step
 from test_torch_classification import LR, SCHED, assert_matches, mlp_handles, mnist_partitions, run_pair
 
 SCHED3 = np.array([[0, 2], [1, 2], [3, 0]], np.int32)
@@ -35,6 +36,21 @@ def test_signature_matches_jax(method):
     if extra:
         assert port["device"].default == "cuda"
     assert port.get("task", None) is None or port["task"].default == "classification"
+
+
+def test_local_train_step_signature_matches_jax():
+    """``local_train_step`` takes the JAX package's arguments in its order,
+    with its defaults (``lr`` among them, accepted and not read there
+    either); the port renames ``key`` to ``gen`` (a torch generator: same
+    inputs, not the same RNG) and adds only ``per_example`` last."""
+    port = inspect.signature(local_train_step).parameters
+    ref = inspect.signature(jax_local_train_step).parameters
+    renamed = ["gen" if name == "key" else name for name in ref]
+    assert list(port) == [*renamed, "per_example"]
+    for (name, p), ported in zip(ref.items(), renamed):
+        assert port[ported].kind == p.kind, name
+        assert port[ported].default == p.default, name
+    assert port["per_example"].kind == inspect.Parameter.KEYWORD_ONLY
 
 
 @pytest.mark.parametrize(
