@@ -10,8 +10,9 @@ Phases, each on its own printed lines:
    registers and spills of each kernel; the tensor-core forward and
    backward pair (D = 64, the wide ones at D = 128 and 256, the grouped
    ones at every D above 256, the narrow forward's six instances and the
-   narrow backward pair's six below 64) and the two tensor-core carry
-   kernels (D 64; the grouped one above 64) must not spill, no CUDA-core
+   narrow backward pair's six below 64) and the tensor-core carry kernels
+   (the narrow carry's three instances below 64; D 64; the grouped one
+   above 64) must not spill, no CUDA-core
    kernel has a bf16 instance, and every chunked kernel (rows 1-5 above
    D = 512, f32 only) is built). The count of ``HGMMA`` (wgmma) instructions in
    each tensor-core kernel from ``cuobjdump -sass`` (each must have some)
@@ -68,14 +69,15 @@ Phases, each on its own printed lines:
 
 5. narrow: rows 1-5 at head sizes 32 and 16 (the width of rows 1-5 over 16
    and 32 heads: [8, 1024, H, D], the eval forward at [16, 1024, H, D], the
-   carry at one ring chunk [2, 1024, H, D]) in bf16 (rows 1-4 on the narrow
-   tensor-core forward and backward pair at the true D; the carry's q, k, v
-   and acc zero-padded to 64 for its tensor-core kernel) and f32 (the
+   carry at one ring chunk [2, 1024, H, D]) in bf16 (rows 1-5 on the narrow
+   tensor-core forward, backward pair and carry at the true D, no host copy;
+   a future fold must return the carry bit-identical) and f32 (the
    CUDA-core instances at D), held to the bars of phase 2 and the carry
    phase, then timed beside the aten flash forward and backward at the same
    shape, with the bound at the true D; under torch.profiler one call each
    of the forward (with and without lse), dq and dk/dv at [8, 1024, 16, 32]
-   must be one CUDA kernel each (no pad copies). Then rows 1-4 the same way
+   must be one CUDA kernel each (no pad copies), and, in phase 16's process
+   of its own, one carry call at [2, 1024, 16, 32]. Then rows 1-4 the same way
    at the flash classifier's own shapes (bf16, head size 32, a sequence of
    64: one 64-row tile of the narrow kernels): training at [16, 64, 4, 32],
    eval at [256, 64, 4, 32]. Each row 2 also records the backend SDPA takes
@@ -106,9 +108,9 @@ Phases, each on its own printed lines:
    under Krum, the update-norm clip and ``eval_every=2``: finite losses;
    then each held on the card against the CPU as in phase 7.
 
-10. c1: rows 1-5 at head sizes 48 ([8, 1024, 8, 48]: the bf16 forward and
-   backward pair on the narrow tensor-core kernels at the true D, the bf16
-   carry padded to the 64 tensor-core kernel, f32 to the 64 instance) and
+10. c1: rows 1-5 at head sizes 48 ([8, 1024, 8, 48]: the bf16 forward,
+   backward pair and carry on the narrow tensor-core kernels at the true D,
+   f32 padded to the 64 instance) and
    128 ([8, 1024, 4,
    128]: the bf16 forward and backward pair on the wide tensor-core kernels,
    the bf16 carry on the grouped tensor-core carry, every f32 row on the
@@ -159,7 +161,8 @@ Phases, each on its own printed lines:
    f32 on the chunked kernels, held to the same bars and timed beside
    whatever fused library call takes the shape, its backend recorded
    ("none" where none does); in a process of its own, one bf16 carry call at
-   [2, 1024, 1, 512] must be one CUDA kernel, the grouped carry. Then the LM
+   [2, 1024, 1, 512] must be one CUDA kernel, the grouped carry, and one at
+   [2, 1024, 16, 32] the narrow carry. Then the LM
    and the ring at width 512 over 2 heads and over 1 head (D = 256 / 512),
    and at width 1024 over 1 head (D = 1024) cut to one layer, as in phase
    6, exact launch counts; each LM after a warm-up round, the ring's s/step
@@ -252,24 +255,24 @@ RING_KERNEL_ROWS = {  # name -> (replaced TPU kernel body, launches per train st
 }
 
 # Head sizes below 64: the width above over 16 and 32 heads. The bf16
-# forward and backward pair run the narrow tensor-core kernels at the true
-# D; the bf16 carry zero-pads to the 64 instance of its tensor-core kernel;
-# f32 has its own instances.
+# forward, backward pair and carry run the narrow tensor-core kernels at the
+# true D; f32 has its own instances.
 NARROW_HEAD_DIMS = (32, 16)
 SOURCE_F32 = "p2pfl_tpu_torch/csrc/flash_attn.cu"  # the CUDA-core kernels: f32
 SOURCE_FWD_WIDE = "p2pfl_tpu_torch/csrc/flash_fwd_wide_sm90.cu"  # the bf16 forward at D = 128 and 256
 SOURCE_FWD_GROUPED = "p2pfl_tpu_torch/csrc/flash_fwd_grouped_sm90.cu"  # the bf16 forward above D = 256
 SOURCE_FWD_NARROW = "p2pfl_tpu_torch/csrc/flash_fwd_narrow_sm90.cu"  # the bf16 forward below D = 64
 SOURCE_BWD_NARROW = "p2pfl_tpu_torch/csrc/flash_bwd_narrow_sm90.cu"  # the bf16 backward pair below D = 64
+SOURCE_CARRY_NARROW = "p2pfl_tpu_torch/csrc/flash_carry_narrow_sm90.cu"  # the bf16 carry below D = 64
 SOURCE_BWD_WIDE = "p2pfl_tpu_torch/csrc/flash_bwd_wide_sm90.cu"  # the bf16 backward pair at D = 128 and 256
 SOURCE_BWD_GROUPED = "p2pfl_tpu_torch/csrc/flash_bwd_grouped_sm90.cu"  # the bf16 backward pair above D = 256
 SOURCE_CHUNKED = "p2pfl_tpu_torch/csrc/flash_chunked.cu"  # above D = 512: f32
 SOURCE_CARRY_GROUPED = "p2pfl_tpu_torch/csrc/flash_carry_grouped_sm90.cu"  # the bf16 carry above D = 64
 # Head sizes up to 128 (the repair of ROADMAP queue C item 1): 48 at the LM's
-# width over 8 heads (width 384; the bf16 forward and backward pair on the
-# narrow kernels, the bf16 carry padded to the 64 tensor-core kernel, f32 to
-# the 64 instance) and 128 at width 512 over 4 heads (bf16 on the wide
-# kernels and the grouped carry, f32 on the CUDA-core <f32, 128> instances).
+# width over 8 heads (width 384; the bf16 forward, backward pair and carry on
+# the narrow kernels, f32 padded to the 64 instance) and 128 at width 512
+# over 4 heads (bf16 on the wide kernels and the grouped carry, f32 on the
+# CUDA-core <f32, 128> instances).
 # Head size -> heads.
 C1_HEAD_DIMS = {48: 8, 128: 4}
 # Head size 256: the LM's width over 2 heads (the bf16 forward and backward
@@ -555,7 +558,8 @@ def phase_env() -> str:
         mw90 = re.search(r"flash_fwd_wide_sm90_kernelILi(\d+)ELb(\d)E", line)
         mg90 = re.search(r"flash_fwd_grouped_sm90_kernelILb(\d)E", line)
         mn90 = re.search(r"flash_fwd_narrow_sm90_kernelILi(\d+)ELb(\d)E", line)
-        mnb = re.search(r"(flash_bwd_dq_narrow_sm90_kernel|flash_bwd_dkv_narrow_sm90_kernel)ILi(\d+)E", line)
+        mnb = re.search(r"(flash_bwd_dq_narrow_sm90_kernel|flash_bwd_dkv_narrow_sm90_kernel|"
+                        r"flash_carry_narrow_sm90_kernel)ILi(\d+)E", line)
         mb90 = re.search(r"(flash_bwd_dq_sm90_kernel|flash_bwd_dkv_sm90_kernel|flash_carry_sm90_kernel)", line)
         mwb = re.search(r"(flash_bwd_dq_wide_sm90_kernel|flash_bwd_dkv_wide_sm90_kernel)ILi(\d+)E", line)
         mgb = re.search(r"(flash_bwd_dq_grouped_sm90_kernel|flash_bwd_dkv_grouped_sm90_kernel|"
@@ -605,6 +609,9 @@ def phase_env() -> str:
     check(sorted(e for e in seen if "_narrow_sm90" in e and e.startswith("flash_bwd")) ==
           sorted(f"flash_bwd_{k}_narrow_sm90_kernel<bf16, W={w}>" for k in ("dq", "dkv") for w in (16, 32, 64)),
           "the build log lacks a narrow tensor-core backward instance (dq, dk/dv at box width 16 / 32 / 64)")
+    check(sorted(e for e in seen if e.startswith("flash_carry_narrow_sm90")) ==
+          [f"flash_carry_narrow_sm90_kernel<bf16, W={w}>" for w in (16, 32, 64)],
+          "the build log lacks a narrow tensor-core carry instance (box width 16 / 32 / 64)")
     check(all(any(e.startswith(f"flash_bwd_{k}_sm90") for e in seen) for k in ("dq", "dkv")),
           "the build log lacks a tensor-core backward kernel")
     check(sorted(e for e in seen if "_wide_sm90" in e and e.startswith("flash_bwd")) ==
@@ -677,6 +684,9 @@ def phase_sass(lib, nvcc: str) -> None:
     grouped_bwd90 = [n for name, n in shown.items() if re.search(r"flash_bwd_(dq|dkv)_grouped_sm90", name)]
     check(len(grouped_bwd90) == 2 and all(n > 0 for n in grouped_bwd90),
           "a grouped bf16 backward kernel (above D = 256) holds no HGMMA instruction")
+    carry_narrow90 = [n for name, n in shown.items() if "flash_carry_narrow_sm90_kernel" in name]
+    check(len(carry_narrow90) == 3 and all(n > 0 for n in carry_narrow90),
+          "a narrow bf16 carry instance (box width 16 / 32 / 64) holds no HGMMA instruction")
     carry90 = [n for name, n in shown.items() if "flash_carry_sm90" in name]
     check(len(carry90) == 1 and carry90[0] > 0, "the bf16 carry kernel (D 64) holds no HGMMA instruction")
     carry_grouped90 = [n for name, n in shown.items() if "flash_carry_grouped_sm90" in name]
@@ -1914,13 +1924,15 @@ def phase_kernels_chunked() -> dict:
 
 
 def phase_carry_one_launch() -> None:
-    """In a process of its own (``carry_call_kernels``), one bf16 carry call
-    at [2, 1024, 1, 512] must be one CUDA kernel, the grouped carry."""
-    shape = [RING_BATCH, RING_SHARD, 1, 512]
-    names = in_fresh_process(f"carry_call_kernels({shape})")
-    print(f"[carry-grouped] one call of flash_carry at {shape} bf16: CUDA kernels {names}")
-    check(len(names) == 1 and "flash_carry_grouped_sm90_kernel" in names[0],
-          f"the carry call at {shape} is not the grouped carry kernel alone: {names}")
+    """In a process of its own each (``carry_call_kernels``), one bf16 carry
+    call at [2, 1024, 1, 512] must be one CUDA kernel, the grouped carry, and
+    one at [2, 1024, 16, 32] the narrow carry: no pad or slice copies."""
+    calls = (("carry-grouped", [RING_BATCH, RING_SHARD, 1, 512], "flash_carry_grouped_sm90_kernel"),
+             ("carry-narrow", [RING_BATCH, RING_SHARD, EMBED // 32, 32], "flash_carry_narrow_sm90_kernel"))
+    for label, shape, kernel in calls:
+        names = in_fresh_process(f"carry_call_kernels({shape})")
+        print(f"[{label}] one call of flash_carry at {shape} bf16: CUDA kernels {names}")
+        check(len(names) == 1 and kernel in names[0], f"the carry call at {shape} is not {kernel} alone: {names}")
 
 
 def phase_chunked_paths() -> dict:
@@ -2332,9 +2344,9 @@ def time_phases() -> None:
 
 def row_source(name: str, d: int, sm90_source: str) -> str:
     """The source of the bf16 kernel that row ``name`` runs at head size
-    ``d``: the narrow forward's or backward pair's where ``kernel_route``
-    names them (rows 1-4 wherever the wrapper hands the kernel a head size
-    below 64), else
+    ``d``: the narrow forward's, backward pair's or carry's where
+    ``kernel_route`` names them (wherever the wrapper hands the kernel a
+    head size below 64), else
     ``sm90_source`` (the D = 64 tensor-core kernel's) at D <= 64, the
     grouped carry's above 64, the wide forward's or backward pair's at 128
     and 256, the grouped forward's or backward pair's above 256."""
@@ -2343,6 +2355,8 @@ def row_source(name: str, d: int, sm90_source: str) -> str:
 
     kd, route = _kernels.kernel_route(name, torch.bfloat16, d)
     forward = name in _kernels.FORWARDS
+    if route == _kernels.NARROW and name == "flash_carry":
+        return SOURCE_CARRY_NARROW
     if route == _kernels.NARROW:
         return SOURCE_FWD_NARROW if forward else SOURCE_BWD_NARROW
     if kd == _kernels.SM90_HEAD_DIM:
@@ -2437,10 +2451,10 @@ def main() -> int:
          **rows[name]}
         for name, (replaces, _, source) in kernels.items()
     ]
-    # The narrow rows: the bf16 forward on SOURCE_FWD_NARROW and the backward
-    # pair on SOURCE_BWD_NARROW at the true D, the carry on the D 64
-    # tensor-core source on padded heads; the f32 numbers beside them are the
-    # CUDA-core instances of SOURCE_F32.
+    # The narrow rows: the bf16 forward on SOURCE_FWD_NARROW, the backward
+    # pair on SOURCE_BWD_NARROW and the carry on SOURCE_CARRY_NARROW at the
+    # true D; the f32 numbers beside them are the CUDA-core instances of
+    # SOURCE_F32.
     table += [
         {"name": name + narrow_suffix(d), "route": "cuda", "source": row_source(name, d, source), "replaces": replaces,
          "launches": launches[name + narrow_suffix(d)], **rows[name + narrow_suffix(d)], "source_f32": SOURCE_F32}
@@ -2448,7 +2462,7 @@ def main() -> int:
     ]
     # Head sizes 48, 128, 256, 512 and 1024: bf16 at 48 the forward on
     # SOURCE_FWD_NARROW, the backward pair on SOURCE_BWD_NARROW and the carry
-    # on the padded D 64 tensor-core kernel, the forward at 128 and 256 on
+    # on SOURCE_CARRY_NARROW, the forward at 128 and 256 on
     # SOURCE_FWD_WIDE's and the backward pair on SOURCE_BWD_WIDE's, the
     # forward at 512 and 1024 on SOURCE_FWD_GROUPED's and the backward pair on
     # SOURCE_BWD_GROUPED's, the carry from 128 on SOURCE_CARRY_GROUPED's; f32

@@ -13,10 +13,11 @@
 // p2pfl_flash_fwd / p2pfl_flash_carry / p2pfl_flash_bwd_dq /
 // p2pfl_flash_bwd_dkv below: at 64 the forward and the carry fold in
 // flash_fwd_sm90.cu and the backward pair in flash_bwd_sm90.cu. Below 64 the
-// forward and backward pair run the kernels of flash_fwd_narrow_sm90.cu and
-// flash_bwd_narrow_sm90.cu, which read a head size that is a multiple of 8
+// forward, the backward pair and the carry fold run the kernels of
+// flash_fwd_narrow_sm90.cu, flash_bwd_narrow_sm90.cu and
+// flash_carry_narrow_sm90.cu, which read a head size that is a multiple of 8
 // at its true size (ops/_kernels.py zero-pads other narrow bf16 heads to the
-// next multiple of 8, and the carry's to 64). At head sizes 128 and 256 the
+// next multiple of 8). At head sizes 128 and 256 the
 // forward runs flash_fwd_wide_sm90.cu and the backward pair
 // flash_bwd_wide_sm90.cu; above 256 the forward runs
 // flash_fwd_grouped_sm90.cu and the backward pair flash_bwd_grouped_sm90.cu.
@@ -737,6 +738,10 @@ cudaError_t launch_flash_carry_grouped_sm90(const void* q, const void* k, const 
                                             const float* l_in, const float* acc_in, float* m_out, float* l_out,
                                             float* acc_out, int B, int Sq, int Sk, int H, int head_dim, float scale,
                                             bool causal, int q_offset, int kv_offset, cudaStream_t stream);
+cudaError_t launch_flash_carry_narrow_sm90(const void* q, const void* k, const void* v, const float* m_in,
+                                           const float* l_in, const float* acc_in, float* m_out, float* l_out,
+                                           float* acc_out, int B, int Sq, int Sk, int H, int head_dim, float scale,
+                                           bool causal, int q_offset, int kv_offset, cudaStream_t stream);
 cudaError_t launch_flash_bwd_dq_wide_sm90(const void* q, const void* k, const void* v, const void* dout,
                                           const float* lse, const float* delta, void* dq, int B, int Sq, int Sk,
                                           int H, int head_dim, float scale, bool causal, cudaStream_t stream);
@@ -785,8 +790,9 @@ extern "C" {
 // Every entry point returns cudaErrorInvalidValue for a head size without an
 // instance: up to 512, f32 has 16, 32, 64, 128, 256 and 512; bf16 has the
 // forward and backward pair at every multiple of 8 below 64, at 64, 128 and
-// 256 and at every multiple of 64 above 256, and the carry at 64 and every
-// multiple of 64 from 128 up (all on the tensor cores); above 512 f32 takes
+// 256 and at every multiple of 64 above 256, and the carry at every
+// multiple of 8 below 64, at 64 and at every multiple of 64 from 128 up (all
+// on the tensor cores); above 512 f32 takes
 // every multiple of 64 (flash_chunked.cu). ops/_kernels.py kernel_route
 // names the kernel each call takes.
 //
@@ -877,14 +883,18 @@ int p2pfl_flash_bwd_dkv(const void* q, const void* k, const void* v, const void*
 }
 
 // m / l: [B, H, Sq] f32; acc: [B, Sq, H, D] f32; *_in and *_out must not
-// overlap. bf16 at 64 runs the tensor-core kernel of flash_fwd_sm90.cu, above
-// 64 that of flash_carry_grouped_sm90.cu; f32 the CUDA-core kernel above
-// (above 512 the chunked one).
+// overlap. bf16 below 64 (a multiple of 8, read at its true size) runs the
+// tensor-core kernel of flash_carry_narrow_sm90.cu, at 64 that of
+// flash_fwd_sm90.cu, above 64 that of flash_carry_grouped_sm90.cu; f32 the
+// CUDA-core kernel above (above 512 the chunked one).
 int p2pfl_flash_carry(const void* q, const void* k, const void* v, const float* m_in,
                       const float* l_in, const float* acc_in, float* m_out, float* l_out,
                       float* acc_out, int B, int Sq, int Sk, int H, int head_dim, int dtype,
                       float scale, int causal, int q_offset, int kv_offset, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && head_dim < 64)
+    return int(p2pfl::launch_flash_carry_narrow_sm90(q, k, v, m_in, l_in, acc_in, m_out, l_out, acc_out, B, Sq, Sk,
+                                                     H, head_dim, scale, causal != 0, q_offset, kv_offset, s));
   if (dtype == 1 && head_dim == 64)
     return int(p2pfl::launch_flash_carry_sm90(q, k, v, m_in, l_in, acc_in, m_out, l_out, acc_out, B, Sq, Sk, H,
                                               scale, causal != 0, q_offset, kv_offset, s));

@@ -7,8 +7,9 @@
 // for bf16 q / k / v at a head size D that is a multiple of 64 from 128 up
 // (ops/_kernels.py zero-pads 128 < D < 256 to 256, 256 < D <= 512 to 512 and
 // larger D to the next multiple of 64). The TPU kernel keeps (block, D) f32
-// scratch in VMEM and takes any D; at D 64 (and padded below it) the bf16
-// fold is flash_fwd_sm90.cu's flash_carry_sm90_kernel, and the f32 fold at
+// scratch in VMEM and takes any D; at D 64 the bf16 fold is
+// flash_fwd_sm90.cu's flash_carry_sm90_kernel, below 64
+// flash_carry_narrow_sm90.cu's, and the f32 fold at
 // every D stays on the CUDA cores (flash_attn.cu, flash_chunked.cu), the
 // 1e-5 parity path.
 //

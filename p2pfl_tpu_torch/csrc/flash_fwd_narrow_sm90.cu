@@ -10,8 +10,8 @@
 // 32 take W 32, D 40, 48 and 56 take W 64). ops/_kernels.py zero-pads any
 // other D below 57 to the next multiple of 8 (TMA strides in multiples of 16
 // bytes) and D 57-63 to 64, which run flash_fwd_sm90.cu's D 64 kernel. The
-// bf16 backward pair below 64 runs flash_bwd_narrow_sm90.cu, read the same
-// way; the carry fold below 64 still runs the D 64 kernel on padded heads.
+// bf16 backward pair below 64 runs flash_bwd_narrow_sm90.cu and the carry
+// fold flash_carry_narrow_sm90.cu, read the same way.
 //
 // What it computes is what flash_fwd_sm90.cu computes: scores S = Q.K^T are
 // exact bf16 products summed in f32 by wgmma, then multiplied by the scale

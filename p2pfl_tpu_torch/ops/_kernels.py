@@ -17,8 +17,9 @@ Head sizes: any D >= 1. Up to 512 the f32 kernels have instances at 16, 32,
 CUDA-core kernels of ``csrc/flash_chunked.cu``, which take the head size at
 run time and build each score tile a 64-column panel of D at a time. bf16
 runs the tensor cores at every D (:func:`kernel_route`): the forward of
-``csrc/flash_fwd_narrow_sm90.cu`` and backward pair of
-``csrc/flash_bwd_narrow_sm90.cu`` below 64 (box widths 16, 32 and 64; the
+``csrc/flash_fwd_narrow_sm90.cu``, the backward pair of
+``csrc/flash_bwd_narrow_sm90.cu`` and the carry fold of
+``csrc/flash_carry_narrow_sm90.cu`` below 64 (box widths 16, 32 and 64; the
 head size at run time, read by TMA at its true size), the kernels at 64
 (forward, backward pair, carry fold), the forward and backward pair at 128
 and 256, the forward and backward pair of ``csrc/flash_fwd_grouped_sm90.cu``
@@ -27,10 +28,10 @@ and ``csrc/flash_bwd_grouped_sm90.cu`` above 256, and the carry fold of
 
 A call at a D the kernel does not take copies q, k, v (dO; the carry's
 acc) into zeroed ``[B, S, H, D']`` buffers, D' = :func:`host_head_dim`:
-for the bf16 forward and backward pair below 64 the next multiple of 8 (TMA
-strides in multiples of 16 bytes; 57-63 round to 64, the D 64 kernels), and
-no copy at a multiple of 8; elsewhere the next instance (bf16: 64 for D <=
-64, else the next of 128, 256 and 512; above 512 the next multiple of 64).
+for every bf16 kernel below 64 the next multiple of 8 (TMA strides in
+multiples of 16 bytes; 57-63 round to 64, the D 64 kernels), and no copy at
+a multiple of 8; elsewhere the next instance (bf16: the next of 128, 256
+and 512 above 64; above 512 the next multiple of 64).
 The call launches with the true scale ``1/sqrt(D)`` and slices the outputs
 back to D. That is exact: zero columns add exact zeros to ``Q.K^T`` and
 ``dO.V^T``, leave ``delta`` (computed by the caller at D) as it is, and
@@ -61,6 +62,7 @@ SOURCES = (
     _PKG / "csrc" / "flash_attn.cu",  # f32 forward, backward pair and carry fold; the C entry points
     _PKG / "csrc" / "flash_fwd_sm90.cu",  # bf16 forward and carry fold on the tensor cores
     _PKG / "csrc" / "flash_carry_grouped_sm90.cu",  # bf16 carry fold above D = 64 on the tensor cores
+    _PKG / "csrc" / "flash_carry_narrow_sm90.cu",  # bf16 carry fold below D = 64 on the tensor cores, at the true D
     _PKG / "csrc" / "flash_fwd_wide_sm90.cu",  # bf16 forward at D = 128 and 256 on the tensor cores
     _PKG / "csrc" / "flash_fwd_grouped_sm90.cu",  # bf16 forward above D = 256 on the tensor cores
     _PKG / "csrc" / "flash_fwd_narrow_sm90.cu",  # bf16 forward below D = 64 on the tensor cores, at the true D
@@ -87,16 +89,17 @@ MAX_HEAD_DIM = HEAD_DIMS[-1]  # the largest compiled f32 instance; above it the 
 SM90_GROUPED_ABOVE = 256
 FORWARDS = ("flash_fwd", "flash_fwd_no_lse")
 # The kernels whose bf16 calls below SM90_HEAD_DIM take the narrow route: the
-# forward (csrc/flash_fwd_narrow_sm90.cu) and the backward pair
-# (csrc/flash_bwd_narrow_sm90.cu), in box widths NARROW_WIDTHS, which read a
-# head size that is a multiple of NARROW_STEP at its true size (TMA strides
+# forward (csrc/flash_fwd_narrow_sm90.cu), the backward pair
+# (csrc/flash_bwd_narrow_sm90.cu) and the carry fold
+# (csrc/flash_carry_narrow_sm90.cu), in box widths NARROW_WIDTHS, which read
+# a head size that is a multiple of NARROW_STEP at its true size (TMA strides
 # in multiples of 16 bytes).
-NARROW_KERNELS = (*FORWARDS, "flash_bwd_dq", "flash_bwd_dkv")
+NARROW_KERNELS = (*FORWARDS, "flash_bwd_dq", "flash_bwd_dkv", "flash_carry")
 NARROW_WIDTHS = (16, 32, 64)
 NARROW_STEP = 8
 CHUNK = 64  # the panel of D of the chunked kernels: above MAX_HEAD_DIM, D pads to a multiple of it
 TENSOR_CORES, CUDA_CORES = "tensor cores", "CUDA cores"
-NARROW = "tensor cores at the true head size"  # csrc/flash_fwd_narrow_sm90.cu, csrc/flash_bwd_narrow_sm90.cu
+NARROW = "tensor cores at the true head size"  # csrc/flash_{fwd,bwd,carry}_narrow_sm90.cu
 CHUNKED = "CUDA cores, D in 64-column panels"  # csrc/flash_chunked.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -230,9 +233,9 @@ def host_head_dim(kernel: str, dtype: torch.dtype, d: int) -> int:
     """The head size the wrapper of ``kernel`` hands its kernel at head size
     ``d``: ``d`` itself where no copy is made, else the size q, k, v (dO;
     acc) are zero-padded to on the host. The bf16 calls of
-    :data:`NARROW_KERNELS` below :data:`SM90_HEAD_DIM` round ``d`` up to a
-    multiple of :data:`NARROW_STEP` (so 57-63 become 64); every other call
-    (the carry, f32) pads to :func:`kernel_head_dim`."""
+    :data:`NARROW_KERNELS` (every kernel) below :data:`SM90_HEAD_DIM` round
+    ``d`` up to a multiple of :data:`NARROW_STEP` (so 57-63 become 64);
+    every other call pads to :func:`kernel_head_dim`."""
     if dtype == torch.bfloat16 and kernel in NARROW_KERNELS and d < SM90_HEAD_DIM:
         return -(-d // NARROW_STEP) * NARROW_STEP
     return kernel_head_dim(dtype, d)
@@ -242,8 +245,8 @@ def kernel_route(kernel: str, dtype: torch.dtype, d: int) -> Tuple[int, str]:
     """``(instance head size, NARROW, TENSOR_CORES, CUDA_CORES or CHUNKED)``
     that a call of ``kernel`` (a :data:`LAUNCHES` name) at head size ``d``
     runs, as the C entry points of ``csrc/flash_attn.cu`` dispatch it: the
-    bf16 forwards and backward pairs (:data:`NARROW_KERNELS`) take the
-    narrow kernels (``NARROW``, their instance the box width, one of
+    bf16 calls of :data:`NARROW_KERNELS` take the narrow kernels
+    (``NARROW``, their instance the box width, one of
     :data:`NARROW_WIDTHS`) wherever :func:`host_head_dim` stays below
     :data:`SM90_HEAD_DIM`; every other bf16 call takes the tensor cores
     (the carry fold above :data:`SM90_HEAD_DIM` the grouped carry kernel);
@@ -400,9 +403,10 @@ def flash_carry(
     acc [B,Sq,H,D])`` (f32); returns a new carry, the incoming one is only
     read. ``q_offset`` / ``kv_offset``: global positions of q's and k's row 0.
 
-    bf16 runs the tensor-core kernels (at D <= 64 the D 64 one, above 64
-    the grouped one; q, k, v and acc 16-byte aligned); f32 runs the
-    CUDA-core kernels (above 512 the chunked one)."""
+    bf16 runs the tensor-core kernels (the narrow one below 64, with no
+    copy where D is a multiple of 8; the D 64 one; the grouped one above
+    64; q, k, v and acc 16-byte aligned); f32 runs the CUDA-core kernels
+    (above 512 the chunked one)."""
     _check_qkv("flash_carry", q, k, v)
     if k.shape[1] < 1:
         raise ValueError("flash_carry: the kv chunk is empty")

@@ -12,8 +12,8 @@ The flash path has four kernels (``csrc/``, bound in :mod:`._kernels`): the
 forward, written with or without the per-row logsumexp, the dq kernel, the
 dk/dv kernel, and the carry fold that ring attention runs once per kv chunk
 (bf16 on the tensor cores in ``flash_fwd_sm90.cu`` and ``flash_bwd_sm90.cu``,
-below head size 64 ``flash_fwd_narrow_sm90.cu`` and
-``flash_bwd_narrow_sm90.cu`` (but the carry), at head sizes 128 and 256
+below head size 64 ``flash_fwd_narrow_sm90.cu``, ``flash_bwd_narrow_sm90.cu``
+and ``flash_carry_narrow_sm90.cu``, at head sizes 128 and 256
 ``flash_fwd_wide_sm90.cu`` and ``flash_bwd_wide_sm90.cu``, and above 256
 ``flash_fwd_grouped_sm90.cu`` and ``flash_bwd_grouped_sm90.cu``; the carry
 above 64 ``flash_carry_grouped_sm90.cu``; f32 on the CUDA cores in
@@ -232,8 +232,8 @@ def plain_flash_chunk_update(
     """Plain version of the carry kernel: the whole chunk folded in one step.
 
     The kernel folds one tile of keys at a time (128 keys in the bf16
-    tensor-core kernel at D 64, 64 in the grouped one above 64 and in the
-    f32 CUDA-core ones) and skips key tiles
+    tensor-core kernel at D 64, 64 in the narrow one below 64, in the
+    grouped one above 64 and in the f32 CUDA-core ones) and skips key tiles
     wholly in a q tile's future; the two differ only in rounding as long as
     every row has seen a real (unmasked) key by the end of its first folded
     tile, which ring attention's self-chunk-first order guarantees. A chunk

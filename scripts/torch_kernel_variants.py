@@ -9,6 +9,7 @@
     python3 scripts/torch_kernel_variants.py narrow  # the forward below D 64 (flash_fwd_narrow_sm90.cu)
     python3 scripts/torch_kernel_variants.py bwd_narrow  # the backward pair below D 64 (flash_bwd_narrow_sm90.cu)
     python3 scripts/torch_kernel_variants.py carry_grouped  # the carry fold above D 64 (flash_carry_grouped_sm90.cu)
+    python3 scripts/torch_kernel_variants.py carry_narrow  # the carry fold below D 64 (flash_carry_narrow_sm90.cu)
 
 Each variant is the chosen source under ``p2pfl_tpu_torch/csrc/`` with some
 of its text replaced (``VARIANTS`` below), built with the package's other
@@ -29,7 +30,9 @@ longcontext example's ([4, 256, 4, 16], eval [16, 256, 4, 16]);
 ``carry_grouped`` runs the ring's past and diagonal folds of one chunk
 [2, 1024, H, D] bf16 at D 128 / 256 / 512 / 1024 (H 4 / 2 / 1 / 1) and
 prints each variant's largest error in m against the plain version's and
-against the exact row max (f64 scores), beside the plain version's own. A
+against the exact row max (f64 scores), beside the plain version's own;
+``carry_narrow`` runs the past and diagonal folds of one chunk [2, 1024, H,
+D] bf16 at D 32 / 16 / 48 (H 16 / 32 / 8). A
 variant of ``flash_fwd_sm90.cu`` changes the forward and the carry fold
 alike; each family times its own. Every variant's outputs must equal the
 package's kernels' bit for bit (the variants change scheduling, not
@@ -60,7 +63,7 @@ sys.path.insert(0, str(ROOT))
 SOURCES = {"fwd": "flash_fwd_sm90.cu", "bwd": "flash_bwd_sm90.cu", "carry": "flash_fwd_sm90.cu",
            "grouped": "flash_fwd_grouped_sm90.cu", "bwd_grouped": "flash_bwd_grouped_sm90.cu",
            "narrow": "flash_fwd_narrow_sm90.cu", "bwd_narrow": "flash_bwd_narrow_sm90.cu",
-           "carry_grouped": "flash_carry_grouped_sm90.cu"}
+           "carry_grouped": "flash_carry_grouped_sm90.cu", "carry_narrow": "flash_carry_narrow_sm90.cu"}
 # kernel family -> variant name -> {text in the source: replacement}
 VARIANTS = {
     "fwd": {
@@ -133,6 +136,21 @@ VARIANTS = {
             "for (int p = 0; p < kGroupPanels; ++p)\n        wgmma_m64n64k16_rs(o[p], p_lo":
             "for (int p = 0; p < kGroupPanels; ++p)\n        if (p < blk.group_panels) wgmma_m64n64k16_rs(o[p], p_lo"},
         "consumer 232 registers": {"kConsumerRegs = 240;": "kConsumerRegs = 232;"},
+    },
+    "carry_narrow": {  # the blocks an SM at W 16 / 32, where and how the consumer waits for Q, the ring's depth
+        "as built": {},
+        "3 blocks an SM at W 16 / 32": {"constexpr int kBlocksW = W < 64 ? 4 : 3;": "constexpr int kBlocksW = 3;"},
+        **{f"{form} Q wait after the carry read": {
+            "  if (blk.n_tiles > 0) mbar_wait(blk.q_bar(), 0);  // before the carry read: see the header\n": "",
+            "  Ring ring;\n  for (int t = 0; t < blk.n_tiles; ++t) {\n    mbar_spin":
+            f"  if (blk.n_tiles > 0) {wait}(blk.q_bar(), 0);\n"
+            "  Ring ring;\n  for (int t = 0; t < blk.n_tiles; ++t) {\n    mbar_spin"}
+           for form, wait in (("guarded", "mbar_wait"), ("unguarded", "mbar_spin"))},
+        "3 stages": {"constexpr int kStages = 2;": "constexpr int kStages = 3;",
+                     "Tiles<16>::kSmemBytes == 11304 && Tiles<32>::kSmemBytes == 21544 && "
+                     "Tiles<64>::kSmemBytes == 42024":
+                     "Tiles<16>::kSmemBytes == 15416 && Tiles<32>::kSmemBytes == 29752 && "
+                     "Tiles<64>::kSmemBytes == 58424"},
     },
 }
 # Variants whose sums may run in another order than the package's (a 128-row
@@ -284,10 +302,12 @@ def calls(family: str):
             q, k, v, _ = rand(b)
             cases[name] = (forward(q, k, v, with_lse), (_kernels.flash_fwd(q, k, v, True, with_lse)[0],), None)
         return cases
-    if family == "carry_grouped":
+    if family in ("carry", "carry_grouped", "carry_narrow"):
         from p2pfl_tpu_torch.ops import attention as att
 
-        for d, h in ((128, 4), (256, 2), (512, 1), (1024, 1)):
+        shapes = {"carry": ((64, 8),), "carry_grouped": ((128, 4), (256, 2), (512, 1), (1024, 1)),
+                  "carry_narrow": ((32, 16), (16, 32), (48, 8))}[family]
+        for d, h in shapes:  # one ring chunk [2, 1024, h, d]
             q, k, v, kp, vp = (torch.randn((2, 1024, h, d), generator=gen).cuda().to(torch.bfloat16)
                                for _ in range(5))
             off = 7 * 1024  # shard 7 of 8: its diagonal chunk into a fresh carry, then a past chunk
@@ -302,31 +322,15 @@ def calls(family: str):
                                                 1.0 / math.sqrt(d), 1, off, kv_off, stream))
                     return outs
 
-                s64 = att._causal_mask(torch.einsum("bqhd,bkhd->bhqk", q.double(), kc.double()) / math.sqrt(d),
-                                       off, kv_off)
-                m64 = torch.maximum(carry[0].double(), s64.amax(-1))  # the exact row max (f64 scores)
-                plain = (att.plain_flash_chunk_update(carry, q, kc, vc, off, kv_off, True),
-                         att.plain_flash_chunk_mass(carry, q, kc, vc, off, kv_off, True), m64)
-                cases[f"{name} D={d}"] = (fold, _kernels.flash_carry(carry, q, kc, vc, off, kv_off, True), plain)
-        return cases
-    if family == "carry":
-        from p2pfl_tpu_torch.ops import attention as att
-
-        q, k, v, kp = rand(2)  # one ring chunk [2, 1024, 8, 64]
-        vp = rand(2)[0]
-        off = 7 * 1024  # shard 7 of 8: its diagonal chunk into a fresh carry, then a past chunk
-        fresh = att.init_carry(q.shape, q.device)
-        diag = _kernels.flash_carry(fresh, q, k, v, off, off, True)
-        for name, carry, kc, vc, kv_off in (("past fold", diag, kp, vp, 0), ("diagonal fold", fresh, k, v, off)):
-            def fold(lib, carry=carry, kc=kc, vc=vc, kv_off=kv_off):  # the defaults hold the tensors alive
-                outs = tuple(torch.empty_like(t) for t in carry)
-                b, sq, h, d = q.shape
-                check(lib.p2pfl_flash_carry(q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-                                            *(t.data_ptr() for t in (*carry, *outs)), b, sq, sq, h, d, 1,
-                                            1.0 / math.sqrt(d), 1, off, kv_off, stream))
-                return outs
-
-            cases[name] = (fold, _kernels.flash_carry(carry, q, kc, vc, off, kv_off, True), None)
+                plain = None
+                if family == "carry_grouped":
+                    s64 = att._causal_mask(torch.einsum("bqhd,bkhd->bhqk", q.double(), kc.double()) / math.sqrt(d),
+                                           off, kv_off)
+                    m64 = torch.maximum(carry[0].double(), s64.amax(-1))  # the exact row max (f64 scores)
+                    plain = (att.plain_flash_chunk_update(carry, q, kc, vc, off, kv_off, True),
+                             att.plain_flash_chunk_mass(carry, q, kc, vc, off, kv_off, True), m64)
+                label = name if family == "carry" else f"{name} D={d}"
+                cases[label] = (fold, _kernels.flash_carry(carry, q, kc, vc, off, kv_off, True), plain)
         return cases
     return backward(*rand(8))
 

@@ -3,7 +3,9 @@ JAX package's flash attention and carry fold. Narrow: the plain forward and
 its lse, and the plain dq, dk and dv, at 8, 20, 40, 48 and 63, head sizes
 the card's bf16 forward and backward pair run on the narrow tensor-core
 kernels (8, 40, 48 at the true size, 20 zero-padded to 24) or, at 63, on
-the D 64 kernels. Wide: 384 and 512 (the widest compiled
+the D 64 kernels; the plain carry fold at every multiple of 8 below 64, the
+narrow carry kernel's head sizes, and at 12 and 60 (zero-padded to 16 and,
+for the D 64 carry kernel, to 64). Wide: 384 and 512 (the widest compiled
 instances: 384 is zero-padded to 512), and 576, 640 and 1024, which the card
 runs with D zero-padded to a multiple of 64: bf16 on the grouped tensor-core
 kernels (groups of up to four 64-column panels of O or acc; at 576 and 640
@@ -97,6 +99,20 @@ def test_plain_chunk_update_matches_jax_at_wide_heads(d):
     then the past chunk 0, into a fresh carry; the carry after each fold
     within 1e-5 of the JAX kernel's. From 128 up the card's bf16 fold runs
     the grouped tensor-core carry, held to this plain version."""
+    _assert_chunk_updates_match_jax(d)
+
+
+@pytest.mark.parametrize("d", [8, 12, 16, 24, 32, 40, 48, 56, 60])
+def test_plain_chunk_update_matches_jax_at_narrow_heads(d):
+    """The narrow twin of the wide test above: the diagonal fold, then the
+    past fold, within 1e-5 of the JAX kernel's carry. Below 57 the card's
+    bf16 fold runs the narrow tensor-core carry at D rounded up to a
+    multiple of 8 (12 to 16), from 57 the D 64 one (60 padded to 64), both
+    held to this plain version."""
+    _assert_chunk_updates_match_jax(d)
+
+
+def _assert_chunk_updates_match_jax(d):
     q, k, v = _qkv(d + 1, d)
     s = S // 2
     qc = q[:, s:]

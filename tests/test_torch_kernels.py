@@ -78,20 +78,19 @@ def test_kernel_head_dim_pads_every_head_size_to_the_next_instance():
 
 @pytest.mark.parametrize("kernel", list(_kernels.LAUNCHES))
 def test_kernel_route_names_the_c_path_of_every_head_size(kernel):
-    """bf16 takes the tensor cores at every D: the forward (with and
-    without lse) and the backward pair up to 56 on the narrow kernels,
-    named ``NARROW``, their instance the box width 16, 32 or 64 over D
-    rounded up to a multiple of 8, and from 57 to 64 the D = 64 kernels; the
-    wide ones at 128 and 256, the grouped ones above 256; the carry the D =
-    64 kernel up to 64 and the grouped carry above 64 (513-4096 too), at the
-    next of 128, 256 and 512, then the next multiple of 64. f32 takes the
-    CUDA-core instances up to 512 and the chunked kernels above, at the next
-    multiple of 64."""
-    carry = kernel == "flash_carry"
+    """bf16 takes the tensor cores at every D: every kernel (the forward with
+    and without lse, the backward pair, the carry) up to 56 on the narrow
+    kernels, named ``NARROW``, their instance the box width 16, 32 or 64
+    over D rounded up to a multiple of 8, and from 57 to 64 the D = 64
+    kernels; the forward and backward pair on the wide ones at 128 and 256,
+    the grouped ones above 256; the carry on the grouped carry above 64
+    (513-4096 too), at the next of 128, 256 and 512, then the next multiple
+    of 64. f32 takes the CUDA-core instances up to 512 and the chunked
+    kernels above, at the next multiple of 64."""
     for d in range(1, 513):
         kd = 64 if d <= 64 else 128 if d <= 128 else 256 if d <= 256 else 512
         route = _kernels.TENSOR_CORES
-        if not carry and d <= 56:
+        if d <= 56:
             kd, route = (16 if d <= 16 else 32 if d <= 32 else 64), _kernels.NARROW
         assert _kernels.kernel_route(kernel, torch.bfloat16, d) == (kd, route), d
         assert _kernels.kernel_route(kernel, torch.float32, d) == (
@@ -104,14 +103,15 @@ def test_kernel_route_names_the_c_path_of_every_head_size(kernel):
 
 @pytest.mark.parametrize("kernel", list(_kernels.LAUNCHES))
 def test_host_pad_of_the_narrow_forward_follows_d_mod_8(kernel):
-    """The head size a wrapper hands its kernel (``host_head_dim``): the bf16
-    forward and backward pair below 64 copy nothing where D % 8 == 0 (TMA
-    reads the true D) and pad to the next multiple of 8 elsewhere, and
-    ``kernel_route`` names the narrow kernel at the smallest box width that
-    holds the padded D; 57-63 pad to 64, the D = 64 kernels. The bf16 carry,
-    and every f32 call, keep padding to the next instance."""
+    """The head size a wrapper hands its kernel (``host_head_dim``): every
+    bf16 kernel below 64 (the forward, the backward pair and the carry)
+    copies nothing where D % 8 == 0 (TMA reads the true D) and pads to the
+    next multiple of 8 elsewhere, and ``kernel_route`` names the narrow
+    kernel at the smallest box width that holds the padded D; 57-63 pad to
+    64, the D = 64 kernels. Every f32 call keeps padding to the next
+    instance."""
     narrow = kernel in _kernels.NARROW_KERNELS
-    assert narrow == (kernel != "flash_carry")
+    assert narrow
     for d in range(1, 64):
         want = 8 * ((d + 7) // 8) if narrow else 64
         assert _kernels.host_head_dim(kernel, torch.bfloat16, d) == want, d
@@ -144,7 +144,8 @@ def test_library_path_follows_the_source(tmp_path, monkeypatch):
     path = _kernels.library_path()
     assert path.parent == _kernels.BUILD_DIR and path.suffix == ".so"
     assert [src.name for src in _kernels.SOURCES] == ["flash_attn.cu", "flash_fwd_sm90.cu",
-                                                      "flash_carry_grouped_sm90.cu", "flash_fwd_wide_sm90.cu",
+                                                      "flash_carry_grouped_sm90.cu", "flash_carry_narrow_sm90.cu",
+                                                      "flash_fwd_wide_sm90.cu",
                                                       "flash_fwd_grouped_sm90.cu", "flash_fwd_narrow_sm90.cu",
                                                       "flash_bwd_sm90.cu",
                                                       "flash_bwd_wide_sm90.cu", "flash_bwd_grouped_sm90.cu",
@@ -641,11 +642,12 @@ def test_chunk_mass_is_the_row_mass_times_l_on_a_fresh_carry(causal):
 
 
 _CARRY_FOLD_LENGTHS = {"diagonal": 64, "past": 64, "ragged non-causal": 100, "diagonal S=129": 129}
-# (fold, head size): every fold at D 64, the D 64 kernel's, and at 128 and
-# 576, the grouped carry's (one partial group of two panels; groups of four,
-# four and one).
+# (fold, head size): every fold at D 64, the D 64 kernel's, at 16, 32 and 48,
+# the narrow carry's (box widths 16, 32 and 64), and at 128 and 576, the
+# grouped carry's (one partial group of two panels; groups of four, four and
+# one).
 _CARRY_FOLD_CASES = [pytest.param(fold, d, id=fold if d == 64 else f"{fold}-d{d}")
-                     for d in (64, 128, 576) for fold in _CARRY_FOLD_LENGTHS]
+                     for d in (64, 16, 32, 48, 128, 576) for fold in _CARRY_FOLD_LENGTHS]
 
 
 def _carry_fold_case(fold, d=64):
@@ -728,16 +730,24 @@ def test_carry_kernel_ragged_non_causal_on_card(cuda_device):
                  port.plain_flash_chunk_mass(fresh, q, k, v, 0, 0, False))
 
 
+_EDGE_FOLDS = {"mid-tile diagonal": (1024, 100), "S=129": (129, 0), "S=1": (1, 0)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,kv_back", [(1024, 100), (129, 0), (1, 0)], ids=["mid-tile diagonal", "S=129", "S=1"])
-def test_carry_kernel_edge_folds_on_card(cuda_device, s, kv_back):
-    """bf16 folds at the tensor-core kernel's edges: a chunk whose causal
-    diagonal crosses a key tile (kv_offset = q_offset - 100, into a fresh
-    carry: every row sees key 0 in its first tile), and chunks of 129 (one
-    full q tile and a row) and 1, each the diagonal fold into a fresh carry
-    and then a past fold into it."""
-    q, k, v, kp = _qkv(7, (2, s, 8, 64), torch.bfloat16, cuda_device)
-    vp = _qkv(8, (2, s, 8, 64), torch.bfloat16, cuda_device)[0]
+@pytest.mark.parametrize("s,kv_back,d", [pytest.param(s, kv_back, d, id=name if d == 64 else f"{name}-d{d}")
+                                         for d in (64, 16, 32, 48) for name, (s, kv_back) in _EDGE_FOLDS.items()])
+def test_carry_kernel_edge_folds_on_card(cuda_device, s, kv_back, d):
+    """bf16 folds at the tensor-core kernels' edges, at D 64 (the D 64
+    kernel: 128-row q tiles, 128-key tiles) and at 16, 32 and 48 (the narrow
+    carry: 64-row q tiles, 64-key tiles): a chunk whose causal diagonal
+    crosses a key tile (kv_offset = q_offset - 100, into a fresh carry: every
+    row sees key 0 in its first tile; the diagonal of a 64-row q tile then
+    runs from key 100 + q0, inside a 64-key tile at every q tile), and
+    chunks of 129 (two full 64-row q tiles, one full 128-row one, and a row)
+    and 1, each the diagonal fold into a fresh carry and then a past fold
+    into it."""
+    q, k, v, kp = _qkv(7, (2, s, 8, d), torch.bfloat16, cuda_device)
+    vp = _qkv(8, (2, s, 8, d), torch.bfloat16, cuda_device)[0]
     off = 7 * s
     carry = port.init_carry(q.shape, cuda_device)
     folds = [(k, v, off - kv_back)] + ([(kp, vp, 0)] if kv_back == 0 else [])
@@ -953,13 +963,13 @@ def test_narrow_backward_is_one_kernel_launch_on_card(cuda_device, kernel):
 
 # --- head sizes 16, 32, 48, 128, 160, 256, 384 and 512 -----------------------------
 # f32 runs instances of the CUDA-core kernels at 16, 32, 128, 256 and 512 (48
-# is zero-padded to 64, 160 to 256, 384 to 512); bf16 runs the forward and
-# backward pair at 16, 32 and 48 on the narrow tensor-core kernels at the
-# true D, zero-pads the carry's q, k, v and acc to 64 for its tensor-core
-# kernel, runs the wide tensor-core forward and backward pair and the
-# CUDA-core carry at 128 and 256 (160 padded to 256), and at 512 (384 padded
-# to it) the grouped tensor-core forward and backward pair and the CUDA-core
-# carry, slicing the outputs back. All are held to the D = 64 bars above.
+# is zero-padded to 64, 160 to 256, 384 to 512); bf16 runs the forward, the
+# backward pair and the carry at 16, 32 and 48 on the narrow tensor-core
+# kernels at the true D, the wide tensor-core forward and backward pair at
+# 128 and 256 (160 padded to 256), and at 512 (384 padded to it) the grouped
+# tensor-core forward and backward pair, and the grouped tensor-core carry
+# from 128 on, slicing the outputs back. All are held to the D = 64 bars
+# above.
 
 
 @pytest.mark.cuda
@@ -1022,7 +1032,17 @@ def test_narrow_head_autograd_matches_dense_on_card(cuda_device, d, dtype):
 @pytest.mark.parametrize("d", [16, 32, 48, 128, 160, 256, 384, 512])
 def test_narrow_head_carry_matches_plain_version_on_card(cuda_device, d, s, dtype):
     """The diagonal fold of shard 7 into a fresh carry, a past fold into it
-    and a future fold (the carry back bit-identical), at [2, S, 4, D]."""
+    and a future fold (the carry back bit-identical), at [2, S, 4, D], on
+    the route ``kernel_route`` names (bf16: the narrow carry at 16, 32 and
+    48, the grouped carry above 64; f32: the CUDA cores), three carry
+    launches and no other kernel's."""
+    if dtype == torch.float32:
+        want = (_kernels.kernel_head_dim(dtype, d), _kernels.CUDA_CORES)
+    elif d < 64:  # the box width
+        want = (64 if d == 48 else d, _kernels.NARROW)
+    else:
+        want = (_kernels.kernel_head_dim(dtype, d), _kernels.TENSOR_CORES)
+    assert _kernels.kernel_route("flash_carry", dtype, d) == want
     q, k, v, kp = _qkv(40 + d, (2, s, 4, d), dtype, cuda_device)
     vp = _qkv(41 + d, (2, s, 4, d), dtype, cuda_device)[0]
     bf16 = dtype == torch.bfloat16
@@ -1037,7 +1057,108 @@ def test_narrow_head_carry_matches_plain_version_on_card(cuda_device, d, s, dtyp
         carry = got
     future = _kernels.flash_carry(carry, q, kp, vp, off, off + s, True)
     assert all(torch.equal(a, b) for a, b in zip(future, carry))
-    assert _kernels.LAUNCHES["flash_carry"] == 3
+    assert _kernels.LAUNCHES["flash_carry"] == 3 and sum(_kernels.LAUNCHES.values()) == 3
+
+
+# --- the bf16 carry fold below D = 64: the narrow tensor-core kernel ---------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1024, 129, 1])
+@pytest.mark.parametrize("d", [8, 16, 24, 32, 40, 48, 56])
+def test_narrow_carry_matches_plain_version_on_card(cuda_device, d, s):
+    """Row 5 on the narrow tensor-core carry at every head size it takes
+    ([2, S, 3, D] bf16, D a multiple of 8 below 64, read at the true D: no
+    host copy; S 129 ends in a partial 64-row q tile, S 1 is one row):
+    shard 7's diagonal fold into a fresh carry, a past fold into it, a
+    future fold (the carry back bit-identical) and a ragged non-causal fold
+    (1000 keys under 1024 rows), each within the split bar of the plain
+    version (m 1e-5; l 1e-5 + 1e-5 |ref|; acc 1e-5 + 1e-5 |ref| + 1e-6 l +
+    2^-15 of the fold's mass), one launch each."""
+    assert _kernels.host_head_dim("flash_carry", torch.bfloat16, d) == d
+    assert _kernels.kernel_route("flash_carry", torch.bfloat16, d) == (
+        16 if d <= 16 else 32 if d <= 32 else 64, _kernels.NARROW)
+    q, k, v, kp = _qkv(250 + d + s, (2, s, 3, d), torch.bfloat16, cuda_device)
+    vp = _qkv(251 + d + s, (2, s, 3, d), torch.bfloat16, cuda_device)[0]
+    off = 7 * s
+    carry = port.init_carry(q.shape, cuda_device)
+    _kernels.reset_launches()
+    for kc, vc, kv_off in ((k, v, off), (kp, vp, 0)):
+        got = _kernels.flash_carry(carry, q, kc, vc, off, kv_off, True)
+        assert got[2].shape == q.shape and got[2].is_contiguous()
+        _carry_close(got, port.plain_flash_chunk_update(carry, q, kc, vc, off, kv_off, True),
+                     port.plain_flash_chunk_mass(carry, q, kc, vc, off, kv_off, True))
+        carry = got
+    future = _kernels.flash_carry(carry, q, kp, vp, off, off + s, True)
+    assert all(torch.equal(a, b) for a, b in zip(future, carry))
+    sk = 1000 if s == 1024 else s
+    kr, vr = kp[:, :sk].contiguous(), vp[:, :sk].contiguous()
+    fresh = port.init_carry(q.shape, cuda_device)
+    _carry_close(_kernels.flash_carry(fresh, q, kr, vr, 0, 0, False),
+                 port.plain_flash_chunk_update(fresh, q, kr, vr, 0, 0, False),
+                 port.plain_flash_chunk_mass(fresh, q, kr, vr, 0, 0, False))
+    assert _kernels.LAUNCHES["flash_carry"] == 4 and sum(_kernels.LAUNCHES.values()) == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 16, 32, 48])
+def test_narrow_carry_refuses_misaligned_inputs_on_card(cuda_device, d):
+    """The narrow carry loads q, k and v by TMA at the true D and acc as
+    float2: a q, k, v or acc that is not 16-byte aligned is refused before
+    anything launches; the aligned copies pass."""
+    q, k, v, _ = _qkv(4, (1, 64, 2, d), torch.bfloat16, cuda_device)
+    m, l, acc = port.init_carry(q.shape, cuda_device)
+    _kernels.reset_launches()
+    for carry, args in (((m, l, acc), (_misaligned(q), k, v)), ((m, l, acc), (q, _misaligned(k), v)),
+                        ((m, l, acc), (q, k, _misaligned(v))), ((m, l, _misaligned(acc)), (q, k, v))):
+        with pytest.raises(ValueError, match="aligned"):
+            _kernels.flash_carry(carry, *args, 0, 0, True)
+    assert not any(_kernels.LAUNCHES.values())
+    _carry_close(_kernels.flash_carry((m, l, acc), q, k, v, 0, 0, True),
+                 port.plain_flash_chunk_update((m, l, acc), q, k, v, 0, 0, True),
+                 port.plain_flash_chunk_mass((m, l, acc), q, k, v, 0, 0, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,padded", [(12, 16), (60, 64)])
+def test_narrow_carry_pads_other_head_sizes_on_card(cuda_device, d, padded):
+    """A bf16 carry at a head size that is not a multiple of 8 is zero-padded
+    on the host: 12 to 16 (the narrow carry at box width 16), 60 to 64 (the
+    D 64 kernel); the diagonal and past folds within the split bar of the
+    plain version at the true D, the carry sliced back to D."""
+    route = _kernels.NARROW if padded < 64 else _kernels.TENSOR_CORES
+    assert _kernels.host_head_dim("flash_carry", torch.bfloat16, d) == padded
+    assert _kernels.kernel_route("flash_carry", torch.bfloat16, d) == (padded, route)
+    q, k, v, kp = _qkv(260 + d, (2, 1024, 4, d), torch.bfloat16, cuda_device)
+    vp = _qkv(261 + d, (2, 1024, 4, d), torch.bfloat16, cuda_device)[0]
+    off = 7 * 1024
+    carry = port.init_carry(q.shape, cuda_device)
+    for kc, vc, kv_off in ((k, v, off), (kp, vp, 0)):
+        got = _kernels.flash_carry(carry, q, kc, vc, off, kv_off, True)
+        assert got[2].shape == q.shape and got[2].is_contiguous()
+        _carry_close(got, port.plain_flash_chunk_update(carry, q, kc, vc, off, kv_off, True),
+                     port.plain_flash_chunk_mass(carry, q, kc, vc, off, kv_off, True))
+        carry = got
+
+
+@pytest.mark.cuda
+def test_narrow_carry_is_one_kernel_launch_on_card(cuda_device):
+    """At the D 32 ring chunk ([2, 1024, 16, 32]) a bf16 carry call is one
+    CUDA kernel on the card, the narrow carry: no pad or slice copies. It is
+    profiled in a fresh process (``chip_smoke.carry_call_kernels``): on the
+    card, the later profiler sessions of a long process were seen to record
+    no kernel."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = "import json, chip_smoke; print(json.dumps(chip_smoke.carry_call_kernels([2, 1024, 16, 32])))"
+    out = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parents[1],
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    names = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(names) == 1 and "flash_carry_narrow_sm90_kernel" in names[0], names
 
 
 # --- the bf16 carry fold above D = 64: the grouped tensor-core kernel --------------
