@@ -59,6 +59,28 @@ Phases, each on its own printed lines:
    warm-up round on copied state; s/round, test loss (finite and falling),
    peak device memory, and each kernel's launches in that run, which must
    equal the per-round counts times the 4 rounds driven.
+3a. telemetry (``phase_telemetry``, right after phase 3: a long process's
+   later profiler sessions were seen to record no kernel): the host
+   telemetry plane and the profiler on phase 3's LM, 2 rounds a run after a
+   warm-up round (a new engine's allocator grows in it): the device observatory off twice (does the card's round
+   reproduce bit for bit?), then on, once with the first round under
+   ``run(profile_dir=...)``'s ``torch.profiler`` window, whose Chrome trace
+   must name ``flash_fwd_sm90_kernel``, ``flash_bwd_dq_sm90_kernel`` and
+   ``flash_bwd_dkv_sm90_kernel``, and once untraced; the params hash must
+   not move with devobs on (or, where the off runs differ, by no more than
+   twice their spread), the ``update_norm`` sketch holds committee x rounds
+   norms and ``fleet_snapshot`` writes its document; s/round with devobs on
+   and off; the round's devobs row built under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync).
+   ``device_bucket_stats`` on 1e6 seeded values, card against CPU.
+   ``DEVOBS_NAN_INJECT_ROUND=1`` under ``park`` (the trip, the flight
+   recorder's dump with ``bytes_in_use`` on its chunk events, the bundle's
+   manifest) and ``abort`` (the message names the dump).
+   ``round_cost_analysis`` of the LM (attention equal to the analytic count;
+   TFLOP per round and TFLOP/s beside the card's name and power limit), the
+   same count on the card and on the CPU for a one-layer LM, and
+   ``TorchLearner.cost_analysis``'s keys. Every artifact goes to a
+   temporary directory that the phase removes.
 4. ring: the same LM with ``attention_kind="ring_flash"`` over a sequence of
    8192 tokens sharded on a virtual ``"seq"`` axis of 8. Its logits on a
    [2, 2048] input against the flash model's (6e-2); then
@@ -176,9 +198,10 @@ Phases, each on its own printed lines:
    the same lowest-index members, values, scales and residuals as the CPU.
 19. cifar: ``p2pfl_tpu_torch.examples.cifar`` at its defaults (50 nodes,
    committee 8, 128 samples a node, batch 32, 32 x 32, ResNet-18, Krum,
-   Dirichlet 0.5) with ``--rounds 2``: s/round, peak memory, test accuracy
-   per round; then at f64 compute (the f32 gradient of a GroupNorm ResNet
-   is itself ill-conditioned) the ResNet's loss gradients on one batch (1e-5
+   Dirichlet 0.5) with ``--rounds 2 --cost-analysis``: s/round, peak memory,
+   test accuracy per round, the round's counted TFLOP and TFLOP/s; then at
+   f64 compute (the f32 gradient of a GroupNorm ResNet is itself
+   ill-conditioned) the ResNet's loss gradients on one batch (1e-5
    of each leaf's largest) and one scheduled round at 4 nodes, on the card
    against the CPU as in phase 7.
 20. moe: ``moe_lm_model`` at phase 3's widths (vocab 8192, 4 layers of which
@@ -1284,6 +1307,245 @@ def phase_slice() -> dict:
     return launches, sim
 
 
+# The telemetry phase: the slice's LM for TELEMETRY_ROUNDS rounds a run
+# (one round a chunk; the first chunk traced), a NaN injected at round 1 for
+# the trip, and the cost count checked on the card against the CPU on a
+# one-layer LM of the same kind (COST_CHECK_*).
+TELEMETRY_ROUNDS = 2
+COST_CHECK_NODES, COST_CHECK_SEQS, COST_CHECK_SEQ, COST_CHECK_BATCH = 2, 4, 256, 2
+FLASH_TRACE_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel")
+
+
+def attention_flops(name: str, b: int, s: int, h: int, d: int) -> float:
+    """FLOPs of one causal flash call as ``bound`` counts them (the lower
+    triangle: half the S x S pairs)."""
+    full = b * h * s * s * d
+    return {"flash_fwd": 4, "flash_fwd_no_lse": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}[name] * full * 0.5
+
+
+def phase_telemetry(card: str) -> None:
+    """The host telemetry plane and the profiler on the slice's LM (phase 3's
+    configuration, bf16, one round a chunk, after a warm-up round, which
+    absorbs a new engine's allocator growth): two runs with the device observatory off
+    show whether the card's round reproduces bit for bit; then the same
+    rounds with it on, the first chunk under a ``device_trace_window``
+    (``run(profile_dir=...)``) whose Chrome trace must hold the three flash
+    kernels, must give the same canonical params hash (or, if the off runs
+    differ, differ from them by no more than twice their own spread), and an
+    ``update_norm`` sketch of committee x rounds members; ``fleet_snapshot``
+    writes its document; the round's devobs row (``_devobs_aux``, which runs
+    ``device_bucket_stats``) is built under ``set_sync_debug_mode("error")``
+    and must not wait for the card. ``device_bucket_stats`` on 1e6 seeded values: the
+    card's counts and zeros equal the CPU's but for values whose log lies
+    within 2 f32 ulps of a bucket edge (counted), min and max exact, sum
+    within 1e-6. ``DEVOBS_NAN_INJECT_ROUND=1``: ``park`` returns the trip
+    ``nonfinite`` at round 1 with a flight-recorder dump whose chunk events
+    carry the allocator's bytes in use and a bundle manifest; ``abort``'s
+    message names that dump. ``round_cost_analysis`` of the LM: FLOPs per
+    round > 0 with its attention part equal to the analytic count, TFLOP/s
+    against the devobs-on s/round; the same count on the card and on the
+    CPU for a one-layer LM within 1e-6; ``TorchLearner.cost_analysis``
+    returns the JAX package's keys. Every artifact goes to a temporary
+    directory (the flight recorder's ``artifacts/`` below the working
+    directory, which the phase moves there)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.config import Settings
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.learning.learner import TorchLearner
+    from p2pfl_tpu_torch.models.transformer import transformer_lm_model
+    from p2pfl_tpu_torch.parallel.simulation import MeshSimulation
+    from p2pfl_tpu_torch.telemetry.ledger import canonical_params_hash
+    from p2pfl_tpu_torch.telemetry.sketches import SKETCHES, device_bucket_spec, device_bucket_stats
+
+    train, xt = lm_data(5)
+
+    def lm_sim(device: str = "cuda", layers: int = LAYERS, data=train, test=xt, nodes: int = NODES,
+               committee: int = COMMITTEE, batch: int = BATCH):
+        model = transformer_lm_model(seed=0, seq_len=data[0].shape[-1], vocab_size=VOCAB, num_layers=layers,
+                                     num_heads=HEADS, embed_dim=EMBED, attention_kind="flash", device=device)
+        return MeshSimulation(model, data, test_data=(test, None), train_set_size=committee, batch_size=batch,
+                              lr=LR, seed=1, task="lm", device=device)
+
+    def node0(sim) -> dict:
+        return {k: v[0].detach().float().cpu() for k, v in sim.params_stack.items()}
+
+    def max_diff(a: dict, b: dict) -> float:
+        return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+    tmp = tempfile.mkdtemp(prefix="p2pfl_telemetry_")
+    cwd = os.getcwd()
+    os.chdir(tmp)  # the flight recorder dumps into ./artifacts
+    try:
+        with Settings.overridden(DOCTOR_BUNDLE_DIR=os.path.join(tmp, "bundles"), PERF_TRACE_DIR="",
+                                 DEVOBS_PROFILE_CHUNKS=1):
+            runs: dict = {}
+            for label, devobs, traced in (("off", False, False), ("off again", False, False),
+                                          ("on, traced", True, True), ("on", True, False)):
+                sim = lm_sim()
+                SKETCHES.reset()
+                with Settings.overridden(DEVOBS_ENABLED=devobs):
+                    res = sim.run(rounds=TELEMETRY_ROUNDS, warmup=True,
+                                  profile_dir=os.path.join(tmp, "traces") if traced else None)
+                runs[label] = (res, node0(sim), canonical_params_hash(node0(sim)))
+                if label == "on":
+                    extras, sketches = sim.devobs_summary()
+                    snap_path = os.path.join(tmp, "federation_snapshot.json")
+                    snap = sim.fleet_snapshot(res, path=snap_path)
+                    on_sim_cost = sim.round_cost_analysis()
+                    # The round's devobs row must not wait for the card: build
+                    # it from the live params under CUDA's sync check.
+                    p_k = {k: v[:COMMITTEE] for k, v in sim.params_stack.items()}
+                    p_k_new = {k: v * 1.001 for k, v in p_k.items()}
+                    agg = {k: v[0] for k, v in sim.params_stack.items()}
+                    member_losses = torch.rand(COMMITTEE, device="cuda")
+                    weights = torch.ones(COMMITTEE, device="cuda")
+                    torch.cuda.synchronize()
+                    row = None
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        row = sim._devobs_aux(p_k, p_k_new, agg, member_losses, weights, COMMITTEE)
+                        synced = None
+                    except RuntimeError as e:
+                        synced = str(e)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                    print(f"[telemetry] devobs row under torch.cuda.set_sync_debug_mode('error'): "
+                          f"{'no host sync' if synced is None else synced}")
+                    check(synced is None and row is not None and tuple(row.shape) == (device_bucket_spec()[2] + 7,),
+                          "the devobs row synchronises with the host")
+                    del p_k, p_k_new, agg, row
+                del sim
+                gc.collect()
+                print(f"[telemetry] devobs {label}: {res.seconds_per_round:.4f} s/round over {TELEMETRY_ROUNDS} "
+                      f"rounds after a warm-up round{'; round 0 traced' if traced else ''}, params hash "
+                      f"{runs[label][2]}")
+            spread = max_diff(runs["off"][1], runs["off again"][1])
+            if runs["off"][2] == runs["off again"][2]:
+                print("[telemetry] two devobs-off runs reproduce bit for bit: the devobs runs are held to the hash")
+                for label in ("on, traced", "on"):
+                    check(runs[label][2] == runs["off"][2], f"devobs {label} changed the params hash")
+            else:
+                print(f"[telemetry] two devobs-off runs differ: hashes {runs['off'][2]} / {runs['off again'][2]}, "
+                      f"largest param difference {spread:.3e}; the devobs runs are held to twice that")
+                for label in ("on, traced", "on"):
+                    err = max_diff(runs[label][1], runs["off"][1])
+                    print(f"[telemetry] devobs {label} against off: largest param difference {err:.3e}")
+                    check(err <= 2 * spread, f"devobs {label} moved the params beyond the card's own spread")
+            print(f"[telemetry] s/round: devobs off {runs['off'][0].seconds_per_round:.4f} / "
+                  f"{runs['off again'][0].seconds_per_round:.4f}, on {runs['on'][0].seconds_per_round:.4f} "
+                  f"(traced run {runs['on, traced'][0].seconds_per_round:.4f}, the trace's export included)")
+
+            # The trace of round 0.
+            trace = os.path.join(tmp, "traces", "mesh_round_chunk0", "trace.json")
+            check(os.path.isfile(trace), "run(profile_dir=...) wrote no trace")
+            with open(trace) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+            found = {k: sum(k in n for n in kernels) for k in FLASH_TRACE_KERNELS}
+            print(f"[telemetry] trace of round 0: {os.path.getsize(trace)} bytes, {len(events)} events, "
+                  f"{len(kernels)} kernel events; flash kernels {json.dumps(found)}")
+            check(all(found.values()), f"the trace lacks flash kernels: {found}; it has {sorted(set(kernels))[:8]}")
+
+            # The device observatory's summary.
+            un = sketches.get("update_norm")
+            print(f"[telemetry] devobs summary: {json.dumps(extras)}; update_norm count "
+                  f"{un.count if un else 0}, p50 {un.quantile(0.5) if un else float('nan'):.6g}; "
+                  f"snapshot {snap_path} ({os.path.getsize(snap_path)} bytes, fleet size {snap['fleet']['size']})")
+            check(un is not None and un.count == COMMITTEE * TELEMETRY_ROUNDS,
+                  "the update_norm sketch does not hold committee x rounds norms")
+            check(snap["fleet"]["size"] == NODES + 1, "fleet_snapshot: wrong fleet size")
+
+            # device_bucket_stats, card against CPU.
+            gamma, lo, nbins = device_bucket_spec()
+            g = torch.Generator().manual_seed(7)
+            vals = torch.exp(torch.empty(10**6).uniform_(float(np.log(1e-8)), float(np.log(1e4)), generator=g))
+            vals = vals * torch.where(torch.rand(10**6, generator=g) < 0.5, -1.0, 1.0)
+            vals[:1000] = 0.0
+            cpu = device_bucket_stats(vals, gamma_log=gamma, lo_idx=lo, nbins=nbins)
+            dev = {k: v.cpu() for k, v in device_bucket_stats(vals.cuda(), gamma_log=gamma, lo_idx=lo,
+                                                              nbins=nbins).items()}
+            mag = vals.abs().double().numpy()
+            logs = np.log(mag[mag >= 1e-9])
+            edges = np.round(logs / gamma) * gamma
+            near = int((np.abs(logs - edges) <= 2 * np.spacing(np.abs(logs).astype(np.float32))).sum())
+            moved = int((dev["counts"] - cpu["counts"]).abs().sum())
+            rel_sum = abs(float(dev["sum"]) - float(cpu["sum"])) / float(cpu["sum"])
+            print(f"[telemetry] device_bucket_stats on 1e6 values, card against CPU: counts differ by {moved} "
+                  f"(values within 2 ulp of a bucket edge: {near}), zeros {int(dev['zeros'])} / {int(cpu['zeros'])}, "
+                  f"min/max equal {bool(dev['min'] == cpu['min'] and dev['max'] == cpu['max'])}, sum rel err "
+                  f"{rel_sum:.2e} (tol 1e-6)")
+            check(moved <= 2 * near and int(dev["zeros"]) == int(cpu["zeros"]), "device_bucket_stats: counts differ")
+            check(bool(dev["min"] == cpu["min"]) and bool(dev["max"] == cpu["max"]) and rel_sum <= 1e-6,
+                  "device_bucket_stats: min, max or sum differ")
+
+            # The trip.
+            with Settings.overridden(DEVOBS_NAN_INJECT_ROUND=1, DEVOBS_TRIP_ACTION="park"):
+                parked = lm_sim().run(rounds=TELEMETRY_ROUNDS + 1, warmup=False)
+            trip = parked.tripped
+            print(f"[telemetry] park: tripped {json.dumps(trip)}, {parked.rounds} rounds returned")
+            check(trip is not None and (trip["kind"], trip["round"]) == ("nonfinite", 1), "park: wrong trip")
+            with open(trip["flightrec"]) as f:
+                starts = [e for e in json.load(f)["events"] if e["kind"] == "chunk_start"]
+            print(f"[telemetry] flight recorder: chunk_start bytes_in_use {[e['bytes_in_use'] for e in starts]}")
+            check(bool(starts) and all(e["bytes_in_use"] > 0 for e in starts), "chunk events lack bytes_in_use")
+            check(os.path.isfile(os.path.join(trip["bundle"], "manifest.json")), "park: no bundle manifest")
+            dump = os.path.abspath(trip["flightrec"])
+            with Settings.overridden(DEVOBS_NAN_INJECT_ROUND=1, DEVOBS_TRIP_ACTION="abort"):
+                try:
+                    lm_sim().run(rounds=TELEMETRY_ROUNDS + 1, warmup=False)
+                    message = "no error"
+                except RuntimeError as e:
+                    message = str(e)
+            print(f"[telemetry] abort: {message}")
+            check(f"flight recorder dump: {trip['flightrec']};" in message and os.path.isfile(dump),
+                  "abort: the message does not name the dump")
+            gc.collect()
+
+            # The cost analysis.
+            cost = on_sim_cost
+            seqs, seq_len = train[0].shape[1:]
+            want_attn = COMMITTEE * (seqs // BATCH) * LAYERS * sum(
+                attention_flops(n, BATCH, seq_len, HEADS, EMBED // HEADS)
+                for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+            want_attn += LAYERS * attention_flops("flash_fwd_no_lse", xt.shape[0], seq_len, HEADS, EMBED // HEADS)
+            s_round = runs["on"][0].seconds_per_round
+            print(f"[telemetry] round_cost_analysis: {cost['flops_per_round'] / 1e12:.4f} TFLOP/round, "
+                  f"{cost['bytes_accessed_per_round'] / 1e9:.3f} GB counted per round, attention "
+                  f"{cost['attention_flops_per_round'] / 1e12:.4f} TFLOP (analytic {want_attn / 1e12:.4f}); "
+                  f"{cost['flops_per_round'] / s_round / 1e12:.2f} TFLOP/s at {s_round:.4f} s/round on {card}")
+            check(cost["flops_per_round"] > 0 and cost["attention_flops_per_round"] == want_attn,
+                  "round_cost_analysis: missing FLOPs or attention count off the analytic one")
+            counts = {}
+            small = tuple(a[:COST_CHECK_NODES, :COST_CHECK_SEQS] for a in train)
+            small = (small[0][..., :COST_CHECK_SEQ], small[1], small[2])
+            for device in ("cuda", "cpu"):
+                sim = lm_sim(device, 1, small, xt[:2, :COST_CHECK_SEQ], COST_CHECK_NODES, COST_CHECK_NODES,
+                             COST_CHECK_BATCH)
+                counts[device] = sim.round_cost_analysis()["flops_per_round"]
+                del sim
+            rel = abs(counts["cuda"] - counts["cpu"]) / counts["cpu"]
+            print(f"[telemetry] one-layer LM ({COST_CHECK_NODES} nodes x {COST_CHECK_SEQS} x {COST_CHECK_SEQ} tokens): "
+                  f"{counts['cuda']:.6e} FLOP/round on the card, {counts['cpu']:.6e} on the CPU (rel {rel:.1e})")
+            check(rel <= 1e-6, "round_cost_analysis differs between the card and the CPU")
+            x0 = train[0][0]
+            data = FederatedDataset.from_arrays(x0, np.zeros(len(x0), np.int32), xt, np.zeros(len(xt), np.int32))
+            model = transformer_lm_model(seed=0, vocab_size=VOCAB, num_layers=LAYERS, num_heads=HEADS,
+                                         embed_dim=EMBED, attention_kind="flash", device="cuda")
+            lcost = TorchLearner(model, data, batch_size=BATCH, seed=0, task="lm", device="cuda").cost_analysis()
+            print(f"[telemetry] TorchLearner.cost_analysis of the LM learner: {json.dumps(lcost)}")
+            check(lcost is not None and set(lcost) == {"flops_per_epoch", "bytes_accessed_per_epoch",
+                                                       "flops_per_step", "steps_per_epoch"},
+                  "TorchLearner.cost_analysis: not the JAX package's keys")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_ring() -> tuple:
     """The sequence-parallel trainer at the ring configuration; returns the
     launches of the ring's kernels in its run (warm-up step + timed steps)
@@ -2012,8 +2274,9 @@ def phase_cnn(parts: list) -> None:
 
 
 def phase_cifar(profiling: bool) -> None:
-    """``examples/cifar.py`` at its defaults with ``--rounds 2`` on the card
-    (s/round, peak memory, per-round test accuracy; with ``profiling``, one
+    """``examples/cifar.py`` at its defaults with ``--rounds 2 --cost-analysis``
+    on the card (s/round, peak memory, per-round test accuracy, the counted
+    FLOPs of a round and the rate they give at that s/round; with ``profiling``, one
     more run of the example with ``--rounds 1`` under torch.profiler); then
     at f64 compute the ResNet-18's loss gradients on one batch (each leaf
     within 1e-5 of its largest gradient) and one scheduled round at 4 nodes
@@ -2028,7 +2291,7 @@ def phase_cifar(profiling: bool) -> None:
     from p2pfl_tpu_torch.models.resnet import resnet18_model
     from p2pfl_tpu_torch.ops import _kernels
 
-    args = cifar.build_parser().parse_args(["--rounds", str(CIFAR_ROUNDS), "--seed", "1"])
+    args = cifar.build_parser().parse_args(["--rounds", str(CIFAR_ROUNDS), "--seed", "1", "--cost-analysis"])
     print(f"[cifar] examples/cifar.py: {args.nodes} nodes x {args.samples_per_node} samples ({args.image_size} x "
           f"{args.image_size}), committee {args.train_set_size}, batch {args.batch_size}, {args.aggregator}, "
           f"Dirichlet {args.alpha}, {args.rounds} rounds after a warm-up round")
@@ -2042,6 +2305,12 @@ def phase_cifar(profiling: bool) -> None:
           f" (ResNet-18 runs none of the port's kernels)")
     check(len(res["test_acc"]) == CIFAR_ROUNDS and all(np.isfinite(res["test_acc"])),
           "cifar: missing or non-finite test accuracy")
+    cost = res["cost_analysis"]
+    check(cost is not None and cost["flops_per_round"] > 0, "cifar: --cost-analysis returned no FLOPs")
+    print(f"[cifar] --cost-analysis: {cost['flops_per_round'] / 1e12:.4f} TFLOP/round, "
+          f"{cost['bytes_accessed_per_round'] / 1e9:.3f} GB counted per round; "
+          f"{cost['flops_per_round'] / res['sec_per_round'] / 1e12:.3f} TFLOP/s at {res['sec_per_round']:.4f} "
+          f"s/round on {nvidia_smi()}")
     if profiling:
         phase_profile("cifar: examples/cifar.py --rounds 1 (set-up, the warm-up round and one round)",
                       lambda: cifar.run(cifar.build_parser().parse_args(["--rounds", "1", "--seed", "2"])))
@@ -2397,6 +2666,9 @@ def main() -> int:
             phase_profile("slice: one round", lambda: sim.run(rounds=1, warmup=False))
         del sim
         gc.collect()  # the population's state must not count in the ring's peak memory
+        # Early in the process: its later profiler sessions were seen to record no kernel.
+        phase_telemetry(card)
+        gc.collect()
         ring_launches, ring_step = phase_ring()
         launches.update(ring_launches)
         if profiling:

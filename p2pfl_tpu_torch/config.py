@@ -1,6 +1,6 @@
 """Process-wide settings the port reads (counterpart of the part of
 ``p2pfl_tpu/config.py`` that the fused round, the wire codec, the learner,
-the aggregators and the ledger use).
+the aggregators, the telemetry plane and the profiler use).
 
 Same names, defaults, ``P2PFL_TPU_<NAME>`` environment overrides and
 fail-fast validation as the JAX package's ``Settings``, so one environment
@@ -109,18 +109,55 @@ class Settings:
     COMPUTE_DTYPE: str = _env_override("COMPUTE_DTYPE", "bfloat16")
 
     # --- telemetry ------------------------------------------------------------------
+    # Quantile sketches (telemetry/sketches.py): relative error of every
+    # quantile estimate, and the in-memory bucket cap of one sketch.
+    SKETCH_REL_ERR: float = _env_float("SKETCH_REL_ERR", 0.02, 0.001, 0.5)
+    SKETCH_MAX_BINS: int = _env_int("SKETCH_MAX_BINS", 128, 16, 4096)
+    # Observatory bounds (telemetry/observatory.py): peers silent for
+    # OBS_PEER_TTL seconds are evicted (0: never); past OBS_MAX_TRACKED live
+    # peers new ones fold into merged fleet sketches; gauge refreshes at most
+    # every OBS_REFRESH_MIN_S seconds (0: every ingest).
+    OBS_PEER_TTL: float = _env_float("OBS_PEER_TTL", 120.0, 0.0, 86400.0)
+    OBS_MAX_TRACKED: int = _env_int("OBS_MAX_TRACKED", 512, 8, 1 << 20)
+    OBS_REFRESH_MIN_S: float = _env_float("OBS_REFRESH_MIN_S", 0.0, 0.0, 60.0)
+    # Flight recorder (telemetry/flight_recorder.py): events kept per node.
+    FLIGHTREC_CAPACITY: int = _env_int("FLIGHTREC_CAPACITY", 512, 1, 1 << 20)
+    # Span-buffer bound of the process-wide tracer (telemetry/tracing.py).
+    TRACE_MAX_SPANS: int = _env_int("TRACE_MAX_SPANS", 65536, 256, 1 << 22)
     LEDGER_ENABLED: bool = _env_override("LEDGER_ENABLED", True)
     LEDGER_CAPACITY: int = _env_int("LEDGER_CAPACITY", 4096, 16, 1 << 22)
+    # Recent ledger events riding the observatory snapshot.
+    LEDGER_SNAPSHOT_TAIL: int = _env_int("LEDGER_SNAPSHOT_TAIL", 8, 0, 1024)
+    # Diagnosis plane (telemetry/bundle.py, telemetry/diagnosis.py): RUN_ID
+    # pins the federation-wide run id (empty: minted at engine launch);
+    # evidence bundles land under DOCTOR_BUNDLE_DIR unless disabled; findings
+    # below DOCTOR_MIN_CONFIDENCE are dropped.
+    RUN_ID: str = _env_override("RUN_ID", "")
+    DOCTOR_BUNDLE_ENABLED: bool = _env_override("DOCTOR_BUNDLE_ENABLED", True)
+    DOCTOR_BUNDLE_DIR: str = _env_override("DOCTOR_BUNDLE_DIR", "artifacts")
+    DOCTOR_MIN_CONFIDENCE: float = _env_float("DOCTOR_MIN_CONFIDENCE", 0.5, 0.0, 1.0)
+    # Continuous profiling (management/profiler.py): MeshSimulation.run's
+    # profile_dir defaults to this directory (empty: no device trace).
+    PERF_TRACE_DIR: str = _env_override("PERF_TRACE_DIR", "")
 
-    # --- device-observatory tripwires of the fused round ------------------------------
+    # --- device observatory of the fused round ------------------------------------------
     # Per-round health flags (a non-finite cohort loss or aggregate; a cohort
-    # loss above DEVOBS_LOSS_DIVERGE_MULT times the chunk's best finite one),
-    # read once per chunk of rounds_per_call rounds.
+    # loss above DEVOBS_LOSS_DIVERGE_MULT times the chunk's best finite one)
+    # and update-norm bucket statistics, read once per chunk of
+    # rounds_per_call rounds.
     DEVOBS_ENABLED: bool = _env_override("DEVOBS_ENABLED", True)
-    # What a trip does at the chunk boundary: "abort" raises; "park" (return
-    # the partial result with the trip stamped on it) is not ported yet.
+    # What a trip does at the chunk boundary: "abort" raises; "park" returns
+    # the partial result with the trip stamped on it.
     DEVOBS_TRIP_ACTION: str = _env_choice("DEVOBS_TRIP_ACTION", "abort", ("abort", "park"))
     DEVOBS_LOSS_DIVERGE_MULT: float = _env_float("DEVOBS_LOSS_DIVERGE_MULT", 100.0, 1.0, 1e9)
+    # Leading timed chunks wrapped in a device_trace_window (0: none).
+    DEVOBS_PROFILE_CHUNKS: int = _env_int("DEVOBS_PROFILE_CHUNKS", 1, 0, 1024)
+    # TTL of the cached live-tensor byte sum behind device_memory_watermark on
+    # the CPU (0: resweep every call).
+    DEVOBS_MEM_TTL_S: float = _env_float("DEVOBS_MEM_TTL_S", 5.0, 0.0, 3600.0)
+    # Seeded fault injection: the aggregate turns NaN at this absolute round
+    # index (-1: off).
+    DEVOBS_NAN_INJECT_ROUND: int = _env_int("DEVOBS_NAN_INJECT_ROUND", -1, -1, 1 << 30)
 
     @classmethod
     def snapshot(cls) -> dict[str, Any]:

@@ -4,9 +4,10 @@
 ``--mode mesh`` (the default) runs the whole population as one fused
 simulation on the card (:class:`~p2pfl_tpu_torch.parallel.simulation.
 MeshSimulation`). ``--mode nodes`` (real nodes gossiping over a transport)
-waits for the port's ``Node`` and raises ``NotImplementedError``; so do
-``--profiling`` and ``--trace``, which wait for the profiler plane.
-``--measure-time`` times the run itself.
+waits for the port's ``Node`` and raises ``NotImplementedError``.
+``--profiling`` writes a host cProfile ``.pstat`` under ``profile/mnist/``;
+``--trace DIR`` writes a ``torch.profiler`` Chrome trace of the run to
+``DIR/mnist/trace.json``. ``--measure-time`` times the run itself.
 
     python -m p2pfl_tpu_torch.examples.mnist --nodes 8 --rounds 5 --aggregator krum
 
@@ -18,7 +19,6 @@ from __future__ import annotations
 
 import argparse
 import sys
-import time
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -40,8 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--train-set-size", type=int, default=4, help="committee size")
     p.add_argument("--samples-per-node", type=int, default=300)
     p.add_argument("--measure-time", action="store_true")
-    p.add_argument("--profiling", action="store_true", help="profile the run on the host (profiler plane)")
-    p.add_argument("--trace", metavar="DIR", default=None, help="write a device trace under DIR (profiler plane)")
+    p.add_argument("--profiling", action="store_true", help="cProfile the run")
+    p.add_argument("--trace", metavar="DIR", default=None, help="write a torch.profiler trace of the run under DIR")
     p.add_argument("--dp-clip", type=float, default=0.0,
                    help="DP-SGD per-example clip norm (> 0 enables private training)")
     p.add_argument("--dp-noise", type=float, default=0.0, help="DP-SGD Gaussian noise multiplier sigma")
@@ -119,13 +119,13 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.mode == "nodes":
         raise NotImplementedError("--mode nodes is not ported yet (it comes with the Node, node.py and comm/)")
-    if args.profiling or args.trace:
-        raise NotImplementedError(
-            "--profiling / --trace are not ported yet (they come with the profiler plane, management/profiler.py)")
-    t0 = time.monotonic()
-    result = run_mesh(args)
+    from p2pfl_tpu_torch.management.profiler import profile_run
+
+    with profile_run(host_dir="profile/mnist" if args.profiling else None, device_trace_dir=args.trace,
+                     label="mnist") as prof_info:
+        result = run_mesh(args)
     if args.measure_time:
-        result["total_elapsed_s"] = round(time.monotonic() - t0, 3)
+        result["total_elapsed_s"] = round(prof_info["elapsed_s"], 3)
     print(result)
     return 0
 

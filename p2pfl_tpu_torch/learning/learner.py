@@ -463,7 +463,55 @@ class TorchLearner(Learner):
                                     nonprivate_steps=self._nonprivate_steps)
 
     def cost_analysis(self) -> Optional[Dict[str, float]]:
-        raise NotImplementedError("TorchLearner.cost_analysis is not ported yet (it comes with management/profiler.py)")
+        """The work of ONE train epoch at this learner's current shapes, with
+        the JAX package's keys: ``flops_per_epoch``,
+        ``bytes_accessed_per_epoch``, ``flops_per_step`` and
+        ``steps_per_epoch``. Counted over an executed epoch
+        (:func:`p2pfl_tpu_torch.ops.cost.count_cost_of`, as
+        ``MeshSimulation.round_cost_analysis`` counts a round: matrix
+        products by ``torch.utils.flop_counter``'s formulas, each flash call
+        as its analytic work, bytes as every counted op's tensor inputs and
+        outputs) on copies of the parameters and optimizer state, the
+        batches of ``seed=0`` and zero SCAFFOLD variates; the model, the
+        optimizer state and the global generators are left as they were.
+        Returns ``None`` without a train split or when the count fails."""
+        from p2pfl_tpu_torch.ops.cost import count_cost_of
+        from p2pfl_tpu_torch.optim import state_map
+
+        model = self.get_model()
+        try:
+            xb, yb, wb = self.get_data().export_batches(self.batch_size, train=True, seed=0)
+        except Exception:  # noqa: BLE001 — no train split, no cost model
+            return None
+        params = {n: p.detach().to(self.device).clone() for n, p in model.params.items()}
+        opt_state = (state_map(torch.clone, self._opt_state) if self._opt_state is not None
+                     else self.optimizer.init(params))
+        zeros = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()} if self._scaffold else None
+        per_example = "loop" if uses_flash(model.module) else "vmap"
+        xb, yb, wb = self._to_device(xb), self._to_device(yb), self._to_device(wb)
+        gen = seeded_generator(0)
+
+        def epoch() -> None:
+            p, o = params, opt_state
+            for s in range(xb.shape[0]):
+                p, o, _ = train_step(
+                    p, o, xb[s], yb[s], wb[s], gen, anchor=params, batch_loss=self._batch_loss,
+                    optimizer=self.optimizer, fedprox_mu=self.fedprox_mu, dp_clip_norm=self.dp_clip_norm,
+                    dp_noise_multiplier=self.dp_noise_multiplier, c_local=zeros, c_global=zeros,
+                    per_example=per_example,
+                )
+            self._sync()
+
+        counter = count_cost_of(epoch)
+        if counter is None:
+            return None
+        steps = int(xb.shape[0])
+        return {
+            "flops_per_epoch": float(counter.flops),
+            "bytes_accessed_per_epoch": float(counter.bytes),
+            "flops_per_step": counter.flops / max(steps, 1),
+            "steps_per_epoch": steps,
+        }
 
     @torch.no_grad()
     def evaluate(self) -> Dict[str, float]:

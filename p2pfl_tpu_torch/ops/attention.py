@@ -29,7 +29,9 @@ bounded by :func:`plain_flash_row_mass`, :func:`plain_flash_chunk_mass` and
 :func:`flash_backward_dq`, :func:`flash_backward_dkv` and
 :func:`flash_chunk_update` pick between them by where the tensors live: a
 CPU tensor takes the plain version, a CUDA tensor launches the kernel (or
-raises), anything else raises.
+raises), anything else raises. Under a cost count (:mod:`.cost`) each of
+them is one operation of its analytic work (:func:`attention_cost`) on
+either device.
 
 The online-softmax carry is ``(m, l, acc)``: running row max ``m [B, H, Sq]``,
 denominator ``l [B, H, Sq]`` and unnormalized output ``acc [B, Sq, H, D]``,
@@ -38,13 +40,14 @@ all f32. The blockwise fold and the carry kernel share it.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple
 
 import torch
 
 from p2pfl_tpu_torch.device import DeviceLike
-from p2pfl_tpu_torch.ops import _kernels
+from p2pfl_tpu_torch.ops import _kernels, cost
 
 Carry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -261,6 +264,53 @@ def plain_flash_chunk_mass(
 # --- kernel or plain version, by device --------------------------------------
 
 
+def _causal_fraction(sq: int, sk: int, q_offset: int, kv_offset: int) -> float:
+    """Share of the ``Sq x Sk`` score pairs a causal fold computes: 1/2 for
+    a square block on the diagonal (the lower triangle, as ``bench.py`` and
+    ``chip_smoke.py`` count it), else the exact share of unmasked pairs
+    (0 for a block wholly in the future, 1 wholly in the past)."""
+    if sq == sk and q_offset == kv_offset:
+        return 0.5
+    # Row i sees keys j <= q_offset + i - kv_offset, clipped to [0, sk].
+    seen = sum(min(sk, max(0, q_offset + i - kv_offset + 1)) for i in range(sq))
+    return seen / float(sq * sk)
+
+
+def attention_cost(
+    name: str, q: torch.Tensor, k: torch.Tensor, causal: bool, q_offset: int = 0, kv_offset: int = 0,
+) -> Tuple[int, int]:
+    """``(flops, bytes)`` of one flash call, the kernel row ``name`` on q
+    ``[B, Sq, H, D]`` and k / v ``[B, Sk, H, D]``: the products over the
+    pairs the causal mask keeps (:func:`_causal_fraction`; ``2 Sq Sk D`` a
+    product and head: the forward and the carry fold 2 products, dq 3, dk/dv
+    4), and each input read once and each output written once (q, k, v and
+    the outputs in the input type; lse, delta and the carry's m / l / acc in
+    f32). What :mod:`p2pfl_tpu_torch.ops.cost` counts for the call on
+    either device."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    frac = _causal_fraction(sq, sk, q_offset, kv_offset) if causal else 1.0
+    pair_flops = 2 * b * h * sq * sk * d * frac
+    esize = q.element_size()
+    q_bytes, kv_bytes, rows = b * sq * h * d * esize, b * sk * h * d * esize, b * h * sq * 4
+    products, nbytes = {
+        "flash_fwd": (2, 2 * q_bytes + 2 * kv_bytes + rows),
+        "flash_fwd_no_lse": (2, 2 * q_bytes + 2 * kv_bytes),
+        "flash_bwd_dq": (3, 3 * q_bytes + 2 * kv_bytes + 2 * rows),
+        "flash_bwd_dkv": (4, 2 * q_bytes + 4 * kv_bytes + 2 * rows),
+        "flash_carry": (2, q_bytes + 2 * kv_bytes + 2 * (2 * rows + b * sq * h * d * 4)),
+    }[name]
+    return int(products * pair_flops), int(nbytes)
+
+
+def _counted(name: str, q: torch.Tensor, k: torch.Tensor, causal: bool, q_offset: int = 0, kv_offset: int = 0):
+    """The flash call as one operation of an open cost count (its analytic
+    work, :func:`attention_cost`); a no-op context otherwise."""
+    if cost.active() is None:
+        return contextlib.nullcontext()
+    return cost.opaque(*attention_cost(name, q, k, causal, q_offset, kv_offset))
+
+
 def _route(t: torch.Tensor) -> str:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash attention runs on cpu or cuda tensors, got {t.device}")
@@ -272,22 +322,25 @@ def flash_forward(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Flash forward: ``(out, lse)``, or ``(out, None)`` with ``with_lse=False``
     (the kernel then writes no logsumexp at all)."""
-    if _route(q) == "cuda":
-        return _kernels.flash_fwd(q, k, v, causal, with_lse)
-    out, lse = plain_flash_forward(q, k, v, causal)
-    return out, (lse if with_lse else None)
+    with _counted("flash_fwd" if with_lse else "flash_fwd_no_lse", q, k, causal):
+        if _route(q) == "cuda":
+            return _kernels.flash_fwd(q, k, v, causal, with_lse)
+        out, lse = plain_flash_forward(q, k, v, causal)
+        return out, (lse if with_lse else None)
 
 
 def flash_backward_dq(q, k, v, do, lse, delta, causal: bool) -> torch.Tensor:
-    if _route(q) == "cuda":
-        return _kernels.flash_bwd_dq(q, k, v, do, lse, delta, causal)
-    return plain_flash_backward_dq(q, k, v, do, lse, delta, causal)
+    with _counted("flash_bwd_dq", q, k, causal):
+        if _route(q) == "cuda":
+            return _kernels.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+        return plain_flash_backward_dq(q, k, v, do, lse, delta, causal)
 
 
 def flash_backward_dkv(q, k, v, do, lse, delta, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    if _route(q) == "cuda":
-        return _kernels.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
-    return plain_flash_backward_dkv(q, k, v, do, lse, delta, causal)
+    with _counted("flash_bwd_dkv", q, k, causal):
+        if _route(q) == "cuda":
+            return _kernels.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+        return plain_flash_backward_dkv(q, k, v, do, lse, delta, causal)
 
 
 def flash_chunk_update(
@@ -302,9 +355,10 @@ def flash_chunk_update(
     validated."""
     if block_q < 1 or block_k < 1:
         raise ValueError(f"block sizes must be >= 1, got {block_q}, {block_k}")
-    if _route(q) == "cuda":
-        return _kernels.flash_carry(carry, q, k, v, q_offset, kv_offset, causal)
-    return plain_flash_chunk_update(carry, q, k, v, q_offset, kv_offset, causal)
+    with _counted("flash_carry", q, k, causal, q_offset, kv_offset):
+        if _route(q) == "cuda":
+            return _kernels.flash_carry(carry, q, k, v, q_offset, kv_offset, causal)
+        return plain_flash_chunk_update(carry, q, k, v, q_offset, kv_offset, causal)
 
 
 def flash_backward(

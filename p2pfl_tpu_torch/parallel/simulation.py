@@ -28,6 +28,8 @@ and use one batch per node.
 
 from __future__ import annotations
 
+import contextlib
+import logging
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
@@ -46,14 +48,19 @@ from p2pfl_tpu_torch.learning.learner import (
     uses_flash,
 )
 from p2pfl_tpu_torch.learning.privacy import dp_sgd_privacy_spent, resolve_seed
+from p2pfl_tpu_torch.management.profiler import device_memory_watermark, device_trace_window
 from p2pfl_tpu_torch.models.model_handle import ModelHandle
 from p2pfl_tpu_torch.ops import aggregation as agg_ops
 from p2pfl_tpu_torch.optim import adam, sgd, state_map, yogi
 from p2pfl_tpu_torch.parallel.mesh import Mesh
+from p2pfl_tpu_torch.telemetry.bundle import establish_run
+from p2pfl_tpu_torch.telemetry.sketches import device_bucket_spec, device_bucket_stats
 
 Params = Dict[str, torch.Tensor]
 Aggregate = Callable[[Params, torch.Tensor], Params]
 BatchLoss = Callable[[Params, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+log = logging.getLogger("p2pfl_tpu_torch")
 
 
 def _not_ported(what: str, plane: str) -> NotImplementedError:
@@ -100,6 +107,84 @@ def vote_committee(gen: torch.Generator, n: int, k: int) -> torch.Tensor:
         weights = torch.floor(torch.randint(0, 1000, (k,), generator=gen).float() / ranks)
         tally.index_add_(0, cands, weights)
     return torch.sort(-tally, stable=True).indices[:k]
+
+
+#: Columns of a round's packed device-observatory row (after the
+#: ``nbins`` update-norm bucket counts).
+_AUX_COLS = ("nonfinite", "weight_mass", "participants", "un_zeros", "un_sum", "un_min", "un_max",
+             "diverged", "train_loss")
+
+
+def fold_devobs_chunk(
+    aux: Dict[str, Any],
+    train_loss: Any,
+    *,
+    first_round: int,
+    node: str,
+    spec: Tuple[float, int, int],
+    last: Dict[str, Any],
+) -> Optional[Dict[str, Any]]:
+    """Host-side fold of one chunk's devobs aux stream (the JAX package's,
+    on the same aux schema: per-round ``un_counts [rounds, nbins]``,
+    ``un_zeros`` / ``un_sum`` / ``un_min`` / ``un_max``, ``weight_mass``,
+    ``participants``, ``nonfinite`` and ``diverged``, as host arrays).
+
+    Device bucket counts go into the ``SKETCHES`` registry
+    (``update_norm``), per-round cohort losses into the ``train_loss``
+    sketch, headline values into the ``p2pfl_mesh_*`` gauges, and the
+    freshest values into ``last`` (the engine's ``_devobs_last`` — what
+    snapshots graft onto peer rows). Returns the chunk's first tripwire
+    trip ``{kind, round}`` or ``None``.
+    """
+    from p2pfl_tpu_torch.telemetry.observatory import mesh_chunk_telemetry
+    from p2pfl_tpu_torch.telemetry.sketches import SKETCHES
+
+    gamma_log, lo_idx, _ = spec
+    counts = np.asarray(aux["un_counts"])  # [rounds, nbins]
+    tr = np.asarray(train_loss, np.float64)  # [rounds]
+    vmin = float(np.asarray(aux["un_min"]).min())
+    vmax = float(np.asarray(aux["un_max"]).max())
+    SKETCHES.fold_buckets(
+        "update_norm", node, gamma_log, lo_idx, counts.sum(axis=0),
+        zeros=float(np.asarray(aux["un_zeros"]).sum()),
+        vsum=float(np.asarray(aux["un_sum"]).sum()),
+        vmin=vmin if np.isfinite(vmin) else None,
+        vmax=vmax if np.isfinite(vmax) else None,
+    )
+    finite_tr = tr[np.isfinite(tr)]
+    for v in finite_tr:
+        SKETCHES.observe("train_loss", node, float(v))
+    last_loss = float(finite_tr[-1]) if finite_tr.size else None
+    mesh_chunk_telemetry(
+        node,
+        round_cursor=first_round + tr.shape[0] - 1,
+        train_loss=last_loss,
+        weight_mass=float(np.asarray(aux["weight_mass"])[-1]),
+        participants=float(np.asarray(aux["participants"]).sum()),
+    )
+    last["train_loss"] = last_loss
+    sk = SKETCHES.get("update_norm", node)
+    if sk is not None and sk.count > 0:
+        last["update_norm_p90"] = round(sk.quantile(0.9), 6)
+    flags = np.stack([np.asarray(aux["nonfinite"], bool), np.asarray(aux["diverged"], bool)], axis=1)
+    trip = _first_trip(flags, first_round, 0)
+    return None if trip is None else {"kind": trip["kind"], "round": trip["round"]}
+
+
+def devobs_summary_for(node: str, last: Dict[str, Any]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """``(extras, extra_sketches)`` for one engine's devobs stream — the
+    snapshot graft inputs (:func:`~p2pfl_tpu_torch.telemetry.observatory.
+    population_snapshot` ``extras``/``extra_sketches``)."""
+    from p2pfl_tpu_torch.telemetry.sketches import SKETCHES
+
+    extras = dict(last)
+    extras.setdefault("tripped", None)
+    sketches: Dict[str, Any] = {}
+    for metric in ("update_norm", "train_loss"):
+        sk = SKETCHES.get(metric, node)
+        if sk is not None and sk.count > 0:
+            sketches[metric] = sk
+    return extras, sketches
 
 
 def local_train_step(
@@ -165,6 +250,10 @@ class SimulationResult:
     test_acc: List[float] = field(default_factory=list)
     test_loss: List[float] = field(default_factory=list)
     committees: Optional[np.ndarray] = None  # [rounds, K] node indices
+    #: device-observatory tripwire record (None = clean run): {kind:
+    #: nonfinite|loss_diverge, round, chunk, action, flightrec, bundle}.
+    #: Present only on parked runs — DEVOBS_TRIP_ACTION=abort raises instead.
+    tripped: Optional[Dict[str, Any]] = None
 
     def summary(self) -> Dict[str, float]:
         return {
@@ -211,8 +300,8 @@ class MeshSimulation:
             aggregate`` at ``server_lr``.
         clip_update_norm: clip each member's round delta to this global L2
             norm before aggregation (0: off).
-        node_speed: ``[N]`` positive speed tiers (validated and kept; the
-            virtual fleet health that reads them is not ported yet).
+        node_speed: ``[N]`` positive speed tiers (the virtual fleet health
+            of :meth:`fleet_health` applies them to the measured step time).
         canonical_committee: sort each voted committee by node index.
         pad_to_multiple: pad the population with zero-weight filler nodes,
             never elected, to a multiple of this.
@@ -419,6 +508,18 @@ class MeshSimulation:
         self._closed = False
         self._ledger: Any = None  # attach_ledger: None = no emission
         self._ledger_names: Optional[List[str]] = None
+        # Device observatory (config.DEVOBS_*): the static bucket spec of the
+        # on-device update-norm statistics, the engine's flight recorder
+        # (lazy), and the last chunk's host-folded summary that
+        # fleet_snapshot grafts onto the population document.
+        self._devobs_spec = device_bucket_spec()
+        self._devobs_node = "mesh-sim"
+        self._recorder: Any = None
+        self._devobs_last: Dict[str, Any] = {}
+        # Join the federation-wide run context (telemetry/bundle.py), as the
+        # JAX package's engine does: every artifact this engine emits
+        # carries the run id.
+        establish_run(seed=self.seed, name="engine")
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         t = torch.as_tensor(np.asarray(a), device=self.device)
@@ -451,9 +552,14 @@ class MeshSimulation:
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
         """Run one round on the state ``st`` (``params``, ``opt``, ``c``,
         ``c_global``), in place; returns ``(committee, train_loss,
-        test_loss, test_acc, nonfinite)`` (NaN test values when ``do_eval``
-        is off). ``nonfinite`` is, with ``devobs``, a device bool: a member's
-        loss or a leaf of the aggregate is not finite; else None."""
+        test_loss, test_acc, aux)`` (NaN test values when ``do_eval`` is
+        off). With ``devobs``, ``aux`` is the round's device-observatory row,
+        computed on the device and read by nothing here: one f64 tensor of
+        the update-norm bucket counts (:func:`device_bucket_stats` over the
+        members' round-delta L2 norms) and ``_AUX_COLS[:7]`` (``nonfinite``:
+        a member's loss or a leaf of the aggregate is not finite); else
+        None. The aux feeds nothing back: the parameters are bit-identical
+        with it on or off."""
         params, opt, scaffold = st["params"], st["opt"], self.algorithm == "scaffold"
         if committee is None:
             committee = vote_committee(
@@ -462,7 +568,8 @@ class MeshSimulation:
                 committee = torch.sort(committee).values
         idx = committee.to(self.device)
         # The members' round-start models, for the update transforms below.
-        p_k = {k: v[idx] for k, v in params.items()} if self._byz is not None or self.clip_update_norm else {}
+        p_k = ({k: v[idx] for k, v in params.items()}
+               if self._byz is not None or self.clip_update_norm or devobs else {})
         members: List[Params] = []
         losses = []
         for pos, node in enumerate(committee.tolist()):
@@ -530,14 +637,13 @@ class MeshSimulation:
                 updates, new_state = self.server_tx.update(pseudo, st["c_global"]["server_opt"], anchor)
                 agg = {k: (anchor[k] + updates[k]).to(agg[k].dtype) for k in anchor}
                 st["c_global"] = {"server_opt": new_state}
-        del p_k_new, p_k
+        if int(Settings.DEVOBS_NAN_INJECT_ROUND) >= 0 and round_idx == int(Settings.DEVOBS_NAN_INJECT_ROUND):
+            # Seeded fault injection for the tripwire: the aggregate turns
+            # NaN at one absolute round index.
+            agg = {k: torch.full_like(v, float("nan")) for k, v in agg.items()}
         member_losses = torch.stack(losses)
-        nonfinite = None
-        if devobs:
-            # A leaf's largest |x| is finite exactly when all of it is: one
-            # multi-tensor reduction over the aggregate, then one isfinite.
-            amax = torch.stack(torch._foreach_norm(list(agg.values()), float("inf"))).float()
-            nonfinite = ~torch.isfinite(torch.cat([member_losses.float(), amax])).all()
+        aux = self._devobs_aux(p_k, p_k_new, agg, member_losses, weights, len(committee)) if devobs else None
+        del p_k_new, p_k
         # Diffusion: every node adopts the aggregate (gossip's fixed point).
         for k, v in params.items():
             v.copy_(agg[k][None].expand_as(v))
@@ -547,7 +653,26 @@ class MeshSimulation:
             test_loss = test_acc = torch.zeros((), device=self.device)
         else:
             test_loss = test_acc = torch.full((), float("nan"), device=self.device)
-        return committee, member_losses.mean(), test_loss, test_acc, nonfinite
+        return committee, member_losses.mean(), test_loss, test_acc, aux
+
+    def _devobs_aux(self, p_k, p_k_new, agg, member_losses, weights, members: int) -> torch.Tensor:
+        """One round's device-observatory row, computed on the device without
+        waiting for it: the bucket counts of the members' update norms, then
+        the nonfinite flag, the weight mass, the member count, and the norms'
+        zeros, sum, min and max (f64, read by :func:`fold_devobs_chunk`)."""
+        sq = sum(((new.float() - p_k[k].float()) ** 2).reshape(new.shape[0], -1).sum(dim=1)
+                 for k, new in p_k_new.items())
+        gamma_log, lo_idx, nbins = self._devobs_spec
+        stats = device_bucket_stats(torch.sqrt(sq + 1e-12), gamma_log=gamma_log, lo_idx=lo_idx, nbins=nbins)
+        # A leaf's largest |x| is finite exactly when all of it is: one
+        # multi-tensor reduction over the aggregate, then one isfinite.
+        amax = torch.stack(torch._foreach_norm(list(agg.values()), float("inf"))).float()
+        nonfinite = ~torch.isfinite(torch.cat([member_losses.float(), amax])).all()
+        return torch.cat([stats["counts"].double(), torch.stack([
+            nonfinite.double(), weights.sum().double(),
+            torch.full((), float(members), dtype=torch.float64, device=self.device),
+            stats["zeros"].double(), stats["sum"].double(), stats["min"].double(), stats["max"].double(),
+        ])])
 
     # --- public API -------------------------------------------------------------
 
@@ -575,16 +700,29 @@ class MeshSimulation:
         timing; a round index the real run never uses) and is thrown away.
         ``rounds_per_call`` is the JAX package's compiled chunk of rounds:
         the port launches every round on its own, in order, with RNG keyed
-        by the absolute round index, and reads the rounds' health flags
-        once per chunk. With ``Settings.DEVOBS_ENABLED`` each round flags,
-        on the device, a non-finite member loss or aggregate
-        (``"nonfinite"``) and a cohort loss above
+        by the absolute round index, and reads the rounds' device-observatory
+        rows once per chunk. With ``Settings.DEVOBS_ENABLED`` each round
+        computes on the device the bucket statistics of its members'
+        update norms, its fold weight and a flag for a non-finite member
+        loss or aggregate (``"nonfinite"``) or a cohort loss above
         ``DEVOBS_LOSS_DIVERGE_MULT`` times the chunk's best finite one
-        (``"loss_diverge"``); after a chunk that flagged, no further round
-        runs, ``completed_rounds`` counts that chunk's rounds and, under
-        ``DEVOBS_TRIP_ACTION="abort"``, the JAX package's ``RuntimeError``
-        ("devobs tripwire: <kind> at round <r> (chunk <c>); ...") is raised
-        for the chunk's first flagged round.
+        (``"loss_diverge"``); each chunk's rows are folded into the
+        ``SKETCHES`` registry and the ``p2pfl_mesh_*`` gauges
+        (:func:`fold_devobs_chunk`). After a chunk that flagged, no further
+        round runs, ``completed_rounds`` counts that chunk's rounds, the trip
+        is counted, the flight recorder (its ``chunk_start`` / ``chunk_end``
+        events carry the allocator's bytes in use) dumped to
+        ``artifacts/flightrec_mesh-sim.json`` and an evidence bundle
+        written under ``Settings.DOCTOR_BUNDLE_DIR``; under
+        ``DEVOBS_TRIP_ACTION="abort"`` the JAX package's ``RuntimeError``
+        ("devobs tripwire: <kind> at round <r> (chunk <c>); flight recorder
+        dump: <path>; ...") is raised for the chunk's first flagged round,
+        under ``"park"`` the partial result returns with ``tripped`` set.
+        ``Settings.DEVOBS_NAN_INJECT_ROUND`` (>= 0) turns that absolute
+        round's aggregate NaN. ``profile_dir`` (default
+        ``Settings.PERF_TRACE_DIR``; empty disables) captures each of the
+        first ``Settings.DEVOBS_PROFILE_CHUNKS`` timed chunks as a
+        ``torch.profiler`` trace, ``<profile_dir>/mesh_round_chunk<i>/trace.json``.
         ``eval_every=k`` evaluates every k-th round (absolute index) and
         always the final one; ``test_acc`` / ``test_loss`` hold only the
         evaluated rounds. ``committee_schedule`` (``[rounds, K]`` node
@@ -594,15 +732,13 @@ class MeshSimulation:
         aggregates only those members; the others still train. The timed
         region ends in ``torch.cuda.synchronize()`` when the population is
         on a card. With a ledger attached (:meth:`attach_ledger`) every round
-        emits its events. ``checkpointer`` and a non-empty ``profile_dir`` are
-        not ported yet and raise ``NotImplementedError``.
+        emits its events. ``checkpointer`` is not ported yet and raises
+        ``NotImplementedError``.
         """
         if self._closed:
             raise RuntimeError("simulation is closed — construct a new MeshSimulation")
         if checkpointer is not None:
             raise _not_ported("run(checkpointer=...)", "management/checkpoint.py")
-        if profile_dir:
-            raise _not_ported("run(profile_dir=...)", "management/profiler.py")
         if int(rounds) != rounds or rounds < 1:
             raise ValueError(f"rounds must be a positive integer, got {rounds!r}")
         for name, val in (("rounds_per_call", rounds_per_call), ("eval_every", eval_every),
@@ -646,38 +782,63 @@ class MeshSimulation:
             self._sync()
 
         devobs = bool(Settings.DEVOBS_ENABLED)  # read once per run, as the JAX package does
+        if profile_dir is None:
+            profile_dir = Settings.PERF_TRACE_DIR
+        profile_chunks = int(Settings.DEVOBS_PROFILE_CHUNKS)
+        rec = self._devobs_recorder() if devobs else self._recorder
         rounds_per_call = min(rounds_per_call, rounds)
+        chunks = [rounds_per_call] * (rounds // rounds_per_call)
+        if rounds % rounds_per_call:
+            chunks.append(rounds % rounds_per_call)
         diverge_mult = float(Settings.DEVOBS_LOSS_DIVERGE_MULT)
         committees, test_loss, test_acc = [], [], []
-        flags: List[torch.Tensor] = []  # the chunk's [nonfinite, diverged] per round, on the device
-        floor = torch.full((), float("inf"), device=self.device)  # the chunk's best finite cohort loss
         trip: Optional[Dict[str, Any]] = None
         st = self._state()
         done = 0
         t0 = time.monotonic()
-        for i in range(rounds):
-            r = start + i
-            do_eval = (r + 1) % eval_every == 0 or i == rounds - 1
-            comm, tr, tl, ta, nonfinite = self._round(st, r, epochs, row(sched, i), do_eval, row(fsched, i),
-                                                      devobs)
-            chunk_end = (i + 1) % rounds_per_call == 0 or i == rounds - 1
-            if self._ledger is not None:
-                self._ledger_emit_round(r, comm, row(fsched, i), chunk_end)
-            committees.append(comm)
-            test_loss.append(tl)
-            test_acc.append(ta)
-            done = i + 1
+        for c, chunk in enumerate(chunks):
+            # The leading DEVOBS_PROFILE_CHUNKS timed chunks each get a
+            # windowed device trace (distinct labels cooperate with the
+            # window's capture-once-per-label contract).
+            window = (device_trace_window(profile_dir, label=f"mesh_round_chunk{c}")
+                      if c < profile_chunks else contextlib.nullcontext())
+            t_chunk = time.monotonic()
+            if rec is not None:
+                rec.record("chunk_start", chunk=c, rounds=chunk, first_round=start + done,
+                           bytes_in_use=device_memory_watermark()["bytes_in_use"])
+            aux_rows: List[torch.Tensor] = []  # the chunk's devobs rows, on the device
+            floor = torch.full((), float("inf"), device=self.device)  # the chunk's best finite cohort loss
+            with window:
+                for i in range(done, done + chunk):
+                    r = start + i
+                    do_eval = (r + 1) % eval_every == 0 or i == rounds - 1
+                    comm, tr, tl, ta, aux = self._round(st, r, epochs, row(sched, i), do_eval, row(fsched, i),
+                                                        devobs)
+                    if self._ledger is not None:
+                        self._ledger_emit_round(r, comm, row(fsched, i), i == done + chunk - 1)
+                    committees.append(comm)
+                    test_loss.append(tl)
+                    test_acc.append(ta)
+                    if devobs:
+                        finite = torch.isfinite(tr)
+                        diverged = finite & torch.isfinite(floor) & (tr > diverge_mult * floor)
+                        floor = torch.where(finite, torch.minimum(floor, tr), floor)
+                        aux_rows.append(torch.cat([aux, torch.stack([diverged.double(), tr.double()])]))
+            done += chunk
             if devobs:
-                finite = torch.isfinite(tr)
-                flags.append(torch.stack([nonfinite, finite & torch.isfinite(floor) & (tr > diverge_mult * floor)]))
-                floor = torch.where(finite, torch.minimum(floor, tr), floor)
-                if chunk_end:  # one read of the chunk's flags, as the JAX package fetches its aux once a chunk
-                    trip = _first_trip(torch.stack(flags).cpu().numpy(), r + 1 - len(flags), i // rounds_per_call)
-                    flags, floor = [], torch.full_like(floor, float("inf"))
-                    if trip is not None:
-                        break
+                # One read of the chunk's aux rows, as the JAX package fetches
+                # its aux once a chunk: sketch buckets into SKETCHES, headline
+                # gauges into p2pfl_mesh_*, tripwire flags into a trip record.
+                trip = self._devobs_fold_chunk(torch.stack(aux_rows).cpu().numpy(), start + done - chunk)
+            wm = device_memory_watermark()
+            self._devobs_last["mem_bytes"] = wm["peak_bytes_in_use"]
+            if rec is not None:
+                rec.record("chunk_end", chunk=c, rounds=chunk, wall_s=round(time.monotonic() - t_chunk, 4),
+                           bytes_in_use=wm["bytes_in_use"], peak_bytes=wm["peak_bytes_in_use"])
+            if trip is not None:
+                trip["chunk"] = c
+                break
         self._sync()
-        dt = time.monotonic() - t0
         self.opt_stack, self.c_global = st["opt"], st["c_global"]
         self.completed_rounds = start + done
         steps = done * epochs * (self.x.shape[1] // self.batch_size)
@@ -686,26 +847,50 @@ class MeshSimulation:
         else:
             self._nonprivate_steps_per_node += steps
         if trip is not None:
-            if Settings.DEVOBS_TRIP_ACTION == "park":
-                raise _not_ported(
-                    f"DEVOBS_TRIP_ACTION='park' (the partial result of a run tripped by {trip['kind']} at round "
-                    f"{trip['round']})", "the async engine, ROADMAP.md queue A item 13")
-            raise RuntimeError(
-                f"devobs tripwire: {trip['kind']} at round {trip['round']} (chunk {trip['chunk']}); flight "
-                f"recorder dump: None; state parked at round {self.completed_rounds} — set "
-                "P2PFL_TPU_DEVOBS_TRIP_ACTION=park to receive partial results instead"
-            )
+            self._devobs_trip(trip, rec)
+        dt = time.monotonic() - t0
         loss_all = torch.stack(test_loss).cpu().numpy()
         acc_all = torch.stack(test_acc).cpu().numpy()
         evaluated = ~np.isnan(acc_all)
-        return SimulationResult(
-            rounds=rounds,
+        result = SimulationResult(
+            rounds=done,
             seconds_total=dt,
-            seconds_per_round=dt / rounds,
+            seconds_per_round=dt / max(1, done),
             test_acc=[float(a) for a in acc_all[evaluated]],
             test_loss=[float(v) for v in loss_all[evaluated]],
             committees=torch.stack(committees).numpy(),
+            tripped=trip,
         )
+        if trip is not None and trip["action"] == "abort":
+            # The population state is parked (completed_rounds at the end of
+            # the tripped chunk): the raise is the abort contract.
+            raise RuntimeError(
+                f"devobs tripwire: {trip['kind']} at round {trip['round']} (chunk {trip['chunk']}); flight "
+                f"recorder dump: {trip.get('flightrec')}; state parked at round {self.completed_rounds} — set "
+                "P2PFL_TPU_DEVOBS_TRIP_ACTION=park to receive partial results instead"
+            )
+        return result
+
+    def _devobs_trip(self, trip: Dict[str, Any], rec: Any) -> None:
+        """A trip is postmortem-worthy, as in the JAX package: count it
+        (``p2pfl_mesh_trips_total``), record it in the flight recorder and
+        dump the recorder, emit a ``membership`` ledger event and write an
+        evidence bundle (``trip["flightrec"]`` / ``trip["bundle"]``: their
+        paths, None where a write failed)."""
+        from p2pfl_tpu_torch.telemetry.bundle import write_bundle
+        from p2pfl_tpu_torch.telemetry.observatory import mesh_trip
+
+        trip["action"] = str(Settings.DEVOBS_TRIP_ACTION)
+        mesh_trip(self._devobs_node, trip["kind"])
+        self._devobs_last["tripped"] = trip["kind"]
+        if rec is not None:
+            rec.record("devobs_trip", trip_kind=trip["kind"], round=trip["round"], chunk=trip["chunk"],
+                       action=trip["action"])
+            trip["flightrec"] = rec.dump("devobs_trip")
+        if self._ledger is not None:
+            self._ledger.emit("membership", event="devobs_trip", peer=self._devobs_node)
+        trip["bundle"] = write_bundle(
+            "devobs_trip", context={k: trip.get(k) for k in ("kind", "round", "chunk", "action")})
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -804,6 +989,141 @@ class MeshSimulation:
         led.emit("aggregate_committed", round=r, **commit)
         led.emit("round_close", round=r)
 
+    # --- device observatory ----------------------------------------------------------
+
+    def _devobs_recorder(self) -> Any:
+        """The simulation's flight recorder (lazy): chunk boundary events
+        and tripwire dumps share the wire nodes' recorder machinery."""
+        if self._recorder is None:
+            from p2pfl_tpu_torch.telemetry.flight_recorder import FlightRecorder
+
+            self._recorder = FlightRecorder(self._devobs_node)
+        return self._recorder
+
+    def _devobs_fold_chunk(self, rows: np.ndarray, first_round: int) -> Optional[Dict[str, Any]]:
+        """Fold one chunk's packed aux rows (``[rounds, nbins +
+        len(_AUX_COLS)]``, read from the device in one copy) through
+        :func:`fold_devobs_chunk`; returns the chunk's first trip or None."""
+        nbins = self._devobs_spec[2]
+        aux: Dict[str, Any] = {name: rows[:, nbins + j] for j, name in enumerate(_AUX_COLS)}
+        aux["un_counts"] = rows[:, :nbins].astype(np.int64)
+        return fold_devobs_chunk(aux, aux.pop("train_loss"), first_round=first_round, node=self._devobs_node,
+                                 spec=self._devobs_spec, last=self._devobs_last)
+
+    def devobs_summary(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """``(extras, extra_sketches)`` from the last run's device-
+        observatory stream — what :meth:`fleet_snapshot` grafts onto its
+        snapshot document (fed_top's LOSS / GNORM / HBM / TRIP columns and
+        the fleet quantile rows)."""
+        return devobs_summary_for(self._devobs_node, self._devobs_last)
+
+    def fleet_health(self, result: SimulationResult, epochs: int = 1) -> Dict[str, np.ndarray]:
+        """Per-virtual-node health arrays for the completed ``result``, as
+        the JAX package computes them: ``participation`` (committee
+        appearances) and ``rejections`` (Byzantine nodes' poisoned
+        appearances) from the run's committees; ``step_time`` and
+        ``round_lag`` apply the ``node_speed`` tiers to the measured mean
+        step time (the fused round is lockstep, so per-node wall clocks are
+        a model); ``cohort_fill`` is the share of rounds a node was
+        solicited in. Plain numpy over ``[N]`` arrays."""
+        if result.committees is None:
+            raise ValueError("result carries no committee history")
+        n = self.logical_num_nodes  # filler nodes are not fleet members
+        rounds = int(result.committees.shape[0])
+        steps_per_round = max(1, (int(self.x.shape[1]) // self.batch_size) * epochs)
+        base_step_s = result.seconds_per_round / steps_per_round
+        speed = np.asarray(self.node_speed, np.float32) if self.node_speed is not None else np.ones(n, np.float32)
+        byz = self._byz.cpu().numpy()[:n] if self._byz is not None else np.zeros(n, np.float32)
+        comm = np.asarray(result.committees).reshape(-1)
+        participation = np.zeros(n, np.float32)
+        np.add.at(participation, comm, 1.0)
+        step_time = np.float32(base_step_s) * speed
+        # A tier-s node's virtual clock covers rounds/s rounds in the time the
+        # fleet covers `rounds`; faster tiers clamp to zero lag.
+        round_lag = np.maximum(0.0, np.floor(rounds * (1.0 - 1.0 / speed)))
+        return {
+            "participation": participation,
+            "step_time": step_time,
+            "round_lag": round_lag.astype(np.float32),
+            "round": (rounds - round_lag).astype(np.float32),
+            "rejections": byz * participation,
+            "cohort_fill": participation / np.float32(max(1, rounds)),
+        }
+
+    def fleet_snapshot(
+        self, result: SimulationResult, epochs: int = 1, top_n: int = 16, path: Optional[str] = None,
+    ) -> Dict[str, Any]:
+        """Observatory snapshot for the virtual fleet: the :meth:`fleet_health`
+        arrays folded into quantile sketches plus a top-N straggler table,
+        the devobs summary grafted on — the document shape the wire
+        observatory writes (``scripts/fed_top.py`` renders it). ``path``
+        additionally writes it atomically."""
+        from p2pfl_tpu_torch.telemetry.observatory import population_snapshot, write_snapshot_doc
+
+        health = self.fleet_health(result, epochs=epochs)
+        names = [f"vnode/{i:05d}" for i in range(self.logical_num_nodes)]
+        extras, extra_sketches = self.devobs_summary()
+        if result.tripped is not None:
+            extras["tripped"] = result.tripped.get("kind")
+        snap = population_snapshot(
+            observer="mesh-sim", node_names=names, metrics=health, top_n=top_n, extras=extras or None,
+            extra_sketches=extra_sketches or None,
+        )
+        if path is not None:
+            write_snapshot_doc(path, snap)
+        return snap
+
+    # --- cost analysis --------------------------------------------------------------
+
+    def round_cost_analysis(
+        self, epochs: int = 1, rounds_per_call: int = 1, eval_every: int = 1, devobs: Optional[bool] = None,
+    ) -> Optional[Dict[str, float]]:
+        """The work of one ``rounds_per_call``-round call at the simulation's
+        current shapes, with the JAX package's keys: ``flops``,
+        ``flops_per_round``, ``bytes_accessed``, ``bytes_accessed_per_round``,
+        and ``attention_flops_per_round``, the flash calls' share.
+
+        XLA's cost model has no torch twin, so the port counts what a call
+        executes (:func:`p2pfl_tpu_torch.ops.cost.count_cost_of`): the FLOPs of
+        every matrix product and convolution (``torch.utils.flop_counter``'s
+        formulas), every flash call as one operation of its analytic work
+        (:func:`~p2pfl_tpu_torch.ops.attention.attention_cost`: the causal
+        triangle's products, the same on the card and the CPU), and as
+        bytes the sizes of every counted op's tensor inputs and outputs. The
+        rounds run on a copy of the population state at the next round
+        indices (committees voted as ``run`` would), with the global
+        generators saved and restored, so ``completed_rounds`` and a later
+        ``run``'s trajectory are unchanged; the card's launch counters do
+        count the call's kernels. ``devobs`` (default
+        ``Settings.DEVOBS_ENABLED``) counts the device-observatory aux too.
+        Returns ``None`` when the count fails."""
+        if self._closed or self.params_stack is None:
+            raise RuntimeError("simulation has no live population state")
+        from p2pfl_tpu_torch.ops.cost import count_cost_of
+
+        devobs = bool(Settings.DEVOBS_ENABLED) if devobs is None else bool(devobs)
+        start = self.completed_rounds
+        st = state_map(torch.clone, self._state())
+
+        def rounds() -> None:
+            for i in range(rounds_per_call):
+                r = start + i
+                do_eval = (r + 1) % eval_every == 0 or i == rounds_per_call - 1
+                self._round(st, r, epochs, None, do_eval, None, devobs)
+            self._sync()
+
+        counter = count_cost_of(rounds)
+        del st
+        if counter is None:
+            return None
+        return {
+            "flops": float(counter.flops),
+            "flops_per_round": counter.flops / rounds_per_call,
+            "bytes_accessed": float(counter.bytes),
+            "bytes_accessed_per_round": counter.bytes / rounds_per_call,
+            "attention_flops_per_round": counter.opaque_flops / rounds_per_call,
+        }
+
     # --- planes not ported yet ----------------------------------------------------
 
     def save_to(self, checkpointer) -> bool:
@@ -811,19 +1131,6 @@ class MeshSimulation:
 
     def load_from(self, checkpointer, step: Optional[int] = None) -> int:
         raise _not_ported("MeshSimulation.load_from", "management/checkpoint.py")
-
-    def round_cost_analysis(self, *args, **kwargs):
-        raise _not_ported("MeshSimulation.round_cost_analysis", "management/profiler.py")
-
-
-    def devobs_summary(self):
-        raise _not_ported("MeshSimulation.devobs_summary (the device observatory)", "telemetry/sketches.py")
-
-    def fleet_health(self, result: SimulationResult, epochs: int = 1):
-        raise _not_ported("MeshSimulation.fleet_health", "the observatory (telemetry/)")
-
-    def fleet_snapshot(self, result: SimulationResult, *args, **kwargs):
-        raise _not_ported("MeshSimulation.fleet_snapshot", "the observatory (telemetry/)")
 
 
 def _first_trip(flags: np.ndarray, first_round: int, chunk: int) -> Optional[Dict[str, Any]]:

@@ -17,8 +17,8 @@ prometheus_client, which the image doesn't ship):
   the families registered, so module-level metric handles stay valid
   across bench/test runs.
 
-The JAX package's exposition (``telemetry/export.py``: Prometheus text,
-JSON snapshot) is not ported yet; ``REGISTRY.collect()`` reads the values.
+Exposition (Prometheus text format, JSON snapshot) lives in
+:mod:`p2pfl_tpu_torch.telemetry.export`.
 """
 
 from __future__ import annotations

@@ -10,9 +10,12 @@ simulation that runs on from where it stopped: the MLP round at bench.py's
 metric configuration (100 nodes, committee 4, ``MLP_ROUNDS`` rounds a run)
 and the full-width flash LM round (``ROUNDS`` rounds a run), with
 ``Settings.DEVOBS_ENABLED`` on, off, off, on, ``REPEATS`` times (default
-2), at the default ``rounds_per_call=1`` (one read of the flags a round).
-Prints each run's s/round and, last, one JSON object ``{"mlp": {"on":
-[...], "off": [...]}, "lm": {...}}``. Runs on the card only.
+2), at the default ``rounds_per_call=1`` (one read of the devobs rows a
+round), and then, each time, one more run with it on at
+``rounds_per_call`` equal to the run's rounds (one read a run: what the
+per-round read costs). Prints each run's s/round and, last, one JSON
+object ``{"mlp": {"on": [...], "off": [...], "on_one_read": [...]}, "lm":
+{...}}``. Runs on the card only.
 """
 
 from __future__ import annotations
@@ -71,12 +74,13 @@ def main() -> int:
                             lr=cs.LR, seed=1, task="lm", device="cuda")
     out: dict = {}
     for label, sim, rounds in (("mlp", mlp, cs.MLP_ROUNDS), ("lm", lm_sim, cs.ROUNDS)):
-        times: dict = {"on": [], "off": []}
+        times: dict = {"on": [], "off": [], "on_one_read": []}
         first = True
         for _ in range(repeats):
-            for state in ("on", "off", "off", "on"):
-                Settings.DEVOBS_ENABLED = state == "on"
-                res = sim.run(rounds=rounds, epochs=1, warmup=first)
+            for state in ("on", "off", "off", "on", "on_one_read"):
+                Settings.DEVOBS_ENABLED = state != "off"
+                res = sim.run(rounds=rounds, epochs=1, warmup=first,
+                              rounds_per_call=rounds if state == "on_one_read" else 1)
                 first = False
                 times[state].append(res.seconds_per_round)
                 print(f"[devobs] {label} devobs {state}: {res.seconds_per_round:.6f} s/round "

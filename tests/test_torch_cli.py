@@ -100,17 +100,40 @@ def test_mnist_run_mesh_tracks_jax(monkeypatch):
 
 @pytest.mark.parametrize("argv,plane", [
     (["--mode", "nodes"], "Node"),
-    (["--profiling"], "profiler"),
-    (["--trace", "out"], "profiler"),
+    (["--profiling"], None),
+    (["--trace", "out"], None),
 ])
-def test_mnist_options_that_wait_for_a_plane_raise(argv, plane):
-    with pytest.raises(NotImplementedError, match=plane):
-        mnist.main(argv + ["--device", "cpu"])
+def test_mnist_options_that_wait_for_a_plane_raise(argv, plane, tmp_path, monkeypatch, capsys):
+    """``--mode nodes`` still waits for the Node; ``--profiling`` and
+    ``--trace DIR`` (ported with the profiler) write what the JAX example
+    writes: a host ``.pstat`` under ``profile/mnist/`` and a trace under
+    DIR."""
+    monkeypatch.chdir(tmp_path)
+    tiny = ["--nodes", "2", "--rounds", "1", "--train-set-size", "2", "--samples-per-node", "32", "--batch-size", "32",
+            "--seed", "0",
+            "--device", "cpu"]
+    if plane is not None:
+        with pytest.raises(NotImplementedError, match=plane):
+            mnist.main(argv + tiny)
+        return
+    assert mnist.main(argv + tiny + ["--measure-time"]) == 0
+    assert "'mode': 'mesh'" in capsys.readouterr().out
+    if argv[0] == "--profiling":
+        assert len(list((tmp_path / "profile" / "mnist").glob("mnist-*.pstat"))) == 1
+    else:
+        assert (tmp_path / "out" / "mnist" / "trace.json").is_file()
 
 
 def test_cifar_cost_analysis_waits_for_the_profiler():
-    with pytest.raises(NotImplementedError, match="profiler"):
-        cifar.run(cifar.build_parser().parse_args(["--cost-analysis", "--device", "cpu"]))
+    """Ported with the profiler: ``--cost-analysis`` adds the round's counted
+    work under the JAX example's key and keys (the bad-argument check still
+    runs first)."""
+    argv = ["--nodes", "2", "--rounds", "1", "--train-set-size", "2", "--samples-per-node", "8", "--batch-size",
+            "8", "--image-size", "8", "--aggregator", "fedavg", "--seed", "0", "--cost-analysis"]
+    got = cifar.run(cifar.build_parser().parse_args(argv + ["--device", "cpu"]))
+    assert set(got["cost_analysis"]) >= {"flops", "flops_per_round", "bytes_accessed", "bytes_accessed_per_round"}
+    assert got["cost_analysis"]["flops_per_round"] > 0
+    assert cifar.run(cifar.build_parser().parse_args(argv[:-1] + ["--device", "cpu"]))["cost_analysis"] is None
     with pytest.raises(SystemExit, match="poison-frac"):
         cifar.run(cifar.build_parser().parse_args(["--poison-frac", "1.5", "--device", "cpu"]))
 

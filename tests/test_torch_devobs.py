@@ -1,22 +1,32 @@
-"""The port's devobs tripwires against the JAX package's MeshSimulation.
+"""The port's device observatory against the JAX package's MeshSimulation.
 
 Both packages flag, in each round, a non-finite member loss or aggregate
 ("nonfinite") and a cohort loss above ``DEVOBS_LOSS_DIVERGE_MULT`` times the
 chunk's best finite one ("loss_diverge"), read the flags once per chunk of
 ``rounds_per_call`` rounds and, under ``DEVOBS_TRIP_ACTION="abort"``, raise
-``RuntimeError("devobs tripwire: <kind> at round <r> (chunk <c>); ...")``
-with the population state parked at the end of the tripped chunk. Each case
+``RuntimeError("devobs tripwire: <kind> at round <r> (chunk <c>); flight
+recorder dump: <path>; ...")`` with the population state parked at the end
+of the tripped chunk (under ``"park"`` the partial result returns with
+``tripped``). Each round also computes on the device the bucket statistics
+of its members' update norms (``device_bucket_stats``), folded per chunk
+into the ``update_norm`` sketch and the ``p2pfl_mesh_*`` gauges. Each case
 runs both packages on one input and holds the port to the reference's kind,
-round, chunk and ``completed_rounds``. The JAX side dumps its flight
-recorder under ``artifacts/`` of the working directory, so the tests run in
-their tmp dir.
+round, chunk, ``completed_rounds``, sketches and snapshot documents. Both
+sides dump their flight recorders under ``artifacts/`` of the working
+directory and their bundles under ``DOCTOR_BUNDLE_DIR``, so the tests run in
+their tmp dir with the bundle directory inside it.
 """
 
+import json
+import os
 import re
+import subprocess
+import sys
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from p2pfl_tpu.config import Settings as JaxSettings
 from p2pfl_tpu.learning.dataset import RandomIIDPartitionStrategy as JaxRandomIID
@@ -40,6 +50,9 @@ SCHED = np.array([[0, 1], [2, 3], [0, 2], [1, 3]], np.int32)
 @pytest.fixture(autouse=True)
 def _in_tmp(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
+    bundles = str(tmp_path / "bundles")
+    with JaxSettings.overridden(DOCTOR_BUNDLE_DIR=bundles), Settings.overridden(DOCTOR_BUNDLE_DIR=bundles):
+        yield
 
 
 def sims(**kw):
@@ -103,16 +116,48 @@ def test_disabled_tripwires_return_nan_as_in_jax():
 
 
 def test_park_is_not_ported():
-    _, sim = sims()
-    with Settings.overridden(DEVOBS_TRIP_ACTION="park"):
-        with pytest.raises(NotImplementedError, match="park.*nonfinite at round 0"):
-            sim.run(rounds=2)
-    assert sim.completed_rounds == 1
+    """Ported now: ``DEVOBS_TRIP_ACTION="park"`` returns the partial result
+    with the reference's trip record (kind, round, chunk, action, and the
+    paths of the flight-recorder dump and the bundle)."""
+    jsim, sim = sims()
+    with JaxSettings.overridden(DEVOBS_TRIP_ACTION="park"), Settings.overridden(DEVOBS_TRIP_ACTION="park"):
+        ref, res = jsim.run(rounds=2), sim.run(rounds=2)
+    keys = ("kind", "round", "chunk", "action")
+    assert {k: res.tripped[k] for k in keys} == {k: ref.tripped[k] for k in keys} == {
+        "kind": "nonfinite", "round": 0, "chunk": 0, "action": "park"}
+    assert res.rounds == ref.rounds == 1 and sim.completed_rounds == jsim.completed_rounds == 1
+    assert res.tripped["flightrec"] == ref.tripped["flightrec"] == "artifacts/flightrec_mesh-sim.json"
+    assert res.tripped["bundle"] is not None and len(res.committees) == len(ref.committees) == 1
+
+
+#: Every setting the device observatory and the telemetry plane read.
+SETTINGS = ("DEVOBS_ENABLED", "DEVOBS_TRIP_ACTION", "DEVOBS_LOSS_DIVERGE_MULT", "DEVOBS_PROFILE_CHUNKS",
+            "DEVOBS_MEM_TTL_S", "DEVOBS_NAN_INJECT_ROUND", "RUN_ID", "TRACE_MAX_SPANS",
+            "FLIGHTREC_CAPACITY", "SKETCH_REL_ERR", "SKETCH_MAX_BINS", "OBS_REFRESH_MIN_S", "OBS_MAX_TRACKED",
+            "OBS_PEER_TTL", "DOCTOR_BUNDLE_ENABLED", "DOCTOR_MIN_CONFIDENCE",
+            "PERF_TRACE_DIR", "LEDGER_SNAPSHOT_TAIL")
 
 
 def test_settings_match_jax():
-    for name in ("DEVOBS_ENABLED", "DEVOBS_TRIP_ACTION", "DEVOBS_LOSS_DIVERGE_MULT"):
-        assert getattr(Settings, name) == getattr(JaxSettings, name)
+    for name in SETTINGS:
+        assert getattr(Settings, name) == getattr(JaxSettings, name), name
+
+
+@pytest.mark.parametrize("name,value", [("SKETCH_REL_ERR", "0.05"), ("DEVOBS_NAN_INJECT_ROUND", "3"),
+                                        ("DOCTOR_BUNDLE_DIR", None), ("OBS_MAX_TRACKED", "7")])
+def test_settings_env_overrides_match_jax(name, value):
+    """The same ``P2PFL_TPU_<NAME>`` value sets (or refuses) the same
+    setting in both packages, each imported in a fresh interpreter."""
+    code = ("import sys, importlib; m = importlib.import_module(sys.argv[1]); "
+            "print(repr(getattr(m.Settings, sys.argv[2])))")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != f"P2PFL_TPU_{name}"}
+    if value is not None:  # None: the default
+        env[f"P2PFL_TPU_{name}"] = value
+    outs = [subprocess.run([sys.executable, "-c", code, mod, name], cwd=root, env=env, capture_output=True,
+                           text=True, timeout=120) for mod in ("p2pfl_tpu.config", "p2pfl_tpu_torch.config")]
+    assert [o.returncode for o in outs] == [o.returncode for o in outs[:1]] * 2, [o.stderr[-300:] for o in outs]
+    assert outs[0].stdout.strip().splitlines()[-1:] == outs[1].stdout.strip().splitlines()[-1:]
 
 
 def test_first_trip_prefers_the_earlier_round_then_nonfinite():
@@ -120,3 +165,149 @@ def test_first_trip_prefers_the_earlier_round_then_nonfinite():
     assert _first_trip(flags, 10, 3) == {"kind": "loss_diverge", "round": 11, "chunk": 3}
     assert _first_trip(flags[[0, 2]], 0, 0) == {"kind": "nonfinite", "round": 1, "chunk": 0}
     assert _first_trip(flags[:1], 0, 0) is None
+
+
+# --- the device observatory's aux stream ----------------------------------------------
+
+
+def test_device_bucket_stats_matches_jax():
+    """The same values through the JAX function and the port's: integer
+    fields exact, the sum within 1e-6, min and max exact (zeros, non-finite
+    values and both window clips included)."""
+    from p2pfl_tpu.telemetry import sketches as jax_sketches
+    from p2pfl_tpu_torch.telemetry import sketches
+
+    rng = np.random.default_rng(0)
+    v = np.exp(rng.uniform(np.log(1e-8), np.log(1e5), 4096)).astype(np.float32) * rng.choice([-1, 1], 4096)
+    v[:8] = [0.0, np.nan, np.inf, -np.inf, 1e-12, 5e-10, 1e4, 1e-7]
+    spec = sketches.device_bucket_spec()
+    assert spec == jax_sketches.device_bucket_spec()
+    kw = dict(gamma_log=spec[0], lo_idx=spec[1], nbins=spec[2])
+    got = sketches.device_bucket_stats(torch.from_numpy(v), **kw)
+    want = {k: np.asarray(a) for k, a in jax_sketches.device_bucket_stats(v, **kw).items()}
+    assert got["counts"].dtype == torch.int32 and got["counts"].shape == (spec[2],)
+    np.testing.assert_array_equal(got["counts"].numpy(), want["counts"])
+    assert int(got["zeros"]) == int(want["zeros"]) == 3  # 0, 1e-12, 5e-10
+    assert float(got["min"]) == float(want["min"]) and float(got["max"]) == float(want["max"])
+    np.testing.assert_allclose(float(got["sum"]), float(want["sum"]), rtol=1e-6)
+    empty = sketches.device_bucket_stats(torch.tensor([np.nan, 0.0]), **kw)
+    assert int(empty["counts"].sum()) == 0 and float(empty["min"]) == np.inf and float(empty["max"]) == -np.inf
+
+
+SANE = dict(batch_size=64, lr=1e-3)  # one batch a node: the shuffles only reorder a mean
+SCHED6 = np.array([[0, 1], [2, 3], [0, 2], [1, 3], [0, 3], [1, 2]], np.int32)
+
+
+def _port_hash(sim):
+    from p2pfl_tpu_torch.telemetry.ledger import canonical_params_hash
+
+    return canonical_params_hash({k: v[0] for k, v in sim.params_stack.items()})
+
+
+def test_devobs_on_and_off_give_the_same_params():
+    hashes = []
+    for on in (True, False):
+        _, sim = sims(**SANE)
+        with Settings.overridden(DEVOBS_ENABLED=on):
+            sim.run(rounds=3, rounds_per_call=2, warmup=False)
+        hashes.append(_port_hash(sim))
+    assert hashes[0] == hashes[1]
+
+
+def test_devobs_summary_matches_jax_and_is_invariant_to_rounds_per_call():
+    """The update-norm and train-loss sketches after 6 scheduled rounds:
+    counts equal to the reference's (committee x rounds), quantiles within
+    the sketch's relative error of the reference's, and the port's own
+    summary the same at 1, 2 and 6 rounds a chunk."""
+    from p2pfl_tpu.telemetry.sketches import SKETCHES as JAX_SKETCHES
+    from p2pfl_tpu_torch.telemetry.sketches import SKETCHES
+
+    summaries = {}
+    for rpc in (1, 2, 6):
+        SKETCHES.reset()
+        _, sim = sims(**SANE)
+        sim.run(rounds=6, rounds_per_call=rpc, committee_schedule=SCHED6, warmup=False)
+        extras, sk = sim.devobs_summary()
+        summaries[rpc] = (sk["update_norm"].to_wire(), sk["train_loss"].to_wire(),
+                          {k: v for k, v in extras.items() if k != "mem_bytes"})
+    assert summaries[1] == summaries[2] == summaries[6]
+    JAX_SKETCHES.reset()
+    jsim, _ = sims(**SANE)
+    jsim.run(rounds=6, rounds_per_call=2, committee_schedule=SCHED6, warmup=False)
+    jextras, jsk = jsim.devobs_summary()
+    _, psk = sim.devobs_summary()
+    rel = Settings.SKETCH_REL_ERR
+    for metric in ("update_norm", "train_loss"):
+        assert psk[metric].count == jsk[metric].count == (12 if metric == "update_norm" else 6)
+        for q in (0.1, 0.5, 0.9):
+            assert psk[metric].quantile(q) == pytest.approx(jsk[metric].quantile(q), rel=2 * rel + 1e-6), (metric, q)
+    extras = summaries[2][2]
+    assert extras["tripped"] is None and jextras["tripped"] is None
+    assert extras["update_norm_p90"] == pytest.approx(jextras["update_norm_p90"], rel=2 * rel)
+    assert extras["train_loss"] == pytest.approx(jextras["train_loss"], rel=1e-5)
+
+
+def test_mesh_prometheus_family_is_exported():
+    from p2pfl_tpu_torch.telemetry.export import render_prometheus
+
+    _, sim = sims(**SANE)
+    sim.run(rounds=2, rounds_per_call=2, committee_schedule=SCHED6[:2], warmup=False)
+    text = render_prometheus()
+    for fam in ("p2pfl_mesh_round", "p2pfl_mesh_train_loss", "p2pfl_mesh_weight_mass",
+                "p2pfl_mesh_participants_total"):
+        assert f'{fam}{{node="mesh-sim"}}' in text, fam
+    assert "p2pfl_sketch_update_norm" in text
+
+
+@pytest.mark.parametrize("action", ["park", "abort"])
+@pytest.mark.parametrize("rounds_per_call", [1, 2])
+def test_nan_injection_trips_as_in_jax(action, rounds_per_call):
+    """``DEVOBS_NAN_INJECT_ROUND=1`` on a sane run: both trip ``nonfinite``
+    at round 1, in the chunk holding it, and the abort message names the
+    flight-recorder dump, whose chunk events carry the bytes in use."""
+    jsim, sim = sims(**SANE)
+    knobs = dict(DEVOBS_NAN_INJECT_ROUND=1, DEVOBS_TRIP_ACTION=action)
+    with JaxSettings.overridden(**knobs), Settings.overridden(**knobs):
+        if action == "abort":
+            want = trip_of(jsim, rounds=4, rounds_per_call=rounds_per_call)
+            with pytest.raises(RuntimeError, match="flight recorder dump: artifacts/flightrec_mesh-sim.json;"):
+                sim.run(rounds=4, rounds_per_call=rounds_per_call)
+            assert (want[0], want[1], want[2]) == ("nonfinite", 1, 1 // rounds_per_call)
+            assert sim.completed_rounds == jsim.completed_rounds == 2
+        else:
+            ref, res = jsim.run(rounds=4, rounds_per_call=rounds_per_call), sim.run(
+                rounds=4, rounds_per_call=rounds_per_call)
+            keys = ("kind", "round", "chunk", "action")
+            assert {k: res.tripped[k] for k in keys} == {k: ref.tripped[k] for k in keys}
+            assert res.tripped["round"] == 1 and res.rounds == ref.rounds == 2
+    with open("artifacts/flightrec_mesh-sim.json") as f:
+        events = json.load(f)["events"]
+    starts = [e for e in events if e["kind"] == "chunk_start"]
+    assert starts and all(e["bytes_in_use"] > 0 for e in starts)
+    assert events[-1]["kind"] == "devobs_trip" and events[-1]["round"] == 1
+
+
+def test_fleet_health_and_snapshot_match_jax(tmp_path):
+    """Same schedule and node speeds: the health arrays equal the
+    reference's (step time from each side's own measured s/round), and the
+    snapshot documents have the same shape, peers and straggler."""
+    speed = np.array([1.0, 5.0, 1.0, 1.0], np.float32)
+    jsim, sim = sims(node_speed=speed, **SANE)
+    ref = jsim.run(rounds=4, committee_schedule=SCHED6[:4], warmup=False)
+    res = sim.run(rounds=4, committee_schedule=SCHED6[:4], warmup=False)
+    got, want = sim.fleet_health(res), jsim.fleet_health(ref)
+    assert set(got) == set(want)
+    for key in ("participation", "round_lag", "round", "rejections", "cohort_fill"):
+        np.testing.assert_array_equal(got[key], want[key])
+    np.testing.assert_allclose(got["step_time"] / res.seconds_per_round, want["step_time"] / ref.seconds_per_round,
+                               rtol=1e-6)
+    path = str(tmp_path / "snap.json")
+    snap = sim.fleet_snapshot(res, top_n=2, path=path)
+    jsnap = jsim.fleet_snapshot(ref, top_n=2, path=str(tmp_path / "jax_snap.json"))
+    from p2pfl_tpu_torch.telemetry.observatory import snapshot_shape_diff
+
+    assert snapshot_shape_diff(snap, jsnap) == [] and snapshot_shape_diff(jsnap, snap) == []
+    assert set(snap["peers"]) == set(jsnap["peers"]) and snap["top_straggler"] == jsnap["top_straggler"] == \
+        "vnode/00001"
+    with open(path) as f:
+        assert json.load(f)["fleet"]["size"] == 5

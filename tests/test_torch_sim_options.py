@@ -147,18 +147,32 @@ def test_bad_options_raise_as_in_jax(kwargs, match):
         MeshSimulation(ph, pp, device="cpu", seed=0, **kwargs)
 
 
-def test_unported_options_raise_not_implemented():
-    _, ph = mlp_handles()
-    _, pp = mnist_partitions()
-    sim = MeshSimulation(ph, pp, device="cpu", seed=0, train_set_size=2, batch_size=SCHED.shape[1])
-    for kwargs in (dict(checkpointer=object()), dict(profile_dir="trace")):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            sim.run(rounds=1, **kwargs)
-    for call in (sim.devobs_summary, lambda: sim.fleet_health(None),
-                 lambda: sim.save_to(None), lambda: sim.round_cost_analysis(),
-                 lambda: sim.load_from(None)):
+def test_unported_options_raise_not_implemented(tmp_path):
+    """The checkpoint plane still raises; ``profile_dir``,
+    ``round_cost_analysis``, ``devobs_summary``, ``fleet_health`` and
+    ``fleet_snapshot`` (ported with the profiler and the telemetry plane)
+    run and return what the JAX package's do."""
+    jh, ph = mlp_handles()
+    jp, pp = mnist_partitions()
+    kw = dict(seed=0, train_set_size=2, batch_size=SCHED.shape[1])
+    sim = MeshSimulation(ph, pp, device="cpu", **kw)
+    jsim = JaxMeshSimulation(jh, jp, mesh=make_mesh(devices=jax.devices()[:1]), **kw)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        sim.run(rounds=1, checkpointer=object())
+    for call in (lambda: sim.save_to(None), lambda: sim.load_from(None)):
         with pytest.raises(NotImplementedError, match="not ported"):
             call()
+    res = sim.run(rounds=2, profile_dir=str(tmp_path / "trace"), committee_schedule=SCHED[:2])
+    ref = jsim.run(rounds=2, committee_schedule=SCHED[:2])
+    assert (tmp_path / "trace" / "mesh_round_chunk0" / "trace.json").is_file()
+    cost, jcost = sim.round_cost_analysis(), jsim.round_cost_analysis()
+    assert set(jcost) <= set(cost) and cost["flops_per_round"] > 0
+    (extras, sketches), (jextras, jsketches) = sim.devobs_summary(), jsim.devobs_summary()
+    assert set(extras) == set(jextras) and set(sketches) == set(jsketches)
+    health, jhealth = sim.fleet_health(res), jsim.fleet_health(ref)
+    assert set(health) == set(jhealth)
+    np.testing.assert_array_equal(health["participation"], jhealth["participation"])
+    assert sim.fleet_snapshot(res)["fleet"]["size"] == jsim.fleet_snapshot(ref)["fleet"]["size"] == 5
 
 
 @pytest.mark.parametrize(
