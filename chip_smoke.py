@@ -153,6 +153,20 @@ Phases, each on its own printed lines:
    equals acc bit for bit, a second codec holding the anchor decodes each
    frame to anchor + scatter(dequant) bit for bit, and the dense frame
    round-trips bit for bit.
+12a. transport: the fitted LM's frames between four fully connected
+   in-memory protocols of ``p2pfl_tpu_torch/comm/`` (heartbeat 0.25 s),
+   each receiver decoding on the card with its own ``DeltaWireCodec``: the
+   dense f32 frame to the fitted leaves and the coalesced top-k int8 frame
+   to anchor + scatter(dequant) bit for bit (bytes, ms from send to the
+   last decode); every observatory holds the other three's heartbeat
+   digests (device memory > 0); under seeded faults (drop and duplicate
+   0.25, jitter 10 ms, seed 7) 8 dense sends to each peer arrive as a fresh
+   ``ChaosPlane``'s streams predict, twice, with node 0's digest counting
+   the faults; a Byzantine node 0 (``signflip``, ``scaled``, ``nan``,
+   ``inflate``; ``signflip`` on the top-k bf16 frame) decodes as the attack
+   says bit for bit; ``adaptive_poison`` on the card equals the CPU's; a
+   traced send's ``recv:`` span is parented on the sender's; teardown
+   leaves no transport thread and an empty registry.
 13. parity: a ``ParityScenario`` (8 MLP nodes, full committee, 3 rounds, one
    signflip node) through the wire's model plane (``run_frames``) and the
    fused round (``run_fused``): every round's ``canonical_params_hash``
@@ -1995,6 +2009,32 @@ def phase_learner() -> tuple:
     return node.get_model(), start
 
 
+def topk_leaf(leaf, start, values: str, ratio: float) -> tuple:
+    """One leaf's update against its anchor through the top-k encoder that
+    ``DeltaWireCodec`` runs, with a zero residual: ``(flat anchor, delta,
+    idx, dequantized values, residual, seconds of the encoder, a sync after
+    it)``."""
+    import torch
+    from p2pfl_tpu_torch.config import Settings
+    from p2pfl_tpu_torch.ops import compression as comp
+
+    flat = start.float().reshape(-1)
+    delta = leaf.float().reshape(-1) - flat
+    k = comp.topk_count(delta.numel(), ratio)
+    vd = values if values == "bf16" or k >= Settings.QUANT_MIN_VALUES else "bf16"
+    zeros = torch.zeros_like(delta)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    if vd == "bf16":
+        idx, wire, resid = comp.ef_topk_encode(delta, zeros, k, "bf16")
+        deq = wire.float()
+    else:
+        idx, q, scale, resid = comp.ef_topk_quant_encode(delta, zeros, k, 8 if vd == "int8" else 4)
+        deq = q.float() * torch.tensor(scale, dtype=torch.float32, device=q.device)
+    torch.cuda.synchronize()
+    return flat, delta, idx, deq, resid, time.monotonic() - t0
+
+
 def phase_wire(model, anchor: list) -> None:
     """The fitted LM's update against its round-start anchor through
     ``DeltaWireCodec`` as coalesced top-k bf16, int8 and int4: ms on the
@@ -2006,7 +2046,6 @@ def phase_wire(model, anchor: list) -> None:
     from p2pfl_tpu_torch.comm.delta import DeltaWireCodec
     from p2pfl_tpu_torch.config import Settings
     from p2pfl_tpu_torch.models.transformer import transformer_lm_model
-    from p2pfl_tpu_torch.ops import compression as comp
 
     leaves = model.get_parameters()
     n_params = sum(t.numel() for t in leaves)
@@ -2038,21 +2077,8 @@ def phase_wire(model, anchor: list) -> None:
             decoded, meta = rx.decode_frame(blob)
             kept, select_s = 0, 0.0
             for i, (leaf, start) in enumerate(zip(leaves, anchor)):
-                flat = start.float().reshape(-1)
-                delta = leaf.float().reshape(-1) - flat
-                k = comp.topk_count(delta.numel(), ratio)
-                vd = values if values == "bf16" or k >= Settings.QUANT_MIN_VALUES else "bf16"
-                zeros = torch.zeros_like(delta)
-                torch.cuda.synchronize()
-                t0 = time.monotonic()
-                if vd == "bf16":
-                    idx, wire, resid = comp.ef_topk_encode(delta, zeros, k, "bf16")
-                    deq = wire.float()
-                else:
-                    idx, q, scale, resid = comp.ef_topk_quant_encode(delta, zeros, k, 8 if vd == "int8" else 4)
-                    deq = q.float() * torch.tensor(scale, dtype=torch.float32, device=q.device)
-                torch.cuda.synchronize()
-                select_s += time.monotonic() - t0
+                flat, delta, idx, deq, resid, seconds = topk_leaf(leaf, start, values, ratio)
+                select_s += seconds
                 check(torch.equal(resid.index_add(0, idx, deq), delta),
                       f"wire {values}: leaf {i}: scatter(idx, dequant) + residual != acc")
                 check(torch.equal(decoded[i].reshape(-1), flat.index_add(0, idx, deq)),
@@ -2063,6 +2089,306 @@ def phase_wire(model, anchor: list) -> None:
               f"each: {select_s * 1e3:.1f} ms), {len(blob)} bytes ({len(dense) / len(blob):.2f}x smaller than the "
               f"dense f32 frame), {kept} values kept; every leaf: residual + scatter(dequant) == acc and the second "
               f"codec's decode == anchor + scatter(dequant), bit for bit ok")
+
+
+# The reference's test timings (p2pfl_tpu/utils/utils.py::set_test_settings)
+# for the fields the port has: a beat every 0.25 s.
+TRANSPORT_TIMINGS = dict(HEARTBEAT_PERIOD=0.25, HEARTBEAT_TIMEOUT=1.5, GOSSIP_PERIOD=0.05, TTL=10,
+                         GOSSIP_MESSAGES_PER_PERIOD=100, GOSSIP_MODELS_PERIOD=0.1, GOSSIP_MODELS_PER_ROUND=4,
+                         GOSSIP_EXIT_ON_X_EQUAL_ROUNDS=20, GOSSIP_SEND_RETRIES=2, GOSSIP_SEND_BACKOFF=0.05,
+                         CHAOS_ENABLED=False)
+TRANSPORT_PEERS = 4
+TRANSPORT_FAULT_SENDS = 8
+TRANSPORT_CHAOS = dict(seed=7, drop_rate=0.25, duplicate_rate=0.25, delay_jitter_s=0.01)
+TRANSPORT_SAMPLES = 64  # the num_samples claim of node 0's frames
+
+
+def wait_for(cond, what: str, timeout: float = 60.0) -> None:
+    """Poll ``cond`` every 10 ms until it holds; fail the run at ``timeout``."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"{what} (waited {timeout:.0f} s)")
+        time.sleep(0.01)
+
+
+def phase_transport(model, anchor: list, card: str) -> None:
+    """The fitted full-width LM's frames between four fully connected
+    in-memory protocols of the port (``comm/``) on the card, under the
+    reference's test timings: node 0 sends, and each receiver decodes every
+    frame on the card with its own ``DeltaWireCodec``, which holds the
+    round-start anchor.
+
+    Clean path: the dense f32 frame decodes to the fitted leaves and the
+    coalesced top-k int8 frame to ``anchor + scatter(dequant)``, bit for
+    bit (bytes, and ms from send to the last receiver's decode). Each
+    observatory holds the other three's heartbeat digests, whose device
+    memory reads the card's allocator. Seeded faults (drop 0.25, duplicate
+    0.25, jitter 10 ms, seed 7; heartbeats paused, so that only the frames
+    draw from node 0's decision streams): 8 dense sends to each peer arrive
+    8 - drops + duplicates times, as a fresh ``ChaosPlane`` predicts; the
+    fault table is the same over two runs and node 0's digest counts it. A
+    Byzantine node 0: ``signflip``, ``scaled`` and ``nan`` decode to
+    ``-leaves``, ``leaves * 10`` and the quiet NaN, ``inflate`` multiplies
+    ``num_samples``, and ``signflip`` on the coalesced top-k bf16 frame
+    decodes to ``anchor - scatter(vals)``. ``adaptive_poison`` on the card
+    equals the CPU's. A traced dense send gives a ``recv:`` span parented on
+    the sender's span. Teardown leaves no transport thread and an empty
+    registry."""
+    import threading
+
+    import torch
+    from p2pfl_tpu_torch.chaos import CHAOS, ChaosPlane
+    from p2pfl_tpu_torch.chaos.plane import ADAPTIVE_LADDER, adaptive_poison
+    from p2pfl_tpu_torch.comm.commands.command import Command
+    from p2pfl_tpu_torch.comm.delta import DeltaWireCodec
+    from p2pfl_tpu_torch.comm.memory import InMemoryCommunicationProtocol
+    from p2pfl_tpu_torch.comm.memory.registry import InMemoryRegistry
+    from p2pfl_tpu_torch.config import Settings
+    from p2pfl_tpu_torch.telemetry import REGISTRY, TRACER, digest
+    from p2pfl_tpu_torch.telemetry.flight_recorder import reset_live_recorders
+
+    leaves = model.get_parameters()
+    check(sum(t.numel() for t in leaves) == N_PARAMS and all(t.is_cuda for t in leaves),
+          "transport: the fitted LM is not the full-width LM on the card")
+
+    class Receiver(Command):
+        """Decodes every weights frame on the card; keeps the last decode."""
+
+        def __init__(self, addr: str) -> None:
+            self.codec = DeltaWireCodec(addr, device="cuda")
+            self.codec.set_anchor(anchor, 0)
+            self.lock = threading.Lock()
+            self.errors: list = []
+            self.reset()
+
+        def reset(self) -> None:
+            self.delivered = self.frames = 0
+            self.leaves, self.num_samples, self.done_at = None, None, 0.0
+
+        @staticmethod
+        def get_name() -> str:
+            return "partial_model"
+
+        def execute(self, source, round, *args, **kwargs) -> None:
+            try:
+                decoded, _ = self.codec.decode_frame(kwargs["weights"])
+                torch.cuda.synchronize()
+            except Exception as e:  # noqa: BLE001 - send_each fails the run on it
+                self.errors.append(f"{type(e).__name__}: {e}")
+                raise
+            with self.lock:
+                self.frames += 1
+                self.leaves, self.num_samples, self.done_at = decoded, kwargs["num_samples"], time.monotonic()
+
+    def counting(proto, rx):
+        """``proto.deliver`` counting the weights frames handed to ``rx``."""
+        deliver = proto.deliver
+
+        def run(env):
+            if env.payload is not None:
+                with rx.lock:
+                    rx.delivered += 1
+            deliver(env)
+        return run
+
+    def settled() -> bool:  # every frame handed to a receiver is decoded (or failed)
+        return all(rx.frames + len(rx.errors) == rx.delivered for rx in receivers)
+
+    def send_each(env, count: int = 1) -> float:
+        """Node 0 sends ``env`` ``count`` times to each peer; returns the
+        host-clock ms from the first send to the last receiver's decode."""
+        for rx in receivers:
+            rx.reset()
+        t0 = time.monotonic()
+        for _ in range(count):
+            for peer in peers:
+                node0.send(peer.addr, env)
+        wait_for(settled, "transport: a frame handed to a receiver was not decoded")
+        check(not any(rx.errors for rx in receivers), f"transport: decode failed: {[rx.errors for rx in receivers]}")
+        return (max(rx.done_at for rx in receivers) - t0) * 1e3
+
+    def all_equal(got, want, what: str) -> None:
+        check(got is not None and len(got) == len(want) and all(
+            g.is_cuda and torch.equal(g.reshape(-1), w.reshape(-1)) for g, w in zip(got, want)), f"transport: {what}")
+
+    def transport_threads() -> list:
+        return [t.name for t in threading.enumerate()
+                if t.is_alive() and t.name.startswith(("memsrv-", "heartbeater-", "gossiper-"))]
+
+    def traffic() -> tuple:  # (envelopes taken in, envelopes queued for gossip) over the four
+        addrs = {p.addr for p in protos}
+        return tuple(sum(c.value for lbl, c in REGISTRY.get(name).samples() if lbl.get("node") in addrs)
+                     for name in ("p2pfl_gossip_rx_frames_total", "p2pfl_gossip_queue_depth"))
+
+    check(not transport_threads(), f"transport: threads alive before the phase: {transport_threads()}")
+    dense = model.encode_parameters(compression="none")
+    frames = {}
+    for values in ("int8", "bf16"):
+        knobs = dict(WIRE_COMPRESSION="topk", WIRE_TOPK_RATIO=0.1, WIRE_TOPK_VALUES=values, COALESCE_ENABLED=True)
+        with Settings.overridden(**knobs):
+            codec = DeltaWireCodec("node-0", device="cuda")
+            codec.set_anchor(anchor, 0)
+            frames[values] = codec.encode_tagged(model, 0)
+    expected = {"int8": [], "bf16 signflip": []}
+    for leaf, start in zip(leaves, anchor):
+        flat, _, idx, deq, _, _ = topk_leaf(leaf, start, "int8", 0.1)
+        expected["int8"].append(flat.index_add(0, idx, deq))
+        flat, _, idx, deq, _, _ = topk_leaf(leaf, start, "bf16", 0.1)
+        expected["bf16 signflip"].append(flat.index_add(0, idx, -deq))
+
+    protos: list = []
+    with Settings.overridden(**TRANSPORT_TIMINGS):
+        try:
+            protos = [InMemoryCommunicationProtocol() for _ in range(TRANSPORT_PEERS)]
+            node0, peers = protos[0], protos[1:]
+            receivers = []
+            for p in peers:
+                rx = Receiver(p.addr)
+                p.add_command(rx)
+                p.deliver = counting(p, rx)
+                receivers.append(rx)
+            started = time.monotonic()
+            for p in protos:
+                p.start()
+            for i, p in enumerate(protos):
+                for q in protos[i + 1:]:
+                    p.connect(q.addr)
+            check(all(len(p.get_neighbors(only_direct=True)) == TRANSPORT_PEERS - 1 for p in protos),
+                  "transport: the four protocols are not fully connected")
+
+            # Clean path: the dense f32 frame and the coalesced top-k int8 frame.
+            env = node0.build_weights("partial_model", 0, dense, [node0.addr], TRANSPORT_SAMPLES)
+            ms = [send_each(env) for _ in range(2)]
+            for rx in receivers:
+                all_equal(rx.leaves, leaves, "the dense frame did not decode to the fitted leaves bit for bit")
+            print(f"[transport] dense f32 frame, {len(dense)} bytes, node 0 -> {len(peers)} peers: {ms[0]:.1f} ms "
+                  f"(first send), {ms[1]:.1f} ms (second) from send to the last receiver's decode on the card (host "
+                  f"clock); every decode == the fitted leaves bit for bit [{card}]")
+            blob, label = frames["int8"]
+            env = node0.build_weights("partial_model", 0, blob, [node0.addr], TRANSPORT_SAMPLES, codec=label)
+            ms = [send_each(env) for _ in range(2)]
+            for rx in receivers:
+                all_equal(rx.leaves, expected["int8"],
+                          "the top-k int8 frame did not decode to anchor + scatter(dequant) bit for bit")
+            print(f"[transport] top-k int8 frame ({label}, coalesced, ratio 0.1), {len(blob)} bytes: {ms[0]:.1f} ms "
+                  f"(first), {ms[1]:.1f} ms (second) from send to the last receiver's decode; every decode == anchor "
+                  f"+ scatter(dequant) bit for bit [{card}]")
+
+            # The heartbeats' digests (at least three beats since start).
+            others = {p.addr: {q.addr for q in protos} - {p.addr} for p in protos}
+            wait_for(lambda: time.monotonic() - started >= 3 * Settings.HEARTBEAT_PERIOD and all(
+                set(p.observatory.snapshot()["peers"]) >= others[p.addr] for p in protos),
+                "transport: an observatory lacks a peer's digest", timeout=20.0)
+            mem = {p.addr: {q: e["mem_bytes"] for q, e in p.observatory.snapshot()["peers"].items()
+                            if q in others[p.addr]} for p in protos}
+            check(all(v > 0 for row in mem.values() for v in row.values()),
+                  f"transport: a digest's device memory is not the card's allocator: {mem}")
+            print(f"[transport] heartbeats: every observatory holds the other three's digests "
+                  f"({time.monotonic() - started:.2f} s after start, a beat every {Settings.HEARTBEAT_PERIOD} s); "
+                  f"device memory in node 0's digest at node 1: {mem[peers[0].addr][node0.addr] / 2**30:.2f} GiB")
+
+            # Seeded faults, heartbeats paused: only node 0's frames draw from its streams.
+            for p in protos:
+                p.heartbeater.stop()
+            quiet_since, last = time.monotonic(), traffic()
+            while time.monotonic() - quiet_since < 0.5:  # nothing moved for half a second
+                check(time.monotonic() - started < 120.0, "transport: control traffic did not settle")
+                time.sleep(0.02)
+                now = traffic()
+                if now != last or now[1]:
+                    quiet_since, last = time.monotonic(), now
+            env = node0.build_weights("partial_model", 0, dense, [node0.addr], TRANSPORT_SAMPLES)
+            runs = []
+            for _ in range(2):
+                with CHAOS.overridden(**TRANSPORT_CHAOS):
+                    oracle = ChaosPlane()
+                    predicted = {}
+                    for peer in peers:
+                        stream = [oracle.intercept(node0.addr, peer.addr) for _ in range(TRANSPORT_FAULT_SENDS)]
+                        predicted[peer.addr] = sum(0 if d.drop else 1 + d.duplicates for d in stream)
+                    # after the oracle: its faults count in the process-wide registry too
+                    faults_before = digest.collect(node0.addr).faults_seen
+                    t0 = time.monotonic()
+                    send_each(env, TRANSPORT_FAULT_SENDS)
+                    seconds = time.monotonic() - t0
+                    counts = CHAOS.fault_counts()
+                got = {p.addr: rx.frames for p, rx in zip(peers, receivers)}
+                check(got == predicted, f"transport: frames received {got}, the seeded streams predict {predicted}")
+                for rx in receivers:
+                    if rx.frames:
+                        all_equal(rx.leaves, leaves, "a frame under faults did not decode bit for bit")
+                seen = digest.collect(node0.addr).faults_seen - faults_before
+                check(seen == sum(counts.values()),
+                      f"transport: node 0's digest saw {seen} faults, its plane counted {counts}")
+                runs.append((counts, got))
+                print(f"[transport] seeded faults ({TRANSPORT_CHAOS}): {TRANSPORT_FAULT_SENDS} dense sends to each "
+                      f"peer, frames received {list(got.values())} (predicted {list(predicted.values())}), faults "
+                      f"{counts}, node 0's digest faults_seen +{seen:.0f}; {seconds:.2f} s (host clock) [{card}]")
+            check(runs[0] == runs[1], f"transport: the fault table differs between two runs: {runs}")
+
+            # A Byzantine node 0.
+            for attack in ("signflip", "scaled", "nan", "inflate"):
+                CHAOS.set_byzantine(node0.addr, attack)
+                try:
+                    ms = send_each(env)
+                finally:
+                    CHAOS.clear_byzantine(node0.addr)
+                for rx in receivers:
+                    if attack == "signflip":
+                        all_equal(rx.leaves, [-t for t in leaves], "signflip did not decode to -leaves")
+                    elif attack == "scaled":
+                        all_equal(rx.leaves, [t.float() * 10.0 for t in leaves], "scaled did not decode to leaves * 10")
+                    elif attack == "nan":
+                        check(all(g.dtype == torch.float32 and bool((g.view(torch.int32) == 0x7FC00000).all())
+                                  for g in rx.leaves), "transport: nan did not decode to the quiet NaN everywhere")
+                    else:
+                        all_equal(rx.leaves, leaves, "inflate changed the weights")
+                        check(rx.num_samples == TRANSPORT_SAMPLES * 1_000_000_000,
+                              f"transport: inflate claimed {rx.num_samples} samples")
+                print(f"[transport] Byzantine {attack}: {ms:.1f} ms from send (the frame corrupted on the host once "
+                      f"for each peer) to the last decode; every decode bit for bit as the attack says [{card}]")
+            blob, label = frames["bf16"]
+            CHAOS.set_byzantine(node0.addr, "signflip")
+            try:
+                ms = send_each(node0.build_weights("partial_model", 0, blob, [node0.addr], TRANSPORT_SAMPLES,
+                                                   codec=label))
+            finally:
+                CHAOS.clear_byzantine(node0.addr)
+            for rx in receivers:
+                all_equal(rx.leaves, expected["bf16 signflip"],
+                          "signflip on the top-k bf16 frame did not decode to anchor - scatter(vals)")
+            print(f"[transport] Byzantine signflip on the coalesced top-k bf16 frame ({len(blob)} bytes): {ms:.1f} ms; "
+                  f"every decode == anchor - scatter(vals) bit for bit [{card}]")
+
+            # adaptive_poison on the card against the CPU.
+            for attack in ADAPTIVE_LADDER:
+                for t, s in zip(leaves, anchor):
+                    on_card = adaptive_poison(t, s, attack)
+                    check(on_card.is_cuda and torch.equal(on_card.cpu(), adaptive_poison(t.cpu(), s.cpu(), attack)),
+                          f"transport: adaptive_poison {attack} on the card differs from the CPU's")
+            print(f"[transport] adaptive_poison {' / '.join(ADAPTIVE_LADDER)} of the fitted leaves against the "
+                  f"anchor: the card's == the CPU's bit for bit")
+
+            # A traced dense send.
+            with TRACER.span("transport_send", node=node0.addr) as ctx:
+                traced = node0.build_weights("partial_model", 0, dense, [node0.addr], TRANSPORT_SAMPLES)
+            node0.send(peers[0].addr, traced)
+            wait_for(lambda: [s for s in TRACER.spans() if s.parent_id == ctx.span_id],
+                     "transport: no recv span for the traced send", timeout=20.0)
+            spans = [s for s in TRACER.spans() if s.parent_id == ctx.span_id]
+            check(len(spans) == 1 and spans[0].name == "recv:partial_model" and spans[0].node == peers[0].addr
+                  and spans[0].trace_id == ctx.trace_id, f"transport: recv spans {spans}")
+            print(f"[transport] traced dense send: recv:partial_model at node 1 parented on the sender's span "
+                  f"({spans[0].dur_s * 1e3:.1f} ms, the decode inside it) [{card}]")
+        finally:
+            for p in protos:
+                p.stop()
+            CHAOS.reset()
+    wait_for(lambda: not transport_threads(), f"transport: threads left after stop: {transport_threads()}",
+             timeout=10.0)
+    check(not InMemoryRegistry._servers, f"transport: the registry still holds {sorted(InMemoryRegistry._servers)}")
+    reset_live_recorders()
+    print("[transport] teardown: all four stopped; no memsrv / heartbeater / gossiper thread left; registry empty")
 
 
 def phase_parity() -> None:
@@ -2692,6 +3018,7 @@ def main() -> int:
         phase_options(parts)
         fitted, anchor = phase_learner()
         phase_wire(fitted, anchor)
+        phase_transport(fitted, anchor, card)
         del fitted, anchor
         gc.collect()
         phase_topk_ties()

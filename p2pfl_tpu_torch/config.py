@@ -1,6 +1,7 @@
 """Process-wide settings the port reads (counterpart of the part of
-``p2pfl_tpu/config.py`` that the fused round, the wire codec, the learner,
-the aggregators, the telemetry plane and the profiler use).
+``p2pfl_tpu/config.py`` that the fused round, the wire codec, the
+transport, the chaos plane, the learner, the aggregators, the telemetry
+plane and the profiler use).
 
 Same names, defaults, ``P2PFL_TPU_<NAME>`` environment overrides and
 fail-fast validation as the JAX package's ``Settings``, so one environment
@@ -69,6 +70,40 @@ class Settings:
     # --- transport limits -----------------------------------------------------
     MAX_MESSAGE_BYTES: int = _env_override("MAX_MESSAGE_BYTES", 1 << 30)  # 1 GiB
 
+    # --- membership / failure detection (comm/heartbeater.py) -------------------
+    HEARTBEAT_PERIOD: float = _env_override("HEARTBEAT_PERIOD", 2.0)
+    HEARTBEAT_TIMEOUT: float = _env_override("HEARTBEAT_TIMEOUT", 5.0)
+
+    # --- gossip (comm/gossiper.py, comm/protocol.py) -----------------------------
+    TTL: int = _env_override("TTL", 10)
+    GOSSIP_PERIOD: float = _env_override("GOSSIP_PERIOD", 0.1)
+    GOSSIP_MESSAGES_PER_PERIOD: int = _env_override("GOSSIP_MESSAGES_PER_PERIOD", 100)
+    GOSSIP_MODELS_PERIOD: float = _env_override("GOSSIP_MODELS_PERIOD", 1.0)
+    GOSSIP_MODELS_PER_ROUND: int = _env_override("GOSSIP_MODELS_PER_ROUND", 2)
+    GOSSIP_EXIT_ON_X_EQUAL_ROUNDS: int = _env_override("GOSSIP_EXIT_ON_X_EQUAL_ROUNDS", 10)
+    AMOUNT_LAST_MESSAGES_SAVED: int = _env_override("AMOUNT_LAST_MESSAGES_SAVED", 100)
+    # A failed gossip send is retried this many times, backing off from
+    # GOSSIP_SEND_BACKOFF seconds (doubling, seeded jitter), before the
+    # neighbor is written off and the death callbacks fire.
+    GOSSIP_SEND_RETRIES: int = _env_int("GOSSIP_SEND_RETRIES", 2, 0, 16)
+    GOSSIP_SEND_BACKOFF: float = _env_float("GOSSIP_SEND_BACKOFF", 0.1, 0.0, 10.0)
+
+    # --- chaos / fault injection (chaos/plane.py) --------------------------------
+    # Seeded faults on the transport send path; rates are per-send
+    # probabilities, delays seconds. Validated here, at import.
+    CHAOS_ENABLED: bool = _env_override("CHAOS_ENABLED", False)
+    CHAOS_SEED: int = _env_int("CHAOS_SEED", 0, -(2**63), 2**63 - 1)
+    CHAOS_DROP_RATE: float = _env_float("CHAOS_DROP_RATE", 0.0, 0.0, 1.0)
+    CHAOS_DELAY_S: float = _env_float("CHAOS_DELAY_S", 0.0, 0.0, 10.0)
+    CHAOS_DELAY_JITTER_S: float = _env_float("CHAOS_DELAY_JITTER_S", 0.0, 0.0, 10.0)
+    CHAOS_DUPLICATE_RATE: float = _env_float("CHAOS_DUPLICATE_RATE", 0.0, 0.0, 1.0)
+
+    # --- heal detection (comm/protocol.py::_probe_departed) ----------------------
+    # The heartbeater's sweep re-probes up to RECOVERY_PROBE_MAX peers that
+    # left the table through a failure path.
+    RECOVERY_PROBE_ENABLED: bool = _env_override("RECOVERY_PROBE_ENABLED", True)
+    RECOVERY_PROBE_MAX: int = _env_int("RECOVERY_PROBE_MAX", 8, 1, 1024)
+
     # --- wire compression (ops/compression.py, comm/delta.py) -------------------
     # "none" | "bf16" | "int8" | "topk"; sender-local (the codec spec rides in
     # the frame). "topk" is the sparse delta wire path.
@@ -109,6 +144,10 @@ class Settings:
     COMPUTE_DTYPE: str = _env_override("COMPUTE_DTYPE", "bfloat16")
 
     # --- telemetry ------------------------------------------------------------------
+    # Health digests ride every DIGEST_EVERY_BEATS-th heartbeat
+    # (comm/heartbeater.py); off, the beats stay digest-free.
+    DIGEST_ENABLED: bool = _env_override("DIGEST_ENABLED", True)
+    DIGEST_EVERY_BEATS: int = _env_int("DIGEST_EVERY_BEATS", 1, 1, 1000)
     # Quantile sketches (telemetry/sketches.py): relative error of every
     # quantile estimate, and the in-memory bucket cap of one sketch.
     SKETCH_REL_ERR: float = _env_float("SKETCH_REL_ERR", 0.02, 0.001, 0.5)

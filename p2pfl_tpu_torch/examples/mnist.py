@@ -118,7 +118,7 @@ def run_mesh(args: argparse.Namespace) -> dict:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.mode == "nodes":
-        raise NotImplementedError("--mode nodes is not ported yet (it comes with the Node, node.py and comm/)")
+        raise NotImplementedError("--mode nodes is not ported yet (it comes with the Node and the stages)")
     from p2pfl_tpu_torch.management.profiler import profile_run
 
     with profile_run(host_dir="profile/mnist" if args.profiling else None, device_trace_dir=args.trace,

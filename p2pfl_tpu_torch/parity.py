@@ -196,9 +196,10 @@ class ParityLearner(Learner):
 
 def run_wire(scn: ParityScenario, ledger_dir: Optional[str] = None, timeout_s: float = 600.0) -> Dict[str, Any]:
     """The scenario on real ``Node`` s over the gossip transport: not ported
-    yet (it comes with ``node.py``, the stages and ``comm/``); see
-    :func:`run_frames` for the model plane without the transport."""
-    raise NotImplementedError("run_wire is not ported yet (it comes with Node, the stages and comm/)")
+    yet (it comes with ``node.py`` and the stages; the transport,
+    ``comm/``, is in); see :func:`run_frames` for the model plane without
+    the transport."""
+    raise NotImplementedError("run_wire is not ported yet (it comes with Node and the stages)")
 
 
 def _events(led) -> Tuple[List[Dict[str, Any]], Dict[int, str]]:

@@ -31,9 +31,9 @@ kind                      fields (beyond ``v``/``kind``/``round``)
                           re-shipping one bad frame is one trajectory fact)
 ========================  =====================================================
 
-emitted (in the port so far) from the aggregators and the fused-mesh round
-step (``MeshSimulation.attach_ledger``) — the same schema the JAX package's
-schedulers, admission, observatory and chaos plane emit. Events carry **no wall-clock**: the
+emitted (in the port so far) from the aggregators, the observatory, the
+chaos plane and the fused-mesh round step (``MeshSimulation.attach_ledger``)
+— the same schema the JAX package's schedulers and admission also emit. Events carry **no wall-clock**: the
 ledger records *what the federation did*, not when, which is what makes the
 same seeded scenario produce byte-identical ledgers across runs and across
 backends (timing lives in the tracer / flight recorder).

@@ -13,9 +13,9 @@ sender and receiver — fall out of the span table.
 
 Wire formats:
 
-* ``Envelope.trace`` — the control envelopes' slot (the transport, which
-  comes later in the port): carried natively by the in-memory transport
-  and as a reserved trailing ``__trace__:`` arg on gRPC control frames.
+* ``Envelope.trace`` — the envelopes' slot (``comm/envelope.py``):
+  carried natively by the in-memory transport and, in the JAX package, as
+  a reserved trailing ``__trace__:`` arg on gRPC control frames.
 * ``TRACE_META_KEY`` (``"__trace__"``) — the PFLT weights-frame header slot
   (same mechanism as the ``__codec__`` spec), used because the gRPC weights
   oneof has no args field.
