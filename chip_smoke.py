@@ -167,10 +167,27 @@ Phases, each on its own printed lines:
    says bit for bit; ``adaptive_poison`` on the card equals the CPU's; a
    traced send's ``recv:`` span is parented on the sender's; teardown
    leaves no transport thread and an empty registry.
+12b. node: three port ``Node`` s on the in-memory transport, fully
+   connected, each training phase 11's full-width LM on the card (64
+   sequences of 1024 tokens a node, batch 8, Adam 3e-4) through the default
+   ``LearnerExecutor``, committee 3, dense frames, ``CanonicalFedAvg``, two
+   rounds from ``set_start_learning``: every node finishes; each round's
+   committed hash equal on the three ledgers; the final parameters
+   bit-identical across the nodes; round 0's aggregate equal, bit for bit, to
+   FedAvg recomputed on the card from the three fitted models' dense frames;
+   rows 1-4 launched exactly 2 x 3 x 32 times (row 2: 3 evaluations a node x
+   8); the test loss falling; s/round (host clock), stage seconds, the fits'
+   seconds on the executor's threads, peak memory, frame bytes a round; then
+   one more round under phase 12a's seeded faults. First, the wire's
+   NaN-preserving bf16 round on the card against the CPU's on 2^20 f32
+   values with NaN payloads of both signs.
 13. parity: a ``ParityScenario`` (8 MLP nodes, full committee, 3 rounds, one
-   signflip node) through the wire's model plane (``run_frames``) and the
-   fused round (``run_fused``): every round's ``canonical_params_hash``
-   equal, and the two ledgers' trajectories.
+   signflip node) through the wire's model plane (``run_frames``), real port
+   Nodes over the in-memory transport (``run_wire``) and the fused round
+   (``run_fused``): every round's ``canonical_params_hash`` equal, the model
+   plane's and the fused ledgers' trajectories equal, and
+   ``scripts/parity_diff.py`` exit 0 on each Node's ledger against the fused
+   one.
 14. longcontext: rows 1-4 at the example's own shapes at its defaults
    (bf16, head size 16: the forward and backward pair on the narrow
    kernels; a sequence of 256): training at
@@ -2391,35 +2408,250 @@ def phase_transport(model, anchor: list, card: str) -> None:
     print("[transport] teardown: all four stopped; no memsrv / heartbeater / gossiper thread left; registry empty")
 
 
+# The Node federation (phase 12b): three port Nodes of the full-width LM
+# on the in-memory transport, fully connected, committee 3, two rounds.
+NODE_PEERS, NODE_ROUNDS, NODE_DEADLINE_S = 3, 2, 600.0
+
+
+def phase_node(card: str) -> None:
+    """Three port ``Node`` s on the in-memory transport, fully connected, each
+    training the full-width flash LM of phase 11 on the card (64 sequences of
+    1024 tokens a node from ``lm_data``, batch 8, Adam 3e-4, one epoch a
+    round) through the default ``LearnerExecutor``, committee 3, dense
+    frames, FedAvg in its canonical reduction order (``CanonicalFedAvg``:
+    every node folds the same three models in contributor order, so the
+    three aggregates are bit-equal), under the reference's test timings; two
+    rounds from ``set_start_learning``. Checks: every node finishes before
+    the deadline; each round's ``aggregate_committed`` hash is equal on the
+    three ledgers; the final parameters are bit-identical across the nodes;
+    round 0's aggregate equals, bit for bit, FedAvg recomputed on the card
+    from the three fitted models' dense frames; rows 1-4 launch exactly 2
+    rounds x 3 fits x phase 11's launches a fit, plus the evaluations' no-lse
+    forwards (one before each fit and a final one a node); the test loss
+    falls. Prints s/round (host clock), where a node's time went (stage
+    seconds, and its fits' seconds on the executor's threads), peak device
+    memory and frame bytes a round. Then, under phase 12a's seeded faults, one more round of the same
+    federation must complete. First, the card's NaN-preserving bf16 round
+    (``bf16_round``, the wire's casts) against the CPU's and the chaos
+    plane's on f32 NaN payloads of both signs."""
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.chaos import CHAOS
+    from p2pfl_tpu_torch.chaos.plane import _bf16_round
+    from p2pfl_tpu_torch.comm.memory.registry import InMemoryRegistry
+    from p2pfl_tpu_torch.config import Settings
+    from p2pfl_tpu_torch.learning.aggregators import CanonicalFedAvg
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.models.transformer import transformer_lm_model
+    from p2pfl_tpu_torch.node import Node
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.ops import aggregation as agg_ops
+    from p2pfl_tpu_torch.ops.compression import bf16_round
+    from p2pfl_tpu_torch.telemetry import REGISTRY
+    from p2pfl_tpu_torch.telemetry.ledger import LEDGERS, canonical_params_hash
+    from p2pfl_tpu_torch.utils.utils import set_test_settings, wait_convergence
+
+    rng = np.random.default_rng(20)
+    u = rng.integers(0, 2**32, size=1 << 20, dtype=np.uint64).astype(np.uint32)
+    u[: 1 << 17] = (np.uint32(0x7F800001) + u[: 1 << 17] % np.uint32(0x7FFFFF)) | (u[1 << 17: 1 << 18] & np.uint32(1 << 31))
+    f32 = u.view(np.float32)
+    on_card = bf16_round(torch.from_numpy(f32).cuda()).view(torch.int16).cpu().numpy().view(np.uint16)
+    on_cpu = bf16_round(torch.from_numpy(f32)).view(torch.int16).numpy().view(np.uint16)
+    nan = np.isnan(f32)
+    check(np.array_equal(on_card, on_cpu) and np.array_equal(on_cpu, _bf16_round(f32)),
+          "node: the card's NaN-preserving bf16 round differs from the CPU's")
+    check(set(on_card[nan]) == {0x7FC0, 0xFFC0}, f"node: NaNs round to {sorted(set(on_card[nan]))}")
+    print(f"[node] bf16_round on {f32.size} f32 values ({int(nan.sum())} NaN payloads of both signs): the card's "
+          f"bits equal the CPU's and the chaos plane's; NaN -> 0x7FC0 / 0xFFC0 by sign")
+
+    (x, y, _), xt = lm_data(20)
+    snap = Settings.snapshot()
+    nodes: list = []
+    frames: dict = {}
+    fit_seconds: list = []
+
+    def stage_seconds() -> dict:  # {stage: seconds summed over the three nodes}
+        out: dict = {}
+        for labels, child in REGISTRY.get("p2pfl_stage_duration_seconds").samples():
+            if labels.get("node") in {nd.addr for nd in nodes}:
+                out[labels["stage"]] = out.get(labels["stage"], 0.0) + child.sum
+        return out
+    try:
+        set_test_settings()
+        Settings.LOG_LEVEL = "WARNING"
+        Settings.RESOURCE_MONITOR_PERIOD = 0
+        Settings.LEDGER_ENABLED = True
+        Settings.TRAIN_SET_SIZE = NODE_PEERS
+        Settings.WIRE_COMPRESSION = "none"
+        Settings.AGGREGATION_TIMEOUT = 120.0
+        Settings.AGGREGATION_STALL_PATIENCE = 60.0
+        # Raw per-sender models (CanonicalFedAvg): the gossip loop waits out
+        # peers' fits on their coverage reports, as the parity harness's.
+        Settings.GOSSIP_EXIT_ON_X_EQUAL_ROUNDS = 400
+        Settings.GOSSIP_MODELS_PER_ROUND = NODE_PEERS
+        for i in range(NODE_PEERS):
+            data = FederatedDataset.from_arrays(x[i], y[i], xt, np.zeros(len(xt), np.int32))
+            model = transformer_lm_model(seed=0, vocab_size=VOCAB, num_layers=LAYERS, num_heads=HEADS,
+                                         embed_dim=EMBED, attention_kind="flash", device="cuda")
+            node = Node(model, data, addr=f"mem://lm-node-{i}", aggregator=CanonicalFedAvg(), lr=LR,
+                        batch_size=BATCH, seed=i, task="lm", device="cuda")
+            inner = node.learner.learner  # the TorchLearner inside the executor's wrapper
+            frames[node.addr] = []
+
+            def recording_fit(fit=inner.fit, addr=node.addr):
+                t_fit = time.monotonic()
+                fitted = fit()  # ends on host reads of its losses: the card is done with it
+                fit_seconds.append(time.monotonic() - t_fit)
+                if not frames[addr]:  # round 0: the fitted model's dense frame
+                    frames[addr].append(fitted.encode_parameters(compression="none"))
+                return fitted
+
+            inner.fit = recording_fit
+            nodes.append(node)
+        check(type(nodes[0].learner).__name__ == "VirtualNodeLearner", "node: the default executor is not in use")
+        for nd in nodes:
+            nd.start()
+        for i, nd in enumerate(nodes):
+            for other in nodes[i + 1:]:
+                nd.connect(other.addr)
+        wait_convergence(nodes, NODE_PEERS - 1, wait=30)
+        before = nodes[0].learner.evaluate()
+        LEDGERS.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launches()
+        stages_before = stage_seconds()
+        t0 = time.monotonic()
+        nodes[0].set_start_learning(rounds=NODE_ROUNDS, epochs=1)
+        wait_for(lambda: all(not nd.learning_in_progress() and nd.learning_workflow is not None for nd in nodes),
+                 f"node: the federation did not finish {NODE_ROUNDS} rounds", timeout=NODE_DEADLINE_S)
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = dict(_kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        stages = {k: (v - stages_before.get(k, 0.0)) / NODE_PEERS for k, v in stage_seconds().items()}
+        fits = list(fit_seconds)
+        after = nodes[0].learner.evaluate()
+        for nd in nodes:
+            check(nd.learning_workflow.history.count("RoundFinishedStage") == NODE_ROUNDS
+                  and nd.learning_workflow.history.count("TrainStage") == NODE_ROUNDS,
+                  f"node: {nd.addr} ran {nd.learning_workflow.history}")
+        hashes = {}
+        for nd in nodes:
+            events = LEDGERS.peek(nd.addr).canonical_events()
+            hashes[nd.addr] = {e["round"]: e["hash"] for e in events if e["kind"] == "aggregate_committed"}
+        for r in range(NODE_ROUNDS):
+            seen = {h.get(r) for h in hashes.values()}
+            print(f"[node] round {r}: aggregate_committed {sorted(map(str, seen))} on the {NODE_PEERS} ledgers")
+            check(len(seen) == 1 and None not in seen, f"node: round {r}'s committed hashes differ: {hashes}")
+        leaves = [nd.learner.get_model().get_parameters() for nd in nodes]
+        check(all(len(ls) == len(leaves[0]) and all(torch.equal(a, b) for a, b in zip(ls, leaves[0]))
+                  for ls in leaves[1:]), "node: the final parameters differ between the nodes")
+        check(all(len(f) == 1 for f in frames.values()), f"node: round-0 frames {[len(f) for f in frames.values()]}")
+        template = nodes[0].learner.get_model()
+        handles = sorted((template.build_copy(params=f[0]) for f in frames.values()),
+                         key=lambda h: sorted(h.contributors))
+        weights = torch.tensor([h.get_num_samples() for h in handles], dtype=torch.float32, device="cuda")
+        recomputed = agg_ops.fedavg(agg_ops.tree_stack([h.params for h in handles]), weights)
+        recomputed_hash = canonical_params_hash(template.build_copy(params=recomputed).get_parameters())
+        check(recomputed_hash == hashes[nodes[0].addr][0],
+              f"node: FedAvg of the fitted frames {recomputed_hash} is not round 0's aggregate "
+              f"{hashes[nodes[0].addr][0]}")
+        print(f"[node] round 0's aggregate == FedAvg recomputed on the card from the {NODE_PEERS} fitted models' "
+              f"dense frames ({len(frames[nodes[0].addr][0])} bytes each), bit for bit")
+        per_fit = LAYERS * (SEQS // BATCH)
+        eval_batches = -(-len(xt) // BATCH)
+        expected = {name: NODE_ROUNDS * NODE_PEERS * per_fit for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        expected["flash_fwd_no_lse"] = (NODE_ROUNDS + 1) * NODE_PEERS * LAYERS * eval_batches
+        expected["flash_carry"] = 0
+        print(f"[node] kernels {json.dumps(launches)} (expected {json.dumps(expected)}: {NODE_ROUNDS} rounds x "
+              f"{NODE_PEERS} fits x {per_fit}, and {NODE_ROUNDS + 1} evaluations a node x {LAYERS * eval_batches})")
+        check(launches == expected, "node: the flash launches differ from the federation's fits and evaluations")
+        check(np.isfinite(after["test_loss"]) and after["test_loss"] < before["test_loss"],
+              f"node: the test loss did not fall ({before['test_loss']} -> {after['test_loss']})")
+        tx = [sum(nd.protocol.gossiper.bytes_for_round(r) for nd in nodes) for r in range(NODE_ROUNDS)]
+        print(f"[node] {NODE_PEERS} Nodes of the full-width LM ({N_PARAMS} parameters), {NODE_ROUNDS} rounds: "
+              f"{seconds / NODE_ROUNDS:.3f} s/round (host clock, {seconds:.3f} s from set_start_learning to the last "
+              f"node's finish) [{card}]")
+        print(f"[node] where a node's {seconds:.3f} s went (stage seconds, mean of the {NODE_PEERS} nodes): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in sorted(stages.items(), key=lambda kv: -kv[1]))
+              + f"; its {NODE_ROUNDS} fits {sum(fits) / NODE_PEERS:.3f} s ({len(fits)} fits on the executor's "
+              f"threads, {min(fits):.3f}-{max(fits):.3f} s each, 0.21 s alone in phase 11) [{card}]")
+        print(f"[node] peak device memory {peak} bytes ({peak / 2**30:.2f} GiB) [{card}]")
+        print(f"[node] model-plane frame bytes a round (all nodes): {tx} [{card}]")
+        print(f"[node] test loss {before['test_loss']:.4f} -> {after['test_loss']:.4f}, token accuracy "
+              f"{before['test_acc']:.4f} -> {after['test_acc']:.4f}")
+
+        with CHAOS.overridden(**TRANSPORT_CHAOS):
+            t0 = time.monotonic()
+            nodes[0].set_start_learning(rounds=1, epochs=1)
+            wait_for(lambda: all(not nd.learning_in_progress() for nd in nodes)
+                     and all(nd.learning_workflow.history.count("RoundFinishedStage") == 1 for nd in nodes),
+                     "node: the federation did not finish its round under seeded faults", timeout=NODE_DEADLINE_S)
+            faults = CHAOS.fault_counts()
+        print(f"[node] under seeded faults ({TRANSPORT_CHAOS}): one round in {time.monotonic() - t0:.3f} s, "
+              f"every node finished; faults {json.dumps(faults)}")
+    finally:
+        for nd in nodes:
+            nd.stop()
+        InMemoryRegistry.reset()
+        CHAOS.reset()
+        Settings.restore(snap)
+
+
 def phase_parity() -> None:
     """The port's wire-vs-fused contract on the card: a ``ParityScenario``
     (8 MLP nodes, full committee, 3 rounds, one signflip node) through the
     wire's model plane (``run_frames``: ``ParityLearner.fit``, dense frames,
-    a fresh handle's ``set_parameters(bytes)``, ``CanonicalFedAvg``) and
-    through ``run_fused`` with the ledger attached: every round's hash
-    equal."""
-    from p2pfl_tpu_torch.parity import ParityScenario, run_frames, run_fused
+    a fresh handle's ``set_parameters(bytes)``, ``CanonicalFedAvg``), through
+    real port Nodes over the in-memory transport (``run_wire``: inline fits
+    on the nodes' stage threads, all on the card) and through ``run_fused``
+    with the ledger attached: every round's hash equal, and
+    ``scripts/parity_diff.py`` passes each wire node's ledger against the
+    fused one."""
+    import shutil
+    import tempfile
+
+    from p2pfl_tpu_torch.parity import ParityScenario, run_frames, run_fused, run_wire
     from p2pfl_tpu_torch.telemetry.ledger import LEDGERS, TRAJECTORY_KINDS
 
     scn = ParityScenario(n_nodes=8, rounds=3, byzantine={3: "signflip"})
-    LEDGERS.reset()
-    t0 = time.monotonic()
-    wire = run_frames(scn, device="cuda")
-    t1 = time.monotonic()
-    fused = run_fused(scn, device="cuda")
-    t2 = time.monotonic()
-    print(f"[parity] {scn.n_nodes} MLP nodes, {scn.rounds} rounds, node 3 signflip: wire model plane {t1 - t0:.2f} s, "
-          f"fused {t2 - t1:.2f} s")
-    for r in range(scn.rounds):
-        a, b = wire["hashes"].get(r), fused["hashes"].get(r)
-        print(f"[parity] round {r}: wire {a} fused {b} {'equal' if a == b and a else 'DIFFER'}")
-        check(a is not None and a == b, f"parity: round {r}'s aggregate hashes differ between the wire and fused")
+    tmp = tempfile.mkdtemp(prefix="p2pfl_parity_")
+    try:
+        LEDGERS.reset()
+        t0 = time.monotonic()
+        frames = run_frames(scn, device="cuda")
+        t1 = time.monotonic()
+        wire = run_wire(scn, ledger_dir=tmp, device="cuda")
+        t2 = time.monotonic()
+        fused = run_fused(scn, ledger_dir=tmp, device="cuda")
+        t3 = time.monotonic()
+        print(f"[parity] {scn.n_nodes} MLP nodes, {scn.rounds} rounds, node 3 signflip: wire model plane "
+              f"{t1 - t0:.2f} s, {scn.n_nodes} port Nodes over the in-memory transport {t2 - t1:.2f} s, fused "
+              f"{t3 - t2:.2f} s")
+        for r in range(scn.rounds):
+            a, b = frames["hashes"].get(r), fused["hashes"].get(r)
+            nodes = {wire["hashes"][name].get(r) for name in scn.node_names}
+            same = a == b and nodes == {b} and a
+            print(f"[parity] round {r}: model plane {a} fused {b} Nodes {sorted(map(str, nodes))} "
+                  f"{'equal' if same else 'DIFFER'}")
+            check(a is not None and a == b, f"parity: round {r}'s aggregate hashes differ between the wire and fused")
+            check(nodes == {b}, f"parity: round {r}'s Node hashes {nodes} differ from the fused round's {b}")
 
-    def trajectory(events):
-        return [{k: v for k, v in e.items() if k != "seq"} for e in events if e["kind"] in TRAJECTORY_KINDS]
+        def trajectory(events):
+            return [{k: v for k, v in e.items() if k != "seq"} for e in events if e["kind"] in TRAJECTORY_KINDS]
 
-    check(trajectory(wire["events"]) == trajectory(fused["events"]), "parity: the two ledgers' trajectories differ")
-    print(f"[parity] ledgers: {len(trajectory(wire['events']))} trajectory events, equal")
+        check(trajectory(frames["events"]) == trajectory(fused["events"]), "parity: the two ledgers' trajectories differ")
+        print(f"[parity] ledgers: {len(trajectory(frames['events']))} trajectory events, equal")
+        for name in scn.node_names:
+            out = subprocess.run([sys.executable, "scripts/parity_diff.py", wire["ledgers"][name], fused["ledger"]],
+                                 capture_output=True, text=True, timeout=120)
+            check(out.returncode == 0, f"parity: parity_diff {name} against the fused ledger exited {out.returncode}: "
+                  f"{out.stdout[-1500:]}{out.stderr[-500:]}")
+        print(f"[parity] scripts/parity_diff.py: each of the {scn.n_nodes} Nodes' ledgers against the fused round's, "
+              f"exit 0")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def phase_longcontext() -> dict:
@@ -3020,6 +3252,8 @@ def main() -> int:
         phase_wire(fitted, anchor)
         phase_transport(fitted, anchor, card)
         del fitted, anchor
+        gc.collect()
+        phase_node(card)
         gc.collect()
         phase_topk_ties()
         phase_parity()

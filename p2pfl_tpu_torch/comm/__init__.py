@@ -1,7 +1,7 @@
 """The port's communication plane: envelopes, the protocol (membership,
 gossip, heartbeats, command dispatch, the chaos intercept), the in-memory
-transport (``memory/``) and the sparse-delta wire codec (``delta.py``). The
-command implementations come with ``Node``."""
+transport (``memory/``), the sparse-delta wire codec (``delta.py``), wire
+admission (``admission.py``) and the Node's commands (``commands/impl.py``)."""
 
 from p2pfl_tpu_torch.comm.envelope import Envelope  # noqa: F401
 from p2pfl_tpu_torch.comm.protocol import CommunicationProtocol  # noqa: F401

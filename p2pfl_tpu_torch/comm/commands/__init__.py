@@ -1,6 +1,5 @@
 """Command pattern: message names dispatched to handlers (the port's copy of
-``p2pfl_tpu/comm/commands/``; the command implementations come with the
-``Node``).
+``p2pfl_tpu/comm/commands/``; the Node's commands are in ``impl.py``).
 
 Parity with the reference's command set (SURVEY.md §2.3 "Commands (10)"
 — p2pfl/communication/commands/): message commands (beat, start_learning,

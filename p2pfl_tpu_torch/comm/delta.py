@@ -42,6 +42,7 @@ from p2pfl_tpu_torch.ops.aggregation import sparse_delta_apply
 from p2pfl_tpu_torch.ops.compression import (
     CODEC_META_KEY,
     as_tensor,
+    bf16_round,
     decompress_arrays,
     ef_topk_encode,
     ef_topk_quant_encode,
@@ -147,7 +148,7 @@ def _encode_values(vals: torch.Tensor, value_dtype: str) -> Tuple[bytes, Dict[st
         return _host_bytes(vals.to(torch.int8)), {"values": "int8"}
     if value_dtype == "float32":
         return _host_bytes(vals.float()), {"values": "float32"}
-    return _host_bytes(vals.to(torch.bfloat16)), {"values": "bf16"}
+    return _host_bytes(bf16_round(vals)), {"values": "bf16"}
 
 
 def _decode_values(buf: bytes, entry: Dict[str, Any], count: int) -> np.ndarray:
@@ -413,7 +414,7 @@ class DeltaWireCodec:
                     if val_entry["values"] in ("int8", "int4"):
                         parts.append(np.frombuffer(val_bytes, np.uint8))
                     else:
-                        parts.append(wire_vals.to(torch.bfloat16) if vd == "bf16" else wire_vals.float())
+                        parts.append(bf16_round(wire_vals) if vd == "bf16" else wire_vals.float())
                 entry.update(val_entry)
                 spec.append(entry)
             meta: Dict[str, Any] = {

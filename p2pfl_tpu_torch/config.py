@@ -1,7 +1,8 @@
 """Process-wide settings the port reads (counterpart of the part of
 ``p2pfl_tpu/config.py`` that the fused round, the wire codec, the
 transport, the chaos plane, the learner, the aggregators, the telemetry
-plane and the profiler use).
+plane, the profiler and the wire ``Node`` (its stages, admission, executor,
+recovery and logger) use).
 
 Same names, defaults, ``P2PFL_TPU_<NAME>`` environment overrides and
 fail-fast validation as the JAX package's ``Settings``, so one environment
@@ -73,6 +74,7 @@ class Settings:
     # --- membership / failure detection (comm/heartbeater.py) -------------------
     HEARTBEAT_PERIOD: float = _env_override("HEARTBEAT_PERIOD", 2.0)
     HEARTBEAT_TIMEOUT: float = _env_override("HEARTBEAT_TIMEOUT", 5.0)
+    WAIT_HEARTBEATS_CONVERGENCE: float = _env_override("WAIT_HEARTBEATS_CONVERGENCE", 4.0)
 
     # --- gossip (comm/gossiper.py, comm/protocol.py) -----------------------------
     TTL: int = _env_override("TTL", 10)
@@ -98,6 +100,30 @@ class Settings:
     CHAOS_DELAY_JITTER_S: float = _env_float("CHAOS_DELAY_JITTER_S", 0.0, 0.0, 10.0)
     CHAOS_DUPLICATE_RATE: float = _env_float("CHAOS_DUPLICATE_RATE", 0.0, 0.0, 1.0)
 
+    # --- wire admission control (comm/admission.py) -------------------------------
+    # Inbound model frames are screened between decode and the aggregator /
+    # adoption: structure, NaN/Inf, and an adaptive update-norm bound (median
+    # of recently admitted norms x ADMISSION_NORM_MULT; the local model's own
+    # norm until enough history exists).
+    ADMISSION_ENABLED: bool = _env_override("ADMISSION_ENABLED", True)
+    ADMISSION_NORM_MULT: float = _env_float("ADMISSION_NORM_MULT", 5.0, 1.0, 1e6)
+    ADMISSION_NORM_WINDOW: int = _env_int("ADMISSION_NORM_WINDOW", 16, 4, 4096)
+    # Cap on the wire-supplied (unauthenticated) num_samples claim.
+    MAX_CLAIMED_SAMPLES: int = _env_int("MAX_CLAIMED_SAMPLES", 1_000_000, 1, 2**53)
+
+    # --- recovery (stages/recovery.py) ---------------------------------------------
+    # Live fraction (self included) of the session's known membership a node
+    # needs to make vote/window progress; below it the node parks (0: never).
+    RECOVERY_QUORUM_FRACTION: float = _env_float("RECOVERY_QUORUM_FRACTION", 0.0, 0.0, 1.0)
+    RECOVERY_PARK_POLL_S: float = _env_float("RECOVERY_PARK_POLL_S", 0.5, 0.05, 60.0)
+    # Hard cap on one park (0: park forever).
+    RECOVERY_PARK_MAX_S: float = _env_float("RECOVERY_PARK_MAX_S", 300.0, 0.0, 86400.0)
+    # Rounds/windows of lead before the ahead side of a healed split ships its
+    # round anchor as a dense catch-up, and the least seconds between reconcile
+    # pings to one peer.
+    RECOVERY_RECONCILE_MIN_LEAD: int = _env_int("RECOVERY_RECONCILE_MIN_LEAD", 1, 1, 1000)
+    RECOVERY_RECONCILE_COOLDOWN_S: float = _env_float("RECOVERY_RECONCILE_COOLDOWN_S", 1.0, 0.0, 3600.0)
+
     # --- heal detection (comm/protocol.py::_probe_departed) ----------------------
     # The heartbeater's sweep re-probes up to RECOVERY_PROBE_MAX peers that
     # left the table through a failure path.
@@ -120,21 +146,43 @@ class Settings:
     # this level (0: off).
     COALESCE_ENABLED: bool = _env_override("COALESCE_ENABLED", True)
     COALESCE_DEFLATE_LEVEL: int = _env_int("COALESCE_DEFLATE_LEVEL", 6, 0, 9)
+    # Train<->diffuse overlap (stages/base_node.py): model diffusion runs on
+    # background drain threads while the stage machine goes on to the
+    # aggregation wait and the next round's fit; drains left at teardown are
+    # joined for at most OVERLAP_DRAIN_JOIN_S seconds.
+    OVERLAP_TRAIN_DIFFUSE: bool = _env_override("OVERLAP_TRAIN_DIFFUSE", True)
+    OVERLAP_DRAIN_JOIN_S: float = _env_float("OVERLAP_DRAIN_JOIN_S", 5.0, 0.0, 300.0)
 
-    # --- buffered async aggregation (learning/aggregators/async_buffer.py) -------
+    # --- buffered async aggregation (learning/aggregators/async_buffer.py,
+    # stages/async_node.py) -----------------------------------------------------
+    # A window closes once min(ASYNC_BUFFER_K, countable live peers + 1)
+    # distinct contributors are folded, or at ASYNC_WINDOW_TIMEOUT.
+    ASYNC_BUFFER_K: int = _env_int("ASYNC_BUFFER_K", 3, 1, 4096)
     ASYNC_WINDOW_TIMEOUT: float = _env_float("ASYNC_WINDOW_TIMEOUT", 30.0, 0.1, 3600.0)
     # A lag-l contribution weighs num_samples * (1 + l) ** -alpha.
     ASYNC_STALENESS_ALPHA: float = _env_float("ASYNC_STALENESS_ALPHA", 0.5, 0.0, 16.0)
     # Contributions lagging more windows than this are dropped (0: no limit).
     ASYNC_MAX_STALENESS: int = _env_int("ASYNC_MAX_STALENESS", 10, 0, 1 << 20)
+    # Round anchors the delta codec keeps under async (a lagging peer's frame
+    # may be anchored several windows back).
+    ASYNC_ANCHOR_HISTORY: int = _env_int("ASYNC_ANCHOR_HISTORY", 4, 1, 64)
+    # Peers whose suspect score reaches the gate are not solicited and their
+    # contributions dropped; stragglers past theirs are never waited on (0: off).
+    ASYNC_SUSPECT_GATE: float = _env_float("ASYNC_SUSPECT_GATE", 1.0, 0.0, 1e9)
+    ASYNC_STRAGGLER_GATE: float = _env_float("ASYNC_STRAGGLER_GATE", 2.0, 0.0, 1e9)
 
     # --- privacy plane defaults of the learner ------------------------------------
     PRIVACY_DP_CLIP: float = _env_float("PRIVACY_DP_CLIP", 0.0, 0.0, 1e6)
     PRIVACY_DP_SIGMA: float = _env_float("PRIVACY_DP_SIGMA", 0.0, 0.0, 1e3)
+    # Committee secure aggregation: not ported yet (queue A item 10); a Node
+    # refuses to start its stages under it.
+    PRIVACY_SECAGG: bool = _env_override("PRIVACY_SECAGG", False)
 
     # --- learning round -------------------------------------------------------------
     # Committee size per round (the reference's TRAIN_SET_SIZE).
     TRAIN_SET_SIZE: int = _env_override("TRAIN_SET_SIZE", 4)
+    # Deadline of the committee vote (seconds).
+    VOTE_TIMEOUT: float = _env_override("VOTE_TIMEOUT", 60.0)
     # Hard deadline of Aggregator.wait_and_get_aggregation (seconds).
     AGGREGATION_TIMEOUT: float = _env_override("AGGREGATION_TIMEOUT", 300.0)
     # Aggregate what arrived once nothing advanced the round for this long
@@ -142,6 +190,24 @@ class Settings:
     AGGREGATION_STALL_PATIENCE: float = _env_float("AGGREGATION_STALL_PATIENCE", 60.0, 0.0, 3600.0)
     # Dtype of training compute; parameters and aggregation stay float32.
     COMPUTE_DTYPE: str = _env_override("COMPUTE_DTYPE", "bfloat16")
+
+    # --- nodes-mode learner executor (parallel/executor.py) -----------------------
+    # Concurrent fit/eval jobs across all in-process nodes (0: inline fits).
+    EXECUTOR_MAX_WORKERS: int = _env_override("EXECUTOR_MAX_WORKERS", max(2, min(32, os.cpu_count() or 4)))
+
+    # --- cohort sampling of the wire schedulers (population/cohort.py) --------------
+    POP_COHORT_ENABLED: bool = _env_override("POP_COHORT_ENABLED", False)
+    POP_COHORT_FRACTION: float = _env_float("POP_COHORT_FRACTION", 1.0, 0.0, 1.0)
+    POP_COHORT_MIN: int = _env_int("POP_COHORT_MIN", 1, 1, 1 << 20)
+    POP_COHORT_SEED: int = _env_int("POP_COHORT_SEED", 0, 0, 2**31 - 1)
+    POP_CHURN_RATE: float = _env_float("POP_CHURN_RATE", 0.0, 0.0, 1.0)
+
+    # --- logging (management/logger.py, management/node_monitor.py) ----------------
+    LOG_LEVEL: str = _env_override("LOG_LEVEL", "INFO")
+    # Directory of the logger's per-run file (enable_file_logging).
+    LOG_DIR: str = _env_override("LOG_DIR", "logs")
+    # Seconds between a node's resource samples (0: no monitor).
+    RESOURCE_MONITOR_PERIOD: float = _env_override("RESOURCE_MONITOR_PERIOD", 1.0)
 
     # --- telemetry ------------------------------------------------------------------
     # Health digests ride every DIGEST_EVERY_BEATS-th heartbeat

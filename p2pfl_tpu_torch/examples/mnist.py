@@ -3,8 +3,10 @@
 
 ``--mode mesh`` (the default) runs the whole population as one fused
 simulation on the card (:class:`~p2pfl_tpu_torch.parallel.simulation.
-MeshSimulation`). ``--mode nodes`` (real nodes gossiping over a transport)
-waits for the port's ``Node`` and raises ``NotImplementedError``.
+MeshSimulation`). ``--mode nodes`` runs real :class:`~p2pfl_tpu_torch.node.Node`
+s gossiping over the in-memory transport in ``--topology``, each training on
+``--device`` (``--protocol grpc`` waits for the gRPC transport and raises
+``NotImplementedError``).
 ``--profiling`` writes a host cProfile ``.pstat`` under ``profile/mnist/``;
 ``--trace DIR`` writes a ``torch.profiler`` Chrome trace of the run to
 ``DIR/mnist/trace.json``. ``--measure-time`` times the run itself.
@@ -115,15 +117,60 @@ def run_mesh(args: argparse.Namespace) -> dict:
     return out
 
 
+def run_nodes(args: argparse.Namespace) -> dict:
+    """Real nodes: one :class:`Node` per partition, connected in
+    ``--topology``, trained for ``--rounds``; returns the nodes' mean final
+    test accuracy (and the DP spend of node 0's learner)."""
+    import numpy as np
+
+    from p2pfl_tpu_torch.config import Settings
+
+    if args.protocol == "grpc":
+        raise NotImplementedError("--protocol grpc needs the gRPC transport, not ported yet: queue A item 14")
+    if args.wire_compression is not None:  # unset keeps the env override
+        Settings.WIRE_COMPRESSION = args.wire_compression
+    from p2pfl_tpu_torch.learning.dataset import RandomIIDPartitionStrategy, synthetic_mnist
+    from p2pfl_tpu_torch.models.mlp import mlp_model
+    from p2pfl_tpu_torch.node import Node
+    from p2pfl_tpu_torch.utils.topologies import TopologyFactory, TopologyType
+    from p2pfl_tpu_torch.utils.utils import check_equal_models, wait_convergence, wait_to_finish
+
+    data = synthetic_mnist(n_train=args.nodes * args.samples_per_node, n_test=512,
+                           seed=42 if args.seed is None else args.seed)
+    parts = data.generate_partitions(args.nodes, RandomIIDPartitionStrategy)
+    nodes = [
+        Node(mlp_model(seed=0, device=args.device), parts[i], aggregator=_make_aggregator(args.aggregator),
+             batch_size=args.batch_size, dp_clip_norm=args.dp_clip, dp_noise_multiplier=args.dp_noise,
+             device=args.device)
+        for i in range(args.nodes)
+    ]
+    for n in nodes:
+        n.start()
+    try:
+        matrix = TopologyFactory.generate_matrix(TopologyType(args.topology), args.nodes)
+        TopologyFactory.connect_nodes(matrix, nodes)
+        wait_convergence(nodes, args.nodes - 1, only_direct=False, wait=60)
+        nodes[0].set_start_learning(rounds=args.rounds, epochs=args.epochs)
+        wait_to_finish(nodes, timeout=3600)
+        check_equal_models(nodes)
+        accs = [m["test_acc"] for m in (n.learner.evaluate() for n in nodes) if "test_acc" in m]
+        out = {"mode": "nodes", "final_test_acc": float(np.mean(accs)) if accs else None}
+        if args.dp_clip > 0.0:
+            # A local claim of node 0's own learner.
+            out["dp_epsilon_at_1e-5"] = round(nodes[0].learner.privacy_spent()["epsilon"], 3)
+        return out
+    finally:
+        for n in nodes:
+            n.stop()
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mode == "nodes":
-        raise NotImplementedError("--mode nodes is not ported yet (it comes with the Node and the stages)")
     from p2pfl_tpu_torch.management.profiler import profile_run
 
     with profile_run(host_dir="profile/mnist" if args.profiling else None, device_trace_dir=args.trace,
                      label="mnist") as prof_info:
-        result = run_mesh(args)
+        result = run_mesh(args) if args.mode == "mesh" else run_nodes(args)
     if args.measure_time:
         result["total_elapsed_s"] = round(prof_info["elapsed_s"], 3)
     print(result)

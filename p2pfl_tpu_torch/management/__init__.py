@@ -1,2 +1,3 @@
-"""Management: profiling (counterpart of ``p2pfl_tpu/management/``; its
-logger, monitors and checkpointing come later in the port)."""
+"""Management: logging, metrics, resource monitoring, web telemetry and
+profiling (counterpart of ``p2pfl_tpu/management/``; checkpointing and the
+node journal come with queue A item 11)."""

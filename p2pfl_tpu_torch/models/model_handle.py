@@ -18,6 +18,8 @@ channels, e.g. SCAFFOLD's deltas) in the metadata.
 
 from __future__ import annotations
 
+import threading
+import weakref
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
 
 import torch
@@ -32,6 +34,22 @@ from p2pfl_tpu_torch.ops.serialization import deserialize_arrays, serialize_arra
 from p2pfl_tpu_torch.telemetry import tracing
 
 Params = Dict[str, torch.Tensor]
+
+# ``functional_call`` swaps the given tensors into the module for the call
+# and back after it, so two threads running one module at once (nodes built
+# from one template, each fitting on its own executor thread) would see each
+# other's parameters. One lock per module serializes the forward passes of
+# handles sharing it; the backward passes run outside it.
+_APPLY_LOCKS: "weakref.WeakKeyDictionary[nn.Module, threading.Lock]" = weakref.WeakKeyDictionary()
+_APPLY_LOCKS_GUARD = threading.Lock()
+
+
+def _apply_lock(module: nn.Module) -> threading.Lock:
+    with _APPLY_LOCKS_GUARD:
+        lock = _APPLY_LOCKS.get(module)
+        if lock is None:
+            lock = _APPLY_LOCKS[module] = threading.Lock()
+        return lock
 
 
 def encode_wire_frame(
@@ -124,8 +142,10 @@ class ModelHandle:
         self.additional_info: Dict[str, Any] = dict(additional_info or {})
 
     def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        """Run the module on ``x`` with ``params`` (``apply_fn`` counterpart)."""
-        return functional_call(self.module, params, (x,))
+        """Run the module on ``x`` with ``params`` (``apply_fn`` counterpart).
+        Thread-safe: calls on one module from several threads take turns."""
+        with _apply_lock(self.module):
+            return functional_call(self.module, params, (x,))
 
     @property
     def device(self) -> torch.device:

@@ -115,11 +115,21 @@ LAUNCHES: Dict[str, int] = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+# Guards LAUNCHES: the Node's executor runs several learners' fits on
+# threads at once, and ``+= 1`` on a dict entry is a read-modify-write.
+_launch_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _launch_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one to ``LAUNCHES[name]`` (host-side, under a lock: no device sync)."""
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def _find_nvcc() -> str:
@@ -334,7 +344,7 @@ def flash_fwd(
         b, sq, k.shape[1], h, q.shape[3], _DTYPES[q.dtype], 1.0 / math.sqrt(d), int(causal), _stream(q),
     )
     _check(name, code)
-    LAUNCHES[name] += 1
+    count_launch(name)
     return _unpad(out, d), lse
 
 
@@ -364,7 +374,7 @@ def flash_bwd_dq(
         b, sq, k.shape[1], h, q.shape[3], _DTYPES[q.dtype], 1.0 / math.sqrt(d), int(causal), _stream(q),
     )
     _check("flash_bwd_dq", code)
-    LAUNCHES["flash_bwd_dq"] += 1
+    count_launch("flash_bwd_dq")
     return _unpad(dq, d)
 
 
@@ -391,7 +401,7 @@ def flash_bwd_dkv(
         b, sq, k.shape[1], h, q.shape[3], _DTYPES[q.dtype], 1.0 / math.sqrt(d), int(causal), _stream(q),
     )
     _check("flash_bwd_dkv", code)
-    LAUNCHES["flash_bwd_dkv"] += 1
+    count_launch("flash_bwd_dkv")
     return _unpad(dk, d), _unpad(dv, d)
 
 
@@ -429,5 +439,5 @@ def flash_carry(
         int(q_offset), int(kv_offset), _stream(q),
     )
     _check("flash_carry", code)
-    LAUNCHES["flash_carry"] += 1
+    count_launch("flash_carry")
     return m_out, l_out, _unpad(acc_out, d)

@@ -4,7 +4,8 @@
 Per-tensor codecs applied at the wire boundary only — training and
 aggregation stay float32:
 
-* ``bf16`` — float32 leaves cast to bfloat16 (round to nearest even);
+* ``bf16`` — float32 leaves cast to bfloat16 (round to nearest even, a
+  NaN to the quiet NaN of its sign: :func:`bf16_round`);
 * ``int8`` — symmetric per-tensor linear quantization, ``q = rint(a /
   scale)`` with ``scale = absmax / 127``;
 * ``topk`` — magnitude top-k sparsification: the k largest-|value|
@@ -54,6 +55,27 @@ def as_tensor(a: Array, device: Optional[DeviceLike] = None, dtype: Optional[tor
     return t.to(device=device if device is not None else t.device, dtype=dtype or t.dtype)
 
 
+#: The rank key of every NaN magnitude in :func:`_select`: the canonical
+#: quiet NaN's f32 bits, above +inf's.
+_NAN_KEY = 0x7FC00000
+
+#: bf16 bits of the quiet NaN of each sign (ml_dtypes' cast, as ``int16``).
+_BF16_NAN, _BF16_NEG_NAN = 0x7FC0, 0xFFC0 - 0x10000
+
+
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """``t`` cast to bfloat16 as ml_dtypes casts it, on ``t``'s device: round
+    to nearest even, and a NaN becomes the quiet NaN of its sign (0x7FC0 /
+    0xFFC0). torch's own cast turns every NaN into 0xFFFF, so a frame built
+    with it differs from the JAX package's in the NaN's bytes; this is that
+    cast with its NaNs replaced in one ``torch.where``, no host copy."""
+    if t.dtype == torch.bfloat16:
+        return t
+    bits = t.to(torch.bfloat16).view(torch.int16)
+    nan_bits = torch.where(torch.signbit(t), _BF16_NEG_NAN, _BF16_NAN).to(torch.int16)
+    return torch.where(torch.isnan(t), nan_bits, bits).view(torch.bfloat16)
+
+
 def numpy_dtype_str(a: Array) -> str:
     """The numpy ``dtype.str`` of an array or tensor (``"<f4"`` for f32)."""
     if isinstance(a, torch.Tensor):
@@ -79,10 +101,13 @@ def _select(acc: torch.Tensor, k: int) -> torch.Tensor:
     ties (``torch.topk`` keeps an arbitrary subset): every index above the
     k-th largest magnitude ``t`` is kept, then the lowest indices equal to
     ``t`` fill the rest. The kept indices are scattered to their ranks, so
-    nothing waits on the device."""
+    nothing waits on the device. Magnitudes are ranked by their f32 bits
+    (monotonic for non-negative floats), every NaN as one value above +inf,
+    as ``lax.top_k`` ranks them."""
     mag = acc.abs()
-    t = torch.topk(mag, k, sorted=False).values.min()
-    above, tied = mag > t, mag == t
+    key = torch.where(torch.isnan(mag), _NAN_KEY, mag.view(torch.int32))
+    t = torch.topk(key, k, sorted=False).values.min()
+    above, tied = key > t, key == t
     keep = above | (tied & (torch.cumsum(tied, 0) <= k - above.sum()))
     slot = torch.where(keep, torch.cumsum(keep, 0) - 1, k)  # rank among the kept; k: discarded
     out = torch.empty(k + 1, dtype=torch.long, device=acc.device)
@@ -131,7 +156,7 @@ def ef_topk_encode(
     idx = _select(acc, k)
     vals = acc[idx]
     if value_dtype == "bf16":
-        wire = vals.to(torch.bfloat16)
+        wire = bf16_round(vals)
         dequant = wire.float()
     else:
         wire = dequant = vals
@@ -235,11 +260,11 @@ def compress_arrays(
             idx, vals = topk_select(flat, topk_count(flat.numel(), ratio))
             packed, index_codec = encode_sparse_indices(idx)
             encoded.append(packed)
-            encoded.append(vals.to(torch.bfloat16) if value_dtype == "bf16" else vals)
+            encoded.append(bf16_round(vals) if value_dtype == "bf16" else vals)
             spec.append({"codec": "topk", "dtype": numpy_dtype_str(a), "shape": list(t.shape),
                          "index_codec": index_codec, "parts": 2})
         elif scheme == "bf16":
-            encoded.append(t.to(torch.bfloat16))
+            encoded.append(bf16_round(t))
             spec.append({"codec": "bf16", "dtype": numpy_dtype_str(a)})
         else:  # int8
             absmax = float(t.float().abs().max())

@@ -19,11 +19,11 @@ What makes bit-exactness possible inside the port:
 * **deterministic adversaries** — a Byzantine node poisons its own update
   with the shared :func:`~p2pfl_tpu_torch.parallel.simulation.poison_delta`.
 
-The JAX package's ``run_wire`` runs real ``Node`` s over the gossip
-transport, which the port does not have yet: :func:`run_wire` raises
-``NotImplementedError``. :func:`run_frames` runs the wire's model plane
-without the transport: each node's fit, its dense PFLT frame, a fresh handle
-decoding it, ``CanonicalFedAvg`` and the aggregate's diffusion as a frame.
+:func:`run_wire` runs real port ``Node`` s over the in-memory gossip
+transport, as the JAX package's does; :func:`run_frames` runs the wire's
+model plane without the transport: each node's fit, its dense PFLT frame, a
+fresh handle decoding it, ``CanonicalFedAvg`` and the aggregate's diffusion
+as a frame.
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ class ParityScenario:
     byzantine: Dict[int, str] = field(default_factory=dict)
     #: node index -> extra seconds per fit (wire: a sleep; fused: node_speed).
     straggler: Dict[int, float] = field(default_factory=dict)
-    #: wire-only seeded drop rate (needs the transport; must stay 0 here).
+    #: wire-only seeded chaos drop rate (recoverable loss; 0 disables).
     drop_rate: float = 0.0
 
     def __post_init__(self) -> None:
@@ -194,12 +194,92 @@ class ParityLearner(Learner):
 # --- backend runners ----------------------------------------------------------
 
 
-def run_wire(scn: ParityScenario, ledger_dir: Optional[str] = None, timeout_s: float = 600.0) -> Dict[str, Any]:
-    """The scenario on real ``Node`` s over the gossip transport: not ported
-    yet (it comes with ``node.py`` and the stages; the transport,
-    ``comm/``, is in); see :func:`run_frames` for the model plane without
-    the transport."""
-    raise NotImplementedError("run_wire is not ported yet (it comes with Node and the stages)")
+def run_wire(
+    scn: ParityScenario, ledger_dir: Optional[str] = None, timeout_s: float = 600.0, device: DeviceLike = "cuda",
+) -> Dict[str, Any]:
+    """The scenario on real port ``Node`` s over the in-memory transport (the
+    whole Node / gossip / admission / aggregator stack): node ``i`` is
+    ``node_names[i]`` with a :class:`ParityLearner` and a
+    :class:`CanonicalFedAvg`, inline fits (``executor=False``), every frame
+    dense. Dumps every node's trajectory ledger when ``ledger_dir`` is given
+    and returns ``{"ledgers": {addr: path-or-None}, "hashes": {addr: {round:
+    hash}}, "events": {addr: [...]}, "params": {addr: final canonical leaves
+    (numpy)}}``."""
+    from p2pfl_tpu_torch.chaos import CHAOS
+    from p2pfl_tpu_torch.comm.memory.registry import InMemoryRegistry
+    from p2pfl_tpu_torch.learning.aggregators import CanonicalFedAvg
+    from p2pfl_tpu_torch.learning.dataset.dataset import FederatedDataset
+    from p2pfl_tpu_torch.node import Node
+    from p2pfl_tpu_torch.telemetry.ledger import LEDGERS
+    from p2pfl_tpu_torch.utils.utils import set_test_settings, wait_convergence
+
+    snap = Settings.snapshot()
+    names = scn.node_names
+    x, y, w = scn.data()
+    template = scn.template_model(device)
+    train_fn = build_train_fn(template.apply, scn.lr, scn.batch_size, scn.epochs)
+    nodes: List[Any] = []
+    try:
+        set_test_settings()
+        Settings.LOG_LEVEL = "WARNING"
+        Settings.RESOURCE_MONITOR_PERIOD = 0
+        Settings.LEDGER_ENABLED = True
+        Settings.TRAIN_SET_SIZE = scn.n_nodes  # full committee (module doc)
+        Settings.WIRE_COMPRESSION = "none"  # lossless frames only
+        Settings.VOTE_TIMEOUT = 20.0
+        Settings.AGGREGATION_TIMEOUT = 120.0
+        # The seeded straggler must not trip partial aggregation: a partial
+        # fold would be a real divergence.
+        Settings.AGGREGATION_STALL_PATIENCE = 60.0
+        # CanonicalFedAvg ships raw per-sender models, so diffusion leans on
+        # peers' models_aggregated reports; while peers are still fitting
+        # that status is frozen, so the gossip loop gets a stalled-status
+        # budget that outlasts any fit, and fans out to every candidate.
+        Settings.GOSSIP_EXIT_ON_X_EQUAL_ROUNDS = 400
+        Settings.GOSSIP_MODELS_PER_ROUND = scn.n_nodes
+        CHAOS.reset()
+        if scn.drop_rate > 0.0:
+            Settings.CHAOS_ENABLED = True
+            Settings.CHAOS_SEED = scn.seed
+            Settings.CHAOS_DROP_RATE = float(scn.drop_rate)
+        LEDGERS.reset()
+        LEDGERS.configure(scn.run_id)
+
+        for i, name in enumerate(names):
+            nodes.append(Node(
+                template.build_copy(), FederatedDataset.from_arrays(x[i], y[i]), addr=name, learner=ParityLearner,
+                aggregator=CanonicalFedAvg(), executor=False, device=device, node_idx=i, scenario=scn,
+                arrays=(x[i], y[i], w[i]), train_fn=train_fn,
+            ))
+        for nd in nodes:
+            nd.start()
+        for i in range(1, len(nodes)):
+            nodes[i].connect(nodes[0].addr)
+        wait_convergence(nodes, scn.n_nodes - 1, wait=30)
+        nodes[0].set_start_learning(rounds=scn.rounds, epochs=scn.epochs)
+        deadline = time.time() + timeout_s
+        while not all(not nd.learning_in_progress() and nd.learning_workflow is not None for nd in nodes):
+            if time.time() >= deadline:
+                raise TimeoutError("parity wire federation did not finish")
+            time.sleep(0.05)
+
+        out: Dict[str, Any] = {"ledgers": {}, "hashes": {}, "events": {}, "params": {}}
+        for name, nd in zip(names, nodes):
+            led = LEDGERS.peek(name)
+            out["events"][name], out["hashes"][name] = _events(led)
+            out["ledgers"][name] = (led.dump(os.path.join(ledger_dir, f"ledger_{name}.jsonl"))
+                                    if ledger_dir is not None and led is not None else None)
+            out["params"][name] = [t.cpu().numpy() for t in nd.learner.get_model().get_parameters()]
+        return out
+    finally:
+        for nd in nodes:
+            try:
+                nd.stop()
+            except Exception:  # noqa: BLE001 — teardown must not mask results
+                pass
+        InMemoryRegistry.reset()
+        CHAOS.reset()
+        Settings.restore(snap)
 
 
 def _events(led) -> Tuple[List[Dict[str, Any]], Dict[int, str]]:

@@ -1,7 +1,7 @@
 """Seeded, order-independent cohort sampling (counterpart of
-``p2pfl_tpu/population/cohort.py``, lines 42-168: the sampler and the
-committee schedule; no tensors, blake2b on the host, so its outputs equal
-the JAX package's exactly).
+``p2pfl_tpu/population/cohort.py``: the sampler, the committee schedule and
+the ambient plan of the wire schedulers; no tensors, blake2b on the host, so
+its outputs equal the JAX package's exactly).
 
     score(name) = blake2b(f"{seed}:{round}:{name}")
     cohort(round) = the k lowest-scoring eligible names, returned sorted
@@ -14,10 +14,13 @@ applied before ranking.
 from __future__ import annotations
 
 import hashlib
+import threading
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
+
+from p2pfl_tpu_torch.config import Settings
 
 
 def cohort_score(seed: int, round_idx: int, name: str) -> int:
@@ -108,3 +111,52 @@ def committee_schedule(
             )
         sched[ri] = [index[n] for n in cohort]
     return sched
+
+
+# --- ambient plan for the wire schedulers -------------------------------------
+
+_PLAN_LOCK = threading.Lock()
+_ACTIVE_PLAN: Optional[CohortPlan] = None
+
+
+def install_plan(plan: CohortPlan) -> None:
+    """Make ``plan`` ambient for every wire node in this process (one plan
+    for the whole federation: per-node plans would let two nodes disagree
+    about the cohort)."""
+    global _ACTIVE_PLAN
+    with _PLAN_LOCK:
+        _ACTIVE_PLAN = plan
+
+
+def clear_plan() -> None:
+    global _ACTIVE_PLAN
+    with _PLAN_LOCK:
+        _ACTIVE_PLAN = None
+
+
+def active_plan() -> Optional[CohortPlan]:
+    """The effective plan: an installed one wins; otherwise the
+    ``POP_COHORT_*`` settings when enabled; otherwise None (sampling off)."""
+    with _PLAN_LOCK:
+        if _ACTIVE_PLAN is not None:
+            return _ACTIVE_PLAN
+    if Settings.POP_COHORT_ENABLED:
+        return CohortPlan(
+            seed=Settings.POP_COHORT_SEED,
+            fraction=Settings.POP_COHORT_FRACTION,
+            min_size=Settings.POP_COHORT_MIN,
+            churn_rate=Settings.POP_CHURN_RATE,
+        )
+    return None
+
+
+def wire_cohort_filter(round_idx: int, candidates: Sequence[str]) -> List[str]:
+    """A wire scheduler's candidates filtered to the round's cohort (the
+    input, as a list, when sampling is off): computed over the plan's pinned
+    names when it has them, else over the candidates, so every node that
+    sees the same round derives the same cohort."""
+    plan = active_plan()
+    if plan is None:
+        return list(candidates)
+    cohort = set(plan.cohort(round_idx, sorted(candidates)))
+    return [c for c in candidates if c in cohort]

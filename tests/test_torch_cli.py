@@ -104,17 +104,31 @@ def test_mnist_run_mesh_tracks_jax(monkeypatch):
     (["--trace", "out"], None),
 ])
 def test_mnist_options_that_wait_for_a_plane_raise(argv, plane, tmp_path, monkeypatch, capsys):
-    """``--mode nodes`` still waits for the Node; ``--profiling`` and
-    ``--trace DIR`` (ported with the profiler) write what the JAX example
-    writes: a host ``.pstat`` under ``profile/mnist/`` and a trace under
-    DIR."""
+    """``--mode nodes`` runs real port Nodes now that the Node is ported
+    (under the test timings), and its gRPC transport still waits for that
+    plane; ``--profiling`` and ``--trace DIR`` (ported with the profiler)
+    write what the JAX example writes: a host ``.pstat`` under
+    ``profile/mnist/`` and a trace under DIR."""
     monkeypatch.chdir(tmp_path)
     tiny = ["--nodes", "2", "--rounds", "1", "--train-set-size", "2", "--samples-per-node", "32", "--batch-size", "32",
             "--seed", "0",
             "--device", "cpu"]
     if plane is not None:
-        with pytest.raises(NotImplementedError, match=plane):
-            mnist.main(argv + tiny)
+        from p2pfl_tpu_torch.comm.memory.registry import InMemoryRegistry
+        from p2pfl_tpu_torch.config import Settings as PortSettings
+        from p2pfl_tpu_torch.utils.utils import set_test_settings
+
+        snap = PortSettings.snapshot()
+        try:
+            set_test_settings()
+            PortSettings.RESOURCE_MONITOR_PERIOD = 0
+            assert mnist.main(argv + tiny) == 0
+            assert "'mode': 'nodes'" in capsys.readouterr().out
+            with pytest.raises(NotImplementedError, match="gRPC"):
+                mnist.main(argv + tiny + ["--protocol", "grpc"])
+        finally:
+            PortSettings.restore(snap)
+            InMemoryRegistry.reset()
         return
     assert mnist.main(argv + tiny + ["--measure-time"]) == 0
     assert "'mode': 'mesh'" in capsys.readouterr().out

@@ -11,7 +11,6 @@ events against the JAX simulation's, field for field but the hashes.
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from p2pfl_tpu.config import Settings as JaxSettings
@@ -27,7 +26,7 @@ from p2pfl_tpu_torch.models.convert import flax_to_torch
 from p2pfl_tpu_torch.models.mlp import MLP
 from p2pfl_tpu_torch.models.model_handle import ModelHandle
 from p2pfl_tpu_torch.parallel.simulation import MeshSimulation
-from p2pfl_tpu_torch.parity import ParityScenario, round_member_keys, run_frames, run_fused, run_wire
+from p2pfl_tpu_torch.parity import ParityScenario, round_member_keys, run_frames, run_fused
 from p2pfl_tpu_torch.telemetry.ledger import LEDGERS, TRAJECTORY_KINDS
 
 SCENARIO = dict(seed=7, n_nodes=4, rounds=3, samples_per_node=32, byzantine={1: "signflip"})
@@ -49,8 +48,6 @@ def test_wire_model_plane_and_fused_round_hash_bit_equal_every_round():
     # The Byzantine node's poisoning shows: without it the hashes differ.
     honest = run_fused(ParityScenario(batch_size=16, **{**SCENARIO, "byzantine": {}}), device="cpu")
     assert honest["hashes"][0] != fused["hashes"][0]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        run_wire(scn)
     gens = round_member_keys(7, 2, 4)
     assert len(gens) == 4 and torch.equal(torch.rand(3, generator=gens[1]), torch.rand(3, generator=round_member_keys(7, 2, 4)[1]))
 
