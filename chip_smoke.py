@@ -181,6 +181,18 @@ Phases, each on its own printed lines:
    one more round under phase 12a's seeded faults. First, the wire's
    NaN-preserving bf16 round on the card against the CPU's on 2^20 f32
    values with NaN payloads of both signs.
+12c. secagg: the privacy plane. Its full-size passes on the card against
+   the CPU on the full-width LM's leaves (committee 3, fixed keys, two
+   rounds of error feedback, a NaN, an inf and clamped values):
+   ``mask_own``'s lattice bytes and residual bits and ``finalize``'s
+   parameter bits equal; then phase 12b's three Nodes under
+   ``PRIVACY_SECAGG`` (default ``MaskedFedAvg``, committee 3, two rounds)
+   and the same federation with ``mask_own(..., mask=False)``: each round's
+   committed hash equal on the three ledgers and between the two runs,
+   finalize outcome ``ok`` on every node and round (``range`` fails the
+   phase), rows 1-4 launched as in phase 12b in both runs; s/round, frame
+   bytes a round, a masked frame's bytes beside the dense frame's,
+   ``mask_own`` / ``finalize`` ms, peak memory.
 13. parity: a ``ParityScenario`` (8 MLP nodes, full committee, 3 rounds, one
    signflip node) through the wire's model plane (``run_frames``), real port
    Nodes over the in-memory transport (``run_wire``) and the fused round
@@ -2599,6 +2611,245 @@ def phase_node(card: str) -> None:
         Settings.restore(snap)
 
 
+# The masked federation (phase 12c): phase 12b's three LM Nodes under
+# PRIVACY_SECAGG with MaskedFedAvg, and their maskless twin.
+SECAGG_PRIVATE = (0x5EC4A6_0001, 0x5EC4A6_0002, 0x5EC4A6_0003)
+
+
+def secagg_card_vs_cpu(card: str) -> int:
+    """Phase 12c part 1: the privacy plane's full-size passes on the card
+    against the CPU, on the full-width LM's leaves. Three planes a device
+    with fixed keys, committee 3; node 0's leaves are the initial model
+    plus seeded noise (a NaN, an inf and values past the clamp in the
+    first leaf). Over two rounds of error feedback, ``mask_own`` on the
+    card gives node 0 the CPU's lattice bytes for every leaf and the CPU's
+    residual bits, and ``finalize`` of the committee's merged lattices
+    gives the CPU's parameter bits. Returns the bytes of a masked frame and
+    of the model's dense f32 frame."""
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.learning.aggregators import MaskedFedAvg
+    from p2pfl_tpu_torch.models.model_handle import ModelHandle
+    from p2pfl_tpu_torch.models.transformer import transformer_lm_model
+    from p2pfl_tpu_torch.privacy import PairwiseMasker, PrivacyPlane
+
+    model = transformer_lm_model(seed=0, vocab_size=VOCAB, num_layers=LAYERS, num_heads=HEADS, embed_dim=EMBED,
+                                 attention_kind="flash", device="cuda")
+    anchor = [t.cpu() for t in model.get_parameters()]
+    dense = len(model.encode_parameters(compression="none"))
+    n_params = sum(t.numel() for t in anchor)
+    gen = torch.Generator().manual_seed(21)
+    committee = [f"mem://secagg-{i}" for i in range(NODE_PEERS)]
+    leaves = {a: [t + 1e-3 * torch.randn(t.shape, generator=gen) for t in anchor] for a in committee}
+    first = leaves[committee[0]][0].view(-1)
+    first[:4] = torch.tensor([float("nan"), float("inf"), 3.0, -3.0])
+    planes = {}
+    for dev in ("cuda", "cpu"):
+        planes[dev] = {a: PrivacyPlane(a, device=dev) for a in committee}
+        for i, a in enumerate(committee):
+            planes[dev][a].masker = PairwiseMasker(a, _private=SECAGG_PRIVATE[i])
+        for a in committee:
+            for b in committee:
+                if a != b:
+                    planes[dev][a].learn_key(b, planes[dev][b].key_payload())
+    anchors = {"cuda": [t.cuda() for t in anchor], "cpu": anchor}
+    handles = {dev: {a: ModelHandle([t.to(dev) for t in leaves[a]], contributors=[a], num_samples=SEQS)
+                     for a in committee} for dev in ("cuda", "cpu")}
+    agg = MaskedFedAvg()
+    agg.set_addr(committee[0])
+    mask_ms, final_ms = [], []
+    for rnd in (0, 1):
+        masked = {}
+        for dev in ("cuda", "cpu"):
+            for a in committee if dev == "cuda" else committee[:1]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                masked[dev, a] = planes[dev][a].mask_own(handles[dev][a], anchors[dev], rnd, committee)
+                torch.cuda.synchronize()
+                if dev == "cuda":
+                    mask_ms.append((time.perf_counter() - t0) * 1e3)
+        a0 = committee[0]
+        got, want = masked["cuda", a0].get_parameters(), masked["cpu", a0].get_parameters()
+        check(len(got) == len(want) == len(anchor), f"secagg: {len(got)} / {len(want)} lattices for {len(anchor)} leaves")
+        for i, (x, y) in enumerate(zip(got, want)):
+            check(x.dtype == y.dtype and x.tobytes() == y.tobytes(), f"secagg: round {rnd} leaf {i}: the card's "
+                  f"lattice differs from the CPU's")
+        for i, (x, y) in enumerate(zip(planes["cuda"][a0].residual(), planes["cpu"][a0].residual())):
+            check(torch.equal(x.cpu().view(torch.int32), y.view(torch.int32)),
+                  f"secagg: round {rnd} leaf {i}: the card's residual bits differ from the CPU's")
+        merged = agg.aggregate([masked["cuda", a] for a in committee])
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[dev], outcome = planes[dev][a0].finalize(merged, committee, anchors[dev], anchor_round=rnd)
+            torch.cuda.synchronize()
+            if dev == "cuda":
+                final_ms.append((time.perf_counter() - t0) * 1e3)
+            check(outcome == "ok", f"secagg: round {rnd}: finalize on the {dev} gave {outcome}")
+        for i, (x, y) in enumerate(zip(outs["cuda"], outs["cpu"])):
+            check(x.is_cuda and torch.equal(x.cpu().view(torch.int32), y.view(torch.int32)),
+                  f"secagg: round {rnd} leaf {i}: finalize's parameter bits on the card differ from the CPU's")
+        anchors = {"cuda": outs["cuda"], "cpu": outs["cpu"]}
+    frame = len(PrivacyPlane.encode_frame(masked["cuda", committee[0]]))
+    k = sum(masked["cuda", committee[0]].additional_info["__masked__"]["ks"])
+    print(f"[secagg] card vs CPU on the full-width LM's {len(anchor)} leaves ({n_params} parameters), committee "
+          f"{NODE_PEERS}, two rounds: mask_own's lattice bytes and residual bits, and finalize's parameter bits, "
+          f"equal on every leaf; {k} values a frame, {frame} bytes, {dense / frame:.1f}x smaller than the "
+          f"{dense}-byte dense f32 frame")
+    print(f"[secagg] mask_own {np.median(mask_ms):.1f} ms (median of {len(mask_ms)}, {min(mask_ms):.1f}-"
+          f"{max(mask_ms):.1f}), finalize {np.median(final_ms):.1f} ms (median of {len(final_ms)}) on the card, host "
+          f"clock: support, mask streams and packing on the host included [{card}]")
+    return frame, dense
+
+
+def secagg_federation(mask: bool, card: str) -> dict:
+    """Phase 12c part 2: phase 12b's three LM Nodes (model, data, seeds and
+    settings) under ``PRIVACY_SECAGG`` with the default aggregator
+    (``MaskedFedAvg``) and executor, committee 3, two rounds; ``mask=False``
+    runs the identical lattice pipeline with a zero mask. Returns each
+    round's committed hashes, outcomes, launches, s/round, frame bytes a
+    round and peak memory."""
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.comm.memory.registry import InMemoryRegistry
+    from p2pfl_tpu_torch.config import Settings
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.models.transformer import transformer_lm_model
+    from p2pfl_tpu_torch.node import Node
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.privacy import PrivacyPlane
+    from p2pfl_tpu_torch.telemetry import REGISTRY
+    from p2pfl_tpu_torch.telemetry.ledger import LEDGERS, canonical_params_hash
+    from p2pfl_tpu_torch.utils.utils import set_test_settings, wait_convergence
+
+    (x, y, _), xt = lm_data(20)
+    snap = Settings.snapshot()
+    mask_own = PrivacyPlane.mask_own
+    nodes: list = []
+    fitted: dict = {}
+    try:
+        if not mask:
+            PrivacyPlane.mask_own = lambda self, *a, **kw: mask_own(self, *a, **{**kw, "mask": False})
+        set_test_settings()
+        Settings.LOG_LEVEL = "WARNING"
+        Settings.RESOURCE_MONITOR_PERIOD = 0
+        Settings.LEDGER_ENABLED = True
+        Settings.TRAIN_SET_SIZE = NODE_PEERS
+        Settings.WIRE_COMPRESSION = "none"
+        Settings.AGGREGATION_TIMEOUT = 120.0
+        Settings.AGGREGATION_STALL_PATIENCE = 60.0
+        Settings.PRIVACY_SECAGG = True
+
+        def outcome_counts() -> dict:
+            fam = REGISTRY.get("p2pfl_privacy_masked_rounds_total")
+            return {(lbl["node"], lbl["outcome"]): int(c.value) for lbl, c in (fam.samples() if fam else [])}
+
+        outcomes_before = outcome_counts()
+        for i in range(NODE_PEERS):
+            data = FederatedDataset.from_arrays(x[i], y[i], xt, np.zeros(len(xt), np.int32))
+            model = transformer_lm_model(seed=0, vocab_size=VOCAB, num_layers=LAYERS, num_heads=HEADS,
+                                         embed_dim=EMBED, attention_kind="flash", device="cuda")
+            node = Node(model, data, addr=f"mem://secagg-{i}", lr=LR, batch_size=BATCH, seed=i, task="lm",
+                        device="cuda")
+            inner = node.learner.learner  # the TorchLearner inside the executor's wrapper
+
+            def recording_fit(fit=inner.fit, addr=node.addr):
+                out = fit()
+                fitted.setdefault(addr, []).append(canonical_params_hash(out.get_parameters()))
+                return out
+
+            inner.fit = recording_fit
+            nodes.append(node)
+        check(type(nodes[0].aggregator).__name__ == "MaskedFedAvg", "secagg: the default aggregator is not "
+              "MaskedFedAvg")
+        for nd in nodes:
+            nd.start()
+        for i, nd in enumerate(nodes):
+            for other in nodes[i + 1:]:
+                nd.connect(other.addr)
+        wait_convergence(nodes, NODE_PEERS - 1, wait=30)
+        LEDGERS.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launches()
+        t0 = time.monotonic()
+        nodes[0].set_start_learning(rounds=NODE_ROUNDS, epochs=1)
+        wait_for(lambda: all(not nd.learning_in_progress() and nd.learning_workflow is not None for nd in nodes),
+                 f"secagg: the masked federation did not finish {NODE_ROUNDS} rounds", timeout=NODE_DEADLINE_S)
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = dict(_kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        for nd in nodes:
+            check(nd.learning_workflow.history.count("RoundFinishedStage") == NODE_ROUNDS,
+                  f"secagg: {nd.addr} ran {nd.learning_workflow.history}")
+        hashes = {}
+        for nd in nodes:
+            events = LEDGERS.peek(nd.addr).canonical_events()
+            hashes[nd.addr] = {e["round"]: e["hash"] for e in events if e["kind"] == "aggregate_committed"}
+        outcomes = {k: v - outcomes_before.get(k, 0) for k, v in outcome_counts().items()
+                    if v - outcomes_before.get(k, 0)}
+        return {"hashes": hashes, "outcomes": outcomes, "launches": launches, "seconds": seconds, "peak": peak,
+                "fitted": fitted, "tx": [sum(nd.protocol.gossiper.bytes_for_round(r) for nd in nodes)
+                                         for r in range(NODE_ROUNDS)],
+                "codecs": nodes[0].protocol.gossiper.bytes_by_codec()}
+    finally:
+        PrivacyPlane.mask_own = mask_own
+        for nd in nodes:
+            nd.stop()
+        InMemoryRegistry.reset()
+        Settings.restore(snap)
+
+
+def phase_secagg(card: str) -> None:
+    """Phase 12c: the privacy plane on the card. Part 1
+    (:func:`secagg_card_vs_cpu`): the full-size passes on the card give the
+    CPU's bytes. Part 2 (:func:`secagg_federation`): the masked three-Node
+    federation, then its maskless twin: each round's committed hash equal on
+    the three ledgers of each run and between the two runs; every node
+    counts finalize outcome ``ok`` for every round (a ``range`` outcome
+    fails the phase and says so); rows 1-4 launch exactly as in phase 12b
+    in both runs. Prints s/round, frame bytes a round beside phase 12b's,
+    and peak memory."""
+    frame, dense = secagg_card_vs_cpu(card)
+    runs = {mask: secagg_federation(mask, card) for mask in (True, False)}
+    per_fit = LAYERS * (SEQS // BATCH)
+    eval_batches = -(-EVAL_SEQS // BATCH)
+    expected = {name: NODE_ROUNDS * NODE_PEERS * per_fit for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    expected["flash_fwd_no_lse"] = (NODE_ROUNDS + 1) * NODE_PEERS * LAYERS * eval_batches
+    expected["flash_carry"] = 0
+    for mask, run in runs.items():
+        label = "masked" if mask else "maskless twin"
+        for r in range(NODE_ROUNDS):
+            seen = {h.get(r) for h in run["hashes"].values()}
+            print(f"[secagg] {label}, round {r}: aggregate_committed {sorted(map(str, seen))} on the "
+                  f"{NODE_PEERS} ledgers")
+            check(len(seen) == 1 and None not in seen, f"secagg: {label}: round {r}'s hashes differ: {run['hashes']}")
+        ranged = {k: v for k, v in run["outcomes"].items() if k[1] == "range"}
+        check(not ranged, f"secagg: {label}: finalize counted outcome range {ranged}: a member's lattice entered a "
+              f"sum twice or a mask share failed to cancel (outcomes {run['outcomes']})")
+        want = {(f"mem://secagg-{i}", "ok"): NODE_ROUNDS for i in range(NODE_PEERS)}
+        check(run["outcomes"] == want, f"secagg: {label}: finalize outcomes {run['outcomes']}, expected {want}")
+        print(f"[secagg] {label}: kernels {json.dumps(run['launches'])} (expected {json.dumps(expected)})")
+        check(run["launches"] == expected, f"secagg: {label}: the flash launches differ from the fits and evaluations")
+        print(f"[secagg] {label}: {NODE_PEERS} Nodes of the full-width LM, {NODE_ROUNDS} rounds: "
+              f"{run['seconds'] / NODE_ROUNDS:.3f} s/round (host clock) [{card}]")
+        print(f"[secagg] {label}: model-plane frame bytes a round (all nodes) {run['tx']}, by codec "
+              f"{json.dumps(run['codecs'])} (node 0); a masked frame {frame} bytes against the {dense}-byte dense "
+              f"frame of phase 12b [{card}]")
+        print(f"[secagg] {label}: peak device memory {run['peak']} bytes ({run['peak'] / 2**30:.2f} GiB) [{card}]")
+    masked, twin = runs[True], runs[False]
+    if masked["fitted"] != twin["fitted"]:
+        print(f"[secagg] the two runs' fitted models differ: {masked['fitted']} vs {twin['fitted']}")
+    for r in range(NODE_ROUNDS):
+        a = masked["hashes"]["mem://secagg-0"][r]
+        b = twin["hashes"]["mem://secagg-0"][r]
+        check(a == b, f"secagg: round {r}: the masked aggregate {a} differs from its maskless twin's {b}")
+    print(f"[secagg] masked == maskless twin bit for bit, every round ({NODE_ROUNDS}), on all {NODE_PEERS} nodes; "
+          f"outcome ok everywhere")
+
+
 def phase_parity() -> None:
     """The port's wire-vs-fused contract on the card: a ``ParityScenario``
     (8 MLP nodes, full committee, 3 rounds, one signflip node) through the
@@ -3254,6 +3505,8 @@ def main() -> int:
         del fitted, anchor
         gc.collect()
         phase_node(card)
+        gc.collect()
+        phase_secagg(card)
         gc.collect()
         phase_topk_ties()
         phase_parity()

@@ -43,8 +43,8 @@ sample weighting (the inflation attack GeometricMedian's unit weights
 already neutralize — robust.py docstring).
 
 The port's copy of ``p2pfl_tpu/comm/admission.py``: the screens run in
-torch on the received leaves' device (on the card, the codec decodes there),
-and the masked-frame screen comes with the privacy plane (queue A item 10).
+torch on the received leaves' device (on the card, the codec decodes there);
+the masked-frame screen reads the privacy plane's host lattices.
 """
 
 from __future__ import annotations
@@ -282,6 +282,60 @@ class AdmissionController:
             return None
         if float(np.sqrt(sq_recv)) > INIT_NORM_MULT * local_norm:
             return self.record("init_norm", source, "init_model")
+        return None
+
+    # --- masked frames (privacy plane) ----------------------------------------
+
+    def screen_masked(
+        self,
+        arrays: Sequence[np.ndarray],
+        info: Any,
+        *,
+        committee: Sequence[str],
+        contributors: Sequence[str],
+        expected_ks: Sequence[int],
+        source: str = "?",
+        cmd: str = "partial_model",
+    ) -> Optional[str]:
+        """Screen a masked lattice frame (``p2pfl_tpu_torch/privacy/secagg.py``).
+
+        A masked frame's VALUES are uniform ring elements by design, so the
+        norm/finiteness screens are meaningless here — that is the
+        admission-vs-secrecy tension, resolved the DisAgg/Papaya way:
+        clipping-at-sender bounds what an honest masker can inject, the
+        committee-side range check at finalize catches a dishonest one, and
+        THIS screen validates everything structural a hostile frame
+        controls (declared round/ring/committee geometry, per-tensor
+        support sizes, ring dtype, membership of the claimed contributors)
+        BEFORE the frame can enter the lattice sum. Every rejection is a
+        counted ``masked_structure`` / ``masked_member`` — the same
+        accounting surface as every other screen. The lattices are numpy
+        vectors on the host.
+        """
+        if not Settings.ADMISSION_ENABLED:
+            return None
+        from p2pfl_tpu_torch.privacy.masking import ring_dtype
+
+        if not isinstance(info, dict):
+            return self.record("masked_structure", source, cmd)
+        try:
+            bits = int(info["bits"])
+            declared_n = int(info["n"])
+            int(info["round"])
+        except (KeyError, TypeError, ValueError):
+            return self.record("masked_structure", source, cmd)
+        if bits != Settings.PRIVACY_RING_BITS or declared_n != len(set(committee)):
+            return self.record("masked_structure", source, cmd)
+        if not contributors or not set(contributors) <= set(committee):
+            return self.record("masked_member", source, cmd)
+        ks = [int(k) for k in expected_ks if int(k) > 0]
+        if len(arrays) != len(ks):
+            return self.record("masked_structure", source, cmd)
+        dt = ring_dtype(bits)
+        for a, k in zip(arrays, ks):
+            a = np.asarray(a)
+            if a.dtype != dt or a.shape != (k,):
+                return self.record("masked_structure", source, cmd)
         return None
 
     # --- num_samples clamp ----------------------------------------------------

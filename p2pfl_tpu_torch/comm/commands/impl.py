@@ -10,12 +10,10 @@ reference handlers:
 * model plane (weights payloads): init_model, partial_model, full_model
 
 The port's copy of ``p2pfl_tpu/comm/commands/impl.py``. Frames decode on
-the node's device. The privacy plane (queue A item 10) is not ported: a
-masked partial frame is refused as ``masked_structure`` (as the JAX package
-does with ``PRIVACY_SECAGG`` off), and ``privacy_key`` / ``privacy_repair``
-frames are recorded in the flight recorder and dropped. A received partial
-or async contribution carries the frame's ``additional_info`` (the sender's
-SCAFFOLD deltas); the JAX package's copies the receiver's own onto it.
+the node's device; a masked lattice frame's planes stay numpy on the host,
+where the privacy plane sums them. A received partial or async contribution
+carries the frame's ``additional_info`` (the sender's SCAFFOLD deltas); the
+JAX package's copies the receiver's own onto it.
 """
 
 from __future__ import annotations
@@ -27,23 +25,13 @@ from p2pfl_tpu_torch.comm.commands.command import Command
 from p2pfl_tpu_torch.comm.delta import DELTA_META_KEY
 from p2pfl_tpu_torch.config import Settings
 from p2pfl_tpu_torch.exceptions import DeltaAnchorError
+from p2pfl_tpu_torch.privacy.secagg import MASKED_META_KEY, PrivacyPlane
 from p2pfl_tpu_torch.telemetry import TRACER, tracing
-
-#: Metadata key of a masked lattice frame (the privacy plane's wire contract).
-MASKED_META_KEY = "__masked__"
 
 if TYPE_CHECKING:  # pragma: no cover
     from p2pfl_tpu_torch.node import Node
 
 log = logging.getLogger("p2pfl_tpu_torch")
-
-
-def secagg_not_ported() -> NotImplementedError:
-    """The error a secure-aggregation path raises in the port."""
-    return NotImplementedError(
-        "PRIVACY_SECAGG (committee secure aggregation, the privacy plane) is not ported yet: "
-        "queue A item 10"
-    )
 
 
 class StartLearningCommand(Command):
@@ -260,14 +248,63 @@ class PartialModelCommand(Command):
             log.debug("partial model from %s undecodable: %s", source, exc)
             state.admission.record("corrupt", source, "partial_model")
             return
-        if isinstance(meta.get(MASKED_META_KEY), dict):
-            # Masked lattice frame (a privacy-plane peer's): without secure
-            # aggregation it is refused as a structure fault, as the JAX
-            # package refuses it with PRIVACY_SECAGG off.
+        if PrivacyPlane.is_masked_frame(meta):
+            # Masked lattice frame: structural screening only (uniform ring
+            # values cannot be norm-screened — the committee-side range
+            # check at finalize owns the rest), then straight into the
+            # lattice-summing aggregator. Never touches the model or the
+            # delta anchor.
             if not Settings.PRIVACY_SECAGG:
                 state.admission.record("masked_structure", source, "partial_model")
                 return
-            raise secagg_not_ported()
+            if not state.train_set:
+                # Out of phase, not hostile: the round's committee is not
+                # elected here yet (vote in progress), so the frame's
+                # declared geometry CANNOT be validated — drop silently and
+                # let the sender's gossip loop re-ship, exactly like a
+                # sparse frame ahead of our anchor. Rejecting would both
+                # poison the honest sender's suspect score and stall its
+                # gossip coverage into an abandonment.
+                log.debug(
+                    "masked partial from %s dropped: round %s committee not "
+                    "elected yet", source, round,
+                )
+                return
+            try:
+                lattices = PrivacyPlane.parse_frame(arrays, meta)
+            except Exception as exc:  # hostile plane geometry
+                log.debug("masked partial from %s unparseable: %s", source, exc)
+                state.admission.record("corrupt", source, "partial_model")
+                return
+            try:
+                leaves = node.learner.get_model().get_parameters()
+                supports = PrivacyPlane.supports(round, [tuple(p.shape) for p in leaves],
+                                                 [p.is_floating_point() for p in leaves])
+                expected_ks = [0 if s is None else int(s.size) for s in supports]
+            except Exception:  # noqa: BLE001 — geometry failure = reject
+                state.admission.record("masked_structure", source, "partial_model")
+                return
+            if state.admission.screen_masked(
+                lattices,
+                meta.get(MASKED_META_KEY),
+                committee=state.train_set,
+                contributors=contributors,
+                expected_ks=expected_ks,
+                source=source,
+                cmd="partial_model",
+            ):
+                return
+            handle = PrivacyPlane.handle_from_frame(
+                lattices, meta, contributors, num_samples
+            )
+            agg = node.aggregator.add_model(handle, round=round)
+            if agg:
+                node.protocol.broadcast(
+                    node.protocol.build_msg(
+                        ModelsAggregatedCommand.get_name(), args=agg, round=state.round
+                    )
+                )
+            return
         # Admission control: screen the RECONSTRUCTED arrays (post sparse-
         # delta decode) against the local model spec + adaptive norm bound
         # before anything reaches the aggregator.
@@ -553,13 +590,25 @@ class PrivacyKeyCommand(Command):
         return "privacy_key"
 
     def execute(self, source: str, round: int, *args: str, **kwargs: Any) -> None:
-        # No privacy plane in the port yet (queue A item 10): a masked peer's
-        # key is recorded and dropped, and no key is sent back.
         node = self._node
         if source == node.addr or not args:
             return
-        node.protocol.flight_recorder.record("privacy_key_dropped", peer=source)
-        log.debug("(%s) privacy_key from %s dropped: no privacy plane", node.addr, source)
+        if node.state.privacy.learn_key(source, args[0]):
+            # New peer: answer with our key so the pair secret is derivable
+            # on both ends even if our bootstrap broadcast never reached it.
+            try:
+                node.protocol.send(
+                    source,
+                    node.protocol.build_msg(
+                        PrivacyKeyCommand.get_name(),
+                        args=[node.state.privacy.key_payload()],
+                    ),
+                    create_connection=True,
+                    raise_error=False,
+                    remove_on_error=False,
+                )
+            except Exception:  # noqa: BLE001 — a failed reply must not hurt us
+                log.debug("privacy_key reply to %s failed", source)
 
 
 class PrivacyRepairCommand(Command):
@@ -586,13 +635,14 @@ class PrivacyRepairCommand(Command):
         return "privacy_repair"
 
     def execute(self, source: str, round: int, *args: str, **kwargs: Any) -> None:
-        # No privacy plane in the port yet (queue A item 10): nothing holds a
-        # masked sum to repair, so the share is recorded and dropped.
         node = self._node
         if len(args) < 2 or source == node.addr:
             return
-        node.protocol.flight_recorder.record("privacy_repair_dropped", survivor=source, dead=args[0],
-                                             round=int(round))
+        dead, secret_hex = args[0], args[1]
+        if node.state.privacy.note_repair(int(round), source, dead, secret_hex):
+            node.protocol.flight_recorder.record(
+                "privacy_repair", survivor=source, dead=dead, round=int(round)
+            )
 
 
 class AsyncContributionCommand(Command):

@@ -59,6 +59,7 @@ from p2pfl_tpu_torch.ops.serialization import (
     encode_sparse_indices,
     serialize_arrays,
 )
+from p2pfl_tpu_torch.privacy.secagg import MASKED_META_KEY
 from p2pfl_tpu_torch.telemetry import REGISTRY, tracing
 
 log = logging.getLogger("p2pfl_tpu_torch")
@@ -452,13 +453,18 @@ class DeltaWireCodec:
     def decode_frame(self, blob: bytes) -> Tuple[List[torch.Tensor], Dict[str, Any]]:
         """Decode any model-plane frame into leaves on the codec's device:
         dense frames through the codec spec they declare; sparse delta frames
-        reconstructed against the round anchor.
+        reconstructed against the round anchor; a masked lattice frame's
+        planes as host numpy arrays.
 
         Raises:
             DeltaAnchorError: sparse frame for a round we hold no anchor for.
             DecodingParamsError: malformed frame (any kind).
         """
         arrays, meta = deserialize_arrays(bytes(blob))
+        if isinstance(meta.get(MASKED_META_KEY), dict):
+            # A masked lattice frame (privacy plane): its packed ring planes
+            # stay on the host, where the lattice sums run.
+            return list(arrays), meta
         delta_meta = meta.get(DELTA_META_KEY)
         if delta_meta is None:
             try:

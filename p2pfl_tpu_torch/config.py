@@ -171,12 +171,35 @@ class Settings:
     ASYNC_SUSPECT_GATE: float = _env_float("ASYNC_SUSPECT_GATE", 1.0, 0.0, 1e9)
     ASYNC_STRAGGLER_GATE: float = _env_float("ASYNC_STRAGGLER_GATE", 2.0, 0.0, 1e9)
 
-    # --- privacy plane defaults of the learner ------------------------------------
+    # --- privacy plane (p2pfl_tpu_torch/privacy/) ----------------------------------
+    # Committee secure aggregation: pairwise masks (DH key agreement on the
+    # gossip wire -> per-(round, pair) PRG streams) that cancel exactly in the
+    # integer-lattice sum of the committee's frames.
+    PRIVACY_SECAGG: bool = _env_override("PRIVACY_SECAGG", False)
+    # Fraction of each delta tensor shipped on masked rounds, on a support
+    # shared by the committee (rand-k from public round state: no index bytes).
+    PRIVACY_MASK_RATIO: float = _env_float("PRIVACY_MASK_RATIO", 0.1, 1e-6, 1.0)
+    # Ring width of the masked lattice (12-bit values pack two per three bytes).
+    PRIVACY_RING_BITS: int = _env_int("PRIVACY_RING_BITS", 12, 12, 32)
+    if PRIVACY_RING_BITS not in (12, 16, 32):
+        raise ValueError(
+            f"P2PFL_TPU_PRIVACY_RING_BITS={PRIVACY_RING_BITS} is not one of "
+            "(12, 16, 32)"
+        )
+    # Per-coordinate clamp at the sender before quantization (the lattice
+    # scale is RANGE / qmax); what it cuts rides the error-feedback residual.
+    PRIVACY_VALUE_RANGE: float = _env_float("PRIVACY_VALUE_RANGE", 0.25, 1e-9, 1e3)
+    # Committee-side range check on the unmasked sum: committee * qmax * MULT.
+    PRIVACY_RANGE_MULT: float = _env_float("PRIVACY_RANGE_MULT", 1.0, 1.0, 1e6)
+    # Largest masked committee (beyond it qmax falls below 1).
+    PRIVACY_MAX_COMMITTEE: int = _env_int("PRIVACY_MAX_COMMITTEE", 256, 2, 16384)
+    # Bounded wait for the committee's public keys at session start (seconds).
+    PRIVACY_KEY_WAIT_S: float = _env_float("PRIVACY_KEY_WAIT_S", 10.0, 0.0, 600.0)
+    # DP-SGD defaults of the learner: per-example L2 clip (0: off) and noise.
     PRIVACY_DP_CLIP: float = _env_float("PRIVACY_DP_CLIP", 0.0, 0.0, 1e6)
     PRIVACY_DP_SIGMA: float = _env_float("PRIVACY_DP_SIGMA", 0.0, 0.0, 1e3)
-    # Committee secure aggregation: not ported yet (queue A item 10); a Node
-    # refuses to start its stages under it.
-    PRIVACY_SECAGG: bool = _env_override("PRIVACY_SECAGG", False)
+    # Target delta of the reported (epsilon, delta) privacy budget.
+    PRIVACY_DELTA: float = _env_float("PRIVACY_DELTA", 1e-5, 1e-12, 0.5)
 
     # --- learning round -------------------------------------------------------------
     # Committee size per round (the reference's TRAIN_SET_SIZE).

@@ -1,6 +1,6 @@
 """Node-mode aggregators: round-scoped accumulators over the port's
 aggregation math (counterpart of ``p2pfl_tpu/learning/aggregators/``).
-``MaskedFedAvg`` waits for the privacy plane."""
+``MaskedFedAvg`` sums the privacy plane's masked lattices."""
 
 from p2pfl_tpu_torch.learning.aggregators.async_buffer import (  # noqa: F401
     AsyncBufferedAggregator,
@@ -10,6 +10,7 @@ from p2pfl_tpu_torch.learning.aggregators.async_buffer import (  # noqa: F401
 from p2pfl_tpu_torch.learning.aggregators.base import Aggregator  # noqa: F401
 from p2pfl_tpu_torch.learning.aggregators.fedavg import CanonicalFedAvg, FedAvg  # noqa: F401
 from p2pfl_tpu_torch.learning.aggregators.fedmedian import FedMedian  # noqa: F401
+from p2pfl_tpu_torch.learning.aggregators.masked import MaskedFedAvg  # noqa: F401
 from p2pfl_tpu_torch.learning.aggregators.robust import (  # noqa: F401
     GeometricMedian,
     Krum,
@@ -20,6 +21,6 @@ from p2pfl_tpu_torch.learning.aggregators.scaffold import Scaffold  # noqa: F401
 
 __all__ = [
     "Aggregator", "AsyncBufferedAggregator", "CanonicalFedAvg", "FedAvg", "FedMedian",
-    "GeometricMedian", "Krum", "MultiKrum", "TrimmedMean", "Scaffold", "staleness_discount",
+    "GeometricMedian", "Krum", "MaskedFedAvg", "MultiKrum", "TrimmedMean", "Scaffold", "staleness_discount",
     "staleness_weight",
 ]

@@ -435,10 +435,22 @@ class TorchLearner(Learner):
         # L2 norm of this fit's update: what the sparse delta wire path ships.
         upd = sum(float(((params[n].float() - anchor[n].float()) ** 2).sum()) for n in params)
         self.report("update_norm", upd**0.5)
+        # Per-node privacy-budget ledger (p2pfl_tpu_torch/privacy/budget.py):
+        # the cumulative epsilon rides the health digest, so the fleet sees
+        # each node's spend — not just the node itself.
+        from p2pfl_tpu_torch.privacy.budget import BUDGETS
+
         if self.dp_clip_norm <= 0.0:
             self._nonprivate_steps += total_steps
+            BUDGETS.record(self._self_addr, clip_norm=0.0, noise_multiplier=0.0, nonprivate_steps=total_steps)
         else:
             self._dp_total_steps += total_steps
+            BUDGETS.record(self._self_addr, clip_norm=self.dp_clip_norm, noise_multiplier=self.dp_noise_multiplier,
+                           dp_steps=total_steps)
+            # Reported as a metric, NOT stamped into model.additional_info:
+            # aggregation merges peers' additional_info into the local model,
+            # so a stamped entry could be overwritten by another node's
+            # (smaller) epsilon — a privacy claim must never travel that way.
             self.report("dp_epsilon", self.privacy_spent()["epsilon"])
         if self._scaffold and total_steps > 0:
             # c_i' = c_i - c + (x - y) / (K lr); the deltas ride additional_info

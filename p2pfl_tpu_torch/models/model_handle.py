@@ -22,6 +22,7 @@ import threading
 import weakref
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
 
+import numpy as np
 import torch
 import torch.nn as nn
 from torch.func import functional_call
@@ -107,10 +108,12 @@ def decode_wire_frame(blob: bytes, device: Optional[DeviceLike] = None) -> tuple
 class ModelHandle:
     """Parameters as a flat ``{name: tensor}`` dict (the module's
     ``named_parameters`` names) plus the module that runs them, and the
-    federation metadata.
+    federation metadata. With no module, a parameters-only handle: a list of
+    leaves kept as given (the privacy plane's lattice vectors, numpy
+    ``uint16`` / ``uint32`` on the host), which runs nothing.
 
     Args:
-        params: the parameters, f32.
+        params: the parameters, f32; with ``module=None`` a list of leaves.
         module: the architecture; :meth:`apply` runs it on any parameter set
             with these names, so one module serves a whole population.
         num_samples: number of samples backing this model's training.
@@ -123,18 +126,21 @@ class ModelHandle:
 
     def __init__(
         self,
-        params: Params,
-        module: nn.Module,
+        params: Union[Params, Sequence[Any]],
+        module: Optional[nn.Module] = None,
         num_samples: int = 1,
         contributors: Optional[List[str]] = None,
         additional_info: Optional[Dict[str, Any]] = None,
     ) -> None:
-        names = {n for n, _ in module.named_parameters()}
-        if set(params) != names:
-            raise ValueError(
-                f"params do not match the module: missing {sorted(names - set(params))}, "
-                f"unexpected {sorted(set(params) - names)}"
-            )
+        if module is None:
+            params = list(params)
+        else:
+            names = {n for n, _ in module.named_parameters()}
+            if set(params) != names:
+                raise ValueError(
+                    f"params do not match the module: missing {sorted(names - set(params))}, "
+                    f"unexpected {sorted(set(params) - names)}"
+                )
         self.params = params
         self.module = module
         self.num_samples = int(num_samples)
@@ -144,20 +150,27 @@ class ModelHandle:
     def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         """Run the module on ``x`` with ``params`` (``apply_fn`` counterpart).
         Thread-safe: calls on one module from several threads take turns."""
+        if self.module is None:
+            raise TypeError("a parameters-only handle has no module to run")
         with _apply_lock(self.module):
             return functional_call(self.module, params, (x,))
 
     @property
     def device(self) -> torch.device:
+        if self.module is None:
+            return next((t.device for t in self.params if isinstance(t, torch.Tensor)), torch.device("cpu"))
         return next(iter(self.params.values())).device if self.params else torch.device("cpu")
 
     # --- parameters -------------------------------------------------------------
 
     def get_parameters(self) -> List[torch.Tensor]:
         """The canonical leaves (the JAX package's ``get_parameters()`` order
-        and layout) as contiguous tensors on the model's device."""
+        and layout) as contiguous tensors on the model's device; a
+        parameters-only handle's leaves as they are."""
         from p2pfl_tpu_torch.models.convert import to_canonical
 
+        if self.module is None:
+            return list(self.params)
         return to_canonical(self.params)
 
     def get_tree(self) -> Params:
@@ -175,6 +188,8 @@ class ModelHandle:
         """
         from p2pfl_tpu_torch.models.convert import canonical_names, flax_to_torch, from_canonical
 
+        if self.module is None:
+            raise TypeError("a parameters-only handle's leaves are set at construction")
         if isinstance(params, (bytes, bytearray, memoryview)):
             leaves, meta = decode_wire_frame(params, self.device)
             self._apply_meta(meta)
@@ -261,6 +276,8 @@ class ModelHandle:
     ) -> "ModelHandle":
         """New handle sharing the module (and, unless ``params`` is given,
         the parameter tensors: nothing in the port updates them in place)."""
+        if self.module is None:
+            raise TypeError("a parameters-only handle is not copied onto new parameters")
         copy = ModelHandle(
             dict(self.params), self.module,
             num_samples=num_samples if num_samples is not None else self.num_samples,
@@ -275,7 +292,8 @@ class ModelHandle:
         return self.framework
 
     def __repr__(self) -> str:
-        n_params = sum(t.numel() for t in self.params.values())
+        leaves = self.params if self.module is None else list(self.params.values())
+        n_params = sum(int(np.prod(tuple(t.shape), dtype=np.int64)) for t in leaves)
         return (
             f"ModelHandle(leaves={len(self.params)}, params={n_params}, "
             f"contributors={len(self.contributors)}, num_samples={self.num_samples})"

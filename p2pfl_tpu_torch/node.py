@@ -13,9 +13,8 @@ simulation of hundreds of nodes prefer
 :mod:`p2pfl_tpu_torch.parallel.simulation`, which runs the whole population
 as one batched round instead of per-node threads.
 
-The port's copy of ``p2pfl_tpu/node.py``. Not ported yet: secure
-aggregation (``PRIVACY_SECAGG``, queue A item 10) and the write-ahead
-journal behind :meth:`Node.resume` (item 11); both raise
+The port's copy of ``p2pfl_tpu/node.py``. Not ported yet: the write-ahead
+journal behind :meth:`Node.resume` (queue A item 11), which raises
 ``NotImplementedError``.
 """
 
@@ -45,7 +44,6 @@ from p2pfl_tpu_torch.comm.commands.impl import (
     StartLearningCommand,
     StopLearningCommand,
     VoteTrainSetCommand,
-    secagg_not_ported,
 )
 from p2pfl_tpu_torch.comm.memory.memory_protocol import InMemoryCommunicationProtocol
 from p2pfl_tpu_torch.comm.protocol import CommunicationProtocol
@@ -97,12 +95,27 @@ class Node:
         device: DeviceLike = "cuda",
         **learner_kwargs,
     ) -> None:
-        if Settings.PRIVACY_SECAGG:
-            raise secagg_not_ported()
         self.protocol = protocol(addr)
         self.state = NodeState(self.protocol.get_address(), device=device)
         if aggregator is None:
-            aggregator = FedAvg()
+            if Settings.PRIVACY_SECAGG:
+                from p2pfl_tpu_torch.learning.aggregators import MaskedFedAvg
+
+                aggregator = MaskedFedAvg()
+            else:
+                aggregator = FedAvg()
+        elif Settings.PRIVACY_SECAGG and not aggregator.partial_aggregation:
+            # The admission-vs-secrecy tension, resolved the DisAgg/Papaya
+            # way: robust rules (Krum, TrimmedMean, ...) need INDIVIDUAL
+            # updates, and secure aggregation exists to hide exactly those.
+            # Clipping-at-sender + the committee-side range check replace
+            # them on masked rounds — a non-linear rule here would silently
+            # score uniform ring noise.
+            raise ValueError(
+                "PRIVACY_SECAGG requires a linear (partial-aggregation) "
+                f"rule; {type(aggregator).__name__} inspects individual "
+                "updates, which masked frames hide by design"
+            )
         self.aggregator = aggregator
         self.aggregator.set_addr(self.addr)
         required = self.aggregator.get_required_callbacks()
@@ -183,8 +196,8 @@ class Node:
                 # progress exchange + dense catch-up adoption.
                 ReconcileCommand(self),
                 ReconcileModelCommand(self),
-                # Privacy plane frames from masked peers: recorded and
-                # dropped until the plane is ported (queue A item 10).
+                # Privacy plane (p2pfl_tpu_torch/privacy/): pairwise-mask key
+                # agreement + masker-dropout repair shares.
                 PrivacyKeyCommand(self),
                 PrivacyRepairCommand(self),
             ]
@@ -607,6 +620,48 @@ class Node:
             # Rebind (don't mutate): stages iterate the current binding.
             state.train_set = [n for n in state.train_set if n != addr]
         shrunk = self.aggregator.remove_node(addr)
+        if shrunk and Settings.PRIVACY_SECAGG and state.round is not None:
+            # Masker dropout: the dead committee member's pairwise mask
+            # shares are now uncancelled in every aggregator's lattice sum.
+            # Reveal OUR round-scoped pair secret with it (privacy_repair
+            # broadcast) so finalize can subtract our share; every other
+            # survivor does the same for theirs. shrunk=True means its
+            # contribution never entered OUR sum — but death detection is
+            # local, not fleet-consistent: under a partition or heartbeat
+            # flap another peer may already hold the "dead" node's masked
+            # frame, and whoever holds both that frame and every survivor's
+            # reveal can unmask the individual update (the false-dropout
+            # attack). So reveal only when no other peer's coverage report
+            # for this round lists the peer as merged; the residual wire-
+            # observer exposure stays (the JAX package's privacy doc states it).
+            held = any(
+                addr in (merged or ())
+                for peer, merged in list(state.models_aggregated.items())
+                if peer != addr
+            )
+            if held:
+                logger.warning(
+                    self.addr,
+                    f"masker {addr} died mid-round {state.round} but a peer "
+                    "already merged its frame — withholding the mask-repair "
+                    "reveal (round may fall back to plaintext)",
+                )
+            else:
+                secret = state.privacy.repair_secrets_for(addr, state.round)
+                if secret is not None:
+                    self.protocol.broadcast(
+                        self.protocol.build_msg(
+                            PrivacyRepairCommand.get_name(),
+                            args=[addr, secret],
+                            round=state.round,
+                        )
+                    )
+                    logger.warning(
+                        self.addr,
+                        f"masker {addr} died mid-round {state.round}: "
+                        "revealed our round-scoped pair secret for mask "
+                        "repair",
+                    )
         state.models_aggregated.pop(addr, None)
         # The retired coverage table too: an overlap drain must stop trying
         # to serve a dead laggard (its candidate filter reads this).

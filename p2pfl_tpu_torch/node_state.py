@@ -11,8 +11,8 @@ Design departure from the reference: the reference coordinates with raw
 Events are idempotent and state their intent; the aggregation handoff is an
 Event in the reference too (``aggregated_model_event``).
 
-The port's copy of ``p2pfl_tpu/node_state.py``, without the privacy plane
-(queue A item 10): the delta codec decodes on the node's device.
+The port's copy of ``p2pfl_tpu/node_state.py``: the delta codec decodes,
+and the privacy plane runs its full-size passes, on the node's device.
 """
 
 from __future__ import annotations
@@ -51,6 +51,7 @@ class NodeState:
     def __init__(self, addr: str, device: DeviceLike = "cuda") -> None:
         from p2pfl_tpu_torch.comm.admission import AdmissionController
         from p2pfl_tpu_torch.comm.delta import DeltaWireCodec
+        from p2pfl_tpu_torch.privacy.secagg import PrivacyPlane
 
         self.addr = addr
         self.device = device
@@ -63,6 +64,12 @@ class NodeState:
         # (structure/dtype/NaN/norm-bound, comm/admission.py) between
         # decode_frame and aggregator.add_model / apply_frame.
         self.admission = AdmissionController(addr)
+        # Privacy plane (p2pfl_tpu_torch/privacy/): session DH keypair,
+        # pairwise mask state, EF residual of the masked lattice codec, repair
+        # shares. Active only under Settings.PRIVACY_SECAGG, but the key
+        # material exists unconditionally so handshakes from masked peers
+        # always have something to answer with.
+        self.privacy = PrivacyPlane(addr, device=device)
         # Federation-wide trace id of the running experiment: minted by the
         # initiator, adopted by peers from the start_learning frame's span
         # context (telemetry/tracing.py). None -> the workflow opens a

@@ -5,9 +5,8 @@ Round trip (reference docs/source/components/workflows.md:12-24 and SURVEY.md
 RoundFinished] * rounds. Stage names match the reference's history pattern so
 the e2e assertions are comparable (test/node_test.py:114-120).
 
-The port's copy of ``p2pfl_tpu/stages/base_node.py``, without masked rounds
-(the privacy plane, queue A item 10: ``PRIVACY_SECAGG`` raises
-``NotImplementedError``). Ledger hashes are taken over the canonical leaves.
+The port's copy of ``p2pfl_tpu/stages/base_node.py``. Ledger hashes are
+taken over the canonical leaves.
 """
 
 from __future__ import annotations
@@ -27,7 +26,6 @@ from p2pfl_tpu_torch.comm.commands.impl import (
     ModelsReadyCommand,
     PartialModelCommand,
     VoteTrainSetCommand,
-    secagg_not_ported,
 )
 from p2pfl_tpu_torch.comm.envelope import Envelope
 from p2pfl_tpu_torch.config import Settings
@@ -74,10 +72,36 @@ def establish_initial_model(node: "Node") -> bool:
     # (reference start_learning_stage.py:78-84).
     time.sleep(Settings.WAIT_HEARTBEATS_CONVERGENCE)
 
-    # Privacy plane (queue A item 10, not ported): its key exchange would run
-    # here, before the first committee is elected.
+    # Privacy plane: exchange session public keys BEFORE the first committee
+    # is elected — a masked round needs a pair secret with every committee
+    # member, and a missing key at encode time degrades that sender to a
+    # plaintext (unmaskable) contribution. Bounded wait; the PrivacyKey
+    # handler answers first-seen keys directly, so one broadcast converges.
     if Settings.PRIVACY_SECAGG:
-        raise secagg_not_ported()
+        from p2pfl_tpu_torch.comm.commands.impl import PrivacyKeyCommand
+
+        node.protocol.broadcast(
+            node.protocol.build_msg(
+                PrivacyKeyCommand.get_name(),
+                args=[state.privacy.key_payload()],
+            )
+        )
+        key_deadline = time.time() + Settings.PRIVACY_KEY_WAIT_S
+        while True:
+            missing = state.privacy.missing_keys(
+                node.protocol.get_neighbors(only_direct=False)
+            )
+            if not missing or time.time() >= key_deadline:
+                break
+            if check_early_stop(node):
+                return False
+            time.sleep(0.2)
+        if missing:
+            log.warning(
+                "%s: privacy keys still missing from %s after %.1fs — "
+                "masked rounds with them fall back to plaintext",
+                node.addr, missing, Settings.PRIVACY_KEY_WAIT_S,
+            )
 
     # Diffuse initial weights to direct neighbors that haven't announced
     # an initialized model yet (reference :86-113).
@@ -370,10 +394,19 @@ class TrainStage(Stage):
             contributors=live.contributors or [node.addr],
             num_samples=live.get_num_samples(),
         )
-        # Masked rounds (the privacy plane) are not ported: queue A item 10.
+        # Privacy plane: on masked rounds the aggregator's table holds
+        # LATTICE frames, so our own contribution enters masked too (the
+        # plaintext `own` copy stays local — it is the fallback when the
+        # masked aggregate cannot be finalized). The committee is captured
+        # HERE, pre-death-shrink: finalize must reason about the set the
+        # masks were generated against, not the set that survived.
+        committee = sorted(set(state.train_set))
+        contribution = own
         if Settings.PRIVACY_SECAGG:
-            raise secagg_not_ported()
-        agg_list = node.aggregator.add_model(own)
+            contribution = TrainStage._mask_contribution(
+                node, own, state.round or 0, committee
+            )
+        agg_list = node.aggregator.add_model(contribution)
         node.protocol.broadcast(
             node.protocol.build_msg(
                 ModelsAggregatedCommand.get_name(), args=agg_list, round=state.round or 0
@@ -411,6 +444,13 @@ class TrainStage(Stage):
         except RuntimeError:
             log.warning("%s: aggregation produced nothing this round", node.addr)
             aggregated = own
+        # Masked round: the merged handle is still in the lattice domain —
+        # unmask it (repairing dead maskers' shares from the revealed pair
+        # secrets) into model-shaped parameters. A round that cannot be
+        # finalized (unrepaired pair, range-check trip) falls back to the
+        # plaintext own model: the federation loses one round of averaging,
+        # never its correctness.
+        aggregated = TrainStage._finalize_masked(node, aggregated, own, committee)
         node.learner.get_model().set_parameters(aggregated.params)
         node.learner.get_model().set_contribution(
             aggregated.contributors, aggregated.get_num_samples()
@@ -442,6 +482,67 @@ class TrainStage(Stage):
             node.protocol.build_msg(ModelsReadyCommand.get_name(), round=state.round or 0)
         )
         return GossipModelStage
+
+    @staticmethod
+    def _mask_contribution(node: "Node", own, r: int, committee: List[str]):
+        """Masked lattice handle of ``own`` for round ``r`` — or ``own``
+        itself (plaintext, warned) when masking is impossible: no round
+        anchor, a committee member's pubkey missing, or a committee too
+        large for the ring. A plaintext contribution in a masked round is
+        dropped by peers' masked merges, so this node just reads as a
+        missing contributor there — degraded, never corrupting."""
+        state = node.state
+        anchor = state.wire.anchor_model()
+        if anchor is None or anchor[1] != r:
+            log.warning(
+                "%s: no round-%s anchor — contributing plaintext to the "
+                "masked round", node.addr, r,
+            )
+            return own
+        try:
+            return state.privacy.mask_own(own, anchor[0], r, committee)
+        except ValueError as exc:
+            log.warning(
+                "%s: cannot mask round %s (%s) — contributing plaintext",
+                node.addr, r, exc,
+            )
+            return own
+
+    @staticmethod
+    def _finalize_masked(node: "Node", aggregated, own, committee: List[str]):
+        """Unmask a lattice-domain aggregate into a model-shaped handle
+        (identity for plaintext aggregates)."""
+        from p2pfl_tpu_torch.privacy.secagg import masked_info
+
+        if masked_info(aggregated) is None:
+            return aggregated
+        state = node.state
+        anchor = state.wire.anchor_model()
+        if anchor is None:
+            log.warning(
+                "%s: masked aggregate with no anchor — falling back to the "
+                "local model", node.addr,
+            )
+            return own
+        # anchor[1] is the anchor's round: finalize refuses (counted as a
+        # structure outcome) when it disagrees with the aggregate's declared
+        # round — mask_own checks this at encode time, and a stale or
+        # advanced anchor at finalize would scatter the committee mean onto
+        # the wrong base silently.
+        params, outcome = state.privacy.finalize(
+            aggregated, committee, anchor[0], anchor_round=anchor[1]
+        )
+        if params is None:
+            log.warning(
+                "%s: masked round %s not finalizable (%s) — falling back to "
+                "the local model", node.addr, state.round, outcome,
+            )
+            return own
+        return own.build_copy(
+            params=params,
+            contributors=sorted(aggregated.contributors),
+            num_samples=aggregated.get_num_samples(),
+        )
 
     @staticmethod
     def _evaluate_and_broadcast(node: "Node") -> None:
@@ -514,6 +615,20 @@ class TrainStage(Stage):
                     sent_state[nei] = (skipped + 1, prev)
                     return None
                 sent_state[nei] = (0, key)
+            # Masked lattice partials (privacy plane) have their own wire
+            # codec: lattice planes only, zero index bytes (the support is
+            # derived from public round state on both ends).
+            from p2pfl_tpu_torch.privacy.secagg import PrivacyPlane, masked_info
+
+            if masked_info(partial) is not None:
+                return node.protocol.build_weights(
+                    PartialModelCommand.get_name(),
+                    r,
+                    PrivacyPlane.encode_frame(partial, tracing.current_wire()),
+                    partial.contributors,
+                    partial.get_num_samples(),
+                    codec="masked",
+                )
             # Sparse delta wire path (WIRE_COMPRESSION="topk"): trainset
             # peers share this round's anchor, so partials ship as
             # error-feedback top-k deltas (int8/int4-quantized values and a

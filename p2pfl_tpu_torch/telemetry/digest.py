@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 import time
 from dataclasses import asdict, dataclass, field
 from typing import Any, Dict, Optional
@@ -258,17 +259,23 @@ def _gauge_value_opt(name: str, node: str) -> Optional[float]:
 
 
 def device_mem_bytes() -> float:
-    """Accelerator memory in use, best effort: backend memory stats when the
-    platform exposes them (``torch.cuda.memory_stats`` on a card), else the
-    sum of live tensor buffers (process-wide — in-process federations share
-    one device). The live-tensor sweep is O(live objects), so it is
-    TTL-cached (``Settings.DEVOBS_MEM_TTL_S``) behind the profiler's
-    watermark helper instead of paid on every digest beat. 0.0 when the
-    backend reports nothing."""
+    """Accelerator memory in use, best effort: the CUDA caching allocator's
+    in-use bytes once the process has used a card; on the CPU, where the
+    tensors live in host memory, the process's resident bytes
+    (``/proc/self/statm``). Process-wide either way (in-process federations
+    share one device). The digest never takes the live-tensor sweep behind
+    :func:`~p2pfl_tpu_torch.management.profiler.device_memory_watermark`:
+    the sweep walks every Python object, and on the heartbeat's thread
+    (every beat carries a digest) it held beats back past
+    ``HEARTBEAT_TIMEOUT`` under CPU load, so live peers were written off.
+    0.0 when nothing can be read."""
     try:
-        from p2pfl_tpu_torch.management.profiler import device_memory_watermark
+        import torch
 
-        return float(device_memory_watermark().get("bytes_in_use", 0.0))
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            return float(torch.cuda.memory_stats().get("allocated_bytes.all.current", 0) or 0)
+        with open("/proc/self/statm") as f:
+            return float(int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE"))
     except Exception:  # noqa: BLE001 — digest collection must never raise
         return 0.0
 

@@ -1,9 +1,10 @@
 """The port's wire ``Node`` (``p2pfl_tpu_torch/node.py`` and its stages) on
 the CPU: the in-memory cases of the JAX package's ``test_node_e2e.py`` and
 the two Node cases of ``test_chaos.py`` run against port Nodes (MLPs, every
-node on ``device="cpu"``), then the guards of the planes the port does not
-have yet (secure aggregation, the write-ahead journal), and the Node's
-settings against the JAX package's. The e2e cases the JAX package marks
+node on ``device="cpu"``), then the guard of the plane the port does not
+have yet (the write-ahead journal), and the Node's settings against the JAX
+package's. The privacy plane's Node cases are in
+``test_torch_privacy_nodes.py``. The e2e cases the JAX package marks
 ``slow`` keep the mark: several nodes' heartbeats at 0.25 s beside the
 other test workers flap under load (a peer starved for seconds is
 declared dead mid-round).
@@ -349,14 +350,7 @@ def test_dense_full_model_resyncs_round_anchor():
             node.state.wire.decode_frame(sender_codec.encode_model(perturbed, 7))
 
 
-# --- the planes the port does not have yet ----------------------------------------------
-
-
-def test_secagg_raises_not_implemented_naming_the_privacy_plane():
-    parts = synthetic_mnist(n_train=64, n_test=32).generate_partitions(1, RandomIIDPartitionStrategy)
-    with Settings.overridden(PRIVACY_SECAGG=True):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            Node(mlp_model(seed=0, device="cpu"), parts[0], device="cpu")
+# --- the plane the port does not have yet -----------------------------------------------
 
 
 def test_resume_raises_not_implemented_naming_the_journal():
@@ -367,19 +361,6 @@ def test_resume_raises_not_implemented_naming_the_journal():
     node.journal_now()  # no journal attached: a no-op, as in the JAX package
     with pytest.raises(ValueError, match="Node.resume"):
         node.resume_learning()
-
-
-def test_privacy_frames_recorded_and_dropped():
-    """A masked peer's ``privacy_key`` and ``privacy_repair`` frames land in
-    the flight recorder and change nothing (no key is sent back)."""
-    from p2pfl_tpu_torch.comm.commands.impl import PrivacyKeyCommand, PrivacyRepairCommand
-
-    parts = synthetic_mnist(n_train=64, n_test=32).generate_partitions(1, RandomIIDPartitionStrategy)
-    node = Node(mlp_model(seed=0, device="cpu"), parts[0], device="cpu", executor=False)
-    PrivacyKeyCommand(node).execute("peer", 0, "ab" * 32)
-    PrivacyRepairCommand(node).execute("peer", 3, "dead", "cd" * 32)
-    kinds = [e["kind"] for e in node.protocol.flight_recorder.events()]
-    assert "privacy_key_dropped" in kinds and "privacy_repair_dropped" in kinds
 
 
 # --- the Node's settings against the JAX package's ---------------------------------------

@@ -7,7 +7,11 @@ and a mixed federation, two port Nodes and two JAX-package Nodes in one
 in-memory registry, training two MLP rounds together.
 
 The port's settings, registry, chaos plane and run context get
-``test_torch_comm.port_transport``'s fast timings and clean slate.
+``test_torch_comm.port_transport``'s fast timings and clean slate. Every
+federation test keeps each node's flight recorder and ledger under its
+``tmp_path`` and, when it fails, prints each node's stage, round and
+neighbors with both packages' heartbeat inter-arrival gauges
+(:func:`postmortem`).
 """
 
 import subprocess
@@ -34,6 +38,55 @@ from test_torch_parity import _F32Scenario
 SCENARIO = dict(seed=77, n_nodes=2, rounds=2, samples_per_node=32, batch_size=16, hidden=(16,))
 
 
+@pytest.fixture
+def postmortem(monkeypatch, tmp_path):
+    """A federation's postmortem: every port and JAX-package Node that stops
+    dumps its flight recorder into ``tmp_path`` and leaves a snapshot of its
+    stage, round and neighbors. Returns ``report(nodes=())``, the text a
+    failed assertion prints: those snapshots (``nodes`` are snapshotted live
+    first), both packages' heartbeat inter-arrival gauges and missed-beat
+    counters, and where the ledgers (dumped too) and recorders lie."""
+    from p2pfl_tpu.node import Node as RefNode
+    from p2pfl_tpu.telemetry import REGISTRY as REF_REGISTRY
+    from p2pfl_tpu.telemetry.ledger import LEDGERS as REF_LEDGERS
+    from p2pfl_tpu_torch.node import Node
+    from p2pfl_tpu_torch.telemetry import REGISTRY
+
+    seen = {}
+
+    def snapshot(node, when):
+        try:
+            seen[node.addr] = (f"{when}: stage {node.state.current_stage!r} round {node.state.round} "
+                               f"neighbors {sorted(node.get_neighbors())}")
+            node.protocol.flight_recorder.dump(when, str(tmp_path))
+        except Exception as exc:  # noqa: BLE001 — a postmortem must not raise
+            seen[node.addr] = f"{when}: unreadable ({exc!r})"
+
+    for cls in (Node, RefNode):
+        def recording_stop(node, _stop=cls.stop):
+            if node.addr not in seen:
+                snapshot(node, "stop")
+            _stop(node)
+
+        monkeypatch.setattr(cls, "stop", recording_stop)
+
+    def report(nodes=()):
+        for node in nodes:
+            snapshot(node, "failure")
+        for hub in (LEDGERS, REF_LEDGERS):
+            hub.dump_all(str(tmp_path))
+        lines = [f"flight recorders and ledgers under {tmp_path}"]
+        lines += [f"{addr}: {snap}" for addr, snap in sorted(seen.items())]
+        for pkg, reg in (("port", REGISTRY), ("jax", REF_REGISTRY)):
+            for fam_name in ("p2pfl_heartbeat_interarrival_seconds", "p2pfl_heartbeat_missed_total"):
+                fam = reg.get(fam_name)
+                for lbl, child in (fam.samples() if fam is not None else []):
+                    lines.append(f"{pkg} {fam_name} {lbl.get('node')} <- {lbl.get('peer')}: {child.value:.3f}")
+        return "\n".join(lines)
+
+    return report
+
+
 def _trajectory(events):
     """The trajectory events (committees, folds, commits, closes) without
     their sequence numbers and hashes; membership and fault events follow
@@ -43,14 +96,15 @@ def _trajectory(events):
 
 
 @pytest.mark.parametrize("straggler", [{}, {1: 0.4}], ids=["clean", "straggler"])
-def test_port_run_wire_and_run_fused_bit_equal_and_parity_diff_passes(straggler, tmp_path):
+def test_port_run_wire_and_run_fused_bit_equal_and_parity_diff_passes(straggler, tmp_path, postmortem):
     scn = ParityScenario(straggler=straggler, **SCENARIO)
     wire = run_wire(scn, ledger_dir=str(tmp_path), device="cpu")
+    report = postmortem()
     LEDGERS.reset()
     fused = run_fused(scn, ledger_dir=str(tmp_path), device="cpu")
     assert sorted(fused["hashes"]) == list(range(scn.rounds))
     for name in scn.node_names:
-        assert wire["hashes"][name] == fused["hashes"], name
+        assert wire["hashes"][name] == fused["hashes"], f"{name}\n{report}"
     for a, b in zip(wire["params"][scn.node_names[0]], fused["params"]):
         np.testing.assert_array_equal(a, b)
     for name in scn.node_names:
@@ -59,7 +113,7 @@ def test_port_run_wire_and_run_fused_bit_equal_and_parity_diff_passes(straggler,
         assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
 
 
-def test_port_run_wire_matches_jax_run_wire(monkeypatch):
+def test_port_run_wire_matches_jax_run_wire(monkeypatch, postmortem):
     """The same f32 scenario, with a signflip node, on port Nodes and on
     JAX-package Nodes: every node's trajectory events (committees, folds
     with their senders and sample counts, commits with their contributors)
@@ -82,15 +136,16 @@ def test_port_run_wire_matches_jax_run_wire(monkeypatch):
     got = run_wire(_F32Scenario(**kw), device="cpu")
     names = ParityScenario(**kw).node_names
     assert set(got["events"]) == set(ref["events"]) == set(names)
+    report = postmortem()
     for name in names:
-        assert _trajectory(got["events"][name]) == _trajectory(ref["events"][name]), name
+        assert _trajectory(got["events"][name]) == _trajectory(ref["events"][name]), f"{name}\n{report}"
         assert _trajectory(got["events"][name])
         assert len(got["params"][name]) == len(final[name])
         for a, b in zip(got["params"][name], final[name]):
             np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
 
 
-def test_mixed_federation_of_port_and_jax_nodes_trains_two_rounds(monkeypatch):
+def test_mixed_federation_of_port_and_jax_nodes_trains_two_rounds(monkeypatch, postmortem):
     """Two port Nodes and two JAX-package Nodes, fully connected on one
     in-memory wire (the port's registry pointed at the reference's; explicit
     addresses), f32 MLPs from one seed, FedAvg in its canonical order on
@@ -142,11 +197,10 @@ def test_mixed_federation_of_port_and_jax_nodes_trains_two_rounds(monkeypatch):
             for nd in nodes[1:]:
                 nd.connect(nodes[0].addr)
             assert _wait(lambda: all(len(nd.get_neighbors()) == 3 for nd in nodes), timeout=15.0), \
-                {nd.addr: nd.get_neighbors() for nd in nodes}
+                postmortem(nodes)
             nodes[0].set_start_learning(rounds=2, epochs=1)
             assert _wait(lambda: all(not nd.learning_in_progress() and nd.learning_workflow is not None
-                                     for nd in nodes), timeout=120.0), \
-                {nd.addr: nd.state.current_stage for nd in nodes}
+                                     for nd in nodes), timeout=120.0), postmortem(nodes)
             for nd in nodes:
                 assert nd.learning_workflow.history.count("RoundFinishedStage") == 2, nd.learning_workflow.history
             leaves = [[np.asarray(p.detach().cpu() if isinstance(p, torch.Tensor) else p)
@@ -164,8 +218,26 @@ def test_mixed_federation_of_port_and_jax_nodes_trains_two_rounds(monkeypatch):
             seen = [trajectory(LEDGERS if "port" in a else REF_LEDGERS, a) for a in addrs]
             assert seen[0][0] == [(0, tuple(sorted(addrs))), (1, tuple(sorted(addrs)))]
             assert [r for r, *_ in seen[0][1]] == [0, 1]
-            assert all(s == seen[0] for s in seen), seen
+            assert all(s == seen[0] for s in seen), f"{seen}\n{postmortem()}"
         finally:
             for nd in nodes:
                 nd.stop()
             RefRegistry.reset()
+
+
+def test_heartbeat_digest_reads_memory_without_a_heap_sweep(monkeypatch):
+    """Every beat carries a health digest built on the heartbeat's thread. Its
+    memory reading must not walk the garbage collector's objects (the
+    live-tensor sweep): under the test workers' load that walk held port
+    beats back past ``HEARTBEAT_TIMEOUT`` and live peers were written off
+    mid-round, which broke the wire parity runs and stalled the mixed
+    federation above."""
+    import gc
+
+    from p2pfl_tpu_torch.telemetry import digest
+
+    sweeps = []
+    get_objects = gc.get_objects
+    monkeypatch.setattr(gc, "get_objects", lambda *a, **kw: sweeps.append(1) or get_objects(*a, **kw))
+    dig = digest.collect("mem://beat-probe")
+    assert sweeps == [] and dig.mem_bytes > 0
