@@ -193,6 +193,29 @@ Phases, each on its own printed lines:
    phase), rows 1-4 launched as in phase 12b in both runs; s/round, frame
    bytes a round, a masked frame's bytes beside the dense frame's,
    ``mask_own`` / ``finalize`` ms, peak memory.
+12d. recovery: checkpoint and recovery on the card. A: phase 3's LM,
+   data and seed; a control runs 4 rounds; a victim runs 2 under
+   ``run(checkpointer=, checkpoint_every=1)`` (``FLCheckpointer``,
+   ``max_to_keep=2``) and is dropped; a bare step ``9`` and a marker-only
+   ``7`` are planted; a simulation built with another seed ``load_from`` s
+   (-> 2, the seed adopted) and runs 2: committees, test losses and all 8
+   nodes' parameters bit-identical to the control's, rows 1-4 launched
+   exactly per-round counts x 8 rounds; the save's host copy and write
+   apart, ``load_from`` ms, bytes a step, s/round. B: one LM Node under
+   top-k with an anchor and residuals journaled and brought back by
+   ``Node.resume(..., device="cuda")``: params, anchor, residuals,
+   ``anchor_crc`` and privacy keys bit-exact. C: phase 12b's three LM Nodes
+   with journals, 3 rounds; node 2 crashes once journaled and comes back
+   as itself (``Node.resume``, ``start``, ``resume_learning``): its history
+   starts with ``ResumeStage`` and trains; every node finishes; the loss
+   falls; the final parameters bit-equal, or each node's the last
+   aggregate its own ledger committed (see ``recovery_crash``).
+12e. population: ``PopulationEngine`` at ``bench.py --population``'s
+   acceptance shape (100,000 virtual nodes, cohort 0.01, 10 rounds, speed
+   tiers, ledger attached): mean fill x n == K, ``cohort_fill`` in the
+   snapshot, host times of the schedules, ``fleet_health`` and the
+   snapshot; then its recovery arm (n 256, killed after 3 of 6 rounds):
+   node 0's hash, accuracy and cohort fill equal to the control's.
 13. parity: a ``ParityScenario`` (8 MLP nodes, full committee, 3 rounds, one
    signflip node) through the wire's model plane (``run_frames``), real port
    Nodes over the in-memory transport (``run_wire``) and the fused round
@@ -2850,6 +2873,473 @@ def phase_secagg(card: str) -> None:
           f"outcome ok everywhere")
 
 
+# The recovery phase (phase 12d): slice 1's LM, data and seed resumed from a
+# checkpoint; a journaled LM Node; phase 12b's federation with a crash.
+RECOVERY_ROUNDS, RECOVERY_KILL = 4, 2  # the control's rounds; the victim's before its save
+RECOVERY_NODE_ROUNDS = 3
+RECOVERY_AGG_TIMEOUT_S, RECOVERY_STALL_S = 60.0, 15.0
+
+
+def dir_bytes(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path) for f in files)
+
+
+def recovery_resume(card: str, root: str) -> None:
+    """Phase 12d part A: a control ``MeshSimulation`` (phase 3's LM, data and
+    seed) runs ``RECOVERY_ROUNDS`` rounds; a victim of the same spec runs
+    ``RECOVERY_KILL`` rounds under ``run(checkpointer=, checkpoint_every=1)``
+    (an ``FLCheckpointer`` with ``max_to_keep=2``) and is dropped (its save is
+    also timed apart, host copy and write, into a directory removed after); a bare step
+    directory ``9`` and a marker-only ``7`` are planted; a third simulation
+    built with another seed ``load_from`` s the checkpoint and runs the rest.
+    Checks: the seed adopted, the committees and test losses equal to the
+    control's, all 8 nodes' parameters bit-identical to the control's, rows
+    1-4 launched exactly per-round counts x rounds run."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.management.checkpoint import FLCheckpointer
+    from p2pfl_tpu_torch.models.transformer import transformer_lm_model
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.parallel.simulation import MeshSimulation
+    from p2pfl_tpu_torch.telemetry.ledger import canonical_params_hash
+
+    model = transformer_lm_model(seed=0, vocab_size=VOCAB, num_layers=LAYERS, num_heads=HEADS, embed_dim=EMBED,
+                                 attention_kind="flash", device="cuda")
+    train, xt = lm_data(5)
+
+    def make(seed: int = 1):
+        return MeshSimulation(model, train, test_data=(xt, None), train_set_size=COMMITTEE, batch_size=BATCH, lr=LR,
+                              seed=seed, task="lm", device="cuda")
+
+    def node_hashes(sim) -> list:
+        return [canonical_params_hash({k: v[i] for k, v in sim.params_stack.items()}) for i in range(NODES)]
+
+    _kernels.reset_launches()
+    control = make()
+    ref = control.run(rounds=RECOVERY_ROUNDS, warmup=False)
+    want = node_hashes(control)
+    control.close()
+    del control
+    gc.collect()
+
+    ck_dir = os.path.join(root, "sim")
+    ck = FLCheckpointer(ck_dir, max_to_keep=2)
+    victim = make()
+    part1 = victim.run(rounds=RECOVERY_KILL, warmup=False, checkpointer=ck, checkpoint_every=1)
+    ck.wait()
+    steps = ck.all_steps()
+    step_bytes = dir_bytes(os.path.join(ck_dir, str(steps[-1])))
+    # The save alone, timed apart: the host copy (save_to returns once every
+    # leaf is on the host) and the write (wait joins the writer thread).
+    times = []
+    with FLCheckpointer(os.path.join(root, "timing"), max_to_keep=1) as tck:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            victim.save_to(tck)
+            t1 = time.monotonic()
+            tck.wait()
+            times.append((t1 - t0, time.monotonic() - t1))
+    shutil.rmtree(os.path.join(root, "timing"))
+    victim.close()
+    del victim
+    ck.close()
+    gc.collect()
+
+    os.makedirs(os.path.join(ck_dir, "9"))  # a crash before the commit marker
+    os.makedirs(os.path.join(ck_dir, "7"))  # a marker whose payload never landed
+    open(os.path.join(ck_dir, "7", "_CHECKPOINT_METADATA"), "w").close()
+    healed = make(seed=12345)
+    t0 = time.monotonic()
+    restored = healed.load_from(FLCheckpointer(ck_dir, max_to_keep=2))
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    check(restored == RECOVERY_KILL, f"recovery: load_from restored {restored} rounds, expected {RECOVERY_KILL}")
+    check(healed.seed == 1, f"recovery: the checkpoint's seed was not adopted ({healed.seed})")
+    part2 = healed.run(rounds=RECOVERY_ROUNDS - RECOVERY_KILL, warmup=False)
+    got = node_hashes(healed)
+    launches = dict(_kernels.LAUNCHES)
+    healed.close()
+    del healed
+    gc.collect()
+
+    committees = np.concatenate([part1.committees, part2.committees])
+    print(f"[recovery] committees: control {ref.committees.tolist()}, victim + resumed {committees.tolist()}")
+    check(np.array_equal(committees, ref.committees), "recovery: the resumed committees differ from the control's")
+    losses = part1.test_loss + part2.test_loss
+    print(f"[recovery] test loss: control {ref.test_loss}, victim + resumed {losses}")
+    check(losses == ref.test_loss, "recovery: the resumed test losses differ from the control's")
+    check(got == want, f"recovery: the resumed params differ from the control's: {got} vs {want}")
+    print(f"[recovery] all {NODES} nodes' params after {RECOVERY_ROUNDS} rounds bit-identical to the control's "
+          f"({want[0]}); steps on disk {steps}, torn 9 / 7 skipped, the seed adopted")
+    ran = RECOVERY_ROUNDS * 2
+    for name, (_, per_round, _) in KERNEL_ROWS.items():
+        check(launches.get(name) == per_round * ran,
+              f"recovery: {name}: {launches.get(name)} launches, expected {per_round} per round x {ran}")
+    print(f"[recovery] kernels {json.dumps(launches)} ({ran} rounds: control {RECOVERY_ROUNDS}, victim "
+          f"{RECOVERY_KILL}, resumed {RECOVERY_ROUNDS - RECOVERY_KILL})")
+    n_state = sum(v.numel() for v in model.params.values()) * NODES * 3
+    print(f"[recovery] a step {step_bytes} bytes ({step_bytes / 2**30:.3f} GiB: {NODES} nodes x params + Adam mu / "
+          f"nu, {n_state} f32); save: host copy {', '.join(f'{c * 1e3:.1f}' for c, _ in times)} ms, write (wait) "
+          f"{', '.join(f'{w * 1e3:.1f}' for _, w in times)} ms; load_from {load_s * 1e3:.1f} ms [{card}]")
+    print(f"[recovery] s/round: control {ref.seconds_per_round:.4f}, victim with a save every round "
+          f"{part1.seconds_per_round:.4f}, resumed {part2.seconds_per_round:.4f} (host clock) [{card}]")
+
+
+def recovery_journal(card: str, root: str) -> None:
+    """Phase 12d part B: one port Node of the full-width LM on the card under
+    ``WIRE_COMPRESSION="topk"`` with an anchor and error-feedback residuals
+    (one perturbed model encoded), journaled and brought back by
+    ``Node.resume(..., device="cuda")``: params, anchor, residuals,
+    ``anchor_crc`` and the privacy keys bit-exact, the params on the card."""
+    import os
+
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.config import Settings
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.management.checkpoint import NodeJournal
+    from p2pfl_tpu_torch.models.transformer import transformer_lm_model
+    from p2pfl_tpu_torch.node import Node
+
+    (x, y, _), xt = lm_data(20)
+    data = FederatedDataset.from_arrays(x[0], y[0], xt, np.zeros(len(xt), np.int32))
+
+    def lm(seed: int):
+        return transformer_lm_model(seed=seed, vocab_size=VOCAB, num_layers=LAYERS, num_heads=HEADS,
+                                    embed_dim=EMBED, attention_kind="flash", device="cuda")
+
+    kw = dict(lr=LR, batch_size=BATCH, seed=0, task="lm", device="cuda", executor=False)
+    snap = Settings.snapshot()
+    try:
+        Settings.RESOURCE_MONITOR_PERIOD = 0
+        Settings.LOG_LEVEL = "WARNING"
+        node = Node(lm(0), data, addr="mem://recovery-journal", **kw)
+        node.state.set_experiment("journal", 5)
+        node.state.experiment.round = 2
+        with Settings.overridden(WIRE_COMPRESSION="topk"):
+            model = node.learner.get_model()
+            node.state.wire.set_anchor(model.get_parameters(), 2)
+            moved = model.build_copy(params=[p + 0.01 for p in model.get_parameters()])
+            check(node.state.wire.encode_model(moved, 2) is not None, "journal: the top-k encode fell back to dense")
+        before = node.state.wire.export_state()
+        with NodeJournal(os.path.join(root, "journal")) as journal:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            check(journal.snapshot(node), "journal: the snapshot was not taken")
+            t1 = time.monotonic()
+            journal.wait()
+            t2 = time.monotonic()
+            nbytes = dir_bytes(os.path.join(journal.directory, "2"))
+            restored = Node.resume(lm(99), data, journal, **kw)
+            t3 = time.monotonic()
+        check(restored.addr == node.addr, f"journal: resumed as {restored.addr}, not {node.addr}")
+        after = restored.state.wire.export_state()
+        check(after["anchor_round"] == 2 and after["anchor_crc"] == before["anchor_crc"],
+              f"journal: anchor round / crc {after['anchor_round']} / {after['anchor_crc']}")
+        for part in ("anchor", "residual"):
+            check(all(np.array_equal(a, b) for a, b in zip(before[part], after[part]))
+                  and len(before[part]) == len(after[part]), f"journal: the {part} did not come back bit-exact")
+        check(any(np.any(r != 0) for r in after["residual"]), "journal: the residuals are all zero")
+        mine, theirs = node.learner.get_model().get_parameters(), restored.learner.get_model().get_parameters()
+        check(all(b.is_cuda and torch.equal(a, b) for a, b in zip(mine, theirs)),
+              "journal: the params did not come back bit-exact on the card")
+        check(restored.state.privacy.export_state() == node.state.privacy.export_state(),
+              "journal: the privacy key material differs")
+        print(f"[recovery] journal round trip on the card: params ({len(mine)} leaves), anchor, residuals, anchor_crc "
+              f"{after['anchor_crc']} and privacy keys bit-exact; snapshot {(t1 - t0) * 1e3:.1f} ms (host copies) + "
+              f"{(t2 - t1) * 1e3:.1f} ms (write), {nbytes} bytes; Node.resume {(t3 - t2) * 1e3:.1f} ms [{card}]")
+    finally:
+        Settings.restore(snap)
+
+
+def recovery_crash(card: str, root: str) -> None:
+    """Phase 12d part C: phase 12b's three LM Nodes (model, seeds, executor,
+    timings, ``CanonicalFedAvg``; committee 3, ``RECOVERY_NODE_ROUNDS``
+    rounds) with a journal each. Once node 2 has journaled it crashes and
+    comes back through ``Node.resume(..., device="cuda")``, ``start()`` and
+    ``resume_learning()``. Checks: the resumed Node has the victim's
+    address, its history starts with ``ResumeStage`` and holds a
+    ``TrainStage`` and a ``RoundFinishedStage``; every node finishes before
+    the deadline; node 0's test loss is finite and below its loss before
+    training; the three final parameter sets are bit-equal, or, where the
+    fleet closed a round the resumed Node sat out (the JAX package ends the
+    same way on the CPU: ROADMAP, queue C, "Seen in both packages"), each
+    node's final params hash is the last one its own ledger committed.
+    Prints s/round, journal ms a round, the time from ``crash()`` to the
+    resumed Node's first ``TrainStage`` and peak memory."""
+    import os
+
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.comm.memory.registry import InMemoryRegistry
+    from p2pfl_tpu_torch.config import Settings
+    from p2pfl_tpu_torch.learning.aggregators import CanonicalFedAvg
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.management.checkpoint import NodeJournal, attach_node_journal
+    from p2pfl_tpu_torch.models.transformer import transformer_lm_model
+    from p2pfl_tpu_torch.node import Node
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.telemetry.ledger import LEDGERS, canonical_params_hash
+    from p2pfl_tpu_torch.utils.utils import set_test_settings, wait_convergence
+
+    (x, y, _), xt = lm_data(20)
+
+    def lm(seed: int = 0):
+        return transformer_lm_model(seed=seed, vocab_size=VOCAB, num_layers=LAYERS, num_heads=HEADS,
+                                    embed_dim=EMBED, attention_kind="flash", device="cuda")
+
+    def kw(i: int) -> dict:
+        return dict(aggregator=CanonicalFedAvg(), lr=LR, batch_size=BATCH, seed=i, task="lm", device="cuda")
+
+    datas = [FederatedDataset.from_arrays(x[i], y[i], xt, np.zeros(len(xt), np.int32)) for i in range(NODE_PEERS)]
+    snap = Settings.snapshot()
+    nodes: list = []
+    journals: list = []
+    journal_s: list = []
+    try:
+        set_test_settings()
+        Settings.LOG_LEVEL = "WARNING"
+        Settings.RESOURCE_MONITOR_PERIOD = 0
+        Settings.LEDGER_ENABLED = True
+        Settings.TRAIN_SET_SIZE = NODE_PEERS
+        Settings.WIRE_COMPRESSION = "none"
+        Settings.AGGREGATION_TIMEOUT = RECOVERY_AGG_TIMEOUT_S
+        Settings.AGGREGATION_STALL_PATIENCE = RECOVERY_STALL_S
+        Settings.GOSSIP_EXIT_ON_X_EQUAL_ROUNDS = 400
+        Settings.GOSSIP_MODELS_PER_ROUND = NODE_PEERS
+        for i in range(NODE_PEERS):
+            node = Node(lm(), datas[i], addr=f"mem://crash-{i}", **kw(i))
+            journal = NodeJournal(os.path.join(root, f"j{i}"))
+            snapshot = journal.snapshot
+
+            def timed(nd, snapshot=snapshot):
+                t0 = time.monotonic()
+                out = snapshot(nd)
+                journal_s.append(time.monotonic() - t0)
+                return out
+
+            journal.snapshot = timed
+            attach_node_journal(node, journal)
+            nodes.append(node)
+            journals.append(journal)
+        for nd in nodes:
+            nd.start()
+        for i, nd in enumerate(nodes):
+            for other in nodes[i + 1:]:
+                nd.connect(other.addr)
+        wait_convergence(nodes, NODE_PEERS - 1, wait=30)
+        before = nodes[0].learner.evaluate()
+        fresh = lm(99)  # the restarted process's model, built before the crash
+        LEDGERS.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launches()
+        t0 = time.monotonic()
+        nodes[0].set_start_learning(rounds=RECOVERY_NODE_ROUNDS, epochs=1)
+        wait_for(lambda: bool(journals[2].all_steps()), "recovery: the victim never journaled", timeout=NODE_DEADLINE_S)
+        victim = nodes[2]
+        t_crash = time.monotonic()
+        victim.crash()
+        journals[2].wait()
+        resumed = Node.resume(fresh, datas[2], journals[2], **kw(2))
+        t_resumed = time.monotonic()
+        check(resumed.addr == victim.addr, f"recovery: resumed as {resumed.addr}, not {victim.addr}")
+        resumed.start()
+        resumed.resume_learning()
+        nodes[2] = resumed
+        first_train: list = []
+
+        def finished() -> bool:
+            wf = resumed.learning_workflow
+            if not first_train and wf is not None and "TrainStage" in wf.history:
+                first_train.append(time.monotonic() - t_crash)
+            return all(not nd.learning_in_progress() and nd.learning_workflow is not None for nd in nodes)
+
+        wait_for(finished, "recovery: the federation did not finish after the crash", timeout=NODE_DEADLINE_S)
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(_kernels.LAUNCHES)
+        history = resumed.learning_workflow.history
+        print(f"[recovery] resumed {resumed.addr} history {history}")
+        check(history[0] == "ResumeStage" and history.count("TrainStage") >= 1
+              and history.count("RoundFinishedStage") >= 1, f"recovery: the resumed Node ran {history}")
+        after = nodes[0].learner.evaluate()
+        check(np.isfinite(after["test_loss"]) and after["test_loss"] < before["test_loss"],
+              f"recovery: the test loss did not fall ({before['test_loss']} -> {after['test_loss']})")
+        finals = {nd.addr: canonical_params_hash(nd.learner.get_model().get_parameters()) for nd in nodes}
+        commits = {}
+        for nd in nodes:
+            events = LEDGERS.peek(nd.addr).canonical_events()
+            commits[nd.addr] = {e["round"]: e["hash"] for e in events if e["kind"] == "aggregate_committed"}
+            print(f"[recovery] {nd.addr}: committed {sorted(commits[nd.addr].items())}, final {finals[nd.addr]}")
+        if len(set(finals.values())) == 1:
+            print(f"[recovery] the three final parameter sets are bit-equal ({next(iter(finals.values()))})")
+        else:
+            for addr, final in finals.items():
+                last = commits[addr][max(commits[addr])] if commits[addr] else None
+                check(final == last, f"recovery: {addr}'s final params {final} are not its last commit {last}")
+            print("[recovery] the fleet closed a round the resumed Node sat out: each node's final params are the "
+                  "last aggregate its own ledger committed (as the JAX package ends on the CPU)")
+        print(f"[recovery] kernels {json.dumps(launches)} (rows 1-4 over the fits and evaluations of the crash run)")
+        print(f"[recovery] {NODE_PEERS} LM Nodes, {RECOVERY_NODE_ROUNDS} rounds with a crash and Node.resume: "
+              f"{seconds / RECOVERY_NODE_ROUNDS:.3f} s/round (host clock, {seconds:.3f} s); journal snapshots "
+              f"{len(journal_s)}, {np.mean(journal_s) * 1e3:.1f} ms each (host copies; the write on its thread); "
+              f"crash -> Node.resume {(t_resumed - t_crash) * 1e3:.1f} ms, crash -> first TrainStage of the resumed "
+              f"Node {first_train[0] if first_train else float('nan'):.3f} s; peak device memory {peak} bytes "
+              f"({peak / 2**30:.2f} GiB) [{card}]")
+    finally:
+        for nd in nodes:
+            nd.stop()
+        for journal in journals:
+            journal.close()
+        InMemoryRegistry.reset()
+        Settings.restore(snap)
+
+
+def phase_recovery(card: str) -> None:
+    """Phase 12d: checkpoint and recovery on the card (parts A-C:
+    :func:`recovery_resume`, :func:`recovery_journal`,
+    :func:`recovery_crash`), under a temporary root that the phase removes
+    (also the working directory meanwhile, so the flight recorders' crash and
+    stall dumps land there); prints the bytes written."""
+    import os
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="p2pfl_recovery_")
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        recovery_resume(card, root)
+        gc.collect()
+        recovery_journal(card, root)
+        gc.collect()
+        recovery_crash(card, root)
+        print(f"[recovery] bytes under the temporary root at the end: {dir_bytes(root)}")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# The population phase (phase 12e): bench.py --population's engine and
+# recovery arms (POP_BENCH_NODES / _COHORT / _ROUNDS, seed 42).
+POP_NODES, POP_COHORT, POP_ROUNDS, POP_SEED = 100_000, 0.01, 10, 42
+POP_REC_NODES, POP_REC_ROUNDS, POP_REC_KILL = 256, 6, 3
+
+
+def phase_population(card: str) -> None:
+    """Phase 12e: the sync population engine on the card. Engine arm:
+    ``PopulationEngine(100_000, cohort_fraction=0.01, speed_tiers=(1, 1, 1,
+    2, 5))`` at the bench's seed with the ledger attached, 10 rounds: the
+    mean cohort fill times n equals K (1,000) within 1e-6, every snapshot
+    peer but the observer's own row carries ``cohort_fill``, the final accuracy is finite; s/round, the
+    host time of the schedules, ``fleet_health`` and the snapshot, peak
+    memory. Recovery arm (n 256, cohort 0.25, seed + 1): a control runs 6
+    rounds; a victim runs 3, ``save_to`` s and is closed; a fresh engine
+    ``load_from`` s (-> 3) and runs 3 more: node 0's canonical hash equal to
+    the control's, the accuracy delta exactly 0.0 pp, the replayed cohort
+    fill equal."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.config import Settings
+    from p2pfl_tpu_torch.management.checkpoint import FLCheckpointer
+    from p2pfl_tpu_torch.population import PopulationEngine
+    from p2pfl_tpu_torch.telemetry.ledger import LEDGERS, canonical_params_hash
+
+    root = tempfile.mkdtemp(prefix="p2pfl_population_")
+    snap_settings = Settings.snapshot()
+    try:
+        Settings.LEDGER_ENABLED = True
+        LEDGERS.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        eng = PopulationEngine(POP_NODES, cohort_fraction=POP_COHORT, seed=POP_SEED,
+                               speed_tiers=(1.0, 1.0, 1.0, 2.0, 5.0), device="cuda")
+        build_s = time.monotonic() - t0
+        try:
+            sched_s: list = []
+            schedule = eng.schedule
+
+            def timed_schedule(rounds: int):
+                t = time.monotonic()
+                out = schedule(rounds)
+                sched_s.append(time.monotonic() - t)
+                return out
+
+            eng.schedule = timed_schedule
+            led = eng.attach_ledger(run_id=f"population-n{POP_NODES}")
+            res = eng.run(POP_ROUNDS, epochs=1)
+            t = time.monotonic()
+            eng.sim.fleet_health(res)
+            health_s = time.monotonic() - t
+            t = time.monotonic()
+            snap = eng.snapshot(res, path=os.path.join(root, "federation_snapshot.json"))
+            snap_s = time.monotonic() - t
+            fill = eng.cohort_fill()
+            k = eng.cohort_k
+            commits = sum(1 for e in led.canonical_events() if e["kind"] == "aggregate_committed")
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            eng.close()
+            del eng
+            gc.collect()
+        check(abs(float(fill.mean()) * POP_NODES - k) <= 1e-6,
+              f"population: mean cohort fill {fill.mean()} x {POP_NODES} != K {k}")
+        shown = [p.get("cohort_fill") for name, p in snap["peers"].items() if name != "population-engine"]
+        check(bool(shown) and all(v is not None for v in shown), f"population: snapshot peers lack cohort_fill {shown[:4]}")
+        check(bool(np.isfinite(res.test_acc[-1])), f"population: final accuracy {res.test_acc[-1]}")
+        print(f"[population] n={POP_NODES}, K={k}, {POP_ROUNDS} rounds: {res.seconds_per_round:.4f} s/round (host "
+              f"clock; build {build_s:.2f} s); accuracy per round {[round(a, 4) for a in res.test_acc]}; mean fill x n "
+              f"= {float(fill.mean()) * POP_NODES:.6f}; {len(shown)} snapshot peers with cohort_fill; "
+              f"{commits} aggregate_committed events left in the ledger's ring of "
+              f"{Settings.LEDGER_CAPACITY} (K contributions a round) [{card}]")
+        print(f"[population] host time: schedule {sched_s[0]:.3f} s for {POP_ROUNDS} rounds "
+              f"({sched_s[0] / POP_ROUNDS:.4f} s a round), fleet_health {health_s:.4f} s, snapshot {snap_s:.4f} s; "
+              f"peak device memory {peak} bytes ({peak / 2**30:.2f} GiB) [{card}]")
+
+        spec = dict(cohort_fraction=0.25, seed=POP_SEED + 1, device="cuda")
+        with PopulationEngine(POP_REC_NODES, **spec) as ref:
+            ref_res = ref.run(POP_REC_ROUNDS)
+            ref_acc = float(ref_res.test_acc[-1])
+            ref_hash = canonical_params_hash(ref.gather_params(0))
+            ref_fill = ref.cohort_fill()
+        ck = FLCheckpointer(os.path.join(root, "ckpt"))
+        with PopulationEngine(POP_REC_NODES, **spec) as victim:
+            victim.run(POP_REC_KILL)
+            check(victim.save_to(ck), "population: the checkpoint save failed")
+        ck.wait()
+        with PopulationEngine(POP_REC_NODES, **spec) as healed:
+            restored = healed.load_from(ck)
+            check(restored == POP_REC_KILL, f"population: restored {restored} rounds, expected {POP_REC_KILL}")
+            rec_res = healed.run(POP_REC_ROUNDS - POP_REC_KILL)
+            rec_acc = float(rec_res.test_acc[-1])
+            rec_hash = canonical_params_hash(healed.gather_params(0))
+            rec_fill = healed.cohort_fill()
+        ck.close()
+        delta_pp = abs(rec_acc - ref_acc) * 100.0
+        check(rec_hash == ref_hash, f"population: the resumed hash {rec_hash} != the control's {ref_hash}")
+        check(delta_pp == 0.0, f"population: accuracy delta {delta_pp} pp")
+        check(np.array_equal(rec_fill, ref_fill), "population: the replayed cohort fill differs from the control's")
+        print(f"[population] recovery arm (n={POP_REC_NODES}, killed after {POP_REC_KILL} of {POP_REC_ROUNDS} rounds): "
+              f"node 0 {rec_hash} == control, accuracy {rec_acc:.4f} (delta {delta_pp} pp), cohort fill replayed equal; "
+              f"bytes written {dir_bytes(root)}")
+    finally:
+        Settings.restore(snap_settings)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def phase_parity() -> None:
     """The port's wire-vs-fused contract on the card: a ``ParityScenario``
     (8 MLP nodes, full committee, 3 rounds, one signflip node) through the
@@ -3507,6 +3997,10 @@ def main() -> int:
         phase_node(card)
         gc.collect()
         phase_secagg(card)
+        gc.collect()
+        phase_recovery(card)
+        gc.collect()
+        phase_population(card)
         gc.collect()
         phase_topk_ties()
         phase_parity()

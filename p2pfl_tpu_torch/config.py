@@ -118,6 +118,10 @@ class Settings:
     RECOVERY_PARK_POLL_S: float = _env_float("RECOVERY_PARK_POLL_S", 0.5, 0.05, 60.0)
     # Hard cap on one park (0: park forever).
     RECOVERY_PARK_MAX_S: float = _env_float("RECOVERY_PARK_MAX_S", 300.0, 0.0, 86400.0)
+    # Write-ahead node-state journal (management/checkpoint.py): snapshots
+    # retained and the cadence in rounds.
+    RECOVERY_JOURNAL_KEEP: int = _env_int("RECOVERY_JOURNAL_KEEP", 3, 1, 100)
+    RECOVERY_JOURNAL_EVERY: int = _env_int("RECOVERY_JOURNAL_EVERY", 1, 1, 1000)
     # Rounds/windows of lead before the ahead side of a healed split ships its
     # round anchor as a dense catch-up, and the least seconds between reconcile
     # pings to one peer.

@@ -13,9 +13,9 @@ simulation of hundreds of nodes prefer
 :mod:`p2pfl_tpu_torch.parallel.simulation`, which runs the whole population
 as one batched round instead of per-node threads.
 
-The port's copy of ``p2pfl_tpu/node.py``. Not ported yet: the write-ahead
-journal behind :meth:`Node.resume` (queue A item 11), which raises
-``NotImplementedError``.
+The port's copy of ``p2pfl_tpu/node.py``; :meth:`Node.resume` rebuilds a
+crashed node from its write-ahead journal
+(:class:`~p2pfl_tpu_torch.management.checkpoint.NodeJournal`).
 """
 
 from __future__ import annotations
@@ -448,10 +448,13 @@ class Node:
         NodeJournal`; it stays attached, so the resumed node keeps
         journaling from where it left off.
         """
-        raise NotImplementedError(
-            "Node.resume needs the write-ahead node journal (management/checkpoint.py), "
-            "which is not ported yet: queue A item 11"
-        )
+        from p2pfl_tpu_torch.management.checkpoint import attach_node_journal
+
+        meta = journal.latest_meta()
+        node = cls(model, data, addr=addr or meta.get("addr"), **kwargs)
+        journal.restore_into(node)
+        attach_node_journal(node, journal)
+        return node
 
     def resume_learning(self) -> None:
         """Re-enter the journaled experiment mid-flight: reconnect to the

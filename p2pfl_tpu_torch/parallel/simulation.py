@@ -63,10 +63,6 @@ BatchLoss = Callable[[Params, torch.Tensor, torch.Tensor, torch.Tensor], torch.T
 log = logging.getLogger("p2pfl_tpu_torch")
 
 
-def _not_ported(what: str, plane: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (it comes with {plane})")
-
-
 def poison_delta(new: torch.Tensor, old: torch.Tensor, attack: str, scale: float = 10.0) -> torch.Tensor:
     """Byzantine model poisoning of one leaf's round delta, in f32:
     ``signflip`` (and its alias ``norm_ride``) reflects the trained update
@@ -369,6 +365,13 @@ class MeshSimulation:
                 "server_optimizer needs a shared round-start model (per_node_init=False): "
                 "the pseudo-gradient is x_t - aggregate"
             )
+        # Pinned into checkpoint meta (like the DP parameters): a resume under
+        # another server optimizer or lr would run the restored moments
+        # through the wrong update rule.
+        self._server_opt_name = (
+            server_optimizer if isinstance(server_optimizer, str)
+            else ("custom" if server_optimizer is not None else None))
+        self._server_lr = float(server_lr)
         if isinstance(server_optimizer, str):
             # Reddi et al.'s server settings: adaptivity eps 1e-3.
             makers = {
@@ -732,19 +735,23 @@ class MeshSimulation:
         aggregates only those members; the others still train. The timed
         region ends in ``torch.cuda.synchronize()`` when the population is
         on a card. With a ledger attached (:meth:`attach_ledger`) every round
-        emits its events. ``checkpointer`` is not ported yet and raises
-        ``NotImplementedError``.
+        emits its events. With a ``checkpointer``
+        (:class:`~p2pfl_tpu_torch.management.checkpoint.FLCheckpointer`) the
+        population is saved (:meth:`save_to`) after every
+        ``checkpoint_every``-th chunk and after the last one, unless the
+        tripwire stopped the run; a later :meth:`load_from` and ``run``
+        resume bit-identically (round draws are keyed by the absolute round
+        index). The save's host copy is taken before the next round starts;
+        its files are written while the rounds go on.
         """
         if self._closed:
             raise RuntimeError("simulation is closed — construct a new MeshSimulation")
-        if checkpointer is not None:
-            raise _not_ported("run(checkpointer=...)", "management/checkpoint.py")
         if int(rounds) != rounds or rounds < 1:
             raise ValueError(f"rounds must be a positive integer, got {rounds!r}")
-        for name, val in (("rounds_per_call", rounds_per_call), ("eval_every", eval_every),
-                          ("checkpoint_every", checkpoint_every)):
+        for name, val in (("rounds_per_call", rounds_per_call), ("eval_every", eval_every)):
             if int(val) != val or val < 1:
                 raise ValueError(f"{name} must be a positive integer, got {val!r}")
+        checkpoint_every = max(1, int(checkpoint_every))  # clamped, as the JAX package does
         sched: Optional[np.ndarray] = None
         if committee_schedule is not None:
             sched = np.asarray(committee_schedule, np.int64)
@@ -786,6 +793,7 @@ class MeshSimulation:
             profile_dir = Settings.PERF_TRACE_DIR
         profile_chunks = int(Settings.DEVOBS_PROFILE_CHUNKS)
         rec = self._devobs_recorder() if devobs else self._recorder
+        steps_per_round = epochs * (self.x.shape[1] // self.batch_size)
         rounds_per_call = min(rounds_per_call, rounds)
         chunks = [rounds_per_call] * (rounds // rounds_per_call)
         if rounds % rounds_per_call:
@@ -825,6 +833,12 @@ class MeshSimulation:
                         floor = torch.where(finite, torch.minimum(floor, tr), floor)
                         aux_rows.append(torch.cat([aux, torch.stack([diverged.double(), tr.double()])]))
             done += chunk
+            # Per chunk, as the JAX package counts: a checkpoint taken after
+            # this chunk carries its privacy spend.
+            if self.dp_clip_norm > 0.0:
+                self._dp_steps_per_node += chunk * steps_per_round
+            else:
+                self._nonprivate_steps_per_node += chunk * steps_per_round
             if devobs:
                 # One read of the chunk's aux rows, as the JAX package fetches
                 # its aux once a chunk: sketch buckets into SKETCHES, headline
@@ -838,14 +852,15 @@ class MeshSimulation:
             if trip is not None:
                 trip["chunk"] = c
                 break
+            # Save on the cadence, and always after the last chunk, so the
+            # end-of-run state is never memory-only.
+            if checkpointer is not None and ((c + 1) % checkpoint_every == 0 or c == len(chunks) - 1):
+                self.opt_stack, self.c_global = st["opt"], st["c_global"]
+                self.completed_rounds = start + done
+                self.save_to(checkpointer)
         self._sync()
         self.opt_stack, self.c_global = st["opt"], st["c_global"]
         self.completed_rounds = start + done
-        steps = done * epochs * (self.x.shape[1] // self.batch_size)
-        if self.dp_clip_norm > 0.0:
-            self._dp_steps_per_node += steps
-        else:
-            self._nonprivate_steps_per_node += steps
         if trip is not None:
             self._devobs_trip(trip, rec)
         dt = time.monotonic() - t0
@@ -1124,13 +1139,88 @@ class MeshSimulation:
             "attention_flops_per_round": counter.opaque_flops / rounds_per_call,
         }
 
-    # --- planes not ported yet ----------------------------------------------------
+    # --- checkpoint / resume ------------------------------------------------------
 
     def save_to(self, checkpointer) -> bool:
-        raise _not_ported("MeshSimulation.save_to", "management/checkpoint.py")
+        """Snapshot the population state at the current completed-round
+        count, with the meta record the JAX package writes: the round
+        cursor, the seed, the DP step counters and parameters, and the
+        server optimizer's name and lr."""
+        return checkpointer.save(
+            self.completed_rounds,
+            self.state_dict(),
+            {
+                "completed_rounds": self.completed_rounds,
+                "seed": self.seed,
+                # The privacy spend survives a resume; the DP parameters are
+                # pinned so a resume cannot re-price the restored steps.
+                "dp_steps_per_node": self._dp_steps_per_node,
+                "nonprivate_steps_per_node": self._nonprivate_steps_per_node,
+                "dp_noise_multiplier": self.dp_noise_multiplier,
+                "dp_clip_norm": self.dp_clip_norm,
+                # FedOpt pin: adam and yogi share a state structure, so a
+                # mismatch would restore cleanly and silently diverge.
+                "server_opt": self._server_opt_name,
+                "server_lr": self._server_lr,
+            },
+        )
 
     def load_from(self, checkpointer, step: Optional[int] = None) -> int:
-        raise _not_ported("MeshSimulation.load_from", "management/checkpoint.py")
+        """Restore the population state (the newest restorable step by
+        default) onto this simulation's device; returns the restored round
+        count.
+
+        The meta's configuration pins are checked before the state is read
+        (:meth:`_check_restore_pins`), and meta and state come from one step
+        (``restore_coherent``). The checkpointed seed is adopted: round
+        draws are keyed by ``(seed, round)``. The DP step counters become
+        the larger of the restored and the live values.
+        """
+        if self._closed:
+            raise RuntimeError(
+                "simulation is closed (close() also released its training data, which checkpoints do not "
+                "carry) — construct a new MeshSimulation and load_from() that"
+            )
+        state, meta = checkpointer.restore_coherent(self.state_dict(), step, check_meta=self._check_restore_pins)
+        self.params_stack = state["params_stack"]
+        self.opt_stack = state["opt_stack"]
+        if self.algorithm == "scaffold":
+            self.c_stack = state["c_stack"]
+        if self.algorithm == "scaffold" or self.server_tx is not None:
+            self.c_global = state["c_global"]
+        self.completed_rounds = int(meta.get("completed_rounds", 0))
+        self._dp_steps_per_node = max(self._dp_steps_per_node, int(meta.get("dp_steps_per_node", 0)))
+        self._nonprivate_steps_per_node = max(
+            self._nonprivate_steps_per_node, int(meta.get("nonprivate_steps_per_node", 0)))
+        if self.dp_clip_norm > 0.0 and "dp_noise_multiplier" not in meta:
+            # A checkpoint without DP parameters: the restored weights embed
+            # training of unknown (non-private) provenance.
+            self._nonprivate_steps_per_node = max(self._nonprivate_steps_per_node, 1)
+        if "seed" in meta and int(meta["seed"]) != self.seed:
+            self.seed = int(meta["seed"])
+        return self.completed_rounds
+
+    def _check_restore_pins(self, meta: dict) -> None:
+        """Raise ValueError when ``meta`` pins a configuration this
+        simulation does not match (run before the structural restore)."""
+        if (self.dp_clip_norm > 0.0 and "dp_noise_multiplier" in meta
+                and (float(meta["dp_noise_multiplier"]) != self.dp_noise_multiplier
+                     or float(meta.get("dp_clip_norm", 0.0)) != self.dp_clip_norm)):
+            raise ValueError(
+                f"checkpoint was written with DP parameters (sigma={meta['dp_noise_multiplier']}, "
+                f"clip={meta.get('dp_clip_norm')}) that differ from this simulation's "
+                f"(sigma={self.dp_noise_multiplier}, clip={self.dp_clip_norm}); resuming would re-price the "
+                "restored steps and invalidate privacy_spent()"
+            )
+        saved_opt = meta.get("server_opt")
+        if saved_opt != self._server_opt_name or (
+                saved_opt not in (None, "custom") and float(meta.get("server_lr", 0.0)) != self._server_lr):
+            raise ValueError(
+                f"checkpoint was written with server_optimizer={saved_opt!r} (lr={meta.get('server_lr')}) but "
+                f"this simulation uses {self._server_opt_name!r} (lr={self._server_lr}); resuming would apply the "
+                "restored server moments through a different update rule ('custom' transforms are matched by "
+                "label only)"
+            )
 
 
 def _first_trip(flags: np.ndarray, first_round: int, chunk: int) -> Optional[Dict[str, Any]]:

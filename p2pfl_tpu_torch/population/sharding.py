@@ -1,0 +1,145 @@
+"""Rule-driven partition specs and shard / gather function trees for stacked
+populations (counterpart of ``p2pfl_tpu/population/sharding.py``).
+
+A list of ``(regex, PartitionSpec)`` rules is matched against the
+'/'-joined path of every leaf of a tree; the first ``re.search`` hit gives
+the leaf's spec, and the spec tree becomes per-leaf placement functions.
+
+Names: the rules match the JAX package's paths. A port parameter dict is
+keyed by torch names (``"Dense_0.weight"``, ``[out, in]``), so
+:func:`tree_path_names` gives each of its leaves the JAX package's path
+(``params/Dense_0/kernel``) through the mapping of
+:mod:`p2pfl_tpu_torch.models.convert`, and one rule list selects the same
+leaves in both packages. Layouts: a spec's axes refer to the port's own
+layout. A stacked Dense ``weight`` is ``[N, out, in]`` and a Conv
+``weight`` ``[N, out, in, kh, kw]``, so the tensor-parallel rule of
+:func:`population_partition_rules` puts ``"model"`` on axis 1, the output
+axis the JAX package splits as the last axis of ``[N, in, out]``.
+
+On one card every shard lives on the mesh's device: a shard function moves
+a leaf there, a gather function returns it as host numpy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Any, Callable, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from p2pfl_tpu_torch.models.convert import flax_path
+from p2pfl_tpu_torch.parallel.mesh import Mesh, PartitionSpec as PS, make_mesh
+
+_ARRAY = (torch.Tensor, np.ndarray)
+
+
+def _is_port_params(tree: Any) -> bool:
+    """A flat ``{torch parameter name: tensor}`` dict (every key dotted)."""
+    return (isinstance(tree, Mapping) and bool(tree)
+            and all(isinstance(k, str) and "." in k and isinstance(v, _ARRAY) for k, v in tree.items()))
+
+
+def _tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """Map ``fn`` over the leaves of ``tree`` (and the matching leaves of
+    ``rest``): dicts, lists, tuples and dataclasses are walked, a
+    :class:`PartitionSpec` and anything else is a leaf; ``None`` stays."""
+    if tree is None:
+        return None
+    if isinstance(tree, Mapping):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, PS):
+        out = [_tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+        return out if isinstance(tree, list) else type(tree)(out)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return type(tree)(**{f.name: _tree_map(fn, getattr(tree, f.name), *(getattr(r, f.name) for r in rest))
+                             for f in dataclasses.fields(tree)})
+    return fn(tree, *rest)
+
+
+def tree_path_names(tree: Any, prefix: str = "") -> Any:
+    """A tree of the same structure whose leaves are '/'-joined key paths,
+    the name space the rules match. A port parameter dict's leaves get the
+    JAX package's paths (``params/Dense_0/kernel``,
+    ``params/block0/attn/qkv/kernel``); other dict keys, list indices and
+    dataclass fields join as they are."""
+
+    def join(*parts: str) -> str:
+        return "/".join(p for p in parts if p)
+
+    if tree is None:
+        return None
+    if _is_port_params(tree):
+        return {k: join(prefix, "params", *flax_path(k)[0]) for k in tree}
+    if isinstance(tree, Mapping):
+        return {k: tree_path_names(v, join(prefix, str(k))) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, PS):
+        out = [tree_path_names(v, join(prefix, str(i))) for i, v in enumerate(tree)]
+        return out if isinstance(tree, list) else type(tree)(out)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return type(tree)(**{f.name: tree_path_names(getattr(tree, f.name), join(prefix, f.name))
+                             for f in dataclasses.fields(tree)})
+    return prefix
+
+
+def match_partition_rules(rules: Sequence[Tuple[str, PS]], params: Any, strict: bool = True) -> Any:
+    """Map a tree to a tree of :class:`PartitionSpec` by regex rules.
+
+    Each leaf's path (:func:`tree_path_names`) is tested against ``rules``
+    in order; the first ``re.search`` hit wins. Scalars and one-element
+    leaves are never partitioned. With ``strict`` (the default) an
+    unmatched leaf raises; ``strict=False`` replicates it.
+    """
+    compiled = [(re.compile(rule), spec) for rule, spec in rules]
+
+    def spec_for(leaf: Any, path: str) -> PS:
+        shape = tuple(getattr(leaf, "shape", ()))
+        if len(shape) == 0 or int(np.prod(shape)) == 1:
+            return PS()  # don't partition scalar values
+        for rule, spec in compiled:
+            if rule.search(path) is not None:
+                return spec
+        if strict:
+            raise ValueError(f"partition rule not found for param: {path}")
+        return PS()
+
+    return _tree_map(spec_for, params, tree_path_names(params))
+
+
+def population_partition_rules(model_parallel: bool = False) -> List[Tuple[str, PS]]:
+    """The stacked-population rule set: every leaf's leading (population)
+    axis over ``"nodes"``; with ``model_parallel`` the kernels (``.../kernel``
+    paths) also split their output axis, axis 1 in the port's layout, over
+    ``"model"``."""
+    if model_parallel:
+        return [(r"(^|/)kernel$", PS("nodes", "model")), (r".*", PS("nodes"))]
+    return [(r".*", PS("nodes"))]
+
+
+def make_shard_and_gather_fns(partition_specs: Any, mesh: Optional[Mesh] = None) -> Tuple[Any, Any]:
+    """Per-leaf placement function trees mirroring ``partition_specs``:
+    ``shard_fns`` move a leaf (a tensor or numpy array) onto the mesh's
+    device, ``gather_fns`` return a leaf as host numpy (bf16 widened to f32,
+    which numpy holds exactly). ``mesh`` defaults to :func:`make_mesh`'s."""
+    mesh = mesh if mesh is not None else make_mesh()
+
+    def make_shard_fn(spec: PS) -> Callable[[Any], torch.Tensor]:
+        def shard_fn(tensor: Any) -> torch.Tensor:
+            return torch.as_tensor(tensor).to(mesh.device)
+
+        return shard_fn
+
+    def make_gather_fn(spec: PS) -> Callable[[Any], np.ndarray]:
+        def gather_fn(tensor: Any) -> np.ndarray:
+            if isinstance(tensor, torch.Tensor):
+                t = tensor.detach()
+                return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+            return np.asarray(tensor)
+
+        return gather_fn
+
+    return _tree_map(make_shard_fn, partition_specs), _tree_map(make_gather_fn, partition_specs)
+
+
+__all__ = ["make_shard_and_gather_fns", "match_partition_rules", "population_partition_rules", "tree_path_names"]

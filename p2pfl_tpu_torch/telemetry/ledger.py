@@ -137,9 +137,10 @@ def canonical_params_hash(params: Any) -> str:
     Leaves are taken in the JAX package's canonical order and layout:
 
     * a list / tuple: its leaves as given (e.g. ``ModelHandle.get_parameters()``);
-    * a flat ``{port name: tensor}`` dict (a port model's ``params``): the
-      flax leaf order with Dense kernels ``[in, out]``
-      (:func:`p2pfl_tpu_torch.models.convert.to_canonical`);
+    * a flat ``{port name: tensor}`` dict (a port model's ``params``), or
+      ``{port name: numpy array}`` with every name dotted (a population
+      engine's ``gather_params``): the flax leaf order with Dense kernels
+      ``[in, out]`` (:func:`p2pfl_tpu_torch.models.convert.to_canonical`);
     * any other mapping (a flax-style nested tree): keys sorted at every
       level, as ``jax.tree.leaves`` takes them.
 
@@ -159,6 +160,11 @@ def canonical_params_hash(params: Any) -> str:
         from p2pfl_tpu_torch.models.convert import to_canonical
 
         leaves = to_canonical(params)
+    elif (isinstance(params, Mapping) and params
+          and all(isinstance(k, str) and "." in k and isinstance(v, np.ndarray) for k, v in params.items())):
+        from p2pfl_tpu_torch.models.convert import to_canonical
+
+        leaves = to_canonical({k: torch.from_numpy(v) for k, v in params.items()})
     else:
         leaves = _flatten_sorted(params)
     h = hashlib.sha256()

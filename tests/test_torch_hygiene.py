@@ -14,6 +14,8 @@ for name in {BLOCKED!r}:
     sys.modules[name] = None  # any import of it (or a submodule) raises ImportError
 import p2pfl_tpu_torch
 names = ["p2pfl_tpu_torch"] + [m.name for m in pkgutil.walk_packages(p2pfl_tpu_torch.__path__, "p2pfl_tpu_torch.")]
+assert {{"p2pfl_tpu_torch.management.checkpoint", "p2pfl_tpu_torch.population.engine",
+         "p2pfl_tpu_torch.population.sharding", "p2pfl_tpu_torch.population.scenarios"}} <= set(names), names
 for name in names:
     importlib.import_module(name)
 leaked = sorted(n for n in sys.modules if sys.modules[n] is not None and n.split(".")[0] in {BLOCKED!r})

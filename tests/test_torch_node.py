@@ -1,9 +1,9 @@
 """The port's wire ``Node`` (``p2pfl_tpu_torch/node.py`` and its stages) on
 the CPU: the in-memory cases of the JAX package's ``test_node_e2e.py`` and
 the two Node cases of ``test_chaos.py`` run against port Nodes (MLPs, every
-node on ``device="cpu"``), then the guard of the plane the port does not
-have yet (the write-ahead journal), and the Node's settings against the JAX
-package's. The privacy plane's Node cases are in
+node on ``device="cpu"``), then the Node's settings against the JAX
+package's (the write-ahead journal's cases are in
+``test_torch_checkpoint.py``). The privacy plane's Node cases are in
 ``test_torch_privacy_nodes.py``. The e2e cases the JAX package marks
 ``slow`` keep the mark: several nodes' heartbeats at 0.25 s beside the
 other test workers flap under load (a peer starved for seconds is
@@ -350,26 +350,14 @@ def test_dense_full_model_resyncs_round_anchor():
             node.state.wire.decode_frame(sender_codec.encode_model(perturbed, 7))
 
 
-# --- the plane the port does not have yet -----------------------------------------------
-
-
-def test_resume_raises_not_implemented_naming_the_journal():
-    parts = synthetic_mnist(n_train=64, n_test=32).generate_partitions(1, RandomIIDPartitionStrategy)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Node.resume(mlp_model(seed=0, device="cpu"), parts[0], journal=object(), device="cpu")
-    node = Node(mlp_model(seed=0, device="cpu"), parts[0], device="cpu", executor=False)
-    node.journal_now()  # no journal attached: a no-op, as in the JAX package
-    with pytest.raises(ValueError, match="Node.resume"):
-        node.resume_learning()
-
-
 # --- the Node's settings against the JAX package's ---------------------------------------
 
 NODE_FIELDS = (
     "WAIT_HEARTBEATS_CONVERGENCE", "VOTE_TIMEOUT", "ADMISSION_ENABLED", "ADMISSION_NORM_MULT",
     "ADMISSION_NORM_WINDOW", "MAX_CLAIMED_SAMPLES", "OVERLAP_TRAIN_DIFFUSE", "OVERLAP_DRAIN_JOIN_S",
     "ASYNC_BUFFER_K", "ASYNC_ANCHOR_HISTORY", "ASYNC_SUSPECT_GATE", "ASYNC_STRAGGLER_GATE", "PRIVACY_SECAGG",
-    "RECOVERY_QUORUM_FRACTION", "RECOVERY_PARK_POLL_S", "RECOVERY_PARK_MAX_S", "RECOVERY_RECONCILE_MIN_LEAD",
+    "RECOVERY_QUORUM_FRACTION", "RECOVERY_PARK_POLL_S", "RECOVERY_PARK_MAX_S", "RECOVERY_JOURNAL_KEEP",
+    "RECOVERY_JOURNAL_EVERY", "RECOVERY_RECONCILE_MIN_LEAD",
     "RECOVERY_RECONCILE_COOLDOWN_S", "EXECUTOR_MAX_WORKERS", "LOG_LEVEL", "LOG_DIR", "RESOURCE_MONITOR_PERIOD",
     "POP_COHORT_ENABLED", "POP_COHORT_FRACTION", "POP_COHORT_MIN", "POP_COHORT_SEED", "POP_CHURN_RATE",
 )

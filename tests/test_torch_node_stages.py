@@ -2,8 +2,8 @@
 stage cases of the JAX package's ``test_async.py`` (the async commands, the
 participation gate, the scheduler registry, a mid-run join over the sparse
 wire), ``test_recovery.py`` (reconcile offers, the catch-up exchange,
-quorum parking, the partition-heal federations of both schedulers; not its
-checkpoint cases, which wait for the journal) and the two e2e cases of
+quorum parking, the partition-heal federations of both schedulers; its
+torn-step checkpoint cases are in ``test_torch_checkpoint.py``) and the two e2e cases of
 ``test_sparse_delta.py``, against port Nodes (MLPs on ``device="cpu"``).
 The partition-heal federations and the eight-node top-k acceptance run keep
 the JAX package's ``slow`` marks (15-140 s each here).

@@ -17,6 +17,7 @@ import pytest
 from p2pfl_tpu.parallel.mesh import make_mesh
 from p2pfl_tpu.parallel.simulation import MeshSimulation as JaxMeshSimulation
 from p2pfl_tpu.parallel.simulation import local_train_step as jax_local_train_step
+from p2pfl_tpu_torch.management.checkpoint import FLCheckpointer
 from p2pfl_tpu_torch.models.convert import torch_to_flax
 from p2pfl_tpu_torch.optim import sgd
 from p2pfl_tpu_torch.parallel.simulation import MeshSimulation, local_train_step
@@ -148,20 +149,21 @@ def test_bad_options_raise_as_in_jax(kwargs, match):
 
 
 def test_unported_options_raise_not_implemented(tmp_path):
-    """The checkpoint plane still raises; ``profile_dir``,
-    ``round_cost_analysis``, ``devobs_summary``, ``fleet_health`` and
-    ``fleet_snapshot`` (ported with the profiler and the telemetry plane)
-    run and return what the JAX package's do."""
+    """Nothing here raises ``NotImplementedError`` any more: the checkpoint
+    plane (``run(checkpointer=)``, ``save_to`` / ``load_from``) round-trips;
+    ``profile_dir``, ``round_cost_analysis``, ``devobs_summary``,
+    ``fleet_health`` and ``fleet_snapshot`` (ported with the profiler and
+    the telemetry plane) run and return what the JAX package's do."""
     jh, ph = mlp_handles()
     jp, pp = mnist_partitions()
     kw = dict(seed=0, train_set_size=2, batch_size=SCHED.shape[1])
     sim = MeshSimulation(ph, pp, device="cpu", **kw)
     jsim = JaxMeshSimulation(jh, jp, mesh=make_mesh(devices=jax.devices()[:1]), **kw)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        sim.run(rounds=1, checkpointer=object())
-    for call in (lambda: sim.save_to(None), lambda: sim.load_from(None)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            call()
+    with FLCheckpointer(str(tmp_path / "ck")) as ck:
+        probe = MeshSimulation(ph, pp, device="cpu", **kw)
+        probe.run(rounds=1, warmup=False, checkpointer=ck, committee_schedule=SCHED[:1])
+        assert ck.all_steps() == [1] and probe.save_to(ck)
+        assert MeshSimulation(ph, pp, device="cpu", **kw).load_from(ck) == 1
     res = sim.run(rounds=2, profile_dir=str(tmp_path / "trace"), committee_schedule=SCHED[:2])
     ref = jsim.run(rounds=2, committee_schedule=SCHED[:2])
     assert (tmp_path / "trace" / "mesh_round_chunk0" / "trace.json").is_file()

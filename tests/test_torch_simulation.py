@@ -20,6 +20,7 @@ from p2pfl_tpu.models.transformer import TransformerLM as JaxTransformerLM
 from p2pfl_tpu.ops.aggregation import fedavg as jax_fedavg
 from p2pfl_tpu.parallel.mesh import make_mesh
 from p2pfl_tpu.parallel.simulation import MeshSimulation as JaxMeshSimulation
+from p2pfl_tpu_torch.management.checkpoint import FLCheckpointer
 from p2pfl_tpu_torch.models.convert import flax_to_torch, torch_to_flax
 from p2pfl_tpu_torch.models.model_handle import ModelHandle
 from p2pfl_tpu_torch.models.transformer import TransformerLM
@@ -112,7 +113,7 @@ def test_fedavg_matches_jax():
     assert bf["a"].dtype == torch.bfloat16
 
 
-def test_simulation_rejects_bad_inputs():
+def test_simulation_rejects_bad_inputs(tmp_path):
     x, y, mask, xt = _data()
     with torch.device("meta"):
         module = TransformerLM(vocab_size=VOCAB, num_layers=1, num_heads=HEADS, embed_dim=EMBED)
@@ -123,8 +124,12 @@ def test_simulation_rejects_bad_inputs():
         MeshSimulation(handle, (x, y, mask), task="regression", device="cpu")
     sim = MeshSimulation(handle, (x, y, mask), test_data=(xt, None), train_set_size=2,
                          batch_size=SEQS, device="cpu", seed=1, task="lm")
-    with pytest.raises(NotImplementedError, match="checkpointer"):
-        sim.run(rounds=1, checkpointer=object())
+    with FLCheckpointer(str(tmp_path / "ck")) as ck:  # the LM's state round-trips through a checkpoint
+        sim.run(rounds=1, warmup=False, checkpointer=ck)
+        again = MeshSimulation(handle, (x, y, mask), test_data=(xt, None), train_set_size=2,
+                               batch_size=SEQS, device="cpu", seed=1, task="lm")
+        assert again.load_from(ck) == 1
+    assert all(torch.equal(sim.params_stack[k], again.params_stack[k]) for k in sim.params_stack)
     with pytest.raises(ValueError, match="committee_schedule"):
         sim.run(rounds=1, committee_schedule=np.array([[0, NODES]]))
     with pytest.raises(ValueError, match="committee_schedule"):
