@@ -216,6 +216,21 @@ Phases, each on its own printed lines:
    snapshot, host times of the schedules, ``fleet_health`` and the
    snapshot; then its recovery arm (n 256, killed after 3 of 6 rounds):
    node 0's hash, accuracy and cohort fill equal to the control's.
+12f. asyncpop: ``AsyncPopulationEngine`` at ``bench.py --asyncpop``'s
+   shapes. Throughput: 100,000 vnodes, cohort 0.01, tiers (1, 1, 1, 2, 5),
+   12 windows, ledger attached: every window closes, fold lag <=
+   ``ASYNCPOP_MAX_LAG``, simulated throughput per contribution >= 2x the
+   sync barrier's over the matching committee schedule, accuracy finite.
+   IID control (n 256): the async global's hash equal to the sync engine's,
+   accuracy delta 0.0 pp. Flash crowd (n 4096, period 8, 24 windows): folds
+   in every spike and trough, lag and queue bounded. Ceiling: 1,000,000
+   vnodes, bf16 ring, K 2048, 2 windows. Supervisor: the soak gate's
+   kill / oom / sigterm drill on both engines (64 vnodes) heals to the
+   fault-free hash with an identical event log on replay; a real
+   ``torch.cuda.OutOfMemoryError`` in the second round (window) of a
+   three-round chunk heals to it too; the degrade ladder replays
+   identically. Devobs: on / off hash equal; a NaN at window
+   3 under ``park`` stops at its chunk's end with a bundle.
 13. parity: a ``ParityScenario`` (8 MLP nodes, full committee, 3 rounds, one
    signflip node) through the wire's model plane (``run_frames``), real port
    Nodes over the in-memory transport (``run_wire``) and the fused round
@@ -3340,6 +3355,314 @@ def phase_population(card: str) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# The async population phase (phase 12f): bench.py --asyncpop's arms
+# (ASYNCPOP_BENCH_NODES / _WINDOWS / _COHORT, seed 42; the IID control, the
+# flash crowd and one ceiling probe) and scripts/soak_check.py's drill.
+ASYNC_WINDOWS, ASYNC_EVAL_EVERY = 12, 6
+ASYNC_TIERS = (1.0, 1.0, 1.0, 2.0, 5.0)
+ASYNC_CTL_NODES, ASYNC_CTL_WINDOWS = 256, 5
+ASYNC_FC_NODES, ASYNC_FC_PERIOD = 4096, 8
+ASYNC_CEIL_NODES, ASYNC_CEIL_K = 1_000_000, 2048
+SOAK_NODES, SOAK_CHUNKS, SOAK_SEED = 64, 5, 20260807
+
+
+def asyncpop_throughput(card: str, root: str) -> None:
+    """Phase 12f, throughput arm (see the module docstring)."""
+    import os
+
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.config import Settings
+    from p2pfl_tpu_torch.parallel.simulation import simulated_barrier_time
+    from p2pfl_tpu_torch.population import AsyncPopulationEngine
+    from p2pfl_tpu_torch.population.arrivals import CLOSE_REASONS
+    from p2pfl_tpu_torch.population.cohort import committee_schedule
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    eng = AsyncPopulationEngine(POP_NODES, cohort_fraction=POP_COHORT, seed=POP_SEED, speed_tiers=ASYNC_TIERS,
+                                device="cuda")
+    build_s = time.monotonic() - t0
+    try:
+        sched_s: list = []
+        schedule = eng.schedule
+
+        def timed_schedule(*args, **kwargs):
+            t = time.monotonic()
+            out = schedule(*args, **kwargs)
+            sched_s.append(time.monotonic() - t)
+            return out
+
+        eng.schedule = timed_schedule
+        led = eng.attach_ledger(run_id=f"asyncpop-n{POP_NODES}")
+        res = eng.run(ASYNC_WINDOWS, eval_every=ASYNC_EVAL_EVERY)
+        t = time.monotonic()
+        snap = eng.snapshot(res, path=os.path.join(root, "asyncpop_snapshot.json"))
+        snap_s = time.monotonic() - t
+        k, names, node_speed, plan = eng.cohort_k, eng.names, eng.node_speed, eng.plan.cohort_plan
+        commits = sum(1 for e in led.canonical_events() if e["kind"] == "aggregate_committed")
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        eng.close()
+        del eng
+        gc.collect()
+    summ = res.summary()
+    sched = res.schedule
+    check(res.windows == ASYNC_WINDOWS and len(res.close_codes) == ASYNC_WINDOWS
+          and all(int(c) in CLOSE_REASONS for c in res.close_codes), f"asyncpop: windows did not all close {summ}")
+    max_lag = int(sched.lag[sched.present].max())
+    check(max_lag <= int(Settings.ASYNCPOP_MAX_LAG), f"asyncpop: fold lag {max_lag} > ASYNCPOP_MAX_LAG")
+    contribs = summ["contributions"]
+    sync_rounds = max(1, int(np.ceil(contribs / k)))
+    t = time.monotonic()
+    sync_ticks = simulated_barrier_time(committee_schedule(plan, names, sync_rounds, start_round=0), node_speed)
+    baseline_s = time.monotonic() - t
+    async_tpt = contribs / max(summ["sim_time_ticks"], 1e-12)
+    sync_tpt = sync_rounds * k / max(sync_ticks, 1e-12)
+    speedup = async_tpt / max(sync_tpt, 1e-12)
+    check(speedup >= 2.0, f"asyncpop: simulated throughput {speedup:.3f}x the sync barrier's (floor 2x)")
+    check(bool(np.isfinite(res.test_acc[-1])), f"asyncpop: final accuracy {res.test_acc[-1]}")
+    shown = [p.get("window_fill") for name, p in snap["peers"].items() if name != "asyncpop-engine"]
+    check(bool(shown) and all(v is not None for v in shown), "asyncpop: snapshot peers lack window_fill")
+    print(f"[asyncpop] throughput n={POP_NODES}, K={k}, {ASYNC_WINDOWS} windows: {res.seconds_per_window:.4f} "
+          f"s/window (host clock; build {build_s:.2f} s), {contribs} contributions, fills {res.fills.tolist()}, "
+          f"close reasons {summ['close_reasons']}, mean lag {summ['mean_lag']:.4f}, max lag {max_lag}; accuracy "
+          f"{[round(a, 4) for a in res.test_acc]}; simulated throughput {async_tpt:.2f} vs the sync barrier's "
+          f"{sync_tpt:.2f} contributions a tick ({speedup:.3f}x over {sync_rounds} rounds, {sync_ticks:.1f} ticks); "
+          f"{commits} aggregate_committed events in the ledger [{card}]")
+    print(f"[asyncpop] host time: schedule {sched_s[0]:.3f} s for {ASYNC_WINDOWS} windows "
+          f"({sched_s[0] / ASYNC_WINDOWS:.4f} s a window), snapshot {snap_s:.4f} s, the sync baseline's schedule "
+          f"{baseline_s:.3f} s; peak device memory {peak} bytes ({peak / 2**30:.3f} GiB) [{card}]")
+
+
+def asyncpop_control_flash_ceiling(card: str) -> None:
+    """Phase 12f, the IID control, flash-crowd and ceiling arms."""
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.config import Settings
+    from p2pfl_tpu_torch.population import AsyncPopulationEngine, PopulationEngine
+    from p2pfl_tpu_torch.telemetry.ledger import canonical_params_hash
+
+    ctl = dict(cohort_fraction=0.25, seed=POP_SEED + 1, samples_per_node=16, hidden=(16,), device="cuda")
+    with PopulationEngine(ASYNC_CTL_NODES, **ctl) as sync_eng:
+        sync_res = sync_eng.run(ASYNC_CTL_WINDOWS)
+        sync_acc, sync_hash = float(sync_res.test_acc[-1]), canonical_params_hash(sync_eng.gather_params(0))
+    with AsyncPopulationEngine(ASYNC_CTL_NODES, **ctl) as async_eng:
+        async_res = async_eng.run(ASYNC_CTL_WINDOWS)
+        async_acc, async_hash = float(async_res.test_acc[-1]), canonical_params_hash(async_eng.global_params())
+    delta_pp = abs(async_acc - sync_acc) * 100.0
+    check(async_hash == sync_hash, f"asyncpop: IID control hash {async_hash} != the sync engine's {sync_hash}")
+    check(delta_pp == 0.0, f"asyncpop: IID control accuracy delta {delta_pp} pp")
+    print(f"[asyncpop] IID control n={ASYNC_CTL_NODES}, {ASYNC_CTL_WINDOWS} windows: {async_hash} == the sync "
+          f"engine's, accuracy {async_acc:.4f} (delta {delta_pp} pp); {async_res.seconds_per_window:.4f} s/window "
+          f"against {sync_res.seconds_per_round:.4f} s/round [{card}]")
+
+    fc_windows = 3 * ASYNC_FC_PERIOD
+    with AsyncPopulationEngine(ASYNC_FC_NODES, cohort_fraction=0.05, seed=POP_SEED + 2, speed_tiers=ASYNC_TIERS,
+                               trace="flash", trace_period=ASYNC_FC_PERIOD, device="cuda") as fc:
+        fc_k, patience = fc.cohort_k, fc.plan.resolved()[2]
+        fc_res = fc.run(fc_windows, eval_every=fc_windows)
+    sched, summ = fc_res.schedule, fc_res.summary()
+    spike = np.arange(fc_windows) % ASYNC_FC_PERIOD < max(1, ASYNC_FC_PERIOD // 5)
+    for p in range(3):
+        rows = slice(p * ASYNC_FC_PERIOD, (p + 1) * ASYNC_FC_PERIOD)
+        check(fc_res.fills[rows][spike[rows]].sum() > 0 and fc_res.fills[rows][~spike[rows]].sum() > 0,
+              f"asyncpop: flash crowd period {p} stopped folding {fc_res.fills.tolist()}")
+    fc_lag = int(sched.lag[sched.present].max())
+    max_queue, bound = int(sched.queue_depth.max()), (patience + 1) * fc_k
+    check(summ["close_reasons"]["stall"] <= fc_windows // 2, f"asyncpop: flash crowd stalled {summ}")
+    check(fc_lag <= int(Settings.ASYNCPOP_MAX_LAG), f"asyncpop: flash crowd lag {fc_lag}")
+    check(max_queue <= bound, f"asyncpop: flash crowd queue {max_queue} > the stall-patience bound {bound}")
+    print(f"[asyncpop] flash crowd n={ASYNC_FC_NODES}, K={fc_k}, period {ASYNC_FC_PERIOD}, {fc_windows} windows: "
+          f"{summ['contributions']} contributions, fills {fc_res.fills.tolist()}, close reasons "
+          f"{summ['close_reasons']}, max lag {fc_lag} <= {Settings.ASYNCPOP_MAX_LAG}, max queue {max_queue} <= "
+          f"{bound}, {int(sched.dropped.sum())} dropped; {fc_res.seconds_per_window:.4f} s/window [{card}]")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    with AsyncPopulationEngine(ASYNC_CEIL_NODES, cohort_fraction=ASYNC_CEIL_K / ASYNC_CEIL_NODES, seed=POP_SEED + 3,
+                               speed_tiers=ASYNC_TIERS, samples_per_node=8, feature_dim=16, state_dtype="bfloat16",
+                               device="cuda") as ceil:
+        build_s = time.monotonic() - t0
+        ceil_res = ceil.run(2, eval_every=4)
+        dtype = next(iter(ceil.history.values())).dtype
+    total_s = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(ceil_res.windows == 2 and bool(np.isfinite(ceil_res.test_acc[-1])), "asyncpop: the ceiling probe failed")
+    check(dtype == torch.bfloat16, f"asyncpop: the ceiling ring is {dtype}")
+    print(f"[asyncpop] ceiling n={ASYNC_CEIL_NODES}, K={ASYNC_CEIL_K}, bf16 ring: {ceil_res.seconds_per_window:.4f} "
+          f"s/window (fills {ceil_res.fills.tolist()}), build {build_s:.2f} s, {total_s:.2f} s in all; peak device "
+          f"memory {peak} bytes ({peak / 2**30:.3f} GiB) [{card}]")
+
+
+def asyncpop_supervisor(card: str, root: str) -> None:
+    """Phase 12f, supervisor arm: ``scripts/soak_check.py``'s drill on both
+    port engines, on the card, and on each a real out-of-memory error in
+    the middle of a chunk."""
+    import os
+
+    import torch
+
+    from p2pfl_tpu_torch.chaos.plane import ChaosPlane
+    from p2pfl_tpu_torch.management.checkpoint import FLCheckpointer
+    from p2pfl_tpu_torch.parallel import simulation
+    from p2pfl_tpu_torch.population import AsyncPopulationEngine, EngineSupervisor, PopulationEngine, async_engine
+    from p2pfl_tpu_torch.telemetry.ledger import canonical_params_hash
+
+    shape = dict(samples_per_node=8, feature_dim=8, hidden=(8,), batch_size=4, cohort_fraction=0.25, cohort_min=4,
+                 seed=SOAK_SEED, device="cuda")
+    kinds = ("kill", "oom", "sigterm")
+    faults = ChaosPlane().plan_host_faults(SOAK_CHUNKS, seed=SOAK_SEED, kinds=kinds)
+
+    def final_hash(engine) -> str:
+        return canonical_params_hash(engine.global_params() if hasattr(engine, "global_params")
+                                     else engine.gather_params(0))
+
+    for label, cls in (("population", PopulationEngine), ("async", AsyncPopulationEngine)):
+        def factory(**kw):
+            return cls(**{"num_nodes": SOAK_NODES, **shape, **kw})
+
+        t0 = time.monotonic()
+        with factory() as ctrl:
+            # The training calls of the first round (window); the next one
+            # lies inside the second, where the mid-chunk drill fails.
+            first = ctrl.cohort_k if cls is PopulationEngine else int(ctrl.schedule(1).fill()[0])
+            ctrl.run(SOAK_CHUNKS)
+            control = final_hash(ctrl)
+        reports = []
+        for run in ("first", "replay"):
+            with FLCheckpointer(os.path.join(root, f"soak-{label}-{run}"), max_to_keep=2) as ck, \
+                    EngineSupervisor(factory, ck, node=f"soak-{label}", faults=faults, backoff_s=0.0) as sup:
+                rep = sup.run(SOAK_CHUNKS, chunk=1)
+                check(not rep.parked and rep.completed == SOAK_CHUNKS, f"supervisor {label}: {rep.park_reason}")
+                check({ev.kind for ev in rep.faults_executed} == set(kinds), f"supervisor {label}: faults {rep}")
+                healed = final_hash(sup.engine)
+            check(healed == control, f"supervisor {label}: healed hash {healed} != the control's {control}")
+            reports.append(rep)
+        check(reports[0].events == reports[1].events, f"supervisor {label}: the replay's event log diverged")
+        print(f"[asyncpop] supervisor {label} (n={SOAK_NODES}, {SOAK_CHUNKS} chunks, faults "
+              f"{[(ev.when, ev.kind) for ev in faults]}): healed to the control's {control}, restarts "
+              f"{reports[0].restarts}, {len(reports[0].events)} events identical on replay, journal "
+              f"{reports[0].journal_s / max(1, reports[0].journals) * 1000:.1f} ms each, "
+              f"{time.monotonic() - t0:.2f} s [{card}]")
+        # A real out-of-memory error from the card's allocator inside the
+        # second round (window) of a three-round chunk: the engine drops its
+        # part-written state and the supervisor heals it from the journal.
+        module = simulation if cls is PopulationEngine else async_engine
+        real_step, calls = module.local_train_step, []
+
+        def step(*a, **kw):
+            calls.append(1)
+            if len(calls) == first + 1:
+                torch.empty(1 << 42, dtype=torch.uint8, device="cuda")  # 4 TiB: more than the card holds
+            return real_step(*a, **kw)
+
+        module.local_train_step = step
+        try:
+            with FLCheckpointer(os.path.join(root, f"midchunk-{label}"), max_to_keep=2) as ck, \
+                    EngineSupervisor(factory, ck, node=f"midchunk-{label}", backoff_s=0.0) as sup:
+                rep = sup.run(SOAK_CHUNKS, chunk=3)
+                healed = final_hash(sup.engine)
+        finally:
+            module.local_train_step = real_step
+        check(len(calls) > first + 1 and not rep.parked and rep.completed == SOAK_CHUNKS
+              and rep.restarts == {"oom": 1}, f"supervisor {label} mid-chunk: {rep.restarts} {rep.park_reason}")
+        check(healed == control, f"supervisor {label} mid-chunk: healed hash {healed} != the control's {control}")
+        print(f"[asyncpop] supervisor {label} mid-chunk: the card's OutOfMemoryError at training call {first + 1} "
+              f"(round / window 2 of a 3-chunk) classified oom, healed to the control's hash [{card}]")
+
+    class FailingEngine(PopulationEngine):
+        def run(self, *a, **kw):
+            raise RuntimeError("synthetic permanent chunk failure")
+
+    def failing(**kw):
+        return FailingEngine(**{"num_nodes": 8, **shape, "cohort_fraction": 0.5, "cohort_min": 2, **kw})
+
+    logs = []
+    for run in ("first", "replay"):
+        with FLCheckpointer(os.path.join(root, f"soak-degrade-{run}"), max_to_keep=2) as ck, \
+                EngineSupervisor(failing, ck, node="soak-degrade", max_retries=0, backoff_s=0.0,
+                                 degrade="cohort") as sup:
+            rep = sup.run(SOAK_CHUNKS, chunk=4)
+        check(rep.parked and [a for a, _ in rep.degrade_steps] == ["chunks", "chunks", "cohort"],
+              f"supervisor degrade: {rep.degrade_steps} parked={rep.parked}")
+        logs.append(rep.events)
+    check(logs[0] == logs[1], "supervisor degrade: the ladder's replay diverged")
+    print(f"[asyncpop] supervisor degrade ladder: {[a for a, _ in rep.degrade_steps]} -> park, {len(logs[0])} "
+          f"events identical on replay [{card}]")
+
+
+def asyncpop_devobs(card: str) -> None:
+    """Phase 12f, devobs arm: the async engine's aux stream on the card."""
+    import os
+
+    from p2pfl_tpu_torch.config import Settings
+    from p2pfl_tpu_torch.population import AsyncPopulationEngine
+    from p2pfl_tpu_torch.telemetry.ledger import canonical_params_hash
+
+    kw = dict(cohort_fraction=0.25, seed=POP_SEED + 4, speed_tiers=ASYNC_TIERS, device="cuda")
+    hashes = {}
+    for on in (True, False):
+        with Settings.overridden(DEVOBS_ENABLED=on), AsyncPopulationEngine(ASYNC_CTL_NODES, **kw) as eng:
+            res = eng.run(6, eval_every=6, windows_per_call=2)
+            hashes[on] = canonical_params_hash(eng.global_params())
+            extras, sketches = eng.devobs_summary()
+        if on:
+            secs_on = res.seconds_per_window
+            counts = {m: int(sk.count) for m, sk in sketches.items()}
+        else:
+            secs_off = res.seconds_per_window
+    check(hashes[True] == hashes[False], f"asyncpop devobs: on {hashes[True]} != off {hashes[False]}")
+    check(counts.get("update_norm", 0) > 0 and counts.get("train_loss", 0) > 0, f"asyncpop devobs: sketches {counts}")
+    with Settings.overridden(DEVOBS_ENABLED=True, DEVOBS_NAN_INJECT_ROUND=3, DEVOBS_TRIP_ACTION="park"), \
+            AsyncPopulationEngine(ASYNC_CTL_NODES, **kw) as eng:
+        res = eng.run(6, eval_every=6, windows_per_call=2)
+        parked_at = eng.completed_windows
+    trip = res.tripped
+    check(trip is not None and trip["kind"] == "nonfinite" and trip["round"] == 3 and res.windows == 4
+          and parked_at == 4, f"asyncpop devobs: trip {trip}, {res.windows} windows")
+    check(bool(trip.get("bundle")) and os.path.exists(trip["bundle"]), f"asyncpop devobs: no bundle {trip}")
+    print(f"[asyncpop] devobs n={ASYNC_CTL_NODES}: on / off hash equal {hashes[True]}, sketches {counts}, "
+          f"{secs_on:.4f} / {secs_off:.4f} s/window; NaN at window 3 parked after window {parked_at} "
+          f"(chunk {trip['chunk']}), bundle {os.path.basename(trip['bundle'])} [{card}]")
+
+
+def phase_asyncpop(card: str) -> None:
+    """Phase 12f: the async population engine and the engine supervisor on
+    the card (see the module docstring), in a temporary working directory
+    that the phase removes (park bundles and flight-recorder dumps land
+    there)."""
+    import os
+    import shutil
+    import tempfile
+
+    from p2pfl_tpu_torch.config import Settings
+    from p2pfl_tpu_torch.telemetry.ledger import LEDGERS
+
+    root = tempfile.mkdtemp(prefix="p2pfl_asyncpop_")
+    cwd = os.getcwd()
+    os.chdir(root)
+    snap_settings = Settings.snapshot()
+    try:
+        Settings.LEDGER_ENABLED = True
+        Settings.DOCTOR_BUNDLE_DIR = os.path.join(root, "bundles")
+        LEDGERS.reset()
+        asyncpop_throughput(card, root)
+        gc.collect()
+        asyncpop_control_flash_ceiling(card)
+        gc.collect()
+        asyncpop_supervisor(card, root)
+        gc.collect()
+        asyncpop_devobs(card)
+        print(f"[asyncpop] bytes under the temporary root at the end: {dir_bytes(root)}")
+    finally:
+        Settings.restore(snap_settings)
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def phase_parity() -> None:
     """The port's wire-vs-fused contract on the card: a ``ParityScenario``
     (8 MLP nodes, full committee, 3 rounds, one signflip node) through the
@@ -4001,6 +4324,8 @@ def main() -> int:
         phase_recovery(card)
         gc.collect()
         phase_population(card)
+        gc.collect()
+        phase_asyncpop(card)
         gc.collect()
         phase_topk_ties()
         phase_parity()

@@ -134,6 +134,18 @@ class Settings:
     RECOVERY_PROBE_ENABLED: bool = _env_override("RECOVERY_PROBE_ENABLED", True)
     RECOVERY_PROBE_MAX: int = _env_int("RECOVERY_PROBE_MAX", 8, 1, 1024)
 
+    # --- engine supervisor (population/supervisor.py) -------------------------------
+    # Journal cadence in chunks (engine launches): 1 journals after every chunk.
+    SUPERVISOR_JOURNAL_EVERY: int = _env_int("SUPERVISOR_JOURNAL_EVERY", 1, 1, 1000)
+    # Retries of a failed chunk (each rolls back to the last journal) before
+    # the degrade ladder engages, and the exponential backoff base between
+    # them (sleep = base * 2**attempt).
+    SUPERVISOR_MAX_RETRIES: int = _env_int("SUPERVISOR_MAX_RETRIES", 3, 0, 100)
+    SUPERVISOR_BACKOFF_S: float = _env_float("SUPERVISOR_BACKOFF_S", 0.1, 0.0, 300.0)
+    # After the retries: "off" parks; "chunks" halves the chunk toward 1;
+    # "cohort" then also halves K down to the plan's min_size before parking.
+    SUPERVISOR_DEGRADE: str = _env_choice("SUPERVISOR_DEGRADE", "cohort", ("off", "chunks", "cohort"))
+
     # --- wire compression (ops/compression.py, comm/delta.py) -------------------
     # "none" | "bf16" | "int8" | "topk"; sender-local (the codec spec rides in
     # the frame). "topk" is the sparse delta wire path.
@@ -228,6 +240,28 @@ class Settings:
     POP_COHORT_MIN: int = _env_int("POP_COHORT_MIN", 1, 1, 1 << 20)
     POP_COHORT_SEED: int = _env_int("POP_COHORT_SEED", 0, 0, 2**31 - 1)
     POP_CHURN_RATE: float = _env_float("POP_CHURN_RATE", 0.0, 0.0, 1.0)
+    # Stall patience (seconds) of a population scenario's honest aggregators
+    # while an adaptive adversary's frames are rejected.
+    CAMPAIGN_STALL_PATIENCE: float = _env_float("CAMPAIGN_STALL_PATIENCE", 2.0, 0.1, 3600.0)
+
+    # --- async population windows (population/async_engine.py, arrivals.py) -------
+    # Fill target: FILL_FRACTION of the solicited cohort (>= 1). A window short
+    # of it closes "timeout" (TIMEOUT_TICKS virtual ticks); an empty one closes
+    # "stall", and solicitation pauses while the pending queue is deeper than
+    # STALL_PATIENCE * K. MAX_LAG bounds the anchor history ring and the fold
+    # (older contributions are dropped and counted).
+    ASYNCPOP_FILL_FRACTION: float = _env_float("ASYNCPOP_FILL_FRACTION", 0.5, 0.0, 1.0)
+    ASYNCPOP_TIMEOUT_TICKS: int = _env_int("ASYNCPOP_TIMEOUT_TICKS", 8, 1, 1 << 16)
+    ASYNCPOP_STALL_PATIENCE: int = _env_int("ASYNCPOP_STALL_PATIENCE", 4, 1, 1 << 16)
+    ASYNCPOP_MAX_LAG: int = _env_int("ASYNCPOP_MAX_LAG", 4, 1, 64)
+    # History-ring dtype: float32 for parity, bfloat16 for vnode-ceiling probes.
+    ASYNCPOP_STATE_DTYPE: str = _env_choice("ASYNCPOP_STATE_DTYPE", "float32", ("float32", "bfloat16"))
+    # Arrival trace of the window stream and its shape: the period in windows
+    # (diurnal / regional / flash) and the flash crowd's spike multiple.
+    ASYNCPOP_ARRIVAL_TRACE: str = _env_choice(
+        "ASYNCPOP_ARRIVAL_TRACE", "uniform", ("uniform", "diurnal", "regional", "flash"))
+    ARRIVAL_TRACE_PERIOD: int = _env_int("ARRIVAL_TRACE_PERIOD", 24, 2, 1 << 16)
+    ARRIVAL_FLASH_MULT: float = _env_float("ARRIVAL_FLASH_MULT", 10.0, 1.0, 1000.0)
 
     # --- logging (management/logger.py, management/node_monitor.py) ----------------
     LOG_LEVEL: str = _env_override("LOG_LEVEL", "INFO")

@@ -209,8 +209,10 @@ class FLCheckpointer:
             writer = threading.Thread(target=self._write_step, args=(int(step), flat, meta_bytes),
                                       name=f"checkpoint-writer-{step}", daemon=True)
             with self._lock:
+                # Started before it is published: a drain on another thread
+                # must never join a thread that has not started.
+                writer.start()
                 self._writer = writer
-            writer.start()
         return True
 
     def _write_step(self, step: int, flat: Dict[str, torch.Tensor], meta_bytes: bytes) -> None:

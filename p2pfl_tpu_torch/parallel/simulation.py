@@ -87,6 +87,15 @@ def simulated_barrier_time(committees: np.ndarray, node_speed: Optional[np.ndarr
     return float(speed[comm].max(axis=1).sum())
 
 
+def member_generator(seed: int, round_idx: int, pos: int) -> torch.Generator:
+    """The generator of committee member ``pos`` in round ``round_idx`` (its
+    shuffles and DP noise): ``(seed, round, 1, pos)``. The sync round, the
+    parity learners and the async windows (``round_idx`` a contribution's
+    origin window, ``pos`` its rank in that window's sorted cohort) all draw
+    from it, so a zero-lag window trains as the sync round does."""
+    return _generator(int(seed), int(round_idx), 1, int(pos))
+
+
 def vote_committee(gen: torch.Generator, n: int, k: int) -> torch.Tensor:
     """The reference's committee election.
 
@@ -165,6 +174,18 @@ def fold_devobs_chunk(
     flags = np.stack([np.asarray(aux["nonfinite"], bool), np.asarray(aux["diverged"], bool)], axis=1)
     trip = _first_trip(flags, first_round, 0)
     return None if trip is None else {"kind": trip["kind"], "round": trip["round"]}
+
+
+def fold_devobs_rows(rows: np.ndarray, *, first_round: int, node: str, spec: Tuple[float, int, int],
+                     last: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+    """:func:`fold_devobs_chunk` over one chunk's packed aux rows, ``[rounds,
+    nbins + len(_AUX_COLS)]`` read from the device in one copy: the
+    update-norm bucket counts, then ``_AUX_COLS`` (the sync rounds' and the
+    async windows' rows share the layout)."""
+    nbins = spec[2]
+    aux: Dict[str, Any] = {name: rows[:, nbins + j] for j, name in enumerate(_AUX_COLS)}
+    aux["un_counts"] = rows[:, :nbins].astype(np.int64)
+    return fold_devobs_chunk(aux, aux.pop("train_loss"), first_round=first_round, node=node, spec=spec, last=last)
 
 
 def devobs_summary_for(node: str, last: Dict[str, Any]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
@@ -485,23 +506,8 @@ class MeshSimulation:
         self.y_test = self._to_device(y_test) if y_test is not None else None
 
         # --- population state ---------------------------------------------------
-        n = self.num_nodes
-        template = {k: v.detach().to(self.device, torch.float32) for k, v in model.params.items()}
-        self.params_stack: Params = {k: v[None].repeat((n,) + (1,) * v.dim()) for k, v in template.items()}
-        if per_node_init:
-            for i in range(n):
-                gen = _generator(self.seed, 0, 2, i)
-                for k, v in self.params_stack.items():
-                    v[i] += (0.01 * torch.randn(v.shape[1:], generator=gen)).to(self.device, v.dtype)
-        self.opt_stack = state_map(lambda a: a[None].repeat((n,) + (1,) * a.dim()), self.optimizer.init(template))
-        if algorithm == "scaffold":
-            self.c_stack: Params = {k: torch.zeros_like(v) for k, v in self.params_stack.items()}
-            self.c_global: Dict[str, Any] = {k: torch.zeros_like(v) for k, v in template.items()}
-        elif self.server_tx is not None:
-            self.c_stack = {}
-            self.c_global = {"server_opt": self.server_tx.init(template)}
-        else:
-            self.c_stack, self.c_global = {}, {}
+        self._per_node_init = bool(per_node_init)
+        self.params_stack, self.opt_stack, self.c_stack, self.c_global = self._initial_state()
         # Per-node DP-SGD steps, counted as if every node trained every round
         # (an upper bound on the committee's spend); any non-private step
         # voids the epsilon claim.
@@ -523,6 +529,27 @@ class MeshSimulation:
         # JAX package's engine does: every artifact this engine emits
         # carries the run id.
         establish_run(seed=self.seed, name="engine")
+
+    def _initial_state(self) -> Tuple[Params, Any, Params, Dict[str, Any]]:
+        """The population's initial ``(params_stack, opt_stack, c_stack,
+        c_global)``: every node at the template model (perturbed under
+        ``per_node_init``), the optimizer's initial state stacked, and
+        SCAFFOLD's zero variates or the server optimizer's state."""
+        n = self.num_nodes
+        template = {k: v.detach().to(self.device, torch.float32) for k, v in self.model.params.items()}
+        params: Params = {k: v[None].repeat((n,) + (1,) * v.dim()) for k, v in template.items()}
+        if self._per_node_init:
+            for i in range(n):
+                gen = _generator(self.seed, 0, 2, i)
+                for k, v in params.items():
+                    v[i] += (0.01 * torch.randn(v.shape[1:], generator=gen)).to(self.device, v.dtype)
+        opt = state_map(lambda a: a[None].repeat((n,) + (1,) * a.dim()), self.optimizer.init(template))
+        if self.algorithm == "scaffold":
+            return (params, opt, {k: torch.zeros_like(v) for k, v in params.items()},
+                    {k: torch.zeros_like(v) for k, v in template.items()})
+        if self.server_tx is not None:
+            return params, opt, {}, {"server_opt": self.server_tx.init(template)}
+        return params, opt, {}, {}
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         t = torch.as_tensor(np.asarray(a), device=self.device)
@@ -578,7 +605,7 @@ class MeshSimulation:
         for pos, node in enumerate(committee.tolist()):
             p_i, o_i, loss = local_train_step(
                 {k: v[node] for k, v in params.items()}, state_map(lambda a: a[node], opt),
-                _generator(self.seed, round_idx, 1, pos),
+                member_generator(self.seed, round_idx, pos),
                 self.x[node], self.y[node], self.sample_mask[node],
                 {k: v[node] for k, v in st["c"].items()} if scaffold else None,
                 c_global=st["c_global"] if scaffold else None,
@@ -742,10 +769,17 @@ class MeshSimulation:
         tripwire stopped the run; a later :meth:`load_from` and ``run``
         resume bit-identically (round draws are keyed by the absolute round
         index). The save's host copy is taken before the next round starts;
-        its files are written while the rounds go on.
+        its files are written while the rounds go on. The rounds update the
+        state in place: a chunk that fails part-way drops it (``None``,
+        ``completed_rounds`` at the last save) and raises a ``RuntimeError``
+        that says to restore with :meth:`load_from`; an interrupt is
+        re-raised as it is.
         """
         if self._closed:
             raise RuntimeError("simulation is closed — construct a new MeshSimulation")
+        if self.params_stack is None:
+            raise RuntimeError(
+                "population state lost in a failed chunk — load_from(checkpointer) to restore before running again")
         if int(rounds) != rounds or rounds < 1:
             raise ValueError(f"rounds must be a positive integer, got {rounds!r}")
         for name, val in (("rounds_per_call", rounds_per_call), ("eval_every", eval_every)):
@@ -804,60 +838,75 @@ class MeshSimulation:
         st = self._state()
         done = 0
         t0 = time.monotonic()
-        for c, chunk in enumerate(chunks):
-            # The leading DEVOBS_PROFILE_CHUNKS timed chunks each get a
-            # windowed device trace (distinct labels cooperate with the
-            # window's capture-once-per-label contract).
-            window = (device_trace_window(profile_dir, label=f"mesh_round_chunk{c}")
-                      if c < profile_chunks else contextlib.nullcontext())
-            t_chunk = time.monotonic()
-            if rec is not None:
-                rec.record("chunk_start", chunk=c, rounds=chunk, first_round=start + done,
-                           bytes_in_use=device_memory_watermark()["bytes_in_use"])
-            aux_rows: List[torch.Tensor] = []  # the chunk's devobs rows, on the device
-            floor = torch.full((), float("inf"), device=self.device)  # the chunk's best finite cohort loss
-            with window:
-                for i in range(done, done + chunk):
-                    r = start + i
-                    do_eval = (r + 1) % eval_every == 0 or i == rounds - 1
-                    comm, tr, tl, ta, aux = self._round(st, r, epochs, row(sched, i), do_eval, row(fsched, i),
-                                                        devobs)
-                    if self._ledger is not None:
-                        self._ledger_emit_round(r, comm, row(fsched, i), i == done + chunk - 1)
-                    committees.append(comm)
-                    test_loss.append(tl)
-                    test_acc.append(ta)
-                    if devobs:
-                        finite = torch.isfinite(tr)
-                        diverged = finite & torch.isfinite(floor) & (tr > diverge_mult * floor)
-                        floor = torch.where(finite, torch.minimum(floor, tr), floor)
-                        aux_rows.append(torch.cat([aux, torch.stack([diverged.double(), tr.double()])]))
-            done += chunk
-            # Per chunk, as the JAX package counts: a checkpoint taken after
-            # this chunk carries its privacy spend.
-            if self.dp_clip_norm > 0.0:
-                self._dp_steps_per_node += chunk * steps_per_round
-            else:
-                self._nonprivate_steps_per_node += chunk * steps_per_round
-            if devobs:
-                # One read of the chunk's aux rows, as the JAX package fetches
-                # its aux once a chunk: sketch buckets into SKETCHES, headline
-                # gauges into p2pfl_mesh_*, tripwire flags into a trip record.
-                trip = self._devobs_fold_chunk(torch.stack(aux_rows).cpu().numpy(), start + done - chunk)
-            wm = device_memory_watermark()
-            self._devobs_last["mem_bytes"] = wm["peak_bytes_in_use"]
-            if rec is not None:
-                rec.record("chunk_end", chunk=c, rounds=chunk, wall_s=round(time.monotonic() - t_chunk, 4),
-                           bytes_in_use=wm["bytes_in_use"], peak_bytes=wm["peak_bytes_in_use"])
-            if trip is not None:
-                trip["chunk"] = c
-                break
-            # Save on the cadence, and always after the last chunk, so the
-            # end-of-run state is never memory-only.
-            if checkpointer is not None and ((c + 1) % checkpoint_every == 0 or c == len(chunks) - 1):
-                self.opt_stack, self.c_global = st["opt"], st["c_global"]
-                self.completed_rounds = start + done
-                self.save_to(checkpointer)
+        try:
+            for c, chunk in enumerate(chunks):
+                # The leading DEVOBS_PROFILE_CHUNKS timed chunks each get a
+                # windowed device trace (distinct labels cooperate with the
+                # window's capture-once-per-label contract).
+                window = (device_trace_window(profile_dir, label=f"mesh_round_chunk{c}")
+                          if c < profile_chunks else contextlib.nullcontext())
+                t_chunk = time.monotonic()
+                if rec is not None:
+                    rec.record("chunk_start", chunk=c, rounds=chunk, first_round=start + done,
+                               bytes_in_use=device_memory_watermark()["bytes_in_use"])
+                aux_rows: List[torch.Tensor] = []  # the chunk's devobs rows, on the device
+                floor = torch.full((), float("inf"), device=self.device)  # the chunk's best finite cohort loss
+                with window:
+                    for i in range(done, done + chunk):
+                        r = start + i
+                        do_eval = (r + 1) % eval_every == 0 or i == rounds - 1
+                        comm, tr, tl, ta, aux = self._round(st, r, epochs, row(sched, i), do_eval, row(fsched, i),
+                                                            devobs)
+                        if self._ledger is not None:
+                            self._ledger_emit_round(r, comm, row(fsched, i), i == done + chunk - 1)
+                        committees.append(comm)
+                        test_loss.append(tl)
+                        test_acc.append(ta)
+                        if devobs:
+                            finite = torch.isfinite(tr)
+                            diverged = finite & torch.isfinite(floor) & (tr > diverge_mult * floor)
+                            floor = torch.where(finite, torch.minimum(floor, tr), floor)
+                            aux_rows.append(torch.cat([aux, torch.stack([diverged.double(), tr.double()])]))
+                done += chunk
+                # Per chunk, as the JAX package counts: a checkpoint taken after
+                # this chunk carries its privacy spend.
+                if self.dp_clip_norm > 0.0:
+                    self._dp_steps_per_node += chunk * steps_per_round
+                else:
+                    self._nonprivate_steps_per_node += chunk * steps_per_round
+                if devobs:
+                    # One read of the chunk's aux rows, as the JAX package fetches
+                    # its aux once a chunk: sketch buckets into SKETCHES, headline
+                    # gauges into p2pfl_mesh_*, tripwire flags into a trip record.
+                    trip = fold_devobs_rows(torch.stack(aux_rows).cpu().numpy(), first_round=start + done - chunk,
+                                            node=self._devobs_node, spec=self._devobs_spec, last=self._devobs_last)
+                wm = device_memory_watermark()
+                self._devobs_last["mem_bytes"] = wm["peak_bytes_in_use"]
+                if rec is not None:
+                    rec.record("chunk_end", chunk=c, rounds=chunk, wall_s=round(time.monotonic() - t_chunk, 4),
+                               bytes_in_use=wm["bytes_in_use"], peak_bytes=wm["peak_bytes_in_use"])
+                if trip is not None:
+                    trip["chunk"] = c
+                    break
+                # Save on the cadence, and always after the last chunk, so the
+                # end-of-run state is never memory-only.
+                if checkpointer is not None and ((c + 1) % checkpoint_every == 0 or c == len(chunks) - 1):
+                    self.opt_stack, self.c_global = st["opt"], st["c_global"]
+                    self.completed_rounds = start + done
+                    self.save_to(checkpointer)
+        except BaseException as e:
+            # The rounds update the state in place: a chunk that failed
+            # part-way leaves it part-written. Drop it, as the JAX package
+            # drops its donated buffers; completed_rounds stays at the last
+            # save, so load_from() and run() resume cleanly.
+            self.params_stack = self.opt_stack = None
+            self.c_stack = self.c_global = None
+            if not isinstance(e, Exception):  # an interrupt or exit stays what it is
+                raise
+            raise RuntimeError(
+                "simulation chunk failed with the population state part-written; restore with "
+                "load_from(checkpointer) before running again"
+            ) from e
         self._sync()
         self.opt_stack, self.c_global = st["opt"], st["c_global"]
         self.completed_rounds = start + done
@@ -924,6 +973,8 @@ class MeshSimulation:
         """One node's model (all equal after diffusion), as a new handle."""
         if self._closed:
             raise RuntimeError("simulation closed — extract the model before close()")
+        if self.params_stack is None:
+            raise RuntimeError("population state lost in a failed chunk; load_from(checkpointer) to restore")
         return ModelHandle({k: v[node].clone() for k, v in self.params_stack.items()}, self.model.module)
 
     def state_dict(self) -> Dict[str, Any]:
@@ -1014,16 +1065,6 @@ class MeshSimulation:
 
             self._recorder = FlightRecorder(self._devobs_node)
         return self._recorder
-
-    def _devobs_fold_chunk(self, rows: np.ndarray, first_round: int) -> Optional[Dict[str, Any]]:
-        """Fold one chunk's packed aux rows (``[rounds, nbins +
-        len(_AUX_COLS)]``, read from the device in one copy) through
-        :func:`fold_devobs_chunk`; returns the chunk's first trip or None."""
-        nbins = self._devobs_spec[2]
-        aux: Dict[str, Any] = {name: rows[:, nbins + j] for j, name in enumerate(_AUX_COLS)}
-        aux["un_counts"] = rows[:, :nbins].astype(np.int64)
-        return fold_devobs_chunk(aux, aux.pop("train_loss"), first_round=first_round, node=self._devobs_node,
-                                 spec=self._devobs_spec, last=self._devobs_last)
 
     def devobs_summary(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         """``(extras, extra_sketches)`` from the last run's device-
@@ -1181,6 +1222,10 @@ class MeshSimulation:
                 "simulation is closed (close() also released its training data, which checkpoints do not "
                 "carry) — construct a new MeshSimulation and load_from() that"
             )
+        if self.params_stack is None:
+            # A chunk failed and the state was dropped: restore into a fresh
+            # initial state of the same structure.
+            self.params_stack, self.opt_stack, self.c_stack, self.c_global = self._initial_state()
         state, meta = checkpointer.restore_coherent(self.state_dict(), step, check_meta=self._check_restore_pins)
         self.params_stack = state["params_stack"]
         self.opt_stack = state["opt_stack"]

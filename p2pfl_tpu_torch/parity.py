@@ -8,7 +8,7 @@ What makes bit-exactness possible inside the port:
   :func:`~p2pfl_tpu_torch.parallel.simulation.local_train_step` the fused
   round runs, with the fused round's generator for each member:
   :func:`round_member_keys` reproduces the port's schedule, member ``pos``
-  of round ``r`` drawing from ``seeded_generator(seed, r, 1, pos)``;
+  of round ``r`` drawing from ``member_generator(seed, r, pos)``;
 * **canonical reduction order** — the wire side aggregates with
   :class:`~p2pfl_tpu_torch.learning.aggregators.CanonicalFedAvg`
   (contributor-sorted stack), the fused side with
@@ -38,7 +38,7 @@ import torch
 
 from p2pfl_tpu_torch.config import Settings
 from p2pfl_tpu_torch.device import DeviceLike, resolve_device
-from p2pfl_tpu_torch.learning.learner import Learner, seeded_generator, softmax_cross_entropy
+from p2pfl_tpu_torch.learning.learner import Learner, softmax_cross_entropy
 from p2pfl_tpu_torch.models.model_handle import ModelHandle
 
 
@@ -99,10 +99,12 @@ class ParityScenario:
 def round_member_keys(seed: int, round_abs: int, k: int) -> List[torch.Generator]:
     """The fused round's per-member training generators, reproduced exactly:
     member ``pos`` of round ``round_abs`` draws its shuffles (and DP noise)
-    from ``seeded_generator(seed, round_abs, 1, pos)``. Under
+    from ``member_generator(seed, round_abs, pos)``. Under
     ``canonical_committee`` with the whole population elected, member
     ``pos`` is node ``pos``."""
-    return [seeded_generator(int(seed), int(round_abs), 1, pos) for pos in range(int(k))]
+    from p2pfl_tpu_torch.parallel.simulation import member_generator
+
+    return [member_generator(seed, round_abs, pos) for pos in range(int(k))]
 
 
 def build_train_fn(apply_fn, lr: float, batch_size: int, epochs: int):
@@ -221,6 +223,11 @@ def run_wire(
     nodes: List[Any] = []
     try:
         set_test_settings()
+        # Every node lives through the whole run, so a write-off can only be
+        # false: beats starved on a loaded host. A member written off
+        # mid-round shrinks the fold, a real divergence (as a partial fold
+        # would be, below), so the liveness timeout outlasts any such stall.
+        Settings.HEARTBEAT_TIMEOUT = 30.0
         Settings.LOG_LEVEL = "WARNING"
         Settings.RESOURCE_MONITOR_PERIOD = 0
         Settings.LEDGER_ENABLED = True

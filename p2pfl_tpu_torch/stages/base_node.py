@@ -399,12 +399,17 @@ class TrainStage(Stage):
         # plaintext `own` copy stays local — it is the fallback when the
         # masked aggregate cannot be finalized). The committee is captured
         # HERE, pre-death-shrink: finalize must reason about the set the
-        # masks were generated against, not the set that survived.
+        # masks were generated against, not the set that survived. So is
+        # the round anchor: a peer that finished first may ship its dense
+        # full model while this node still waits, and adopting it advances
+        # the codec's anchor to the next round before finalize runs.
         committee = sorted(set(state.train_set))
         contribution = own
+        mask_anchor = None
         if Settings.PRIVACY_SECAGG:
+            mask_anchor = state.wire.anchor_model()
             contribution = TrainStage._mask_contribution(
-                node, own, state.round or 0, committee
+                node, own, state.round or 0, committee, mask_anchor
             )
         agg_list = node.aggregator.add_model(contribution)
         node.protocol.broadcast(
@@ -450,7 +455,7 @@ class TrainStage(Stage):
         # finalized (unrepaired pair, range-check trip) falls back to the
         # plaintext own model: the federation loses one round of averaging,
         # never its correctness.
-        aggregated = TrainStage._finalize_masked(node, aggregated, own, committee)
+        aggregated = TrainStage._finalize_masked(node, aggregated, own, committee, mask_anchor)
         node.learner.get_model().set_parameters(aggregated.params)
         node.learner.get_model().set_contribution(
             aggregated.contributors, aggregated.get_num_samples()
@@ -484,15 +489,15 @@ class TrainStage(Stage):
         return GossipModelStage
 
     @staticmethod
-    def _mask_contribution(node: "Node", own, r: int, committee: List[str]):
-        """Masked lattice handle of ``own`` for round ``r`` — or ``own``
-        itself (plaintext, warned) when masking is impossible: no round
-        anchor, a committee member's pubkey missing, or a committee too
-        large for the ring. A plaintext contribution in a masked round is
-        dropped by peers' masked merges, so this node just reads as a
-        missing contributor there — degraded, never corrupting."""
+    def _mask_contribution(node: "Node", own, r: int, committee: List[str], anchor=None):
+        """Masked lattice handle of ``own`` for round ``r`` against
+        ``anchor`` (``(leaves, round)``, the codec's round anchor taken at
+        masking time) — or ``own`` itself (plaintext, warned) when masking
+        is impossible: no round anchor, a committee member's pubkey missing,
+        or a committee too large for the ring. A plaintext contribution in a
+        masked round is dropped by peers' masked merges, so this node just
+        reads as a missing contributor there — degraded, never corrupting."""
         state = node.state
-        anchor = state.wire.anchor_model()
         if anchor is None or anchor[1] != r:
             log.warning(
                 "%s: no round-%s anchor — contributing plaintext to the "
@@ -509,15 +514,17 @@ class TrainStage(Stage):
             return own
 
     @staticmethod
-    def _finalize_masked(node: "Node", aggregated, own, committee: List[str]):
+    def _finalize_masked(node: "Node", aggregated, own, committee: List[str], anchor=None):
         """Unmask a lattice-domain aggregate into a model-shaped handle
-        (identity for plaintext aggregates)."""
+        (identity for plaintext aggregates) onto ``anchor``, the round
+        anchor the masks were computed against (taken at masking time: the
+        live codec anchor may have moved on under a racing full-model
+        adoption)."""
         from p2pfl_tpu_torch.privacy.secagg import masked_info
 
         if masked_info(aggregated) is None:
             return aggregated
         state = node.state
-        anchor = state.wire.anchor_model()
         if anchor is None:
             log.warning(
                 "%s: masked aggregate with no anchor — falling back to the "

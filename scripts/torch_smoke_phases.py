@@ -1,6 +1,6 @@
 """Run some of ``chip_smoke.py``'s phases on the card, after its build.
 
-    python3 scripts/torch_smoke_phases.py recovery population
+    python3 scripts/torch_smoke_phases.py recovery population asyncpop
 
 Each argument names a ``phase_<name>`` of ``chip_smoke.py`` that takes the
 card's name (``nvidia-smi``'s name and power limit) as its only argument;

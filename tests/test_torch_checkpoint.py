@@ -551,6 +551,41 @@ def test_concurrent_saves_all_land(tmp_path):
         assert meta == {"s": s} and np.all(state["w"] == s)
 
 
+def test_a_reader_draining_during_a_save_joins_a_started_writer(tmp_path, monkeypatch):
+    """A reader on another thread (``all_steps``, as a waiting caller polls
+    it) drains while ``save`` hands over its writer: the handle it joins has
+    been started, never one still unstarted."""
+    from types import SimpleNamespace
+
+    from p2pfl_tpu_torch.management import checkpoint as ck_mod
+
+    ck = FLCheckpointer(str(tmp_path / "ck"))
+    errors, drained = [], threading.Event()
+
+    def reader():
+        try:
+            ck.all_steps()
+        except Exception as exc:  # noqa: BLE001 - collected for the assertion
+            errors.append(exc)
+        finally:
+            drained.set()
+
+    class ReaderFirst(threading.Thread):
+        """Lets the reader drain just before the writer starts, where the
+        save allows it."""
+
+        def start(self):
+            threading.Thread(target=reader).start()
+            drained.wait(0.5)
+            super().start()
+
+    monkeypatch.setattr(ck_mod, "threading", SimpleNamespace(Thread=ReaderFirst, Lock=threading.Lock))
+    assert ck.save(1, {"w": np.ones(2, np.float32)}, {"s": 1})
+    assert drained.wait(10)
+    ck.wait()
+    assert errors == [] and ck.all_steps() == [1]
+
+
 # --- parity with the JAX package -------------------------------------------------------------
 
 

@@ -311,3 +311,88 @@ def test_fleet_health_and_snapshot_match_jax(tmp_path):
         "vnode/00001"
     with open(path) as f:
         assert json.load(f)["fleet"]["size"] == 5
+
+
+# --- the async population engine's devobs stream (the JAX package's test_devobs.py) ---------
+
+ASYNC_KW = dict(cohort_fraction=0.5, seed=7, samples_per_node=8, feature_dim=8, num_classes=4, hidden=(8,),
+                batch_size=4, lr=0.05)
+
+
+def _sketch_counts(node):
+    from p2pfl_tpu_torch.telemetry.sketches import SKETCHES
+
+    un, tl = SKETCHES.get("update_norm", node), SKETCHES.get("train_loss", node)
+    return (0 if un is None else un.count, 0 if tl is None else tl.count)
+
+
+def test_async_engine_aux_stream_and_park_trip():
+    """The async engine's aux stream fills the update-norm and train-loss
+    sketches without changing a bit of the trajectory; a NaN injected at
+    window 2 with ``park`` stops at the end of its chunk (4 windows run)."""
+    from p2pfl_tpu_torch.population import AsyncPopulationEngine
+    from p2pfl_tpu_torch.telemetry.ledger import canonical_params_hash
+    from p2pfl_tpu_torch.telemetry.sketches import SKETCHES
+
+    SKETCHES.reset()
+    with Settings.overridden(DEVOBS_ENABLED=True):
+        with AsyncPopulationEngine(8, device="cpu", **ASYNC_KW) as eng:
+            eng.run(4, eval_every=4, windows_per_call=2)
+            h_on = canonical_params_hash(eng.global_params())
+    on_counts = _sketch_counts("asyncpop-engine")
+    assert on_counts[0] > 0 and on_counts[1] > 0
+    SKETCHES.reset()
+    with Settings.overridden(DEVOBS_ENABLED=False):
+        with AsyncPopulationEngine(8, device="cpu", **ASYNC_KW) as eng:
+            eng.run(4, eval_every=4, windows_per_call=2)
+            h_off = canonical_params_hash(eng.global_params())
+    assert h_on == h_off
+    assert _sketch_counts("asyncpop-engine") == (0, 0)
+
+    with Settings.overridden(DEVOBS_ENABLED=True, DEVOBS_NAN_INJECT_ROUND=2, DEVOBS_TRIP_ACTION="park"):
+        with AsyncPopulationEngine(8, device="cpu", **ASYNC_KW) as eng:
+            res = eng.run(6, eval_every=6, windows_per_call=2)
+            assert eng.completed_windows == 4
+    assert res.tripped is not None and res.tripped["kind"] == "nonfinite"
+    assert res.tripped["round"] == 2 and res.windows == 4 and res.tripped["chunk"] == 1
+    assert res.tripped["bundle"] is not None and os.path.exists(res.tripped["flightrec"])
+
+
+def test_async_engine_aux_stream_equals_the_jax_package():
+    """Same windows (the JAX engine's initial globals carried in, one batch
+    a vnode, f32 compute): the update-norm bucket counts, zeros and
+    participants of the aux stream equal the JAX package's, the quantiles
+    and the last window loss within the sketch's error; abort raises the
+    JAX package's message at the same window with the state parked."""
+    from p2pfl_tpu.population import AsyncPopulationEngine as JaxAsyncPopulationEngine
+    from p2pfl_tpu.telemetry.sketches import SKETCHES as JAX_SKETCHES
+    from p2pfl_tpu_torch.models.convert import flax_to_torch
+    from p2pfl_tpu_torch.population import AsyncPopulationEngine
+    from p2pfl_tpu_torch.telemetry.sketches import SKETCHES
+
+    kw = {**ASYNC_KW, "batch_size": 8, "speed_tiers": (1.0, 2.0, 3.0)}
+    SKETCHES.reset()
+    JAX_SKETCHES.reset()
+    with Settings.overridden(COMPUTE_DTYPE="float32", DEVOBS_ENABLED=True), \
+            JaxSettings.overridden(COMPUTE_DTYPE="float32", DEVOBS_ENABLED=True), \
+            JaxAsyncPopulationEngine(12, **kw) as ref, AsyncPopulationEngine(12, device="cpu", **kw) as eng:
+        eng.history = flax_to_torch(jax.tree.map(np.asarray, ref.history), device="cpu")
+        ref.run(6, eval_every=6, windows_per_call=3)
+        eng.run(6, eval_every=6, windows_per_call=3)
+        (extras, sk), (jextras, jsk) = eng.devobs_summary(), ref.devobs_summary()
+    assert sk["update_norm"].count == jsk["update_norm"].count
+    assert sk["update_norm"].zero_count == jsk["update_norm"].zero_count > 0  # the empty slots
+    assert sk["train_loss"].count == jsk["train_loss"].count
+    for q in (0.1, 0.5, 0.9):
+        assert sk["update_norm"].quantile(q) == pytest.approx(jsk["update_norm"].quantile(q), rel=1e-4)
+    assert extras["train_loss"] == pytest.approx(jextras["train_loss"], rel=1e-5)
+    knobs = dict(DEVOBS_ENABLED=True, DEVOBS_NAN_INJECT_ROUND=3, DEVOBS_TRIP_ACTION="abort")
+    msgs = []
+    with Settings.overridden(**knobs), JaxSettings.overridden(**knobs):
+        for cls, extra in ((JaxAsyncPopulationEngine, {}), (AsyncPopulationEngine, {"device": "cpu"})):
+            with cls(12, **kw, **extra) as e:
+                with pytest.raises(RuntimeError, match="devobs tripwire") as err:
+                    e.run(6, eval_every=6, windows_per_call=2)
+                assert e.completed_windows == 4 and e.global_params() is not None
+                msgs.append(re.sub(r"dump: \S+;", "dump: -;", str(err.value)))
+    assert msgs[0] == msgs[1]

@@ -15,7 +15,10 @@ for name in {BLOCKED!r}:
 import p2pfl_tpu_torch
 names = ["p2pfl_tpu_torch"] + [m.name for m in pkgutil.walk_packages(p2pfl_tpu_torch.__path__, "p2pfl_tpu_torch.")]
 assert {{"p2pfl_tpu_torch.management.checkpoint", "p2pfl_tpu_torch.population.engine",
-         "p2pfl_tpu_torch.population.sharding", "p2pfl_tpu_torch.population.scenarios"}} <= set(names), names
+         "p2pfl_tpu_torch.population.sharding", "p2pfl_tpu_torch.population.scenarios",
+         "p2pfl_tpu_torch.population.arrivals", "p2pfl_tpu_torch.population.async_engine",
+         "p2pfl_tpu_torch.population.supervisor", "p2pfl_tpu_torch.config",
+         "p2pfl_tpu_torch.population"}} <= set(names), names
 for name in names:
     importlib.import_module(name)
 leaked = sorted(n for n in sys.modules if sys.modules[n] is not None and n.split(".")[0] in {BLOCKED!r})

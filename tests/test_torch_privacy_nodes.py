@@ -160,6 +160,40 @@ def test_masked_federation_equals_its_maskless_twin_every_round(monkeypatch, pos
     assert runs[0] == runs[1]
 
 
+def test_masked_round_finalizes_on_its_own_anchor_when_a_full_model_races_ahead(monkeypatch, postmortem):
+    """The mixed federation's fault under load, forced: node 0 finalizes
+    each masked round only after adopting the peer's dense full model for
+    that round has moved node 0's codec anchor to the next round. The
+    finalize still unmasks onto the anchor the masks were computed against:
+    every round ``ok`` on both nodes and equal final parameters (before the
+    repair: ``structure`` and node 0 fell back to its own local model)."""
+    from p2pfl_tpu_torch.stages.base_node import TrainStage
+
+    finalize = TrainStage._finalize_masked
+    raced = []
+
+    def late_finalize(node, aggregated, own, committee, *rest):
+        if node.addr == ADDRS[0]:
+            r = node.state.round or 0
+            # The adoption re-anchors last, after it notes the round's model.
+            if _wait(lambda: node.state.wire.anchor_round > r, timeout=20.0):
+                raced.append((r, node.state.wire.anchor_round))
+        return finalize(node, aggregated, own, committee, *rest)
+
+    monkeypatch.setattr(TrainStage, "_finalize_masked", staticmethod(late_finalize))
+    Settings.WIRE_COMPRESSION = "none"  # dense full models, as in the mixed federation: adopting one re-anchors
+    nodes, _ = _federate(_partitions(), 2, postmortem)
+    try:
+        assert raced and all(anchor_round == r + 1 for r, anchor_round in raced), (raced, postmortem(nodes))
+        ok = _counter("p2pfl_privacy_masked_rounds_total")
+        assert ok == {(a, "ok"): 2.0 for a in ADDRS}, (ok, postmortem(nodes))
+        a, b = ([t.cpu().numpy() for t in nd.learner.get_model().get_parameters()] for nd in nodes)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    finally:
+        _stop(nodes)
+
+
 def test_masker_dropout_is_repaired_within_the_plaintext_same_kill_bound(postmortem):
     parts = _partitions()
     trace = CHAOS.plan_masker_dropout(DROPOUT_ROUNDS, ADDRS, seed=7, drop_round=KILL_ROUND)
