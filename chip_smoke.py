@@ -167,6 +167,23 @@ Phases, each on its own printed lines:
    says bit for bit; ``adaptive_poison`` on the card equals the CPU's; a
    traced send's ``recv:`` span is parented on the sender's; teardown
    leaves no transport thread and an empty registry.
+12a'. native: the native PFLT codec (``p2pfl_tpu_torch/native/``) built
+   with ``g++`` into ``build/`` (the compiler's version and the library's
+   path printed; a failed build or load fails the run). The fitted LM's
+   dense f32 frame (83,964,992 bytes): the native and the pure-Python
+   encodes byte-equal with and without CRC, each encode's median ms over 9
+   runs taken in turns, ``zlib.crc32``'s ms over the payload and its share
+   of each, and the wire's encode from the card's leaves either way; a
+   decode onto the card bit-equal to the leaves; a flipped tensor byte and a
+   flipped header byte each fail the decode. The interop arm: a user's
+   ``nn.Module`` MLP (784-256-128-10) in a canonical ``TorchModelHandle``
+   trains through the interop ``TorchLearner`` on the card against the
+   port's zoo MLP Node on the card, over the in-memory wire, two rounds:
+   both finish and their final canonical parameters lie within 1e-5. The
+   gRPC arm runs two port Nodes of the full-width LM over localhost gRPC
+   for one round (equal committed hashes, exact launches of rows 1-4) where
+   ``grpc`` and ``google.protobuf`` import, and otherwise prints that it
+   did not run.
 12b. node: three port ``Node`` s on the in-memory transport, fully
    connected, each training phase 11's full-width LM on the card (64
    sequences of 1024 tokens a node, batch 8, Adam 3e-4) through the default
@@ -178,7 +195,11 @@ Phases, each on its own printed lines:
    rows 1-4 launched exactly 2 x 3 x 32 times (row 2: 3 evaluations a node x
    8); the test loss falling; s/round (host clock), stage seconds, the fits'
    seconds on the executor's threads, peak memory, frame bytes a round; then
-   one more round under phase 12a's seeded faults. First, the wire's
+   one more round under phase 12a's seeded faults. The two rounds' frames
+   go through the native codec: its pack counter rises by at least the
+   dense frames the nodes built (one encode each; an init or full model goes
+   to every peer from one), and the pure-Python one does not rise.
+   First, the wire's
    NaN-preserving bf16 round on the card against the CPU's on 2^20 f32
    values with NaN payloads of both signs.
 12c. secagg: the privacy plane. Its full-size passes on the card against
@@ -2458,6 +2479,252 @@ def phase_transport(model, anchor: list, card: str) -> None:
     print("[transport] teardown: all four stopped; no memsrv / heartbeater / gossiper thread left; registry empty")
 
 
+NATIVE_RUNS = 9  # encodes timed per variant, the variants in turns (the median is printed)
+
+
+def phase_native(card: str, model=None) -> None:
+    """Phase 12a' (see the module docstring): the native PFLT codec's build,
+    the dense frame of ``model`` (the fitted full-width LM; run alone, the
+    LM from seed 0, whose frame has the same shapes and bytes) through both
+    encoders, decode onto the card and corruption; then the interop arm and
+    the gRPC arm."""
+    import importlib.util
+    import os
+    import statistics
+    import struct
+    import zlib
+
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch import native
+    from p2pfl_tpu_torch.config import Settings
+    from p2pfl_tpu_torch.exceptions import DecodingParamsError
+    from p2pfl_tpu_torch.models.model_handle import decode_wire_frame
+    from p2pfl_tpu_torch.models.transformer import transformer_lm_model
+    from p2pfl_tpu_torch.ops.serialization import serialize_arrays
+
+    try:
+        path, cxx = native.build()
+    except Exception as e:  # noqa: BLE001 - a failed build fails the phase
+        check(False, f"native: the codec did not build: {type(e).__name__}: {e}")
+    check(native.native_available() and native.BUILD_ERROR is None,
+          f"native: the codec did not load: {native.BUILD_ERROR}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    print(f"[native] {cxx}; library {os.path.relpath(path, root)} ({os.path.getsize(path)} bytes), loaded")
+
+    if model is None:
+        model = transformer_lm_model(seed=0, vocab_size=VOCAB, num_layers=LAYERS, num_heads=HEADS, embed_dim=EMBED,
+                                     attention_kind="flash", device="cuda")
+    leaves = model.get_parameters()
+    host = [t.detach().cpu() for t in leaves]
+    meta = {"contributors": model.contributors, "num_samples": model.num_samples,
+            "additional_info": model.additional_info}
+
+    def encode(checksum: bool, pure: bool):
+        with Settings.overridden(NO_NATIVE=pure):
+            return serialize_arrays(host, meta, checksum)
+
+    def median_ms(*fns) -> list:
+        """Each of ``fns``' median ms over ``NATIVE_RUNS`` calls, the
+        functions taken in turns (the host's speed drifts within a run)."""
+        times: list = [[] for _ in fns]
+        for _ in range(NATIVE_RUNS):
+            for fn, ts in zip(fns, times):
+                t0 = time.perf_counter()
+                out = fn()
+                ts.append((time.perf_counter() - t0) * 1e3)
+                del out
+        return [statistics.median(ts) for ts in times]
+
+    native.reset_packs()
+    frames = {}
+    for checksum in (True, False):
+        nat, pure = encode(checksum, False), encode(checksum, True)
+        check(isinstance(nat, bytearray) and isinstance(pure, bytes),
+              f"native: encoders returned {type(nat).__name__} / {type(pure).__name__}")
+        check(nat == pure, f"native: the native and pure-Python frames differ (crc {checksum})")
+        frames[checksum] = nat
+    check(native.PACKS == {"native": 2, "pure": 2}, f"native: pack counts {native.PACKS}")
+    frame = frames[True]
+    wire = model.encode_parameters(compression="none")
+    check(bytes(wire) == frame, "native: the model's dense wire frame differs from its leaves' frame")
+    raws = [t.numpy() for t in host]
+
+    def crc_payload() -> int:
+        crc = 0
+        for r in raws:
+            crc = zlib.crc32(r.view(np.uint8).data, crc)
+        return crc
+
+    def wire_encode(pure: bool):
+        with Settings.overridden(NO_NATIVE=pure):
+            return model.encode_parameters(compression="none")
+
+    variants = [(checksum, pure) for checksum in (True, False) for pure in (False, True)]
+    timed = median_ms(*[lambda c=c, p=p: encode(c, p) for c, p in variants], crc_payload,
+                      lambda: wire_encode(False), lambda: wire_encode(True))
+    ms = dict(zip(variants, timed))
+    crc_ms, wire_ms = timed[4], {False: timed[5], True: timed[6]}
+    print(f"[native] the dense f32 frame ({len(host)} leaves, {len(frame)} bytes): native == pure-Python bytes "
+          f"with and without CRC; median of {NATIVE_RUNS} encodes from host leaves: native {ms[True, False]:.2f} ms, "
+          f"pure {ms[True, True]:.2f} ms with CRC; native {ms[False, False]:.2f} ms, pure {ms[False, True]:.2f} ms "
+          f"without [{card}]")
+    print(f"[native] zlib.crc32 over the payload {crc_ms:.2f} ms: {100 * crc_ms / ms[True, False]:.1f} % of the "
+          f"native encode, {100 * crc_ms / ms[True, True]:.1f} % of the pure one; from the card's leaves "
+          f"(encode_parameters, device-to-host copies included): native {wire_ms[False]:.2f} ms, pure "
+          f"{wire_ms[True]:.2f} ms [{card}]")
+
+    decoded, got_meta = decode_wire_frame(frame, "cuda")
+    torch.cuda.synchronize()
+    check(len(decoded) == len(leaves) and all(d.is_cuda and torch.equal(d, t) for d, t in zip(decoded, leaves)),
+          "native: the frame decoded onto the card differs from the leaves")
+    _, header_len, _ = struct.unpack_from("<HII", frame, 4)
+    for label, offset in (("tensor", len(frame) // 2), ("header", 14 + header_len // 2)):
+        bad = bytearray(frame)
+        bad[offset] ^= 0x5A
+        try:
+            decode_wire_frame(bad, "cuda")
+        except DecodingParamsError as e:
+            print(f"[native] a flipped {label} byte (offset {offset}) fails the decode: {e}")
+        else:
+            check(False, f"native: a flipped {label} byte at offset {offset} decoded")
+    print(f"[native] the frame decoded onto the card equals the {len(leaves)} leaves bit for bit")
+    native_interop(card)
+    if importlib.util.find_spec("grpc") is None or importlib.util.find_spec("google.protobuf") is None:
+        print("grpc: not run on this machine (grpcio/protobuf not installed)")
+    else:
+        native_grpc(card, model)
+
+
+INTEROP_ROUNDS = 2
+
+
+def native_interop(card: str) -> None:
+    """The interop arm of phase 12a': a user's ``nn.Module`` MLP in a
+    canonical ``TorchModelHandle`` (the flax layout on the wire) trained by
+    the interop ``TorchLearner`` on the card, and the port's zoo MLP Node on
+    the card, over the in-memory wire, FedAvg, ``INTEROP_ROUNDS`` rounds."""
+    import torch
+    from torch import nn
+    from p2pfl_tpu_torch.comm.memory.registry import InMemoryRegistry
+    from p2pfl_tpu_torch.config import Settings
+    from p2pfl_tpu_torch.learning.aggregators import FedAvg
+    from p2pfl_tpu_torch.learning.dataset import RandomIIDPartitionStrategy, synthetic_mnist
+    from p2pfl_tpu_torch.learning.interop import TorchLearner, TorchModelHandle, torch_mlp_from_wire, torch_mlp_to_wire
+    from p2pfl_tpu_torch.learning.learner import LearnerFactory
+    from p2pfl_tpu_torch.models.mlp import mlp_model
+    from p2pfl_tpu_torch.node import Node
+    from p2pfl_tpu_torch.utils.utils import set_test_settings, wait_convergence
+
+    torch.manual_seed(24)
+    user = nn.Sequential(nn.Flatten(), nn.Linear(784, 256), nn.ReLU(), nn.Linear(256, 128), nn.ReLU(),
+                         nn.Linear(128, 10))
+    handle = TorchModelHandle(user, to_wire=torch_mlp_to_wire, from_wire=torch_mlp_from_wire, device="cuda")
+    check(LearnerFactory.create_learner(handle) is TorchLearner, "native: 'pytorch' is not the interop learner")
+    parts = synthetic_mnist(n_train=2 * 512, n_test=256).generate_partitions(2, RandomIIDPartitionStrategy)
+    snap = Settings.snapshot()
+    nodes: list = []
+    try:
+        set_test_settings()
+        Settings.LOG_LEVEL = "WARNING"
+        Settings.RESOURCE_MONITOR_PERIOD = 0
+        Settings.WIRE_COMPRESSION = "none"
+        Settings.HEARTBEAT_TIMEOUT = 30.0  # no node dies here: a write-off could only be a starved beat
+        nodes = [Node(mlp_model(seed=0, device="cuda"), parts[0], addr="mem://interop-zoo", aggregator=FedAvg(),
+                      batch_size=64, device="cuda"),
+                 Node(handle, parts[1], addr="mem://interop-user", learner=TorchLearner, aggregator=FedAvg(),
+                      batch_size=64, device="cuda")]
+        for nd in nodes:
+            nd.start()
+        nodes[1].connect(nodes[0].addr)
+        wait_convergence(nodes, 1, wait=30)
+        t0 = time.monotonic()
+        nodes[0].set_start_learning(rounds=INTEROP_ROUNDS, epochs=1)
+        wait_for(lambda: all(not nd.learning_in_progress() and nd.learning_workflow is not None for nd in nodes),
+                 f"native: the interop federation did not finish {INTEROP_ROUNDS} rounds", timeout=300.0)
+        seconds = time.monotonic() - t0
+        for nd in nodes:
+            check(nd.learning_workflow.history.count("RoundFinishedStage") == INTEROP_ROUNDS,
+                  f"native: {nd.addr} ran {nd.learning_workflow.history}")
+        zoo, mine = (nd.learner.get_model().get_parameters() for nd in nodes)
+        check(all(t.is_cuda for t in mine) and next(user.parameters()).is_cuda,
+              "native: the user's module did not train on the card")
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(zoo, mine))
+        metrics = [nd.learner.evaluate() for nd in nodes]
+        print(f"[native] interop: a user nn.Module MLP (interop TorchLearner) and the zoo MLP Node, {INTEROP_ROUNDS} "
+              f"rounds on the card over canonical frames in {seconds:.3f} s; final parameters max |diff| {err:.3e} "
+              f"(tol 1e-5); test accuracy zoo {metrics[0]['test_acc']:.4f}, user {metrics[1]['test_acc']:.4f} [{card}]")
+        check(err <= 1e-5, "native: the interop Node's final parameters differ from the zoo Node's")
+    finally:
+        for nd in nodes:
+            nd.stop()
+        InMemoryRegistry.reset()
+        Settings.restore(snap)
+
+
+def native_grpc(card: str, model) -> None:
+    """The gRPC arm of phase 12a': two port Nodes of the full-width LM over
+    localhost gRPC sockets, committee 2, ``CanonicalFedAvg``, dense frames,
+    one round: both finish and commit the same hash, and rows 1-4 launch
+    exactly two fits' and four evaluations' worth."""
+    import numpy as np
+    from p2pfl_tpu_torch.comm.grpc import GrpcCommunicationProtocol
+    from p2pfl_tpu_torch.config import Settings
+    from p2pfl_tpu_torch.learning.aggregators import CanonicalFedAvg
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.node import Node
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.telemetry.ledger import LEDGERS
+    from p2pfl_tpu_torch.utils.utils import set_test_settings, wait_convergence
+
+    (x, y, _), xt = lm_data(24)
+    snap = Settings.snapshot()
+    nodes: list = []
+    try:
+        set_test_settings()
+        Settings.LOG_LEVEL = "WARNING"
+        Settings.RESOURCE_MONITOR_PERIOD = 0
+        Settings.LEDGER_ENABLED = True
+        Settings.WIRE_COMPRESSION = "none"
+        Settings.TRAIN_SET_SIZE = 2
+        Settings.GRPC_TIMEOUT = 60.0  # an 84 MB frame a unary call
+        Settings.HEARTBEAT_TIMEOUT = 30.0
+        Settings.AGGREGATION_TIMEOUT = 120.0
+        Settings.AGGREGATION_STALL_PATIENCE = 60.0
+        Settings.GOSSIP_EXIT_ON_X_EQUAL_ROUNDS = 400
+        for i in range(2):
+            data = FederatedDataset.from_arrays(x[i], y[i], xt, np.zeros(len(xt), np.int32))
+            nodes.append(Node(model.build_copy(), data, addr="127.0.0.1", protocol=GrpcCommunicationProtocol,
+                              aggregator=CanonicalFedAvg(), lr=LR, batch_size=BATCH, seed=i, task="lm",
+                              device="cuda"))
+        for nd in nodes:
+            nd.start()
+        nodes[1].connect(nodes[0].addr)
+        wait_convergence(nodes, 1, wait=30)
+        LEDGERS.reset()
+        _kernels.reset_launches()
+        t0 = time.monotonic()
+        nodes[0].set_start_learning(rounds=1, epochs=1)
+        wait_for(lambda: all(not nd.learning_in_progress() and nd.learning_workflow is not None for nd in nodes),
+                 "native: the gRPC federation did not finish its round", timeout=300.0)
+        seconds = time.monotonic() - t0
+        launches = dict(_kernels.LAUNCHES)
+        hashes = [{e["round"]: e["hash"] for e in LEDGERS.peek(nd.addr).canonical_events()
+                   if e["kind"] == "aggregate_committed"} for nd in nodes]
+        per_fit, eval_batches = LAYERS * (SEQS // BATCH), -(-len(xt) // BATCH)
+        expected = {name: 2 * per_fit for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        expected.update(flash_fwd_no_lse=2 * 2 * LAYERS * eval_batches, flash_carry=0)
+        print(f"[native] grpc: two LM Nodes over localhost gRPC ({nodes[0].addr}, {nodes[1].addr}), one round in "
+              f"{seconds:.3f} s; committed {[h.get(0) for h in hashes]}; kernels {json.dumps(launches)} [{card}]")
+        check(hashes[0].get(0) is not None and hashes[0].get(0) == hashes[1].get(0),
+              "native: the gRPC Nodes committed different aggregates")
+        check(launches == expected, f"native: the gRPC round's flash launches differ from {expected}")
+    finally:
+        for nd in nodes:
+            nd.stop()
+        Settings.restore(snap)
+
+
 # The Node federation (phase 12b): three port Nodes of the full-width LM
 # on the in-memory transport, fully connected, committee 3, two rounds.
 NODE_PEERS, NODE_ROUNDS, NODE_DEADLINE_S = 3, 2, 600.0
@@ -2493,6 +2760,7 @@ def phase_node(card: str) -> None:
     from p2pfl_tpu_torch.learning.aggregators import CanonicalFedAvg
     from p2pfl_tpu_torch.learning.dataset import FederatedDataset
     from p2pfl_tpu_torch.models.transformer import transformer_lm_model
+    from p2pfl_tpu_torch import native
     from p2pfl_tpu_torch.node import Node
     from p2pfl_tpu_torch.ops import _kernels
     from p2pfl_tpu_torch.ops import aggregation as agg_ops
@@ -2559,6 +2827,15 @@ def phase_node(card: str) -> None:
             inner.fit = recording_fit
             nodes.append(node)
         check(type(nodes[0].learner).__name__ == "VirtualNodeLearner", "node: the default executor is not in use")
+        built: list = []  # commands of the dense weights frames the nodes built (one encode each)
+        for nd in nodes:
+            def counting_build(*args, build=nd.protocol.build_weights, **kwargs):
+                env = build(*args, **kwargs)
+                if env.codec == "dense":
+                    built.append(env.cmd)
+                return env
+
+            nd.protocol.build_weights = counting_build
         for nd in nodes:
             nd.start()
         for i, nd in enumerate(nodes):
@@ -2570,6 +2847,8 @@ def phase_node(card: str) -> None:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _kernels.reset_launches()
+        check(native.native_available(), f"node: the native codec is not loaded ({native.BUILD_ERROR})")
+        native.reset_packs()
         stages_before = stage_seconds()
         t0 = time.monotonic()
         nodes[0].set_start_learning(rounds=NODE_ROUNDS, epochs=1)
@@ -2578,6 +2857,7 @@ def phase_node(card: str) -> None:
         torch.cuda.synchronize()
         seconds = time.monotonic() - t0
         launches = dict(_kernels.LAUNCHES)
+        packs, dense_built = dict(native.PACKS), len(built)
         peak = torch.cuda.max_memory_allocated()
         stages = {k: (v - stages_before.get(k, 0.0)) / NODE_PEERS for k, v in stage_seconds().items()}
         fits = list(fit_seconds)
@@ -2617,6 +2897,13 @@ def phase_node(card: str) -> None:
         print(f"[node] kernels {json.dumps(launches)} (expected {json.dumps(expected)}: {NODE_ROUNDS} rounds x "
               f"{NODE_PEERS} fits x {per_fit}, and {NODE_ROUNDS + 1} evaluations a node x {LAYERS * eval_batches})")
         check(launches == expected, "node: the flash launches differ from the federation's fits and evaluations")
+        dense_sent = sum(v[0] for nd in nodes for (_, r, codec), v in nd.protocol.gossiper.wire_stats().items()
+                         if codec == "dense" and r < NODE_ROUNDS)
+        print(f"[node] frames through the native codec in the {NODE_ROUNDS} rounds: packs {json.dumps(packs)} "
+              f"(native / pure-Python); dense frames built {dense_built} (one encode each; the init and full "
+              f"models go to every peer from one encode), sent {dense_sent}")
+        check(packs["native"] >= dense_built > 0 and dense_sent >= dense_built and packs["pure"] == 0,
+              "node: the federation's frames did not all go through the native codec")
         check(np.isfinite(after["test_loss"]) and after["test_loss"] < before["test_loss"],
               f"node: the test loss did not fall ({before['test_loss']} -> {after['test_loss']})")
         tx = [sum(nd.protocol.gossiper.bytes_for_round(r) for nd in nodes) for r in range(NODE_ROUNDS)]
@@ -4315,6 +4602,7 @@ def main() -> int:
         fitted, anchor = phase_learner()
         phase_wire(fitted, anchor)
         phase_transport(fitted, anchor, card)
+        phase_native(card, fitted)
         del fitted, anchor
         gc.collect()
         phase_node(card)

@@ -68,7 +68,14 @@ def _env_choice(name: str, default: str, choices: tuple) -> str:
 class Settings:
     """Process-wide tunables (the subset the port reads)."""
 
-    # --- transport limits -----------------------------------------------------
+    # --- transport (comm/grpc/) ----------------------------------------------------
+    GRPC_TIMEOUT: float = _env_override("GRPC_TIMEOUT", 10.0)
+    USE_SSL: bool = _env_override("USE_SSL", False)
+    SSL_SERVER_KEY: str = _env_override("SSL_SERVER_KEY", "")
+    SSL_SERVER_CRT: str = _env_override("SSL_SERVER_CRT", "")
+    SSL_CLIENT_KEY: str = _env_override("SSL_CLIENT_KEY", "")
+    SSL_CLIENT_CRT: str = _env_override("SSL_CLIENT_CRT", "")
+    SSL_CA_CRT: str = _env_override("SSL_CA_CRT", "")
     MAX_MESSAGE_BYTES: int = _env_override("MAX_MESSAGE_BYTES", 1 << 30)  # 1 GiB
 
     # --- membership / failure detection (comm/heartbeater.py) -------------------
@@ -229,6 +236,9 @@ class Settings:
     AGGREGATION_STALL_PATIENCE: float = _env_float("AGGREGATION_STALL_PATIENCE", 60.0, 0.0, 3600.0)
     # Dtype of training compute; parameters and aggregation stay float32.
     COMPUTE_DTYPE: str = _env_override("COMPUTE_DTYPE", "bfloat16")
+    # Disable the native (C++) PFLT frame assembly (native/) and take the
+    # byte-identical pure-Python path of ops/serialization.py.
+    NO_NATIVE: bool = _env_override("NO_NATIVE", False)
 
     # --- nodes-mode learner executor (parallel/executor.py) -----------------------
     # Concurrent fit/eval jobs across all in-process nodes (0: inline fits).

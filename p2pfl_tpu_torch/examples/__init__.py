@@ -2,8 +2,6 @@
 
 ``EXAMPLES`` maps a name to ``(module, description)``; the CLI's
 ``experiment`` subcommands (:mod:`p2pfl_tpu_torch.cli`) list and run them.
-The reference's two-process gRPC quickstart (``node1`` / ``node2``) waits
-for the port's ``Node``.
 """
 
 from __future__ import annotations
@@ -12,7 +10,7 @@ EXAMPLES = {
     "mnist": (
         "p2pfl_tpu_torch.examples.mnist",
         "N-node MNIST federation: --nodes/--rounds/--epochs/--aggregator/--server-opt/--dp-clip "
-        "(--mode mesh: one fused simulation on the card; --mode nodes waits for the Node).",
+        "(--mode mesh: one fused simulation on the card; --mode nodes: real Nodes, --protocol memory|grpc).",
     ),
     "cifar": (
         "p2pfl_tpu_torch.examples.cifar",
@@ -24,6 +22,14 @@ EXAMPLES = {
         "p2pfl_tpu_torch.examples.longcontext",
         "Federated long-context LM fine-tuning (task='lm'): --seq-len/--attention {blockwise,flash,dense}/"
         "--layers/--nodes.",
+    ),
+    "node1": (
+        "p2pfl_tpu_torch.examples.node1",
+        "Two-process gRPC quickstart, process 1 (waits for node2, then trains): --addr/--rounds/--device.",
+    ),
+    "node2": (
+        "p2pfl_tpu_torch.examples.node2",
+        "Two-process gRPC quickstart, process 2 (connects to node1): --peer/--device.",
     ),
 }
 

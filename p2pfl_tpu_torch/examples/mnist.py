@@ -4,9 +4,9 @@
 ``--mode mesh`` (the default) runs the whole population as one fused
 simulation on the card (:class:`~p2pfl_tpu_torch.parallel.simulation.
 MeshSimulation`). ``--mode nodes`` runs real :class:`~p2pfl_tpu_torch.node.Node`
-s gossiping over the in-memory transport in ``--topology``, each training on
-``--device`` (``--protocol grpc`` waits for the gRPC transport and raises
-``NotImplementedError``).
+s gossiping in ``--topology`` over the in-memory transport or, with
+``--protocol grpc``, over localhost gRPC sockets, each training on
+``--device``.
 ``--profiling`` writes a host cProfile ``.pstat`` under ``profile/mnist/``;
 ``--trace DIR`` writes a ``torch.profiler`` Chrome trace of the run to
 ``DIR/mnist/trace.json``. ``--measure-time`` times the run itself.
@@ -125,8 +125,6 @@ def run_nodes(args: argparse.Namespace) -> dict:
 
     from p2pfl_tpu_torch.config import Settings
 
-    if args.protocol == "grpc":
-        raise NotImplementedError("--protocol grpc needs the gRPC transport, not ported yet: queue A item 14")
     if args.wire_compression is not None:  # unset keeps the env override
         Settings.WIRE_COMPRESSION = args.wire_compression
     from p2pfl_tpu_torch.learning.dataset import RandomIIDPartitionStrategy, synthetic_mnist
@@ -135,13 +133,22 @@ def run_nodes(args: argparse.Namespace) -> dict:
     from p2pfl_tpu_torch.utils.topologies import TopologyFactory, TopologyType
     from p2pfl_tpu_torch.utils.utils import check_equal_models, wait_convergence, wait_to_finish
 
+    if args.protocol == "grpc":
+        from p2pfl_tpu_torch.comm.grpc.grpc_protocol import GrpcCommunicationProtocol
+
+        protocol, addr = GrpcCommunicationProtocol, "127.0.0.1"  # a free port each
+    else:
+        from p2pfl_tpu_torch.comm.memory.memory_protocol import InMemoryCommunicationProtocol
+
+        protocol, addr = InMemoryCommunicationProtocol, None
+
     data = synthetic_mnist(n_train=args.nodes * args.samples_per_node, n_test=512,
                            seed=42 if args.seed is None else args.seed)
     parts = data.generate_partitions(args.nodes, RandomIIDPartitionStrategy)
     nodes = [
-        Node(mlp_model(seed=0, device=args.device), parts[i], aggregator=_make_aggregator(args.aggregator),
-             batch_size=args.batch_size, dp_clip_norm=args.dp_clip, dp_noise_multiplier=args.dp_noise,
-             device=args.device)
+        Node(mlp_model(seed=0, device=args.device), parts[i], addr=addr, protocol=protocol,
+             aggregator=_make_aggregator(args.aggregator), batch_size=args.batch_size, dp_clip_norm=args.dp_clip,
+             dp_noise_multiplier=args.dp_noise, device=args.device)
         for i in range(args.nodes)
     ]
     for n in nodes:

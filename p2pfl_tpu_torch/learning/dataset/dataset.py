@@ -4,18 +4,18 @@
 :class:`FederatedDataset` holds a train split and an optional test split,
 partitions the train split with a :mod:`.partition` strategy (every
 partition shares the full test split) and exports dense ``(x, y)`` arrays,
-which ``MeshSimulation`` stacks into its ``[N, S, ...]`` population.
+which ``MeshSimulation`` stacks into its ``[N, S, ...]`` population, or a
+framework-native dataset through an :mod:`.export_strategies` class.
 :func:`synthetic_mnist` makes the same deterministic MNIST-shaped data as the
 JAX package, so both run on equal inputs without downloads.
 
-The Hugging Face, CSV, JSON, parquet, pandas and generator constructors and
-the framework export strategies are not ported yet: they raise
-``NotImplementedError``.
+The Hugging Face, CSV, JSON, parquet, pandas and generator constructors are
+not ported yet: they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -177,25 +177,21 @@ class FederatedDataset:
         makes them (the same permutation for the same ``seed``, an int or a
         tuple fed to numpy's ``SeedSequence``); ``wb`` is a 0/1 mask over the
         zero padding of the final partial batch."""
-        split = self._split(train)
-        x, y = split.x, split.y
-        n = len(y)
-        order = np.random.default_rng(seed).permutation(n)
-        x, y = x[order], y[order]
-        steps = n // batch_size if drop_remainder else -(-n // batch_size)
-        pad = 0 if drop_remainder else steps * batch_size - n
-        if pad:
-            x = np.concatenate([x, np.zeros((pad, *x.shape[1:]), x.dtype)])
-            y = np.concatenate([y, np.zeros((pad,), y.dtype)])
-        w = np.ones((steps * batch_size,), np.float32)
-        if pad:
-            w[-pad:] = 0.0
-        m = steps * batch_size
-        return (x[:m].reshape(steps, batch_size, *x.shape[1:]), y[:m].reshape(steps, batch_size),
-                w.reshape(steps, batch_size))
+        from p2pfl_tpu_torch.learning.dataset.export_strategies import BatchedArraysExportStrategy
 
-    def export(self, strategy: type, train: bool = True, batch_size: int = 64, seed=0, **kwargs):
-        raise _not_ported("FederatedDataset.export (export strategies)")
+        return self.export(BatchedArraysExportStrategy, train=train, batch_size=batch_size, seed=seed,
+                           drop_remainder=drop_remainder)
+
+    def export(self, strategy: type, train: bool = True, batch_size: int = 64,
+               seed: "int | Tuple[int, ...]" = 0, **kwargs) -> Any:
+        """Export the split through a framework-native strategy (reference
+        ``P2PFLDataset.export``, p2pfl_dataset.py:224-248): ``strategy`` is
+        an :class:`~p2pfl_tpu_torch.learning.dataset.export_strategies.
+        ExportStrategy` subclass, e.g. ``TorchExportStrategy`` (a
+        ``DataLoader``), ``TensorFlowExportStrategy`` (a ``tf.data.Dataset``)
+        or ``BatchedArraysExportStrategy`` (the learners' batch stacks)."""
+        x, y = self.export_arrays(train)
+        return strategy.export(x, y, train=train, batch_size=batch_size, seed=seed, **kwargs)
 
 
 def synthetic_mnist(

@@ -1,5 +1,7 @@
 """PFLT v2: the safe, self-describing wire format for model weights (the
-port's copy of ``p2pfl_tpu/ops/serialization.py``, on its pure-Python path).
+port's copy of ``p2pfl_tpu/ops/serialization.py``; frames are assembled by
+the native codec of :mod:`p2pfl_tpu_torch.native` where it is built, else
+by the byte-identical pure-Python path).
 
     "PFLT" | u16 version | u32 header_len | u32 crc32 | msgpack header
     | raw array bytes (each 64-byte aligned)
@@ -30,6 +32,7 @@ tensors (on any device; they are copied to the host).
 
 from __future__ import annotations
 
+import ctypes
 import struct
 import zlib
 from typing import Any, Dict, List, Sequence, Tuple, Union
@@ -37,6 +40,7 @@ from typing import Any, Dict, List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from p2pfl_tpu_torch import native
 from p2pfl_tpu_torch.exceptions import DecodingParamsError
 
 _MAGIC = b"PFLT"
@@ -333,18 +337,39 @@ def _frame_crc(header_bytes: bytes, raws: Sequence[np.ndarray]) -> int:
 
 def serialize_arrays(
     arrays: Sequence[Array], metadata: Dict[str, Any] | None = None, checksum: bool = True,
-) -> bytes:
+) -> Union[bytes, bytearray]:
     """Encode a flat list of arrays (numpy or torch) + metadata dict into one
     buffer, byte for byte as the JAX package's encoder. With ``checksum``
-    the frame carries a CRC32 of header + tensor payload."""
+    the frame carries a CRC32 of header + tensor payload.
+
+    Returns a ``bytearray`` written in one pass by the native codec
+    (:mod:`p2pfl_tpu_torch.native`), or ``bytes`` from the pure-Python path
+    when ``Settings.NO_NATIVE`` is set or the codec is unavailable; the bytes
+    are the same."""
     hosts = [_host(a) for a in arrays]
     header = {
         "tensors": [{"dtype": tag, "shape": list(shape)} for tag, shape, _ in hosts],
         "meta": _encode_meta_value(metadata or {}),
     }
     header_bytes = packb(header)
+    # The host views stay referenced by ``hosts`` (C-contiguous, a bf16
+    # tensor's bits as int16) until the frame is written.
     raws = [raw for _, _, raw in hosts]
     crc = _frame_crc(header_bytes, raws) if checksum else 0
+    lib = native.get_lib()
+    if lib is not None:
+        n = len(raws)
+        srcs = (ctypes.c_void_p * n)(*[a.ctypes.data for a in raws])
+        sizes = (ctypes.c_size_t * n)(*[a.nbytes for a in raws])
+        total = lib.pflt_packed_size(sizes, n, len(header_bytes))
+        buf = bytearray(total)
+        written = lib.pflt_pack((ctypes.c_char * total).from_buffer(buf), total, _VERSION, crc,
+                                header_bytes, len(header_bytes), srcs, sizes, n)
+        if written != total:
+            raise RuntimeError(f"native PFLT pack wrote {written} of {total} bytes")
+        native.count_pack("native")
+        return buf
+    native.count_pack("pure")
     parts = [_MAGIC, struct.pack("<HII", _VERSION, len(header_bytes), crc), header_bytes]
     offset = _PREFIX + len(header_bytes)
     parts.append(b"\0" * _pad(offset))

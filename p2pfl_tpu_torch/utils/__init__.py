@@ -1,3 +1,3 @@
-"""Utility helpers (topologies, test helpers, singleton): the port's copy of
-``p2pfl_tpu/utils/``, without the TLS certificate helpers (they come with the
-gRPC transport)."""
+"""Utility helpers (topologies, test helpers, singleton, the mTLS
+certificates of the gRPC transport): the port's copy of
+``p2pfl_tpu/utils/``."""

@@ -24,9 +24,9 @@ if TYPE_CHECKING:  # pragma: no cover
 def set_test_settings() -> None:
     """Shrink every timeout so multi-node tests run fast in one process.
 
-    Mirrors reference utils/utils.py:24-40 (the port has no gRPC transport
-    yet, so no ``GRPC_TIMEOUT``).
+    Mirrors reference utils/utils.py:24-40.
     """
+    Settings.GRPC_TIMEOUT = 0.5
     Settings.HEARTBEAT_PERIOD = 0.25
     Settings.HEARTBEAT_TIMEOUT = 1.5
     Settings.WAIT_HEARTBEATS_CONVERGENCE = 0.3

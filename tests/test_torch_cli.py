@@ -105,8 +105,9 @@ def test_mnist_run_mesh_tracks_jax(monkeypatch):
 ])
 def test_mnist_options_that_wait_for_a_plane_raise(argv, plane, tmp_path, monkeypatch, capsys):
     """``--mode nodes`` runs real port Nodes now that the Node is ported
-    (under the test timings), and its gRPC transport still waits for that
-    plane; ``--profiling`` and ``--trace DIR`` (ported with the profiler)
+    (under the test timings), over the in-memory transport and, with
+    ``--protocol grpc``, over localhost gRPC sockets (ported with the gRPC
+    transport); ``--profiling`` and ``--trace DIR`` (ported with the profiler)
     write what the JAX example writes: a host ``.pstat`` under
     ``profile/mnist/`` and a trace under DIR."""
     monkeypatch.chdir(tmp_path)
@@ -124,8 +125,8 @@ def test_mnist_options_that_wait_for_a_plane_raise(argv, plane, tmp_path, monkey
             PortSettings.RESOURCE_MONITOR_PERIOD = 0
             assert mnist.main(argv + tiny) == 0
             assert "'mode': 'nodes'" in capsys.readouterr().out
-            with pytest.raises(NotImplementedError, match="gRPC"):
-                mnist.main(argv + tiny + ["--protocol", "grpc"])
+            assert mnist.main(argv + tiny + ["--protocol", "grpc"]) == 0
+            assert "'mode': 'nodes'" in capsys.readouterr().out
         finally:
             PortSettings.restore(snap)
             InMemoryRegistry.reset()
@@ -153,9 +154,9 @@ def test_cifar_cost_analysis_waits_for_the_profiler():
 
 
 def test_cli_lists_the_examples_and_refuses_bench(capsys):
-    """The reference's examples but its two-process gRPC quickstart (node1 /
-    node2), which waits for the port's Node."""
-    assert set(EXAMPLES) == set(JAX_EXAMPLES) - {"node1", "node2"}
+    """The reference's examples, its two-process gRPC quickstart (node1 /
+    node2) included."""
+    assert set(EXAMPLES) == set(JAX_EXAMPLES)
     assert cli.main(["experiment", "list"]) == 0
     out = capsys.readouterr().out
     assert all(name in out for name in EXAMPLES)

@@ -9,6 +9,7 @@ import math
 
 import numpy as np
 import pytest
+import torch
 
 from p2pfl_tpu import config as jax_config
 from p2pfl_tpu.learning import privacy as jax_privacy
@@ -158,10 +159,36 @@ def test_train_test_split_equals_jax_and_unported_loaders_raise():
             np.testing.assert_array_equal(a, b)
     for call in (lambda: dataset.FederatedDataset.from_huggingface("ylecun/mnist"),
                  lambda: dataset.FederatedDataset.from_csv("a.csv"),
-                 lambda: dataset.FederatedDataset.from_parquet("a.parquet"),
-                 lambda: got.export(object)):
+                 lambda: dataset.FederatedDataset.from_parquet("a.parquet")):
         with pytest.raises(NotImplementedError):
             call()
+    # export is ported with the export strategies: a class that is not a
+    # strategy fails as in the JAX package.
+    with pytest.raises(AttributeError, match="export"):
+        ref.export(object)
+    with pytest.raises(AttributeError, match="export"):
+        got.export(object)
+
+
+def test_export_through_each_strategy_equals_jax():
+    from p2pfl_tpu.learning.dataset import BatchedArraysExportStrategy as JaxBatched
+    from p2pfl_tpu.learning.dataset import NumpyExportStrategy as JaxNumpy
+    from p2pfl_tpu.learning.dataset import TorchExportStrategy as JaxTorch
+    from p2pfl_tpu_torch.learning.dataset import (BatchedArraysExportStrategy, NumpyExportStrategy,
+                                                  TorchExportStrategy)
+
+    got = dataset.synthetic_mnist(n_train=50, n_test=20)
+    ref = jax_dataset.synthetic_mnist(n_train=50, n_test=20)
+    for train in (True, False):
+        for mine, theirs, kw in ((NumpyExportStrategy, JaxNumpy, {}),
+                                 (BatchedArraysExportStrategy, JaxBatched, {"drop_remainder": train})):
+            for a, b in zip(got.export(mine, train, 16, (2, 0, 1), **kw),
+                            ref.export(theirs, train, 16, (2, 0, 1), **kw)):
+                np.testing.assert_array_equal(a, b)
+        batches = list(zip(got.export(TorchExportStrategy, train, 16, 5), ref.export(JaxTorch, train, 16, 5)))
+        assert len(batches) == (4 if train else 2)
+        for (gx, gy), (rx, ry) in batches:
+            assert torch.equal(gx, rx) and torch.equal(gy, ry)
 
 
 def test_privacy_accountant_equals_jax():

@@ -175,6 +175,14 @@ def test_mixed_federation_of_port_and_jax_nodes_trains_two_rounds(monkeypatch, p
     Settings.GOSSIP_EXIT_ON_X_EQUAL_ROUNDS = JaxSettings.GOSSIP_EXIT_ON_X_EQUAL_ROUNDS = 400
     Settings.AGGREGATION_STALL_PATIENCE = JaxSettings.AGGREGATION_STALL_PATIENCE = 60.0
     Settings.AGGREGATION_TIMEOUT = JaxSettings.AGGREGATION_TIMEOUT = 120.0
+    # No Node dies here, so a write-off can only be false: a loaded host
+    # silenced every beater of both packages for 1.7-1.8 s during the JAX
+    # Nodes' first compile. Write-offs shrink each Node's committee on its
+    # own and a heal does not restore it, so a Node that wrote off everyone
+    # closes the round alone while its peers wait for its model; both
+    # packages do that (scripts/torch_beat_pause_probe.py). The liveness
+    # timeout outlasts such a silence, as parity.run_wire's does.
+    Settings.HEARTBEAT_TIMEOUT = JaxSettings.HEARTBEAT_TIMEOUT = 30.0
     LEDGERS.reset()
     REF_LEDGERS.reset()
     kw = dict(n_train=4 * 128, n_test=64)
