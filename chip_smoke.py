@@ -259,6 +259,22 @@ Phases, each on its own printed lines:
    plane's and the fused ledgers' trajectories equal, and
    ``scripts/parity_diff.py`` exit 0 on each Node's ledger against the fused
    one.
+13a. campaign (``phase_campaign``): the seeded campaign's check prefix
+   (``run_campaign(seed=Settings.CAMPAIGN_SEED, n_scenarios=
+   Settings.CAMPAIGN_CHECK_SCENARIOS, device="cuda")``: the adaptive,
+   baseline, chaos_drop and host_fault families' first scenarios, MLP
+   federations of port Nodes and the port's fused round, both on the card,
+   parity-differed and graded): every verdict ``ok`` with parity ``OK``,
+   wire hashes bit-equal to fused hashes for the replay-stable families,
+   scenario keys and the adaptive attack ladder equal to
+   ``tests/torch_campaign_fixtures/campaign_baseline.json``'s (the host's
+   baseline: card hashes are not held to its hashes); each scenario's wire
+   and fused seconds and the rejection counts beside the fixture's. Then
+   the baseline family's wire run once more under the lock-order sentinel
+   (``SENTINEL.patched()``): the observed acquisition graph acyclic and not
+   empty. Then ``mnist()`` with the hub offline (``hub_offline``: set in
+   ``main`` and again here, ``HF_HOME`` under ``build/``): arrays equal to
+   ``synthetic_mnist()``'s, and whether ``datasets`` imports here.
 14. longcontext: rows 1-4 at the example's own shapes at its defaults
    (bf16, head size 16: the forward and backward pair on the narrow
    kernels; a sequence of 256): training at
@@ -4005,6 +4021,93 @@ def phase_parity() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def hub_offline() -> None:
+    """Keep the Hugging Face hub offline in this process, its caches under
+    ``build/`` (its libraries read these settings when imported): the card's
+    machine has no network, and ``mnist()`` tries the hub first."""
+    import os
+
+    os.environ.update(HF_HUB_OFFLINE="1", HF_DATASETS_OFFLINE="1",
+                      HF_HOME=os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "hf_home"))
+
+
+def phase_campaign(card: str) -> None:
+    """The campaign's check prefix, the sentinel and ``mnist()`` on the card
+    (docstring phase 13a)."""
+    import importlib
+    import os
+
+    import numpy as np
+
+    from p2pfl_tpu_torch.analysis.runtime import SENTINEL
+    from p2pfl_tpu_torch.campaigns import run_campaign, sample_campaign
+    from p2pfl_tpu_torch.campaigns.engine import BASELINE_HASH_FAMILIES
+    from p2pfl_tpu_torch.config import Settings
+    from p2pfl_tpu_torch.learning.dataset import mnist, synthetic_mnist
+    from p2pfl_tpu_torch.population.scenarios import run_scenario_wire
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "tests", "torch_campaign_fixtures", "campaign_baseline.json")) as f:
+        fixture = json.load(f)
+    seed, k = int(Settings.CAMPAIGN_SEED), int(Settings.CAMPAIGN_CHECK_SCENARIOS)
+    check((fixture["campaign_seed"], fixture["check_scenarios"]) == (seed, k),
+          f"campaign: the fixture's prefix {fixture['campaign_seed']}/{fixture['check_scenarios']} is not {seed}/{k}")
+    t0 = time.monotonic()
+    rep = run_campaign(seed=seed, n_scenarios=k, device="cuda", emit=lambda m: print(f"[campaign] {m}"))
+    print(f"[campaign] {rep['campaign']}: {len(rep['scenarios'])} scenarios on {card} in "
+          f"{time.monotonic() - t0:.1f} s, violations {rep['violations_total']}")
+    sampled = sample_campaign(seed, k)
+    check(len(rep["scenarios"]) == len(fixture["scenarios"]) == k, "campaign: scenario count differs from the fixture")
+    for cs, got, want in zip(sampled, rep["scenarios"], fixture["scenarios"]):
+        where = f"{got['family']}[{got['index']}]"
+        print(f"[campaign] {where}: verdict {got['verdict']}, parity {got.get('parity_status')}, wire "
+              f"{got.get('wire_seconds')} s, fused {got.get('fused_seconds')} s, all {got['seconds']} s"
+              + (f", violations {got['violations']}" if got.get("violations") else "")
+              + (f", error {got['error']}" if got.get("error") else ""))
+        check(got["verdict"] == "ok" and got.get("parity_status") == "OK", f"campaign: {where} is not ok")
+        check(cs.key == got["key"] == want["key"], f"campaign: {where}'s key differs from the fixture's")
+        if got["family"] in BASELINE_HASH_FAMILIES:
+            check(got["wire_hashes"] == got["fused_hashes"] and len(got["wire_hashes"]) == cs.scenario.rounds,
+                  f"campaign: {where}'s wire hashes {got['wire_hashes']} differ from the fused {got['fused_hashes']}")
+            same = got["wire_hashes"] == want["wire_hashes"]
+            print(f"[campaign] {where}: wire == fused hashes over {len(got['wire_hashes'])} rounds on the card; "
+                  f"{'equal to' if same else 'not'} the host's committed hashes")
+        if want.get("adaptive_decisions") is not None:
+            mine = got["adaptive"]["decisions"]
+            ladder = [(d["round"], d["attack"]) for d in mine]
+            check(ladder == [(d["round"], d["attack"]) for d in want["adaptive_decisions"]],
+                  f"campaign: {where}'s attack ladder {ladder} differs from the fixture's")
+            print(f"[campaign] {where}: ladder {[a for _, a in ladder]}, rejections "
+                  f"{[d['rejections'] for d in mine]} (fixture {[d['rejections'] for d in want['adaptive_decisions']]})")
+    check(rep["ok"], "campaign: the report is not ok")
+
+    cs = next(c for c in sampled if c.family == "baseline")
+    t0 = time.monotonic()
+    with SENTINEL.patched():
+        wire = run_scenario_wire(cs.scenario, device="cuda")
+        stats, cycle = SENTINEL.stats(), SENTINEL.find_cycle()
+    print(f"[campaign] sentinel: {cs.family}[{cs.index}]'s wire run ({cs.scenario.n_nodes} Nodes, "
+          f"{cs.scenario.rounds} rounds) in {time.monotonic() - t0:.1f} s: {stats['locks']} instrumented locks, "
+          f"{stats['edges']} order edges, cycle {cycle}")
+    check(len(wire["stitched"]) > 0, "campaign: the sentinel's wire run committed nothing")
+    check(cycle is None, f"campaign: lock-order cycle {cycle}")
+    check(stats["edges"] > 0, "campaign: the sentinel recorded no nested acquisition")
+
+    hub_offline()
+    t0 = time.monotonic()
+    got, want = mnist(), synthetic_mnist()
+    same = all(np.array_equal(a, b) for train in (True, False)
+               for a, b in zip(got.export_arrays(train), want.export_arrays(train)))
+    try:
+        have = importlib.import_module("datasets").__version__
+    except ImportError:
+        have = None
+    print(f"[campaign] mnist(): {got.get_num_samples()} train / {got.get_num_samples(False)} test rows in "
+          f"{time.monotonic() - t0:.2f} s, equal to synthetic_mnist(): {same}; datasets "
+          + (f"{have} imported (hub offline)" if have else "not installed"))
+    check(same, "campaign: mnist() did not return the synthetic arrays")
+
+
 def phase_longcontext() -> dict:
     """``python -m p2pfl_tpu_torch.examples.longcontext --attention flash``
     at its defaults, in this process so that its kernel launches count;
@@ -4564,6 +4667,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    hub_offline()
     time_phases()
     try:
         card = phase_env()
@@ -4617,6 +4721,8 @@ def main() -> int:
         gc.collect()
         phase_topk_ties()
         phase_parity()
+        phase_campaign(card)
+        gc.collect()
         rows.update(phase_kernels_longcontext())
         launches.update(phase_longcontext())
         phase_entry()

@@ -399,40 +399,51 @@ class FullModelCommand(Command):
             with TRACER.recv_span(
                 "apply:full_model", node.addr, wire_ctx, source=source, round=round
             ):
-                node.learner.get_model().apply_frame(arrays, meta)
-                state.note_full_model_round(round)
-                from p2pfl_tpu_torch.telemetry.ledger import (
-                    LEDGERS,
-                    canonical_params_hash,
-                )
+                # Checked again under the adoption lock, then installed as
+                # one step: this frame may have passed the checks above while
+                # the round was open and reach this point after the node
+                # committed the round and fitted the next one.
+                with state.adoption_lock:
+                    if (
+                        state.round is None
+                        or round < state.round
+                        or round <= state.last_full_model_round
+                    ):
+                        return
+                    node.learner.get_model().apply_frame(arrays, meta)
+                    state.note_full_model_round(round)
+                    from p2pfl_tpu_torch.telemetry.ledger import (
+                        LEDGERS,
+                        canonical_params_hash,
+                    )
 
-                if LEDGERS.enabled():
-                    # Non-trainers commit the round aggregate here — the
-                    # trainer-side analogue (own aggregate) is in TrainStage.
-                    adopted = node.learner.get_model()
-                    LEDGERS.get(node.addr).emit(
-                        "aggregate_committed",
-                        round=round,
-                        dedup_key=("commit", round),
-                        hash=canonical_params_hash(adopted.get_parameters()),
-                        contributors=sorted(adopted.contributors),
-                        num_samples=adopted.get_num_samples(),
-                        origin="full_model",
-                    )
-                # Rejoin/round-anchor resync: adopting a DENSE full model for
-                # round r means we now hold the exact model every in-phase
-                # node will anchor round r+1 against — so a crashed-and-
-                # restarted (or partition-healed) node whose anchor lags
-                # fast-forwards here, and subsequent sparse top-k frames for
-                # r+1 decode instead of being dropped forever. Sparse frames
-                # skip this: decoding one already required a current anchor,
-                # and a trainer's error-feedback residuals must survive the
-                # normal round boundary (RoundFinishedStage advances those).
-                if meta.get(DELTA_META_KEY) is None and round + 1 > state.wire.anchor_round:
-                    state.wire.resync(
-                        node.learner.get_model().get_parameters(), round + 1
-                    )
-                state.aggregated_model_event.set()
+                    if LEDGERS.enabled():
+                        # Non-trainers commit the round aggregate here — the
+                        # trainer-side analogue (own aggregate) is in TrainStage.
+                        adopted = node.learner.get_model()
+                        LEDGERS.get(node.addr).emit(
+                            "aggregate_committed",
+                            round=round,
+                            dedup_key=("commit", round),
+                            hash=canonical_params_hash(adopted.get_parameters()),
+                            contributors=sorted(adopted.contributors),
+                            num_samples=adopted.get_num_samples(),
+                            origin="full_model",
+                        )
+                    # Rejoin/round-anchor resync: adopting a DENSE full model for
+                    # round r means we now hold the exact model every in-phase
+                    # node will anchor round r+1 against — so a crashed-and-
+                    # restarted (or partition-healed) node whose anchor lags
+                    # fast-forwards here, and subsequent sparse top-k frames for
+                    # r+1 decode instead of being dropped forever. Sparse frames
+                    # skip this: decoding one already required a current anchor,
+                    # and a trainer's error-feedback residuals must survive the
+                    # normal round boundary (RoundFinishedStage advances those).
+                    if meta.get(DELTA_META_KEY) is None and round + 1 > state.wire.anchor_round:
+                        state.wire.resync(
+                            node.learner.get_model().get_parameters(), round + 1
+                        )
+                    state.aggregated_model_event.set()
         except Exception:
             log.exception("full_model from %s failed", source)
 

@@ -253,6 +253,13 @@ class Settings:
     # Stall patience (seconds) of a population scenario's honest aggregators
     # while an adaptive adversary's frames are rejected.
     CAMPAIGN_STALL_PATIENCE: float = _env_float("CAMPAIGN_STALL_PATIENCE", 2.0, 0.1, 3600.0)
+    # Seeded scenario-matrix campaigns (campaigns/): CAMPAIGN_SEED roots the
+    # sampler (one seed, one reproducible campaign), CAMPAIGN_SCENARIOS is a
+    # full campaign's size, CAMPAIGN_CHECK_SCENARIOS the prefix that
+    # scripts/torch_campaign_check.py replays against its committed baseline.
+    CAMPAIGN_SEED: int = _env_int("CAMPAIGN_SEED", 20260806, 0, 2**31 - 1)
+    CAMPAIGN_SCENARIOS: int = _env_int("CAMPAIGN_SCENARIOS", 20, 1, 10_000)
+    CAMPAIGN_CHECK_SCENARIOS: int = _env_int("CAMPAIGN_CHECK_SCENARIOS", 4, 1, 10_000)
 
     # --- async population windows (population/async_engine.py, arrivals.py) -------
     # Fill target: FILL_FRACTION of the solicited cohort (>= 1). A window short

@@ -1,5 +1,6 @@
-"""Federated dataset wrapper over numpy arrays (counterpart of
-``p2pfl_tpu/learning/dataset/dataset.py``; numpy only).
+"""Federated dataset wrapper (counterpart of
+``p2pfl_tpu/learning/dataset/dataset.py``; numpy, with Hugging Face
+``datasets`` behind its loaders).
 
 :class:`FederatedDataset` holds a train split and an optional test split,
 partitions the train split with a :mod:`.partition` strategy (every
@@ -9,23 +10,27 @@ framework-native dataset through an :mod:`.export_strategies` class.
 :func:`synthetic_mnist` makes the same deterministic MNIST-shaped data as the
 JAX package, so both run on equal inputs without downloads.
 
-The Hugging Face, CSV, JSON, parquet, pandas and generator constructors are
-not ported yet: they raise ``NotImplementedError``.
+The Hugging Face hub, CSV, JSON, parquet, pandas and generator constructors
+build their splits through the ``datasets`` package, imported when one of
+them is called (a machine without ``datasets`` or ``pandas`` still imports
+this module and builds datasets from arrays). :func:`mnist` /
+:func:`cifar10` try the hub first and fall back to the synthetic stand-ins.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
 from p2pfl_tpu_torch.learning.dataset.partition import PartitionStrategy
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet; build the dataset with FederatedDataset.from_arrays"
-    )
+def _hf() -> Any:
+    """The Hugging Face ``datasets`` package, imported on first use."""
+    import datasets
+
+    return datasets
 
 
 class _ArraySplit:
@@ -51,27 +56,25 @@ class _ArraySplit:
 
 
 class FederatedDataset:
-    """A train/test pair of array splits with partition and export helpers.
+    """A train/test pair of splits with partition and export helpers.
 
     Args:
         data: ``{train_split: split, test_split: split}`` (test optional) of
-            :class:`_ArraySplit`; build one with :meth:`from_arrays`.
-        x_key / y_key: column names for inputs and labels, kept as the JAX
-            package keeps them (they name Hugging Face columns, which come
-            with its loaders; array splits have no columns).
+            :class:`_ArraySplit` (build one with :meth:`from_arrays`) or of
+            Hugging Face ``Dataset`` s (a ``DatasetDict``), or one HF
+            ``Dataset``, split lazily.
+        x_key / y_key: column names for inputs and labels in HF splits.
         train_split / test_split: the keys of the train and test splits.
     """
 
     def __init__(
         self,
-        data: Dict[str, _ArraySplit],
+        data: Any,
         x_key: str = "image",
         y_key: str = "label",
         train_split: str = "train",
         test_split: str = "test",
     ) -> None:
-        if not isinstance(data, dict):
-            raise TypeError("FederatedDataset holds a dict of array splits (use from_arrays)")
         self._data = data
         self.x_key = x_key
         self.y_key = y_key
@@ -82,27 +85,29 @@ class FederatedDataset:
 
     @classmethod
     def from_huggingface(cls, dataset_id: str, **kwargs) -> "FederatedDataset":
-        raise _not_ported("FederatedDataset.from_huggingface")
+        """``datasets.load_dataset(dataset_id)``: a hub id (fetched unless
+        the hub is offline) or a local directory of data files."""
+        return cls(_hf().load_dataset(dataset_id), **kwargs)
 
     @classmethod
     def from_csv(cls, path: str, **kwargs) -> "FederatedDataset":
-        raise _not_ported("FederatedDataset.from_csv")
+        return cls(_hf().load_dataset("csv", data_files=path), **kwargs)
 
     @classmethod
     def from_json(cls, path: str, **kwargs) -> "FederatedDataset":
-        raise _not_ported("FederatedDataset.from_json")
+        return cls(_hf().load_dataset("json", data_files=path), **kwargs)
 
     @classmethod
     def from_parquet(cls, path: str, **kwargs) -> "FederatedDataset":
-        raise _not_ported("FederatedDataset.from_parquet")
+        return cls(_hf().load_dataset("parquet", data_files=path), **kwargs)
 
     @classmethod
-    def from_pandas(cls, df, **kwargs) -> "FederatedDataset":
-        raise _not_ported("FederatedDataset.from_pandas")
+    def from_pandas(cls, df: Any, **kwargs) -> "FederatedDataset":
+        return cls(_hf().Dataset.from_pandas(df), **kwargs)
 
     @classmethod
-    def from_generator(cls, gen, **kwargs) -> "FederatedDataset":
-        raise _not_ported("FederatedDataset.from_generator")
+    def from_generator(cls, gen: Callable, **kwargs) -> "FederatedDataset":
+        return cls(_hf().Dataset.from_generator(gen), **kwargs)
 
     @classmethod
     def from_arrays(
@@ -122,17 +127,29 @@ class FederatedDataset:
 
     # --- splits ---------------------------------------------------------------
 
-    def _split(self, train: bool) -> _ArraySplit:
+    def _split(self, train: bool) -> Any:
         key = self.train_split if train else self.test_split
-        if key not in self._data:
-            raise KeyError("dataset has no test split — call generate_train_test_split first")
-        return self._data[key]
+        if isinstance(self._data, dict):  # a DatasetDict is a dict too
+            if key not in self._data:
+                raise KeyError("dataset has no test split — call generate_train_test_split first")
+            return self._data[key]
+        if train:  # one HF Dataset, not split yet
+            return self._data
+        raise KeyError("dataset has no test split — call generate_train_test_split first")
 
     def generate_train_test_split(self, test_size: float = 0.2, seed: int = 0) -> None:
         """Split an unsplit dataset into train/test in place."""
+        if not isinstance(self._data, dict):  # one HF Dataset
+            self._data = self._data.train_test_split(test_size=test_size, seed=seed)
+            return
         if "test" in self._data:
             raise TypeError("dataset is already split")
-        a, b = self._data["train"].train_test_split(test_size, seed)
+        train = self._data["train"]
+        if isinstance(train, _ArraySplit):
+            a, b = train.train_test_split(test_size, seed)
+        else:  # HF Dataset: keyword args (its 2nd positional is train_size)
+            dd = train.train_test_split(test_size=test_size, seed=seed)
+            a, b = dd["train"], dd["test"]
         self._data = {"train": a, "test": b}
 
     def get_num_samples(self, train: bool = True) -> int:
@@ -150,11 +167,15 @@ class FederatedDataset:
         """Partition the train split; every partition shares the full test
         split (the standard FL evaluation protocol)."""
         train = self._split(True)
-        index_lists = strategy.generate(train.y, num_partitions, seed=seed, **kwargs)
-        test = self._data.get(self.test_split)  # the JAX package's _split(False), absent split as None
+        labels = train.y if isinstance(train, _ArraySplit) else np.asarray(train[self.y_key])
+        index_lists = strategy.generate(labels, num_partitions, seed=seed, **kwargs)
+        try:
+            test = self._split(False)
+        except KeyError:
+            test = None
         out = []
         for idx in index_lists:
-            d = {"train": train.take(idx)}
+            d = {"train": train.take(idx) if isinstance(train, _ArraySplit) else train.select(idx)}
             if test is not None:
                 d["test"] = test
             out.append(FederatedDataset(d, x_key=self.x_key, y_key=self.y_key, train_split="train",
@@ -164,9 +185,17 @@ class FederatedDataset:
     # --- export ---------------------------------------------------------------
 
     def export_arrays(self, train: bool = True) -> Tuple[np.ndarray, np.ndarray]:
-        """Dense ``(x, y)`` numpy arrays for the requested split."""
+        """Dense ``(x, y)`` numpy arrays for the requested split (an HF
+        split's ``x_key`` / ``y_key`` columns as float32 / int32, integer or
+        0-255 pixels scaled to [0, 1])."""
         split = self._split(train)
-        return split.x, split.y
+        if isinstance(split, _ArraySplit):
+            return split.x, split.y
+        x = np.asarray(split[self.x_key], dtype=np.float32)
+        y = np.asarray(split[self.y_key], dtype=np.int32)
+        if x.dtype == np.uint8 or x.max() > 2.0:
+            x = x.astype(np.float32) / 255.0
+        return x, y
 
     def export_batches(
         self, batch_size: int, train: bool = True, seed: "int | Tuple[int, ...]" = 0,
@@ -244,3 +273,27 @@ def synthetic_cifar10(
     x_train, y_train = make(n_train, np.random.default_rng(seed + 1))
     x_test, y_test = make(n_test, np.random.default_rng(seed + 2))
     return FederatedDataset.from_arrays(x_train, y_train, x_test, y_test)
+
+
+def cifar10(fallback_synthetic: bool = True) -> FederatedDataset:
+    """Real CIFAR-10 from the HF hub if reachable, else the synthetic stand-in
+    (any failure of the hub path, ``datasets`` missing included, falls back;
+    ``fallback_synthetic=False`` re-raises it)."""
+    try:
+        return FederatedDataset.from_huggingface("uoft-cs/cifar10", y_key="label")
+    except Exception:
+        if not fallback_synthetic:
+            raise
+        return synthetic_cifar10()
+
+
+def mnist(fallback_synthetic: bool = True) -> FederatedDataset:
+    """Real MNIST from the HF hub if reachable, else the synthetic stand-in
+    (any failure of the hub path, ``datasets`` missing included, falls back;
+    ``fallback_synthetic=False`` re-raises it)."""
+    try:
+        return FederatedDataset.from_huggingface("ylecun/mnist")
+    except Exception:
+        if not fallback_synthetic:
+            raise
+        return synthetic_mnist()

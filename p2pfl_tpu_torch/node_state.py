@@ -145,6 +145,13 @@ class NodeState:
         # write max(); unguarded, two concurrent writers can regress the
         # high-water mark and reopen the first-wins adoption window.
         self.full_model_round_lock = threading.Lock()
+        # Serializes installing a round's full model on the learner (a
+        # peer's full_model frame, TrainStage's own aggregate) with the round
+        # boundary. An adoption re-checks its round under this lock, so a
+        # frame whose checks passed while the round was open cannot land
+        # after the node moved on: on the next round's freshly fitted model,
+        # between the fit and TrainStage's snapshot of it.
+        self.adoption_lock = threading.Lock()
         # Set when all expected votes have (possibly) arrived — consumers
         # re-check the vote table and clear it again while polling.
         self.votes_ready_event = threading.Event()
@@ -240,7 +247,8 @@ class NodeState:
         if self.experiment is None:
             raise ValueError("no experiment in progress")
         finished = self.round
-        self.experiment.increase_round()
+        with self.adoption_lock:
+            self.experiment.increase_round()
         # Retire (don't discard) the finished round's coverage table: the
         # overlap drain for that round reads it until its candidates empty.
         self.models_aggregated_prev = self.models_aggregated

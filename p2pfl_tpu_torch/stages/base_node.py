@@ -456,17 +456,22 @@ class TrainStage(Stage):
         # plaintext own model: the federation loses one round of averaging,
         # never its correctness.
         aggregated = TrainStage._finalize_masked(node, aggregated, own, committee, mask_anchor)
-        node.learner.get_model().set_parameters(aggregated.params)
-        node.learner.get_model().set_contribution(
-            aggregated.contributors, aggregated.get_num_samples()
-        )
-        node.learner.get_model().additional_info.update(aggregated.additional_info)
-        # Mark the round's full model as held: a later full_model frame for
-        # this round is a redundant delivery and must NOT overwrite our own
-        # aggregate (first wins — FullModelCommand honors this; it also
-        # closes the window where a Byzantine peer's corrupted full model
-        # could clobber an honest aggregate post-aggregation).
-        state.note_full_model_round(state.round or 0)
+        # Installed and marked held as one step under the adoption lock: a
+        # full_model frame for this round that passed its checks while we
+        # waited either lands before (and is overwritten here) or re-checks
+        # after and is dropped, never later on the next round's fit.
+        with state.adoption_lock:
+            node.learner.get_model().set_parameters(aggregated.params)
+            node.learner.get_model().set_contribution(
+                aggregated.contributors, aggregated.get_num_samples()
+            )
+            node.learner.get_model().additional_info.update(aggregated.additional_info)
+            # Mark the round's full model as held: a later full_model frame for
+            # this round is a redundant delivery and must NOT overwrite our own
+            # aggregate (first wins — FullModelCommand honors this; it also
+            # closes the window where a Byzantine peer's corrupted full model
+            # could clobber an honest aggregate post-aggregation).
+            state.note_full_model_round(state.round or 0)
         if LEDGERS.enabled():
             # Content hash of the committed round aggregate: the value the
             # parity gate compares bit-for-bit against the fused mesh.

@@ -157,11 +157,13 @@ def test_train_test_split_equals_jax_and_unported_loaders_raise():
     for train, seed, drop in ((True, (3, 1, 0), False), (False, 0, False), (True, 7, True)):
         for a, b in zip(got.export_batches(4, train, seed, drop), ref.export_batches(4, train, seed, drop)):
             np.testing.assert_array_equal(a, b)
-    for call in (lambda: dataset.FederatedDataset.from_huggingface("ylecun/mnist"),
-                 lambda: dataset.FederatedDataset.from_csv("a.csv"),
-                 lambda: dataset.FederatedDataset.from_parquet("a.parquet")):
-        with pytest.raises(NotImplementedError):
-            call()
+    # The file loaders are ported (tests/test_torch_dataset_loaders.py): a
+    # missing local file fails as in the JAX package.
+    for loader, path in (("from_csv", "missing.csv"), ("from_parquet", "missing.parquet")):
+        with pytest.raises(FileNotFoundError):
+            getattr(jax_dataset.FederatedDataset, loader)(path)
+        with pytest.raises(FileNotFoundError):
+            getattr(dataset.FederatedDataset, loader)(path)
     # export is ported with the export strategies: a class that is not a
     # strategy fails as in the JAX package.
     with pytest.raises(AttributeError, match="export"):

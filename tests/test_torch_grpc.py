@@ -11,8 +11,10 @@ gRPC sockets; and the two-process quickstart (``examples/node1.py`` /
 Every federation test carries its own time limit (``_wait``'s timeout).
 """
 
+import select
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -316,11 +318,23 @@ def test_node1_and_node2_quickstart_in_two_processes():
                               "--rounds", "1", *common], cwd=ROOT, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)
     try:
+        # As the quickstart runs it: node2 starts once node1 is up (node2
+        # connects once; on a loaded host node1's server could still be
+        # starting when node2 dialled).
+        first, deadline = "", time.monotonic() + 120
+        while "node1 up at" not in first and time.monotonic() < deadline:
+            ready, _, _ = select.select([node1.stdout], [], [], max(deadline - time.monotonic(), 0))
+            line = node1.stdout.readline() if ready else ""
+            if not line:  # node1 exited or never came up
+                break
+            first += line
         node2 = subprocess.run([*env_cmd[:2], "p2pfl_tpu_torch.examples.node2", "--peer", f"127.0.0.1:{port}",
                                 *common], cwd=ROOT, capture_output=True, text=True, timeout=150)
         out1, _ = node1.communicate(timeout=60)
+        out1 = first + out1
     finally:
         node1.kill()
+    assert "node1 up at" in first, first
     assert node1.returncode == 0 and node2.returncode == 0, out1[-3000:] + node2.stdout[-2000:] + node2.stderr[-2000:]
     assert "done:" in out1 and "test_acc" in out1 and "done:" in node2.stdout
 

@@ -1,12 +1,15 @@
-"""Import hygiene of the port: every module of ``p2pfl_tpu_torch`` imports
+"""Import hygiene of the port: every module of ``p2pfl_tpu_torch``, and
+every ``scripts/torch_*_check.py`` / ``scripts/torch_analyze.py``, imports
 with JAX, flax, optax, ml_dtypes, msgpack and the JAX package blocked (the
-card's machine has none of them), in a fresh interpreter."""
+card's machine has none of them), and Hugging Face ``datasets`` and pandas
+too (the dataset loaders import them when called), in a fresh
+interpreter."""
 
 import subprocess
 import sys
 from pathlib import Path
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "msgpack", "p2pfl_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "msgpack", "p2pfl_tpu", "datasets", "pandas")
 
 SCRIPT = f"""
 import importlib, pkgutil, sys
@@ -18,9 +21,20 @@ assert {{"p2pfl_tpu_torch.management.checkpoint", "p2pfl_tpu_torch.population.en
          "p2pfl_tpu_torch.population.sharding", "p2pfl_tpu_torch.population.scenarios",
          "p2pfl_tpu_torch.population.arrivals", "p2pfl_tpu_torch.population.async_engine",
          "p2pfl_tpu_torch.population.supervisor", "p2pfl_tpu_torch.config",
-         "p2pfl_tpu_torch.population"}} <= set(names), names
+         "p2pfl_tpu_torch.population", "p2pfl_tpu_torch.campaigns", "p2pfl_tpu_torch.campaigns.matrix",
+         "p2pfl_tpu_torch.campaigns.invariants", "p2pfl_tpu_torch.campaigns.engine",
+         "p2pfl_tpu_torch.analysis", "p2pfl_tpu_torch.analysis.core", "p2pfl_tpu_torch.analysis.checkers",
+         "p2pfl_tpu_torch.analysis.baseline", "p2pfl_tpu_torch.analysis.runtime",
+         "p2pfl_tpu_torch.learning.dataset.vision"}} <= set(names), names
 for name in names:
     importlib.import_module(name)
+import glob, importlib.util
+scripts = sorted(glob.glob("scripts/torch_*_check.py")) + ["scripts/torch_analyze.py"]
+assert len(scripts) == 5, scripts
+for path in scripts:
+    spec = importlib.util.spec_from_file_location("script_" + path.split("/")[-1][:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+names += scripts
 leaked = sorted(n for n in sys.modules if sys.modules[n] is not None and n.split(".")[0] in {BLOCKED!r})
 assert not leaked, leaked
 print(len(names))

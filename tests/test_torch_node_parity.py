@@ -16,6 +16,7 @@ neighbors with both packages' heartbeat inter-arrival gauges
 
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -143,6 +144,70 @@ def test_port_run_wire_matches_jax_run_wire(monkeypatch, postmortem):
         assert len(got["params"][name]) == len(final[name])
         for a, b in zip(got["params"][name], final[name]):
             np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
+
+
+def test_a_round_full_model_checked_before_the_commit_never_lands_on_the_next_rounds_fit(monkeypatch, postmortem):
+    """The interleaving behind a once-seen fault of
+    ``test_port_run_wire_matches_jax_run_wire``, forced: node 0 still waits
+    in round 0's aggregation when node 1's round-0 full model arrives and
+    passes ``FullModelCommand``'s round checks; its adoption is held until
+    node 0 has committed round 0 and fitted round 1, and the round-1 fit's
+    snapshot is held until the adoption has run. The late adoption must not
+    replace the fitted model: every fold is one sender's own 32 samples and
+    the wire's hashes equal the fused round's (before the repair node 0
+    folded the round-0 aggregate, ``parity-000+parity-001`` with 64
+    samples, as its round-1 contribution)."""
+    from p2pfl_tpu_torch.comm.admission import AdmissionController
+    from p2pfl_tpu_torch.comm.commands.impl import FullModelCommand
+    from p2pfl_tpu_torch.learning.aggregators import CanonicalFedAvg
+    from p2pfl_tpu_torch.parity import ParityLearner
+
+    scn = ParityScenario(**SCENARIO)
+    slow = scn.node_names[0]
+    entered, fitted, landed = threading.Event(), threading.Event(), threading.Event()
+    wait, screen, execute, fit = (CanonicalFedAvg.wait_and_get_aggregation, AdmissionController.screen,
+                                  FullModelCommand.execute, ParityLearner.fit)
+
+    def late_wait(self, *a, **kw):
+        if self.node_addr == slow and self._round == 0:
+            entered.wait(20.0)  # a peer's round-0 full model is past its checks
+        return wait(self, *a, **kw)
+
+    def held_screen(self, arrays, local_model, **kw):
+        if kw.get("cmd") == "full_model" and self._addr == slow and not fitted.is_set():
+            entered.set()
+            fitted.wait(20.0)
+        return screen(self, arrays, local_model, **kw)
+
+    def noted_execute(self, source, round, *a, **kw):
+        try:
+            return execute(self, source, round, *a, **kw)
+        finally:
+            if self._node.addr == slow and round == 0 and fitted.is_set():
+                landed.set()
+
+    def held_fit(self):
+        out = fit(self)
+        if self._self_addr == slow and self._fits == 2:
+            fitted.set()
+            landed.wait(20.0)
+        return out
+
+    monkeypatch.setattr(CanonicalFedAvg, "wait_and_get_aggregation", late_wait)
+    monkeypatch.setattr(AdmissionController, "screen", held_screen)
+    monkeypatch.setattr(FullModelCommand, "execute", noted_execute)
+    monkeypatch.setattr(ParityLearner, "fit", held_fit)
+    wire = run_wire(scn, device="cpu")
+    report = postmortem()
+    assert entered.is_set() and fitted.is_set() and landed.is_set(), (entered, fitted, landed, report)
+    LEDGERS.reset()
+    fused = run_fused(scn, device="cpu")
+    for name in scn.node_names:
+        folds = [(e["round"], e["sender"], e["num_samples"]) for e in wire["events"][name]
+                 if e["kind"] == "contribution_folded"]
+        assert sorted(folds) == [(r, n, 32) for r in range(scn.rounds) for n in scn.node_names], \
+            f"{name}: {folds}\n{report}"
+        assert wire["hashes"][name] == fused["hashes"], f"{name}\n{report}"
 
 
 def test_mixed_federation_of_port_and_jax_nodes_trains_two_rounds(monkeypatch, postmortem):
