@@ -275,6 +275,19 @@ Phases, each on its own printed lines:
    empty. Then ``mnist()`` with the hub offline (``hub_offline``: set in
    ``main`` and again here, ``HF_HOME`` under ``build/``): arrays equal to
    ``synthetic_mnist()``'s, and whether ``datasets`` imports here.
+13b. multirank (``phase_multirank``): the ``nodes`` axis over ranks. Phase
+   3's LM (its data and seeds) for a warm-up round and 2 rounds of a fixed
+   schedule (round 0's committee on both halves of the population, round
+   1's on nodes 0-3) in this process, then in W rank processes of this
+   script (``--rank-worker DIR``, started fresh by
+   ``p2pfl_tpu_torch.parallel.launch`` with a deadline that kills the
+   world): with one card two gloo ranks sharing it and a one-rank NCCL
+   world, with two or more min(cards, 4) NCCL ranks, one card each. Every
+   rank must exit 0 with the backend ``initialize_multihost`` chose, its
+   final hash and test losses equal to this process's (losses falling),
+   rows 1, 3, 4 launched 32 times a member it trained and row 2 four times
+   a round; per arm the backend, W, s/round, bytes all-gathered a round,
+   peak memory, members per rank and devices seen are printed.
 14. longcontext: rows 1-4 at the example's own shapes at its defaults
    (bf16, head size 16: the forward and backward pair on the narrow
    kernels; a sequence of 256): training at
@@ -363,6 +376,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1451,7 +1465,8 @@ def phase_telemetry(card: str) -> None:
     kernels, must give the same canonical params hash (or, if the off runs
     differ, differ from them by no more than twice their own spread), and an
     ``update_norm`` sketch of committee x rounds members; ``fleet_snapshot``
-    writes its document; the round's devobs row (``_devobs_aux``, which runs
+    writes its document; the round's devobs row (each member's update norm
+    from ``_member_update``, then ``_devobs_aux``, which runs
     ``device_bucket_stats``) is built under ``set_sync_debug_mode("error")``
     and must not wait for the card. ``device_bucket_stats`` on 1e6 seeded values: the
     card's counts and zeros equal the CPU's but for values whose log lies
@@ -1517,8 +1532,8 @@ def phase_telemetry(card: str) -> None:
                     on_sim_cost = sim.round_cost_analysis()
                     # The round's devobs row must not wait for the card: build
                     # it from the live params under CUDA's sync check.
-                    p_k = {k: v[:COMMITTEE] for k, v in sim.params_stack.items()}
-                    p_k_new = {k: v * 1.001 for k, v in p_k.items()}
+                    p_k = [{k: v[i] for k, v in sim.params_stack.items()} for i in range(COMMITTEE)]
+                    p_k_new = [{k: v * 1.001 for k, v in p.items()} for p in p_k]
                     agg = {k: v[0] for k, v in sim.params_stack.items()}
                     member_losses = torch.rand(COMMITTEE, device="cuda")
                     weights = torch.ones(COMMITTEE, device="cuda")
@@ -1526,7 +1541,9 @@ def phase_telemetry(card: str) -> None:
                     row = None
                     torch.cuda.set_sync_debug_mode("error")
                     try:
-                        row = sim._devobs_aux(p_k, p_k_new, agg, member_losses, weights, COMMITTEE)
+                        un_sq = torch.stack([sim._member_update(i, p_k[i], p_k_new[i], True)["un_sq"]
+                                             for i in range(COMMITTEE)])
+                        row = sim._devobs_aux(un_sq, agg, member_losses, weights, COMMITTEE)
                         synced = None
                     except RuntimeError as e:
                         synced = str(e)
@@ -4108,6 +4125,140 @@ def phase_campaign(card: str) -> None:
     check(same, "campaign: mnist() did not return the synthetic arrays")
 
 
+# The nodes axis over ranks: slice 1's LM for MULTIRANK_ROUNDS scheduled
+# rounds (after a warm-up round) in W processes. Round 0's committee sits on
+# both halves of the population (every rank trains), round 1's on nodes 0-3
+# (rank 0 of two trains all four, rank 1 none).
+MULTIRANK_SCHEDULE = ((5, 0, 6, 2), (1, 3, 0, 2))
+MULTIRANK_ROUNDS = len(MULTIRANK_SCHEDULE)
+MULTIRANK_DEADLINE_S = 420.0
+MULTIRANK_FLAG = "--rank-worker"
+
+
+def multirank_sim(mesh=None):
+    """Slice 1's full-width flash LM population (phase 3's data and seeds)
+    on ``mesh`` (None: this one process)."""
+    from p2pfl_tpu_torch.models.transformer import transformer_lm_model
+    from p2pfl_tpu_torch.parallel.simulation import MeshSimulation
+
+    model = transformer_lm_model(seed=0, vocab_size=VOCAB, num_layers=LAYERS, num_heads=HEADS, embed_dim=EMBED,
+                                 attention_kind="flash", device="cuda")
+    train, xt = lm_data(5)
+    return MeshSimulation(model, train, test_data=(xt, None), train_set_size=COMMITTEE, batch_size=BATCH, lr=LR,
+                          seed=1, task="lm", mesh=mesh, device="cuda")
+
+
+def multirank_run(sim) -> dict:
+    """Warm-up round and MULTIRANK_ROUNDS scheduled rounds; what one rank
+    (or the one process) saw."""
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.parallel import collectives
+    from p2pfl_tpu_torch.telemetry.ledger import canonical_params_hash
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    collectives.reset_stats()
+    res = sim.run(rounds=MULTIRANK_ROUNDS, epochs=1, warmup=True, committee_schedule=np.asarray(MULTIRANK_SCHEDULE))
+    launches = {name: _kernels.LAUNCHES[name] for name in KERNEL_ROWS}
+    final = sim.final_model(0).params  # over ranks: broadcast by the rank that holds node 0
+    dev = sim.device
+    return {
+        "s_per_round": res.seconds_per_round, "test_loss": res.test_loss, "hash": canonical_params_hash(final),
+        "launches": launches, "peak_bytes": torch.cuda.max_memory_allocated(dev),
+        "rank_members": sim.rank_members, "gather_bytes": sim.gather_bytes,
+        "device": f"{dev} {torch.cuda.get_device_name(dev)}", "cards_seen": torch.cuda.device_count(),
+    }
+
+
+def multirank_rank(out_dir: str) -> int:
+    """One rank of a ``phase_multirank`` arm, started by ``launch`` with
+    torchrun's variables: join (the backend by ``initialize_multihost``'s
+    rule), run :func:`multirank_run` on the rank mesh, write the result."""
+    import torch
+    from p2pfl_tpu_torch.parallel.mesh import initialize_multihost, make_mesh, shutdown_multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    joined = initialize_multihost(device="cuda")
+    mesh = make_mesh()
+    out = multirank_run(multirank_sim(mesh))
+    out.update(rank=joined["rank"], world=joined["world"], backend=joined["backend"])
+    with open(os.path.join(out_dir, f"rank{joined['rank']}.json"), "w") as f:
+        json.dump(out, f)
+    shutdown_multihost()
+    print(f"[multirank] rank {joined['rank']} of {joined['world']} done", flush=True)
+    return 0
+
+
+def phase_multirank(card: str) -> dict:
+    """The nodes axis over ranks on the card: slice 1's LM run by W rank
+    processes against the same run in this process. With two or more cards,
+    min(cards, 4) NCCL ranks, one card each; with one card, two gloo ranks
+    sharing it and a one-rank NCCL world. Each rank's final hash must equal
+    the one-process run's, rows 1-4 must launch on every rank (rows 1, 3, 4
+    exactly 32 times a member it trained, row 2 four times a round it
+    evaluated), every rank must exit 0 and the test loss fall. Returns each
+    arm's launches per rank."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.parallel.launch import launch
+
+    print(f"[multirank] {card}")
+    ref = multirank_run(multirank_sim())
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[multirank] one process: {ref['s_per_round']:.4f} s/round, test loss {ref['test_loss']}, hash "
+          f"{ref['hash'][:23]}, peak {ref['peak_bytes']} bytes, launches {json.dumps(ref['launches'])}")
+    cards = torch.cuda.device_count()
+    arms = [("nccl", min(cards, 4))] if cards >= 2 else [("gloo", 2), ("nccl", 1)]
+    per_member = KERNEL_ROWS["flash_fwd"][1] // COMMITTEE
+    evals = MULTIRANK_ROUNDS + 1  # the warm-up round evaluates too
+    seen = {}
+    for backend, world in arms:
+        label = f"{backend}{world}"
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.monotonic()
+            runs = launch([sys.executable, os.path.abspath(__file__), MULTIRANK_FLAG, tmp], world,
+                          timeout_s=MULTIRANK_DEADLINE_S, cwd=os.path.dirname(os.path.abspath(__file__)))
+            wall = time.monotonic() - t0
+            for rank, (rc, out) in enumerate(runs):
+                if rc != 0:
+                    print(out[-6000:])
+                check(rc == 0, f"{label} rank {rank} exited {rc}")
+            got = []
+            for rank in range(world):
+                with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                    got.append(json.load(f))
+        print(f"[multirank] {label}: backend {got[0]['backend']}, W {world}, {wall:.1f} s for the world (start to "
+              f"exit), {card}")
+        for g in got:
+            print(f"[multirank] {label} rank {g['rank']}: {g['s_per_round']:.4f} s/round, all-gathered bytes per "
+                  f"round {g['gather_bytes']}, peak {g['peak_bytes']} bytes ({g['peak_bytes'] / 2**30:.2f} GiB), "
+                  f"members per rank per round {g['rank_members']}, device {g['device']} of {g['cards_seen']} "
+                  f"seen, test loss {g['test_loss']}, hash {g['hash'][:23]}, launches {json.dumps(g['launches'])}")
+            check(g["backend"] == backend and g["world"] == world, f"{label}: rank {g['rank']} joined {g['backend']}")
+            check(g["hash"] == ref["hash"], f"{label} rank {g['rank']}: final hash differs from the one process's")
+            check(all(np.isfinite(g["test_loss"])) and g["test_loss"][-1] < g["test_loss"][0],
+                  f"{label} rank {g['rank']}: test loss not finite and falling: {g['test_loss']}")
+            check(g["test_loss"] == ref["test_loss"], f"{label} rank {g['rank']}: test loss differs")
+            per = NODES // world
+            trained = sum(node // per == g["rank"] for row in (MULTIRANK_SCHEDULE[0], *MULTIRANK_SCHEDULE)
+                          for node in row)
+            for name in KERNEL_ROWS:
+                want = evals * KERNEL_ROWS[name][1] if name == "flash_fwd_no_lse" else trained * per_member
+                check(g["launches"][name] > 0, f"{label} rank {g['rank']}: {name} never launched")
+                check(g["launches"][name] == want,
+                      f"{label} rank {g['rank']}: {name} launched {g['launches'][name]} times, expected {want}")
+        seen[label] = {name: [g["launches"][name] for g in got] for name in KERNEL_ROWS}
+    return seen
+
+
+
 def phase_longcontext() -> dict:
     """``python -m p2pfl_tpu_torch.examples.longcontext --attention flash``
     at its defaults, in this process so that its kernel launches count;
@@ -4663,6 +4814,8 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the p2pfl_tpu_torch package is not beside this script ({e})", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == [MULTIRANK_FLAG]:  # one rank of phase_multirank
+        return multirank_rank(sys.argv[2])
     from p2pfl_tpu_torch.ops import _kernels
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4723,6 +4876,8 @@ def main() -> int:
         phase_parity()
         phase_campaign(card)
         gc.collect()
+        multirank_launches = phase_multirank(card)
+        gc.collect()
         rows.update(phase_kernels_longcontext())
         launches.update(phase_longcontext())
         phase_entry()
@@ -4747,6 +4902,8 @@ def main() -> int:
     table = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], **({"launches_moe": moe_launches[name]} if name in moe_launches else {}),
+         **({"launches_per_rank": {arm: counts[name] for arm, counts in multirank_launches.items()}}
+            if name in KERNEL_ROWS else {}),
          **rows[name]}
         for name, (replaces, _, source) in kernels.items()
     ]

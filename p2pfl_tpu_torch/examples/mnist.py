@@ -15,6 +15,15 @@ s gossiping in ``--topology`` over the in-memory transport or, with
 
 ``--device cuda`` (the default) runs on the card and fails without one;
 ``--device cpu`` runs on the CPU.
+
+``--mode mesh`` over ranks: started by ``torchrun`` (or in each of W
+processes with ``JAX_COORDINATOR_ADDRESS=HOST:PORT``, ``JAX_NUM_PROCESSES=W``
+and ``JAX_PROCESS_ID=R``, the JAX package's deployment variables) it joins
+them (:func:`~p2pfl_tpu_torch.parallel.mesh.initialize_multihost`) and
+shards the population over their ``"nodes"`` axis; rank 0 prints the
+result. The flags stay the JAX package's.
+
+    torchrun --nproc-per-node 2 -m p2pfl_tpu_torch.examples.mnist --mode mesh --device cpu --seed 1
 """
 
 from __future__ import annotations
@@ -74,7 +83,13 @@ def run_mesh(args: argparse.Namespace) -> dict:
     from p2pfl_tpu_torch.learning.dataset import RandomIIDPartitionStrategy, synthetic_mnist
     from p2pfl_tpu_torch.models.mlp import mlp_model
     from p2pfl_tpu_torch.ops import aggregation as agg_ops
+    from p2pfl_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
     from p2pfl_tpu_torch.parallel.simulation import MeshSimulation
+
+    # Under torchrun or the deployment variables: join the ranks and shard
+    # the population over them; alone: one process.
+    joined = initialize_multihost(device=args.device)
+    mesh = make_mesh() if joined else None
 
     # 2 * trim must stay below the committee size or the trimmed mean is empty
     trim = min(max(1, args.train_set_size // 4), (args.train_set_size - 1) // 2)
@@ -104,6 +119,7 @@ def run_mesh(args: argparse.Namespace) -> dict:
         dp_noise_multiplier=args.dp_noise,
         server_optimizer=None if args.server_opt == "none" else args.server_opt,
         server_lr=args.server_lr,
+        mesh=mesh,
         device=args.device,
     )
     res = sim.run(rounds=args.rounds, epochs=args.epochs, warmup=True)
@@ -112,6 +128,8 @@ def run_mesh(args: argparse.Namespace) -> dict:
         "sec_per_round": res.seconds_per_round,
         "final_test_acc": res.test_acc[-1] if res.test_acc else None,
     }
+    if joined:
+        out.update(ranks=mesh.world, backend=joined["backend"])
     if args.dp_clip > 0.0:
         out["dp_epsilon_at_1e-5"] = round(sim.privacy_spent()["epsilon"], 3)
     return out
@@ -180,7 +198,11 @@ def main(argv=None) -> int:
         result = run_mesh(args) if args.mode == "mesh" else run_nodes(args)
     if args.measure_time:
         result["total_elapsed_s"] = round(prof_info["elapsed_s"], 3)
-    print(result)
+    from p2pfl_tpu_torch.parallel.mesh import JOINED, shutdown_multihost
+
+    if JOINED is None or JOINED["rank"] == 0:  # over ranks, rank 0 prints the result
+        print(result)
+    shutdown_multihost()
     return 0
 
 

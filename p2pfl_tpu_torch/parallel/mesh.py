@@ -1,48 +1,75 @@
-"""A one-device stand-in for ``jax.sharding.Mesh`` (counterpart of
-``p2pfl_tpu/parallel/mesh.py``).
+"""Meshes over one device, or over the ranks of a process group
+(counterpart of ``p2pfl_tpu/parallel/mesh.py``).
 
-The port runs on one card, so a mesh axis does not split work across
-devices: it names how many *virtual* shards a wrapper cuts a dimension into
-(the ring's ``"seq"`` axis folds its chunks one after another on the card;
-a population's ``"nodes"`` axis is the multiple it is padded to). Code that
-needs an axis' size — :func:`p2pfl_tpu_torch.ops.ring_attention.
-ring_attention`, as ``jax.lax.psum(1, axis_name)`` does under ``shard_map`` —
-asks :func:`axis_size`, which answers only inside :meth:`Mesh.bind`, and
-raises for an unbound name as JAX does outside ``shard_map``.
+One process: a mesh axis does not split work across devices. It names how
+many *virtual* shards a wrapper cuts a dimension into (the ring's ``"seq"``
+axis folds its chunks one after another on the card; a population's
+``"nodes"`` axis is the multiple it is padded to). Code that needs an axis'
+size — :func:`p2pfl_tpu_torch.ops.ring_attention.ring_attention`, as
+``jax.lax.psum(1, axis_name)`` does under ``shard_map`` — asks
+:func:`axis_size`, which answers only inside :meth:`Mesh.bind`, and raises
+for an unbound name as JAX does outside ``shard_map``.
+
+Ranks: :func:`initialize_multihost` joins a ``torch.distributed`` process
+group of W processes ("ranks"), each driving one device: ``cuda:LOCAL_RANK``
+when the host has a card for every local rank (backend NCCL), the one card
+shared when it does not, or the CPU when the caller asks for it (backend
+gloo for both). :func:`make_mesh` then builds a mesh whose ``"nodes"`` axis
+spans the W ranks: its size is a multiple of W, and rank r holds the r-th
+contiguous part of it (:meth:`Mesh.slab`), the slab of the population that
+:class:`~p2pfl_tpu_torch.parallel.simulation.MeshSimulation` keeps there.
+Only the ``"nodes"`` axis crosses ranks; a rank mesh with ``"model"`` > 1 or
+a ``"seq"`` / ``"stage"`` / ``"expert"`` axis raises ``NotImplementedError``
+naming the ROADMAP item that ports it.
 
 :func:`make_mesh`, :func:`population_sharding`, :func:`replicated` and
-:func:`initialize_multihost` keep the JAX package's API over one device;
-:class:`PartitionSpec` and :class:`NamedSharding` stand in for JAX's. Joining
-a multi-process deployment is out of scope for the port (it runs on one
-card), so :func:`initialize_multihost` refuses when asked to join one.
+:func:`initialize_multihost` keep the JAX package's API; :class:`PartitionSpec`
+and :class:`NamedSharding` stand in for JAX's.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import datetime
+import logging
 import os
 from dataclasses import dataclass
-from typing import Dict, Iterator, Mapping, Optional, Sequence
+from typing import Any, Dict, Iterator, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 from p2pfl_tpu_torch.device import DeviceLike, resolve_device
 
+log = logging.getLogger("p2pfl_tpu_torch")
+
 # Axis name -> size of the meshes bound in this context (innermost wins).
 _BOUND: contextvars.ContextVar[Mapping[str, int]] = contextvars.ContextVar("p2pfl_bound_axes", default={})
 
+#: The ROADMAP item (queue A) that ports each axis across ranks.
+_RANK_AXIS_ITEMS = {
+    "seq": "A2 (the seq axis across ranks: the ring's point-to-point K/V rotation)",
+    "stage": "A3 (the stage axis across ranks: parallel/pipeline.py)",
+    "expert": "A4 (the expert axis across ranks: the MoE all-to-all)",
+    "model": "A5 (the model axis as tensor parallelism)",
+}
+
 
 class Mesh:
-    """Named axes, each a number of virtual shards, over one torch device.
+    """Named axes over one torch device, or over the ranks of a process group.
 
     Args:
-        axes: axis name -> number of shards (>= 1), e.g. ``{"seq": 8}``.
+        axes: axis name -> size (>= 1), e.g. ``{"seq": 8}``. On one process
+            each axis is a number of virtual shards; over ranks the
+            ``"nodes"`` axis is a multiple of the world size.
         device: where the wrappers put their inputs (``"cuda"`` by default;
-            raises when no card is visible, like every entry point).
+            raises when no card is visible, like every entry point). Over
+            ranks: this rank's device.
+        group: the ``torch.distributed`` process group whose ranks the
+            ``"nodes"`` axis spans (None: one process, as before).
     """
 
-    def __init__(self, axes: Mapping[str, int], device: DeviceLike = "cuda") -> None:
+    def __init__(self, axes: Mapping[str, int], device: DeviceLike = "cuda", group: Any = None) -> None:
         if not axes:
             raise ValueError("a mesh needs at least one axis")
         for name, size in axes.items():
@@ -52,10 +79,50 @@ class Mesh:
                 raise ValueError(f"axis {name!r} must have a positive integer size, got {size!r}")
         self.shape: Dict[str, int] = {name: int(size) for name, size in axes.items()}
         self.device: torch.device = resolve_device(device)
+        self.group = group
+        self.rank, self.world = 0, 1
+        if group is not None:
+            import torch.distributed as dist
+
+            self.rank, self.world = dist.get_rank(group), dist.get_world_size(group)
+            self._check_rank_axes()
+
+    def _check_rank_axes(self) -> None:
+        for name, size in self.shape.items():
+            if name in ("seq", "stage", "expert") or (name != "nodes" and size > 1):
+                item = _RANK_AXIS_ITEMS.get(name, "A2-A5 (the axes beside nodes)")
+                raise NotImplementedError(
+                    f"axis {name!r} (size {size}) across {self.world} ranks: only the 'nodes' axis spans ranks so "
+                    f"far; ROADMAP queue A item {item} ports it")
+        nodes = self.shape.get("nodes")
+        if nodes is None or nodes % self.world:
+            raise ValueError(f"a mesh over {self.world} ranks needs a 'nodes' axis that is a multiple of "
+                             f"{self.world}, got {self.shape}")
 
     @property
     def axis_names(self) -> tuple:
         return tuple(self.shape)
+
+    @property
+    def ranked(self) -> bool:
+        """Whether the ``"nodes"`` axis spans the ranks of a process group."""
+        return self.group is not None
+
+    def process_index(self) -> int:
+        """This process' rank (0 on one process), as ``jax.process_index()``."""
+        return self.rank
+
+    def process_count(self) -> int:
+        """The number of ranks (1 on one process), as ``jax.process_count()``."""
+        return self.world
+
+    def slab(self, n: int) -> Tuple[int, int]:
+        """``[lo, hi)``: this rank's contiguous part of a population of ``n``
+        (a multiple of the world size); ``(0, n)`` on one process."""
+        if n % self.world:
+            raise ValueError(f"a population of {n} does not split over {self.world} ranks")
+        per = n // self.world
+        return self.rank * per, (self.rank + 1) * per
 
     def check_axis(self, name: str) -> int:
         """The size of axis ``name``; raises ``ValueError`` if the mesh has none."""
@@ -73,7 +140,8 @@ class Mesh:
             _BOUND.reset(token)
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, device={str(self.device)!r})"
+        ranks = f", rank={self.rank}, world={self.world}" if self.ranked else ""
+        return f"Mesh({self.shape}, device={str(self.device)!r}{ranks})"
 
 
 def axis_size(name: str) -> int:
@@ -98,7 +166,7 @@ class PartitionSpec(tuple):
 @dataclass(frozen=True)
 class NamedSharding:
     """``jax.sharding.NamedSharding`` stand-in: a spec over a mesh's axes.
-    On one card every shard lives on ``mesh.device``."""
+    Every shard of this process lives on ``mesh.device``."""
 
     mesh: Mesh
     spec: PartitionSpec
@@ -108,35 +176,87 @@ class NamedSharding:
         return self.mesh.device
 
 
+def _joined() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
 def make_mesh(
     shape: Optional[Sequence[int]] = None,
     axis_names: Sequence[str] = ("nodes", "model"),
     devices: Optional[Sequence[DeviceLike]] = None,
 ) -> Mesh:
-    """Build a mesh over one device (the JAX package's arguments).
+    """Build a mesh (the JAX package's arguments).
+
+    On one process the mesh spans one device and each axis is a number of
+    virtual shards (default: 1 for every axis). In a joined process group
+    (:func:`initialize_multihost`) the ``"nodes"`` axis spans the ranks: its
+    default size is the world size W, the other axes 1, and a ``"nodes"``
+    size must be a multiple of W.
 
     Args:
-        shape: per-axis sizes; each axis is a number of virtual shards on
-            the one device (default: 1 for every axis).
+        shape: per-axis sizes.
         axis_names: mesh axis names, default ``("nodes", "model")``.
-        devices: a one-element sequence (default ``["cuda"]``); more than
-            one device raises, since the port runs on one card.
+        devices: this process' one device (default ``["cuda"]``, or the
+            rank's device in a joined group); more than one raises: every
+            process drives one device.
     """
-    devices = list(devices) if devices is not None else ["cuda"]
-    if len(devices) != 1:
-        raise ValueError(f"the port's mesh spans one device, got {len(devices)} (multi-device meshes are out of "
-                         "scope: ROADMAP, queue A's out-of-scope notes)")
+    import torch.distributed as dist
+
+    joined = _joined()
     names = tuple(axis_names)
-    shape = tuple(shape) if shape is not None else (1,) * len(names)
+    devices = list(devices) if devices is not None else [rank_device() if joined else "cuda"]
+    if len(devices) != 1:
+        raise ValueError(f"the port's mesh spans one device per process, got {len(devices)}: start one process "
+                         "per device and join them with initialize_multihost")
+    shape = tuple(shape) if shape is not None else ((dist.get_world_size() if joined else 1),) + (1,) * (
+        len(names) - 1)
     if len(shape) != len(names):
         raise ValueError(f"mesh shape {shape} does not match axis names {names}")
-    return Mesh(dict(zip(names, shape)), device=devices[0])
+    return Mesh(dict(zip(names, shape)), device=devices[0], group=dist.group.WORLD if joined else None)
 
 
-#: The environment a multi-process deployment announces itself by (the JAX
-#: package's list).
+#: The environment a multi-process deployment announces itself by: the JAX
+#: package's list, and the variables ``torchrun`` sets.
 _DEPLOYMENT_ENV = ("JAX_COORDINATOR_ADDRESS", "TPU_WORKER_HOSTNAMES", "CLOUD_TPU_TASK_ID",
                    "MEGASCALE_COORDINATOR_ADDRESS")
+_TORCHRUN_ENV = ("MASTER_ADDR", "WORLD_SIZE", "RANK")
+
+#: What :func:`initialize_multihost` chose for this process: ``device``,
+#: ``backend``, ``rank``, ``world`` (None before it joined).
+JOINED: Optional[Dict[str, Any]] = None
+
+
+def _env_int(*names: str) -> Optional[int]:
+    for name in names:
+        if os.environ.get(name, "") != "":
+            return int(os.environ[name])
+    return None
+
+
+def rank_device() -> torch.device:
+    """This rank's device: the one :func:`initialize_multihost` chose, else
+    (a group joined some other way) its rule for a card over ``LOCAL_RANK``
+    / ``LOCAL_WORLD_SIZE``: ``cuda:LOCAL_RANK`` when the host has a card for
+    every local rank, else the one card, shared."""
+    if JOINED is not None:
+        return JOINED["device"]
+    return _pick_device("cuda", None, _env_int("LOCAL_RANK", "RANK") or 0,
+                        _env_int("LOCAL_WORLD_SIZE", "WORLD_SIZE") or 1)
+
+
+def _pick_device(device: DeviceLike, local_device_ids: Optional[Sequence[int]], local_rank: int,
+                 local_world: int) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return dev
+    resolve_device(dev)  # raises when no card is visible
+    if local_device_ids:
+        return torch.device("cuda", int(local_device_ids[0]))
+    if dev.index is not None:
+        return dev
+    return torch.device("cuda", local_rank if torch.cuda.device_count() >= local_world else 0)
 
 
 def initialize_multihost(
@@ -144,21 +264,86 @@ def initialize_multihost(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
     local_device_ids: Optional[Sequence[int]] = None,
-) -> None:
-    """The JAX package's multi-host join. A no-op when nothing asks to join
-    (no argument and none of the deployment variables set), as there; asked
-    to join a multi-process deployment it raises ``NotImplementedError``:
-    the port runs on one card, and multi-GPU ``torch.distributed`` is out of
-    scope (ROADMAP, queue A's out-of-scope notes)."""
+    *,
+    device: DeviceLike = "cuda",
+    timeout_s: float = 600.0,
+) -> Optional[Dict[str, Any]]:
+    """Join this process to a multi-process deployment: a
+    ``torch.distributed`` process group of ``num_processes`` ranks.
+
+    The JAX package's arguments, in its order: ``coordinator_address``
+    (``host:port`` or a ``tcp://`` URL; rank 0 listens there),
+    ``num_processes`` (W) and ``process_id`` (this rank); without them the
+    group comes from ``JAX_COORDINATOR_ADDRESS`` with ``JAX_NUM_PROCESSES``
+    / ``JAX_PROCESS_ID``, or from the variables ``torchrun`` sets
+    (``MASTER_ADDR`` / ``MASTER_PORT`` / ``RANK`` / ``WORLD_SIZE`` /
+    ``LOCAL_RANK``, ``env://``). ``local_device_ids[0]`` pins the card.
+
+    The device: ``cuda:LOCAL_RANK`` when the host has a card for every local
+    rank, the one card shared when it has fewer, the CPU when ``device="cpu"``
+    asks for it, as the tests do. The backend is chosen explicitly and logged: NCCL when
+    every local rank has a card of its own, gloo on the CPU or when ranks
+    share a card (NCCL refuses two ranks on one GPU). A backend that fails
+    to initialize raises; nothing falls back. Every
+    collective waits at most ``timeout_s``.
+
+    Idempotent (a second call returns what the first chose), and a no-op
+    returning None when nothing asks to join (no argument and none of the
+    deployment variables set), as in the JAX package. Returns
+    ``{"device", "backend", "rank", "world"}``.
+    """
+    global JOINED
+    import torch.distributed as dist
+
+    if _joined():
+        return JOINED
     asked = [n for n, v in (("coordinator_address", coordinator_address), ("num_processes", num_processes),
                             ("process_id", process_id), ("local_device_ids", local_device_ids)) if v is not None]
-    asked += [k for k in _DEPLOYMENT_ENV if k in os.environ]
+    asked += [k for k in (*_DEPLOYMENT_ENV, *_TORCHRUN_ENV) if k in os.environ]
     if not asked:
-        return  # single process: nothing to join
-    raise NotImplementedError(
-        f"initialize_multihost was asked to join a multi-process deployment ({', '.join(asked)}); the port runs "
-        "on one card and multi-GPU torch.distributed is out of scope (ROADMAP, queue A's out-of-scope notes)"
-    )
+        return None  # single process: nothing to join
+    coordinator = coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS")
+    world = num_processes if num_processes is not None else _env_int("JAX_NUM_PROCESSES", "WORLD_SIZE")
+    rank = process_id if process_id is not None else _env_int("JAX_PROCESS_ID", "RANK")
+    if coordinator is not None:
+        init_method = coordinator if "://" in coordinator else f"tcp://{coordinator}"
+    elif "MASTER_ADDR" in os.environ:
+        init_method = "env://"
+    else:
+        raise ValueError(f"initialize_multihost was asked to join ({', '.join(asked)}) but has no coordinator: "
+                         "pass coordinator_address, or set MASTER_ADDR / MASTER_PORT as torchrun does")
+    if world is None or rank is None:
+        raise ValueError(f"initialize_multihost needs the world size and this rank (num_processes / process_id, "
+                         f"or WORLD_SIZE / RANK); got {world} / {rank}")
+    if not 0 <= rank < world:
+        raise ValueError(f"process_id {rank} is outside a world of {world}")
+    # One host unless torchrun says otherwise: local ranks are the ranks.
+    local_rank = _env_int("LOCAL_RANK")
+    local_world = _env_int("LOCAL_WORLD_SIZE") or world
+    dev = _pick_device(device, local_device_ids, rank if local_rank is None else local_rank, local_world)
+    own_card = dev.type == "cuda" and (bool(local_device_ids) or torch.cuda.device_count() >= local_world)
+    chosen = "nccl" if own_card else "gloo"
+    why = ("a card for each rank" if own_card else
+           "the CPU" if dev.type == "cpu" else f"{local_world} ranks share {torch.cuda.device_count()} card(s)")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    log.info("initialize_multihost: rank %d of %d on %s, backend %s (%s), %s", rank, world, dev, chosen, why,
+             init_method)
+    dist.init_process_group(chosen, init_method=init_method, world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=float(timeout_s)))
+    JOINED = {"device": dev, "backend": chosen, "rank": rank, "world": world}
+    return JOINED
+
+
+def shutdown_multihost() -> None:
+    """Leave the process group :func:`initialize_multihost` joined (a no-op
+    when none was joined)."""
+    global JOINED
+    if _joined():
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    JOINED = None
 
 
 def population_sharding(mesh: Mesh, axis: str = "nodes") -> NamedSharding:

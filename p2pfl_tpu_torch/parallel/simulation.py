@@ -1,6 +1,6 @@
-"""Federated-population simulation on one card (counterpart of
-``p2pfl_tpu/parallel/simulation.py``): the classification and causal-LM
-tasks with the JAX package's round options.
+"""Federated-population simulation on one card, or over the ranks of a
+rank mesh (counterpart of ``p2pfl_tpu/parallel/simulation.py``): the
+classification and causal-LM tasks with the JAX package's round options.
 
 The population lives on the device as stacked ``[N, ...]`` tensors: every
 node's parameters and optimizer state (and SCAFFOLD's control variates).
@@ -16,7 +16,22 @@ Where the JAX package ``vmap``s local training over the committee inside one
 XLA program, the port loops over the members in Python: each member's
 training is independent, and the flash kernels' ``autograd.Function`` is not
 run under ``torch.func.vmap`` (DP-SGD's per-example gradients loop over the
-examples for flash models for the same reason).
+examples for flash models for the same reason). Each member's own update
+transforms (the Byzantine corruption, the norm clip, SCAFFOLD's variate
+step, the devobs update norm) run right after its training, on its own
+round-start model.
+
+Over ranks (a :func:`~p2pfl_tpu_torch.parallel.mesh.make_mesh` mesh after
+``initialize_multihost``) the population is padded to the ``"nodes"`` axis
+and each rank keeps its contiguous slab of it (parameters, optimizer state,
+control variates, data); every rank builds the same host data from the same
+seed and agrees on the committee. A member trains on the rank that holds it;
+one ``all_gather`` gives every rank the K transformed member models (with
+their losses, update norms and SCAFFOLD's variate deltas) in committee
+order, and every rank then aggregates, evaluates and diffuses into its own
+slab. The gathered stack is the one a single process builds, so the
+trajectory is bit-identical at every world size. Only rank 0 writes files
+(the ledger, the flight recorder's dumps, bundles, traces, snapshots).
 
 RNG: JAX threefry keys and torch generators give different streams, so the
 port's draws are its own, from seeded CPU ``torch.Generator``s keyed by the
@@ -52,6 +67,7 @@ from p2pfl_tpu_torch.management.profiler import device_memory_watermark, device_
 from p2pfl_tpu_torch.models.model_handle import ModelHandle
 from p2pfl_tpu_torch.ops import aggregation as agg_ops
 from p2pfl_tpu_torch.optim import adam, sgd, state_map, yogi
+from p2pfl_tpu_torch.parallel import collectives
 from p2pfl_tpu_torch.parallel.mesh import Mesh
 from p2pfl_tpu_torch.telemetry.bundle import establish_run
 from p2pfl_tpu_torch.telemetry.sketches import device_bucket_spec, device_bucket_stats
@@ -61,6 +77,10 @@ Aggregate = Callable[[Params, torch.Tensor], Params]
 BatchLoss = Callable[[Params, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 log = logging.getLogger("p2pfl_tpu_torch")
+
+#: What a checkpoint of a population over more than one rank raises with.
+_SHARDED_CHECKPOINTS = ("checkpoints of a population sharded over ranks are not ported yet (ROADMAP queue A item "
+                        "A6: sharded checkpoints and both population engines over ranks)")
 
 
 def poison_delta(new: torch.Tensor, old: torch.Tensor, attack: str, scale: float = 10.0) -> torch.Tensor:
@@ -298,9 +318,12 @@ class MeshSimulation:
         lr: local learning rate (and SCAFFOLD's control-variate scale).
         optimizer: a port transformation (:mod:`p2pfl_tpu_torch.optim`);
             default Adam at ``lr``, SGD at ``lr`` under SCAFFOLD.
-        seed: round RNG seed (OS entropy when None).
-        mesh: a one-device :class:`~p2pfl_tpu_torch.parallel.mesh.Mesh`; its
-            ``"nodes"`` axis size is the default ``pad_to_multiple``.
+        seed: round RNG seed (OS entropy when None; over ranks, rank 0's).
+        mesh: a :class:`~p2pfl_tpu_torch.parallel.mesh.Mesh`; its ``"nodes"``
+            axis size is the default ``pad_to_multiple``. Over a rank mesh
+            each rank keeps its slab of the population, and the calls that
+            gather (``run``, ``final_model``, ``state_dict``) are collective:
+            every rank makes them.
         aggregate_fn: ``(stacked, weights) -> params``; default FedAvg.
         per_node_init: perturb each node's start by 0.01 N(0, 1).
         task: ``"classification"`` (labels in ``y``) or ``"lm"`` (``x`` holds
@@ -323,7 +346,8 @@ class MeshSimulation:
         pad_to_multiple: pad the population with zero-weight filler nodes,
             never elected, to a multiple of this.
         device: where the population lives (default ``"cuda"``; raises
-            when no card is visible).
+            when no card is visible). Over a rank mesh: the mesh's device,
+            whose type ``device`` must name.
     """
 
     def __init__(
@@ -421,7 +445,14 @@ class MeshSimulation:
             )
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a p2pfl_tpu_torch Mesh, got {type(mesh).__name__}")
-        self.device = resolve_device(device)
+        self._ranked = mesh is not None and mesh.ranked
+        self._rank, self._world = (mesh.rank, mesh.world) if self._ranked else (0, 1)
+        if self._ranked:
+            if torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device {str(device)!r} does not match the rank mesh's {str(mesh.device)!r}")
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(device)
         self.model = model
         self.task = task
         self.algorithm = algorithm
@@ -442,6 +473,9 @@ class MeshSimulation:
         else:
             self.optimizer = adam(lr)
         self.seed = resolve_seed(seed, self.dp_noise_multiplier)
+        if self._world > 1:  # the ranks draw their committees and shuffles from rank 0's seed
+            self.seed = int(collectives.broadcast(
+                torch.tensor([self.seed], dtype=torch.int64, device=self.device), src=0, group=mesh.group).item())
         self.mesh = mesh
         self.aggregate_fn: Aggregate = aggregate_fn if aggregate_fn is not None else agg_ops.fedavg
         self._byz_attack = byzantine_attack
@@ -466,6 +500,7 @@ class MeshSimulation:
         else:
             self.node_speed = None
         self._byz: Optional[torch.Tensor] = None
+        self._byz_host: Optional[np.ndarray] = None
         if byzantine_mask is not None:
             byz = np.asarray(byzantine_mask, np.float32)
             if byz.shape != (self.num_nodes,):
@@ -474,6 +509,7 @@ class MeshSimulation:
                     "one flag per node"
                 )
             self._byz = torch.as_tensor(byz, device=self.device)
+            self._byz_host = byz
         self.train_set_size = int(min(train_set_size or Settings.TRAIN_SET_SIZE, self.num_nodes))
         if test_data is not None:
             x_test, y_test = test_data
@@ -498,10 +534,15 @@ class MeshSimulation:
         if n_pad:
             x, y, mask = (np.concatenate([a, np.zeros((n_pad,) + a.shape[1:], a.dtype)]) for a in (x, y, mask))
             self.num_nodes += n_pad
-        self.x = self._to_device(x)
-        self.y = self._to_device(y)
-        self.sample_mask = torch.as_tensor(mask, dtype=torch.float32, device=self.device)
-        self.num_samples = self.sample_mask.sum(dim=1)  # [N] FedAvg weights
+        # This rank's slab [lo, hi) of the padded population (all of it on
+        # one process); the FedAvg weights stay whole on every rank.
+        self.slab = mesh.slab(self.num_nodes) if self._ranked else (0, self.num_nodes)
+        lo, hi = self.slab
+        mask = np.asarray(mask, np.float32)
+        self.x = self._to_device(x[lo:hi])
+        self.y = self._to_device(y[lo:hi])
+        self.sample_mask = torch.as_tensor(mask[lo:hi], device=self.device)
+        self.num_samples = torch.as_tensor(mask.sum(axis=1), device=self.device)  # [N] FedAvg weights
         self.x_test = self._to_device(x_test) if x_test is not None else None
         self.y_test = self._to_device(y_test) if y_test is not None else None
 
@@ -525,6 +566,12 @@ class MeshSimulation:
         self._devobs_node = "mesh-sim"
         self._recorder: Any = None
         self._devobs_last: Dict[str, Any] = {}
+        #: Per timed round of the last run: the committee members each rank
+        #: trained, and the bytes this rank's all_gather received (0 on one
+        #: process).
+        self.rank_members: List[List[int]] = []
+        self.gather_bytes: List[int] = []
+        self._round_members: List[int] = []
         # Join the federation-wide run context (telemetry/bundle.py), as the
         # JAX package's engine does: every artifact this engine emits
         # carries the run id.
@@ -535,12 +582,13 @@ class MeshSimulation:
         c_global)``: every node at the template model (perturbed under
         ``per_node_init``), the optimizer's initial state stacked, and
         SCAFFOLD's zero variates or the server optimizer's state."""
-        n = self.num_nodes
+        lo, hi = self.slab
+        n = hi - lo
         template = {k: v.detach().to(self.device, torch.float32) for k, v in self.model.params.items()}
         params: Params = {k: v[None].repeat((n,) + (1,) * v.dim()) for k, v in template.items()}
         if self._per_node_init:
             for i in range(n):
-                gen = _generator(self.seed, 0, 2, i)
+                gen = _generator(self.seed, 0, 2, lo + i)
                 for k, v in params.items():
                     v[i] += (0.01 * torch.randn(v.shape[1:], generator=gen)).to(self.device, v.dtype)
         opt = state_map(lambda a: a[None].repeat((n,) + (1,) * a.dim()), self.optimizer.init(template))
@@ -581,15 +629,16 @@ class MeshSimulation:
         do_eval: bool, fold_pos: Optional[torch.Tensor] = None, devobs: bool = False,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
         """Run one round on the state ``st`` (``params``, ``opt``, ``c``,
-        ``c_global``), in place; returns ``(committee, train_loss,
-        test_loss, test_acc, aux)`` (NaN test values when ``do_eval`` is
-        off). With ``devobs``, ``aux`` is the round's device-observatory row,
-        computed on the device and read by nothing here: one f64 tensor of
-        the update-norm bucket counts (:func:`device_bucket_stats` over the
-        members' round-delta L2 norms) and ``_AUX_COLS[:7]`` (``nonfinite``:
-        a member's loss or a leaf of the aggregate is not finite); else
-        None. The aux feeds nothing back: the parameters are bit-identical
-        with it on or off."""
+        ``c_global``: this rank's slab), in place; returns ``(committee,
+        train_loss, test_loss, test_acc, aux)`` (NaN test values when
+        ``do_eval`` is off). With ``devobs``, ``aux`` is the round's
+        device-observatory row, computed on the device and read by nothing
+        here: one f64 tensor of the update-norm bucket counts
+        (:func:`device_bucket_stats` over the members' round-delta L2 norms)
+        and ``_AUX_COLS[:7]`` (``nonfinite``: a member's loss or a leaf of the
+        aggregate is not finite); else None. The aux feeds nothing back: the
+        parameters are bit-identical with it on or off. Over ranks every
+        rank runs it together (:meth:`_gather_members`)."""
         params, opt, scaffold = st["params"], st["opt"], self.algorithm == "scaffold"
         if committee is None:
             committee = vote_committee(
@@ -597,63 +646,51 @@ class MeshSimulation:
             if self.canonical_committee:
                 committee = torch.sort(committee).values
         idx = committee.to(self.device)
-        # The members' round-start models, for the update transforms below.
-        p_k = ({k: v[idx] for k, v in params.items()}
-               if self._byz is not None or self.clip_update_norm or devobs else {})
-        members: List[Params] = []
-        losses = []
-        for pos, node in enumerate(committee.tolist()):
+        comm = committee.tolist()
+        lo, hi = self.slab
+        if scaffold:
+            anchor = {k: v[0] for k, v in params.items()}  # every node holds the shared round start
+            c_scale = 1.0 / ((self.x.shape[1] // self.batch_size) * epochs * self.lr)
+        rows: List[Params] = []
+        for pos, node in enumerate(comm):
+            if not lo <= node < hi:
+                continue  # another rank trains it
+            i = node - lo
+            p_0 = {k: v[i] for k, v in params.items()}  # its round-start model
+            c_i = {k: v[i] for k, v in st["c"].items()} if scaffold else None
             p_i, o_i, loss = local_train_step(
-                {k: v[node] for k, v in params.items()}, state_map(lambda a: a[node], opt),
-                member_generator(self.seed, round_idx, pos),
-                self.x[node], self.y[node], self.sample_mask[node],
-                {k: v[node] for k, v in st["c"].items()} if scaffold else None,
+                p_0, state_map(lambda a: a[i], opt), member_generator(self.seed, round_idx, pos),
+                self.x[i], self.y[i], self.sample_mask[i], c_i,
                 c_global=st["c_global"] if scaffold else None,
                 epochs=epochs, batch_loss=self._batch_loss, optimizer=self.optimizer,
                 batch_size=self.batch_size, fedprox_mu=self.fedprox_mu,
                 dp_clip_norm=self.dp_clip_norm, dp_noise_multiplier=self.dp_noise_multiplier,
                 scaffold=scaffold, per_example=self._per_example,
             )
-            state_map(lambda a, u: a[node].copy_(u), opt, o_i)  # only members write back
-            members.append(p_i)
-            losses.append(loss)
-        p_k_new = agg_ops.tree_stack(members)
-        del members
-
-        def per_member(v: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
-            return v.reshape((-1,) + (1,) * (ref.dim() - 1))
-
-        if self._byz is not None:
-            bz = self._byz[idx]
-            p_k_new = {
-                k: torch.where(per_member(bz, new) > 0, poison_delta(new, p_k[k], self._byz_attack),
-                               new.float()).to(new.dtype)
-                for k, new in p_k_new.items()
-            }
-        if self.clip_update_norm > 0.0:
-            sq = sum(((new.float() - p_k[k].float()) ** 2).reshape(new.shape[0], -1).sum(dim=1)
-                     for k, new in p_k_new.items())
-            scale = torch.clamp(self.clip_update_norm / torch.sqrt(sq + 1e-12), max=1.0)
-            p_k_new = {
-                k: (p_k[k].float() + (new.float() - p_k[k].float()) * per_member(scale, new)).to(new.dtype)
-                for k, new in p_k_new.items()
-            }
+            state_map(lambda a, u: a[i].copy_(u), opt, o_i)  # only members write back
+            row = self._member_update(node, p_0, p_i, devobs)
+            row["loss"] = loss.float()
+            if scaffold:
+                # Member variate c_i' = c_i - c + (x - y_i) / (steps * lr);
+                # the server step folds dc = c_i' - c_i.
+                c_new = {k: c_i[k] - st["c_global"][k] - (p_i[k].float() - anchor[k].float()) * c_scale
+                         for k in c_i}
+                row.update({f"dc/{k}": c_new[k] - c_i[k] for k in c_i})
+                for k, v in st["c"].items():
+                    v[i] = c_new[k]
+            rows.append(row)
+        stack = self._gather_members(rows, comm, scaffold, devobs)
+        p_k_new = {k[2:]: v for k, v in stack.items() if k.startswith("p/")}
+        member_losses = stack["loss"]
 
         weights = self.num_samples[idx]
         if scaffold:
-            # Server step: x <- x + lr_g mean(dy); c <- c + K/N mean(dc);
-            # member variates c_i' = c_i - c + (x - y_i) / (steps * lr).
-            anchor = {k: v[0] for k, v in params.items()}  # the shared round start
-            scale = 1.0 / ((self.x.shape[1] // self.batch_size) * epochs * self.lr)
+            # Server step: x <- x + lr_g mean(dy); c <- c + K/N mean(dc).
             dy = {k: new.float() - anchor[k].float()[None] for k, new in p_k_new.items()}
-            c_k = {k: v[idx] for k, v in st["c"].items()}
-            c_k_new = {k: c_k[k] - st["c_global"][k][None] - dy[k] * scale for k in c_k}
-            dc = {k: c_k_new[k] - c_k[k] for k in c_k}
+            dc = {k[3:]: v for k, v in stack.items() if k.startswith("dc/")}
             new_global, st["c_global"] = agg_ops.scaffold_update(
                 anchor, st["c_global"], dy, dc, self.scaffold_global_lr, float(self.logical_num_nodes))
             agg = {k: g.to(anchor[k].dtype) for k, g in new_global.items()}
-            for k, v in st["c"].items():
-                v[idx] = c_k_new[k]
         else:
             if fold_pos is not None:  # fold only these committee positions
                 fp = fold_pos.to(self.device)
@@ -671,9 +708,8 @@ class MeshSimulation:
             # Seeded fault injection for the tripwire: the aggregate turns
             # NaN at one absolute round index.
             agg = {k: torch.full_like(v, float("nan")) for k, v in agg.items()}
-        member_losses = torch.stack(losses)
-        aux = self._devobs_aux(p_k, p_k_new, agg, member_losses, weights, len(committee)) if devobs else None
-        del p_k_new, p_k
+        aux = self._devobs_aux(stack["un_sq"], agg, member_losses, weights, len(comm)) if devobs else None
+        del p_k_new, stack
         # Diffusion: every node adopts the aggregate (gossip's fixed point).
         for k, v in params.items():
             v.copy_(agg[k][None].expand_as(v))
@@ -685,15 +721,65 @@ class MeshSimulation:
             test_loss = test_acc = torch.full((), float("nan"), device=self.device)
         return committee, member_losses.mean(), test_loss, test_acc, aux
 
-    def _devobs_aux(self, p_k, p_k_new, agg, member_losses, weights, members: int) -> torch.Tensor:
+    def _member_update(self, node: int, p_0: Params, p_i: Params, devobs: bool) -> Params:
+        """One member's trained model after its own update transforms, as
+        ``{"p/<name>": leaf}``: a Byzantine node's poisoning, then the clip
+        of its round delta to ``clip_update_norm`` (global L2), then (with
+        ``devobs``) ``"un_sq"``, the squared L2 norm of its final delta.
+        ``p_0`` is its round-start model."""
+        if self._byz_host is not None and self._byz_host[node] > 0:
+            p_i = {k: poison_delta(new, p_0[k], self._byz_attack).to(new.dtype) for k, new in p_i.items()}
+        if self.clip_update_norm > 0.0:
+            sq = sum(((new.float() - p_0[k].float()) ** 2).sum() for k, new in p_i.items())
+            scale = torch.clamp(self.clip_update_norm / torch.sqrt(sq + 1e-12), max=1.0)
+            p_i = {k: (p_0[k].float() + (new.float() - p_0[k].float()) * scale).to(new.dtype)
+                   for k, new in p_i.items()}
+        row = {f"p/{k}": v for k, v in p_i.items()}
+        if devobs:
+            deltas = torch._foreach_sub([v.float() for v in p_i.values()], [p_0[k].float() for k in p_i])
+            row["un_sq"] = torch.stack(torch._foreach_norm(deltas)).square().sum()
+        return row
+
+    def _gather_members(self, rows: List[Params], comm: List[int], scaffold: bool, devobs: bool) -> Params:
+        """The committee's member rows stacked ``[K, ...]`` in committee order.
+        On one process that is a stack of ``rows``. Over ranks each rank
+        brings the rows of the members it holds, one ``all_gather`` moves
+        them all, and the rank-major result is put back in committee order;
+        the members per rank and the bytes gathered are kept for the run's
+        records."""
+        if not self._ranked:
+            self._round_members = [len(rows)]
+            return agg_ops.tree_stack(rows)
+        per = self.slab[1] - self.slab[0]
+        owner = [node // per for node in comm]
+        counts = [owner.count(r) for r in range(self._world)]
+        self._round_members = counts
+        if rows:
+            local = agg_ops.tree_stack(rows)
+        else:  # this rank holds no member: an empty contribution of the same layout
+            f32 = torch.float32
+            shapes = {f"p/{k}": (v.shape[1:], v.dtype) for k, v in self.params_stack.items()}
+            shapes["loss"] = ((), f32)
+            if devobs:
+                shapes["un_sq"] = ((), f32)
+            if scaffold:
+                shapes.update({f"dc/{k}": (v.shape[1:], v.dtype) for k, v in self.c_stack.items()})
+            local = {k: torch.empty((0, *shape), dtype=dt, device=self.device) for k, (shape, dt) in shapes.items()}
+        stack = collectives.all_gather(local, counts, group=self.mesh.group)
+        order = [pos for r in range(self._world) for pos, o in enumerate(owner) if o == r]
+        if order != sorted(order):
+            perm = torch.as_tensor(np.argsort(order), device=self.device)
+            stack = {k: v.index_select(0, perm) for k, v in stack.items()}
+        return stack
+
+    def _devobs_aux(self, un_sq, agg, member_losses, weights, members: int) -> torch.Tensor:
         """One round's device-observatory row, computed on the device without
-        waiting for it: the bucket counts of the members' update norms, then
-        the nonfinite flag, the weight mass, the member count, and the norms'
-        zeros, sum, min and max (f64, read by :func:`fold_devobs_chunk`)."""
-        sq = sum(((new.float() - p_k[k].float()) ** 2).reshape(new.shape[0], -1).sum(dim=1)
-                 for k, new in p_k_new.items())
+        waiting for it: the bucket counts of the members' update norms
+        (``un_sq``: their squares), then the nonfinite flag, the weight mass,
+        the member count, and the norms' zeros, sum, min and max (f64, read
+        by :func:`fold_devobs_chunk`)."""
         gamma_log, lo_idx, nbins = self._devobs_spec
-        stats = device_bucket_stats(torch.sqrt(sq + 1e-12), gamma_log=gamma_log, lo_idx=lo_idx, nbins=nbins)
+        stats = device_bucket_stats(torch.sqrt(un_sq + 1e-12), gamma_log=gamma_log, lo_idx=lo_idx, nbins=nbins)
         # A leaf's largest |x| is finite exactly when all of it is: one
         # multi-tensor reduction over the aggregate, then one isfinite.
         amax = torch.stack(torch._foreach_norm(list(agg.values()), float("inf"))).float()
@@ -774,9 +860,18 @@ class MeshSimulation:
         ``completed_rounds`` at the last save) and raises a ``RuntimeError``
         that says to restore with :meth:`load_from`; an interrupt is
         re-raised as it is.
+
+        Over ranks every rank calls ``run`` with the same arguments; each
+        returns rank 0's test values. ``rank_members`` and ``gather_bytes``
+        then hold, per timed round, the members each rank trained and the
+        bytes this rank's ``all_gather`` received. Checkpointing over more
+        than one rank raises ``NotImplementedError`` (ROADMAP queue A item
+        A6).
         """
         if self._closed:
             raise RuntimeError("simulation is closed — construct a new MeshSimulation")
+        if checkpointer is not None and self._world > 1:
+            raise NotImplementedError(_SHARDED_CHECKPOINTS)
         if self.params_stack is None:
             raise RuntimeError(
                 "population state lost in a failed chunk — load_from(checkpointer) to restore before running again")
@@ -825,8 +920,10 @@ class MeshSimulation:
         devobs = bool(Settings.DEVOBS_ENABLED)  # read once per run, as the JAX package does
         if profile_dir is None:
             profile_dir = Settings.PERF_TRACE_DIR
-        profile_chunks = int(Settings.DEVOBS_PROFILE_CHUNKS)
-        rec = self._devobs_recorder() if devobs else self._recorder
+        writes = self._rank == 0  # only rank 0 writes files: traces, the flight recorder's dumps
+        profile_chunks = int(Settings.DEVOBS_PROFILE_CHUNKS) if writes else 0
+        rec = (self._devobs_recorder() if devobs else self._recorder) if writes else None
+        self.rank_members, self.gather_bytes = [], []
         steps_per_round = epochs * (self.x.shape[1] // self.batch_size)
         rounds_per_call = min(rounds_per_call, rounds)
         chunks = [rounds_per_call] * (rounds // rounds_per_call)
@@ -855,8 +952,14 @@ class MeshSimulation:
                     for i in range(done, done + chunk):
                         r = start + i
                         do_eval = (r + 1) % eval_every == 0 or i == rounds - 1
+                        gathered = collectives.STATS["all_gather_bytes"]
                         comm, tr, tl, ta, aux = self._round(st, r, epochs, row(sched, i), do_eval, row(fsched, i),
                                                             devobs)
+                        self.rank_members.append(list(self._round_members))
+                        self.gather_bytes.append(collectives.STATS["all_gather_bytes"] - gathered)
+                        if self._ranked:
+                            log.info("round %d: members per rank %s, %d bytes all-gathered", r,
+                                     self._round_members, self.gather_bytes[-1])
                         if self._ledger is not None:
                             self._ledger_emit_round(r, comm, row(fsched, i), i == done + chunk - 1)
                         committees.append(comm)
@@ -913,8 +1016,10 @@ class MeshSimulation:
         if trip is not None:
             self._devobs_trip(trip, rec)
         dt = time.monotonic() - t0
-        loss_all = torch.stack(test_loss).cpu().numpy()
-        acc_all = torch.stack(test_acc).cpu().numpy()
+        tested = torch.stack([torch.stack(test_loss), torch.stack(test_acc)]).float()
+        if self._world > 1:  # every rank evaluated the same aggregate; all report rank 0's values
+            collectives.broadcast(tested, src=0, group=self.mesh.group)
+        loss_all, acc_all = tested.cpu().numpy()
         evaluated = ~np.isnan(acc_all)
         result = SimulationResult(
             rounds=done,
@@ -953,8 +1058,9 @@ class MeshSimulation:
             trip["flightrec"] = rec.dump("devobs_trip")
         if self._ledger is not None:
             self._ledger.emit("membership", event="devobs_trip", peer=self._devobs_node)
-        trip["bundle"] = write_bundle(
-            "devobs_trip", context={k: trip.get(k) for k in ("kind", "round", "chunk", "action")})
+        trip["bundle"] = (write_bundle("devobs_trip", context={k: trip.get(k) for k in ("kind", "round", "chunk",
+                                                                                          "action")})
+                          if self._rank == 0 else None)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -970,21 +1076,33 @@ class MeshSimulation:
         )
 
     def final_model(self, node: int = 0) -> ModelHandle:
-        """One node's model (all equal after diffusion), as a new handle."""
+        """One node's model (all equal after diffusion), as a new handle.
+        Over ranks a collective: the rank that holds ``node`` broadcasts it
+        (:func:`~p2pfl_tpu_torch.population.sharding.gather_node`)."""
+        from p2pfl_tpu_torch.population.sharding import gather_node
+
         if self._closed:
             raise RuntimeError("simulation closed — extract the model before close()")
         if self.params_stack is None:
             raise RuntimeError("population state lost in a failed chunk; load_from(checkpointer) to restore")
-        return ModelHandle({k: v[node].clone() for k, v in self.params_stack.items()}, self.model.module)
+        if not self._ranked:
+            return ModelHandle({k: v[node].clone() for k, v in self.params_stack.items()}, self.model.module)
+        return ModelHandle(gather_node(self.params_stack, node, self.mesh, self.num_nodes), self.model.module)
 
     def state_dict(self) -> Dict[str, Any]:
         """The population state: stacked params and optimizer state, plus
-        SCAFFOLD's variates and the server optimizer's state where used."""
+        SCAFFOLD's variates and the server optimizer's state where used.
+        Over more than one rank a collective: the full ``[N, ...]`` stacks,
+        gathered from every rank's slab
+        (:func:`~p2pfl_tpu_torch.population.sharding.gather_population`)."""
+        from p2pfl_tpu_torch.population.sharding import gather_population
+
         if self._closed:
             raise RuntimeError("simulation is closed — snapshot state before close()")
-        state: Dict[str, Any] = {"params_stack": self.params_stack, "opt_stack": self.opt_stack}
+        stacks: Dict[str, Any] = {"params_stack": self.params_stack, "opt_stack": self.opt_stack}
         if self.algorithm == "scaffold":
-            state["c_stack"] = self.c_stack
+            stacks["c_stack"] = self.c_stack
+        state = gather_population(stacks, self.mesh) if self._world > 1 else stacks
         if self.algorithm == "scaffold" or self.server_tx is not None:
             state["c_global"] = self.c_global
         return state
@@ -1014,8 +1132,13 @@ class MeshSimulation:
         for the last round of each ``rounds_per_call`` chunk, the content hash
         of node 0's parameters after diffusion) and ``round_close``; the
         Byzantine nodes as ``chaos_fault`` events now. ``node_names`` maps
-        node indices to names (default ``vnode/<i>``). Returns the ledger."""
+        node indices to names (default ``vnode/<i>``). Returns the ledger.
+        Over ranks only rank 0 keeps one: elsewhere nothing is attached and
+        None returns."""
         from p2pfl_tpu_torch.telemetry.ledger import LEDGERS
+
+        if self._rank != 0:
+            return None
 
         if node_names is not None:
             names = [str(n) for n in node_names]
@@ -1113,7 +1236,7 @@ class MeshSimulation:
         arrays folded into quantile sketches plus a top-N straggler table,
         the devobs summary grafted on — the document shape the wire
         observatory writes (``scripts/fed_top.py`` renders it). ``path``
-        additionally writes it atomically."""
+        additionally writes it atomically (over ranks, rank 0 alone)."""
         from p2pfl_tpu_torch.telemetry.observatory import population_snapshot, write_snapshot_doc
 
         health = self.fleet_health(result, epochs=epochs)
@@ -1125,7 +1248,7 @@ class MeshSimulation:
             observer="mesh-sim", node_names=names, metrics=health, top_n=top_n, extras=extras or None,
             extra_sketches=extra_sketches or None,
         )
-        if path is not None:
+        if path is not None and self._rank == 0:
             write_snapshot_doc(path, snap)
         return snap
 
@@ -1152,9 +1275,13 @@ class MeshSimulation:
         ``run``'s trajectory are unchanged; the card's launch counters do
         count the call's kernels. ``devobs`` (default
         ``Settings.DEVOBS_ENABLED``) counts the device-observatory aux too.
-        Returns ``None`` when the count fails."""
+        Returns ``None`` when the count fails. Over more than one rank it
+        raises ``NotImplementedError`` (ROADMAP queue A item A7)."""
         if self._closed or self.params_stack is None:
             raise RuntimeError("simulation has no live population state")
+        if self._world > 1:
+            raise NotImplementedError("the cost analysis of a round over ranks is not ported yet (ROADMAP queue A "
+                                      "item A7: dryrun_multichip and the round's counts over real ranks)")
         from p2pfl_tpu_torch.ops.cost import count_cost_of
 
         devobs = bool(Settings.DEVOBS_ENABLED) if devobs is None else bool(devobs)
@@ -1186,7 +1313,10 @@ class MeshSimulation:
         """Snapshot the population state at the current completed-round
         count, with the meta record the JAX package writes: the round
         cursor, the seed, the DP step counters and parameters, and the
-        server optimizer's name and lr."""
+        server optimizer's name and lr. Over more than one rank it raises
+        ``NotImplementedError`` (ROADMAP queue A item A6)."""
+        if self._world > 1:
+            raise NotImplementedError(_SHARDED_CHECKPOINTS)
         return checkpointer.save(
             self.completed_rounds,
             self.state_dict(),
@@ -1215,8 +1345,11 @@ class MeshSimulation:
         (:meth:`_check_restore_pins`), and meta and state come from one step
         (``restore_coherent``). The checkpointed seed is adopted: round
         draws are keyed by ``(seed, round)``. The DP step counters become
-        the larger of the restored and the live values.
+        the larger of the restored and the live values. Over more than one
+        rank it raises ``NotImplementedError`` (ROADMAP queue A item A6).
         """
+        if self._world > 1:
+            raise NotImplementedError(_SHARDED_CHECKPOINTS)
         if self._closed:
             raise RuntimeError(
                 "simulation is closed (close() also released its training data, which checkpoints do not "

@@ -190,6 +190,10 @@ class AsyncPopulationEngine:
         from p2pfl_tpu_torch.models.mlp import mlp_model
         from p2pfl_tpu_torch.optim import sgd
 
+        if getattr(mesh, "ranked", False):
+            raise NotImplementedError(
+                "the population engines over a rank mesh are not ported yet (ROADMAP queue A item A6: sharded "
+                "checkpoints and both population engines over ranks); MeshSimulation runs over ranks")
         if num_nodes < 1:
             raise ValueError(f"num_nodes must be >= 1, got {num_nodes}")
         self.device = resolve_device(device)

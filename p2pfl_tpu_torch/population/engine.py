@@ -118,6 +118,10 @@ class PopulationEngine:
         from p2pfl_tpu_torch.optim import sgd
         from p2pfl_tpu_torch.parallel.simulation import MeshSimulation
 
+        if getattr(mesh, "ranked", False):
+            raise NotImplementedError(
+                "the population engines over a rank mesh are not ported yet (ROADMAP queue A item A6: sharded "
+                "checkpoints and both population engines over ranks); MeshSimulation runs over ranks")
         if num_nodes < 1:
             raise ValueError(f"num_nodes must be >= 1, got {num_nodes}")
         self.num_nodes = int(num_nodes)

@@ -16,8 +16,16 @@ layout. A stacked Dense ``weight`` is ``[N, out, in]`` and a Conv
 :func:`population_partition_rules` puts ``"model"`` on axis 1, the output
 axis the JAX package splits as the last axis of ``[N, in, out]``.
 
-On one card every shard lives on the mesh's device: a shard function moves
-a leaf there, a gather function returns it as host numpy.
+On one process every shard lives on the mesh's device: a shard function
+moves a leaf there, a gather function returns it as host numpy. Over the
+ranks of a rank mesh (:func:`~p2pfl_tpu_torch.parallel.mesh.make_mesh` after
+``initialize_multihost``) a leaf whose spec puts ``"nodes"`` on its leading
+axis is a population ``[N, ...]``: its shard function keeps this rank's slab
+(:meth:`~p2pfl_tpu_torch.parallel.mesh.Mesh.slab`), and its gather function
+builds the full ``[N, ...]`` from every rank's slab (a collective: every
+rank calls it) — :func:`gather_population` does that for whole trees, for
+snapshots and ``MeshSimulation.state_dict``; :func:`gather_node` gives
+every rank one node's row, for ``final_model``.
 """
 
 from __future__ import annotations
@@ -117,24 +125,42 @@ def population_partition_rules(model_parallel: bool = False) -> List[Tuple[str, 
     return [(r".*", PS("nodes"))]
 
 
+def _over_ranks(spec: PS, mesh: Mesh) -> bool:
+    """Whether a leaf of ``spec`` is split over the ranks of ``mesh``."""
+    return mesh.ranked and len(spec) > 0 and spec[0] == "nodes"
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
 def make_shard_and_gather_fns(partition_specs: Any, mesh: Optional[Mesh] = None) -> Tuple[Any, Any]:
     """Per-leaf placement function trees mirroring ``partition_specs``:
     ``shard_fns`` move a leaf (a tensor or numpy array) onto the mesh's
     device, ``gather_fns`` return a leaf as host numpy (bf16 widened to f32,
-    which numpy holds exactly). ``mesh`` defaults to :func:`make_mesh`'s."""
+    which numpy holds exactly). Over a rank mesh a leaf split on ``"nodes"``
+    is a population: shard keeps this rank's slab of ``[N, ...]``, gather
+    builds the full ``[N, ...]`` from every rank's slab. ``mesh`` defaults
+    to :func:`make_mesh`'s."""
     mesh = mesh if mesh is not None else make_mesh()
 
     def make_shard_fn(spec: PS) -> Callable[[Any], torch.Tensor]:
         def shard_fn(tensor: Any) -> torch.Tensor:
-            return torch.as_tensor(tensor).to(mesh.device)
+            t = torch.as_tensor(tensor)
+            if _over_ranks(spec, mesh):
+                lo, hi = mesh.slab(t.shape[0])
+                t = t[lo:hi]
+            return t.to(mesh.device)
 
         return shard_fn
 
     def make_gather_fn(spec: PS) -> Callable[[Any], np.ndarray]:
         def gather_fn(tensor: Any) -> np.ndarray:
             if isinstance(tensor, torch.Tensor):
-                t = tensor.detach()
-                return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+                if _over_ranks(spec, mesh):
+                    tensor = gather_population({"leaf": tensor}, mesh)["leaf"]
+                return _host(tensor)
             return np.asarray(tensor)
 
         return gather_fn
@@ -142,4 +168,46 @@ def make_shard_and_gather_fns(partition_specs: Any, mesh: Optional[Mesh] = None)
     return _tree_map(make_shard_fn, partition_specs), _tree_map(make_gather_fn, partition_specs)
 
 
-__all__ = ["make_shard_and_gather_fns", "match_partition_rules", "population_partition_rules", "tree_path_names"]
+def _leaves(tree: Any) -> List[torch.Tensor]:
+    out: List[torch.Tensor] = []
+    _tree_map(lambda leaf: out.append(leaf) if isinstance(leaf, torch.Tensor) else None, tree)
+    return out
+
+
+def _rebuild(tree: Any, leaves: List[torch.Tensor]) -> Any:
+    it = iter(leaves)
+    return _tree_map(lambda leaf: next(it) if isinstance(leaf, torch.Tensor) else leaf, tree)
+
+
+def gather_population(tree: Any, mesh: Mesh) -> Any:
+    """The full ``[N, ...]`` of every tensor leaf of ``tree`` (each this rank's
+    ``[N / W, ...]`` slab) on this rank's device, in one collective; the
+    tree itself on one process. Every rank calls it."""
+    from p2pfl_tpu_torch.parallel import collectives
+
+    if not mesh.ranked:
+        return tree
+    leaves = _leaves(tree)
+    got = collectives.all_gather({str(i): t for i, t in enumerate(leaves)}, [leaves[0].shape[0]] * mesh.world,
+                                 group=mesh.group)
+    return _rebuild(tree, [got[str(i)] for i in range(len(leaves))])
+
+
+def gather_node(tree: Any, node: int, mesh: Mesh, n: int) -> Any:
+    """Node ``node``'s row of every tensor leaf of ``tree`` (this rank's slab
+    of a population of ``n``) on every rank, broadcast from the rank that
+    holds it. Every rank calls it."""
+    from p2pfl_tpu_torch.parallel import collectives
+
+    lo, hi = mesh.slab(n)
+    if not mesh.ranked:
+        return _tree_map(lambda leaf: leaf[node] if isinstance(leaf, torch.Tensor) else leaf, tree)
+    per = hi - lo
+    leaves = _leaves(tree)
+    mine = {str(i): t[node - lo] if lo <= node < hi else t[0] for i, t in enumerate(leaves)}
+    got = collectives.broadcast_tree(mine, src=node // per, group=mesh.group)
+    return _rebuild(tree, [got[str(i)] for i in range(len(leaves))])
+
+
+__all__ = ["gather_node", "gather_population", "make_shard_and_gather_fns", "match_partition_rules",
+           "population_partition_rules", "tree_path_names"]

@@ -1,5 +1,6 @@
-"""Import hygiene of the port: every module of ``p2pfl_tpu_torch``, and
-every ``scripts/torch_*_check.py`` / ``scripts/torch_analyze.py``, imports
+"""Import hygiene of the port: every module of ``p2pfl_tpu_torch``, every
+``scripts/torch_*_check.py`` / ``scripts/torch_analyze.py``, and the rank
+worker ``tests/torch_multirank_worker.py`` import
 with JAX, flax, optax, ml_dtypes, msgpack and the JAX package blocked (the
 card's machine has none of them), and Hugging Face ``datasets`` and pandas
 too (the dataset loaders import them when called), in a fresh
@@ -25,12 +26,13 @@ assert {{"p2pfl_tpu_torch.management.checkpoint", "p2pfl_tpu_torch.population.en
          "p2pfl_tpu_torch.campaigns.invariants", "p2pfl_tpu_torch.campaigns.engine",
          "p2pfl_tpu_torch.analysis", "p2pfl_tpu_torch.analysis.core", "p2pfl_tpu_torch.analysis.checkers",
          "p2pfl_tpu_torch.analysis.baseline", "p2pfl_tpu_torch.analysis.runtime",
-         "p2pfl_tpu_torch.learning.dataset.vision"}} <= set(names), names
+         "p2pfl_tpu_torch.learning.dataset.vision", "p2pfl_tpu_torch.parallel.collectives",
+         "p2pfl_tpu_torch.parallel.launch", "p2pfl_tpu_torch.parallel.mesh"}} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import glob, importlib.util
-scripts = sorted(glob.glob("scripts/torch_*_check.py")) + ["scripts/torch_analyze.py"]
-assert len(scripts) == 5, scripts
+scripts = sorted(glob.glob("scripts/torch_*_check.py")) + ["scripts/torch_analyze.py", "tests/torch_multirank_worker.py"]
+assert len(scripts) == 6, scripts
 for path in scripts:
     spec = importlib.util.spec_from_file_location("script_" + path.split("/")[-1][:-3], path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))

@@ -88,6 +88,26 @@ def postmortem(monkeypatch, tmp_path):
     return report
 
 
+@pytest.fixture
+def reference_liveness(monkeypatch):
+    """The JAX package's ``run_wire`` at the port's liveness timeout: its
+    ``set_test_settings`` sets ``HEARTBEAT_TIMEOUT`` to 1.5 s, and under the
+    test workers' load a beat silence past that made a reference Node write
+    off its live peer and close round 0 alone (C12 in ROADMAP queue C, C10's
+    mechanism in the reference's harness). The port's ``run_wire`` keeps
+    30 s, so the reference gets the same 30 s; nothing else of its run
+    changes."""
+    from p2pfl_tpu.utils import utils as ref_utils
+
+    set_test_settings = ref_utils.set_test_settings
+
+    def at_the_ports_liveness_timeout():
+        set_test_settings()
+        JaxSettings.HEARTBEAT_TIMEOUT = 30.0
+
+    monkeypatch.setattr(ref_utils, "set_test_settings", at_the_ports_liveness_timeout)
+
+
 def _trajectory(events):
     """The trajectory events (committees, folds, commits, closes) without
     their sequence numbers and hashes; membership and fault events follow
@@ -114,13 +134,14 @@ def test_port_run_wire_and_run_fused_bit_equal_and_parity_diff_passes(straggler,
         assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
 
 
-def test_port_run_wire_matches_jax_run_wire(monkeypatch, postmortem):
+def test_port_run_wire_matches_jax_run_wire(monkeypatch, postmortem, reference_liveness):
     """The same f32 scenario, with a signflip node, on port Nodes and on
     JAX-package Nodes: every node's trajectory events (committees, folds
     with their senders and sample counts, commits with their contributors)
     equal but for the hashes (f32 sums in another order), and the final
     parameters within 1e-5. One batch a node (the two packages draw their
-    shuffles from different generators)."""
+    shuffles from different generators). Both packages' Nodes run at the
+    port's 30 s liveness timeout (``reference_liveness``)."""
     from p2pfl_tpu import node as jax_node
 
     final = {}
@@ -144,6 +165,59 @@ def test_port_run_wire_matches_jax_run_wire(monkeypatch, postmortem):
         assert len(got["params"][name]) == len(final[name])
         for a, b in zip(got["params"][name], final[name]):
             np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
+
+
+def test_a_beat_silence_after_round_0s_vote_keeps_the_reference_run_wire_whole(monkeypatch, reference_liveness):
+    """The interleaving behind a once-seen fault of
+    ``test_port_run_wire_matches_jax_run_wire``, forced on the JAX package's
+    ``run_wire``: right after the first round-0 vote, ``parity-001`` drops
+    every beat it receives for 2.2 s, as a loaded host that stalls a beater
+    does. At the reference's own 1.5 s ``HEARTBEAT_TIMEOUT`` it wrote
+    ``parity-000`` off and both Nodes committed round 0 with
+    ``parity-001`` alone (the failure once seen: ``parity-000`` folded its
+    own model, then adopted ``['parity-001']``). At the port's 30 s, which
+    ``reference_liveness`` gives the reference, nobody is written off and
+    every round folds both contributions, as the port's trajectory does."""
+    import time
+
+    from p2pfl_tpu.comm.heartbeater import Heartbeater as RefHeartbeater
+    from p2pfl_tpu.stages import base_node as ref_stages
+    from p2pfl_tpu.telemetry import REGISTRY as REF_REGISTRY
+
+    silence = {"until": 0.0, "armed": True}
+    lock = threading.Lock()
+    beat, vote = RefHeartbeater.beat, ref_stages.VoteTrainSetStage.execute
+
+    def deaf_beat(self, source, timestamp):
+        if self._self_addr == "parity-001" and time.monotonic() < silence["until"]:
+            return None
+        return beat(self, source, timestamp)
+
+    def silencing_vote(node):
+        out = vote(node)
+        with lock:
+            if silence["armed"] and node.state.round == 0:
+                silence["armed"], silence["until"] = False, time.monotonic() + 2.2
+        return out
+
+    def write_offs():  # the reference's process-wide counter, read before and after
+        fam = REF_REGISTRY.get("p2pfl_heartbeat_missed_total")
+        return {(lbl.get("node"), lbl.get("peer")): child.value for lbl, child in (fam.samples() if fam else [])}
+
+    monkeypatch.setattr(RefHeartbeater, "beat", deaf_beat)
+    monkeypatch.setattr(ref_stages.VoteTrainSetStage, "execute", staticmethod(silencing_vote))
+    kw = {**SCENARIO, "batch_size": SCENARIO["samples_per_node"], "byzantine": {1: "signflip"}}
+    before = write_offs()
+    with JaxSettings.overridden(COMPUTE_DTYPE="float32"):
+        ref = jax_run_wire(JaxScenario(**kw))
+    after = write_offs()
+    assert not silence["armed"] and silence["until"] > 0.0
+    names = ParityScenario(**kw).node_names
+    for name in names:
+        commits = [(e["round"], e["contributors"], e["num_samples"]) for e in ref["events"][name]
+                   if e["kind"] == "aggregate_committed"]
+        assert commits == [(r, names, 64) for r in range(kw["rounds"])], f"{name}: {commits}"
+    assert after == before, (before, after)
 
 
 def test_a_round_full_model_checked_before_the_commit_never_lands_on_the_next_rounds_fit(monkeypatch, postmortem):

@@ -263,13 +263,43 @@ def test_make_mesh_and_shardings():
         population_sharding(mesh, "seq")
 
 
-def test_initialize_multihost_is_a_noop_alone_and_refuses_to_join(monkeypatch):
+def test_initialize_multihost_is_a_noop_alone_and_joins_when_asked(monkeypatch):
+    """Nothing asks to join: a no-op, as in the JAX package. Asked through
+    the coordinator arguments (or the JAX package's variables), it joins a
+    gloo process group on the CPU, idempotently, and ``make_mesh`` spans its
+    ranks; without a coordinator to reach it raises."""
+    import socket
+
+    import torch.distributed as dist
+
+    from p2pfl_tpu_torch.parallel import mesh as mesh_mod
+
     for k in ("JAX_COORDINATOR_ADDRESS", "TPU_WORKER_HOSTNAMES", "CLOUD_TPU_TASK_ID",
-              "MEGASCALE_COORDINATOR_ADDRESS"):
+              "MEGASCALE_COORDINATOR_ADDRESS", "MASTER_ADDR", "WORLD_SIZE", "RANK", "LOCAL_RANK",
+              "LOCAL_WORLD_SIZE", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID"):
         monkeypatch.delenv(k, raising=False)
-    assert initialize_multihost() is None
-    with pytest.raises(NotImplementedError, match="out of scope"):
-        initialize_multihost("localhost:1234", num_processes=2, process_id=0)
-    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="JAX_COORDINATOR_ADDRESS"):
-        initialize_multihost()
+    assert initialize_multihost() is None and not dist.is_initialized()
+    with pytest.raises(ValueError, match="no coordinator"):
+        initialize_multihost(num_processes=1, process_id=0, device="cpu")
+    for how in ("arguments", "environment"):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            addr = f"127.0.0.1:{sock.getsockname()[1]}"
+        if how == "environment":
+            monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", addr)
+            monkeypatch.setenv("JAX_NUM_PROCESSES", "1")
+            monkeypatch.setenv("JAX_PROCESS_ID", "0")
+            args = ()
+        else:
+            args = (addr, 1, 0)
+        try:
+            joined = initialize_multihost(*args, device="cpu")
+            assert joined == {"device": torch.device("cpu"), "backend": "gloo", "rank": 0, "world": 1}
+            assert dist.is_initialized() and dist.get_backend() == "gloo"
+            assert initialize_multihost(*args, device="cpu") is joined  # idempotent
+            mesh = make_mesh(devices=["cpu"])
+            assert mesh.ranked and (mesh.rank, mesh.world) == (0, 1) and mesh.shape == {"nodes": 1, "model": 1}
+            assert (mesh.process_index(), mesh.process_count(), mesh.slab(6)) == (0, 1, (0, 6))
+        finally:
+            mesh_mod.shutdown_multihost()
+        assert not dist.is_initialized() and mesh_mod.JOINED is None
