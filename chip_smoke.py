@@ -232,14 +232,14 @@ Phases, each on its own printed lines:
    falls; the final parameters bit-equal, or each node's the last
    aggregate its own ledger committed (see ``recovery_crash``).
 12e. population: ``PopulationEngine`` at ``bench.py --population``'s
-   acceptance shape (100,000 virtual nodes, cohort 0.01, 10 rounds, speed
-   tiers, ledger attached): mean fill x n == K, ``cohort_fill`` in the
+   acceptance shape (100,000 virtual nodes, cohort 0.01, speed tiers,
+   ledger attached; its 10 rounds cut to 4): mean fill x n == K, ``cohort_fill`` in the
    snapshot, host times of the schedules, ``fleet_health`` and the
    snapshot; then its recovery arm (n 256, killed after 3 of 6 rounds):
    node 0's hash, accuracy and cohort fill equal to the control's.
 12f. asyncpop: ``AsyncPopulationEngine`` at ``bench.py --asyncpop``'s
    shapes. Throughput: 100,000 vnodes, cohort 0.01, tiers (1, 1, 1, 2, 5),
-   12 windows, ledger attached: every window closes, fold lag <=
+   its 12 windows cut to 8, ledger attached: every window closes, fold lag <=
    ``ASYNCPOP_MAX_LAG``, simulated throughput per contribution >= 2x the
    sync barrier's over the matching committee schedule, accuracy finite.
    IID control (n 256): the async global's hash equal to the sync engine's,
@@ -288,6 +288,24 @@ Phases, each on its own printed lines:
    rows 1, 3, 4 launched 32 times a member it trained and row 2 four times
    a round; per arm the backend, W, s/round, bytes all-gathered a round,
    peak memory, members per rank and devices seen are printed.
+13c. seqstage (``phase_seqstage``): the ``seq`` and ``stage`` axes over
+   ranks. In this process the ring phase's run (its model, tokens, a
+   warm-up and ``RING_STEPS`` Adam steps) at W virtual shards and the
+   pipeline phase's (its flash LM, batch, ``PP_MICRO`` microbatches and
+   ``PP_STEPS`` steps) at W virtual stages; then the same in W rank
+   processes of this script (``--seqstage-worker DIR``): with one card two
+   gloo ranks sharing it (``ppermute`` copies through host memory), with two
+   or more min(cards, 4) NCCL ranks. Ring: each rank's first-step logits
+   shard within 6e-2 of this process's, its loss per step within
+   ``SEQSTAGE_LOSS_BAR``, finite and falling, its parameters' hash equal to
+   rank 0's, row 5 launched exactly ``LAYERS * (rank + 1)`` times a step
+   (causal skips) and rows 1-4 never, ``ppermute`` bytes a step equal to
+   ``ring_ppermute_bytes``. Pipeline: each rank's logits and losses equal to
+   this process's, its final parameters (its stage and the replicated
+   leaves) bit-equal, kernels at [2, 1024, 8, 64], rows 1, 3, 4 launched
+   ``(LAYERS / W) * PP_MICRO`` times a step and row 2 as often in the no-grad
+   forward, ``ppermute`` bytes equal to ``pp_ppermute_bytes``. Per rank the
+   backend, W, device, s/step and peak memory are printed.
 14. longcontext: rows 1-4 at the example's own shapes at its defaults
    (bf16, head size 16: the forward and backward pair on the narrow
    kernels; a sequence of 256): training at
@@ -3564,15 +3582,16 @@ def phase_recovery(card: str) -> None:
 
 
 # The population phase (phase 12e): bench.py --population's engine and
-# recovery arms (POP_BENCH_NODES / _COHORT / _ROUNDS, seed 42).
-POP_NODES, POP_COHORT, POP_ROUNDS, POP_SEED = 100_000, 0.01, 10, 42
+# recovery arms (POP_BENCH_NODES / _COHORT, seed 42; POP_BENCH_ROUNDS' 10
+# rounds cut to 4, to keep the whole smoke within its time limit).
+POP_NODES, POP_COHORT, POP_ROUNDS, POP_SEED = 100_000, 0.01, 4, 42
 POP_REC_NODES, POP_REC_ROUNDS, POP_REC_KILL = 256, 6, 3
 
 
 def phase_population(card: str) -> None:
     """Phase 12e: the sync population engine on the card. Engine arm:
     ``PopulationEngine(100_000, cohort_fraction=0.01, speed_tiers=(1, 1, 1,
-    2, 5))`` at the bench's seed with the ledger attached, 10 rounds: the
+    2, 5))`` at the bench's seed with the ledger attached, 4 rounds: the
     mean cohort fill times n equals K (1,000) within 1e-6, every snapshot
     peer but the observer's own row carries ``cohort_fill``, the final accuracy is finite; s/round, the
     host time of the schedules, ``fleet_health`` and the snapshot, peak
@@ -3676,9 +3695,10 @@ def phase_population(card: str) -> None:
 
 
 # The async population phase (phase 12f): bench.py --asyncpop's arms
-# (ASYNCPOP_BENCH_NODES / _WINDOWS / _COHORT, seed 42; the IID control, the
+# (ASYNCPOP_BENCH_NODES / _COHORT, seed 42, ASYNCPOP_BENCH_WINDOWS' 12
+# windows cut to 8 for the whole smoke's time limit; the IID control, the
 # flash crowd and one ceiling probe) and scripts/soak_check.py's drill.
-ASYNC_WINDOWS, ASYNC_EVAL_EVERY = 12, 6
+ASYNC_WINDOWS, ASYNC_EVAL_EVERY = 8, 4
 ASYNC_TIERS = (1.0, 1.0, 1.0, 2.0, 5.0)
 ASYNC_CTL_NODES, ASYNC_CTL_WINDOWS = 256, 5
 ASYNC_FC_NODES, ASYNC_FC_PERIOD = 4096, 8
@@ -4259,6 +4279,254 @@ def phase_multirank(card: str) -> dict:
 
 
 
+# The seq and stage axes over ranks: the ring phase's model, data and steps
+# with its sequence over W ranks (one shard a rank), and the pipeline phase's
+# flash LM, batch and steps with one stage a rank. With one card two gloo
+# ranks share it and their exchanges go through host memory; with two or
+# more, min(cards, 4) NCCL ranks, one card each. Each is held against the
+# same run in this process at W virtual shards or stages.
+SEQSTAGE_FLAG = "--seqstage-worker"
+SEQSTAGE_DEADLINE_S = 420.0
+# The ranked ring's loss may differ from the one process's: its loss and
+# gradients are summed over the ranks in another order (bf16 compute, f32
+# sums), and Adam's first steps divide a gradient by its own magnitude.
+SEQSTAGE_LOSS_BAR = 1e-2
+
+
+def seqstage_arm(cards: int) -> tuple:
+    """``(backend, W)`` of the seq / stage arm on a host with ``cards`` cards."""
+    return ("nccl", min(cards, 4)) if cards >= 2 else ("gloo", 2)
+
+
+def ring_ppermute_bytes(world: int) -> int:
+    """The bytes that reach each rank through ``ppermute`` in one ranked ring
+    train step: per layer, W - 1 rotations of a (k, v) shard (bf16) in the
+    carry kernel's forward, W - 1 more in the backward's rematerialized
+    forward, and W - 1 of their cotangents (bf16) back; plus the first token
+    of the right neighbour (int32) for the shifted targets."""
+    kv = 2 * RING_BATCH * (RING_SEQ // world) * HEADS * (EMBED // HEADS) * 2
+    return 3 * LAYERS * (world - 1) * kv + RING_BATCH * 4
+
+
+def pp_ppermute_bytes(world: int, rank: int, grad: bool = True) -> int:
+    """The bytes that reach stage ``rank`` through ``ppermute`` in one
+    pipelined pass: a microbatch's activation (bf16) from the stage before
+    (not on stage 0), and with ``grad`` its cotangent from the stage after
+    (not on the last stage), for each of the ``PP_MICRO`` microbatches."""
+    act = (BATCH // PP_MICRO) * SEQ_LEN * EMBED * 2
+    return PP_MICRO * act * ((rank > 0) + (grad and rank < world - 1))
+
+
+def tree_hash(tree: dict) -> str:
+    """sha256 of a flat dict of tensors' names and bytes, in key order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for k in sorted(tree):
+        h.update(k.encode())
+        h.update(tree[k].detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def seqstage_ring(mesh) -> dict:
+    """The ring phase's run on ``mesh`` (a ranked ``seq`` axis, or W virtual
+    shards): the first-step logits (no grad; this rank's shard over ranks),
+    then a warm-up and ``RING_STEPS`` Adam steps, every count set to 0
+    before the steps and read after."""
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.models.transformer import transformer_lm_model
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.optim import adam
+    from p2pfl_tpu_torch.parallel import collectives
+    from p2pfl_tpu_torch.parallel.sequence import (
+        make_sequence_parallel_train_step,
+        sequence_parallel_apply,
+        shard_tokens,
+    )
+    from p2pfl_tpu_torch.telemetry.ledger import canonical_params_hash
+
+    model = transformer_lm_model(0, RING_SEQ, VOCAB, LAYERS, HEADS, EMBED, "ring_flash", "seq", device=mesh.device)
+    rng = np.random.default_rng(7)
+    x = (rng.integers(0, VOCAB, size=(RING_BATCH, 1)) + np.arange(RING_SEQ)) % VOCAB
+    tokens = shard_tokens(x.astype(np.int32), mesh)
+    with torch.no_grad():
+        logits = sequence_parallel_apply(model.apply, mesh)(model.params, tokens)
+    opt = adam(LR)
+    params, state = model.params, opt.init(model.params)
+    step = make_sequence_parallel_train_step(model.apply, opt, mesh, "seq")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    collectives.reset_stats()
+    params, state, loss = step(params, state, tokens)  # warm-up
+    losses = [loss]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(RING_STEPS):
+        params, state, loss = step(params, state, tokens)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    return {"logits": logits, "losses": [float(v) for v in losses], "s_per_step": (time.monotonic() - t0) / RING_STEPS,
+            "launches": dict(_kernels.LAUNCHES),
+            "bytes_per_step": collectives.STATS["ppermute_bytes"] / (RING_STEPS + 1),
+            "peak": torch.cuda.max_memory_allocated(), "hash": canonical_params_hash(params)}
+
+
+def seqstage_pipeline(mesh) -> dict:
+    """The pipeline phase's run (:func:`pipelined_steps`) of the flash LM on
+    ``mesh`` (a ranked ``stage`` axis, or W virtual stages)."""
+    from p2pfl_tpu_torch.models.transformer import transformer_lm_model
+    from p2pfl_tpu_torch.parallel.pipeline import make_pipelined_transformer_lm
+
+    model = transformer_lm_model(seed=0, vocab_size=VOCAB, num_layers=LAYERS, num_heads=HEADS, embed_dim=EMBED,
+                                 attention_kind="flash", device=mesh.device)
+    pp_params, apply_fn = make_pipelined_transformer_lm(model, mesh, PP_MICRO)
+    return pipelined_steps(apply_fn, pp_params, pp_tokens())
+
+
+def pp_rank_view(params: dict, rank: int) -> dict:
+    """The leaves a stage rank holds of the one process's flat pipelined
+    params: the replicated ones and stage ``rank``'s slice."""
+    return {k: (v[rank:rank + 1] if k.startswith("stages/") else v) for k, v in params.items()}
+
+
+def seqstage_rank(out_dir: str) -> int:
+    """One rank of ``phase_seqstage``, started by ``launch`` with torchrun's
+    variables: join (the backend by ``initialize_multihost``'s rule), run
+    the ring over a ranked ``seq`` axis and the pipeline over a ranked
+    ``stage`` axis, hold each rank's logits to this process's reference
+    (``<dir>/ring_logits<r>.pt``, ``<dir>/pp_logits.pt``), write the result."""
+    import torch
+    from p2pfl_tpu_torch.parallel.mesh import initialize_multihost, make_mesh, shutdown_multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    joined = initialize_multihost(device="cuda")
+    rank, world = joined["rank"], joined["world"]
+    out = {"rank": rank, "world": world, "backend": joined["backend"], "cards_seen": torch.cuda.device_count()}
+    for arm, run, axis, ref in (("ring", seqstage_ring, "seq", f"ring_logits{rank}.pt"),
+                                ("pipeline", seqstage_pipeline, "stage", "pp_logits.pt")):
+        mesh = make_mesh((world,), (axis,))
+        got = run(mesh)
+        want = torch.load(os.path.join(out_dir, ref), map_location=mesh.device)
+        logits = got.pop("logits")
+        got["logits_err"] = float((logits - want).abs().max()) if logits.shape == want.shape else float("inf")
+        got["logits_finite"] = bool(torch.isfinite(logits).all())
+        got["device"] = f"{mesh.device} {torch.cuda.get_device_name(mesh.device)}"
+        if arm == "pipeline":
+            params = got.pop("params")
+            got["hash"] = tree_hash(params)
+            got["replicated_hash"] = tree_hash({k: v for k, v in params.items() if not k.startswith("stages/")})
+            got["shapes"] = sorted(got["shapes"])
+        out[arm] = got
+        del logits, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    shutdown_multihost()
+    print(f"[seqstage] rank {rank} of {world} done", flush=True)
+    return 0
+
+
+def phase_seqstage(card: str) -> dict:
+    """The seq and stage axes over ranks on the card (docstring phase 13c):
+    the ring and the pipeline in this process at W virtual shards / stages,
+    then in W rank processes of this script (``--seqstage-worker DIR``).
+    Returns each arm's launches per rank under the kernel rows' names."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.parallel.launch import launch
+    from p2pfl_tpu_torch.parallel.mesh import Mesh
+
+    backend, world = seqstage_arm(torch.cuda.device_count())
+    label = f"{backend}{world}"
+    print(f"[seqstage] {card}: {label}, ring {RING_BATCH} x {RING_SEQ} tokens over seq = {world}, pipeline "
+          f"{BATCH} x {SEQ_LEN} in {PP_MICRO} microbatches over stage = {world}")
+    ring_ref = seqstage_ring(Mesh({"seq": world}, device="cuda"))
+    pp_ref = seqstage_pipeline(Mesh({"stage": world}, device="cuda"))
+    print(f"[seqstage] one process, seq = {world} virtual shards: {ring_ref['s_per_step']:.4f} s/step, loss per step "
+          f"{ring_ref['losses']}, hash {ring_ref['hash'][:23]}, peak {ring_ref['peak']} bytes")
+    print(f"[seqstage] one process, stage = {world} virtual stages: {pp_ref['s_per_step']:.4f} s/step, loss per "
+          f"step {pp_ref['losses']}, peak {pp_ref['peak']} bytes")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as tmp:
+        for r, shard in enumerate(ring_ref.pop("logits").chunk(world, dim=1)):
+            torch.save(shard.contiguous(), os.path.join(tmp, f"ring_logits{r}.pt"))
+        torch.save(pp_ref.pop("logits"), os.path.join(tmp, "pp_logits.pt"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        runs = launch([sys.executable, os.path.abspath(__file__), SEQSTAGE_FLAG, tmp], world,
+                      timeout_s=SEQSTAGE_DEADLINE_S, cwd=root)
+        wall = time.monotonic() - t0
+        for rank, (rc, out) in enumerate(runs):
+            if rc != 0:
+                print(out[-6000:])
+            check(rc == 0, f"seqstage {label} rank {rank} exited {rc}")
+        got = []
+        for rank in range(world):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                got.append(json.load(f))
+    print(f"[seqstage] {label}: {wall:.1f} s for the world (start to exit), {card}")
+    per_stage = LAYERS // world
+    micro = [BATCH // PP_MICRO, SEQ_LEN, HEADS, EMBED // HEADS]
+    want_pp = {"flash_fwd": per_stage * PP_MICRO * PP_STEPS, "flash_bwd_dq": per_stage * PP_MICRO * PP_STEPS,
+               "flash_bwd_dkv": per_stage * PP_MICRO * PP_STEPS, "flash_fwd_no_lse": per_stage * PP_MICRO,
+               "flash_carry": 0}
+    ref_params = pp_ref["params"]
+    for g in got:
+        r, ring, pp = g["rank"], g["ring"], g["pipeline"]
+        check(g["backend"] == backend and g["world"] == world, f"seqstage {label}: rank {r} joined {g['backend']}")
+        ring_bytes = ring_ppermute_bytes(world)
+        print(f"[seqstage] {label} rank {r} ring: backend {g['backend']}, W {world}, device {ring['device']} of "
+              f"{g['cards_seen']} seen, {ring['s_per_step']:.4f} s/step, ppermute bytes per step "
+              f"{ring['bytes_per_step']:.0f} (predicted {ring_bytes}), peak {ring['peak']} bytes "
+              f"({ring['peak'] / 2**30:.2f} GiB), first-step logits shard max_abs_err={ring['logits_err']:.3e} "
+              f"tol 6e-2, loss per step {ring['losses']}, hash {ring['hash'][:23]}, launches "
+              f"{json.dumps(ring['launches'])}")
+        check(ring["logits_finite"] and ring["logits_err"] <= 6e-2, f"seqstage ring rank {r}: logits disagree")
+        check(all(np.isfinite(ring["losses"])) and ring["losses"][-1] < ring["losses"][0],
+              f"seqstage ring rank {r}: loss not finite and falling: {ring['losses']}")
+        gap = max(abs(a - b) for a, b in zip(ring["losses"], ring_ref["losses"]))
+        print(f"[seqstage] {label} rank {r} ring: loss gap to one process {gap:.3e} (bar {SEQSTAGE_LOSS_BAR})")
+        check(gap <= SEQSTAGE_LOSS_BAR, f"seqstage ring rank {r}: loss {gap:.3e} from the one process's")
+        check(ring["hash"] == got[0]["ring"]["hash"], f"seqstage ring rank {r}: parameters differ from rank 0's")
+        check(ring["bytes_per_step"] == ring_bytes, f"seqstage ring rank {r}: {ring['bytes_per_step']} ppermute "
+              f"bytes a step, predicted {ring_bytes}")
+        folds = LAYERS * (r + 1) * (RING_STEPS + 1)
+        check(ring["launches"]["flash_carry"] == folds,
+              f"seqstage ring rank {r}: flash_carry launched {ring['launches']['flash_carry']} times, expected "
+              f"{folds} ({LAYERS} layers x {r + 1} folds x {RING_STEPS + 1} steps)")
+        check(all(ring["launches"][n] == 0 for n in KERNEL_ROWS), f"seqstage ring rank {r}: rows 1-4 launched")
+        pp_bytes = PP_STEPS * pp_ppermute_bytes(world, r) + pp_ppermute_bytes(world, r, grad=False)
+        same = pp["hash"] == tree_hash(pp_rank_view(ref_params, r))
+        print(f"[seqstage] {label} rank {r} pipeline: device {pp['device']}, {pp['s_per_step']:.4f} s/step (the "
+              f"first included), ppermute bytes {pp['bytes']} over the no-grad forward and {PP_STEPS} steps "
+              f"(predicted {pp_bytes}), peak {pp['peak']} bytes ({pp['peak'] / 2**30:.2f} GiB), logits "
+              f"max_abs_err={pp['logits_err']:.3e}, loss per step {pp['losses']}, final parameters "
+              f"{'bit-equal to' if same else 'NOT equal to'} the one process's stage {r}, launches "
+              f"{json.dumps(pp['launches'])}, q shapes {pp['shapes']}")
+        check(pp["logits_finite"] and pp["logits_err"] == 0.0, f"seqstage pipeline rank {r}: logits differ")
+        check(pp["losses"] == pp_ref["losses"], f"seqstage pipeline rank {r}: losses differ from the one process's")
+        check(same, f"seqstage pipeline rank {r}: final parameters differ from the one process's")
+        check(pp["replicated_hash"] == got[0]["pipeline"]["replicated_hash"],
+              f"seqstage pipeline rank {r}: replicated parameters differ from rank 0's")
+        check(pp["bytes"] == pp_bytes,
+              f"seqstage pipeline rank {r}: {pp['bytes']} ppermute bytes, predicted {pp_bytes}")
+        check(pp["shapes"] == [micro], f"seqstage pipeline rank {r}: kernels ran at {pp['shapes']}")
+        for name, n in want_pp.items():
+            check(pp["launches"][name] == n, f"seqstage pipeline rank {r}: {name} launched {pp['launches'][name]} "
+                  f"times, expected {n}")
+    return {"flash_carry": {label: [g["ring"]["launches"]["flash_carry"] for g in got]},
+            **{name + PP_SUFFIX: {label: [g["pipeline"]["launches"][name] for g in got]} for name in KERNEL_ROWS}}
+
+
 def phase_longcontext() -> dict:
     """``python -m p2pfl_tpu_torch.examples.longcontext --attention flash``
     at its defaults, in this process so that its kernel launches count;
@@ -4624,6 +4892,56 @@ def phase_kernels_pipeline() -> dict:
                        SEQ_LEN, (torch.bfloat16,), False, torch.Generator().manual_seed(17))
 
 
+def pp_flat(tree: dict) -> dict:
+    """Pipelined LM params ``{group: {name: t}}`` as ``{"group/name": t}``."""
+    return {f"{group}/{name}": t for group, leaves in tree.items() for name, t in leaves.items()}
+
+
+def pp_nested(leaves: dict) -> dict:
+    out: dict = {}
+    for key, t in leaves.items():
+        group, name = key.split("/", 1)
+        out.setdefault(group, {})[name] = t
+    return out
+
+
+def pipelined_steps(apply_fn, pp_params: dict, tokens) -> dict:
+    """The pipelined LM's no-grad forward, then ``PP_STEPS`` Adam steps
+    through the pipeline, every count set to 0 before and read after:
+    logits, losses, s/step (the first step included), final flat params,
+    launches, the q shapes of rows 1-4, peak memory and ppermute bytes."""
+    import torch
+    from p2pfl_tpu_torch.models.transformer import causal_lm_loss
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.optim import adam, apply_updates
+    from p2pfl_tpu_torch.parallel import collectives
+
+    opt = adam(LR)
+    params = pp_flat(pp_params)
+    state = opt.init(params)
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    collectives.reset_stats()
+    with ShapeLog() as log:
+        with torch.no_grad():
+            logits = apply_fn(pp_params, tokens)
+        t0 = time.monotonic()
+        for _ in range(PP_STEPS):
+            leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+            loss = causal_lm_loss(apply_fn(pp_nested(leaves), tokens), tokens)
+            grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+            updates, state = opt.update(grads, state, params)
+            params = apply_updates(params, updates)
+            losses.append(loss.detach())
+        torch.cuda.synchronize()
+        step_s = (time.monotonic() - t0) / PP_STEPS
+    return {"logits": logits, "losses": [float(v) for v in losses], "s_per_step": step_s, "params": params,
+            "launches": dict(_kernels.LAUNCHES), "shapes": log.shapes, "peak": torch.cuda.max_memory_allocated(),
+            "bytes": collectives.STATS["ppermute_bytes"]}
+
+
 def phase_pipeline() -> dict:
     """``make_pipelined_transformer_lm`` of the flash LM over ``PP_STAGES``
     stages of one layer, a batch of ``BATCH`` in ``PP_MICRO`` microbatches:
@@ -4634,9 +4952,7 @@ def phase_pipeline() -> dict:
     ``_pp`` rows' names."""
     import numpy as np
     import torch
-    from p2pfl_tpu_torch.models.transformer import causal_lm_loss, transformer_lm_model
-    from p2pfl_tpu_torch.ops import _kernels
-    from p2pfl_tpu_torch.optim import adam, apply_updates
+    from p2pfl_tpu_torch.models.transformer import transformer_lm_model
     from p2pfl_tpu_torch.parallel.mesh import Mesh
     from p2pfl_tpu_torch.parallel.pipeline import make_pipelined_transformer_lm
 
@@ -4644,62 +4960,38 @@ def phase_pipeline() -> dict:
                                  attention_kind="flash", device="cuda")
     mesh = Mesh({"stage": PP_STAGES}, device="cuda")
     pp_params, apply_fn = make_pipelined_transformer_lm(model, mesh, PP_MICRO)
-    (x, _, _), _ = lm_data(14)
-    tokens = torch.from_numpy(x[0, :BATCH]).cuda()
+    tokens = pp_tokens()
     with torch.no_grad():
         ref = model.apply(model.params, tokens)
     micro = (BATCH // PP_MICRO, SEQ_LEN, HEADS, EMBED // HEADS)
     print(f"[pipeline] TransformerLM flash over {mesh}: {LAYERS // PP_STAGES} layer(s) a stage, batch {BATCH} in "
           f"{PP_MICRO} microbatches (kernels at {list(micro)})")
-
-    def flat(tree):
-        return {f"{group}/{name}": t for group, leaves in tree.items() for name, t in leaves.items()}
-
-    def nested(leaves):
-        out: dict = {}
-        for key, t in leaves.items():
-            group, name = key.split("/", 1)
-            out.setdefault(group, {})[name] = t
-        return out
-
-    opt = adam(LR)
-    params = flat(pp_params)
-    state = opt.init(params)
-    losses = []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _kernels.reset_launches()
-    with ShapeLog() as log:
-        with torch.no_grad():
-            got = apply_fn(pp_params, tokens)
-        t0 = time.monotonic()
-        for _ in range(PP_STEPS):
-            leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-            loss = causal_lm_loss(apply_fn(nested(leaves), tokens), tokens)
-            grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
-            updates, state = opt.update(grads, state, params)
-            params = apply_updates(params, updates)
-            losses.append(loss.detach())
-        torch.cuda.synchronize()
-        step_s = (time.monotonic() - t0) / PP_STEPS
-    launches = dict(_kernels.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    run = pipelined_steps(apply_fn, pp_params, tokens)
+    launches, losses, got = run["launches"], run["losses"], run["logits"]
     tol = 2.0 ** -5 * float(ref.abs().max())
     err = float((got - ref).abs().max())
-    losses = [float(v) for v in losses]
     print(f"[pipeline] pipelined vs unpipelined logits on [{BATCH}, {SEQ_LEN}]: max_abs_err={err:.3e} tol {tol:.3e} "
           f"(2^-5 of the largest logit)")
-    print(f"[pipeline] {PP_STEPS} Adam steps: {step_s:.4f} s/step (the first included); loss per step {losses}; "
-          f"max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB); kernels {json.dumps(launches)}; "
-          f"q shapes {sorted(log.shapes)}")
+    print(f"[pipeline] {PP_STEPS} Adam steps: {run['s_per_step']:.4f} s/step (the first included); loss per step "
+          f"{losses}; max_memory_allocated {run['peak']} bytes ({run['peak'] / 2**30:.2f} GiB); kernels "
+          f"{json.dumps(launches)}; q shapes {sorted(run['shapes'])}")
     check(bool(torch.isfinite(got).all()) and err <= tol, "pipeline: the pipelined logits disagree with the model's")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0], "pipeline: the loss did not fall over the steps")
-    check(log.shapes == {micro}, f"pipeline: kernels ran at shapes {sorted(log.shapes)}, expected {list(micro)}")
+    check(run["shapes"] == {micro}, f"pipeline: kernels ran at shapes {sorted(run['shapes'])}, expected {list(micro)}")
     expected = {"flash_fwd": PP_PER_PASS * PP_STEPS, "flash_bwd_dq": PP_PER_PASS * PP_STEPS,
                 "flash_bwd_dkv": PP_PER_PASS * PP_STEPS, "flash_fwd_no_lse": PP_PER_PASS, "flash_carry": 0}
     for name, n in expected.items():
         check(launches[name] == n, f"pipeline: {name} launched {launches[name]} times, expected {n}")
     return {name + PP_SUFFIX: launches[name] for name in KERNEL_ROWS}
+
+
+def pp_tokens():
+    """The pipeline's batch: ``BATCH`` sequences of phase 3's data (seed 14),
+    on the card."""
+    import torch
+
+    (x, _, _), _ = lm_data(14)
+    return torch.from_numpy(x[0, :BATCH]).cuda()
 
 
 def phase_dryrun() -> None:
@@ -4816,6 +5108,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == [MULTIRANK_FLAG]:  # one rank of phase_multirank
         return multirank_rank(sys.argv[2])
+    if sys.argv[1:2] == [SEQSTAGE_FLAG]:  # one rank of phase_seqstage
+        return seqstage_rank(sys.argv[2])
     from p2pfl_tpu_torch.ops import _kernels
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4878,6 +5172,8 @@ def main() -> int:
         gc.collect()
         multirank_launches = phase_multirank(card)
         gc.collect()
+        seqstage_launches = phase_seqstage(card)
+        gc.collect()
         rows.update(phase_kernels_longcontext())
         launches.update(phase_longcontext())
         phase_entry()
@@ -4898,12 +5194,14 @@ def main() -> int:
         return 1
     kernels = {**KERNEL_ROWS, **RING_KERNEL_ROWS}
     # Rows 1-5 at head size 64: launches on the slice (the carry: the ring);
-    # rows 1-4 also carry the MoE LM's launches at the same shapes.
+    # rows 1-4 also carry the MoE LM's launches at the same shapes, and the
+    # launches of each rank of the nodes axis' arms; the carry those of each
+    # rank of the ring over ranks.
     table = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], **({"launches_moe": moe_launches[name]} if name in moe_launches else {}),
-         **({"launches_per_rank": {arm: counts[name] for arm, counts in multirank_launches.items()}}
-            if name in KERNEL_ROWS else {}),
+         "launches_per_rank": ({arm: counts[name] for arm, counts in multirank_launches.items()}
+                               if name in KERNEL_ROWS else seqstage_launches[name]),
          **rows[name]}
         for name, (replaces, _, source) in kernels.items()
     ]
@@ -4933,10 +5231,11 @@ def main() -> int:
     # The classifier's (D 32) and the longcontext example's (D 16) shapes,
     # the forward on SOURCE_FWD_NARROW and the backward pair on
     # SOURCE_BWD_NARROW, as their paths run them, and the pipeline's
-    # microbatches (D 64).
+    # microbatches (D 64), with each stage rank's launches.
     table += [
         {"name": name + suffix, "route": "cuda", "source": row_source(name, d, source), "replaces": replaces,
-         "launches": launches[name + suffix], **rows[name + suffix]}
+         "launches": launches[name + suffix], **rows[name + suffix],
+         **({"launches_per_rank": seqstage_launches[name + suffix]} if suffix == PP_SUFFIX else {})}
         for suffix, d in ((CLS_SUFFIX, 32), (LC_SUFFIX, 16), (PP_SUFFIX, 64))
         for name, (replaces, _, source) in KERNEL_ROWS.items()
     ]

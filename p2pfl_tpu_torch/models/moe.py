@@ -43,7 +43,7 @@ from p2pfl_tpu_torch.models.transformer import (
     _linear,
     init_params,
 )
-from p2pfl_tpu_torch.parallel.mesh import Mesh
+from p2pfl_tpu_torch.parallel.mesh import Mesh, axis_group
 
 Params = Dict[str, torch.Tensor]
 
@@ -127,6 +127,7 @@ class MoETransformerLM(nn.Module):
     ) -> None:
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.axis_name = axis_name
         self.embed = nn.Embedding(vocab_size, embed_dim)
         self.blocks = nn.ModuleList(
             MoEBlock(embed_dim, num_heads, num_experts, MLP_RATIO, capacity_factor, attention_kind, axis_name,
@@ -139,6 +140,10 @@ class MoETransformerLM(nn.Module):
         self.lm_head = nn.Linear(embed_dim, vocab_size, bias=False)
 
     def forward(self, tokens: torch.Tensor, with_aux: bool = False):
+        if self.axis_name is not None and axis_group(self.axis_name) is not None:
+            raise NotImplementedError(
+                f"the MoE LM over a {self.axis_name!r} axis across ranks: its experts would route each rank's "
+                "shard alone; ROADMAP queue A item A4 (the expert axis across ranks: the MoE all-to-all) ports it")
         x = self.embed.weight.to(self.compute_dtype)[tokens.long()]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in self.blocks:

@@ -3,11 +3,13 @@
 ``dense``, ``blockwise`` (the default, as in the JAX package), ``flash``,
 and the sequence-parallel ``ring`` and ``ring_flash``.
 
-The ring kinds run on the *global* ``[B, S]`` tokens inside a
-``sequence_parallel_*`` wrapper (:mod:`p2pfl_tpu_torch.parallel.sequence`),
-which binds ``axis_name``; only attention sees the shards. RoPE over the
-global positions ``[0, S)`` is what the JAX package computes per shard with
-the offset ``axis_index * S_local``.
+The ring kinds run inside a ``sequence_parallel_*`` wrapper
+(:mod:`p2pfl_tpu_torch.parallel.sequence`), which binds ``axis_name``. Over
+ranks each rank runs its local ``[B, S / n]`` tokens, as under the JAX
+package's ``shard_map``: RoPE runs at the global offset ``axis_index *
+S_local`` and the classifier's pooled mean is a ``pmean`` over the ranks. On
+one process the model runs on the *global* tokens (only attention sees the
+shards), so the offset is 0 and the mean is already global.
 
 The dtype flow is the JAX package's: parameters are f32; dense layers run in
 ``compute_dtype`` (bf16 by default); the token embedding is cast to
@@ -31,6 +33,8 @@ from p2pfl_tpu_torch.device import DeviceLike, resolve_device
 from p2pfl_tpu_torch.models.model_handle import ModelHandle
 from p2pfl_tpu_torch.ops.attention import blockwise_attention, dense_attention, flash_attention
 from p2pfl_tpu_torch.ops.ring_attention import ring_attention
+from p2pfl_tpu_torch.parallel.collectives import pmean
+from p2pfl_tpu_torch.parallel.mesh import axis_group, axis_index
 
 ATTENTION_KINDS = ("dense", "blockwise", "flash", "ring", "ring_flash")
 RING_KINDS = ("ring", "ring_flash")
@@ -101,8 +105,9 @@ class SelfAttention(nn.Module):
         qkv = _linear(x, self.qkv, self.compute_dtype)
         # [B, S, 3H, hd] split along heads: columns are [q heads | k heads | v heads]
         q, k, v = torch.split(qkv.reshape(b, s, 3 * self.num_heads, head_dim), self.num_heads, dim=2)
-        q = rotary_embedding(q)
-        k = rotary_embedding(k)
+        offset = axis_index(self.axis_name) * s if self.axis_name is not None else 0
+        q = rotary_embedding(q, offset)
+        k = rotary_embedding(k, offset)
         kind = self.attention_kind
         if kind == "dense":
             out = dense_attention(q, k, v, causal=True)
@@ -180,9 +185,9 @@ class TransformerClassifier(nn.Module):
 
     The trunk is :class:`TransformerLM`'s (bf16 residual stream by default);
     then the f32 ``ln_f``, a mean over S and an f32 ``head`` with a bias.
-    Under a sequence-parallel wrapper the model runs on the global tokens,
-    so the mean is already over the global S (the JAX package's ``pmean``
-    of the shards' means).
+    Over ranks the mean of each rank's shard is completed by a ``pmean``
+    over the ranks, as in the JAX package; on one process the model runs on
+    the global tokens, so the mean is already over the global S.
     """
 
     def __init__(
@@ -193,6 +198,7 @@ class TransformerClassifier(nn.Module):
     ) -> None:
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.axis_name = axis_name
         self.embed = nn.Embedding(vocab_size, embed_dim)
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, attention_kind, compute_dtype, axis_name, block_k)
@@ -206,6 +212,9 @@ class TransformerClassifier(nn.Module):
         for block in self.blocks:
             x = block(x)
         pooled = _layer_norm(x, self.ln_f).mean(dim=1)
+        group = axis_group(self.axis_name) if self.axis_name is not None else None
+        if group is not None:  # each rank's mean covers its shard: complete the global pool
+            pooled = pmean(pooled, group)
         return F.linear(pooled, self.head.weight, self.head.bias)
 
 

@@ -1,6 +1,7 @@
 """Collectives over a rank mesh's process group: what the JAX package's
-``nodes`` axis gets from XLA inside its round, here as explicit
-``torch.distributed`` calls.
+mesh axes get from XLA, here as explicit ``torch.distributed`` calls.
+
+The ``nodes`` axis (the round's population):
 
 * :func:`all_gather` — a dict of stacked tensors along the leading axis, in
   rank order, where each rank may hold a different number of rows;
@@ -15,22 +16,50 @@ there are, however unevenly the ranks hold them. NCCL takes CUDA tensors;
 gloo takes CPU tensors and, for ``broadcast``, ``all_reduce`` and
 ``all_gather``, CUDA tensors too (it stages them through host memory
 itself; checked on an H100 with two gloo ranks sharing the card), so no
-call here copies to the host. ``STATS`` counts the bytes every
-:func:`all_gather` received in this process.
+call here copies to the host.
+
+The ``seq`` and ``stage`` axes (the ring and the pipeline), differentiable,
+each with its gradient rule in its docstring:
+
+* :func:`ppermute` — ``jax.lax.ppermute``: send along ``(source,
+  destination)`` pairs, every rank's sends and receives posted together
+  (``batch_isend_irecv``), so a ring cannot deadlock; its backward is the
+  inverse permute. gloo has no point-to-point for CUDA tensors, so with
+  gloo a CUDA tensor goes through host memory, copied explicitly: the
+  backend chooses the route (:func:`p2p_route`), logged once;
+* :func:`psum` and :func:`pmean` — ``jax.lax.psum`` / ``pmean`` of a
+  per-rank value, replicated on every rank;
+* :func:`replicate` — rank ``src``'s value on every rank (the pipeline's
+  masked psum of the last stage's outputs);
+* :func:`sum_cotangent` — the transpose of a replicated input that only
+  some ranks read;
+* :func:`tie` — keeps an exchange whose result nothing reads in the
+  backward.
+
+Every rank must post the same exchanges in the same order, forward and
+backward: each rank runs the same program on its shard, as under
+``shard_map``. ``STATS`` counts the bytes every :func:`all_gather` and
+:func:`ppermute` received in this process.
 """
 
 from __future__ import annotations
 
+import logging
 import math
-from typing import Any, Dict, List, Sequence, Tuple
+import weakref
+from typing import Any, Dict, List, Sequence, Tuple, Union
 
 import torch
 
 Tree = Dict[str, torch.Tensor]
+Pairs = Sequence[Tuple[int, int]]
 
-#: Per-process counter: ``all_gather_bytes``, the bytes of every row
-#: gathered, this rank's own included.
-STATS: Dict[str, int] = {"all_gather_bytes": 0}
+log = logging.getLogger("p2pfl_tpu_torch")
+
+#: Per-process counters: ``all_gather_bytes``, the bytes of every row
+#: gathered, this rank's own included; ``ppermute_bytes``, the bytes that
+#: arrived at this rank through :func:`ppermute`, forward and backward.
+STATS: Dict[str, int] = {"all_gather_bytes": 0, "ppermute_bytes": 0}
 
 
 def reset_stats() -> None:
@@ -95,7 +124,7 @@ def all_gather(tree: Tree, counts: Sequence[int], group: Any = None) -> Tree:
         if n == 0:
             continue
         buf = _pack(tree, n, device) if src == me else torch.empty((n, width), dtype=torch.uint8, device=device)
-        dist.broadcast(buf, src=dist.get_global_rank(group, src) if group is not None else src, group=group)
+        dist.broadcast(buf, src=_global(group, src), group=group)
         parts.append(buf)
     STATS["all_gather_bytes"] += sum(counts) * width
     if not parts:
@@ -109,14 +138,14 @@ def broadcast_tree(tree: Tree, src: int, group: Any = None) -> Tree:
     dist = _dist()
     flat = {k: v.reshape((1, *v.shape)) for k, v in tree.items()}
     buf = _pack(flat, 1, next(iter(tree.values())).device)
-    dist.broadcast(buf, src=dist.get_global_rank(group, src) if group is not None else src, group=group)
+    dist.broadcast(buf, src=_global(group, src), group=group)
     return {k: v[0] for k, v in _unpack(buf, _layout(flat)).items()}
 
 
 def broadcast(t: torch.Tensor, src: int = 0, group: Any = None) -> torch.Tensor:
     """``t`` takes rank ``src``'s value on every rank (in place); returns it."""
     dist = _dist()
-    dist.broadcast(t, src=dist.get_global_rank(group, src) if group is not None else src, group=group)
+    dist.broadcast(t, src=_global(group, src), group=group)
     return t
 
 
@@ -131,4 +160,225 @@ def all_reduce(t: torch.Tensor, op: str = "sum", group: Any = None) -> torch.Ten
     return t
 
 
-__all__ = ["STATS", "all_gather", "all_reduce", "broadcast", "broadcast_tree", "reset_stats"]
+def _global(group: Any, rank: int) -> int:
+    return _dist().get_global_rank(group, rank) if group is not None else rank
+
+
+# --- the seq and stage axes: differentiable exchanges ------------------------
+
+#: (backend, device type) pairs whose route was logged, and the groups that
+#: have run one collective on every rank before their first point-to-point.
+_ROUTES_LOGGED: set = set()
+_P2P_READY: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def p2p_route(device: torch.device, group: Any = None) -> str:
+    """How :func:`ppermute` moves a tensor on ``device`` in ``group``:
+    ``"direct"`` (NCCL from card to card, gloo between CPU tensors) or
+    ``"host"`` (gloo with CUDA tensors: gloo has no point-to-point for
+    them, so the tensor is copied to host memory, sent, and copied back).
+    Chosen by the backend, never by catching an error; logged once per
+    backend and device type."""
+    backend = str(_dist().get_backend(group))
+    route = "host" if backend == "gloo" and device.type == "cuda" else "direct"
+    if (backend, device.type) not in _ROUTES_LOGGED:
+        _ROUTES_LOGGED.add((backend, device.type))
+        log.info("ppermute: backend %s, %s tensors, route %s%s", backend, device.type, route,
+                 " (gloo has no point-to-point for CUDA tensors: copies through host memory)"
+                 if route == "host" else "")
+    return route
+
+
+def _check_pairs(perm: Pairs, world: int) -> List[Tuple[int, int]]:
+    pairs = [(int(s), int(d)) for s, d in perm]
+    srcs, dsts = [s for s, _ in pairs], [d for _, d in pairs]
+    if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
+        raise ValueError(f"ppermute: a rank may send once and receive once, got {pairs}")
+    if any(not 0 <= r < world for r in srcs + dsts):
+        raise ValueError(f"ppermute: pairs {pairs} name a rank outside a world of {world}")
+    return pairs
+
+
+def _exchange(tensors: List[torch.Tensor], pairs: List[Tuple[int, int]], group: Any) -> List[torch.Tensor]:
+    """Send ``tensors`` to this rank's destination in ``pairs`` and return
+    what arrived from its source (zeros where nothing arrives), every send
+    and receive posted at once."""
+    dist = _dist()
+    me = dist.get_rank(group)
+    dst = [d for s, d in pairs if s == me]
+    src = [s for s, d in pairs if d == me]
+    if dst == [me]:  # a rank that sends to itself keeps its tensors
+        return [t.detach().clone() for t in tensors]
+    if not dst and not src:
+        return [torch.zeros_like(t) for t in tensors]
+    pg = group if group is not None else dist.group.WORLD
+    if pg not in _P2P_READY:
+        # NCCL wants the first call in a group to involve every rank; every
+        # rank of an SPMD program reaches its first exchange, so all take part.
+        _P2P_READY.add(pg)
+        dist.all_reduce(torch.zeros(1, device=tensors[0].device), group=group)
+    host = p2p_route(tensors[0].device, group) == "host"
+    ops = []
+    if dst:
+        sends = [t.detach().contiguous() for t in tensors]
+        ops += [dist.P2POp(dist.isend, t.cpu() if host else t, _global(group, dst[0]), group) for t in sends]
+    recvs = [torch.empty(t.shape, dtype=t.dtype, device="cpu" if host else t.device) for t in tensors] if src else []
+    ops += [dist.P2POp(dist.irecv, t, _global(group, src[0]), group) for t in recvs]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    if not src:
+        return [torch.zeros_like(t) for t in tensors]
+    STATS["ppermute_bytes"] += sum(t.numel() * t.element_size() for t in recvs)
+    return [r.to(t.device) for r, t in zip(recvs, tensors)] if host else recvs
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pairs, group, n: int, *args):
+        ctx.pairs, ctx.group, ctx.n, ctx.extra = pairs, group, n, len(args) - n
+        return tuple(_exchange(list(args[:n]), pairs, group))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inverse = [(d, s) for s, d in ctx.pairs]
+        return (None, None, None, *_exchange(list(grads), inverse, ctx.group), *([None] * ctx.extra))
+
+
+def ppermute(
+    x: Union[torch.Tensor, Sequence[torch.Tensor]], perm: Pairs, group: Any = None, *,
+    anchors: Sequence[torch.Tensor] = (),
+) -> Union[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """``jax.lax.ppermute`` over the ranks of ``group``: each ``(source,
+    destination)`` pair of ``perm`` sends the source's ``x`` (a tensor, or
+    a tuple of tensors moved together) to the destination; returns what
+    arrived, zeros on a rank that receives nothing. Every rank calls it with
+    the same ``perm`` and tensors of the same shapes and dtypes (a rank
+    that sends nothing passes a placeholder of the shape it receives).
+
+    Gradient rule: the backward is the inverse permute, the cotangent of
+    what arrived sent back to the rank it came from, so the cotangent of
+    each rank's ``x`` is what its destination sends back (zeros on a rank
+    that sent nothing). ``anchors`` (tensors that require grad; they get no
+    gradient) keep the exchange in the backward on a rank whose ``x`` needs
+    none, such as a pipeline stage that only receives this tick: its
+    cotangent must still travel back to the sender.
+    """
+    single = isinstance(x, torch.Tensor)
+    tensors = [x] if single else list(x)
+    pairs = _check_pairs(perm, _dist().get_world_size(group))
+    out = _PPermute.apply(pairs, group, len(tensors), *tensors, *anchors)
+    return out[0] if single else out
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        out = t.detach().clone(memory_format=torch.contiguous_format)
+        _dist().all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def psum(t: torch.Tensor, group: Any = None) -> torch.Tensor:
+    """``jax.lax.psum``: the sum of every rank's ``t``, on every rank.
+
+    Gradient rule: the identity. Every rank computes the same value from the
+    replicated sum, and the cotangent each rank's own copy gives it is
+    taken as that rank's share. A leaf that each rank applies to its own
+    shard before the sum (the sequence-parallel LM's parameters) then gets
+    its part of the gradient on each rank, and the train step sums those
+    parts over the ranks once before the optimizer; this is the JAX
+    package's gradient for parameters replicated across the shards.
+    """
+    return _PSum.apply(t, group)
+
+
+def pmean(t: torch.Tensor, group: Any = None) -> torch.Tensor:
+    """``jax.lax.pmean``: :func:`psum` divided by the world size.
+
+    Gradient rule: :func:`psum`'s identity, then the mean's ``1 / W``: each
+    rank's ``t`` gets ``g / W``. A leaf applied after the mean (the ring
+    classifier's head) sees the replicated value, so every rank gets its
+    whole gradient.
+    """
+    return psum(t, group) / _dist().get_world_size(group)
+
+
+class _Replicate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, src: int, group):
+        ctx.owner = _dist().get_rank(group) == src
+        out = t.detach().clone(memory_format=torch.contiguous_format)
+        _dist().broadcast(out, src=_global(group, src), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.owner else torch.zeros((), dtype=g.dtype, device=g.device).expand_as(g)), None, None
+
+
+def replicate(t: torch.Tensor, src: int, group: Any = None) -> torch.Tensor:
+    """Rank ``src``'s ``t`` on every rank: the JAX pipeline's masked psum
+    ``psum(t * (rank == src))``, moved as one broadcast (the other ranks'
+    ``t`` is a placeholder of the same shape and dtype; its values are not
+    read).
+
+    Gradient rule: the masked psum's. The cotangent passes to ``t`` on rank
+    ``src`` (the identity) and is zero on every other rank.
+    """
+    return _Replicate.apply(t, src, group)
+
+
+class _SumCotangent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.detach().clone(memory_format=torch.contiguous_format)
+        _dist().all_reduce(out, group=ctx.group)
+        return out, None
+
+
+def sum_cotangent(t: torch.Tensor, group: Any = None) -> torch.Tensor:
+    """``t`` unchanged, read by some ranks only (the pipeline's input, fed by
+    the first stage).
+
+    Gradient rule: the cotangents of every rank are summed, so each rank gets
+    the whole gradient of ``t`` and of the replicated leaves that made it.
+    This is the transpose of a replicated (``P()``) input to the JAX
+    package's ``shard_map``. Every rank calls it, and its backward runs
+    after every exchange that reads ``t``.
+    """
+    return _SumCotangent.apply(t, group)
+
+
+class _Tie(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, *extras):
+        ctx.extras = [(e.shape, e.dtype, e.device, e.requires_grad) for e in extras]
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        zeros = [torch.zeros((), dtype=dt, device=dev).expand(shape) if rg else None
+                 for shape, dt, dev, rg in ctx.extras]
+        return (g, *zeros)
+
+
+def tie(t: torch.Tensor, *extras: torch.Tensor) -> torch.Tensor:
+    """``t`` unchanged; when its backward runs, every tensor of ``extras``
+    gets a zero cotangent. An exchange whose result nothing reads on this
+    rank (the ring's last rotation under ``causal``, a pipeline stage's
+    sends) is not reached by autograd otherwise, yet its backward must run
+    on every rank, since the neighbour posts the matching exchange."""
+    return _Tie.apply(t, *extras)
+
+
+__all__ = ["STATS", "all_gather", "all_reduce", "broadcast", "broadcast_tree", "p2p_route", "pmean", "ppermute",
+           "psum", "replicate", "reset_stats", "sum_cotangent", "tie"]

@@ -14,13 +14,24 @@ Ranks: :func:`initialize_multihost` joins a ``torch.distributed`` process
 group of W processes ("ranks"), each driving one device: ``cuda:LOCAL_RANK``
 when the host has a card for every local rank (backend NCCL), the one card
 shared when it does not, or the CPU when the caller asks for it (backend
-gloo for both). :func:`make_mesh` then builds a mesh whose ``"nodes"`` axis
-spans the W ranks: its size is a multiple of W, and rank r holds the r-th
-contiguous part of it (:meth:`Mesh.slab`), the slab of the population that
-:class:`~p2pfl_tpu_torch.parallel.simulation.MeshSimulation` keeps there.
-Only the ``"nodes"`` axis crosses ranks; a rank mesh with ``"model"`` > 1 or
-a ``"seq"`` / ``"stage"`` / ``"expert"`` axis raises ``NotImplementedError``
-naming the ROADMAP item that ports it.
+gloo for both). :func:`make_mesh` then builds a mesh one of whose axes spans
+the W ranks (:attr:`Mesh.rank_axis`), as a JAX mesh spans W devices:
+
+* ``"nodes"``: its size is a multiple of W, and rank r holds the r-th
+  contiguous part of it (:meth:`Mesh.slab`), the slab of the population
+  that :class:`~p2pfl_tpu_torch.parallel.simulation.MeshSimulation` keeps
+  there;
+* ``"seq"`` or ``"stage"``: its size is W, one shard to a rank, as the JAX
+  package has one to a device. Rank r holds sequence shard r (the ring,
+  :mod:`p2pfl_tpu_torch.parallel.sequence`) or pipeline stage r
+  (:mod:`p2pfl_tpu_torch.parallel.pipeline`); :func:`axis_index` gives r
+  inside :meth:`Mesh.bind`, and the shards talk through
+  :mod:`p2pfl_tpu_torch.parallel.collectives`.
+
+One axis spans the ranks; the others must be 1. A second axis above 1 (a
+2-D rank mesh, such as ``nodes`` x ``seq`` or ``batch`` x ``seq``), a
+``batch`` axis over the ranks, ``"expert"`` > 1 and ``"model"`` > 1 raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 
 :func:`make_mesh`, :func:`population_sharding`, :func:`replicated` and
 :func:`initialize_multihost` keep the JAX package's API; :class:`PartitionSpec`
@@ -43,16 +54,18 @@ from p2pfl_tpu_torch.device import DeviceLike, resolve_device
 
 log = logging.getLogger("p2pfl_tpu_torch")
 
-# Axis name -> size of the meshes bound in this context (innermost wins).
-_BOUND: contextvars.ContextVar[Mapping[str, int]] = contextvars.ContextVar("p2pfl_bound_axes", default={})
+# Axis name -> the mesh that binds it in this context (innermost wins).
+_BOUND: contextvars.ContextVar[Mapping[str, "Mesh"]] = contextvars.ContextVar("p2pfl_bound_axes", default={})
 
 #: The ROADMAP item (queue A) that ports each axis across ranks.
 _RANK_AXIS_ITEMS = {
-    "seq": "A2 (the seq axis across ranks: the ring's point-to-point K/V rotation)",
-    "stage": "A3 (the stage axis across ranks: parallel/pipeline.py)",
     "expert": "A4 (the expert axis across ranks: the MoE all-to-all)",
     "model": "A5 (the model axis as tensor parallelism)",
 }
+#: The ROADMAP item that takes a batch axis, or two axes at once, across ranks.
+RANK_MESH_2D_ITEM = "A8 (a 2-D rank mesh: the batch or nodes axis beside seq or stage)"
+#: The axes that may span the ranks, one at a time.
+RANK_AXES = ("nodes", "seq", "stage")
 
 
 class Mesh:
@@ -60,13 +73,15 @@ class Mesh:
 
     Args:
         axes: axis name -> size (>= 1), e.g. ``{"seq": 8}``. On one process
-            each axis is a number of virtual shards; over ranks the
-            ``"nodes"`` axis is a multiple of the world size.
+            each axis is a number of virtual shards; over ranks one axis
+            spans them (:attr:`rank_axis`: ``"nodes"``, a multiple of the
+            world size, or ``"seq"`` / ``"stage"``, the world size) and the
+            others are 1.
         device: where the wrappers put their inputs (``"cuda"`` by default;
             raises when no card is visible, like every entry point). Over
             ranks: this rank's device.
-        group: the ``torch.distributed`` process group whose ranks the
-            ``"nodes"`` axis spans (None: one process, as before).
+        group: the ``torch.distributed`` process group whose ranks the mesh
+            spans (None: one process, as before).
     """
 
     def __init__(self, axes: Mapping[str, int], device: DeviceLike = "cuda", group: Any = None) -> None:
@@ -81,23 +96,38 @@ class Mesh:
         self.device: torch.device = resolve_device(device)
         self.group = group
         self.rank, self.world = 0, 1
+        #: The axis that spans the ranks (None on one process).
+        self.rank_axis: Optional[str] = None
         if group is not None:
             import torch.distributed as dist
 
             self.rank, self.world = dist.get_rank(group), dist.get_world_size(group)
-            self._check_rank_axes()
+            self.rank_axis = self._check_rank_axes()
 
-    def _check_rank_axes(self) -> None:
-        for name, size in self.shape.items():
-            if name in ("seq", "stage", "expert") or (name != "nodes" and size > 1):
-                item = _RANK_AXIS_ITEMS.get(name, "A2-A5 (the axes beside nodes)")
+    def _check_rank_axes(self) -> str:
+        """The one axis that spans the ranks; raises for what no PR has
+        taken across ranks yet."""
+        above = {name: size for name, size in self.shape.items() if size > 1}
+        for name, item in _RANK_AXIS_ITEMS.items():
+            if name in above:
                 raise NotImplementedError(
-                    f"axis {name!r} (size {size}) across {self.world} ranks: only the 'nodes' axis spans ranks so "
-                    f"far; ROADMAP queue A item {item} ports it")
-        nodes = self.shape.get("nodes")
-        if nodes is None or nodes % self.world:
+                    f"axis {name!r} (size {above[name]}) across {self.world} ranks: only 'nodes', 'seq' or "
+                    f"'stage' spans ranks so far; ROADMAP queue A item {item} ports it")
+        if len(above) > 1 or (above and next(iter(above)) not in RANK_AXES):
+            raise NotImplementedError(
+                f"axes {above} across {self.world} ranks: one of {RANK_AXES} spans the ranks so far, the other "
+                f"axes 1; ROADMAP queue A item {RANK_MESH_2D_ITEM} ports it")
+        over = next(iter(above), None) or next((n for n in RANK_AXES if n in self.shape), None)
+        if over is None:
+            raise ValueError(f"a mesh over {self.world} ranks needs one of the axes {RANK_AXES}, got {self.shape}")
+        size = self.shape[over]
+        if over == "nodes" and size % self.world:
             raise ValueError(f"a mesh over {self.world} ranks needs a 'nodes' axis that is a multiple of "
                              f"{self.world}, got {self.shape}")
+        if over != "nodes" and size != self.world:
+            raise ValueError(f"a {over!r} axis over {self.world} ranks holds one shard a rank: its size must be "
+                             f"{self.world}, got {self.shape}")
+        return over
 
     @property
     def axis_names(self) -> tuple:
@@ -105,7 +135,7 @@ class Mesh:
 
     @property
     def ranked(self) -> bool:
-        """Whether the ``"nodes"`` axis spans the ranks of a process group."""
+        """Whether an axis (:attr:`rank_axis`) spans the ranks of a process group."""
         return self.group is not None
 
     def process_index(self) -> int:
@@ -119,6 +149,9 @@ class Mesh:
     def slab(self, n: int) -> Tuple[int, int]:
         """``[lo, hi)``: this rank's contiguous part of a population of ``n``
         (a multiple of the world size); ``(0, n)`` on one process."""
+        if self.ranked and self.rank_axis != "nodes":
+            raise ValueError(f"this mesh spans its ranks with {self.rank_axis!r}, not with 'nodes': it holds no "
+                             "slab of a population")
         if n % self.world:
             raise ValueError(f"a population of {n} does not split over {self.world} ranks")
         per = n // self.world
@@ -132,24 +165,45 @@ class Mesh:
 
     @contextlib.contextmanager
     def bind(self) -> Iterator["Mesh"]:
-        """Bind this mesh's axis names for :func:`axis_size` while the block runs."""
-        token = _BOUND.set({**_BOUND.get(), **self.shape})
+        """Bind this mesh's axis names for :func:`axis_size`,
+        :func:`axis_index` and :func:`axis_group` while the block runs."""
+        token = _BOUND.set({**_BOUND.get(), **{name: self for name in self.shape}})
         try:
             yield self
         finally:
             _BOUND.reset(token)
 
     def __repr__(self) -> str:
-        ranks = f", rank={self.rank}, world={self.world}" if self.ranked else ""
+        ranks = f", rank={self.rank}, world={self.world}, over={self.rank_axis!r}" if self.ranked else ""
         return f"Mesh({self.shape}, device={str(self.device)!r}{ranks})"
 
 
-def axis_size(name: str) -> int:
-    """Size of a bound mesh axis; ``NameError`` outside a binding of ``name``."""
+def _bound(name: str) -> Mesh:
     bound = _BOUND.get()
     if name not in bound:
         raise NameError(f"unbound axis name: {name!r} (bind a Mesh with that axis first)")
     return bound[name]
+
+
+def axis_size(name: str) -> int:
+    """Size of a bound mesh axis; ``NameError`` outside a binding of ``name``."""
+    return _bound(name).shape[name]
+
+
+def axis_index(name: str) -> int:
+    """This process' position on a bound mesh axis (``jax.lax.axis_index``):
+    its rank on the axis that spans the ranks, 0 on any other (one process
+    holds every virtual shard, from position 0). ``NameError`` outside a
+    binding of ``name``."""
+    mesh = _bound(name)
+    return mesh.rank if mesh.rank_axis == name else 0
+
+
+def axis_group(name: str) -> Any:
+    """The process group a bound axis spans, or None where the axis' shards
+    are virtual (one process). ``NameError`` outside a binding of ``name``."""
+    mesh = _bound(name)
+    return mesh.group if mesh.rank_axis == name else None
 
 
 class PartitionSpec(tuple):
@@ -191,9 +245,10 @@ def make_mesh(
 
     On one process the mesh spans one device and each axis is a number of
     virtual shards (default: 1 for every axis). In a joined process group
-    (:func:`initialize_multihost`) the ``"nodes"`` axis spans the ranks: its
-    default size is the world size W, the other axes 1, and a ``"nodes"``
-    size must be a multiple of W.
+    (:func:`initialize_multihost`) one axis spans the W ranks: by default
+    the first, at size W, the other axes 1. A ``"nodes"`` size must be a
+    multiple of W, a ``"seq"`` or ``"stage"`` size W
+    (``make_mesh((W,), ("seq",))``: one sequence shard a rank).
 
     Args:
         shape: per-axis sizes.

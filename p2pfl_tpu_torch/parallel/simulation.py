@@ -446,6 +446,8 @@ class MeshSimulation:
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a p2pfl_tpu_torch Mesh, got {type(mesh).__name__}")
         self._ranked = mesh is not None and mesh.ranked
+        if self._ranked and mesh.rank_axis != "nodes":
+            raise ValueError(f"a MeshSimulation over ranks needs the 'nodes' axis to span them, got {mesh!r}")
         self._rank, self._world = (mesh.rank, mesh.world) if self._ranked else (0, 1)
         if self._ranked:
             if torch.device(device).type != mesh.device.type:

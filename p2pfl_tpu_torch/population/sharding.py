@@ -127,7 +127,7 @@ def population_partition_rules(model_parallel: bool = False) -> List[Tuple[str, 
 
 def _over_ranks(spec: PS, mesh: Mesh) -> bool:
     """Whether a leaf of ``spec`` is split over the ranks of ``mesh``."""
-    return mesh.ranked and len(spec) > 0 and spec[0] == "nodes"
+    return mesh.rank_axis == "nodes" and len(spec) > 0 and spec[0] == "nodes"
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -185,7 +185,7 @@ def gather_population(tree: Any, mesh: Mesh) -> Any:
     tree itself on one process. Every rank calls it."""
     from p2pfl_tpu_torch.parallel import collectives
 
-    if not mesh.ranked:
+    if mesh.rank_axis != "nodes":
         return tree
     leaves = _leaves(tree)
     got = collectives.all_gather({str(i): t for i, t in enumerate(leaves)}, [leaves[0].shape[0]] * mesh.world,
@@ -200,7 +200,7 @@ def gather_node(tree: Any, node: int, mesh: Mesh, n: int) -> Any:
     from p2pfl_tpu_torch.parallel import collectives
 
     lo, hi = mesh.slab(n)
-    if not mesh.ranked:
+    if mesh.rank_axis != "nodes":
         return _tree_map(lambda leaf: leaf[node] if isinstance(leaf, torch.Tensor) else leaf, tree)
     per = hi - lo
     leaves = _leaves(tree)

@@ -1,6 +1,7 @@
 """Import hygiene of the port: every module of ``p2pfl_tpu_torch``, every
 ``scripts/torch_*_check.py`` / ``scripts/torch_analyze.py``, and the rank
-worker ``tests/torch_multirank_worker.py`` import
+workers ``tests/torch_multirank_worker.py`` and
+``tests/torch_seqstage_worker.py`` import
 with JAX, flax, optax, ml_dtypes, msgpack and the JAX package blocked (the
 card's machine has none of them), and Hugging Face ``datasets`` and pandas
 too (the dataset loaders import them when called), in a fresh
@@ -27,12 +28,14 @@ assert {{"p2pfl_tpu_torch.management.checkpoint", "p2pfl_tpu_torch.population.en
          "p2pfl_tpu_torch.analysis", "p2pfl_tpu_torch.analysis.core", "p2pfl_tpu_torch.analysis.checkers",
          "p2pfl_tpu_torch.analysis.baseline", "p2pfl_tpu_torch.analysis.runtime",
          "p2pfl_tpu_torch.learning.dataset.vision", "p2pfl_tpu_torch.parallel.collectives",
-         "p2pfl_tpu_torch.parallel.launch", "p2pfl_tpu_torch.parallel.mesh"}} <= set(names), names
+         "p2pfl_tpu_torch.parallel.launch", "p2pfl_tpu_torch.parallel.mesh", "p2pfl_tpu_torch.parallel.pipeline",
+         "p2pfl_tpu_torch.parallel.sequence", "p2pfl_tpu_torch.ops.ring_attention"}} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import glob, importlib.util
-scripts = sorted(glob.glob("scripts/torch_*_check.py")) + ["scripts/torch_analyze.py", "tests/torch_multirank_worker.py"]
-assert len(scripts) == 6, scripts
+scripts = sorted(glob.glob("scripts/torch_*_check.py")) + ["scripts/torch_analyze.py"]
+scripts += ["tests/torch_multirank_worker.py", "tests/torch_seqstage_worker.py"]
+assert len(scripts) == 7, scripts
 for path in scripts:
     spec = importlib.util.spec_from_file_location("script_" + path.split("/")[-1][:-3], path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))

@@ -15,7 +15,8 @@ device="cpu")`` and runs, in order:
   on every rank (none on the last), ``broadcast_tree``, ``broadcast`` and
   ``all_reduce``, and ``make_shard_and_gather_fns`` over the rank mesh;
 * ``refusals``: what a rank mesh does not run yet raises
-  ``NotImplementedError`` naming its ROADMAP item;
+  ``NotImplementedError`` naming its ROADMAP item, and a ``seq`` or
+  ``stage`` axis alone over the ranks builds;
 * every arm of :data:`ARMS`: the small f32 flash LM from ``<dir>/init.pt``
   for two scheduled rounds.
 
@@ -150,9 +151,17 @@ def _refusals(mesh, init: dict) -> dict:
         except NotImplementedError as e:
             got[key] = str(e)
 
-    for axes, key in (({"nodes": world, "model": 2}, "model"), ({"nodes": world, "seq": 2}, "seq"),
-                      ({"nodes": world, "stage": 1}, "stage"), ({"nodes": world, "expert": 2}, "expert")):
+    for axes, key in (({"nodes": world, "model": 2}, "model"), ({"seq": world, "expert": 2}, "expert"),
+                      ({"nodes": world, "seq": 2}, "nodes_seq"), ({"nodes": world, "stage": 2}, "nodes_stage"),
+                      ({"batch": 2, "seq": world}, "batch_seq"), ({"batch": world}, "batch"),
+                      ({"seq": world}, "seq"), ({"stage": world, "model": 1}, "stage")):
         note(key, lambda axes=axes: Mesh(axes, device="cpu", group=mesh.group))
+    from p2pfl_tpu_torch.models.moe import moe_lm_model
+    from p2pfl_tpu_torch.parallel.sequence import sequence_parallel_apply
+
+    moe = moe_lm_model(0, 8, 16, 2, 2, 16, 2, "ring", "seq", device="cpu")
+    seq = Mesh({"seq": world}, device="cpu", group=mesh.group)
+    note("moe_seq", lambda: sequence_parallel_apply(moe.apply, seq)(moe.params, torch.zeros((1, 4), dtype=torch.long)))
     note("population_engine", lambda: PopulationEngine(16, mesh=mesh, device="cpu"))
     note("async_engine", lambda: AsyncPopulationEngine(16, mesh=mesh, device="cpu"))
     from p2pfl_tpu_torch.learning.dataset import RandomIIDPartitionStrategy, synthetic_mnist
