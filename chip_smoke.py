@@ -306,6 +306,25 @@ Phases, each on its own printed lines:
    ``(LAYERS / W) * PP_MICRO`` times a step and row 2 as often in the no-grad
    forward, ``ppermute`` bytes equal to ``pp_ppermute_bytes``. Per rank the
    backend, W, device, s/step and peak memory are printed.
+13d. expertmodel (``phase_expertmodel``): the ``expert`` and ``model`` axes
+   over ranks, with one card two gloo ranks sharing it, with two or more
+   min(cards, 4) NCCL ranks (``--expertmodel-worker DIR``), each arm held
+   against the same run in this process. Expert: phase 20's MoE LM (4
+   experts, ``shard_moe_params`` over ``expert`` = W) at batch 8 x 1024, a
+   warm-up and ``MOE_STEPS`` Adam steps on loss + 0.01 aux: first-step
+   logits within ``EM_LOGITS_BAR``, the loss per step within
+   ``EM_LOSS_BAR``, finite and falling, the replicated leaves' hash equal to
+   rank 0's, the gathered parameters within ``EM_PARAMS_RTOL`` of the run's
+   update (L2), each rank holding X / W experts, the bytes summed equal to
+   ``em_ep_bytes`` a step, rows 1, 3, 4 launched ``LAYERS`` times a step and
+   row 2 never. Model: phase 3's flash LM round on ``{"nodes": 1, "model":
+   W}`` (a warm-up round and one round of ``EM_SCHEDULE``; the gloo arm at
+   one batch a node, the NCCL arm at the slice's 64 sequences): the eval
+   loss within ``EM_LOSS_BAR``, node 0's gathered parameters within
+   ``EM_PARAMS_RTOL`` of the update, the hash equal on every rank, the
+   bytes gathered and summed equal to ``em_tp_bytes``' count, rows 1-4
+   launched as often as in the one process. Per rank the backend, W,
+   device, s/step or s/round, the bytes and peak memory are printed.
 14. longcontext: rows 1-4 at the example's own shapes at its defaults
    (bf16, head size 16: the forward and backward pair on the narrow
    kernels; a sequence of 256): training at
@@ -4527,6 +4546,298 @@ def phase_seqstage(card: str) -> dict:
             **{name + PP_SUFFIX: {label: [g["pipeline"]["launches"][name] for g in got]} for name in KERNEL_ROWS}}
 
 
+# The expert and model axes over ranks (docstring phase 13d): the MoE phase's
+# LM with its experts split over W ranks, and the slice's flash LM round
+# with every kernel split on its output dimension over W model ranks. With
+# one card two gloo ranks share it (the exchanges of CUDA tensors go through
+# host memory); with two or more, min(cards, 4) NCCL ranks, one card each.
+# Each is held against the same run in this process.
+EXPERTMODEL_FLAG = "--expertmodel-worker"
+EXPERTMODEL_DEADLINE_S = 420.0
+# The model arm's depth: one scheduled round (and its warm-up round); the
+# gloo arm cuts the sequences a node to one batch (one step a member), the
+# NCCL arm keeps the slice's SEQS. The width is the slice's.
+EM_ROUNDS, EM_GLOO_SEQS = 1, BATCH
+EM_SCHEDULE = ((5, 0, 6, 2),)
+# Bars against the one process: first-step logits (as the ring's), the loss
+# per step and the eval loss (as the ring's), and the parameters: the L2 of
+# their difference over the L2 of the run's own update (a kernel slice or a
+# sum in the wrong place moves them by the update itself; the sums over
+# ranks in another order move bf16 gradients by an ulp, which Adam turns into
+# sign flips of near-zero elements).
+EM_LOGITS_BAR, EM_LOSS_BAR, EM_PARAMS_RTOL = 6e-2, 1e-2, 1e-1
+
+
+def em_tp_bytes(batch: int) -> tuple:
+    """``(gathered, summed)`` bytes of one column-parallel flash LM pass over
+    ``batch`` x ``SEQ_LEN`` tokens (bf16 activations): the forward gathers
+    the embedding, each layer's qkv (3E), proj (E), mlp_in (4E) and mlp_out
+    (E) outputs and the logits (V); a training pass's backward sums the
+    input cotangents of each column-parallel layer (qkv, proj and mlp_in
+    read E, mlp_out 4E; lm_head E) and of the two biased layers' biases
+    (mlp_in 4E, mlp_out E)."""
+    tokens = batch * SEQ_LEN
+    gathered = tokens * 2 * (EMBED + LAYERS * 9 * EMBED + VOCAB)
+    summed = tokens * 2 * (LAYERS * 7 * EMBED + EMBED) + LAYERS * 5 * EMBED * 2
+    return gathered, summed
+
+
+def em_ep_bytes() -> int:
+    """Bytes one expert-parallel MoE train step sums over the ranks: per
+    routed block the forward's partial combine [T, E] (bf16), and in the
+    backward the tokens' [T, E] (bf16) and the gate's [T] (f32) cotangents."""
+    t = BATCH * SEQ_LEN
+    return (LAYERS // 2) * (2 * t * EMBED * 2 + t * 4)
+
+
+def update_rel(got: dict, want: dict, start: dict) -> float:
+    """``||got - want|| / ||want - start||`` over every leaf (L2, f64)."""
+    num = sum(float(((got[k].double() - want[k].double()) ** 2).sum()) for k in want)
+    den = sum(float(((want[k].double() - start[k].double()) ** 2).sum()) for k in want)
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+def em_expert(mesh) -> dict:
+    """The MoE phase's LM and batch on ``mesh`` (a ranked ``expert`` axis, or
+    one process): a warm-up step (its logits kept) and ``MOE_STEPS`` Adam
+    steps on loss + 0.01 aux, every count set to 0 before the steps."""
+    import torch
+    from p2pfl_tpu_torch.models.moe import moe_lm_apply_with_aux, moe_lm_model, shard_moe_params
+    from p2pfl_tpu_torch.models.transformer import causal_lm_loss
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.optim import adam, apply_updates
+    from p2pfl_tpu_torch.parallel import collectives
+
+    model = moe_lm_model(seed=0, seq_len=SEQ_LEN, vocab_size=VOCAB, num_layers=LAYERS, num_heads=HEADS,
+                         embed_dim=EMBED, num_experts=MOE_EXPERTS, attention_kind="flash", device=mesh.device)
+    params = start = shard_moe_params(model.params, mesh)
+    apply = moe_lm_apply_with_aux(model.module)
+    (x, _, _), _ = lm_data(13)
+    tokens = torch.from_numpy(x[0, :BATCH]).to(mesh.device)
+    opt = adam(LR)
+    state = opt.init(params)
+
+    def step(params, state):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        with mesh.bind():
+            logits, aux = apply(leaves, tokens)
+            loss = causal_lm_loss(logits, tokens) + MOE_AUX * aux
+            grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        updates, state = opt.update(grads, state, params)
+        return apply_updates(params, updates), state, loss.detach(), logits.detach()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    collectives.reset_stats()
+    params, state, loss, logits = step(params, state)  # warm-up
+    losses = [loss]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(MOE_STEPS):
+        params, state, loss, _ = step(params, state)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    return {"logits": logits, "losses": [float(v) for v in losses], "s_per_step": (time.monotonic() - t0) / MOE_STEPS,
+            "launches": dict(_kernels.LAUNCHES), "sum_bytes": collectives.STATS["sum_bytes"],
+            "peak": torch.cuda.max_memory_allocated(mesh.device), "params": params, "start": start}
+
+
+def em_model(mesh, seqs: int) -> dict:
+    """The slice's flash LM population on ``mesh`` (``{"nodes": 1, "model":
+    W}`` over ranks, or None: one process) with ``seqs`` sequences a node:
+    a warm-up round and ``EM_ROUNDS`` rounds of ``EM_SCHEDULE``, every count
+    set to 0 before; the whole final model of node 0."""
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.models.transformer import transformer_lm_model
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.parallel import collectives
+    from p2pfl_tpu_torch.parallel.simulation import MeshSimulation
+    from p2pfl_tpu_torch.telemetry.ledger import canonical_params_hash
+
+    model = transformer_lm_model(seed=0, vocab_size=VOCAB, num_layers=LAYERS, num_heads=HEADS, embed_dim=EMBED,
+                                 attention_kind="flash", device="cuda" if mesh is None else mesh.device)
+    start = {k: v.clone() for k, v in model.params.items()}
+    train, xt = lm_data(5, seqs)
+    sim = MeshSimulation(model, train, test_data=(xt, None), train_set_size=COMMITTEE, batch_size=BATCH, lr=LR,
+                         seed=1, task="lm", mesh=mesh, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    collectives.reset_stats()
+    res = sim.run(rounds=EM_ROUNDS, epochs=1, warmup=True, committee_schedule=np.asarray(EM_SCHEDULE))
+    launches = dict(_kernels.LAUNCHES)
+    stats = dict(collectives.STATS)
+    final = sim.final_model(0).params
+    dev = sim.device
+    out = {"s_per_round": res.seconds_per_round, "test_loss": res.test_loss, "hash": canonical_params_hash(final),
+           "launches": launches, "gather_dim_bytes": stats["gather_dim_bytes"], "sum_bytes": stats["sum_bytes"],
+           "peak": torch.cuda.max_memory_allocated(dev), "params": final, "start": start,
+           "local_bytes": sum(v.numel() * v.element_size() for v in sim.params_stack.values())}
+    sim.close()
+    return out
+
+
+def expertmodel_rank(out_dir: str) -> int:
+    """One rank of ``phase_expertmodel``, started by ``launch`` with
+    torchrun's variables: join (the backend by ``initialize_multihost``'s
+    rule), run the expert arm on ``make_mesh((W,), ("expert",))`` and the
+    model arm on ``make_mesh((1, W), ("nodes", "model"))``, hold each to
+    this process's reference (``<dir>/expert.pt``, ``<dir>/model.pt``), and
+    write the result."""
+    import torch
+    from p2pfl_tpu_torch.parallel import collectives
+    from p2pfl_tpu_torch.parallel.mesh import initialize_multihost, make_mesh, shutdown_multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    joined = initialize_multihost(device="cuda")
+    rank, world = joined["rank"], joined["world"]
+    seqs = EM_GLOO_SEQS if joined["backend"] == "gloo" else SEQS
+    out = {"rank": rank, "world": world, "backend": joined["backend"], "cards_seen": torch.cuda.device_count(),
+           "seqs": seqs}
+    mesh = make_mesh((world,), ("expert",))
+    got = em_expert(mesh)
+    ref = torch.load(os.path.join(out_dir, "expert.pt"), map_location=mesh.device)
+    got["logits_err"] = float((got.pop("logits") - ref["logits"]).abs().max())
+    local = got.pop("params")
+    got["shapes"] = {k: list(v.shape) for k, v in local.items() if ".moe.w" in k}
+    got["replicated_hash"] = tree_hash({k: v for k, v in local.items() if ".moe.w" not in k})
+    whole = {k: (collectives.all_gather_dim(v, 0, mesh.group) if ".moe.w" in k else v) for k, v in local.items()}
+    got["params_rel"] = update_rel(whole, ref["params"], ref["start"])
+    got["experts_max_err"] = max(float((whole[k] - ref["params"][k]).abs().max()) for k in whole if ".moe.w" in k)
+    got["device"] = f"{mesh.device} {torch.cuda.get_device_name(mesh.device)}"
+    got.pop("start")
+    out["expert"] = got
+    del ref, whole, local
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_mesh((1, world), ("nodes", "model"))
+    got = em_model(mesh, seqs)
+    ref = torch.load(os.path.join(out_dir, f"model{seqs}.pt"), map_location=mesh.device)
+    final = got.pop("params")
+    got["params_rel"] = update_rel(final, ref["params"], ref["start"])
+    got["params_max_err"] = max(float((final[k] - ref["params"][k]).abs().max()) for k in final)
+    got["device"] = f"{mesh.device} {torch.cuda.get_device_name(mesh.device)}"
+    got.pop("start")
+    out["model"] = got
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    shutdown_multihost()
+    print(f"[expertmodel] rank {rank} of {world} done", flush=True)
+    return 0
+
+
+def phase_expertmodel(card: str) -> dict:
+    """The expert and model axes over ranks on the card (docstring phase
+    13d): each arm in this process, then in W rank processes of this script
+    (``--expertmodel-worker DIR``). Returns each arm's launches per rank
+    under the kernel rows' names."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.parallel.launch import launch
+    from p2pfl_tpu_torch.parallel.mesh import Mesh
+
+    backend, world = seqstage_arm(torch.cuda.device_count())
+    label = f"{backend}{world}"
+    seqs = EM_GLOO_SEQS if backend == "gloo" else SEQS
+    steps = seqs // BATCH  # a member's steps in a round
+    gather_step, sum_step = em_tp_bytes(BATCH)
+    gather_eval, _ = em_tp_bytes(EVAL_SEQS)
+    rounds = EM_ROUNDS + 1  # the warm-up round runs every member and the eval too
+    want_gather = rounds * (COMMITTEE * steps * gather_step + gather_eval)
+    # Plus each timed round's device observatory: a member's squared update norm (f32) summed over the ranks.
+    want_sum = rounds * COMMITTEE * steps * sum_step + EM_ROUNDS * COMMITTEE * 4
+    want_ep = (MOE_STEPS + 1) * em_ep_bytes()
+    print(f"[expertmodel] {card}: {label}; expert arm: the MoE LM ({MOE_EXPERTS} experts, {MOE_EXPERTS // world} a "
+          f"rank) at batch {BATCH} x {SEQ_LEN}, a warm-up and {MOE_STEPS} Adam steps, {em_ep_bytes()} bytes summed a "
+          f"step; model arm: the flash LM round on nodes 1 x model {world}, {seqs} sequences a node, "
+          f"{EM_ROUNDS} round + warm-up, {gather_step} bytes gathered and {sum_step} summed a train step, "
+          f"{gather_eval} gathered an eval")
+    ref_ep = em_expert(Mesh({"expert": world}, device="cuda"))
+    ref_tp = em_model(None, seqs)
+    print(f"[expertmodel] one process, expert arm: {ref_ep['s_per_step']:.4f} s/step, loss per step "
+          f"{ref_ep['losses']}, peak {ref_ep['peak']} bytes")
+    print(f"[expertmodel] one process, model arm: {ref_tp['s_per_round']:.4f} s/round, test loss "
+          f"{ref_tp['test_loss']}, hash {ref_tp['hash'][:23]}, peak {ref_tp['peak']} bytes, launches "
+          f"{json.dumps({n: ref_tp['launches'][n] for n in KERNEL_ROWS})}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as tmp:
+        torch.save({k: ref_ep[k] for k in ("logits", "params", "start")}, os.path.join(tmp, "expert.pt"))
+        torch.save({k: ref_tp[k] for k in ("params", "start")}, os.path.join(tmp, f"model{seqs}.pt"))
+        for ref in (ref_ep, ref_tp):
+            for k in ("logits", "params", "start"):
+                ref.pop(k, None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        runs = launch([sys.executable, os.path.abspath(__file__), EXPERTMODEL_FLAG, tmp], world,
+                      timeout_s=EXPERTMODEL_DEADLINE_S, cwd=root)
+        wall = time.monotonic() - t0
+        for rank, (rc, out) in enumerate(runs):
+            if rc != 0:
+                print(out[-6000:])
+            check(rc == 0, f"expertmodel {label} rank {rank} exited {rc}")
+        got = []
+        for rank in range(world):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                got.append(json.load(f))
+    print(f"[expertmodel] {label}: {wall:.1f} s for the world (start to exit), {card}")
+    per_step = {"flash_fwd": LAYERS, "flash_bwd_dq": LAYERS, "flash_bwd_dkv": LAYERS, "flash_fwd_no_lse": 0,
+                "flash_carry": 0}
+    for g in got:
+        r, ep, tp = g["rank"], g["expert"], g["model"]
+        check(g["backend"] == backend and g["world"] == world, f"expertmodel {label}: rank {r} joined {g['backend']}")
+        print(f"[expertmodel] {label} rank {r} expert: backend {g['backend']}, W {world}, device {ep['device']} of "
+              f"{g['cards_seen']} seen, experts {ep['shapes']}, {ep['s_per_step']:.4f} s/step, summed bytes "
+              f"{ep['sum_bytes']} (predicted {want_ep}), peak {ep['peak']} bytes ({ep['peak'] / 2**30:.2f} GiB), "
+              f"first-step logits max_abs_err={ep['logits_err']:.3e} tol {EM_LOGITS_BAR}, loss per step "
+              f"{ep['losses']}, gathered parameters {ep['params_rel']:.3e} of the update (bar {EM_PARAMS_RTOL}), "
+              f"experts max_abs_err={ep['experts_max_err']:.3e}, launches {json.dumps(ep['launches'])}")
+        check(ep["logits_err"] <= EM_LOGITS_BAR, f"expertmodel expert rank {r}: logits disagree")
+        check(all(np.isfinite(ep["losses"])) and ep["losses"][-1] < ep["losses"][0],
+              f"expertmodel expert rank {r}: loss not finite and falling: {ep['losses']}")
+        gap = max(abs(a - b) for a, b in zip(ep["losses"], ref_ep["losses"]))
+        check(gap <= EM_LOSS_BAR, f"expertmodel expert rank {r}: loss {gap:.3e} from the one process's")
+        check(ep["replicated_hash"] == got[0]["expert"]["replicated_hash"],
+              f"expertmodel expert rank {r}: replicated leaves differ from rank 0's")
+        check(ep["params_rel"] <= EM_PARAMS_RTOL, f"expertmodel expert rank {r}: parameters {ep['params_rel']:.3e} "
+              "of the update from the one process's")
+        check(all(s[0] == MOE_EXPERTS // world for s in ep["shapes"].values()), f"expertmodel expert rank {r}: "
+              f"holds experts {ep['shapes']}")
+        check(ep["sum_bytes"] == want_ep, f"expertmodel expert rank {r}: {ep['sum_bytes']} bytes summed, predicted "
+              f"{want_ep}")
+        for name, n in per_step.items():
+            want = n * (MOE_STEPS + 1)
+            check(ep["launches"][name] == want, f"expertmodel expert rank {r}: {name} launched "
+                  f"{ep['launches'][name]} times, expected {want}")
+        print(f"[expertmodel] {label} rank {r} model: device {tp['device']}, {tp['s_per_round']:.4f} s/round, "
+              f"gathered bytes {tp['gather_dim_bytes']} (predicted {want_gather}), summed bytes {tp['sum_bytes']} "
+              f"(predicted {want_sum}), population {tp['local_bytes']} bytes a rank, peak {tp['peak']} bytes "
+              f"({tp['peak'] / 2**30:.2f} GiB), test loss {tp['test_loss']} (one process {ref_tp['test_loss']}, bar "
+              f"{EM_LOSS_BAR}), final parameters {tp['params_rel']:.3e} of the update (bar {EM_PARAMS_RTOL}), "
+              f"max_abs_err={tp['params_max_err']:.3e}, hash {tp['hash'][:23]}, launches "
+              f"{json.dumps({n: tp['launches'][n] for n in KERNEL_ROWS})}")
+        check(all(np.isfinite(tp["test_loss"])), f"expertmodel model rank {r}: test loss not finite")
+        gap = max(abs(a - b) for a, b in zip(tp["test_loss"], ref_tp["test_loss"]))
+        check(gap <= EM_LOSS_BAR, f"expertmodel model rank {r}: eval loss {gap:.3e} from the one process's")
+        check(tp["params_rel"] <= EM_PARAMS_RTOL, f"expertmodel model rank {r}: parameters {tp['params_rel']:.3e} "
+              "of the update from the one process's")
+        check(tp["hash"] == got[0]["model"]["hash"], f"expertmodel model rank {r}: final hash differs from rank 0's")
+        check(tp["gather_dim_bytes"] == want_gather and tp["sum_bytes"] == want_sum,
+              f"expertmodel model rank {r}: {tp['gather_dim_bytes']} / {tp['sum_bytes']} bytes gathered / summed, "
+              f"predicted {want_gather} / {want_sum}")
+        for name in KERNEL_ROWS:
+            check(tp["launches"][name] > 0 and tp["launches"][name] == ref_tp["launches"][name],
+                  f"expertmodel model rank {r}: {name} launched {tp['launches'][name]} times, the one process "
+                  f"{ref_tp['launches'][name]}")
+    return {f"expert_{label}": {name: [g["expert"]["launches"][name] for g in got] for name in KERNEL_ROWS},
+            f"model_{label}": {name: [g["model"]["launches"][name] for g in got] for name in KERNEL_ROWS}}
+
+
 def phase_longcontext() -> dict:
     """``python -m p2pfl_tpu_torch.examples.longcontext --attention flash``
     at its defaults, in this process so that its kernel launches count;
@@ -5110,6 +5421,8 @@ def main() -> int:
         return multirank_rank(sys.argv[2])
     if sys.argv[1:2] == [SEQSTAGE_FLAG]:  # one rank of phase_seqstage
         return seqstage_rank(sys.argv[2])
+    if sys.argv[1:2] == [EXPERTMODEL_FLAG]:  # one rank of phase_expertmodel
+        return expertmodel_rank(sys.argv[2])
     from p2pfl_tpu_torch.ops import _kernels
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5174,6 +5487,8 @@ def main() -> int:
         gc.collect()
         seqstage_launches = phase_seqstage(card)
         gc.collect()
+        multirank_launches.update(phase_expertmodel(card))
+        gc.collect()
         rows.update(phase_kernels_longcontext())
         launches.update(phase_longcontext())
         phase_entry()
@@ -5195,8 +5510,8 @@ def main() -> int:
     kernels = {**KERNEL_ROWS, **RING_KERNEL_ROWS}
     # Rows 1-5 at head size 64: launches on the slice (the carry: the ring);
     # rows 1-4 also carry the MoE LM's launches at the same shapes, and the
-    # launches of each rank of the nodes axis' arms; the carry those of each
-    # rank of the ring over ranks.
+    # launches of each rank of the nodes, expert and model axes' arms; the
+    # carry those of each rank of the ring over ranks.
     table = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], **({"launches_moe": moe_launches[name]} if name in moe_launches else {}),

@@ -29,6 +29,7 @@ from p2pfl_tpu_torch.config import Settings
 from p2pfl_tpu_torch.device import DeviceLike, resolve_device
 from p2pfl_tpu_torch.models.transformer import causal_lm_loss
 from p2pfl_tpu_torch.optim import adam, apply_updates
+from p2pfl_tpu_torch.parallel.tensor_parallel import local_slice, whole_shape, whole_sq_sum
 from p2pfl_tpu_torch.telemetry import REGISTRY
 
 Params = Dict[str, torch.Tensor]
@@ -51,7 +52,7 @@ def masked_lm_loss(logits: torch.Tensor, tokens: torch.Tensor, seq_mask: torch.T
 
 def fedprox_penalty(params: Params, anchor: Params, mu: float) -> torch.Tensor:
     """FedProx's proximal term ``mu/2 * ||w - w_anchor||^2`` in f32."""
-    sq = sum(((p.float() - anchor[name].float()) ** 2).sum() for name, p in params.items())
+    sq = whole_sq_sum({name: ((p.float() - anchor[name].float()) ** 2).sum() for name, p in params.items()})
     return 0.5 * mu * sq
 
 
@@ -109,15 +110,19 @@ def dp_grads(
     parameters' device) — Abadi et al. 2016.
 
     ``per_example``: ``"vmap"`` (one ``torch.func.vmap`` over the batch) or
-    ``"loop"`` (one backward per example, for the flash kernels); the same
-    arithmetic. ``w`` is the ``[B]`` 0/1 validity mask. Returns the masked
-    mean per-example loss and the private gradient.
+    ``"loop"`` (one backward per example, for the flash kernels and for
+    kernels split over model ranks); the same arithmetic. ``w`` is the
+    ``[B]`` 0/1 validity mask. Returns the masked mean per-example loss and
+    the private gradient. Under a bound
+    :class:`~p2pfl_tpu_torch.parallel.tensor_parallel.ModelSplit` the
+    per-example norms are whole-model norms and each split leaf's noise is
+    its slice of a whole-leaf draw.
     """
     per = {"vmap": _per_example_vmap, "loop": _per_example_loop}[per_example]
     losses, grads = per(batch_loss_fn, params, x, y)
     denom = torch.clamp(w.sum(), min=1.0)
     loss = (losses.float() * w).sum() / denom
-    sq = sum(g.reshape(g.shape[0], -1).float().pow(2).sum(dim=1) for g in grads.values())
+    sq = whole_sq_sum({name: g.reshape(g.shape[0], -1).float().pow(2).sum(dim=1) for name, g in grads.items()})
     norms = torch.sqrt(sq)  # [B] per-example global norm
     scale = torch.clamp(clip_norm / torch.clamp(norms, min=1e-12), max=1.0) * w
     noise_std = clip_norm * noise_multiplier / denom
@@ -125,7 +130,10 @@ def dp_grads(
     for name, g in grads.items():
         mean = torch.tensordot(scale, g.float(), dims=1) / denom
         if noise_multiplier > 0.0:
-            noise = torch.randn(mean.shape, generator=gen, dtype=torch.float32).to(mean.device)
+            # Drawn at the leaf's whole shape, then this rank's slice of it (a
+            # kernel split over model ranks): the draws of one process.
+            noise = torch.randn(whole_shape(name, mean.shape), generator=gen, dtype=torch.float32)
+            noise = local_slice(name, noise).to(mean.device)
             mean = mean + noise_std * noise
         out[name] = mean.detach()
     return loss.detach(), out

@@ -10,6 +10,9 @@ C), so a flax ``Dense_0`` kernel's rows line up. Layers compute in
 ``Settings.COMPUTE_DTYPE`` (bf16 by default) with f32 parameters and f32
 logits; the submodules carry flax's names (``Conv_0``, ``Conv_1``,
 ``Dense_0``, ``Dense_1``) for :mod:`p2pfl_tpu_torch.models.convert`.
+Under a bound ``model`` axis over ranks a convolution whose kernel the rank
+holds in part computes its output channels and gathers them
+(:func:`~p2pfl_tpu_torch.parallel.tensor_parallel.column_conv`).
 """
 
 from __future__ import annotations
@@ -24,13 +27,15 @@ from p2pfl_tpu_torch.config import compute_dtype as settings_compute_dtype
 from p2pfl_tpu_torch.device import DeviceLike
 from p2pfl_tpu_torch.models.model_handle import ModelHandle
 from p2pfl_tpu_torch.models.transformer import _linear, init_params
+from p2pfl_tpu_torch.parallel.tensor_parallel import column_conv, column_group
 
 
 def conv_same(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
     """flax ``nn.Conv(padding="SAME", dtype=...)`` on an NCHW tensor: input,
     kernel and bias cast to ``dtype``; each spatial axis padded by
     ``max((ceil(n / s) - 1) * s + k - n, 0)``, the smaller half before, so a
-    3 x 3 stride-2 convolution of an even side pads (0, 1), not (1, 1)."""
+    3 x 3 stride-2 convolution of an even side pads (0, 1), not (1, 1);
+    column-parallel where the kernel is held in part."""
     pads = []
     for n, k, s in zip(x.shape[-2:], conv.kernel_size, conv.stride):
         total = max((-(-n // s) - 1) * s + k - n, 0)
@@ -38,9 +43,13 @@ def conv_same(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Ten
     (top, bottom), (left, right) = pads
     weight = conv.weight.to(dtype)
     bias = conv.bias.to(dtype) if conv.bias is not None else None
-    if top == bottom and left == right:
-        return F.conv2d(x.to(dtype), weight, bias, conv.stride, (top, left))
-    return F.conv2d(F.pad(x.to(dtype), (left, right, top, bottom)), weight, bias, conv.stride)
+    x, padding = x.to(dtype), (top, left)
+    if top != bottom or left != right:
+        x, padding = F.pad(x, (left, right, top, bottom)), 0
+    group = column_group(weight.shape[0], conv.out_channels, "a Conv kernel")
+    if group is None:
+        return F.conv2d(x, weight, bias, conv.stride, padding)
+    return column_conv(x, weight, bias, conv.stride, padding, group)
 
 
 class CNN(nn.Module):

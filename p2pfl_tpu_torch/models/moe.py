@@ -3,10 +3,19 @@
 capacity-limited dispatch and combine, every second block routed.
 
 The expert FFN weights are stacked ``wi [X, E, M]`` / ``wo [X, M, E]`` (the
-JAX package's layout). Where the JAX package shards that leading axis over an
-``expert`` mesh axis and lets XLA turn the dispatch / combine einsums into
-all-to-alls, the port runs every expert on the one card: the same einsums,
-and :func:`shard_moe_params` is the identity.
+JAX package's layout). On one process every expert runs on the one card
+inside the einsums, and :func:`shard_moe_params` only places the leaves.
+Over ranks (a mesh whose ``expert`` axis spans W ranks, bound while the
+model runs) :func:`shard_moe_params` keeps this rank's contiguous ``X / W``
+experts, as the JAX package shards that leading axis over its ``expert``
+axis. The tokens enter replicated, so every rank computes the router, the
+load-balance loss, ``cap`` (of the global T) and the dispatch and combine
+tensors from all of them; its experts run over its own capacity slots, and
+the block's output is the ``psum`` of the partial combines. The tokens and
+the gate enter the experts through ``sum_cotangent``, so the router and
+every leaf before the block get their whole gradient on every rank. No
+all-to-all: it would arise only if the tokens were split over the same
+axis, and the JAX package never splits them there.
 
 What it keeps of the JAX package:
 
@@ -20,7 +29,11 @@ What it keeps of the JAX package:
   package ``sow``s into a ``"losses"`` collection, is returned by the
   forward (``forward(tokens, with_aux=True)``; summed over the routed
   blocks);
-- the experts compute in ``compute_dtype`` with the tanh GELU.
+- the experts compute in ``compute_dtype`` with the tanh GELU. Over expert
+  ranks the partial combines are summed in ``compute_dtype`` (bf16: 8 MiB a
+  routed block's forward at 8 x 1024 tokens of width 512). Top-1 routing
+  gives each token one expert, so one rank holds its partial and the others
+  exact zeros: the sum adds nothing to the rounding.
 """
 
 from __future__ import annotations
@@ -39,11 +52,14 @@ from p2pfl_tpu_torch.models.transformer import (
     MLP_RATIO,
     Block,
     SelfAttention,
+    _embed,
     _layer_norm,
     _linear,
     init_params,
 )
-from p2pfl_tpu_torch.parallel.mesh import Mesh, axis_group
+from p2pfl_tpu_torch.parallel.collectives import psum, sum_cotangent
+from p2pfl_tpu_torch.parallel.mesh import Mesh, axis_index
+from p2pfl_tpu_torch.parallel.tensor_parallel import column_group
 
 Params = Dict[str, torch.Tensor]
 
@@ -71,8 +87,11 @@ class MoEMLP(nn.Module):
         cap = max(1, int(self.capacity_factor * t / nx))
         tokens = x.reshape(t, e)
 
+        held = self.wi.shape[0]
+        group = column_group(held, nx, "the MoE's stacked experts", axis="expert")
+
         # --- router (f32) ---
-        probs = torch.softmax(F.linear(tokens.float(), self.router.weight), dim=-1)  # [T, X]
+        probs = torch.softmax(_linear(tokens.float(), self.router, torch.float32), dim=-1)  # [T, X]
         gate, expert = probs.max(dim=-1).values, torch.argmax(probs, dim=-1)
         onehot = F.one_hot(expert, nx).float()
         aux = nx * torch.sum(onehot.mean(dim=0) * probs.mean(dim=0))
@@ -82,14 +101,21 @@ class MoEMLP(nn.Module):
         in_cap = (pos < cap) & (onehot > 0)
         pos_oh = F.one_hot(pos.long().clamp(0, cap - 1), cap).float()  # [T, X, C]
         dispatch = in_cap[..., None].float() * pos_oh
-        combine = dispatch * gate[:, None, None]
 
         # --- experts over the stacked axis ---
         cd = self.compute_dtype
-        xe = torch.einsum("txc,te->xce", dispatch.to(cd), tokens.to(cd))
+        tokens = tokens.to(cd)
+        if group is not None:  # this rank's experts: their dispatch slots, the partial combine summed
+            lo = axis_index("expert") * held
+            dispatch = dispatch[:, lo:lo + held]
+            gate, tokens = sum_cotangent(gate, group), sum_cotangent(tokens, group)
+        combine = dispatch * gate[:, None, None]
+        xe = torch.einsum("txc,te->xce", dispatch.to(cd), tokens)
         h = F.gelu(torch.einsum("xce,xem->xcm", xe, self.wi.to(cd)), approximate="tanh")
         out_e = torch.einsum("xcm,xme->xce", h, self.wo.to(cd))
         out = torch.einsum("txc,xce->te", combine.to(cd), out_e)
+        if group is not None:
+            out = psum(out, group)
         return out.reshape(b, s, e).to(x.dtype), aux
 
 
@@ -140,11 +166,7 @@ class MoETransformerLM(nn.Module):
         self.lm_head = nn.Linear(embed_dim, vocab_size, bias=False)
 
     def forward(self, tokens: torch.Tensor, with_aux: bool = False):
-        if self.axis_name is not None and axis_group(self.axis_name) is not None:
-            raise NotImplementedError(
-                f"the MoE LM over a {self.axis_name!r} axis across ranks: its experts would route each rank's "
-                "shard alone; ROADMAP queue A item A4 (the expert axis across ranks: the MoE all-to-all) ports it")
-        x = self.embed.weight.to(self.compute_dtype)[tokens.long()]
+        x = _embed(self.embed, tokens, self.compute_dtype)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in self.blocks:
             if isinstance(block, MoEBlock):
@@ -194,8 +216,19 @@ def moe_lm_model(
 
 
 def shard_moe_params(params: Any, mesh: Mesh, expert_axis: str = "expert") -> Any:
-    """The JAX package's expert-axis placement, on one card: ``mesh`` must
-    have ``expert_axis``, every leaf moves to the mesh's device, and nothing
-    is split (the experts run one after another inside the einsums)."""
-    mesh.check_axis(expert_axis)
-    return {k: v.to(mesh.device) for k, v in params.items()}
+    """The JAX package's expert-axis placement: every leaf on the mesh's
+    device, and over ranks (``expert_axis`` spanning W ranks) each MoE
+    block's ``wi`` / ``wo`` cut to this rank's contiguous ``X / W`` experts
+    where X divides by W (a block whose X does not stays whole, as in the
+    JAX package, and runs without a sum); everything else replicated. On
+    one process nothing is split. Run the model inside ``mesh.bind()``."""
+    n = mesh.check_axis(expert_axis)
+    ranked = mesh.rank_axis == expert_axis
+    out = {}
+    for k, v in params.items():
+        v = v.to(mesh.device)
+        if ranked and ".moe." in k and k.rsplit(".", 1)[-1] in ("wi", "wo") and v.dim() == 3 and v.shape[0] % n == 0:
+            per = v.shape[0] // n
+            v = v[mesh.rank * per:(mesh.rank + 1) * per].clone()
+        out[k] = v
+    return out

@@ -18,6 +18,11 @@ with eps 1e-6; GELU is the tanh approximation; logits come out f32.
 ``qkv``, ``proj`` and ``lm_head`` carry no bias, ``mlp_in``/``mlp_out`` do.
 ``nn.Linear.weight`` is ``[out, in]``, the transpose of a flax ``kernel``
 (:mod:`p2pfl_tpu_torch.models.convert` carries weights across).
+
+Under a bound ``model`` axis over ranks the dense layers and the token
+embedding run on the output slices the rank holds of split leaves
+(:mod:`p2pfl_tpu_torch.parallel.tensor_parallel`) and gather their outputs,
+so attention and everything after each layer see whole activations.
 """
 
 from __future__ import annotations
@@ -33,8 +38,9 @@ from p2pfl_tpu_torch.device import DeviceLike, resolve_device
 from p2pfl_tpu_torch.models.model_handle import ModelHandle
 from p2pfl_tpu_torch.ops.attention import blockwise_attention, dense_attention, flash_attention
 from p2pfl_tpu_torch.ops.ring_attention import ring_attention
-from p2pfl_tpu_torch.parallel.collectives import pmean
+from p2pfl_tpu_torch.parallel.collectives import all_gather_dim, pmean
 from p2pfl_tpu_torch.parallel.mesh import axis_group, axis_index
+from p2pfl_tpu_torch.parallel.tensor_parallel import column_group, column_linear
 
 ATTENTION_KINDS = ("dense", "blockwise", "flash", "ring", "ring_flash")
 RING_KINDS = ("ring", "ring_flash")
@@ -59,9 +65,22 @@ def rotary_embedding(x: torch.Tensor, position_offset: int = 0, base: float = RO
 
 
 def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    """flax ``nn.Dense(dtype=...)``: inputs, kernel and bias cast to ``dtype``."""
+    """flax ``nn.Dense(dtype=...)``: inputs, kernel and bias cast to ``dtype``;
+    column-parallel where the kernel is held in part."""
     bias = layer.bias.to(dtype) if layer.bias is not None else None
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    group = column_group(layer.weight.shape[0], layer.out_features, "a Dense kernel")
+    if group is None:
+        return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    return column_linear(x.to(dtype), layer.weight.to(dtype), bias, group)
+
+
+def _embed(embed: nn.Embedding, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.Embed``'s lookup in ``dtype``: tokens ``[B, S]`` -> ``[B, S,
+    E]``; the feature columns gathered where the table is held in part."""
+    weight = embed.weight
+    out = weight.to(dtype)[tokens.long()]
+    group = column_group(weight.shape[1], embed.embedding_dim, "an Embed table")
+    return out if group is None else all_gather_dim(out, -1, group)
 
 
 def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
@@ -166,7 +185,7 @@ class TransformerLM(nn.Module):
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         """Tokens ``[B, S]`` -> the residual stream ``[B, S, E]`` in ``compute_dtype``."""
-        return self.embed.weight.to(self.compute_dtype)[tokens.long()]
+        return _embed(self.embed, tokens, self.compute_dtype)
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
         """The residual stream -> f32 logits: ``ln_f`` (f32), then ``lm_head``."""
@@ -208,14 +227,14 @@ class TransformerClassifier(nn.Module):
         self.head = nn.Linear(embed_dim, num_classes)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embed.weight.to(self.compute_dtype)[tokens.long()]
+        x = _embed(self.embed, tokens, self.compute_dtype)
         for block in self.blocks:
             x = block(x)
         pooled = _layer_norm(x, self.ln_f).mean(dim=1)
         group = axis_group(self.axis_name) if self.axis_name is not None else None
         if group is not None:  # each rank's mean covers its shard: complete the global pool
             pooled = pmean(pooled, group)
-        return F.linear(pooled, self.head.weight, self.head.bias)
+        return _linear(pooled, self.head, torch.float32)
 
 
 def causal_lm_loss(

@@ -5,6 +5,13 @@ A stacked parameter set is a dict of tensors, each with a leading
 ``num_models`` axis. Every rule reduces in f32 and casts back to each leaf's
 dtype, as in the JAX package; rules that flatten the stack (Krum, the
 geometric median) concatenate the leaves in the dict's order.
+
+Under a bound :class:`~p2pfl_tpu_torch.parallel.tensor_parallel.ModelSplit`
+(a population whose kernels are split over ``model`` ranks) the stacked
+leaves are this rank's slices: the elementwise rules need nothing more, and
+Krum's distances and the geometric median's norms sum the split leaves'
+part over the ranks (:func:`~p2pfl_tpu_torch.parallel.tensor_parallel.
+whole_gram`, :func:`~p2pfl_tpu_torch.parallel.tensor_parallel.whole_sq_sum`).
 """
 
 from __future__ import annotations
@@ -13,6 +20,8 @@ import math
 from typing import Dict, List, Tuple
 
 import torch
+
+from p2pfl_tpu_torch.parallel.tensor_parallel import active, whole_gram, whole_sq_sum
 
 Params = Dict[str, torch.Tensor]
 
@@ -81,14 +90,22 @@ def _flatten_stack(stacked: Params) -> torch.Tensor:
     return torch.cat([leaf.reshape(n, -1).float() for leaf in leaves], dim=1)
 
 
+def _row_sums(cols: torch.Tensor, stacked: Params) -> torch.Tensor:
+    """Row sums of ``cols`` (``[K, total]``, laid out as :func:`_flatten_stack`
+    lays out ``stacked``) over whole models."""
+    if active() is None:
+        return cols.sum(dim=1)
+    sizes = [math.prod(leaf.shape[1:]) for leaf in stacked.values()]
+    return whole_sq_sum({name: c.sum(dim=1) for name, c in zip(stacked, torch.split(cols, sizes, dim=1))})
+
+
 def krum_select(stacked: Params, num_byzantine: int, num_selected: int = 1) -> torch.Tensor:
     """(Multi-)Krum: indices ``[num_selected]`` of the models with the lowest
     sums of squared distances to their ``n - num_byzantine - 2`` nearest
     neighbours (Blanchard et al. 2017)."""
-    x = _flatten_stack(stacked)
-    n = x.shape[0]
-    sq = (x * x).sum(dim=1)
-    d2 = sq[:, None] + sq[None, :] - 2.0 * (x @ x.T)
+    sq, gram = whole_gram(stacked)
+    n = sq.shape[0]
+    d2 = sq[:, None] + sq[None, :] - 2.0 * gram
     d2 = d2 + torch.diag(torch.full((n,), math.inf, dtype=d2.dtype, device=d2.device))
     k = max(1, n - num_byzantine - 2)
     nearest = torch.topk(d2, k, dim=1, largest=False).values
@@ -115,7 +132,7 @@ def geometric_median(stacked: Params, weights: torch.Tensor, iters: int = 8, eps
     w = w / torch.clamp(w.sum(), min=1e-12)
     z = w @ x
     for _ in range(iters):
-        d = torch.sqrt(torch.clamp(((x - z) ** 2).sum(dim=1), min=eps * eps))
+        d = torch.sqrt(torch.clamp(_row_sums((x - z) ** 2, stacked), min=eps * eps))
         beta = w / d
         z = (beta @ x) / torch.clamp(beta.sum(), min=1e-12)
     out, offset = {}, 0

@@ -36,10 +36,20 @@ each with its gradient rule in its docstring:
 * :func:`tie` — keeps an exchange whose result nothing reads in the
   backward.
 
+The ``expert`` and ``model`` axes (a weight split over the ranks, the
+activations replicated) add one exchange:
+
+* :func:`all_gather_dim` — every rank's tensor concatenated along one
+  dimension, in rank order; its backward is this rank's slice of the
+  cotangent. A column-parallel layer is ``sum_cotangent`` of its input, the
+  product with this rank's output columns, then ``all_gather_dim``; the
+  MoE's experts sum their partial combine with :func:`psum`.
+
 Every rank must post the same exchanges in the same order, forward and
 backward: each rank runs the same program on its shard, as under
-``shard_map``. ``STATS`` counts the bytes every :func:`all_gather` and
-:func:`ppermute` received in this process.
+``shard_map``. ``STATS`` counts the bytes every :func:`all_gather`,
+:func:`ppermute` and :func:`all_gather_dim` received in this process, and
+the bytes every :func:`psum` and :func:`sum_cotangent` summed.
 """
 
 from __future__ import annotations
@@ -58,8 +68,12 @@ log = logging.getLogger("p2pfl_tpu_torch")
 
 #: Per-process counters: ``all_gather_bytes``, the bytes of every row
 #: gathered, this rank's own included; ``ppermute_bytes``, the bytes that
-#: arrived at this rank through :func:`ppermute`, forward and backward.
-STATS: Dict[str, int] = {"all_gather_bytes": 0, "ppermute_bytes": 0}
+#: arrived at this rank through :func:`ppermute`, forward and backward;
+#: ``gather_dim_bytes``, the bytes of every tensor :func:`all_gather_dim`
+#: assembled, this rank's own slice included; ``sum_bytes``, the bytes of
+#: every tensor summed over the ranks by :func:`psum` (forward) and
+#: :func:`sum_cotangent` (backward).
+STATS: Dict[str, int] = {"all_gather_bytes": 0, "ppermute_bytes": 0, "gather_dim_bytes": 0, "sum_bytes": 0}
 
 
 def reset_stats() -> None:
@@ -172,20 +186,19 @@ _ROUTES_LOGGED: set = set()
 _P2P_READY: "weakref.WeakSet" = weakref.WeakSet()
 
 
-def p2p_route(device: torch.device, group: Any = None) -> str:
-    """How :func:`ppermute` moves a tensor on ``device`` in ``group``:
-    ``"direct"`` (NCCL from card to card, gloo between CPU tensors) or
-    ``"host"`` (gloo with CUDA tensors: gloo has no point-to-point for
-    them, so the tensor is copied to host memory, sent, and copied back).
-    Chosen by the backend, never by catching an error; logged once per
-    backend and device type."""
+def p2p_route(device: torch.device, group: Any = None, op: str = "ppermute") -> str:
+    """How ``op`` (:func:`ppermute` or :func:`all_gather_dim`) moves a
+    tensor on ``device`` in ``group``: ``"direct"`` (NCCL from card to card,
+    gloo between CPU tensors) or ``"host"`` (gloo with CUDA tensors: the
+    tensor is copied to host memory, exchanged, and copied back; gloo has
+    no point-to-point for them). Chosen by the backend, never by catching an
+    error; logged once per op, backend and device type."""
     backend = str(_dist().get_backend(group))
     route = "host" if backend == "gloo" and device.type == "cuda" else "direct"
-    if (backend, device.type) not in _ROUTES_LOGGED:
-        _ROUTES_LOGGED.add((backend, device.type))
-        log.info("ppermute: backend %s, %s tensors, route %s%s", backend, device.type, route,
-                 " (gloo has no point-to-point for CUDA tensors: copies through host memory)"
-                 if route == "host" else "")
+    if (op, backend, device.type) not in _ROUTES_LOGGED:
+        _ROUTES_LOGGED.add((op, backend, device.type))
+        log.info("%s: backend %s, %s tensors, route %s%s", op, backend, device.type, route,
+                 " (gloo with CUDA tensors: copies through host memory)" if route == "host" else "")
     return route
 
 
@@ -270,12 +283,18 @@ def ppermute(
     return out[0] if single else out
 
 
+def _sum(t: torch.Tensor, group: Any) -> torch.Tensor:
+    """A contiguous copy of ``t`` summed over the ranks, counted in ``STATS``."""
+    out = t.detach().clone(memory_format=torch.contiguous_format)
+    _dist().all_reduce(out, group=group)
+    STATS["sum_bytes"] += out.numel() * out.element_size()
+    return out
+
+
 class _PSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, group):
-        out = t.detach().clone(memory_format=torch.contiguous_format)
-        _dist().all_reduce(out, group=group)
-        return out
+        return _sum(t, group)
 
     @staticmethod
     def backward(ctx, g):
@@ -340,9 +359,7 @@ class _SumCotangent(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        out = g.detach().clone(memory_format=torch.contiguous_format)
-        _dist().all_reduce(out, group=ctx.group)
-        return out, None
+        return _sum(g, ctx.group), None
 
 
 def sum_cotangent(t: torch.Tensor, group: Any = None) -> torch.Tensor:
@@ -380,5 +397,49 @@ def tie(t: torch.Tensor, *extras: torch.Tensor) -> torch.Tensor:
     return _Tie.apply(t, *extras)
 
 
-__all__ = ["STATS", "all_gather", "all_reduce", "broadcast", "broadcast_tree", "p2p_route", "pmean", "ppermute",
-           "psum", "replicate", "reset_stats", "sum_cotangent", "tie"]
+# --- the expert and model axes: a weight split over the ranks ------------------
+
+
+def _gather_dim(t: torch.Tensor, dim: int, group: Any) -> torch.Tensor:
+    dist = _dist()
+    src = t.detach().contiguous()
+    host = p2p_route(src.device, group, "all_gather_dim") == "host"
+    if host:
+        src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim=dim)
+    STATS["gather_dim_bytes"] += out.numel() * out.element_size()
+    return out.to(t.device) if host else out
+
+
+class _AllGatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim: int, group):
+        ctx.dim, ctx.n = dim, t.shape[dim]
+        ctx.lo = _dist().get_rank(group) * ctx.n
+        return _gather_dim(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.lo, ctx.n), None, None
+
+
+def all_gather_dim(t: torch.Tensor, dim: int, group: Any = None) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim``, in rank order, on every
+    rank (``jax.lax.all_gather(..., tiled=True)``). Every rank passes a
+    tensor of the same shape and dtype. With gloo a CUDA tensor goes through
+    host memory (:func:`p2p_route`).
+
+    Gradient rule: this rank's slice of the cotangent (the rows of ``dim``
+    its ``t`` filled), not a sum over the ranks. That is the transpose only
+    because everything computed from the gathered tensor is replicated over
+    the ranks, so every rank holds the same cotangent: the column-parallel
+    layers of a model whose activations every rank holds whole. A consumer
+    that differs between the ranks would need the cotangents summed first.
+    """
+    return _AllGatherDim.apply(t, dim, group)
+
+
+__all__ = ["STATS", "all_gather", "all_gather_dim", "all_reduce", "broadcast", "broadcast_tree", "p2p_route", "pmean",
+           "ppermute", "psum", "replicate", "reset_stats", "sum_cotangent", "tie"]

@@ -26,11 +26,19 @@ the W ranks (:attr:`Mesh.rank_axis`), as a JAX mesh spans W devices:
   :mod:`p2pfl_tpu_torch.parallel.sequence`) or pipeline stage r
   (:mod:`p2pfl_tpu_torch.parallel.pipeline`); :func:`axis_index` gives r
   inside :meth:`Mesh.bind`, and the shards talk through
-  :mod:`p2pfl_tpu_torch.parallel.collectives`.
+  :mod:`p2pfl_tpu_torch.parallel.collectives`;
+* ``"expert"`` or ``"model"`` (``{"expert": W}``, ``{"nodes": 1, "model":
+  W}``): its size is W too. Rank r holds the r-th part of each split weight
+  and every rank holds the activations whole: the MoE's experts r X / W ..
+  (r + 1) X / W (:func:`~p2pfl_tpu_torch.models.moe.shard_moe_params`), or
+  the r-th slice of every kernel's output dimension
+  (:mod:`p2pfl_tpu_torch.parallel.tensor_parallel`, which
+  :class:`~p2pfl_tpu_torch.parallel.simulation.MeshSimulation` holds its
+  population in).
 
 One axis spans the ranks; the others must be 1. A second axis above 1 (a
-2-D rank mesh, such as ``nodes`` x ``seq`` or ``batch`` x ``seq``), a
-``batch`` axis over the ranks, ``"expert"`` > 1 and ``"model"`` > 1 raise
+2-D rank mesh, such as ``nodes`` x ``seq``, ``nodes`` x ``model``, ``seq`` x
+``expert`` or ``batch`` x ``seq``) and a ``batch`` axis over the ranks raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 
 :func:`make_mesh`, :func:`population_sharding`, :func:`replicated` and
@@ -57,15 +65,11 @@ log = logging.getLogger("p2pfl_tpu_torch")
 # Axis name -> the mesh that binds it in this context (innermost wins).
 _BOUND: contextvars.ContextVar[Mapping[str, "Mesh"]] = contextvars.ContextVar("p2pfl_bound_axes", default={})
 
-#: The ROADMAP item (queue A) that ports each axis across ranks.
-_RANK_AXIS_ITEMS = {
-    "expert": "A4 (the expert axis across ranks: the MoE all-to-all)",
-    "model": "A5 (the model axis as tensor parallelism)",
-}
 #: The ROADMAP item that takes a batch axis, or two axes at once, across ranks.
-RANK_MESH_2D_ITEM = "A8 (a 2-D rank mesh: the batch or nodes axis beside seq or stage)"
+RANK_MESH_2D_ITEM = ("A8 (a 2-D rank mesh: the batch or nodes axis beside seq, stage or model, or seq beside "
+                     "expert)")
 #: The axes that may span the ranks, one at a time.
-RANK_AXES = ("nodes", "seq", "stage")
+RANK_AXES = ("nodes", "seq", "stage", "expert", "model")
 
 
 class Mesh:
@@ -75,8 +79,8 @@ class Mesh:
         axes: axis name -> size (>= 1), e.g. ``{"seq": 8}``. On one process
             each axis is a number of virtual shards; over ranks one axis
             spans them (:attr:`rank_axis`: ``"nodes"``, a multiple of the
-            world size, or ``"seq"`` / ``"stage"``, the world size) and the
-            others are 1.
+            world size, or ``"seq"`` / ``"stage"`` / ``"expert"`` /
+            ``"model"``, the world size) and the others are 1.
         device: where the wrappers put their inputs (``"cuda"`` by default;
             raises when no card is visible, like every entry point). Over
             ranks: this rank's device.
@@ -108,11 +112,6 @@ class Mesh:
         """The one axis that spans the ranks; raises for what no PR has
         taken across ranks yet."""
         above = {name: size for name, size in self.shape.items() if size > 1}
-        for name, item in _RANK_AXIS_ITEMS.items():
-            if name in above:
-                raise NotImplementedError(
-                    f"axis {name!r} (size {above[name]}) across {self.world} ranks: only 'nodes', 'seq' or "
-                    f"'stage' spans ranks so far; ROADMAP queue A item {item} ports it")
         if len(above) > 1 or (above and next(iter(above)) not in RANK_AXES):
             raise NotImplementedError(
                 f"axes {above} across {self.world} ranks: one of {RANK_AXES} spans the ranks so far, the other "
@@ -247,8 +246,9 @@ def make_mesh(
     virtual shards (default: 1 for every axis). In a joined process group
     (:func:`initialize_multihost`) one axis spans the W ranks: by default
     the first, at size W, the other axes 1. A ``"nodes"`` size must be a
-    multiple of W, a ``"seq"`` or ``"stage"`` size W
-    (``make_mesh((W,), ("seq",))``: one sequence shard a rank).
+    multiple of W, a ``"seq"``, ``"stage"``, ``"expert"`` or ``"model"`` size
+    W (``make_mesh((W,), ("seq",))``: one sequence shard a rank;
+    ``make_mesh((1, W), ("nodes", "model"))``: a W-th of every kernel a rank).
 
     Args:
         shape: per-axis sizes.

@@ -33,6 +33,23 @@ slab. The gathered stack is the one a single process builds, so the
 trajectory is bit-identical at every world size. Only rank 0 writes files
 (the ledger, the flight recorder's dumps, bundles, traces, snapshots).
 
+Over model ranks (``make_mesh((1, W), ("nodes", "model"))``, the JAX
+package's tensor-parallel layout) every rank holds the whole population, each
+kernel cut to its slice of the output dimension (``stacked_spec``'s rule,
+:mod:`p2pfl_tpu_torch.parallel.tensor_parallel`): the parameters, the Adam
+moments, SCAFFOLD's variates and the server optimizer's state follow the
+leaf, so FedAvg and every other elementwise step stay local. Every rank
+trains every member with the column-parallel forward (the activations
+gathered whole, attention run in full on every rank), and every reduction
+over a whole model (the update-norm clip and the devobs norms, Krum's
+distances, the geometric median's norms, DP-SGD's per-example norms,
+FedProx's penalty) sums the split leaves' part over the ranks.
+``per_node_init`` draws each node's noise at the whole leaf's shape and
+keeps the slice, so W = 1 and W > 1 start from the same weights;
+``final_model``, ``state_dict`` and the ledger's hashes gather the whole
+leaves. A custom ``aggregate_fn`` or server transformation must be
+elementwise or built from :mod:`p2pfl_tpu_torch.ops.aggregation`'s rules.
+
 RNG: JAX threefry keys and torch generators give different streams, so the
 port's draws are its own, from seeded CPU ``torch.Generator``s keyed by the
 absolute round index (the vote: ``(seed, round, 0)``; member ``pos``'s
@@ -69,6 +86,7 @@ from p2pfl_tpu_torch.ops import aggregation as agg_ops
 from p2pfl_tpu_torch.optim import adam, sgd, state_map, yogi
 from p2pfl_tpu_torch.parallel import collectives
 from p2pfl_tpu_torch.parallel.mesh import Mesh
+from p2pfl_tpu_torch.parallel.tensor_parallel import MODEL_AXIS, ModelSplit, whole_sq_sum
 from p2pfl_tpu_torch.telemetry.bundle import establish_run
 from p2pfl_tpu_torch.telemetry.sketches import device_bucket_spec, device_bucket_stats
 
@@ -321,9 +339,10 @@ class MeshSimulation:
         seed: round RNG seed (OS entropy when None; over ranks, rank 0's).
         mesh: a :class:`~p2pfl_tpu_torch.parallel.mesh.Mesh`; its ``"nodes"``
             axis size is the default ``pad_to_multiple``. Over a rank mesh
-            each rank keeps its slab of the population, and the calls that
-            gather (``run``, ``final_model``, ``state_dict``) are collective:
-            every rank makes them.
+            each rank keeps its slab of the population (``"nodes"`` spans
+            the ranks) or its slice of every split kernel (``"model"``
+            does), and the calls that gather (``run``, ``final_model``,
+            ``state_dict``) are collective: every rank makes them.
         aggregate_fn: ``(stacked, weights) -> params``; default FedAvg.
         per_node_init: perturb each node's start by 0.01 N(0, 1).
         task: ``"classification"`` (labels in ``y``) or ``"lm"`` (``x`` holds
@@ -446,9 +465,18 @@ class MeshSimulation:
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a p2pfl_tpu_torch Mesh, got {type(mesh).__name__}")
         self._ranked = mesh is not None and mesh.ranked
-        if self._ranked and mesh.rank_axis != "nodes":
-            raise ValueError(f"a MeshSimulation over ranks needs the 'nodes' axis to span them, got {mesh!r}")
+        if self._ranked and mesh.rank_axis not in ("nodes", MODEL_AXIS):
+            raise ValueError(f"a MeshSimulation over ranks needs the 'nodes' or the 'model' axis to span them, got "
+                             f"{mesh!r}")
         self._rank, self._world = (mesh.rank, mesh.world) if self._ranked else (0, 1)
+        # Over model ranks: which leaves this rank holds a slice of (None otherwise).
+        self._split = (ModelSplit({k: v.shape for k, v in model.params.items()}, mesh)
+                       if self._ranked and mesh.rank_axis == MODEL_AXIS else None)
+        self._nodes_ranked = self._ranked and self._split is None
+        if self._split is not None and any(".moe." in k for k in self._split.dims):
+            raise NotImplementedError(
+                "the MoE LM in a population over model ranks (its experts split on their feature dimensions) is not "
+                "ported yet (ROADMAP queue A item A9)")
         if self._ranked:
             if torch.device(device).type != mesh.device.type:
                 raise ValueError(f"device {str(device)!r} does not match the rank mesh's {str(mesh.device)!r}")
@@ -481,7 +509,8 @@ class MeshSimulation:
         self.mesh = mesh
         self.aggregate_fn: Aggregate = aggregate_fn if aggregate_fn is not None else agg_ops.fedavg
         self._byz_attack = byzantine_attack
-        self._per_example = "loop" if uses_flash(model.module) else "vmap"
+        # The collectives of a split model's layers have no vmap rule either.
+        self._per_example = "loop" if uses_flash(model.module) or self._split is not None else "vmap"
 
         # --- data: [N, S, ...] stacks with validity masks ----------------------
         if isinstance(partitions, tuple):
@@ -538,7 +567,7 @@ class MeshSimulation:
             self.num_nodes += n_pad
         # This rank's slab [lo, hi) of the padded population (all of it on
         # one process); the FedAvg weights stay whole on every rank.
-        self.slab = mesh.slab(self.num_nodes) if self._ranked else (0, self.num_nodes)
+        self.slab = mesh.slab(self.num_nodes) if self._nodes_ranked else (0, self.num_nodes)
         lo, hi = self.slab
         mask = np.asarray(mask, np.float32)
         self.x = self._to_device(x[lo:hi])
@@ -559,6 +588,7 @@ class MeshSimulation:
         self.completed_rounds = 0
         self._closed = False
         self._ledger: Any = None  # attach_ledger: None = no emission
+        self._ledger_hashes = False  # attach_ledger was called (on every rank of a model split)
         self._ledger_names: Optional[List[str]] = None
         # Device observatory (config.DEVOBS_*): the static bucket spec of the
         # on-device update-norm statistics, the engine's flight recorder
@@ -587,12 +617,18 @@ class MeshSimulation:
         lo, hi = self.slab
         n = hi - lo
         template = {k: v.detach().to(self.device, torch.float32) for k, v in self.model.params.items()}
+        shapes = {k: v.shape for k, v in template.items()}  # whole leaves, as per_node_init draws them
+        if self._split is not None:
+            template = self._split.shard(template)
         params: Params = {k: v[None].repeat((n,) + (1,) * v.dim()) for k, v in template.items()}
         if self._per_node_init:
             for i in range(n):
                 gen = _generator(self.seed, 0, 2, lo + i)
                 for k, v in params.items():
-                    v[i] += (0.01 * torch.randn(v.shape[1:], generator=gen)).to(self.device, v.dtype)
+                    noise = 0.01 * torch.randn(shapes[k], generator=gen)
+                    if self._split is not None:
+                        noise = self._split.local(k, noise)
+                    v[i] += noise.to(self.device, v.dtype)
         opt = state_map(lambda a: a[None].repeat((n,) + (1,) * a.dim()), self.optimizer.init(template))
         if self.algorithm == "scaffold":
             return (params, opt, {k: torch.zeros_like(v) for k, v in params.items()},
@@ -640,7 +676,17 @@ class MeshSimulation:
         and ``_AUX_COLS[:7]`` (``nonfinite``: a member's loss or a leaf of the
         aggregate is not finite); else None. The aux feeds nothing back: the
         parameters are bit-identical with it on or off. Over ranks every
-        rank runs it together (:meth:`_gather_members`)."""
+        rank runs it together (:meth:`_gather_members`; over model ranks
+        with the split bound)."""
+        if self._split is None:
+            return self._round_body(st, round_idx, epochs, committee, do_eval, fold_pos, devobs)
+        with self._split.bind():
+            return self._round_body(st, round_idx, epochs, committee, do_eval, fold_pos, devobs)
+
+    def _round_body(
+        self, st: Dict[str, Any], round_idx: int, epochs: int, committee: Optional[torch.Tensor],
+        do_eval: bool, fold_pos: Optional[torch.Tensor] = None, devobs: bool = False,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
         params, opt, scaffold = st["params"], st["opt"], self.algorithm == "scaffold"
         if committee is None:
             committee = vote_committee(
@@ -732,14 +778,16 @@ class MeshSimulation:
         if self._byz_host is not None and self._byz_host[node] > 0:
             p_i = {k: poison_delta(new, p_0[k], self._byz_attack).to(new.dtype) for k, new in p_i.items()}
         if self.clip_update_norm > 0.0:
-            sq = sum(((new.float() - p_0[k].float()) ** 2).sum() for k, new in p_i.items())
+            sq = whole_sq_sum({k: ((new.float() - p_0[k].float()) ** 2).sum() for k, new in p_i.items()})
             scale = torch.clamp(self.clip_update_norm / torch.sqrt(sq + 1e-12), max=1.0)
             p_i = {k: (p_0[k].float() + (new.float() - p_0[k].float()) * scale).to(new.dtype)
                    for k, new in p_i.items()}
         row = {f"p/{k}": v for k, v in p_i.items()}
         if devobs:
             deltas = torch._foreach_sub([v.float() for v in p_i.values()], [p_0[k].float() for k in p_i])
-            row["un_sq"] = torch.stack(torch._foreach_norm(deltas)).square().sum()
+            norms = torch._foreach_norm(deltas)
+            row["un_sq"] = (torch.stack(norms).square().sum() if self._split is None
+                            else self._split.sq_sum({k: v.square() for k, v in zip(p_i, norms)}))
         return row
 
     def _gather_members(self, rows: List[Params], comm: List[int], scaffold: bool, devobs: bool) -> Params:
@@ -749,7 +797,7 @@ class MeshSimulation:
         them all, and the rank-major result is put back in committee order;
         the members per rank and the bytes gathered are kept for the run's
         records."""
-        if not self._ranked:
+        if not self._nodes_ranked:
             self._round_members = [len(rows)]
             return agg_ops.tree_stack(rows)
         per = self.slab[1] - self.slab[0]
@@ -786,6 +834,8 @@ class MeshSimulation:
         # multi-tensor reduction over the aggregate, then one isfinite.
         amax = torch.stack(torch._foreach_norm(list(agg.values()), float("inf"))).float()
         nonfinite = ~torch.isfinite(torch.cat([member_losses.float(), amax])).all()
+        if self._split is not None:  # a NaN in one rank's slices trips every rank
+            nonfinite = collectives.all_reduce(nonfinite.double(), "max", self.mesh.group) > 0
         return torch.cat([stats["counts"].double(), torch.stack([
             nonfinite.double(), weights.sum().double(),
             torch.full((), float(members), dtype=torch.float64, device=self.device),
@@ -962,8 +1012,12 @@ class MeshSimulation:
                         if self._ranked:
                             log.info("round %d: members per rank %s, %d bytes all-gathered", r,
                                      self._round_members, self.gather_bytes[-1])
+                        last = i == done + chunk - 1
+                        # Over model ranks every rank gathers the hashed node whole.
+                        whole = (self._split.gather({k: v[0] for k, v in st["params"].items()})
+                                 if self._split is not None and self._ledger_hashes and last else None)
                         if self._ledger is not None:
-                            self._ledger_emit_round(r, comm, row(fsched, i), i == done + chunk - 1)
+                            self._ledger_emit_round(r, comm, row(fsched, i), last, whole)
                         committees.append(comm)
                         test_loss.append(tl)
                         test_acc.append(ta)
@@ -1080,13 +1134,17 @@ class MeshSimulation:
     def final_model(self, node: int = 0) -> ModelHandle:
         """One node's model (all equal after diffusion), as a new handle.
         Over ranks a collective: the rank that holds ``node`` broadcasts it
-        (:func:`~p2pfl_tpu_torch.population.sharding.gather_node`)."""
+        (:func:`~p2pfl_tpu_torch.population.sharding.gather_node`), or over
+        model ranks every rank gathers its whole leaves."""
         from p2pfl_tpu_torch.population.sharding import gather_node
 
         if self._closed:
             raise RuntimeError("simulation closed — extract the model before close()")
         if self.params_stack is None:
             raise RuntimeError("population state lost in a failed chunk; load_from(checkpointer) to restore")
+        if self._split is not None:
+            return ModelHandle(self._split.gather({k: v[node] for k, v in self.params_stack.items()}),
+                               self.model.module)
         if not self._ranked:
             return ModelHandle({k: v[node].clone() for k, v in self.params_stack.items()}, self.model.module)
         return ModelHandle(gather_node(self.params_stack, node, self.mesh, self.num_nodes), self.model.module)
@@ -1096,7 +1154,8 @@ class MeshSimulation:
         SCAFFOLD's variates and the server optimizer's state where used.
         Over more than one rank a collective: the full ``[N, ...]`` stacks,
         gathered from every rank's slab
-        (:func:`~p2pfl_tpu_torch.population.sharding.gather_population`)."""
+        (:func:`~p2pfl_tpu_torch.population.sharding.gather_population`) or,
+        over model ranks, the whole leaves from every rank's slices."""
         from p2pfl_tpu_torch.population.sharding import gather_population
 
         if self._closed:
@@ -1104,9 +1163,12 @@ class MeshSimulation:
         stacks: Dict[str, Any] = {"params_stack": self.params_stack, "opt_stack": self.opt_stack}
         if self.algorithm == "scaffold":
             stacks["c_stack"] = self.c_stack
-        state = gather_population(stacks, self.mesh) if self._world > 1 else stacks
+        if self._split is not None:
+            state = self._split.gather(stacks, lead=1)
+        else:
+            state = gather_population(stacks, self.mesh) if self._world > 1 else stacks
         if self.algorithm == "scaffold" or self.server_tx is not None:
-            state["c_global"] = self.c_global
+            state["c_global"] = self.c_global if self._split is None else self._split.gather(self.c_global)
         return state
 
     def close(self) -> None:
@@ -1136,9 +1198,11 @@ class MeshSimulation:
         Byzantine nodes as ``chaos_fault`` events now. ``node_names`` maps
         node indices to names (default ``vnode/<i>``). Returns the ledger.
         Over ranks only rank 0 keeps one: elsewhere nothing is attached and
-        None returns."""
+        None returns (over model ranks every rank still gathers node 0's
+        whole leaves for each hash: attach on every rank)."""
         from p2pfl_tpu_torch.telemetry.ledger import LEDGERS
 
+        self._ledger_hashes = True
         if self._rank != 0:
             return None
 
@@ -1159,8 +1223,10 @@ class MeshSimulation:
 
     def _ledger_emit_round(
         self, r: int, committee: torch.Tensor, fold_pos: Optional[torch.Tensor], with_hash: bool,
+        whole: Optional[Params] = None,
     ) -> None:
-        """Emit one completed round's events (see :meth:`attach_ledger`)."""
+        """Emit one completed round's events (see :meth:`attach_ledger`);
+        ``whole``: node 0's gathered leaves over model ranks."""
         from p2pfl_tpu_torch.telemetry.ledger import canonical_params_hash
 
         led, names = self._ledger, self._ledger_names
@@ -1176,7 +1242,8 @@ class MeshSimulation:
         commit: Dict[str, Any] = {"contributors": sorted(names[i] for i in folded), "num_samples": total,
                                   "origin": "mesh"}
         if with_hash:
-            commit["hash"] = canonical_params_hash({k: v[0] for k, v in self.params_stack.items()})
+            commit["hash"] = canonical_params_hash(whole if whole is not None else
+                                                   {k: v[0] for k, v in self.params_stack.items()})
         led.emit("aggregate_committed", round=r, **commit)
         led.emit("round_close", round=r)
 

@@ -29,13 +29,18 @@ assert {{"p2pfl_tpu_torch.management.checkpoint", "p2pfl_tpu_torch.population.en
          "p2pfl_tpu_torch.analysis.baseline", "p2pfl_tpu_torch.analysis.runtime",
          "p2pfl_tpu_torch.learning.dataset.vision", "p2pfl_tpu_torch.parallel.collectives",
          "p2pfl_tpu_torch.parallel.launch", "p2pfl_tpu_torch.parallel.mesh", "p2pfl_tpu_torch.parallel.pipeline",
-         "p2pfl_tpu_torch.parallel.sequence", "p2pfl_tpu_torch.ops.ring_attention"}} <= set(names), names
+         "p2pfl_tpu_torch.parallel.sequence", "p2pfl_tpu_torch.ops.ring_attention",
+         "p2pfl_tpu_torch.parallel.tensor_parallel", "p2pfl_tpu_torch.parallel.simulation",
+         "p2pfl_tpu_torch.models.moe", "p2pfl_tpu_torch.models.transformer", "p2pfl_tpu_torch.models.cnn",
+         "p2pfl_tpu_torch.models.mlp", "p2pfl_tpu_torch.models.resnet", "p2pfl_tpu_torch.ops.aggregation",
+         "p2pfl_tpu_torch.learning.learner"}} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import glob, importlib.util
 scripts = sorted(glob.glob("scripts/torch_*_check.py")) + ["scripts/torch_analyze.py"]
-scripts += ["tests/torch_multirank_worker.py", "tests/torch_seqstage_worker.py"]
-assert len(scripts) == 7, scripts
+scripts += ["tests/torch_multirank_worker.py", "tests/torch_seqstage_worker.py",
+            "tests/torch_expert_model_worker.py"]
+assert len(scripts) == 8, scripts
 for path in scripts:
     spec = importlib.util.spec_from_file_location("script_" + path.split("/")[-1][:-3], path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))

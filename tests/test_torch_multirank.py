@@ -174,15 +174,19 @@ def test_collectives_gather_uneven_rows_of_every_dtype_in_rank_order_and_shard_p
 
 
 def test_what_a_rank_mesh_does_not_run_yet_raises_naming_its_roadmap_item(worlds):
-    """A ``seq`` or ``stage`` axis alone over the ranks builds (ported);
-    two axes above 1, or a batch axis, over the ranks raise naming A8, and
-    the MoE LM over a ranked seq axis A4."""
-    items = {"model": "A5", "expert": "A4", "nodes_seq": "A8", "nodes_stage": "A8", "batch_seq": "A8",
-             "batch": "A8", "moe_seq": "A4", "population_engine": "A6", "async_engine": "A6", "save_to": "A6",
-             "load_from": "A6", "run_checkpointer": "A6", "round_cost_analysis": "A7"}
+    """A ``seq``, ``stage``, ``expert`` or ``model`` axis alone over the ranks
+    builds (ported), and so does the MoE LM over a ranked seq axis; two axes
+    above 1 (``nodes`` x ``model``, ``seq`` x ``expert`` among them), or a
+    batch axis, over the ranks raise naming A8, checkpoints A6, the cost
+    analysis A7, and the MoE LM in a population over model ranks A9."""
+    items = {"model": "A8", "expert": "A8", "nodes_seq": "A8", "nodes_stage": "A8", "batch_seq": "A8",
+             "batch": "A8", "population_engine": "A6", "async_engine": "A6", "save_to": "A6",
+             "load_from": "A6", "run_checkpointer": "A6", "round_cost_analysis": "A7", "model_save_to": "A6",
+             "model_round_cost_analysis": "A7", "moe_model": "A9"}
     for world in WORLDS:
         for got in worlds[world]:
             for key, item in items.items():
                 msg = got["refusals"][key]
                 assert msg is not None and f"ROADMAP queue A item {item}" in msg, (world, key, msg)
-            assert got["refusals"]["seq"] is None and got["refusals"]["stage"] is None, got["refusals"]
+            for key in ("seq", "stage", "expert_ranks", "model_ranks", "moe_seq"):
+                assert got["refusals"][key] is None, (key, got["refusals"])

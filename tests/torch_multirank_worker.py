@@ -15,8 +15,8 @@ device="cpu")`` and runs, in order:
   on every rank (none on the last), ``broadcast_tree``, ``broadcast`` and
   ``all_reduce``, and ``make_shard_and_gather_fns`` over the rank mesh;
 * ``refusals``: what a rank mesh does not run yet raises
-  ``NotImplementedError`` naming its ROADMAP item, and a ``seq`` or
-  ``stage`` axis alone over the ranks builds;
+  ``NotImplementedError`` naming its ROADMAP item, and a ``seq``,
+  ``stage``, ``expert`` or ``model`` axis alone over the ranks builds;
 * every arm of :data:`ARMS`: the small f32 flash LM from ``<dir>/init.pt``
   for two scheduled rounds.
 
@@ -154,7 +154,8 @@ def _refusals(mesh, init: dict) -> dict:
     for axes, key in (({"nodes": world, "model": 2}, "model"), ({"seq": world, "expert": 2}, "expert"),
                       ({"nodes": world, "seq": 2}, "nodes_seq"), ({"nodes": world, "stage": 2}, "nodes_stage"),
                       ({"batch": 2, "seq": world}, "batch_seq"), ({"batch": world}, "batch"),
-                      ({"seq": world}, "seq"), ({"stage": world, "model": 1}, "stage")):
+                      ({"seq": world}, "seq"), ({"stage": world, "model": 1}, "stage"),
+                      ({"expert": world}, "expert_ranks"), ({"nodes": 1, "model": world}, "model_ranks")):
         note(key, lambda axes=axes: Mesh(axes, device="cpu", group=mesh.group))
     from p2pfl_tpu_torch.models.moe import moe_lm_model
     from p2pfl_tpu_torch.parallel.sequence import sequence_parallel_apply
@@ -176,6 +177,17 @@ def _refusals(mesh, init: dict) -> dict:
     note("load_from", lambda: sim.load_from(ckpt))
     note("run_checkpointer", lambda: sim.run(rounds=1, warmup=False, checkpointer=ckpt))
     note("round_cost_analysis", lambda: sim.round_cost_analysis())
+    # Over model ranks: the same refusals, and the MoE LM in the population.
+    model = Mesh({"nodes": 1, "model": world}, device="cpu", group=mesh.group)
+    split = MeshSimulation(mlp_model(seed=0, device="cpu"), parts, train_set_size=2, batch_size=32, seed=1,
+                           mesh=model, device="cpu")
+    note("model_save_to", lambda: split.save_to(ckpt))
+    note("model_round_cost_analysis", lambda: split.round_cost_analysis())
+    moe_lm = moe_lm_model(0, 8, 16, 2, 2, 16, 2, device="cpu")
+    toks = np.zeros((4, 2, 8), np.int32)
+    note("moe_model", lambda: MeshSimulation(moe_lm, (toks, np.zeros((4, 2), np.int32), np.ones((4, 2), np.float32)),
+                                             test_data=(toks[0], None), train_set_size=2, batch_size=2, seed=1,
+                                             task="lm", mesh=model, device="cpu"))
     return got
 
 
