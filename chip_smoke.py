@@ -233,13 +233,13 @@ Phases, each on its own printed lines:
    aggregate its own ledger committed (see ``recovery_crash``).
 12e. population: ``PopulationEngine`` at ``bench.py --population``'s
    acceptance shape (100,000 virtual nodes, cohort 0.01, speed tiers,
-   ledger attached; its 10 rounds cut to 4): mean fill x n == K, ``cohort_fill`` in the
+   ledger attached; its 10 rounds cut to 2): mean fill x n == K, ``cohort_fill`` in the
    snapshot, host times of the schedules, ``fleet_health`` and the
    snapshot; then its recovery arm (n 256, killed after 3 of 6 rounds):
    node 0's hash, accuracy and cohort fill equal to the control's.
 12f. asyncpop: ``AsyncPopulationEngine`` at ``bench.py --asyncpop``'s
    shapes. Throughput: 100,000 vnodes, cohort 0.01, tiers (1, 1, 1, 2, 5),
-   its 12 windows cut to 8, ledger attached: every window closes, fold lag <=
+   its 12 windows cut to 6, ledger attached: every window closes, fold lag <=
    ``ASYNCPOP_MAX_LAG``, simulated throughput per contribution >= 2x the
    sync barrier's over the matching committee schedule, accuracy finite.
    IID control (n 256): the async global's hash equal to the sync engine's,
@@ -325,6 +325,25 @@ Phases, each on its own printed lines:
    bytes gathered and summed equal to ``em_tp_bytes``' count, rows 1-4
    launched as often as in the one process. Per rank the backend, W,
    device, s/step or s/round, the bytes and peak memory are printed.
+13e. sharded (``phase_sharded``): sharded checkpoints and both population
+   engines over ranks, in the rank layout of 13c (``--sharded-worker DIR
+   A|B``). World A: phase 3's LM over ``nodes`` (a warm-up and the 2 rounds
+   of 13b's schedule, saving after each round, ``max_to_keep`` 2), the LM
+   on ``{"nodes": 1, "model": W}`` (13d's sequences a node, 2 rounds,
+   saving after each, its gathered state hashed), ``PopulationEngine`` at
+   100,000 nodes (cohort 0.01, 2 rounds, a save after each) and
+   ``AsyncPopulationEngine`` (2 windows in chunks of 1, a save after each
+   chunk). World B resumes every arm from A's first save. This process runs
+   the one-process references and restores A's W-rank steps in one process.
+   Checks: every hash equal to world A's and the one process's (the model
+   arm: A's gathered state at step 1 equal to its one-process restore, B's
+   after round 2 equal to A's step 2), rows 1-4 launched exactly as the
+   members each rank trained imply (the model arm: as one process), the
+   shards' tensor bytes plus the replicated file's equal to the one-process
+   step's, and no ``all_gather`` or ``all_gather_dim`` byte in any
+   ``save_to`` / ``load_from``. Per rank the save's host-copy, write and
+   commit-wait ms, the load ms, s/round or s/window, members per rank and
+   peak memory are printed.
 14. longcontext: rows 1-4 at the example's own shapes at its defaults
    (bf16, head size 16: the forward and backward pair on the narrow
    kernels; a sequence of 256): training at
@@ -3603,14 +3622,16 @@ def phase_recovery(card: str) -> None:
 # The population phase (phase 12e): bench.py --population's engine and
 # recovery arms (POP_BENCH_NODES / _COHORT, seed 42; POP_BENCH_ROUNDS' 10
 # rounds cut to 4, to keep the whole smoke within its time limit).
-POP_NODES, POP_COHORT, POP_ROUNDS, POP_SEED = 100_000, 0.01, 4, 42
+# POP_ROUNDS: bench.py --population's 10 rounds, cut to 2 for the whole
+# smoke's time limit (phase_sharded runs the same engine over ranks).
+POP_NODES, POP_COHORT, POP_ROUNDS, POP_SEED = 100_000, 0.01, 2, 42
 POP_REC_NODES, POP_REC_ROUNDS, POP_REC_KILL = 256, 6, 3
 
 
 def phase_population(card: str) -> None:
     """Phase 12e: the sync population engine on the card. Engine arm:
     ``PopulationEngine(100_000, cohort_fraction=0.01, speed_tiers=(1, 1, 1,
-    2, 5))`` at the bench's seed with the ledger attached, 4 rounds: the
+    2, 5))`` at the bench's seed with the ledger attached, 2 rounds: the
     mean cohort fill times n equals K (1,000) within 1e-6, every snapshot
     peer but the observer's own row carries ``cohort_fill``, the final accuracy is finite; s/round, the
     host time of the schedules, ``fleet_health`` and the snapshot, peak
@@ -3715,9 +3736,9 @@ def phase_population(card: str) -> None:
 
 # The async population phase (phase 12f): bench.py --asyncpop's arms
 # (ASYNCPOP_BENCH_NODES / _COHORT, seed 42, ASYNCPOP_BENCH_WINDOWS' 12
-# windows cut to 8 for the whole smoke's time limit; the IID control, the
+# windows cut to 6 for the whole smoke's time limit; the IID control, the
 # flash crowd and one ceiling probe) and scripts/soak_check.py's drill.
-ASYNC_WINDOWS, ASYNC_EVAL_EVERY = 8, 4
+ASYNC_WINDOWS, ASYNC_EVAL_EVERY = 4, 2
 ASYNC_TIERS = (1.0, 1.0, 1.0, 2.0, 5.0)
 ASYNC_CTL_NODES, ASYNC_CTL_WINDOWS = 256, 5
 ASYNC_FC_NODES, ASYNC_FC_PERIOD = 4096, 8
@@ -4172,6 +4193,9 @@ MULTIRANK_SCHEDULE = ((5, 0, 6, 2), (1, 3, 0, 2))
 MULTIRANK_ROUNDS = len(MULTIRANK_SCHEDULE)
 MULTIRANK_DEADLINE_S = 420.0
 MULTIRANK_FLAG = "--rank-worker"
+#: ``phase_multirank``'s one-process run of slice 1's LM, kept when it ran in
+#: this process: ``phase_sharded``'s nodes arm is the same run (its reference).
+ONE_PROCESS_LM: dict = {}
 
 
 def multirank_sim(mesh=None):
@@ -4249,6 +4273,7 @@ def phase_multirank(card: str) -> dict:
 
     print(f"[multirank] {card}")
     ref = multirank_run(multirank_sim())
+    ONE_PROCESS_LM.update(ref)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[multirank] one process: {ref['s_per_round']:.4f} s/round, test loss {ref['test_loss']}, hash "
@@ -4838,6 +4863,388 @@ def phase_expertmodel(card: str) -> dict:
             f"model_{label}": {name: [g["model"]["launches"][name] for g in got] for name in KERNEL_ROWS}}
 
 
+# Sharded checkpoints over ranks (docstring phase 13e): two worlds of W rank
+# processes of this script (``--sharded-worker DIR A|B``), the rank layout of
+# phase_seqstage's (one card: two gloo ranks sharing it; two or more: min(cards,
+# 4) NCCL ranks). World A runs every arm and saves after every round or
+# chunk; world B resumes every arm from A's first save. The one-process
+# references run in this process.
+SHARDED_FLAG = "--sharded-worker"
+SHARDED_DEADLINE_S = 420.0
+SHARDED_POP_ROUNDS = 2
+# The async arm's depth: 2 windows in chunks of 1 (a save, then a resume
+# from it), to keep the phase under 240 s and the whole smoke under 1100 s.
+SHARDED_WINDOWS, SHARDED_WINDOW_CHUNK = 2, 1
+
+
+def sharded_sim(mesh=None, seqs: int = SEQS):
+    """Phase 3's flash LM population (its data and seeds, ``seqs`` sequences a
+    node) on ``mesh`` (a ``nodes`` or ``{"nodes": 1, "model": W}`` rank
+    mesh, or None: this one process)."""
+    from p2pfl_tpu_torch.models.transformer import transformer_lm_model
+    from p2pfl_tpu_torch.parallel.simulation import MeshSimulation
+
+    model = transformer_lm_model(seed=0, vocab_size=VOCAB, num_layers=LAYERS, num_heads=HEADS, embed_dim=EMBED,
+                                 attention_kind="flash", device="cuda" if mesh is None else mesh.device)
+    train, xt = lm_data(5, seqs)
+    return MeshSimulation(model, train, test_data=(xt, None), train_set_size=COMMITTEE, batch_size=BATCH, lr=LR,
+                          seed=1, task="lm", mesh=mesh, device="cuda")
+
+
+def state_hash(state: dict) -> str:
+    """sha256 over a state tree's leaves (their paths and bytes, in order)."""
+    import hashlib
+
+    import torch
+    from p2pfl_tpu_torch.management.checkpoint import _flatten
+
+    flat: dict = {}
+    _flatten(state, "", flat)
+    h = hashlib.sha256()
+    for k in sorted(flat):
+        h.update(k.encode())
+        h.update(flat[k].contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def state_bytes(state: dict) -> int:
+    """The tensor bytes of a state tree (what a one-process step stores)."""
+    from p2pfl_tpu_torch.management.checkpoint import _flatten
+
+    flat: dict = {}
+    _flatten(state, "", flat)
+    return sum(t.numel() * t.element_size() for t in flat.values())
+
+
+def counted(fn, stats: list):
+    """``fn`` that appends the collective bytes each of its calls moved
+    (``all_gather_bytes``, ``gather_dim_bytes``) to ``stats``."""
+    from p2pfl_tpu_torch.parallel import collectives
+
+    def call(*args, **kwargs):
+        before = dict(collectives.STATS)
+        out = fn(*args, **kwargs)
+        stats.append({k: collectives.STATS[k] - before[k] for k in ("all_gather_bytes", "gather_dim_bytes")})
+        return out
+
+    return call
+
+
+def sharded_arm_start() -> None:
+    import torch
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.parallel import collectives
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    collectives.reset_stats()
+
+
+def sharded_nodes(mesh, root: str, mode: str) -> dict:
+    """The LM over the ``nodes`` axis: world A a warm-up and the 2 rounds of
+    MULTIRANK_SCHEDULE, saving after each; world B step 1 and round 2."""
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.management.checkpoint import FLCheckpointer
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.telemetry.ledger import canonical_params_hash
+
+    ck = FLCheckpointer(os.path.join(root, "lm_nodes"), max_to_keep=2)
+    sim = sharded_sim(mesh)
+    saves, loads = [], []
+    sim.save_to = counted(sim.save_to, saves)
+    sched = list(MULTIRANK_SCHEDULE) if mode == "A" else list(MULTIRANK_SCHEDULE[1:])
+    sharded_arm_start()
+    if mode == "B":
+        counted(sim.load_from, loads)(ck, step=1)
+    res = sim.run(rounds=len(sched), epochs=1, warmup=True, committee_schedule=np.asarray(sched),
+                  checkpointer=ck if mode == "A" else None)
+    ck.wait()
+    lo, hi = sim.slab
+    rows = [sched[0], *sched]  # the warm-up round trains the first row's members too
+    return {"s_per_round": res.seconds_per_round, "test_loss": res.test_loss,
+            "hash": canonical_params_hash(sim.final_model(0).params),
+            "launches": {n: _kernels.LAUNCHES[n] for n in KERNEL_ROWS}, "peak": torch.cuda.max_memory_allocated(),
+            "trained": sum(lo <= node < hi for row in rows for node in row), "evals": len(rows),
+            "rank_members": sim.rank_members, "last_save": ck.last_save if mode == "A" else None,
+            "last_load": ck.last_load if mode == "B" else None, "stats": saves + loads}
+
+
+def sharded_model(mesh, root: str, mode: str, seqs: int) -> dict:
+    """The LM on ``{"nodes": 1, "model": W}`` at ``seqs`` sequences a node:
+    world A rounds 1 and 2, saving after each (the gathered state's hash
+    after each); world B step 1 and round 2."""
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.management.checkpoint import FLCheckpointer
+    from p2pfl_tpu_torch.ops import _kernels
+
+    ck = FLCheckpointer(os.path.join(root, "lm_model"), max_to_keep=2)
+    sim = sharded_sim(mesh, seqs)
+    saves, loads, hashes, seconds = [], [], [], 0.0
+    sim.save_to = counted(sim.save_to, saves)
+    sharded_arm_start()
+    rows = MULTIRANK_SCHEDULE if mode == "A" else MULTIRANK_SCHEDULE[1:]
+    if mode == "B":
+        counted(sim.load_from, loads)(ck, step=1)
+    for row in rows:  # a round a call: world A hashes its gathered state after each save
+        res = sim.run(rounds=1, epochs=1, warmup=False, committee_schedule=np.asarray([row]),
+                      checkpointer=ck if mode == "A" else None)
+        seconds += res.seconds_total
+        hashes.append(state_hash(sim.state_dict()))  # beside the save's write, on its thread
+    ck.wait()
+    return {"s_per_round": seconds / len(rows), "hashes": hashes, "rounds": len(rows),
+            "launches": {n: _kernels.LAUNCHES[n] for n in KERNEL_ROWS}, "peak": torch.cuda.max_memory_allocated(),
+            "last_save": ck.last_save if mode == "A" else None, "last_load": ck.last_load if mode == "B" else None,
+            "stats": saves + loads}
+
+
+def sharded_engines(mesh, root: str, mode: str) -> dict:
+    """Both engines at 100,000 nodes over ``mesh`` (None: this process):
+    ``PopulationEngine`` for SHARDED_POP_ROUNDS rounds a round a chunk,
+    ``AsyncPopulationEngine`` for SHARDED_WINDOWS windows in chunks of
+    SHARDED_WINDOW_CHUNK. World A saves after each chunk; world B resumes
+    from the first save; the one process runs them through."""
+    import torch
+    from p2pfl_tpu_torch.management.checkpoint import FLCheckpointer
+    from p2pfl_tpu_torch.population import AsyncPopulationEngine, PopulationEngine
+    from p2pfl_tpu_torch.telemetry.ledger import canonical_params_hash
+
+    out: dict = {}
+    ck = FLCheckpointer(os.path.join(root, "pop_sync"), max_to_keep=2) if mesh is not None else None
+    saves, loads = [], []
+    sharded_arm_start()
+    eng = PopulationEngine(POP_NODES, cohort_fraction=POP_COHORT, seed=POP_SEED, mesh=mesh, device="cuda")
+    if mode == "B":
+        counted(eng.load_from, loads)(ck, step=1)
+    members, seconds = [], 0.0
+    for _ in range(SHARDED_POP_ROUNDS if mode != "B" else SHARDED_POP_ROUNDS - 1):
+        res = eng.run(1)
+        seconds += res.seconds_total
+        members += eng.sim.rank_members
+        if mode == "A":
+            counted(eng.save_to, saves)(ck)
+            ck.wait()
+    out["sync"] = {"hash": canonical_params_hash(eng.gather_params(0)), "s_per_round": seconds / max(1, len(members)),
+                   "rank_members": members, "peak": torch.cuda.max_memory_allocated(),
+                   "last_save": ck.last_save if mode == "A" else None,
+                   "last_load": ck.last_load if mode == "B" else None, "stats": saves + loads}
+    if mesh is None:  # the one-process step's tensor bytes, which the shards add up to
+        out["sync"]["step_bytes"] = state_bytes(eng.sim.shard_state())
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    ck = FLCheckpointer(os.path.join(root, "pop_async"), max_to_keep=2) if mesh is not None else None
+    saves, loads = [], []
+    sharded_arm_start()
+    eng = AsyncPopulationEngine(POP_NODES, cohort_fraction=POP_COHORT, seed=POP_SEED, speed_tiers=ASYNC_TIERS,
+                                mesh=mesh, device="cuda")
+    if mode == "B":
+        counted(eng.load_from, loads)(ck, step=SHARDED_WINDOW_CHUNK)
+    members, seconds, windows = [], 0.0, 0
+    for _ in range(SHARDED_WINDOWS // SHARDED_WINDOW_CHUNK - (mode == "B")):
+        res = eng.run(SHARDED_WINDOW_CHUNK, eval_every=SHARDED_WINDOW_CHUNK, windows_per_call=SHARDED_WINDOW_CHUNK)
+        seconds += res.seconds_total
+        windows += res.windows
+        members += eng.rank_members
+        if mode == "A":
+            counted(eng.save_to, saves)(ck)
+            ck.wait()
+    out["async"] = {"hash": canonical_params_hash(eng.global_params()), "s_per_window": seconds / max(1, windows),
+                    "rank_members": members, "peak": torch.cuda.max_memory_allocated(),
+                    "last_save": ck.last_save if mode == "A" else None,
+                    "last_load": ck.last_load if mode == "B" else None, "stats": saves + loads}
+    if mesh is None:
+        out["async"]["step_bytes"] = state_bytes(eng.shard_state())
+    eng.close()
+    return out
+
+
+def sharded_rank(out_dir: str, mode: str) -> int:
+    """One rank of ``phase_sharded``'s world ``mode`` (A or B), started by
+    ``launch`` with torchrun's variables: every arm on this rank, its
+    result written to ``<dir>/<mode>_rank<r>.json``."""
+    import torch
+    from p2pfl_tpu_torch.parallel.mesh import Mesh, initialize_multihost, make_mesh, shutdown_multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    joined = initialize_multihost(device="cuda")
+    rank, world = joined["rank"], joined["world"]
+    mesh = make_mesh()
+    seqs = EM_GLOO_SEQS if joined["backend"] == "gloo" else SEQS
+    out = {"rank": rank, "world": world, "backend": joined["backend"], "seqs": seqs,
+           "device": f"{mesh.device} {torch.cuda.get_device_name(mesh.device)}"}
+    out["nodes"] = sharded_nodes(mesh, out_dir, mode)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["model"] = sharded_model(Mesh({"nodes": 1, "model": world}, device=mesh.device, group=mesh.group), out_dir,
+                                 mode, seqs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["engines"] = sharded_engines(mesh, out_dir, mode)
+    with open(os.path.join(out_dir, f"{mode}_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    shutdown_multihost()
+    print(f"[sharded] world {mode} rank {rank} of {world} done", flush=True)
+    return 0
+
+
+def sharded_world(mode: str, tmp: str, world: int, label: str) -> list:
+    """Launch world ``mode`` and read its ranks' results (each rank must exit 0)."""
+    from p2pfl_tpu_torch.parallel.launch import launch
+
+    t0 = time.monotonic()
+    runs = launch([sys.executable, os.path.abspath(__file__), SHARDED_FLAG, tmp, mode], world,
+                  timeout_s=SHARDED_DEADLINE_S, cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.monotonic() - t0
+    for rank, (rc, out) in enumerate(runs):
+        if rc != 0:
+            print(out[-6000:])
+        check(rc == 0, f"sharded {label} world {mode} rank {rank} exited {rc}")
+    got = []
+    for rank in range(world):
+        with open(os.path.join(tmp, f"{mode}_rank{rank}.json")) as f:
+            got.append(json.load(f))
+    print(f"[sharded] {label} world {mode}: {wall:.1f} s for the world (start to exit)")
+    return got
+
+
+def phase_sharded(card: str) -> dict:
+    """Sharded checkpoints and both engines over ranks on the card (docstring
+    phase 13e). Returns each world's launches per rank under the kernel
+    rows' names."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.management.checkpoint import FLCheckpointer
+
+    backend, world = seqstage_arm(torch.cuda.device_count())
+    label = f"{backend}{world}"
+    seqs = EM_GLOO_SEQS if backend == "gloo" else SEQS
+    per_member = KERNEL_ROWS["flash_fwd"][1] // COMMITTEE
+    print(f"[sharded] {card}: {label}; the LM over nodes (8 nodes, committee 4, {SEQS} x {SEQ_LEN} tokens a node) and "
+          f"over nodes 1 x model {world} ({seqs} sequences a node), PopulationEngine and AsyncPopulationEngine at "
+          f"{POP_NODES} nodes")
+    # The one-process references: the uninterrupted runs (the nodes arm's is
+    # phase_multirank's, when it ran in this process).
+    from p2pfl_tpu_torch.telemetry.ledger import canonical_params_hash
+
+    ref = ONE_PROCESS_LM or multirank_run(sharded_sim())
+    ref_hash = ref["hash"]
+    source = " (phase_multirank's run)" if ONE_PROCESS_LM else ""
+    print(f"[sharded] one process, nodes arm{source}: {ref['s_per_round']:.4f} s/round, hash {ref_hash[:23]}, peak "
+          f"{ref['peak_bytes']} B")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_eng = sharded_engines(None, "", "one")
+    print(f"[sharded] one process, engines: sync {ref_eng['sync']['s_per_round']:.4f} s/round, async "
+          f"{ref_eng['async']['s_per_window']:.4f} s/window, hashes {ref_eng['sync']['hash'][:23]} / "
+          f"{ref_eng['async']['hash'][:23]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as tmp:
+        free = shutil.disk_usage(tmp).free
+        print(f"[sharded] {free} B free under build/")
+        got_a = sharded_world("A", tmp, world, label)
+        # This process restores world A's W-rank steps: the nodes arm's step 1
+        # (then round 2), the model arm's step 1 (its gathered state).
+        sim = sharded_sim()
+        one_step_bytes = state_bytes(sim.shard_state())
+        ck = FLCheckpointer(os.path.join(tmp, "lm_nodes"), max_to_keep=2)
+        sim.load_from(ck, step=1)
+        one_load = dict(ck.last_load)
+        sim.run(rounds=1, epochs=1, warmup=False, committee_schedule=np.asarray(MULTIRANK_SCHEDULE[1:]))
+        one_resumed_hash = canonical_params_hash(sim.final_model(0).params)
+        del sim
+        gc.collect()
+        torch.cuda.empty_cache()
+        sim = sharded_sim(None, seqs)
+        sim.load_from(FLCheckpointer(os.path.join(tmp, "lm_model"), max_to_keep=2), step=1)
+        one_model_hash = state_hash(sim.state_dict())
+        one_model_bytes = state_bytes(sim.shard_state())
+        del sim
+        gc.collect()
+        torch.cuda.empty_cache()
+        got_b = sharded_world("B", tmp, world, label)
+    print(f"[sharded] one process restoring world A's {world}-rank nodes step 1: load {one_load['load_ms']:.1f} ms "
+          f"({one_load['tensor_bytes']} B from {len(one_load['files'])} files), round 2 -> hash "
+          f"{one_resumed_hash[:23]}")
+    check(one_resumed_hash == ref_hash, "sharded: the one process resumed from the W-rank step differs")
+    want_model = got_a[0]["model"]["hashes"]
+    check(one_model_hash == want_model[0], "sharded: the model arm's step 1 restored in one process differs from "
+          "world A's gathered state")
+    for g in got_a + got_b:
+        check(g["backend"] == backend and g["world"] == world, f"sharded: rank {g['rank']} joined {g['backend']}")
+    # Each arm's step: every rank's shard and rank 0's replicated leaves hold
+    # the one-process step's tensor bytes, no leaf twice and none left out.
+    for arm, save_of, one_bytes in (
+            ("nodes", lambda g: g["nodes"]["last_save"], one_step_bytes),
+            ("model", lambda g: g["model"]["last_save"], one_model_bytes),
+            ("sync engine", lambda g: g["engines"]["sync"]["last_save"], ref_eng["sync"]["step_bytes"]),
+            ("async engine", lambda g: g["engines"]["async"]["last_save"], ref_eng["async"]["step_bytes"])):
+        saves = [save_of(g) for g in got_a]
+        shards = [sv["tensor_bytes"] for sv in saves]
+        repl = saves[0]["replicated_tensor_bytes"]
+        print(f"[sharded] {arm} arm step: shards {shards} B + replicated {repl} B = {sum(shards) + repl} B (one "
+              f"process {one_bytes} B); files {[sv['file_bytes'] for sv in saves]} B [{card}]")
+        check(sum(shards) + repl == one_bytes, f"sharded: the {arm} arm's shards do not add up to the one-process step")
+    for mode, got in (("A", got_a), ("B", got_b)):
+        for g in got:
+            r, nodes, model, eng = g["rank"], g["nodes"], g["model"], g["engines"]
+            save = nodes["last_save"] or {}
+            load = nodes["last_load"] or {}
+            print(f"[sharded] {label} world {mode} rank {r} nodes arm: {nodes['s_per_round']:.4f} s/round, members "
+                  f"per rank per round {nodes['rank_members']}, save host-copy {save.get('host_copy_ms', 0):.1f} ms "
+                  f"write {save.get('write_ms', 0):.1f} ms commit-wait {save.get('commit_wait_ms', 0):.1f} ms "
+                  f"({save.get('file_bytes', 0)} B), load {load.get('load_ms', 0):.1f} ms ({load.get('files')}), "
+                  f"peak {nodes['peak']} B, hash {nodes['hash'][:23]}, launches {json.dumps(nodes['launches'])}, "
+                  f"device {g['device']} [{card}]")
+            check(nodes["hash"] == ref_hash, f"sharded {mode} rank {r}: the nodes arm's hash differs from one process's")
+            for name in KERNEL_ROWS:  # a rank that holds none of a round's members launches no training kernel
+                want = nodes["evals"] * KERNEL_ROWS[name][1] if name == "flash_fwd_no_lse" else (
+                    nodes["trained"] * per_member)
+                check(nodes["launches"][name] == want,
+                      f"sharded {mode} rank {r}: {name} launched {nodes['launches'][name]} times, expected {want}")
+            msave = model["last_save"] or {}
+            mload = model["last_load"] or {}
+            print(f"[sharded] {label} world {mode} rank {r} model arm: {model['s_per_round']:.4f} s/round, save "
+                  f"host-copy {msave.get('host_copy_ms', 0):.1f} ms write {msave.get('write_ms', 0):.1f} ms "
+                  f"commit-wait {msave.get('commit_wait_ms', 0):.1f} ms ({msave.get('file_bytes', 0)} B), load "
+                  f"{mload.get('load_ms', 0):.1f} ms, peak {model['peak']} B, launches {json.dumps(model['launches'])}")
+            check(model["hashes"][-1] == want_model[-1], f"sharded {mode} rank {r}: the model arm's gathered state "
+                  "differs from world A's step 2")
+            steps = seqs // BATCH
+            for name in KERNEL_ROWS:
+                want = model["rounds"] * (LAYERS if name == "flash_fwd_no_lse" else COMMITTEE * steps * LAYERS)
+                check(model["launches"][name] == want,
+                      f"sharded {mode} rank {r}: model {name} launched {model['launches'][name]}, expected {want}")
+            for arm, unit in (("sync", "s_per_round"), ("async", "s_per_window")):
+                e = eng[arm]
+                esave, eload = e["last_save"] or {}, e["last_load"] or {}
+                print(f"[sharded] {label} world {mode} rank {r} {arm} engine: {e[unit]:.4f} {unit.replace('_per_', '/')}, "
+                      f"members per rank {e['rank_members']}, save write {esave.get('write_ms', 0):.1f} ms "
+                      f"commit-wait {esave.get('commit_wait_ms', 0):.1f} ms ({esave.get('tensor_bytes', 0)} B), load "
+                      f"{eload.get('load_ms', 0):.1f} ms, peak {e['peak']} B, hash {e['hash'][:23]}")
+                check(e["hash"] == ref_eng[arm]["hash"], f"sharded {mode} rank {r}: the {arm} engine's hash differs")
+            for what, stats in (("nodes", nodes["stats"]), ("model", model["stats"]),
+                                ("sync", eng["sync"]["stats"]), ("async", eng["async"]["stats"])):
+                check(bool(stats) and all(s["all_gather_bytes"] == 0 and s["gather_dim_bytes"] == 0 for s in stats),
+                      f"sharded {mode} rank {r}: {what} save_to / load_from gathered {stats}")
+        for arm in ("nodes", "model"):
+            for name in KERNEL_ROWS:
+                check(sum(g[arm]["launches"][name] for g in got) > 0, f"sharded {mode}: the {arm} arm never "
+                      f"launched {name}")
+    return {f"sharded_{arm}_{mode}_{label}": {name: [g[arm]["launches"][name] for g in got] for name in KERNEL_ROWS}
+            for mode, got in (("A", got_a), ("B", got_b)) for arm in ("nodes", "model")}
+
+
 def phase_longcontext() -> dict:
     """``python -m p2pfl_tpu_torch.examples.longcontext --attention flash``
     at its defaults, in this process so that its kernel launches count;
@@ -5423,6 +5830,8 @@ def main() -> int:
         return seqstage_rank(sys.argv[2])
     if sys.argv[1:2] == [EXPERTMODEL_FLAG]:  # one rank of phase_expertmodel
         return expertmodel_rank(sys.argv[2])
+    if sys.argv[1:2] == [SHARDED_FLAG]:  # one rank of phase_sharded
+        return sharded_rank(sys.argv[2], sys.argv[3])
     from p2pfl_tpu_torch.ops import _kernels
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5489,6 +5898,8 @@ def main() -> int:
         gc.collect()
         multirank_launches.update(phase_expertmodel(card))
         gc.collect()
+        multirank_launches.update(phase_sharded(card))
+        gc.collect()
         rows.update(phase_kernels_longcontext())
         launches.update(phase_longcontext())
         phase_entry()
@@ -5510,8 +5921,9 @@ def main() -> int:
     kernels = {**KERNEL_ROWS, **RING_KERNEL_ROWS}
     # Rows 1-5 at head size 64: launches on the slice (the carry: the ring);
     # rows 1-4 also carry the MoE LM's launches at the same shapes, and the
-    # launches of each rank of the nodes, expert and model axes' arms; the
-    # carry those of each rank of the ring over ranks.
+    # launches of each rank of the nodes, expert and model axes' arms and of
+    # the sharded checkpoints' worlds (sharded_<arm>_<world>_<backend><W>);
+    # the carry those of each rank of the ring over ranks.
     table = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], **({"launches_moe": moe_launches[name]} if name in moe_launches else {}),

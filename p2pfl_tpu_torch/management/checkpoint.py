@@ -7,7 +7,8 @@ Snapshots of
   (federation mode: one node's model + contributor metadata per round),
 * an entire :class:`~p2pfl_tpu_torch.parallel.simulation.MeshSimulation`
   population (stacked params + optimizer state + round counter), restored
-  onto the template's devices so a resumed run stays on the card, and
+  onto the template's devices so a resumed run stays on the card, in one
+  process or a slab a rank over the ranks of a rank mesh, and
 * a wire node's recovery closure (:class:`NodeJournal`).
 
 On-disk layout, one directory per step under the checkpoint root::
@@ -16,13 +17,35 @@ On-disk layout, one directory per step under the checkpoint root::
     <root>/<step>/meta.json             the JSON meta record
     <root>/<step>/_CHECKPOINT_METADATA  the commit marker, written last
 
+A step saved over the W ranks of a rank mesh (``save(..., shards=)``, every
+rank calling it with the same step) holds, in place of ``state.pt``, each
+rank's own part and the replicated leaves once::
+
+    <root>/<step>/shard-<r>-of-<W>.pt   rank r's part of every split leaf
+    <root>/<step>/replicated.pt         the leaves every rank holds whole (rank 0's)
+
+and ``meta.json``'s ``"sharded"`` entry names the world size, the rank axis,
+the save's token, the files with their bytes, and each split leaf's
+dimension and whole size (rank r holds the r-th of W equal parts of it).
+Either layout restores into either kind of run: a restoring rank reads only
+the parts that overlap its own (memory-mapped, so its host memory follows
+its part), and :func:`~p2pfl_tpu_torch.population.sharding.recut` puts
+them together.
+
 The JAX package writes orbax checkpoints; neither package reads the other's.
 
 Crash safety: a step is staged in a ``.tmp-*`` directory inside the root
 (so the rename stays on one filesystem), its files are fsynced, the commit
 marker is written last, the directory is renamed into place and the root
 fsynced. A step directory without the marker is torn and invisible; stale
-temp directories are swept when a checkpointer opens its root.
+temp directories are swept when a checkpointer opens its root, by rank 0
+alone in a joined process group and never a stage of a save in flight in
+this process (a save marks its stage live before it returns). Over ranks every rank writes its shard into one stage named by
+a token rank 0 draws, then a ``done-<r>`` file; rank 0 waits for every
+rank's (a file rendezvous, under ``_COMMIT_TIMEOUT_S``), writes the meta and
+the marker and makes the one rename; the other ranks wait for the rename.
+The rendezvous uses files, not the rounds' process group: the writer thread
+runs while the rounds run their own collectives.
 
 Updated-in-place state: :meth:`FLCheckpointer.save` takes its host copy of
 every leaf before it returns (the population's round updates its tensors in
@@ -39,12 +62,14 @@ import logging
 import os
 import shutil
 import threading
+import time
 import uuid
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from p2pfl_tpu_torch.parallel.mesh import PartitionSpec
 from p2pfl_tpu_torch.telemetry import REGISTRY
 
 log = logging.getLogger("p2pfl_tpu_torch")
@@ -65,6 +90,21 @@ _COMMIT_MARKER = "_CHECKPOINT_METADATA"
 _STATE_FILE = "state.pt"
 _META_FILE = "meta.json"
 _TMP_PREFIX = ".tmp-"
+_REPLICATED_FILE = "replicated.pt"
+#: The meta record's entry that describes a sharded step's layout.
+SHARDED_KEY = "sharded"
+#: Over ranks, how long rank 0 waits for every rank's shard, and the other
+#: ranks for rank 0's commit, before the save fails (seconds).
+_COMMIT_TIMEOUT_S = 600.0
+
+#: Stages of the saves in flight in this process: the sweep at open leaves them.
+_LIVE_STAGES: set = set()
+_LIVE_LOCK = threading.Lock()
+
+
+def _set_live(stage: str, live: bool) -> None:
+    with _LIVE_LOCK:
+        (_LIVE_STAGES.add if live else _LIVE_STAGES.discard)(stage)
 
 
 def _fsync_dir(path: str) -> None:
@@ -87,6 +127,35 @@ def _write_synced(path: str, data: bytes) -> None:
         f.write(data)
         f.flush()
         os.fsync(f.fileno())
+
+
+def _save_synced(path: str, flat: Dict[str, torch.Tensor]) -> int:
+    """``torch.save`` ``flat`` to ``path``, fsynced; returns the file's bytes."""
+    with open(path, "wb") as f:
+        torch.save(flat, f)
+        f.flush()
+        os.fsync(f.fileno())
+    return os.path.getsize(path)
+
+
+def _tensor_bytes(flat: Dict[str, torch.Tensor]) -> int:
+    return sum(t.numel() * t.element_size() for t in flat.values())
+
+
+def _shard_file(rank: int, world: int) -> str:
+    return f"shard-{rank:05d}-of-{world:05d}.pt"
+
+
+def _joined_rank() -> int:
+    """This process' rank in a joined process group (0 when none is joined)."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def _dtype_of(leaf: Any) -> Any:
+    """A template leaf's dtype as torch names it."""
+    return leaf.dtype if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.zeros(0, leaf.dtype)).dtype
 
 
 # --- pytree <-> flat {path: CPU tensor} ---------------------------------------------
@@ -118,6 +187,31 @@ def _flatten(tree: Pytree, prefix: str, out: Dict[str, torch.Tensor]) -> None:
         raise TypeError(f"checkpoint leaf {prefix!r} has unsupported type {type(tree).__name__}")
 
 
+def _split_dims(shards: Any) -> Dict[str, int]:
+    """``{path: dimension}`` of the leaves split over the ranks in a
+    :class:`~p2pfl_tpu_torch.population.sharding.StateShards` (the paths
+    :func:`_flatten` gives the state tree); the other leaves are whole."""
+    out: Dict[str, int] = {}
+
+    def walk(tree: Any, prefix: str) -> None:
+        if isinstance(tree, PartitionSpec):
+            d = shards.split_dim(tree)
+            if d is not None:
+                out[prefix] = d
+        elif isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{prefix}/{k}" if prefix else str(k))
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                walk(v, f"{prefix}/{i}" if prefix else str(i))
+        elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+            for f in dataclasses.fields(tree):
+                walk(getattr(tree, f.name), f"{prefix}/{f.name}" if prefix else f.name)
+
+    walk(shards.specs, "")
+    return out
+
+
 def _restore_leaf(t: Any, r: torch.Tensor, path: str) -> Any:
     """Place the loaded ``r`` as template leaf ``t`` is placed: a tensor
     onto ``t``'s device, a numpy leaf as numpy. A shape or dtype that
@@ -134,23 +228,25 @@ def _restore_leaf(t: Any, r: torch.Tensor, path: str) -> Any:
     raise TypeError(f"checkpoint template leaf {path!r} has unsupported type {type(t).__name__}")
 
 
-def _unflatten(template: Pytree, flat: Dict[str, torch.Tensor], prefix: str, used: set) -> Pytree:
+def _unflatten(template: Pytree, load: Callable[[str, Any], torch.Tensor], prefix: str, used: set) -> Pytree:
+    """``template``'s structure with every leaf ``load(path, leaf)``, placed
+    as the template leaf is (:func:`_restore_leaf`)."""
     if template is None:
         return None
     if isinstance(template, dict):
-        return {k: _unflatten(v, flat, f"{prefix}/{k}" if prefix else str(k), used) for k, v in template.items()}
+        return {k: _unflatten(v, load, f"{prefix}/{k}" if prefix else str(k), used) for k, v in template.items()}
     if isinstance(template, (list, tuple)):
-        out = [_unflatten(v, flat, f"{prefix}/{i}" if prefix else str(i), used) for i, v in enumerate(template)]
+        out = [_unflatten(v, load, f"{prefix}/{i}" if prefix else str(i), used) for i, v in enumerate(template)]
         return out if isinstance(template, list) else type(template)(out)
     if dataclasses.is_dataclass(template) and not isinstance(template, type):
         return type(template)(**{
-            f.name: _unflatten(getattr(template, f.name), flat, f"{prefix}/{f.name}" if prefix else f.name, used)
+            f.name: _unflatten(getattr(template, f.name), load, f"{prefix}/{f.name}" if prefix else f.name, used)
             for f in dataclasses.fields(template)
         })
-    if prefix not in flat:
-        raise KeyError(f"checkpoint has no leaf {prefix!r}")
+    if not isinstance(template, (torch.Tensor, np.ndarray)):
+        raise TypeError(f"checkpoint template leaf {prefix!r} has unsupported type {type(template).__name__}")
     used.add(prefix)
-    return _restore_leaf(template, flat[prefix], prefix)
+    return _restore_leaf(template, load(prefix, template), prefix)
 
 
 class FLCheckpointer:
@@ -158,7 +254,9 @@ class FLCheckpointer:
 
     Args:
         directory: checkpoint root (created if missing; made absolute).
-        max_to_keep: retained snapshots (oldest pruned).
+            Over ranks every rank names the same root on a shared
+            filesystem.
+        max_to_keep: retained snapshots (oldest pruned; over ranks by rank 0).
         save_interval: only save when ``round % save_interval == 0``.
     """
 
@@ -167,15 +265,33 @@ class FLCheckpointer:
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max(1, int(max_to_keep))
         self.save_interval = max(1, int(save_interval))
-        self._lock = threading.Lock()  # guards the writer handle and its error
+        self.commit_timeout_s = _COMMIT_TIMEOUT_S
+        self._lock = threading.Lock()  # guards the writer handle, its error and the timings
         self._serial = threading.Lock()  # one save at a time: drain, copy, start
         self._writer: Optional[threading.Thread] = None
         self._writer_error: Optional[Exception] = None
+        #: The last save's timings and sizes on this rank, once it landed:
+        #: ``host_copy_ms``, ``write_ms``, ``commit_wait_ms`` (over ranks:
+        #: rank 0's wait for every shard and its commit, the others' wait
+        #: for the commit), ``file_bytes`` and ``tensor_bytes`` (this rank's
+        #: shard, or the one-process state file) and, on rank 0 of a sharded
+        #: step, ``replicated_file_bytes`` / ``replicated_tensor_bytes``.
+        self.last_save: Dict[str, Any] = {}
+        #: The last restore's ``step``, ``load_ms``, ``files`` read and
+        #: ``tensor_bytes`` assembled on this rank.
+        self.last_load: Dict[str, Any] = {}
         # A crash mid-save leaves a temp-staged step: sweep stale ones at
-        # (re)open so a restarted process never accumulates them.
-        for name in os.listdir(self.directory):
-            if name.startswith(_TMP_PREFIX):
-                shutil.rmtree(os.path.join(self.directory, name), ignore_errors=True)
+        # (re)open so a restarted process never accumulates them. Over ranks
+        # only rank 0 sweeps (another rank opening late would delete a stage
+        # rank 0 is still writing), and never a stage of this process's
+        # saves in flight.
+        if _joined_rank() == 0:
+            with _LIVE_LOCK:
+                live = set(_LIVE_STAGES)
+            for name in os.listdir(self.directory):
+                path = os.path.join(self.directory, name)
+                if name.startswith(_TMP_PREFIX) and path not in live:
+                    shutil.rmtree(path, ignore_errors=True)
 
     # --- crash safety ----------------------------------------------------------------
 
@@ -189,10 +305,18 @@ class FLCheckpointer:
 
     # --- generic pytree + metadata ---------------------------------------------------
 
-    def save(self, step: int, state: Pytree, meta: Optional[Dict[str, Any]] = None) -> bool:
+    def save(self, step: int, state: Pytree, meta: Optional[Dict[str, Any]] = None, *, shards: Any = None) -> bool:
         """Save ``state`` (a tree of tensors / numpy arrays in dicts, lists
         and optimizer-state dataclasses) and the JSON-able ``meta`` at
         ``step``.
+
+        ``shards`` (a :class:`~p2pfl_tpu_torch.population.sharding.StateShards`
+        over a rank mesh of W > 1 ranks) makes it a sharded step and the
+        call a collective: every rank calls it with the same step, passing
+        its own part of the state; each writes only the leaves its shards
+        split, rank 0 also the whole ones, and rank 0 commits once every
+        rank's shard is on disk (the module docstring's layout). No
+        population row moves between the ranks.
 
         The host copy of every leaf is taken before this returns; the files
         are written on a writer thread (:meth:`wait` joins it). A save
@@ -203,11 +327,22 @@ class FLCheckpointer:
             return False
         with self._serial:
             self._drain()
-            meta_bytes = json.dumps(meta or {}).encode()  # meta that JSON cannot hold raises here
+            meta = dict(meta or {})
+            meta_bytes = json.dumps(meta).encode()  # meta that JSON cannot hold raises here
+            t0 = time.monotonic()
             flat: Dict[str, torch.Tensor] = {}
             _flatten(state, "", flat)
-            writer = threading.Thread(target=self._write_step, args=(int(step), flat, meta_bytes),
-                                      name=f"checkpoint-writer-{step}", daemon=True)
+            copy_ms = (time.monotonic() - t0) * 1e3
+            if shards is not None and shards.mesh.world > 1:
+                target, args = self._write_sharded_step, self._sharded_args(int(step), flat, meta, shards, copy_ms)
+            else:
+                target, args = self._write_step, (self._stage(step, uuid.uuid4().hex), int(step), flat, meta_bytes,
+                                                  copy_ms)
+            # Live before this returns: a checkpointer opened on the root
+            # right after must not sweep the stage, which another rank may
+            # already be writing into while this rank's writer has not run.
+            _set_live(args[0], True)
+            writer = threading.Thread(target=target, args=args, name=f"checkpoint-writer-{step}", daemon=True)
             with self._lock:
                 # Started before it is published: a drain on another thread
                 # must never join a thread that has not started.
@@ -215,31 +350,159 @@ class FLCheckpointer:
                 self._writer = writer
         return True
 
-    def _write_step(self, step: int, flat: Dict[str, torch.Tensor], meta_bytes: bytes) -> None:
+    def _stage(self, step: int, token: str) -> str:
+        return os.path.join(self.directory, f"{_TMP_PREFIX}{step}-{token}")
+
+    def _sharded_args(self, step: int, flat: Dict[str, torch.Tensor], meta: Dict[str, Any], shards: Any,
+                      copy_ms: float) -> tuple:
+        """The sharded writer's arguments: the stage named by rank 0's token
+        (broadcast here, on the calling thread, in the rounds' program
+        order), this rank's split leaves, rank 0's whole leaves and the
+        layout for the meta."""
+        from p2pfl_tpu_torch.parallel import collectives
+
+        mesh = shards.mesh
+        token = f"{collectives.broadcast_ints([uuid.uuid4().int >> 66], 0, mesh.group, mesh.device)[0]:016x}"
+        dims = _split_dims(shards)
+        local = {p: t for p, t in flat.items() if p in dims}
+        whole = {p: t for p, t in flat.items() if p not in dims} if mesh.rank == 0 else {}
+        meta[SHARDED_KEY] = {
+            "world": mesh.world, "axis": mesh.rank_axis, "token": token,
+            "files": [_shard_file(r, mesh.world) for r in range(mesh.world)], "replicated": _REPLICATED_FILE,
+            "split": {p: [d, int(t.shape[d]) * mesh.world] for p, t in local.items() for d in (dims[p],)},
+        }
+        return self._stage(step, token), step, token, mesh.rank, mesh.world, local, whole, meta, copy_ms
+
+    def _write_step(self, stage: str, step: int, flat: Dict[str, torch.Tensor], meta_bytes: bytes,
+                    copy_ms: float) -> None:
         """Stage, fsync, commit-mark, rename into place, fsync the root,
-        prune (runs on the writer thread)."""
-        stage = os.path.join(self.directory, f"{_TMP_PREFIX}{step}-{uuid.uuid4().hex}")
+        prune (runs on the writer thread; ``save`` marked ``stage`` live)."""
         try:
+            t0 = time.monotonic()
             os.makedirs(stage)
-            state_path = os.path.join(stage, _STATE_FILE)
-            with open(state_path, "wb") as f:
-                torch.save(flat, f)
-                f.flush()
-                os.fsync(f.fileno())
+            nbytes = _save_synced(os.path.join(stage, _STATE_FILE), flat)
             _write_synced(os.path.join(stage, _META_FILE), meta_bytes)
-            _write_synced(os.path.join(stage, _COMMIT_MARKER), b"{}")
-            _fsync_dir(stage)
-            final = self._step_dir(step)
-            if os.path.exists(final):
-                shutil.rmtree(final)
-            os.rename(stage, final)
-            _fsync_dir(self.directory)
-            for old in self._steps()[:-self.max_to_keep]:
-                shutil.rmtree(self._step_dir(old), ignore_errors=True)
+            write_ms = (time.monotonic() - t0) * 1e3
+            t1 = time.monotonic()
+            self._commit(stage, step)
+            self._record_save(step=step, host_copy_ms=copy_ms, write_ms=write_ms,
+                              commit_wait_ms=(time.monotonic() - t1) * 1e3, file_bytes=nbytes,
+                              tensor_bytes=_tensor_bytes(flat))
         except Exception as exc:  # noqa: BLE001 - handed to wait() / the next save
             shutil.rmtree(stage, ignore_errors=True)
             with self._lock:
                 self._writer_error = exc
+        finally:
+            _set_live(stage, False)
+
+    def _commit(self, stage: str, step: int) -> None:
+        """Write the marker into the complete ``stage``, rename it into place,
+        fsync the root and prune."""
+        _write_synced(os.path.join(stage, _COMMIT_MARKER), b"{}")
+        _fsync_dir(stage)
+        final = self._step_dir(step)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(stage, final)
+        _fsync_dir(self.directory)
+        for old in self._steps()[:-self.max_to_keep]:
+            shutil.rmtree(self._step_dir(old), ignore_errors=True)
+
+    def _record_save(self, **timing: Any) -> None:
+        with self._lock:
+            self.last_save = timing
+
+    def _write_sharded_step(self, stage: str, step: int, token: str, rank: int, world: int,
+                            local: Dict[str, torch.Tensor], whole: Dict[str, torch.Tensor], meta: Dict[str, Any],
+                            copy_ms: float) -> None:
+        """This rank's part of a sharded step (runs on the writer thread;
+        ``save`` marked ``stage`` live): its shard, rank 0's whole leaves,
+        its ``done-<r>`` file; then rank 0 waits for every rank's and
+        commits, and the others wait for the commit."""
+        try:
+            t0 = time.monotonic()
+            os.makedirs(stage, exist_ok=True)
+            timing: Dict[str, Any] = {
+                "step": step, "rank": rank, "world": world, "host_copy_ms": copy_ms,
+                "file_bytes": _save_synced(os.path.join(stage, _shard_file(rank, world)), local),
+                "tensor_bytes": _tensor_bytes(local)}
+            if rank == 0:
+                timing["replicated_file_bytes"] = _save_synced(os.path.join(stage, _REPLICATED_FILE), whole)
+                timing["replicated_tensor_bytes"] = _tensor_bytes(whole)
+            timing["write_ms"] = (time.monotonic() - t0) * 1e3
+            t1 = time.monotonic()
+            self._mark_done(stage, rank, {k: timing[k] for k in ("file_bytes", "tensor_bytes")})
+            if rank == 0:
+                done = self._await_ranks(stage, world, step)
+                meta[SHARDED_KEY].update(
+                    file_bytes=[d["file_bytes"] for d in done], tensor_bytes=[d["tensor_bytes"] for d in done],
+                    replicated_file_bytes=timing["replicated_file_bytes"],
+                    replicated_tensor_bytes=timing["replicated_tensor_bytes"])
+                for r in range(world):
+                    os.remove(os.path.join(stage, f"done-{r}"))
+                _write_synced(os.path.join(stage, _META_FILE), json.dumps(meta).encode())
+                self._commit(stage, step)
+            else:
+                self._await_commit(stage, step, token)
+            timing["commit_wait_ms"] = (time.monotonic() - t1) * 1e3
+            self._record_save(**timing)
+        except Exception as exc:  # noqa: BLE001 - handed to wait() / the next save
+            if rank == 0:
+                shutil.rmtree(stage, ignore_errors=True)
+            elif os.path.isdir(stage):
+                try:  # rank 0 stops waiting for this rank
+                    _write_synced(os.path.join(stage, f"failed-{rank}"), repr(exc).encode())
+                except OSError:
+                    pass
+            with self._lock:
+                self._writer_error = exc
+        finally:
+            _set_live(stage, False)
+
+    def _mark_done(self, stage: str, rank: int, info: Dict[str, Any]) -> None:
+        """This rank's shard is on disk: its ``done-<r>`` file, fsynced and
+        renamed into place whole (rank 0 reads it once the name appears)."""
+        path = os.path.join(stage, f"done-{rank}")
+        _write_synced(path + ".part", json.dumps(info).encode())
+        os.rename(path + ".part", path)
+        _fsync_dir(stage)
+
+    def _await_ranks(self, stage: str, world: int, step: int) -> List[Dict[str, Any]]:
+        """Rank 0: every rank's ``done-<r>`` record, once all are in the stage."""
+        deadline = time.monotonic() + self.commit_timeout_s
+        while True:
+            names = set(os.listdir(stage))
+            failed = sorted(n for n in names if n.startswith("failed-"))
+            if failed:
+                raise RuntimeError(f"sharded save of step {step}: rank {failed[0][7:]} failed")
+            if all(f"done-{r}" in names for r in range(world)):
+                break
+            if time.monotonic() > deadline:
+                missing = [r for r in range(world) if f"done-{r}" not in names]
+                raise TimeoutError(f"sharded save of step {step}: ranks {missing} wrote no shard within "
+                                   f"{self.commit_timeout_s} s; the step stays uncommitted")
+            time.sleep(0.005)
+        out = []
+        for r in range(world):
+            with open(os.path.join(stage, f"done-{r}"), "rb") as f:
+                out.append(json.loads(f.read().decode()))
+        return out
+
+    def _await_commit(self, stage: str, step: int, token: str) -> None:
+        """A rank other than 0: wait until rank 0 renamed the stage, and check
+        the committed step is this save's."""
+        deadline = time.monotonic() + self.commit_timeout_s
+        while os.path.isdir(stage):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"sharded save of step {step}: rank 0 did not commit within "
+                                   f"{self.commit_timeout_s} s")
+            time.sleep(0.005)
+        try:
+            got = self._read_meta(step)[SHARDED_KEY]["token"] if self._step_complete(step) else None
+        except Exception:  # noqa: BLE001 - unreadable: not this save's commit
+            got = None
+        if got != token:
+            raise RuntimeError(f"sharded save of step {step} was not committed (rank 0 failed or gave up)")
 
     def _drain(self) -> None:
         """Join the save in flight (from any thread) and raise its error."""
@@ -254,50 +517,95 @@ class FLCheckpointer:
         if err is not None:
             raise RuntimeError(f"checkpoint write under {self.directory} failed: {err!r}") from err
 
-    def restore(self, template: Pytree, step: Optional[int] = None):
+    def restore(self, template: Pytree, step: Optional[int] = None, *, shards: Any = None):
         """Restore ``(state, meta)`` at ``step`` (default: the newest
         restorable).
 
         ``template`` gives structure, shapes, dtypes and placement: its
         tensor leaves' devices receive the restored tensors (a CUDA template
         restores onto the card), numpy leaves come back as numpy. A shape or
-        dtype that differs from the template's raises.
+        dtype that differs from the template's raises. Either layout (one
+        process, or sharded over any number of ranks) restores: with
+        ``shards`` over W > 1 ranks (a collective) ``template`` is this
+        rank's part and gets its part of every split leaf, re-cut from the
+        saved parts; without, every leaf whole.
 
         With ``step=None``, torn or unreadable snapshots are skipped: the
         walk tries complete steps newest-first and returns the first that
-        loads, raising :class:`FileNotFoundError` only when none does.
+        loads, raising :class:`FileNotFoundError` only when none does. Over
+        ranks every rank restores the same step: the newest whose every
+        needed part loads on every rank.
         """
-        self._drain()
-        if step is None:
-            candidates = sorted(self._steps(), reverse=True)
-            if not candidates:
-                raise FileNotFoundError(f"no checkpoints under {self.directory}")
-            last_exc: Optional[Exception] = None
-            for s in candidates:
-                try:
-                    return self._restore_step(template, s)
-                except Exception as exc:  # noqa: BLE001 - torn step: try older
-                    last_exc = exc
-                    log.warning("checkpoint step %s under %s unreadable (%s) — falling back to the previous "
-                                "snapshot", s, self.directory, exc)
-            raise FileNotFoundError(f"no restorable checkpoint under {self.directory} (last error: {last_exc})")
-        if not self._step_complete(step):
-            raise FileNotFoundError(f"checkpoint step {step} under {self.directory} is torn/absent")
-        return self._restore_step(template, step)
+        return self._walk(template, step, None, shards)
 
     def _read_meta(self, step: int) -> Dict[str, Any]:
         with open(os.path.join(self._step_dir(step), _META_FILE), "rb") as f:
             return dict(json.loads(f.read().decode()) or {})
 
-    def _restore_step(self, template: Pytree, step: int) -> Tuple[Pytree, Dict[str, Any]]:
-        meta = self._read_meta(step)
-        flat = torch.load(os.path.join(self._step_dir(step), _STATE_FILE), weights_only=True, map_location="cpu")
+    def _load_step(self, template: Pytree, step: int, shards: Any = None) -> Pytree:
+        """``template``'s state from ``step``: every leaf's part this rank
+        holds (``shards``; the whole leaf without), re-cut from the saved
+        parts that overlap it. Files are memory-mapped and opened only when
+        a part of theirs is needed."""
+        from p2pfl_tpu_torch.population.sharding import part_range, recut
+
+        t0 = time.monotonic()
+        root = self._step_dir(step)
+        layout = self._read_meta(step).get(SHARDED_KEY)
+        files: Dict[str, Dict[str, torch.Tensor]] = {}
+
+        def opened(name: str) -> Dict[str, torch.Tensor]:
+            if name not in files:
+                files[name] = torch.load(os.path.join(root, name), weights_only=True, map_location="cpu", mmap=True)
+            return files[name]
+
+        whole_file = _STATE_FILE if layout is None else layout["replicated"]
+        split = {} if layout is None else {p: (int(d), int(n)) for p, (d, n) in layout["split"].items()}
+        saved = set(opened(whole_file)) | set(split)
+        ranked = shards is not None and shards.mesh.world > 1
+        want = _split_dims(shards) if ranked else {}
+        assembled = [0]
+
+        def load(path: str, leaf: Any) -> torch.Tensor:
+            if path not in saved:
+                raise KeyError(f"checkpoint has no leaf {path!r}")
+            shape = list(leaf.shape)
+            box = [(0, n) for n in shape]
+            if path in want:  # this rank's part of the whole leaf
+                d = want[path]
+                shape[d] *= shards.mesh.world
+                box[d] = part_range(shape[d], shards.mesh.rank, shards.mesh.world)
+            if path in split:
+                d, n = split[path]
+                saved_world = len(layout["files"])
+                pieces = []
+                for r in range(saved_world):
+                    lo, hi = part_range(n, r, saved_world)
+                    if d < len(box) and (lo >= box[d][1] or hi <= box[d][0]) and box[d][1] > box[d][0]:
+                        continue  # no overlap with this rank's part: the file is not read
+                    t = opened(layout["files"][r])[path]
+                    pieces.append(([(lo, hi) if i == d else (0, s) for i, s in enumerate(t.shape)], t))
+                stored = list(pieces[0][1].shape)
+                stored[d] = n
+            else:
+                t = opened(whole_file)[path]
+                pieces, stored = [([(0, s) for s in t.shape], t)], list(t.shape)
+            if stored != shape or pieces[0][1].dtype != _dtype_of(leaf):
+                raise ValueError(f"{path}: stored {pieces[0][1].dtype}{tuple(stored)} != template "
+                                 f"{_dtype_of(leaf)}{tuple(shape)}")
+            out = recut(pieces, box, path)
+            assembled[0] += out.numel() * out.element_size()
+            return out
+
         used: set = set()
-        state = _unflatten(template, flat, "", used)
-        extra = sorted(set(flat) - used)
+        state = _unflatten(template, load, "", used)
+        extra = sorted(saved - used)
         if extra:
             raise ValueError(f"checkpoint holds leaves the template lacks: {extra[:4]}")
-        return state, meta
+        with self._lock:
+            self.last_load = {"step": step, "load_ms": (time.monotonic() - t0) * 1e3, "files": sorted(files),
+                              "tensor_bytes": assembled[0]}
+        return state
 
     def restore_meta(self, step: Optional[int] = None) -> dict:
         """Restore only the JSON meta record at ``step`` (default: the newest
@@ -317,7 +625,7 @@ class FLCheckpointer:
             raise FileNotFoundError(f"checkpoint step {step} under {self.directory} is torn/absent")
         return self._read_meta(step)
 
-    def restore_coherent(self, template: Pytree, step: Optional[int] = None, check_meta=None):
+    def restore_coherent(self, template: Pytree, step: Optional[int] = None, check_meta=None, *, shards: Any = None):
         """Restore ``(state, meta)`` with both drawn from the same step.
 
         The walk reads a step's meta, then its state, and falls back to the
@@ -325,38 +633,62 @@ class FLCheckpointer:
         while its state is torn never pairs one step's cursor with another's
         weights. ``check_meta(meta)``, when given, runs between the two
         reads; what it raises propagates (a configuration-pin mismatch is
-        the caller's error, not a torn snapshot).
+        the caller's error, not a torn snapshot). ``shards`` as in
+        :meth:`restore`: over ranks every rank reaches the same verdict on
+        each step before it moves on.
         """
-        if step is not None:
-            meta = self.restore_meta(step)
-            if check_meta is not None:
-                check_meta(meta)
-            state, _ = self.restore(template, step)
-            return state, meta
-        candidates = sorted(self.all_steps(), reverse=True)
+        return self._walk(template, step, check_meta, shards)
+
+    def _walk(self, template: Pytree, step: Optional[int], check_meta, shards: Any):
+        """The walk of :meth:`restore` and :meth:`restore_coherent`: ``step``,
+        or every committed step newest first, until one whose meta reads and
+        whose state loads, with ``check_meta(meta)`` between the two reads.
+        Over ranks (``shards`` over W > 1 ranks; a collective) every rank
+        walks rank 0's list of steps and takes a step only when its meta
+        reads and its every needed part loads on every rank; on one process
+        both agreements are this process's own verdict. An explicit ``step``
+        that does not restore raises (this rank's error where it failed)."""
+        if shards is not None and shards.mesh.world > 1:
+            from p2pfl_tpu_torch.parallel.collectives import all_agree, broadcast_ints
+
+            mesh = shards.mesh
+
+            def agree(ok: bool) -> bool:
+                return all_agree(ok, mesh.group, mesh.device)
+
+            def steps(ss: List[int]) -> List[int]:
+                return broadcast_ints(ss, 0, mesh.group, mesh.device)
+        else:
+            agree, steps = bool, list
+        self._drain()
+        candidates = [int(step)] if step is not None else steps(sorted(self._steps(), reverse=True))
         if not candidates:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
         last_exc: Optional[Exception] = None
         for s in candidates:
+            meta = state = None
             try:
-                meta = self.restore_meta(s)
-            except Exception as exc:  # noqa: BLE001 - torn meta: try older
+                if not self._step_complete(s):
+                    raise FileNotFoundError(f"checkpoint step {s} under {self.directory} is torn/absent")
+                meta = self._read_meta(s)
+            except Exception as exc:  # noqa: BLE001 - torn meta: every rank tries older
                 last_exc = exc
-                log.warning("checkpoint meta at step %s under %s unreadable (%s) — falling back to the previous "
-                            "snapshot", s, self.directory, exc)
-                continue
-            if check_meta is not None:
-                check_meta(meta)
-            try:
-                state, _ = self.restore(template, s)
-            except Exception as exc:  # noqa: BLE001 - torn state: try older
-                last_exc = exc
-                log.warning("checkpoint state at step %s under %s unreadable (%s) — falling back to the previous "
-                            "snapshot", s, self.directory, exc)
-                continue
-            return state, meta
-        raise FileNotFoundError(
-            f"no coherently restorable checkpoint under {self.directory} (last error: {last_exc})")
+            if agree(meta is not None):
+                if check_meta is not None:
+                    check_meta(meta)
+                try:
+                    state = self._load_step(template, s, shards)
+                except Exception as exc:  # noqa: BLE001 - torn state: every rank tries older
+                    last_exc = exc
+                if agree(state is not None):
+                    return state, meta
+            if step is not None:
+                if last_exc is not None:
+                    raise last_exc
+                raise FileNotFoundError(f"checkpoint step {s} under {self.directory} does not restore on every rank")
+            log.warning("checkpoint step %s under %s unreadable (here: %s) — falling back to the previous snapshot",
+                        s, self.directory, last_exc)
+        raise FileNotFoundError(f"no restorable checkpoint under {self.directory} (last error here: {last_exc})")
 
     # --- ModelHandle convenience -----------------------------------------------------
 

@@ -5,8 +5,15 @@ The ``nodes`` axis (the round's population):
 
 * :func:`all_gather` — a dict of stacked tensors along the leading axis, in
   rank order, where each rank may hold a different number of rows;
+* :func:`gather_ordered` — :func:`all_gather` of rows each held by one
+  rank, put back in an order the caller names (a round's committee, a
+  window's members);
 * :func:`broadcast_tree` — a dict of tensors from one rank to every rank;
-* :func:`broadcast` and :func:`all_reduce` — small tensors, in place.
+* :func:`broadcast` and :func:`all_reduce` — small tensors, in place;
+* :func:`broadcast_ints` and :func:`all_agree` — what a sharded
+  checkpoint's save and restore agree on: rank 0's save token and list of
+  steps, and whether a step loaded on every rank. They move no population
+  rows.
 
 A tree travels packed: its rows, leaf after leaf, in one ``uint8`` buffer of
 ``[rows, bytes a row]`` (bit-exact for every dtype), unpacked on arrival.
@@ -146,6 +153,23 @@ def all_gather(tree: Tree, counts: Sequence[int], group: Any = None) -> Tree:
     return _unpack(torch.cat(parts), layout)
 
 
+def gather_ordered(local: Tree, owner: Sequence[int], group: Any = None) -> Tuple[Tree, List[int]]:
+    """Every row of a sequence on every rank, in the sequence's order, and
+    the rows each rank brought: ``owner[i]`` is the rank that holds row
+    ``i``, and ``local`` holds this rank's rows in sequence order (``[0,
+    ...]`` leaves of the same layout where it holds none). One
+    :func:`all_gather`; the rank-major result is put back in order."""
+    world = _dist().get_world_size(group)
+    counts = [list(owner).count(r) for r in range(world)]
+    stack = all_gather(local, counts, group=group)
+    order = [pos for r in range(world) for pos, o in enumerate(owner) if o == r]
+    if order != sorted(order):
+        perm = torch.as_tensor(sorted(range(len(order)), key=order.__getitem__),
+                               device=next(iter(stack.values())).device)
+        stack = {k: v.index_select(0, perm) for k, v in stack.items()}
+    return stack, counts
+
+
 def broadcast_tree(tree: Tree, src: int, group: Any = None) -> Tree:
     """Rank ``src``'s leaves on every rank. Every rank passes leaves of the
     same names, dtypes and shapes (the other ranks' values are not read)."""
@@ -172,6 +196,22 @@ def all_reduce(t: torch.Tensor, op: str = "sum", group: Any = None) -> torch.Ten
         raise ValueError(f"unknown reduction {op!r}: use {sorted(ops)}")
     dist.all_reduce(t, op=ops[op], group=group)
     return t
+
+
+def broadcast_ints(values: Sequence[int], src: int = 0, group: Any = None, device: Any = "cpu") -> List[int]:
+    """Rank ``src``'s list of ints on every rank (its length, then its
+    values: two broadcasts of int64 tensors on ``device``; the other ranks'
+    ``values`` are not read)."""
+    n = broadcast(torch.tensor([len(values)], dtype=torch.int64, device=device), src, group)
+    vals = torch.zeros(int(n.item()), dtype=torch.int64, device=device)
+    if _dist().get_rank(group) == src:
+        vals.copy_(torch.tensor([int(v) for v in values], dtype=torch.int64))
+    return [int(v) for v in broadcast(vals, src, group).tolist()] if vals.numel() else []
+
+
+def all_agree(ok: bool, group: Any = None, device: Any = "cpu") -> bool:
+    """Whether ``ok`` holds on every rank: an ``all_reduce`` min of one flag."""
+    return bool(all_reduce(torch.tensor([int(bool(ok))], dtype=torch.int64, device=device), "min", group).item())
 
 
 def _global(group: Any, rank: int) -> int:
@@ -441,5 +481,6 @@ def all_gather_dim(t: torch.Tensor, dim: int, group: Any = None) -> torch.Tensor
     return _AllGatherDim.apply(t, dim, group)
 
 
-__all__ = ["STATS", "all_gather", "all_gather_dim", "all_reduce", "broadcast", "broadcast_tree", "p2p_route", "pmean",
-           "ppermute", "psum", "replicate", "reset_stats", "sum_cotangent", "tie"]
+__all__ = ["STATS", "all_agree", "all_gather", "all_gather_dim", "all_reduce", "broadcast", "broadcast_ints",
+           "broadcast_tree", "gather_ordered", "p2p_route", "pmean", "ppermute", "psum", "replicate", "reset_stats",
+           "sum_cotangent", "tie"]

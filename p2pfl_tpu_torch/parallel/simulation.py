@@ -31,7 +31,10 @@ their losses, update norms and SCAFFOLD's variate deltas) in committee
 order, and every rank then aggregates, evaluates and diffuses into its own
 slab. The gathered stack is the one a single process builds, so the
 trajectory is bit-identical at every world size. Only rank 0 writes files
-(the ledger, the flight recorder's dumps, bundles, traces, snapshots).
+(the ledger, the flight recorder's dumps, bundles, traces, snapshots), but
+a checkpoint is sharded: each rank writes its own slab (or, over model
+ranks, its slices) and rank 0 the replicated leaves and the commit
+(:meth:`MeshSimulation.save_to`), and a step restores at any world size.
 
 Over model ranks (``make_mesh((1, W), ("nodes", "model"))``, the JAX
 package's tensor-parallel layout) every rank holds the whole population, each
@@ -95,10 +98,6 @@ Aggregate = Callable[[Params, torch.Tensor], Params]
 BatchLoss = Callable[[Params, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 log = logging.getLogger("p2pfl_tpu_torch")
-
-#: What a checkpoint of a population over more than one rank raises with.
-_SHARDED_CHECKPOINTS = ("checkpoints of a population sharded over ranks are not ported yet (ROADMAP queue A item "
-                        "A6: sharded checkpoints and both population engines over ranks)")
 
 
 def poison_delta(new: torch.Tensor, old: torch.Tensor, attack: str, scale: float = 10.0) -> torch.Tensor:
@@ -801,9 +800,6 @@ class MeshSimulation:
             self._round_members = [len(rows)]
             return agg_ops.tree_stack(rows)
         per = self.slab[1] - self.slab[0]
-        owner = [node // per for node in comm]
-        counts = [owner.count(r) for r in range(self._world)]
-        self._round_members = counts
         if rows:
             local = agg_ops.tree_stack(rows)
         else:  # this rank holds no member: an empty contribution of the same layout
@@ -815,11 +811,8 @@ class MeshSimulation:
             if scaffold:
                 shapes.update({f"dc/{k}": (v.shape[1:], v.dtype) for k, v in self.c_stack.items()})
             local = {k: torch.empty((0, *shape), dtype=dt, device=self.device) for k, (shape, dt) in shapes.items()}
-        stack = collectives.all_gather(local, counts, group=self.mesh.group)
-        order = [pos for r in range(self._world) for pos, o in enumerate(owner) if o == r]
-        if order != sorted(order):
-            perm = torch.as_tensor(np.argsort(order), device=self.device)
-            stack = {k: v.index_select(0, perm) for k, v in stack.items()}
+        stack, self._round_members = collectives.gather_ordered(local, [node // per for node in comm],
+                                                                group=self.mesh.group)
         return stack
 
     def _devobs_aux(self, un_sq, agg, member_losses, weights, members: int) -> torch.Tensor:
@@ -916,14 +909,11 @@ class MeshSimulation:
         Over ranks every rank calls ``run`` with the same arguments; each
         returns rank 0's test values. ``rank_members`` and ``gather_bytes``
         then hold, per timed round, the members each rank trained and the
-        bytes this rank's ``all_gather`` received. Checkpointing over more
-        than one rank raises ``NotImplementedError`` (ROADMAP queue A item
-        A6).
+        bytes this rank's ``all_gather`` received. A checkpoint over ranks
+        is sharded (:meth:`save_to`).
         """
         if self._closed:
             raise RuntimeError("simulation is closed — construct a new MeshSimulation")
-        if checkpointer is not None and self._world > 1:
-            raise NotImplementedError(_SHARDED_CHECKPOINTS)
         if self.params_stack is None:
             raise RuntimeError(
                 "population state lost in a failed chunk — load_from(checkpointer) to restore before running again")
@@ -1158,18 +1148,44 @@ class MeshSimulation:
         over model ranks, the whole leaves from every rank's slices."""
         from p2pfl_tpu_torch.population.sharding import gather_population
 
-        if self._closed:
-            raise RuntimeError("simulation is closed — snapshot state before close()")
-        stacks: Dict[str, Any] = {"params_stack": self.params_stack, "opt_stack": self.opt_stack}
-        if self.algorithm == "scaffold":
-            stacks["c_stack"] = self.c_stack
+        stacks = self.shard_state()
+        c_global = stacks.pop("c_global", None)
         if self._split is not None:
             state = self._split.gather(stacks, lead=1)
         else:
             state = gather_population(stacks, self.mesh) if self._world > 1 else stacks
-        if self.algorithm == "scaffold" or self.server_tx is not None:
-            state["c_global"] = self.c_global if self._split is None else self._split.gather(self.c_global)
+        if c_global is not None:
+            state["c_global"] = c_global if self._split is None else self._split.gather(c_global)
         return state
+
+    def shard_state(self) -> Dict[str, Any]:
+        """This rank's own part of :meth:`state_dict`, under the same keys and
+        with nothing gathered: its slab of the stacks (over ``nodes``
+        ranks), its slices of every split leaf (over ``model`` ranks), the
+        whole state on one process. :meth:`state_shards` describes it."""
+        if self._closed:
+            raise RuntimeError("simulation is closed — snapshot state before close()")
+        state: Dict[str, Any] = {"params_stack": self.params_stack, "opt_stack": self.opt_stack}
+        if self.algorithm == "scaffold":
+            state["c_stack"] = self.c_stack
+        if self.algorithm == "scaffold" or self.server_tx is not None:
+            state["c_global"] = self.c_global
+        return state
+
+    def state_shards(self) -> Any:
+        """How :meth:`shard_state` splits over the ranks
+        (:class:`~p2pfl_tpu_torch.population.sharding.StateShards`): over
+        ``nodes`` ranks the stacks' leading axis, ``c_global`` whole; over
+        ``model`` ranks every split leaf on its output dimension (after the
+        stacks' node axis). None on one process."""
+        from p2pfl_tpu_torch.population.sharding import population_shards
+
+        if not self._ranked:
+            return None
+        state = self.shard_state()
+        if self._split is not None:
+            return self._split.state_shards(state, {k: 0 if k == "c_global" else 1 for k in state})
+        return population_shards(state, self.mesh, whole=("c_global",))
 
     def close(self) -> None:
         """Release the population's device tensors."""
@@ -1382,16 +1398,17 @@ class MeshSimulation:
         """Snapshot the population state at the current completed-round
         count, with the meta record the JAX package writes: the round
         cursor, the seed, the DP step counters and parameters, and the
-        server optimizer's name and lr. Over more than one rank it raises
-        ``NotImplementedError`` (ROADMAP queue A item A6)."""
-        if self._world > 1:
-            raise NotImplementedError(_SHARDED_CHECKPOINTS)
+        server optimizer's name and lr; and the padded population size.
+        Over ranks a collective and a sharded step: each rank writes
+        :meth:`shard_state` (its slab, or its slices), rank 0 the
+        replicated leaves and the commit; nothing is gathered."""
         return checkpointer.save(
             self.completed_rounds,
-            self.state_dict(),
+            self.shard_state(),
             {
                 "completed_rounds": self.completed_rounds,
                 "seed": self.seed,
+                "padded_nodes": self.num_nodes,
                 # The privacy spend survives a resume; the DP parameters are
                 # pinned so a resume cannot re-price the restored steps.
                 "dp_steps_per_node": self._dp_steps_per_node,
@@ -1403,6 +1420,7 @@ class MeshSimulation:
                 "server_opt": self._server_opt_name,
                 "server_lr": self._server_lr,
             },
+            shards=self.state_shards(),
         )
 
     def load_from(self, checkpointer, step: Optional[int] = None) -> int:
@@ -1414,11 +1432,12 @@ class MeshSimulation:
         (:meth:`_check_restore_pins`), and meta and state come from one step
         (``restore_coherent``). The checkpointed seed is adopted: round
         draws are keyed by ``(seed, round)``. The DP step counters become
-        the larger of the restored and the live values. Over more than one
-        rank it raises ``NotImplementedError`` (ROADMAP queue A item A6).
+        the larger of the restored and the live values. Either layout
+        restores at any world size: over ranks (a collective) each rank
+        reads the saved parts that overlap its own and every rank restores
+        the same step; a step whose population was padded to another size
+        raises.
         """
-        if self._world > 1:
-            raise NotImplementedError(_SHARDED_CHECKPOINTS)
         if self._closed:
             raise RuntimeError(
                 "simulation is closed (close() also released its training data, which checkpoints do not "
@@ -1428,7 +1447,8 @@ class MeshSimulation:
             # A chunk failed and the state was dropped: restore into a fresh
             # initial state of the same structure.
             self.params_stack, self.opt_stack, self.c_stack, self.c_global = self._initial_state()
-        state, meta = checkpointer.restore_coherent(self.state_dict(), step, check_meta=self._check_restore_pins)
+        state, meta = checkpointer.restore_coherent(self.shard_state(), step, check_meta=self._check_restore_pins,
+                                                    shards=self.state_shards())
         self.params_stack = state["params_stack"]
         self.opt_stack = state["opt_stack"]
         if self.algorithm == "scaffold":
@@ -1450,6 +1470,11 @@ class MeshSimulation:
     def _check_restore_pins(self, meta: dict) -> None:
         """Raise ValueError when ``meta`` pins a configuration this
         simulation does not match (run before the structural restore)."""
+        if "padded_nodes" in meta and int(meta["padded_nodes"]) != self.num_nodes:
+            raise ValueError(
+                f"checkpoint holds a population padded to {meta['padded_nodes']} nodes; this simulation pads its "
+                f"{self.logical_num_nodes} nodes to {self.num_nodes}: a restore neither drops nor invents rows"
+            )
         if (self.dp_clip_norm > 0.0 and "dp_noise_multiplier" in meta
                 and (float(meta["dp_noise_multiplier"]) != self.dp_noise_multiplier
                      or float(meta.get("dp_clip_norm", 0.0)) != self.dp_clip_norm)):

@@ -41,7 +41,7 @@ import torch.nn.functional as F
 
 from p2pfl_tpu_torch.models.convert import canonical_shape, flax_path, _to_torch_axes
 from p2pfl_tpu_torch.parallel.collectives import all_gather_dim, psum, sum_cotangent
-from p2pfl_tpu_torch.parallel.mesh import Mesh, axis_group
+from p2pfl_tpu_torch.parallel.mesh import Mesh, PartitionSpec, axis_group
 
 #: The mesh axis whose ranks split the kernels.
 MODEL_AXIS = "model"
@@ -121,6 +121,17 @@ def _map_named(tree: Any, fn) -> Any:
     return tree
 
 
+def _specs_named(tree: Any, fn) -> Any:
+    """A tree of ``tree``'s structure whose tensors are replaced by ``fn(name,
+    t)``, ``name`` the dict key or dataclass field that holds the tensor."""
+    if isinstance(tree, dict):
+        return {k: fn(k, v) if isinstance(v, torch.Tensor) else _specs_named(v, fn) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return type(tree)(**{f.name: fn(f.name, v) if isinstance(v := getattr(tree, f.name), torch.Tensor)
+                             else _specs_named(v, fn) for f in dataclasses.fields(tree)})
+    return tree
+
+
 class ModelSplit:
     """A model's leaves split over the ranks of ``mesh``'s ``model`` axis.
 
@@ -158,6 +169,21 @@ class ModelSplit:
         dimensions in front) on every rank. Every rank calls it."""
         return _map_named(tree, lambda k, v: all_gather_dim(v, self.dims[k] + lead, self.group)
                           if k in self.dims else v)
+
+    def state_shards(self, state: Mapping[str, Any], lead: Mapping[str, int]) -> Any:
+        """The :class:`~p2pfl_tpu_torch.population.sharding.StateShards` of a
+        state held under this split: every split leaf under top-level key
+        ``k`` of ``state`` (parameters, or an optimizer state keyed by the
+        parameters' names) is this rank's slice of its split dimension,
+        after ``lead[k]`` stacked dimensions; every other leaf is whole."""
+        from p2pfl_tpu_torch.population.sharding import StateShards
+
+        def spec(name: str, lead_dims: int) -> PartitionSpec:
+            d = self.dims.get(name)
+            return PartitionSpec() if d is None else PartitionSpec(*([None] * (d + lead_dims)), MODEL_AXIS)
+
+        return StateShards(self.mesh, {k: _specs_named(v, lambda name, t, n=lead[k]: spec(name, n))
+                                       for k, v in state.items()})
 
     def sq_sum(self, parts: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """The sum of per-leaf partial sums (``{name: tensor}``, each a sum

@@ -1,5 +1,6 @@
-"""AsyncPopulationEngine — FedBuff windows over a population on one card
-(counterpart of ``p2pfl_tpu/population/async_engine.py``).
+"""AsyncPopulationEngine — FedBuff windows over a population on one card,
+or over the ranks of a ``nodes`` rank mesh (counterpart of
+``p2pfl_tpu/population/async_engine.py``).
 
 The sync population engine runs *rounds*: every round trains a committee
 and waits for all of it, so one tier-5 device in the cohort sets the round's
@@ -44,6 +45,16 @@ in place, plus the ``[N]`` optimizer stack (empty for the default SGD): the
 per-vnode data is the only O(N) state. ``state_dtype="bfloat16"`` halves the
 ring for ceiling probes (not bit-comparable to the f32 wire path).
 
+Over the ranks of a ``nodes`` rank mesh the per-vnode data, sample masks
+and optimizer stack are a slab a rank (``num_samples`` and the history ring
+stay whole on every rank). A window's member trains on the rank that holds
+it, with its own generator, and writes back only its own optimizer row; one
+``all_gather`` gives every rank the window's trained members and losses in
+member order (none for an empty window), and every rank then folds, shifts
+the ring and evaluates, so every rank holds the one-process ring bit for
+bit. Results, the ledger and written files are rank 0's; a checkpoint
+writes the ring once and the optimizer stack as shards.
+
 Tracing: each part of a window runs inside a ``torch.profiler``
 ``record_function`` range named in :data:`TRACE_RANGES`, so a device trace
 of a chunk (``run``'s ``profile_dir``) splits the window's host time by part
@@ -68,6 +79,7 @@ from p2pfl_tpu_torch.learning.aggregators.async_buffer import staleness_discount
 from p2pfl_tpu_torch.learning.learner import softmax_cross_entropy
 from p2pfl_tpu_torch.ops import aggregation as agg_ops
 from p2pfl_tpu_torch.optim import state_map
+from p2pfl_tpu_torch.parallel import collectives
 from p2pfl_tpu_torch.parallel.mesh import make_mesh
 from p2pfl_tpu_torch.parallel.simulation import (
     devobs_summary_for,
@@ -85,7 +97,8 @@ from p2pfl_tpu_torch.population.arrivals import (
     compile_window_schedule,
 )
 from p2pfl_tpu_torch.population.cohort import cohort_size
-from p2pfl_tpu_torch.population.engine import population_data, vnode_names
+from p2pfl_tpu_torch.population.engine import MODEL_RANKS_ITEM, population_data, vnode_names
+from p2pfl_tpu_torch.population.sharding import gather_population, population_shards
 from p2pfl_tpu_torch.telemetry.bundle import establish_run
 from p2pfl_tpu_torch.telemetry.sketches import device_bucket_spec, device_bucket_stats
 
@@ -157,7 +170,11 @@ class AsyncPopulationEngine:
     stays sync-only. The arguments are the JAX package's, in its order,
     with ``device`` last (default ``"cuda"``; tests pass ``"cpu"``);
     ``mesh`` is a :func:`~p2pfl_tpu_torch.parallel.mesh.make_mesh` mesh
-    whose ``"nodes"`` size the data is padded to.
+    whose ``"nodes"`` size the data is padded to; over a ``nodes`` rank mesh
+    every rank constructs the engine and makes the same calls, and
+    ``rank_members`` / ``gather_bytes`` hold, per window of the last run,
+    the members each rank trained and the bytes this rank's ``all_gather``
+    received.
     """
 
     def __init__(
@@ -190,13 +207,15 @@ class AsyncPopulationEngine:
         from p2pfl_tpu_torch.models.mlp import mlp_model
         from p2pfl_tpu_torch.optim import sgd
 
-        if getattr(mesh, "ranked", False):
-            raise NotImplementedError(
-                "the population engines over a rank mesh are not ported yet (ROADMAP queue A item A6: sharded "
-                "checkpoints and both population engines over ranks); MeshSimulation runs over ranks")
+        ranked = bool(getattr(mesh, "ranked", False))
+        if ranked and mesh.rank_axis != "nodes":
+            raise NotImplementedError(MODEL_RANKS_ITEM)
         if num_nodes < 1:
             raise ValueError(f"num_nodes must be >= 1, got {num_nodes}")
-        self.device = resolve_device(device)
+        if ranked and torch.device(device).type != mesh.device.type:
+            raise ValueError(f"device {str(device)!r} does not match the rank mesh's {str(mesh.device)!r}")
+        self.device = mesh.device if ranked else resolve_device(device)
+        self._rank, self._world = (mesh.rank, mesh.world) if ranked else (0, 1)
         self.num_nodes = int(num_nodes)
         self.seed = int(seed)
         # Join the federation-wide run context (see MeshSimulation): a
@@ -256,10 +275,14 @@ class AsyncPopulationEngine:
         if n_pad:
             x, y, w = (np.concatenate([a, np.zeros((n_pad,) + a.shape[1:], a.dtype)]) for a in (x, y, w))
         self._n_padded = self.num_nodes + n_pad
-        self.x = torch.as_tensor(x, device=self.device)
-        self.y = torch.as_tensor(y, device=self.device).long()
-        self.sample_mask = torch.as_tensor(w, dtype=torch.float32, device=self.device)
-        self.num_samples = self.sample_mask.sum(dim=1)  # [Np] f32
+        # This rank's slab [lo, hi) of the padded population (all of it on one
+        # process); the FedAvg weights stay whole on every rank.
+        self.slab = self.mesh.slab(self._n_padded) if ranked else (0, self._n_padded)
+        lo, hi = self.slab
+        self.x = torch.as_tensor(x[lo:hi], device=self.device)
+        self.y = torch.as_tensor(y[lo:hi], device=self.device).long()
+        self.sample_mask = torch.as_tensor(w[lo:hi], dtype=torch.float32, device=self.device)
+        self.num_samples = torch.as_tensor(w, dtype=torch.float32, device=self.device).sum(dim=1)  # [Np] f32
         self.x_test = torch.as_tensor(x_eval, device=self.device)
         self.y_test = torch.as_tensor(y_eval, device=self.device).long()
 
@@ -288,13 +311,16 @@ class AsyncPopulationEngine:
         self._last_fold_window = np.full(self.num_nodes, -1, np.float64)
         self._lag_totals = np.zeros(self.num_nodes, np.float64)
         self._closed = False
+        self.rank_members: List[List[int]] = []
+        self.gather_bytes: List[int] = []
+        self._window_members: List[int] = []
 
     def _reinit_population(self) -> None:
         t = self._template
         self.history = {k: v[None].repeat((self.history_depth,) + (1,) * v.dim()) for k, v in t.items()}
         # Every vnode starts from the template, so the stack is the one
-        # state broadcast (an empty state for SGD).
-        n = self._n_padded
+        # state broadcast (an empty state for SGD); this rank's slab of it.
+        n = self.slab[1] - self.slab[0]
         self.opt_stack = state_map(lambda a: a[None].repeat((n,) + (1,) * a.dim()), self.optimizer.init(t))
 
     # --- schedule ------------------------------------------------------------
@@ -351,20 +377,25 @@ class AsyncPopulationEngine:
         ``do_eval`` is off; ``aux`` the devobs row and the folded members'
         mean loss, NaN for an empty window, or None)."""
         cur = {k: h[0] for k, h in history.items()}
-        members, losses = [], []
+        lo, hi = self.slab
+        rows = []
         with record_function("asyncpop/members"):
             for node, lag, gen in zip(inp.members, inp.lags, inp.gens):
+                if not lo <= node < hi:
+                    continue  # another rank trains it
+                i = node - lo
                 anchor = {k: h[lag] for k, h in history.items()}
                 p_i, o_i, loss = local_train_step(
-                    anchor, state_map(lambda a: a[node], opt_stack), gen,
-                    self.x[node], self.y[node], self.sample_mask[node], None,
+                    anchor, state_map(lambda a: a[i], opt_stack), gen,
+                    self.x[i], self.y[i], self.sample_mask[i], None,
                     c_global=None, epochs=epochs, batch_loss=self._batch_loss, optimizer=self.optimizer,
                     batch_size=self.batch_size,
                 )
-                state_map(lambda a, u: a[node].copy_(u), opt_stack, o_i)  # only folded members write back
-                members.append(p_i)
-                losses.append(loss)
-        fill = len(members)
+                state_map(lambda a, u: a[i].copy_(u), opt_stack, o_i)  # only folded members write back
+                rows.append({**{f"p/{k}": v for k, v in p_i.items()}, "loss": loss})
+        fill = len(inp.members)
+        stack = self._gather_members(rows, inp.members)
+        losses = stack["loss"] if fill else None
         wgt = None
         with record_function("asyncpop/fold"):
             if fill:
@@ -372,7 +403,7 @@ class AsyncPopulationEngine:
                 # multiply by the discount (exactly 1.0 at lag 0).
                 idx = torch.as_tensor(inp.members, device=self.device)
                 wgt = self.num_samples[idx] * inp.discount
-                stacked = agg_ops.tree_stack(members)
+                stacked = {k[2:]: v for k, v in stack.items() if k.startswith("p/")}
                 new_global = {k: v.to(cur[k].dtype) for k, v in agg_ops.fedavg(stacked, wgt).items()}
             else:
                 new_global = {k: v.clone() for k, v in cur.items()}
@@ -384,8 +415,7 @@ class AsyncPopulationEngine:
         if devobs:
             with record_function("asyncpop/devobs"):
                 anchors = [{k: history[k][lag] for k in history} for lag in inp.lags]
-                win_loss = (torch.stack(losses).sum() / fill if fill
-                            else torch.full((), float("nan"), device=self.device))
+                win_loss = losses.sum() / fill if fill else torch.full((), float("nan"), device=self.device)
                 aux = (self._devobs_aux(stacked if fill else None, anchors, new_global, losses, wgt), win_loss)
         # The ring shifts EVERY window (empty ones too): slot l always holds
         # the global l windows back.
@@ -400,8 +430,31 @@ class AsyncPopulationEngine:
             test_loss = test_acc = torch.full((), float("nan"), device=self.device)
         return test_loss, test_acc, aux
 
+    def _gather_members(self, rows: List[Params], members: List[int]) -> Params:
+        """The window's trained members, ``{"p/<name>": [fill, ...], "loss":
+        [fill]}`` in member order (``MeshSimulation``'s pattern): a stack of
+        ``rows`` on one process; over ranks each rank brings the rows of the
+        members it holds and one ``all_gather`` moves them all (none for an
+        empty window)."""
+        if self._world == 1:
+            self._window_members = [len(rows)]
+            return agg_ops.tree_stack(rows) if rows else {}
+        per = self.slab[1] - self.slab[0]
+        if not members:
+            self._window_members = [0] * self._world
+            return {}
+        if rows:
+            local = agg_ops.tree_stack(rows)
+        else:  # this rank holds no member: an empty contribution of the same layout
+            local = {f"p/{k}": torch.empty((0, *v.shape[1:]), dtype=v.dtype, device=self.device)
+                     for k, v in self.history.items()}
+            local["loss"] = torch.empty((0,), dtype=torch.float32, device=self.device)
+        stack, self._window_members = collectives.gather_ordered(local, [node // per for node in members],
+                                                                 group=self.mesh.group)
+        return stack
+
     def _devobs_aux(self, stacked: Optional[Params], anchors: List[Params], new_global: Params,
-                    losses: List[torch.Tensor], wgt: Optional[torch.Tensor]) -> torch.Tensor:
+                    losses: Optional[torch.Tensor], wgt: Optional[torch.Tensor]) -> torch.Tensor:
         """One window's devobs row (the sync round's layout, computed on the
         device without waiting for it): bucket counts of the K slots' update
         norms — the folded members' ``||new - anchor||``, zeros for the empty
@@ -418,7 +471,7 @@ class AsyncPopulationEngine:
         gamma_log, lo_idx, nbins = self._devobs_spec
         stats = device_bucket_stats(norms, gamma_log=gamma_log, lo_idx=lo_idx, nbins=nbins)
         amax = torch.stack(torch._foreach_norm([v.float() for v in new_global.values()], float("inf")))
-        checks = torch.cat([torch.stack(losses).float(), amax]) if fill else amax
+        checks = torch.cat([losses.float(), amax]) if fill else amax
         nonfinite = ~torch.isfinite(checks).all()
         mass = wgt.sum().double() if fill else torch.zeros((), dtype=torch.float64, device=self.device)
         return torch.cat([stats["counts"].double(), torch.stack([
@@ -482,12 +535,14 @@ class AsyncPopulationEngine:
 
         if profile_dir is None:
             profile_dir = Settings.PERF_TRACE_DIR
-        profile_chunks = int(Settings.DEVOBS_PROFILE_CHUNKS)
-        rec = self._devobs_recorder() if devobs else self._recorder
+        writes = self._rank == 0  # only rank 0 writes files: traces, the flight recorder's dumps
+        profile_chunks = int(Settings.DEVOBS_PROFILE_CHUNKS) if writes else 0
+        rec = (self._devobs_recorder() if devobs else self._recorder) if writes else None
         diverge_mult = float(Settings.DEVOBS_LOSS_DIVERGE_MULT)
         history, opt_stack = self.history, self.opt_stack
         stall = self._stall
         fills, codes, lag_sums, test_loss, test_acc = [], [], [], [], []
+        self.rank_members, self.gather_bytes = [], []
         trip: Optional[Dict[str, Any]] = None
         t0 = time.monotonic()
         done = 0
@@ -509,7 +564,10 @@ class AsyncPopulationEngine:
                     for wi, inp in enumerate(self._chunk_inputs(sub)):
                         w_abs = start + done + wi
                         do_eval = (w_abs + 1) % eval_every == 0 or w_abs == final_window
+                        gathered = collectives.STATS["all_gather_bytes"]
                         tl, ta, aux = self._window(history, opt_stack, inp, w_abs, epochs, do_eval, devobs)
+                        self.rank_members.append(list(self._window_members))
+                        self.gather_bytes.append(collectives.STATS["all_gather_bytes"] - gathered)
                         test_loss.append(tl)
                         test_acc.append(ta)
                         if devobs:
@@ -570,8 +628,10 @@ class AsyncPopulationEngine:
         # Cumulative per-vnode fold accounting (fed_top's WINDOW / FILL
         # columns), from the compiled schedule.
         self._account(sched, total_windows, start)
-        acc_all = torch.stack(test_acc).cpu().numpy()
-        loss_all = torch.stack(test_loss).cpu().numpy()
+        tested = [torch.stack(test_acc), torch.stack(test_loss)]
+        if self._world > 1:  # every rank evaluated the same global; all report rank 0's values
+            tested = [collectives.broadcast(t, src=0, group=self.mesh.group) for t in tested]
+        acc_all, loss_all = (t.cpu().numpy() for t in tested)
         evaluated = ~np.isnan(acc_all)
         durs = np.ones(total_windows, np.float64)
         result = AsyncRunResult(
@@ -628,8 +688,9 @@ class AsyncPopulationEngine:
             trip["flightrec"] = rec.dump("devobs_trip")
         if self._ledger is not None:
             self._ledger.emit("membership", event="devobs_trip", peer=self._devobs_node)
-        trip["bundle"] = write_bundle(
-            "devobs_trip", context={k: trip.get(k) for k in ("kind", "round", "chunk", "action")})
+        trip["bundle"] = (write_bundle("devobs_trip", context={k: trip.get(k) for k in ("kind", "round", "chunk",
+                                                                                         "action")})
+                          if self._rank == 0 else None)
 
     # --- observability -------------------------------------------------------
 
@@ -637,9 +698,12 @@ class AsyncPopulationEngine:
         """Emit the canonical window event stream (window_open /
         contribution_folded(lag=...) / aggregate_committed / window_close)
         — the same schema the wire buffer path emits, so
-        ``scripts/parity_diff.py`` aligns fused-async against wire-async."""
+        ``scripts/parity_diff.py`` aligns fused-async against wire-async.
+        Over ranks only rank 0 keeps one: elsewhere None returns."""
         from p2pfl_tpu_torch.telemetry.ledger import LEDGERS
 
+        if self._rank != 0:
+            return None
         if run_id is not None:
             LEDGERS.configure(run_id)
         self._ledger = LEDGERS.get(node)
@@ -725,25 +789,44 @@ class AsyncPopulationEngine:
             observer="asyncpop-engine", node_names=self.names, metrics=metrics, top_n=top_n,
             extras=extras or None, extra_sketches=extra_sketches or None,
         )
-        if path is not None:
+        if path is not None and self._rank == 0:
             write_snapshot_doc(path, snap)
         return snap
 
     # --- recovery ------------------------------------------------------------
 
     def state_dict(self) -> Dict[str, Any]:
+        """The ring and the whole ``[N]`` optimizer stack (over ranks a
+        collective: every rank's slab gathered)."""
+        state = self.shard_state()
+        if self._world > 1:
+            state["opt_stack"] = gather_population(state["opt_stack"], self.mesh)
+        return state
+
+    def shard_state(self) -> Dict[str, Any]:
+        """This rank's own state: the whole ring and its slab of the optimizer
+        stack (all of it on one process); :meth:`state_shards` describes it."""
         if self._closed:
             raise RuntimeError("engine is closed — snapshot state before close()")
         return {"history": self.history, "opt_stack": self.opt_stack}
 
+    def state_shards(self) -> Any:
+        """How :meth:`shard_state` splits over the ranks: the optimizer
+        stack's leading axis, the ring whole. None on one process."""
+        return population_shards(self.shard_state(), self.mesh, whole=("history",)) if self._world > 1 else None
+
     def save_to(self, checkpointer) -> bool:
         """Snapshot the ring and the optimizer stack at the window cursor.
         The checkpointer copies them to the host before it returns (the ring
-        is updated in place by the next window)."""
+        is updated in place by the next window). Over ranks a collective and
+        a sharded step: the ring written once, the optimizer stack a slab a
+        rank."""
         return checkpointer.save(
             self.completed_windows,
-            self.state_dict(),
-            {"completed_windows": self.completed_windows, "seed": self.seed, "stall": self._stall},
+            self.shard_state(),
+            {"completed_windows": self.completed_windows, "seed": self.seed, "stall": self._stall,
+             "padded_nodes": self._n_padded},
+            shards=self.state_shards(),
         )
 
     def load_from(self, checkpointer, step: Optional[int] = None) -> int:
@@ -759,10 +842,14 @@ class AsyncPopulationEngine:
             if meta and int(meta.get("seed", self.seed)) != self.seed:
                 raise ValueError(
                     f"checkpoint seed {meta.get('seed')} != engine seed {self.seed} — the window stream would diverge")
+            if "padded_nodes" in meta and int(meta["padded_nodes"]) != self._n_padded:
+                raise ValueError(f"checkpoint holds a population padded to {meta['padded_nodes']} vnodes; this "
+                                 f"engine pads to {self._n_padded}: a restore neither drops nor invents rows")
 
         if self.history is None:
             self._reinit_population()  # a template of the state's structure
-        state, meta = checkpointer.restore_coherent(self.state_dict(), step, check_meta=_check_seed)
+        state, meta = checkpointer.restore_coherent(self.shard_state(), step, check_meta=_check_seed,
+                                                    shards=self.state_shards())
         if not meta:
             return 0
         self.history = state["history"]

@@ -1,5 +1,6 @@
 """PopulationEngine — build and drive a population of up to 100k virtual
-nodes on one card (counterpart of ``p2pfl_tpu/population/engine.py``).
+nodes on one card, or a slab a rank over the ranks of a ``nodes`` rank mesh
+(counterpart of ``p2pfl_tpu/population/engine.py``).
 
 The engine composes what the rest of the port already holds:
 
@@ -18,6 +19,13 @@ The engine composes what the rest of the port already holds:
   delegate to the simulation's checkpoint path, so a killed engine resumes
   bit-identically.
 
+Over the ranks of a ``nodes`` rank mesh (:func:`~p2pfl_tpu_torch.parallel.
+mesh.make_mesh` after ``initialize_multihost``) every rank builds the same
+host data and schedule, the simulation keeps a slab a rank, and the calls
+that gather (``run``, :meth:`~PopulationEngine.gather_params`, ``save_to``,
+``load_from``) are collective; the ledger and the snapshot's file are rank
+0's. A ``model`` rank mesh raises (:data:`MODEL_RANKS_ITEM`).
+
 Data is synthetic (class templates + noise over a small feature dimension:
 ~205 MB for 100k nodes at the defaults), with optional Dirichlet label
 skew; for one seed it equals the JAX package's bit for bit.
@@ -33,10 +41,16 @@ from p2pfl_tpu_torch.device import DeviceLike
 from p2pfl_tpu_torch.parallel.mesh import make_mesh
 from p2pfl_tpu_torch.population.cohort import CohortPlan, cohort_size, committee_schedule
 from p2pfl_tpu_torch.population.sharding import (
-    make_shard_and_gather_fns,
+    _host,
+    gather_node,
     match_partition_rules,
     population_partition_rules,
 )
+
+#: What both engines raise with over a rank mesh whose ``model`` axis spans the ranks.
+MODEL_RANKS_ITEM = ("the population engines over a rank mesh whose 'model' axis spans the ranks are not ported yet "
+                    "(ROADMAP queue A item A11: the engines' populations split on their kernels' output dimension); "
+                    "MeshSimulation runs over model ranks, the engines over a 'nodes' rank mesh")
 
 
 def vnode_names(n: int) -> List[str]:
@@ -89,7 +103,9 @@ class PopulationEngine:
     JAX package's, in its order, with ``device`` last (default ``"cuda"``;
     tests pass ``"cpu"``). ``mesh`` is a
     :func:`~p2pfl_tpu_torch.parallel.mesh.make_mesh` mesh; its ``"nodes"``
-    size is the multiple the population is padded to.
+    size is the multiple the population is padded to, and over a ``nodes``
+    rank mesh each rank holds its slab of it (every rank constructs the
+    engine and makes the collective calls).
     """
 
     def __init__(
@@ -118,10 +134,8 @@ class PopulationEngine:
         from p2pfl_tpu_torch.optim import sgd
         from p2pfl_tpu_torch.parallel.simulation import MeshSimulation
 
-        if getattr(mesh, "ranked", False):
-            raise NotImplementedError(
-                "the population engines over a rank mesh are not ported yet (ROADMAP queue A item A6: sharded "
-                "checkpoints and both population engines over ranks); MeshSimulation runs over ranks")
+        if getattr(mesh, "ranked", False) and mesh.rank_axis != "nodes":
+            raise NotImplementedError(MODEL_RANKS_ITEM)
         if num_nodes < 1:
             raise ValueError(f"num_nodes must be >= 1, got {num_nodes}")
         self.num_nodes = int(num_nodes)
@@ -165,12 +179,10 @@ class PopulationEngine:
             pad_to_multiple=None,  # the mesh's "nodes" axis
             device=device,
         )
-        # The spec tree over the stacked population, derived once and reused
-        # by gather_params().
+        self.mesh = self.sim.mesh if self.sim.mesh is not None else make_mesh(devices=[device])
+        # The spec tree over the stacked population.
         self.partition_specs = match_partition_rules(
             population_partition_rules(model_parallel=model_parallel), self.sim.params_stack)
-        self._shard_fns, self._gather_fns = make_shard_and_gather_fns(
-            self.partition_specs, mesh=self.sim.mesh if self.sim.mesh is not None else make_mesh(devices=[device]))
         self._participation = np.zeros(self.num_nodes, np.float64)
         self._rounds_run = 0
 
@@ -222,7 +234,7 @@ class PopulationEngine:
             observer="population-engine", node_names=self.names, metrics=health, top_n=top_n,
             extras=extras or None, extra_sketches=extra_sketches or None,
         )
-        if path is not None:
+        if path is not None and self.sim._rank == 0:
             write_snapshot_doc(path, snap)
         return snap
 
@@ -230,9 +242,12 @@ class PopulationEngine:
         return self.sim.attach_ledger(node=node, node_names=self.names, run_id=run_id)
 
     def gather_params(self, node_idx: int = 0) -> Dict[str, np.ndarray]:
-        """One node's parameters as host numpy (``{torch name: array}``),
-        through the gather functions; ``canonical_params_hash`` takes it."""
-        return {k: fn(self.sim.params_stack[k][node_idx]) for k, fn in self._gather_fns.items()}
+        """One node's parameters as host numpy (``{torch name: array}``;
+        bf16 widened to f32); ``canonical_params_hash`` takes it. Over ranks
+        a collective: the rank that holds the node broadcasts its row
+        (:func:`~p2pfl_tpu_torch.population.sharding.gather_node`)."""
+        row = gather_node(self.sim.params_stack, node_idx, self.mesh, self.sim.num_nodes)
+        return {k: _host(v) for k, v in row.items()}
 
     # --- recovery -------------------------------------------------------------------
 
@@ -261,4 +276,4 @@ class PopulationEngine:
         self.close()
 
 
-__all__ = ["PopulationEngine", "population_data", "vnode_names"]
+__all__ = ["MODEL_RANKS_ITEM", "PopulationEngine", "population_data", "vnode_names"]

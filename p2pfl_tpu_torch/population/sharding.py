@@ -26,6 +26,12 @@ builds the full ``[N, ...]`` from every rank's slab (a collective: every
 rank calls it) — :func:`gather_population` does that for whole trees, for
 snapshots and ``MeshSimulation.state_dict``; :func:`gather_node` gives
 every rank one node's row, for ``final_model``.
+
+Sharded checkpoints: a :class:`StateShards` describes how a rank holds a
+state tree (a spec tree over it: a leaf split over the ranks holds the
+rank's part of one dimension, the others are whole on every rank), and
+:func:`recut` assembles the part a rank needs from the parts another layout
+saved, so a step written by W ranks restores at W' ranks or in one process.
 """
 
 from __future__ import annotations
@@ -185,9 +191,9 @@ def gather_population(tree: Any, mesh: Mesh) -> Any:
     tree itself on one process. Every rank calls it."""
     from p2pfl_tpu_torch.parallel import collectives
 
-    if mesh.rank_axis != "nodes":
-        return tree
     leaves = _leaves(tree)
+    if mesh.rank_axis != "nodes" or not leaves:
+        return tree
     got = collectives.all_gather({str(i): t for i, t in enumerate(leaves)}, [leaves[0].shape[0]] * mesh.world,
                                  group=mesh.group)
     return _rebuild(tree, [got[str(i)] for i in range(len(leaves))])
@@ -209,5 +215,79 @@ def gather_node(tree: Any, node: int, mesh: Mesh, n: int) -> Any:
     return _rebuild(tree, [got[str(i)] for i in range(len(leaves))])
 
 
-__all__ = ["gather_node", "gather_population", "make_shard_and_gather_fns", "match_partition_rules",
-           "population_partition_rules", "tree_path_names"]
+# --- a state tree's shards over ranks (sharded checkpoints) --------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class StateShards:
+    """How this rank holds a state tree over the ranks of ``mesh``.
+
+    ``specs`` is a tree of :class:`PartitionSpec` of the state tree's
+    structure. A leaf whose spec names the mesh's rank axis at position
+    ``d`` is split on dimension ``d`` into W equal contiguous parts, rank r
+    holding the r-th (:func:`part_range`): the ``nodes`` axis' slabs of a
+    stacked population, or ``ModelSplit``'s slices of a kernel. Every other
+    leaf is whole on every rank (the replicated leaves)."""
+
+    mesh: Mesh
+    specs: Any
+
+    def split_dim(self, spec: PS) -> Optional[int]:
+        """The dimension a leaf of ``spec`` is split on over the ranks, or None."""
+        axis = self.mesh.rank_axis
+        return list(spec).index(axis) if axis is not None and axis in tuple(spec) else None
+
+
+def part_range(whole: int, part: int, parts: int) -> Tuple[int, int]:
+    """``[lo, hi)`` of part ``part`` of ``parts`` equal contiguous parts of a
+    dimension of size ``whole``."""
+    if whole % parts:
+        raise ValueError(f"a dimension of {whole} does not split into {parts} equal parts")
+    per = whole // parts
+    return part * per, (part + 1) * per
+
+
+def population_shards(state: Mapping[str, Any], mesh: Mesh, whole: Sequence[str] = ()) -> StateShards:
+    """The shards of a population state over a ``nodes`` rank mesh: every
+    tensor under a top-level key of ``state`` is this rank's slab, split on
+    its leading axis, except under the keys named in ``whole`` (the history
+    ring, SCAFFOLD's and the server optimizer's global state), which every
+    rank holds whole."""
+    return StateShards(mesh, {k: _tree_map(lambda leaf, spec=(PS() if k in whole else PS("nodes")): spec, v)
+                              for k, v in state.items()})
+
+
+Box = Sequence[Tuple[int, int]]
+
+
+def recut(pieces: Sequence[Tuple[Box, torch.Tensor]], box: Box, what: str) -> torch.Tensor:
+    """The region ``box`` (``[lo, hi)`` per dimension) of a leaf, assembled
+    from saved ``pieces``: ``(piece box, tensor)`` pairs that partition the
+    leaf (a shard of each saving rank, or the whole leaf). Only the pieces
+    that overlap ``box`` are read, and only their overlap is copied (a
+    memory-mapped piece is read where it overlaps). Raises ``ValueError``
+    when the pieces do not cover ``box``."""
+    shape = [hi - lo for lo, hi in box]
+    out: Optional[torch.Tensor] = None
+    covered = 0
+    for pbox, t in pieces:
+        if len(pbox) != len(box):
+            raise ValueError(f"{what}: a saved part has {len(pbox)} dimensions, the leaf {len(box)}")
+        if out is None:
+            out = torch.empty(shape, dtype=t.dtype)
+        inter = [(max(a, c), min(b, d)) for (a, b), (c, d) in zip(box, pbox)]
+        if any(lo >= hi for lo, hi in inter):
+            continue
+        src, dst = t, out
+        for d, (lo, hi) in enumerate(inter):
+            src = src.narrow(d, lo - pbox[d][0], hi - lo)
+            dst = dst.narrow(d, lo - box[d][0], hi - lo)
+        dst.copy_(src)
+        covered += src.numel()
+    if out is None or covered != out.numel():
+        raise ValueError(f"{what}: the saved parts do not cover {[tuple(b) for b in box]}")
+    return out
+
+
+__all__ = ["StateShards", "gather_node", "gather_population", "make_shard_and_gather_fns", "match_partition_rules",
+           "part_range", "population_partition_rules", "population_shards", "recut", "tree_path_names"]

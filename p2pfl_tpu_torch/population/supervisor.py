@@ -243,7 +243,13 @@ class EngineSupervisor:
     # --- engine plumbing ------------------------------------------------------
 
     def _build(self) -> Any:
-        self.engine = self._factory(**self._cohort_overrides)
+        engine = self._factory(**self._cohort_overrides)
+        if getattr(getattr(engine, "mesh", None), "ranked", False):
+            engine.close()
+            raise NotImplementedError(
+                "EngineSupervisor over an engine on a rank mesh is not ported yet (ROADMAP queue A item A10: a "
+                "coordinated rollback of every rank and the loss of a peer process are beyond an in-process retry)")
+        self.engine = engine
         return self.engine
 
     @property

@@ -1,7 +1,8 @@
 """Import hygiene of the port: every module of ``p2pfl_tpu_torch``, every
 ``scripts/torch_*_check.py`` / ``scripts/torch_analyze.py``, and the rank
-workers ``tests/torch_multirank_worker.py`` and
-``tests/torch_seqstage_worker.py`` import
+workers ``tests/torch_multirank_worker.py``,
+``tests/torch_seqstage_worker.py``, ``tests/torch_expert_model_worker.py``
+and ``tests/torch_sharded_worker.py`` import
 with JAX, flax, optax, ml_dtypes, msgpack and the JAX package blocked (the
 card's machine has none of them), and Hugging Face ``datasets`` and pandas
 too (the dataset loaders import them when called), in a fresh
@@ -39,8 +40,8 @@ for name in names:
 import glob, importlib.util
 scripts = sorted(glob.glob("scripts/torch_*_check.py")) + ["scripts/torch_analyze.py"]
 scripts += ["tests/torch_multirank_worker.py", "tests/torch_seqstage_worker.py",
-            "tests/torch_expert_model_worker.py"]
-assert len(scripts) == 8, scripts
+            "tests/torch_expert_model_worker.py", "tests/torch_sharded_worker.py"]
+assert len(scripts) == 9, scripts
 for path in scripts:
     spec = importlib.util.spec_from_file_location("script_" + path.split("/")[-1][:-3], path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))

@@ -16,7 +16,9 @@ device="cpu")`` and runs, in order:
   ``all_reduce``, and ``make_shard_and_gather_fns`` over the rank mesh;
 * ``refusals``: what a rank mesh does not run yet raises
   ``NotImplementedError`` naming its ROADMAP item, and a ``seq``,
-  ``stage``, ``expert`` or ``model`` axis alone over the ranks builds;
+  ``stage``, ``expert`` or ``model`` axis alone over the ranks builds, and
+  so do both population engines and a population's sharded checkpoint
+  (into a root every rank shares);
 * every arm of :data:`ARMS`: the small f32 flash LM from ``<dir>/init.pt``
   for two scheduled rounds.
 
@@ -172,7 +174,7 @@ def _refusals(mesh, init: dict) -> dict:
     parts = synthetic_mnist(n_train=128, n_test=32).generate_partitions(4, RandomIIDPartitionStrategy)
     sim = MeshSimulation(mlp_model(seed=0, device="cpu"), parts, train_set_size=2, batch_size=32, seed=1,
                          mesh=mesh, device="cpu")
-    ckpt = FLCheckpointer(os.path.join(sys.argv[1], f"ckpt_w{world}_r{mesh.rank}"))
+    ckpt = FLCheckpointer(os.path.join(sys.argv[1], f"ckpt_w{world}"))
     note("save_to", lambda: sim.save_to(ckpt))
     note("load_from", lambda: sim.load_from(ckpt))
     note("run_checkpointer", lambda: sim.run(rounds=1, warmup=False, checkpointer=ckpt))
@@ -181,7 +183,7 @@ def _refusals(mesh, init: dict) -> dict:
     model = Mesh({"nodes": 1, "model": world}, device="cpu", group=mesh.group)
     split = MeshSimulation(mlp_model(seed=0, device="cpu"), parts, train_set_size=2, batch_size=32, seed=1,
                            mesh=model, device="cpu")
-    note("model_save_to", lambda: split.save_to(ckpt))
+    note("model_save_to", lambda: split.save_to(FLCheckpointer(os.path.join(sys.argv[1], f"ckpt_w{world}_model"))))
     note("model_round_cost_analysis", lambda: split.round_cost_analysis())
     moe_lm = moe_lm_model(0, 8, 16, 2, 2, 16, 2, device="cpu")
     toks = np.zeros((4, 2, 8), np.int32)
