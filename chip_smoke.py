@@ -61,7 +61,7 @@ Phases, each on its own printed lines:
    equal the per-round counts times the 4 rounds driven.
 3a. telemetry (``phase_telemetry``, right after phase 3: a long process's
    later profiler sessions were seen to record no kernel): the host
-   telemetry plane and the profiler on phase 3's LM, 2 rounds a run after a
+   telemetry plane and the profiler on phase 3's LM, 1 round a run after a
    warm-up round (a new engine's allocator grows in it): the device observatory off twice (does the card's round
    reproduce bit for bit?), then on, once with the first round under
    ``run(profile_dir=...)``'s ``torch.profiler`` window, whose Chrome trace
@@ -96,10 +96,10 @@ Phases, each on its own printed lines:
    a future fold must return the carry bit-identical) and f32 (the
    CUDA-core instances at D), held to the bars of phase 2 and the carry
    phase, then timed beside the aten flash forward and backward at the same
-   shape, with the bound at the true D; under torch.profiler one call each
+   shape, with the bound at the true D (phase 23 checks that one call each
    of the forward (with and without lse), dq and dk/dv at [8, 1024, 16, 32]
-   must be one CUDA kernel each (no pad copies), and, in phase 16's process
-   of its own, one carry call at [2, 1024, 16, 32]. Then rows 1-4 the same way
+   is one CUDA kernel each, no pad copies, and so is one carry call at
+   [2, 1024, 16, 32]). Then rows 1-4 the same way
    at the flash classifier's own shapes (bf16, head size 32, a sequence of
    64: one 64-row tile of the narrow kernels): training at [16, 64, 4, 32],
    eval at [256, 64, 4, 32]. Each row 2 also records the backend SDPA takes
@@ -239,7 +239,7 @@ Phases, each on its own printed lines:
    node 0's hash, accuracy and cohort fill equal to the control's.
 12f. asyncpop: ``AsyncPopulationEngine`` at ``bench.py --asyncpop``'s
    shapes. Throughput: 100,000 vnodes, cohort 0.01, tiers (1, 1, 1, 2, 5),
-   its 12 windows cut to 6, ledger attached: every window closes, fold lag <=
+   its 12 windows cut to 2, ledger attached: every window closes, fold lag <=
    ``ASYNCPOP_MAX_LAG``, simulated throughput per contribution >= 2x the
    sync barrier's over the matching committee schedule, accuracy finite.
    IID control (n 256): the async global's hash equal to the sync engine's,
@@ -331,7 +331,7 @@ Phases, each on its own printed lines:
    of 13b's schedule, saving after each round, ``max_to_keep`` 2), the LM
    on ``{"nodes": 1, "model": W}`` (13d's sequences a node, 2 rounds,
    saving after each, its gathered state hashed), ``PopulationEngine`` at
-   100,000 nodes (cohort 0.01, 2 rounds, a save after each) and
+   20,000 nodes (cohort 0.01, 2 rounds, a save after each) and
    ``AsyncPopulationEngine`` (2 windows in chunks of 1, a save after each
    chunk). World B resumes every arm from A's first save. This process runs
    the one-process references and restores A's W-rank steps in one process.
@@ -344,6 +344,30 @@ Phases, each on its own printed lines:
    ``save_to`` / ``load_from``. Per rank the save's host-copy, write and
    commit-wait ms, the load ms, s/round or s/window, members per rank and
    peak memory are printed.
+13f. mesh2d (``phase_mesh2d``): 2-D rank meshes, one world of four rank
+   processes of this script (``--mesh2d-worker DIR``): with fewer than four
+   cards four gloo ranks sharing the first, with four or more four NCCL
+   ranks. Arm A: 13d's model arm (the slice's flash LM round, its
+   sequences a node on that backend, a warm-up and one round of
+   ``EM_SCHEDULE``) on ``make_mesh((2, 2), ("nodes", "model"))``: the eval
+   loss within ``EM_LOSS_BAR`` and node 0's gathered parameters within
+   ``EM_PARAMS_RTOL`` of the update from the one process's run (13d's,
+   reused when it ran in this process), the hash equal on every rank and
+   bit-equal to the same round on ``{"nodes": 1, "model": 2}`` over ranks 0
+   and 1 (a process group of their own), the members each nodes rank
+   trained, rows 1, 3, 4 launched as the one process's times the share of
+   the members on the rank's slab and row 2 as the one process's, and each
+   sub-group's bytes equal to ``mesh2d_tp_bytes``. Arm B: the ring phase's
+   ring_flash LM (2 x 8192 tokens) on ``make_mesh((2, 2), ("batch",
+   "seq"))``, a rank's 1 x 4096, a warm-up and ``MESH2D_RING_STEPS`` Adam
+   steps: logits of the rank's shard finite, the loss per step finite,
+   falling and within ``SEQSTAGE_LOSS_BAR`` of 13c's one-process run, the
+   parameters' hash equal on every rank, row 5 launched ``LAYERS * (seq
+   coordinate + 1)`` times a step and rows 1-4 never, each sub-group's bytes
+   equal to ``mesh2d_ring_bytes``. Arm C: ``dryrun_multichip(4)`` over the
+   ranks: every rank runs its five phases, rank 0 alone prints five ``OK``
+   lines. Per rank the backend, W, device and cards seen, s/round or
+   s/step, bytes by axis and peak memory are printed.
 14. longcontext: rows 1-4 at the example's own shapes at its defaults
    (bf16, head size 16: the forward and backward pair on the narrow
    kernels; a sequence of 256): training at
@@ -369,9 +393,9 @@ Phases, each on its own printed lines:
    to 640) at [1, 1024, 1, 600], the bf16 rows on the grouped kernels and
    f32 on the chunked kernels, held to the same bars and timed beside
    whatever fused library call takes the shape, its backend recorded
-   ("none" where none does); in a process of its own, one bf16 carry call at
-   [2, 1024, 1, 512] must be one CUDA kernel, the grouped carry, and one at
-   [2, 1024, 16, 32] the narrow carry. Then the LM
+   ("none" where none does); phase 23 checks that one bf16 carry call at
+   [2, 1024, 1, 512] and one at [2, 1024, 16, 32] run two CUDA kernels, the
+   grouped carry and the narrow carry, one each. Then the LM
    and the ring at width 512 over 2 heads and over 1 head (D = 256 / 512),
    and at width 1024 over 1 head (D = 1024) cut to one layer, as in phase
    6, exact launch counts; each LM after a warm-up round, the ring's s/step
@@ -402,11 +426,18 @@ Phases, each on its own printed lines:
    logits against the unpipelined model's (2^-5 of the largest logit), 3
    Adam steps, exact launch counts at [2, 1024, 8, 64].
 22. dryrun: ``dryrun_multichip(4)`` on the card, five OK lines.
-23. sdpa: in a process of its own, the kernel each row 2's SDPA call runs
-   at the row's shape under its recorded backend, its longest CUDA kernel
-   under torch.profiler (``library_kernel``): the smoke's own process
-   was seen to record no kernel in its later profiler sessions (why is not
-   known).
+23. profiled launches (``phase_profiled_launches``): in processes of their
+   own (a process's later profiler sessions were seen to record no kernel:
+   the smoke's own, and one that had run 12 sessions; why is not known),
+   under torch.profiler: one bf16 call each of the forward (with and
+   without lse), dq and dk/dv at [8, 1024, 16, 32] must be one CUDA kernel
+   each, the narrow kernels, and one bf16 carry call at [2, 1024, 1, 512]
+   and one at [2, 1024, 16, 32] two CUDA kernels, the grouped carry and the
+   narrow carry (no pad or slice copies), in one process; then in another
+   the kernel each row 2's SDPA call runs at the row's shape under its
+   recorded backend, its longest CUDA kernel (``library_kernel``). Two
+   processes, not three: a fresh process takes ~15-30 s to its first
+   profile on the card.
 
 ``--profile`` adds one more slice round, one more ring train step, one more
 MLP round, one more run of the cifar example with ``--rounds 1`` (its set-up,
@@ -628,7 +659,7 @@ def sdpa_backend(q, k, v) -> dict:
     ``F.scaled_dot_product_attention(q, k, v, is_causal=True)`` takes under
     the backends enabled here (SDPA's own choice,
     ``torch._fused_sdp_choice``), and ``library_shape``, q's shape, from
-    which :func:`phase_sdpa_kernels` names the kernel it runs."""
+    which :func:`phase_profiled_launches` names the kernel it runs."""
     import torch
     from torch.nn.attention import SDPBackend
 
@@ -660,12 +691,40 @@ def sdpa_kernels(calls: list) -> list:
     return names
 
 
-def phase_sdpa_kernels(rows: dict) -> None:
-    """``library_kernel``: the kernel each row's SDPA call runs (every row
-    :func:`sdpa_backend` recorded), named by :func:`sdpa_kernels` in a
-    process of its own at the row's shape and backend. In this process's
-    own later profiler sessions the card's kernels were seen to go
-    unrecorded; why is not known."""
+def one_launch_kernels(narrow_shape: list, carry_shapes: list) -> dict:
+    """The CUDA kernels of :func:`narrow_call_kernels` and
+    :func:`carry_call_kernels`, one profiler session after the other."""
+    return {"narrow": narrow_call_kernels(narrow_shape), "carry": carry_call_kernels(*carry_shapes)}
+
+
+def phase_profiled_launches(rows: dict) -> None:
+    """Under torch.profiler in processes of their own (on the card, the later
+    profiler sessions of a process that had run many were seen to record
+    no kernel; why is not known): one bf16 call each of the forward (with
+    lse and without), dq and dk/dv at [8, 1024, 16, 32] must be one CUDA
+    kernel each, the narrow kernels, and one bf16 carry call at [2, 1024,
+    1, 512] and one at [2, 1024, 16, 32] two CUDA kernels, the grouped carry
+    and the narrow carry (no pad or slice copies), in one process
+    (:func:`one_launch_kernels`); then ``library_kernel``, the kernel each
+    row's SDPA call runs (every row :func:`sdpa_backend` recorded) at the
+    row's shape and backend, in another (:func:`sdpa_kernels`)."""
+    narrow = [BATCH, SEQ_LEN, EMBED // 32, 32]
+    carries = (([RING_BATCH, RING_SHARD, 1, 512], "flash_carry_grouped_sm90_kernel"),
+               ([RING_BATCH, RING_SHARD, EMBED // 32, 32], "flash_carry_narrow_sm90_kernel"))
+    shapes = [shape for shape, _ in carries]
+    got = in_fresh_process(f"one_launch_kernels({narrow}, {shapes})")
+    names = got["narrow"]
+    print(f"[narrow] one call each of flash_fwd (lse, no lse), flash_bwd_dq and flash_bwd_dkv at {narrow}: "
+          f"CUDA kernels {names}")
+    # Four calls, four kernels, each call's own: so each call is one kernel.
+    want = {"flash_fwd_narrow_sm90_kernel": 2, "flash_bwd_dq_narrow_sm90_kernel": 1,
+            "flash_bwd_dkv_narrow_sm90_kernel": 1}
+    check(len(names) == 4 and all(sum(kern in n for n in names) == c for kern, c in want.items()),
+          f"the calls at {narrow} are not the narrow kernels alone, one each: {names}")
+    names = got["carry"]
+    print(f"[carry-one-launch] one call of flash_carry at each of {shapes} bf16: CUDA kernels {names}")
+    check(len(names) == len(carries) and all(sum(kernel in n for n in names) == 1 for _, kernel in carries),
+          f"the carry calls at {shapes} are not {[k for _, k in carries]}, one each: {names}")
     keys = [key for key, r in rows.items() if "library_shape" in r]
     calls = [(rows[key]["library_backend"], rows[key]["library_shape"]) for key in keys]
     for key, (backend, shape), name in zip(keys, calls, in_fresh_process(f"sdpa_kernels({calls!r})")):
@@ -697,21 +756,26 @@ def narrow_call_kernels(shape: list) -> list:
     return [name for _, name in cuda_kernels(prof)]
 
 
-def carry_call_kernels(shape: list) -> list:
+def carry_call_kernels(*shapes: list) -> list:
     """The names of the CUDA kernels that one bf16 causal carry fold (a past
-    chunk into a fresh carry) at ``shape`` runs under torch.profiler (after
-    a warm-up call)."""
+    chunk into a fresh carry) at each of ``shapes`` runs, under one
+    torch.profiler session (after a warm-up call of each)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from p2pfl_tpu_torch.ops import _kernels
     from p2pfl_tpu_torch.ops import attention as att
 
-    q, k, v = (torch.randn(shape).to("cuda", torch.bfloat16) for _ in range(3))
-    carry = att.init_carry(q.shape, q.device)
-    _kernels.flash_carry(carry, q, k, v, shape[1], 0, True)
+    calls = []
+    for shape in shapes:
+        q, k, v = (torch.randn(shape).to("cuda", torch.bfloat16) for _ in range(3))
+        carry = att.init_carry(q.shape, q.device)
+        calls.append(lambda q=q, k=k, v=v, carry=carry, s=shape[1]: _kernels.flash_carry(carry, q, k, v, s, 0, True))
+    for call in calls:
+        call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _kernels.flash_carry(carry, q, k, v, shape[1], 0, True)
+        for call in calls:
+            call()
         torch.cuda.synchronize()
     return [name for _, name in cuda_kernels(prof)]
 
@@ -1358,13 +1422,8 @@ def efficient_attention_ms(qh, kh, vh, gh) -> dict:
 
 def phase_kernels_narrow() -> dict:
     """Rows 1-5 at head sizes 32 and 16 (the width of rows 1-5 over more
-    heads), in bf16 and f32; then, under torch.profiler, one bf16 call each
-    of the forward (with lse and without), dq and dk/dv at [8, 1024, 16, 32]
-    must be one CUDA kernel each, the narrow kernels: no pad or slice
-    copies. That check runs in a process of its own
-    (``narrow_call_kernels``): on the card, the later profiler sessions of a
-    process that had run many were seen to record no kernel (why is not
-    known). Returns {"<name>_d<D>": row}."""
+    heads), in bf16 and f32 (their one-kernel check is
+    :func:`phase_profiled_launches`'). Returns {"<name>_d<D>": row}."""
     import torch
 
     gen = torch.Generator().manual_seed(4)
@@ -1372,15 +1431,6 @@ def phase_kernels_narrow() -> dict:
     for d in NARROW_HEAD_DIMS:
         rows.update(narrow_rows("narrow", narrow_suffix(d), d, EMBED // d, BATCH, EVAL_SEQS, SEQ_LEN,
                                 (torch.bfloat16, torch.float32), True, gen))
-    shape = [BATCH, SEQ_LEN, EMBED // 32, 32]
-    names = in_fresh_process(f"narrow_call_kernels({shape})")
-    print(f"[narrow] one call each of flash_fwd (lse, no lse), flash_bwd_dq and flash_bwd_dkv at {shape}: "
-          f"CUDA kernels {names}")
-    # Four calls, four kernels, each call's own: so each call is one kernel.
-    want = {"flash_fwd_narrow_sm90_kernel": 2, "flash_bwd_dq_narrow_sm90_kernel": 1,
-            "flash_bwd_dkv_narrow_sm90_kernel": 1}
-    check(len(names) == 4 and all(sum(kern in n for n in names) == c for kern, c in want.items()),
-          f"the calls at {shape} are not the narrow kernels alone, one each: {names}")
     return rows
 
 
@@ -1495,11 +1545,11 @@ def phase_slice() -> dict:
     return launches, sim
 
 
-# The telemetry phase: the slice's LM for TELEMETRY_ROUNDS rounds a run
+# The telemetry phase: the slice's LM for TELEMETRY_ROUNDS round(s) a run
 # (one round a chunk; the first chunk traced), a NaN injected at round 1 for
 # the trip, and the cost count checked on the card against the CPU on a
 # one-layer LM of the same kind (COST_CHECK_*).
-TELEMETRY_ROUNDS = 2
+TELEMETRY_ROUNDS = 1  # after a warm-up round; was 2, cut for the whole smoke's time limit
 COST_CHECK_NODES, COST_CHECK_SEQS, COST_CHECK_SEQ, COST_CHECK_BATCH = 2, 4, 256, 2
 FLASH_TRACE_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel")
 
@@ -3736,9 +3786,11 @@ def phase_population(card: str) -> None:
 
 # The async population phase (phase 12f): bench.py --asyncpop's arms
 # (ASYNCPOP_BENCH_NODES / _COHORT, seed 42, ASYNCPOP_BENCH_WINDOWS' 12
-# windows cut to 6 for the whole smoke's time limit; the IID control, the
-# flash crowd and one ceiling probe) and scripts/soak_check.py's drill.
-ASYNC_WINDOWS, ASYNC_EVAL_EVERY = 4, 2
+# windows cut to 2 for the whole smoke's time limit: the simulated
+# throughput is 3.99x the barrier's over 2 windows, 4.38x over 4; the IID
+# control, the flash crowd and one ceiling probe) and scripts/soak_check.py's
+# drill.
+ASYNC_WINDOWS, ASYNC_EVAL_EVERY = 2, 2
 ASYNC_TIERS = (1.0, 1.0, 1.0, 2.0, 5.0)
 ASYNC_CTL_NODES, ASYNC_CTL_WINDOWS = 256, 5
 ASYNC_FC_NODES, ASYNC_FC_PERIOD = 4096, 8
@@ -4335,6 +4387,9 @@ SEQSTAGE_DEADLINE_S = 420.0
 # gradients are summed over the ranks in another order (bf16 compute, f32
 # sums), and Adam's first steps divide a gradient by its own magnitude.
 SEQSTAGE_LOSS_BAR = 1e-2
+#: ``phase_seqstage``'s one-process ring run (its loss per step), kept when it
+#: ran in this process: ``phase_mesh2d``'s batch x seq arm is held to it.
+ONE_PROCESS_RING: dict = {}
 
 
 def seqstage_arm(cards: int) -> tuple:
@@ -4374,11 +4429,12 @@ def tree_hash(tree: dict) -> str:
     return h.hexdigest()
 
 
-def seqstage_ring(mesh) -> dict:
+def seqstage_ring(mesh, batch_axis=None, steps: int = RING_STEPS) -> dict:
     """The ring phase's run on ``mesh`` (a ranked ``seq`` axis, or W virtual
-    shards): the first-step logits (no grad; this rank's shard over ranks),
-    then a warm-up and ``RING_STEPS`` Adam steps, every count set to 0
-    before the steps and read after."""
+    shards; with ``batch_axis`` the batch split over it too): the first-step
+    logits (no grad; this rank's shard over ranks), then a warm-up and
+    ``steps`` Adam steps, every count set to 0 before the steps and read
+    after."""
     import numpy as np
     import torch
     from p2pfl_tpu_torch.models.transformer import transformer_lm_model
@@ -4395,12 +4451,12 @@ def seqstage_ring(mesh) -> dict:
     model = transformer_lm_model(0, RING_SEQ, VOCAB, LAYERS, HEADS, EMBED, "ring_flash", "seq", device=mesh.device)
     rng = np.random.default_rng(7)
     x = (rng.integers(0, VOCAB, size=(RING_BATCH, 1)) + np.arange(RING_SEQ)) % VOCAB
-    tokens = shard_tokens(x.astype(np.int32), mesh)
+    tokens = shard_tokens(x.astype(np.int32), mesh, "seq", batch_axis)
     with torch.no_grad():
-        logits = sequence_parallel_apply(model.apply, mesh)(model.params, tokens)
+        logits = sequence_parallel_apply(model.apply, mesh, "seq", batch_axis)(model.params, tokens)
     opt = adam(LR)
     params, state = model.params, opt.init(model.params)
-    step = make_sequence_parallel_train_step(model.apply, opt, mesh, "seq")
+    step = make_sequence_parallel_train_step(model.apply, opt, mesh, "seq", batch_axis)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launches()
@@ -4409,13 +4465,14 @@ def seqstage_ring(mesh) -> dict:
     losses = [loss]
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    for _ in range(RING_STEPS):
+    for _ in range(steps):
         params, state, loss = step(params, state, tokens)
         losses.append(loss)
     torch.cuda.synchronize()
-    return {"logits": logits, "losses": [float(v) for v in losses], "s_per_step": (time.monotonic() - t0) / RING_STEPS,
+    return {"logits": logits, "losses": [float(v) for v in losses], "s_per_step": (time.monotonic() - t0) / steps,
             "launches": dict(_kernels.LAUNCHES),
-            "bytes_per_step": collectives.STATS["ppermute_bytes"] / (RING_STEPS + 1),
+            "bytes_per_step": collectives.STATS["ppermute_bytes"] / (steps + 1),
+            "axis_stats": {a: dict(v) for a, v in collectives.AXIS_STATS.items()},
             "peak": torch.cuda.max_memory_allocated(), "hash": canonical_params_hash(params)}
 
 
@@ -4493,6 +4550,7 @@ def phase_seqstage(card: str) -> dict:
     print(f"[seqstage] {card}: {label}, ring {RING_BATCH} x {RING_SEQ} tokens over seq = {world}, pipeline "
           f"{BATCH} x {SEQ_LEN} in {PP_MICRO} microbatches over stage = {world}")
     ring_ref = seqstage_ring(Mesh({"seq": world}, device="cuda"))
+    ONE_PROCESS_RING.update(losses=ring_ref["losses"], shards=world)
     pp_ref = seqstage_pipeline(Mesh({"stage": world}, device="cuda"))
     print(f"[seqstage] one process, seq = {world} virtual shards: {ring_ref['s_per_step']:.4f} s/step, loss per step "
           f"{ring_ref['losses']}, hash {ring_ref['hash'][:23]}, peak {ring_ref['peak']} bytes")
@@ -4591,6 +4649,11 @@ EM_SCHEDULE = ((5, 0, 6, 2),)
 # ranks in another order move bf16 gradients by an ulp, which Adam turns into
 # sign flips of near-zero elements).
 EM_LOGITS_BAR, EM_LOSS_BAR, EM_PARAMS_RTOL = 6e-2, 1e-2, 1e-1
+#: ``phase_expertmodel``'s one-process model-arm run by sequences a node
+#: (its test loss, hash, launches, and final and initial parameters on the
+#: host), kept when it ran in this process:
+#: ``phase_mesh2d``'s nodes x model arm is the same run.
+ONE_PROCESS_TP: dict = {}
 
 
 def em_tp_bytes(batch: int) -> tuple:
@@ -4694,10 +4757,12 @@ def em_model(mesh, seqs: int) -> dict:
     res = sim.run(rounds=EM_ROUNDS, epochs=1, warmup=True, committee_schedule=np.asarray(EM_SCHEDULE))
     launches = dict(_kernels.LAUNCHES)
     stats = dict(collectives.STATS)
+    axis_stats = {a: dict(v) for a, v in collectives.AXIS_STATS.items()}
     final = sim.final_model(0).params
     dev = sim.device
     out = {"s_per_round": res.seconds_per_round, "test_loss": res.test_loss, "hash": canonical_params_hash(final),
            "launches": launches, "gather_dim_bytes": stats["gather_dim_bytes"], "sum_bytes": stats["sum_bytes"],
+           "axis_stats": axis_stats, "rank_members": sim.rank_members,
            "peak": torch.cuda.max_memory_allocated(dev), "params": final, "start": start,
            "local_bytes": sum(v.numel() * v.element_size() for v in sim.params_stack.values())}
     sim.close()
@@ -4784,6 +4849,8 @@ def phase_expertmodel(card: str) -> dict:
           f"{gather_eval} gathered an eval")
     ref_ep = em_expert(Mesh({"expert": world}, device="cuda"))
     ref_tp = em_model(None, seqs)
+    ONE_PROCESS_TP[seqs] = {**{k: ref_tp[k] for k in ("test_loss", "hash", "launches", "s_per_round")},
+                            **{k: {n: t.cpu() for n, t in ref_tp[k].items()} for k in ("params", "start")}}
     print(f"[expertmodel] one process, expert arm: {ref_ep['s_per_step']:.4f} s/step, loss per step "
           f"{ref_ep['losses']}, peak {ref_ep['peak']} bytes")
     print(f"[expertmodel] one process, model arm: {ref_tp['s_per_round']:.4f} s/round, test loss "
@@ -4872,6 +4939,11 @@ def phase_expertmodel(card: str) -> dict:
 SHARDED_FLAG = "--sharded-worker"
 SHARDED_DEADLINE_S = 420.0
 SHARDED_POP_ROUNDS = 2
+# The engines' population here: 20,000 nodes (cohort POP_COHORT, 200 members
+# a round or window), a fifth of phase_population's and phase_asyncpop's
+# 100,000, to keep the whole smoke under ~1000 s on a slow host (the member
+# loop is the engines' time).
+SHARDED_POP_NODES = 20_000
 # The async arm's depth: 2 windows in chunks of 1 (a save, then a resume
 # from it), to keep the phase under 240 s and the whole smoke under 1100 s.
 SHARDED_WINDOWS, SHARDED_WINDOW_CHUNK = 2, 1
@@ -5001,7 +5073,7 @@ def sharded_model(mesh, root: str, mode: str, seqs: int) -> dict:
 
 
 def sharded_engines(mesh, root: str, mode: str) -> dict:
-    """Both engines at 100,000 nodes over ``mesh`` (None: this process):
+    """Both engines at SHARDED_POP_NODES nodes over ``mesh`` (None: this process):
     ``PopulationEngine`` for SHARDED_POP_ROUNDS rounds a round a chunk,
     ``AsyncPopulationEngine`` for SHARDED_WINDOWS windows in chunks of
     SHARDED_WINDOW_CHUNK. World A saves after each chunk; world B resumes
@@ -5015,7 +5087,7 @@ def sharded_engines(mesh, root: str, mode: str) -> dict:
     ck = FLCheckpointer(os.path.join(root, "pop_sync"), max_to_keep=2) if mesh is not None else None
     saves, loads = [], []
     sharded_arm_start()
-    eng = PopulationEngine(POP_NODES, cohort_fraction=POP_COHORT, seed=POP_SEED, mesh=mesh, device="cuda")
+    eng = PopulationEngine(SHARDED_POP_NODES, cohort_fraction=POP_COHORT, seed=POP_SEED, mesh=mesh, device="cuda")
     if mode == "B":
         counted(eng.load_from, loads)(ck, step=1)
     members, seconds = [], 0.0
@@ -5039,7 +5111,7 @@ def sharded_engines(mesh, root: str, mode: str) -> dict:
     ck = FLCheckpointer(os.path.join(root, "pop_async"), max_to_keep=2) if mesh is not None else None
     saves, loads = [], []
     sharded_arm_start()
-    eng = AsyncPopulationEngine(POP_NODES, cohort_fraction=POP_COHORT, seed=POP_SEED, speed_tiers=ASYNC_TIERS,
+    eng = AsyncPopulationEngine(SHARDED_POP_NODES, cohort_fraction=POP_COHORT, seed=POP_SEED, speed_tiers=ASYNC_TIERS,
                                 mesh=mesh, device="cuda")
     if mode == "B":
         counted(eng.load_from, loads)(ck, step=SHARDED_WINDOW_CHUNK)
@@ -5129,7 +5201,7 @@ def phase_sharded(card: str) -> dict:
     per_member = KERNEL_ROWS["flash_fwd"][1] // COMMITTEE
     print(f"[sharded] {card}: {label}; the LM over nodes (8 nodes, committee 4, {SEQS} x {SEQ_LEN} tokens a node) and "
           f"over nodes 1 x model {world} ({seqs} sequences a node), PopulationEngine and AsyncPopulationEngine at "
-          f"{POP_NODES} nodes")
+          f"{SHARDED_POP_NODES} nodes")
     # The one-process references: the uninterrupted runs (the nodes arm's is
     # phase_multirank's, when it ran in this process).
     from p2pfl_tpu_torch.telemetry.ledger import canonical_params_hash
@@ -5245,6 +5317,264 @@ def phase_sharded(card: str) -> dict:
             for mode, got in (("A", got_a), ("B", got_b)) for arm in ("nodes", "model")}
 
 
+# 2-D rank meshes (docstring phase 13f): one world of four rank processes of
+# this script (``--mesh2d-worker DIR``): with fewer than four cards four gloo
+# ranks sharing the first (every exchange of CUDA tensors goes through host
+# memory), with four or more four NCCL ranks, one card each. Arm A is
+# phase_expertmodel's model arm on nodes 2 x model 2, arm B the ring phase's
+# LM on batch 2 x seq 2, arm C ``dryrun_multichip(4)``.
+MESH2D_FLAG = "--mesh2d-worker"
+MESH2D_DEADLINE_S = 600.0
+MESH2D_WORLD, MESH2D_RING_STEPS = 4, 3
+
+
+def mesh2d_local_param_bytes() -> int:
+    """Bytes of one node's parameters as a rank of ``model`` = 2 holds them:
+    f32, every leaf that splits at 2 halved."""
+    import math
+
+    import torch
+    from p2pfl_tpu_torch.models.transformer import TransformerLM
+    from p2pfl_tpu_torch.parallel.tensor_parallel import split_dims
+
+    with torch.device("meta"):
+        module = TransformerLM(VOCAB, LAYERS, HEADS, EMBED, "flash")
+    shapes = {k: tuple(v.shape) for k, v in module.named_parameters()}
+    dims = split_dims(shapes, 2)
+    return sum(4 * math.prod(shape) // (2 if k in dims else 1) for k, shape in shapes.items())
+
+
+def mesh2d_tp_bytes(rank: int, seqs: int) -> dict:
+    """The bytes rank ``rank`` of arm A moves on each sub-group in its run
+    (a warm-up round and ``EM_ROUNDS`` rounds of ``EM_SCHEDULE``, with
+    ``seqs`` sequences a node), by ``AXIS_STATS``' keys. Along ``nodes`` the K
+    member rows a round: a node's parameters as the rank holds them, its
+    loss and, in a timed round, its devobs norm (f32). Along ``model`` the
+    column-parallel passes of ``em_tp_bytes``: the members of the rank's slab
+    (the slab of its ``nodes`` coordinate) and the eval, and a timed round's
+    devobs norm a member. In the world the devobs flag (f64) and the test
+    values (f32) a timed round."""
+    steps = seqs // BATCH
+    gather_step, sum_step = em_tp_bytes(BATCH)
+    gather_eval, _ = em_tp_bytes(EVAL_SEQS)
+    mine = sum(node // (NODES // 2) == rank // 2 for node in EM_SCHEDULE[0])
+    rounds = EM_ROUNDS + 1  # the warm-up round runs the schedule's first row too
+    row = mesh2d_local_param_bytes() + 4
+    return {"nodes": {"all_gather_bytes": COMMITTEE * (rounds * row + EM_ROUNDS * 4)},
+            "model": {"gather_dim_bytes": rounds * (mine * steps * gather_step + gather_eval),
+                      "sum_bytes": rounds * mine * steps * sum_step + EM_ROUNDS * mine * 4},
+            "world": {"reduce_bytes": 8 * EM_ROUNDS, "broadcast_bytes": 4 * 2 * EM_ROUNDS}}
+
+
+def mesh2d_ring_bytes(steps: int) -> dict:
+    """The bytes each rank of arm B moves on each sub-group in a warm-up and
+    ``steps`` steps (``ring_ppermute_bytes`` at a batch row of one sequence
+    and two seq ranks): along ``seq`` the (k, v) rotations (bf16) and the
+    neighbour's first token (int32), and the loss' sum and count (f32); along
+    ``batch`` the same sum; in the world the gradients (f32) a step and rank
+    0's parameters on the first."""
+    n = steps + 1
+    b = RING_BATCH // 2
+    kv = 2 * b * (RING_SEQ // 2) * EMBED * 2
+    return {"seq": {"ppermute_bytes": n * (3 * LAYERS * kv + b * 4), "sum_bytes": n * 8},
+            "batch": {"sum_bytes": n * 8},
+            "world": {"reduce_bytes": n * N_PARAMS * 4, "broadcast_bytes": N_PARAMS * 4}}
+
+
+def axis_stats_diff(got: dict, want: dict) -> list:
+    """The ``(axis, key, got, want)`` where ``AXIS_STATS`` ``got`` differs
+    from ``want`` (keys ``want`` leaves out must be 0)."""
+    out = []
+    for axis in sorted(set(got) | set(want)):
+        for key in sorted(set(got.get(axis, {})) | set(want.get(axis, {}))):
+            a, b = got.get(axis, {}).get(key, 0), want.get(axis, {}).get(key, 0)
+            if a != b:
+                out.append((axis, key, a, b))
+    return out
+
+
+def mesh2d_rank(out_dir: str) -> int:
+    """One rank of ``phase_mesh2d``, started by ``launch`` with torchrun's
+    variables: arm A on ``make_mesh((2, 2), ("nodes", "model"))`` held to the
+    one-process parameters (``<dir>/model<seqs>.pt``), then the same round
+    on ``{"nodes": 1, "model": 2}`` over ranks 0 and 1 (a process group of
+    their own; ranks 2 and 3 go on), arm B on ``make_mesh((2, 2), ("batch",
+    "seq"))`` and arm C; the result written to ``<dir>/rank<r>.json``."""
+    import contextlib
+    import io
+
+    import torch
+    import torch.distributed as dist
+    from p2pfl_tpu_torch.entry import dryrun_multichip
+    from p2pfl_tpu_torch.parallel.mesh import Mesh, initialize_multihost, make_mesh, shutdown_multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    joined = initialize_multihost(device="cuda")
+    rank, world = joined["rank"], joined["world"]
+    seqs = EM_GLOO_SEQS if joined["backend"] == "gloo" else SEQS
+    out = {"rank": rank, "world": world, "backend": joined["backend"], "cards_seen": torch.cuda.device_count(),
+           "seqs": seqs}
+    mesh = make_mesh((2, 2), ("nodes", "model"))
+    out["device"] = f"{mesh.device} {torch.cuda.get_device_name(mesh.device)}"
+    got = em_model(mesh, seqs)
+    ref = torch.load(os.path.join(out_dir, f"model{seqs}.pt"), map_location=mesh.device)
+    final = got.pop("params")
+    got["params_rel"] = update_rel(final, ref["params"], ref["start"])
+    got.pop("start")
+    out["nodes_model"] = got
+    del ref, final
+    gc.collect()
+    torch.cuda.empty_cache()
+    pair = dist.new_group([0, 1])  # every rank creates it
+    if rank < 2:
+        two = em_model(Mesh({"nodes": 1, "model": 2}, device=mesh.device, group=pair), seqs)
+        out["model2"] = {k: two[k] for k in ("hash", "test_loss", "s_per_round")}
+        del two
+        gc.collect()
+        torch.cuda.empty_cache()
+    ring = seqstage_ring(make_mesh((2, 2), ("batch", "seq")), "batch", MESH2D_RING_STEPS)
+    logits = ring.pop("logits")
+    ring["logits_finite"] = bool(torch.isfinite(logits).all())
+    ring["logits_shape"] = list(logits.shape)
+    out["batch_seq"] = ring
+    del logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ran = dryrun_multichip(world, "cuda")
+    out["dryrun"] = {"ran": ran, "printed": buf.getvalue()}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    shutdown_multihost()
+    print(f"[mesh2d] rank {rank} of {world} done", flush=True)
+    return 0
+
+
+def phase_mesh2d(card: str) -> tuple:
+    """2-D rank meshes on the card (docstring phase 13f): the one-process
+    references (``phase_expertmodel``'s model-arm run and ``phase_seqstage``'s
+    ring run when they ran in this process), then four rank processes of
+    this script (``--mesh2d-worker DIR``). Returns ``(rows 1-4, row 5)``:
+    arm A's launches per rank under the kernel rows' names, arm B's carry
+    launches per rank."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from p2pfl_tpu_torch.parallel.launch import launch
+    from p2pfl_tpu_torch.parallel.mesh import Mesh
+
+    cards = torch.cuda.device_count()
+    backend, world = ("nccl", MESH2D_WORLD) if cards >= MESH2D_WORLD else ("gloo", MESH2D_WORLD)
+    label = f"{backend}{world}"
+    seqs = EM_GLOO_SEQS if backend == "gloo" else SEQS
+    print(f"[mesh2d] {card}: {label}; arm A: the flash LM round on nodes 2 x model 2 ({NODES} nodes, committee "
+          f"{COMMITTEE}, {seqs} sequences a node, {EM_ROUNDS} round + warm-up), held to the one process and to "
+          f"nodes 1 x model 2 on ranks 0-1; arm B: the ring_flash LM on batch 2 x seq 2 ({RING_BATCH} x {RING_SEQ} "
+          f"tokens, {RING_BATCH // 2} x {RING_SEQ // 2} a rank, a warm-up and {MESH2D_RING_STEPS} steps); arm C: "
+          f"dryrun_multichip({world})")
+    ref_tp = ONE_PROCESS_TP.get(seqs)
+    source_tp = " (phase_expertmodel's run)" if ref_tp else ""
+    if ref_tp is None:
+        run = em_model(None, seqs)
+        ref_tp = {**run, **{k: {n: t.cpu() for n, t in run[k].items()} for k in ("params", "start")}}
+        del run
+    ring_ref = ONE_PROCESS_RING.get("losses")
+    source_ring = f" (phase_seqstage's run at seq = {ONE_PROCESS_RING.get('shards')})" if ring_ref else ""
+    if ring_ref is None:
+        ring_ref = seqstage_ring(Mesh({"seq": 2}, device="cuda"))["losses"]
+    print(f"[mesh2d] one process{source_tp}: {ref_tp['s_per_round']:.4f} s/round, test loss {ref_tp['test_loss']}, "
+          f"hash {ref_tp['hash'][:23]}, launches {json.dumps({n: ref_tp['launches'][n] for n in KERNEL_ROWS})}; "
+          f"ring{source_ring}: loss per step {ring_ref}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as tmp:
+        torch.save({k: ref_tp[k] for k in ("params", "start")}, os.path.join(tmp, f"model{seqs}.pt"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        runs = launch([sys.executable, os.path.abspath(__file__), MESH2D_FLAG, tmp], world,
+                      timeout_s=MESH2D_DEADLINE_S, cwd=root)
+        wall = time.monotonic() - t0
+        for rank, (rc, out) in enumerate(runs):
+            if rc != 0:
+                print(out[-6000:])
+            check(rc == 0, f"mesh2d {label} rank {rank} exited {rc}")
+        got = []
+        for rank in range(world):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                got.append(json.load(f))
+    print(f"[mesh2d] {label}: {wall:.1f} s for the world (start to exit), {card}")
+    ring_want = mesh2d_ring_bytes(MESH2D_RING_STEPS)
+    for g in got:
+        r, tp, ring = g["rank"], g["nodes_model"], g["batch_seq"]
+        i, j = divmod(r, 2)
+        check(g["backend"] == backend and g["world"] == world, f"mesh2d {label}: rank {r} joined {g['backend']}")
+        want = mesh2d_tp_bytes(r, seqs)
+        mine = sum(node // (NODES // 2) == i for node in EM_SCHEDULE[0])
+        print(f"[mesh2d] {label} rank {r} (nodes {i}, model {j}) arm A: backend {g['backend']}, W {world}, device "
+              f"{g['device']} of {g['cards_seen']} seen, {tp['s_per_round']:.4f} s/round, members per nodes rank "
+              f"{tp['rank_members']}, bytes by axis {json.dumps(tp['axis_stats'])} (predicted {json.dumps(want)}), "
+              f"population {tp['local_bytes']} bytes a rank, peak {tp['peak']} bytes ({tp['peak'] / 2**30:.2f} "
+              f"GiB), test loss {tp['test_loss']} (one process {ref_tp['test_loss']}, bar {EM_LOSS_BAR}), final "
+              f"parameters {tp['params_rel']:.3e} of the update (bar {EM_PARAMS_RTOL}), hash {tp['hash'][:23]}, "
+              f"launches {json.dumps({n: tp['launches'][n] for n in KERNEL_ROWS})}")
+        check(all(np.isfinite(tp["test_loss"])), f"mesh2d arm A rank {r}: test loss not finite")
+        gap = max(abs(a - b) for a, b in zip(tp["test_loss"], ref_tp["test_loss"]))
+        check(gap <= EM_LOSS_BAR, f"mesh2d arm A rank {r}: eval loss {gap:.3e} from the one process's")
+        check(tp["params_rel"] <= EM_PARAMS_RTOL, f"mesh2d arm A rank {r}: parameters {tp['params_rel']:.3e} of "
+              "the update from the one process's")
+        check(tp["hash"] == got[0]["nodes_model"]["hash"], f"mesh2d arm A rank {r}: final hash differs from rank 0's")
+        check(tp["rank_members"] == [[mine, COMMITTEE - mine]] * EM_ROUNDS if i == 0 else
+              tp["rank_members"] == [[COMMITTEE - mine, mine]] * EM_ROUNDS,
+              f"mesh2d arm A rank {r}: members per nodes rank {tp['rank_members']}")
+        diff = axis_stats_diff(tp["axis_stats"], want)
+        check(not diff, f"mesh2d arm A rank {r}: bytes by axis differ from the formula: {diff}")
+        for name in KERNEL_ROWS:
+            n = ref_tp["launches"][name]
+            expect = n if name == "flash_fwd_no_lse" else n * mine // COMMITTEE
+            check(tp["launches"][name] == expect, f"mesh2d arm A rank {r}: {name} launched {tp['launches'][name]} "
+                  f"times, expected {expect} (one process {n}, {mine} of {COMMITTEE} members on this slab)")
+        check(tp["launches"]["flash_carry"] == 0, f"mesh2d arm A rank {r}: the carry launched")
+        if "model2" in g:
+            two = g["model2"]
+            print(f"[mesh2d] {label} rank {r} nodes 1 x model 2 on ranks 0-1: {two['s_per_round']:.4f} s/round, test "
+                  f"loss {two['test_loss']}, hash {two['hash'][:23]} "
+                  f"({'bit-equal to' if two['hash'] == tp['hash'] else 'NOT equal to'} nodes 2 x model 2)")
+            check(two["hash"] == tp["hash"] and two["test_loss"] == tp["test_loss"],
+                  f"mesh2d rank {r}: nodes 2 x model 2 differs from nodes 1 x model 2")
+        folds = LAYERS * (j + 1) * (MESH2D_RING_STEPS + 1)
+        gap = max(abs(a - b) for a, b in zip(ring["losses"], ring_ref))
+        print(f"[mesh2d] {label} rank {r} (batch {i}, seq {j}) arm B: {ring['s_per_step']:.4f} s/step, bytes by axis "
+              f"{json.dumps(ring['axis_stats'])} (predicted {json.dumps(ring_want)}), peak {ring['peak']} bytes "
+              f"({ring['peak'] / 2**30:.2f} GiB), logits {ring['logits_shape']}, loss per step {ring['losses']} (gap "
+              f"to one process {gap:.3e}, bar {SEQSTAGE_LOSS_BAR}), hash {ring['hash'][:23]}, launches "
+              f"{json.dumps(ring['launches'])}")
+        check(ring["logits_finite"] and ring["logits_shape"] == [RING_BATCH // 2, RING_SEQ // 2, VOCAB],
+              f"mesh2d arm B rank {r}: logits {ring['logits_shape']} not finite or not this rank's shard")
+        check(all(np.isfinite(ring["losses"])) and ring["losses"][-1] < ring["losses"][0],
+              f"mesh2d arm B rank {r}: loss not finite and falling: {ring['losses']}")
+        check(gap <= SEQSTAGE_LOSS_BAR, f"mesh2d arm B rank {r}: loss {gap:.3e} from the one process's")
+        check(ring["hash"] == got[0]["batch_seq"]["hash"], f"mesh2d arm B rank {r}: parameters differ from rank 0's")
+        diff = axis_stats_diff(ring["axis_stats"], ring_want)
+        check(not diff, f"mesh2d arm B rank {r}: bytes by axis differ from the formula: {diff}")
+        check(ring["launches"]["flash_carry"] == folds, f"mesh2d arm B rank {r}: flash_carry launched "
+              f"{ring['launches']['flash_carry']} times, expected {folds} ({LAYERS} layers x {j + 1} folds x "
+              f"{MESH2D_RING_STEPS + 1} steps)")
+        check(all(ring["launches"][n] == 0 for n in KERNEL_ROWS), f"mesh2d arm B rank {r}: rows 1-4 launched")
+        check(g["dryrun"]["ran"] == ["core", "sequence", "expert", "pipeline", "robust"],
+              f"mesh2d arm C rank {r}: dryrun ran {g['dryrun']['ran']}")
+        check(r == 0 or g["dryrun"]["printed"] == "", f"mesh2d arm C rank {r}: printed {g['dryrun']['printed']!r}")
+    lines = got[0]["dryrun"]["printed"].splitlines()
+    for line in lines:
+        print(f"[mesh2d] arm C rank 0: {line}")
+    check(len(lines) == 5 and all(" OK" in line for line in lines), f"mesh2d arm C: rank 0 printed {lines}")
+    return ({f"mesh2d_nodes_model_{label}": {name: [g["nodes_model"]["launches"][name] for g in got]
+                                             for name in KERNEL_ROWS}},
+            {f"mesh2d_batch_seq_{label}": [g["batch_seq"]["launches"]["flash_carry"] for g in got]})
+
+
 def phase_longcontext() -> dict:
     """``python -m p2pfl_tpu_torch.examples.longcontext --attention flash``
     at its defaults, in this process so that its kernel launches count;
@@ -5332,18 +5662,6 @@ def phase_kernels_chunked() -> dict:
     narrow_rows("d1024", narrow_suffix(CHUNKED_PADDED_DIM), CHUNKED_PADDED_DIM, 1, 1, 1, SEQ_LEN,
                 (torch.bfloat16, torch.float32), True, gen)
     return rows
-
-
-def phase_carry_one_launch() -> None:
-    """In a process of its own each (``carry_call_kernels``), one bf16 carry
-    call at [2, 1024, 1, 512] must be one CUDA kernel, the grouped carry, and
-    one at [2, 1024, 16, 32] the narrow carry: no pad or slice copies."""
-    calls = (("carry-grouped", [RING_BATCH, RING_SHARD, 1, 512], "flash_carry_grouped_sm90_kernel"),
-             ("carry-narrow", [RING_BATCH, RING_SHARD, EMBED // 32, 32], "flash_carry_narrow_sm90_kernel"))
-    for label, shape, kernel in calls:
-        names = in_fresh_process(f"carry_call_kernels({shape})")
-        print(f"[{label}] one call of flash_carry at {shape} bf16: CUDA kernels {names}")
-        check(len(names) == 1 and kernel in names[0], f"the carry call at {shape} is not {kernel} alone: {names}")
 
 
 def phase_chunked_paths() -> dict:
@@ -5832,6 +6150,8 @@ def main() -> int:
         return expertmodel_rank(sys.argv[2])
     if sys.argv[1:2] == [SHARDED_FLAG]:  # one rank of phase_sharded
         return sharded_rank(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == [MESH2D_FLAG]:  # one rank of phase_mesh2d
+        return mesh2d_rank(sys.argv[2])
     from p2pfl_tpu_torch.ops import _kernels
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5863,7 +6183,6 @@ def main() -> int:
         rows.update(phase_kernels_wide("d256", D256_HEAD_DIMS, 16))
         rows.update(phase_kernels_wide("d512", D512_HEAD_DIMS, 18))
         rows.update(phase_kernels_chunked())
-        phase_carry_one_launch()
         launches.update(phase_narrow_paths())
         launches.update(phase_wide_paths())
         launches.update(phase_chunked_paths())
@@ -5900,6 +6219,10 @@ def main() -> int:
         gc.collect()
         multirank_launches.update(phase_sharded(card))
         gc.collect()
+        mesh2d_rows, mesh2d_carry = phase_mesh2d(card)
+        multirank_launches.update(mesh2d_rows)
+        seqstage_launches["flash_carry"].update(mesh2d_carry)
+        gc.collect()
         rows.update(phase_kernels_longcontext())
         launches.update(phase_longcontext())
         phase_entry()
@@ -5910,7 +6233,7 @@ def main() -> int:
         rows.update(phase_kernels_pipeline())
         launches.update(phase_pipeline())
         phase_dryrun()
-        phase_sdpa_kernels(rows)
+        phase_profiled_launches(rows)
         phase_sass(_kernels.library_path(), _kernels._find_nvcc())  # last: see the docstring's phase 1
     except Exception as e:  # noqa: BLE001 - any failed phase fails the run
         import traceback
@@ -5921,9 +6244,11 @@ def main() -> int:
     kernels = {**KERNEL_ROWS, **RING_KERNEL_ROWS}
     # Rows 1-5 at head size 64: launches on the slice (the carry: the ring);
     # rows 1-4 also carry the MoE LM's launches at the same shapes, and the
-    # launches of each rank of the nodes, expert and model axes' arms and of
-    # the sharded checkpoints' worlds (sharded_<arm>_<world>_<backend><W>);
-    # the carry those of each rank of the ring over ranks.
+    # launches of each rank of the nodes, expert and model axes' arms, of
+    # the sharded checkpoints' worlds (sharded_<arm>_<world>_<backend><W>)
+    # and of the nodes x model arm (mesh2d_nodes_model_<backend><W>); the
+    # carry those of each rank of the ring over ranks and of the batch x seq
+    # arm (mesh2d_batch_seq_<backend><W>).
     table = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], **({"launches_moe": moe_launches[name]} if name in moe_launches else {}),

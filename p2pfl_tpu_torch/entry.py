@@ -1,13 +1,15 @@
 """Entry points of the port (counterparts of ``__graft_entry__.py``):
 ``entry()``, a forward step of the flagship model (the MNIST MLP), and
-``dryrun_multichip(n)``, one step of each parallel path with its mesh axes
-collapsed onto the one card."""
+``dryrun_multichip(n)``, one step of each parallel path: over the n ranks
+of a joined process group, each phase on a rank mesh shaped as the JAX
+package's, or with its mesh axes collapsed onto one card in one process."""
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -35,38 +37,78 @@ def _expect(cond: bool, what: str) -> None:
         raise RuntimeError(f"dryrun_multichip: {what}")
 
 
-def dryrun_multichip(n_devices: int, device: DeviceLike = "cuda") -> None:
-    """One step of each of the JAX package's parallel paths at tiny shapes,
-    every mesh axis of ``n_devices`` virtual shards on the one ``device``:
+def dryrun_multichip(n_devices: int, device: DeviceLike = "cuda") -> List[str]:
+    """One step of each of the JAX package's parallel paths at tiny shapes:
 
     1. the MLP round with the FedAdam server optimizer over a ``nodes`` x
        ``model`` mesh (``model`` 2 when ``n_devices`` is even and >= 4);
     2. a ring-attention LM train step with the sequence cut into
        ``n_devices`` shards;
-    3. the MoE LM forward with ``n_devices`` experts (``shard_moe_params``
-       places nothing: the experts run one after another);
+    3. the MoE LM forward with ``n_devices`` experts;
     4. the GPipe pipeline over ``min(4, n_devices)`` stages, equal to
        ``sequential_apply`` within 1e-5, and one pipelined train step;
-    5. Krum under in-round model poisoning.
+    5. Krum under in-round model poisoning, on the mesh of phase 1.
+
+    In a joined process group (:func:`~p2pfl_tpu_torch.parallel.mesh.
+    initialize_multihost`) of ``n_devices`` ranks every phase runs over the
+    ranks, each rank on its own device: phase 1 and 5 on ``make_mesh((n /
+    tp, tp), ("nodes", "model"))`` (2 x 2 at n = 4), phase 2 on ``("seq",)``
+    and phase 3 on ``("expert",)`` over the n ranks, phase 4 on a process
+    group of the first ``min(4, n)`` ranks (the JAX package's
+    ``devices[:pp]``; the other ranks skip it). Every rank calls it; only
+    rank 0 prints, and every rank runs the same checks and raises on a
+    failure. ``device`` is then the device type (``"cuda"`` or ``"cpu"``),
+    each rank keeping its own. In one process every mesh axis is
+    ``n_devices`` virtual shards on the one ``device`` (``shard_moe_params``
+    places nothing there: the experts run one after another).
 
     Prints one ``... OK`` line a phase. As in the JAX package, the later
     phases are skipped once earlier ones used a share of the time budget
-    (``P2PFL_TPU_DRYRUN_BUDGET`` seconds, default 480). It runs no flash
-    kernel: like the JAX package's dryrun it uses ``blockwise`` attention
-    (the MoE) and the blockwise ``ring``.
+    (``P2PFL_TPU_DRYRUN_BUDGET`` seconds, default 480); over ranks rank 0's
+    clock and budget decide and every rank follows (a rank that skipped a
+    phase its peers entered would hang them). Returns the phases run. It
+    runs no flash kernel: like the JAX package's dryrun it uses
+    ``blockwise`` attention (the MoE) and the blockwise ``ring``.
     """
     from p2pfl_tpu_torch.learning.dataset import RandomIIDPartitionStrategy, synthetic_mnist
-    from p2pfl_tpu_torch.parallel.mesh import Mesh
+    from p2pfl_tpu_torch.parallel import collectives
+    from p2pfl_tpu_torch.parallel.mesh import Mesh, dist_world, make_mesh, rank_device
     from p2pfl_tpu_torch.parallel.simulation import MeshSimulation
 
     t_start = time.monotonic()
     budget = float(os.environ.get("P2PFL_TPU_DRYRUN_BUDGET", "480"))
-    dev = resolve_device(device)
     if int(n_devices) != n_devices or n_devices < 1:
         raise ValueError(f"n_devices must be a positive integer, got {n_devices!r}")
+    ranked = dist_world() > 1
+    if ranked and dist_world() != n_devices:
+        raise ValueError(f"dryrun_multichip({n_devices}) over ranks needs a world of {n_devices}, the joined one has "
+                         f"{dist_world()}")
+    if ranked:
+        import torch.distributed as dist
+
+        dev = rank_device()
+        if dev.type != torch.device(device).type:
+            raise ValueError(f"device {str(device)!r} does not match this rank's {str(dev)!r}")
+        lead = dist.get_rank() == 0
+    else:
+        dev = resolve_device(device)
+        lead = True
+    ran: List[str] = []
+
+    def say(line: str) -> None:
+        if lead:
+            print(line, flush=True)
+
+    def over_budget(share: float) -> bool:
+        """Rank 0's verdict on every rank."""
+        late = time.monotonic() - t_start > budget * share
+        return bool(collectives.broadcast_ints([int(late)], 0, None, dev)[0]) if ranked else late
+
+    def mesh_of(shape: Tuple[int, ...], names: Tuple[str, ...]) -> Mesh:
+        return make_mesh(shape, names, devices=[dev]) if ranked else Mesh(dict(zip(names, shape)), device=dev)
 
     tp = 2 if n_devices % 2 == 0 and n_devices >= 4 else 1
-    mesh = Mesh({"nodes": n_devices // tp, "model": tp}, device=dev)
+    mesh = mesh_of((n_devices // tp, tp), ("nodes", "model"))
     num_nodes = max(2 * (n_devices // tp), 4)
     parts = synthetic_mnist(n_train=num_nodes * 64, n_test=64).generate_partitions(num_nodes, RandomIIDPartitionStrategy)
     sim = MeshSimulation(
@@ -75,18 +117,19 @@ def dryrun_multichip(n_devices: int, device: DeviceLike = "cuda") -> None:
     )
     res = sim.run(rounds=1, epochs=1, warmup=False)
     _expect(res.rounds == 1 and np.isfinite(res.test_loss[-1]), "the core round's test loss is not finite")
-    print(f"dryrun_multichip OK: mesh={dict(mesh.shape)} nodes={num_nodes} "
-          f"acc={res.test_acc[-1]:.3f} (server_opt=fedadam)")
+    say(f"dryrun_multichip OK: mesh={dict(mesh.shape)} nodes={num_nodes} "
+        f"acc={res.test_acc[-1]:.3f} (server_opt=fedadam)")
+    ran.append("core")
 
-    if time.monotonic() - t_start > budget * 0.5:
-        print("dryrun: core phase consumed >half the time budget; skipping sequence/expert-parallel phases")
-        return
+    if over_budget(0.5):
+        say("dryrun: core phase consumed >half the time budget; skipping sequence/expert-parallel phases")
+        return ran
 
     from p2pfl_tpu_torch.models.transformer import transformer_lm_model
     from p2pfl_tpu_torch.optim import adam
     from p2pfl_tpu_torch.parallel.sequence import make_sequence_parallel_train_step, shard_tokens
 
-    seq_mesh = Mesh({"seq": n_devices}, device=dev)
+    seq_mesh = mesh_of((n_devices,), ("seq",))
     seq_len = 16 * n_devices
     lm = transformer_lm_model(seed=0, seq_len=seq_len, vocab_size=64, num_layers=1, num_heads=2, embed_dim=32,
                               attention_kind="ring", axis_name="seq", device=dev)
@@ -95,57 +138,47 @@ def dryrun_multichip(n_devices: int, device: DeviceLike = "cuda") -> None:
     toks = shard_tokens(np.arange(2 * seq_len, dtype=np.int32).reshape(2, seq_len) % 64, seq_mesh, "seq")
     _, _, loss = step(lm.params, opt.init(lm.params), toks)
     _expect(np.isfinite(float(loss)), "the ring step's loss is not finite")
-    print(f"dryrun sequence-parallel OK: seq={seq_len} over {n_devices} shards loss={float(loss):.3f}")
+    where = "devices" if ranked else "shards"
+    say(f"dryrun sequence-parallel OK: seq={seq_len} over {n_devices} {where} loss={float(loss):.3f}")
+    ran.append("sequence")
 
-    if time.monotonic() - t_start > budget * 0.75:
-        print("dryrun: skipping expert-parallel phase (time budget)")
-        return
+    if over_budget(0.75):
+        say("dryrun: skipping expert-parallel phase (time budget)")
+        return ran
 
     from p2pfl_tpu_torch.models.moe import moe_lm_model, shard_moe_params
 
+    ep_mesh = mesh_of((n_devices,), ("expert",))
     moe = moe_lm_model(seed=0, seq_len=32, vocab_size=64, num_layers=2, num_heads=2, embed_dim=32,
                        num_experts=n_devices, device=dev)
-    sharded = shard_moe_params(moe.params, Mesh({"expert": n_devices}, device=dev))
-    with torch.no_grad():
+    sharded = shard_moe_params(moe.params, ep_mesh)
+    with torch.no_grad(), (ep_mesh.bind() if ranked else contextlib.nullcontext()):
         logits = moe.apply(sharded, torch.as_tensor(np.arange(2 * 32).reshape(2, 32) % 64, device=dev))
     _expect(bool(torch.isfinite(logits).all()), "the MoE logits are not finite")
-    print(f"dryrun expert-parallel OK: {n_devices} experts on one device")
+    say(f"dryrun expert-parallel OK: {n_devices} experts over {n_devices} devices" if ranked else
+        f"dryrun expert-parallel OK: {n_devices} experts on one device")
+    ran.append("expert")
 
-    if time.monotonic() - t_start > budget * 0.85:
-        print("dryrun: skipping pipeline-parallel phase (time budget)")
-        return
-
-    from p2pfl_tpu_torch.parallel.pipeline import (
-        make_pipeline_train_step,
-        pipeline_apply,
-        sequential_apply,
-        stack_stage_params,
-    )
+    if over_budget(0.85):
+        say("dryrun: skipping pipeline-parallel phase (time budget)")
+        return ran
 
     pp = min(4, n_devices)
-    pp_mesh = Mesh({"stage": pp}, device=dev)
-    d = 16
-    rng = np.random.default_rng(0)
-    stages = [{"w": torch.as_tensor(rng.normal(scale=0.5, size=(d, d)), dtype=torch.float32),
-               "b": torch.zeros(d)} for _ in range(pp)]
+    if ranked and pp < n_devices:
+        import torch.distributed as dist
 
-    def block_fn(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-        return torch.tanh(x @ p["w"] + p["b"])
+        stage_group = dist.new_group(list(range(pp)))  # every rank creates it
+        pp_mesh = Mesh({"stage": pp}, device=dev, group=stage_group) if dist.get_rank() < pp else None
+    else:
+        pp_mesh = mesh_of((pp,), ("stage",))
+    if pp_mesh is not None:
+        pp_loss = _pipeline_phase(pp_mesh, pp, dev)
+        say(f"dryrun pipeline-parallel OK: {pp} stages, loss={pp_loss:.3f}")
+        ran.append("pipeline")
 
-    stacked = stack_stage_params(stages, pp_mesh)
-    xb = torch.as_tensor(rng.normal(size=(8 * pp, d)), dtype=torch.float32, device=dev)
-    piped = pipeline_apply(stacked, xb, block_fn, pp_mesh, n_microbatches=4)
-    seq = sequential_apply(stacked, xb, block_fn, pp)
-    torch.testing.assert_close(piped, seq, atol=1e-5, rtol=0)
-    pp_opt = adam(1e-3)
-    pp_step = make_pipeline_train_step(block_fn, lambda o, t: torch.mean((o - t) ** 2), pp_opt, pp_mesh, 4)
-    _, _, pp_loss = pp_step(stacked, pp_opt.init(stacked), xb, torch.zeros_like(xb))
-    _expect(np.isfinite(float(pp_loss)), "the pipelined step's loss is not finite")
-    print(f"dryrun pipeline-parallel OK: {pp} stages, loss={float(pp_loss):.3f}")
-
-    if time.monotonic() - t_start > budget * 0.92:
-        print("dryrun: skipping robust-aggregation phase (time budget)")
-        return
+    if over_budget(0.92):
+        say("dryrun: skipping robust-aggregation phase (time budget)")
+        return ran
 
     from p2pfl_tpu_torch.ops import aggregation as agg_ops
 
@@ -158,5 +191,41 @@ def dryrun_multichip(n_devices: int, device: DeviceLike = "cuda") -> None:
     )
     rob_res = rob.run(rounds=1, epochs=1, warmup=False)
     _expect(np.isfinite(rob_res.test_loss[-1]), "the robust round's test loss is not finite")
-    print(f"dryrun robust-aggregation OK: krum over {int(byz.sum())} poisoned of {num_nodes} nodes, "
-          f"acc={rob_res.test_acc[-1]:.3f}")
+    say(f"dryrun robust-aggregation OK: krum over {int(byz.sum())} poisoned of {num_nodes} nodes, "
+        f"acc={rob_res.test_acc[-1]:.3f}")
+    ran.append("robust")
+    return ran
+
+
+def _pipeline_phase(pp_mesh, pp: int, dev: torch.device) -> float:
+    """The GPipe phase on ``pp_mesh`` (``pp`` stages: virtual, or a stage a
+    rank): the pipelined output against ``sequential_apply`` of every stage
+    within 1e-5, then one pipelined Adam step; returns its loss."""
+    from p2pfl_tpu_torch.optim import adam
+    from p2pfl_tpu_torch.parallel.mesh import Mesh
+    from p2pfl_tpu_torch.parallel.pipeline import (
+        make_pipeline_train_step,
+        pipeline_apply,
+        sequential_apply,
+        stack_stage_params,
+    )
+
+    d = 16
+    rng = np.random.default_rng(0)
+    stages = [{"w": torch.as_tensor(rng.normal(scale=0.5, size=(d, d)), dtype=torch.float32),
+               "b": torch.zeros(d)} for _ in range(pp)]
+
+    def block_fn(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(x @ p["w"] + p["b"])
+
+    stacked = stack_stage_params(stages, pp_mesh)
+    xb = torch.as_tensor(rng.normal(size=(8 * pp, d)), dtype=torch.float32, device=dev)
+    piped = pipeline_apply(stacked, xb, block_fn, pp_mesh, n_microbatches=4)
+    # Every stage, here: over ranks each rank holds its own.
+    seq = sequential_apply(stack_stage_params(stages, Mesh({"stage": pp}, device=dev)), xb, block_fn, pp)
+    torch.testing.assert_close(piped, seq, atol=1e-5, rtol=0)
+    pp_opt = adam(1e-3)
+    pp_step = make_pipeline_train_step(block_fn, lambda o, t: torch.mean((o - t) ** 2), pp_opt, pp_mesh, 4)
+    _, _, pp_loss = pp_step(stacked, pp_opt.init(stacked), xb, torch.zeros_like(xb))
+    _expect(np.isfinite(float(pp_loss)), "the pipelined step's loss is not finite")
+    return float(pp_loss)

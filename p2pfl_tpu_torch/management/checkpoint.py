@@ -24,9 +24,14 @@ rank's own part and the replicated leaves once::
     <root>/<step>/shard-<r>-of-<W>.pt   rank r's part of every split leaf
     <root>/<step>/replicated.pt         the leaves every rank holds whole (rank 0's)
 
-and ``meta.json``'s ``"sharded"`` entry names the world size, the rank axis,
-the save's token, the files with their bytes, and each split leaf's
-dimension and whole size (rank r holds the r-th of W equal parts of it).
+and ``meta.json``'s ``"sharded"`` entry names the world size, the ranked
+axes with their rank counts (rank r sits at its row-major coordinates over
+them), the save's token, the files with their bytes, and each split leaf's
+dimensions, whole sizes and axes: a rank's part of a leaf is a box, the
+c-th of equal parts along each split dimension for its coordinate c on
+that dimension's axis (a slab on ``nodes`` times a slice on ``model``). A
+leaf whole along some ranked axis is written once, by the ranks at
+coordinate 0 there.
 Either layout restores into either kind of run: a restoring rank reads only
 the parts that overlap its own (memory-mapped, so its host memory follows
 its part), and :func:`~p2pfl_tpu_torch.population.sharding.recut` puts
@@ -64,7 +69,7 @@ import shutil
 import threading
 import time
 import uuid
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -187,17 +192,18 @@ def _flatten(tree: Pytree, prefix: str, out: Dict[str, torch.Tensor]) -> None:
         raise TypeError(f"checkpoint leaf {prefix!r} has unsupported type {type(tree).__name__}")
 
 
-def _split_dims(shards: Any) -> Dict[str, int]:
-    """``{path: dimension}`` of the leaves split over the ranks in a
-    :class:`~p2pfl_tpu_torch.population.sharding.StateShards` (the paths
-    :func:`_flatten` gives the state tree); the other leaves are whole."""
-    out: Dict[str, int] = {}
+def _split_dims(shards: Any) -> Dict[str, List[Tuple[int, str]]]:
+    """``{path: [(dimension, axis), ...]}`` of the leaves split over the
+    ranks in a :class:`~p2pfl_tpu_torch.population.sharding.StateShards`
+    (the paths :func:`_flatten` gives the state tree); the other leaves are
+    whole."""
+    out: Dict[str, List[Tuple[int, str]]] = {}
 
     def walk(tree: Any, prefix: str) -> None:
         if isinstance(tree, PartitionSpec):
-            d = shards.split_dim(tree)
-            if d is not None:
-                out[prefix] = d
+            dims = shards.split_dims(tree)
+            if dims:
+                out[prefix] = dims
         elif isinstance(tree, dict):
             for k, v in tree.items():
                 walk(v, f"{prefix}/{k}" if prefix else str(k))
@@ -210,6 +216,21 @@ def _split_dims(shards: Any) -> Dict[str, int]:
 
     walk(shards.specs, "")
     return out
+
+
+def _coords(rank: int, axes: Dict[str, int]) -> Dict[str, int]:
+    """Rank ``rank``'s coordinates over ``axes`` (name -> ranks), row-major."""
+    out = {}
+    for name in reversed(list(axes)):
+        rank, out[name] = divmod(rank, axes[name])
+    return out
+
+
+def _writes(coords: Dict[str, int], split_axes: Sequence[str]) -> bool:
+    """Whether the rank at ``coords`` writes a leaf split on ``split_axes``:
+    only the ranks at coordinate 0 on every other axis (the leaf is the
+    same there)."""
+    return all(c == 0 for name, c in coords.items() if name not in split_axes)
 
 
 def _restore_leaf(t: Any, r: torch.Tensor, path: str) -> Any:
@@ -364,12 +385,14 @@ class FLCheckpointer:
         mesh = shards.mesh
         token = f"{collectives.broadcast_ints([uuid.uuid4().int >> 66], 0, mesh.group, mesh.device)[0]:016x}"
         dims = _split_dims(shards)
-        local = {p: t for p, t in flat.items() if p in dims}
+        coords = {name: mesh.axis_rank(name) for name in mesh.rank_axes}
+        local = {p: t for p, t in flat.items() if p in dims and _writes(coords, [a for _, a in dims[p]])}
         whole = {p: t for p, t in flat.items() if p not in dims} if mesh.rank == 0 else {}
         meta[SHARDED_KEY] = {
-            "world": mesh.world, "axis": mesh.rank_axis, "token": token,
+            "world": mesh.world, "axes": dict(mesh.rank_shape), "token": token,
             "files": [_shard_file(r, mesh.world) for r in range(mesh.world)], "replicated": _REPLICATED_FILE,
-            "split": {p: [d, int(t.shape[d]) * mesh.world] for p, t in local.items() for d in (dims[p],)},
+            "split": {p: [[d, int(flat[p].shape[d]) * mesh.axis_ranks(a), a] for d, a in entries]
+                      for p, entries in dims.items()},
         }
         return self._stage(step, token), step, token, mesh.rank, mesh.world, local, whole, meta, copy_ms
 
@@ -560,7 +583,8 @@ class FLCheckpointer:
             return files[name]
 
         whole_file = _STATE_FILE if layout is None else layout["replicated"]
-        split = {} if layout is None else {p: (int(d), int(n)) for p, (d, n) in layout["split"].items()}
+        # The saved ranked axes (name -> ranks) and {path: [[dimension, whole size, axis], ...]}.
+        saved_axes, split = ({}, {}) if layout is None else (layout["axes"], layout["split"])
         saved = set(opened(whole_file)) | set(split)
         ranked = shards is not None and shards.mesh.world > 1
         want = _split_dims(shards) if ranked else {}
@@ -571,22 +595,26 @@ class FLCheckpointer:
                 raise KeyError(f"checkpoint has no leaf {path!r}")
             shape = list(leaf.shape)
             box = [(0, n) for n in shape]
-            if path in want:  # this rank's part of the whole leaf
-                d = want[path]
-                shape[d] *= shards.mesh.world
-                box[d] = part_range(shape[d], shards.mesh.rank, shards.mesh.world)
+            for d, axis in want.get(path, ()):  # this rank's part of the whole leaf
+                mesh = shards.mesh
+                shape[d] *= mesh.axis_ranks(axis)
+                box[d] = part_range(shape[d], mesh.axis_rank(axis), mesh.axis_ranks(axis))
             if path in split:
-                d, n = split[path]
-                saved_world = len(layout["files"])
+                entries = split[path]
                 pieces = []
-                for r in range(saved_world):
-                    lo, hi = part_range(n, r, saved_world)
-                    if d < len(box) and (lo >= box[d][1] or hi <= box[d][0]) and box[d][1] > box[d][0]:
+                for r in range(len(layout["files"])):
+                    coords = _coords(r, saved_axes)
+                    if not _writes(coords, [a for _, _, a in entries]):
+                        continue  # the same part as a rank at coordinate 0 there: not written
+                    pbox = {d: part_range(n, coords[a], saved_axes[a]) for d, n, a in entries}
+                    if any(d < len(box) and box[d][1] > box[d][0] and (lo >= box[d][1] or hi <= box[d][0])
+                           for d, (lo, hi) in pbox.items()):
                         continue  # no overlap with this rank's part: the file is not read
                     t = opened(layout["files"][r])[path]
-                    pieces.append(([(lo, hi) if i == d else (0, s) for i, s in enumerate(t.shape)], t))
+                    pieces.append(([pbox.get(i, (0, s)) for i, s in enumerate(t.shape)], t))
                 stored = list(pieces[0][1].shape)
-                stored[d] = n
+                for d, n, _ in entries:
+                    stored[d] = n
             else:
                 t = opened(whole_file)[path]
                 pieces, stored = [([(0, s) for s in t.shape], t)], list(t.shape)

@@ -55,8 +55,16 @@ activations replicated) add one exchange:
 Every rank must post the same exchanges in the same order, forward and
 backward: each rank runs the same program on its shard, as under
 ``shard_map``. ``STATS`` counts the bytes every :func:`all_gather`,
-:func:`ppermute` and :func:`all_gather_dim` received in this process, and
-the bytes every :func:`psum` and :func:`sum_cotangent` summed.
+:func:`ppermute` and :func:`all_gather_dim` received in this process, the
+bytes every :func:`psum` and :func:`sum_cotangent` summed, and those of
+every :func:`all_reduce` and broadcast. ``AXIS_STATS`` splits the same
+counts by the group they moved in: a pair of ranked axes gives each axis a
+sub-group (:meth:`~p2pfl_tpu_torch.parallel.mesh.Mesh.axis_process_group`),
+counted under the axis' name; every other group under ``"world"``.
+
+Every call takes the process group it runs in (``None``: the world). A
+``src`` is a rank of that group, turned into a global rank where
+``torch.distributed`` wants one.
 """
 
 from __future__ import annotations
@@ -79,13 +87,33 @@ log = logging.getLogger("p2pfl_tpu_torch")
 #: ``gather_dim_bytes``, the bytes of every tensor :func:`all_gather_dim`
 #: assembled, this rank's own slice included; ``sum_bytes``, the bytes of
 #: every tensor summed over the ranks by :func:`psum` (forward) and
-#: :func:`sum_cotangent` (backward).
-STATS: Dict[str, int] = {"all_gather_bytes": 0, "ppermute_bytes": 0, "gather_dim_bytes": 0, "sum_bytes": 0}
+#: :func:`sum_cotangent` (backward); ``reduce_bytes``, of every tensor
+#: :func:`all_reduce` reduced; ``broadcast_bytes``, of every tensor
+#: :func:`broadcast`, :func:`broadcast_tree` and :func:`replicate` moved.
+STATS: Dict[str, int] = {"all_gather_bytes": 0, "ppermute_bytes": 0, "gather_dim_bytes": 0, "sum_bytes": 0,
+                         "reduce_bytes": 0, "broadcast_bytes": 0}
+#: ``STATS`` by the group the bytes moved in: ``{label: {key: bytes}}``, the
+#: label an axis' name for a sub-group a mesh made, else ``"world"``.
+AXIS_STATS: Dict[str, Dict[str, int]] = {}
+# Sub-group -> the axis it runs along (set by the mesh that made it).
+_LABELS: Dict[Any, str] = {}
 
 
 def reset_stats() -> None:
     for k in STATS:
         STATS[k] = 0
+    AXIS_STATS.clear()
+
+
+def label_group(group: Any, axis: str) -> None:
+    """Count the bytes of ``group``'s exchanges under ``axis`` in ``AXIS_STATS``."""
+    _LABELS[group] = axis
+
+
+def _count(key: str, nbytes: int, group: Any) -> None:
+    STATS[key] += nbytes
+    per = AXIS_STATS.setdefault(_LABELS.get(group, "world"), dict.fromkeys(STATS, 0))
+    per[key] += nbytes
 
 
 def _dist():
@@ -147,7 +175,7 @@ def all_gather(tree: Tree, counts: Sequence[int], group: Any = None) -> Tree:
         buf = _pack(tree, n, device) if src == me else torch.empty((n, width), dtype=torch.uint8, device=device)
         dist.broadcast(buf, src=_global(group, src), group=group)
         parts.append(buf)
-    STATS["all_gather_bytes"] += sum(counts) * width
+    _count("all_gather_bytes", sum(counts) * width, group)
     if not parts:
         return {name: torch.empty((0, *shape), dtype=dtype, device=device) for name, dtype, shape, _ in layout}
     return _unpack(torch.cat(parts), layout)
@@ -177,6 +205,7 @@ def broadcast_tree(tree: Tree, src: int, group: Any = None) -> Tree:
     flat = {k: v.reshape((1, *v.shape)) for k, v in tree.items()}
     buf = _pack(flat, 1, next(iter(tree.values())).device)
     dist.broadcast(buf, src=_global(group, src), group=group)
+    _count("broadcast_bytes", buf.numel(), group)
     return {k: v[0] for k, v in _unpack(buf, _layout(flat)).items()}
 
 
@@ -184,6 +213,7 @@ def broadcast(t: torch.Tensor, src: int = 0, group: Any = None) -> torch.Tensor:
     """``t`` takes rank ``src``'s value on every rank (in place); returns it."""
     dist = _dist()
     dist.broadcast(t, src=_global(group, src), group=group)
+    _count("broadcast_bytes", t.numel() * t.element_size(), group)
     return t
 
 
@@ -195,6 +225,7 @@ def all_reduce(t: torch.Tensor, op: str = "sum", group: Any = None) -> torch.Ten
     if op not in ops:
         raise ValueError(f"unknown reduction {op!r}: use {sorted(ops)}")
     dist.all_reduce(t, op=ops[op], group=group)
+    _count("reduce_bytes", t.numel() * t.element_size(), group)
     return t
 
 
@@ -281,7 +312,7 @@ def _exchange(tensors: List[torch.Tensor], pairs: List[Tuple[int, int]], group: 
         req.wait()
     if not src:
         return [torch.zeros_like(t) for t in tensors]
-    STATS["ppermute_bytes"] += sum(t.numel() * t.element_size() for t in recvs)
+    _count("ppermute_bytes", sum(t.numel() * t.element_size() for t in recvs), group)
     return [r.to(t.device) for r, t in zip(recvs, tensors)] if host else recvs
 
 
@@ -327,7 +358,7 @@ def _sum(t: torch.Tensor, group: Any) -> torch.Tensor:
     """A contiguous copy of ``t`` summed over the ranks, counted in ``STATS``."""
     out = t.detach().clone(memory_format=torch.contiguous_format)
     _dist().all_reduce(out, group=group)
-    STATS["sum_bytes"] += out.numel() * out.element_size()
+    _count("sum_bytes", out.numel() * out.element_size(), group)
     return out
 
 
@@ -372,6 +403,7 @@ class _Replicate(torch.autograd.Function):
         ctx.owner = _dist().get_rank(group) == src
         out = t.detach().clone(memory_format=torch.contiguous_format)
         _dist().broadcast(out, src=_global(group, src), group=group)
+        _count("broadcast_bytes", out.numel() * out.element_size(), group)
         return out
 
     @staticmethod
@@ -449,7 +481,7 @@ def _gather_dim(t: torch.Tensor, dim: int, group: Any) -> torch.Tensor:
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim=dim)
-    STATS["gather_dim_bytes"] += out.numel() * out.element_size()
+    _count("gather_dim_bytes", out.numel() * out.element_size(), group)
     return out.to(t.device) if host else out
 
 
@@ -481,6 +513,6 @@ def all_gather_dim(t: torch.Tensor, dim: int, group: Any = None) -> torch.Tensor
     return _AllGatherDim.apply(t, dim, group)
 
 
-__all__ = ["STATS", "all_agree", "all_gather", "all_gather_dim", "all_reduce", "broadcast", "broadcast_ints",
-           "broadcast_tree", "gather_ordered", "p2p_route", "pmean", "ppermute", "psum", "replicate", "reset_stats",
-           "sum_cotangent", "tie"]
+__all__ = ["AXIS_STATS", "STATS", "all_agree", "all_gather", "all_gather_dim", "all_reduce", "broadcast",
+           "broadcast_ints", "broadcast_tree", "gather_ordered", "label_group", "p2p_route", "pmean", "ppermute",
+           "psum", "replicate", "reset_stats", "sum_cotangent", "tie"]

@@ -14,8 +14,9 @@ Ranks: :func:`initialize_multihost` joins a ``torch.distributed`` process
 group of W processes ("ranks"), each driving one device: ``cuda:LOCAL_RANK``
 when the host has a card for every local rank (backend NCCL), the one card
 shared when it does not, or the CPU when the caller asks for it (backend
-gloo for both). :func:`make_mesh` then builds a mesh one of whose axes spans
-the W ranks (:attr:`Mesh.rank_axis`), as a JAX mesh spans W devices:
+gloo for both). :func:`make_mesh` then builds a mesh whose axes span the W
+ranks (:attr:`Mesh.rank_axes`; :attr:`Mesh.rank_axis` where one axis spans
+them all), as a JAX mesh spans W devices:
 
 * ``"nodes"``: its size is a multiple of W, and rank r holds the r-th
   contiguous part of it (:meth:`Mesh.slab`), the slab of the population
@@ -34,12 +35,25 @@ the W ranks (:attr:`Mesh.rank_axis`), as a JAX mesh spans W devices:
   the r-th slice of every kernel's output dimension
   (:mod:`p2pfl_tpu_torch.parallel.tensor_parallel`, which
   :class:`~p2pfl_tpu_torch.parallel.simulation.MeshSimulation` holds its
-  population in).
+  population in);
+* ``"batch"``: its size is W, one part of the batch a rank.
 
-One axis spans the ranks; the others must be 1. A second axis above 1 (a
-2-D rank mesh, such as ``nodes`` x ``seq``, ``nodes`` x ``model``, ``seq`` x
-``expert`` or ``batch`` x ``seq``) and a ``batch`` axis over the ranks raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Two axes may span the ranks together where the JAX package runs that
+layout (:data:`RANK_PAIRS`): ``nodes`` x ``model`` (a population's slabs
+with every kernel split, ``MeshSimulation`` on ``make_mesh((N, M),
+("nodes", "model"))``) and ``batch`` x ``seq`` (the sequence-parallel LM
+with its batch split too). The ranks are laid out row-major over the axes
+in the mesh's order, as the JAX package reshapes its devices: on
+``make_mesh((N, M), ("nodes", "model"))`` rank r sits at ``(r // M, r %
+M)``. The ``model``, ``batch`` and ``seq`` axes hold one shard a rank (their
+size is their rank count); ``nodes`` holds ``W / M`` rank rows and its size
+is a multiple of that. Each axis gets a process group of its own
+(:meth:`Mesh.axis_process_group`, :func:`axis_group`): the ranks that share
+every other coordinate. Every rank creates every such group, in one order
+(``dist.new_group`` is a collective of the whole world). Other pairs
+(``nodes`` x ``seq``, ``nodes`` x ``stage``, ``seq`` x ``expert``) run in no
+program of the JAX package and raise ``NotImplementedError`` naming their
+ROADMAP item.
 
 :func:`make_mesh`, :func:`population_sharding`, :func:`replicated` and
 :func:`initialize_multihost` keep the JAX package's API; :class:`PartitionSpec`
@@ -65,11 +79,20 @@ log = logging.getLogger("p2pfl_tpu_torch")
 # Axis name -> the mesh that binds it in this context (innermost wins).
 _BOUND: contextvars.ContextVar[Mapping[str, "Mesh"]] = contextvars.ContextVar("p2pfl_bound_axes", default={})
 
-#: The ROADMAP item that takes a batch axis, or two axes at once, across ranks.
-RANK_MESH_2D_ITEM = ("A8 (a 2-D rank mesh: the batch or nodes axis beside seq, stage or model, or seq beside "
-                     "expert)")
-#: The axes that may span the ranks, one at a time.
-RANK_AXES = ("nodes", "seq", "stage", "expert", "model")
+#: The pairs of axes that span the ranks together: the 2-D layouts the JAX
+#: package runs (``MeshSimulation`` on ``nodes`` x ``model``; the
+#: sequence-parallel LM with a ``batch_axis``).
+RANK_PAIRS = (("nodes", "model"), ("batch", "seq"))
+#: The ROADMAP item that takes the other pairs across ranks.
+RANK_MESH_PAIRS_ITEM = ("A12 (the other 2-D rank meshes: nodes beside seq or stage, seq beside expert; no program "
+                        "of the JAX package runs them)")
+#: The axes that may span the ranks.
+RANK_AXES = ("nodes", "seq", "stage", "expert", "model", "batch")
+
+# (axis, global ranks) -> the process group :meth:`Mesh._subgroups` made for
+# it: every rank asks for the same groups in the same order, so a mesh built
+# again reuses them (``new_group`` is a collective of the whole world).
+_SUBGROUPS: Dict[Tuple[str, Tuple[int, ...]], Any] = {}
 
 
 class Mesh:
@@ -80,12 +103,15 @@ class Mesh:
             each axis is a number of virtual shards; over ranks one axis
             spans them (:attr:`rank_axis`: ``"nodes"``, a multiple of the
             world size, or ``"seq"`` / ``"stage"`` / ``"expert"`` /
-            ``"model"``, the world size) and the others are 1.
+            ``"model"`` / ``"batch"``, the world size) and the others are 1,
+            or a pair of :data:`RANK_PAIRS` spans them together
+            (:attr:`rank_axes`).
         device: where the wrappers put their inputs (``"cuda"`` by default;
             raises when no card is visible, like every entry point). Over
             ranks: this rank's device.
         group: the ``torch.distributed`` process group whose ranks the mesh
-            spans (None: one process, as before).
+            spans (None: one process, as before). A pair of axes spans the
+            whole world.
     """
 
     def __init__(self, axes: Mapping[str, int], device: DeviceLike = "cuda", group: Any = None) -> None:
@@ -100,22 +126,56 @@ class Mesh:
         self.device: torch.device = resolve_device(device)
         self.group = group
         self.rank, self.world = 0, 1
-        #: The axis that spans the ranks (None on one process).
+        #: The axes that span the ranks, in the mesh's order, each with its
+        #: number of ranks (empty on one process).
+        self.rank_shape: Dict[str, int] = {}
+        #: The axis that spans all the ranks (None on one process and where
+        #: a pair spans them).
         self.rank_axis: Optional[str] = None
+        self._coords: Dict[str, int] = {}
+        self._groups: Dict[str, Any] = {}
         if group is not None:
             import torch.distributed as dist
 
             self.rank, self.world = dist.get_rank(group), dist.get_world_size(group)
-            self.rank_axis = self._check_rank_axes()
+            self.rank_shape = self._check_rank_axes()
+            if len(self.rank_shape) == 1:
+                self.rank_axis = next(iter(self.rank_shape))
+            left = self.rank
+            for name in reversed(self.rank_shape):  # row-major: the last axis varies fastest
+                left, self._coords[name] = divmod(left, self.rank_shape[name])
+            self._groups = self._subgroups() if len(self.rank_shape) > 1 else {self.rank_axis: group}
 
-    def _check_rank_axes(self) -> str:
-        """The one axis that spans the ranks; raises for what no PR has
-        taken across ranks yet."""
+    def _check_rank_axes(self) -> Dict[str, int]:
+        """The axes that span the ranks and their rank counts; raises for a
+        layout no PR has taken across ranks."""
         above = {name: size for name, size in self.shape.items() if size > 1}
-        if len(above) > 1 or (above and next(iter(above)) not in RANK_AXES):
-            raise NotImplementedError(
-                f"axes {above} across {self.world} ranks: one of {RANK_AXES} spans the ranks so far, the other "
-                f"axes 1; ROADMAP queue A item {RANK_MESH_2D_ITEM} ports it")
+        unknown = [name for name in above if name not in RANK_AXES]
+        if unknown:
+            raise ValueError(f"axis {unknown[0]!r} cannot span ranks: the axes that do are {RANK_AXES}, got "
+                             f"{self.shape}")
+        if len(above) > 1:
+            pair = next((p for p in RANK_PAIRS if set(p) == set(above)), None)
+            if pair is None:
+                raise NotImplementedError(
+                    f"axes {above} across {self.world} ranks: the pairs {RANK_PAIRS} span the ranks together, no "
+                    f"other; ROADMAP queue A item {RANK_MESH_PAIRS_ITEM}")
+            inner = pair[1]
+            if self.world % above[inner]:
+                raise ValueError(f"a {inner!r} axis of {above[inner]} does not divide {self.world} ranks")
+            outer = self.world // above[inner]  # the ranks along the other axis
+            if pair[0] == "nodes" and above["nodes"] % outer:
+                raise ValueError(f"a 'nodes' axis over {outer} rank rows must be a multiple of {outer}, got "
+                                 f"{self.shape}")
+            if pair[0] != "nodes" and above[pair[0]] != outer:
+                raise ValueError(f"axes {above} hold {above[pair[0]] * above[inner]} ranks, the group has "
+                                 f"{self.world}")
+            if outer > 1:
+                if self.world != dist_world():
+                    raise ValueError(f"a pair of axes spans the whole world: the mesh's group has {self.world} of "
+                                     f"{dist_world()} ranks")
+                return {n: (outer if n == pair[0] else above[inner]) for n in self.shape if n in pair}
+            above = {inner: above[inner]}  # one rank row: the inner axis alone spans the ranks
         over = next(iter(above), None) or next((n for n in RANK_AXES if n in self.shape), None)
         if over is None:
             raise ValueError(f"a mesh over {self.world} ranks needs one of the axes {RANK_AXES}, got {self.shape}")
@@ -126,7 +186,58 @@ class Mesh:
         if over != "nodes" and size != self.world:
             raise ValueError(f"a {over!r} axis over {self.world} ranks holds one shard a rank: its size must be "
                              f"{self.world}, got {self.shape}")
-        return over
+        return {over: self.world}
+
+    def _subgroups(self) -> Dict[str, Any]:
+        """This rank's process group on each ranked axis: the ranks that share
+        its other coordinates, in order along the axis. Every rank creates
+        every axis' groups, in the same order."""
+        import itertools
+        import math
+
+        import torch.distributed as dist
+
+        from p2pfl_tpu_torch.parallel.collectives import label_group
+
+        names = list(self.rank_shape)
+        counts = [self.rank_shape[n] for n in names]
+        strides = [math.prod(counts[i + 1:]) for i in range(len(names))]
+        mine = {}
+        for i, name in enumerate(names):
+            others = [range(c) if j != i else range(1) for j, c in enumerate(counts)]
+            for base in itertools.product(*others):
+                start = sum(b * s for b, s in zip(base, strides))
+                ranks = tuple(dist.get_global_rank(self.group, start + k * strides[i]) for k in range(counts[i]))
+                key = (name, ranks)
+                if key not in _SUBGROUPS:
+                    _SUBGROUPS[key] = dist.new_group(list(ranks))
+                if dist.get_rank() in ranks:
+                    mine[name] = _SUBGROUPS[key]
+                    label_group(mine[name], name)
+        return mine
+
+    @property
+    def rank_axes(self) -> Tuple[str, ...]:
+        """The axes that span the ranks, in the mesh's order (empty on one process)."""
+        return tuple(self.rank_shape)
+
+    def spans(self, name: str) -> bool:
+        """Whether axis ``name`` spans ranks."""
+        return name in self.rank_shape
+
+    def axis_ranks(self, name: str) -> int:
+        """The number of ranks along axis ``name`` (1 where it does not span ranks)."""
+        return self.rank_shape.get(name, 1)
+
+    def axis_rank(self, name: str) -> int:
+        """This rank's coordinate on axis ``name`` (0 where it does not span ranks)."""
+        return self._coords.get(name, 0)
+
+    def axis_process_group(self, name: str) -> Any:
+        """The process group of axis ``name``: the ranks along it that share
+        this rank's other coordinates (the mesh's group where one axis spans
+        them all), or None where the axis does not span ranks."""
+        return self._groups.get(name)
 
     @property
     def axis_names(self) -> tuple:
@@ -134,7 +245,7 @@ class Mesh:
 
     @property
     def ranked(self) -> bool:
-        """Whether an axis (:attr:`rank_axis`) spans the ranks of a process group."""
+        """Whether axes (:attr:`rank_axes`) span the ranks of a process group."""
         return self.group is not None
 
     def process_index(self) -> int:
@@ -147,14 +258,17 @@ class Mesh:
 
     def slab(self, n: int) -> Tuple[int, int]:
         """``[lo, hi)``: this rank's contiguous part of a population of ``n``
-        (a multiple of the world size); ``(0, n)`` on one process."""
-        if self.ranked and self.rank_axis != "nodes":
-            raise ValueError(f"this mesh spans its ranks with {self.rank_axis!r}, not with 'nodes': it holds no "
+        (a multiple of the ranks along ``nodes``), by its ``nodes``
+        coordinate; ``(0, n)`` on one process."""
+        if self.ranked and not self.spans("nodes"):
+            raise ValueError(f"this mesh spans its ranks with {self.rank_axes}, not with 'nodes': it holds no "
                              "slab of a population")
-        if n % self.world:
-            raise ValueError(f"a population of {n} does not split over {self.world} ranks")
-        per = n // self.world
-        return self.rank * per, (self.rank + 1) * per
+        rows = self.axis_ranks("nodes")
+        if n % rows:
+            raise ValueError(f"a population of {n} does not split over {rows} ranks")
+        per = n // rows
+        lo = self.axis_rank("nodes") * per
+        return lo, lo + per
 
     def check_axis(self, name: str) -> int:
         """The size of axis ``name``; raises ``ValueError`` if the mesh has none."""
@@ -173,7 +287,7 @@ class Mesh:
             _BOUND.reset(token)
 
     def __repr__(self) -> str:
-        ranks = f", rank={self.rank}, world={self.world}, over={self.rank_axis!r}" if self.ranked else ""
+        ranks = f", rank={self.rank}, world={self.world}, over={self.rank_shape}" if self.ranked else ""
         return f"Mesh({self.shape}, device={str(self.device)!r}{ranks})"
 
 
@@ -191,18 +305,18 @@ def axis_size(name: str) -> int:
 
 def axis_index(name: str) -> int:
     """This process' position on a bound mesh axis (``jax.lax.axis_index``):
-    its rank on the axis that spans the ranks, 0 on any other (one process
+    its coordinate on an axis that spans ranks, 0 on any other (one process
     holds every virtual shard, from position 0). ``NameError`` outside a
     binding of ``name``."""
-    mesh = _bound(name)
-    return mesh.rank if mesh.rank_axis == name else 0
+    return _bound(name).axis_rank(name)
 
 
 def axis_group(name: str) -> Any:
-    """The process group a bound axis spans, or None where the axis' shards
-    are virtual (one process). ``NameError`` outside a binding of ``name``."""
-    mesh = _bound(name)
-    return mesh.group if mesh.rank_axis == name else None
+    """The process group of a bound axis (:meth:`Mesh.axis_process_group`:
+    on a pair of ranked axes, the sub-group along ``name``), or None where
+    the axis' shards are virtual (one process). ``NameError`` outside a
+    binding of ``name``."""
+    return _bound(name).axis_process_group(name)
 
 
 class PartitionSpec(tuple):
@@ -233,6 +347,13 @@ def _joined() -> bool:
     import torch.distributed as dist
 
     return dist.is_available() and dist.is_initialized()
+
+
+def dist_world() -> int:
+    """The size of the joined world (1 when none is joined)."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if _joined() else 1
 
 
 def make_mesh(
@@ -397,7 +518,11 @@ def shutdown_multihost() -> None:
     if _joined():
         import torch.distributed as dist
 
+        from p2pfl_tpu_torch.parallel import collectives
+
         dist.destroy_process_group()
+        collectives._LABELS.clear()
+    _SUBGROUPS.clear()
     JOINED = None
 
 

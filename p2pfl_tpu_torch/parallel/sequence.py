@@ -26,9 +26,14 @@ the next token (across shard boundaries), the global last position is
 masked, and the mean is over ``B * (S - 1)`` tokens.
 
 A ``batch_axis`` is validated (the mesh must have it and the batch must
-divide by its size) and otherwise collapses: the batch is not split. A
-batch axis over ranks is a 2-D rank mesh, which the mesh refuses (ROADMAP
-queue A item A8).
+divide by its size). Where it spans ranks too (``make_mesh((Nb, Ns),
+("batch", "seq"))``, or a ranked ``batch`` axis beside a virtual
+``seq``), each rank holds ``[B / Nb, S / Ns]`` tokens: the ring and the
+shifted targets run in the ``seq`` axis' sub-group, the loss sums its sum
+and count over ``seq`` and then over ``batch`` (as the JAX package's
+``psum`` over both axes), and the train step sums the gradients over the
+whole world, every rank holding the parameters whole (``P()``). On one
+process the batch axis collapses: the batch is not split.
 """
 
 from __future__ import annotations
@@ -46,21 +51,17 @@ from p2pfl_tpu_torch.parallel.mesh import Mesh
 Params = dict
 
 
-def _seq_group(mesh: Mesh, seq_axis: str):
-    """The process group ``seq_axis`` spans, or None for virtual shards."""
-    return mesh.group if mesh.rank_axis == seq_axis else None
-
-
 def _check_tokens(tokens: torch.Tensor, mesh: Mesh, seq_axis: str, batch_axis: Optional[str],
                   local: bool = True) -> None:
     """``local``: over ranks the tokens are this rank's shard, whose length
-    need not divide by the axis."""
+    (and, over batch ranks, batch) need not divide by the axis."""
     if tokens.dim() != 2:
         raise ValueError(f"tokens must be [B, S], got shape {tuple(tokens.shape)}")
     n = mesh.check_axis(seq_axis)
-    if not (local and _seq_group(mesh, seq_axis) is not None) and tokens.shape[1] % n:
+    if not (local and mesh.spans(seq_axis)) and tokens.shape[1] % n:
         raise ValueError(f"sequence length {tokens.shape[1]} does not divide by the {seq_axis!r} axis size {n}")
-    if batch_axis is not None and tokens.shape[0] % mesh.check_axis(batch_axis):
+    if (batch_axis is not None and not (local and mesh.spans(batch_axis))
+            and tokens.shape[0] % mesh.check_axis(batch_axis)):
         raise ValueError(
             f"batch {tokens.shape[0]} does not divide by the {batch_axis!r} axis size "
             f"{mesh.shape[batch_axis]}"
@@ -122,12 +123,13 @@ def sequence_parallel_lm_loss(
     On one process that is ``tokens`` shifted by one, the last position's
     wrapped target masked."""
     apply = sequence_parallel_apply(model_apply, mesh, seq_axis, batch_axis)
-    group = _seq_group(mesh, seq_axis)
+    group = mesh.axis_process_group(seq_axis)
+    batch_group = mesh.axis_process_group(batch_axis)
 
     def loss_fn(params: Params, tokens: torch.Tensor) -> torch.Tensor:
         logits = apply(params, tokens)  # [B, S, V] (over ranks: this rank's S / W)
         b, s = tokens.shape
-        n, idx = (mesh.world, mesh.rank) if group is not None else (1, 0)
+        n, idx = (mesh.axis_ranks(seq_axis), mesh.axis_rank(seq_axis)) if group is not None else (1, 0)
         if group is not None:
             first_of_next = collectives.ppermute(tokens[:, :1].contiguous(), [(i, (i - 1) % n) for i in range(n)],
                                                  group)
@@ -138,9 +140,12 @@ def sequence_parallel_lm_loss(
         nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
         pos = idx * s + torch.arange(s, device=nll.device)
         mask = (pos < n * s - 1).float()[None, :]
-        if group is None:
+        if group is None and batch_group is None:
             return (nll * mask).sum() / max(float(b * (s - 1)), 1.0)
-        total = collectives.psum(torch.stack([(nll * mask).sum(), b * mask.sum()]), group)
+        total = torch.stack([(nll * mask).sum(), b * mask.sum()])
+        for g in (group, batch_group):  # over seq, then over batch
+            if g is not None:
+                total = collectives.psum(total, g)
         return total[0] / torch.clamp(total[1], min=1.0)
 
     return loss_fn
@@ -157,11 +162,15 @@ def make_sequence_parallel_train_step(
     optax's ``init`` / ``update(grads, state, params)``, e.g.
     :func:`p2pfl_tpu_torch.optim.adam`. Over ranks ``tokens`` is this rank's
     shard; the first call broadcasts rank 0's ``params``, and every step
-    sums the gradients over the ranks (each rank holds its shard's part)
-    before ``optimizer.update``, so every rank takes the same step.
+    sums the gradients over every rank of the mesh (each holds its shard's
+    part; over ``batch`` x ``seq`` both axes') before ``optimizer.update``,
+    so every rank takes the same step.
     """
     loss_fn = sequence_parallel_lm_loss(model_apply, mesh, seq_axis, batch_axis)
-    group = _seq_group(mesh, seq_axis)
+    other = [a for a in mesh.rank_axes if a not in (seq_axis, batch_axis)]
+    if other:  # its rows would hold the same gradients, summed twice over the world
+        raise ValueError(f"the mesh spans the ranks along {other}: pass it as batch_axis, or use a mesh without it")
+    group = mesh.group if mesh.rank_axes else None
     synced = group is None  # whether the ranks hold the same parameters yet
 
     def step(params: Params, opt_state, tokens: torch.Tensor) -> Tuple[Params, object, torch.Tensor]:
@@ -192,13 +201,17 @@ def _sum_over_ranks(grads: Params, group) -> Params:
 def shard_tokens(tokens, mesh: Mesh, seq_axis: str = "seq", batch_axis: Optional[str] = None) -> torch.Tensor:
     """Place a ``[B, S]`` token batch (numpy or torch) on the mesh's device,
     checking that S divides by the ``seq_axis`` size (and B by the
-    ``batch_axis`` size). Over ranks each rank keeps its ``[B, S / W]``
-    slice, rank ``r`` positions ``[r * S / W, (r + 1) * S / W)``."""
+    ``batch_axis`` size). Over ranks each rank keeps its ``[B / Nb, S /
+    Ns]`` slice: at ``seq`` coordinate ``j`` positions ``[j * S / Ns, (j +
+    1) * S / Ns)``, at ``batch`` coordinate ``i`` rows ``[i * B / Nb, (i +
+    1) * B / Nb)`` (``Nb`` 1 unless ``batch_axis`` spans ranks)."""
     t = tokens if isinstance(tokens, torch.Tensor) else torch.as_tensor(np.asarray(tokens))
     if t.dtype.is_floating_point or t.dtype == torch.bool:
         raise ValueError(f"tokens must be integers, got {t.dtype}")
     _check_axes(mesh, seq_axis, batch_axis)
     _check_tokens(t, mesh, seq_axis, batch_axis, local=False)
-    if _seq_group(mesh, seq_axis) is not None:
-        t = t.chunk(mesh.world, dim=1)[mesh.rank].contiguous()
-    return t.to(mesh.device)
+    if mesh.spans(batch_axis):
+        t = t.chunk(mesh.axis_ranks(batch_axis), dim=0)[mesh.axis_rank(batch_axis)]
+    if mesh.spans(seq_axis):
+        t = t.chunk(mesh.axis_ranks(seq_axis), dim=1)[mesh.axis_rank(seq_axis)]
+    return t.contiguous().to(mesh.device)

@@ -36,6 +36,14 @@ a checkpoint is sharded: each rank writes its own slab (or, over model
 ranks, its slices) and rank 0 the replicated leaves and the commit
 (:meth:`MeshSimulation.save_to`), and a step restores at any world size.
 
+Over ``nodes`` x ``model`` ranks (``make_mesh((N, M), ("nodes", "model"))``,
+the layout of the JAX package's ``stacked_spec`` on a 2-D mesh) both hold:
+rank ``(i, j)`` keeps slab i with every split leaf cut to slice j, trains
+the members of its slab with the ``model`` axis' sub-group, and the member
+gather runs along ``nodes`` (each rank receives its slice of the K
+members); the seed broadcast, the devobs flag and the test values span the
+world, and ``final_model`` / ``state_dict`` gather along both axes.
+
 Over model ranks (``make_mesh((1, W), ("nodes", "model"))``, the JAX
 package's tensor-parallel layout) every rank holds the whole population, each
 kernel cut to its slice of the output dimension (``stacked_spec``'s rule,
@@ -340,8 +348,9 @@ class MeshSimulation:
             axis size is the default ``pad_to_multiple``. Over a rank mesh
             each rank keeps its slab of the population (``"nodes"`` spans
             the ranks) or its slice of every split kernel (``"model"``
-            does), and the calls that gather (``run``, ``final_model``,
-            ``state_dict``) are collective: every rank makes them.
+            does) or both (``make_mesh((N, M), ("nodes", "model"))``), and
+            the calls that gather (``run``, ``final_model``, ``state_dict``,
+            ``round_cost_analysis``) are collective: every rank makes them.
         aggregate_fn: ``(stacked, weights) -> params``; default FedAvg.
         per_node_init: perturb each node's start by 0.01 N(0, 1).
         task: ``"classification"`` (labels in ``y``) or ``"lm"`` (``x`` holds
@@ -464,14 +473,14 @@ class MeshSimulation:
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a p2pfl_tpu_torch Mesh, got {type(mesh).__name__}")
         self._ranked = mesh is not None and mesh.ranked
-        if self._ranked and mesh.rank_axis not in ("nodes", MODEL_AXIS):
-            raise ValueError(f"a MeshSimulation over ranks needs the 'nodes' or the 'model' axis to span them, got "
-                             f"{mesh!r}")
+        if self._ranked and not set(mesh.rank_axes) <= {"nodes", MODEL_AXIS}:
+            raise ValueError(f"a MeshSimulation over ranks needs the 'nodes' or the 'model' axis (or both) to span "
+                             f"them, got {mesh!r}")
         self._rank, self._world = (mesh.rank, mesh.world) if self._ranked else (0, 1)
         # Over model ranks: which leaves this rank holds a slice of (None otherwise).
         self._split = (ModelSplit({k: v.shape for k, v in model.params.items()}, mesh)
-                       if self._ranked and mesh.rank_axis == MODEL_AXIS else None)
-        self._nodes_ranked = self._ranked and self._split is None
+                       if self._ranked and mesh.spans(MODEL_AXIS) else None)
+        self._nodes_ranked = self._ranked and mesh.spans("nodes")
         if self._split is not None and any(".moe." in k for k in self._split.dims):
             raise NotImplementedError(
                 "the MoE LM in a population over model ranks (its experts split on their feature dimensions) is not "
@@ -812,7 +821,7 @@ class MeshSimulation:
                 shapes.update({f"dc/{k}": (v.shape[1:], v.dtype) for k, v in self.c_stack.items()})
             local = {k: torch.empty((0, *shape), dtype=dt, device=self.device) for k, (shape, dt) in shapes.items()}
         stack, self._round_members = collectives.gather_ordered(local, [node // per for node in comm],
-                                                                group=self.mesh.group)
+                                                                group=self.mesh.axis_process_group("nodes"))
         return stack
 
     def _devobs_aux(self, un_sq, agg, member_losses, weights, members: int) -> torch.Tensor:
@@ -1132,12 +1141,10 @@ class MeshSimulation:
             raise RuntimeError("simulation closed — extract the model before close()")
         if self.params_stack is None:
             raise RuntimeError("population state lost in a failed chunk; load_from(checkpointer) to restore")
-        if self._split is not None:
-            return ModelHandle(self._split.gather({k: v[node] for k, v in self.params_stack.items()}),
-                               self.model.module)
         if not self._ranked:
             return ModelHandle({k: v[node].clone() for k, v in self.params_stack.items()}, self.model.module)
-        return ModelHandle(gather_node(self.params_stack, node, self.mesh, self.num_nodes), self.model.module)
+        row = gather_node(self.params_stack, node, self.mesh, self.num_nodes)
+        return ModelHandle(self._split.gather(row) if self._split is not None else row, self.model.module)
 
     def state_dict(self) -> Dict[str, Any]:
         """The population state: stacked params and optimizer state, plus
@@ -1150,10 +1157,9 @@ class MeshSimulation:
 
         stacks = self.shard_state()
         c_global = stacks.pop("c_global", None)
+        state = gather_population(stacks, self.mesh) if self._nodes_ranked and self._world > 1 else stacks
         if self._split is not None:
-            state = self._split.gather(stacks, lead=1)
-        else:
-            state = gather_population(stacks, self.mesh) if self._world > 1 else stacks
+            state = self._split.gather(state, lead=1)
         if c_global is not None:
             state["c_global"] = c_global if self._split is None else self._split.gather(c_global)
         return state
@@ -1177,7 +1183,8 @@ class MeshSimulation:
         (:class:`~p2pfl_tpu_torch.population.sharding.StateShards`): over
         ``nodes`` ranks the stacks' leading axis, ``c_global`` whole; over
         ``model`` ranks every split leaf on its output dimension (after the
-        stacks' node axis). None on one process."""
+        stacks' node axis); over both, a stacked leaf is a box, its slab
+        times its slice. None on one process."""
         from p2pfl_tpu_torch.population.sharding import population_shards
 
         if not self._ranked:
@@ -1360,13 +1367,18 @@ class MeshSimulation:
         ``run``'s trajectory are unchanged; the card's launch counters do
         count the call's kernels. ``devobs`` (default
         ``Settings.DEVOBS_ENABLED``) counts the device-observatory aux too.
-        Returns ``None`` when the count fails. Over more than one rank it
-        raises ``NotImplementedError`` (ROADMAP queue A item A7)."""
+        Returns ``None`` when the count fails.
+
+        Over ranks each rank counts its own share, as the JAX package's
+        ``cost_analysis()[0]`` is one device's program: the members it
+        trains (none for a member another slab holds), its slice of every
+        split kernel's products (1 / M of them over ``model`` ranks), and in
+        full what it runs whole (attention on gathered activations, the
+        aggregation of the gathered members, the eval); the bytes include
+        the buffers its exchanges move. Every rank calls it: the rounds run
+        their collectives."""
         if self._closed or self.params_stack is None:
             raise RuntimeError("simulation has no live population state")
-        if self._world > 1:
-            raise NotImplementedError("the cost analysis of a round over ranks is not ported yet (ROADMAP queue A "
-                                      "item A7: dryrun_multichip and the round's counts over real ranks)")
         from p2pfl_tpu_torch.ops.cost import count_cost_of
 
         devobs = bool(Settings.DEVOBS_ENABLED) if devobs is None else bool(devobs)

@@ -1,6 +1,8 @@
 """Tensor parallelism over the ``model`` axis of a rank mesh: the layout the
 JAX package's ``MeshSimulation`` takes on a ``("nodes", "model")`` mesh,
-where XLA partitions every kernel on its output dimension.
+where XLA partitions every kernel on its output dimension. Over a ``nodes``
+x ``model`` rank mesh every exchange here runs in the ``model`` axis'
+sub-group: the ranks of one population slab.
 
 The rule is ``stacked_spec``'s (``p2pfl_tpu/parallel/simulation.py``): a
 leaf of two or more dimensions whose output dimension (flax's last) divides
@@ -137,14 +139,18 @@ class ModelSplit:
 
     Args:
         shapes: the whole model's leaf shapes, ``{name: shape}``.
-        mesh: a rank mesh whose ``model`` axis spans the ranks.
+        mesh: a rank mesh whose ``model`` axis spans ranks: alone, or beside
+            ``nodes`` (``make_mesh((N, M), ("nodes", "model"))``), where the
+            split binds the ``model`` axis' sub-group and this rank's
+            ``model`` coordinate, and its gathers and sums stay inside it.
     """
 
     def __init__(self, shapes: Mapping[str, Sequence[int]], mesh: Mesh) -> None:
-        if mesh.rank_axis != MODEL_AXIS:
+        if not mesh.spans(MODEL_AXIS):
             raise ValueError(f"a model split needs a mesh whose {MODEL_AXIS!r} axis spans the ranks, got {mesh!r}")
         self.mesh = mesh
-        self.group, self.rank, self.world = mesh.group, mesh.rank, mesh.world
+        self.group = mesh.axis_process_group(MODEL_AXIS)
+        self.rank, self.world = mesh.axis_rank(MODEL_AXIS), mesh.axis_ranks(MODEL_AXIS)
         self.shapes = {k: tuple(v) for k, v in shapes.items()}
         #: ``{name: torch dimension}`` of the split leaves.
         self.dims = split_dims(self.shapes, self.world)
@@ -175,12 +181,17 @@ class ModelSplit:
         state held under this split: every split leaf under top-level key
         ``k`` of ``state`` (parameters, or an optimizer state keyed by the
         parameters' names) is this rank's slice of its split dimension,
-        after ``lead[k]`` stacked dimensions; every other leaf is whole."""
+        after ``lead[k]`` stacked dimensions; every other leaf is whole on
+        the ``model`` axis. Where ``nodes`` spans ranks too, a stacked leaf
+        (``lead[k]`` 1) is also this rank's slab of its leading axis."""
         from p2pfl_tpu_torch.population.sharding import StateShards
 
         def spec(name: str, lead_dims: int) -> PartitionSpec:
+            axes = [None] * lead_dims
+            if lead_dims and self.mesh.spans("nodes"):
+                axes[0] = "nodes"
             d = self.dims.get(name)
-            return PartitionSpec() if d is None else PartitionSpec(*([None] * (d + lead_dims)), MODEL_AXIS)
+            return PartitionSpec(*axes) if d is None else PartitionSpec(*axes, *([None] * d), MODEL_AXIS)
 
         return StateShards(self.mesh, {k: _specs_named(v, lambda name, t, n=lead[k]: spec(name, n))
                                        for k, v in state.items()})

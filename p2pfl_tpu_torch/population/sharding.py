@@ -132,8 +132,9 @@ def population_partition_rules(model_parallel: bool = False) -> List[Tuple[str, 
 
 
 def _over_ranks(spec: PS, mesh: Mesh) -> bool:
-    """Whether a leaf of ``spec`` is split over the ranks of ``mesh``."""
-    return mesh.rank_axis == "nodes" and len(spec) > 0 and spec[0] == "nodes"
+    """Whether a leaf of ``spec`` is a population split over the ranks of
+    ``mesh``'s ``nodes`` axis."""
+    return mesh.spans("nodes") and len(spec) > 0 and spec[0] == "nodes"
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -187,31 +188,33 @@ def _rebuild(tree: Any, leaves: List[torch.Tensor]) -> Any:
 
 def gather_population(tree: Any, mesh: Mesh) -> Any:
     """The full ``[N, ...]`` of every tensor leaf of ``tree`` (each this rank's
-    ``[N / W, ...]`` slab) on this rank's device, in one collective; the
-    tree itself on one process. Every rank calls it."""
+    ``[N / W, ...]`` slab) on this rank's device, in one collective over the
+    ``nodes`` axis' ranks (its sub-group where ``model`` spans ranks too); the
+    tree itself where ``nodes`` spans none. Every rank calls it."""
     from p2pfl_tpu_torch.parallel import collectives
 
     leaves = _leaves(tree)
-    if mesh.rank_axis != "nodes" or not leaves:
+    if not mesh.spans("nodes") or not leaves:
         return tree
-    got = collectives.all_gather({str(i): t for i, t in enumerate(leaves)}, [leaves[0].shape[0]] * mesh.world,
-                                 group=mesh.group)
+    got = collectives.all_gather({str(i): t for i, t in enumerate(leaves)},
+                                 [leaves[0].shape[0]] * mesh.axis_ranks("nodes"),
+                                 group=mesh.axis_process_group("nodes"))
     return _rebuild(tree, [got[str(i)] for i in range(len(leaves))])
 
 
 def gather_node(tree: Any, node: int, mesh: Mesh, n: int) -> Any:
     """Node ``node``'s row of every tensor leaf of ``tree`` (this rank's slab
     of a population of ``n``) on every rank, broadcast from the rank that
-    holds it. Every rank calls it."""
+    holds it along the ``nodes`` axis. Every rank calls it."""
     from p2pfl_tpu_torch.parallel import collectives
 
-    lo, hi = mesh.slab(n)
-    if mesh.rank_axis != "nodes":
+    if not mesh.spans("nodes"):
         return _tree_map(lambda leaf: leaf[node] if isinstance(leaf, torch.Tensor) else leaf, tree)
+    lo, hi = mesh.slab(n)
     per = hi - lo
     leaves = _leaves(tree)
     mine = {str(i): t[node - lo] if lo <= node < hi else t[0] for i, t in enumerate(leaves)}
-    got = collectives.broadcast_tree(mine, src=node // per, group=mesh.group)
+    got = collectives.broadcast_tree(mine, src=node // per, group=mesh.axis_process_group("nodes"))
     return _rebuild(tree, [got[str(i)] for i in range(len(leaves))])
 
 
@@ -220,22 +223,25 @@ def gather_node(tree: Any, node: int, mesh: Mesh, n: int) -> Any:
 
 @dataclasses.dataclass(frozen=True)
 class StateShards:
-    """How this rank holds a state tree over the ranks of ``mesh``.
+    """How this rank holds a state tree over the ranks of ``mesh``: each
+    leaf a box of the whole leaf.
 
     ``specs`` is a tree of :class:`PartitionSpec` of the state tree's
-    structure. A leaf whose spec names the mesh's rank axis at position
-    ``d`` is split on dimension ``d`` into W equal contiguous parts, rank r
-    holding the r-th (:func:`part_range`): the ``nodes`` axis' slabs of a
-    stacked population, or ``ModelSplit``'s slices of a kernel. Every other
-    leaf is whole on every rank (the replicated leaves)."""
+    structure. A leaf whose spec names a ranked axis of the mesh at position
+    ``d`` is split on dimension ``d`` into as many equal contiguous parts as
+    the axis has ranks, the rank at coordinate c on that axis holding the
+    c-th (:func:`part_range`): the ``nodes`` axis' slabs of a stacked
+    population, ``ModelSplit``'s slices of a kernel, or both (a slab on
+    ``nodes`` times a slice on ``model``). A leaf is whole along every
+    ranked axis its spec does not name (replicated there)."""
 
     mesh: Mesh
     specs: Any
 
-    def split_dim(self, spec: PS) -> Optional[int]:
-        """The dimension a leaf of ``spec`` is split on over the ranks, or None."""
-        axis = self.mesh.rank_axis
-        return list(spec).index(axis) if axis is not None and axis in tuple(spec) else None
+    def split_dims(self, spec: PS) -> List[Tuple[int, str]]:
+        """``[(dimension, axis), ...]``: where a leaf of ``spec`` is split over
+        the ranks (empty for a leaf whole on every rank)."""
+        return [(d, axis) for d, axis in enumerate(tuple(spec)) if axis is not None and self.mesh.spans(axis)]
 
 
 def part_range(whole: int, part: int, parts: int) -> Tuple[int, int]:

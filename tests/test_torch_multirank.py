@@ -174,20 +174,21 @@ def test_collectives_gather_uneven_rows_of_every_dtype_in_rank_order_and_shard_p
 
 
 def test_what_a_rank_mesh_does_not_run_yet_raises_naming_its_roadmap_item(worlds):
-    """A ``seq``, ``stage``, ``expert`` or ``model`` axis alone over the ranks
-    builds (ported), and so do the MoE LM over a ranked seq axis, both
-    population engines and a population's sharded checkpoint (save, load,
-    ``run(checkpointer=)``, over nodes and over model ranks); two axes above
-    1 (``nodes`` x ``model``, ``seq`` x ``expert`` among them), or a batch
-    axis, over the ranks raise naming A8, the cost analysis A7, and the MoE
-    LM in a population over model ranks A9."""
-    items = {"model": "A8", "expert": "A8", "nodes_seq": "A8", "nodes_stage": "A8", "batch_seq": "A8",
-             "batch": "A8", "round_cost_analysis": "A7", "model_round_cost_analysis": "A7", "moe_model": "A9"}
+    """A ``seq``, ``stage``, ``expert``, ``model`` or ``batch`` axis alone over
+    the ranks builds (ported), and so do the pairs the JAX package runs
+    (``nodes`` x ``model``, ``batch`` x ``seq``), the MoE LM over a ranked
+    seq axis, both population engines, a population's sharded checkpoint
+    (save, load, ``run(checkpointer=)``, over nodes and over model ranks)
+    and the cost analysis over nodes and over model ranks; the other pairs
+    (``nodes`` x ``seq``, ``nodes`` x ``stage``, ``seq`` x ``expert``) raise
+    naming A12, and the MoE LM in a population over model ranks A9."""
+    items = {"expert": "A12", "nodes_seq": "A12", "nodes_stage": "A12", "moe_model": "A9"}
     for world in WORLDS:
         for got in worlds[world]:
             for key, item in items.items():
                 msg = got["refusals"][key]
                 assert msg is not None and f"ROADMAP queue A item {item}" in msg, (world, key, msg)
-            for key in ("seq", "stage", "expert_ranks", "model_ranks", "moe_seq", "population_engine", "async_engine",
-                        "save_to", "load_from", "run_checkpointer", "model_save_to"):
+            for key in ("model", "batch_seq", "batch", "seq", "stage", "expert_ranks", "model_ranks", "moe_seq",
+                        "population_engine", "async_engine", "save_to", "load_from", "run_checkpointer",
+                        "round_cost_analysis", "model_save_to", "model_round_cost_analysis"):
                 assert got["refusals"][key] is None, (key, got["refusals"])

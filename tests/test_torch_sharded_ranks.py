@@ -424,12 +424,16 @@ def test_async_checkpoint_resume_over_ranks_replays_window_stream(world, runs):
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_what_ranks_do_not_run_yet_raises_naming_its_roadmap_item(world, runs):
-    items = {"supervisor": "A10", "engine_model": "A11", "async_engine_model": "A11", "round_cost_analysis": "A7",
-             "nodes_model": "A8", "moe_model": "A9"}
+    """The supervisor over ranks (A10), the engines over model ranks (A11)
+    and the MoE LM in a population over model ranks (A9) raise; the cost
+    analysis over ranks and a ``nodes`` x ``model`` rank mesh run."""
+    items = {"supervisor": "A10", "engine_model": "A11", "async_engine_model": "A11", "moe_model": "A9"}
     for got in runs["main"][world]:
         for key, item in items.items():
             msg = got["refusals"][key]
             assert msg is not None and f"ROADMAP queue A item {item}" in msg, (world, key, msg)
+        for key in ("round_cost_analysis", "nodes_model"):
+            assert got["refusals"][key] is None, (world, key, got["refusals"][key])
 
 
 def test_recut_assembles_any_part_from_the_saved_parts():

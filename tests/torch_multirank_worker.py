@@ -155,7 +155,7 @@ def _refusals(mesh, init: dict) -> dict:
 
     for axes, key in (({"nodes": world, "model": 2}, "model"), ({"seq": world, "expert": 2}, "expert"),
                       ({"nodes": world, "seq": 2}, "nodes_seq"), ({"nodes": world, "stage": 2}, "nodes_stage"),
-                      ({"batch": 2, "seq": world}, "batch_seq"), ({"batch": world}, "batch"),
+                      ({"batch": 2, "seq": world // 2}, "batch_seq"), ({"batch": world}, "batch"),
                       ({"seq": world}, "seq"), ({"stage": world, "model": 1}, "stage"),
                       ({"expert": world}, "expert_ranks"), ({"nodes": 1, "model": world}, "model_ranks")):
         note(key, lambda axes=axes: Mesh(axes, device="cpu", group=mesh.group))

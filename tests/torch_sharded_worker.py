@@ -16,7 +16,9 @@ device="cpu")`` and runs one of three modes:
   initial states from ``<dir>/sync_init.pt`` / ``<dir>/async_init_<case>.pt``);
   the collective bytes around ``save_to`` / ``load_from``; a newest step with
   rank 1's shard corrupted; a second checkpointer opened during rank 0's
-  save, and one opened by rank 0 before its writer has run; and the refusals (A7 to A11);
+  save, and one opened by rank 0 before its writer has run; and the
+  refusals (A9 to A11), and what now runs (the cost analysis over ranks,
+  a ``nodes`` x ``model`` rank mesh);
 * ``cross``: the LM arms resumed at this W from the other world's step 2
   (``<dir>/lm_<arm>_w<W'>``), and the torn root restored;
 * ``torn`` (W = 2): an MLP population saves step 1, then rank 1 ``os._exit``s
